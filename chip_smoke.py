@@ -1,0 +1,867 @@
+#!/usr/bin/env python3
+"""Smoke run of umgap_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase, one card
+
+Builds the CUDA kernels from ``umgap_tpu_torch/csrc``, holds each kernel
+to its plain PyTorch version on the card, drives the port's main path
+(the 9-mer ``analyse`` presets through ``Analyser`` over the tracked
+``.bench_data`` workload: 32,768 read pairs of 100 bp, a 2 M-key index,
+20 k taxa), runs a 4.3 GB card-resident bucket64s index, and runs the
+``analyse`` command line in a subprocess. Every phase always runs; the
+script takes no arguments. Every comparison is exact (all outputs are
+integer ids, masks and counts). Each path's launch counts are reset
+before it is driven and must all be above 0 after. End-to-end rates are
+steady-state windows of a few seconds over one stream. Any failure
+exits non-zero; nothing falls back to the CPU.
+
+Output: progress on stderr; on stdout the card's name and power limit,
+one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+The full record of the run goes to ``chip_smoke.json`` in the directory
+named by ``CHIP_SMOKE_OUT`` (default ``.smoke_out/``, git-ignored).
+Imports torch and numpy only (no JAX).
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+DATA = os.path.join(REPO, ".bench_data")
+OUT_DIR = os.path.join(REPO,
+                       os.environ.get("CHIP_SMOKE_OUT", ".smoke_out"))
+TMP_DIR = os.path.join(REPO, ".smoke_tmp")
+BATCH = 16384
+# seconds of each steady-state end-to-end window
+STEADY_S = 4.0
+T0 = time.perf_counter()
+
+# NVIDIA H100 SXM data-sheet rates: HBM bandwidth and the 32-bit rate
+# outside the tensor cores, used for every bound.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+
+RESULT: dict = {"phases": {}}
+
+# sha256 of the int32 taxa that umgap_tpu, the JAX package (on the CPU),
+# gives for the first 1,024 .bench_data pairs under each preset;
+# tests/test_torch_pipeline.py recomputes them with umgap_tpu. The card's
+# main-path output is held to them.
+REFERENCE_PAIRS = 1024
+REFERENCE_DIGESTS = {
+    "max-sensitivity":
+        "fecdd843c287302751db39dd2a60cc0243d93bf42826e910c9f027b6ffcffe5e",
+    "high-sensitivity":
+        "c6e4f3fd2b445ff42130bfb24626febbc861d6a227ef910fdcc2b9b3966fabe9",
+    "high-precision":
+        "8339e66be8a73eb0194123e7979dec6d4a96f6715a7a2851210e5a08f2b81a82",
+    "max-precision":
+        "4642c39fde62371e39c644be2a7dc2f925d4d37c94088d15e28f71cd444f50a1",
+}
+
+
+def taxa_digest(taxa) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.asarray(taxa, np.int32).tobytes()).hexdigest()
+
+
+def log(msg):
+    print(f"[smoke +{time.perf_counter() - T0:7.1f}s] {msg}", file=sys.stderr,
+          flush=True)
+
+
+def require(cond, msg):
+    if not cond:
+        raise SystemExit(f"FAIL: {msg}")
+
+
+def bound(bytes_, ops):
+    tb, to = bytes_ / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device visible; chip_smoke.py runs only on a "
+              "GPU", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "umgap_tpu_torch")) or \
+            not os.path.isdir(DATA):
+        print("FAIL: umgap_tpu_torch/ or .bench_data/ missing next to "
+              "chip_smoke.py", file=sys.stderr)
+        return 2
+    if len(sys.argv) > 1:
+        print("FAIL: chip_smoke.py takes no arguments; it always runs "
+              "every phase", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    shutil.rmtree(TMP_DIR, ignore_errors=True)
+    os.makedirs(TMP_DIR)
+    try:
+        card = phase_identify(torch)
+        world = load_world(torch)
+        stats = phase_kernels(torch, world)
+        launches = phase_main(torch, world)
+        phase_resident(torch, world)
+        phase_cli(torch, world)
+    finally:
+        shutil.rmtree(TMP_DIR, ignore_errors=True)
+        with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+            json.dump(RESULT, f, indent=1, default=str)
+
+    # every number below was measured in this run: the phases above
+    # raise before this point if any of them did not run to its end
+    kern = []
+    from umgap_tpu_torch import kernels
+    for k in kernels.KERNELS:
+        s = stats[k.name]
+        kern.append({
+            "name": k.name, "route": "cuda",
+            "source": f"umgap_tpu_torch/csrc/{k.source}",
+            "replaces": k.replaces, "launches": launches[k.name],
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+            "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"], "library_ms": None,
+            "equal": s["equal"]})
+    print(card)
+    print(json.dumps({"kernels": kern}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+# ---------------------------------------------------------------------- #
+# Phase 1: identify the card, build the kernels
+# ---------------------------------------------------------------------- #
+
+def phase_identify(torch):
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    from umgap_tpu_torch import kernels
+
+    info = kernels.build_all(force=True)
+    regs = {}
+    for name, text in info["logs"].items():
+        regs[name] = [ln.strip() for ln in text.splitlines()
+                      if "registers" in ln or "spill" in ln]
+    RESULT["card"] = card
+    RESULT["torch"] = torch.__version__
+    RESULT["cuda"] = torch.version.cuda
+    RESULT["build_seconds"] = info["seconds"]
+    RESULT["ptxas"] = regs
+    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"kernels built in {info['seconds']:.1f}s")
+    for name, lines in regs.items():
+        for ln in lines:
+            log(f"  {name}: {ln}")
+    return card
+
+
+# ---------------------------------------------------------------------- #
+# The .bench_data workload
+# ---------------------------------------------------------------------- #
+
+def load_world(torch):
+    from umgap_tpu_torch import ranks
+    from umgap_tpu_torch.agg.device import DeviceTaxonomy
+    from umgap_tpu_torch.index.table import build_kmer_table
+    from umgap_tpu_torch.ops.lookup import DeviceTable
+    from umgap_tpu_torch.taxonomy import Taxon, Taxonomy
+
+    with open(os.path.join(DATA, "manifest.json")) as f:
+        man = json.load(f)
+    P, L, n_tax = man["n_pairs"], man["read_len"], man["n_tax"]
+    parent = np.fromfile(os.path.join(DATA, "parent.bin"), np.int32)
+    snap = np.fromfile(os.path.join(DATA, "snap.bin"), np.int32)
+    taxa = [Taxon(i, f"t{i}", ranks.NO_RANK if i % 3 else 14,
+                  int(parent[i]), bool(snap[i] == i))
+            for i in range(1, n_tax + 1)]
+    tax = Taxonomy(taxa)
+    keys = np.fromfile(os.path.join(DATA, "index_keys.bin"), np.uint64)
+    vals = np.fromfile(os.path.join(DATA, "index_vals.bin"), np.int32)
+    t0 = time.perf_counter()
+    table = build_kmer_table(keys, vals, k=9)
+    build_s = time.perf_counter() - t0
+    reads = np.fromfile(os.path.join(DATA, "reads.bin"),
+                        np.uint8).reshape(P, 2, L)
+    dev = torch.device("cuda", 0)
+    world = dict(tax=tax, table=table, keys=keys, vals=vals, reads=reads,
+                 L=L, P=P, parent=parent, snap=snap, n_tax=n_tax, dev=dev,
+                 dtax=DeviceTaxonomy.from_host(tax, dev),
+                 dtable=DeviceTable.from_host(table, dev))
+    RESULT["workload"] = dict(pairs=P, read_len=L, taxa=n_tax,
+                              keys=len(keys), layout="bucket8s",
+                              table_rows_bytes=int(table.capacity * 8),
+                              stash=int(len(table.stash_hi)),
+                              host_build_s=build_s)
+    log(f"workload: {P} pairs x {L} bp, {len(keys)} keys -> bucket8s "
+        f"{table.capacity * 8 / 1e6:.1f} MB rows, stash "
+        f"{len(table.stash_hi)}, host build {build_s:.1f}s")
+    return world
+
+
+# ---------------------------------------------------------------------- #
+# Phase 2: each kernel against its plain version on the card
+# ---------------------------------------------------------------------- #
+
+def cuda_ms(torch, fn, reps=20):
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def compare(torch, what, got, want):
+    """Exact equality of tuples of integer/bool tensors; returns the max
+    absolute difference (0.0 when equal)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"{what}: {tuple(g.shape)} {g.dtype} vs "
+                f"{tuple(w.shape)} {w.dtype}")
+        if g.numel():
+            err = max(err, float((g.double() - w.double()).abs().max()))
+    require(err == 0.0, f"{what}: kernel differs from plain (max abs "
+            f"err {err})")
+    return err
+
+
+def _chain(torch, world, width):
+    """K1 -> K2 -> K3 -> K4 on the first 16,384 ``.bench_data`` pairs
+    padded to ``width`` (the main path's program at that read length,
+    high-sensitivity's seed parameters), each kernel held to its plain
+    version on the same inputs and both timed. Returns per-kernel stats
+    and max abs errors."""
+    from umgap_tpu_torch.agg import device as devagg
+    from umgap_tpu_torch.ops import encoding, lookup, seedextend, translate
+
+    dev = world["dev"]
+    tt1 = encoding.get_table(1)
+    L = world["L"]
+    stats, errs = {}, {}
+    batch = world["reads"][:BATCH]
+    if width > L:
+        batch = np.pad(batch, ((0, 0), (0, 0), (0, width - L)),
+                       constant_values=encoding.DNA_N)
+    dna4 = torch.from_numpy(encoding.pack_dna4(batch)).to(dev)
+    reads = dna4.reshape(BATCH * 2, -1).contiguous()
+    lens = torch.full((BATCH * 2,), L, dtype=torch.int32, device=dev)
+    k1 = translate.reads_to_kmers(reads, lens, width, tt1, 9)
+    errs["reads_to_kmers"] = compare(
+        torch, f"K1 L={width}", k1,
+        translate.reads_to_kmers_plain(reads, lens, width, tt1, 9))
+    hi, lo, wvalid, plens = k1
+    N1, W = reads.shape[0], hi.shape[-1]
+    stats["reads_to_kmers"] = dict(
+        ms=cuda_ms(torch, lambda: translate.reads_to_kmers(
+            reads, lens, width, tt1, 9)),
+        plain_ms=cuda_ms(torch, lambda: translate.reads_to_kmers_plain(
+            reads, lens, width, tt1, 9), reps=5))
+    b1, by1 = bound(reads.numel() + 4 * N1 + N1 * 6 * (W * 9 + 4),
+                    N1 * 6 * (W + 8) * 16)
+    stats["reads_to_kmers"].update(bound_ms=b1, bound_by=by1)
+
+    dtable = world["dtable"]
+    k2 = lookup.probe(dtable, hi, lo, wvalid, 0)
+    errs["probe_kmer"] = compare(torch, f"K2 L={width}", k2,
+                                 lookup.probe_plain(dtable, hi, lo, wvalid, 0))
+    n_valid = int(wvalid.sum())
+    Q = hi.numel()
+    row_read = 4 * dtable.bucket + 32  # remainder half + one value sector
+    stats["probe_kmer"] = dict(
+        ms=cuda_ms(torch, lambda: lookup.probe(dtable, hi, lo, wvalid, 0)),
+        plain_ms=cuda_ms(torch, lambda: lookup.probe_plain(
+            dtable, hi, lo, wvalid, 0), reps=3))
+    b2, by2 = bound(Q * 9 + Q * 5 + n_valid * row_read, n_valid * 60)
+    stats["probe_kmer"].update(bound_ms=b2, bound_by=by2, queries=Q,
+                               valid=n_valid, found=int(k2[1].sum()))
+
+    taxa = k2[0]
+    nk = (plens - 8).clamp(min=0)
+    k3 = seedextend.seedextend_mask_batch(taxa, nk, 3, 1)
+    errs["seedextend_mask"] = compare(
+        torch, f"K3 L={width}", k3,
+        seedextend.seedextend_mask_plain(taxa, nk, 3, 1))
+    lanes = nk.numel()
+    stats["seedextend_mask"] = dict(
+        ms=cuda_ms(torch, lambda: seedextend.seedextend_mask_batch(
+            taxa, nk, 3, 1)),
+        plain_ms=cuda_ms(torch, lambda: seedextend.seedextend_mask_plain(
+            taxa, nk, 3, 1), reps=3))
+    b3, by3 = bound(lanes * (W * 5 + 4), lanes * W * 20)
+    stats["seedextend_mask"].update(bound_ms=b3, bound_by=by3, lanes=lanes,
+                                    W=W)
+
+    hits = torch.where(k3, taxa, 0).reshape(BATCH, -1).contiguous()
+    k4 = devagg.dedup_counts(hits, None, 64, return_nuniq=True)
+    errs["dedup_counts"] = compare(
+        torch, f"K4 L={width}", k4,
+        devagg.dedup_counts_plain(hits, None, 64, return_nuniq=True))
+    NH = hits.shape[1]
+    M = 1 << max(NH - 1, 1).bit_length()
+    lg = M.bit_length() - 1
+    stats["dedup_counts"] = dict(
+        ms=cuda_ms(torch, lambda: devagg.dedup_counts(hits, None, 64, True)),
+        plain_ms=cuda_ms(torch, lambda: devagg.dedup_counts_plain(
+            hits, None, 64, True), reps=5))
+    b4, by4 = bound(BATCH * NH * 4 + BATCH * (64 * 9 + 4),
+                    BATCH * (M // 2) * lg * (lg + 1) // 2 * 4)
+    stats["dedup_counts"].update(bound_ms=b4, bound_by=by4, N=NH)
+    log(f"L={width} chain, kernels equal to plain: " + ", ".join(
+        f"{n} {s['ms']:.3f} ms (plain {s['plain_ms']:.3f}, bound "
+        f"{s['bound_ms']:.4f} {s['bound_by']})" for n, s in stats.items()))
+    return stats, errs
+
+
+def phase_kernels(torch, world):
+    from umgap_tpu_torch.agg import device as devagg
+    from umgap_tpu_torch.index import table as T
+    from umgap_tpu_torch.ops import encoding, lookup, seedextend, translate
+    from umgap_tpu_torch.ops.lookup import DeviceTable
+
+    dev = world["dev"]
+    rng = np.random.default_rng(7)
+    t_phase = time.perf_counter()
+
+    # ---- main-path shapes: one 16,384-pair batch at L = 100 and 160 --- #
+    # (the main phase's program, and the CLI's default --read-length)
+    stats, errs = _chain(torch, world, world["L"])
+    stats160, errs160 = _chain(torch, world, 160)
+    for n, s in stats160.items():
+        errs[n] = max(errs[n], errs160[n])
+        stats[n]["L160"] = s
+
+    # ---- K1 edge cases: short/odd reads, N codes, tables 1/4/11 ------- #
+    for L2, packed, tno, meth in ((160, True, 1, False), (160, True, 11, False),
+                                  (160, True, 4, True), (100, False, 1, False),
+                                  (17, True, 1, False)):
+        n = 2 * BATCH if L2 == 160 else 4096
+        codes = rng.integers(0, 4, size=(n, L2)).astype(np.uint8)
+        codes[rng.random((n, L2)) < 0.03] = 4
+        ln = rng.integers(0, L2 + 1, size=n).astype(np.int32)
+        ln[: n // 8] = rng.integers(0, 27, size=n // 8)
+        src = encoding.pack_dna4(codes) if packed else codes
+        r = torch.from_numpy(src).to(dev)
+        lt = torch.from_numpy(ln).to(dev)
+        tt = encoding.get_table(tno)
+        errs["reads_to_kmers"] = max(errs["reads_to_kmers"], compare(
+            torch, f"K1 L={L2} packed={packed} table={tno} met={meth}",
+            translate.reads_to_kmers(r, lt, L2, tt, 9, packed, meth),
+            translate.reads_to_kmers_plain(r, lt, L2, tt, 9, packed, meth)))
+
+    # ---- K2 edge cases: bucket widths, stash, max_probes 1, all-miss -- #
+    keys, vals = world["keys"], world["vals"]
+    sub = rng.choice(len(keys), size=200_000, replace=False)
+    skeys, svals = keys[sub], vals[sub]
+    tables = {
+        "bucket16": T.build_kmer_table(skeys, svals, 9, layout="bucket16"),
+        "bucket64s": T.build_kmer_table(skeys, svals, 9, layout="bucket64s"),
+        "bucket8s_stash": _stash_table(T, skeys[:150_000], svals[:150_000]),
+        "bucket8_probes1": _probes1_table(T, skeys[:150_000],
+                                          svals[:150_000]),
+    }
+    absent = rng.integers(0, 2 ** 45, size=1_500_000, dtype=np.uint64)
+    absent = absent[~np.isin(absent, keys)][:1_000_000]
+    for name, tab in tables.items():
+        dt = DeviceTable.from_host(tab, dev)
+        present, _ = _table_keys(T, tab)
+        nq = 1_000_000
+        q = np.concatenate([
+            rng.choice(present, size=nq // 2),
+            absent[: nq - nq // 2]])
+        if len(tab.stash_hi):
+            st = T.kmers.join_packed(tab.stash_hi, tab.stash_lo)
+            q[: nq // 10] = rng.choice(st, size=nq // 10)
+        qh, ql = T.kmers.split_packed(q)
+        hq = torch.from_numpy(qh).to(dev)
+        lq = torch.from_numpy(ql).to(dev)
+        vq = torch.from_numpy(rng.random(nq) < 0.9).to(dev)
+        got = lookup.probe(dt, hq, lq, vq, -7)
+        errs["probe_kmer"] = max(errs["probe_kmer"], compare(
+            torch, f"K2 {name}", got, lookup.probe_plain(dt, hq, lq, vq, -7)))
+        require(int(got[1].sum()) > nq // 3, f"K2 {name}: too few hits")
+        miss = (torch.from_numpy(T.kmers.split_packed(absent)[0]).to(dev),
+                torch.from_numpy(T.kmers.split_packed(absent)[1]).to(dev))
+        got = lookup.probe(dt, miss[0], miss[1], None, 0)
+        errs["probe_kmer"] = max(errs["probe_kmer"], compare(
+            torch, f"K2 {name} all-miss", got,
+            lookup.probe_plain(dt, miss[0], miss[1], None, 0)))
+        require(int(got[1].sum()) == 0, f"K2 {name}: all-miss batch hit")
+        log(f"K2 {name}: bucket {tab.bucket}, max_probes {tab.max_probes}, "
+            f"stash {len(tab.stash_hi)}: equal")
+
+    # ---- K3 edge cases: min seed 2..4, gap 0..2, random runs ---------- #
+    nl, NW = 100_000, 52
+    runs = rng.choice(np.array([0, 0, 0, 5, 6, 7], np.int32), size=(nl, NW))
+    rep = rng.random((nl, NW)) < 0.6
+    for j in range(1, NW):
+        runs[:, j] = np.where(rep[:, j], runs[:, j - 1], runs[:, j])
+    tr = torch.from_numpy(runs).to(dev)
+    lr = torch.from_numpy(rng.integers(0, NW + 1, size=nl).astype(
+        np.int32)).to(dev)
+    for s in (2, 3, 4):
+        for g in (0, 1, 2):
+            errs["seedextend_mask"] = max(errs["seedextend_mask"], compare(
+                torch, f"K3 s={s} g={g}",
+                seedextend.seedextend_mask_batch(tr, lr, s, g),
+                seedextend.seedextend_mask_plain(tr, lr, s, g)))
+
+    # ---- K4 edge cases: k_max below and above N, weights -------------- #
+    for NH2, kmax, weighted in ((540, 16, False), (540, 600, False),
+                                (540, 64, True), (37, 8, False)):
+        tx = torch.from_numpy(rng.integers(-1, 60, size=(4096, NH2)).astype(
+            np.int32)).to(dev)
+        w = (torch.from_numpy(rng.integers(0, 4, size=(4096, NH2)).astype(
+            np.float32)).to(dev) if weighted else None)
+        errs["dedup_counts"] = max(errs["dedup_counts"], compare(
+            torch, f"K4 N={NH2} k_max={kmax} w={weighted}",
+            devagg.dedup_counts(tx, w, kmax, True),
+            devagg.dedup_counts_plain(tx, w, kmax, True)))
+
+    for n, e in errs.items():
+        stats[n]["max_abs_err"] = e
+        stats[n]["equal"] = e == 0.0
+    RESULT["phases"]["kernels"] = dict(seconds=time.perf_counter() - t_phase,
+                                       stats=stats)
+    log("phase kernels: every kernel equal to its plain version")
+    return stats
+
+
+def _table_keys(T, tab):
+    """(packed keys stored in the rows, their values) of a host table."""
+    rem = tab.rem
+    occ = np.nonzero(rem != -1)[0]
+    tag = rem[occ].astype(np.uint32)
+    dist = (tag >> np.uint32(30)).astype(np.int64)
+    r = tag & np.uint32((1 << 30) - 1)
+    nb_bits, nb = tab.nb_bits, tab.n_buckets
+    home = ((occ // tab.bucket) - dist) % nb
+    mlo = (home.astype(np.uint32)
+           | ((r & np.uint32((1 << (25 - nb_bits)) - 1))
+              << np.uint32(nb_bits))) & T.MASK25
+    mhi = (r >> np.uint32(25 - nb_bits)) & T.MASK20
+    # invert the Feistel rounds of mix_key
+    lo = mlo ^ (T._mx(mhi + T._C3) & T.MASK25)
+    hi = mhi ^ (T._mx(lo + T._C2) & T.MASK20)
+    lo = lo ^ (T._mx(hi + T._C1) & T.MASK25)
+    return T.kmers.join_packed(hi.astype(np.int32), lo.astype(np.int32)), \
+        tab.values[occ]
+
+
+def _stash_table(T, keys, vals):
+    """A tight single-round bucket8s table, so hundreds of keys land in
+    the stash."""
+    for cap in (8 << 15, 8 << 16):
+        try:
+            return T.KmerTable.build(keys, vals, 9, capacity=cap, bucket=8,
+                                     max_probe_limit=0, stash_cap=4096)
+        except RuntimeError:
+            continue
+    raise SystemExit("FAIL: could not build the stash test table")
+
+
+def _probes1_table(T, keys, vals):
+    """A two-round (max_probes == 1) bucket-8 table, placed round by
+    round at load ~0.57."""
+    hi, lo = T.kmers.split_packed(keys)
+    mhi, mlo = T.mix_key(hi, lo)
+    cap = 8 << 15
+    nb_bits = int(np.log2(cap // 8))
+    b0 = (mlo & np.uint32((1 << nb_bits) - 1)).astype(np.int64)
+    rem = ((mlo >> np.uint32(nb_bits))
+           | (mhi << np.uint32(25 - nb_bits))).astype(np.int32)
+    (ra, va), mp, left = T._insert_bucketized(
+        b0, [rem, np.asarray(vals, np.int32)], cap, tag_distance=True,
+        bucket=8, max_round=1)
+    require(mp == 1 and len(left) <= 4096,
+            f"probes-1 table: max_probes {mp}, leftover {len(left)}")
+    return T.KmerTable(ra, va, mp, len(keys),
+                       {"k": 9, "nb_bits": nb_bits, "bucket": 8},
+                       stash_hi=hi[left], stash_lo=lo[left],
+                       stash_val=np.asarray(vals, np.int32)[left])
+
+
+# ---------------------------------------------------------------------- #
+# Phase 3: the main path, all four presets
+# ---------------------------------------------------------------------- #
+
+def _analyser(world, config, dtable=None, batch_size=BATCH, read_length=None,
+              plain=False):
+    """An ``Analyser`` over the world's device state; ``plain`` runs
+    every stage's plain version on the card (the reference the kernel
+    path is held to), in the fast and in the wide program alike."""
+    from umgap_tpu_torch.pipeline.runner import Analyser
+
+    class PlainAnalyser(Analyser):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.step.plain = True
+
+        def _wide(self):
+            step = super()._wide()
+            step.plain = True
+            return step
+
+    cls = PlainAnalyser if plain else Analyser
+    return cls(None, None, config, batch_size=batch_size,
+               read_length=read_length or world["L"], ends=2,
+               dtax=world["dtax"],
+               dtable=world["dtable"] if dtable is None else dtable,
+               device=world["dev"])
+
+
+def _run_analyser(an, world):
+    reads = world["reads"]
+    P, L = world["P"], world["L"]
+    lens = np.full((P, 2), L, dtype=np.int32)
+    headers = [f"r{i}" for i in range(P)]
+    out = np.array([t for _h, t in an.analyse_arrays(headers, reads, lens)],
+                   dtype=np.int64)
+    return out
+
+
+def _stream_rate(an, world, min_s=STEADY_S):
+    """End-to-end pairs/s at steady state: the workload fed again and
+    again into one stream (depth-2 dispatch never drains between
+    passes) until ``min_s`` seconds have gone, then drained; total pairs
+    over total time, every taxon brought back to the host."""
+    reads = world["reads"]
+    P, L = world["P"], world["L"]
+    lens = np.full((P, 2), L, dtype=np.int32)
+    headers = [f"r{i}" for i in range(P)]
+    an.reset()
+    got = passes = 0
+    t0 = time.perf_counter()
+    while passes == 0 or time.perf_counter() - t0 < min_s:
+        for _ in an.feed(headers, reads, lens):
+            got += 1
+        passes += 1
+    for _ in an.finish():
+        got += 1
+    wall = time.perf_counter() - t0
+    require(got == passes * P, f"stream returned {got} of {passes * P}")
+    return dict(pairs_per_s=got / wall, pairs=got, seconds=wall,
+                batches=got // BATCH)
+
+
+def phase_main(torch, world):
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+
+    t_phase = time.perf_counter()
+    dev = world["dev"]
+    L, P = world["L"], world["P"]
+    analysers = {name: _analyser(world, cfg)
+                 for name, cfg in PRESETS.items()}
+    # warm the allocator and every program shape once, outside the count
+    for an in analysers.values():
+        _run_analyser(an, world)
+    kernels.reset_launches()
+    results = {}
+    for name, an in analysers.items():
+        an.overflow_reads = 0
+        results[name] = _run_analyser(an, world)
+    launches = kernels.launch_counts()
+    RESULT["main_launches"] = launches
+    log(f"main path launches: {launches}")
+    for n, c in launches.items():
+        require(c > 0, f"kernel {n} was not launched on the main path")
+
+    phase = {"presets": {}}
+    for name, cfg in PRESETS.items():
+        plain = _run_analyser(_analyser(world, cfg, plain=True), world)
+        require(np.array_equal(results[name], plain),
+                f"main path {name}: kernel taxa differ from plain taxa in "
+                f"{int((results[name] != plain).sum())} of {P} groups")
+        require(results[name].shape == (P,) and (results[name] >= 1).all(),
+                f"main path {name}: bad output")
+        require(taxa_digest(results[name][:REFERENCE_PAIRS])
+                == REFERENCE_DIGESTS[name],
+                f"main path {name}: the first {REFERENCE_PAIRS} groups "
+                "differ from the JAX package's reference taxa")
+        overflow = analysers[name].overflow_reads
+        e2e = _stream_rate(analysers[name], world)
+        phase["presets"][name] = dict(
+            e2e=e2e, overflow_reads=overflow,
+            checksum=int(results[name].sum()),
+            distinct_taxa=int(len(np.unique(results[name]))),
+            unassigned=int((results[name] == 1).sum()))
+        log(f"main {name}: kernel == plain on {P} groups, == reference on "
+            f"{REFERENCE_PAIRS}; e2e {e2e['pairs_per_s']:.0f} pairs/s "
+            f"({e2e['batches']} batches in {e2e['seconds']:.2f} s), "
+            f"overflow {overflow}")
+
+    # high-sensitivity: device-resident rate and per-stage times
+    from umgap_tpu_torch.ops import encoding
+
+    an = analysers["high-sensitivity"]
+    batches = [torch.from_numpy(encoding.pack_dna4(
+        world["reads"][i * BATCH:(i + 1) * BATCH])).to(dev)
+        for i in range(P // BATCH)]
+    lens = torch.full((BATCH, 2), L, dtype=torch.int32, device=dev)
+
+    def resident():
+        for b in batches:
+            an.step(b, lens, L)
+
+    ms = cuda_ms(torch, resident, reps=5)
+    stage_ms = {}
+
+    def timer(name):
+        import contextlib
+
+        @contextlib.contextmanager
+        def cm():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            yield
+            b.record()
+            b.synchronize()
+            stage_ms.setdefault(name, []).append(a.elapsed_time(b))
+        return cm()
+
+    for _ in range(5):
+        for b in batches:
+            an.step(b, lens, L, timer=timer)
+    # device busy share of a steady end-to-end stream, from the
+    # profiler's kernel and copy times (the profiler's own overhead
+    # inflates the wall time, so idle is an upper bound)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled = _stream_rate(an, world, min_s=1.0)
+    wall = profiled["seconds"]
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in ev)
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:10]
+    phase["high_sensitivity"] = dict(
+        device_resident_pairs_per_s=P / (ms / 1e3),
+        batch_ms=ms / len(batches),
+        stage_ms={k: float(np.median(v)) for k, v in stage_ms.items()},
+        e2e_pairs_per_s=phase["presets"]["high-sensitivity"]["e2e"][
+            "pairs_per_s"],
+        profiled_pairs=profiled["pairs"], profiled_wall_s=wall,
+        profiled_device_s=dev_us / 1e6,
+        profiled_busy_share=(dev_us / 1e6) / wall if dev_us else None,
+        profile_top=[(e.key, e.self_device_time_total / 1e3, e.count)
+                     for e in top])
+    phase["seconds"] = time.perf_counter() - t_phase
+    RESULT["phases"]["main"] = phase
+    log(f"high-sensitivity: device-resident {P / (ms / 1e3):.0f} pairs/s "
+        f"({ms / len(batches):.2f} ms per {BATCH}-pair batch); stages "
+        + ", ".join(f"{k} {float(np.median(v)):.3f} ms"
+                    for k, v in stage_ms.items())
+        + f"; profiled busy {dev_us / 1e6:.3f} s of {wall:.3f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------- #
+# Phase 4: a 4.3 GB card-resident bucket64s index
+# ---------------------------------------------------------------------- #
+
+RESIDENT_LOG2_ROWS = 23  # 2^23 rows x 64 slots x 8 B = 4.3 GB at load 0.5
+
+
+def resident_keys(keys, vals, n_total, n_tax, seed=11):
+    """The bench keys plus seeded filler: f(i) = (i * C + D) mod 2^45 is
+    a bijection, so the filler is unique, and indices whose image is a
+    bench key are skipped, so it is disjoint from the bench keys."""
+    rng = np.random.default_rng(seed)
+    mask = np.uint64((1 << 45) - 1)
+    C = np.uint64(int(rng.integers(1 << 40, 1 << 44)) | 1)
+    D = np.uint64(int(rng.integers(0, 1 << 45)))
+    Cinv = np.uint64(pow(int(C), -1, 1 << 45))
+    n_fill = n_total - len(keys)
+    n_idx = n_fill + len(keys)
+    with np.errstate(over="ignore"):
+        taken = ((keys - D) * Cinv) & mask
+        free = np.ones(n_idx, dtype=bool)
+        free[taken[taken < np.uint64(n_idx)].astype(np.int64)] = False
+        i = np.flatnonzero(free)[:n_fill].astype(np.uint64)
+        fill = (i * C + D) & mask
+    fvals = rng.integers(1, n_tax + 1, size=n_fill).astype(np.int32)
+    return np.concatenate([keys, fill]), np.concatenate([vals, fvals])
+
+
+def phase_resident(torch, world):
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.index.table import build_kmer_table
+    from umgap_tpu_torch.ops import encoding, lookup, translate
+    from umgap_tpu_torch.ops.lookup import DeviceTable
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+
+    t_phase = time.perf_counter()
+    dev = world["dev"]
+    slots = 64 << RESIDENT_LOG2_ROWS
+    n_total = slots // 2
+    t0 = time.perf_counter()
+    keys, vals = resident_keys(world["keys"], world["vals"], n_total,
+                               world["n_tax"])
+    tab = build_kmer_table(keys, vals, 9, layout="bucket64s", capacity=slots)
+    del keys, vals
+    build_s = time.perf_counter() - t0
+    log(f"resident table: {tab.n} keys, {tab.n_buckets} rows of "
+        f"{tab.bucket} slots, stash {len(tab.stash_hi)}, host build "
+        f"{build_s:.1f}s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dt = DeviceTable.from_host(tab, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rows_gb = dt.rows.numel() * 4 / 1e9
+    del tab
+
+    L = world["L"]
+    batch = world["reads"][:BATCH]
+    reads = torch.from_numpy(encoding.pack_dna4(batch)).to(dev).reshape(
+        BATCH * 2, -1).contiguous()
+    lens = torch.full((BATCH * 2,), L, dtype=torch.int32, device=dev)
+    hi, lo, wvalid, _ = translate.reads_to_kmers(reads, lens, L,
+                                                 encoding.get_table(1), 9)
+    got = lookup.probe(dt, hi, lo, wvalid, 0)
+    err = compare(torch, "K2 resident", got,
+                  lookup.probe_plain(dt, hi, lo, wvalid, 0))
+    probe_ms = cuda_ms(torch, lambda: lookup.probe(dt, hi, lo, wvalid, 0))
+    n_valid = int(wvalid.sum())
+    pb, pby = bound(hi.numel() * 14 + n_valid * (4 * 64 + 32), n_valid * 60)
+
+    # peak from here on: the resident table plus the pipeline's working
+    # set (the plain probe above gathers whole rows and is not the path)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = PRESETS["high-sensitivity"]
+    an = _analyser(world, cfg, dtable=dt)
+    _run_analyser(an, world)
+    an.overflow_reads = 0
+    kernels.reset_launches()
+    taxa = _run_analyser(an, world)
+    launches = kernels.launch_counts()
+    for n, c in launches.items():
+        require(c > 0, f"kernel {n} was not launched on the resident path")
+    overflow = an.overflow_reads
+    e2e = _stream_rate(an, world)
+    bt = torch.from_numpy(encoding.pack_dna4(batch)).to(dev)
+    bl = torch.full((BATCH, 2), L, dtype=torch.int32, device=dev)
+    ms = cuda_ms(torch, lambda: an.step(bt, bl, L), reps=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain = _run_analyser(_analyser(world, cfg, dtable=dt, plain=True), world)
+    P = world["P"]
+    require(np.array_equal(taxa, plain),
+            f"resident: kernel taxa differ from plain taxa in "
+            f"{int((taxa != plain).sum())} of {P} groups")
+    RESULT["phases"]["resident"] = dict(
+        rows_gb=rows_gb, keys=n_total, host_build_s=build_s,
+        host_to_device_s=load_s, probe_ms=probe_ms, probe_bound_ms=pb,
+        probe_bound_by=pby, probe_max_abs_err=err,
+        probe_found=int(got[1].sum()),
+        device_resident_pairs_per_s=BATCH / (ms / 1e3),
+        e2e=e2e, overflow_reads=overflow, launches=launches,
+        max_memory_allocated_gb=peak_gb, seconds=time.perf_counter() - t_phase)
+    log(f"resident {rows_gb:.2f} GB: K2 equal to plain, probe "
+        f"{probe_ms:.3f} ms (bound {pb:.3f}); high-sensitivity "
+        f"{BATCH / (ms / 1e3):.0f} pairs/s resident, "
+        f"{e2e['pairs_per_s']:.0f} e2e, kernel taxa == plain; launches "
+        f"{launches}; "
+        f"peak {peak_gb:.2f} GB")
+    del dt, an
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------- #
+# Phase 5: the command line in a subprocess
+# ---------------------------------------------------------------------- #
+
+def phase_cli(torch, world):
+    from umgap_tpu_torch import kernels, ranks
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+
+    t_phase = time.perf_counter()
+    n = 4096
+    reads = world["reads"][:n]
+    L = world["L"]
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    paths = [os.path.join(TMP_DIR, f"A{e + 1}.fq") for e in (0, 1)]
+    for e, path in enumerate(paths):
+        seqs = lut[np.minimum(reads[:, e], 4)]
+        with open(path, "wb") as f:
+            for i in range(n):
+                f.write(b"@s%d/%d\n%s\n+\n%s\n" % (
+                    i, e + 1, seqs[i].tobytes(), b"I" * L))
+    taxtsv = os.path.join(TMP_DIR, "taxons.tsv")
+    parent, snap = world["parent"], world["snap"]
+    with open(taxtsv, "w") as f:
+        f.write("1\troot\tno rank\t1\t\x01\n")
+        for i in range(2, world["n_tax"] + 1):
+            rank = "no rank" if i % 3 else ranks.rank_name(14)
+            valid = "\x01" if snap[i] == i else "\x00"
+            f.write(f"{i}\tt{i}\t{rank}\t{int(parent[i])}\t{valid}\n")
+    index = os.path.join(TMP_DIR, "nine.npz")
+    world["table"].save(index, packed=True)
+    cmd = [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
+           taxtsv, "--index", index]
+    for preset in PRESETS:  # one sample per preset, one process
+        cmd += ["-t", preset, "-1", paths[0], "-2", paths[1], "-o",
+                os.path.join(TMP_DIR, f"{preset}.fa")]
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    require(proc.returncode == 0,
+            f"CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    # the CLI's program (--read-length 160) in this process: kernel path
+    # with its own launch counts, held to the plain path; the CLI's
+    # records are held to it
+    lens = np.full((n, 2), L, dtype=np.int32)
+    headers = [str(i) for i in range(n)]
+    launches = {}
+    for preset in PRESETS:
+        with open(os.path.join(TMP_DIR, f"{preset}.fa")) as f:
+            got = f.read()
+        kw = dict(batch_size=n, read_length=160)
+        an = _analyser(world, PRESETS[preset], **kw)
+        kernels.reset_launches()
+        taxa = [t for _h, t in an.analyse_arrays(headers, reads, lens)]
+        launches[preset] = kernels.launch_counts()
+        for k, c in launches[preset].items():
+            require(c > 0, f"CLI {preset}: kernel {k} was not launched at "
+                    "read length 160")
+        plain = [t for _h, t in _analyser(
+            world, PRESETS[preset], plain=True, **kw).analyse_arrays(
+                headers, reads, lens)]
+        require(taxa == plain, f"CLI {preset}: kernel taxa differ from "
+                f"plain taxa at read length 160")
+        want = "".join(f">s{h}\n{t}\n" for h, t in zip(headers, taxa))
+        require(got == want,
+                f"CLI {preset}: records differ from the Analyser's")
+        require(got.count(">") == n, f"CLI {preset}: {got.count('>')} "
+                f"records for {n} groups")
+    RESULT["phases"]["cli"] = dict(groups=n, presets=list(PRESETS),
+                                   launches_L160=launches,
+                                   seconds=time.perf_counter() - t_phase)
+    log(f"CLI: {len(PRESETS)} presets x {n} groups, records equal to the "
+        "Analyser's at read length 160, whose kernel taxa equal plain")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

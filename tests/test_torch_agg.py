@@ -1,0 +1,140 @@
+"""Parity of the port's aggregation (K4's plain dedup and the plain tail)
+with ``umgap_tpu.agg.device``, on the reference fixture taxonomy and on
+the tracked ``.bench_data`` taxonomy. Exact equality throughout."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from umgap_tpu import ranks as jranks
+from umgap_tpu.agg import device as jagg
+from umgap_tpu.taxonomy import Taxon as JTaxon
+from umgap_tpu.taxonomy import Taxonomy as JTaxonomy
+from umgap_tpu.taxonomy import fixture_taxa as jfixture
+from umgap_tpu_torch import convert
+from umgap_tpu_torch import taxonomy as ptaxonomy
+from umgap_tpu_torch.agg import device as pagg
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".bench_data")
+
+
+@pytest.mark.parametrize("k_max,weighted", [(4, False), (16, False),
+                                            (40, True), (200, False)])
+def test_dedup_counts_matches_jax(k_max, weighted):
+    rng = np.random.default_rng(k_max)
+    B, N = 64, 60
+    taxa = rng.integers(-2, 30, size=(B, N)).astype(np.int32)
+    taxa[:4] = 0  # rows without hits
+    w = (rng.integers(0, 4, size=(B, N)).astype(np.float32) if weighted
+         else np.ones((B, N), np.float32))
+    want = jagg.dedup_counts(taxa, w, k_max, return_nuniq=True)
+    got = pagg.dedup_counts(torch.from_numpy(taxa),
+                            torch.from_numpy(w) if weighted else None,
+                            k_max, return_nuniq=True)
+    for g, wnt in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
+
+
+def _bench_taxonomies():
+    parent = np.fromfile(os.path.join(DATA, "parent.bin"), np.int32)
+    snap = np.fromfile(os.path.join(DATA, "snap.bin"), np.int32)
+    n = len(parent) - 1
+
+    def taxa(cls):
+        return [cls(i, f"t{i}", jranks.NO_RANK if i % 3 else 14,
+                    int(parent[i]), bool(snap[i] == i))
+                for i in range(1, n + 1)]
+
+    return JTaxonomy(taxa(JTaxon)), ptaxonomy.Taxonomy(taxa(ptaxonomy.Taxon))
+
+
+def _fixture_taxonomies():
+    return (JTaxonomy(jfixture()),
+            ptaxonomy.Taxonomy(ptaxonomy.fixture_taxa()))
+
+
+def _carried(jtax):
+    dx = jagg.DeviceTaxonomy.from_host(jtax)
+    px = convert.taxonomy_from_arrays(
+        np.asarray(dx.depth), np.asarray(dx.anc), np.asarray(dx.snap_valid),
+        np.asarray(dx.snap_ranked), dx.root, np.asarray(dx.seed_scores),
+        device="cpu")
+    return dx, px
+
+
+@pytest.mark.parametrize("world", ["fixture", "bench"])
+def test_port_taxonomy_matches_jax(world):
+    jtax, ptax = (_fixture_taxonomies() if world == "fixture"
+                  else _bench_taxonomies())
+    np.testing.assert_array_equal(ptax.depth, jtax.depth)
+    np.testing.assert_array_equal(ptax.anc_table, jtax.anc_table)
+    for ranked in (False, True):
+        np.testing.assert_array_equal(ptax.snapping(ranked),
+                                      jtax.snapping(ranked))
+    np.testing.assert_array_equal(ptax.seed_scores(), jtax.seed_scores())
+    dx, _ = _carried(jtax)
+    mine = pagg.DeviceTaxonomy.from_host(ptax, device="cpu")
+    np.testing.assert_array_equal(mine.geom.numpy(), np.asarray(dx.geom))
+
+
+def _hit_lists(rng, ids, B, K):
+    utaxa = np.full((B, K), np.iinfo(np.int32).max, np.int32)
+    ucounts = np.zeros((B, K), np.float32)
+    uvalid = np.zeros((B, K), bool)
+    for b in range(B):
+        m = int(rng.integers(0, K + 1))
+        sel = np.sort(rng.choice(ids, size=min(m, len(ids)), replace=False))
+        utaxa[b, : len(sel)] = sel
+        ucounts[b, : len(sel)] = rng.integers(1, 7, size=len(sel))
+        uvalid[b, : len(sel)] = True
+    return utaxa, ucounts, uvalid
+
+
+@pytest.mark.parametrize("world", ["fixture", "bench"])
+@pytest.mark.parametrize("method,strategy", [("tree", "lca*"),
+                                             ("tree", "hybrid"),
+                                             ("rmq", "mrtl")])
+def test_aggregate_filter_snap_match_jax(world, method, strategy):
+    jtax, _ = (_fixture_taxonomies() if world == "fixture"
+               else _bench_taxonomies())
+    dx, px = _carried(jtax)
+    rng = np.random.default_rng(len(world) + len(strategy))
+    ids = np.flatnonzero(jtax.present & (jtax.depth >= 0))
+    if world == "bench":  # hits along a few lineages, so trees branch
+        leaves = rng.choice(ids, size=12, replace=False)
+        ids = np.unique(jtax.anc_table[leaves][jtax.anc_table[leaves] > 0])
+    utaxa, ucounts, uvalid = _hit_lists(rng, ids, 48, 12)
+    for bound in (1.0, 3.0):
+        fv = np.asarray(jagg.filter_lower_bound(ucounts, uvalid, bound))
+        pv = pagg.filter_lower_bound(torch.from_numpy(ucounts),
+                                     torch.from_numpy(uvalid), bound)
+        np.testing.assert_array_equal(pv.numpy(), fv)
+        want = np.asarray(jagg.aggregate_batch(dx, utaxa, ucounts, fv,
+                                               method, strategy, 0.25))
+        got = pagg.aggregate_batch(px, torch.from_numpy(utaxa),
+                                   torch.from_numpy(ucounts), pv, method,
+                                   strategy, 0.25)
+        np.testing.assert_array_equal(got.numpy(), want)
+        for snapping in ("snap_valid", "snap_ranked"):
+            np.testing.assert_array_equal(
+                pagg.snap_batch(getattr(px, snapping), got, 0).numpy(),
+                np.asarray(jagg.snap_batch(getattr(dx, snapping), want, 0)))
+    # out-of-range and unsnappable ids take the default
+    odd = np.array([-5, 0, jtax.size, jtax.size + 9], np.int32)
+    np.testing.assert_array_equal(
+        pagg.snap_batch(px.snap_valid, torch.from_numpy(odd), 7).numpy(),
+        np.asarray(jagg.snap_batch(dx.snap_valid, odd, 7)))
+
+
+def test_euler_aggregators_refuse():
+    jtax, _ = _fixture_taxonomies()
+    _, px = _carried(jtax)
+    u = torch.tensor([[2, 10239]], dtype=torch.int32)
+    c = torch.ones((1, 2))
+    v = torch.ones((1, 2), dtype=torch.bool)
+    for strategy in ("lca*", "hybrid"):
+        with pytest.raises(NotImplementedError):
+            pagg.aggregate_batch(px, u, c, v, "rmq", strategy)

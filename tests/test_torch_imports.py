@@ -1,0 +1,124 @@
+"""The port stands alone and never runs on the CPU by accident:
+``umgap_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
+package, entry points refuse to run without a card unless the CPU is
+asked for, and the smoke script fails without a card or without the
+rest of the repository."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from umgap_tpu_torch import device as pdevice
+from umgap_tpu_torch.agg.device import DeviceTaxonomy
+from umgap_tpu_torch.index.table import build_kmer_table
+from umgap_tpu_torch.ops.lookup import DeviceTable
+from umgap_tpu_torch.pipeline.fused import PRESETS, make_pipeline
+from umgap_tpu_torch.pipeline.runner import Analyser
+from umgap_tpu_torch.taxonomy import Taxonomy, fixture_taxa
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "umgap_tpu")
+
+
+def _port_sources():
+    for root, _dirs, files in os.walk(os.path.join(REPO, "umgap_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_package_import(path):
+    for name in _imported(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {name}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.fixture(scope="module")
+def world():
+    tax = Taxonomy(fixture_taxa())
+    rng = np.random.default_rng(1)
+    keys = np.unique(rng.integers(0, 2 ** 45, size=600, dtype=np.uint64))
+    vals = rng.choice([2, 10239, 12884], size=len(keys)).astype(np.int32)
+    return tax, build_kmer_table(keys, vals, 9)
+
+
+def test_entry_points_need_a_card_or_an_explicit_cpu(no_card, world):
+    tax, table = world
+    with pytest.raises(pdevice.NoCudaDevice, match="device='cpu'"):
+        pdevice.resolve_device()
+    with pytest.raises(pdevice.NoCudaDevice):
+        pdevice.resolve_device("cuda")
+    cfg = PRESETS["high-sensitivity"]
+    with pytest.raises(pdevice.NoCudaDevice):
+        Analyser(tax, table, cfg)
+    with pytest.raises(pdevice.NoCudaDevice):
+        DeviceTable.from_host(table)
+    with pytest.raises(pdevice.NoCudaDevice):
+        DeviceTaxonomy.from_host(tax)
+    dtax = DeviceTaxonomy.from_host(tax, device="cpu")
+    dtable = DeviceTable.from_host(table, device="cpu")
+    with pytest.raises(pdevice.NoCudaDevice):
+        make_pipeline(dtax, dtable, cfg)
+    # asked for explicitly, the CPU runs the plain path
+    an = Analyser(tax, table, cfg, batch_size=4, read_length=30,
+                  device="cpu")
+    assert an.device == torch.device("cpu")
+    out = list(an.analyse_groups([("a", ["ACGT" * 7, "TTGCA" * 6])]))
+    assert out == [("a", 1)]
+
+
+def test_unported_options_refuse(world):
+    tax, table = world
+    with pytest.raises(NotImplementedError):
+        Analyser(tax, table, PRESETS["max-sensitivity"]._replace(
+            strategy="lca*"), device="cpu")
+    keys = np.arange(1, 5000, dtype=np.uint64)
+    with pytest.raises(NotImplementedError):
+        from umgap_tpu_torch.index.table import KmerTable
+
+        KmerTable.build(keys, np.ones(len(keys), np.int32), 9,
+                        max_probe_limit=1)
+
+
+def _smoke(cwd, env=None):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_card():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = _smoke(REPO, env)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    proc = _smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -1,0 +1,189 @@
+"""Parity of the port's fused pipeline and Analyser (plain PyTorch on the
+CPU) with ``umgap_tpu.pipeline``: all four 9-mer presets on a toy world,
+the first 1,024 ``.bench_data`` pairs with the state carried across by
+``convert``, and the k_max overflow re-route. Exact equality."""
+
+import importlib.util
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from umgap_tpu import ranks as jranks
+from umgap_tpu.agg import device as jagg
+from umgap_tpu.index.table import build_kmer_table as jbuild
+from umgap_tpu.ops import encoding as jenc
+from umgap_tpu.ops import kmers as jkmers
+from umgap_tpu.ops import lookup as jlookup
+from umgap_tpu.ops import translate as jtrans
+from umgap_tpu.pipeline import PRESETS as JPRESETS
+from umgap_tpu.pipeline.fused import make_pipeline as jmake
+from umgap_tpu.pipeline.fused import pipeline_step as jstep
+from umgap_tpu.pipeline.runner import Analyser as JAnalyser
+from umgap_tpu.taxonomy import Taxon, Taxonomy, fixture_taxa
+from umgap_tpu_torch import convert
+from umgap_tpu_torch.ops import encoding as penc
+from umgap_tpu_torch.pipeline.fused import PRESETS, make_pipeline, \
+    pipeline_step
+from umgap_tpu_torch.pipeline.runner import Analyser
+
+DATA = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".bench_data")
+
+
+def carry(dt, dx):
+    """The JAX package's device state as the port's, via ``convert``."""
+    pt = convert.table_from_arrays(
+        np.asarray(dt.rows), np.asarray(dt.stash), dt.max_probes, dt.kind,
+        dt.nb_bits, dt.bucket, dt.group, device="cpu")
+    px = convert.taxonomy_from_arrays(
+        np.asarray(dx.depth), np.asarray(dx.anc), np.asarray(dx.snap_valid),
+        np.asarray(dx.snap_ranked), dx.root, np.asarray(dx.seed_scores),
+        device="cpu")
+    return pt, px
+
+
+@pytest.fixture(scope="module")
+def toy():
+    """Fixture taxonomy, random reads (B=8, E=2, L=48) and a table holding
+    random keys plus some of the reads' own k-mers, so that hits occur."""
+    rng = np.random.default_rng(0)
+    tax = Taxonomy(fixture_taxa())
+    B, E, L = 8, 2, 48
+    dna = rng.integers(0, 4, size=(B, E, L)).astype(np.uint8)
+    lengths = rng.integers(20, L + 1, size=(B, E)).astype(np.int32)
+    lengths[0] = L
+    aa, pl = jtrans.translate6_batch(dna.reshape(B * E, L),
+                                     lengths.reshape(-1), jenc.get_table(1))
+    hi, lo, v = (np.asarray(x) for x in jkmers.pack_windows_batch(aa, pl, 9))
+    ids = np.array([2, 10239, 12884, 185751, 185752], dtype=np.int32)
+    # the k-mers of one (read group, frame) point at one taxon (long runs
+    # of equal hits, as real reads give; several taxa per group), random
+    # extra keys at random taxa
+    group = ((np.arange(B * E) // E)[:, None, None]
+             + np.arange(6)[None, :, None] + 0 * v)
+    planted, first = np.unique(jkmers.join_packed(hi[v], lo[v]),
+                               return_index=True)
+    extra = np.setdiff1d(rng.integers(0, 2 ** 45, size=512).astype(
+        np.uint64), planted)
+    packed = np.concatenate([planted, extra])
+    values = np.concatenate([ids[group[v][first] % len(ids)],
+                             rng.choice(ids, size=len(extra))]).astype(
+        np.int32)
+    table = jbuild(packed, values, k=9)
+    dt = jlookup.DeviceTable.from_host(table)
+    dx = jagg.DeviceTaxonomy.from_host(tax)
+    return dict(tax=tax, table=table, dt=dt, dx=dx, dna=dna,
+                lengths=lengths, state=carry(dt, dx))
+
+
+@pytest.mark.parametrize("preset", list(PRESETS))
+def test_pipeline_step_presets_match_jax(toy, preset):
+    pt, px = toy["state"]
+    for k_max in (64, 3):
+        want, wov = jstep(toy["dna"], toy["lengths"], toy["dx"], toy["dt"],
+                          JPRESETS[preset]._replace(k_max=k_max),
+                          with_overflow=True)
+        got, gov = pipeline_step(torch.from_numpy(toy["dna"]),
+                                 torch.from_numpy(toy["lengths"]), px, pt,
+                                 PRESETS[preset]._replace(k_max=k_max),
+                                 with_overflow=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(gov.numpy(), np.asarray(wov))
+    assert gov.numpy().any()  # hits survived: > 3 taxa in some groups
+
+
+def test_packed_wire_agrees_with_codes(toy):
+    pt, px = toy["state"]
+    cfg = PRESETS["high-sensitivity"]
+    dna, lengths = toy["dna"], toy["lengths"]
+    a = pipeline_step(torch.from_numpy(dna), torch.from_numpy(lengths), px,
+                      pt, cfg)
+    b = make_pipeline(px, pt, cfg, device="cpu")(
+        torch.from_numpy(penc.pack_dna4(dna)), torch.from_numpy(lengths),
+        dna.shape[-1])
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.fixture(scope="module")
+def bench():
+    """The first 1,024 .bench_data pairs, its taxonomy and 2 M-key index."""
+    with open(os.path.join(DATA, "manifest.json")) as f:
+        man = json.load(f)
+    P, L = man["n_pairs"], man["read_len"]
+    parent = np.fromfile(os.path.join(DATA, "parent.bin"), np.int32)
+    snap = np.fromfile(os.path.join(DATA, "snap.bin"), np.int32)
+    tax = Taxonomy([Taxon(i, f"t{i}", jranks.NO_RANK if i % 3 else 14,
+                          int(parent[i]), bool(snap[i] == i))
+                    for i in range(1, man["n_tax"] + 1)])
+    keys = np.fromfile(os.path.join(DATA, "index_keys.bin"), np.uint64)
+    vals = np.fromfile(os.path.join(DATA, "index_vals.bin"), np.int32)
+    table = jbuild(keys, vals, k=9)
+    n = 1024
+    reads = np.fromfile(os.path.join(DATA, "reads.bin"),
+                        np.uint8).reshape(P, 2, L)[:n]
+    return dict(tax=tax, table=table, reads=reads, L=L, n=n,
+                lengths=np.full((n, 2), L, dtype=np.int32))
+
+
+def test_bench_data_first_1024_pairs_high_sensitivity(bench):
+    dt = jlookup.DeviceTable.from_host(bench["table"])
+    dx = jagg.DeviceTaxonomy.from_host(bench["tax"])
+    pt, px = carry(dt, dx)
+    L, lengths = bench["L"], bench["lengths"]
+    dna4 = jenc.pack_dna4(bench["reads"])
+    cfg = JPRESETS["high-sensitivity"]
+    want, wov = jmake(dx, dt, cfg, wire="packed4",
+                      with_overflow=True)(dna4, lengths, L)
+    got, gov = make_pipeline(px, pt, PRESETS["high-sensitivity"],
+                             wire="packed4", with_overflow=True,
+                             device="cpu")(torch.from_numpy(dna4),
+                                           torch.from_numpy(lengths), L)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(gov.numpy(), np.asarray(wov))
+    assert len(np.unique(got.numpy())) > 50
+
+
+@pytest.mark.parametrize("preset", ["max-sensitivity", "high-sensitivity"])
+def test_analyser_wide_reroute_matches_jax(toy, preset):
+    """k_max=2 sends most groups through the wide (exact) program."""
+    rng = np.random.default_rng(5)
+    n, L = 150, 48
+    dna = np.concatenate([np.tile(toy["dna"], (n // 8 + 1, 1, 1))[:n - 20],
+                          rng.integers(0, 4, size=(20, 2, L)).astype(
+                              np.uint8)])
+    lens = np.concatenate([np.tile(toy["lengths"], (n // 8 + 1, 1))[:n - 20],
+                           rng.integers(0, L + 1, size=(20, 2)).astype(
+                               np.int32)])
+    headers = [f"g{i}" for i in range(n)]
+    cfg = JPRESETS[preset]._replace(k_max=2)
+    ja = JAnalyser(toy["tax"], toy["table"], cfg, batch_size=64,
+                   read_length=L, ends=2)
+    want = list(ja.analyse_arrays(headers, dna, lens))
+    pt, px = toy["state"]
+    pa = Analyser(None, None, PRESETS[preset]._replace(k_max=2),
+                  batch_size=64, read_length=L, ends=2, dtax=px, dtable=pt,
+                  device="cpu")
+    got = list(pa.analyse_arrays(headers, dna, lens))
+    assert got == want
+    assert pa.overflow_reads == ja.overflow_reads > 0
+
+
+@pytest.mark.parametrize("preset", list(PRESETS))
+def test_chip_smoke_reference_digests(bench, preset):
+    """chip_smoke.py holds the card's output to digests of umgap_tpu's
+    taxa; recompute them here with umgap_tpu."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(DATA), "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    n, L = bench["n"], bench["L"]
+    assert smoke.REFERENCE_PAIRS == n
+    headers = [str(i) for i in range(n)]
+    ja = JAnalyser(bench["tax"], bench["table"], JPRESETS[preset],
+                   batch_size=n, read_length=L, ends=2)
+    want = [t for _h, t in ja.analyse_arrays(headers, bench["reads"],
+                                             bench["lengths"])]
+    assert smoke.taxa_digest(want) == smoke.REFERENCE_DIGESTS[preset]

@@ -1,0 +1,310 @@
+"""Batched per-read aggregation: kernel K4 (``csrc/dedup_counts.cu``) for
+the dedup/count, and the plain PyTorch tail (``umgap_tpu.agg.device``).
+
+Every read in a batch carries a fixed-width list of (taxon, count) hits;
+tree relations are answered by gathers from the device-resident
+ancestor-at-depth table. Argmax ties break as in the JAX package and its
+host oracle: greater depth, then smaller id. Ancestor incidence is an
+integer gather, never a float product, so taxon ids stay exact.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..taxonomy import NONE, Taxonomy
+
+I32_MAX = int(np.iinfo(np.int32).max)
+MAX_DEDUP_N = 16384  # hits per row the kernel sorts in shared memory
+
+
+class DeviceTaxonomy:
+    """Taxonomy arrays on one device: ``depth`` (size,), ``anc`` (size, D)
+    ancestor at depth, ``geom`` (size, 1 + D) = [depth | anc],
+    ``snap_valid`` / ``snap_ranked`` (size,), ``seed_scores`` (size,),
+    all int32, and the root id."""
+
+    def __init__(self, depth, anc, geom, snap_valid, snap_ranked, root: int,
+                 seed_scores=None):
+        self.depth = depth
+        self.anc = anc
+        self.geom = geom
+        self.snap_valid = snap_valid
+        self.snap_ranked = snap_ranked
+        self.root = int(root)
+        self.seed_scores = (torch.zeros_like(snap_valid)
+                            if seed_scores is None else seed_scores)
+
+    @property
+    def device(self) -> torch.device:
+        return self.depth.device
+
+    def to(self, device) -> "DeviceTaxonomy":
+        return DeviceTaxonomy(self.depth.to(device), self.anc.to(device),
+                              self.geom.to(device), self.snap_valid.to(device),
+                              self.snap_ranked.to(device), self.root,
+                              self.seed_scores.to(device))
+
+    @classmethod
+    def from_arrays(cls, depth, anc, snap_valid, snap_ranked, root: int,
+                    seed_scores=None, device=None) -> "DeviceTaxonomy":
+        from ..device import resolve_device
+
+        dev = resolve_device(device)
+
+        def put(x):
+            return torch.from_numpy(np.array(x, dtype=np.int32)).to(dev)
+
+        depth = np.asarray(depth, dtype=np.int32)
+        anc = np.asarray(anc, dtype=np.int32)
+        return cls(put(depth), put(anc),
+                   put(np.concatenate([depth[:, None], anc], axis=1)),
+                   put(snap_valid), put(snap_ranked), root,
+                   None if seed_scores is None else put(seed_scores))
+
+    @classmethod
+    def from_host(cls, tax: Taxonomy, device=None) -> "DeviceTaxonomy":
+        return cls.from_arrays(tax.depth, tax.anc_table, tax.snapping(False),
+                               tax.snapping(True), tax.root,
+                               tax.seed_scores(), device=device)
+
+
+# ---------------------------------------------------------------------- #
+# Per-read hit-list preparation
+# ---------------------------------------------------------------------- #
+
+def dedup_counts_plain(taxa: torch.Tensor, weights, k_max: int,
+                       return_nuniq: bool = False):
+    """Plain version of K4, the JAX formulation: sort each row, mark run
+    heads, compact them left with a second sort, and take run totals as
+    differences of compacted weight prefixes. ``weights=None`` weighs
+    every hit 1.0."""
+    B, N = taxa.shape
+    dev = taxa.device
+    pos = taxa > 0
+    t = torch.where(pos, taxa.to(torch.int32), I32_MAX)
+    w = (pos.to(torch.float32) if weights is None
+         else torch.where(pos, weights.to(torch.float32), 0.0))
+    ts, order = torch.sort(t, dim=-1, stable=True)
+    ws = torch.gather(w, 1, order)
+    prev = torch.cat([torch.full((B, 1), -1, dtype=ts.dtype, device=dev),
+                      ts[:, :-1]], dim=1)
+    first = (ts != prev) & (ts != I32_MAX)
+    cw = torch.cumsum(ws, dim=-1)
+    ecw = cw - ws
+    wtot = cw[:, -1:] if N else torch.zeros((B, 1), device=dev)
+    K = min(k_max, N)
+    runidx = torch.cumsum(first.to(torch.int32), dim=-1) - 1
+    slotkey = torch.where(first, runidx, I32_MAX)
+    sk, perm = torch.sort(slotkey, dim=-1, stable=True)
+    key = torch.gather(ts, 1, perm)
+    basec = torch.gather(ecw, 1, perm)
+    if N < K + 1:
+        extra = K + 1 - N
+        sk = torch.nn.functional.pad(sk, (0, extra), value=I32_MAX)
+        key = torch.nn.functional.pad(key, (0, extra))
+        basec = torch.nn.functional.pad(basec, (0, extra))
+    nxt_filled = sk[:, 1:K + 1] != I32_MAX
+    nxt_base = basec[:, 1:K + 1]
+    sk, key, base = sk[:, :K], key[:, :K], basec[:, :K]
+    cntk = torch.where(nxt_filled, nxt_base, wtot) - base
+    filled = sk != I32_MAX
+    key = torch.where(filled, key, I32_MAX)
+    if k_max > N:
+        extra = k_max - N
+        key = torch.nn.functional.pad(key, (0, extra), value=I32_MAX)
+        cntk = torch.nn.functional.pad(cntk, (0, extra))
+        filled = torch.nn.functional.pad(filled, (0, extra))
+    out = (key.to(torch.int32), torch.where(filled, cntk, 0.0), filled)
+    if return_nuniq:
+        return out + (first.sum(dim=-1, dtype=torch.int32),)
+    return out
+
+
+def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
+                 return_nuniq: bool = False):
+    """Per-row frequency table (agg::count plus taxa2agg's tid != 0 drop):
+    taxa (B, N) int32, entries <= 0 dropped; weights (B, N) float32 or
+    None for 1.0. Returns utaxa (B, k_max) int32 ascending (I32_MAX
+    padding), ucounts (B, k_max) float32, uvalid (B, k_max) bool and,
+    with ``return_nuniq``, the distinct count per row before truncation
+    to the k_max smallest ids.
+
+    CPU tensors take the plain version; CUDA tensors launch K4."""
+    if taxa.device.type == "cpu":
+        return dedup_counts_plain(taxa, weights, k_max, return_nuniq)
+    B, N = taxa.shape
+    if taxa.dtype != torch.int32:
+        raise ValueError("dedup_counts: taxa must be int32")
+    if N > MAX_DEDUP_N:
+        raise ValueError(f"dedup_counts: {N} hits per row > {MAX_DEDUP_N}")
+    tensors = [taxa]
+    if weights is not None:
+        if weights.dtype != torch.float32 or weights.shape != taxa.shape:
+            raise ValueError("dedup_counts: weights must be float32 (B, N)")
+        tensors.append(weights)
+    kernels.check_cuda("dedup_counts", *tensors)
+    dev = taxa.device
+    utaxa = torch.empty((B, k_max), dtype=torch.int32, device=dev)
+    ucounts = torch.empty((B, k_max), dtype=torch.float32, device=dev)
+    uvalid = torch.empty((B, k_max), dtype=torch.bool, device=dev)
+    nuniq = torch.empty((B,), dtype=torch.int32, device=dev)
+    kernels.K4.launch(taxa.data_ptr(),
+                      0 if weights is None else weights.data_ptr(), B, N,
+                      k_max, utaxa.data_ptr(), ucounts.data_ptr(),
+                      uvalid.data_ptr(), nuniq.data_ptr(),
+                      kernels.stream_handle(dev))
+    out = (utaxa, ucounts, uvalid)
+    return out + (nuniq,) if return_nuniq else out
+
+
+def filter_lower_bound(ucounts, uvalid, lower_bound: float):
+    """agg::filter (src/agg/mod.rs:39-44): keep counts >= bound."""
+    return uvalid & (ucounts >= torch.tensor(lower_bound,
+                                             dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------- #
+# Shared geometry
+# ---------------------------------------------------------------------- #
+
+class HitGeometry(NamedTuple):
+    lin: torch.Tensor     # (B, K, D) ancestor rows
+    depth: torch.Tensor   # (B, K) depths (0 where invalid)
+    is_anc: torch.Tensor  # (B, K, K): [b, i, j] = taxon i anc-or-self of j
+    valid: torch.Tensor   # (B, K)
+
+
+def hit_geometry(dtax: DeviceTaxonomy, utaxa, uvalid) -> HitGeometry:
+    size = dtax.depth.shape[0]
+    safe = torch.where(uvalid, utaxa.clamp(0, size - 1), 0).to(torch.int64)
+    rows = dtax.geom[safe]                  # (B, K, 1 + D)
+    lin = rows[..., 1:]
+    dep = torch.where(uvalid, rows[..., 0], 0).clamp(min=0)
+    B, K, D = lin.shape
+    # a[b, i, j] = lin[b, j, dep[b, i]]: an integer gather
+    lin_t = lin.transpose(1, 2)             # (B, D, K)
+    a = torch.gather(lin_t, 1, dep.to(torch.int64)[:, :, None].expand(B, K, K))
+    is_anc = (a == utaxa[:, :, None]) & uvalid[:, :, None] \
+        & uvalid[:, None, :]
+    return HitGeometry(lin, dep, is_anc, uvalid)
+
+
+def _argmax_tiebreak(utaxa, depth, valid, scores):
+    """Max score, then max depth, then min taxon id."""
+    s = torch.where(valid, scores, float("-inf"))
+    smax = s.max(dim=-1, keepdim=True).values
+    cand = valid & (s == smax)
+    d = torch.where(cand, depth, -1)
+    dmax = d.max(dim=-1, keepdim=True).values
+    cand = cand & (d == dmax)
+    return torch.where(cand, utaxa, I32_MAX).min(dim=-1).values
+
+
+# ---------------------------------------------------------------------- #
+# Aggregators
+# ---------------------------------------------------------------------- #
+
+def tree_lca_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa):
+    """LCA* (reference src/tree/lca.rs): the deepest input if all inputs
+    lie on one chain, else the LCA of all inputs."""
+    B, K, D = geom.lin.shape
+    valid = geom.valid
+    dom = (geom.is_anc | ~valid[:, :, None]).all(dim=1) & valid
+    any_dom = dom.any(dim=-1)
+    dom_depth = torch.where(dom, geom.depth, -1)
+    jstar = torch.argmax(dom_depth, dim=-1)
+    chain_result = torch.gather(utaxa, 1, jstar[:, None])[:, 0]
+
+    first_valid = torch.argmax(valid.to(torch.int32), dim=-1)
+    ref = geom.lin[torch.arange(B, device=utaxa.device), first_valid]
+    eq = (geom.lin == ref[:, None, :]) | ~valid[:, :, None]
+    all_eq = eq.all(dim=1) & (ref != NONE)
+    dpos = torch.arange(D, device=utaxa.device, dtype=torch.int32)
+    dstar = torch.argmax(torch.where(all_eq, dpos[None, :], -1), dim=-1)
+    lca_result = torch.gather(ref, 1, dstar[:, None])[:, 0]
+    return torch.where(any_dom, chain_result, lca_result)
+
+
+def rtl_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts):
+    """MRTL (reference src/rmq/rtl.rs:39-57): score of input j = summed
+    counts of inputs that are ancestors-or-self of j; argmax."""
+    c = torch.where(geom.valid, ucounts, 0.0)
+    scores = torch.where(geom.is_anc, c[:, :, None], 0.0).sum(dim=1)
+    return _argmax_tiebreak(utaxa, geom.depth, geom.valid, scores)
+
+
+def tree_mix_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts,
+                   factor: float):
+    """Tree hybrid (reference src/tree/mix.rs:42-64) as a depth-bounded
+    descent: collapse chains freely; at a branching node descend into the
+    heaviest branch while its share of the current chain value is >=
+    factor (ties -> smallest branch id). Branch sums are taken one depth
+    at a time, a (B, K, K) compare each, instead of the JAX package's
+    hoisted (B, D-1, K, K) tensor."""
+    B, K, D = geom.lin.shape
+    dev = utaxa.device
+    c = torch.where(geom.valid, ucounts, 0.0)
+    x = torch.full((B,), dtax.root, dtype=torch.int32, device=dev)
+    a_base = c.sum(dim=-1)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    fac = torch.tensor(factor, dtype=torch.float32, device=dev)
+    neg = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    for d in range(D - 1):
+        lin_d = geom.lin[:, :, d]
+        branch = geom.lin[:, :, d + 1]
+        below = geom.valid & (branch != NONE) & (lin_d == x[:, None])
+        any_below = below.any(dim=-1)
+        same = branch[:, :, None] == branch[:, None, :]
+        bsum = torch.where(same, c[:, None, :], 0.0).sum(dim=-1)
+        bsum = torch.where(below, bsum, neg)
+        maxsum = bsum.max(dim=-1).values
+        cand = below & (bsum == maxsum[:, None])
+        best_branch = torch.where(cand, branch, I32_MAX).min(dim=-1).values
+        bmin = torch.where(below, branch, I32_MAX).min(dim=-1).values
+        bmax = torch.where(below, branch, -1).max(dim=-1).values
+        multi = any_below & (bmin != bmax)
+        ratio_breaks = (maxsum / a_base) < fac
+        descend = ~done & any_below & (~multi | ~ratio_breaks)
+        stop = ~done & (~any_below | (multi & ratio_breaks))
+        nx = torch.where(descend, torch.where(multi, best_branch, bmin), x)
+        a_base = torch.where(descend & multi, maxsum, a_base)
+        x = nx.to(torch.int32)
+        done = done | stop
+    return x
+
+
+def snap_batch(snapping: torch.Tensor, taxa: torch.Tensor, default: int = 0):
+    """Nearest snapped ancestors; out-of-range/unsnappable -> default."""
+    size = snapping.shape[0]
+    s = snapping[taxa.clamp(0, size - 1).to(torch.int64)]
+    ok = (taxa >= 0) & (taxa < size) & (s != NONE)
+    return torch.where(ok, s, default)
+
+
+SUPPORTED_AGGREGATIONS = (("tree", "lca*"), ("tree", "hybrid"),
+                          ("rmq", "mrtl"))
+
+
+def aggregate_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
+                    method: str, strategy: str, factor: float = 0.25):
+    """taxa2agg's dispatch for the 9-mer presets
+    (src/commands/taxa2agg.rs:111-140). The Euler-tour aggregators
+    (rmq/lca*, rmq/hybrid) are not ported yet."""
+    key = (method, strategy)
+    if key in (("rmq", "lca*"), ("rmq", "hybrid")):
+        raise NotImplementedError(
+            f"{method}/{strategy} (the Euler/RMQ aggregators) is not "
+            "ported yet")
+    geom = hit_geometry(dtax, utaxa, uvalid)
+    if key == ("tree", "lca*"):
+        return tree_lca_batch(dtax, geom, utaxa)
+    if key == ("tree", "hybrid"):
+        return tree_mix_batch(dtax, geom, utaxa, ucounts, factor)
+    if key == ("rmq", "mrtl"):
+        return rtl_batch(dtax, geom, utaxa, ucounts)
+    raise ValueError(f"device aggregation does not support {method}/{strategy}")

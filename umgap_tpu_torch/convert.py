@@ -1,0 +1,28 @@
+"""State carried across from the JAX package, given as numpy arrays.
+
+The tests call these on ``np.asarray(...)`` of ``umgap_tpu``'s
+``DeviceTable`` and ``DeviceTaxonomy`` leaves, so that both packages
+compute on the very same index rows and taxonomy tables. Nothing here
+imports the JAX package.
+"""
+
+from __future__ import annotations
+
+from .agg.device import DeviceTaxonomy
+from .ops.lookup import DeviceTable
+
+
+def table_from_arrays(rows, stash, max_probes: int, kind: str, nb_bits: int,
+                      bucket: int, group: int = 1, device=None) -> DeviceTable:
+    """``rows`` (group * n_buckets, 2 * bucket) int32, ``stash`` (S, 3)
+    int32 [hi, lo, value] (any order; sorted here)."""
+    return DeviceTable.from_arrays(rows, stash, max_probes, kind, nb_bits,
+                                   bucket, group=group, device=device)
+
+
+def taxonomy_from_arrays(depth, anc, snap_valid, snap_ranked, root: int,
+                         seed_scores=None, device=None) -> DeviceTaxonomy:
+    """``depth`` (size,), ``anc`` (size, D), the two snappings (size,) and
+    the per-taxon seed scores, all integer arrays."""
+    return DeviceTaxonomy.from_arrays(depth, anc, snap_valid, snap_ranked,
+                                      root, seed_scores, device=device)

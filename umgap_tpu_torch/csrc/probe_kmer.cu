@@ -1,0 +1,172 @@
+// K2 probe_kmer: packed 9-mer keys -> taxon ids from the quotiented
+// bucket table.
+//
+// Replaces umgap_tpu/ops/lookup.py:198 _probe_dense (kmer branch) and
+// the row fetch of the TPU's Pallas probe experiment
+// scripts/exp_pallas_dma.py:31 make_kernel, which kept K HBM->VMEM row
+// copies in flight per 1024-query tile. On Hopper, many row fetches in
+// flight is simply what one thread per query gives: every thread issues
+// its row's 16-byte loads at once, and 132 SMs x 2048 threads keep
+// hundreds of thousands of rows in flight.
+//
+// Per query: Feistel-whiten the (20-bit, 25-bit) key with mix_key
+// (umgap_tpu/index/table.py:68-86, all uint32 arithmetic), take the home
+// bucket = mlo & (nb - 1) and remainder
+// rem = (mlo >> nb_bits) | (mhi << (25 - nb_bits)); for r in
+// 0..max_probes read the remainder half of the row [rems | vals] with
+// 16-byte loads, match rem | (min(r, 1) << 30); a hit reads the one value
+// and ends the query, an empty slot (-1) ends it as a miss. Then the
+// full-key stash (at most a few hundred keys, sorted by (hi, lo) on the
+// host and held in shared memory) is binary-searched; a stash hit
+// overrides, as in the JAX probe. Invalid lanes return the default.
+//
+// Bound on the H100: bytes. Each valid query reads its row's remainder
+// half (bk * 4 bytes; a 32-byte sector for bucket8s) plus one value
+// sector, so a bucket8s probe moves ~64 B and a bucket64s probe ~288 B.
+// Tables beyond the 50 MB L2 make every probe a DRAM row fetch; the
+// design keeps the loads independent and unrolled so that latency is
+// hidden by occupancy rather than paid per query.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr uint32_t MASK20 = (1u << 20) - 1;
+constexpr uint32_t MASK25 = (1u << 25) - 1;
+
+__device__ __forceinline__ uint32_t mx(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ long long stash_key(int32_t h, int32_t l) {
+  return ((long long)h << 32) | (long long)(uint32_t)l;
+}
+
+template <int BK>
+__global__ void probe_kernel(const int32_t* __restrict__ qhi,
+                             const int32_t* __restrict__ qlo,
+                             const uint8_t* __restrict__ qvalid, long long n,
+                             const int32_t* __restrict__ rows, long long nb,
+                             int nb_bits, int max_probes,
+                             const int32_t* __restrict__ stash, int S,
+                             int default_value, int32_t* __restrict__ out,
+                             uint8_t* __restrict__ found) {
+  extern __shared__ int32_t s_stash[];  // (S, 3): hi, lo, value
+  for (int i = threadIdx.x; i < 3 * S; i += blockDim.x) s_stash[i] = stash[i];
+  __syncthreads();
+
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n) return;
+  int32_t res = default_value;
+  uint8_t hit_any = 0;
+  if (qvalid[q]) {
+    const int32_t khi = qhi[q], klo = qlo[q];
+    uint32_t h = (uint32_t)khi, l = (uint32_t)klo;
+    l ^= mx(h + 0x9E3779B1u) & MASK25;
+    h ^= mx(l + 0x85EBCA77u) & MASK20;
+    l ^= mx(h + 0xC2B2AE3Du) & MASK25;
+    const uint64_t bmask = (uint64_t)(nb - 1);
+    uint64_t bucket = (uint64_t)l & bmask;
+    const int32_t rem = (int32_t)((l >> nb_bits) | (h << (25 - nb_bits)));
+
+    for (int r = 0; r <= max_probes; ++r) {
+      const int32_t* row = rows + bucket * (uint64_t)(2 * BK);
+      const int32_t tag = rem | ((r < 1 ? r : 1) << 30);
+      const int4* row4 = reinterpret_cast<const int4*>(row);
+      int4 v[BK / 4];
+#pragma unroll
+      for (int i = 0; i < BK / 4; ++i) v[i] = __ldg(row4 + i);
+      int slot = -1;
+      bool empty = false;
+#pragma unroll
+      for (int i = BK / 4 - 1; i >= 0; --i) {
+        if (v[i].w == tag) slot = 4 * i + 3;
+        if (v[i].z == tag) slot = 4 * i + 2;
+        if (v[i].y == tag) slot = 4 * i + 1;
+        if (v[i].x == tag) slot = 4 * i;
+        empty |= (v[i].x == -1) | (v[i].y == -1) | (v[i].z == -1) |
+                 (v[i].w == -1);
+      }
+      if (slot >= 0) {
+        res = __ldg(row + BK + slot);
+        hit_any = 1;
+        break;
+      }
+      if (empty) break;
+      bucket = (bucket + 1) & bmask;
+    }
+
+    if (S > 0) {
+      const long long key = stash_key(khi, klo);
+      int a = 0, b = S;  // lower bound
+      while (a < b) {
+        const int m = (a + b) >> 1;
+        if (stash_key(s_stash[3 * m], s_stash[3 * m + 1]) < key)
+          a = m + 1;
+        else
+          b = m;
+      }
+      if (a < S && s_stash[3 * a] == khi && s_stash[3 * a + 1] == klo) {
+        res = s_stash[3 * a + 2];
+        hit_any = 1;
+      }
+    }
+  }
+  out[q] = res;
+  found[q] = hit_any;
+}
+
+template <int BK>
+cudaError_t launch(const void* hi, const void* lo, const void* valid,
+                   long long n, const void* rows, long long nb, int nb_bits,
+                   int max_probes, const void* stash, int S,
+                   int default_value, void* out, void* found,
+                   cudaStream_t stream) {
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  const size_t smem = (size_t)S * 3 * sizeof(int32_t);
+  probe_kernel<BK><<<(unsigned)blocks, threads, smem, stream>>>(
+      (const int32_t*)hi, (const int32_t*)lo, (const uint8_t*)valid, n,
+      (const int32_t*)rows, nb, nb_bits, max_probes, (const int32_t*)stash,
+      S, default_value, (int32_t*)out, (uint8_t*)found);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" const char* umgap_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// Returns cudaErrorInvalidValue for a bucket width without an
+// instantiation (the Python wrapper checks first).
+extern "C" int probe_kmer(const void* hi, const void* lo, const void* valid,
+                          long long n, const void* rows, long long nb,
+                          int nb_bits, int bucket, int max_probes,
+                          const void* stash, int S, int default_value,
+                          void* out, void* found, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (bucket) {
+    case 4:
+      return (int)launch<4>(hi, lo, valid, n, rows, nb, nb_bits, max_probes,
+                            stash, S, default_value, out, found, s);
+    case 8:
+      return (int)launch<8>(hi, lo, valid, n, rows, nb, nb_bits, max_probes,
+                            stash, S, default_value, out, found, s);
+    case 16:
+      return (int)launch<16>(hi, lo, valid, n, rows, nb, nb_bits, max_probes,
+                             stash, S, default_value, out, found, s);
+    case 64:
+      return (int)launch<64>(hi, lo, valid, n, rows, nb, nb_bits, max_probes,
+                             stash, S, default_value, out, found, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,190 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``: no
+PyTorch headers are compiled, so a build takes seconds. The libraries
+are built at first use, all sources at once (one ``nvcc`` process each,
+started together), into ``_build/`` next to this file (git-ignored), and
+are cached by a hash of the source and the flags.
+
+Every C entry point launches on the stream it is given (PyTorch's
+current stream), allocates nothing, does not synchronise, and returns
+``cudaGetLastError()``; :meth:`Kernel.launch` raises on a non-zero code
+and counts the launch only when it went through. Nothing here runs at
+import time: the CPU tests import every module without a compiler.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+LL = ctypes.c_longlong
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+class KernelLaunchError(RuntimeError):
+    pass
+
+
+def find_nvcc() -> str:
+    cand = os.environ.get("NVCC") or shutil.which("nvcc")
+    if cand is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        cand = "/usr/local/cuda/bin/nvcc"
+    if cand is None:
+        raise KernelBuildError(
+            "nvcc not found (set NVCC or put the CUDA toolkit on PATH); "
+            "the CUDA kernels are built from umgap_tpu_torch/csrc at first use")
+    return cand
+
+
+class Kernel:
+    """One CUDA source, its C entry point and its launch count."""
+
+    def __init__(self, name: str, source: str, argtypes, replaces: str):
+        self.name = name
+        self.source = source
+        self.argtypes = argtypes
+        self.replaces = replaces
+        self.launches = 0
+        self._fn = None
+        self._err = None
+
+    @property
+    def path(self) -> Path:
+        return CSRC / self.source
+
+    def lib_path(self, nvcc: str) -> Path:
+        h = hashlib.sha256()
+        h.update(self.path.read_bytes())
+        h.update(" ".join([nvcc] + NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.path.stem}-{h.hexdigest()[:16]}.so"
+
+    def _bind(self, lib_path: Path):
+        lib = ctypes.CDLL(str(lib_path))
+        fn = getattr(lib, self.name)
+        fn.argtypes = self.argtypes
+        fn.restype = I
+        err = lib.umgap_cuda_error_string
+        err.argtypes = [I]
+        err.restype = ctypes.c_char_p
+        self._fn, self._err = fn, err
+
+    def launch(self, *args) -> None:
+        if self._fn is None:
+            build_all()
+        rc = self._fn(*args)
+        if rc != 0:
+            msg = self._err(rc).decode()
+            raise KernelLaunchError(f"{self.name}: CUDA error {rc} ({msg})")
+        self.launches += 1
+
+
+K1 = Kernel(
+    "reads_to_kmers", "reads_to_kmers.cu",
+    [P, I, I, P, I, I, I, I, P, P, P, P, P, I, P],
+    "umgap_tpu/ops/encoding.py:57 unpack_dna4_device + "
+    "umgap_tpu/ops/translate.py:88 translate6_batch + "
+    "umgap_tpu/ops/kmers.py:76 pack_windows_batch")
+K2 = Kernel(
+    "probe_kmer", "probe_kmer.cu",
+    [P, P, P, LL, P, LL, I, I, I, P, I, I, P, P, P],
+    "umgap_tpu/ops/lookup.py:198 _probe_dense (kmer branch); "
+    "scripts/exp_pallas_dma.py:31 make_kernel")
+K3 = Kernel(
+    "seedextend_mask", "seedextend_mask.cu",
+    [P, P, LL, I, I, I, P, P],
+    "umgap_tpu/ops/seedextend.py:118 seedextend_mask_batch "
+    "(lax.scan of _scan_seeds, :173)")
+K4 = Kernel(
+    "dedup_counts", "dedup_counts.cu",
+    [P, P, I, I, I, P, P, P, P, P],
+    "umgap_tpu/agg/device.py:79 dedup_counts")
+
+KERNELS = (K1, K2, K3, K4)
+
+# build seconds and ptxas reports of the last build_all() in this process
+BUILD_INFO: dict = {}
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.name: k.launches for k in KERNELS}
+
+
+def build_all(force: bool = False) -> dict:
+    """Compile every source that has no cached library (all ``nvcc``
+    processes started together), then bind all kernels. Returns
+    ``{"seconds": ..., "built": [...], "logs": {name: ptxas text}}``."""
+    if not force and all(k._fn is not None for k in KERNELS):
+        return BUILD_INFO
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for k in KERNELS:
+        out = k.lib_path(nvcc)
+        if out.exists() and not force:
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.path)]
+        procs.append((k, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    logs = {}
+    failed = []
+    for k, out, tmp, proc in procs:
+        text = proc.communicate()[0].decode(errors="replace")
+        logs[k.name] = text
+        if proc.returncode != 0:
+            failed.append(f"{k.source}:\n{text}")
+            continue
+        os.replace(tmp, out)
+        out.with_suffix(".log").write_text(text)
+    if failed:
+        raise KernelBuildError("nvcc failed for " + "\n".join(failed))
+    for k in KERNELS:
+        out = k.lib_path(nvcc)
+        if k.name not in logs and out.with_suffix(".log").exists():
+            logs[k.name] = out.with_suffix(".log").read_text()
+        k._bind(out)
+    BUILD_INFO.clear()
+    BUILD_INFO.update(seconds=time.perf_counter() - t0,
+                      built=[k.name for k, *_ in procs], logs=logs)
+    return BUILD_INFO
+
+
+def stream_handle(device) -> int:
+    """PyTorch's current stream on ``device`` as a raw handle."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_cuda(name: str, *tensors) -> None:
+    """Wrapper-side checks shared by the kernels: every tensor on one
+    CUDA device and contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")

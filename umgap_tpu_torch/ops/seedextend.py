@@ -1,0 +1,94 @@
+"""Seed-and-extend keep masks: kernel K3 (``csrc/seedextend_mask.cu``)
+and its plain PyTorch version.
+
+Semantics (``umgap_tpu.ops.seedextend``, reference
+src/commands/seedextend.rs:96-178), with ``s`` = min seed size and ``g``
+= max gap size: runs of id 0 are gaps; an extended seed is a maximal
+stretch of non-zero runs joined by gaps of length <= g; it is kept iff
+its longest non-zero run is >= s. The reference's order-dependent state
+machine (including its leading-gap quirk and the trailing-gap trim) is
+run per lane; seed pushes become +1/-1 deltas whose running sum > 0 is
+the keep mask.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+
+
+def seedextend_mask_plain(taxa: torch.Tensor, lengths: torch.Tensor,
+                          min_seed_size: int = 2, max_gap_size: int = 0):
+    """Plain version of K3: the state machine as a Python loop over
+    positions, every lane advancing together (``_scan_seeds``)."""
+    N = taxa.shape[-1]
+    lanes = taxa.shape[:-1]
+    dev = taxa.device
+    t = taxa.reshape(-1, N).to(torch.int32)
+    ln = lengths.reshape(-1).to(torch.int64)
+    nl = t.shape[0]
+    pos = torch.arange(N, device=dev)
+    inside = pos[None, :] < ln[:, None]
+    t = torch.where(inside, t, 0)
+    tx = torch.cat([t, torch.zeros((nl, 1), dtype=torch.int32, device=dev)],
+                   dim=1)
+    # column N collects pushes that fall outside [0, N)
+    d = torch.zeros((nl, N + 1), dtype=torch.int32, device=dev)
+
+    def add(p, mask, v):
+        col = torch.where((p >= 0) & (p < N), p, N)
+        d.scatter_add_(1, col[:, None], (mask.to(torch.int32) * v)[:, None])
+
+    start = torch.zeros(nl, dtype=torch.int64, device=dev)
+    last = tx[:, 0]
+    same_tid = torch.ones(nl, dtype=torch.int64, device=dev)
+    same_max = torch.ones(nl, dtype=torch.int64, device=dev)
+    for end in range(1, N + 1):
+        cur = tx[:, end]
+        same = last == cur
+        b1 = ~same & (last == 0) & (same_tid > max_gap_size)
+        b2 = ~same & ~b1 & (last == 0) & ((end - start) == same_tid)
+        b3 = ~same & ~b1 & ~b2
+        push = b1 & (same_max >= min_seed_size)
+        add(start, push, 1)
+        add(end - same_tid, push, -1)
+        n_start = torch.where(b1, end, torch.where(b2, end + 1, start))
+        n_last = torch.where(same | b2, last, cur)
+        n_same_tid = torch.where(same, same_tid + 1,
+                                 torch.where(b2, same_tid, 1))
+        n_same_max = torch.where(
+            b1, 1, torch.where(b3 & (last != 0),
+                               torch.maximum(same_max, same_tid), same_max))
+        start, last, same_tid, same_max = n_start, n_last, n_same_tid, \
+            n_same_max
+    f_push = same_max >= min_seed_size
+    add(start, f_push, 1)
+    add(torch.where(last == 0, N + 1 - same_tid, N + 1), f_push, -1)
+    keep = (torch.cumsum(d[:, :N], dim=1) > 0) & inside
+    return keep.reshape(lanes + (N,))
+
+
+def seedextend_mask_batch(taxa: torch.Tensor, lengths: torch.Tensor,
+                          min_seed_size: int = 2, max_gap_size: int = 0):
+    """Keep mask (..., N) bool of a padded batch of window taxa (..., N)
+    int32 with valid lengths (...). CPU tensors take the plain version;
+    CUDA tensors launch K3."""
+    if taxa.device.type == "cpu":
+        return seedextend_mask_plain(taxa, lengths, min_seed_size,
+                                     max_gap_size)
+    N = taxa.shape[-1]
+    if taxa.dtype != torch.int32 or lengths.dtype != torch.int32 \
+            or lengths.shape != taxa.shape[:-1]:
+        raise ValueError("seedextend_mask: taxa (..., N) int32 and lengths "
+                         "(...) int32 expected")
+    if N > 3600:
+        raise ValueError(f"seedextend_mask: {N} windows per lane exceed "
+                         "the kernel's shared-memory rows (3600)")
+    kernels.check_cuda("seedextend_mask", taxa, lengths)
+    keep = torch.empty(taxa.shape, dtype=torch.bool, device=taxa.device)
+    kernels.K3.launch(taxa.data_ptr(), lengths.data_ptr(),
+                      lengths.numel(), N, int(min_seed_size),
+                      int(max_gap_size), keep.data_ptr(),
+                      kernels.stream_handle(taxa.device))
+    return keep

@@ -1,0 +1,182 @@
+"""The 9-mer analysis pipeline as one chain of device stages.
+
+The composition of the reference's preset pipelines
+(scripts/umgap-analyse.sh:276-311):
+
+    translate -a | prot2kmer2lca -m -o | seedextend -gG -sS
+                 | uniq -d / | taxa2agg -lL [-m rmq -a mrtl | -a ...]
+
+over a padded batch of read pairs. On CUDA the chain is
+K1 reads_to_kmers -> K2 probe_kmer -> K3 seedextend_mask ->
+K4 dedup_counts -> the plain PyTorch aggregation tail; on the CPU every
+stage runs its plain version. ``run_stages(..., plain=True)`` composes
+the plain versions on any device: it is the reference the kernels are held
+against on the card, and no entry point uses it.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ..agg import device as devagg
+from ..ops import encoding, lookup, seedextend, translate
+
+
+class PipelineConfig(NamedTuple):
+    """One preset's parameters (umgap-analyse.sh:276-311)."""
+
+    name: str
+    k: int = 9
+    min_seed_size: int = 2
+    max_gap_size: int = 1
+    lower_bound: float = 1.0
+    method: str = "rmq"
+    strategy: str = "mrtl"
+    factor: float = 0.25
+    table_number: int = 1
+    # Per-read distinct-taxa capacity of the fast program; reads with
+    # more are flagged (with_overflow) and re-run by the Analyser through
+    # a program wide enough to be exact.
+    k_max: int = 64
+
+
+PRESETS = {
+    "max-sensitivity": PipelineConfig(
+        "max-sensitivity", min_seed_size=2, max_gap_size=1, lower_bound=1.0,
+        method="rmq", strategy="mrtl"),
+    "high-sensitivity": PipelineConfig(
+        "high-sensitivity", min_seed_size=3, max_gap_size=1, lower_bound=1.0,
+        method="tree", strategy="hybrid", factor=0.25),
+    "high-precision": PipelineConfig(
+        "high-precision", min_seed_size=3, max_gap_size=1, lower_bound=2.0,
+        method="tree", strategy="lca*"),
+    "max-precision": PipelineConfig(
+        "max-precision", min_seed_size=4, max_gap_size=1, lower_bound=5.0,
+        method="tree", strategy="lca*"),
+}
+
+_KERNEL_OPS = (translate.reads_to_kmers, lookup.probe,
+               seedextend.seedextend_mask_batch, devagg.dedup_counts)
+_PLAIN_OPS = (translate.reads_to_kmers_plain, lookup.probe_plain,
+              seedextend.seedextend_mask_plain, devagg.dedup_counts_plain)
+
+
+def check_config(config: PipelineConfig) -> None:
+    """Refuse what this port does not run yet, before any batch."""
+    if (config.method, config.strategy) not in \
+            devagg.SUPPORTED_AGGREGATIONS:
+        raise NotImplementedError(
+            f"{config.method}/{config.strategy} aggregation is not ported")
+
+
+def run_stages(reads, lengths, length: int, packed: bool,
+               dtax: devagg.DeviceTaxonomy, dtable: lookup.DeviceTable,
+               config: PipelineConfig, with_overflow: bool = False,
+               plain: bool = False, timer=None):
+    """One batch: reads (B*E, row) uint8 (packed4 or codes), lengths
+    (B, E) int32 -> taxon (B,) int32 [, overflow (B,) bool].
+
+    ``timer``, when given, is a callable ``timer(name)`` returning a
+    context manager around each stage (used for per-stage timings)."""
+    from contextlib import nullcontext
+
+    stage = timer or (lambda _name: nullcontext())
+    r2k, probe, seedext, dedup = _PLAIN_OPS if plain else _KERNEL_OPS
+    B, E = lengths.shape
+    table = encoding.get_table(config.table_number)
+    with stage("reads_to_kmers"):
+        hi, lo, wvalid, plens = r2k(reads, lengths.reshape(-1), length,
+                                    table, config.k, packed=packed)
+    with stage("probe"):
+        # '-o': misses and invalid windows read 0
+        taxa, _found = probe(dtable, hi, lo, wvalid, 0)
+    with stage("seedextend"):
+        W = taxa.shape[-1]
+        nkmers = (plens - (config.k - 1)).clamp(min=0)
+        keep = seedext(taxa, nkmers, config.min_seed_size,
+                       config.max_gap_size)
+        hits = torch.where(keep, taxa, 0).reshape(B, E * 6 * W)
+    with stage("dedup"):
+        utaxa, ucounts, uvalid, nuniq = dedup(hits, None, config.k_max,
+                                              return_nuniq=True)
+    with stage("aggregate"):
+        uvalid = devagg.filter_lower_bound(ucounts, uvalid,
+                                           config.lower_bound)
+        agg = devagg.aggregate_batch(dtax, utaxa, ucounts, uvalid,
+                                     config.method, config.strategy,
+                                     config.factor)
+        snapped = devagg.snap_batch(dtax.snap_valid, agg, default=0)
+        taxon = torch.where(uvalid.any(dim=-1), snapped, 1).to(torch.int32)
+    if with_overflow:
+        return taxon, nuniq > config.k_max
+    return taxon
+
+
+def pipeline_step(dna, lengths, dtax: devagg.DeviceTaxonomy,
+                  dtable: lookup.DeviceTable, config: PipelineConfig,
+                  with_overflow: bool = False):
+    """One fused batch step on DNA codes.
+
+    Args:
+      dna: (B, E, L) uint8 DNA codes (E = reads per group, e.g. 2 ends).
+      lengths: (B, E) int32.
+
+    Returns:
+      taxon (B,) int32, the consensus taxon per read group (1 when no hit
+      survives); with ``with_overflow`` also (B,) bool marking groups
+      with more than ``config.k_max`` distinct surviving taxa.
+    """
+    check_config(config)
+    B, E, L = dna.shape
+    return run_stages(dna.reshape(B * E, L).contiguous(), lengths, L, False,
+                      dtax, dtable, config, with_overflow)
+
+
+class Pipeline(nn.Module):
+    """``make_pipeline``'s module: holds the device state and runs one
+    batch of the 4-bit packed wire per call,
+    ``forward(dna4, lengths, length)`` with dna4 (B, E, ceil(L/2)) uint8
+    (:func:`encoding.pack_dna4`), lengths (B, E) int32 and the unpacked
+    width L."""
+
+    # True runs every stage's plain version (see run_stages)
+    plain = False
+
+    def __init__(self, dtax, dtable, config: PipelineConfig,
+                 with_overflow: bool):
+        super().__init__()
+        check_config(config)
+        self.dtax = dtax
+        self.dtable = dtable
+        self.config = config
+        self.with_overflow = with_overflow
+
+    def forward(self, dna4, lengths, length: int, timer=None):
+        B, E = lengths.shape
+        reads = dna4.reshape(B * E, dna4.shape[-1]).contiguous()
+        with torch.no_grad():
+            return run_stages(reads, lengths, length, True, self.dtax,
+                              self.dtable, self.config, self.with_overflow,
+                              self.plain, timer)
+
+
+def make_pipeline(dtax: devagg.DeviceTaxonomy, dtable: lookup.DeviceTable,
+                  config: PipelineConfig, wire: str = "packed4",
+                  with_overflow: bool = False, device=None) -> Pipeline:
+    """The per-batch step as a module over device-resident state, on
+    ``device`` (default: the current CUDA device; state elsewhere is
+    moved there). The port has the ``packed4`` wire only; DNA codes go
+    through :func:`pipeline_step`."""
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    if dtax.device != dev:
+        dtax = dtax.to(dev)
+    if dtable.device != dev:
+        dtable = dtable.to(dev)
+    if wire != "packed4":
+        raise ValueError(f"unsupported wire {wire!r}: packed4 only")
+    return Pipeline(dtax, dtable, config, with_overflow)

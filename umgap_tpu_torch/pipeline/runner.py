@@ -1,0 +1,317 @@
+"""Host-side streaming runner: batches of read groups in, one consensus
+taxon per group out, in input order.
+
+:class:`BatchStream` (a copy of the JAX package's backend-neutral
+batcher) keeps up to ``depth`` batches in flight: batch i + 1 is encoded,
+copied and launched before batch i is brought back to the host, so host
+work overlaps device work. :class:`Analyser` holds the taxonomy and the
+index on the device and runs the fused pipeline over the 4-bit packed
+wire, from pinned host buffers with non-blocking copies. Groups with more
+distinct taxa than ``k_max`` are re-run through a program wide enough to
+be exact, never truncated.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..agg import device as devagg
+from ..device import resolve_device
+from ..io import fastq
+from ..ops import encoding, lookup
+from ..taxonomy import Taxonomy
+from .fused import PipelineConfig, make_pipeline
+
+
+def encode_batch(groups: Sequence[Sequence[str]], ends: int, length: int):
+    """Encode read groups into (B, E, L) codes + lengths. A record longer
+    than ``length`` is an error: this port has no long-read route yet
+    and never clips."""
+    B = len(groups)
+    dna = np.full((B, ends, length), encoding.DNA_N, dtype=np.uint8)
+    lens = np.zeros((B, ends), dtype=np.int32)
+    for i, group in enumerate(groups):
+        for e, seq in enumerate(group[:ends]):
+            codes = encoding.encode_dna(seq)
+            if len(codes) > length:
+                raise ValueError(
+                    f"record of {len(codes)} bp exceeds --read-length "
+                    f"{length}; longer records are not supported by "
+                    "umgap_tpu_torch yet (raise --read-length)")
+            dna[i, e, : len(codes)] = codes
+            lens[i, e] = len(codes)
+    return dna, lens
+
+
+def _open_plain(path: str):
+    with open(path, "rb") as f:
+        if f.read(2) == b"\x1f\x8b":
+            raise ValueError(f"{path} is gzipped; gzip input is not "
+                             "supported by umgap_tpu_torch yet")
+    return open(path, "r")
+
+
+def read_groups_fastq(paths: Sequence[str], delimiter: str = "/"):
+    """Yield (header, [sequences...]) groups from paired FASTQ files,
+    header stripped at the delimiter (uniq -d semantics); stops at the
+    shorter file."""
+    handles = [_open_plain(p) for p in paths]
+    try:
+        readers = [fastq.read_records(h) for h in handles]
+        for group in fastq.interleave(readers):
+            header = group[0].header
+            idx = header.find(delimiter)
+            if idx != -1:
+                header = header[:idx]
+            yield header, [rec.sequence for rec in group]
+    finally:
+        for h in handles:
+            h.close()
+
+
+def read_groups_fasta(path: str, delimiter: str = "/"):
+    """Single-end FASTA ingest: one group per record."""
+    from ..io import fasta
+
+    with _open_plain(path) as f:
+        for rec in fasta.read_records(f, unwrap=True):
+            header = rec.header
+            idx = header.find(delimiter)
+            if idx != -1:
+                header = header[:idx]
+            yield header, [rec.sequence[0] if rec.sequence else ""]
+
+
+class BatchStream:
+    """Order-preserving streaming batcher with depth-bounded pipelining.
+
+    Subclasses provide ``_dispatch(dna, lens)`` (launch one padded
+    (B, E, L) batch asynchronously, return a handle) and
+    ``_finalize(handle, dna, lens, n)`` (bring the handle back as a
+    per-group result array of length >= n)."""
+
+    depth = 2
+
+    def __init__(self, batch_size: int, read_length: int, ends: int):
+        self.batch_size = batch_size
+        self.read_length = read_length
+        self.ends = ends
+        self._pend: List[Tuple[List[str], np.ndarray, np.ndarray]] = []
+        self._pend_n = 0
+        self._inflight: List = []
+
+    def _dispatch(self, dna: np.ndarray, lens: np.ndarray):
+        raise NotImplementedError
+
+    def _finalize(self, handle, dna, lens, n) -> np.ndarray:
+        raise NotImplementedError
+
+    def _norm(self, dna: np.ndarray, lens: np.ndarray):
+        L = self.read_length
+        if dna.shape[-1] > L:
+            raise ValueError(
+                f"chunk width {dna.shape[-1]} exceeds read_length {L}")
+        if dna.shape[-1] < L:
+            dna = np.pad(dna, ((0, 0), (0, 0), (0, L - dna.shape[-1])),
+                         constant_values=encoding.DNA_N)
+        return dna, np.minimum(lens, L)
+
+    def _emit_batch(self, item):
+        headers, dna, lens, n, handle = item
+        return headers, self._finalize(handle, dna, lens, n)[:n]
+
+    def _launch(self, headers, dna, lens):
+        n = len(headers)
+        B = self.batch_size
+        if n < B:
+            dna = np.pad(dna, ((0, B - n), (0, 0), (0, 0)),
+                         constant_values=encoding.DNA_N)
+            lens = np.pad(lens, ((0, B - n), (0, 0)))
+        handle = self._dispatch(dna, lens)
+        self._inflight.append((headers, dna, lens, n, handle))
+
+    def _take_batch(self):
+        B = self.batch_size
+        hs: List[str] = []
+        ds: List[np.ndarray] = []
+        ls: List[np.ndarray] = []
+        need = B
+        while need:
+            bh, bd, bl = self._pend[0]
+            if len(bh) <= need:
+                self._pend.pop(0)
+                hs.extend(bh)
+                ds.append(bd)
+                ls.append(bl)
+                need -= len(bh)
+            else:
+                hs.extend(bh[:need])
+                ds.append(bd[:need])
+                ls.append(bl[:need])
+                self._pend[0] = (bh[need:], bd[need:], bl[need:])
+                need = 0
+        self._pend_n -= B
+        return hs, np.concatenate(ds), np.concatenate(ls)
+
+    def reset(self):
+        self._pend, self._pend_n, self._inflight = [], 0, []
+
+    def feed_batches(self, headers: List[str], dna: np.ndarray,
+                     lens: np.ndarray):
+        """Queue one chunk; yields completed (headers, taxa) batches."""
+        if len(headers):
+            dna, lens = self._norm(np.asarray(dna), np.asarray(lens))
+            self._pend.append((list(headers), dna, lens))
+            self._pend_n += len(headers)
+        while self._pend_n >= self.batch_size:
+            self._launch(*self._take_batch())
+            while len(self._inflight) > self.depth:
+                yield self._emit_batch(self._inflight.pop(0))
+
+    def feed(self, headers: List[str], dna: np.ndarray, lens: np.ndarray):
+        for hs, ts in self.feed_batches(headers, dna, lens):
+            for h, t in zip(hs, ts):
+                yield h, int(t)
+
+    def finish_batches(self):
+        """Flush the partial tail batch and drain everything in flight."""
+        if self._pend_n:
+            hs, ds, ls = [], [], []
+            for bh, bd, bl in self._pend:
+                hs.extend(bh)
+                ds.append(bd)
+                ls.append(bl)
+            self._pend, self._pend_n = [], 0
+            self._launch(hs, np.concatenate(ds), np.concatenate(ls))
+        while self._inflight:
+            yield self._emit_batch(self._inflight.pop(0))
+
+    def finish(self):
+        for hs, ts in self.finish_batches():
+            for h, t in zip(hs, ts):
+                yield h, int(t)
+
+    def analyse_groups(self, groups):
+        """groups: iterable of (header, [seq...]). Yields (header, taxon)."""
+        buf_h: List[str] = []
+        buf_s: List[Sequence[str]] = []
+        for header, seqs in groups:
+            buf_h.append(header)
+            buf_s.append(seqs)
+            if len(buf_h) == self.batch_size:
+                dna, lens = encode_batch(buf_s, self.ends, self.read_length)
+                yield from self.feed(buf_h, dna, lens)
+                buf_h, buf_s = [], []
+        if buf_h:
+            dna, lens = encode_batch(buf_s, self.ends, self.read_length)
+            yield from self.feed(buf_h, dna, lens)
+        yield from self.finish()
+
+
+class Analyser(BatchStream):
+    """Device-resident taxonomy and index across samples, the analogue of
+    the reference's socket index service. Runs on the current CUDA device
+    unless ``device`` says otherwise (``device="cpu"`` for the plain
+    path); pass prebuilt ``dtax`` / ``dtable`` to share device state."""
+
+    WIDE_BATCH = 64
+
+    def __init__(self, tax: Taxonomy | None, table, config: PipelineConfig,
+                 batch_size: int = 1024, read_length: int = 160,
+                 ends: int = 2, dtax=None, dtable=None, device=None):
+        super().__init__(batch_size, read_length, ends)
+        self.config = config
+        self.device = resolve_device(device)
+        self.dtax = (dtax if dtax is not None
+                     else devagg.DeviceTaxonomy.from_host(tax, self.device))
+        self.dtable = (dtable if dtable is not None
+                       else lookup.DeviceTable.from_host(table, self.device))
+        self.step = make_pipeline(self.dtax, self.dtable, config,
+                                  wire="packed4", with_overflow=True,
+                                  device=self.device)
+        self._wide_step = None
+        self.overflow_reads = 0
+
+    def _exact_kmax(self) -> int:
+        # >= hit slots (windows per frame) for any padded protein length
+        return self.ends * 6 * max((self.read_length + 2) // 3, 1)
+
+    @property
+    def _wide_batch(self) -> int:
+        # bound the wide program's (B, K, K) aggregation tensors
+        exact = self._exact_kmax()
+        return max(1, min(self.WIDE_BATCH,
+                          (1 << 28) // max(exact * exact, 1)))
+
+    def _wide(self):
+        if self._wide_step is None:
+            cfg = self.config._replace(k_max=self._exact_kmax())
+            self._wide_step = make_pipeline(self.dtax, self.dtable, cfg,
+                                            wire="packed4",
+                                            with_overflow=False,
+                                            device=self.device)
+        return self._wide_step
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return t
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        return h
+
+    def _dispatch(self, dna, lens):
+        taxon, overflow = self.step(
+            self._to_device(encoding.pack_dna4(dna)), self._to_device(lens),
+            self.read_length)
+        handle = (self._to_host(taxon), self._to_host(overflow), None)
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            handle = handle[:2] + (ev,)
+        return handle
+
+    def _finalize(self, handle, dna, lens, n):
+        taxon, overflow, ev = handle
+        if ev is not None:
+            ev.synchronize()
+        taxa = taxon.numpy().copy()
+        overflow = overflow.numpy().copy()
+        overflow[n:] = False
+        idx = np.nonzero(overflow)[0]
+        if len(idx):
+            self.overflow_reads += len(idx)
+            taxa[idx] = self.run_wide(dna[idx], lens[idx])
+        return taxa
+
+    def run_wide(self, dna: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """Exact results for (n, E, L) code rows through the wide
+        program, in fixed batches of ``_wide_batch`` rows."""
+        wide = self._wide()
+        W = self._wide_batch
+        out = np.empty(len(dna), dtype=np.int32)
+        for s in range(0, len(dna), W):
+            nd = dna[s:s + W]
+            nl = lens[s:s + W]
+            m = len(nd)
+            if m < W:
+                nd = np.pad(nd, ((0, W - m), (0, 0), (0, 0)),
+                            constant_values=encoding.DNA_N)
+                nl = np.pad(nl, ((0, W - m), (0, 0)))
+            res = wide(self._to_device(encoding.pack_dna4(nd)),
+                       self._to_device(nl), self.read_length)
+            out[s:s + m] = res[:m].cpu().numpy()
+        return out
+
+    def analyse_arrays(self, headers, dna: np.ndarray, lens: np.ndarray):
+        """Pre-encoded groups: dna (N, E, L) codes, lens (N, E)."""
+        yield from self.feed(list(headers), dna, lens)
+        yield from self.finish()

@@ -1,0 +1,197 @@
+"""Taxonomy model as dense arrays (a copy of what the analyse path needs
+from ``umgap_tpu.taxonomy``).
+
+Dense, id-indexed numpy vectors (parent, rank, valid, depth, snapping)
+are built once on the host and moved to the device, so every per-read
+tree operation becomes a gather. The 5-column taxon TSV
+(``id\\tname\\trank\\tparent\\t\\x01|\\x00``) parses exactly like the
+reference's ``Taxon::from_str`` (src/taxon.rs:89-113).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import numpy as np
+
+from . import ranks
+
+
+class TaxonomyError(ValueError):
+    """Raised for malformed taxon files or unknown taxa."""
+
+
+@dataclass(frozen=True)
+class Taxon:
+    id: int
+    name: str
+    rank: int  # index into ranks.RANK_NAMES
+    parent: int
+    valid: bool
+
+
+def parse_taxon_line(line: str) -> Taxon:
+    """Parse one taxon TSV line (reference src/taxon.rs:89-113).
+
+    Trailing whitespace is trimmed first; exactly five tab-separated fields
+    are required; the valid byte must be \\x01 (true) or \\x00 (false).
+    """
+    fields = line.rstrip().split("\t")
+    if len(fields) != 5:
+        raise TaxonomyError("Taxon requires five fields")
+    sid, name, rank_str, sparent, valid_byte = fields
+    try:
+        tid = int(sid)
+        parent = int(sparent)
+    except ValueError as e:
+        raise TaxonomyError(f"Invalid taxon ID: {e}") from e
+    if tid < 0 or parent < 0:
+        raise TaxonomyError("Invalid taxon ID: negative")
+    try:
+        rank = ranks.rank_index(rank_str)
+    except KeyError:
+        raise TaxonomyError(f"Unknown rank: {rank_str}") from None
+    if valid_byte == "\x01":
+        valid = True
+    elif valid_byte == "\x00":
+        valid = False
+    else:
+        raise TaxonomyError("Couldn't parse the valid byte")
+    return Taxon(tid, name, rank, parent, valid)
+
+
+def read_taxa_file(path) -> list[Taxon]:
+    """Read a taxon TSV file, one taxon per line (src/taxon.rs:119-128)."""
+    taxa = []
+    with open(path, "r", encoding="utf-8", newline="") as f:
+        for line in f:
+            line = line.rstrip("\n").rstrip("\r")
+            taxa.append(parse_taxon_line(line))
+    return taxa
+
+
+# Sentinel for "no taxon" in int arrays (None in the reference).
+NONE = -1
+
+
+class Taxonomy:
+    """Dense array view of a taxon list, indexed by taxon id (length
+    ``max_id + 1``)."""
+
+    def __init__(self, taxa: Sequence[Taxon]):
+        if not taxa:
+            raise TaxonomyError("empty taxonomy")
+        n = max(t.id for t in taxa) + 1
+        self.size = n
+        self.present = np.zeros(n, dtype=bool)
+        self.parent = np.full(n, NONE, dtype=np.int64)
+        self.rank = np.zeros(n, dtype=np.int8)
+        self.valid = np.zeros(n, dtype=bool)
+
+        roots = set(t.id for t in taxa)
+        for t in taxa:
+            i = t.id
+            self.present[i] = True
+            self.parent[i] = t.parent
+            self.rank[i] = t.rank
+            self.valid[i] = t.valid
+            if t.id != t.parent:
+                roots.discard(t.id)
+        if len(roots) > 1:
+            raise TaxonomyError("More than one root!")
+        if not roots:
+            raise TaxonomyError("There's no root!")
+        self.root = next(iter(roots))
+
+        # Depth of every node reachable from the root through present
+        # parents; unreachable/absent nodes keep depth NONE. Level-by-level
+        # relaxation (at most max-depth passes).
+        depth = np.full(n, NONE, dtype=np.int64)
+        depth[self.root] = 0
+        ids = np.nonzero(self.present)[0]
+        parents = self.parent[ids]
+        parent_ok = (parents >= 0) & (parents < n)
+        for _ in range(n):
+            pd = np.where(parent_ok, depth[np.clip(parents, 0, n - 1)], NONE)
+            newd = np.where(
+                (depth[ids] == NONE) & (pd != NONE) & (ids != self.root),
+                pd + 1,
+                depth[ids],
+            )
+            if np.array_equal(newd, depth[ids]):
+                break
+            depth[ids] = newd
+        self.depth = depth
+        self.max_depth = int(depth.max(initial=0))
+
+    def filter_ancestors(self, keep: np.ndarray) -> np.ndarray:
+        """For every node reachable from the root, the nearest ancestor-or-
+        self passing ``keep``; the root maps to itself even when it fails
+        the filter (TaxonTree::filter_ancestors, src/taxon.rs:251-281).
+        Unreachable slots are NONE."""
+        snap = np.full(self.size, NONE, dtype=np.int64)
+        snap[self.root] = self.root
+        depth = self.depth
+        for d in range(1, int(depth.max()) + 1):
+            ids = np.flatnonzero(depth == d)
+            if len(ids):
+                snap[ids] = np.where(keep[ids], ids, snap[self.parent[ids]])
+        return snap
+
+    def snapping(self, ranked_only: bool) -> np.ndarray:
+        """Nearest valid (and optionally ranked) ancestor per node
+        (TaxonTree::snapping, src/taxon.rs:294-301)."""
+        keep = self.present & self.valid
+        if ranked_only:
+            keep &= self.rank != ranks.NO_RANK
+        return self.filter_ancestors(keep)
+
+    def seed_scores(self) -> np.ndarray:
+        """Vectorized TaxonList::score (src/taxon.rs:181-191): the rank
+        score of each node's nearest ranked ancestor-or-self; 0 encodes
+        "no score"."""
+        keep = self.present & (self.rank != ranks.NO_RANK)
+        anc = self.filter_ancestors(keep)
+        out = np.zeros(self.size, dtype=np.int32)
+        ok = anc != NONE
+        out[ok] = ranks.RANK_SCORES[self.rank[anc[ok]]]
+        return out
+
+    def ancestor_table(self) -> np.ndarray:
+        """``anc[i, d]`` = ancestor of node i at depth d (NONE above the
+        node's own depth or for unreachable nodes), int32, shape
+        ``(size, max_depth + 1)``."""
+        D = self.max_depth + 1
+        anc = np.full((self.size, D), NONE, dtype=np.int32)
+        anc[self.root, 0] = self.root
+        depth = self.depth
+        for d in range(1, D):
+            ids = np.flatnonzero(depth == d)
+            if len(ids):
+                anc[ids, :d] = anc[self.parent[ids], :d]
+                anc[ids, d] = ids
+        return anc
+
+    @property
+    def anc_table(self) -> np.ndarray:
+        """Cached ``ancestor_table``."""
+        if not hasattr(self, "_anc_table"):
+            self._anc_table = self.ancestor_table()
+        return self._anc_table
+
+
+def fixture_taxa() -> list[Taxon]:
+    """The 6-taxon test taxonomy of the reference's unit tests
+    (src/fixtures.rs:4-21)."""
+    S = ranks.rank_index("superkingdom")
+    F = ranks.rank_index("family")
+    N = ranks.NO_RANK
+    return [
+        Taxon(1, "root", N, 1, True),
+        Taxon(2, "Bacteria", S, 1, True),
+        Taxon(10239, "Viruses", S, 1, True),
+        Taxon(12884, "Viroids", S, 1, True),
+        Taxon(185751, "Pospiviroidae", F, 12884, True),
+        Taxon(185752, "Avsunviroidae", F, 12884, True),
+    ]
