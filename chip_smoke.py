@@ -4,16 +4,20 @@
     python3 chip_smoke.py            # every phase, one card
 
 Builds the CUDA kernels from ``umgap_tpu_torch/csrc``, holds each kernel
-to its plain PyTorch version on the card, drives the port's main path
-(the 9-mer ``analyse`` presets through ``Analyser`` over the tracked
-``.bench_data`` workload: 32,768 read pairs of 100 bp, a 2 M-key index,
-20 k taxa), runs a 4.3 GB card-resident bucket64s index, and runs the
-``analyse`` command line in a subprocess. Every phase always runs; the
+to its plain PyTorch version on the card (K1-K6 chained on a
+16,384-pair batch at L = 100 and 160, K6 also at the wide program's
+width, and K5 at the shapes of each TPU gather kernel it ports), drives
+the port's main path (the 9-mer ``analyse`` presets through ``Analyser``
+over the tracked ``.bench_data`` workload: 32,768 read pairs of 100 bp,
+a 2 M-key index, 20 k taxa), the wide re-route program on one batch,
+runs a 4.3 GB card-resident bucket64s index, runs the ``analyse``
+command line in a subprocess, and runs the Euler/RMQ aggregations
+(rmq/lca*, rmq/hybrid) over the workload. Every phase always runs; the
 script takes no arguments. Every comparison is exact (all outputs are
 integer ids, masks and counts). Each path's launch counts are reset
-before it is driven and must all be above 0 after. End-to-end rates are
-steady-state windows of a few seconds over one stream. Any failure
-exits non-zero; nothing falls back to the CPU.
+before it is driven and the counts of the kernels it runs must be above
+0 after. End-to-end rates are steady-state windows of a few seconds over
+one stream. Any failure exits non-zero; nothing falls back to the CPU.
 
 Output: progress on stderr; on stdout the card's name and power limit,
 one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
@@ -49,9 +53,11 @@ OPS_PER_S = 67e12
 RESULT: dict = {"phases": {}}
 
 # sha256 of the int32 taxa that umgap_tpu, the JAX package (on the CPU),
-# gives for the first 1,024 .bench_data pairs under each preset;
+# gives for the first 1,024 .bench_data pairs under each preset and under
+# the two Euler/RMQ aggregations (max-sensitivity's seeds,
+# PipelineConfig(method="rmq", strategy=...));
 # tests/test_torch_pipeline.py recomputes them with umgap_tpu. The card's
-# main-path output is held to them.
+# output is held to them.
 REFERENCE_PAIRS = 1024
 REFERENCE_DIGESTS = {
     "max-sensitivity":
@@ -62,7 +68,12 @@ REFERENCE_DIGESTS = {
         "8339e66be8a73eb0194123e7979dec6d4a96f6715a7a2851210e5a08f2b81a82",
     "max-precision":
         "4642c39fde62371e39c644be2a7dc2f925d4d37c94088d15e28f71cd444f50a1",
+    "rmq/lca*":
+        "fecdd843c287302751db39dd2a60cc0243d93bf42826e910c9f027b6ffcffe5e",
+    "rmq/hybrid":
+        "7dd2324670e01fad2d5cc44c72ac8bc5be96816f428b1e618fc8b773734a243a",
 }
+RMQ_STRATEGIES = ("lca*", "hybrid")
 
 
 def taxa_digest(taxa) -> str:
@@ -84,6 +95,32 @@ def require(cond, msg):
 def bound(bytes_, ops):
     tb, to = bytes_ / HBM_BYTES_PER_S * 1e3, ops / OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def tile_read(torch, shape, idxs, axis=-2):
+    """Distinct elements of a (G, S, W) tile that take_along_axis reads
+    with the (G, I, J) indices ``idxs`` (several for a loop of gathers):
+    (g, idx, lane) along the rows, (g, row, idx) along the lanes. What
+    this run's data needs, never more than the tile."""
+    G, S, W = shape
+    dev = idxs[0].device
+    g = torch.arange(G, device=dev)[:, None, None]
+    if axis == -2 and all(ix.stride(-1) == 0 for ix in idxs):
+        # one row per (g, i) over every lane: count rows
+        seen = torch.zeros(G * S, dtype=torch.bool, device=dev)
+        for ix in idxs:
+            seen[(g * S + ix[..., :1].long()).reshape(-1)] = True
+        return int(seen.sum()) * W
+    seen = torch.zeros(G * S * W, dtype=torch.bool, device=dev)
+    for ix in idxs:
+        if axis == -2:
+            lane = torch.arange(ix.shape[-1], device=dev)
+            flat = (g * S + ix.long()) * W + lane
+        else:
+            row = torch.arange(ix.shape[-2], device=dev)[None, :, None]
+            flat = (g * S + row) * W + ix.long()
+        seen[flat.reshape(-1)] = True
+    return int(seen.sum())
 
 
 def main():
@@ -110,9 +147,12 @@ def main():
         card = phase_identify(torch)
         world = load_world(torch)
         stats = phase_kernels(torch, world)
-        launches = phase_main(torch, world)
+        phase_gather(torch, world)
+        launches, results = phase_main(torch, world)
+        phase_wide(torch, world, results)
         phase_resident(torch, world)
         phase_cli(torch, world)
+        phase_rmq(torch, world)
     finally:
         shutil.rmtree(TMP_DIR, ignore_errors=True)
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -130,7 +170,7 @@ def main():
             "replaces": k.replaces, "launches": launches[k.name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": None,
+            "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
             "equal": s["equal"]})
     print(card)
     print(json.dumps({"kernels": kern}))
@@ -227,6 +267,23 @@ def cuda_ms(torch, fn, reps=20):
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(torch, fn, reps=20):
+    """Device time per call of ``fn``: the profiler's CUDA kernel and copy
+    time over ``reps`` calls (no host launch gaps, unlike cuda_ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps
 
 
 def compare(torch, what, got, want):
@@ -327,10 +384,131 @@ def _chain(torch, world, width):
     b4, by4 = bound(BATCH * NH * 4 + BATCH * (64 * 9 + 4),
                     BATCH * (M // 2) * lg * (lg + 1) // 2 * 4)
     stats["dedup_counts"].update(bound_ms=b4, bound_by=by4, N=NH)
+
+    # K5 and K6 on K4's output, high-sensitivity's lower bound
+    utaxa, ucounts, uvalid = k4[0], k4[1], devagg.filter_lower_bound(
+        k4[1], k4[2], 1.0)
+    s5, e5, s6, e6 = _agg_chain(torch, world, utaxa, ucounts, uvalid, width)
+    stats.update(lane_gather=s5, tree_aggregate=s6)
+    errs.update(lane_gather=e5, tree_aggregate=e6)
     log(f"L={width} chain, kernels equal to plain: " + ", ".join(
         f"{n} {s['ms']:.3f} ms (plain {s['plain_ms']:.3f}, bound "
         f"{s['bound_ms']:.4f} {s['bound_by']})" for n, s in stats.items()))
     return stats, errs
+
+
+def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
+    """K5 (hit_geometry's row and ancestry gathers, snap's take) and K6
+    (hybrid, lca*, mrtl) on one batch's deduplicated hits, each held to
+    its plain version and timed; K6 also on the first 1,024 rows padded
+    to the wide program's width at this read length."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.agg import device as devagg
+    from umgap_tpu_torch.ops import gather
+
+    dtax = world["dtax"]
+    geom = devagg.hit_geometry(dtax, utaxa, uvalid)
+    with kernels.plain_versions():
+        want = devagg.hit_geometry(dtax, utaxa, uvalid)
+    e5 = compare(torch, f"K5 hit_geometry L={width}", tuple(geom),
+                 tuple(want))
+    B, K, D = geom.lin.shape
+    # the ancestry gather a[b, i, j] = lin[b, j, dep[b, i]]
+    lin_t = geom.lin.transpose(1, 2)
+    idx = geom.depth[:, :, None].expand(B, K, K)
+    idx64 = geom.depth.to(torch.int64)[:, :, None].expand(B, K, K)
+    e5 = max(e5, compare(torch, f"K5 ancestry gather L={width}",
+                         gather.lane_gather(lin_t, idx),
+                         gather.lane_gather_plain(lin_t, idx)))
+    # bytes: the lineage elements the depths pick, the depths as stored,
+    # the output
+    read5 = tile_read(torch, (B, D, K), [idx])
+    b5, by5 = bound(read5 * 4 + B * K * 4 + B * K * K * 4, B * K * K)
+    s5 = dict(ms=cuda_ms(torch, lambda: gather.lane_gather(lin_t, idx)),
+              device_ms=device_ms(torch, lambda: gather.lane_gather(lin_t,
+                                                                    idx)),
+              plain_ms=cuda_ms(torch, lambda: gather.lane_gather_plain(
+                  lin_t, idx)),
+              library_ms=cuda_ms(torch, lambda: torch.gather(lin_t, 1,
+                                                             idx64)),
+              bound_ms=b5, bound_by=by5, shape=[B, D, K],
+              tile_elements_read=read5)
+    # the taxonomy row gather and snap's 1-D take
+    safe = torch.where(uvalid, utaxa.clamp(0, dtax.depth.shape[0] - 1), 0)
+    s5["rows_ms"] = cuda_ms(torch, lambda: gather.gather_rows(dtax.geom,
+                                                               safe))
+    s5["rows_plain_ms"] = cuda_ms(torch, lambda: gather.take_plain(
+        dtax.geom, safe))
+
+    s6, e6 = {}, 0.0
+    res = {}
+    for strat in ("hybrid", "lca*", "mrtl"):
+        def run(plain, strat=strat, g=geom, u=utaxa, c=ucounts):
+            fn = (devagg.tree_aggregate_plain if plain
+                  else devagg.tree_aggregate)
+            return fn(strat, dtax, g, u, c, 0.25)
+        res[strat] = run(False)
+        e6 = max(e6, compare(torch, f"K6 {strat} L={width}", res[strat],
+                             run(True)))
+        s6[strat] = dict(ms=cuda_ms(torch, lambda: run(False)),
+                         plain_ms=cuda_ms(torch, lambda: run(True), reps=5))
+    got = devagg.snap_batch(dtax.snap_valid, res["hybrid"])
+    with kernels.plain_versions():
+        want = devagg.snap_batch(dtax.snap_valid, res["hybrid"])
+    e5 = max(e5, compare(torch, f"K5 snap L={width}", got, want))
+    # bounds, from this batch's data: what the valid slots need, each
+    # read once, the valid mask read whole and (B,) written once. hybrid
+    # reads the lineage columns of the depths it visits (its result's
+    # depth + 1 steps, at most D - 1) and tests and compares once per
+    # valid slot a step; mrtl reads the valid x valid block of is_anc and
+    # adds once per entry of it; lca* tests that block and reads the
+    # valid lineages of the groups that have no dominated chain
+    nv = uvalid.sum(dim=-1).long()
+    steps = (gather.take_plain(dtax.depth, res["hybrid"]) + 1).clamp(
+        max=D - 1).long()
+    pairs, nvalid = int((nv * nv).sum()), int(nv.sum())
+    dom = ((geom.is_anc | ~uvalid[:, :, None]).all(dim=1) & uvalid).any(-1)
+    fixed = B * K + B * 4
+    for strat, nbytes, ops in (
+            ("hybrid", int(((steps + 1) * nv).sum()) * 4 + nvalid * 4
+             + fixed, int((steps * nv).sum()) * 2),
+            ("lca*", pairs + int(nv[~dom].sum()) * D * 4 + nvalid * 8
+             + fixed, pairs),
+            ("mrtl", pairs + nvalid * 12 + fixed, 2 * pairs)):
+        b, by = bound(nbytes, ops)
+        s6[strat].update(bound_ms=b, bound_by=by)
+
+    # the wide program's width: the first 1,024 rows padded to it
+    kw = 2 * 6 * ((width + 2) // 3)
+    n = min(1024, B)
+    pad = kw - K
+    uw = torch.cat([utaxa[:n], torch.full((n, pad), devagg.I32_MAX,
+                                          dtype=torch.int32,
+                                          device=utaxa.device)], 1)
+    cw = torch.cat([ucounts[:n], ucounts.new_zeros((n, pad))], 1)
+    vw = torch.cat([uvalid[:n], uvalid.new_zeros((n, pad))], 1)
+    gw = devagg.hit_geometry(dtax, uw, vw)
+    with kernels.plain_versions():
+        want = devagg.hit_geometry(dtax, uw, vw)
+    e5 = max(e5, compare(torch, f"K5 hit_geometry K={kw}", tuple(gw),
+                         tuple(want)))
+    wide = {"K": kw, "rows": n}
+    for strat in ("hybrid", "lca*", "mrtl"):
+        got = devagg.tree_aggregate(strat, dtax, gw, uw, cw, 0.25)
+        e6 = max(e6, compare(torch, f"K6 {strat} K={kw}", got,
+                             devagg.tree_aggregate_plain(strat, dtax, gw, uw,
+                                                         cw, 0.25)))
+        require(torch.equal(got, res[strat][:n]),
+                f"K6 {strat}: width {kw} differs from width {K}")
+        wide[strat + "_ms"] = cuda_ms(
+            torch, lambda strat=strat: devagg.tree_aggregate(
+                strat, dtax, gw, uw, cw, 0.25), reps=5)
+    s6["wide"] = wide
+    s6.update(ms=s6["hybrid"]["ms"], plain_ms=s6["hybrid"]["plain_ms"],
+              bound_ms=s6["hybrid"]["bound_ms"],
+              bound_by=s6["hybrid"]["bound_by"], library_ms=None,
+              shape=[B, K, D])
+    return s5, e5, s6, e6
 
 
 def phase_kernels(torch, world):
@@ -447,6 +625,148 @@ def phase_kernels(torch, world):
     return stats
 
 
+# The TPU gather kernels K5 ports, at their own shapes: (row, source,
+# mode, shape). Modes: "rows" take_along_axis on axis 0 of G (S, 128)
+# tiles with (I, 128) indices ("bcast": one row index per row, expanded
+# over the lanes; "shift": the index is idx >> 7, applied by the
+# caller); "take" 1-D; "repeat" the repeat-and-sum loop on axis 0 or 1.
+GATHER_ROWS = (
+    ("#2", "scripts/exp_pallas_dma.py:171 dyngather_case", "rows",
+     dict(S=1024, I=1024, bcast=True)),
+    ("#3", "scripts/exp_pallas_gather.py:47 k1", "take", dict(S=8192, I=4096)),
+    ("#4", "scripts/exp_pallas_gather.py:62 k2", "rows", dict(S=8192, I=32)),
+    ("#5", "scripts/exp_pallas_gather.py:77 k3", "rows",
+     dict(S=8192, I=32, shift=True)),
+    ("#6 axis 0 x1", "scripts/exp_dyngather.py:37 make", "repeat",
+     dict(S=4096, axis=0, repeat=1)),
+    ("#6 axis 0 x16", "scripts/exp_dyngather.py:37 make", "repeat",
+     dict(S=4096, axis=0, repeat=16)),
+    ("#6 axis 0 x64", "scripts/exp_dyngather.py:37 make", "repeat",
+     dict(S=4096, axis=0, repeat=64)),
+    ("#6 axis 1 x1", "scripts/exp_dyngather.py:37 make", "repeat",
+     dict(S=4096, axis=1, repeat=1)),
+    ("#6 axis 1 x16", "scripts/exp_dyngather.py:37 make", "repeat",
+     dict(S=4096, axis=1, repeat=16)),
+    ("#6 axis 1 x64", "scripts/exp_dyngather.py:37 make", "repeat",
+     dict(S=4096, axis=1, repeat=64)),
+    ("#7 S=512", "scripts/exp_probe_primitives.py:66 f3", "rows",
+     dict(S=512, I=512)),
+    ("#7 S=2048", "scripts/exp_probe_primitives.py:66 f3", "rows",
+     dict(S=2048, I=2048)),
+    ("#7 S=8192", "scripts/exp_probe_primitives.py:66 f3", "rows",
+     dict(S=8192, I=8192)),
+    ("#8", "scripts/exp_probe_primitives.py:96 f4", "rows",
+     dict(G=64, S=512, I=512)),
+    ("#9 (512, 128)", "scripts/exp_probe2.py:75, :87", "rows",
+     dict(S=512, I=512)),
+    ("#9 (4096, 128)", "scripts/exp_probe2.py:112", "rows",
+     dict(S=4096, I=4096)),
+)
+
+
+def phase_gather(torch, world):
+    """K5 at the shapes of each TPU gather kernel it ports, held exactly
+    to its plain version and timed beside one torch.gather call (the
+    library yardstick; the port never calls it on the card) and its bytes
+    bound: the tile elements this run's indices pick, the indices as
+    stored and the output, once each."""
+    from umgap_tpu_torch.ops import gather
+
+    dev = world["dev"]
+    rng = np.random.default_rng(17)
+    t_phase = time.perf_counter()
+    rows = {}
+    for name, source, mode, p in GATHER_ROWS:
+        G, S, W = p.get("G", 1), p["S"], 128
+        if mode == "take":
+            tab = torch.from_numpy(rng.integers(0, 100, size=S).astype(
+                np.int32)).to(dev)
+            idx = torch.from_numpy(rng.integers(0, S, size=p["I"]).astype(
+                np.int32)).to(dev)
+            idx64 = idx.to(torch.int64)
+
+            def k5(tab=tab, idx=idx):
+                return gather.take(tab, idx)
+
+            def plain(tab=tab, idx=idx):
+                return gather.take_plain(tab, idx)
+
+            def library(tab=tab, idx64=idx64):
+                return torch.take(tab, idx64)
+            nbytes = tile_read(torch, (1, S, 1), [idx.view(1, -1, 1)]) * 4 \
+                + p["I"] * 8
+        elif mode == "rows":
+            I = p["I"]
+            tab = torch.from_numpy(rng.integers(0, 2 ** 31 - 1,
+                                                size=(G, S, W)).astype(
+                np.int32)).to(dev)
+            hi = S * 128 if p.get("shift") else S
+            if p.get("bcast"):
+                stored = torch.from_numpy(rng.integers(
+                    0, hi, size=(G, I, 1)).astype(np.int32)).to(dev)
+                idx = stored.expand(G, I, W)
+            else:
+                stored = idx = torch.from_numpy(rng.integers(
+                    0, hi, size=(G, I, W)).astype(np.int32)).to(dev)
+            if p.get("shift"):
+                stored = idx = idx >> 7
+            idx64 = stored.to(torch.int64).expand(G, I, W)
+
+            def k5(tab=tab, idx=idx):
+                return gather.lane_gather(tab, idx)
+
+            def plain(tab=tab, idx=idx):
+                return gather.lane_gather_plain(tab, idx)
+
+            def library(tab=tab, idx64=idx64):
+                return torch.gather(tab, 1, idx64)
+            nbytes = (tile_read(torch, (G, S, W), [idx]) * 4
+                      + stored.numel() * 4 + G * I * W * 4)
+        else:  # repeat: acc += take_along_axis(x, idx); idx = (idx+1) % n
+            axis, rep = p["axis"], p["repeat"]
+            n = S if axis == 0 else W
+            tab = torch.from_numpy(rng.integers(0, 1 << 30, size=(S, W)).astype(
+                np.int32)).to(dev)
+            idx = torch.from_numpy(rng.integers(0, n, size=(S, W)).astype(
+                np.int32)).to(dev)
+
+            def loop(fn, tab=tab, idx=idx, axis=axis, rep=rep, n=n):
+                acc = torch.zeros_like(tab)
+                for _ in range(rep):
+                    acc = acc + fn(tab, idx, axis - 2)
+                    idx = (idx + 1) % n
+                return acc
+
+            def k5(loop=loop):
+                return loop(gather.lane_gather)
+
+            def plain(loop=loop):
+                return loop(gather.lane_gather_plain)
+
+            def library(loop=loop):
+                return loop(lambda t, i, ax: torch.gather(t, ax, i.long()))
+            steps = [(idx + k) % n for k in range(rep)]
+            nbytes = (tile_read(torch, (1, S, W), [x[None] for x in steps],
+                                axis - 2) * 4 + 2 * S * W * 4)
+        err = compare(torch, f"K5 {name}", k5(), plain())
+        b, by = bound(nbytes, 0)
+        rows[name] = dict(
+            source=source, mode=mode, shape=p, max_abs_err=err,
+            ms=cuda_ms(torch, k5, reps=50),
+            plain_ms=cuda_ms(torch, plain, reps=50),
+            library_ms=cuda_ms(torch, library, reps=50),
+            device_ms=device_ms(torch, k5),
+            library_device_ms=device_ms(torch, library),
+            bound_ms=b, bound_by=by)
+        r = rows[name]
+        log(f"K5 {name} ({source}): equal; {r['ms']:.4f} ms "
+            f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f}, "
+            f"torch.gather {r['library_ms']:.4f} (device "
+            f"{r['library_device_ms']:.4f}), bound {b:.4f} ({by})")
+    RESULT["phases"]["gather"] = dict(rows=rows,
+                                      seconds=time.perf_counter() - t_phase)
+
+
 def _table_keys(T, tab):
     """(packed keys stored in the rows, their values) of a host table."""
     rem = tab.rem
@@ -506,7 +826,7 @@ def _probes1_table(T, keys, vals):
 # ---------------------------------------------------------------------- #
 
 def _analyser(world, config, dtable=None, batch_size=BATCH, read_length=None,
-              plain=False):
+              plain=False, euler=None):
     """An ``Analyser`` over the world's device state; ``plain`` runs
     every stage's plain version on the card (the reference the kernel
     path is held to), in the fast and in the wide program alike."""
@@ -527,7 +847,7 @@ def _analyser(world, config, dtable=None, batch_size=BATCH, read_length=None,
                read_length=read_length or world["L"], ends=2,
                dtax=world["dtax"],
                dtable=world["dtable"] if dtable is None else dtable,
-               device=world["dev"])
+               device=world["dev"], euler=euler)
 
 
 def _run_analyser(an, world):
@@ -675,7 +995,45 @@ def phase_main(torch, world):
         + ", ".join(f"{k} {float(np.median(v)):.3f} ms"
                     for k, v in stage_ms.items())
         + f"; profiled busy {dev_us / 1e6:.3f} s of {wall:.3f} s")
-    return launches
+    return launches, results
+
+
+# ---------------------------------------------------------------------- #
+# Phase 3b: the wide re-route program on one batch
+# ---------------------------------------------------------------------- #
+
+def phase_wide(torch, world, results):
+    """The bench workload re-routes no group, so the wide program (k_max
+    = every window slot, 300 at 100 bp) is driven directly on the first
+    256 pairs per preset: its own launch counts, kernel taxa equal to
+    the plain path's and to the main path's on the same pairs."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+
+    t_phase = time.perf_counter()
+    n, L = 256, world["L"]
+    dna = world["reads"][:n]
+    lens = np.full((n, 2), L, dtype=np.int32)
+    phase = {}
+    for name, cfg in PRESETS.items():
+        an = _analyser(world, cfg)
+        kernels.reset_launches()
+        got = an.run_wide(dna, lens)
+        launches = kernels.launch_counts()
+        for k, c in launches.items():
+            require(c > 0, f"wide {name}: kernel {k} was not launched")
+        want = _analyser(world, cfg, plain=True).run_wide(dna, lens)
+        require(np.array_equal(got, want),
+                f"wide {name}: kernel taxa differ from plain taxa")
+        require(np.array_equal(got, results[name][:n]),
+                f"wide {name}: taxa differ from the main program's")
+        phase[name] = dict(k_max=an._exact_kmax(), batch=an._wide_batch,
+                           launches=launches)
+        log(f"wide {name}: k_max {an._exact_kmax()}, {n} pairs in batches "
+            f"of {an._wide_batch}, kernel == plain == main; launches "
+            f"{launches}")
+    phase["seconds"] = time.perf_counter() - t_phase
+    RESULT["phases"]["wide"] = phase
 
 
 # ---------------------------------------------------------------------- #
@@ -861,6 +1219,70 @@ def phase_cli(torch, world):
                                    seconds=time.perf_counter() - t_phase)
     log(f"CLI: {len(PRESETS)} presets x {n} groups, records equal to the "
         "Analyser's at read length 160, whose kernel taxa equal plain")
+
+
+# ---------------------------------------------------------------------- #
+# Phase 6: the Euler/RMQ aggregations
+# ---------------------------------------------------------------------- #
+
+def phase_rmq(torch, world):
+    """rmq/lca* and rmq/hybrid (max-sensitivity's seeds) through the
+    Analyser over all 32,768 pairs: K1-K5 launched, kernel taxa equal to
+    the plain path's, the first 1,024 equal to umgap_tpu's digests;
+    device-resident and steady end-to-end pairs/s."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.agg.device_rmq import DeviceEuler
+    from umgap_tpu_torch.ops import encoding
+    from umgap_tpu_torch.pipeline.fused import PipelineConfig
+
+    t_phase = time.perf_counter()
+    dev, P, L = world["dev"], world["P"], world["L"]
+    euler = DeviceEuler.from_host(world["tax"], dev)
+    batches = [torch.from_numpy(encoding.pack_dna4(
+        world["reads"][i * BATCH:(i + 1) * BATCH])).to(dev)
+        for i in range(P // BATCH)]
+    blens = torch.full((BATCH, 2), L, dtype=torch.int32, device=dev)
+    phase = {"tour_len": euler.tour_len}
+    for strat in RMQ_STRATEGIES:
+        key = f"rmq/{strat}"
+        cfg = PipelineConfig(f"rmq-{strat}", method="rmq", strategy=strat)
+        an = _analyser(world, cfg, euler=euler)
+        _run_analyser(an, world)
+        an.overflow_reads = 0
+        kernels.reset_launches()
+        taxa = _run_analyser(an, world)
+        launches = kernels.launch_counts()
+        for k, c in launches.items():
+            if k != "tree_aggregate":
+                require(c > 0, f"{key}: kernel {k} was not launched")
+        plain = _run_analyser(_analyser(world, cfg, plain=True, euler=euler),
+                              world)
+        require(np.array_equal(taxa, plain),
+                f"{key}: kernel taxa differ from plain taxa in "
+                f"{int((taxa != plain).sum())} of {P} groups")
+        require(taxa.shape == (P,) and (taxa >= 1).all(), f"{key}: bad output")
+        require(taxa_digest(taxa[:REFERENCE_PAIRS]) == REFERENCE_DIGESTS[key],
+                f"{key}: the first {REFERENCE_PAIRS} groups differ from the "
+                "JAX package's reference taxa")
+
+        def resident(an=an):
+            for b in batches:
+                an.step(b, blens, L)
+
+        ms = cuda_ms(torch, resident, reps=3)
+        e2e = _stream_rate(an, world)
+        phase[key] = dict(
+            launches=launches, overflow_reads=an.overflow_reads,
+            device_resident_pairs_per_s=P / (ms / 1e3),
+            batch_ms=ms / len(batches), e2e=e2e,
+            checksum=int(taxa.sum()),
+            distinct_taxa=int(len(np.unique(taxa))))
+        log(f"{key}: kernel == plain on {P} groups, == reference on "
+            f"{REFERENCE_PAIRS}; device-resident {P / (ms / 1e3):.0f} "
+            f"pairs/s ({ms / len(batches):.2f} ms per batch), e2e "
+            f"{e2e['pairs_per_s']:.0f} pairs/s; launches {launches}")
+    phase["seconds"] = time.perf_counter() - t_phase
+    RESULT["phases"]["rmq"] = phase
 
 
 if __name__ == "__main__":

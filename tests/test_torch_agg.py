@@ -1,6 +1,8 @@
-"""Parity of the port's aggregation (K4's plain dedup and the plain tail)
-with ``umgap_tpu.agg.device``, on the reference fixture taxonomy and on
-the tracked ``.bench_data`` taxonomy. Exact equality throughout."""
+"""Parity of the port's aggregation (the plain versions of K4 dedup, K5
+gathers and K6 tree aggregators, through the dispatch the kernels take
+on the CPU, and the Euler/RMQ aggregators) with ``umgap_tpu.agg``, on the
+reference fixture taxonomy and on the tracked ``.bench_data`` taxonomy.
+All outputs are integers or masks: exact equality throughout."""
 
 import os
 
@@ -10,10 +12,11 @@ import torch
 
 from umgap_tpu import ranks as jranks
 from umgap_tpu.agg import device as jagg
+from umgap_tpu.agg import device_rmq as jrmq
 from umgap_tpu.taxonomy import Taxon as JTaxon
 from umgap_tpu.taxonomy import Taxonomy as JTaxonomy
 from umgap_tpu.taxonomy import fixture_taxa as jfixture
-from umgap_tpu_torch import convert
+from umgap_tpu_torch import convert, kernels
 from umgap_tpu_torch import taxonomy as ptaxonomy
 from umgap_tpu_torch.agg import device as pagg
 
@@ -93,30 +96,45 @@ def _hit_lists(rng, ids, B, K):
     return utaxa, ucounts, uvalid
 
 
+def _world_hits(world, K, seed):
+    jtax, _ = (_fixture_taxonomies() if world == "fixture"
+               else _bench_taxonomies())
+    rng = np.random.default_rng(seed)
+    ids = np.flatnonzero(jtax.present & (jtax.depth >= 0))
+    if world == "bench":  # hits along a few lineages, so trees branch
+        leaves = rng.choice(ids, size=max(12, K // 4), replace=False)
+        ids = np.unique(jtax.anc_table[leaves][jtax.anc_table[leaves] > 0])
+    return jtax, _hit_lists(rng, ids, 48, K)
+
+
 @pytest.mark.parametrize("world", ["fixture", "bench"])
 @pytest.mark.parametrize("method,strategy", [("tree", "lca*"),
                                              ("tree", "hybrid"),
-                                             ("rmq", "mrtl")])
+                                             ("rmq", "mrtl"),
+                                             ("rmq", "lca*"),
+                                             ("rmq", "hybrid")])
 def test_aggregate_filter_snap_match_jax(world, method, strategy):
-    jtax, _ = (_fixture_taxonomies() if world == "fixture"
-               else _bench_taxonomies())
+    jtax, (utaxa, ucounts, uvalid) = _world_hits(world, 12,
+                                                 len(world) + len(strategy))
     dx, px = _carried(jtax)
-    rng = np.random.default_rng(len(world) + len(strategy))
-    ids = np.flatnonzero(jtax.present & (jtax.depth >= 0))
-    if world == "bench":  # hits along a few lineages, so trees branch
-        leaves = rng.choice(ids, size=12, replace=False)
-        ids = np.unique(jtax.anc_table[leaves][jtax.anc_table[leaves] > 0])
-    utaxa, ucounts, uvalid = _hit_lists(rng, ids, 48, 12)
+    je = pe = None
+    if (method, strategy) == ("rmq", "lca*"):
+        je = jrmq.DeviceEuler.from_host(jtax)
+        pe = convert.euler_from_arrays(
+            np.asarray(je.tour), np.asarray(je.depths),
+            np.asarray(je.first), np.asarray(je.block_min),
+            np.asarray(je.sparse), je.nlevels, je.tour_len, device="cpu")
     for bound in (1.0, 3.0):
         fv = np.asarray(jagg.filter_lower_bound(ucounts, uvalid, bound))
         pv = pagg.filter_lower_bound(torch.from_numpy(ucounts),
                                      torch.from_numpy(uvalid), bound)
         np.testing.assert_array_equal(pv.numpy(), fv)
         want = np.asarray(jagg.aggregate_batch(dx, utaxa, ucounts, fv,
-                                               method, strategy, 0.25))
+                                               method, strategy, 0.25,
+                                               euler=je))
         got = pagg.aggregate_batch(px, torch.from_numpy(utaxa),
                                    torch.from_numpy(ucounts), pv, method,
-                                   strategy, 0.25)
+                                   strategy, 0.25, euler=pe)
         np.testing.assert_array_equal(got.numpy(), want)
         for snapping in ("snap_valid", "snap_ranked"):
             np.testing.assert_array_equal(
@@ -129,12 +147,58 @@ def test_aggregate_filter_snap_match_jax(world, method, strategy):
         np.asarray(jagg.snap_batch(dx.snap_valid, odd, 7)))
 
 
-def test_euler_aggregators_refuse():
-    jtax, _ = _fixture_taxonomies()
-    _, px = _carried(jtax)
-    u = torch.tensor([[2, 10239]], dtype=torch.int32)
-    c = torch.ones((1, 2))
-    v = torch.ones((1, 2), dtype=torch.bool)
-    for strategy in ("lca*", "hybrid"):
-        with pytest.raises(NotImplementedError):
-            pagg.aggregate_batch(px, u, c, v, "rmq", strategy)
+@pytest.mark.parametrize("world,K", [("fixture", 4), ("bench", 4),
+                                     ("bench", 64), ("bench", 300)])
+def test_hit_geometry_matches_jax(world, K):
+    jtax, (utaxa, ucounts, uvalid) = _world_hits(world, K, K)
+    dx, px = _carried(jtax)
+    want = jagg.hit_geometry(dx, utaxa, uvalid)
+    got = pagg.hit_geometry(px, torch.from_numpy(utaxa),
+                            torch.from_numpy(uvalid))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got.is_anc.any()
+    # the plain reference is the same function
+    with kernels.plain_versions():
+        ref = pagg.hit_geometry(px, torch.from_numpy(utaxa),
+                                torch.from_numpy(uvalid))
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    # without the ancestry test (tree hybrid): the same rows, no is_anc
+    lean = pagg.hit_geometry(px, torch.from_numpy(utaxa),
+                             torch.from_numpy(uvalid), ancestry=False)
+    assert lean.is_anc is None
+    for name in ("lin", "depth", "valid"):
+        assert torch.equal(getattr(lean, name), getattr(got, name))
+    assert not pagg.needs_ancestry("tree", "hybrid")
+    assert pagg.needs_ancestry("tree", "lca*")
+    assert pagg.needs_ancestry("rmq", "mrtl")
+
+
+@pytest.mark.parametrize("world,K", [("fixture", 4), ("bench", 4),
+                                     ("bench", 64), ("bench", 300)])
+@pytest.mark.parametrize("strategy", ["hybrid", "lca*", "mrtl"])
+def test_tree_strategies_match_jax(world, K, strategy):
+    jtax, (utaxa, ucounts, uvalid) = _world_hits(world, K, K + 7)
+    dx, px = _carried(jtax)
+    jg = jagg.hit_geometry(dx, utaxa, uvalid)
+    pg = pagg.hit_geometry(px, torch.from_numpy(utaxa),
+                           torch.from_numpy(uvalid))
+    u, c = torch.from_numpy(utaxa), torch.from_numpy(ucounts)
+    for factor in (0.25, 0.6):
+        if strategy == "hybrid":
+            want = jagg.tree_mix_batch(dx, jg, utaxa, ucounts, factor)
+            got = pagg.tree_mix_batch(px, pg, u, c, factor)
+        elif strategy == "lca*":
+            want = jagg.tree_lca_batch(dx, jg, utaxa)
+            got = pagg.tree_lca_batch(px, pg, u)
+        else:
+            want = jagg.rtl_batch(dx, jg, utaxa, ucounts)
+            got = pagg.rtl_batch(px, pg, u, c)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(
+            pagg.tree_aggregate(strategy, px, pg, u, c, factor).numpy(),
+            got.numpy())
+    snapped = pagg.snap_batch(px.snap_valid, got, 0)
+    np.testing.assert_array_equal(
+        snapped.numpy(), np.asarray(jagg.snap_batch(dx.snap_valid, want, 0)))

@@ -9,9 +9,13 @@ import numpy as np
 import pytest
 import torch
 
+from umgap_tpu_torch import kernels, ranks
 from umgap_tpu_torch.agg import device as pagg
+from umgap_tpu_torch.agg import device_rmq as prmq
 from umgap_tpu_torch.index.table import build_kmer_table
-from umgap_tpu_torch.ops import encoding, lookup, seedextend, translate
+from umgap_tpu_torch.ops import encoding, gather, lookup, seedextend, \
+    translate
+from umgap_tpu_torch.taxonomy import Taxon, Taxonomy
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +80,99 @@ def test_dedup_kernel(dev, k_max):
         np.int32)).to(dev)
     _eq(pagg.dedup_counts(taxa, None, k_max, True),
         pagg.dedup_counts_plain(taxa, None, k_max, True))
+
+
+@pytest.mark.parametrize("G,S,W,I", [(512, 26, 64, 64), (1, 8192, 128, 32),
+                                     (64, 512, 128, 512), (3, 7, 5, 9)])
+def test_lane_gather_kernel(dev, G, S, W, I):
+    rng = np.random.default_rng(G + S)
+    tab = torch.from_numpy(rng.integers(-5, 1 << 30, size=(G, S, W)).astype(
+        np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, S, size=(G, I, W)).astype(
+        np.int32)).to(dev)
+    _eq((gather.lane_gather(tab, idx),), (gather.lane_gather_plain(tab, idx),))
+    # a row index expanded over the lanes, a transposed table
+    rows = idx[:, :, :1].expand(G, I, W)
+    tt = tab.transpose(1, 2).contiguous().transpose(1, 2)
+    _eq((gather.lane_gather(tt, rows),),
+        (gather.lane_gather_plain(tt, rows),))
+    lidx = torch.from_numpy(rng.integers(0, W, size=(G, S, 7)).astype(
+        np.int32)).to(dev)
+    _eq((gather.lane_gather(tab, lidx, axis=-1),),
+        (gather.lane_gather_plain(tab, lidx, axis=-1),))
+    flat = tab.reshape(-1)
+    q = torch.from_numpy(rng.integers(0, flat.numel(), size=(33, 5)).astype(
+        np.int32)).to(dev)
+    _eq((gather.take(flat, q),), (gather.take_plain(flat, q),))
+
+
+def _random_tree(n, seed):
+    rng = np.random.default_rng(seed)
+    parent = [1, 1] + [int(rng.integers(max(1, i // 3), i))
+                       for i in range(2, n + 1)]
+    return Taxonomy([Taxon(i, f"t{i}", ranks.NO_RANK, parent[i], True)
+                     for i in range(1, n + 1)])
+
+
+@pytest.mark.parametrize("K", [4, 64, 300])
+def test_tree_aggregate_kernel(dev, K):
+    tax = _random_tree(3000, K)
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    rng = np.random.default_rng(K)
+    B = 256
+    leaves = rng.choice(np.arange(2, 3001), size=40, replace=False)
+    ids = np.unique(tax.anc_table[leaves][tax.anc_table[leaves] > 0])
+    utaxa = np.full((B, K), np.iinfo(np.int32).max, np.int32)
+    ucounts = np.zeros((B, K), np.float32)
+    uvalid = np.zeros((B, K), bool)
+    for b in range(B):
+        sel = np.sort(rng.choice(ids, size=min(int(rng.integers(0, K + 1)),
+                                                len(ids)), replace=False))
+        utaxa[b, :len(sel)] = sel
+        ucounts[b, :len(sel)] = rng.integers(1, 7, size=len(sel))
+        uvalid[b, :len(sel)] = True
+    u, c, v = (torch.from_numpy(x).to(dev) for x in (utaxa, ucounts, uvalid))
+    geom = pagg.hit_geometry(dtax, u, v)
+    with kernels.plain_versions():
+        _eq(geom, pagg.hit_geometry(dtax, u, v))
+    for strategy in ("hybrid", "lca*", "mrtl"):
+        for factor in (0.0, 0.25, 0.9):
+            _eq((pagg.tree_aggregate(strategy, dtax, geom, u, c, factor),),
+                (pagg.tree_aggregate_plain(strategy, dtax, geom, u, c,
+                                           factor),))
+    euler = prmq.DeviceEuler.from_host(tax, dev)
+    got = (prmq.rmq_lca_batch(euler, u[:, :16], v[:, :16]),
+           prmq.rmq_mix_batch(dtax, u[:, :16], c[:, :16], v[:, :16], 0.5))
+    with kernels.plain_versions():
+        _eq(got, (prmq.rmq_lca_batch(euler, u[:, :16], v[:, :16]),
+                  prmq.rmq_mix_batch(dtax, u[:, :16], c[:, :16], v[:, :16],
+                                     0.5)))
+
+
+def test_lane_gather_kernel_64bit_counters(dev):
+    """Outputs of 2^30 elements or more take K5's 64-bit loop counters:
+    the 1-D take (rows mode, direct), the lanes mode and the staged
+    rows mode (several GB each; compared on a strided sample and on
+    sums)."""
+    n = (1 << 30) + 77
+    tab = torch.arange(7, dtype=torch.int32, device=dev)
+    idx = (torch.arange(n, device=dev) % 7).to(torch.int32)
+    got = gather.take(tab, idx)
+    assert torch.equal(got, idx)
+    del got, idx
+    G, I = 1, 1 << 15
+    tab = torch.arange(I * 8, dtype=torch.int32, device=dev).view(1, I, 8)
+    lidx = (torch.arange(I * (I + 1), device=dev) % 8).to(
+        torch.int32).view(1, I, I + 1)
+    got = gather.lane_gather(tab, lidx, axis=-1)
+    want = lidx + (torch.arange(I, dtype=torch.int32, device=dev) * 8
+                   )[None, :, None]
+    assert torch.equal(got, want)
+    del got, want, lidx
+    G, S, W, I = 1 << 16, 8, 128, 128
+    tab = torch.arange(G * S * W, dtype=torch.int32, device=dev).view(G, S, W)
+    rows = (torch.arange(G * I, device=dev) % S).to(torch.int32).view(G, I, 1)
+    got = gather.lane_gather(tab, rows.expand(G, I, W))
+    want = (torch.arange(G, device=dev)[:, None, None] * (S * W)
+            + rows.long() * W + torch.arange(W, device=dev)).to(torch.int32)
+    assert torch.equal(got, want)

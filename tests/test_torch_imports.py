@@ -9,6 +9,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -94,8 +95,18 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(no_card, world):
 def test_unported_options_refuse(world):
     tax, table = world
     with pytest.raises(NotImplementedError):
+        DeviceTable.from_host(types.SimpleNamespace(kind="peptide"),
+                              device="cpu")
+    # taxa2agg cannot combine tree with mrtl: refused as by the reference
+    with pytest.raises(ValueError, match="cannot be combined"):
         Analyser(tax, table, PRESETS["max-sensitivity"]._replace(
-            strategy="lca*"), device="cpu")
+            method="tree"), device="cpu")
+    # rmq/lca* without a taxonomy to build its Euler tables from
+    dtax = DeviceTaxonomy.from_host(tax, device="cpu")
+    dtable = DeviceTable.from_host(table, device="cpu")
+    with pytest.raises(ValueError, match="DeviceEuler"):
+        Analyser(None, None, PRESETS["max-sensitivity"]._replace(
+            strategy="lca*"), dtax=dtax, dtable=dtable, device="cpu")
     keys = np.arange(1, 5000, dtype=np.uint64)
     with pytest.raises(NotImplementedError):
         from umgap_tpu_torch.index.table import KmerTable

@@ -1,6 +1,7 @@
 """Parity of the port's fused pipeline and Analyser (plain PyTorch on the
-CPU) with ``umgap_tpu.pipeline``: all four 9-mer presets on a toy world,
-the first 1,024 ``.bench_data`` pairs with the state carried across by
+CPU) with ``umgap_tpu.pipeline``: all four 9-mer presets and the two
+Euler/RMQ aggregations (rmq/lca*, rmq/hybrid) on a toy world, the first
+1,024 ``.bench_data`` pairs with the state carried across by
 ``convert``, and the k_max overflow re-route. Exact equality."""
 
 import importlib.util
@@ -13,20 +14,24 @@ import torch
 
 from umgap_tpu import ranks as jranks
 from umgap_tpu.agg import device as jagg
+from umgap_tpu.agg import device_rmq as jrmq
 from umgap_tpu.index.table import build_kmer_table as jbuild
 from umgap_tpu.ops import encoding as jenc
 from umgap_tpu.ops import kmers as jkmers
 from umgap_tpu.ops import lookup as jlookup
 from umgap_tpu.ops import translate as jtrans
 from umgap_tpu.pipeline import PRESETS as JPRESETS
+from umgap_tpu.pipeline.fused import PipelineConfig as JPipelineConfig
 from umgap_tpu.pipeline.fused import make_pipeline as jmake
 from umgap_tpu.pipeline.fused import pipeline_step as jstep
 from umgap_tpu.pipeline.runner import Analyser as JAnalyser
 from umgap_tpu.taxonomy import Taxon, Taxonomy, fixture_taxa
-from umgap_tpu_torch import convert
+from umgap_tpu_torch import convert, kernels
+from umgap_tpu_torch import taxonomy as ptaxonomy
 from umgap_tpu_torch.ops import encoding as penc
+from umgap_tpu_torch.ops import gather
 from umgap_tpu_torch.pipeline.fused import PRESETS, make_pipeline, \
-    pipeline_step
+    pipeline_step, run_stages
 from umgap_tpu_torch.pipeline.runner import Analyser
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
@@ -107,6 +112,53 @@ def test_packed_wire_agrees_with_codes(toy):
     np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+def _run_stages(toy, cfg, plain):
+    pt, px = toy["state"]
+    dna, lengths = toy["dna"], toy["lengths"]
+    B, E, L = dna.shape
+    return run_stages(torch.from_numpy(dna.reshape(B * E, L)),
+                      torch.from_numpy(lengths), L, False, px, pt, cfg,
+                      plain=plain)
+
+
+def test_plain_stages_call_no_wrapper(toy, monkeypatch):
+    """run_stages(plain=True) reaches the plain versions only, through the
+    one switch, and leaves it off; the kernel path calls the wrappers."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        monkeypatch.setattr(gather, name, wrapped)
+
+    for name in ("take", "gather_rows", "lane_gather"):
+        spy(name, getattr(gather, name))
+    cfg = PRESETS["max-sensitivity"]
+    want = _run_stages(toy, cfg, plain=False)
+    assert {"take", "gather_rows", "lane_gather"} <= set(calls)
+    calls.clear()
+    got = _run_stages(toy, cfg, plain=True)
+    assert calls == [] and not kernels.plain_selected()
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_hybrid_skips_the_ancestry_gather(toy, monkeypatch):
+    """Tree hybrid never reads is_anc, so its step makes no (B, K, K)
+    ancestry gather; its taxa are those of the full geometry."""
+    calls = []
+    lane_gather = gather.lane_gather
+    monkeypatch.setattr(gather, "lane_gather", lambda *a, **kw: (
+        calls.append(1), lane_gather(*a, **kw))[1])
+    cfg = PRESETS["high-sensitivity"]
+    got = _run_stages(toy, cfg, plain=False)
+    assert calls == []
+    pt, px = toy["state"]
+    dna, lengths = toy["dna"], toy["lengths"]
+    want = jstep(dna, lengths, toy["dx"], toy["dt"], JPRESETS[cfg.name])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.fixture(scope="module")
 def bench():
     """The first 1,024 .bench_data pairs, its taxonomy and 2 M-key index."""
@@ -171,7 +223,65 @@ def test_analyser_wide_reroute_matches_jax(toy, preset):
     assert pa.overflow_reads == ja.overflow_reads > 0
 
 
-@pytest.mark.parametrize("preset", list(PRESETS))
+def _carry_euler(jtax):
+    je = jrmq.DeviceEuler.from_host(jtax)
+    return je, convert.euler_from_arrays(
+        np.asarray(je.tour), np.asarray(je.depths), np.asarray(je.first),
+        np.asarray(je.block_min), np.asarray(je.sparse), je.nlevels,
+        je.tour_len, device="cpu")
+
+
+@pytest.mark.parametrize("strategy", ["lca*", "hybrid"])
+def test_pipeline_step_euler_aggregators_match_jax(toy, strategy):
+    pt, px = toy["state"]
+    je, pe = _carry_euler(toy["tax"])
+    for k_max in (64, 3):
+        jcfg = JPRESETS["max-sensitivity"]._replace(strategy=strategy,
+                                                     k_max=k_max)
+        want, wov = jstep(toy["dna"], toy["lengths"], toy["dx"], toy["dt"],
+                          jcfg, euler=je, with_overflow=True)
+        got, gov = pipeline_step(
+            torch.from_numpy(toy["dna"]), torch.from_numpy(toy["lengths"]),
+            px, pt, PRESETS["max-sensitivity"]._replace(strategy=strategy,
+                                                        k_max=k_max),
+            with_overflow=True, euler=pe)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(gov.numpy(), np.asarray(wov))
+    assert gov.numpy().any()  # hits survived: > 3 taxa in some groups
+
+
+@pytest.mark.parametrize("strategy,euler", [("lca*", "carried"),
+                                            ("lca*", "built"),
+                                            ("hybrid", None)])
+def test_analyser_euler_aggregators_match_jax(toy, strategy, euler):
+    """rmq/lca* and rmq/hybrid through the Analyser, k_max=2 so that most
+    groups also go through the wide program; the port's Euler tables are
+    either carried from the JAX package or built from its own
+    taxonomy."""
+    n, L = 120, 48
+    dna = np.tile(toy["dna"], (n // 8, 1, 1))
+    lens = np.tile(toy["lengths"], (n // 8, 1))
+    headers = [f"g{i}" for i in range(n)]
+    jcfg = JPRESETS["max-sensitivity"]._replace(strategy=strategy, k_max=2)
+    ja = JAnalyser(toy["tax"], toy["table"], jcfg, batch_size=64,
+                   read_length=L, ends=2)
+    want = list(ja.analyse_arrays(headers, dna, lens))
+    pt, px = toy["state"]
+    kw = {}
+    if euler == "carried":
+        kw["euler"] = _carry_euler(toy["tax"])[1]
+    ptax = ptaxonomy.Taxonomy(ptaxonomy.fixture_taxa())
+    pa = Analyser(ptax, None, PRESETS["max-sensitivity"]._replace(
+        strategy=strategy, k_max=2), batch_size=64, read_length=L, ends=2,
+        dtax=px, dtable=pt, device="cpu", **kw)
+    assert (pa.euler is not None) == (strategy == "lca*")
+    got = list(pa.analyse_arrays(headers, dna, lens))
+    assert got == want
+    assert pa.overflow_reads == ja.overflow_reads > 0
+
+
+@pytest.mark.parametrize("preset", list(PRESETS) + ["rmq/lca*",
+                                                    "rmq/hybrid"])
 def test_chip_smoke_reference_digests(bench, preset):
     """chip_smoke.py holds the card's output to digests of umgap_tpu's
     taxa; recompute them here with umgap_tpu."""
@@ -182,7 +292,14 @@ def test_chip_smoke_reference_digests(bench, preset):
     n, L = bench["n"], bench["L"]
     assert smoke.REFERENCE_PAIRS == n
     headers = [str(i) for i in range(n)]
-    ja = JAnalyser(bench["tax"], bench["table"], JPRESETS[preset],
+    if preset in PRESETS:
+        cfg = JPRESETS[preset]
+    else:  # what chip_smoke.py's rmq phase runs
+        strategy = preset.split("/")[1]
+        assert strategy in smoke.RMQ_STRATEGIES
+        cfg = JPipelineConfig(f"rmq-{strategy}", method="rmq",
+                              strategy=strategy)
+    ja = JAnalyser(bench["tax"], bench["table"], cfg,
                    batch_size=n, read_length=L, ends=2)
     want = [t for _h, t in ja.analyse_arrays(headers, bench["reads"],
                                              bench["lengths"])]

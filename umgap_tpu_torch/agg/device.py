@@ -1,11 +1,18 @@
 """Batched per-read aggregation: kernel K4 (``csrc/dedup_counts.cu``) for
-the dedup/count, and the plain PyTorch tail (``umgap_tpu.agg.device``).
+the dedup/count, K5 (``ops/gather.py``) for every table gather of the
+stage, and K6 (``csrc/tree_aggregate.cu``) for the tree aggregators,
+each beside its plain PyTorch version (``umgap_tpu.agg.device``).
 
 Every read in a batch carries a fixed-width list of (taxon, count) hits;
 tree relations are answered by gathers from the device-resident
 ancestor-at-depth table. Argmax ties break as in the JAX package and its
 host oracle: greater depth, then smaller id. Ancestor incidence is an
 integer gather, never a float product, so taxon ids stay exact.
+
+Inside :func:`~umgap_tpu_torch.kernels.plain_versions` the functions of
+the stage call the plain versions of K5 and K6 on any device: that is
+the reference the kernels are held against on the card. Outside it,
+CPU tensors take the plain versions and CUDA tensors the kernels.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..ops import gather
 from ..taxonomy import NONE, Taxonomy
 
 I32_MAX = int(np.iinfo(np.int32).max)
@@ -175,20 +183,34 @@ def filter_lower_bound(ucounts, uvalid, lower_bound: float):
 class HitGeometry(NamedTuple):
     lin: torch.Tensor     # (B, K, D) ancestor rows
     depth: torch.Tensor   # (B, K) depths (0 where invalid)
-    is_anc: torch.Tensor  # (B, K, K): [b, i, j] = taxon i anc-or-self of j
+    # (B, K, K): [b, i, j] = taxon i anc-or-self of j; None when the
+    # geometry was built without it (tree hybrid never reads it)
+    is_anc: torch.Tensor | None
     valid: torch.Tensor   # (B, K)
 
 
-def hit_geometry(dtax: DeviceTaxonomy, utaxa, uvalid) -> HitGeometry:
+def needs_ancestry(method: str, strategy: str) -> bool:
+    """Whether the aggregation reads :attr:`HitGeometry.is_anc`."""
+    return (method, strategy) in (("tree", "lca*"), ("rmq", "mrtl"))
+
+
+def hit_geometry(dtax: DeviceTaxonomy, utaxa, uvalid,
+                 ancestry: bool = True) -> HitGeometry:
+    """One row gather of [depth | ancestors] per hit, then, with
+    ``ancestry``, ``is_anc[b, i, j] = lin[b, j, dep[b, i]] == utaxa[b, i]``:
+    the JAX package's one-hot contraction (device.py:178-193) as K5 along
+    the rows of ``lin`` transposed to (B, D, K), with ``dep`` expanded
+    over the lanes (no (B, K, K) index is stored)."""
+    _take, rows_of, along = gather.active()
     size = dtax.depth.shape[0]
-    safe = torch.where(uvalid, utaxa.clamp(0, size - 1), 0).to(torch.int64)
-    rows = dtax.geom[safe]                  # (B, K, 1 + D)
+    safe = torch.where(uvalid, utaxa.clamp(0, size - 1), 0)
+    rows = rows_of(dtax.geom, safe)         # (B, K, 1 + D)
     lin = rows[..., 1:]
     dep = torch.where(uvalid, rows[..., 0], 0).clamp(min=0)
+    if not ancestry:
+        return HitGeometry(lin, dep, None, uvalid)
     B, K, D = lin.shape
-    # a[b, i, j] = lin[b, j, dep[b, i]]: an integer gather
-    lin_t = lin.transpose(1, 2)             # (B, D, K)
-    a = torch.gather(lin_t, 1, dep.to(torch.int64)[:, :, None].expand(B, K, K))
+    a = along(lin.transpose(1, 2), dep[:, :, None].expand(B, K, K))
     is_anc = (a == utaxa[:, :, None]) & uvalid[:, :, None] \
         & uvalid[:, None, :]
     return HitGeometry(lin, dep, is_anc, uvalid)
@@ -209,9 +231,10 @@ def _argmax_tiebreak(utaxa, depth, valid, scores):
 # Aggregators
 # ---------------------------------------------------------------------- #
 
-def tree_lca_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa):
-    """LCA* (reference src/tree/lca.rs): the deepest input if all inputs
-    lie on one chain, else the LCA of all inputs."""
+def tree_lca_plain(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa):
+    """Plain version of K6 for LCA* (reference src/tree/lca.rs): the
+    deepest input if all inputs lie on one chain, else the LCA of all
+    inputs."""
     B, K, D = geom.lin.shape
     valid = geom.valid
     dom = (geom.is_anc | ~valid[:, :, None]).all(dim=1) & valid
@@ -230,22 +253,24 @@ def tree_lca_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa):
     return torch.where(any_dom, chain_result, lca_result)
 
 
-def rtl_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts):
-    """MRTL (reference src/rmq/rtl.rs:39-57): score of input j = summed
-    counts of inputs that are ancestors-or-self of j; argmax."""
+def rtl_plain(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts):
+    """Plain version of K6 for MRTL (reference src/rmq/rtl.rs:39-57):
+    score of input j = summed counts of inputs that are ancestors-or-self
+    of j; argmax."""
     c = torch.where(geom.valid, ucounts, 0.0)
     scores = torch.where(geom.is_anc, c[:, :, None], 0.0).sum(dim=1)
     return _argmax_tiebreak(utaxa, geom.depth, geom.valid, scores)
 
 
-def tree_mix_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts,
+def tree_mix_plain(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts,
                    factor: float):
-    """Tree hybrid (reference src/tree/mix.rs:42-64) as a depth-bounded
-    descent: collapse chains freely; at a branching node descend into the
-    heaviest branch while its share of the current chain value is >=
-    factor (ties -> smallest branch id). Branch sums are taken one depth
-    at a time, a (B, K, K) compare each, instead of the JAX package's
-    hoisted (B, D-1, K, K) tensor."""
+    """Plain version of K6 for tree hybrid (reference
+    src/tree/mix.rs:42-64) as a depth-bounded descent: collapse chains
+    freely; at a branching node descend into the heaviest branch while
+    its share of the current chain value is >= factor (ties -> smallest
+    branch id). Branch sums are taken one depth at a time, a (B, K, K)
+    compare each, instead of the JAX package's hoisted (B, D-1, K, K)
+    tensor."""
     B, K, D = geom.lin.shape
     dev = utaxa.device
     c = torch.where(geom.valid, ucounts, 0.0)
@@ -278,33 +303,126 @@ def tree_mix_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts,
     return x
 
 
+TREE_STRATEGIES = {"hybrid": 0, "lca*": 1, "mrtl": 2}
+
+
+def tree_aggregate_plain(strategy: str, dtax: DeviceTaxonomy,
+                         geom: HitGeometry, utaxa, ucounts=None,
+                         factor: float = 0.25):
+    """Plain version of K6: the strategy's plain aggregator."""
+    if strategy == "lca*":
+        return tree_lca_plain(dtax, geom, utaxa)
+    if strategy == "mrtl":
+        return rtl_plain(dtax, geom, utaxa, ucounts)
+    return tree_mix_plain(dtax, geom, utaxa, ucounts, factor)
+
+
+def tree_aggregate(strategy: str, dtax: DeviceTaxonomy, geom: HitGeometry,
+                   utaxa, ucounts=None, factor: float = 0.25):
+    """The tree aggregators on a :class:`HitGeometry`, (B,) int32:
+    ``strategy`` is ``"hybrid"`` (with ``factor``), ``"lca*"`` or
+    ``"mrtl"``; hybrid and mrtl need ``ucounts``.
+
+    CPU tensors take :func:`tree_aggregate_plain`; CUDA tensors launch K6
+    (one warp per read group; any K, the wide program's included)."""
+    if utaxa.device.type == "cpu":
+        return tree_aggregate_plain(strategy, dtax, geom, utaxa, ucounts,
+                                    factor)
+    code = TREE_STRATEGIES[strategy]
+    lin = geom.lin
+    B, K, D = lin.shape
+    if K == 0 or D == 0:
+        raise ValueError("tree_aggregate: empty hit lists or lineages")
+    if lin.dtype != torch.int32 or lin.stride(2) != 1 or \
+            lin.device != utaxa.device:
+        raise ValueError("tree_aggregate: lin must be int32 on the "
+                         "device of utaxa with adjacent depths")
+    if ucounts is None and strategy != "lca*":
+        raise ValueError(f"tree_aggregate: {strategy} needs ucounts")
+    want = [(geom.depth, torch.int32, (B, K)),
+            (geom.valid, torch.bool, (B, K)), (utaxa, torch.int32, (B, K))]
+    if strategy != "hybrid":
+        want.append((geom.is_anc, torch.bool, (B, K, K)))
+    if ucounts is not None:
+        want.append((ucounts, torch.float32, (B, K)))
+    for t, dt, shape in want:
+        if t.dtype != dt or tuple(t.shape) != shape:
+            raise ValueError(f"tree_aggregate: {tuple(t.shape)} {t.dtype}, "
+                             f"expected {shape} {dt}")
+    kernels.check_cuda("tree_aggregate", *(t for t, _, _ in want))
+    out = torch.empty((B,), dtype=torch.int32, device=utaxa.device)
+    kernels.K6.launch(
+        code, lin.data_ptr(), lin.stride(0), lin.stride(1),
+        geom.depth.data_ptr(),
+        geom.is_anc.data_ptr() if strategy != "hybrid" else 0,
+        ucounts.data_ptr() if ucounts is not None else 0,
+        geom.valid.data_ptr(), utaxa.data_ptr(), B, K, D, dtax.root,
+        float(factor), out.data_ptr(), kernels.stream_handle(utaxa.device))
+    return out
+
+
+def tree_lca_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa):
+    """LCA* (reference src/tree/lca.rs) through K6 (plain on the CPU)."""
+    return tree_aggregate("lca*", dtax, geom, utaxa)
+
+
+def rtl_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts):
+    """MRTL (reference src/rmq/rtl.rs:39-57) through K6 (plain on the
+    CPU)."""
+    return tree_aggregate("mrtl", dtax, geom, utaxa, ucounts)
+
+
+def tree_mix_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts,
+                   factor: float):
+    """Tree hybrid (reference src/tree/mix.rs:42-64) through K6 (plain on
+    the CPU)."""
+    return tree_aggregate("hybrid", dtax, geom, utaxa, ucounts, factor)
+
+
 def snap_batch(snapping: torch.Tensor, taxa: torch.Tensor, default: int = 0):
-    """Nearest snapped ancestors; out-of-range/unsnappable -> default."""
+    """Nearest snapped ancestors (a K5 1-D take); out-of-range and
+    unsnappable ids give ``default``."""
+    take = gather.active()[0]
     size = snapping.shape[0]
-    s = snapping[taxa.clamp(0, size - 1).to(torch.int64)]
+    s = take(snapping, taxa.clamp(0, size - 1))
     ok = (taxa >= 0) & (taxa < size) & (s != NONE)
     return torch.where(ok, s, default)
 
 
-SUPPORTED_AGGREGATIONS = (("tree", "lca*"), ("tree", "hybrid"),
-                          ("rmq", "mrtl"))
+# taxa2agg's device matrix (src/commands/taxa2agg.rs:111-140); the first
+# three aggregate over a HitGeometry
+GEOMETRY_AGGREGATIONS = (("tree", "lca*"), ("tree", "hybrid"),
+                         ("rmq", "mrtl"))
+SUPPORTED_AGGREGATIONS = GEOMETRY_AGGREGATIONS + (("rmq", "lca*"),
+                                                  ("rmq", "hybrid"))
 
 
 def aggregate_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
-                    method: str, strategy: str, factor: float = 0.25):
-    """taxa2agg's dispatch for the 9-mer presets
-    (src/commands/taxa2agg.rs:111-140). The Euler-tour aggregators
-    (rmq/lca*, rmq/hybrid) are not ported yet."""
+                    method: str, strategy: str, factor: float = 0.25,
+                    euler=None, geom: HitGeometry | None = None):
+    """taxa2agg's dispatch over the full matrix
+    (src/commands/taxa2agg.rs:111-140). ``rmq``/``lca*`` needs a
+    :class:`~umgap_tpu_torch.agg.device_rmq.DeviceEuler`. ``geom``, when
+    given, is this batch's :func:`hit_geometry` (with the ancestry test
+    where :func:`needs_ancestry`)."""
     key = (method, strategy)
-    if key in (("rmq", "lca*"), ("rmq", "hybrid")):
-        raise NotImplementedError(
-            f"{method}/{strategy} (the Euler/RMQ aggregators) is not "
-            "ported yet")
-    geom = hit_geometry(dtax, utaxa, uvalid)
-    if key == ("tree", "lca*"):
-        return tree_lca_batch(dtax, geom, utaxa)
-    if key == ("tree", "hybrid"):
-        return tree_mix_batch(dtax, geom, utaxa, ucounts, factor)
-    if key == ("rmq", "mrtl"):
-        return rtl_batch(dtax, geom, utaxa, ucounts)
-    raise ValueError(f"device aggregation does not support {method}/{strategy}")
+    if key == ("rmq", "lca*"):
+        from .device_rmq import rmq_lca_batch
+
+        if euler is None:
+            raise ValueError("rmq/lca* needs a DeviceEuler (pass euler=...)")
+        return rmq_lca_batch(euler, utaxa, uvalid)
+    if key == ("rmq", "hybrid"):
+        from .device_rmq import rmq_mix_batch
+
+        return rmq_mix_batch(dtax, utaxa, ucounts, uvalid, factor)
+    if key not in GEOMETRY_AGGREGATIONS:
+        raise ValueError(
+            f"device aggregation does not support {method}/{strategy}")
+    if geom is None:
+        geom = hit_geometry(dtax, utaxa, uvalid,
+                            needs_ancestry(method, strategy))
+    strat = "mrtl" if method == "rmq" else strategy
+    agg = (tree_aggregate_plain if kernels.plain_selected()
+           else tree_aggregate)
+    return agg(strat, dtax, geom, utaxa, ucounts, factor)

@@ -1,7 +1,7 @@
 """State carried across from the JAX package, given as numpy arrays.
 
 The tests call these on ``np.asarray(...)`` of ``umgap_tpu``'s
-``DeviceTable`` and ``DeviceTaxonomy`` leaves, so that both packages
+``DeviceTable``, ``DeviceTaxonomy`` and ``DeviceEuler`` leaves, so that both packages
 compute on the very same index rows and taxonomy tables. Nothing here
 imports the JAX package.
 """
@@ -9,6 +9,7 @@ imports the JAX package.
 from __future__ import annotations
 
 from .agg.device import DeviceTaxonomy
+from .agg.device_rmq import DeviceEuler
 from .ops.lookup import DeviceTable
 
 
@@ -26,3 +27,12 @@ def taxonomy_from_arrays(depth, anc, snap_valid, snap_ranked, root: int,
     the per-taxon seed scores, all integer arrays."""
     return DeviceTaxonomy.from_arrays(depth, anc, snap_valid, snap_ranked,
                                       root, seed_scores, device=device)
+
+
+def euler_from_arrays(tour, depths, first, block_min, sparse, nlevels: int,
+                      tour_len: int, device=None) -> DeviceEuler:
+    """The Euler tour ``tour``, ``depths`` (T,), ``first`` (size,), the
+    RMQ's ``block_min`` (nb,) and ``sparse`` (levels, nb), all integer
+    arrays, with the level count and the tour length."""
+    return DeviceEuler.from_arrays(tour, depths, first, block_min, sparse,
+                                   nlevels, tour_len, device=device)

@@ -12,10 +12,17 @@ current stream), allocates nothing, does not synchronise, and returns
 ``cudaGetLastError()``; :meth:`Kernel.launch` raises on a non-zero code
 and counts the launch only when it went through. Nothing here runs at
 import time: the CPU tests import every module without a compiler.
+
+:func:`plain_versions` is the one switch between the kernels and their
+plain PyTorch versions: the stages read it to pick which they call, and
+no wrapper reads it (a wrapper takes the plain version only for a CPU
+tensor).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -115,8 +122,22 @@ K4 = Kernel(
     "dedup_counts", "dedup_counts.cu",
     [P, P, I, I, I, P, P, P, P, P],
     "umgap_tpu/agg/device.py:79 dedup_counts")
+K5 = Kernel(
+    "lane_gather", "lane_gather.cu",
+    [I, P, LL, LL, LL, LL, LL, LL, P, LL, LL, LL, LL, LL, P, P],
+    "scripts/exp_pallas_dma.py:171 dyngather_case; "
+    "scripts/exp_pallas_gather.py:47 k1, :62 k2, :77 k3; "
+    "scripts/exp_dyngather.py:37 make; "
+    "scripts/exp_probe_primitives.py:66 f3, :96 f4; "
+    "scripts/exp_probe2.py:75, :87, :112; "
+    "umgap_tpu/agg/device.py:178 hit_geometry one-hot contraction")
+K6 = Kernel(
+    "tree_aggregate", "tree_aggregate.cu",
+    [I, P, LL, I, P, P, P, P, P, I, I, I, I, ctypes.c_float, P, P],
+    "umgap_tpu/agg/device.py:219 tree_lca_batch, :243 rtl_batch, "
+    ":253 tree_mix_batch")
 
-KERNELS = (K1, K2, K3, K4)
+KERNELS = (K1, K2, K3, K4, K5, K6)
 
 # build seconds and ptxas reports of the last build_all() in this process
 BUILD_INFO: dict = {}
@@ -129,6 +150,27 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict:
     return {k.name: k.launches for k in KERNELS}
+
+
+_PLAIN = contextvars.ContextVar("umgap_plain_versions", default=False)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Within the block the pipeline's stages call their kernels' plain
+    versions on any device: the reference the kernels are held against
+    on the card (``run_stages(..., plain=True)`` enters it). No entry
+    point does."""
+    token = _PLAIN.set(True)
+    try:
+        yield
+    finally:
+        _PLAIN.reset(token)
+
+
+def plain_selected() -> bool:
+    """True inside :func:`plain_versions`."""
+    return _PLAIN.get()
 
 
 def build_all(force: bool = False) -> dict:

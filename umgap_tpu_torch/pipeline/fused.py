@@ -8,10 +8,13 @@ The composition of the reference's preset pipelines
 
 over a padded batch of read pairs. On CUDA the chain is
 K1 reads_to_kmers -> K2 probe_kmer -> K3 seedextend_mask ->
-K4 dedup_counts -> the plain PyTorch aggregation tail; on the CPU every
-stage runs its plain version. ``run_stages(..., plain=True)`` composes
-the plain versions on any device: it is the reference the kernels are held
-against on the card, and no entry point uses it.
+K4 dedup_counts -> hit_geometry (K5 lane_gather) -> the aggregator (K6
+tree_aggregate for tree/lca*, tree/hybrid and rmq/mrtl; the Euler/RMQ
+aggregators around K5 for rmq/lca* and rmq/hybrid) -> snap (K5); on the
+CPU every stage runs its plain version. ``run_stages(..., plain=True)``
+composes the plain versions on any device (inside
+:func:`~umgap_tpu_torch.kernels.plain_versions`): it is the reference
+the kernels are held against on the card, and no entry point uses it.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from .. import kernels
 from ..agg import device as devagg
 from ..ops import encoding, lookup, seedextend, translate
 
@@ -65,26 +69,37 @@ _PLAIN_OPS = (translate.reads_to_kmers_plain, lookup.probe_plain,
 
 
 def check_config(config: PipelineConfig) -> None:
-    """Refuse what this port does not run yet, before any batch."""
+    """Refuse, before any batch, a method/strategy pair that taxa2agg
+    cannot combine (src/commands/taxa2agg.rs:111-140)."""
     if (config.method, config.strategy) not in \
             devagg.SUPPORTED_AGGREGATIONS:
-        raise NotImplementedError(
-            f"{config.method}/{config.strategy} aggregation is not ported")
+        raise ValueError(
+            f"{config.method} and {config.strategy} cannot be combined")
 
 
 def run_stages(reads, lengths, length: int, packed: bool,
                dtax: devagg.DeviceTaxonomy, dtable: lookup.DeviceTable,
                config: PipelineConfig, with_overflow: bool = False,
-               plain: bool = False, timer=None):
+               plain: bool = False, timer=None, euler=None):
     """One batch: reads (B*E, row) uint8 (packed4 or codes), lengths
-    (B, E) int32 -> taxon (B,) int32 [, overflow (B,) bool].
+    (B, E) int32 -> taxon (B,) int32 [, overflow (B,) bool]. ``euler``
+    (a :class:`~umgap_tpu_torch.agg.device_rmq.DeviceEuler`) is needed
+    by rmq/lca*.
 
     ``timer``, when given, is a callable ``timer(name)`` returning a
     context manager around each stage (used for per-stage timings)."""
     from contextlib import nullcontext
 
-    stage = timer or (lambda _name: nullcontext())
-    r2k, probe, seedext, dedup = _PLAIN_OPS if plain else _KERNEL_OPS
+    with kernels.plain_versions() if plain else nullcontext():
+        return _stages(reads, lengths, length, packed, dtax, dtable, config,
+                       with_overflow, timer or (lambda _name: nullcontext()),
+                       euler)
+
+
+def _stages(reads, lengths, length, packed, dtax, dtable, config,
+            with_overflow, stage, euler):
+    r2k, probe, seedext, dedup = (_PLAIN_OPS if kernels.plain_selected()
+                                  else _KERNEL_OPS)
     B, E = lengths.shape
     table = encoding.get_table(config.table_number)
     with stage("reads_to_kmers"):
@@ -102,13 +117,19 @@ def run_stages(reads, lengths, length: int, packed: bool,
     with stage("dedup"):
         utaxa, ucounts, uvalid, nuniq = dedup(hits, None, config.k_max,
                                               return_nuniq=True)
-    with stage("aggregate"):
+    key = (config.method, config.strategy)
+    with stage("hit_geometry"):
         uvalid = devagg.filter_lower_bound(ucounts, uvalid,
                                            config.lower_bound)
+        geom = (devagg.hit_geometry(dtax, utaxa, uvalid,
+                                    devagg.needs_ancestry(*key))
+                if key in devagg.GEOMETRY_AGGREGATIONS else None)
+    with stage("aggregate"):
         agg = devagg.aggregate_batch(dtax, utaxa, ucounts, uvalid,
                                      config.method, config.strategy,
-                                     config.factor)
-        snapped = devagg.snap_batch(dtax.snap_valid, agg, default=0)
+                                     config.factor, euler=euler, geom=geom)
+    with stage("snap"):
+        snapped = devagg.snap_batch(dtax.snap_valid, agg, 0)
         taxon = torch.where(uvalid.any(dim=-1), snapped, 1).to(torch.int32)
     if with_overflow:
         return taxon, nuniq > config.k_max
@@ -117,7 +138,7 @@ def run_stages(reads, lengths, length: int, packed: bool,
 
 def pipeline_step(dna, lengths, dtax: devagg.DeviceTaxonomy,
                   dtable: lookup.DeviceTable, config: PipelineConfig,
-                  with_overflow: bool = False):
+                  with_overflow: bool = False, euler=None):
     """One fused batch step on DNA codes.
 
     Args:
@@ -132,7 +153,7 @@ def pipeline_step(dna, lengths, dtax: devagg.DeviceTaxonomy,
     check_config(config)
     B, E, L = dna.shape
     return run_stages(dna.reshape(B * E, L).contiguous(), lengths, L, False,
-                      dtax, dtable, config, with_overflow)
+                      dtax, dtable, config, with_overflow, euler=euler)
 
 
 class Pipeline(nn.Module):
@@ -146,11 +167,15 @@ class Pipeline(nn.Module):
     plain = False
 
     def __init__(self, dtax, dtable, config: PipelineConfig,
-                 with_overflow: bool):
+                 with_overflow: bool, euler=None):
         super().__init__()
         check_config(config)
+        if euler is None and (config.method, config.strategy) == (
+                "rmq", "lca*"):
+            raise ValueError("rmq/lca* needs a DeviceEuler (pass euler=...)")
         self.dtax = dtax
         self.dtable = dtable
+        self.euler = euler
         self.config = config
         self.with_overflow = with_overflow
 
@@ -160,16 +185,17 @@ class Pipeline(nn.Module):
         with torch.no_grad():
             return run_stages(reads, lengths, length, True, self.dtax,
                               self.dtable, self.config, self.with_overflow,
-                              self.plain, timer)
+                              self.plain, timer, self.euler)
 
 
 def make_pipeline(dtax: devagg.DeviceTaxonomy, dtable: lookup.DeviceTable,
                   config: PipelineConfig, wire: str = "packed4",
-                  with_overflow: bool = False, device=None) -> Pipeline:
+                  with_overflow: bool = False, device=None,
+                  euler=None) -> Pipeline:
     """The per-batch step as a module over device-resident state, on
     ``device`` (default: the current CUDA device; state elsewhere is
     moved there). The port has the ``packed4`` wire only; DNA codes go
-    through :func:`pipeline_step`."""
+    through :func:`pipeline_step`. rmq/lca* needs ``euler``."""
     from ..device import resolve_device
 
     dev = resolve_device(device)
@@ -177,6 +203,8 @@ def make_pipeline(dtax: devagg.DeviceTaxonomy, dtable: lookup.DeviceTable,
         dtax = dtax.to(dev)
     if dtable.device != dev:
         dtable = dtable.to(dev)
+    if euler is not None and euler.device != dev:
+        euler = euler.to(dev)
     if wire != "packed4":
         raise ValueError(f"unsupported wire {wire!r}: packed4 only")
-    return Pipeline(dtax, dtable, config, with_overflow)
+    return Pipeline(dtax, dtable, config, with_overflow, euler)

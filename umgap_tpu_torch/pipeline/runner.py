@@ -215,13 +215,16 @@ class Analyser(BatchStream):
     """Device-resident taxonomy and index across samples, the analogue of
     the reference's socket index service. Runs on the current CUDA device
     unless ``device`` says otherwise (``device="cpu"`` for the plain
-    path); pass prebuilt ``dtax`` / ``dtable`` to share device state."""
+    path); pass prebuilt ``dtax`` / ``dtable`` / ``euler`` to share device
+    state. rmq/lca* builds its Euler tables from ``tax`` when no
+    ``euler`` is given."""
 
     WIDE_BATCH = 64
 
     def __init__(self, tax: Taxonomy | None, table, config: PipelineConfig,
                  batch_size: int = 1024, read_length: int = 160,
-                 ends: int = 2, dtax=None, dtable=None, device=None):
+                 ends: int = 2, dtax=None, dtable=None, device=None,
+                 euler=None):
         super().__init__(batch_size, read_length, ends)
         self.config = config
         self.device = resolve_device(device)
@@ -229,9 +232,15 @@ class Analyser(BatchStream):
                      else devagg.DeviceTaxonomy.from_host(tax, self.device))
         self.dtable = (dtable if dtable is not None
                        else lookup.DeviceTable.from_host(table, self.device))
+        if euler is None and tax is not None and (
+                config.method, config.strategy) == ("rmq", "lca*"):
+            from ..agg.device_rmq import DeviceEuler
+
+            euler = DeviceEuler.from_host(tax, self.device)
+        self.euler = euler
         self.step = make_pipeline(self.dtax, self.dtable, config,
                                   wire="packed4", with_overflow=True,
-                                  device=self.device)
+                                  device=self.device, euler=euler)
         self._wide_step = None
         self.overflow_reads = 0
 
@@ -252,7 +261,8 @@ class Analyser(BatchStream):
             self._wide_step = make_pipeline(self.dtax, self.dtable, cfg,
                                             wire="packed4",
                                             with_overflow=False,
-                                            device=self.device)
+                                            device=self.device,
+                                            euler=self.euler)
         return self._wide_step
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:

@@ -88,6 +88,9 @@ class Taxonomy:
         self.parent = np.full(n, NONE, dtype=np.int64)
         self.rank = np.zeros(n, dtype=np.int8)
         self.valid = np.zeros(n, dtype=bool)
+        # children in input order, as TaxonTree::new pushes them
+        # (src/taxon.rs:224-247); the Euler tour visits them in this order
+        self._children: dict[int, list[int]] = {}
 
         roots = set(t.id for t in taxa)
         for t in taxa:
@@ -97,6 +100,7 @@ class Taxonomy:
             self.rank[i] = t.rank
             self.valid[i] = t.valid
             if t.id != t.parent:
+                self._children.setdefault(t.parent, []).append(t.id)
                 roots.discard(t.id)
         if len(roots) > 1:
             raise TaxonomyError("More than one root!")
@@ -157,6 +161,30 @@ class Taxonomy:
         ok = anc != NONE
         out[ok] = ranks.RANK_SCORES[self.rank[anc[ok]]]
         return out
+
+    def euler_tour(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Euler tour from the root: a node is emitted before each child's
+        subtree and once after the last, so it appears child count + 1
+        times (EulerIterator, src/taxon.rs:309-392). Returns (tour ids,
+        tour depths, first occurrence per id with NONE for ids not on the
+        tour), all int64."""
+        tour: list[int] = []
+        depths: list[int] = []
+        first = np.full(self.size, NONE, dtype=np.int64)
+        # iterative DFS; the stack holds (node, next child index, depth)
+        stack = [(self.root, 0, 0)]
+        while stack:
+            node, ci, d = stack.pop()
+            if first[node] == NONE:
+                first[node] = len(tour)
+            tour.append(node)
+            depths.append(d)
+            kids = self._children.get(node, ())
+            if ci < len(kids):
+                stack.append((node, ci + 1, d))
+                stack.append((kids[ci], 0, d + 1))
+        return (np.asarray(tour, dtype=np.int64),
+                np.asarray(depths, dtype=np.int64), first)
 
     def ancestor_table(self) -> np.ndarray:
         """``anc[i, d]`` = ancestor of node i at depth d (NONE above the
