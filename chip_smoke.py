@@ -123,6 +123,19 @@ def tile_read(torch, shape, idxs, axis=-2):
     return int(seen.sum())
 
 
+def ancestry_bound(torch, dep, valid, D):
+    """(bound ms, by, lineage elements) of the ancestry epilogue on this
+    data: the lineage elements of valid (j, dep[i]) pairs (per group, its
+    valid slots times its distinct depths of valid slots), dep, utaxa and
+    valid read once, the (B, K, K) bool output written once; one compare
+    per output."""
+    B, K = dep.shape
+    seen = torch.zeros((B, D), dtype=torch.int32, device=dep.device)
+    seen.scatter_add_(1, dep.long(), valid.to(torch.int32))
+    needed = int(((seen > 0).sum(dim=1) * valid.sum(dim=1)).sum())
+    return bound(needed * 4 + B * K * 9 + B * K * K, B * K * K) + (needed,)
+
+
 def main():
     import torch
 
@@ -375,22 +388,32 @@ def _chain(torch, world, width):
         torch, f"K4 L={width}", k4,
         devagg.dedup_counts_plain(hits, None, 64, return_nuniq=True))
     NH = hits.shape[1]
-    M = 1 << max(NH - 1, 1).bit_length()
-    lg = M.bit_length() - 1
     stats["dedup_counts"] = dict(
         ms=cuda_ms(torch, lambda: devagg.dedup_counts(hits, None, 64, True)),
+        device_ms=device_ms(torch, lambda: devagg.dedup_counts(
+            hits, None, 64, True)),
         plain_ms=cuda_ms(torch, lambda: devagg.dedup_counts_plain(
             hits, None, 64, True), reps=5))
+    # bound: each id read once, the outputs written once, and the least
+    # sorting work of each row's n valid hits (n log2 n compares, 4
+    # operations each), from this batch's data
+    nv = (hits > 0).sum(dim=1).cpu().numpy().astype(np.int64)
+    lg = np.ceil(np.log2(np.maximum(nv, 1))).astype(np.int64)
     b4, by4 = bound(BATCH * NH * 4 + BATCH * (64 * 9 + 4),
-                    BATCH * (M // 2) * lg * (lg + 1) // 2 * 4)
-    stats["dedup_counts"].update(bound_ms=b4, bound_by=by4, N=NH)
+                    int((nv * lg).sum()) * 4)
+    stats["dedup_counts"].update(
+        bound_ms=b4, bound_by=by4, N=NH, path=devagg.dedup_path(NH),
+        valid_hits=dict(mean=float(nv.mean()),
+                        p50=float(np.percentile(nv, 50)),
+                        p99=float(np.percentile(nv, 99)), max=int(nv.max())))
 
     # K5 and K6 on K4's output, high-sensitivity's lower bound
     utaxa, ucounts, uvalid = k4[0], k4[1], devagg.filter_lower_bound(
         k4[1], k4[2], 1.0)
-    s5, e5, s6, e6 = _agg_chain(torch, world, utaxa, ucounts, uvalid, width)
-    stats.update(lane_gather=s5, tree_aggregate=s6)
-    errs.update(lane_gather=e5, tree_aggregate=e6)
+    (s5, e5), (s5a, e5a), (s6, e6) = _agg_chain(torch, world, utaxa,
+                                                ucounts, uvalid, width)
+    stats.update(lane_gather=s5, lane_gather_ancestry=s5a, tree_aggregate=s6)
+    errs.update(lane_gather=e5, lane_gather_ancestry=e5a, tree_aggregate=e6)
     log(f"L={width} chain, kernels equal to plain: " + ", ".join(
         f"{n} {s['ms']:.3f} ms (plain {s['plain_ms']:.3f}, bound "
         f"{s['bound_ms']:.4f} {s['bound_by']})" for n, s in stats.items()))
@@ -413,32 +436,72 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
     e5 = compare(torch, f"K5 hit_geometry L={width}", tuple(geom),
                  tuple(want))
     B, K, D = geom.lin.shape
-    # the ancestry gather a[b, i, j] = lin[b, j, dep[b, i]]
-    lin_t = geom.lin.transpose(1, 2)
-    idx = geom.depth[:, :, None].expand(B, K, K)
-    idx64 = geom.depth.to(torch.int64)[:, :, None].expand(B, K, K)
+    lin, dep = geom.lin, geom.depth
+    # K5 on the main path: the taxonomy row gather (one index per row of
+    # [depth | ancestors]), beside one index_select on the same rows;
+    # bytes of the distinct rows read, the ids and the output
+    safe = torch.where(uvalid, utaxa.clamp(0, dtax.depth.shape[0] - 1), 0)
+    safe64 = safe.reshape(-1).to(torch.int64)
+    e5 = max(e5, compare(torch, f"K5 row gather L={width}",
+                         gather.gather_rows(dtax.geom, safe),
+                         gather.take_plain(dtax.geom, safe)))
+    row_w = dtax.geom.shape[1]
+    rb, rby = bound((int(torch.unique(safe).numel()) * row_w
+                     + B * K + B * K * row_w) * 4, 0)
+    s5 = dict(
+        ms=cuda_ms(torch, lambda: gather.gather_rows(dtax.geom, safe)),
+        device_ms=device_ms(torch, lambda: gather.gather_rows(dtax.geom,
+                                                              safe)),
+        plain_ms=cuda_ms(torch, lambda: gather.take_plain(dtax.geom, safe)),
+        library_ms=cuda_ms(torch, lambda: torch.index_select(
+            dtax.geom, 0, safe64)),
+        bound_ms=rb, bound_by=rby, shape=[B, K, row_w])
+    # K5's rows mode at the shape of the ancestry gather
+    # a[b, i, j] = lin[b, j, dep[b, i]] that hit_geometry ran before the
+    # epilogue (16,384 transposed (26, 64) tiles, staged), beside one
+    # torch.gather; bytes: the lineage elements the depths pick, the
+    # depths as stored, the output
+    lin_t = lin.transpose(1, 2)
+    idx = dep[:, :, None].expand(B, K, K)
+    idx64 = dep.to(torch.int64)[:, :, None].expand(B, K, K)
     e5 = max(e5, compare(torch, f"K5 ancestry gather L={width}",
                          gather.lane_gather(lin_t, idx),
                          gather.lane_gather_plain(lin_t, idx)))
-    # bytes: the lineage elements the depths pick, the depths as stored,
-    # the output
     read5 = tile_read(torch, (B, D, K), [idx])
-    b5, by5 = bound(read5 * 4 + B * K * 4 + B * K * K * 4, B * K * K)
-    s5 = dict(ms=cuda_ms(torch, lambda: gather.lane_gather(lin_t, idx)),
-              device_ms=device_ms(torch, lambda: gather.lane_gather(lin_t,
-                                                                    idx)),
-              plain_ms=cuda_ms(torch, lambda: gather.lane_gather_plain(
-                  lin_t, idx)),
-              library_ms=cuda_ms(torch, lambda: torch.gather(lin_t, 1,
-                                                             idx64)),
-              bound_ms=b5, bound_by=by5, shape=[B, D, K],
-              tile_elements_read=read5)
-    # the taxonomy row gather and snap's 1-D take
-    safe = torch.where(uvalid, utaxa.clamp(0, dtax.depth.shape[0] - 1), 0)
-    s5["rows_ms"] = cuda_ms(torch, lambda: gather.gather_rows(dtax.geom,
-                                                               safe))
-    s5["rows_plain_ms"] = cuda_ms(torch, lambda: gather.take_plain(
-        dtax.geom, safe))
+    b5, by5 = bound(read5 * 4 + B * K * 4 + B * K * K * 4, 0)
+    s5["ancestry_gather"] = dict(
+        ms=cuda_ms(torch, lambda: gather.lane_gather(lin_t, idx)),
+        device_ms=device_ms(torch, lambda: gather.lane_gather(lin_t, idx)),
+        plain_ms=cuda_ms(torch, lambda: gather.lane_gather_plain(lin_t,
+                                                                 idx)),
+        library_ms=cuda_ms(torch, lambda: torch.gather(lin_t, 1, idx64)),
+        bound_ms=b5, bound_by=by5, shape=[B, D, K],
+        tile_elements_read=read5)
+
+    # K5's ancestry epilogue: is_anc with the compare and masks fused in,
+    # beside the unfused gather, compare and masks it replaced. Bound,
+    # from this batch's data: the lineage elements of valid (j, dep[i])
+    # pairs, dep, utaxa and valid once, and the (B, K, K) bool output
+    uv = uvalid
+    e5a = compare(torch, f"K5 ancestry L={width}",
+                  gather.ancestry(lin, dep, utaxa, uv),
+                  gather.ancestry_plain(lin, dep, utaxa, uv))
+
+    def unfused():
+        a = gather.lane_gather(lin_t, idx)
+        return (a == utaxa[:, :, None]) & uv[:, :, None] & uv[:, None, :]
+
+    s5a = dict(
+        ms=cuda_ms(torch, lambda: gather.ancestry(lin, dep, utaxa, uv)),
+        device_ms=device_ms(torch, lambda: gather.ancestry(lin, dep, utaxa,
+                                                           uv)),
+        plain_ms=cuda_ms(torch, lambda: gather.ancestry_plain(lin, dep,
+                                                              utaxa, uv)),
+        library_ms=None, shape=[B, K, D],
+        unfused_ms=cuda_ms(torch, unfused),
+        unfused_device_ms=device_ms(torch, unfused))
+    s5a.update(zip(("bound_ms", "bound_by", "needed_lineage_elements"),
+                   ancestry_bound(torch, dep, uv, D)))
 
     s6, e6 = {}, 0.0
     res = {}
@@ -456,6 +519,17 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
     with kernels.plain_versions():
         want = devagg.snap_batch(dtax.snap_valid, res["hybrid"])
     e5 = max(e5, compare(torch, f"K5 snap L={width}", got, want))
+    # snap's 1-D take, beside one torch.take on the same ids
+    snapping = dtax.snap_valid
+    ids = res["hybrid"].clamp(0, snapping.shape[0] - 1)
+    ids64 = ids.to(torch.int64)
+    sb, sby = bound((int(torch.unique(ids).numel()) + 2 * B) * 4, 0)
+    s5["snap"] = dict(
+        ms=cuda_ms(torch, lambda: gather.take(snapping, ids)),
+        device_ms=device_ms(torch, lambda: gather.take(snapping, ids)),
+        plain_ms=cuda_ms(torch, lambda: gather.take_plain(snapping, ids)),
+        library_ms=cuda_ms(torch, lambda: torch.take(snapping, ids64)),
+        bound_ms=sb, bound_by=sby, shape=[int(snapping.shape[0]), B])
     # bounds, from this batch's data: what the valid slots need, each
     # read once, the valid mask read whole and (B,) written once. hybrid
     # reads the lineage columns of the depths it visits (its result's
@@ -490,8 +564,18 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
     gw = devagg.hit_geometry(dtax, uw, vw)
     with kernels.plain_versions():
         want = devagg.hit_geometry(dtax, uw, vw)
-    e5 = max(e5, compare(torch, f"K5 hit_geometry K={kw}", tuple(gw),
-                         tuple(want)))
+    e5a = max(e5a, compare(torch, f"K5 hit_geometry K={kw}", tuple(gw),
+                           tuple(want)))
+    # the epilogue at the wide width
+
+    def wide_anc():
+        return gather.ancestry(gw.lin, gw.depth, uw, vw)
+
+    wa = {"K": kw, "rows": n, "ms": cuda_ms(torch, wide_anc),
+          "device_ms": device_ms(torch, wide_anc)}
+    wa.update(zip(("bound_ms", "bound_by", "needed_lineage_elements"),
+                  ancestry_bound(torch, gw.depth, vw, D)))
+    s5a["wide"] = wa
     wide = {"K": kw, "rows": n}
     for strat in ("hybrid", "lca*", "mrtl"):
         got = devagg.tree_aggregate(strat, dtax, gw, uw, cw, 0.25)
@@ -508,7 +592,7 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
               bound_ms=s6["hybrid"]["bound_ms"],
               bound_by=s6["hybrid"]["bound_by"], library_ms=None,
               shape=[B, K, D])
-    return s5, e5, s6, e6
+    return (s5, e5), (s5a, e5a), (s6, e6)
 
 
 def phase_kernels(torch, world):
@@ -605,14 +689,21 @@ def phase_kernels(torch, world):
                 seedextend.seedextend_mask_plain(tr, lr, s, g)))
 
     # ---- K4 edge cases: k_max below and above N, weights -------------- #
-    for NH2, kmax, weighted in ((540, 16, False), (540, 600, False),
-                                (540, 64, True), (37, 8, False)):
-        tx = torch.from_numpy(rng.integers(-1, 60, size=(4096, NH2)).astype(
-            np.int32)).to(dev)
+    # (dense rows: the warp path's shared-memory sort; sparse rows: its
+    # register sort; N = 2,048: the block path)
+    for NH2, kmax, weighted, density in (
+            (540, 16, False, 1.0), (540, 600, False, 1.0),
+            (540, 64, True, 1.0), (37, 8, False, 1.0), (300, 64, False, 0.1),
+            (300, 64, True, 0.1), (2048, 64, False, 1.0),
+            (2048, 64, True, 0.05)):
+        ids = rng.integers(-1, 60, size=(4096, NH2))
+        ids[rng.random((4096, NH2)) >= density] = 0
+        tx = torch.from_numpy(ids.astype(np.int32)).to(dev)
         w = (torch.from_numpy(rng.integers(0, 4, size=(4096, NH2)).astype(
             np.float32)).to(dev) if weighted else None)
         errs["dedup_counts"] = max(errs["dedup_counts"], compare(
-            torch, f"K4 N={NH2} k_max={kmax} w={weighted}",
+            torch, f"K4 N={NH2} k_max={kmax} w={weighted} "
+            f"density={density} ({devagg.dedup_path(NH2)} path)",
             devagg.dedup_counts(tx, w, kmax, True),
             devagg.dedup_counts_plain(tx, w, kmax, True)))
 
@@ -664,18 +755,13 @@ GATHER_ROWS = (
 )
 
 
-def phase_gather(torch, world):
-    """K5 at the shapes of each TPU gather kernel it ports, held exactly
-    to its plain version and timed beside one torch.gather call (the
-    library yardstick; the port never calls it on the card) and its bytes
-    bound: the tile elements this run's indices pick, the indices as
-    stored and the output, once each."""
+def gather_cases(torch, dev, seed=17):
+    """K5, its plain version and one library call at the shapes of each
+    TPU gather kernel it ports (GATHER_ROWS), with the bytes each needs:
+    yields (name, source, mode, shape, k5, plain, library, bytes)."""
     from umgap_tpu_torch.ops import gather
 
-    dev = world["dev"]
-    rng = np.random.default_rng(17)
-    t_phase = time.perf_counter()
-    rows = {}
+    rng = np.random.default_rng(seed)
     for name, source, mode, p in GATHER_ROWS:
         G, S, W = p.get("G", 1), p["S"], 128
         if mode == "take":
@@ -748,6 +834,43 @@ def phase_gather(torch, world):
             steps = [(idx + k) % n for k in range(rep)]
             nbytes = (tile_read(torch, (1, S, W), [x[None] for x in steps],
                                 axis - 2) * 4 + 2 * S * W * 4)
+        yield name, source, mode, p, k5, plain, library, nbytes
+
+
+def host_us(torch, fn, reps=200):
+    """Host time per call of ``fn``: ``reps`` calls with no
+    synchronisation, on the host clock (what a call costs the Python
+    thread that issues it), after a synchronised warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+# Whole (S, 128) int32 tiles of 8-96 KB for the staging sweep
+SWEEP_ROWS = (16, 32, 64, 96, 128, 192)
+SWEEP_GROUPS = 1024
+
+
+def phase_gather(torch, world):
+    """K5 at the shapes of each TPU gather kernel it ports, held exactly
+    to its plain version and timed beside one torch.gather call (the
+    library yardstick; the port never calls it on the card) and its bytes
+    bound: the tile elements this run's indices pick, the indices as
+    stored and the output, once each. Then the host time a call costs,
+    for K5 and the library call; and the staging sweep: rows mode on
+    1,024 whole (S, 128) tiles of 8-96 KB, staged and direct."""
+    from umgap_tpu_torch.ops import gather
+
+    dev = world["dev"]
+    t_phase = time.perf_counter()
+    rows = {}
+    for name, source, mode, p, k5, plain, library, nbytes in gather_cases(
+            torch, dev):
         err = compare(torch, f"K5 {name}", k5(), plain())
         b, by = bound(nbytes, 0)
         rows[name] = dict(
@@ -757,13 +880,64 @@ def phase_gather(torch, world):
             library_ms=cuda_ms(torch, library, reps=50),
             device_ms=device_ms(torch, k5),
             library_device_ms=device_ms(torch, library),
+            host_us=host_us(torch, k5), library_host_us=host_us(torch, library),
             bound_ms=b, bound_by=by)
         r = rows[name]
         log(f"K5 {name} ({source}): equal; {r['ms']:.4f} ms "
-            f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f}, "
-            f"torch.gather {r['library_ms']:.4f} (device "
-            f"{r['library_device_ms']:.4f}), bound {b:.4f} ({by})")
-    RESULT["phases"]["gather"] = dict(rows=rows,
+            f"(device {r['device_ms']:.4f}, host {r['host_us']:.1f} us), "
+            f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} "
+            f"(device {r['library_device_ms']:.4f}, host "
+            f"{r['library_host_us']:.1f} us), bound {b:.5f} ({by})")
+
+    # where a small call's host time goes, at Pallas #4's shape
+    from umgap_tpu_torch import kernels
+
+    rng = np.random.default_rng(23)
+    tab = torch.from_numpy(rng.integers(0, 1 << 30, size=(8192, 128)).astype(
+        np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 8192, size=(32, 128)).astype(
+        np.int32)).to(dev)
+    idx64 = idx.long()
+    out = idx.new_empty(idx.shape)
+    args = (-2, tab.data_ptr(), 1, 8192, 128, 0, 128, 1, idx.data_ptr(), 32,
+            128, 0, 128, 1, out.data_ptr(), gather.STAGE_BYTES,
+            kernels.stream_of(tab))
+    host = dict(
+        wrapper_us=host_us(torch, lambda: gather.lane_gather(tab, idx)),
+        launch_us=host_us(torch, lambda: kernels.K5.launch(*args)),
+        empty_us=host_us(torch, lambda: idx.new_empty(idx.shape)),
+        library_us=host_us(torch, lambda: torch.gather(tab, 0, idx64)))
+    host["checks_us"] = (host["wrapper_us"] - host["launch_us"]
+                         - host["empty_us"])
+    log("K5 host time per call at #4's shape: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in host.items()))
+
+    G, W = SWEEP_GROUPS, 128
+    sweep = {}
+    for S in SWEEP_ROWS:
+        tab = torch.from_numpy(rng.integers(0, 1 << 30, size=(G, S, W)).astype(
+            np.int32)).to(dev)
+        idx = torch.from_numpy(rng.integers(0, S, size=(G, S, W)).astype(
+            np.int32)).to(dev)
+        want = gather.lane_gather_plain(tab, idx)
+        row = {"tile_kb": S * W * 4 / 1024}
+        for pname, limit in (("staged", 1 << 20), ("direct", 0)):
+            def run(limit=limit):
+                return gather.lane_gather_staging(tab, idx, -2, limit)
+            compare(torch, f"K5 sweep S={S} {pname}", run(), want)
+            row[pname + "_ms"] = cuda_ms(torch, run)
+            row[pname + "_device_ms"] = device_ms(torch, run)
+        b, _by = bound(G * S * W * 12, 0)
+        row["bound_ms"] = b
+        sweep[S] = row
+        log(f"K5 staging sweep, {G} tiles of ({S}, {W}) = "
+            f"{row['tile_kb']:.0f} KB: staged {row['staged_device_ms']:.4f}"
+            f" ms, direct {row['direct_device_ms']:.4f} ms of device time "
+            f"(bound {b:.4f})")
+        del tab, idx, want
+    RESULT["phases"]["gather"] = dict(rows=rows, staging_sweep=sweep,
+                                      host_breakdown=host,
+                                      stage_bytes=gather.STAGE_BYTES,
                                       seconds=time.perf_counter() - t_phase)
 
 
@@ -824,6 +998,22 @@ def _probes1_table(T, keys, vals):
 # ---------------------------------------------------------------------- #
 # Phase 3: the main path, all four presets
 # ---------------------------------------------------------------------- #
+
+def path_kernels(config):
+    """Names of the kernels a configuration's path launches: K5's
+    ancestry epilogue only where the aggregation reads is_anc, K6 only
+    for the tree aggregators."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.agg import device as devagg
+
+    key = (config.method, config.strategy)
+    names = {k.name for k in kernels.KERNELS}
+    if not devagg.needs_ancestry(*key):
+        names.discard("lane_gather_ancestry")
+    if key not in devagg.GEOMETRY_AGGREGATIONS:
+        names.discard("tree_aggregate")
+    return names
+
 
 def _analyser(world, config, dtable=None, batch_size=BATCH, read_length=None,
               plain=False, euler=None):
@@ -889,8 +1079,7 @@ def phase_main(torch, world):
     from umgap_tpu_torch.pipeline.fused import PRESETS
 
     t_phase = time.perf_counter()
-    dev = world["dev"]
-    L, P = world["L"], world["P"]
+    P = world["P"]
     analysers = {name: _analyser(world, cfg)
                  for name, cfg in PRESETS.items()}
     # warm the allocator and every program shape once, outside the count
@@ -931,10 +1120,54 @@ def phase_main(torch, world):
             f"({e2e['batches']} batches in {e2e['seconds']:.2f} s), "
             f"overflow {overflow}")
 
-    # high-sensitivity: device-resident rate and per-stage times
+    # device-resident rate, per-stage times and peak card memory of one
+    # tree/hybrid, one tree/lca* and the rmq/mrtl preset
+    for name in STAGE_PRESETS:
+        phase[name.replace("-", "_")] = stage_table(torch, world,
+                                                    analysers[name])
+    an = analysers["high-sensitivity"]
+    # device busy share of a steady end-to-end stream, from the
+    # profiler's kernel and copy times (the profiler's own overhead
+    # inflates the wall time, so idle is an upper bound)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled = _stream_rate(an, world, min_s=1.0)
+    wall = profiled["seconds"]
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in ev)
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:10]
+    phase["high_sensitivity"].update(
+        e2e_pairs_per_s=phase["presets"]["high-sensitivity"]["e2e"][
+            "pairs_per_s"],
+        profiled_pairs=profiled["pairs"], profiled_wall_s=wall,
+        profiled_device_s=dev_us / 1e6,
+        profiled_busy_share=(dev_us / 1e6) / wall if dev_us else None,
+        profile_top=[(e.key, e.self_device_time_total / 1e3, e.count)
+                     for e in top])
+    phase["seconds"] = time.perf_counter() - t_phase
+    RESULT["phases"]["main"] = phase
+    log(f"high-sensitivity: profiled busy {dev_us / 1e6:.3f} s of "
+        f"{wall:.3f} s")
+    return launches, results
+
+
+STAGE_PRESETS = ("high-sensitivity", "high-precision", "max-sensitivity")
+
+
+def stage_table(torch, world, an):
+    """One preset's Analyser on the workload's batches already on the
+    card: device-resident pairs/s, the per-stage CUDA-event times
+    (median of 5 x the batches; each stage ends in a host sync) and the
+    peak card memory of one batch step above what was allocated before
+    it."""
+    import contextlib
+
     from umgap_tpu_torch.ops import encoding
 
-    an = analysers["high-sensitivity"]
+    dev, P, L = world["dev"], world["P"], world["L"]
     batches = [torch.from_numpy(encoding.pack_dna4(
         world["reads"][i * BATCH:(i + 1) * BATCH])).to(dev)
         for i in range(P // BATCH)]
@@ -948,8 +1181,6 @@ def phase_main(torch, world):
     stage_ms = {}
 
     def timer(name):
-        import contextlib
-
         @contextlib.contextmanager
         def cm():
             a = torch.cuda.Event(enable_timing=True)
@@ -964,38 +1195,22 @@ def phase_main(torch, world):
     for _ in range(5):
         for b in batches:
             an.step(b, lens, L, timer=timer)
-    # device busy share of a steady end-to-end stream, from the
-    # profiler's kernel and copy times (the profiler's own overhead
-    # inflates the wall time, so idle is an upper bound)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        profiled = _stream_rate(an, world, min_s=1.0)
-    wall = profiled["seconds"]
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in ev)
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:10]
-    phase["high_sensitivity"] = dict(
-        device_resident_pairs_per_s=P / (ms / 1e3),
-        batch_ms=ms / len(batches),
-        stage_ms={k: float(np.median(v)) for k, v in stage_ms.items()},
-        e2e_pairs_per_s=phase["presets"]["high-sensitivity"]["e2e"][
-            "pairs_per_s"],
-        profiled_pairs=profiled["pairs"], profiled_wall_s=wall,
-        profiled_device_s=dev_us / 1e6,
-        profiled_busy_share=(dev_us / 1e6) / wall if dev_us else None,
-        profile_top=[(e.key, e.self_device_time_total / 1e3, e.count)
-                     for e in top])
-    phase["seconds"] = time.perf_counter() - t_phase
-    RESULT["phases"]["main"] = phase
-    log(f"high-sensitivity: device-resident {P / (ms / 1e3):.0f} pairs/s "
-        f"({ms / len(batches):.2f} ms per {BATCH}-pair batch); stages "
-        + ", ".join(f"{k} {float(np.median(v)):.3f} ms"
-                    for k, v in stage_ms.items())
-        + f"; profiled busy {dev_us / 1e6:.3f} s of {wall:.3f} s")
-    return launches, results
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    an.step(batches[0], lens, L)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(device_resident_pairs_per_s=P / (ms / 1e3),
+               batch_ms=ms / len(batches),
+               stage_ms={k: float(np.median(v)) for k, v in stage_ms.items()},
+               step_peak_gb=peak / 1e9, step_above_base_gb=(peak - base) / 1e9)
+    log(f"{an.config.name}: device-resident {out['device_resident_pairs_per_s']:.0f}"
+        f" pairs/s ({out['batch_ms']:.3f} ms per {BATCH}-pair batch); stages "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in out["stage_ms"].items())
+        + f"; step peak {peak / 1e9:.3f} GB, {(peak - base) / 1e9:.3f} GB "
+        "above its inputs")
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -1020,8 +1235,9 @@ def phase_wide(torch, world, results):
         kernels.reset_launches()
         got = an.run_wide(dna, lens)
         launches = kernels.launch_counts()
-        for k, c in launches.items():
-            require(c > 0, f"wide {name}: kernel {k} was not launched")
+        for k in path_kernels(cfg):
+            require(launches[k] > 0, f"wide {name}: kernel {k} was not "
+                    "launched")
         want = _analyser(world, cfg, plain=True).run_wide(dna, lens)
         require(np.array_equal(got, want),
                 f"wide {name}: kernel taxa differ from plain taxa")
@@ -1117,8 +1333,9 @@ def phase_resident(torch, world):
     kernels.reset_launches()
     taxa = _run_analyser(an, world)
     launches = kernels.launch_counts()
-    for n, c in launches.items():
-        require(c > 0, f"kernel {n} was not launched on the resident path")
+    for n in path_kernels(cfg):
+        require(launches[n] > 0, f"kernel {n} was not launched on the "
+                "resident path")
     overflow = an.overflow_reads
     e2e = _stream_rate(an, world)
     bt = torch.from_numpy(encoding.pack_dna4(batch)).to(dev)
@@ -1201,9 +1418,9 @@ def phase_cli(torch, world):
         kernels.reset_launches()
         taxa = [t for _h, t in an.analyse_arrays(headers, reads, lens)]
         launches[preset] = kernels.launch_counts()
-        for k, c in launches[preset].items():
-            require(c > 0, f"CLI {preset}: kernel {k} was not launched at "
-                    "read length 160")
+        for k in path_kernels(PRESETS[preset]):
+            require(launches[preset][k] > 0, f"CLI {preset}: kernel {k} was "
+                    "not launched at read length 160")
         plain = [t for _h, t in _analyser(
             world, PRESETS[preset], plain=True, **kw).analyse_arrays(
                 headers, reads, lens)]
@@ -1252,9 +1469,8 @@ def phase_rmq(torch, world):
         kernels.reset_launches()
         taxa = _run_analyser(an, world)
         launches = kernels.launch_counts()
-        for k, c in launches.items():
-            if k != "tree_aggregate":
-                require(c > 0, f"{key}: kernel {k} was not launched")
+        for k in path_kernels(cfg):
+            require(launches[k] > 0, f"{key}: kernel {k} was not launched")
         plain = _run_analyser(_analyser(world, cfg, plain=True, euler=euler),
                               world)
         require(np.array_equal(taxa, plain),
@@ -1283,6 +1499,114 @@ def phase_rmq(torch, world):
             f"{e2e['pairs_per_s']:.0f} pairs/s; launches {launches}")
     phase["seconds"] = time.perf_counter() - t_phase
     RESULT["phases"]["rmq"] = phase
+
+
+# ---------------------------------------------------------------------- #
+# Two trees in turns on one card
+# ---------------------------------------------------------------------- #
+
+AB_WORKER = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("smoke_ab", sys.argv[1])
+d = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(d)
+d.ab_worker(sys.argv[2], sys.argv[3])
+"""
+
+
+def compare_trees(before, after, order="BAAB"):
+    """Time two checkouts of the port in turns on one card (before,
+    after, after, before), each in its own process that imports its own
+    ``umgap_tpu_torch`` and runs its own ``chip_smoke.py``'s identify,
+    kernels and gather phases, then this file's per-stage tables (three
+    presets) and K5 host times at the Pallas rows' shapes, so both trees
+    are measured by the same code. Writes ``ab.json`` under OUT_DIR.
+
+        python3 -c "import chip_smoke; chip_smoke.compare_trees(P, A)"
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("FAIL: compare_trees runs only on a GPU")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    runs = []
+    for k, tag in enumerate(order):
+        tree = os.path.abspath(before if tag == "B" else after)
+        out = os.path.join(OUT_DIR, f"ab_{k}_{tag}.json")
+        log(f"A/B run {k} ({'before' if tag == 'B' else 'after'}): {tree}")
+        proc = subprocess.run([sys.executable, "-c", AB_WORKER,
+                               os.path.abspath(__file__), tree, out],
+                              cwd=tree, timeout=1500)
+        require(proc.returncode == 0, f"A/B run {k} on {tree} failed")
+        with open(out) as f:
+            runs.append(dict(tag=tag, **json.load(f)))
+    with open(os.path.join(OUT_DIR, "ab.json"), "w") as f:
+        json.dump(runs, f, indent=1, default=str)
+    for k, r in enumerate(runs):
+        ks = r["result"]["phases"]["kernels"]["stats"]
+        log(f"run {k} {r['tag']}: K4 {ks['dedup_counts']['ms']:.4f} / "
+            f"{ks['dedup_counts']['L160']['ms']:.4f} ms (device "
+            + " / ".join(f"{v:.4f}" for v in r["k4_device_ms"].values())
+            + "); stages " + "; ".join(
+                f"{n} {t['batch_ms']:.3f} ms/batch (hit_geometry "
+                f"{t['stage_ms'].get('hit_geometry', 0):.3f}, peak +"
+                f"{t['step_above_base_gb']:.3f} GB)"
+                for n, t in r["stages"].items()))
+
+
+def k4_device_ms(torch, world, width):
+    """K4's device time on one batch's hits (K1-K3 on the first 16,384
+    pairs padded to ``width``, high-sensitivity's seeds), by the same code
+    for any tree."""
+    from umgap_tpu_torch.agg import device as devagg
+    from umgap_tpu_torch.ops import encoding, lookup, seedextend, translate
+
+    dev, L = world["dev"], world["L"]
+    batch = world["reads"][:BATCH]
+    if width > L:
+        batch = np.pad(batch, ((0, 0), (0, 0), (0, width - L)),
+                       constant_values=encoding.DNA_N)
+    reads = torch.from_numpy(encoding.pack_dna4(batch)).to(dev).reshape(
+        BATCH * 2, -1).contiguous()
+    lens = torch.full((BATCH * 2,), L, dtype=torch.int32, device=dev)
+    hi, lo, wvalid, plens = translate.reads_to_kmers(
+        reads, lens, width, encoding.get_table(1), 9)
+    taxa = lookup.probe(world["dtable"], hi, lo, wvalid, 0)[0]
+    keep = seedextend.seedextend_mask_batch(taxa, (plens - 8).clamp(min=0),
+                                            3, 1)
+    hits = torch.where(keep, taxa, 0).reshape(BATCH, -1).contiguous()
+    return device_ms(torch, lambda: devagg.dedup_counts(hits, None, 64, True))
+
+
+def ab_worker(tree, out):
+    """One A/B run: ``tree``'s package and ``chip_smoke.py`` phases, then
+    this file's stage tables and host times; writes JSON to ``out``."""
+    import importlib.util
+
+    import torch
+
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location(
+        "tree_smoke", os.path.join(tree, "chip_smoke.py"))
+    t = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(t)
+    card = t.phase_identify(torch)
+    world = t.load_world(torch)
+    t.phase_kernels(torch, world)
+    t.phase_gather(torch, world)
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+
+    stages = {name: stage_table(torch, world, _analyser(world, PRESETS[name]))
+              for name in STAGE_PRESETS}
+    k4 = {width: k4_device_ms(torch, world, width)
+          for width in (world["L"], 160)}
+    host = {name: dict(host_us=host_us(torch, k5),
+                       library_host_us=host_us(torch, library))
+            for name, _s, _m, _p, k5, _pl, library, _b in gather_cases(
+                torch, world["dev"])}
+    with open(out, "w") as f:
+        json.dump(dict(tree=tree, card=card, result=t.RESULT, stages=stages,
+                       host=host, k4_device_ms=k4), f, default=str)
 
 
 if __name__ == "__main__":

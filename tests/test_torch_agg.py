@@ -41,6 +41,50 @@ def test_dedup_counts_matches_jax(k_max, weighted):
         np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
 
 
+def _hit_rows(rng, B, N, n_valid):
+    """(B, N) rows with ``n_valid`` positive ids each (few distinct, as
+    seed-extend leaves them) among zeros and negatives."""
+    taxa = rng.integers(-3, 1, size=(B, N)).astype(np.int32)
+    for b in range(B):
+        pos = rng.choice(N, size=n_valid[b], replace=False)
+        taxa[b, pos] = rng.integers(1, 1 + int(rng.integers(1, 40)),
+                                    size=n_valid[b])
+    return taxa
+
+
+@pytest.mark.parametrize("N", [300, 540])
+@pytest.mark.parametrize("many", [False, True])
+def test_dedup_counts_bench_widths_match_jax(N, many):
+    """The main path's row widths (100 and 160 bp), rows of few valid
+    hits (0-40, the bench's range) and of many (up to N)."""
+    rng = np.random.default_rng(N + many)
+    B = 48
+    n_valid = rng.integers(0, N + 1 if many else 41, size=B)
+    n_valid[:3] = (0, 1, 33)
+    taxa = _hit_rows(rng, B, N, n_valid)
+    for k_max, weighted in ((64, False), (8, True)):
+        w = (rng.integers(0, 4, size=(B, N)).astype(np.float32) if weighted
+             else np.ones((B, N), np.float32))
+        want = jagg.dedup_counts(taxa, w, k_max, return_nuniq=True)
+        got = pagg.dedup_counts(torch.from_numpy(taxa),
+                                torch.from_numpy(w) if weighted else None,
+                                k_max, return_nuniq=True)
+        for g, wnt in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
+
+
+def test_dedup_path_by_row_width():
+    """K4's path is chosen by N alone: one warp a row up to 1,024 hits,
+    one block above, refused past MAX_DEDUP_N."""
+    assert pagg.dedup_path(300) == "warp"
+    assert pagg.dedup_path(540) == "warp"
+    assert pagg.dedup_path(pagg.WARP_DEDUP_N) == "warp"
+    assert pagg.dedup_path(pagg.WARP_DEDUP_N + 1) == "block"
+    assert pagg.dedup_path(pagg.MAX_DEDUP_N) == "block"
+    with pytest.raises(ValueError):
+        pagg.dedup_path(pagg.MAX_DEDUP_N + 1)
+
+
 def _bench_taxonomies():
     parent = np.fromfile(os.path.join(DATA, "parent.bin"), np.int32)
     snap = np.fromfile(os.path.join(DATA, "snap.bin"), np.int32)
@@ -202,3 +246,26 @@ def test_tree_strategies_match_jax(world, K, strategy):
     snapped = pagg.snap_batch(px.snap_valid, got, 0)
     np.testing.assert_array_equal(
         snapped.numpy(), np.asarray(jagg.snap_batch(dx.snap_valid, want, 0)))
+
+
+@pytest.mark.parametrize("world,K", [("fixture", 4), ("fixture", 64),
+                                     ("bench", 4), ("bench", 64)])
+def test_ancestry_epilogue_matches_jax(world, K):
+    """K5's ancestry epilogue as hit_geometry dispatches it (its plain
+    version on the CPU) against the JAX package's is_anc, from the same
+    rows, depths, ids and valid mask."""
+    from umgap_tpu_torch.ops import gather
+
+    jtax, (utaxa, _ucounts, uvalid) = _world_hits(world, K, 3 * K)
+    dx, px = _carried(jtax)
+    want = np.asarray(jagg.hit_geometry(dx, utaxa, uvalid).is_anc)
+    geom = pagg.hit_geometry(px, torch.from_numpy(utaxa),
+                             torch.from_numpy(uvalid), ancestry=False)
+    anc = gather.active()[3]
+    got = anc(geom.lin, geom.depth, torch.from_numpy(utaxa), geom.valid)
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        gather.ancestry(geom.lin, geom.depth, torch.from_numpy(utaxa),
+                        geom.valid).numpy(), want)
+    assert want.any()

@@ -82,6 +82,44 @@ def test_dedup_kernel(dev, k_max):
         pagg.dedup_counts_plain(taxa, None, k_max, True))
 
 
+def _dedup_rows(N, seed):
+    """Rows of N hits with 0, 1, 31, 32, 33, 64, 65 and N valid (> 0)
+    entries at random positions, ids from small and large pools, rows
+    where every valid id is equal, and rows with more distinct ids than
+    any k_max tried."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for n_valid in (0, 1, 31, 32, 33, 64, 65, N):
+        for pool in (3, 40, 1 << 30):
+            for equal in (False, True):
+                r = rng.integers(-3, 1, size=N).astype(np.int32)  # <= 0
+                pos = rng.choice(N, size=n_valid, replace=False)
+                ids = rng.integers(1, pool + 1, size=n_valid)
+                r[pos] = ids[0] if equal and n_valid else ids
+                rows.append(r)
+    return np.stack(rows)
+
+
+@pytest.mark.parametrize("N", [300, 540, 2048])
+@pytest.mark.parametrize("k_max", [4, 64, 700])
+def test_dedup_kernel_valid_hit_counts(dev, N, k_max):
+    """Both K4 paths (warp for N = 300 and 540, block for 2,048) against
+    the plain version, with and without weights."""
+    assert pagg.dedup_path(N) == ("warp" if N <= 1024 else "block")
+    taxa = torch.from_numpy(_dedup_rows(N, N + k_max)).to(dev)
+    _eq(pagg.dedup_counts(taxa, None, k_max, True),
+        pagg.dedup_counts_plain(taxa, None, k_max, True))
+    rng = np.random.default_rng(k_max)
+    w = torch.from_numpy(rng.integers(0, 5, size=tuple(taxa.shape)).astype(
+        np.float32)).to(dev)
+    _eq(pagg.dedup_counts(taxa, w, k_max, True),
+        pagg.dedup_counts_plain(taxa, w, k_max, True))
+    # a row width that is no multiple of 4 takes the scalar loads
+    odd = taxa[:, : N - 3].contiguous()
+    _eq(pagg.dedup_counts(odd, None, k_max, True),
+        pagg.dedup_counts_plain(odd, None, k_max, True))
+
+
 @pytest.mark.parametrize("G,S,W,I", [(512, 26, 64, 64), (1, 8192, 128, 32),
                                      (64, 512, 128, 512), (3, 7, 5, 9)])
 def test_lane_gather_kernel(dev, G, S, W, I):
@@ -104,6 +142,54 @@ def test_lane_gather_kernel(dev, G, S, W, I):
     q = torch.from_numpy(rng.integers(0, flat.numel(), size=(33, 5)).astype(
         np.int32)).to(dev)
     _eq((gather.take(flat, q),), (gather.take_plain(flat, q),))
+
+
+@pytest.mark.parametrize("B,K,D", [(512, 64, 26), (200, 408, 26),
+                                   (200, 648, 26), (300, 40, 7)])
+def test_ancestry_kernel(dev, B, K, D):
+    """K5's ancestry epilogue against the plain gather, compare and masks
+    (its 16-byte-load path where K % 16 == 0, its row-walking path
+    elsewhere); lin as hit_geometry passes it (a view of the [depth | lin]
+    rows) and transposed in memory, dep/utaxa/valid as strided views."""
+    rng = np.random.default_rng(B + K)
+    rows = rng.integers(-1, 60, size=(B, K, 1 + D)).astype(np.int32)
+    rows_t = torch.from_numpy(rows).to(dev)
+    dep = torch.from_numpy(rng.integers(0, D, size=(B, K)).astype(
+        np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random((B, K)) < 0.6).to(dev)
+    valid[: B // 4, K // 2:] = False
+    # utaxa that often equal a lineage entry at their own depth
+    pick = torch.from_numpy(rng.integers(0, K, size=(B, K))).to(dev)
+    lin = rows_t[..., 1:]
+    utaxa = torch.gather(lin, 1, pick[:, :, None].expand(B, K, D)).gather(
+        2, dep.long()[:, :, None])[..., 0].contiguous()
+    want = gather.ancestry_plain(lin, dep, utaxa, valid)
+    assert want.any()
+    for tab in (lin, lin.transpose(1, 2).contiguous().transpose(1, 2)):
+        got = gather.ancestry(tab, dep, utaxa, valid)
+        assert got.dtype == torch.bool and torch.equal(got, want)
+    wide = torch.cat([dep, utaxa], 1)
+    got = gather.ancestry(lin, wide[:, :K], wide[:, K:], valid)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S", [16, 32, 64, 96, 128, 192])
+def test_lane_gather_staged_and_direct(dev, S):
+    """The rows mode on whole (S, 128) tiles of 8-96 KB, staged (limit
+    above the tile) and direct (limit 0), with stored and expanded
+    indices, lanes and rows minor in memory."""
+    G, W = 256, 128
+    rng = np.random.default_rng(S)
+    tab = torch.from_numpy(rng.integers(0, 1 << 30, size=(G, S, W)).astype(
+        np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, S, size=(G, S, W)).astype(
+        np.int32)).to(dev)
+    for t in (tab, tab.transpose(1, 2).contiguous().transpose(1, 2)):
+        for ix in (idx, idx[:, :, :1].expand(G, S, W)):
+            want = gather.lane_gather_plain(t, ix)
+            for limit in (0, 1 << 20):
+                got = gather.lane_gather_staging(t, ix, -2, limit)
+                assert torch.equal(got, want)
 
 
 def _random_tree(n, seed):

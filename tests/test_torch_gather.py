@@ -186,3 +186,50 @@ def test_strided_index_matches_take_along_axis(B, K, D):
                                           jnp.asarray(lidx), axis=-1))
     np.testing.assert_array_equal(
         gather.lane_gather(_t(lin), _t(lidx), axis=-1).numpy(), want)
+
+
+@pytest.mark.parametrize("B,K,D", [(5, 4, 3), (16, 64, 26), (4, 408, 26)])
+def test_ancestry_epilogue_matches_take_along_axis(B, K, D):
+    """The ancestry epilogue (plain on the CPU) against jnp.take_along_axis
+    on the transposed lineage, the compare and the two masks, with lin a
+    view of [depth | lin] rows as hit_geometry passes it."""
+    rng = np.random.default_rng(K)
+    rows = rng.integers(-1, 50, size=(B, K, 1 + D)).astype(np.int32)
+    dep = rng.integers(0, D, size=(B, K)).astype(np.int32)
+    utaxa = rng.integers(-1, 50, size=(B, K)).astype(np.int32)
+    valid = rng.random((B, K)) < 0.7
+    lin = rows[..., 1:]
+    a = np.asarray(jnp.take_along_axis(
+        jnp.swapaxes(jnp.asarray(lin), 1, 2),
+        jnp.broadcast_to(jnp.asarray(dep)[:, :, None], (B, K, K)), axis=1))
+    want = (a == utaxa[:, :, None]) & valid[:, :, None] & valid[:, None, :]
+    got = gather.ancestry(_t(rows)[..., 1:], _t(dep), _t(utaxa), _t(valid))
+    assert got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_active_selects_plain_versions():
+    """gather.active() hands each stage K5's four wrappers, or their plain
+    versions inside kernels.plain_versions()."""
+    from umgap_tpu_torch import kernels
+
+    assert gather.active() == (gather.take, gather.gather_rows,
+                               gather.lane_gather, gather.ancestry)
+    with kernels.plain_versions():
+        assert gather.active() == (gather.take_plain, gather.take_plain,
+                                   gather.lane_gather_plain,
+                                   gather.ancestry_plain)
+
+
+def test_take_and_row_gather_any_index_layout():
+    """take and gather_rows read any index layout (a transposed view is
+    made contiguous first), on the CPU through their plain versions."""
+    rng = np.random.default_rng(5)
+    tab1 = rng.integers(0, 1000, size=97).astype(np.int32)
+    tab2 = rng.integers(0, 1000, size=(97, 6)).astype(np.int32)
+    idx = rng.integers(0, 97, size=(7, 9)).astype(np.int32)
+    view = _t(idx).t()
+    np.testing.assert_array_equal(gather.take(_t(tab1), view).numpy(),
+                                  tab1[idx.T])
+    np.testing.assert_array_equal(gather.gather_rows(_t(tab2), view).numpy(),
+                                  tab2[idx.T])

@@ -132,11 +132,11 @@ def test_plain_stages_call_no_wrapper(toy, monkeypatch):
             return fn(*a, **kw)
         monkeypatch.setattr(gather, name, wrapped)
 
-    for name in ("take", "gather_rows", "lane_gather"):
+    for name in ("take", "gather_rows", "lane_gather", "ancestry"):
         spy(name, getattr(gather, name))
     cfg = PRESETS["max-sensitivity"]
     want = _run_stages(toy, cfg, plain=False)
-    assert {"take", "gather_rows", "lane_gather"} <= set(calls)
+    assert {"take", "gather_rows", "ancestry"} <= set(calls)
     calls.clear()
     got = _run_stages(toy, cfg, plain=True)
     assert calls == [] and not kernels.plain_selected()
@@ -145,11 +145,13 @@ def test_plain_stages_call_no_wrapper(toy, monkeypatch):
 
 def test_hybrid_skips_the_ancestry_gather(toy, monkeypatch):
     """Tree hybrid never reads is_anc, so its step makes no (B, K, K)
-    ancestry gather; its taxa are those of the full geometry."""
+    ancestry gather or epilogue; its taxa are those of the full
+    geometry."""
     calls = []
-    lane_gather = gather.lane_gather
-    monkeypatch.setattr(gather, "lane_gather", lambda *a, **kw: (
-        calls.append(1), lane_gather(*a, **kw))[1])
+    for name in ("lane_gather", "ancestry"):
+        fn = getattr(gather, name)
+        monkeypatch.setattr(gather, name, lambda *a, fn=fn, **kw: (
+            calls.append(1), fn(*a, **kw))[1])
     cfg = PRESETS["high-sensitivity"]
     got = _run_stages(toy, cfg, plain=False)
     assert calls == []

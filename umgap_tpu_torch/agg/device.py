@@ -28,6 +28,7 @@ from ..taxonomy import NONE, Taxonomy
 
 I32_MAX = int(np.iinfo(np.int32).max)
 MAX_DEDUP_N = 16384  # hits per row the kernel sorts in shared memory
+WARP_DEDUP_N = 1024  # up to here one warp owns a row; above, a block
 
 
 class DeviceTaxonomy:
@@ -133,6 +134,16 @@ def dedup_counts_plain(taxa: torch.Tensor, weights, k_max: int,
     return out
 
 
+def dedup_path(N: int) -> str:
+    """K4's path for rows of N hits: ``"warp"`` (one warp per row, work
+    in proportion to the row's valid hits) up to :data:`WARP_DEDUP_N`,
+    ``"block"`` (one block sorts the whole padded row) up to
+    :data:`MAX_DEDUP_N`."""
+    if N > MAX_DEDUP_N:
+        raise ValueError(f"dedup_counts: {N} hits per row > {MAX_DEDUP_N}")
+    return "warp" if N <= WARP_DEDUP_N else "block"
+
+
 def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
                  return_nuniq: bool = False):
     """Per-row frequency table (agg::count plus taxa2agg's tid != 0 drop):
@@ -143,13 +154,12 @@ def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
     to the k_max smallest ids.
 
     CPU tensors take the plain version; CUDA tensors launch K4."""
-    if taxa.device.type == "cpu":
+    if taxa.is_cpu:
         return dedup_counts_plain(taxa, weights, k_max, return_nuniq)
     B, N = taxa.shape
     if taxa.dtype != torch.int32:
         raise ValueError("dedup_counts: taxa must be int32")
-    if N > MAX_DEDUP_N:
-        raise ValueError(f"dedup_counts: {N} hits per row > {MAX_DEDUP_N}")
+    warp = dedup_path(N) == "warp"
     tensors = [taxa]
     if weights is not None:
         if weights.dtype != torch.float32 or weights.shape != taxa.shape:
@@ -164,8 +174,8 @@ def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
     kernels.K4.launch(taxa.data_ptr(),
                       0 if weights is None else weights.data_ptr(), B, N,
                       k_max, utaxa.data_ptr(), ucounts.data_ptr(),
-                      uvalid.data_ptr(), nuniq.data_ptr(),
-                      kernels.stream_handle(dev))
+                      uvalid.data_ptr(), nuniq.data_ptr(), int(warp),
+                      kernels.stream_of(taxa))
     out = (utaxa, ucounts, uvalid)
     return out + (nuniq,) if return_nuniq else out
 
@@ -197,11 +207,12 @@ def needs_ancestry(method: str, strategy: str) -> bool:
 def hit_geometry(dtax: DeviceTaxonomy, utaxa, uvalid,
                  ancestry: bool = True) -> HitGeometry:
     """One row gather of [depth | ancestors] per hit, then, with
-    ``ancestry``, ``is_anc[b, i, j] = lin[b, j, dep[b, i]] == utaxa[b, i]``:
-    the JAX package's one-hot contraction (device.py:178-193) as K5 along
-    the rows of ``lin`` transposed to (B, D, K), with ``dep`` expanded
-    over the lanes (no (B, K, K) index is stored)."""
-    _take, rows_of, along = gather.active()
+    ``ancestry``, ``is_anc[b, i, j] = (lin[b, j, dep[b, i]] == utaxa[b, i])
+    & uvalid[b, i] & uvalid[b, j]``: the JAX package's one-hot contraction
+    and compare (device.py:170-199) as K5's ancestry epilogue, which
+    writes the bool incidence directly (no (B, K, K) index or int32
+    gather output is stored)."""
+    _take, rows_of, _along, anc = gather.active()
     size = dtax.depth.shape[0]
     safe = torch.where(uvalid, utaxa.clamp(0, size - 1), 0)
     rows = rows_of(dtax.geom, safe)         # (B, K, 1 + D)
@@ -209,11 +220,7 @@ def hit_geometry(dtax: DeviceTaxonomy, utaxa, uvalid,
     dep = torch.where(uvalid, rows[..., 0], 0).clamp(min=0)
     if not ancestry:
         return HitGeometry(lin, dep, None, uvalid)
-    B, K, D = lin.shape
-    a = along(lin.transpose(1, 2), dep[:, :, None].expand(B, K, K))
-    is_anc = (a == utaxa[:, :, None]) & uvalid[:, :, None] \
-        & uvalid[:, None, :]
-    return HitGeometry(lin, dep, is_anc, uvalid)
+    return HitGeometry(lin, dep, anc(lin, dep, utaxa, uvalid), uvalid)
 
 
 def _argmax_tiebreak(utaxa, depth, valid, scores):
@@ -357,7 +364,7 @@ def tree_aggregate(strategy: str, dtax: DeviceTaxonomy, geom: HitGeometry,
         geom.is_anc.data_ptr() if strategy != "hybrid" else 0,
         ucounts.data_ptr() if ucounts is not None else 0,
         geom.valid.data_ptr(), utaxa.data_ptr(), B, K, D, dtax.root,
-        float(factor), out.data_ptr(), kernels.stream_handle(utaxa.device))
+        float(factor), out.data_ptr(), kernels.stream_of(utaxa))
     return out
 
 

@@ -155,7 +155,7 @@ def rmq_query_batch(euler: DeviceEuler, start, end):
 def rmq_lca_batch(euler: DeviceEuler, utaxa, uvalid):
     """The join-level LCA walk over per-read hit lists (ascending taxon
     order, as ``dedup_counts`` emits them): (B,) int32."""
-    take, _rows_of, along = gather.active()
+    take, _rows_of, along, _anc = gather.active()
     B, K = utaxa.shape
     size = euler.first.shape[0]
     safe = torch.where(uvalid, utaxa.clamp(0, size - 1), 0)
@@ -189,7 +189,7 @@ def rmq_mix_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
                   factor: float):
     """LCA-closure hybrid in taxon space (exact: the weights depend only
     on ancestor relations): (B,) int32."""
-    take, rows_of, along = gather.active()
+    take, rows_of, along, _anc = gather.active()
     B, K = utaxa.shape
     size = dtax.depth.shape[0]
     safe = torch.where(uvalid, utaxa.clamp(0, size - 1), 0)

@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packed_args.cuh"
+
 namespace {
 
 constexpr uint32_t MASK20 = (1u << 20) - 1;
@@ -169,4 +171,11 @@ extern "C" int probe_kmer(const void* hi, const void* lo, const void* valid,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+extern "C" int probe_kmer_packed(const void* args) {
+  const PackedArgs a{(const unsigned char*)args};
+  return probe_kmer(a.ptr(0), a.ptr(1), a.ptr(2), a.i(3), a.ptr(4), a.i(5),
+                    (int)a.i(6), (int)a.i(7), (int)a.i(8), a.ptr(9),
+                    (int)a.i(10), (int)a.i(11), a.ptr(12), a.ptr(13), a.ptr(14));
 }

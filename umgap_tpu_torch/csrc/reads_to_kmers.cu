@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packed_args.cuh"
+
 namespace {
 
 constexpr int AA_PAD = 31;
@@ -126,4 +128,12 @@ extern "C" int reads_to_kmers(const void* reads, int row_bytes, int packed,
       n_reads, L, k, methionine, (const uint8_t*)lut, (int32_t*)hi,
       (int32_t*)lo, (uint8_t*)valid, (int32_t*)plens, W);
   return (int)cudaGetLastError();
+}
+
+extern "C" int reads_to_kmers_packed(const void* args) {
+  const PackedArgs a{(const unsigned char*)args};
+  return reads_to_kmers(a.ptr(0), (int)a.i(1), (int)a.i(2), a.ptr(3),
+                        (int)a.i(4), (int)a.i(5), (int)a.i(6), (int)a.i(7),
+                        a.ptr(8), a.ptr(9), a.ptr(10), a.ptr(11), a.ptr(12),
+                        (int)a.i(13), a.ptr(14));
 }

@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packed_args.cuh"
+
 namespace {
 
 __global__ void seedextend_kernel(const int32_t* __restrict__ taxa,
@@ -110,4 +112,10 @@ extern "C" int seedextend_mask(const void* taxa, const void* lengths,
       (const int32_t*)taxa, (const int32_t*)lengths, lanes, N, min_seed_size,
       max_gap_size, (uint8_t*)keep);
   return (int)cudaGetLastError();
+}
+
+extern "C" int seedextend_mask_packed(const void* args) {
+  const PackedArgs a{(const unsigned char*)args};
+  return seedextend_mask(a.ptr(0), a.ptr(1), a.i(2), (int)a.i(3), (int)a.i(4),
+                         (int)a.i(5), a.ptr(6), a.ptr(7));
 }

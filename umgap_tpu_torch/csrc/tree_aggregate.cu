@@ -57,6 +57,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "packed_args.cuh"
+
 namespace {
 
 constexpr int32_t I32_MAX = 0x7FFFFFFF;
@@ -300,4 +302,12 @@ extern "C" int tree_aggregate(int strategy, const void* lin, long long lsb,
            (const uint8_t*)is_anc, (const float*)counts,
            (const uint8_t*)valid, (const int32_t*)utaxa, B, K, D, root,
            factor, (int32_t*)out, (cudaStream_t)stream);
+}
+
+extern "C" int tree_aggregate_packed(const void* args) {
+  const PackedArgs a{(const unsigned char*)args};
+  return tree_aggregate((int)a.i(0), a.ptr(1), a.i(2), (int)a.i(3), a.ptr(4),
+                        a.ptr(5), a.ptr(6), a.ptr(7), a.ptr(8), (int)a.i(9),
+                        (int)a.i(10), (int)a.i(11), (int)a.i(12),
+                        (float)a.d(13), a.ptr(14), a.ptr(15));
 }

@@ -10,8 +10,12 @@ are cached by a hash of the source and the flags.
 Every C entry point launches on the stream it is given (PyTorch's
 current stream), allocates nothing, does not synchronise, and returns
 ``cudaGetLastError()``; :meth:`Kernel.launch` raises on a non-zero code
-and counts the launch only when it went through. Nothing here runs at
-import time: the CPU tests import every module without a compiler.
+and counts the launch only when it went through. A launch packs its
+arguments into one block of 8-byte slots (``struct``) and hands ctypes
+a single pointer, to each entry's ``*_packed`` twin
+(``csrc/packed_args.cuh``), which costs the host far less than a dozen
+converted ctypes arguments. Nothing here runs at import time: the CPU
+tests import every module without a compiler.
 
 :func:`plain_versions` is the one switch between the kernels and their
 plain PyTorch versions: the stages read it to pick which they call, and
@@ -27,6 +31,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from pathlib import Path
@@ -61,7 +66,9 @@ def find_nvcc() -> str:
 
 
 class Kernel:
-    """One CUDA source, its C entry point and its launch count."""
+    """One CUDA source, its C entry point and its launch count.
+    ``argtypes`` are the C entry's parameter types, in order: each is
+    packed as an int64 slot, a float as a double."""
 
     def __init__(self, name: str, source: str, argtypes, replaces: str):
         self.name = name
@@ -69,6 +76,8 @@ class Kernel:
         self.argtypes = argtypes
         self.replaces = replaces
         self.launches = 0
+        self._pack = struct.Struct("=" + "".join(
+            "d" if t is ctypes.c_float else "q" for t in argtypes)).pack
         self._fn = None
         self._err = None
 
@@ -79,13 +88,15 @@ class Kernel:
     def lib_path(self, nvcc: str) -> Path:
         h = hashlib.sha256()
         h.update(self.path.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join([nvcc] + NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.path.stem}-{h.hexdigest()[:16]}.so"
 
     def _bind(self, lib_path: Path):
         lib = ctypes.CDLL(str(lib_path))
-        fn = getattr(lib, self.name)
-        fn.argtypes = self.argtypes
+        fn = getattr(lib, self.name + "_packed")
+        fn.argtypes = [ctypes.c_char_p]
         fn.restype = I
         err = lib.umgap_cuda_error_string
         err.argtypes = [I]
@@ -93,10 +104,12 @@ class Kernel:
         self._fn, self._err = fn, err
 
     def launch(self, *args) -> None:
-        if self._fn is None:
+        fn = self._fn
+        if fn is None:
             build_all()
-        rc = self._fn(*args)
-        if rc != 0:
+            fn = self._fn
+        rc = fn(self._pack(*args))
+        if rc:
             msg = self._err(rc).decode()
             raise KernelLaunchError(f"{self.name}: CUDA error {rc} ({msg})")
         self.launches += 1
@@ -120,24 +133,29 @@ K3 = Kernel(
     "(lax.scan of _scan_seeds, :173)")
 K4 = Kernel(
     "dedup_counts", "dedup_counts.cu",
-    [P, P, I, I, I, P, P, P, P, P],
+    [P, P, I, I, I, P, P, P, P, I, P],
     "umgap_tpu/agg/device.py:79 dedup_counts")
 K5 = Kernel(
     "lane_gather", "lane_gather.cu",
-    [I, P, LL, LL, LL, LL, LL, LL, P, LL, LL, LL, LL, LL, P, P],
+    [I, P, LL, LL, LL, LL, LL, LL, P, LL, LL, LL, LL, LL, P, LL, P],
     "scripts/exp_pallas_dma.py:171 dyngather_case; "
     "scripts/exp_pallas_gather.py:47 k1, :62 k2, :77 k3; "
     "scripts/exp_dyngather.py:37 make; "
     "scripts/exp_probe_primitives.py:66 f3, :96 f4; "
     "scripts/exp_probe2.py:75, :87, :112; "
-    "umgap_tpu/agg/device.py:178 hit_geometry one-hot contraction")
+    "umgap_tpu/agg/device.py:173 hit_geometry row gather")
+K5A = Kernel(
+    "lane_gather_ancestry", "lane_gather.cu",
+    [P, LL, LL, LL, LL, LL, P, P, P, P, P],
+    "umgap_tpu/agg/device.py:170 hit_geometry one-hot contraction "
+    "(:191) and compare (:194)")
 K6 = Kernel(
     "tree_aggregate", "tree_aggregate.cu",
     [I, P, LL, I, P, P, P, P, P, I, I, I, I, ctypes.c_float, P, P],
     "umgap_tpu/agg/device.py:219 tree_lca_batch, :243 rtl_batch, "
     ":253 tree_mix_batch")
 
-KERNELS = (K1, K2, K3, K4, K5, K6)
+KERNELS = (K1, K2, K3, K4, K5, K5A, K6)
 
 # build seconds and ptxas reports of the last build_all() in this process
 BUILD_INFO: dict = {}
@@ -176,14 +194,14 @@ def plain_selected() -> bool:
 def build_all(force: bool = False) -> dict:
     """Compile every source that has no cached library (all ``nvcc``
     processes started together), then bind all kernels. Returns
-    ``{"seconds": ..., "built": [...], "logs": {name: ptxas text}}``."""
+    ``{"seconds": ..., "built": [...], "logs": {source: ptxas text}}``."""
     if not force and all(k._fn is not None for k in KERNELS):
         return BUILD_INFO
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = []
-    for k in KERNELS:
+    for k in {k.source: k for k in KERNELS}.values():  # one per source
         out = k.lib_path(nvcc)
         if out.exists() and not force:
             continue
@@ -195,7 +213,7 @@ def build_all(force: bool = False) -> dict:
     failed = []
     for k, out, tmp, proc in procs:
         text = proc.communicate()[0].decode(errors="replace")
-        logs[k.name] = text
+        logs[k.source] = text
         if proc.returncode != 0:
             failed.append(f"{k.source}:\n{text}")
             continue
@@ -205,20 +223,21 @@ def build_all(force: bool = False) -> dict:
         raise KernelBuildError("nvcc failed for " + "\n".join(failed))
     for k in KERNELS:
         out = k.lib_path(nvcc)
-        if k.name not in logs and out.with_suffix(".log").exists():
-            logs[k.name] = out.with_suffix(".log").read_text()
+        if k.source not in logs and out.with_suffix(".log").exists():
+            logs[k.source] = out.with_suffix(".log").read_text()
         k._bind(out)
     BUILD_INFO.clear()
     BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      built=[k.name for k, *_ in procs], logs=logs)
+                      built=[k.source for k, *_ in procs], logs=logs)
     return BUILD_INFO
 
 
-def stream_handle(device) -> int:
-    """PyTorch's current stream on ``device`` as a raw handle."""
+def stream_of(t) -> int:
+    """PyTorch's current stream on the CUDA device of tensor ``t``, as a
+    raw handle (no stream object is built)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_cuda(name: str, *tensors) -> None:

@@ -196,5 +196,5 @@ def probe(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
         hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), hi.numel(),
         table.rows.data_ptr(), table.n_buckets, table.nb_bits, table.bucket,
         table.max_probes, table.stash.data_ptr(), S, int(default),
-        out.data_ptr(), found.data_ptr(), kernels.stream_handle(hi.device))
+        out.data_ptr(), found.data_ptr(), kernels.stream_of(hi))
     return out, found

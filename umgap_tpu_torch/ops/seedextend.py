@@ -90,5 +90,5 @@ def seedextend_mask_batch(taxa: torch.Tensor, lengths: torch.Tensor,
     kernels.K3.launch(taxa.data_ptr(), lengths.data_ptr(),
                       lengths.numel(), N, int(min_seed_size),
                       int(max_gap_size), keep.data_ptr(),
-                      kernels.stream_handle(taxa.device))
+                      kernels.stream_of(taxa))
     return keep

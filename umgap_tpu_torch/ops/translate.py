@@ -136,5 +136,5 @@ def reads_to_kmers(reads: torch.Tensor, lengths: torch.Tensor, length: int,
         reads.data_ptr(), row_bytes, int(packed), lengths.data_ptr(), N,
         length, k, int(methionine), lut.data_ptr(), hi.data_ptr(),
         lo.data_ptr(), valid.data_ptr(), plens.data_ptr(), W,
-        kernels.stream_handle(dev))
+        kernels.stream_of(reads))
     return hi, lo, valid, plens
