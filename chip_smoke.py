@@ -282,21 +282,31 @@ def cuda_ms(torch, fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(torch, fn, reps=20):
+def device_ms(torch, fn, reps=20, tries=3):
     """Device time per call of ``fn``: the profiler's CUDA kernel and copy
-    time over ``reps`` calls (no host launch gaps, unlike cuda_ms)."""
+    time over ``reps`` calls (no host launch gaps, unlike cuda_ms). The
+    profiler now and then returns no device events for a window; such a
+    window is taken again, up to ``tries`` times, then reads None (not
+    measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    return None
+
+
+def fmt_ms(v):
+    return "not measured" if v is None else f"{v:.4f}"
 
 
 def compare(torch, what, got, want):
@@ -316,37 +326,55 @@ def compare(torch, what, got, want):
     return err
 
 
+def _batch_reads(torch, world, width, full=False):
+    """K1's input on the main path: the first 16,384 ``.bench_data``
+    pairs as packed rows padded with N to ``width``, lengths kept at the
+    reads' own (what the CLI does with shorter reads). ``full`` fills the
+    padding with seeded random bases and sets every length to ``width``
+    instead (K1 then translates every codon)."""
+    from umgap_tpu_torch.ops import encoding
+
+    L = world["L"]
+    batch = world["reads"][:BATCH]
+    if width > L:
+        fill = (np.random.default_rng(3).integers(
+            0, 4, size=(BATCH, 2, width - L)).astype(np.uint8) if full
+            else np.full((BATCH, 2, width - L), encoding.DNA_N, np.uint8))
+        batch = np.concatenate([batch, fill], axis=2)
+    reads = torch.from_numpy(encoding.pack_dna4(batch)).to(
+        world["dev"]).reshape(BATCH * 2, -1).contiguous()
+    lens = torch.full((BATCH * 2,), width if full else L, dtype=torch.int32,
+                      device=world["dev"])
+    return reads, lens
+
+
 def _chain(torch, world, width):
     """K1 -> K2 -> K3 -> K4 on the first 16,384 ``.bench_data`` pairs
     padded to ``width`` (the main path's program at that read length,
     high-sensitivity's seed parameters), each kernel held to its plain
-    version on the same inputs and both timed. Returns per-kernel stats
-    and max abs errors."""
+    version on the same inputs and both timed (K1-K4 also by device
+    time). Returns per-kernel stats and max abs errors."""
     from umgap_tpu_torch.agg import device as devagg
     from umgap_tpu_torch.ops import encoding, lookup, seedextend, translate
 
-    dev = world["dev"]
     tt1 = encoding.get_table(1)
-    L = world["L"]
     stats, errs = {}, {}
-    batch = world["reads"][:BATCH]
-    if width > L:
-        batch = np.pad(batch, ((0, 0), (0, 0), (0, width - L)),
-                       constant_values=encoding.DNA_N)
-    dna4 = torch.from_numpy(encoding.pack_dna4(batch)).to(dev)
-    reads = dna4.reshape(BATCH * 2, -1).contiguous()
-    lens = torch.full((BATCH * 2,), L, dtype=torch.int32, device=dev)
-    k1 = translate.reads_to_kmers(reads, lens, width, tt1, 9)
+    reads, lens = _batch_reads(torch, world, width)
+
+    def r2k():
+        return translate.reads_to_kmers(reads, lens, width, tt1, 9)
+
+    k1 = r2k()
     errs["reads_to_kmers"] = compare(
         torch, f"K1 L={width}", k1,
         translate.reads_to_kmers_plain(reads, lens, width, tt1, 9))
     hi, lo, wvalid, plens = k1
     N1, W = reads.shape[0], hi.shape[-1]
     stats["reads_to_kmers"] = dict(
-        ms=cuda_ms(torch, lambda: translate.reads_to_kmers(
-            reads, lens, width, tt1, 9)),
+        ms=cuda_ms(torch, r2k), device_ms=device_ms(torch, r2k),
         plain_ms=cuda_ms(torch, lambda: translate.reads_to_kmers_plain(
-            reads, lens, width, tt1, 9), reps=5))
+            reads, lens, width, tt1, 9), reps=5),
+        reads_per_block=translate.READS_PER_BLOCK)
     b1, by1 = bound(reads.numel() + 4 * N1 + N1 * 6 * (W * 9 + 4),
                     N1 * 6 * (W + 8) * 16)
     stats["reads_to_kmers"].update(bound_ms=b1, bound_by=by1)
@@ -360,29 +388,56 @@ def _chain(torch, world, width):
     row_read = 4 * dtable.bucket + 32  # remainder half + one value sector
     stats["probe_kmer"] = dict(
         ms=cuda_ms(torch, lambda: lookup.probe(dtable, hi, lo, wvalid, 0)),
+        device_ms=device_ms(torch, lambda: lookup.probe(dtable, hi, lo,
+                                                        wvalid, 0)),
         plain_ms=cuda_ms(torch, lambda: lookup.probe_plain(
             dtable, hi, lo, wvalid, 0), reps=3))
     b2, by2 = bound(Q * 9 + Q * 5 + n_valid * row_read, n_valid * 60)
     stats["probe_kmer"].update(bound_ms=b2, bound_by=by2, queries=Q,
                                valid=n_valid, found=int(k2[1].sum()))
 
+    # K3 on the main path: the hits entry (seed-extend with the select
+    # fused in); its mask entry beside it, alone and with the select the
+    # pipeline made before the hits entry
     taxa = k2[0]
     nk = (plens - 8).clamp(min=0)
-    k3 = seedextend.seedextend_mask_batch(taxa, nk, 3, 1)
-    errs["seedextend_mask"] = compare(
-        torch, f"K3 L={width}", k3,
-        seedextend.seedextend_mask_plain(taxa, nk, 3, 1))
-    lanes = nk.numel()
-    stats["seedextend_mask"] = dict(
-        ms=cuda_ms(torch, lambda: seedextend.seedextend_mask_batch(
-            taxa, nk, 3, 1)),
-        plain_ms=cuda_ms(torch, lambda: seedextend.seedextend_mask_plain(
-            taxa, nk, 3, 1), reps=3))
-    b3, by3 = bound(lanes * (W * 5 + 4), lanes * W * 20)
-    stats["seedextend_mask"].update(bound_ms=b3, bound_by=by3, lanes=lanes,
-                                    W=W)
 
-    hits = torch.where(k3, taxa, 0).reshape(BATCH, -1).contiguous()
+    def hits_fn():
+        return seedextend.seedextend_hits(taxa, nk, 3, 1)
+
+    def mask_fn():
+        return seedextend.seedextend_mask_batch(taxa, nk, 3, 1)
+
+    def mask_where():
+        return torch.where(mask_fn(), taxa, 0)
+
+    hits = hits_fn()
+    errs["seedextend_mask"] = max(
+        compare(torch, f"K3 hits L={width}", hits,
+                seedextend.seedextend_hits_plain(taxa, nk, 3, 1)),
+        compare(torch, f"K3 mask L={width}", mask_fn(),
+                seedextend.seedextend_mask_plain(taxa, nk, 3, 1)))
+    lanes = nk.numel()
+    # bounds: the fused work reads the taxa and lengths once and writes
+    # the int32 hits once; the mask entry writes W bools instead
+    b3, by3 = bound(lanes * (W * 8 + 4), lanes * W * 20)
+    bm, bym = bound(lanes * (W * 5 + 4), lanes * W * 20)
+    stats["seedextend_mask"] = dict(
+        ms=cuda_ms(torch, hits_fn), device_ms=device_ms(torch, hits_fn),
+        plain_ms=cuda_ms(torch, lambda: seedextend.seedextend_hits_plain(
+            taxa, nk, 3, 1), reps=3),
+        bound_ms=b3, bound_by=by3, lanes=lanes, W=W,
+        path=seedextend.seedextend_path(W),
+        mask=dict(ms=cuda_ms(torch, mask_fn),
+                  device_ms=device_ms(torch, mask_fn),
+                  plain_ms=cuda_ms(torch, lambda: seedextend
+                                   .seedextend_mask_plain(taxa, nk, 3, 1),
+                                   reps=3),
+                  bound_ms=bm, bound_by=bym,
+                  with_where_ms=cuda_ms(torch, mask_where),
+                  with_where_device_ms=device_ms(torch, mask_where)))
+
+    hits = hits.reshape(BATCH, -1)
     k4 = devagg.dedup_counts(hits, None, 64, return_nuniq=True)
     errs["dedup_counts"] = compare(
         torch, f"K4 L={width}", k4,
@@ -595,6 +650,54 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
     return (s5, e5), (s5a, e5a), (s6, e6)
 
 
+K1_SWEEP = (8, 16, 32, 64)
+K3_SWEEP = (32, 64, 128)
+
+
+def block_sweep(torch, world):
+    """Device ms of K1 over reads per block and of K3's hits entry over
+    lanes per block, on the main path's inputs at L = 100 and 160 (each
+    result equal to the default block's). Returns ({width: {R: ms}},
+    {width: {T: ms}})."""
+    from umgap_tpu_torch.ops import encoding, lookup, seedextend, translate
+
+    tt1 = encoding.get_table(1)
+    k1, k3 = {}, {}
+    R0, T0 = translate.READS_PER_BLOCK, seedextend.LANES_PER_BLOCK
+    try:
+        for width in (world["L"], 160):
+            reads, lens = _batch_reads(torch, world, width)
+            want = translate.reads_to_kmers(reads, lens, width, tt1, 9)
+            taxa = lookup.probe(world["dtable"], *want[:3], 0)[0]
+            nk = (want[3] - 8).clamp(min=0)
+            hits = seedextend.seedextend_hits(taxa, nk, 3, 1)
+            k1[width], k3[width] = {}, {}
+            for R in K1_SWEEP:
+                translate.READS_PER_BLOCK = R
+                compare(torch, f"K1 R={R} L={width}", translate.reads_to_kmers(
+                    reads, lens, width, tt1, 9), want)
+                k1[width][R] = device_ms(torch, lambda: translate
+                                         .reads_to_kmers(reads, lens, width,
+                                                         tt1, 9))
+            translate.READS_PER_BLOCK = R0
+            for T in K3_SWEEP:
+                seedextend.LANES_PER_BLOCK = T
+                compare(torch, f"K3 T={T} L={width}",
+                        seedextend.seedextend_hits(taxa, nk, 3, 1), hits)
+                k3[width][T] = device_ms(torch, lambda: seedextend
+                                         .seedextend_hits(taxa, nk, 3, 1))
+            seedextend.LANES_PER_BLOCK = T0
+    finally:
+        translate.READS_PER_BLOCK = R0
+        seedextend.LANES_PER_BLOCK = T0
+    log("block sweep, device ms: K1 reads per block " + "; ".join(
+        f"L={w} " + ", ".join(f"{R}: {fmt_ms(t)}" for R, t in d.items())
+        for w, d in k1.items()) + " | K3 lanes per block " + "; ".join(
+        f"L={w} " + ", ".join(f"{T}: {fmt_ms(t)}" for T, t in d.items())
+        for w, d in k3.items()))
+    return k1, k3
+
+
 def phase_kernels(torch, world):
     from umgap_tpu_torch.agg import device as devagg
     from umgap_tpu_torch.index import table as T
@@ -613,18 +716,28 @@ def phase_kernels(torch, world):
         errs[n] = max(errs[n], errs160[n])
         stats[n]["L160"] = s
 
-    # ---- K1 edge cases: short/odd reads, N codes, tables 1/4/11 ------- #
+    # the block sizes of K1 (reads) and K3 (lanes), swept
+    stats["reads_to_kmers"]["sweep"], stats["seedextend_mask"]["sweep"] = \
+        block_sweep(torch, world)
+
+    # ---- K1 edge cases: short/odd reads, N codes, tables 1/4/11, read
+    # counts no multiple of the block's reads, an unaligned span ------- #
     for L2, packed, tno, meth in ((160, True, 1, False), (160, True, 11, False),
                                   (160, True, 4, True), (100, False, 1, False),
-                                  (17, True, 1, False)):
-        n = 2 * BATCH if L2 == 160 else 4096
+                                  (17, True, 1, False), (161, True, 1, True)):
+        n = 2 * BATCH + 1 if L2 == 160 else 4097
         codes = rng.integers(0, 4, size=(n, L2)).astype(np.uint8)
         codes[rng.random((n, L2)) < 0.03] = 4
         ln = rng.integers(0, L2 + 1, size=n).astype(np.int32)
         ln[: n // 8] = rng.integers(0, 27, size=n // 8)
+        ln[n // 8: n // 4] = L2 + 5  # clamped to L2
         src = encoding.pack_dna4(codes) if packed else codes
-        r = torch.from_numpy(src).to(dev)
-        lt = torch.from_numpy(ln).to(dev)
+        big = torch.from_numpy(src).to(dev)
+        # L = 161: the rows from the second on, whose span starts off a
+        # 16-byte boundary
+        r = big[1:] if L2 == 161 else big
+        lt = torch.from_numpy(ln[1:] if L2 == 161 else ln).to(dev)
+        require(L2 != 161 or r.data_ptr() % 16, "K1: span not unaligned")
         tt = encoding.get_table(tno)
         errs["reads_to_kmers"] = max(errs["reads_to_kmers"], compare(
             torch, f"K1 L={L2} packed={packed} table={tno} met={meth}",
@@ -672,21 +785,34 @@ def phase_kernels(torch, world):
         log(f"K2 {name}: bucket {tab.bucket}, max_probes {tab.max_probes}, "
             f"stash {len(tab.stash_hi)}: equal")
 
-    # ---- K3 edge cases: min seed 2..4, gap 0..2, random runs ---------- #
-    nl, NW = 100_000, 52
-    runs = rng.choice(np.array([0, 0, 0, 5, 6, 7], np.int32), size=(nl, NW))
-    rep = rng.random((nl, NW)) < 0.6
-    for j in range(1, NW):
-        runs[:, j] = np.where(rep[:, j], runs[:, j - 1], runs[:, j])
-    tr = torch.from_numpy(runs).to(dev)
-    lr = torch.from_numpy(rng.integers(0, NW + 1, size=nl).astype(
-        np.int32)).to(dev)
-    for s in (2, 3, 4):
-        for g in (0, 1, 2):
-            errs["seedextend_mask"] = max(errs["seedextend_mask"], compare(
-                torch, f"K3 s={s} g={g}",
-                seedextend.seedextend_mask_batch(tr, lr, s, g),
-                seedextend.seedextend_mask_plain(tr, lr, s, g)))
+    # ---- K3 edge cases: min seed 2..4, gap 0..2, random runs, all-zero
+    # lanes, lengths 0 and W; W = 45 (a template width), 52 (an even
+    # width: the padded tile stride) and 120 (past the tile: the direct
+    # kernel); lane counts no multiple of the block's lanes ------------ #
+    nl = 100_001
+    for NW in (45, 52, 120):
+        runs = rng.choice(np.array([0, 0, 0, 5, 6, 7], np.int32),
+                          size=(nl, NW))
+        rep = rng.random((nl, NW)) < 0.6
+        for j in range(1, NW):
+            runs[:, j] = np.where(rep[:, j], runs[:, j - 1], runs[:, j])
+        runs[: nl // 20] = 0
+        lr = rng.integers(0, NW + 1, size=nl).astype(np.int32)
+        lr[nl // 2::9], lr[nl // 2 + 1::9] = 0, NW
+        tr = torch.from_numpy(runs).to(dev)
+        lt = torch.from_numpy(lr).to(dev)
+        for s in (2, 3, 4):
+            for g in (0, 1, 2):
+                what = (f"K3 W={NW} ({seedextend.seedextend_path(NW)}) "
+                        f"s={s} g={g}")
+                errs["seedextend_mask"] = max(
+                    errs["seedextend_mask"],
+                    compare(torch, what + " hits",
+                            seedextend.seedextend_hits(tr, lt, s, g),
+                            seedextend.seedextend_hits_plain(tr, lt, s, g)),
+                    compare(torch, what + " mask",
+                            seedextend.seedextend_mask_batch(tr, lt, s, g),
+                            seedextend.seedextend_mask_plain(tr, lt, s, g)))
 
     # ---- K4 edge cases: k_max below and above N, weights -------------- #
     # (dense rows: the warp path's shared-memory sort; sparse rows: its
@@ -884,9 +1010,9 @@ def phase_gather(torch, world):
             bound_ms=b, bound_by=by)
         r = rows[name]
         log(f"K5 {name} ({source}): equal; {r['ms']:.4f} ms "
-            f"(device {r['device_ms']:.4f}, host {r['host_us']:.1f} us), "
+            f"(device {fmt_ms(r['device_ms'])}, host {r['host_us']:.1f} us), "
             f"plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f} "
-            f"(device {r['library_device_ms']:.4f}, host "
+            f"(device {fmt_ms(r['library_device_ms'])}, host "
             f"{r['library_host_us']:.1f} us), bound {b:.5f} ({by})")
 
     # where a small call's host time goes, at Pallas #4's shape
@@ -931,8 +1057,8 @@ def phase_gather(torch, world):
         row["bound_ms"] = b
         sweep[S] = row
         log(f"K5 staging sweep, {G} tiles of ({S}, {W}) = "
-            f"{row['tile_kb']:.0f} KB: staged {row['staged_device_ms']:.4f}"
-            f" ms, direct {row['direct_device_ms']:.4f} ms of device time "
+            f"{row['tile_kb']:.0f} KB: staged {fmt_ms(row['staged_device_ms'])}"
+            f" ms, direct {fmt_ms(row['direct_device_ms'])} ms of device time "
             f"(bound {b:.4f})")
         del tab, idx, want
     RESULT["phases"]["gather"] = dict(rows=rows, staging_sweep=sweep,
@@ -1310,10 +1436,7 @@ def phase_resident(torch, world):
     del tab
 
     L = world["L"]
-    batch = world["reads"][:BATCH]
-    reads = torch.from_numpy(encoding.pack_dna4(batch)).to(dev).reshape(
-        BATCH * 2, -1).contiguous()
-    lens = torch.full((BATCH * 2,), L, dtype=torch.int32, device=dev)
+    reads, lens = _batch_reads(torch, world, L)
     hi, lo, wvalid, _ = translate.reads_to_kmers(reads, lens, L,
                                                  encoding.get_table(1), 9)
     got = lookup.probe(dt, hi, lo, wvalid, 0)
@@ -1338,8 +1461,8 @@ def phase_resident(torch, world):
                 "resident path")
     overflow = an.overflow_reads
     e2e = _stream_rate(an, world)
-    bt = torch.from_numpy(encoding.pack_dna4(batch)).to(dev)
-    bl = torch.full((BATCH, 2), L, dtype=torch.int32, device=dev)
+    bt = reads.reshape(BATCH, 2, -1)
+    bl = lens.reshape(BATCH, 2)
     ms = cuda_ms(torch, lambda: an.step(bt, bl, L), reps=5)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     plain = _run_analyser(_analyser(world, cfg, dtable=dt, plain=True), world)
@@ -1519,8 +1642,9 @@ def compare_trees(before, after, order="BAAB"):
     after, after, before), each in its own process that imports its own
     ``umgap_tpu_torch`` and runs its own ``chip_smoke.py``'s identify,
     kernels and gather phases, then this file's per-stage tables (three
-    presets) and K5 host times at the Pallas rows' shapes, so both trees
-    are measured by the same code. Writes ``ab.json`` under OUT_DIR.
+    presets), K1-K4 device times (``chain_device_ms``) and K5 host times
+    at the Pallas rows' shapes, so both trees are measured by the same
+    code. Writes ``ab.json`` under OUT_DIR.
 
         python3 -c "import chip_smoke; chip_smoke.compare_trees(P, A)"
     """
@@ -1543,39 +1667,53 @@ def compare_trees(before, after, order="BAAB"):
     with open(os.path.join(OUT_DIR, "ab.json"), "w") as f:
         json.dump(runs, f, indent=1, default=str)
     for k, r in enumerate(runs):
-        ks = r["result"]["phases"]["kernels"]["stats"]
-        log(f"run {k} {r['tag']}: K4 {ks['dedup_counts']['ms']:.4f} / "
-            f"{ks['dedup_counts']['L160']['ms']:.4f} ms (device "
-            + " / ".join(f"{v:.4f}" for v in r["k4_device_ms"].values())
-            + "); stages " + "; ".join(
+        log(f"run {k} {r['tag']}: device ms " + "; ".join(
+            f"L={w} " + ", ".join(f"{n} {fmt_ms(v)}" for n, v in c.items())
+            for w, c in r["chain_device_ms"].items())
+            + "; stages " + "; ".join(
                 f"{n} {t['batch_ms']:.3f} ms/batch (hit_geometry "
                 f"{t['stage_ms'].get('hit_geometry', 0):.3f}, peak +"
                 f"{t['step_above_base_gb']:.3f} GB)"
                 for n, t in r["stages"].items()))
 
 
-def k4_device_ms(torch, world, width):
-    """K4's device time on one batch's hits (K1-K3 on the first 16,384
-    pairs padded to ``width``, high-sensitivity's seeds), by the same code
-    for any tree."""
+def chain_device_ms(torch, world, width):
+    """Device ms of K1-K4 on one batch (the first 16,384 pairs padded to
+    ``width``, high-sensitivity's seeds), by the same code for any tree.
+    "seedextend" is the seed-extend stage's work: the hits entry where
+    the tree has one, else the mask kernel and the select after it. At
+    L = 160 also K1 on reads that fill the width ("reads_to_kmers_full")."""
     from umgap_tpu_torch.agg import device as devagg
     from umgap_tpu_torch.ops import encoding, lookup, seedextend, translate
 
-    dev, L = world["dev"], world["L"]
-    batch = world["reads"][:BATCH]
-    if width > L:
-        batch = np.pad(batch, ((0, 0), (0, 0), (0, width - L)),
-                       constant_values=encoding.DNA_N)
-    reads = torch.from_numpy(encoding.pack_dna4(batch)).to(dev).reshape(
-        BATCH * 2, -1).contiguous()
-    lens = torch.full((BATCH * 2,), L, dtype=torch.int32, device=dev)
-    hi, lo, wvalid, plens = translate.reads_to_kmers(
-        reads, lens, width, encoding.get_table(1), 9)
+    tt1 = encoding.get_table(1)
+    reads, lens = _batch_reads(torch, world, width)
+    hi, lo, wvalid, plens = translate.reads_to_kmers(reads, lens, width,
+                                                     tt1, 9)
     taxa = lookup.probe(world["dtable"], hi, lo, wvalid, 0)[0]
-    keep = seedextend.seedextend_mask_batch(taxa, (plens - 8).clamp(min=0),
-                                            3, 1)
-    hits = torch.where(keep, taxa, 0).reshape(BATCH, -1).contiguous()
-    return device_ms(torch, lambda: devagg.dedup_counts(hits, None, 64, True))
+    nk = (plens - 8).clamp(min=0)
+    if hasattr(seedextend, "seedextend_hits"):
+        def seed():
+            return seedextend.seedextend_hits(taxa, nk, 3, 1)
+    else:
+        def seed():
+            return torch.where(seedextend.seedextend_mask_batch(
+                taxa, nk, 3, 1), taxa, 0)
+    hits = seed().reshape(BATCH, -1).contiguous()
+    out = dict(
+        reads_to_kmers=device_ms(torch, lambda: translate.reads_to_kmers(
+            reads, lens, width, tt1, 9)),
+        probe_kmer=device_ms(torch, lambda: lookup.probe(
+            world["dtable"], hi, lo, wvalid, 0)),
+        seedextend=device_ms(torch, seed),
+        dedup_counts=device_ms(torch, lambda: devagg.dedup_counts(
+            hits, None, 64, True)))
+    if width > world["L"]:
+        full, flens = _batch_reads(torch, world, width, full=True)
+        out["reads_to_kmers_full"] = device_ms(
+            torch, lambda: translate.reads_to_kmers(full, flens, width, tt1,
+                                                    9))
+    return out
 
 
 def ab_worker(tree, out):
@@ -1598,15 +1736,15 @@ def ab_worker(tree, out):
 
     stages = {name: stage_table(torch, world, _analyser(world, PRESETS[name]))
               for name in STAGE_PRESETS}
-    k4 = {width: k4_device_ms(torch, world, width)
-          for width in (world["L"], 160)}
+    chain = {width: chain_device_ms(torch, world, width)
+             for width in (world["L"], 160)}
     host = {name: dict(host_us=host_us(torch, k5),
                        library_host_us=host_us(torch, library))
             for name, _s, _m, _p, k5, _pl, library, _b in gather_cases(
                 torch, world["dev"])}
     with open(out, "w") as f:
         json.dump(dict(tree=tree, card=card, result=t.RESULT, stages=stages,
-                       host=host, k4_device_ms=k4), f, default=str)
+                       host=host, chain_device_ms=chain), f, default=str)
 
 
 if __name__ == "__main__":

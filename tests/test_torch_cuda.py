@@ -32,17 +32,67 @@ def _eq(got, want):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w.cpu())
 
 
-@pytest.mark.parametrize("L,packed", [(100, True), (61, True), (48, False)])
-def test_reads_to_kmers_kernel(dev, L, packed):
-    rng = np.random.default_rng(L)
-    codes = rng.integers(0, 5, size=(300, L)).astype(np.uint8)
-    lens = torch.from_numpy(rng.integers(0, L + 1, size=300).astype(
-        np.int32)).to(dev)
+def _k1_reads(rng, n, L, packed):
+    """n random reads of width L (codes above 4 included), lengths 0,
+    below 27, odd, equal to L, above L and negative (both clamped)."""
+    codes = rng.integers(0, 4, size=(n, L)).astype(np.uint8)
+    codes[rng.random((n, L)) < 0.05] = 4
+    codes[rng.random((n, L)) < 0.01] = 9  # reads as N
+    lens = rng.integers(0, L + 1, size=n).astype(np.int32)
+    special = np.array([0, 5, 26, L, L + 7, -3, L | 1, 27], np.int32)
+    m = min(n, len(special))
+    lens[:m] = special[:m]
+    lens[len(special):len(special) + n // 4] |= 1  # odd
     src = encoding.pack_dna4(codes) if packed else codes
-    r = torch.from_numpy(src).to(dev)
-    t = encoding.get_table(11)
-    _eq(translate.reads_to_kmers(r, lens, L, t, 9, packed),
-        translate.reads_to_kmers_plain(r, lens, L, t, 9, packed))
+    return src, lens
+
+
+def _k1_check(dev, src, lens, L, table, packed, methionine=False):
+    r = torch.from_numpy(src).to(dev) if isinstance(src, np.ndarray) \
+        else src
+    ln = torch.from_numpy(lens).to(dev)
+    t = encoding.get_table(table)
+    before = kernels.K1.launches
+    _eq(translate.reads_to_kmers(r, ln, L, t, 9, packed, methionine),
+        translate.reads_to_kmers_plain(r, ln, L, t, 9, packed, methionine))
+    assert kernels.K1.launches == before + 1
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("L", [17, 20, 48, 61, 100, 160, 161, 300, 1001])
+def test_reads_to_kmers_kernel(dev, L, packed):
+    """K1 at the main widths (100, 160: the template instances), odd and
+    short ones, a long one (1001: fewer reads a block), on both wires,
+    with read counts that are no multiple of the block's reads."""
+    rng = np.random.default_rng(L + packed)
+    for n in (1, 7, 300):
+        src, lens = _k1_reads(rng, n, L, packed)
+        _k1_check(dev, src, lens, L, 11, packed)
+
+
+@pytest.mark.parametrize("table,methionine", [(1, False), (1, True),
+                                              (4, True), (11, True)])
+def test_reads_to_kmers_kernel_tables(dev, table, methionine):
+    """Tables 1, 4 and 11, the methionine start flag, 16,385 reads."""
+    rng = np.random.default_rng(table)
+    for L in (100, 160):
+        src, lens = _k1_reads(rng, 16385, L, True)
+        _k1_check(dev, src, lens, L, table, True, methionine)
+
+
+@pytest.mark.parametrize("L,packed", [(100, True), (161, True),
+                                      (161, False)])
+@pytest.mark.parametrize("offset", [1, 3, 7])
+def test_reads_to_kmers_kernel_unaligned(dev, L, packed, offset):
+    """A reads tensor whose span starts off a 16-byte boundary (a row
+    slice of a larger tensor): the ragged head and tail take byte
+    loads."""
+    rng = np.random.default_rng(offset)
+    src, lens = _k1_reads(rng, 300 + offset, L, packed)
+    big = torch.from_numpy(src).to(dev)
+    part = big[offset:]
+    assert part.is_contiguous() and part.data_ptr() % 16
+    _k1_check(dev, part, lens[offset:], L, 1, packed)
 
 
 @pytest.mark.parametrize("layout", ["bucket8s", "bucket16", "bucket64s"])
@@ -62,15 +112,59 @@ def test_probe_kernel(dev, layout):
         lookup.probe_plain(dt, hi, lo, valid, 0))
 
 
-@pytest.mark.parametrize("s,g", [(2, 0), (3, 1), (4, 2)])
+def _seed_lanes(rng, lanes, N):
+    """Runs of equal taxa with gaps, all-zero lanes, lengths 0, N and
+    above N."""
+    t = rng.choice(np.array([0, 0, 0, 5, 6, 7], np.int32), size=(lanes, N))
+    rep = rng.random((lanes, N)) < 0.6
+    for j in range(1, N):
+        t[:, j] = np.where(rep[:, j], t[:, j - 1], t[:, j])
+    t[: lanes // 10] = 0
+    lens = rng.integers(0, N + 1, size=lanes).astype(np.int32)
+    lens[lanes // 2::7] = 0
+    lens[lanes // 2 + 1::7] = N
+    lens[lanes // 2 + 2::7] = N + 3
+    return t, lens
+
+
+def _k3_check(dev, taxa, lens, s, g):
+    tx = taxa if isinstance(taxa, torch.Tensor) else \
+        torch.from_numpy(taxa).to(dev)
+    ln = lens if isinstance(lens, torch.Tensor) else \
+        torch.from_numpy(lens).to(dev)
+    _eq((seedextend.seedextend_hits(tx, ln, s, g),
+         seedextend.seedextend_mask_batch(tx, ln, s, g)),
+        (seedextend.seedextend_hits_plain(tx, ln, s, g),
+         seedextend.seedextend_mask_plain(tx, ln, s, g)))
+
+
+@pytest.mark.parametrize("s", [2, 3, 4])
+@pytest.mark.parametrize("g", [0, 1, 2])
 def test_seedextend_kernel(dev, s, g):
-    rng = np.random.default_rng(s)
-    taxa = torch.from_numpy(rng.choice(np.array([0, 0, 3, 4], np.int32),
-                                       size=(500, 40))).to(dev)
-    lens = torch.from_numpy(rng.integers(0, 41, size=500).astype(
-        np.int32)).to(dev)
-    _eq((seedextend.seedextend_mask_batch(taxa, lens, s, g),),
-        (seedextend.seedextend_mask_plain(taxa, lens, s, g),))
+    """K3's hits and mask entries at the main widths (25, 45: template
+    instances), even widths (40, 52: the padded tile stride) and one past
+    the staged tile (120: the direct kernel), with lane counts that are
+    no multiple of the block's lanes."""
+    rng = np.random.default_rng(10 * s + g)
+    for N in (25, 40, 45, 52, 120):
+        for lanes in (1, 63, 1001):
+            _k3_check(dev, *_seed_lanes(rng, lanes, N), s, g)
+    assert seedextend.seedextend_path(120) == "direct"
+
+
+def test_seedextend_kernel_shapes_and_alignment(dev):
+    """(B, 6, W) lanes as the pipeline passes them, and taxa starting off
+    a 16-byte boundary (the tile's scalar loads)."""
+    rng = np.random.default_rng(5)
+    taxa, lens = _seed_lanes(rng, 6 * 700, 45)
+    _k3_check(dev, torch.from_numpy(taxa.reshape(700, 6, 45)).to(dev),
+              torch.from_numpy(lens.reshape(700, 6)).to(dev), 3, 1)
+    for N in (25, 42):
+        taxa, lens = _seed_lanes(rng, 501, N)
+        big = torch.from_numpy(taxa).to(dev)
+        part = big[1:]
+        assert part.data_ptr() % 16
+        _k3_check(dev, part, torch.from_numpy(lens[1:]).to(dev), 2, 1)
 
 
 @pytest.mark.parametrize("k_max", [8, 400])

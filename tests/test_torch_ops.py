@@ -51,7 +51,7 @@ def _random_reads(rng, n, L):
 
 @pytest.mark.parametrize("table_no,L,methionine",
                          [(1, 61, False), (4, 48, True), (11, 100, False),
-                          (1, 20, False)])
+                          (1, 20, False), (1, 160, False), (1, 161, True)])
 def test_reads_to_kmers_matches_jax(table_no, L, methionine):
     rng = np.random.default_rng(table_no * 1000 + L)
     codes, lens = _random_reads(rng, 96, L)
@@ -188,3 +188,35 @@ def test_seedextend_matches_jax_and_host(s, g):
         for a, b in jseed.seedextend_host(taxa[i, : lens[i]], s, g):
             ref[a:min(b, lens[i])] = True
         np.testing.assert_array_equal(got[i], ref)
+
+
+@pytest.mark.parametrize("s", [2, 3, 4])
+@pytest.mark.parametrize("g", [0, 1, 2])
+def test_seedextend_hits_matches_jax(s, g):
+    """The hits entry equals the JAX program's select over its keep mask
+    (umgap_tpu/pipeline/fused.py: jnp.where(keep, taxa, 0)), lengths 0
+    and N and all-zero lanes included."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(100 + 10 * s + g)
+    lanes, N = 300, 45
+    taxa = _runs(rng, lanes, N)
+    taxa[:20] = 0
+    lens = rng.integers(0, N + 1, size=lanes).astype(np.int32)
+    lens[20:30], lens[30:40] = 0, N
+    want = np.asarray(jnp.where(
+        jseed.seedextend_mask_batch(taxa, lens, s, g), taxa, 0))
+    got = pseed.seedextend_hits(torch.from_numpy(taxa),
+                                torch.from_numpy(lens), s, g)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_seedextend_path():
+    """K3's kernel by row width: the main widths (25, 45) and rows up to
+    96 windows take the staged tile, wider rows the direct kernel, and
+    rows past its shared-memory limit are refused."""
+    assert [pseed.seedextend_path(n) for n in (1, 25, 45, 96, 97, 3600)] \
+        == ["staged"] * 4 + ["direct"] * 2
+    with pytest.raises(ValueError):
+        pseed.seedextend_path(3601)

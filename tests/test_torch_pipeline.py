@@ -30,6 +30,8 @@ from umgap_tpu_torch import convert, kernels
 from umgap_tpu_torch import taxonomy as ptaxonomy
 from umgap_tpu_torch.ops import encoding as penc
 from umgap_tpu_torch.ops import gather
+from umgap_tpu_torch.ops import seedextend as pseedextend
+from umgap_tpu_torch.ops import translate as ptranslate
 from umgap_tpu_torch.pipeline.fused import PRESETS, make_pipeline, \
     pipeline_step, run_stages
 from umgap_tpu_torch.pipeline.runner import Analyser
@@ -126,17 +128,25 @@ def test_plain_stages_call_no_wrapper(toy, monkeypatch):
     one switch, and leaves it off; the kernel path calls the wrappers."""
     calls = []
 
-    def spy(name, fn):
+    def spy(module, name):
+        fn = getattr(module, name)
+
         def wrapped(*a, **kw):
             calls.append(name)
             return fn(*a, **kw)
-        monkeypatch.setattr(gather, name, wrapped)
+        monkeypatch.setattr(module, name, wrapped)
 
     for name in ("take", "gather_rows", "lane_gather", "ancestry"):
-        spy(name, getattr(gather, name))
+        spy(gather, name)
+    spy(ptranslate, "reads_to_kmers")
+    spy(pseedextend, "seedextend_hits")
+    spy(pseedextend, "seedextend_mask_batch")
     cfg = PRESETS["max-sensitivity"]
     want = _run_stages(toy, cfg, plain=False)
-    assert {"take", "gather_rows", "ancestry"} <= set(calls)
+    assert {"take", "gather_rows", "ancestry", "reads_to_kmers",
+            "seedextend_hits"} <= set(calls)
+    # the hits come from the one entry: no keep mask on the kernel path
+    assert "seedextend_mask_batch" not in calls
     calls.clear()
     got = _run_stages(toy, cfg, plain=True)
     assert calls == [] and not kernels.plain_selected()

@@ -6,16 +6,43 @@
 //   umgap_tpu/ops/translate.py:88 translate6_batch    (six-frame translation)
 //   umgap_tpu/ops/kmers.py:76     pack_windows_batch  (k-window packing)
 // The TPU version materialises the codes, the (B, 6, P) peptides and the
-// shifted slices in HBM; here one thread owns one (read, frame) lane,
-// walks its codons once and rolls the k-window key in a register, so the
-// only device-memory traffic is the packed read (L/2 bytes, shared by the
-// six frame threads through L1) and the outputs.
+// shifted slices in HBM; here nothing but the packed reads and the outputs
+// touches device memory.
 //
 // Bound on the H100: bytes. Per read the kernel reads L/2 + 4 bytes and
-// writes 6 * (W * 9 + 4) bytes (hi, lo int32, valid bool, plen int32);
-// the arithmetic (a table lookup and a shift per codon) is far below the
-// integer peak. Each thread writes its own row of W values, so the stores
-// of a warp are strided by W * 4 bytes; L2 merges them before DRAM.
+// writes 6 * (W * 9 + 4) bytes (hi, lo int32, valid bool, plen int32):
+// 80 MB of stores against 2.6 MB of loads for a 32,768-read batch at
+// L = 160. The arithmetic (a table lookup per codon, a shift per window)
+// is far below the integer peak.
+//
+// Design: the TPU-shaped version (one thread per (read, frame) lane,
+// walking its codons with byte loads and writing its own row of W
+// windows) issued every store 100-180 bytes from its neighbour's. Here
+// the stores are written in memory order. One block owns R consecutive
+// reads, whose R * 6 * W outputs of each kind are one contiguous span,
+// and works in phases over shared memory:
+//   1. load: the block's R * row_bytes span of the packed reads (one
+//      contiguous run) with 16-byte loads, the ragged head and tail of an
+//      unaligned span with byte loads; per (read, frame) lane its codon
+//      count and where its codons start; then the codes, unpacked once
+//      a base (not once a codon per frame);
+//   2. translate: one thread per (read, frame, residue) writes the
+//      residue code into aa[R][6][NRES] (NRES = W + k - 1), stepping its
+//      (lane, residue) index without a division;
+//   3. pack and store: one thread per eight consecutive outputs of the
+//      span builds the keys from aa (the first from k residues, the next
+//      by one shift each) and stores eight hi and eight lo as two 16-byte
+//      stores each and eight valid flags as one 8-byte store, so a warp
+//      writes 1 KB + 1 KB + 256 contiguous bytes.
+// R is a multiple of 4, so every block's output span starts on an
+// 8-element boundary. W and k are template constants for the main widths
+// (W = 25 and 45 at k = 9, L = 100 and 160), which turns the divisions by
+// NRES and W into multiply-shifts; other widths take the runtime-width
+// instance. R = 32 reads a block (256 threads, 19 KB of shared memory
+// at L = 160) came out of a sweep over R = 8, 16, 32, 64 on the H100
+// (chip_smoke.py block_sweep; PERF.md, section 6): 8 and 16 leave too
+// little work between a block's barriers, 64 too few blocks an SM. Long
+// reads halve R to keep a block within 48 KB (launch, below).
 //
 // Semantics held exactly (tests hold the plain version to the JAX
 // functions, chip_smoke.py holds this kernel to the plain version):
@@ -25,6 +52,7 @@
 // - frame f has ncod = max(len - f % 3, 0) / 3 codons; residues at
 //   j >= ncod are AA_PAD (31); a peptide shorter than k is padded with 0
 //   up to k, so its single window is packed but invalid;
+// - the methionine flag turns every start codon of the table into M;
 // - window w is valid iff w < ncod - (k - 1).
 
 #include <cuda_runtime.h>
@@ -36,76 +64,209 @@ namespace {
 
 constexpr int AA_PAD = 31;
 constexpr int AA_M = 12;  // 'M'
+constexpr int THREADS = 256;
 
-__device__ __forceinline__ int read_code(const uint8_t* row, int i,
-                                         int packed) {
-  int c = packed ? ((row[i >> 1] >> ((i & 1) ? 0 : 4)) & 0xF) : row[i];
-  return c <= 4 ? c : 4;
+__host__ __device__ __forceinline__ int align16(int n) {
+  return (n + 15) & ~15;
 }
 
-__global__ void reads_to_kmers_kernel(
+// Shared memory of one block: [packed span + 16 | ncod R*6 | base R*6 |
+// lut 256 | codes R*LP | aa R*6*NRES], LP codes a read.
+__host__ __device__ __forceinline__ int smem_bytes(int R, int row_bytes,
+                                                   int packed, int nres) {
+  const int lp = packed ? 2 * row_bytes : row_bytes;
+  return align16(R * row_bytes + 16) + 2 * 4 * 6 * R + 256 +
+         align16(R * lp) + R * 6 * nres;
+}
+
+// WT, KT: the output width W and k as constants, or 0 for the runtime
+// values W_rt, k_rt.
+template <int WT, int KT>
+__global__ void __launch_bounds__(THREADS) reads_to_kmers_kernel(
     const uint8_t* __restrict__ reads, int row_bytes, int packed,
-    const int32_t* __restrict__ lengths, int n_reads, int L, int k,
+    const int32_t* __restrict__ lengths, int n_reads, int L, int k_rt,
     int methionine, const uint8_t* __restrict__ lut,
     int32_t* __restrict__ hi, int32_t* __restrict__ lo,
-    uint8_t* __restrict__ valid, int32_t* __restrict__ plens, int W) {
+    uint8_t* __restrict__ valid, int32_t* __restrict__ plens, int W_rt,
+    int R) {
+  const int W = WT ? WT : W_rt;
+  const int k = KT ? KT : k_rt;
+  const int NRES = W + k - 1;  // P when P >= k, else k (zero padded)
+  const int P = L / 3;
+  const int LP = packed ? 2 * row_bytes : row_bytes;
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* s_dna = smem;
+  int32_t* s_ncod = (int32_t*)(smem + align16(R * row_bytes + 16));
+  int32_t* s_base = s_ncod + 6 * R;
+  uint8_t* s_lut = (uint8_t*)(s_base + 6 * R);
+  uint8_t* s_code = s_lut + 256;
+  uint8_t* s_aa = s_code + align16(R * LP);
+
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * R;
+  const int nr = min(R, n_reads - r0);
+
+  // ---- 1. load --------------------------------------------------------
   // lut[0..124]: AA code per codon; lut[128..252]: start-codon flags
-  __shared__ uint8_t s_lut[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) s_lut[i] = lut[i];
+  for (int i = tid; i < 256; i += THREADS) s_lut[i] = lut[i];
+  // per (read, frame) lane: its codons, and where its first codon
+  // starts in the read's codes (~start on the reverse strand, which
+  // walks back from the read's own last base)
+  for (int i = tid; i < nr * 6; i += THREADS) {
+    const int r = i / 6, f = i - r * 6;
+    const int off = f < 3 ? f : f - 3;
+    int len = lengths[r0 + r];
+    len = len < 0 ? 0 : (len > L ? L : len);
+    const int ncod = (len - off > 0 ? len - off : 0) / 3;
+    s_ncod[i] = ncod;
+    s_base[i] = f < 3 ? r * LP + off : ~(r * LP + len - 1 - off);
+    plens[(long long)r0 * 6 + i] = ncod;
+  }
+  // byte i of the span lands at s_dna[head + i]: the span's aligned
+  // 16-byte chunks land on aligned shared addresses
+  const uint8_t* g0 = reads + (long long)r0 * row_bytes;
+  const int span = nr * row_bytes;
+  const int head = (int)((uintptr_t)g0 & 15);
+  const int lead = min((16 - head) & 15, span);
+  const int nvec = (span - lead) >> 4;
+  const int tail0 = lead + (nvec << 4);
+  uint8_t* sd = s_dna + head;
+  if (tid < lead) sd[tid] = g0[tid];
+  {
+    const uint4* gv = (const uint4*)(g0 + lead);
+    uint4* sv = (uint4*)(sd + lead);
+    for (int v = tid; v < nvec; v += THREADS) sv[v] = __ldg(gv + v);
+  }
+  for (int i = tail0 + tid; i < span; i += THREADS) sd[i] = g0[i];
   __syncthreads();
 
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)n_reads * 6) return;
-  const int read = (int)(t / 6);
-  const int frame = (int)(t % 6);
-  const int off = frame % 3;
-  const bool rev = frame >= 3;
-  int len = lengths[read];
-  len = len < 0 ? 0 : (len > L ? L : len);
-  const int P = L / 3;
-  const int ncod = (len - off > 0 ? len - off : 0) / 3;
-  const uint8_t* row = reads + (long long)read * row_bytes;
-
-  plens[t] = ncod;
-
-  const int n_lo = k < 5 ? k : 5;
-  const uint64_t key_mask = (k * 5 >= 64) ? ~0ull : ((1ull << (5 * k)) - 1);
-  const uint64_t lo_mask = (1ull << (5 * n_lo)) - 1;
-  const int n_res = W + k - 1;  // P when P >= k, else k (zero padded)
-  const int valid_windows = ncod - (k - 1);
-  const long long out0 = t * (long long)W;
-
-  uint64_t key = 0;
-  for (int j = 0; j < n_res; ++j) {
-    int aa;
-    if (j >= P) {
-      aa = 0;
-    } else if (j >= ncod) {
-      aa = AA_PAD;
-    } else {
-      int c[3];
-#pragma unroll
-      for (int b = 0; b < 3; ++b) {
-        const int p = off + 3 * j + b;
-        if (rev) {
-          const int d = read_code(row, len - 1 - p, packed);
-          c[b] = d < 4 ? 3 - d : 4;
-        } else {
-          c[b] = read_code(row, p, packed);
-        }
-      }
-      const int codon = c[0] * 25 + c[1] * 5 + c[2];
-      aa = s_lut[codon];
-      if (methionine && s_lut[128 + codon]) aa = AA_M;
+  // the codes, once a base: codes above 4 read as N (4). Read r's code
+  // i is s_code[r * LP + i] (a packed byte holds codes 2b and 2b + 1)
+  if (packed) {
+    for (int b = tid; b < span; b += THREADS) {
+      const int x = sd[b];
+      const int c0 = min(x >> 4, 4), c1 = min(x & 0xF, 4);
+      *(uint16_t*)(s_code + 2 * b) = (uint16_t)(c0 | (c1 << 8));
     }
-    key = ((key << 5) | (uint64_t)aa) & key_mask;
-    if (j >= k - 1) {
-      const int w = j - (k - 1);
-      hi[out0 + w] = (int32_t)(key >> (5 * n_lo));
-      lo[out0 + w] = (int32_t)(key & lo_mask);
-      valid[out0 + w] = w < valid_windows ? 1 : 0;
+  } else {
+    for (int b = tid; b < span; b += THREADS) s_code[b] = min((int)sd[b], 4);
+  }
+  __syncthreads();
+
+  // ---- 2. translate: item it = (lane, j), lane = it / NRES ------------
+  const int n_items = nr * 6 * NRES;
+  {
+    int lane = tid / NRES;
+    int j = tid - lane * NRES;
+    const int dl = THREADS / NRES, dj = THREADS - dl * NRES;
+    for (int it = tid; it < n_items; it += THREADS) {
+      const int ncod = s_ncod[lane];
+      int aa;
+      if (j >= P) {
+        aa = 0;
+      } else if (j >= ncod) {
+        aa = AA_PAD;
+      } else {
+        const int base = s_base[lane];
+        int codon;
+        if (base >= 0) {
+          const uint8_t* c = s_code + base + 3 * j;
+          codon = c[0] * 25 + c[1] * 5 + c[2];
+        } else {  // complement: 3 - c for A, C, G, T; N stays N
+          const uint8_t* c = s_code + ~base - 3 * j;
+          const int c0 = c[0], c1 = c[-1], c2 = c[-2];
+          codon = (c0 < 4 ? 3 - c0 : 4) * 25 + (c1 < 4 ? 3 - c1 : 4) * 5 +
+                  (c2 < 4 ? 3 - c2 : 4);
+        }
+        aa = s_lut[codon];
+        if (methionine && s_lut[128 + codon]) aa = AA_M;
+      }
+      s_aa[it] = (uint8_t)aa;
+      j += dj;
+      lane += dl;
+      if (j >= NRES) {
+        j -= NRES;
+        ++lane;
+      }
     }
   }
+  __syncthreads();
+
+  // ---- 3. pack and store, in memory order: 8 outputs a thread --------
+  const int n_lo = k < 5 ? k : 5;
+  const uint64_t key_mask = (1ull << (5 * k)) - 1;  // k <= 10
+  const uint64_t lo_mask = (1ull << (5 * n_lo)) - 1;
+  const int n_out = nr * 6 * W;
+  const long long o0 = (long long)r0 * 6 * W;  // a multiple of 8: R % 4 == 0
+  for (int q = tid * 8; q < n_out; q += THREADS * 8) {
+    int lane = q / W;
+    int w = q - lane * W;
+    int32_t h[8], l[8];
+    uint32_t vb[2] = {0, 0};
+    uint64_t key = 0;
+    int n_valid = 0;
+    const int n = min(8, n_out - q);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (e < n) {
+        if (e == 0 || w == 0) {
+          const uint8_t* a = s_aa + lane * NRES + w;
+          key = 0;
+          for (int i = 0; i < k; ++i) key = (key << 5) | a[i];
+          n_valid = s_ncod[lane] - (k - 1);
+        } else {
+          key = ((key << 5) | s_aa[lane * NRES + w + k - 1]) & key_mask;
+        }
+        h[e] = (int32_t)(key >> (5 * n_lo));
+        l[e] = (int32_t)(key & lo_mask);
+        vb[e >> 2] |= (uint32_t)(w < n_valid) << (8 * (e & 3));
+        if (++w == W) {
+          w = 0;
+          ++lane;
+        }
+      }
+    }
+    if (n == 8) {
+      int4* hv = (int4*)(hi + o0 + q);
+      int4* lv = (int4*)(lo + o0 + q);
+      hv[0] = make_int4(h[0], h[1], h[2], h[3]);
+      hv[1] = make_int4(h[4], h[5], h[6], h[7]);
+      lv[0] = make_int4(l[0], l[1], l[2], l[3]);
+      lv[1] = make_int4(l[4], l[5], l[6], l[7]);
+      *(uint2*)(valid + o0 + q) = make_uint2(vb[0], vb[1]);
+    } else {
+      for (int e = 0; e < n; ++e) {
+        hi[o0 + q + e] = h[e];
+        lo[o0 + q + e] = l[e];
+        valid[o0 + q + e] = (uint8_t)(vb[e >> 2] >> (8 * (e & 3)));
+      }
+    }
+  }
+}
+
+template <int WT, int KT>
+int launch(const void* reads, int row_bytes, int packed, const void* lengths,
+           int n_reads, int L, int k, int methionine, const void* lut,
+           void* hi, void* lo, void* valid, void* plens, int W, int R,
+           cudaStream_t stream) {
+  // long reads: halve R (down to 4) to keep a block within 48 KB, then
+  // opt in to more
+  while (R > 4 && smem_bytes(R, row_bytes, packed, W + k - 1) > 48 * 1024)
+    R /= 2;
+  const size_t smem = (size_t)smem_bytes(R, row_bytes, packed, W + k - 1);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        reads_to_kmers_kernel<WT, KT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (n_reads + R - 1) / R;
+  reads_to_kmers_kernel<WT, KT><<<blocks, THREADS, smem, stream>>>(
+      (const uint8_t*)reads, row_bytes, packed, (const int32_t*)lengths,
+      n_reads, L, k, methionine, (const uint8_t*)lut, (int32_t*)hi,
+      (int32_t*)lo, (uint8_t*)valid, (int32_t*)plens, W, R);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -114,20 +275,26 @@ extern "C" const char* umgap_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// R: reads per block, a power of 2 from 4 (the output spans then start
+// on 8 elements; hi, lo and valid must be allocations of their own),
+// halved for long reads.
 extern "C" int reads_to_kmers(const void* reads, int row_bytes, int packed,
                               const void* lengths, int n_reads, int L, int k,
                               int methionine, const void* lut, void* hi,
                               void* lo, void* valid, void* plens, int W,
-                              void* stream) {
+                              int R, void* stream) {
   if (n_reads <= 0) return 0;
-  const int threads = 128;
-  const long long lanes = (long long)n_reads * 6;
-  const int blocks = (int)((lanes + threads - 1) / threads);
-  reads_to_kmers_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)reads, row_bytes, packed, (const int32_t*)lengths,
-      n_reads, L, k, methionine, (const uint8_t*)lut, (int32_t*)hi,
-      (int32_t*)lo, (uint8_t*)valid, (int32_t*)plens, W);
-  return (int)cudaGetLastError();
+  if (R < 4 || (R & (R - 1)) || k < 1 || k > 10)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (k == 9 && W == 25)
+    return launch<25, 9>(reads, row_bytes, packed, lengths, n_reads, L, k,
+                         methionine, lut, hi, lo, valid, plens, W, R, s);
+  if (k == 9 && W == 45)
+    return launch<45, 9>(reads, row_bytes, packed, lengths, n_reads, L, k,
+                         methionine, lut, hi, lo, valid, plens, W, R, s);
+  return launch<0, 0>(reads, row_bytes, packed, lengths, n_reads, L, k,
+                      methionine, lut, hi, lo, valid, plens, W, R, s);
 }
 
 extern "C" int reads_to_kmers_packed(const void* args) {
@@ -135,5 +302,5 @@ extern "C" int reads_to_kmers_packed(const void* args) {
   return reads_to_kmers(a.ptr(0), (int)a.i(1), (int)a.i(2), a.ptr(3),
                         (int)a.i(4), (int)a.i(5), (int)a.i(6), (int)a.i(7),
                         a.ptr(8), a.ptr(9), a.ptr(10), a.ptr(11), a.ptr(12),
-                        (int)a.i(13), a.ptr(14));
+                        (int)a.i(13), (int)a.i(14), a.ptr(15));
 }

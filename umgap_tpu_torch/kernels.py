@@ -117,7 +117,7 @@ class Kernel:
 
 K1 = Kernel(
     "reads_to_kmers", "reads_to_kmers.cu",
-    [P, I, I, P, I, I, I, I, P, P, P, P, P, I, P],
+    [P, I, I, P, I, I, I, I, P, P, P, P, P, I, I, P],
     "umgap_tpu/ops/encoding.py:57 unpack_dna4_device + "
     "umgap_tpu/ops/translate.py:88 translate6_batch + "
     "umgap_tpu/ops/kmers.py:76 pack_windows_batch")
@@ -128,9 +128,10 @@ K2 = Kernel(
     "scripts/exp_pallas_dma.py:31 make_kernel")
 K3 = Kernel(
     "seedextend_mask", "seedextend_mask.cu",
-    [P, P, LL, I, I, I, P, P],
+    [P, P, LL, I, I, I, P, I, I, I, P],
     "umgap_tpu/ops/seedextend.py:118 seedextend_mask_batch "
-    "(lax.scan of _scan_seeds, :173)")
+    "(lax.scan of _scan_seeds, :173) + "
+    "umgap_tpu/pipeline/fused.py:107-109 jnp.where(keep, taxa, 0)")
 K4 = Kernel(
     "dedup_counts", "dedup_counts.cu",
     [P, P, I, I, I, P, P, P, P, I, P],

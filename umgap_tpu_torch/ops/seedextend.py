@@ -1,5 +1,5 @@
-"""Seed-and-extend keep masks: kernel K3 (``csrc/seedextend_mask.cu``)
-and its plain PyTorch version.
+"""Seed-and-extend: kernel K3 (``csrc/seedextend_mask.cu``), as a keep
+mask or as the hits it selects, and their plain PyTorch versions.
 
 Semantics (``umgap_tpu.ops.seedextend``, reference
 src/commands/seedextend.rs:96-178), with ``s`` = min seed size and ``g``
@@ -8,7 +8,8 @@ stretch of non-zero runs joined by gaps of length <= g; it is kept iff
 its longest non-zero run is >= s. The reference's order-dependent state
 machine (including its leading-gap quirk and the trailing-gap trim) is
 run per lane; seed pushes become +1/-1 deltas whose running sum > 0 is
-the keep mask.
+the keep mask. The pipeline takes the hits (:func:`seedextend_hits`),
+which K3 writes directly.
 """
 
 from __future__ import annotations
@@ -69,26 +70,68 @@ def seedextend_mask_plain(taxa: torch.Tensor, lengths: torch.Tensor,
     return keep.reshape(lanes + (N,))
 
 
+def seedextend_hits_plain(taxa: torch.Tensor, lengths: torch.Tensor,
+                          min_seed_size: int = 2, max_gap_size: int = 0):
+    """Plain version of K3's hits epilogue: the taxa where the lane keeps
+    the window, 0 elsewhere."""
+    keep = seedextend_mask_plain(taxa, lengths, min_seed_size, max_gap_size)
+    return torch.where(keep, taxa, 0)
+
+
+# Rows of up to STAGED_MAX_N windows (reads up to 312 bp) take K3's
+# staged tile of LANES_PER_BLOCK lanes (a sweep over 32, 64 and 128 on
+# the H100; PERF.md, section 6); wider rows, up to MAX_N, its direct
+# kernel, whose int16 delta rows of one warp must fit in shared memory.
+STAGED_MAX_N = 96
+LANES_PER_BLOCK = 64
+MAX_N = 3600
+
+
+def seedextend_path(N: int) -> str:
+    """K3's kernel for rows of N windows: ``"staged"`` up to
+    :data:`STAGED_MAX_N`, ``"direct"`` up to :data:`MAX_N`."""
+    if N > MAX_N:
+        raise ValueError(f"seedextend: {N} windows per lane exceed the "
+                         f"kernel's shared-memory rows ({MAX_N})")
+    return "staged" if N <= STAGED_MAX_N else "direct"
+
+
+def _launch(taxa, lengths, min_seed_size, max_gap_size, hits: bool):
+    N = taxa.shape[-1]
+    if taxa.dtype != torch.int32 or lengths.dtype != torch.int32 \
+            or lengths.shape != taxa.shape[:-1]:
+        raise ValueError("seedextend: taxa (..., N) int32 and lengths "
+                         "(...) int32 expected")
+    staged = seedextend_path(N) == "staged"
+    kernels.check_cuda("seedextend", taxa, lengths)
+    out = torch.empty(taxa.shape, dtype=torch.int32 if hits else torch.bool,
+                      device=taxa.device)
+    kernels.K3.launch(taxa.data_ptr(), lengths.data_ptr(),
+                      lengths.numel(), N, int(min_seed_size),
+                      int(max_gap_size), out.data_ptr(), int(hits),
+                      int(staged), LANES_PER_BLOCK, kernels.stream_of(taxa))
+    return out
+
+
 def seedextend_mask_batch(taxa: torch.Tensor, lengths: torch.Tensor,
                           min_seed_size: int = 2, max_gap_size: int = 0):
     """Keep mask (..., N) bool of a padded batch of window taxa (..., N)
     int32 with valid lengths (...). CPU tensors take the plain version;
-    CUDA tensors launch K3."""
+    CUDA tensors launch K3 with its mask epilogue."""
     if taxa.device.type == "cpu":
         return seedextend_mask_plain(taxa, lengths, min_seed_size,
                                      max_gap_size)
-    N = taxa.shape[-1]
-    if taxa.dtype != torch.int32 or lengths.dtype != torch.int32 \
-            or lengths.shape != taxa.shape[:-1]:
-        raise ValueError("seedextend_mask: taxa (..., N) int32 and lengths "
-                         "(...) int32 expected")
-    if N > 3600:
-        raise ValueError(f"seedextend_mask: {N} windows per lane exceed "
-                         "the kernel's shared-memory rows (3600)")
-    kernels.check_cuda("seedextend_mask", taxa, lengths)
-    keep = torch.empty(taxa.shape, dtype=torch.bool, device=taxa.device)
-    kernels.K3.launch(taxa.data_ptr(), lengths.data_ptr(),
-                      lengths.numel(), N, int(min_seed_size),
-                      int(max_gap_size), keep.data_ptr(),
-                      kernels.stream_of(taxa))
-    return keep
+    return _launch(taxa, lengths, min_seed_size, max_gap_size, hits=False)
+
+
+def seedextend_hits(taxa: torch.Tensor, lengths: torch.Tensor,
+                    min_seed_size: int = 2, max_gap_size: int = 0):
+    """Hits (..., N) int32 of a padded batch of window taxa (..., N)
+    int32 with valid lengths (...): the taxa inside kept extended seeds,
+    0 elsewhere, i.e. ``torch.where(keep, taxa, 0)`` in one pass. CPU
+    tensors take the plain version; CUDA tensors launch K3 with its hits
+    epilogue."""
+    if taxa.device.type == "cpu":
+        return seedextend_hits_plain(taxa, lengths, min_seed_size,
+                                     max_gap_size)
+    return _launch(taxa, lengths, min_seed_size, max_gap_size, hits=True)

@@ -92,6 +92,11 @@ def _codon_lut(table: TranslationTable, device) -> torch.Tensor:
     return _LUTS[key]
 
 
+# K1's reads per block: a sweep over R = 8..64 on the H100 (PERF.md,
+# section 6); the kernel halves it for long reads.
+READS_PER_BLOCK = 32
+
+
 def reads_to_kmers_plain(reads: torch.Tensor, lengths: torch.Tensor,
                          length: int, table: TranslationTable, k: int = 9,
                          packed: bool = True, methionine: bool = False):
@@ -136,5 +141,5 @@ def reads_to_kmers(reads: torch.Tensor, lengths: torch.Tensor, length: int,
         reads.data_ptr(), row_bytes, int(packed), lengths.data_ptr(), N,
         length, k, int(methionine), lut.data_ptr(), hi.data_ptr(),
         lo.data_ptr(), valid.data_ptr(), plens.data_ptr(), W,
-        kernels.stream_of(reads))
+        READS_PER_BLOCK, kernels.stream_of(reads))
     return hi, lo, valid, plens

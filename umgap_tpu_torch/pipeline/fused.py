@@ -7,7 +7,8 @@ The composition of the reference's preset pipelines
                  | uniq -d / | taxa2agg -lL [-m rmq -a mrtl | -a ...]
 
 over a padded batch of read pairs. On CUDA the chain is
-K1 reads_to_kmers -> K2 probe_kmer -> K3 seedextend_mask ->
+K1 reads_to_kmers -> K2 probe_kmer -> K3 seed-extend (the hits
+epilogue: the kept taxa, with no keep mask and no select pass) ->
 K4 dedup_counts -> hit_geometry (K5 lane_gather) -> the aggregator (K6
 tree_aggregate for tree/lca*, tree/hybrid and rmq/mrtl; the Euler/RMQ
 aggregators around K5 for rmq/lca* and rmq/hybrid) -> snap (K5); on the
@@ -62,10 +63,12 @@ PRESETS = {
         method="tree", strategy="lca*"),
 }
 
-_KERNEL_OPS = (translate.reads_to_kmers, lookup.probe,
-               seedextend.seedextend_mask_batch, devagg.dedup_counts)
-_PLAIN_OPS = (translate.reads_to_kmers_plain, lookup.probe_plain,
-              seedextend.seedextend_mask_plain, devagg.dedup_counts_plain)
+# the first four stages' wrappers and plain versions, by name in
+# _OP_MODULES, looked up at each batch
+_KERNEL_OPS = ("reads_to_kmers", "probe", "seedextend_hits",
+               "dedup_counts")
+_PLAIN_OPS = tuple(name + "_plain" for name in _KERNEL_OPS)
+_OP_MODULES = (translate, lookup, seedextend, devagg)
 
 
 def check_config(config: PipelineConfig) -> None:
@@ -98,8 +101,9 @@ def run_stages(reads, lengths, length: int, packed: bool,
 
 def _stages(reads, lengths, length, packed, dtax, dtable, config,
             with_overflow, stage, euler):
-    r2k, probe, seedext, dedup = (_PLAIN_OPS if kernels.plain_selected()
-                                  else _KERNEL_OPS)
+    names = _PLAIN_OPS if kernels.plain_selected() else _KERNEL_OPS
+    r2k, probe, seedext, dedup = (getattr(m, n)
+                                  for m, n in zip(_OP_MODULES, names))
     B, E = lengths.shape
     table = encoding.get_table(config.table_number)
     with stage("reads_to_kmers"):
@@ -111,9 +115,8 @@ def _stages(reads, lengths, length, packed, dtax, dtable, config,
     with stage("seedextend"):
         W = taxa.shape[-1]
         nkmers = (plens - (config.k - 1)).clamp(min=0)
-        keep = seedext(taxa, nkmers, config.min_seed_size,
-                       config.max_gap_size)
-        hits = torch.where(keep, taxa, 0).reshape(B, E * 6 * W)
+        hits = seedext(taxa, nkmers, config.min_seed_size,
+                       config.max_gap_size).reshape(B, E * 6 * W)
     with stage("dedup"):
         utaxa, ucounts, uvalid, nuniq = dedup(hits, None, config.k_max,
                                               return_nuniq=True)
