@@ -5,8 +5,9 @@
 
 Builds the CUDA kernels from ``umgap_tpu_torch/csrc``, holds each kernel
 to its plain PyTorch version on the card (K1-K6 chained on a
-16,384-pair batch at L = 100 and 160, K6 also at the wide program's
-width, and K5 at the shapes of each TPU gather kernel it ports), drives
+16,384-pair batch at L = 100 and 160, K6 through both its entries, on
+dense groups and at the wide program's width, and K5 at the shapes of
+each TPU gather kernel it ports), drives
 the port's main path (the 9-mer ``analyse`` presets through ``Analyser``
 over the tracked ``.bench_data`` workload: 32,768 read pairs of 100 bp,
 a 2 M-key index, 20 k taxa), the wide re-route program on one batch,
@@ -475,11 +476,47 @@ def _chain(torch, world, width):
     return stats, errs
 
 
+def _dense_hits(torch, dtax, B, K, lo, seed=5):
+    """B groups of K slots with lo to K valid hits each (all K when lo
+    == K), as dedup leaves them: distinct ids ascending, counts 1-6,
+    I32_MAX in the slots after. The ids are drawn from four random
+    lineages and the whole taxonomy, so groups branch and nest; made on
+    the card from ``seed``, the same for any tree."""
+    from umgap_tpu_torch.agg import device as devagg
+
+    dev = dtax.geom.device
+    size = dtax.geom.shape[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    leaves = torch.randint(1, size, (B, 4), generator=g, device=dev)
+    cand = torch.cat([dtax.anc[leaves].reshape(B, -1), torch.randint(
+        1, size, (B, K), generator=g, device=dev, dtype=torch.int32)], 1)
+    cand = cand.sort(dim=1).values
+    dup = torch.zeros_like(cand, dtype=torch.bool)
+    dup[:, 1:] = cand[:, 1:] == cand[:, :-1]
+    cand = torch.where(dup | (cand < 1), devagg.I32_MAX, cand)
+    cand = cand.sort(dim=1).values  # distinct ids first, ascending
+    # K of each group's distinct ids at random, kept in ascending order
+    score = torch.rand(cand.shape, generator=g, device=dev)
+    score = torch.where(cand == devagg.I32_MAX, 2.0, score)
+    pick = score.topk(K, dim=1, largest=False).indices.sort(dim=1).values
+    utaxa = torch.gather(cand, 1, pick).contiguous()
+    n = torch.randint(lo, K + 1, (B, 1), generator=g, device=dev)
+    uvalid = (torch.arange(K, device=dev)[None, :] < n) & (
+        utaxa != devagg.I32_MAX)
+    utaxa = torch.where(uvalid, utaxa, devagg.I32_MAX)
+    ucounts = torch.where(uvalid, torch.randint(
+        1, 7, (B, K), generator=g, device=dev).float(), 0.0)
+    return utaxa, ucounts, uvalid
+
+
 def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
     """K5 (hit_geometry's row and ancestry gathers, snap's take) and K6
-    (hybrid, lca*, mrtl) on one batch's deduplicated hits, each held to
-    its plain version and timed; K6 also on the first 1,024 rows padded
-    to the wide program's width at this read length."""
+    (hybrid, lca*, mrtl; its hits entry, the main path's, and its
+    HitGeometry entry, which runs the same launch) on one batch's
+    deduplicated hits, each held to its plain version and timed, K6 also
+    by device time, with its bound, its floor (no slot valid) and on
+    groups of 17-64 and of 64 valid hits; K6 also on the first 1,024
+    rows padded to the wide program's width at this read length."""
     from umgap_tpu_torch import kernels
     from umgap_tpu_torch.agg import device as devagg
     from umgap_tpu_torch.ops import gather
@@ -558,18 +595,52 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
     s5a.update(zip(("bound_ms", "bound_by", "needed_lineage_elements"),
                    ancestry_bound(torch, dep, uv, D)))
 
+    # K6 through both entries: tree_aggregate_hits (the main path's: the
+    # kernel reads the valid hits' taxonomy rows itself) and
+    # tree_aggregate on the HitGeometry above (on the card, the same
+    # launch on its valid mask); each held to its plain version and the
+    # two entries to each other, also with every slot valid (I32_MAX ids
+    # too), with none (the floor) and on the dense batches of
+    # chain_device_ms (every group on the warp path)
     s6, e6 = {}, 0.0
     res = {}
+    every, none = torch.ones_like(uvalid), torch.zeros_like(uvalid)
+    dense = {n: _dense_hits(torch, dtax, B, K, lo)
+             for n, lo in (("dense", 17), ("full", K))}
     for strat in ("hybrid", "lca*", "mrtl"):
-        def run(plain, strat=strat, g=geom, u=utaxa, c=ucounts):
+        def hits(plain=False, strat=strat, v=uvalid, f=0.25, h=None):
+            fn = (devagg.tree_aggregate_hits_plain if plain
+                  else devagg.tree_aggregate_hits)
+            u, c, v = h or (utaxa, ucounts, v)
+            return fn(strat, dtax, u, c, v, f)
+
+        def on_geom(plain=False, strat=strat):
             fn = (devagg.tree_aggregate_plain if plain
                   else devagg.tree_aggregate)
-            return fn(strat, dtax, g, u, c, 0.25)
-        res[strat] = run(False)
-        e6 = max(e6, compare(torch, f"K6 {strat} L={width}", res[strat],
-                             run(True)))
-        s6[strat] = dict(ms=cuda_ms(torch, lambda: run(False)),
-                         plain_ms=cuda_ms(torch, lambda: run(True), reps=5))
+            return fn(strat, dtax, geom, utaxa, ucounts, 0.25)
+
+        res[strat] = hits()
+        e6 = max(e6, compare(torch, f"K6 {strat} hits L={width}",
+                             res[strat], hits(True)),
+                 compare(torch, f"K6 {strat} geometry L={width}", on_geom(),
+                         on_geom(True)),
+                 compare(torch, f"K6 {strat} every slot valid L={width}",
+                         hits(v=every), hits(True, v=every)),
+                 compare(torch, f"K6 {strat} no slot valid L={width}",
+                         hits(v=none), hits(True, v=none)),
+                 *(compare(torch, f"K6 {strat} {n} L={width}", hits(h=h),
+                           hits(True, h=h)) for n, h in dense.items()))
+        require(torch.equal(on_geom(), res[strat]),
+                f"K6 {strat} L={width}: the entries differ")
+        for f in ((0.5, 1.0) if strat == "hybrid" else ()):
+            e6 = max(e6, compare(torch, f"K6 hybrid f={f} L={width}",
+                                 hits(f=f), hits(True, f=f)))
+        s6[strat] = dict(
+            ms=cuda_ms(torch, hits), device_ms=device_ms(torch, hits),
+            plain_ms=cuda_ms(torch, lambda: hits(True), reps=5),
+            floor_device_ms=device_ms(torch, lambda: hits(v=none)),
+            **{n + "_device_ms": device_ms(torch, lambda h=h: hits(h=h))
+               for n, h in dense.items()})
     got = devagg.snap_batch(dtax.snap_valid, res["hybrid"])
     with kernels.plain_versions():
         want = devagg.snap_batch(dtax.snap_valid, res["hybrid"])
@@ -586,26 +657,28 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
         library_ms=cuda_ms(torch, lambda: torch.take(snapping, ids64)),
         bound_ms=sb, bound_by=sby, shape=[int(snapping.shape[0]), B])
     # bounds, from this batch's data: what the valid slots need, each
-    # read once, the valid mask read whole and (B,) written once. hybrid
-    # reads the lineage columns of the depths it visits (its result's
-    # depth + 1 steps, at most D - 1) and tests and compares once per
-    # valid slot a step; mrtl reads the valid x valid block of is_anc and
-    # adds once per entry of it; lca* tests that block and reads the
-    # valid lineages of the groups that have no dominated chain
+    # read once, the valid mask read whole and (B,) written once.
+    # Operations: hybrid tests and compares once per valid slot a step
+    # (its result's depth + 1 steps, at most D - 1); mrtl adds once per
+    # valid x valid pair and tests it; lca* tests each pair. Bytes: the
+    # ids (and counts, but for lca*) of the valid slots and one row of
+    # [depth | ancestors] per distinct valid id.
     nv = uvalid.sum(dim=-1).long()
     steps = (gather.take_plain(dtax.depth, res["hybrid"]) + 1).clamp(
         max=D - 1).long()
     pairs, nvalid = int((nv * nv).sum()), int(nv.sum())
-    dom = ((geom.is_anc | ~uvalid[:, :, None]).all(dim=1) & uvalid).any(-1)
+    distinct = int(torch.unique(utaxa[uvalid]).numel())
     fixed = B * K + B * 4
-    for strat, nbytes, ops in (
-            ("hybrid", int(((steps + 1) * nv).sum()) * 4 + nvalid * 4
-             + fixed, int((steps * nv).sum()) * 2),
-            ("lca*", pairs + int(nv[~dom].sum()) * D * 4 + nvalid * 8
-             + fixed, pairs),
-            ("mrtl", pairs + nvalid * 12 + fixed, 2 * pairs)):
-        b, by = bound(nbytes, ops)
-        s6[strat].update(bound_ms=b, bound_by=by)
+    ops = {"hybrid": int((steps * nv).sum()) * 2, "lca*": pairs,
+           "mrtl": 2 * pairs}
+    for strat, nop in ops.items():
+        nbytes = (fixed + nvalid * (4 if strat == "lca*" else 8)
+                  + distinct * (D + 1) * 4)
+        s6[strat].update(zip(("bound_ms", "bound_by"), bound(nbytes, nop)))
+    paths = [devagg.tree_path(n) for n in nv.tolist()]
+    s6["groups_by_path"] = {p: paths.count(p) for p in ("thread", "warp")}
+    s6["dense_valid_per_group"] = {
+        n: float(h[2].sum(dim=-1).float().mean()) for n, h in dense.items()}
 
     # the wide program's width: the first 1,024 rows padded to it
     kw = 2 * 6 * ((width + 2) // 3)
@@ -633,19 +706,29 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
     s5a["wide"] = wa
     wide = {"K": kw, "rows": n}
     for strat in ("hybrid", "lca*", "mrtl"):
-        got = devagg.tree_aggregate(strat, dtax, gw, uw, cw, 0.25)
-        e6 = max(e6, compare(torch, f"K6 {strat} K={kw}", got,
-                             devagg.tree_aggregate_plain(strat, dtax, gw, uw,
-                                                         cw, 0.25)))
-        require(torch.equal(got, res[strat][:n]),
+        def wh(plain=False, strat=strat):
+            fn = (devagg.tree_aggregate_hits_plain if plain
+                  else devagg.tree_aggregate_hits)
+            return fn(strat, dtax, uw, cw, vw, 0.25)
+
+        def wg(strat=strat):
+            return devagg.tree_aggregate(strat, dtax, gw, uw, cw, 0.25)
+
+        got = wh()
+        e6 = max(e6, compare(torch, f"K6 {strat} hits K={kw}", got,
+                             wh(True)),
+                 compare(torch, f"K6 {strat} geometry K={kw}", wg(),
+                         devagg.tree_aggregate_plain(strat, dtax, gw, uw,
+                                                     cw, 0.25)))
+        require(torch.equal(got, res[strat][:n]) and torch.equal(wg(), got),
                 f"K6 {strat}: width {kw} differs from width {K}")
-        wide[strat + "_ms"] = cuda_ms(
-            torch, lambda strat=strat: devagg.tree_aggregate(
-                strat, dtax, gw, uw, cw, 0.25), reps=5)
+        wide[strat] = dict(ms=cuda_ms(torch, wh, reps=5),
+                           device_ms=device_ms(torch, wh))
     s6["wide"] = wide
-    s6.update(ms=s6["hybrid"]["ms"], plain_ms=s6["hybrid"]["plain_ms"],
-              bound_ms=s6["hybrid"]["bound_ms"],
-              bound_by=s6["hybrid"]["bound_by"], library_ms=None,
+    h = s6["hybrid"]
+    s6.update(ms=h["ms"], device_ms=h["device_ms"], plain_ms=h["plain_ms"],
+              bound_ms=h["bound_ms"], bound_by=h["bound_by"],
+              floor_device_ms=h["floor_device_ms"], library_ms=None,
               shape=[B, K, D])
     return (s5, e5), (s5a, e5a), (s6, e6)
 
@@ -1126,19 +1209,31 @@ def _probes1_table(T, keys, vals):
 # ---------------------------------------------------------------------- #
 
 def path_kernels(config):
-    """Names of the kernels a configuration's path launches: K5's
-    ancestry epilogue only where the aggregation reads is_anc, K6 only
-    for the tree aggregators."""
+    """Names of the kernels a configuration's path launches: K6 only for
+    the tree aggregators, which read the taxonomy rows themselves, so no
+    path launches K5's ancestry epilogue (it serves hit_geometry)."""
     from umgap_tpu_torch import kernels
     from umgap_tpu_torch.agg import device as devagg
 
-    key = (config.method, config.strategy)
-    names = {k.name for k in kernels.KERNELS}
-    if not devagg.needs_ancestry(*key):
-        names.discard("lane_gather_ancestry")
-    if key not in devagg.GEOMETRY_AGGREGATIONS:
+    names = {k.name for k in kernels.KERNELS} - {"lane_gather_ancestry"}
+    if (config.method, config.strategy) not in \
+            devagg.GEOMETRY_AGGREGATIONS:
         names.discard("tree_aggregate")
     return names
+
+
+def batch_launches(torch, world, an):
+    """Launch counts of one 16,384-pair batch step of an Analyser."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.ops import encoding
+
+    dev, L = world["dev"], world["L"]
+    b = torch.from_numpy(encoding.pack_dna4(world["reads"][:BATCH])).to(dev)
+    lens = torch.full((BATCH, 2), L, dtype=torch.int32, device=dev)
+    kernels.reset_launches()
+    an.step(b, lens, L)
+    torch.cuda.synchronize()
+    return kernels.launch_counts()
 
 
 def _analyser(world, config, dtable=None, batch_size=BATCH, read_length=None,
@@ -1219,8 +1314,21 @@ def phase_main(torch, world):
     launches = kernels.launch_counts()
     RESULT["main_launches"] = launches
     log(f"main path launches: {launches}")
-    for n, c in launches.items():
-        require(c > 0, f"kernel {n} was not launched on the main path")
+    for n in set().union(*(path_kernels(c) for c in PRESETS.values())):
+        require(launches[n] > 0,
+                f"kernel {n} was not launched on the main path")
+    # one batch of each tree aggregator: one K6 launch, K5 for snap's take
+    # alone, no row gather and no ancestry epilogue
+    from umgap_tpu_torch.agg import device as devagg
+
+    per_batch = {}
+    for name, cfg in PRESETS.items():
+        per_batch[name] = c = batch_launches(torch, world, analysers[name])
+        if (cfg.method, cfg.strategy) in devagg.GEOMETRY_AGGREGATIONS:
+            require(c["tree_aggregate"] == 1 and c["lane_gather"] == 1
+                    and c["lane_gather_ancestry"] == 0,
+                    f"{name}: one batch launched {c}")
+    RESULT["batch_launches"] = per_batch
 
     phase = {"presets": {}}
     for name, cfg in PRESETS.items():
@@ -1633,7 +1741,7 @@ import importlib.util, sys
 spec = importlib.util.spec_from_file_location("smoke_ab", sys.argv[1])
 d = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(d)
-d.ab_worker(sys.argv[2], sys.argv[3])
+d.ab_worker(*sys.argv[2:])
 """
 
 
@@ -1666,23 +1774,33 @@ def compare_trees(before, after, order="BAAB"):
             runs.append(dict(tag=tag, **json.load(f)))
     with open(os.path.join(OUT_DIR, "ab.json"), "w") as f:
         json.dump(runs, f, indent=1, default=str)
+    def tail(t):
+        g, a = (t["stage_ms"].get(n, 0.0) for n in ("hit_geometry",
+                                                     "aggregate"))
+        return f"hit_geometry + aggregate {g:.3f} + {a:.3f} = {g + a:.3f}"
+
     for k, r in enumerate(runs):
         log(f"run {k} {r['tag']}: device ms " + "; ".join(
             f"L={w} " + ", ".join(f"{n} {fmt_ms(v)}" for n, v in c.items())
             for w, c in r["chain_device_ms"].items())
             + "; stages " + "; ".join(
-                f"{n} {t['batch_ms']:.3f} ms/batch (hit_geometry "
-                f"{t['stage_ms'].get('hit_geometry', 0):.3f}, peak +"
+                f"{n} {t['batch_ms']:.3f} ms/batch ({tail(t)}, peak +"
                 f"{t['step_above_base_gb']:.3f} GB)"
                 for n, t in r["stages"].items()))
 
 
 def chain_device_ms(torch, world, width):
-    """Device ms of K1-K4 on one batch (the first 16,384 pairs padded to
-    ``width``, high-sensitivity's seeds), by the same code for any tree.
-    "seedextend" is the seed-extend stage's work: the hits entry where
-    the tree has one, else the mask kernel and the select after it. At
-    L = 160 also K1 on reads that fill the width ("reads_to_kmers_full")."""
+    """Device ms of K1-K4 and of the tree aggregators' work on one batch
+    (the first 16,384 pairs padded to ``width``, high-sensitivity's seeds
+    and lower bound), by the same code for any tree. "seedextend" is the
+    seed-extend stage's work: the hits entry where the tree has one, else
+    the mask kernel and the select after it. "aggregate_<strategy>" is
+    K6's hits entry where the tree has one, else hit_geometry (with the
+    ancestry epilogue for lca* and mrtl) and K6 on it. At L = 160 also
+    K1 on reads that fill the width ("reads_to_kmers_full"). At
+    L = 100 also the aggregators' work on groups of 17-64 valid hits
+    ("aggregate_<strategy>_dense") and of 64 ("_full"): every group on
+    K6's warp path."""
     from umgap_tpu_torch.agg import device as devagg
     from umgap_tpu_torch.ops import encoding, lookup, seedextend, translate
 
@@ -1708,6 +1826,25 @@ def chain_device_ms(torch, world, width):
         seedextend=device_ms(torch, seed),
         dedup_counts=device_ms(torch, lambda: devagg.dedup_counts(
             hits, None, 64, True)))
+    dtax = world["dtax"]
+    utaxa, ucounts, uvalid = devagg.dedup_counts(hits, None, 64)
+    uvalid = devagg.filter_lower_bound(ucounts, uvalid, 1.0)
+    batches = {"": (utaxa, ucounts, uvalid)}
+    if width == world["L"]:
+        batches.update({"_" + n: _dense_hits(torch, dtax, BATCH, 64, lo)
+                        for n, lo in (("dense", 17), ("full", 64))})
+    for tag, (u, c, v) in batches.items():
+        for strat in ("hybrid", "lca*", "mrtl"):
+            if hasattr(devagg, "tree_aggregate_hits"):
+                def agg(strat=strat, u=u, c=c, v=v):
+                    return devagg.tree_aggregate_hits(strat, dtax, u, c, v,
+                                                      0.25)
+            else:
+                def agg(strat=strat, u=u, c=c, v=v):
+                    geom = devagg.hit_geometry(dtax, u, v, strat != "hybrid")
+                    return devagg.tree_aggregate(strat, dtax, geom, u, c,
+                                                 0.25)
+            out[f"aggregate_{strat}{tag}"] = device_ms(torch, agg)
     if width > world["L"]:
         full, flens = _batch_reads(torch, world, width, full=True)
         out["reads_to_kmers_full"] = device_ms(
@@ -1716,9 +1853,60 @@ def chain_device_ms(torch, world, width):
     return out
 
 
-def ab_worker(tree, out):
+def sweep_constant(constant, values,
+                   source="umgap_tpu_torch/csrc/tree_aggregate.cu"):
+    """Device ms of ``chain_device_ms`` at L = 100 on copies of this
+    checkout that differ only in one ``constexpr int`` of a CUDA source,
+    each in its own process, in turns (the values, then again in reverse
+    order). Writes ``sweep_<constant>.json`` under OUT_DIR.
+
+        python3 -c "import chip_smoke; chip_smoke.sweep_constant(
+            'kBlockWarps', (4, 8, 16))"
+    """
+    import re
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("FAIL: sweep_constant runs only on a GPU")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    pattern = re.compile(rf"(constexpr int {constant} = )\d+;")
+    runs = []
+    for k, v in enumerate(list(values) + list(values)[::-1]):
+        tree = os.path.join(TMP_DIR, "variants", f"{constant}_{v}")
+        if not os.path.isdir(tree):
+            shutil.copytree(os.path.join(REPO, "umgap_tpu_torch"),
+                            os.path.join(tree, "umgap_tpu_torch"),
+                            ignore=shutil.ignore_patterns("_build",
+                                                          "__pycache__"))
+            shutil.copy(__file__, tree)
+            os.symlink(DATA, os.path.join(tree, ".bench_data"))
+            path = os.path.join(tree, source)
+            with open(path) as f:
+                text, hits = pattern.subn(rf"\g<1>{v};", f.read())
+            require(hits == 1, f"{constant} not found once in {source}")
+            with open(path, "w") as f:
+                f.write(text)
+        out = os.path.join(OUT_DIR, f"sweep_{k}_{v}.json")
+        proc = subprocess.run([sys.executable, "-c", AB_WORKER,
+                               os.path.abspath(__file__), tree, out,
+                               "chain"], cwd=tree, timeout=900)
+        require(proc.returncode == 0, f"sweep run {constant} = {v} failed")
+        with open(out) as f:
+            r = json.load(f)
+        runs.append(dict(value=v, chain_device_ms=r["chain_device_ms"]))
+        log(f"{constant} = {v}: device ms " + ", ".join(
+            f"{n} {fmt_ms(t)}" for n, t in r["chain_device_ms"].items()
+            if n.startswith("aggregate")))
+    with open(os.path.join(OUT_DIR, f"sweep_{constant}.json"), "w") as f:
+        json.dump(runs, f, indent=1, default=str)
+
+
+def ab_worker(tree, out, mode="full"):
     """One A/B run: ``tree``'s package and ``chip_smoke.py`` phases, then
-    this file's stage tables and host times; writes JSON to ``out``."""
+    this file's stage tables and host times; writes JSON to ``out``.
+    ``mode`` "chain" runs ``chain_device_ms`` at the workload's read
+    length alone."""
     import importlib.util
 
     import torch
@@ -1730,6 +1918,11 @@ def ab_worker(tree, out):
     spec.loader.exec_module(t)
     card = t.phase_identify(torch)
     world = t.load_world(torch)
+    if mode == "chain":
+        with open(out, "w") as f:
+            json.dump(dict(tree=tree, card=card, chain_device_ms=(
+                chain_device_ms(torch, world, world["L"]))), f, default=str)
+        return
     t.phase_kernels(torch, world)
     t.phase_gather(torch, world)
     from umgap_tpu_torch.pipeline.fused import PRESETS

@@ -269,3 +269,132 @@ def test_ancestry_epilogue_matches_jax(world, K):
         gather.ancestry(geom.lin, geom.depth, torch.from_numpy(utaxa),
                         geom.valid).numpy(), want)
     assert want.any()
+
+
+def _chain_taxonomies(n=30):
+    """Every taxon on one path: taxon i's parent is i - 1."""
+    def taxa(cls):
+        return [cls(i, f"t{i}", jranks.NO_RANK, max(1, i - 1), True)
+                for i in range(1, n + 1)]
+
+    return JTaxonomy(taxa(JTaxon)), ptaxonomy.Taxonomy(taxa(ptaxonomy.Taxon))
+
+
+def _filtered_hits(jtax, B, K, seed):
+    """Hit lists as the pipeline hands them to the aggregator: ascending
+    distinct ids with I32_MAX padding, groups of 0, 1, 2, 3, all K (as far
+    as the taxonomy has ids) and a random count of valid slots; in every
+    third group some slots are filtered out (invalid, id kept)."""
+    rng = np.random.default_rng(seed)
+    ids = np.flatnonzero(jtax.present & (jtax.depth >= 0))
+    leaves = rng.choice(ids, size=min(len(ids), 12), replace=False)
+    lineage = np.unique(jtax.anc_table[leaves][jtax.anc_table[leaves] > 0])
+    utaxa = np.full((B, K), np.iinfo(np.int32).max, np.int32)
+    ucounts = np.zeros((B, K), np.float32)
+    uvalid = np.zeros((B, K), bool)
+    for b in range(B):
+        m = (0, 1, 2, 3, K, int(rng.integers(0, K + 1)))[b % 6]
+        pool = lineage if m <= len(lineage) else ids
+        sel = np.sort(rng.choice(pool, size=min(m, len(pool)),
+                                 replace=False))
+        utaxa[b, :len(sel)] = sel
+        ucounts[b, :len(sel)] = rng.integers(1, 7, size=len(sel))
+        uvalid[b, :len(sel)] = True
+        if b % 3 == 2:
+            uvalid[b] &= rng.random(K) < 0.7
+    return utaxa, ucounts, uvalid
+
+
+_WORLDS = {"fixture": _fixture_taxonomies, "bench": _bench_taxonomies,
+           "chain": _chain_taxonomies}
+
+
+@pytest.mark.parametrize("world", ["fixture", "bench", "chain"])
+@pytest.mark.parametrize("K", [4, 64, 408])
+@pytest.mark.parametrize("strategy", ["hybrid", "lca*", "mrtl"])
+def test_tree_aggregate_hits_matches_jax(world, K, strategy):
+    """K6's hits entry (its plain version on the CPU) against the JAX
+    aggregator over the JAX hit_geometry, with empty groups and groups
+    whose every slot is valid; the dispatch and the HitGeometry entry
+    give the same taxa."""
+    jtax, _ = _WORLDS[world]()
+    B = 12 if K > 64 else 48
+    utaxa, ucounts, uvalid = _filtered_hits(jtax, B, K, K + len(world))
+    assert not uvalid[0].any() and uvalid[4, :min(K, 3)].all()
+    dx, px = _carried(jtax)
+    jg = jagg.hit_geometry(dx, utaxa, uvalid)
+    u, c, v = (torch.from_numpy(x) for x in (utaxa, ucounts, uvalid))
+    for factor in ((0.25, 0.5, 1.0) if strategy == "hybrid" else (0.25,)):
+        if strategy == "hybrid":
+            want = jagg.tree_mix_batch(dx, jg, utaxa, ucounts, factor)
+        elif strategy == "lca*":
+            want = jagg.tree_lca_batch(dx, jg, utaxa)
+        else:
+            want = jagg.rtl_batch(dx, jg, utaxa, ucounts)
+        got = pagg.tree_aggregate_hits(strategy, px, u, c, v, factor)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        method = "rmq" if strategy == "mrtl" else "tree"
+        assert torch.equal(pagg.aggregate_batch(px, u, c, v, method,
+                                                strategy, factor), got)
+        pg = pagg.hit_geometry(px, u, v, strategy != "hybrid")
+        assert torch.equal(pagg.tree_aggregate(strategy, px, pg, u, c,
+                                               factor), got)
+
+
+def test_tree_path_by_valid_count():
+    """K6 walks a group of up to TREE_THREAD_CAP valid hits with one
+    thread (the bench's 1-3 among them) and a larger one with a warp;
+    the limit is the kernel's own."""
+    import re
+    from pathlib import Path
+
+    src = (Path(pagg.__file__).parents[1] / "csrc" /
+           "tree_aggregate.cu").read_text()
+    cap = int(re.search(r"constexpr int kThreadCap = (\d+);", src)[1])
+    assert pagg.TREE_THREAD_CAP == cap
+    for n in (0, 1, 3, cap):
+        assert pagg.tree_path(n) == "thread"
+    assert pagg.tree_path(cap + 1) == "warp"
+    assert pagg.tree_path(648) == "warp"
+
+
+@pytest.mark.parametrize("strategy", ["hybrid", "lca*", "mrtl"])
+def test_tree_aggregate_hits_edge_cases_match_jax(strategy):
+    """The fused entry's edge cases on the fixture taxonomy (root 1;
+    2, 10239, 12884 below it; 185751, 185752 below 12884): no valid slot
+    (hybrid gives the root, mrtl I32_MAX, lca* its fallback on slot 0's
+    row, table row 0), filtered-out slots that keep real ids, siblings
+    that all end at the same depth (ties to the smallest branch), one
+    valid slot."""
+    jtax, _ = _fixture_taxonomies()
+    dx, px = _carried(jtax)
+    big = np.iinfo(np.int32).max
+    rows = [([big] * 4, [0] * 4, [False] * 4),
+            ([2, 10239, 12884, big], [3, 2, 1, 0], [False] * 4),
+            ([2, 10239, 12884, big], [1, 1, 1, 0], [True] * 3 + [False]),
+            ([185751, 185752, big, big], [2, 2, 0, 0],
+             [True, True, False, False]),
+            ([12884, 185751, 185752, big], [1, 3, 3, 0], [True] * 3 + [False]),
+            ([10239, big, big, big], [4, 0, 0, 0], [True] + [False] * 3)]
+    utaxa = np.array([r[0] for r in rows], np.int32)
+    ucounts = np.array([r[1] for r in rows], np.float32)
+    uvalid = np.array([r[2] for r in rows], bool)
+    jg = jagg.hit_geometry(dx, utaxa, uvalid)
+    u, c, v = (torch.from_numpy(x) for x in (utaxa, ucounts, uvalid))
+    for factor in (0.25, 0.5, 1.0):
+        if strategy == "hybrid":
+            want = jagg.tree_mix_batch(dx, jg, utaxa, ucounts, factor)
+        elif strategy == "lca*":
+            want = jagg.tree_lca_batch(dx, jg, utaxa)
+        else:
+            want = jagg.rtl_batch(dx, jg, utaxa, ucounts)
+        got = pagg.tree_aggregate_hits(strategy, px, u, c, v, factor)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        if strategy == "hybrid":
+            assert got[0] == got[1] == jtax.root
+            assert got[2] == (2 if factor <= 1 / 3 else jtax.root)
+            assert got[3] == (185751 if factor <= 0.5 else 12884)
+        elif strategy == "mrtl":
+            assert got[0] == got[1] == big
+        assert got[5] == 10239

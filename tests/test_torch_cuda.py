@@ -356,3 +356,195 @@ def test_lane_gather_kernel_64bit_counters(dev):
     want = (torch.arange(G, device=dev)[:, None, None] * (S * W)
             + rows.long() * W + torch.arange(W, device=dev)).to(torch.int32)
     assert torch.equal(got, want)
+
+
+def _bench_tree():
+    """The tracked .bench_data taxonomy (20,000 taxa, depth 25)."""
+    import os
+
+    data = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".bench_data")
+    parent = np.fromfile(os.path.join(data, "parent.bin"), np.int32)
+    snap = np.fromfile(os.path.join(data, "snap.bin"), np.int32)
+    return Taxonomy([Taxon(i, f"t{i}", ranks.NO_RANK if i % 3 else 14,
+                           int(parent[i]), bool(snap[i] == i))
+                     for i in range(1, len(parent))])
+
+
+def _chain_tree(n=40):
+    """Every taxon on one path (taxon i's parent is i - 1)."""
+    return Taxonomy([Taxon(i, f"t{i}", ranks.NO_RANK, max(1, i - 1), True)
+                     for i in range(1, n + 1)])
+
+
+_K6_TREES = {"random": lambda: _random_tree(3000, 9), "bench": _bench_tree,
+             "chain": _chain_tree}
+
+
+def _k6_hits(tax, B, K, seed):
+    """Filtered hit lists: groups of 0, 1, 2, 3, 16 and 17 (the thread
+    path's limit and one past it), all K and a random count of valid
+    slots, ids ascending from a few lineages (so trees branch) with
+    I32_MAX in the unused slots; every third group has slots filtered out
+    (invalid, id kept), every fifth a repeated id."""
+    rng = np.random.default_rng(seed)
+    ids = np.flatnonzero(tax.depth >= 1)
+    leaves = rng.choice(ids, size=min(len(ids), 12), replace=False)
+    lineage = np.unique(tax.anc_table[leaves][tax.anc_table[leaves] > 0])
+    utaxa = np.full((B, K), np.iinfo(np.int32).max, np.int32)
+    ucounts = np.zeros((B, K), np.float32)
+    uvalid = np.zeros((B, K), bool)
+    for b in range(B):
+        m = min(K, (0, 1, 2, 3, 16, 17, K, int(rng.integers(0, K + 1)))[b % 8])
+        pool = lineage if m <= len(lineage) else ids
+        sel = np.sort(rng.choice(pool, size=min(m, len(pool)),
+                                 replace=False))
+        utaxa[b, :len(sel)] = sel
+        ucounts[b, :len(sel)] = rng.integers(1, 7, size=len(sel))
+        uvalid[b, :len(sel)] = True
+        if b % 3 == 2:
+            uvalid[b] &= rng.random(K) < 0.7
+        if b % 5 == 4 and len(sel) > 2:
+            utaxa[b, 1] = utaxa[b, 2]
+    return utaxa, ucounts, uvalid
+
+
+def _k6_check(dtax, u, c, v, factors=(0.25, 0.5, 1.0)):
+    """Both K6 entries, all strategies, against their plain versions;
+    one launch a call."""
+    geom = pagg.hit_geometry(dtax, u, v)
+    for strategy in ("hybrid", "lca*", "mrtl"):
+        for factor in factors if strategy == "hybrid" else factors[:1]:
+            before = kernels.K6.launches
+            got = pagg.tree_aggregate_hits(strategy, dtax, u, c, v, factor)
+            assert kernels.K6.launches == before + 1
+            want = pagg.tree_aggregate_hits_plain(strategy, dtax, u, c, v,
+                                                  factor)
+            assert got.dtype == torch.int32 and torch.equal(got, want)
+            on_geom = pagg.tree_aggregate(strategy, dtax, geom, u, c, factor)
+            assert torch.equal(on_geom, pagg.tree_aggregate_plain(
+                strategy, dtax, geom, u, c, factor))
+            assert torch.equal(on_geom, got)
+
+
+@pytest.mark.parametrize("world", ["random", "bench", "chain"])
+@pytest.mark.parametrize("K", [4, 64, 408, 648])
+def test_tree_aggregate_hits_kernel(dev, world, K):
+    """K6's hits entry and its HitGeometry entry at the main width, the
+    wide program's (408, 648) and a small one, for all three strategies
+    and factors 0.25 / 0.5 / 1.0, over two seeds: groups of 0, 1, 2-3,
+    16-17 and all valid slots, I32_MAX ids in invalid slots."""
+    tax = _K6_TREES[world]()
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    B = 300 if K > 64 else 1000
+    for seed in (K, K + 1):
+        u, c, v = (torch.from_numpy(x).to(dev)
+                   for x in _k6_hits(tax, B, K, seed))
+        assert not v[0].any() and v[6].sum() >= min(K, 18)
+        _k6_check(dtax, u, c, v)
+
+
+@pytest.mark.parametrize("K,B,full", [(64, 777, False), (64, 100, True),
+                                      (648, 65, False), (2000, 40, False)])
+def test_tree_aggregate_thread_mapping(dev, K, B, full):
+    """Every path of the thread mapping: hybrid's walk in registers (up
+    to 4 valid hits), the thread path (up to 16), the warp path (17 and
+    more) with a block's larger groups dealt out to its warps, in blocks
+    of mixed groups and in blocks whose every group is full, fewer warps
+    a block where a wide K's lists need it (K = 2000), and group counts
+    no multiple of a block's 32."""
+    tax = _bench_tree()
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    if full:
+        rng = np.random.default_rng(B)
+        ids = np.flatnonzero(tax.depth >= 1)
+        hits = (np.sort(rng.choice(ids, size=(B, K)), axis=1).astype(
+            np.int32), rng.integers(1, 7, size=(B, K)).astype(np.float32),
+            np.ones((B, K), bool))
+    else:
+        hits = _k6_hits(tax, B, K, K + B)
+    u, c, v = (torch.from_numpy(x).to(dev) for x in hits)
+    _k6_check(dtax, u, c, v, factors=(0.25, 1.0))
+
+
+def test_tree_aggregate_hits_allocates_only_its_output(dev):
+    """The hits entry builds no (B, K, D) rows and no (B, K, K)
+    incidence: the only allocation is the (B,) result."""
+    tax = _bench_tree()
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    B, K = 16384, 64
+    u, c, v = (torch.from_numpy(x).to(dev) for x in _k6_hits(tax, B, K, 3))
+    for strategy in ("hybrid", "lca*", "mrtl"):
+        pagg.tree_aggregate_hits(strategy, dtax, u, c, v)  # build, warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = pagg.tree_aggregate_hits(strategy, dtax, u, c, v)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - base <= 4 * B + 512
+        del out
+
+
+@pytest.mark.parametrize("preset", ["high-sensitivity", "high-precision",
+                                    "max-precision", "max-sensitivity"])
+def test_tree_presets_launch_k6_once_a_batch(dev, preset):
+    """run_stages of the tree aggregators on the card: one K6 launch a
+    batch, K5 only for snap's take, no ancestry epilogue; taxa equal to
+    the plain path's."""
+    from umgap_tpu_torch.pipeline.fused import PRESETS, run_stages
+
+    tax = _random_tree(3000, 4)
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    rng = np.random.default_rng(8)
+    B, E, L = 96, 2, 100
+    codes = rng.integers(0, 4, size=(B * E, L)).astype(np.uint8)
+    lens = np.full((B, E), L, np.int32)
+    hi, lo, wv, _ = translate.reads_to_kmers_plain(
+        torch.from_numpy(codes), torch.from_numpy(lens.reshape(-1)), L,
+        encoding.get_table(1), 9, packed=False)
+    # every 9-mer of two reads in three maps to one taxon of its read, so
+    # seeds form and groups hold one or two taxa
+    keys = ((hi.numpy().astype(np.uint64) << np.uint64(25))
+            | lo.numpy().astype(np.uint64))
+    per_read = rng.integers(2, 3001, size=(B * E, 1, 1)).astype(np.int32)
+    hit = wv.numpy() & (np.arange(B * E) % 3 != 0)[:, None, None]
+    keys, first = np.unique(keys[hit], return_index=True)
+    vals = np.broadcast_to(per_read, hi.shape)[hit][first]
+    dtable = lookup.DeviceTable.from_host(build_kmer_table(keys, vals, 9),
+                                          dev)
+    cfg = PRESETS[preset]
+    reads = torch.from_numpy(codes).to(dev)
+    lt = torch.from_numpy(lens).to(dev)
+    before = kernels.launch_counts()
+    for _ in range(2):
+        got = run_stages(reads, lt, L, False, dtax, dtable, cfg)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["tree_aggregate"] - before["tree_aggregate"] == 2
+    assert after["lane_gather"] - before["lane_gather"] == 2  # snap
+    assert after["lane_gather_ancestry"] == before["lane_gather_ancestry"]
+    want = run_stages(reads, lt, L, False, dtax, dtable, cfg, plain=True)
+    assert torch.equal(got, want)
+    assert (got != 1).any()  # some groups were assigned
+
+
+def test_tree_aggregate_refuses_bad_inputs(dev):
+    """The wrappers refuse what the kernel cannot take: hit lists that do
+    not match the geometry, wrong dtypes, hit lists too wide for one
+    warp's list in shared memory."""
+    tax = _random_tree(300, 2)
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    u, c, v = (torch.from_numpy(x).to(dev)
+               for x in _k6_hits(tax, 40, 8, 1))
+    geom = pagg.hit_geometry(dtax, u, v)
+    with pytest.raises(ValueError):
+        pagg.tree_aggregate("hybrid", dtax, geom, u[:, :7].contiguous(),
+                            c[:, :7].contiguous())
+    with pytest.raises(ValueError):
+        pagg.tree_aggregate_hits("mrtl", dtax, u, c.double(), v)
+    with pytest.raises(ValueError):
+        pagg.tree_aggregate_hits("hybrid", dtax, u, None, v)
+    wide = torch.zeros((2, 12000), dtype=torch.int32, device=dev)
+    with pytest.raises(kernels.KernelLaunchError):
+        pagg.tree_aggregate_hits("lca*", dtax, wide, None,
+                                 torch.ones_like(wide, dtype=torch.bool))

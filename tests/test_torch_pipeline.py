@@ -28,6 +28,7 @@ from umgap_tpu.pipeline.runner import Analyser as JAnalyser
 from umgap_tpu.taxonomy import Taxon, Taxonomy, fixture_taxa
 from umgap_tpu_torch import convert, kernels
 from umgap_tpu_torch import taxonomy as ptaxonomy
+from umgap_tpu_torch.agg import device as pagg
 from umgap_tpu_torch.ops import encoding as penc
 from umgap_tpu_torch.ops import gather
 from umgap_tpu_torch.ops import seedextend as pseedextend
@@ -125,7 +126,9 @@ def _run_stages(toy, cfg, plain):
 
 def test_plain_stages_call_no_wrapper(toy, monkeypatch):
     """run_stages(plain=True) reaches the plain versions only, through the
-    one switch, and leaves it off; the kernel path calls the wrappers."""
+    one switch, and leaves it off; the kernel path calls the wrappers:
+    the tree aggregator through its hits entry, which builds no
+    geometry (no row gather, no ancestry epilogue)."""
     calls = []
 
     def spy(module, name):
@@ -141,12 +144,17 @@ def test_plain_stages_call_no_wrapper(toy, monkeypatch):
     spy(ptranslate, "reads_to_kmers")
     spy(pseedextend, "seedextend_hits")
     spy(pseedextend, "seedextend_mask_batch")
+    spy(pagg, "tree_aggregate_hits")
+    spy(pagg, "tree_aggregate")
     cfg = PRESETS["max-sensitivity"]
     want = _run_stages(toy, cfg, plain=False)
-    assert {"take", "gather_rows", "ancestry", "reads_to_kmers",
-            "seedextend_hits"} <= set(calls)
+    assert {"take", "reads_to_kmers", "seedextend_hits",
+            "tree_aggregate_hits"} <= set(calls)
+    assert calls.count("tree_aggregate_hits") == 1
     # the hits come from the one entry: no keep mask on the kernel path
     assert "seedextend_mask_batch" not in calls
+    # K6 reads the rows itself: no geometry between the filter and snap
+    assert not {"gather_rows", "ancestry", "tree_aggregate"} & set(calls)
     calls.clear()
     got = _run_stages(toy, cfg, plain=True)
     assert calls == [] and not kernels.plain_selected()
@@ -156,15 +164,20 @@ def test_plain_stages_call_no_wrapper(toy, monkeypatch):
 def test_hybrid_skips_the_ancestry_gather(toy, monkeypatch):
     """Tree hybrid never reads is_anc, so its step makes no (B, K, K)
     ancestry gather or epilogue; its taxa are those of the full
-    geometry."""
+    geometry. Its aggregator is one call of the hits entry."""
     calls = []
     for name in ("lane_gather", "ancestry"):
         fn = getattr(gather, name)
         monkeypatch.setattr(gather, name, lambda *a, fn=fn, **kw: (
             calls.append(1), fn(*a, **kw))[1])
+    hits = []
+    fn = pagg.tree_aggregate_hits
+    monkeypatch.setattr(pagg, "tree_aggregate_hits", lambda *a, **kw: (
+        hits.append(a[0]), fn(*a, **kw))[1])
     cfg = PRESETS["high-sensitivity"]
     got = _run_stages(toy, cfg, plain=False)
     assert calls == []
+    assert hits == ["hybrid"]
     pt, px = toy["state"]
     dna, lengths = toy["dna"], toy["lengths"]
     want = jstep(dna, lengths, toy["dx"], toy["dt"], JPRESETS[cfg.name])

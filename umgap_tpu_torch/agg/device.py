@@ -1,7 +1,10 @@
 """Batched per-read aggregation: kernel K4 (``csrc/dedup_counts.cu``) for
-the dedup/count, K5 (``ops/gather.py``) for every table gather of the
+the dedup/count, K5 (``ops/gather.py``) for the table gathers of the
 stage, and K6 (``csrc/tree_aggregate.cu``) for the tree aggregators,
-each beside its plain PyTorch version (``umgap_tpu.agg.device``).
+each beside its plain PyTorch version (``umgap_tpu.agg.device``). On the
+pipeline's path K6 reads the taxonomy rows of a group's valid hits
+itself (:func:`tree_aggregate_hits`), so no :class:`HitGeometry` is
+built there.
 
 Every read in a batch carries a fixed-width list of (taxon, count) hits;
 tree relations are answered by gathers from the device-resident
@@ -29,6 +32,9 @@ from ..taxonomy import NONE, Taxonomy
 I32_MAX = int(np.iinfo(np.int32).max)
 MAX_DEDUP_N = 16384  # hits per row the kernel sorts in shared memory
 WARP_DEDUP_N = 1024  # up to here one warp owns a row; above, a block
+# K6 walks a group of up to this many valid hits with one thread, a
+# larger one with a warp (kThreadCap in csrc/tree_aggregate.cu)
+TREE_THREAD_CAP = 16
 
 
 class DeviceTaxonomy:
@@ -324,47 +330,84 @@ def tree_aggregate_plain(strategy: str, dtax: DeviceTaxonomy,
     return tree_mix_plain(dtax, geom, utaxa, ucounts, factor)
 
 
+def tree_path(n_valid: int) -> str:
+    """K6's path for a group of ``n_valid`` valid hits: ``"thread"`` (one
+    thread walks the group) up to :data:`TREE_THREAD_CAP`, ``"warp"``
+    (a warp compacts and walks it) above. The kernel chooses per group
+    from its mask."""
+    return "thread" if n_valid <= TREE_THREAD_CAP else "warp"
+
+
 def tree_aggregate(strategy: str, dtax: DeviceTaxonomy, geom: HitGeometry,
                    utaxa, ucounts=None, factor: float = 0.25):
-    """The tree aggregators on a :class:`HitGeometry`, (B,) int32:
-    ``strategy`` is ``"hybrid"`` (with ``factor``), ``"lca*"`` or
-    ``"mrtl"``; hybrid and mrtl need ``ucounts``.
+    """The tree aggregators on a :class:`HitGeometry` (this batch's
+    :func:`hit_geometry`), (B,) int32: ``strategy`` is ``"hybrid"`` (with
+    ``factor``), ``"lca*"`` or ``"mrtl"``; hybrid and mrtl need
+    ``ucounts``.
 
-    CPU tensors take :func:`tree_aggregate_plain`; CUDA tensors launch K6
-    (one warp per read group; any K, the wide program's included)."""
+    CPU tensors take :func:`tree_aggregate_plain` on the geometry; CUDA
+    tensors run :func:`tree_aggregate_hits` on its valid mask, which
+    reads the same rows from the table."""
     if utaxa.device.type == "cpu":
         return tree_aggregate_plain(strategy, dtax, geom, utaxa, ucounts,
                                     factor)
-    code = TREE_STRATEGIES[strategy]
-    lin = geom.lin
-    B, K, D = lin.shape
-    if K == 0 or D == 0:
-        raise ValueError("tree_aggregate: empty hit lists or lineages")
-    if lin.dtype != torch.int32 or lin.stride(2) != 1 or \
-            lin.device != utaxa.device:
-        raise ValueError("tree_aggregate: lin must be int32 on the "
-                         "device of utaxa with adjacent depths")
+    return tree_aggregate_hits(strategy, dtax, utaxa, ucounts, geom.valid,
+                               factor)
+
+
+def tree_aggregate_hits_plain(strategy: str, dtax: DeviceTaxonomy, utaxa,
+                              ucounts, uvalid, factor: float = 0.25):
+    """Plain version of :func:`tree_aggregate_hits`: the plain
+    :func:`hit_geometry` (with the ancestry test for lca* and mrtl), then
+    :func:`tree_aggregate_plain`."""
+    with kernels.plain_versions():
+        geom = hit_geometry(dtax, utaxa, uvalid, strategy != "hybrid")
+        return tree_aggregate_plain(strategy, dtax, geom, utaxa, ucounts,
+                                    factor)
+
+
+def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
+                        uvalid, factor: float = 0.25):
+    """The tree aggregators on a batch's filtered hit lists, (B,) int32:
+    utaxa (B, K) int32, ucounts (B, K) float32 (unused by lca*, may be
+    None) and uvalid (B, K) bool. Equal to
+    ``tree_aggregate_plain(strategy, dtax, hit_geometry(dtax, utaxa,
+    uvalid, strategy != "hybrid"), utaxa, ucounts, factor)``.
+
+    CPU tensors take :func:`tree_aggregate_hits_plain`; CUDA tensors
+    launch K6 once, which reads the valid hits' rows of ``dtax.geom``
+    itself: no (B, K, D) or (B, K, K) tensor is built."""
+    if utaxa.is_cpu:
+        return tree_aggregate_hits_plain(strategy, dtax, utaxa, ucounts,
+                                         uvalid, factor)
+    geom = dtax.geom
+    size, W = geom.shape
+    if utaxa.dim() != 2 or utaxa.shape[1] == 0 or W < 2:
+        raise ValueError("tree_aggregate_hits: empty hit lists or "
+                         "lineages")
+    if geom.dtype != torch.int32 or not geom.is_contiguous():
+        raise ValueError("tree_aggregate_hits: dtax.geom must be "
+                         "contiguous int32")
     if ucounts is None and strategy != "lca*":
-        raise ValueError(f"tree_aggregate: {strategy} needs ucounts")
-    want = [(geom.depth, torch.int32, (B, K)),
-            (geom.valid, torch.bool, (B, K)), (utaxa, torch.int32, (B, K))]
-    if strategy != "hybrid":
-        want.append((geom.is_anc, torch.bool, (B, K, K)))
+        raise ValueError(f"tree_aggregate_hits: {strategy} needs ucounts")
+    B, K = utaxa.shape
+    want = [(uvalid, torch.bool), (utaxa, torch.int32)]
     if ucounts is not None:
-        want.append((ucounts, torch.float32, (B, K)))
-    for t, dt, shape in want:
-        if t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"tree_aggregate: {tuple(t.shape)} {t.dtype}, "
-                             f"expected {shape} {dt}")
-    kernels.check_cuda("tree_aggregate", *(t for t, _, _ in want))
+        want.append((ucounts, torch.float32))
+    for t, dt in want:
+        if t.dtype != dt or tuple(t.shape) != (B, K):
+            raise ValueError(f"tree_aggregate_hits: {tuple(t.shape)} "
+                             f"{t.dtype}, expected {(B, K)} {dt}")
+    kernels.check_cuda("tree_aggregate", *(t for t, _ in want))
+    if geom.device != utaxa.device:
+        raise ValueError(f"tree_aggregate_hits: tensors on {geom.device} "
+                         f"and {utaxa.device}")
     out = torch.empty((B,), dtype=torch.int32, device=utaxa.device)
     kernels.K6.launch(
-        code, lin.data_ptr(), lin.stride(0), lin.stride(1),
-        geom.depth.data_ptr(),
-        geom.is_anc.data_ptr() if strategy != "hybrid" else 0,
-        ucounts.data_ptr() if ucounts is not None else 0,
-        geom.valid.data_ptr(), utaxa.data_ptr(), B, K, D, dtax.root,
-        float(factor), out.data_ptr(), kernels.stream_of(utaxa))
+        TREE_STRATEGIES[strategy], geom.data_ptr(), size, W,
+        0 if ucounts is None else ucounts.data_ptr(), uvalid.data_ptr(),
+        utaxa.data_ptr(), B, K, dtax.root, float(factor), out.data_ptr(),
+        kernels.stream_of(utaxa))
     return out
 
 
@@ -397,7 +440,7 @@ def snap_batch(snapping: torch.Tensor, taxa: torch.Tensor, default: int = 0):
 
 
 # taxa2agg's device matrix (src/commands/taxa2agg.rs:111-140); the first
-# three aggregate over a HitGeometry
+# three are K6's tree aggregators
 GEOMETRY_AGGREGATIONS = (("tree", "lca*"), ("tree", "hybrid"),
                          ("rmq", "mrtl"))
 SUPPORTED_AGGREGATIONS = GEOMETRY_AGGREGATIONS + (("rmq", "lca*"),
@@ -406,12 +449,11 @@ SUPPORTED_AGGREGATIONS = GEOMETRY_AGGREGATIONS + (("rmq", "lca*"),
 
 def aggregate_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
                     method: str, strategy: str, factor: float = 0.25,
-                    euler=None, geom: HitGeometry | None = None):
+                    euler=None):
     """taxa2agg's dispatch over the full matrix
     (src/commands/taxa2agg.rs:111-140). ``rmq``/``lca*`` needs a
-    :class:`~umgap_tpu_torch.agg.device_rmq.DeviceEuler`. ``geom``, when
-    given, is this batch's :func:`hit_geometry` (with the ancestry test
-    where :func:`needs_ancestry`)."""
+    :class:`~umgap_tpu_torch.agg.device_rmq.DeviceEuler`. The tree
+    aggregators run :func:`tree_aggregate_hits` on the hit lists."""
     key = (method, strategy)
     if key == ("rmq", "lca*"):
         from .device_rmq import rmq_lca_batch
@@ -426,10 +468,7 @@ def aggregate_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
     if key not in GEOMETRY_AGGREGATIONS:
         raise ValueError(
             f"device aggregation does not support {method}/{strategy}")
-    if geom is None:
-        geom = hit_geometry(dtax, utaxa, uvalid,
-                            needs_ancestry(method, strategy))
     strat = "mrtl" if method == "rmq" else strategy
-    agg = (tree_aggregate_plain if kernels.plain_selected()
-           else tree_aggregate)
-    return agg(strat, dtax, geom, utaxa, ucounts, factor)
+    agg = (tree_aggregate_hits_plain if kernels.plain_selected()
+           else tree_aggregate_hits)
+    return agg(strat, dtax, utaxa, ucounts, uvalid, factor)

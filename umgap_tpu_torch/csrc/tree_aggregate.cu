@@ -1,57 +1,75 @@
 // K6 tree_aggregate: the per-read tree aggregators over a read group's
 // deduplicated hit list, one kernel templated on the strategy:
 //   hybrid (tree::mix, factor f), lca* (tree::lca) and mrtl (rmq::rtl).
+// A slot's lineage is the row of dtax.geom, (size, 1 + D) = [depth |
+// ancestors], at clamp(id, 0, size - 1), read by the kernel itself; the
+// ancestry test is computed from the rows.
 //
-// Replaces the plain PyTorch tail of umgap_tpu/agg/device.py:219-305
-// (tree_lca_batch, rtl_batch, tree_mix_batch with _argmax_tiebreak,
-// :202-212), which the JAX package runs as XLA ops over the whole batch
-// and the port's plain version as 25 depth steps of (B, K, K)
-// compare-and-sum launches for hybrid.
+// Replaces umgap_tpu/agg/device.py:219 tree_lca_batch, :243 rtl_batch and
+// :253 tree_mix_batch (with _argmax_tiebreak) over :170 hit_geometry,
+// whose row gather and ancestry compare the JAX package runs as XLA ops
+// over the whole (B, K, D) and (B, K, K) tensors. The port builds
+// neither: the kernel reads the rows of the valid slots.
 //
-// Inputs per read group b (K hit slots, D depths): lin (B, K, D) int32
-// ancestor rows (any group and slot strides, depths adjacent), depth
-// (B, K), is_anc (B, K, K) bool ([b, i, j]: slot i is an ancestor-or-
-// self of slot j; hybrid does not read it), counts (B, K) float32 (lca*
-// does not read them), valid (B, K) bool, utaxa (B, K) int32, all
-// contiguous. Output (B,) int32.
-//
-// Semantics kept exactly (device.py:202-305):
+// Semantics kept exactly (the plain versions in agg/device.py):
 //   hybrid: from the root, descend over D - 1 depths; at depth d the
 //     slots below x are the valid ones with lin[d] == x and a depth-(d+1)
-//     ancestor (the branch); a branch's sum is the counts of all slots
-//     sharing it; with several branches the heaviest (ties: smallest
+//     ancestor (the branch); a branch's sum is the counts of the valid
+//     slots sharing it; with several branches the heaviest (ties: smallest
 //     branch id) is taken unless (maxsum / a_base) < factor in float32,
 //     a division as written there, and a_base becomes maxsum; a single
 //     branch is descended with no factor test; no slot below stops.
 //   lca*: if some valid slot j has every valid slot as an ancestor-or-
 //     self (a dominated chain), the deepest such j (first on ties);
 //     else the ancestor at the deepest depth where all valid lineages
-//     agree with the first valid one (depth 0 when none).
+//     agree with the first valid one's (slot 0's when none is valid;
+//     depth 0 when no depth agrees).
 //   mrtl: score of j = counts of the valid slots that are ancestors-or-
-//     self of j; maximum score, then maximum depth, then minimum id.
-// Counts are summed in float32 in slot order; exact for the path's
-// integer counts (below 2^24), so the order of the plain version's sums
-// does not matter.
+//     self of j; maximum score, then maximum depth, then minimum id; no
+//     valid slot gives I32_MAX.
+//   Slot i is an ancestor-or-self of slot j when lin_j[dep_i] == id_i,
+//   dep_i = max(row_i[0], 0) (K5's ancestry epilogue, ops/gather.py).
+// Counts are summed in float32; exact for the path's integer counts
+// (below 2^24), so the order of the plain version's sums does not matter.
 //
-// Layout. One warp per read group, several groups per block. For
-// hybrid, which reads every lineage column it descends through many
-// times, the group's lineage tile is staged in the warp's part of shared
-// memory transposed to [d][k], so a column lin[:, d] is contiguous and
-// lanes reading their own slots hit distinct banks, while the inner
-// branch-sum loop over k is a broadcast; a tile above 200 KB (K * D
-// large) is read from global memory instead. lca* and mrtl stage only
-// the counts and the valid mask (lca* reads lin only in its fallback,
-// once, from global memory), so their blocks hold 8 warps at any K.
-// Every reduction is a warp shuffle; a block never synchronises. The
-// hybrid descent stops at the first stop; only slots below x compute a
-// branch sum (K reads each). is_anc is read straight from global memory,
-// slot j by lane j % 32 (coalesced), and only where both slots are
-// valid, never staged: at the wide program's K = 648 it is 419,904 bytes,
-// more than a block's 227 KB.
+// What bounds it. Per group the work needs the valid mask (K bytes), the
+// id and count of each valid slot and one lineage row per distinct valid
+// id, and writes 4 bytes. At the bench's 1-3 valid slots of K = 64 that
+// is about 100 bytes a group: 0.5-0.8 us for 16,384 groups at 3.35 TB/s,
+// below what one launch of that many groups takes, so the kernel is held
+// to a measured floor (the same launch on groups with no valid slot)
+// beside its bound. The old kernel staged every group's whole K x D tile
+// and ran one warp a group through every depth at the cost of a branch
+// point.
 //
-// Bound on the H100: hybrid does about (D - 1) * K^2 compares and adds
-// at most, against the bytes of lin plus the counts, valid and output;
-// lca* and mrtl read the valid x valid block of is_anc once.
+// Design. A block owns 32 consecutive groups. Its first warp walks them
+// a thread a group (the thread path): the thread scans its group's valid
+// mask with 16-byte loads, keeps the slots in a per-thread list in shared
+// memory ([entry][lane], so lanes at the same entry hit distinct banks),
+// loads their ids and counts once, and walks its group alone, reading
+// lineage entries of the listed rows only (L1/L2; at most a few hundred
+// bytes a group). All blocks of a 16,384-group batch are resident at
+// once, so a batch takes as long as its slowest walk: hybrid's walk of up
+// to kSmall = 4 slots (the bench's groups) keeps the rows' pointers and
+// two lineage columns in registers and loads the next column a step
+// ahead (hybrid_small), which took the bench batch from 0.023 to 0.008
+// ms, where reading the list and loading a column per slot and step had
+// paid a load's latency at each of 25 steps. A group with more than
+// kThreadCap = 16 valid slots is left to the warp path: after a block
+// barrier the block's kBlockWarps warps deal its such groups out in turn;
+// a warp compacts a group's valid slots with ballots into a shared list
+// (ids, counts, depths) and runs the same algorithms with lanes over the
+// list and warp reductions, the ancestry tests eight independent loads at
+// a time. So a group's work follows its valid slots, not K, the wide
+// program's K = 408 / 648 costs only the longer mask scan, and a batch of
+// full groups keeps four groups a warp (the other warps of a block wait
+// at the barrier while the first walks). The sizes come from sweeps on
+// an H100 (chip_smoke.py sweep_constant, PERF.md): a thread path limit
+// of 4 or 16 gave the bench batch the same time within 5% (0 or 2, which
+// send its groups to the warp path, 1.8-5x as long); of 4, 8 and 16 warps
+// a block, 4 took 1.2-1.5x as long as 8 on batches of 17-64 and
+// of 64 valid hits a group (but for mrtl's full groups, 0.85x), 16 the
+// same as 8 there but 1.8x as long on the bench batch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,7 +83,15 @@ constexpr int32_t I32_MAX = 0x7FFFFFFF;
 constexpr int32_t NONE = -1;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int kHybrid = 0, kLca = 1, kMrtl = 2;
-constexpr int kLinStageMax = 200 * 1024;
+constexpr int kThreadCap = 16;  // most valid slots the thread path walks
+constexpr int kSmall = 4;       // hybrid's walk in registers up to here
+constexpr int kBlockWarps = 8;  // warps sharing a block's larger groups
+constexpr int kAncBatch = 8;    // ancestry tests issued together
+// the block's dynamic shared memory, below the 227 KB a block may hold
+// with its static word
+constexpr size_t kSmemMax = 226 * 1024;
+// the thread path's lists: slot, id, count, depth; kThreadCap x 32 lanes
+constexpr size_t kThreadBytes = (size_t)kThreadCap * 32 * 16;
 
 __device__ __forceinline__ float warp_max_f(float v) {
 #pragma unroll
@@ -88,187 +114,442 @@ __device__ __forceinline__ int warp_max_i(int v) {
   return v;
 }
 
-__host__ __device__ inline size_t align16(size_t n) {
-  return (n + 15) & ~(size_t)15;
+// The taxonomy rows, dtax.geom: size rows of W = 1 + D int32.
+struct Rows {
+  const int32_t* geom;
+  int size, W, D;
+  // the ancestors of id u, at hit_geometry's clamped id (an invalid
+  // slot's row is row 0: lin(0))
+  __device__ __forceinline__ const int32_t* lin(int u) const {
+    return geom + (long long)min(max(u, 0), size - 1) * W + 1;
+  }
+  __device__ __forceinline__ int depth(int u) const {
+    return max(lin(u)[-1], 0);
+  }
+  // slot i (id ui, depth di) an ancestor-or-self of the slot whose
+  // ancestors are lj
+  __device__ __forceinline__ bool anc(int ui, int di,
+                                      const int32_t* lj) const {
+    return lj[min(di, D - 1)] == ui;
+  }
+};
+
+// Shared memory of one warp on the warp path: slot, id, count, depth and
+// lineage column, K entries each.
+__host__ __device__ inline size_t list_bytes(int K) {
+  return ((size_t)K * 20 + 15) & ~(size_t)15;
 }
 
-// per-warp shared memory: c[K] float, sc[K] float, lt[D*K] int32 (when
-// staged), v[K] uint8
-__host__ __device__ inline size_t warp_bytes(int K, int D, bool stage_lin) {
-  return align16((size_t)K * 8 + (stage_lin ? (size_t)K * D * 4 : 0) + K);
-}
-
-template <int STRAT>
-__global__ void tree_kernel(const int32_t* __restrict__ lin, long long lsb,
-                            int lsk, const int32_t* __restrict__ depth,
-                            const uint8_t* __restrict__ is_anc,
-                            const float* __restrict__ counts,
-                            const uint8_t* __restrict__ valid,
-                            const int32_t* __restrict__ utaxa, int B, int K,
-                            int D, int root, float factor, int stage_lin,
-                            int32_t* __restrict__ out) {
-  extern __shared__ unsigned char smem[];
-  const int warps = blockDim.x >> 5;
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x * warps + w;
-  if (b >= B) return;  // whole warps only: b is per warp
-
-  unsigned char* base = smem + (size_t)w * warp_bytes(K, D, stage_lin);
-  float* c = reinterpret_cast<float*>(base);
-  float* sc = c + K;
-  int32_t* lt = reinterpret_cast<int32_t*>(sc + K);
-  uint8_t* v = reinterpret_cast<uint8_t*>(lt + (stage_lin ? K * D : 0));
-
-  const int32_t* lg = lin + (long long)b * lsb;
-  if (stage_lin) {
-    for (int e = lane; e < K * D; e += 32) {
-      const int k = e / D, d = e % D;
-      lt[d * K + k] = lg[(long long)k * lsk + d];
+// The valid slots of one group's mask in slot order: the first `cap`
+// go to list[0], list[stride], ...; stops once more than `cap` are seen.
+// Returns the count seen (cap + 1 at most).
+__device__ __forceinline__ int scan_mask(const uint8_t* row, int K, int cap,
+                                         int* list, int stride) {
+  int n = 0;
+  int k = 0;
+  const int head = (int)((16 - ((uintptr_t)row & 15)) & 15);
+  for (; k < K && k < head; ++k) {
+    if (row[k]) {
+      if (n < cap) list[n * stride] = k;
+      if (++n > cap) return n;
     }
   }
-  for (int k = lane; k < K; k += 32) {
-    const bool vv = valid[(long long)b * K + k] != 0;
-    v[k] = vv;
-    c[k] = vv && counts ? counts[(long long)b * K + k] : 0.0f;
+  for (; k + 16 <= K; k += 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(row + k);
+    const unsigned ws[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      unsigned x = ws[q];
+      while (x) {
+        const int bit = __ffs(x) - 1;
+        if (n < cap) list[n * stride] = k + 4 * q + (bit >> 3);
+        if (++n > cap) return n;
+        x &= ~(0xFFu << (bit & ~7));
+      }
+    }
   }
-  __syncwarp();
-  auto LIN = [&](int d, int k) -> int32_t {
-    return stage_lin ? lt[d * K + k] : lg[(long long)k * lsk + d];
-  };
+  for (; k < K; ++k) {
+    if (row[k]) {
+      if (n < cap) list[n * stride] = k;
+      if (++n > cap) return n;
+    }
+  }
+  return n;
+}
 
+// ---- hybrid on the thread path for a group of n <= kSmall slots: the
+// rows' pointers, counts and two lineage columns live in registers
+// (every loop over the slots unrolled), and the next column's loads are
+// issued a step ahead, so a depth step costs ALU work, not a load's
+// latency per slot. The same steps as thread_group's hybrid.
+__device__ int hybrid_small(const Rows& src, int n, const int* tu,
+                            const float* tc, int root, float factor) {
+  const int D = src.D;
+  const int32_t* p[kSmall];
+  float c[kSmall];
+  int32_t cur[kSmall], nxt[kSmall];
+  float a_base = 0.0f;
+#pragma unroll
+  for (int e = 0; e < kSmall; ++e) {
+    p[e] = e < n ? src.lin(tu[e * 32]) : nullptr;
+    c[e] = e < n ? tc[e * 32] : 0.0f;
+    a_base += c[e];  // slot order; the padding adds 0
+    cur[e] = e < n ? p[e][0] : NONE;
+    nxt[e] = e < n && D > 1 ? p[e][1] : NONE;
+  }
+  int x = root;
+  for (int d = 0; d + 1 < D; ++d) {
+    int32_t ahead[kSmall];
+#pragma unroll
+    for (int e = 0; e < kSmall; ++e)
+      ahead[e] = e < n && d + 2 < D ? p[e][d + 2] : NONE;
+    bool below[kSmall];
+    bool any = false;
+    int bmin = I32_MAX, bmax = -1;  // as the plain version's
+#pragma unroll
+    for (int e = 0; e < kSmall; ++e) {
+      below[e] = nxt[e] != NONE && cur[e] == x;
+      if (below[e]) {
+        any = true;
+        bmin = min(bmin, nxt[e]);
+        bmax = max(bmax, nxt[e]);
+      }
+    }
+    if (!any) break;  // nothing below x: stop
+    if (bmin == bmax) {  // one branch: descend, no factor test
+      x = bmin;
+    } else {
+      float mx = -INFINITY;
+      int best = I32_MAX;
+#pragma unroll
+      for (int e = 0; e < kSmall; ++e) {
+        if (!below[e]) continue;
+        float s = 0.0f;
+#pragma unroll
+        for (int f = 0; f < kSmall; ++f)
+          if (f < n && nxt[f] == nxt[e]) s += c[f];
+        if (s > mx || (s == mx && nxt[e] < best)) {
+          mx = s;
+          best = nxt[e];
+        }
+      }
+      if ((mx / a_base) < factor) break;  // the heaviest share is too low
+      x = best;
+      a_base = mx;
+    }
+#pragma unroll
+    for (int e = 0; e < kSmall; ++e) {
+      cur[e] = nxt[e];
+      nxt[e] = ahead[e];
+    }
+  }
+  return x;
+}
+
+// ---- the thread path: one thread, one group of n <= kThreadCap slots - //
+template <int STRAT>
+__device__ int thread_group(const Rows& src, int n, const int* tu,
+                            const float* tc, const int* td, int root,
+                            float factor) {
+  const int D = src.D;
+#define LIN(e) src.lin(tu[(e) * 32])
   if (STRAT == kHybrid) {
-    float part = 0.0f;
-    for (int k = lane; k < K; k += 32) part += c[k];
-    float a_base = warp_sum_f(part);
+    float a_base = 0.0f;
+    for (int e = 0; e < n; ++e) a_base += tc[e * 32];
     int x = root;
-    const float NEG = -INFINITY;
     for (int d = 0; d + 1 < D; ++d) {
       bool any = false;
-      float mx = NEG;
-      int bmin = I32_MAX, bmax = -1;
-      for (int j = lane; j < K; j += 32) {
-        const int32_t br = LIN(d + 1, j);
-        float bs = NEG;
-        if (v[j] && br != NONE && LIN(d, j) == x) {
-          bs = 0.0f;
-          for (int k = 0; k < K; ++k)
-            if (LIN(d + 1, k) == br) bs += c[k];
+      int bmin = I32_MAX, bmax = -1;  // as the plain version's
+      for (int e = 0; e < n; ++e) {
+        const int32_t* l = LIN(e);
+        const int32_t br = l[d + 1];
+        if (br != NONE && l[d] == x) {
           any = true;
           bmin = min(bmin, br);
           bmax = max(bmax, br);
-          mx = fmaxf(mx, bs);
         }
-        sc[j] = bs;
       }
-      any = __any_sync(FULL, any);
       if (!any) break;  // nothing below x: stop
-      mx = warp_max_f(mx);
+      if (bmin == bmax) {  // one branch: descend, no factor test
+        x = bmin;
+        continue;
+      }
+      float mx = -INFINITY;
+      int best = I32_MAX;
+      for (int e = 0; e < n; ++e) {
+        const int32_t* l = LIN(e);
+        const int32_t br = l[d + 1];
+        if (br == NONE || l[d] != x) continue;
+        float s = 0.0f;
+        for (int f = 0; f < n; ++f)
+          if (LIN(f)[d + 1] == br) s += tc[f * 32];
+        if (s > mx || (s == mx && br < best)) {
+          mx = s;
+          best = br;
+        }
+      }
+      if ((mx / a_base) < factor) break;  // the heaviest share is too low
+      x = best;
+      a_base = mx;
+    }
+    return x;
+  }
+  if (STRAT == kMrtl) {
+    float bs = -INFINITY;
+    int bd = -1, bu = I32_MAX;
+    for (int e = 0; e < n; ++e) {
+      const int ue = tu[e * 32], de = td[e * 32];
+      const int32_t* le = LIN(e);
+      float s = 0.0f;
+      for (int f = 0; f < n; ++f)
+        if (src.anc(tu[f * 32], td[f * 32], le)) s += tc[f * 32];
+      if (s > bs || (s == bs && (de > bd || (de == bd && ue < bu)))) {
+        bs = s;
+        bd = de;
+        bu = ue;
+      }
+    }
+    return bu;  // I32_MAX when no slot is valid
+  }
+  // lca*: the deepest dominated slot (first on ties) ...
+  int bd = -1, res = 0;
+  for (int e = 0; e < n; ++e) {
+    const int ue = tu[e * 32], de = td[e * 32];
+    const int32_t* le = LIN(e);
+    bool dom = true;
+    for (int f = 0; f < n && dom; ++f)
+      dom = src.anc(tu[f * 32], td[f * 32], le);
+    if (dom && de > bd) {
+      bd = de;
+      res = ue;
+    }
+  }
+  if (bd >= 0) return res;
+  // ... else the deepest depth where every valid lineage agrees with the
+  // first valid one (slot 0's row, table row 0, when there is none)
+  const int32_t* ref = src.lin(n ? tu[0] : 0);
+  int dstar = 0;
+  for (int d = 0; d < D; ++d) {
+    const int32_t r = ref[d];
+    bool ok = r != NONE;
+    for (int e = 0; e < n && ok; ++e) ok = LIN(e)[d] == r;
+    if (ok) dstar = d;
+  }
+  return ref[dstar];
+#undef LIN
+}
+
+// ---- the warp path: one group of any count of valid slots ------------ //
+template <int STRAT>
+__device__ void warp_group(const Rows& src, long long b,
+                           const float* __restrict__ counts,
+                           const uint8_t* __restrict__ valid,
+                           const int32_t* __restrict__ utaxa, int K,
+                           int root, float factor, unsigned char* base,
+                           int32_t* __restrict__ out) {
+  const int D = src.D;
+  const int lane = threadIdx.x & 31;
+  int* Lk = reinterpret_cast<int*>(base);
+  int* Lu = Lk + K;
+  float* Lc = reinterpret_cast<float*>(Lu + K);
+  int* Ld = reinterpret_cast<int*>(Lc + K);
+  int* Lcol = Ld + K;
+
+  // compact the valid slots in slot order with ballots
+  const uint8_t* vrow = valid + b * K;
+  int n = 0;
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int k = k0 + lane;
+    const bool v = k < K && vrow[k] != 0;
+    const unsigned bal = __ballot_sync(FULL, v);
+    if (v) Lk[n + __popc(bal & ((1u << lane) - 1u))] = k;
+    n += __popc(bal);
+  }
+  __syncwarp();
+  for (int p = lane; p < n; p += 32) {
+    const int k = Lk[p];
+    const int u = utaxa[b * K + k];
+    Lu[p] = u;
+    Lc[p] = STRAT != kLca ? counts[b * K + k] : 0.0f;
+    Ld[p] = STRAT != kHybrid ? src.depth(u) : 0;
+  }
+  __syncwarp();
+
+  if (STRAT == kHybrid) {
+    float part = 0.0f;
+    for (int p = lane; p < n; p += 32) part += Lc[p];
+    float a_base = warp_sum_f(part);
+    int x = root;
+    for (int d = 0; d + 1 < D; ++d) {
+      bool any = false;
+      int bmin = I32_MAX, bmax = -1;
+      for (int p = lane; p < n; p += 32) {
+        const int32_t* l = src.lin(Lu[p]);
+        const int32_t br = l[d + 1];
+        Lcol[p] = br;
+        if (br != NONE && l[d] == x) {
+          any = true;
+          bmin = min(bmin, br);
+          bmax = max(bmax, br);
+        }
+      }
+      if (!__any_sync(FULL, any)) break;
       bmin = warp_min_i(bmin);
       bmax = warp_max_i(bmax);
       __syncwarp();
-      const bool multi = bmin != bmax;
-      if (multi) {
-        if ((mx / a_base) < factor) break;  // the heaviest share is too low
+      if (bmin != bmax) {
+        float mx = -INFINITY;
         int best = I32_MAX;
-        for (int j = lane; j < K; j += 32)
-          if (sc[j] != NEG && sc[j] == mx) best = min(best, LIN(d + 1, j));
-        x = warp_min_i(best);
-        a_base = mx;
+        for (int p = lane; p < n; p += 32) {
+          const int32_t br = Lcol[p];
+          if (br == NONE || src.lin(Lu[p])[d] != x) continue;
+          float s = 0.0f;
+          for (int q = 0; q < n; ++q)
+            if (Lcol[q] == br) s += Lc[q];
+          if (s > mx || (s == mx && br < best)) {
+            mx = s;
+            best = br;
+          }
+        }
+        const float m = warp_max_f(mx);
+        best = warp_min_i(mx == m ? best : I32_MAX);
+        if ((m / a_base) < factor) break;
+        x = best;
+        a_base = m;
       } else {
         x = bmin;
       }
-      __syncwarp();
+      __syncwarp();  // Lcol is rewritten at the next depth
     }
     if (lane == 0) out[b] = x;
     return;
   }
-
-  const uint8_t* ia = is_anc + (long long)b * K * K;
   if (STRAT == kMrtl) {
-    float smax = -INFINITY;
-    for (int j = lane; j < K; j += 32) {
-      float s = -INFINITY;
-      if (v[j]) {
-        s = 0.0f;
-        for (int i = 0; i < K; ++i)
-          if (v[i] && ia[(long long)i * K + j]) s += c[i];
+    float bs = -INFINITY;
+    int bd = -1, bu = I32_MAX;
+    for (int p = lane; p < n; p += 32) {
+      const int32_t* lp = src.lin(Lu[p]);
+      float s = 0.0f;
+#pragma unroll 8  // kAncBatch
+      for (int q = 0; q < n; ++q)
+        if (src.anc(Lu[q], Ld[q], lp)) s += Lc[q];
+      const int dp = Ld[p], up = Lu[p];
+      if (s > bs || (s == bs && (dp > bd || (dp == bd && up < bu)))) {
+        bs = s;
+        bd = dp;
+        bu = up;
       }
-      sc[j] = s;
-      smax = fmaxf(smax, s);
     }
-    smax = warp_max_f(smax);
-    __syncwarp();
-    int dmax = -1;
-    for (int j = lane; j < K; j += 32)
-      if (v[j] && sc[j] == smax) dmax = max(dmax, depth[(long long)b * K + j]);
-    dmax = warp_max_i(dmax);
-    int best = I32_MAX;
-    for (int j = lane; j < K; j += 32)
-      if (v[j] && sc[j] == smax && depth[(long long)b * K + j] == dmax)
-        best = min(best, utaxa[(long long)b * K + j]);
-    best = warp_min_i(best);
-    if (lane == 0) out[b] = best;
+    const float smax = warp_max_f(bs);
+    const int dmax = warp_max_i(bs == smax ? bd : -1);
+    bu = warp_min_i(bs == smax && bd == dmax ? bu : I32_MAX);
+    if (lane == 0) out[b] = bu;
     return;
   }
-
-  // lca*: the deepest dominated slot (first on ties) ...
-  int bd = -1, bj = I32_MAX;
-  for (int j = lane; j < K; j += 32) {
-    if (!v[j]) continue;
+  // lca*
+  int bd = -1, bp = I32_MAX;
+  for (int p = lane; p < n; p += 32) {
+    const int32_t* lp = src.lin(Lu[p]);
     bool dom = true;
-    for (int i = 0; i < K && dom; ++i)
-      dom = !v[i] || ia[(long long)i * K + j];
-    const int dd = depth[(long long)b * K + j];
-    if (dom && (dd > bd || (dd == bd && j < bj))) {
-      bd = dd;
-      bj = j;
+    for (int q0 = 0; q0 < n && dom; q0 += kAncBatch) {
+#pragma unroll
+      for (int q = q0; q < q0 + kAncBatch; ++q)
+        if (q < n) dom = src.anc(Lu[q], Ld[q], lp) & dom;
+    }
+    if (dom && Ld[p] > bd) {
+      bd = Ld[p];
+      bp = p;
     }
   }
   const int dmax = warp_max_i(bd);
-  const int jstar = warp_min_i(bd == dmax ? bj : I32_MAX);
+  const int pstar = warp_min_i(bd == dmax ? bp : I32_MAX);
   if (dmax >= 0) {
-    if (lane == 0) out[b] = utaxa[(long long)b * K + jstar];
+    if (lane == 0) out[b] = Lu[pstar];
     return;
   }
-  // ... else the deepest depth where every valid lineage agrees with the
-  // first valid one
-  int fv = K;
-  for (int k = lane; k < K; k += 32)
-    if (v[k]) fv = min(fv, k);
-  fv = warp_min_i(fv);
-  if (fv == K) fv = 0;
+  const int32_t* ref = src.lin(n ? Lu[0] : 0);
   int dstar = 0;
   for (int d = 0; d < D; ++d) {
-    const int32_t ref = LIN(d, fv);
-    bool ok = true;
-    for (int k = lane; k < K; k += 32)
-      ok = ok && (!v[k] || LIN(d, k) == ref);
-    if (__all_sync(FULL, ok) && ref != NONE) dstar = d;
+    const int32_t r = ref[d];
+    bool ok = r != NONE;
+    for (int p = lane; p < n && ok; p += 32) ok = src.lin(Lu[p])[d] == r;
+    if (__all_sync(FULL, ok)) dstar = d;
   }
-  if (lane == 0) out[b] = LIN(dstar, fv);
+  if (lane == 0) out[b] = ref[dstar];
 }
 
 template <int STRAT>
-int launch(const int32_t* lin, long long lsb, int lsk, const int32_t* depth,
-           const uint8_t* is_anc, const float* counts, const uint8_t* valid,
-           const int32_t* utaxa, int B, int K, int D, int root, float factor,
+__global__ void tree_kernel(Rows src, const float* __restrict__ counts,
+                            const uint8_t* __restrict__ valid,
+                            const int32_t* __restrict__ utaxa, int B, int K,
+                            int root, float factor,
+                            int32_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ unsigned heavy_groups;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long b0 = (long long)blockIdx.x * 32;
+  if (w == 0) {  // the thread path, a lane a group
+    const long long b = b0 + lane;
+    int* tk = reinterpret_cast<int*>(smem) + lane;
+    int* tu = tk + kThreadCap * 32;
+    float* tc = reinterpret_cast<float*>(tu + kThreadCap * 32);
+    int* td = reinterpret_cast<int*>(tc + kThreadCap * 32);
+    bool heavy = false;
+    if (b < B) {
+      const int n = scan_mask(valid + b * K, K, kThreadCap, tk, 32);
+      if (n > kThreadCap) {
+        heavy = true;
+      } else {
+#pragma unroll
+        for (int e = 0; e < kThreadCap; ++e) {
+          if (e < n) {
+            const int k = tk[e * 32];
+            const int u = utaxa[b * K + k];
+            tu[e * 32] = u;
+            tc[e * 32] = STRAT != kLca ? counts[b * K + k] : 0.0f;
+            td[e * 32] = STRAT != kHybrid ? src.depth(u) : 0;
+          }
+        }
+        out[b] = STRAT == kHybrid && n <= kSmall
+                     ? hybrid_small(src, n, tu, tc, root, factor)
+                     : thread_group<STRAT>(src, n, tu, tc, td, root, factor);
+      }
+    }
+    const unsigned h = __ballot_sync(FULL, heavy);
+    if (lane == 0) heavy_groups = h;
+  }
+  __syncthreads();  // the thread lists are done with: the warp path reuses
+  unsigned todo = heavy_groups;
+  const int warps = blockDim.x >> 5;
+  unsigned char* base = smem + (size_t)w * list_bytes(K);
+  for (int r = 0; todo; ++r) {  // the block's larger groups, dealt out
+    const int t = __ffs(todo) - 1;
+    todo &= todo - 1;
+    if (r % warps != w) continue;
+    warp_group<STRAT>(src, b0 + t, counts, valid, utaxa, K, root, factor,
+                      base, out);
+    __syncwarp();
+  }
+}
+
+template <int STRAT>
+int launch(const Rows& src, const float* counts, const uint8_t* valid,
+           const int32_t* utaxa, int B, int K, int root, float factor,
            int32_t* out, cudaStream_t stream) {
-  const bool stage_lin =
-      STRAT == kHybrid && warp_bytes(K, D, true) <= (size_t)kLinStageMax;
-  const size_t per_warp = warp_bytes(K, D, stage_lin);
-  int wpb = (int)((48 * 1024) / per_warp);
-  wpb = wpb < 1 ? 1 : (wpb > 8 ? 8 : wpb);
-  const size_t smem = per_warp * wpb;
+  int warps = kBlockWarps;  // fewer where the lists of a wide K need it
+  while (warps > 1 && list_bytes(K) * warps > kSmemMax) --warps;
+  const size_t lists = list_bytes(K) * warps;
+  const size_t smem = lists > kThreadBytes ? lists : kThreadBytes;
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         tree_kernel<STRAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (B + wpb - 1) / wpb;
-  tree_kernel<STRAT><<<blocks, 32 * wpb, smem, stream>>>(
-      lin, lsb, lsk, depth, is_anc, counts, valid, utaxa, B, K, D, root,
-      factor, stage_lin ? 1 : 0, out);
+  const int blocks = (int)(((long long)B + 31) / 32);
+  tree_kernel<STRAT><<<blocks, 32 * warps, smem, stream>>>(
+      src, counts, valid, utaxa, B, K, root, factor, out);
   return (int)cudaGetLastError();
 }
 
@@ -278,36 +559,38 @@ extern "C" const char* umgap_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// strategy: 0 hybrid (is_anc unused, may be null), 1 lca* (counts
-// unused, may be null), 2 mrtl. lin[b, k, d] is at lin + b * lsb +
-// k * lsk + d.
-extern "C" int tree_aggregate(int strategy, const void* lin, long long lsb,
-                              int lsk, const void* depth, const void* is_anc,
-                              const void* counts, const void* valid,
-                              const void* utaxa, int B, int K, int D,
-                              int root, float factor, void* out,
-                              void* stream) {
+// strategy: 0 hybrid, 1 lca* (counts unused, may be null), 2 mrtl.
+// geom: dtax.geom, size rows of W = 1 + D int32, contiguous. valid (B, K)
+// bool, utaxa (B, K) int32, counts (B, K) float32, all contiguous; out
+// (B,) int32.
+extern "C" int tree_aggregate(int strategy, const void* geom, int size,
+                              int W, const void* counts, const void* valid,
+                              const void* utaxa, int B, int K, int root,
+                              float factor, void* out, void* stream) {
   if (B <= 0) return 0;
-  if (K <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  int (*f)(const int32_t*, long long, int, const int32_t*, const uint8_t*,
-           const float*, const uint8_t*, const int32_t*, int, int, int, int,
-           float, int32_t*, cudaStream_t) = nullptr;
+  if (K <= 0 || W < 2 || size <= 0) return (int)cudaErrorInvalidValue;
+  const Rows src{(const int32_t*)geom, size, W, W - 1};
+  const float* c = (const float*)counts;
+  const uint8_t* v = (const uint8_t*)valid;
+  const int32_t* u = (const int32_t*)utaxa;
+  int32_t* o = (int32_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
   switch (strategy) {
-    case kHybrid: f = launch<kHybrid>; break;
-    case kLca: f = launch<kLca>; break;
-    case kMrtl: f = launch<kMrtl>; break;
-    default: return (int)cudaErrorInvalidValue;
+    case kHybrid:
+      return launch<kHybrid>(src, c, v, u, B, K, root, factor, o, s);
+    case kLca:
+      return launch<kLca>(src, c, v, u, B, K, root, factor, o, s);
+    case kMrtl:
+      return launch<kMrtl>(src, c, v, u, B, K, root, factor, o, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return f((const int32_t*)lin, lsb, lsk, (const int32_t*)depth,
-           (const uint8_t*)is_anc, (const float*)counts,
-           (const uint8_t*)valid, (const int32_t*)utaxa, B, K, D, root,
-           factor, (int32_t*)out, (cudaStream_t)stream);
 }
 
 extern "C" int tree_aggregate_packed(const void* args) {
   const PackedArgs a{(const unsigned char*)args};
-  return tree_aggregate((int)a.i(0), a.ptr(1), a.i(2), (int)a.i(3), a.ptr(4),
-                        a.ptr(5), a.ptr(6), a.ptr(7), a.ptr(8), (int)a.i(9),
-                        (int)a.i(10), (int)a.i(11), (int)a.i(12),
-                        (float)a.d(13), a.ptr(14), a.ptr(15));
+  return tree_aggregate((int)a.i(0), a.ptr(1), (int)a.i(2), (int)a.i(3),
+                        a.ptr(4), a.ptr(5), a.ptr(6), (int)a.i(7),
+                        (int)a.i(8), (int)a.i(9), (float)a.d(10), a.ptr(11),
+                        a.ptr(12));
 }

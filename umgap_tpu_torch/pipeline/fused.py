@@ -9,8 +9,9 @@ The composition of the reference's preset pipelines
 over a padded batch of read pairs. On CUDA the chain is
 K1 reads_to_kmers -> K2 probe_kmer -> K3 seed-extend (the hits
 epilogue: the kept taxa, with no keep mask and no select pass) ->
-K4 dedup_counts -> hit_geometry (K5 lane_gather) -> the aggregator (K6
-tree_aggregate for tree/lca*, tree/hybrid and rmq/mrtl; the Euler/RMQ
+K4 dedup_counts -> the lower-bound filter -> the aggregator (one K6
+tree_aggregate launch for tree/lca*, tree/hybrid and rmq/mrtl, which
+reads the taxonomy rows of the valid hits itself; the Euler/RMQ
 aggregators around K5 for rmq/lca* and rmq/hybrid) -> snap (K5); on the
 CPU every stage runs its plain version. ``run_stages(..., plain=True)``
 composes the plain versions on any device (inside
@@ -120,17 +121,15 @@ def _stages(reads, lengths, length, packed, dtax, dtable, config,
     with stage("dedup"):
         utaxa, ucounts, uvalid, nuniq = dedup(hits, None, config.k_max,
                                               return_nuniq=True)
-    key = (config.method, config.strategy)
+    # the stage keeps its name (the filter alone now) so that stage
+    # tables of trees before and after K6 read the rows itself line up
     with stage("hit_geometry"):
         uvalid = devagg.filter_lower_bound(ucounts, uvalid,
                                            config.lower_bound)
-        geom = (devagg.hit_geometry(dtax, utaxa, uvalid,
-                                    devagg.needs_ancestry(*key))
-                if key in devagg.GEOMETRY_AGGREGATIONS else None)
     with stage("aggregate"):
         agg = devagg.aggregate_batch(dtax, utaxa, ucounts, uvalid,
                                      config.method, config.strategy,
-                                     config.factor, euler=euler, geom=geom)
+                                     config.factor, euler=euler)
     with stage("snap"):
         snapped = devagg.snap_batch(dtax.snap_valid, agg, 0)
         taxon = torch.where(uvalid.any(dim=-1), snapped, 1).to(torch.int32)
