@@ -6,14 +6,17 @@
 Builds the CUDA kernels from ``umgap_tpu_torch/csrc``, holds each kernel
 to its plain PyTorch version on the card (K1-K6 chained on a
 16,384-pair batch at L = 100 and 160, K6 through both its entries, on
-dense groups and at the wide program's width, and K5 at the shapes of
-each TPU gather kernel it ports), drives
+dense groups and at the wide program's width, each of K1, K3, K4 and K6
+on its path for rows past its shared-memory budget, and K5 at the shapes
+of each TPU gather kernel it ports), drives
 the port's main path (the 9-mer ``analyse`` presets through ``Analyser``
 over the tracked ``.bench_data`` workload: 32,768 read pairs of 100 bp,
 a 2 M-key index, 20 k taxa), the wide re-route program on one batch,
 runs a 4.3 GB card-resident bucket64s index, runs the ``analyse``
-command line in a subprocess, and runs the Euler/RMQ aggregations
-(rmq/lca*, rmq/hybrid) over the workload. Every phase always runs; the
+command line in a subprocess, reads FASTQ files (plain and gzipped, and
+reads of 100-4,096 bp) through the command line's three ingest tiers,
+and runs the Euler/RMQ aggregations (rmq/lca*, rmq/hybrid) over the
+workload. Every phase always runs; the
 script takes no arguments. Every comparison is exact (all outputs are
 integer ids, masks and counts). Each path's launch counts are reset
 before it is driven and the counts of the kernels it runs must be above
@@ -166,6 +169,7 @@ def main():
         phase_wide(torch, world, results)
         phase_resident(torch, world)
         phase_cli(torch, world)
+        phase_ingest(torch, world)
         phase_rmq(torch, world)
     finally:
         shutil.rmtree(TMP_DIR, ignore_errors=True)
@@ -781,6 +785,161 @@ def block_sweep(torch, world):
     return k1, k3
 
 
+def _k6_bound(torch, dtax, res, utaxa, uvalid, D):
+    """K6's bounds on this data, by strategy (see _agg_chain): the valid
+    slots' ids (and counts, but for lca*), a row of [depth | ancestors]
+    per distinct valid id, the mask read whole and (B,) written;
+    operations per valid slot a hybrid step and per valid pair."""
+    from umgap_tpu_torch.ops import gather
+
+    B, K = utaxa.shape
+    nv = uvalid.sum(dim=-1).long()
+    steps = (gather.take_plain(dtax.depth, res["hybrid"]) + 1).clamp(
+        max=D - 1).long()
+    pairs, nvalid = int((nv * nv).sum()), int(nv.sum())
+    distinct = int(torch.unique(utaxa[uvalid]).numel())
+    ops = {"hybrid": int((steps * nv).sum()) * 2, "lca*": pairs,
+           "mrtl": 2 * pairs}
+    return {strat: bound(B * K + B * 4 + nvalid * (4 if strat == "lca*"
+                                                   else 8)
+                         + distinct * (D + 1) * 4, nop)
+            for strat, nop in ops.items()}
+
+
+def wide_paths(torch, world):
+    """Each kernel's path for rows past its shared-memory budget, at the
+    widths of the card tests, held to its plain version and timed, with
+    its bound from this run's data: K1's direct kernel on reads of
+    20,000 bp, K3's global delta rows at 4,000 windows a lane, K4's
+    global path at N = 24,576 hits a row, K6's global warp lists at
+    K = 16,392 (the wide program of paired 4,096 bp reads) on groups of
+    65 to K valid distinct taxa. Returns {kernel: (stats, max abs err)}."""
+    from umgap_tpu_torch.agg import device as devagg
+    from umgap_tpu_torch.ops import encoding, seedextend, translate
+
+    dev = world["dev"]
+    rng = np.random.default_rng(29)
+    out = {}
+
+    # K1: 64 reads of up to 20,000 bp, N codes included
+    L, n = 20000, 64
+    codes = rng.integers(0, 4, size=(n, L)).astype(np.uint8)
+    codes[rng.random((n, L)) < 0.02] = 4
+    ln = rng.integers(L // 2, L + 1, size=n).astype(np.int32)
+    ln[0] = L
+    reads = torch.from_numpy(encoding.pack_dna4(codes)).to(dev)
+    lens = torch.from_numpy(ln).to(dev)
+    tt1 = encoding.get_table(1)
+
+    def k1(plain=False):
+        fn = (translate.reads_to_kmers_plain if plain
+              else translate.reads_to_kmers)
+        return fn(reads, lens, L, tt1, 9)
+
+    got = k1()
+    e1 = compare(torch, f"K1 direct L={L}", got, k1(True))
+    W = got[0].shape[-1]
+    b, by = bound(reads.numel() + 4 * n + n * 6 * (W * 9 + 4),
+                  n * 6 * (W + 8) * 16)
+    out["reads_to_kmers"] = (dict(
+        path=translate.reads_to_kmers_path(L), shape=[n, L],
+        ms=cuda_ms(torch, k1, reps=5), device_ms=device_ms(torch, k1, reps=5),
+        plain_ms=cuda_ms(torch, lambda: k1(True), reps=2), bound_ms=b,
+        bound_by=by), e1)
+
+    # K3: 1,536 lanes of 4,000 windows, runs with gaps, lengths 0..N
+    NW, nl = 4000, 1536
+    runs = rng.choice(np.array([0, 0, 0, 5, 6, 7], np.int32), size=(nl, NW))
+    rep = rng.random((nl, NW)) < 0.6
+    for j in range(1, NW):
+        runs[:, j] = np.where(rep[:, j], runs[:, j - 1], runs[:, j])
+    lr = rng.integers(0, NW + 1, size=nl).astype(np.int32)
+    lr[::7] = NW
+    tr = torch.from_numpy(runs).to(dev)
+    lt = torch.from_numpy(lr).to(dev)
+
+    def k3(plain=False):
+        fn = (seedextend.seedextend_hits_plain if plain
+              else seedextend.seedextend_hits)
+        return fn(tr, lt, 3, 1)
+
+    e3 = max(compare(torch, f"K3 global W={NW} hits", k3(), k3(True)),
+             compare(torch, f"K3 global W={NW} mask",
+                     seedextend.seedextend_mask_batch(tr, lt, 2, 0),
+                     seedextend.seedextend_mask_plain(tr, lt, 2, 0)))
+    b, by = bound(nl * (NW * 8 + 4), nl * NW * 20)
+    out["seedextend_mask"] = (dict(
+        path=seedextend.seedextend_path(NW), shape=[nl, NW],
+        ms=cuda_ms(torch, k3, reps=5), device_ms=device_ms(torch, k3, reps=5),
+        plain_ms=cuda_ms(torch, lambda: k3(True), reps=1), bound_ms=b,
+        bound_by=by), e3)
+
+    # K4: 600 rows of 24,576 hits (more rows than the path's blocks),
+    # 0-100% valid, ids from small and large pools
+    NH, rows = 24576, 600
+    ids = rng.integers(-1, 2000, size=(rows, NH)).astype(np.int32)
+    ids[rng.random((rows, NH)) >= rng.random((rows, 1))] = 0
+    ids[::3] = np.where(ids[::3] > 0, ids[::3] % 7 + 1, ids[::3])
+    tx = torch.from_numpy(ids).to(dev)
+    wt = torch.from_numpy(rng.integers(0, 4, size=(rows, NH)).astype(
+        np.float32)).to(dev)
+
+    def k4(plain=False, w=None):
+        fn = devagg.dedup_counts_plain if plain else devagg.dedup_counts
+        return fn(tx, w, 64, True)
+
+    e4 = max(compare(torch, f"K4 global N={NH}", k4(), k4(True)),
+             compare(torch, f"K4 global N={NH} weighted", k4(w=wt),
+                     k4(True, w=wt)))
+    nv = (tx > 0).sum(dim=1).cpu().numpy().astype(np.int64)
+    lg = np.ceil(np.log2(np.maximum(nv, 1))).astype(np.int64)
+    b, by = bound(rows * NH * 4 + rows * (64 * 9 + 4),
+                  int((nv * lg).sum()) * 4)
+    out["dedup_counts"] = (dict(
+        path=devagg.dedup_path(NH), shape=[rows, NH],
+        ms=cuda_ms(torch, k4, reps=5), device_ms=device_ms(torch, k4, reps=5),
+        plain_ms=cuda_ms(torch, lambda: k4(True), reps=2), bound_ms=b,
+        bound_by=by), e4)
+
+    # K6: 8 groups at K = 16,392 with 65 to K valid distinct taxa; the
+    # plain versions build (B, K, K) tensors, so they take 4 groups a call
+    dtax = world["dtax"]
+    K, B = 2 * 6 * ((4096 + 2) // 3), 8
+    u, c, v = _dense_hits(torch, dtax, B, K, 65, seed=11)
+    D = dtax.geom.shape[1] - 1
+    s6, e6, res = {}, 0.0, {}
+    for strat in ("hybrid", "lca*", "mrtl"):
+        def k6(strat=strat):
+            return devagg.tree_aggregate_hits(strat, dtax, u, c, v, 0.25)
+
+        def plain(strat=strat):
+            return torch.cat([devagg.tree_aggregate_hits_plain(
+                strat, dtax, u[i:i + 4], c[i:i + 4], v[i:i + 4], 0.25)
+                for i in range(0, B, 4)])
+
+        res[strat] = k6()
+        e6 = max(e6, compare(torch, f"K6 {strat} K={K}", res[strat],
+                             plain()))
+        s6[strat] = dict(ms=cuda_ms(torch, k6, reps=2),
+                         device_ms=device_ms(torch, k6, reps=2),
+                         plain_ms=cuda_ms(torch, plain, reps=1))
+    for strat, (b, by) in _k6_bound(torch, dtax, res, u, v, D).items():
+        s6[strat].update(bound_ms=b, bound_by=by)
+    h = s6["hybrid"]
+    s6.update(path="global lists", shape=[B, K],
+              scratch_bytes=devagg.tree_scratch_bytes(B, K),
+              valid_per_group=v.sum(dim=1).tolist(), ms=h["ms"],
+              device_ms=h["device_ms"], plain_ms=h["plain_ms"],
+              bound_ms=h["bound_ms"], bound_by=h["bound_by"])
+    out["tree_aggregate"] = (s6, e6)
+    log("wide paths, kernels equal to plain: " + ", ".join(
+        f"{k} {st['path']} {st['shape']} {st['ms']:.3f} ms (device "
+        f"{fmt_ms(st['device_ms'])}, plain {st['plain_ms']:.1f}, bound "
+        f"{st['bound_ms']:.4f} {st['bound_by']})"
+        for k, (st, _e) in out.items()))
+    return out
+
+
 def phase_kernels(torch, world):
     from umgap_tpu_torch.agg import device as devagg
     from umgap_tpu_torch.index import table as T
@@ -915,6 +1074,11 @@ def phase_kernels(torch, world):
             f"density={density} ({devagg.dedup_path(NH2)} path)",
             devagg.dedup_counts(tx, w, kmax, True),
             devagg.dedup_counts_plain(tx, w, kmax, True)))
+
+    # ---- the wide paths: rows past each kernel's shared-memory budget -- #
+    for n, (s, e) in wide_paths(torch, world).items():
+        errs[n] = max(errs[n], e)
+        stats[n]["wide_path"] = s
 
     for n, e in errs.items():
         stats[n]["max_abs_err"] = e
@@ -1600,8 +1764,28 @@ def phase_resident(torch, world):
 # Phase 5: the command line in a subprocess
 # ---------------------------------------------------------------------- #
 
+def _cli_files(world):
+    """The command line's taxonomy TSV and packed index under
+    .smoke_tmp/, written once."""
+    from umgap_tpu_torch import ranks
+
+    taxtsv = os.path.join(TMP_DIR, "taxons.tsv")
+    index = os.path.join(TMP_DIR, "nine.npz")
+    if not os.path.exists(taxtsv):
+        parent, snap = world["parent"], world["snap"]
+        with open(taxtsv, "w") as f:
+            f.write("1\troot\tno rank\t1\t\x01\n")
+            for i in range(2, world["n_tax"] + 1):
+                rank = "no rank" if i % 3 else ranks.rank_name(14)
+                valid = "\x01" if snap[i] == i else "\x00"
+                f.write(f"{i}\tt{i}\t{rank}\t{int(parent[i])}\t{valid}\n")
+    if not os.path.exists(index):
+        world["table"].save(index, packed=True)
+    return taxtsv, index
+
+
 def phase_cli(torch, world):
-    from umgap_tpu_torch import kernels, ranks
+    from umgap_tpu_torch import kernels
     from umgap_tpu_torch.pipeline.fused import PRESETS
 
     t_phase = time.perf_counter()
@@ -1616,16 +1800,7 @@ def phase_cli(torch, world):
             for i in range(n):
                 f.write(b"@s%d/%d\n%s\n+\n%s\n" % (
                     i, e + 1, seqs[i].tobytes(), b"I" * L))
-    taxtsv = os.path.join(TMP_DIR, "taxons.tsv")
-    parent, snap = world["parent"], world["snap"]
-    with open(taxtsv, "w") as f:
-        f.write("1\troot\tno rank\t1\t\x01\n")
-        for i in range(2, world["n_tax"] + 1):
-            rank = "no rank" if i % 3 else ranks.rank_name(14)
-            valid = "\x01" if snap[i] == i else "\x00"
-            f.write(f"{i}\tt{i}\t{rank}\t{int(parent[i])}\t{valid}\n")
-    index = os.path.join(TMP_DIR, "nine.npz")
-    world["table"].save(index, packed=True)
+    taxtsv, index = _cli_files(world)
     cmd = [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
            taxtsv, "--index", index]
     for preset in PRESETS:  # one sample per preset, one process
@@ -1667,6 +1842,331 @@ def phase_cli(torch, world):
                                    seconds=time.perf_counter() - t_phase)
     log(f"CLI: {len(PRESETS)} presets x {n} groups, records equal to the "
         "Analyser's at read length 160, whose kernel taxa equal plain")
+
+
+# ---------------------------------------------------------------------- #
+# Phase 5b: file ingest through the three tiers of the command line
+# ---------------------------------------------------------------------- #
+
+INGEST_COPIES = 8  # 262,144 pairs, about 114 MB of FASTQ
+INGEST_PRESET = "high-sensitivity"
+# max-sensitivity's seeds of 2 keep more than 64 distinct taxa in the
+# ladder's 4,096 bp groups (high-sensitivity's seeds of 3 keep fewer)
+LADDER_PRESET = "max-sensitivity"
+LADDER_GROUPS = 128
+
+
+def _fastq_text(reads, e, prefix):
+    """One end's FASTQ bytes of (P, 2, L) code rows, headers
+    ``@{prefix}{i}/{e + 1}``."""
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    seqs = lut[np.minimum(reads[:, e], 4)]
+    qual = b"I" * seqs.shape[1]
+    return b"".join(b"@%s%d/%d\n%s\n+\n%s\n" % (prefix, i, e + 1,
+                                                  seqs[i].tobytes(), qual)
+                    for i in range(len(seqs)))
+
+
+def _ladder_reads(reads, n, seed=31):
+    """``n`` read pairs of 100 to 4,096 bp, each end the concatenation of
+    consecutive bench reads of that end (so a 4,096 bp group carries the
+    planted taxa of 41 bench pairs a end, more than 64 distinct), cut to
+    its length: a quarter up to 160 bp, a quarter up to 256, a quarter
+    up to 1,024, the rest up to 4,095, and every eighth group at 4,096
+    on both ends. Returns (P, 2, 4096) codes (N-padded) and lengths."""
+    rng = np.random.default_rng(seed)
+    P, _e, L0 = reads.shape
+    pieces = -(-4096 // L0)
+    idx = (np.arange(n)[:, None] * pieces + np.arange(pieces)) % P
+    codes = reads[idx].transpose(0, 2, 1, 3).reshape(n, 2, pieces * L0)
+    codes = np.ascontiguousarray(codes[:, :, :4096])
+    tops = np.array([160, 256, 1024, 4095])[np.arange(n) * 4 // n]
+    lens = np.stack([rng.integers(100, tops + 1),
+                     rng.integers(100, tops + 1)], axis=1).astype(np.int32)
+    lens[::8] = 4096
+    codes[np.arange(4096)[None, None, :] >= lens[:, :, None]] = 4
+    return codes, lens
+
+
+class _TimedFile:
+    """A text file whose writes are timed (the host split's "write")."""
+
+    def __init__(self, f, acc):
+        self.f, self.acc = f, acc
+
+    def write(self, text):
+        t0 = time.perf_counter()
+        self.f.write(text)
+        self.acc["write"] += time.perf_counter() - t0
+
+
+def phase_ingest(torch, world):
+    """FASTQ files to records through the command line's three ingest
+    tiers (``cli.run_sample_ring``, ``run_sample_stream``,
+    ``run_sample_fallback``), driven in this process as the CLI drives
+    them, high-sensitivity at the CLI's defaults (--read-length 160,
+    16,384-pair batches): records byte-equal across the tiers and to
+    ``Analyser.analyse_arrays``, gzip equal to plain, the ladder sample
+    (100-4,096 bp, the wide program at K = 16,392) with kernel records
+    equal to plain records; file-to-records pairs/s of the ring (plain,
+    gzip) and of the Python tier, the host split and the device-busy
+    share of a ring window; and the command line in a subprocess on
+    gzipped pairs."""
+    import argparse
+    import gzip
+    import io
+    import statistics
+    import threading
+
+    from umgap_tpu_torch import cli, kernels
+    from umgap_tpu_torch.io import native
+    from umgap_tpu_torch.pipeline import runner
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+
+    t_phase = time.perf_counter()
+    reads, P, L = world["reads"], world["P"], world["L"]
+    t0 = time.perf_counter()
+    native.ensure_built()
+    build_s = time.perf_counter() - t0
+
+    # ---- inputs: one copy (32,768 pairs) and eight, plain and gzipped - #
+    paths = {}
+    texts = [[_fastq_text(reads, e, b"c%d_" % c) for e in (0, 1)]
+             for c in range(INGEST_COPIES)]
+    for tag, copies in (("one", 1), ("all", INGEST_COPIES)):
+        paths[tag] = [os.path.join(TMP_DIR, f"{tag}_R{e + 1}.fq")
+                      for e in (0, 1)]
+        paths[tag + "_gz"] = [p + ".gz" for p in paths[tag]]
+        for e in (0, 1):
+            with open(paths[tag][e], "wb") as f:
+                for c in range(copies):
+                    f.write(texts[c][e])
+
+    def gz(src, dst):
+        with open(src, "rb") as f, gzip.open(dst, "wb", compresslevel=6) as g:
+            shutil.copyfileobj(f, g, 1 << 22)
+
+    jobs = [threading.Thread(target=gz, args=(s, d))
+            for tag in ("one", "all")
+            for s, d in zip(paths[tag], paths[tag + "_gz"])]
+    t0 = time.perf_counter()
+    for j in jobs:
+        j.start()
+    for j in jobs:
+        j.join()
+    gzip_s = time.perf_counter() - t0
+    del texts
+    ladder_codes, ladder_lens = _ladder_reads(reads, LADDER_GROUPS)
+    paths["ladder"] = [os.path.join(TMP_DIR, f"ladder_R{e + 1}.fq")
+                       for e in (0, 1)]
+    for e in (0, 1):
+        lut = np.frombuffer(b"ACGTN", np.uint8)
+        with open(paths["ladder"][e], "wb") as f:
+            for i in range(LADDER_GROUPS):
+                seq = lut[ladder_codes[i, e, :ladder_lens[i, e]]].tobytes()
+                f.write(b"@l%d/%d\n%s\n+\n%s\n" % (
+                    i, e + 1, seq, b"I" * len(seq)))
+    sizes = {k: sum(os.path.getsize(p) for p in v) for k, v in paths.items()}
+
+    args = argparse.Namespace(read_length=160, batch_size=BATCH)
+    session = cli.AnalyseSession(args, world["tax"], world["table"],
+                                 world["dtax"], world["dtable"], world["dev"])
+
+    def sample(tag, preset=INGEST_PRESET):
+        return dict(type=preset, first=paths[tag][0],
+                    second=paths[tag][1], output=None)
+
+    def records(tier, tag, preset=INGEST_PRESET):
+        buf = io.StringIO()
+        n = cli.write_batches(buf, tier(session, sample(tag, preset)))
+        return n, buf.getvalue()
+
+    def launched(tier, tag):
+        kernels.reset_launches()
+        n, text = records(tier, tag)
+        torch.cuda.synchronize()
+        return n, text, kernels.launch_counts()
+
+    cfg = PRESETS[INGEST_PRESET]
+    need = path_kernels(cfg)
+    phase = dict(host_library_build_s=build_s, gzip_write_s=gzip_s,
+                 file_bytes=sizes, preset=INGEST_PRESET)
+
+    # ---- the three tiers on one copy: byte-equal, = analyse_arrays ---- #
+    records(cli.run_sample_ring, "one")  # warm the programs
+    got, launches = {}, {}
+    for name, tier in (("ring", cli.run_sample_ring),
+                       ("chunk", cli.run_sample_stream),
+                       ("python", cli.run_sample_fallback)):
+        n, text, launches[name] = launched(tier, "one")
+        require(n == P, f"ingest {name}: {n} records for {P} pairs")
+        for k in need:
+            require(launches[name][k] > 0,
+                    f"ingest {name}: kernel {k} was not launched")
+        got[name] = text
+    require(got["ring"] == got["chunk"] == got["python"],
+            "ingest: the tiers' records differ")
+    headers = [f"c0_{i}" for i in range(P)]
+    an = _analyser(world, cfg, read_length=160)
+    want = "".join(f">{h}\n{t}\n" for h, t in an.analyse_arrays(
+        headers, reads, np.full((P, 2), L, np.int32)))
+    require(got["ring"] == want,
+            "ingest: records differ from Analyser.analyse_arrays")
+    n, text = records(cli.run_sample_ring, "one_gz")
+    require(text == got["ring"], "ingest: gzip records differ from plain")
+    phase["launches"] = launches
+
+    # ---- eight copies: gzip equal to plain (digests) ------------------ #
+    import hashlib
+
+    digest = {}
+    for tag in ("all", "all_gz"):
+        n, text = records(cli.run_sample_ring, tag)
+        require(n == P * INGEST_COPIES, f"ingest {tag}: {n} records")
+        digest[tag] = hashlib.sha256(text.encode()).hexdigest()
+    require(digest["all"] == digest["all_gz"],
+            "ingest: gzip records differ from plain (eight copies)")
+    phase["records_sha256"] = digest["all"]
+
+    # ---- the ladder sample: 100-4,096 bp, kernel records = plain ------ #
+    kernels.reset_launches()
+    lad = sample("ladder", LADDER_PRESET)
+    lbuf = io.StringIO()
+    nl_ = cli.write_batches(lbuf, cli.run_sample(session, lad))
+    torch.cuda.synchronize()
+    lad_launch = kernels.launch_counts()
+    widest = max(session.analysers.values(), key=lambda a: a.read_length)
+    require(nl_ == LADDER_GROUPS, f"ladder: {nl_} records")
+    require(widest.read_length == 4096 and widest._exact_kmax() == 16392,
+            "ladder: no program at 4,096 bp with a wide K of 16,392")
+    overflow = widest.overflow_reads
+    require(overflow > 0, "ladder: no group re-routed to the wide program")
+    for k in path_kernels(PRESETS[LADDER_PRESET]):
+        require(lad_launch[k] > 0, f"ladder: kernel {k} was not launched")
+    with kernels.plain_versions():
+        pbuf = io.StringIO()
+        cli.write_batches(pbuf, cli.run_sample(session, lad))
+    require(lbuf.getvalue() == pbuf.getvalue(),
+            "ladder: kernel records differ from plain records")
+    _n, py_text = records(cli.run_sample_fallback, "ladder", LADDER_PRESET)
+    require(py_text == lbuf.getvalue(),
+            "ladder: the Python tier's records differ")
+    phase["ladder"] = dict(preset=LADDER_PRESET, groups=LADDER_GROUPS,
+                           width=widest.read_length,
+                           wide_k=widest._exact_kmax(),
+                           wide_batch=widest._wide_batch,
+                           overflow_groups=overflow, launches=lad_launch,
+                           lens=dict(min=int(ladder_lens.min()),
+                                     max=int(ladder_lens.max())))
+    log(f"ingest ladder ({LADDER_PRESET}): {LADDER_GROUPS} groups of "
+        f"100-4,096 bp at width {widest.read_length}, {overflow} through the "
+        f"wide program (K = {widest._exact_kmax()}), kernel "
+        f"records == plain == Python tier; launches {lad_launch}")
+
+    # ---- file-to-records pairs/s: median of three windows -------------- #
+    out_path = os.path.join(TMP_DIR, "ingest_out.fa")
+
+    def window(tier, tag, min_s=STEADY_S):
+        n = passes = 0
+        t0 = time.perf_counter()
+        while passes == 0 or time.perf_counter() - t0 < min_s:
+            with open(out_path, "w") as h:
+                n += cli.write_batches(h, tier(session, sample(tag)))
+            passes += 1
+        wall = time.perf_counter() - t0
+        return dict(pairs_per_s=n / wall, pairs=n, seconds=wall,
+                    passes=passes)
+
+    wins = {name: [window(tier, tag) for _ in range(3)]
+            for name, tier, tag in (
+                ("ring_plain", cli.run_sample_ring, "all"),
+                ("ring_gzip", cli.run_sample_ring, "all_gz"),
+                ("python_plain", cli.run_sample_fallback, "one"))}
+    rates = {name: dict(pairs_per_s=statistics.median(
+        w["pairs_per_s"] for w in ws), windows=ws)
+        for name, ws in wins.items()}
+    phase["rates"] = rates
+    log("ingest file-to-records pairs/s (median of 3 windows): " + ", ".join(
+        f"{k} {v['pairs_per_s']:.0f}" for k, v in rates.items()))
+
+    # ---- the host split of one ring window ----------------------------- #
+    acc = dict(next=0.0, dispatch=0.0, drain=0.0, format=0.0, write=0.0)
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        return wrapper
+
+    patches = [(native.NativeBatchStream, "next", "next"),
+               (runner.Analyser, "_dispatch_packed", "dispatch"),
+               (runner.Analyser, "_finalize_packed", "drain"),
+               (native, "format_output", "format")]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _k in patches]
+    try:
+        for obj, attr, key in patches:
+            setattr(obj, attr, timed(getattr(obj, attr), key))
+        n = passes = 0
+        t0 = time.perf_counter()
+        while passes == 0 or time.perf_counter() - t0 < STEADY_S:
+            with open(out_path, "w") as h:
+                n += cli.write_batches(_TimedFile(h, acc), cli.run_sample_ring(
+                    session, sample("all")))
+            passes += 1
+        wall = time.perf_counter() - t0
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    split = {k: v for k, v in acc.items()}
+    split["other"] = wall - sum(acc.values())
+    phase["host_split"] = dict(seconds=split, wall_s=wall, pairs=n,
+                               pairs_per_s=n / wall,
+                               share={k: v / wall for k, v in split.items()})
+    log(f"ingest ring window host split ({n} pairs in {wall:.2f} s): "
+        + ", ".join(f"{k} {v:.3f} s ({v / wall:.0%})"
+                    for k, v in split.items()))
+
+    # ---- the device-busy share of one ring window ---------------------- #
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prof_w = window(cli.run_sample_ring, "all", min_s=2.0)
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in ev)
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:8]
+    phase["profiled"] = dict(
+        window=prof_w, device_s=dev_us / 1e6,
+        busy_share=(dev_us / 1e6) / prof_w["seconds"] if dev_us else None,
+        top=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top])
+    log(f"ingest ring window profiled: device busy {dev_us / 1e6:.3f} s of "
+        f"{prof_w['seconds']:.3f} s")
+
+    # ---- the command line in a subprocess on the gzipped pair --------- #
+    taxtsv, index = _cli_files(world)
+    cli_out = os.path.join(TMP_DIR, "ingest_cli.fa")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
+         taxtsv, "--index", index, "-t", INGEST_PRESET, "-1",
+         paths["one_gz"][0], "-2", paths["one_gz"][1], "-o", cli_out],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"ingest CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(cli_out) as f:
+        require(f.read() == got["ring"],
+                "ingest CLI: gzipped records differ from the plain run's")
+    phase["cli_gzip_s"] = cli_s
+    phase["seconds"] = time.perf_counter() - t_phase
+    RESULT["phases"]["ingest"] = phase
+    log(f"ingest: three tiers byte-equal and equal to analyse_arrays on "
+        f"{P} pairs, gzip == plain on {P * INGEST_COPIES}; CLI on gzip in "
+        f"{cli_s:.1f} s; phase {phase['seconds']:.1f} s")
 
 
 # ---------------------------------------------------------------------- #

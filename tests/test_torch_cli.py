@@ -1,6 +1,8 @@
 """``python -m umgap_tpu_torch analyse`` (on the CPU) writes the same bytes
-as ``umgap_tpu analyse --fgspp never`` for the four 9-mer presets, and
-refuses what it does not support yet instead of clipping or guessing."""
+as ``umgap_tpu analyse --fgspp never`` for the four 9-mer presets, on
+plain and gzipped pairs, on reads that climb the width ladder and on
+multi-line FASTQ (the Python tier), and refuses what it does not support
+yet instead of clipping or guessing."""
 
 import gzip
 import io
@@ -25,27 +27,50 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = 64
 
 
+def _index(path, codes, lens):
+    """A 9-mer index holding the reads' own k-mers (every other one),
+    one taxon per (group, frame)."""
+    n, E, W = codes.shape
+    aa, pl = jtrans.translate6_batch(codes.reshape(n * E, W),
+                                     lens.reshape(-1), jenc.get_table(1))
+    hi, lo, v = (np.asarray(x) for x in jkmers.pack_windows_batch(aa, pl, 9))
+    ids = np.array([2, 10239, 12884, 185751, 185752], np.int32)
+    slot = (np.arange(n * E) // E)[:, None, None] + \
+        np.arange(6)[None, :, None]
+    keys, first = np.unique(jkmers.join_packed(hi[v], lo[v]),
+                            return_index=True)
+    vals = ids[(slot + 0 * v)[v][first] % 5]
+    build_kmer_table(keys[::2], vals[::2], k=9).save(path)
+
+
+def _write_fastq(paths, codes, lens, lines=1):
+    """R1/R2 FASTQ of the code rows, the sequence and quality split over
+    ``lines`` lines (1: strict 4-line records)."""
+    for e, path in enumerate(paths):
+        with open(path, "w") as f:
+            for i in range(len(codes)):
+                seq = jenc.decode_dna(codes[i, e, : lens[i, e]])
+                cut = -(-len(seq) // lines) if seq else 1
+                sl = [seq[j:j + cut] for j in range(0, len(seq), cut)]
+                f.write(f"@read{i}/{e + 1}\n" + "".join(
+                    x + "\n" for x in sl) + "+\n" + "".join(
+                    "I" * len(x) + "\n" for x in sl))
+
+
 @pytest.fixture(scope="module")
 def sample(tmp_path_factory):
     """A paired FASTQ sample (varied lengths, odd ones and N bases
     included), the fixture taxonomy as a TSV and a 9-mer index holding
-    the reads' own k-mers, one taxon per (group, frame)."""
+    the reads' own k-mers, one taxon per (group, frame); the pairs also
+    gzipped."""
     tmp = tmp_path_factory.mktemp("cli")
     rng = np.random.default_rng(11)
     n = 90
     codes = rng.integers(0, 4, size=(n, 2, L)).astype(np.uint8)
     codes[rng.random(codes.shape) < 0.01] = 4
     lens = rng.integers(10, L + 1, size=(n, 2)).astype(np.int32)
-    aa, pl = jtrans.translate6_batch(codes.reshape(2 * n, L), lens.reshape(-1),
-                                     jenc.get_table(1))
-    hi, lo, v = (np.asarray(x) for x in jkmers.pack_windows_batch(aa, pl, 9))
-    ids = np.array([2, 10239, 12884, 185751, 185752], np.int32)
-    slot = (np.arange(2 * n) // 2)[:, None, None] + np.arange(6)[None, :, None]
-    keys, first = np.unique(jkmers.join_packed(hi[v], lo[v]),
-                            return_index=True)
-    vals = ids[(slot + 0 * v)[v][first] % 5]
     index = tmp / "ninemer.npz"
-    build_kmer_table(keys[::2], vals[::2], k=9).save(index)
+    _index(index, codes, lens)
     taxons = tmp / "taxons.tsv"
     with open(taxons, "w") as f:
         for t in fixture_taxa():
@@ -53,24 +78,25 @@ def sample(tmp_path_factory):
             f.write(f"{t.id}\t{t.name}\t{ranks.rank_name(t.rank)}\t"
                     f"{t.parent}\t{valid}\n")
     fq = [tmp / "R1.fq", tmp / "R2.fq"]
-    for e in (0, 1):
-        with open(fq[e], "w") as f:
-            for i in range(n):
-                seq = jenc.decode_dna(codes[i, e, : lens[i, e]])
-                f.write(f"@read{i}/{e + 1}\n{seq}\n+\n{'I' * len(seq)}\n")
+    _write_fastq(fq, codes, lens)
+    gz = [tmp / "R1.fq.gz", tmp / "R2.fq.gz"]
+    for src, dst in zip(fq, gz):
+        with gzip.open(dst, "wb") as f:
+            f.write(src.read_bytes())
 
     def argv(out_dir, tag):
         args = ["analyse", "--taxons", str(taxons), "--index", str(index),
                 "--batch-size", "64", "--read-length", str(L)]
         for p in PRESETS:
-            args += ["-t", p, "-1", str(fq[0]), "-2", str(fq[1]), "-o",
-                     str(out_dir / f"{tag}-{p}.fa")]
+            for kind, (r1, r2) in (("", fq), ("gz-", gz)):
+                args += ["-t", p, "-1", str(r1), "-2", str(r2), "-o",
+                         str(out_dir / f"{tag}-{kind}{p}.fa")]
         return args
 
     assert jax_cli(argv(tmp, "jax") + ["--fgspp", "never"],
                    stdin=io.StringIO(""), stdout=io.StringIO()) == 0
     assert port_cli(argv(tmp, "port") + ["--device", "cpu"]) == 0
-    return dict(tmp=tmp, fq=fq, taxons=taxons, index=index, n=n)
+    return dict(tmp=tmp, fq=fq, gz=gz, taxons=taxons, index=index, n=n)
 
 
 @pytest.mark.parametrize("preset", list(PRESETS))
@@ -79,6 +105,92 @@ def test_cli_output_byte_equal(sample, preset):
     got = (sample["tmp"] / f"port-{preset}.fa").read_bytes()
     assert got == want
     assert got.count(b">") == sample["n"]
+
+
+@pytest.mark.parametrize("preset", list(PRESETS))
+def test_cli_gzip_byte_equal(sample, preset):
+    """Gzipped pairs (the ring tier reads them through zlib) give the
+    JAX package's bytes, and the plain pairs' bytes."""
+    got = (sample["tmp"] / f"port-gz-{preset}.fa").read_bytes()
+    assert got == (sample["tmp"] / f"jax-gz-{preset}.fa").read_bytes()
+    assert got == (sample["tmp"] / f"port-{preset}.fa").read_bytes()
+
+
+def _both(argv):
+    """The same analyse command through umgap_tpu and the port; returns
+    the port's stderr."""
+    jargs = [a.replace("{tag}", "jax") for a in argv]
+    pargs = [a.replace("{tag}", "port") for a in argv]
+    assert jax_cli(jargs + ["--fgspp", "never"], stdin=io.StringIO(""),
+                   stdout=io.StringIO()) == 0
+    err = io.StringIO()
+    old = sys.stderr
+    sys.stderr = err
+    try:
+        assert port_cli(pargs + ["--device", "cpu"]) == 0
+    finally:
+        sys.stderr = old
+    return err.getvalue()
+
+
+@pytest.fixture(scope="module")
+def ladder(sample, tmp_path_factory):
+    """Three paired samples at --read-length 64 whose longest records
+    (200, 500 and 600 bp) need the ladder's rungs 256, 512 and 1,024,
+    through one command, against one index of their reads."""
+    tmp = tmp_path_factory.mktemp("ladder")
+    rng = np.random.default_rng(12)
+    n, W = 24, 600
+    tops = (200, 500, 600)
+    codes = rng.integers(0, 4, size=(3 * n, 2, W)).astype(np.uint8)
+    lens = np.concatenate([rng.integers(20, t + 1, size=(n, 2))
+                           for t in tops]).astype(np.int32)
+    lens[::n, 0] = tops
+    index = tmp / "ninemer.npz"
+    _index(index, codes, lens)
+    argv = ["analyse", "--taxons", str(sample["taxons"]), "--index",
+            str(index), "--batch-size", "64", "--read-length", str(L)]
+    for s, top in enumerate(tops):
+        fq = [tmp / f"L{top}_R1.fq", tmp / f"L{top}_R2.fq"]
+        _write_fastq(fq, codes[s * n:(s + 1) * n], lens[s * n:(s + 1) * n])
+        argv += ["-t", "high-sensitivity", "-1", str(fq[0]), "-2",
+                 str(fq[1]), "-o", str(tmp / f"{{tag}}-{top}.fa")]
+    err = _both(argv)
+    return dict(tmp=tmp, tops=tops, n=n, err=err)
+
+
+@pytest.mark.parametrize("top", [200, 500, 600])
+def test_cli_ladder_byte_equal(ladder, top):
+    """Records longer than --read-length climb the width ladder (never
+    clipped), after the ring tier hands the sample on and says why."""
+    got = (ladder["tmp"] / f"port-{top}.fa").read_bytes()
+    assert got == (ladder["tmp"] / f"jax-{top}.fa").read_bytes()
+    assert got.count(b">") == ladder["n"]
+    assert "run_sample_ring hands the sample on" in ladder["err"]
+    assert f"{top} bp is longer than --read-length {L}" in ladder["err"]
+
+
+def test_cli_multiline_fastq_byte_equal(sample, tmp_path):
+    """Multi-line FASTQ records: both native tiers hand the sample on
+    (StreamUnsupported) and the Python tier gives the JAX package's
+    bytes."""
+    rng = np.random.default_rng(13)
+    n = 40
+    codes = rng.integers(0, 4, size=(n, 2, L)).astype(np.uint8)
+    lens = rng.integers(20, L + 1, size=(n, 2)).astype(np.int32)
+    fq = [tmp_path / "M1.fq", tmp_path / "M2.fq"]
+    _write_fastq(fq, codes, lens, lines=3)
+    assert fq[0].read_text().count("\n") > 4 * n
+    argv = ["analyse", "--taxons", str(sample["taxons"]), "--index",
+            str(sample["index"]), "--batch-size", "64", "--read-length",
+            str(L), "-t", "max-sensitivity", "-1", str(fq[0]), "-2",
+            str(fq[1]), "-o", str(tmp_path / "{tag}.fa")]
+    err = _both(argv)
+    got = (tmp_path / "port.fa").read_bytes()
+    assert got == (tmp_path / "jax.fa").read_bytes()
+    assert got.count(b">") == n
+    for tier in ("run_sample_ring", "run_sample_stream"):
+        assert f"{tier} hands the sample on" in err
 
 
 def _port(sample, *extra, reads=None):
@@ -98,15 +210,10 @@ def _port(sample, *extra, reads=None):
 
 def test_cli_refuses_unsupported_input(sample, tmp_path):
     long_fq = tmp_path / "long.fq"
-    seq = "ACGT" * 20  # 80 bp > --read-length 64: never clipped
+    seq = "ACGT" * 1025  # 4,100 bp > the top width 4,096: never clipped
     long_fq.write_text(f"@x/1\n{seq}\n+\n{'I' * len(seq)}\n")
     rc, err = _port(sample, "--device", "cpu", reads=(long_fq, long_fq))
-    assert rc == 1 and "read-length" in err
-    gz = tmp_path / "R1.fq.gz"
-    with gzip.open(gz, "wb") as f:
-        f.write(sample["fq"][0].read_bytes())
-    rc, err = _port(sample, "--device", "cpu", reads=(gz, sample["fq"][1]))
-    assert rc == 1 and "gzip" in err
+    assert rc == 1 and "4096 bp" in err and "long-read host route" in err
     rc, err = _port(sample, "--device", "cpu", "-t", "tryptic-sensitivity")
     assert rc == 1 and "tryptic" in err
     rc, err = _port(sample, "--device", "cpu", "--fgspp", "auto")

@@ -530,8 +530,8 @@ def test_tree_presets_launch_k6_once_a_batch(dev, preset):
 
 def test_tree_aggregate_refuses_bad_inputs(dev):
     """The wrappers refuse what the kernel cannot take: hit lists that do
-    not match the geometry, wrong dtypes, hit lists too wide for one
-    warp's list in shared memory."""
+    not match the geometry, wrong dtypes; hit lists too wide for one
+    warp's list in shared memory are no longer refused."""
     tax = _random_tree(300, 2)
     dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
     u, c, v = (torch.from_numpy(x).to(dev)
@@ -544,7 +544,87 @@ def test_tree_aggregate_refuses_bad_inputs(dev):
         pagg.tree_aggregate_hits("mrtl", dtax, u, c.double(), v)
     with pytest.raises(ValueError):
         pagg.tree_aggregate_hits("hybrid", dtax, u, None, v)
+    # hit lists too wide for one warp's list in shared memory run from
+    # a global scratch, exactly
     wide = torch.zeros((2, 12000), dtype=torch.int32, device=dev)
-    with pytest.raises(kernels.KernelLaunchError):
-        pagg.tree_aggregate_hits("lca*", dtax, wide, None,
-                                 torch.ones_like(wide, dtype=torch.bool))
+    every = torch.ones_like(wide, dtype=torch.bool)
+    assert pagg.tree_scratch_bytes(2, 12000) > 0
+    assert torch.equal(
+        pagg.tree_aggregate_hits("lca*", dtax, wide, None, every),
+        pagg.tree_aggregate_hits_plain("lca*", dtax, wide, None, every))
+
+
+# ---------------------------------------------------------------------- #
+# The wide paths: rows past each kernel's shared-memory budget
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_reads_to_kmers_direct_kernel(dev, packed):
+    """K1 at 20,000 bp, past the tile's shared memory at 4 reads a
+    block: the direct kernel, one thread a window."""
+    L = 20000
+    assert translate.reads_to_kmers_path(L, 9, packed) == "direct"
+    assert translate.reads_to_kmers_path(4096, 9, packed) == "tile"
+    rng = np.random.default_rng(20 + packed)
+    for n in (1, 9):
+        src, lens = _k1_reads(rng, n, L, packed)
+        _k1_check(dev, src, lens, L, 11, packed, methionine=True)
+
+
+def test_seedextend_kernel_global_deltas(dev):
+    """K3 at 4,000 windows a lane, past one warp's delta rows in shared
+    memory: the direct kernel with its delta rows in global memory."""
+    N = 4000
+    assert seedextend.seedextend_path(N) == "global"
+    assert seedextend.seedextend_path(3600) == "direct"
+    rng = np.random.default_rng(4000)
+    taxa, lens = _seed_lanes(rng, 131, N)
+    before = kernels.K3.launches
+    for s, g in ((2, 0), (3, 1)):
+        _k3_check(dev, taxa, lens, s, g)
+    assert kernels.K3.launches == before + 4
+
+
+@pytest.mark.parametrize("k_max", [64, 30000])
+def test_dedup_kernel_global_path(dev, k_max):
+    """K4 at N = 24,576 hits a row (past the block path's 16,384): the
+    global path, on more rows than it runs blocks (each block takes
+    several rows), with and without weights."""
+    N = 24576
+    assert pagg.dedup_path(N) == "global"
+    assert pagg.dedup_path(pagg.MAX_DEDUP_N) == "block"
+    rows = np.tile(_dedup_rows(N, k_max), (6, 1))
+    assert len(rows) > pagg.DEDUP_GLOBAL_BLOCKS
+    taxa = torch.from_numpy(rows).to(dev)
+    before = kernels.K4.launches
+    _eq(pagg.dedup_counts(taxa, None, k_max, True),
+        pagg.dedup_counts_plain(taxa, None, k_max, True))
+    w = torch.from_numpy(np.random.default_rng(k_max).integers(
+        0, 5, size=rows.shape).astype(np.float32)).to(dev)
+    _eq(pagg.dedup_counts(taxa, w, k_max, True),
+        pagg.dedup_counts_plain(taxa, w, k_max, True))
+    assert kernels.K4.launches == before + 2
+
+
+def test_tree_aggregate_wide_lists(dev):
+    """K6 at K = 16,392 (the wide program of paired reads at 4,096 bp),
+    whose warp lists live in the global scratch: groups of 0-17, more
+    than 64 and all K valid distinct taxa (two blocks of groups), all
+    three strategies against their plain versions, taken four groups at
+    a time (the plain versions build (B, K, K) tensors)."""
+    K, B = 16392, 40
+    assert pagg.tree_scratch_bytes(B, K) > 0
+    assert pagg.tree_scratch_bytes(B, 11571) == 0
+    tax = _bench_tree()
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    u, c, v = (torch.from_numpy(x).to(dev) for x in _k6_hits(tax, B, K, 7))
+    n_valid = v.sum(dim=1)
+    assert (n_valid > 64).sum() >= 8 and int(n_valid.max()) == K
+    for strategy in ("hybrid", "lca*", "mrtl"):
+        before = kernels.K6.launches
+        got = pagg.tree_aggregate_hits(strategy, dtax, u, c, v)
+        assert kernels.K6.launches == before + 1
+        want = torch.cat([pagg.tree_aggregate_hits_plain(
+            strategy, dtax, u[s:s + 4], c[s:s + 4], v[s:s + 4])
+            for s in range(0, B, 4)])
+        assert got.dtype == torch.int32 and torch.equal(got, want)

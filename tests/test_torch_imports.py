@@ -6,6 +6,7 @@ rest of the repository."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -51,6 +52,38 @@ def test_no_jax_or_reference_package_import(path):
     for name in _imported(path):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path} imports {name}"
+
+
+def _port_files():
+    """Every source of the port (Python, C++, CUDA) and chip_smoke.py."""
+    for root, _dirs, files in os.walk(os.path.join(REPO, "umgap_tpu_torch")):
+        if os.path.basename(root) in ("_build", "__pycache__"):
+            continue
+        for f in files:
+            if f.endswith((".py", ".cpp", ".cu", ".cuh")):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_never_builds_or_loads_the_repo_native_library():
+    """No source names the repository's native/ directory or its
+    libumgap_native.so, and the host library's build command compiles
+    only the port's own sources into the port's build directory."""
+    repo_native = os.path.join(REPO, "native") + os.sep
+    for path in _port_files():
+        text = open(path, encoding="utf-8").read()
+        assert "libumgap_native" not in text, path
+        assert "umgap_native.cpp" not in text, path
+        own = text.replace("umgap_tpu_torch/native/", "")
+        assert not re.search(r"(?<![\w.])native/", own), path
+    from umgap_tpu_torch.io import native
+
+    out = native.lib_path()
+    cmd = native.build_command(out)
+    for arg in cmd:
+        assert not os.path.abspath(arg).startswith(repo_native), arg
+    assert str(out).startswith(os.path.join(REPO, "umgap_tpu_torch",
+                                            "_build"))
 
 
 @pytest.fixture

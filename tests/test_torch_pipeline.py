@@ -248,6 +248,47 @@ def test_analyser_wide_reroute_matches_jax(toy, preset):
     assert pa.overflow_reads == ja.overflow_reads > 0
 
 
+@pytest.mark.parametrize("preset", ["max-sensitivity", "high-precision"])
+def test_analyser_feed_packed_matches_jax(toy, preset):
+    """Batches already on the 4-bit wire (what the native ring stream
+    gives: the last one padded with 0x44 rows) through ``feed_packed``,
+    with k_max=2 so that most groups re-route from their packed rows:
+    the JAX package's ``feed_packed`` taxa, and ``analyse_arrays``'."""
+    rng = np.random.default_rng(6)
+    n, L, B = 150, 47, 64
+    dna = rng.integers(0, 4, size=(n, 2, L)).astype(np.uint8)
+    dna[:n // 2] = np.tile(toy["dna"][:, :, :L], (n // 16 + 1, 1, 1))[:n // 2]
+    lens = rng.integers(0, L + 1, size=(n, 2)).astype(np.int32)
+    dna[np.arange(L)[None, None, :] >= lens[:, :, None]] = penc.DNA_N
+    headers = [f"g{i}" for i in range(n)]
+    dna4 = penc.pack_dna4(dna)
+    cfg = JPRESETS[preset]._replace(k_max=2)
+    ja = JAnalyser(toy["tax"], toy["table"], cfg, batch_size=B,
+                   read_length=L, ends=2)
+    pt, px = toy["state"]
+    pa = Analyser(None, None, PRESETS[preset]._replace(k_max=2),
+                  batch_size=B, read_length=L, ends=2, dtax=px, dtable=pt,
+                  device="cpu")
+
+    def run(an):
+        out = []
+        for s in range(0, n, B):
+            d4 = np.full((B, 2, dna4.shape[-1]), 0x44, np.uint8)
+            ln = np.zeros((B, 2), np.int32)
+            m = min(B, n - s)
+            d4[:m], ln[:m] = dna4[s:s + m], lens[s:s + m]
+            out += [(h, int(t)) for hs, ts in an.feed_packed(
+                headers[s:s + m], d4, ln, m) for h, t in zip(hs, ts)]
+        return out + [(h, int(t)) for hs, ts in an.finish_batches()
+                      for h, t in zip(hs, ts)]
+
+    got = run(pa)
+    assert got == run(ja)
+    assert pa.overflow_reads == ja.overflow_reads > 0
+    pa.reset()
+    assert got == list(pa.analyse_arrays(headers, dna, lens))
+
+
 def _carry_euler(jtax):
     je = jrmq.DeviceEuler.from_host(jtax)
     return je, convert.euler_from_arrays(

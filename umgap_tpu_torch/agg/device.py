@@ -32,9 +32,22 @@ from ..taxonomy import NONE, Taxonomy
 I32_MAX = int(np.iinfo(np.int32).max)
 MAX_DEDUP_N = 16384  # hits per row the kernel sorts in shared memory
 WARP_DEDUP_N = 1024  # up to here one warp owns a row; above, a block
+# Above MAX_DEDUP_N a block sorts each row in a global scratch row; at
+# most this many rows at once (two 1024-thread blocks on each of the
+# H100's 132 SMs) and DEDUP_SCRATCH_MAX bytes of scratch
+DEDUP_GLOBAL_BLOCKS = 264
+DEDUP_SCRATCH_MAX = 1 << 28
+_DEDUP_PATHS = {"block": 0, "warp": 1, "global": 2}
 # K6 walks a group of up to this many valid hits with one thread, a
 # larger one with a warp (kThreadCap in csrc/tree_aggregate.cu)
 TREE_THREAD_CAP = 16
+# A warp's list takes 20 bytes a slot (list_bytes), in the block's shared
+# memory while one list fits (kSmemMax), else in a global scratch of one
+# list a warp, kBlockWarps a block; one launch takes at most
+# TREE_SCRATCH_MAX bytes of it, and wider batches take several launches
+TREE_SMEM_MAX = 226 * 1024
+TREE_BLOCK_WARPS = 8
+TREE_SCRATCH_MAX = 1 << 28
 
 
 class DeviceTaxonomy:
@@ -143,11 +156,12 @@ def dedup_counts_plain(taxa: torch.Tensor, weights, k_max: int,
 def dedup_path(N: int) -> str:
     """K4's path for rows of N hits: ``"warp"`` (one warp per row, work
     in proportion to the row's valid hits) up to :data:`WARP_DEDUP_N`,
-    ``"block"`` (one block sorts the whole padded row) up to
-    :data:`MAX_DEDUP_N`."""
-    if N > MAX_DEDUP_N:
-        raise ValueError(f"dedup_counts: {N} hits per row > {MAX_DEDUP_N}")
-    return "warp" if N <= WARP_DEDUP_N else "block"
+    ``"block"`` (one block sorts the whole padded row in shared memory)
+    up to :data:`MAX_DEDUP_N`, ``"global"`` (the same sort in a global
+    scratch row) above."""
+    if N <= WARP_DEDUP_N:
+        return "warp"
+    return "block" if N <= MAX_DEDUP_N else "global"
 
 
 def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
@@ -165,7 +179,7 @@ def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
     B, N = taxa.shape
     if taxa.dtype != torch.int32:
         raise ValueError("dedup_counts: taxa must be int32")
-    warp = dedup_path(N) == "warp"
+    path = dedup_path(N)
     tensors = [taxa]
     if weights is not None:
         if weights.dtype != torch.float32 or weights.shape != taxa.shape:
@@ -177,10 +191,18 @@ def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
     ucounts = torch.empty((B, k_max), dtype=torch.float32, device=dev)
     uvalid = torch.empty((B, k_max), dtype=torch.bool, device=dev)
     nuniq = torch.empty((B,), dtype=torch.int32, device=dev)
+    scratch, rows = None, 0
+    if path == "global":
+        row_bytes = 8 << max(N - 1, 1).bit_length()  # M keys and weights
+        rows = min(B, DEDUP_GLOBAL_BLOCKS,
+                   max(1, DEDUP_SCRATCH_MAX // row_bytes))
+        scratch = torch.empty(rows * row_bytes, dtype=torch.uint8,
+                              device=dev)
     kernels.K4.launch(taxa.data_ptr(),
                       0 if weights is None else weights.data_ptr(), B, N,
                       k_max, utaxa.data_ptr(), ucounts.data_ptr(),
-                      uvalid.data_ptr(), nuniq.data_ptr(), int(warp),
+                      uvalid.data_ptr(), nuniq.data_ptr(), _DEDUP_PATHS[path],
+                      0 if scratch is None else scratch.data_ptr(), rows,
                       kernels.stream_of(taxa))
     out = (utaxa, ucounts, uvalid)
     return out + (nuniq,) if return_nuniq else out
@@ -338,6 +360,20 @@ def tree_path(n_valid: int) -> str:
     return "thread" if n_valid <= TREE_THREAD_CAP else "warp"
 
 
+def tree_list_bytes(K: int) -> int:
+    """Bytes of one warp's list of K slots in K6."""
+    return (K * 20 + 15) & ~15
+
+
+def tree_scratch_bytes(B: int, K: int) -> int:
+    """Global scratch K6 needs for B groups of K slots: 0 while one
+    warp's list fits the block's shared memory, else a list for each
+    warp of each block of 32 groups."""
+    if tree_list_bytes(K) <= TREE_SMEM_MAX:
+        return 0
+    return -(-B // 32) * TREE_BLOCK_WARPS * tree_list_bytes(K)
+
+
 def tree_aggregate(strategy: str, dtax: DeviceTaxonomy, geom: HitGeometry,
                    utaxa, ucounts=None, factor: float = 0.25):
     """The tree aggregators on a :class:`HitGeometry` (this batch's
@@ -376,7 +412,10 @@ def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
 
     CPU tensors take :func:`tree_aggregate_hits_plain`; CUDA tensors
     launch K6 once, which reads the valid hits' rows of ``dtax.geom``
-    itself: no (B, K, D) or (B, K, K) tensor is built."""
+    itself: no (B, K, D) or (B, K, K) tensor is built. Lists too wide for
+    shared memory (K > 11,571) go to a scratch of
+    :func:`tree_scratch_bytes`, one launch per :data:`TREE_SCRATCH_MAX`
+    bytes of it."""
     if utaxa.is_cpu:
         return tree_aggregate_hits_plain(strategy, dtax, utaxa, ucounts,
                                          uvalid, factor)
@@ -403,11 +442,20 @@ def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
         raise ValueError(f"tree_aggregate_hits: tensors on {geom.device} "
                          f"and {utaxa.device}")
     out = torch.empty((B,), dtype=torch.int32, device=utaxa.device)
-    kernels.K6.launch(
-        TREE_STRATEGIES[strategy], geom.data_ptr(), size, W,
-        0 if ucounts is None else ucounts.data_ptr(), uvalid.data_ptr(),
-        utaxa.data_ptr(), B, K, dtax.root, float(factor), out.data_ptr(),
-        kernels.stream_of(utaxa))
+    rows, scratch = B, None
+    if tree_scratch_bytes(B, K):
+        per_block = TREE_BLOCK_WARPS * tree_list_bytes(K)
+        rows = min(B, max(1, TREE_SCRATCH_MAX // per_block) * 32)
+        scratch = torch.empty(tree_scratch_bytes(rows, K), dtype=torch.uint8,
+                              device=utaxa.device)
+    for s in range(0, B, rows):
+        n = min(rows, B - s)
+        kernels.K6.launch(
+            TREE_STRATEGIES[strategy], geom.data_ptr(), size, W,
+            0 if ucounts is None else ucounts[s:].data_ptr(),
+            uvalid[s:].data_ptr(), utaxa[s:].data_ptr(), n, K, dtax.root,
+            float(factor), 0 if scratch is None else scratch.data_ptr(),
+            out[s:].data_ptr(), kernels.stream_of(utaxa))
     return out
 
 

@@ -7,17 +7,31 @@ the paired-end delimiter, input order). The run is on the current CUDA
 device unless ``--device`` says otherwise; without a card it fails and
 says how to ask for the CPU.
 
+A sample goes through three ingest tiers, as in ``umgap_tpu``: the
+native ring stream (:func:`run_sample_ring`: a C++ thread parses, gzip
+included, and packs batches on the 4-bit wire), the native chunked
+stream (:func:`run_sample_stream`: the width ladder, read widths grow
+along 256, 512, ... 4,096 bp), and the Python reader
+(:func:`run_sample_fallback`: any FASTQ the readers take). A tier hands
+the sample to the next only on records that are not strictly 4-line
+FASTQ or on a record wider than its width, says why on stderr, and the
+next tier skips the records already written.
+
 Not in this port yet, each refused with a clear error rather than run
-differently: records longer than ``--read-length`` (no length ladder or
-long-read host route), gzipped input, FragGeneScan++ (the precision
-presets always use six-frame translation, as ``--fgspp never``), the
-tryptic presets, ``--mesh``, ``--shards`` and ``--serve``.
+differently: records longer than the top width (4,096 bp, or
+``--read-length`` above it), which ``umgap_tpu`` sends through an exact
+host route; FragGeneScan++ (the precision presets always use six-frame
+translation, as ``--fgspp never``), the tryptic presets, ``--mesh``,
+``--shards`` and ``--serve``.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import sys
+
+import numpy as np
 
 from .pipeline.fused import PRESETS
 
@@ -94,7 +108,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--batch-size", type=int, default=16384,
                     help="max read groups per device batch")
     sp.add_argument("--read-length", type=int, default=160,
-                    help="device read width; longer records are refused")
+                    help="device read width; longer records climb the "
+                         "width ladder up to 4,096 bp")
     sp.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device; "
                          "'cpu' runs the plain PyTorch path)")
@@ -107,6 +122,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+# Top device width (covers full Illumina and long amplicon ranges). A
+# group with a record beyond it is not clipped: ``umgap_tpu`` runs it
+# through an exact host route, which this port does not have yet, so it
+# refuses the sample.
+ANALYSE_WIDTH_CAP = 4096
+
+
 def _pow2_bucket(n: int, lo: int, hi: int) -> int:
     """Smallest power of two >= n within [lo, hi] (hi rounded down to a
     power of two), so tiny samples run small batches."""
@@ -117,21 +139,275 @@ def _pow2_bucket(n: int, lo: int, hi: int) -> int:
     return min(b, hi)
 
 
-def cmd_analyse(args, stdout):
-    import itertools
+def _analyse_width_ladder(read_length: int):
+    ladder = [read_length]
+    w = 256
+    while w <= ANALYSE_WIDTH_CAP:
+        if w > ladder[-1]:
+            ladder.append(w)
+        w *= 2
+    return ladder
 
-    from .index.table import load_table
-    from .agg.device import DeviceTaxonomy
-    from .device import resolve_device
-    from .ops.lookup import DeviceTable
+
+class _SampleReroute(Exception):
+    """A tier met a record it cannot handle exactly; the sample restarts
+    in the next tier (the emitted-prefix skip keeps already-written
+    records intact)."""
+
+
+class _LongNinemerSample(_SampleReroute):
+    """The sample holds records beyond the tier's width."""
+
+
+def _hand_on(tier, reason) -> None:
+    print(f"umgap_tpu_torch analyse: {tier.__name__} hands the sample on: "
+          f"{reason}", file=sys.stderr, flush=True)
+
+
+class AnalyseSession:
+    """What one ``analyse`` invocation shares across its samples: the
+    parsed arguments, the taxonomy and index on the host and on the
+    device, and one :class:`~.pipeline.runner.Analyser` per (preset,
+    batch, width, ends)."""
+
+    def __init__(self, args, tax, table, dtax, dtable, device):
+        self.args = args
+        self.tax, self.table = tax, table
+        self.dtax, self.dtable = dtax, dtable
+        self.device = device
+        self.analysers: dict = {}
+
+    @classmethod
+    def load(cls, args) -> "AnalyseSession":
+        from .agg.device import DeviceTaxonomy
+        from .device import resolve_device
+        from .index.table import load_table
+        from .ops.lookup import DeviceTable
+        from .taxonomy import Taxonomy, read_taxa_file
+
+        device = resolve_device(args.device)
+        tax = Taxonomy(read_taxa_file(args.taxons))
+        table = load_table(args.index, mmap=True)
+        return cls(args, tax, table, DeviceTaxonomy.from_host(tax, device),
+                   DeviceTable.from_host(table, device), device)
+
+    def get_analyser(self, preset: str, B: int, L: int, ends: int):
+        from .pipeline.runner import Analyser
+
+        key = (preset, B, L, ends)
+        an = self.analysers.get(key)
+        if an is None:
+            an = Analyser(self.tax, self.table, PRESETS[preset],
+                          batch_size=B, read_length=L, ends=ends,
+                          dtax=self.dtax, dtable=self.dtable,
+                          device=self.device)
+            self.analysers[key] = an
+        else:
+            an.reset()
+        return an
+
+    def batch_cap(self, L: int) -> int:
+        # batches shrink as the width grows (a bounded device batch)
+        return max(64, (self.args.batch_size * self.args.read_length) // L)
+
+    def reset(self) -> None:
+        for an in self.analysers.values():
+            an.reset()
+
+
+def run_sample_ring(session: AnalyseSession, sample):
+    """The fastest tier: the C++ producer thread parses, encodes and
+    4-bit packs reads into device batches (GIL-free); this loop only
+    dispatches and drains. Yields ((header blob, offsets), taxa)
+    batches, formatted natively on the output side. Records beyond
+    --read-length hand the sample to the chunked tier."""
+    from .io.native import NativeBatchStream
+
+    args = session.args
+    paired = bool(sample["second"])
+    ends = 2 if paired else 1
+    fmt = "fastq" if paired else "fasta"
+    L = args.read_length
+    B = max(64, args.batch_size)
+    stream = NativeBatchStream(sample["first"], sample["second"], fmt, L, B)
+    try:
+        first = stream.next()
+        if first is None:
+            return
+        second = stream.next()  # is the sample one batch long?
+        B_an = (_pow2_bucket(first[0], 64, B)
+                if second is None and first[0] < B else B)
+        analyser = session.get_analyser(sample["type"], B_an, L, ends)
+
+        def fit(dna4, lens):
+            if B_an <= dna4.shape[0]:
+                return dna4[:B_an], lens[:B_an]
+            pad = B_an - dna4.shape[0]
+            return (np.pad(dna4, ((0, pad), (0, 0), (0, 0)),
+                           constant_values=0x44),
+                    np.pad(lens, ((0, pad), (0, 0))))
+
+        batches = itertools.chain(
+            [first] if second is None else [first, second],
+            iter(stream.next, None))
+        for n, dna4, lens, blob, offs, tmax in batches:
+            if tmax > L:
+                raise _LongNinemerSample(
+                    f"a record of {tmax} bp is longer than --read-length "
+                    f"{L}")
+            d4, ln = fit(dna4, lens)
+            yield from analyser.feed_packed((blob, offs), d4, ln, n)
+        yield from analyser.finish_batches()
+    finally:
+        stream.close()
+
+
+def run_sample_stream(session: AnalyseSession, sample):
+    """The chunked native tier with the width ladder; yields (headers,
+    taxa) batches in input order. Records beyond the top rung hand the
+    sample to the Python tier."""
+    from .pipeline.runner import stream_paired_chunks, stream_single_chunks
+
+    args = session.args
+    paired = bool(sample["second"])
+    ends = 2 if paired else 1
+    ladder = _analyse_width_ladder(args.read_length)
+    if paired:
+        chunks = iter(stream_paired_chunks(
+            sample["first"], sample["second"], args.read_length,
+            width_ladder=ladder))
+    else:
+        chunks = iter(stream_single_chunks(
+            sample["first"], args.read_length, "fasta",
+            width_ladder=ladder))
+
+    # pre-buffer up to one full batch to size the batch bucket
+    buffered = []
+    total = 0
+    exhausted = False
+    while total < args.batch_size:
+        try:
+            ch = next(chunks)
+        except StopIteration:
+            exhausted = True
+            break
+        buffered.append(ch)
+        total += len(ch[0])
+    n_hint = total if exhausted else 1 << 60
+
+    analyser = None
+    for headers, dna, lens, tmax in itertools.chain(buffered, chunks):
+        Lw = dna.shape[-1]
+        if tmax > ladder[-1]:
+            raise _LongNinemerSample(
+                f"a record of {tmax} bp is longer than the top width "
+                f"{ladder[-1]}")
+        if analyser is None or Lw > analyser.read_length:
+            if analyser is not None:
+                yield from analyser.finish_batches()
+            B = _pow2_bucket(n_hint, 64, session.batch_cap(Lw))
+            analyser = session.get_analyser(sample["type"], B, Lw, ends)
+        yield from analyser.feed_batches(headers, dna, lens)
+    if analyser is not None:
+        yield from analyser.finish_batches()
+
+
+def run_sample_fallback(session: AnalyseSession, sample):
+    """The Python-reader tier (any record shape the readers take, gzip
+    sniffed): the whole sample at the ladder's width that fits its
+    longest record. Groups beyond the top width are refused."""
     from .pipeline.runner import (
-        Analyser,
         encode_batch,
         read_groups_fasta,
         read_groups_fastq,
     )
-    from .taxonomy import Taxonomy, read_taxa_file
 
+    args = session.args
+    if sample["second"]:
+        groups = list(read_groups_fastq([sample["first"],
+                                         sample["second"]]))
+        ends = 2
+    else:
+        groups = list(read_groups_fasta(sample["first"]))
+        ends = 1
+    ladder = _analyse_width_ladder(args.read_length)
+    cap = ladder[-1]
+    maxlen = max((len(s) for _h, ss in groups for s in ss), default=0)
+    if maxlen > cap:
+        n_long = sum(1 for _h, ss in groups
+                     if max((len(s) for s in ss), default=0) > cap)
+        raise CliError(
+            f"{n_long} read group(s) hold records longer than the device "
+            f"width cap of {cap} bp (the longest {maxlen} bp); umgap_tpu "
+            "runs them through its exact long-read host route, which "
+            "umgap_tpu_torch does not have yet (records are never clipped)")
+    L = next(w for w in ladder if w >= maxlen)
+    B = _pow2_bucket(len(groups), 64, session.batch_cap(L))
+    analyser = session.get_analyser(sample["type"], B, L, ends)
+    for s in range(0, len(groups), B):
+        chunk = groups[s:s + B]
+        dna, lens = encode_batch([g[1] for g in chunk], ends, L)
+        yield from analyser.feed_batches([g[0] for g in chunk], dna, lens)
+    yield from analyser.finish_batches()
+
+
+TIERS = (run_sample_ring, run_sample_stream, run_sample_fallback)
+
+
+def run_sample(session: AnalyseSession, sample):
+    """The sample through the tiers: a tier that meets input it cannot
+    handle exactly raises, and the next tier restarts the sample. Reads
+    already emitted were analysed correctly (the trigger lies after them
+    in the stream), and every tier is order-preserving and per-read
+    deterministic, so the rerun skips that prefix."""
+    from .io.native import StreamUnsupported, ensure_built
+
+    ensure_built()  # a failed build raises: no quiet switch of tier
+    emitted = 0
+    for i, tier in enumerate(TIERS):
+        last = i == len(TIERS) - 1
+        skip = emitted
+        try:
+            for hs, ts in tier(session, sample):
+                n = len(ts)
+                if skip >= n:
+                    skip -= n
+                    continue
+                if skip:
+                    # blob-header batches come from the first tier only,
+                    # so a partial skip always slices header lists
+                    hs, ts = hs[skip:], ts[skip:]
+                    skip = 0
+                    n = len(ts)
+                emitted += n
+                yield hs, ts
+            return
+        except (StreamUnsupported, _SampleReroute) as e:
+            if last:
+                raise
+            _hand_on(tier, e)
+            session.reset()
+
+
+def write_batches(handle, batches) -> int:
+    """Write (headers, taxa) batches as ``>header\ntaxon\n`` records;
+    ring batches, whose headers are a (blob, offsets) pair, are
+    formatted natively in one call. Returns the record count."""
+    from .io import native
+
+    n = 0
+    for hs, ts in batches:
+        if isinstance(hs, tuple):
+            blob, offs = hs
+            handle.write(native.format_output(blob, offs, ts).decode())
+        else:
+            handle.write("".join(
+                f">{h}\n{t}\n" for h, t in zip(hs, ts.tolist())))
+        n += len(ts)
+    return n
+
+
+def cmd_analyse(args, stdout):
     if args.fgspp != "never":
         raise CliError("FragGeneScan++ is not supported by umgap_tpu_torch "
                        "yet (use --fgspp never)")
@@ -140,46 +416,12 @@ def cmd_analyse(args, stdout):
         if s["type"] in TRYPTIC_PRESETS:
             raise CliError(f"preset {s['type']} (tryptic) is not supported "
                            "by umgap_tpu_torch yet")
-    device = resolve_device(args.device)
-    tax = Taxonomy(read_taxa_file(args.taxons))
-    table = load_table(args.index, mmap=True)
-    dtax = DeviceTaxonomy.from_host(tax, device)
-    dtable = DeviceTable.from_host(table, device)
-    analysers: dict = {}
-
+    session = AnalyseSession.load(args)
     for sample in samples:
-        paired = bool(sample["second"])
-        ends = 2 if paired else 1
-        groups = (read_groups_fastq([sample["first"], sample["second"]])
-                  if paired else read_groups_fasta(sample["first"]))
-        L = args.read_length
-        head = list(itertools.islice(groups, args.batch_size))
-        B = (_pow2_bucket(len(head), 64, args.batch_size)
-             if len(head) < args.batch_size else args.batch_size)
-        key = (sample["type"], B, ends)
-        an = analysers.get(key)
-        if an is None:
-            an = Analyser(tax, table, PRESETS[sample["type"]], batch_size=B,
-                          read_length=L, ends=ends, dtax=dtax, dtable=dtable,
-                          device=device)
-            analysers[key] = an
-        else:
-            an.reset()
-
-        def batches():
-            chunk = head
-            while chunk:
-                dna, lens = encode_batch([g[1] for g in chunk], ends, L)
-                yield from an.feed_batches([g[0] for g in chunk], dna, lens)
-                chunk = list(itertools.islice(groups, B))
-            yield from an.finish_batches()
-
         out = sample["output"]
         handle = stdout if out in (None, "-") else open(out, "w")
         try:
-            for hs, ts in batches():
-                handle.write("".join(
-                    f">{h}\n{t}\n" for h, t in zip(hs, ts.tolist())))
+            write_batches(handle, run_sample(session, sample))
         finally:
             if handle is not stdout:
                 handle.close()

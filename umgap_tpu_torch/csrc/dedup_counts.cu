@@ -43,6 +43,15 @@
 // 256-thread block per row bitonic-sorts all N entries (entries <= 0 as
 // INT32_MAX, weight 0) padded to a power of two in shared memory, a
 // block scan numbers the run heads, and each head sums its run.
+//
+// Global path (N > 16,384: paired reads above 4,124 bp, whose padded
+// rows no longer fit a block's shared memory): the block path's steps
+// with the row's keys and weights in a global scratch the caller
+// allocates, one 1024-thread block per scratch row, each block taking
+// rows blockIdx.x, blockIdx.x + gridDim.x, ... A block barrier orders
+// the global stores of a stage before the next stage's loads, as it
+// does for shared memory. A simple path: every compare-exchange of the
+// network goes to L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -248,22 +257,18 @@ __global__ void dedup_warp(const int32_t* __restrict__ taxa,
   if (lane == 0) nuniq[row] = U;
 }
 
-__global__ void dedup_block(const int32_t* __restrict__ taxa,
-                            const float* __restrict__ weights, int N,
-                            int M, int k_max, int32_t* __restrict__ utaxa,
-                            float* __restrict__ ucounts,
-                            uint8_t* __restrict__ uvalid,
-                            int32_t* __restrict__ nuniq) {
-  extern __shared__ unsigned char smem[];
-  int32_t* key = reinterpret_cast<int32_t*>(smem);
-  float* w = reinterpret_cast<float*>(key + M);
-  int* warp_sums = reinterpret_cast<int*>(w + M);  // [32]
-
-  const int row = blockIdx.x;
+// One row through the block path's steps: key and w hold M entries (in
+// shared memory, or the row's global scratch), warp_sums 32 ints of
+// shared memory.
+__device__ void block_dedup_row(const int32_t* __restrict__ t,
+                                const float* __restrict__ wt, int N, int M,
+                                int k_max, int32_t* key, float* w,
+                                int* warp_sums, int32_t* __restrict__ utaxa,
+                                float* __restrict__ ucounts,
+                                uint8_t* __restrict__ uvalid, int32_t* nuniq,
+                                long long row) {
   const int tid = threadIdx.x;
   const int T = blockDim.x;
-  const int32_t* t = taxa + (long long)row * N;
-  const float* wt = weights ? weights + (long long)row * N : nullptr;
 
   for (int i = tid; i < M; i += T) {
     int32_t v = i < N ? t[i] : 0;
@@ -321,7 +326,7 @@ __global__ void dedup_block(const int32_t* __restrict__ taxa,
   int r = incl - cnt + (warp > 0 ? warp_sums[warp - 1] : 0);
   const int total = warp_sums[n_warps - 1];
 
-  const long long o0 = (long long)row * k_max;
+  const long long o0 = row * k_max;
   for (int i = lo; i < lo + C; ++i) {
     const int32_t v = key[i];
     if (v == I32_MAX || (i > 0 && key[i - 1] == v)) continue;
@@ -340,6 +345,42 @@ __global__ void dedup_block(const int32_t* __restrict__ taxa,
     uvalid[o0 + c] = 0;
   }
   if (tid == 0) nuniq[row] = total;
+  __syncthreads();  // key, w and warp_sums are reused by the next row
+}
+
+__global__ void dedup_block(const int32_t* __restrict__ taxa,
+                            const float* __restrict__ weights, int N,
+                            int M, int k_max, int32_t* __restrict__ utaxa,
+                            float* __restrict__ ucounts,
+                            uint8_t* __restrict__ uvalid,
+                            int32_t* __restrict__ nuniq) {
+  extern __shared__ unsigned char smem[];
+  int32_t* key = reinterpret_cast<int32_t*>(smem);
+  float* w = reinterpret_cast<float*>(key + M);
+  int* warp_sums = reinterpret_cast<int*>(w + M);  // [32]
+  const long long row = blockIdx.x;
+  block_dedup_row(taxa + row * N, weights ? weights + row * N : nullptr, N,
+                  M, k_max, key, w, warp_sums, utaxa, ucounts, uvalid, nuniq,
+                  row);
+}
+
+// The global path: block b sorts rows b, b + gridDim.x, ... in its
+// scratch row of M keys and M weights.
+__global__ void dedup_global(const int32_t* __restrict__ taxa,
+                             const float* __restrict__ weights, int B, int N,
+                             int M, int k_max, int32_t* __restrict__ utaxa,
+                             float* __restrict__ ucounts,
+                             uint8_t* __restrict__ uvalid,
+                             int32_t* __restrict__ nuniq,
+                             unsigned char* __restrict__ scratch) {
+  __shared__ int warp_sums[32];
+  int32_t* key =
+      reinterpret_cast<int32_t*>(scratch + (size_t)blockIdx.x * M * 8);
+  float* w = reinterpret_cast<float*>(key + M);
+  for (long long row = blockIdx.x; row < B; row += gridDim.x)
+    block_dedup_row(taxa + row * N, weights ? weights + row * N : nullptr,
+                    N, M, k_max, key, w, warp_sums, utaxa, ucounts, uvalid,
+                    nuniq, row);
 }
 
 int pow2_at_least(int n, int lo) {
@@ -376,12 +417,14 @@ extern "C" const char* umgap_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// weights may be null (every hit weighs 1.0). warp != 0 takes the warp
-// path (the wrapper chooses it for N <= 1024), else the block path.
+// weights may be null (every hit weighs 1.0). path: 1 the warp path (the
+// wrapper chooses it for N <= 1024), 0 the block path (N <= 16,384), 2
+// the global path, with `scratch` of scratch_rows * M * 8 bytes (M the
+// power of two >= N) and scratch_rows blocks.
 extern "C" int dedup_counts(const void* taxa, const void* weights, int B,
                             int N, int k_max, void* utaxa, void* ucounts,
-                            void* uvalid, void* nuniq, int warp,
-                            void* stream) {
+                            void* uvalid, void* nuniq, int path,
+                            void* scratch, int scratch_rows, void* stream) {
   if (B <= 0) return 0;
   const int32_t* t = (const int32_t*)taxa;
   const float* w = (const float*)weights;
@@ -391,7 +434,14 @@ extern "C" int dedup_counts(const void* taxa, const void* weights, int B,
   int32_t* nu = (int32_t*)nuniq;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaSuccess;
-  if (warp) {
+  if (path == 2) {
+    if (scratch == nullptr || scratch_rows <= 0)
+      return (int)cudaErrorInvalidValue;
+    const int M = pow2_at_least(N, 1024);
+    const int blocks = scratch_rows < B ? scratch_rows : B;
+    dedup_global<<<blocks, 1024, 0, s>>>(t, w, B, N, M, k_max, ut, uc, uv,
+                                         nu, (unsigned char*)scratch);
+  } else if (path == 1) {
     // 16-byte row loads need rows of a multiple of 4 entries (and
     // 16-byte aligned bases, which PyTorch's allocations are)
     const bool vec = N % 4 == 0 && ((uintptr_t)t & 15) == 0 &&
@@ -421,5 +471,5 @@ extern "C" int dedup_counts_packed(const void* args) {
   const PackedArgs a{(const unsigned char*)args};
   return dedup_counts(a.ptr(0), a.ptr(1), (int)a.i(2), (int)a.i(3), (int)a.i(4),
                       a.ptr(5), a.ptr(6), a.ptr(7), a.ptr(8), (int)a.i(9),
-                      a.ptr(10));
+                      a.ptr(10), (int)a.i(11), a.ptr(12));
 }

@@ -44,6 +44,13 @@
 // little work between a block's barriers, 64 too few blocks an SM. Long
 // reads halve R to keep a block within 48 KB (launch, below).
 //
+// Reads too long for the tile even at R = 4 (a block needs about 14 bytes
+// of shared memory a base: above about 16.6 kb it exceeds the 227 KB a
+// block may hold) take the direct kernel: one thread an output window,
+// which unpacks and translates its k codons straight from the packed
+// read in global memory (L1/L2; neighbouring threads share most of
+// them). A simple path: each base is read k times.
+//
 // Semantics held exactly (tests hold the plain version to the JAX
 // functions, chip_smoke.py holds this kernel to the plain version):
 // - codes above 4 (the odd-length pad nibble included) read as N;
@@ -245,6 +252,64 @@ __global__ void __launch_bounds__(THREADS) reads_to_kmers_kernel(
   }
 }
 
+// One thread an output (read, frame, window): the same values as the
+// tile kernel, each residue computed from the packed read.
+__global__ void reads_to_kmers_direct(
+    const uint8_t* __restrict__ reads, int row_bytes, int packed,
+    const int32_t* __restrict__ lengths, int n_reads, int L, int k,
+    int methionine, const uint8_t* __restrict__ lut,
+    int32_t* __restrict__ hi, int32_t* __restrict__ lo,
+    uint8_t* __restrict__ valid, int32_t* __restrict__ plens, int W) {
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= (long long)n_reads * 6 * W) return;
+  const long long lane = q / W;
+  const int w = (int)(q - lane * W);
+  const long long r = lane / 6;
+  const int f = (int)(lane - r * 6);
+  const int off = f < 3 ? f : f - 3;
+  int len = lengths[r];
+  len = len < 0 ? 0 : (len > L ? L : len);
+  const int ncod = (len - off > 0 ? len - off : 0) / 3;
+  if (w == 0) plens[lane] = ncod;
+  const int P = L / 3;
+  const uint8_t* row = reads + r * row_bytes;
+  auto code = [&](int i) -> int {
+    const int x = packed ? (row[i >> 1] >> ((i & 1) ? 0 : 4)) & 0xF : row[i];
+    return min(x, 4);
+  };
+  auto comp = [](int c) { return c < 4 ? 3 - c : 4; };
+  uint64_t key = 0;
+  for (int i = 0; i < k; ++i) {
+    const int j = w + i;
+    int aa;
+    if (j >= P) {
+      aa = 0;
+    } else if (j >= ncod) {
+      aa = AA_PAD;
+    } else {
+      int codon;
+      if (f < 3) {
+        const int p = off + 3 * j;
+        codon = code(p) * 25 + code(p + 1) * 5 + code(p + 2);
+      } else {  // the reverse strand walks back from the read's last base
+        const int p = len - 1 - off - 3 * j;
+        codon = comp(code(p)) * 25 + comp(code(p - 1)) * 5 +
+                comp(code(p - 2));
+      }
+      aa = lut[codon];
+      if (methionine && lut[128 + codon]) aa = AA_M;
+    }
+    key = (key << 5) | (uint64_t)aa;
+  }
+  const int n_lo = k < 5 ? k : 5;
+  hi[q] = (int32_t)(key >> (5 * n_lo));
+  lo[q] = (int32_t)(key & ((1ull << (5 * n_lo)) - 1));
+  valid[q] = (uint8_t)(w < ncod - (k - 1));
+}
+
+// the most dynamic shared memory a block may hold
+constexpr int kSmemMax = 227 * 1024;
+
 template <int WT, int KT>
 int launch(const void* reads, int row_bytes, int packed, const void* lengths,
            int n_reads, int L, int k, int methionine, const void* lut,
@@ -255,6 +320,15 @@ int launch(const void* reads, int row_bytes, int packed, const void* lengths,
   while (R > 4 && smem_bytes(R, row_bytes, packed, W + k - 1) > 48 * 1024)
     R /= 2;
   const size_t smem = (size_t)smem_bytes(R, row_bytes, packed, W + k - 1);
+  if (smem > (size_t)kSmemMax) {  // too long for the tile: direct kernel
+    const long long n = (long long)n_reads * 6 * W;
+    reads_to_kmers_direct<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS,
+                            0, stream>>>(
+        (const uint8_t*)reads, row_bytes, packed, (const int32_t*)lengths,
+        n_reads, L, k, methionine, (const uint8_t*)lut, (int32_t*)hi,
+        (int32_t*)lo, (uint8_t*)valid, (int32_t*)plens, W);
+    return (int)cudaGetLastError();
+  }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         reads_to_kmers_kernel<WT, KT>,

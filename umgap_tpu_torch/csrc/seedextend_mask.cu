@@ -33,7 +33,11 @@
 // block writes the tile back with 16-byte stores (16 bools a thread for
 // the mask). T = 64 came out of a sweep over T = 32, 64, 128 on the H100
 // (PERF.md, section 6). Wider rows take the direct kernel: one thread a
-// lane reading and writing its row in global memory.
+// lane reading and writing its row in global memory, its delta row in
+// shared memory. Rows too wide for one warp's delta rows there (more
+// than 3,600 windows: reads from about 10.8 kb) keep the delta rows in a
+// global scratch the caller allocates, laid out [N][lanes] so that a
+// warp's lanes touch consecutive words.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -194,16 +198,18 @@ __global__ void __launch_bounds__(MAX_T) seedextend_staged_kernel(
 }
 
 // Rows too wide for the staged tile: one thread a lane on its row in
-// global memory, the delta row in shared memory ([N][blockDim]).
+// global memory, the delta row in shared memory ([N][blockDim]), or in
+// the global scratch ([N][lanes]) when one is given.
 __global__ void seedextend_direct_kernel(const int32_t* __restrict__ taxa,
                                          const int32_t* __restrict__ lengths,
                                          long long lanes, int N, int s, int g,
-                                         void* __restrict__ out, int hits) {
+                                         void* __restrict__ out, int hits,
+                                         int16_t* __restrict__ scratch) {
   extern __shared__ int16_t s_d[];
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
-  const int T = blockDim.x;
-  int16_t* d = s_d + threadIdx.x;
+  const long long T = scratch ? lanes : blockDim.x;
+  int16_t* d = scratch ? scratch + lane : s_d + threadIdx.x;
   for (int p = 0; p < N; ++p) d[p * T] = 0;
 
   const int32_t* t = taxa + lane * (long long)N;
@@ -257,13 +263,22 @@ extern "C" const char* umgap_cuda_error_string(int code) {
 
 // out: (lanes, N) int32 hits when `hits`, else bool keep; an allocation
 // of its own (16-byte aligned). staged: the tile kernel with T lanes a
-// block (a multiple of 16, at most 128), else the direct kernel.
+// block (a multiple of 16, at most 128), else the direct kernel, with its
+// delta rows in `scratch` (lanes * N int16) when that is not null.
 extern "C" int seedextend_mask(const void* taxa, const void* lengths,
                                long long lanes, int N, int min_seed_size,
                                int max_gap_size, void* out, int hits,
-                               int staged, int T, void* stream) {
+                               int staged, int T, void* scratch,
+                               void* stream) {
   if (lanes <= 0 || N <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (!staged && scratch) {
+    const long long blocks = (lanes + 127) / 128;
+    seedextend_direct_kernel<<<(unsigned)blocks, 128, 0, st>>>(
+        (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
+        min_seed_size, max_gap_size, out, hits, (int16_t*)scratch);
+    return (int)cudaGetLastError();
+  }
   if (staged) {
     if (T < 16 || T > MAX_T || T % 16) return (int)cudaErrorInvalidValue;
     if (N == 25)
@@ -290,7 +305,7 @@ extern "C" int seedextend_mask(const void* taxa, const void* lengths,
   const long long blocks = (lanes + threads - 1) / threads;
   seedextend_direct_kernel<<<(unsigned)blocks, threads, smem, st>>>(
       (const int32_t*)taxa, (const int32_t*)lengths, lanes, N, min_seed_size,
-      max_gap_size, out, hits);
+      max_gap_size, out, hits, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -298,5 +313,5 @@ extern "C" int seedextend_mask_packed(const void* args) {
   const PackedArgs a{(const unsigned char*)args};
   return seedextend_mask(a.ptr(0), a.ptr(1), a.i(2), (int)a.i(3),
                          (int)a.i(4), (int)a.i(5), a.ptr(6), (int)a.i(7),
-                         (int)a.i(8), (int)a.i(9), a.ptr(10));
+                         (int)a.i(8), (int)a.i(9), a.ptr(10), a.ptr(11));
 }

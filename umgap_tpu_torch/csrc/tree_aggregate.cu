@@ -70,6 +70,18 @@
 // a block, 4 took 1.2-1.5x as long as 8 on batches of 17-64 and
 // of 64 valid hits a group (but for mrtl's full groups, 0.85x), 16 the
 // same as 8 there but 1.8x as long on the bench batch.
+//
+// Wide lists. A warp's list takes 20 bytes a slot, so one warp's list of
+// K > 11,571 slots no longer fits a block's shared memory; the wide
+// program reaches K = 16,392 (paired reads of 4,096 bp). There the warps'
+// lists live in a global scratch that the caller allocates, one list a
+// (block, warp), and the block keeps kBlockWarps warps; the thread path
+// stays in shared memory. The list is written and read by its own warp
+// only, between __syncwarp barriers (which order global memory among the
+// warp's lanes as they do shared memory), so the algorithms and their
+// slot order are unchanged. After each descent, hybrid's warp walk keeps
+// only the slots under the new node in its list, so a depth step costs
+// the square of that subtree's slots, not of the group's.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -419,6 +431,28 @@ __device__ void warp_group(const Rows& src, long long b,
       } else {
         x = bmin;
       }
+      // keep only the slots under the new x (branch == x), in slot
+      // order: no other slot lies below x at a later depth or shares a
+      // branch with one that does (equal ancestors at depth d + 1 have
+      // equal ancestors above), so the walk's later depths read only
+      // x's subtree
+      __syncwarp();
+      int m = 0;
+      for (int p0 = 0; p0 < n; p0 += 32) {
+        const int p = p0 + lane;
+        const bool keep = p < n && Lcol[p] == x;
+        const int u = keep ? Lu[p] : 0;
+        const float c = keep ? Lc[p] : 0.0f;
+        const unsigned bal = __ballot_sync(FULL, keep);
+        __syncwarp();  // the chunk is read before any lane writes
+        if (keep) {
+          const int q = m + __popc(bal & ((1u << lane) - 1u));
+          Lu[q] = u;
+          Lc[q] = c;
+        }
+        m += __popc(bal);
+      }
+      n = m;
       __syncwarp();  // Lcol is rewritten at the next depth
     }
     if (lane == 0) out[b] = x;
@@ -483,6 +517,7 @@ __global__ void tree_kernel(Rows src, const float* __restrict__ counts,
                             const uint8_t* __restrict__ valid,
                             const int32_t* __restrict__ utaxa, int B, int K,
                             int root, float factor,
+                            unsigned char* __restrict__ scratch,
                             int32_t* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned heavy_groups;
@@ -521,7 +556,9 @@ __global__ void tree_kernel(Rows src, const float* __restrict__ counts,
   __syncthreads();  // the thread lists are done with: the warp path reuses
   unsigned todo = heavy_groups;
   const int warps = blockDim.x >> 5;
-  unsigned char* base = smem + (size_t)w * list_bytes(K);
+  unsigned char* base =
+      scratch ? scratch + ((size_t)blockIdx.x * warps + w) * list_bytes(K)
+              : smem + (size_t)w * list_bytes(K);
   for (int r = 0; todo; ++r) {  // the block's larger groups, dealt out
     const int t = __ffs(todo) - 1;
     todo &= todo - 1;
@@ -535,12 +572,17 @@ __global__ void tree_kernel(Rows src, const float* __restrict__ counts,
 template <int STRAT>
 int launch(const Rows& src, const float* counts, const uint8_t* valid,
            const int32_t* utaxa, int B, int K, int root, float factor,
-           int32_t* out, cudaStream_t stream) {
+           unsigned char* scratch, int32_t* out, cudaStream_t stream) {
   int warps = kBlockWarps;  // fewer where the lists of a wide K need it
-  while (warps > 1 && list_bytes(K) * warps > kSmemMax) --warps;
-  const size_t lists = list_bytes(K) * warps;
-  const size_t smem = lists > kThreadBytes ? lists : kThreadBytes;
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  size_t smem = kThreadBytes;
+  if (list_bytes(K) <= kSmemMax) {
+    scratch = nullptr;
+    while (warps > 1 && list_bytes(K) * warps > kSmemMax) --warps;
+    const size_t lists = list_bytes(K) * warps;
+    if (lists > smem) smem = lists;
+  } else if (scratch == nullptr) {  // the lists need the global scratch
+    return (int)cudaErrorInvalidValue;
+  }
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         tree_kernel<STRAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -549,7 +591,7 @@ int launch(const Rows& src, const float* counts, const uint8_t* valid,
   }
   const int blocks = (int)(((long long)B + 31) / 32);
   tree_kernel<STRAT><<<blocks, 32 * warps, smem, stream>>>(
-      src, counts, valid, utaxa, B, K, root, factor, out);
+      src, counts, valid, utaxa, B, K, root, factor, scratch, out);
   return (int)cudaGetLastError();
 }
 
@@ -562,26 +604,31 @@ extern "C" const char* umgap_cuda_error_string(int code) {
 // strategy: 0 hybrid, 1 lca* (counts unused, may be null), 2 mrtl.
 // geom: dtax.geom, size rows of W = 1 + D int32, contiguous. valid (B, K)
 // bool, utaxa (B, K) int32, counts (B, K) float32, all contiguous; out
-// (B,) int32.
+// (B,) int32. scratch: null while one warp's list of K slots fits the
+// block's shared memory (list_bytes(K) <= kSmemMax), else
+// ceil(B / 32) * kBlockWarps * list_bytes(K) bytes, 16-byte aligned
+// (agg/device.py tree_scratch_bytes).
 extern "C" int tree_aggregate(int strategy, const void* geom, int size,
                               int W, const void* counts, const void* valid,
                               const void* utaxa, int B, int K, int root,
-                              float factor, void* out, void* stream) {
+                              float factor, void* scratch, void* out,
+                              void* stream) {
   if (B <= 0) return 0;
   if (K <= 0 || W < 2 || size <= 0) return (int)cudaErrorInvalidValue;
   const Rows src{(const int32_t*)geom, size, W, W - 1};
   const float* c = (const float*)counts;
   const uint8_t* v = (const uint8_t*)valid;
   const int32_t* u = (const int32_t*)utaxa;
+  unsigned char* sc = (unsigned char*)scratch;
   int32_t* o = (int32_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
   switch (strategy) {
     case kHybrid:
-      return launch<kHybrid>(src, c, v, u, B, K, root, factor, o, s);
+      return launch<kHybrid>(src, c, v, u, B, K, root, factor, sc, o, s);
     case kLca:
-      return launch<kLca>(src, c, v, u, B, K, root, factor, o, s);
+      return launch<kLca>(src, c, v, u, B, K, root, factor, sc, o, s);
     case kMrtl:
-      return launch<kMrtl>(src, c, v, u, B, K, root, factor, o, s);
+      return launch<kMrtl>(src, c, v, u, B, K, root, factor, sc, o, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -592,5 +639,5 @@ extern "C" int tree_aggregate_packed(const void* args) {
   return tree_aggregate((int)a.i(0), a.ptr(1), (int)a.i(2), (int)a.i(3),
                         a.ptr(4), a.ptr(5), a.ptr(6), (int)a.i(7),
                         (int)a.i(8), (int)a.i(9), (float)a.d(10), a.ptr(11),
-                        a.ptr(12));
+                        a.ptr(12), a.ptr(13));
 }

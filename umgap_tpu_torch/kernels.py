@@ -128,13 +128,13 @@ K2 = Kernel(
     "scripts/exp_pallas_dma.py:31 make_kernel")
 K3 = Kernel(
     "seedextend_mask", "seedextend_mask.cu",
-    [P, P, LL, I, I, I, P, I, I, I, P],
+    [P, P, LL, I, I, I, P, I, I, I, P, P],
     "umgap_tpu/ops/seedextend.py:118 seedextend_mask_batch "
     "(lax.scan of _scan_seeds, :173) + "
     "umgap_tpu/pipeline/fused.py:107-109 jnp.where(keep, taxa, 0)")
 K4 = Kernel(
     "dedup_counts", "dedup_counts.cu",
-    [P, P, I, I, I, P, P, P, P, I, P],
+    [P, P, I, I, I, P, P, P, P, I, P, I, P],
     "umgap_tpu/agg/device.py:79 dedup_counts")
 K5 = Kernel(
     "lane_gather", "lane_gather.cu",
@@ -152,7 +152,7 @@ K5A = Kernel(
     "(:191) and compare (:194)")
 K6 = Kernel(
     "tree_aggregate", "tree_aggregate.cu",
-    [I, P, I, I, P, P, P, I, I, I, ctypes.c_float, P, P],
+    [I, P, I, I, P, P, P, I, I, I, ctypes.c_float, P, P, P],
     "umgap_tpu/agg/device.py:219 tree_lca_batch, :243 rtl_batch, "
     ":253 tree_mix_batch, with :170 hit_geometry's row gather and "
     "ancestry test fused in")

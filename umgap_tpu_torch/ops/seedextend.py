@@ -81,7 +81,8 @@ def seedextend_hits_plain(taxa: torch.Tensor, lengths: torch.Tensor,
 # Rows of up to STAGED_MAX_N windows (reads up to 312 bp) take K3's
 # staged tile of LANES_PER_BLOCK lanes (a sweep over 32, 64 and 128 on
 # the H100; PERF.md, section 6); wider rows, up to MAX_N, its direct
-# kernel, whose int16 delta rows of one warp must fit in shared memory.
+# kernel, whose int16 delta rows of one warp fit in shared memory; wider
+# still, the direct kernel with its delta rows in a global scratch.
 STAGED_MAX_N = 96
 LANES_PER_BLOCK = 64
 MAX_N = 3600
@@ -89,11 +90,11 @@ MAX_N = 3600
 
 def seedextend_path(N: int) -> str:
     """K3's kernel for rows of N windows: ``"staged"`` up to
-    :data:`STAGED_MAX_N`, ``"direct"`` up to :data:`MAX_N`."""
-    if N > MAX_N:
-        raise ValueError(f"seedextend: {N} windows per lane exceed the "
-                         f"kernel's shared-memory rows ({MAX_N})")
-    return "staged" if N <= STAGED_MAX_N else "direct"
+    :data:`STAGED_MAX_N`, ``"direct"`` up to :data:`MAX_N`, ``"global"``
+    (the direct kernel, delta rows in global memory) above."""
+    if N <= STAGED_MAX_N:
+        return "staged"
+    return "direct" if N <= MAX_N else "global"
 
 
 def _launch(taxa, lengths, min_seed_size, max_gap_size, hits: bool):
@@ -102,14 +103,18 @@ def _launch(taxa, lengths, min_seed_size, max_gap_size, hits: bool):
             or lengths.shape != taxa.shape[:-1]:
         raise ValueError("seedextend: taxa (..., N) int32 and lengths "
                          "(...) int32 expected")
-    staged = seedextend_path(N) == "staged"
+    path = seedextend_path(N)
     kernels.check_cuda("seedextend", taxa, lengths)
     out = torch.empty(taxa.shape, dtype=torch.int32 if hits else torch.bool,
                       device=taxa.device)
+    scratch = (torch.empty((N, lengths.numel()), dtype=torch.int16,
+                           device=taxa.device) if path == "global" else None)
     kernels.K3.launch(taxa.data_ptr(), lengths.data_ptr(),
                       lengths.numel(), N, int(min_seed_size),
                       int(max_gap_size), out.data_ptr(), int(hits),
-                      int(staged), LANES_PER_BLOCK, kernels.stream_of(taxa))
+                      int(path == "staged"), LANES_PER_BLOCK,
+                      0 if scratch is None else scratch.data_ptr(),
+                      kernels.stream_of(taxa))
     return out
 
 

@@ -95,6 +95,25 @@ def _codon_lut(table: TranslationTable, device) -> torch.Tensor:
 # K1's reads per block: a sweep over R = 8..64 on the H100 (PERF.md,
 # section 6); the kernel halves it for long reads.
 READS_PER_BLOCK = 32
+# the most dynamic shared memory one block may hold (kSmemMax)
+K1_SMEM_MAX = 227 * 1024
+
+
+def reads_to_kmers_path(length: int, k: int = 9, packed: bool = True) -> str:
+    """K1's kernel for reads of ``length``: ``"tile"`` (a block stages
+    its reads' codes and residues in shared memory, at least 4 reads a
+    block) while 4 reads fit the block's shared memory, else
+    ``"direct"`` (one thread an output window, from global memory): the
+    kernel's smem_bytes at R = 4."""
+    def align16(n):
+        return (n + 15) & ~15
+
+    row_bytes = (length + 1) // 2 if packed else length
+    codes = 2 * row_bytes if packed else row_bytes
+    nres = max(length // 3 - k + 1, 1) + k - 1
+    smem = (align16(4 * row_bytes + 16) + 2 * 4 * 6 * 4 + 256
+            + align16(4 * codes) + 4 * 6 * nres)
+    return "tile" if smem <= K1_SMEM_MAX else "direct"
 
 
 def reads_to_kmers_plain(reads: torch.Tensor, lengths: torch.Tensor,

@@ -4,11 +4,15 @@ taxon per group out, in input order.
 :class:`BatchStream` (a copy of the JAX package's backend-neutral
 batcher) keeps up to ``depth`` batches in flight: batch i + 1 is encoded,
 copied and launched before batch i is brought back to the host, so host
-work overlaps device work. :class:`Analyser` holds the taxonomy and the
-index on the device and runs the fused pipeline over the 4-bit packed
-wire, from pinned host buffers with non-blocking copies. Groups with more
-distinct taxa than ``k_max`` are re-run through a program wide enough to
-be exact, never truncated.
+work overlaps device work. It takes code chunks (``feed``) or batches
+already on the 4-bit packed wire (``feed_packed``, what the native ring
+stream gives). :class:`Analyser` holds the taxonomy and the index on the
+device and runs the fused pipeline over the packed wire, from pinned
+host buffers with non-blocking copies. Groups with more distinct taxa
+than ``k_max`` are re-run through a program wide enough to be exact,
+never truncated.
+:func:`stream_paired_chunks` and :func:`stream_single_chunks` read files
+through the native chunked parser, with the width ladder.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch
 
 from ..agg import device as devagg
 from ..device import resolve_device
-from ..io import fastq
+from ..io import fastq, sniff_open
 from ..ops import encoding, lookup
 from ..taxonomy import Taxonomy
 from .fused import PipelineConfig, make_pipeline
@@ -28,8 +32,8 @@ from .fused import PipelineConfig, make_pipeline
 
 def encode_batch(groups: Sequence[Sequence[str]], ends: int, length: int):
     """Encode read groups into (B, E, L) codes + lengths. A record longer
-    than ``length`` is an error: this port has no long-read route yet
-    and never clips."""
+    than ``length`` is an error: callers pick a width that fits (the
+    CLI's width ladder) and nothing is clipped."""
     B = len(groups)
     dna = np.full((B, ends, length), encoding.DNA_N, dtype=np.uint8)
     lens = np.zeros((B, ends), dtype=np.int32)
@@ -38,27 +42,19 @@ def encode_batch(groups: Sequence[Sequence[str]], ends: int, length: int):
             codes = encoding.encode_dna(seq)
             if len(codes) > length:
                 raise ValueError(
-                    f"record of {len(codes)} bp exceeds --read-length "
-                    f"{length}; longer records are not supported by "
-                    "umgap_tpu_torch yet (raise --read-length)")
+                    f"record of {len(codes)} bp exceeds the batch width "
+                    f"{length}; records are never clipped")
             dna[i, e, : len(codes)] = codes
             lens[i, e] = len(codes)
     return dna, lens
 
 
-def _open_plain(path: str):
-    with open(path, "rb") as f:
-        if f.read(2) == b"\x1f\x8b":
-            raise ValueError(f"{path} is gzipped; gzip input is not "
-                             "supported by umgap_tpu_torch yet")
-    return open(path, "r")
-
-
 def read_groups_fastq(paths: Sequence[str], delimiter: str = "/"):
     """Yield (header, [sequences...]) groups from paired FASTQ files,
     header stripped at the delimiter (uniq -d semantics); stops at the
-    shorter file."""
-    handles = [_open_plain(p) for p in paths]
+    shorter file. Gzipped inputs are detected by magic bytes
+    (umgap-analyse.sh:159-175)."""
+    handles = [sniff_open(p) for p in paths]
     try:
         readers = [fastq.read_records(h) for h in handles]
         for group in fastq.interleave(readers):
@@ -73,10 +69,10 @@ def read_groups_fastq(paths: Sequence[str], delimiter: str = "/"):
 
 
 def read_groups_fasta(path: str, delimiter: str = "/"):
-    """Single-end FASTA ingest: one group per record."""
+    """Single-end FASTA ingest, gzip sniffed: one group per record."""
     from ..io import fasta
 
-    with _open_plain(path) as f:
+    with sniff_open(path) as f:
         for rec in fasta.read_records(f, unwrap=True):
             header = rec.header
             idx = header.find(delimiter)
@@ -91,7 +87,9 @@ class BatchStream:
     Subclasses provide ``_dispatch(dna, lens)`` (launch one padded
     (B, E, L) batch asynchronously, return a handle) and
     ``_finalize(handle, dna, lens, n)`` (bring the handle back as a
-    per-group result array of length >= n)."""
+    per-group result array of length >= n), and their twins
+    ``_dispatch_packed`` / ``_finalize_packed`` for batches already on
+    the 4-bit packed wire."""
 
     depth = 2
 
@@ -109,6 +107,28 @@ class BatchStream:
     def _finalize(self, handle, dna, lens, n) -> np.ndarray:
         raise NotImplementedError
 
+    # The native ring stream delivers batches already on the 4-bit wire,
+    # so the host loop is just dispatch and drain: no per-record Python,
+    # no numpy pack.
+
+    def _dispatch_packed(self, dna4: np.ndarray, lens: np.ndarray):
+        raise NotImplementedError
+
+    def _finalize_packed(self, handle, dna4, lens, n) -> np.ndarray:
+        raise NotImplementedError
+
+    def feed_packed(self, headers, dna4: np.ndarray, lens: np.ndarray,
+                    n: int):
+        """Queue ONE pre-packed batch of ``batch_size`` rows (rows from
+        ``n`` on are padding). ``headers`` may be any token carried
+        through to the output side (the CLI passes a (blob, offsets)
+        pair for native formatting). Yields completed (headers,
+        taxa[:n]) batches."""
+        handle = self._dispatch_packed(dna4, lens)
+        self._inflight.append((headers, dna4, lens, n, handle, True))
+        while len(self._inflight) > self.depth:
+            yield self._emit_batch(self._inflight.pop(0))
+
     def _norm(self, dna: np.ndarray, lens: np.ndarray):
         L = self.read_length
         if dna.shape[-1] > L:
@@ -120,8 +140,9 @@ class BatchStream:
         return dna, np.minimum(lens, L)
 
     def _emit_batch(self, item):
-        headers, dna, lens, n, handle = item
-        return headers, self._finalize(handle, dna, lens, n)[:n]
+        headers, dna, lens, n, handle, packed = item
+        fin = self._finalize_packed if packed else self._finalize
+        return headers, fin(handle, dna, lens, n)[:n]
 
     def _launch(self, headers, dna, lens):
         n = len(headers)
@@ -131,7 +152,7 @@ class BatchStream:
                          constant_values=encoding.DNA_N)
             lens = np.pad(lens, ((0, B - n), (0, 0)))
         handle = self._dispatch(dna, lens)
-        self._inflight.append((headers, dna, lens, n, handle))
+        self._inflight.append((headers, dna, lens, n, handle, False))
 
     def _take_batch(self):
         B = self.batch_size
@@ -279,9 +300,11 @@ class Analyser(BatchStream):
         return h
 
     def _dispatch(self, dna, lens):
-        taxon, overflow = self.step(
-            self._to_device(encoding.pack_dna4(dna)), self._to_device(lens),
-            self.read_length)
+        return self._dispatch_packed(encoding.pack_dna4(dna), lens)
+
+    def _dispatch_packed(self, dna4, lens):
+        taxon, overflow = self.step(self._to_device(dna4),
+                                    self._to_device(lens), self.read_length)
         handle = (self._to_host(taxon), self._to_host(overflow), None)
         if self.device.type == "cuda":
             ev = torch.cuda.Event()
@@ -289,7 +312,9 @@ class Analyser(BatchStream):
             handle = handle[:2] + (ev,)
         return handle
 
-    def _finalize(self, handle, dna, lens, n):
+    def _collect(self, handle, n):
+        """A dispatched batch's taxa and the rows of its first ``n`` that
+        overflowed k_max (to re-run through the wide program)."""
         taxon, overflow, ev = handle
         if ev is not None:
             ev.synchronize()
@@ -297,27 +322,44 @@ class Analyser(BatchStream):
         overflow = overflow.numpy().copy()
         overflow[n:] = False
         idx = np.nonzero(overflow)[0]
+        self.overflow_reads += len(idx)
+        return taxa, idx
+
+    def _finalize(self, handle, dna, lens, n):
+        taxa, idx = self._collect(handle, n)
         if len(idx):
-            self.overflow_reads += len(idx)
             taxa[idx] = self.run_wide(dna[idx], lens[idx])
+        return taxa
+
+    def _finalize_packed(self, handle, dna4, lens, n):
+        taxa, idx = self._collect(handle, n)
+        if len(idx):
+            taxa[idx] = self.run_wide_packed(dna4[idx], lens[idx])
         return taxa
 
     def run_wide(self, dna: np.ndarray, lens: np.ndarray) -> np.ndarray:
         """Exact results for (n, E, L) code rows through the wide
         program, in fixed batches of ``_wide_batch`` rows."""
+        return self.run_wide_packed(encoding.pack_dna4(dna), lens)
+
+    def run_wide_packed(self, dna4: np.ndarray,
+                        lens: np.ndarray) -> np.ndarray:
+        """:meth:`run_wide` on packed rows (n, E, ceil(L/2)): packing is
+        per row, so rows of a packed batch feed the wide program
+        directly; pad rows are two N codes a byte (0x44)."""
         wide = self._wide()
         W = self._wide_batch
-        out = np.empty(len(dna), dtype=np.int32)
-        for s in range(0, len(dna), W):
-            nd = dna[s:s + W]
+        out = np.empty(len(dna4), dtype=np.int32)
+        for s in range(0, len(dna4), W):
+            nd = dna4[s:s + W]
             nl = lens[s:s + W]
             m = len(nd)
             if m < W:
                 nd = np.pad(nd, ((0, W - m), (0, 0), (0, 0)),
-                            constant_values=encoding.DNA_N)
+                            constant_values=0x44)
                 nl = np.pad(nl, ((0, W - m), (0, 0)))
-            res = wide(self._to_device(encoding.pack_dna4(nd)),
-                       self._to_device(nl), self.read_length)
+            res = wide(self._to_device(nd), self._to_device(nl),
+                       self.read_length)
             out[s:s + m] = res[:m].cpu().numpy()
         return out
 
@@ -325,3 +367,101 @@ class Analyser(BatchStream):
         """Pre-encoded groups: dna (N, E, L) codes, lens (N, E)."""
         yield from self.feed(list(headers), dna, lens)
         yield from self.finish()
+
+
+def _pad_width(codes: np.ndarray, w: int) -> np.ndarray:
+    if codes.shape[-1] >= w:
+        return codes
+    pad = [(0, 0)] * (codes.ndim - 1) + [(0, w - codes.shape[-1])]
+    return np.pad(codes, pad, constant_values=encoding.DNA_N)
+
+
+def stream_paired_chunks(fastq1: str, fastq2: str, read_length: int,
+                         delimiter: str = "/", chunk_bytes: int = 32 << 20,
+                         width_ladder=None):
+    """Aligned paired-end chunks from two FASTQ files via the native
+    streaming parser: yields (headers, dna (n, 2, L), lens (n, 2),
+    true_max).  Stops at the shorter file (utils::Zip semantics);
+    headers come from file 1, stripped at ``delimiter``.  L grows along
+    ``width_ladder`` when longer reads appear (never shrinks)."""
+    from ..io import native
+
+    streams = [
+        native.stream_parse(p, "fastq", read_length, chunk_bytes,
+                            width_ladder=width_ladder)
+        for p in (fastq1, fastq2)
+    ]
+    bufs: List[List] = [[], []]  # per-file queues of (headers, codes, lens)
+    counts = [0, 0]
+    done = [False, False]
+
+    def pull(i) -> bool:
+        try:
+            h, c, l, tmax = next(streams[i])
+        except StopIteration:
+            done[i] = True
+            return False
+        bufs[i].append((h, c, l, tmax))
+        counts[i] += len(h)
+        return True
+
+    def take(i, n):
+        hs: List[str] = []
+        cs = []
+        ls = []
+        tmax = 0
+        while n:
+            bh, bc, bl, bt = bufs[i][0]
+            tmax = max(tmax, bt)
+            if len(bh) <= n:
+                bufs[i].pop(0)
+                hs.extend(bh)
+                cs.append(bc)
+                ls.append(bl)
+                n -= len(bh)
+            else:
+                hs.extend(bh[:n])
+                cs.append(bc[:n])
+                ls.append(bl[:n])
+                bufs[i][0] = (bh[n:], bc[n:], bl[n:], bt)
+                n = 0
+        counts[i] -= len(hs)
+        w = max(c.shape[-1] for c in cs)
+        cs = [_pad_width(c, w) for c in cs]
+        return (hs, np.concatenate(cs) if len(cs) > 1 else cs[0],
+                np.concatenate(ls) if len(ls) > 1 else ls[0], tmax)
+
+    while True:
+        while counts[0] == 0 and not done[0]:
+            pull(0)
+        while counts[1] == 0 and not done[1]:
+            pull(1)
+        n = min(counts[0], counts[1])
+        if n == 0:
+            return  # one side exhausted: Zip stops at the shortest
+        h1, c1, l1, t1 = take(0, n)
+        _h2, c2, l2, t2 = take(1, n)
+        headers = []
+        for h in h1:
+            idx = h.find(delimiter)
+            headers.append(h[:idx] if idx != -1 else h)
+        w = max(c1.shape[-1], c2.shape[-1])
+        dna = np.stack([_pad_width(c1, w), _pad_width(c2, w)], axis=1)
+        lens = np.stack([np.minimum(l1, w), np.minimum(l2, w)], axis=1)
+        yield headers, dna, lens, max(t1, t2)
+
+
+def stream_single_chunks(path: str, read_length: int, fmt: str = "fasta",
+                         delimiter: str = "/", chunk_bytes: int = 32 << 20,
+                         width_ladder=None):
+    """Single-end chunks: yields (headers, dna (n, 1, L), lens (n, 1),
+    true_max) via the native streaming parser."""
+    from ..io import native
+
+    for h, c, l, tmax in native.stream_parse(
+            path, fmt, read_length, chunk_bytes, width_ladder=width_ladder):
+        headers = []
+        for hd in h:
+            idx = hd.find(delimiter)
+            headers.append(hd[:idx] if idx != -1 else hd)
+        yield headers, c[:, None, :], l[:, None], tmax
