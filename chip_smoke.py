@@ -5,18 +5,22 @@
 
 Builds the CUDA kernels from ``umgap_tpu_torch/csrc``, holds each kernel
 to its plain PyTorch version on the card (K1-K6 chained on a
-16,384-pair batch at L = 100 and 160, K6 through both its entries, on
-dense groups and at the wide program's width, each of K1, K3, K4 and K6
-on its path for rows past its shared-memory budget, and K5 at the shapes
-of each TPU gather kernel it ports), drives
-the port's main path (the 9-mer ``analyse`` presets through ``Analyser``
-over the tracked ``.bench_data`` workload: 32,768 read pairs of 100 bp,
-a 2 M-key index, 20 k taxa), the wide re-route program on one batch,
-runs a 4.3 GB card-resident bucket64s index, runs the ``analyse``
-command line in a subprocess, reads FASTQ files (plain and gzipped, and
-reads of 100-4,096 bp) through the command line's three ingest tiers,
-and runs the Euler/RMQ aggregations (rmq/lca*, rmq/hybrid) over the
-workload. Every phase always runs; the
+16,384-pair batch at L = 100 and 160, K7 -> K8 on the same batch, K6
+through both its entries, on dense groups and at the wide program's
+width, each of K1, K3, K4, K6 and K7 on its path for rows past its
+shared-memory budget, and K5 at the shapes of each TPU gather kernel it
+ports), drives the port's main path (the 9-mer ``analyse`` presets
+through ``Analyser`` over the tracked ``.bench_data`` workload: 32,768
+read pairs of 100 bp, a 2 M-key index, 20 k taxa), the wide re-route
+program on one batch, the tryptic presets through ``TrypticAnalyser``
+over a peptide index of the workload's own fragments, runs a 4.3 GB
+card-resident bucket64s index and a 1.6 GB card-resident peptide index
+of 50 M keys, runs the ``analyse`` command line in a subprocess (9-mer
+and tryptic), reads FASTQ files (plain and gzipped, and reads of
+100-4,096 bp) through the command line's three ingest tiers, holds its
+two host routes (the host digest, the exact long-record route) to
+device routes, and runs the Euler/RMQ aggregations (rmq/lca*,
+rmq/hybrid) over the workload. Every phase always runs; the
 script takes no arguments. Every comparison is exact (all outputs are
 integer ids, masks and counts). Each path's launch counts are reset
 before it is driven and the counts of the kernels it runs must be above
@@ -57,11 +61,11 @@ OPS_PER_S = 67e12
 RESULT: dict = {"phases": {}}
 
 # sha256 of the int32 taxa that umgap_tpu, the JAX package (on the CPU),
-# gives for the first 1,024 .bench_data pairs under each preset and under
+# gives for the first 1,024 .bench_data pairs under each preset, under
 # the two Euler/RMQ aggregations (max-sensitivity's seeds,
-# PipelineConfig(method="rmq", strategy=...));
-# tests/test_torch_pipeline.py recomputes them with umgap_tpu. The card's
-# output is held to them.
+# PipelineConfig(method="rmq", strategy=...)) and under the two tryptic
+# presets; tests/test_torch_pipeline.py and tests/test_torch_tryptic.py
+# recompute them with umgap_tpu. The card's output is held to them.
 REFERENCE_PAIRS = 1024
 REFERENCE_DIGESTS = {
     "max-sensitivity":
@@ -76,6 +80,11 @@ REFERENCE_DIGESTS = {
         "fecdd843c287302751db39dd2a60cc0243d93bf42826e910c9f027b6ffcffe5e",
     "rmq/hybrid":
         "7dd2324670e01fad2d5cc44c72ac8bc5be96816f428b1e618fc8b773734a243a",
+    # the tryptic presets over tryptic_workload's peptide index
+    "tryptic-sensitivity":
+        "c9e70c8cc08a30f1d1f6117790a68ee776cb30651f4aafaa2d4dda3b85589341",
+    "tryptic-precision":
+        "b1194f658f17cf5ab6af54032fbedb00ec2792f061a39c10179cf9255597c745",
 }
 RMQ_STRATEGIES = ("lca*", "hybrid")
 
@@ -167,7 +176,9 @@ def main():
         phase_gather(torch, world)
         launches, results = phase_main(torch, world)
         phase_wide(torch, world, results)
+        tlaunches, tresults = phase_tryptic(torch, world)
         phase_resident(torch, world)
+        phase_resident_peptide(torch, world, tresults)
         phase_cli(torch, world)
         phase_ingest(torch, world)
         phase_rmq(torch, world)
@@ -177,7 +188,8 @@ def main():
             json.dump(RESULT, f, indent=1, default=str)
 
     # every number below was measured in this run: the phases above
-    # raise before this point if any of them did not run to its end
+    # raise before this point if any of them did not run to its end.
+    # Launches: the 9-mer main path's, K7 and K8 the tryptic path's.
     kern = []
     from umgap_tpu_torch import kernels
     for k in kernels.KERNELS:
@@ -185,7 +197,9 @@ def main():
         kern.append({
             "name": k.name, "route": "cuda",
             "source": f"umgap_tpu_torch/csrc/{k.source}",
-            "replaces": k.replaces, "launches": launches[k.name],
+            "replaces": k.replaces,
+            "launches": (tlaunches if k.name in TRYPTIC_KERNELS
+                         else launches)[k.name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
@@ -234,7 +248,7 @@ def phase_identify(torch):
 def load_world(torch):
     from umgap_tpu_torch import ranks
     from umgap_tpu_torch.agg.device import DeviceTaxonomy
-    from umgap_tpu_torch.index.table import build_kmer_table
+    from umgap_tpu_torch.index.table import PeptideTable, build_kmer_table
     from umgap_tpu_torch.ops.lookup import DeviceTable
     from umgap_tpu_torch.taxonomy import Taxon, Taxonomy
 
@@ -254,20 +268,71 @@ def load_world(torch):
     build_s = time.perf_counter() - t0
     reads = np.fromfile(os.path.join(DATA, "reads.bin"),
                         np.uint8).reshape(P, 2, L)
+    t0 = time.perf_counter()
+    peps, pvals = tryptic_workload(reads, n_tax)
+    digest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ptable = PeptideTable.build(peps, pvals)
+    pbuild_s = time.perf_counter() - t0
     dev = torch.device("cuda", 0)
     world = dict(tax=tax, table=table, keys=keys, vals=vals, reads=reads,
                  L=L, P=P, parent=parent, snap=snap, n_tax=n_tax, dev=dev,
                  dtax=DeviceTaxonomy.from_host(tax, dev),
-                 dtable=DeviceTable.from_host(table, dev))
+                 dtable=DeviceTable.from_host(table, dev),
+                 ptable=ptable, pdtable=DeviceTable.from_host(ptable, dev))
     RESULT["workload"] = dict(pairs=P, read_len=L, taxa=n_tax,
                               keys=len(keys), layout="bucket8s",
                               table_rows_bytes=int(table.capacity * 8),
                               stash=int(len(table.stash_hi)),
-                              host_build_s=build_s)
+                              host_build_s=build_s,
+                              tryptic=dict(keys=len(peps),
+                                           slots=ptable.capacity,
+                                           max_probes=ptable.max_probes,
+                                           host_digest_s=digest_s,
+                                           host_build_s=pbuild_s))
     log(f"workload: {P} pairs x {L} bp, {len(keys)} keys -> bucket8s "
         f"{table.capacity * 8 / 1e6:.1f} MB rows, stash "
-        f"{len(table.stash_hi)}, host build {build_s:.1f}s")
+        f"{len(table.stash_hi)}, host build {build_s:.1f}s; tryptic index "
+        f"{len(peps)} fragments in {ptable.capacity} slots (max_probes "
+        f"{ptable.max_probes}), host digest {digest_s:.1f}s, build "
+        f"{pbuild_s:.1f}s")
     return world
+
+
+TRYPTIC_SEED = 41
+
+
+def tryptic_workload(reads, n_tax, seed=TRYPTIC_SEED):
+    """The tryptic index of the workload: every distinct fragment of 9-45
+    residues of the host digest (``translate_sequence`` in six frames,
+    then ``tryptic_digest``) of both ends of ``reads`` (P, 2, L) codes,
+    less a seeded quarter (so that misses happen). Each pair draws a
+    taxon of 1..n_tax; a fragment takes the taxon of the first pair it
+    comes from, or a random one for a quarter of them (so that the pairs'
+    hits disagree, and tryptic-precision's lower bound of 5 keeps some).
+    Returns (peptides sorted, values int32); tests/test_torch_tryptic.py
+    builds the same index with umgap_tpu."""
+    from umgap_tpu_torch.ops import encoding, kmers, translate
+
+    code = encoding.get_table(1)
+    first = {}
+    for i, pair in enumerate(reads):
+        for row in pair:
+            seq = encoding.decode_dna(row)
+            for pep in translate.translate_sequence(
+                    seq, translate.FRAME_NAMES, code):
+                for f in kmers.tryptic_digest(pep):
+                    if 9 <= len(f) <= 45:
+                        first.setdefault(f, i)
+    peps = sorted(first)
+    rng = np.random.default_rng(seed)
+    pair_taxon = rng.integers(1, n_tax + 1, size=len(reads))
+    keep = np.sort(rng.permutation(len(peps))[:len(peps) - len(peps) // 4])
+    peps = [peps[i] for i in keep]
+    vals = pair_taxon[[first[p] for p in peps]]
+    other = rng.random(len(peps)) < 0.25
+    vals[other] = rng.integers(1, n_tax + 1, size=int(other.sum()))
+    return peps, vals.astype(np.int32)
 
 
 # ---------------------------------------------------------------------- #
@@ -308,6 +373,27 @@ def device_ms(torch, fn, reps=20, tries=3):
         if us > 0:
             return us / 1e3 / reps
     return None
+
+
+def cold_ms(torch, fn, reps=10):
+    """Event ms a call of ``fn`` with the L2 cache flushed before each
+    (a 128 MB write between launches): what a caller meets when its data
+    was not touched by the previous call. Repeated calls on the same
+    inputs otherwise find what they read in the 50 MB L2."""
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / reps
 
 
 def fmt_ms(v):
@@ -478,6 +564,148 @@ def _chain(torch, world, width):
         f"{n} {s['ms']:.3f} ms (plain {s['plain_ms']:.3f}, bound "
         f"{s['bound_ms']:.4f} {s['bound_by']})" for n, s in stats.items()))
     return stats, errs
+
+
+def peptide_rows_read(torch, dtable, hi, lo, valid):
+    """The peptide-table rows K8 reads for these queries: a valid query
+    reads rows from its bucket on until a hit or a row with an empty
+    slot, at most max_probes + 1; an invalid one reads none."""
+    from umgap_tpu_torch.ops import lookup
+
+    h = hi.reshape(-1).long()
+    lq = lo.reshape(-1).long()
+    live = valid.reshape(-1).clone()
+    nb = dtable.n_buckets
+    bucket = lookup.hash32_torch(h, lq) & (nb - 1)
+    n = 0
+    for _ in range(dtable.max_probes + 1):
+        n += int(live.sum())
+        row = dtable.rows[bucket]
+        hit = ((row[:, :8] == h[:, None]) & (row[:, 8:16] == lq[:, None]))
+        live &= ~hit.any(dim=1) & ~(row[:, :8] == -1).any(dim=1)
+        bucket = (bucket + 1) & (nb - 1)
+    return n
+
+
+def k8_bound(torch, dtable, hi, lo, valid):
+    """K8's bound on this data: 14 bytes a query (hi, lo, valid read;
+    value, found written) and 96 bytes a row read; 8 two-word compares
+    a row. Returns (ms, by, rows read)."""
+    rows = peptide_rows_read(torch, dtable, hi, lo, valid)
+    return bound(hi.numel() * 14 + rows * 96, rows * 8 * 4) + (rows,)
+
+
+def _tryptic_chain(torch, world, width):
+    """K7 -> K8 on the first 16,384 ``.bench_data`` pairs padded to
+    ``width`` (the tryptic path's program at that read length, the bench
+    tryptic index), each held to its plain version on the same inputs
+    and timed. Returns per-kernel stats and max abs errors."""
+    from umgap_tpu_torch.ops import encoding, lookup
+    from umgap_tpu_torch.pipeline import tryptic
+
+    tt1 = encoding.get_table(1)
+    stats, errs = {}, {}
+    reads, lens = _batch_reads(torch, world, width)
+
+    def r2p(plain=False):
+        fn = (tryptic.reads_to_peptides_plain if plain
+              else tryptic.reads_to_peptides)
+        return fn(reads, lens, width, tt1)
+
+    k7 = r2p()
+    errs["reads_to_peptides"] = compare(torch, f"K7 L={width}", k7,
+                                        r2p(True))
+    N, F = reads.shape[0], k7[0].shape[-1]
+    b7, by7 = bound(reads.numel() + 4 * N + N * 6 * F * 9,
+                    N * 6 * (width // 3) * 16)
+    stats["reads_to_peptides"] = dict(
+        ms=cuda_ms(torch, r2p), device_ms=device_ms(torch, r2p),
+        plain_ms=cuda_ms(torch, lambda: r2p(True), reps=3), bound_ms=b7,
+        bound_by=by7, F=F, fragments=int(k7[2].sum()),
+        reads_per_block=tryptic.READS_PER_BLOCK)
+    h1, h2, pv = k7
+    dt = world["pdtable"]
+
+    def k8(plain=False):
+        fn = lookup.probe_plain if plain else lookup.probe
+        return fn(dt, h1, h2, pv, 0)
+
+    got = k8()
+    errs["probe_peptide"] = compare(torch, f"K8 L={width}", got, k8(True))
+    b8, by8, rows = k8_bound(torch, dt, h1, h2, pv)
+    stats["probe_peptide"] = dict(
+        ms=cuda_ms(torch, k8), device_ms=device_ms(torch, k8),
+        plain_ms=cuda_ms(torch, lambda: k8(True), reps=3), bound_ms=b8,
+        bound_by=by8, queries=h1.numel(), valid=int(pv.sum()),
+        found=int(got[1].sum()), rows_read=rows)
+    for st in stats.values():
+        st["share"] = (st["bound_ms"] / st["device_ms"]
+                       if st["device_ms"] else None)
+    log(f"L={width} tryptic chain, kernels equal to plain: " + ", ".join(
+        f"{n} {s['ms']:.3f} ms (device {fmt_ms(s['device_ms'])}, plain "
+        f"{s['plain_ms']:.3f}, bound {s['bound_ms']:.4f} {s['bound_by']})"
+        for n, s in stats.items()))
+    return stats, errs
+
+
+def _tryptic_edges(torch, world, rng):
+    """K7 on short, odd, N-rich and 'TAA'-repeat reads (an all-'*'
+    frame), lengths 0-2 (every frame empty) and above the width, both
+    wires, an unaligned span; K8 on a small table at high load
+    (max_probes >= 1) with present, absent and invalid queries and an
+    all-miss batch. Returns (K7 err, K8 err)."""
+    from umgap_tpu_torch.index.table import PeptideTable
+    from umgap_tpu_torch.ops import encoding, lookup
+    from umgap_tpu_torch.ops.lookup import DeviceTable
+    from umgap_tpu_torch.pipeline import tryptic
+
+    dev = world["dev"]
+    e7 = 0.0
+    for L2, packed in ((17, True), (100, False), (161, True), (1001, True)):
+        n = 4097 if L2 < 1001 else 300
+        codes = rng.integers(0, 4, size=(n, L2)).astype(np.uint8)
+        codes[rng.random((n, L2)) < 0.03] = 4
+        codes[1::9] = np.resize(np.array([3, 0, 0], np.uint8), L2)
+        codes[2::9, ::5] = 4
+        ln = rng.integers(0, L2 + 1, size=n).astype(np.int32)
+        ln[: n // 8] = rng.integers(0, 3, size=n // 8)
+        ln[n // 8: n // 4] = L2 + 5
+        src = encoding.pack_dna4(codes) if packed else codes
+        big = torch.from_numpy(src).to(dev)
+        r = big[1:] if L2 == 161 else big
+        lt = torch.from_numpy(ln[1:] if L2 == 161 else ln).to(dev)
+        require(L2 != 161 or r.data_ptr() % 16, "K7: span not unaligned")
+        tt = encoding.get_table(1)
+        e7 = max(e7, compare(
+            torch, f"K7 L={L2} packed={packed}",
+            tryptic.reads_to_peptides(r, lt, L2, tt, packed),
+            tryptic.reads_to_peptides_plain(r, lt, L2, tt, packed)))
+    n = 200_000
+    key = np.unique(rng.integers(0, 2 ** 64 - 1, size=n, dtype=np.uint64))
+    key = key[(key >> np.uint64(32)) != np.uint64(0xFFFFFFFF)]
+    rng.shuffle(key)
+    hi = (key >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = key.astype(np.uint32).view(np.int32)
+    half = len(key) // 2
+    tab = PeptideTable._from_fingerprints(
+        hi[:half], lo[:half], rng.integers(1, 1000, half).astype(np.int32),
+        capacity=1 << 17)
+    require(tab.max_probes >= 1, "K8 edge table: max_probes 0")
+    dt = DeviceTable.from_host(tab, dev)
+    qh = torch.from_numpy(hi).to(dev)
+    ql = torch.from_numpy(lo).to(dev)
+    qv = torch.from_numpy(rng.random(len(hi)) < 0.9).to(dev)
+    got = lookup.probe(dt, qh, ql, qv, -7)
+    e8 = compare(torch, "K8 high load", got,
+                 lookup.probe_plain(dt, qh, ql, qv, -7))
+    require(int(got[1].sum()) > half // 2, "K8 high load: too few hits")
+    got = lookup.probe(dt, qh[half:], ql[half:], None, 0)
+    e8 = max(e8, compare(torch, "K8 all-miss", got, lookup.probe_plain(
+        dt, qh[half:], ql[half:], None, 0)))
+    require(int(got[1].sum()) == 0, "K8: all-miss batch hit")
+    log(f"K7 edge cases, K8 at high load (max_probes {tab.max_probes}) "
+        "and all-miss: equal")
+    return e7, e8
 
 
 def _dense_hits(torch, dtax, B, K, lo, seed=5):
@@ -813,7 +1041,8 @@ def wide_paths(torch, world):
     20,000 bp, K3's global delta rows at 4,000 windows a lane, K4's
     global path at N = 24,576 hits a row, K6's global warp lists at
     K = 16,392 (the wide program of paired 4,096 bp reads) on groups of
-    65 to K valid distinct taxa. Returns {kernel: (stats, max abs err)}."""
+    65 to K valid distinct taxa, and K7's direct kernel on reads of
+    70,001 bp. Returns {kernel: (stats, max abs err)}."""
     from umgap_tpu_torch.agg import device as devagg
     from umgap_tpu_torch.ops import encoding, seedextend, translate
 
@@ -846,6 +1075,34 @@ def wide_paths(torch, world):
         ms=cuda_ms(torch, k1, reps=5), device_ms=device_ms(torch, k1, reps=5),
         plain_ms=cuda_ms(torch, lambda: k1(True), reps=2), bound_ms=b,
         bound_by=by), e1)
+
+    # K7: 16 reads of up to 70,001 bp (past the tile at one read a
+    # block): the direct kernel
+    from umgap_tpu_torch.pipeline import tryptic
+
+    L7, n7 = 70001, 16
+    codes = rng.integers(0, 4, size=(n7, L7)).astype(np.uint8)
+    codes[rng.random((n7, L7)) < 0.02] = 4
+    ln = rng.integers(L7 // 2, L7 + 1, size=n7).astype(np.int32)
+    ln[0] = L7
+    reads7 = torch.from_numpy(encoding.pack_dna4(codes)).to(dev)
+    lens7 = torch.from_numpy(ln).to(dev)
+
+    def k7(plain=False):
+        fn = (tryptic.reads_to_peptides_plain if plain
+              else tryptic.reads_to_peptides)
+        return fn(reads7, lens7, L7, tt1)
+
+    got = k7()
+    e7 = compare(torch, f"K7 direct L={L7}", got, k7(True))
+    F = got[0].shape[-1]
+    b, by = bound(reads7.numel() + 4 * n7 + n7 * 6 * F * 9,
+                  n7 * 6 * (L7 // 3) * 16)
+    out["reads_to_peptides"] = (dict(
+        path="direct", shape=[n7, L7], ms=cuda_ms(torch, k7, reps=3),
+        device_ms=device_ms(torch, k7, reps=3),
+        plain_ms=cuda_ms(torch, lambda: k7(True), reps=1), bound_ms=b,
+        bound_by=by), e7)
 
     # K3: 1,536 lanes of 4,000 windows, runs with gaps, lengths 0..N
     NW, nl = 4000, 1536
@@ -957,6 +1214,18 @@ def phase_kernels(torch, world):
     for n, s in stats160.items():
         errs[n] = max(errs[n], errs160[n])
         stats[n]["L160"] = s
+
+    # the tryptic path's K7 -> K8 at the same two widths
+    tstats, terrs = _tryptic_chain(torch, world, world["L"])
+    tstats160, terrs160 = _tryptic_chain(torch, world, 160)
+    for n, s in tstats160.items():
+        terrs[n] = max(terrs[n], terrs160[n])
+        tstats[n]["L160"] = s
+    stats.update(tstats)
+    errs.update(terrs)
+    e7, e8 = _tryptic_edges(torch, world, rng)
+    errs["reads_to_peptides"] = max(errs["reads_to_peptides"], e7)
+    errs["probe_peptide"] = max(errs["probe_peptide"], e8)
 
     # the block sizes of K1 (reads) and K3 (lanes), swept
     stats["reads_to_kmers"]["sweep"], stats["seedextend_mask"]["sweep"] = \
@@ -1372,14 +1641,27 @@ def _probes1_table(T, keys, vals):
 # Phase 3: the main path, all four presets
 # ---------------------------------------------------------------------- #
 
+TRYPTIC_KERNELS = {"reads_to_peptides", "probe_peptide"}
+NINEMER_KERNELS = {"reads_to_kmers", "probe_kmer", "seedextend_mask"}
+
+
+def is_tryptic(config) -> bool:
+    from umgap_tpu_torch.pipeline.tryptic import TRYPTIC_PRESETS
+
+    return config.name in TRYPTIC_PRESETS
+
+
 def path_kernels(config):
-    """Names of the kernels a configuration's path launches: K6 only for
-    the tree aggregators, which read the taxonomy rows themselves, so no
-    path launches K5's ancestry epilogue (it serves hit_geometry)."""
+    """Names of the kernels a configuration's path launches: K1-K3 on the
+    9-mer path, K7 and K8 on the tryptic one, K6 only for the tree
+    aggregators (and rmq/mrtl), which read the taxonomy rows themselves,
+    so no path launches K5's ancestry epilogue (it serves
+    hit_geometry)."""
     from umgap_tpu_torch import kernels
     from umgap_tpu_torch.agg import device as devagg
 
     names = {k.name for k in kernels.KERNELS} - {"lane_gather_ancestry"}
+    names -= NINEMER_KERNELS if is_tryptic(config) else TRYPTIC_KERNELS
     if (config.method, config.strategy) not in \
             devagg.GEOMETRY_AGGREGATIONS:
         names.discard("tree_aggregate")
@@ -1402,12 +1684,18 @@ def batch_launches(torch, world, an):
 
 def _analyser(world, config, dtable=None, batch_size=BATCH, read_length=None,
               plain=False, euler=None):
-    """An ``Analyser`` over the world's device state; ``plain`` runs
+    """An ``Analyser`` (a ``TrypticAnalyser`` for the tryptic presets,
+    over the tryptic index) over the world's device state; ``plain`` runs
     every stage's plain version on the card (the reference the kernel
     path is held to), in the fast and in the wide program alike."""
     from umgap_tpu_torch.pipeline.runner import Analyser
+    from umgap_tpu_torch.pipeline.tryptic import TrypticAnalyser
 
-    class PlainAnalyser(Analyser):
+    base = TrypticAnalyser if is_tryptic(config) else Analyser
+    if dtable is None:
+        dtable = world["pdtable" if is_tryptic(config) else "dtable"]
+
+    class PlainAnalyser(base):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             self.step.plain = True
@@ -1417,12 +1705,11 @@ def _analyser(world, config, dtable=None, batch_size=BATCH, read_length=None,
             step.plain = True
             return step
 
-    cls = PlainAnalyser if plain else Analyser
+    cls = PlainAnalyser if plain else base
     return cls(None, None, config, batch_size=batch_size,
                read_length=read_length or world["L"], ends=2,
-               dtax=world["dtax"],
-               dtable=world["dtable"] if dtable is None else dtable,
-               device=world["dev"], euler=euler)
+               dtax=world["dtax"], dtable=dtable, device=world["dev"],
+               euler=euler)
 
 
 def _run_analyser(an, world):
@@ -1651,6 +1938,238 @@ def phase_wide(torch, world, results):
 
 
 # ---------------------------------------------------------------------- #
+# Phase 3c: the tryptic presets
+# ---------------------------------------------------------------------- #
+
+def phase_tryptic(torch, world):
+    """Both tryptic presets through ``TrypticAnalyser`` over all 32,768
+    pairs and the bench tryptic index: the path's launch counts (K7, K8,
+    K4, K6, K5 above 0, no 9-mer kernel), kernel taxa equal to plain
+    taxa, the first 1,024 equal to umgap_tpu's digests, a steady
+    end-to-end rate, a stage table with device-resident pairs/s, and the
+    wide program (k_max = E x 6 x F) on the first 256 pairs against the
+    plain wide program and the fast program's taxa. Returns (launches,
+    taxa by preset)."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.pipeline.tryptic import TRYPTIC_PRESETS
+
+    t_phase = time.perf_counter()
+    P, L = world["P"], world["L"]
+    analysers = {name: _analyser(world, cfg)
+                 for name, cfg in TRYPTIC_PRESETS.items()}
+    for an in analysers.values():
+        _run_analyser(an, world)
+    kernels.reset_launches()
+    results = {}
+    for name, an in analysers.items():
+        an.overflow_reads = 0
+        results[name] = _run_analyser(an, world)
+    launches = kernels.launch_counts()
+    log(f"tryptic path launches: {launches}")
+    for n in set().union(*(path_kernels(c)
+                           for c in TRYPTIC_PRESETS.values())):
+        require(launches[n] > 0,
+                f"kernel {n} was not launched on the tryptic path")
+    for n in NINEMER_KERNELS:
+        require(launches[n] == 0, f"the tryptic path launched {n}")
+    phase = {"launches": launches, "presets": {}}
+    n, dna = 256, world["reads"][:256]
+    lens = np.full((n, 2), L, dtype=np.int32)
+    for name, cfg in TRYPTIC_PRESETS.items():
+        an = analysers[name]
+        taxa = results[name]
+        plain = _run_analyser(_analyser(world, cfg, plain=True), world)
+        require(np.array_equal(taxa, plain),
+                f"tryptic {name}: kernel taxa differ from plain taxa in "
+                f"{int((taxa != plain).sum())} of {P} groups")
+        require(taxa.shape == (P,) and (taxa >= 1).all(),
+                f"tryptic {name}: bad output")
+        require(taxa_digest(taxa[:REFERENCE_PAIRS])
+                == REFERENCE_DIGESTS[name],
+                f"tryptic {name}: the first {REFERENCE_PAIRS} groups differ "
+                "from the JAX package's reference taxa")
+        overflow = an.overflow_reads
+        e2e = _stream_rate(an, world)
+        stages = stage_table(torch, world, an)
+        kernels.reset_launches()
+        wide = an.run_wide(dna, lens)
+        wl = kernels.launch_counts()
+        for k in path_kernels(cfg):
+            require(wl[k] > 0, f"tryptic wide {name}: kernel {k} was not "
+                    "launched")
+        want = _analyser(world, cfg, plain=True).run_wide(dna, lens)
+        require(np.array_equal(wide, want),
+                f"tryptic wide {name}: kernel taxa differ from plain taxa")
+        require(np.array_equal(wide, taxa[:n]),
+                f"tryptic wide {name}: taxa differ from the main program's")
+        phase["presets"][name] = dict(
+            e2e=e2e, overflow_reads=overflow, stages=stages,
+            checksum=int(taxa.sum()), distinct_taxa=int(len(np.unique(taxa))),
+            unassigned=int((taxa == 1).sum()),
+            wide=dict(k_max=an._exact_kmax(), batch=an._wide_batch,
+                      launches=wl))
+        log(f"tryptic {name}: kernel == plain on {P} groups, == reference "
+            f"on {REFERENCE_PAIRS}; e2e {e2e['pairs_per_s']:.0f} pairs/s, "
+            f"overflow {overflow}; wide (k_max {an._exact_kmax()}) on {n} "
+            "pairs == plain == main")
+    phase["seconds"] = time.perf_counter() - t_phase
+    RESULT["phases"]["tryptic"] = phase
+    return launches, results
+
+
+# ---------------------------------------------------------------------- #
+# Phase 4b: a 1.6 GB card-resident peptide index
+# ---------------------------------------------------------------------- #
+
+PEPTIDE_RESIDENT_KEYS = 50_000_000
+PEPTIDE_RESIDENT_LOG2_SLOTS = 27  # 2^24 rows of 8 slots x 12 B = 1.61 GB
+
+
+def _workload_fingerprints(torch, world):
+    """Every valid fingerprint K7 makes of the workload's pairs, as
+    uint64 keys (h1 << 32 | h2)."""
+    from umgap_tpu_torch.ops import encoding
+    from umgap_tpu_torch.pipeline import tryptic
+
+    L, keys = world["L"], []
+    for i in range(world["P"] // BATCH):
+        reads = torch.from_numpy(encoding.pack_dna4(
+            world["reads"][i * BATCH:(i + 1) * BATCH])).to(
+                world["dev"]).reshape(2 * BATCH, -1).contiguous()
+        lens = torch.full((2 * BATCH,), L, dtype=torch.int32,
+                          device=world["dev"])
+        h1, h2, v = tryptic.reads_to_peptides(reads, lens, L,
+                                              encoding.get_table(1))
+        keys.append(_u64(h1[v].cpu().numpy(), h2[v].cpu().numpy()))
+    return np.unique(np.concatenate(keys))
+
+
+def _u64(hi, lo):
+    return ((hi.astype(np.uint32).astype(np.uint64) << np.uint64(32))
+            | lo.astype(np.uint32).astype(np.uint64))
+
+
+def resident_fingerprints(world, n_total, avoid, seed=13):
+    """The bench tryptic index's (fingerprint, taxon) rows plus seeded
+    filler up to ``n_total``: f(i) = i * C + D mod 2^64 (C odd) is a
+    bijection, so the filler keys are distinct; those with an h1 of -1
+    (EMPTY) or equal to a key in ``avoid`` (every fingerprint of the
+    workload's queries) or in the bench index are skipped. Each filler
+    key gets a seeded taxon."""
+    t = world["ptable"]
+    used = t.key_hi != -1
+    bh, bl, bv = t.key_hi[used], t.key_lo[used], t.values[used]
+    n_fill = n_total - len(bh)
+    rng = np.random.default_rng(seed)
+    c = int(rng.integers(1 << 62, 1 << 63)) | 1
+    C, D = np.uint64(c), np.uint64(int(rng.integers(0, 1 << 63)))
+    n_idx = n_fill + n_fill // 100
+    keep = np.ones(n_idx, dtype=bool)
+    with np.errstate(over="ignore"):
+        # the indices whose image is a key to avoid: f^-1(k)
+        taken = (np.concatenate([avoid, _u64(bh, bl)]) - D) * np.uint64(
+            pow(c, -1, 1 << 64))
+        keep[taken[taken < np.uint64(n_idx)].astype(np.int64)] = False
+        cand = np.arange(n_idx, dtype=np.uint64) * C + D
+    keep &= (cand >> np.uint64(32)) != np.uint64(0xFFFFFFFF)
+    fill = cand[keep][:n_fill]
+    require(len(fill) == n_fill, "resident peptide filler: too few keys")
+    fh = (fill >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    fl = fill.astype(np.uint32).view(np.int32)
+    fv = rng.integers(1, world["n_tax"] + 1, size=n_fill).astype(np.int32)
+    return (np.concatenate([bh, fh]), np.concatenate([bl, fl]),
+            np.concatenate([bv, fv]))
+
+
+def phase_resident_peptide(torch, world, tryptic_results):
+    """A peptide index of 50,000,000 fingerprints in 2^27 slots
+    (16,777,216 rows of 96 B, 1.61 GB) on the card: the bench fragments
+    with their taxa plus seeded filler. K8 held to its plain version on
+    one batch's K7 output; tryptic-sensitivity over the workload through
+    it: launch counts, kernel taxa equal to the tryptic phase's (the
+    filler matches no query), device-resident and end-to-end pairs/s,
+    peak card memory."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.index.table import PeptideTable
+    from umgap_tpu_torch.ops import encoding, lookup
+    from umgap_tpu_torch.ops.lookup import DeviceTable
+    from umgap_tpu_torch.pipeline import tryptic
+
+    t_phase = time.perf_counter()
+    dev, L = world["dev"], world["L"]
+    t0 = time.perf_counter()
+    avoid = _workload_fingerprints(torch, world)
+    hi, lo, vals = resident_fingerprints(world, PEPTIDE_RESIDENT_KEYS, avoid)
+    keys_s = time.perf_counter() - t0
+    tab = PeptideTable._from_fingerprints(
+        hi, lo, vals, capacity=1 << PEPTIDE_RESIDENT_LOG2_SLOTS)
+    del hi, lo, vals
+    build_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dt = DeviceTable.from_host(tab, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    rows_gb = dt.rows.numel() * 4 / 1e9
+    log(f"resident peptide table: {tab.n} keys, {tab.n_buckets} rows, "
+        f"max_probes {tab.max_probes}, {rows_gb:.2f} GB; host build "
+        f"{build_s:.1f}s, to the card {load_s:.1f}s")
+    del tab
+
+    reads, lens = _batch_reads(torch, world, L)
+    h1, h2, pv = tryptic.reads_to_peptides(reads, lens, L,
+                                           encoding.get_table(1))
+    got = lookup.probe(dt, h1, h2, pv, 0)
+    err = compare(torch, "K8 resident", got,
+                  lookup.probe_plain(dt, h1, h2, pv, 0))
+    probe_ms = cuda_ms(torch, lambda: lookup.probe(dt, h1, h2, pv, 0))
+    probe_dev = device_ms(torch, lambda: lookup.probe(dt, h1, h2, pv, 0))
+    # the same launch with its rows out of L2, as a new batch finds them
+    probe_cold = cold_ms(torch, lambda: lookup.probe(dt, h1, h2, pv, 0))
+    pb, pby, rows = k8_bound(torch, dt, h1, h2, pv)
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = tryptic.TRYPTIC_PRESETS["tryptic-sensitivity"]
+    an = _analyser(world, cfg, dtable=dt)
+    _run_analyser(an, world)
+    kernels.reset_launches()
+    taxa = _run_analyser(an, world)
+    launches = kernels.launch_counts()
+    for n in path_kernels(cfg):
+        require(launches[n] > 0, f"kernel {n} was not launched on the "
+                "resident peptide path")
+    require(np.array_equal(taxa, tryptic_results["tryptic-sensitivity"]),
+            "resident peptide: taxa differ from the bench index's in "
+            f"{int((taxa != tryptic_results['tryptic-sensitivity']).sum())}"
+            " groups")
+    e2e = _stream_rate(an, world)
+    bt = reads.reshape(BATCH, 2, -1)
+    bl = lens.reshape(BATCH, 2)
+    ms = cuda_ms(torch, lambda: an.step(bt, bl, L), reps=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    RESULT["phases"]["resident_peptide"] = dict(
+        rows_gb=rows_gb, keys=PEPTIDE_RESIDENT_KEYS,
+        slots=1 << PEPTIDE_RESIDENT_LOG2_SLOTS, host_build_s=build_s,
+        host_keys_s=keys_s, max_probes=dt.max_probes,
+        host_to_device_s=load_s, probe_ms=probe_ms, probe_device_ms=probe_dev,
+        probe_cold_ms=probe_cold,
+        probe_bound_ms=pb, probe_bound_by=pby, probe_rows_read=rows,
+        probe_queries=h1.numel(), probe_max_abs_err=err,
+        probe_found=int(got[1].sum()), batch_ms=ms,
+        device_resident_pairs_per_s=BATCH / (ms / 1e3), e2e=e2e,
+        launches=launches, max_memory_allocated_gb=peak_gb,
+        seconds=time.perf_counter() - t_phase)
+    log(f"resident peptide {rows_gb:.2f} GB: K8 equal to plain, probe "
+        f"{probe_ms:.3f} ms (device {fmt_ms(probe_dev)}, L2 flushed "
+        f"{probe_cold:.4f}, bound {pb:.4f}); "
+        f"tryptic-sensitivity {BATCH / (ms / 1e3):.0f} pairs/s resident, "
+        f"{e2e['pairs_per_s']:.0f} e2e, taxa == bench index's; peak "
+        f"{peak_gb:.2f} GB")
+    del dt, an
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------- #
 # Phase 4: a 4.3 GB card-resident bucket64s index
 # ---------------------------------------------------------------------- #
 
@@ -1837,11 +2356,49 @@ def phase_cli(torch, world):
                 f"CLI {preset}: records differ from the Analyser's")
         require(got.count(">") == n, f"CLI {preset}: {got.count('>')} "
                 f"records for {n} groups")
-    RESULT["phases"]["cli"] = dict(groups=n, presets=list(PRESETS),
-                                   launches_L160=launches,
-                                   seconds=time.perf_counter() - t_phase)
-    log(f"CLI: {len(PRESETS)} presets x {n} groups, records equal to the "
-        "Analyser's at read length 160, whose kernel taxa equal plain")
+    # tryptic-sensitivity over a peptide index, and a 9-mer index under a
+    # tryptic preset, which the command line refuses
+    from umgap_tpu_torch.pipeline.tryptic import TRYPTIC_PRESETS
+
+    pindex = os.path.join(TMP_DIR, "tryptic.npz")
+    world["ptable"].save(pindex)
+    tout = os.path.join(TMP_DIR, "tryptic-sensitivity.fa")
+    base = [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
+            taxtsv, "-t", "tryptic-sensitivity", "-1", paths[0], "-2",
+            paths[1]]
+    proc = subprocess.run(base + ["--index", pindex, "-o", tout], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"CLI tryptic exit {proc.returncode}: {proc.stderr[-2000:]}")
+    cfg = TRYPTIC_PRESETS["tryptic-sensitivity"]
+    an = _analyser(world, cfg, batch_size=n, read_length=160)
+    kernels.reset_launches()
+    taxa = [t for _h, t in an.analyse_arrays(headers, reads, lens)]
+    launches["tryptic-sensitivity"] = kernels.launch_counts()
+    for k in path_kernels(cfg):
+        require(launches["tryptic-sensitivity"][k] > 0, f"CLI tryptic: "
+                f"kernel {k} was not launched at read length 160")
+    plain = [t for _h, t in _analyser(
+        world, cfg, plain=True, batch_size=n, read_length=160).analyse_arrays(
+            headers, reads, lens)]
+    require(taxa == plain, "CLI tryptic: kernel taxa differ from plain")
+    with open(tout) as f:
+        require(f.read() == "".join(f">s{h}\n{t}\n"
+                                    for h, t in zip(headers, taxa)),
+                "CLI tryptic: records differ from the TrypticAnalyser's")
+    proc = subprocess.run(base + ["--index", index, "-o", tout + ".x"],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    require(proc.returncode == 1 and "needs a peptide" in proc.stderr,
+            f"CLI: a 9-mer index under a tryptic preset gave exit "
+            f"{proc.returncode}: {proc.stderr[-500:]}")
+    RESULT["phases"]["cli"] = dict(
+        groups=n, presets=list(PRESETS) + ["tryptic-sensitivity"],
+        launches_L160=launches, seconds=time.perf_counter() - t_phase)
+    log(f"CLI: {len(PRESETS)} 9-mer presets and tryptic-sensitivity x {n} "
+        "groups, records equal to the Analyser's at read length 160, whose "
+        "kernel taxa equal plain; a 9-mer index under a tryptic preset "
+        "exits 1")
 
 
 # ---------------------------------------------------------------------- #
@@ -2085,6 +2642,28 @@ def phase_ingest(torch, world):
     rates = {name: dict(pairs_per_s=statistics.median(
         w["pairs_per_s"] for w in ws), windows=ws)
         for name, ws in wins.items()}
+    # tryptic-sensitivity through the ring tier over the peptide index
+    tsession = cli.AnalyseSession(args, world["tax"], world["ptable"],
+                                  world["dtax"], world["pdtable"],
+                                  world["dev"])
+
+    def twindow(min_s=STEADY_S):
+        n = passes = 0
+        smp = dict(sample("all"), type="tryptic-sensitivity")
+        t0 = time.perf_counter()
+        while passes == 0 or time.perf_counter() - t0 < min_s:
+            with open(out_path, "w") as h:
+                n += cli.write_batches(h, cli.run_sample_ring(tsession, smp))
+            passes += 1
+        wall = time.perf_counter() - t0
+        return dict(pairs_per_s=n / wall, pairs=n, seconds=wall,
+                    passes=passes)
+
+    twindow(0.0)  # warm the program
+    ws = [twindow() for _ in range(3)]
+    rates["ring_plain_tryptic_sensitivity"] = dict(
+        pairs_per_s=statistics.median(w["pairs_per_s"] for w in ws),
+        windows=ws)
     phase["rates"] = rates
     log("ingest file-to-records pairs/s (median of 3 windows): " + ", ".join(
         f"{k} {v['pairs_per_s']:.0f}" for k, v in rates.items()))
@@ -2162,11 +2741,116 @@ def phase_ingest(torch, world):
         require(f.read() == got["ring"],
                 "ingest CLI: gzipped records differ from the plain run's")
     phase["cli_gzip_s"] = cli_s
+    phase["host_routes"] = _host_routes(torch, world)
     phase["seconds"] = time.perf_counter() - t_phase
     RESULT["phases"]["ingest"] = phase
     log(f"ingest: three tiers byte-equal and equal to analyse_arrays on "
         f"{P} pairs, gzip == plain on {P * INGEST_COPIES}; CLI on gzip in "
         f"{cli_s:.1f} s; phase {phase['seconds']:.1f} s")
+
+
+HOST_ROUTE_GROUPS = 2048  # the tryptic sample
+LONG_GROUPS = 512  # the 9-mer sample: one group of 6,000 bp among them
+LONG_BP = 6000
+
+
+def _long_reads(reads, n, length, offset):
+    """``n`` ends of ``length`` bp, each the concatenation of consecutive
+    bench reads of end 1 from ``offset`` on."""
+    P, _e, L0 = reads.shape
+    pieces = -(-length // L0)
+    idx = (offset + np.arange(n)[:, None] * pieces + np.arange(pieces)) % P
+    return reads[idx, 0].reshape(n, -1)[:, :length]
+
+
+def _host_routes(torch, world):
+    """The command line's two host routes against device routes, in
+    process through ``cli.run_sample``: a tryptic-sensitivity sample with
+    records beyond --read-length (the host-digest route) against the same
+    sample at a --read-length that holds them (the device digest), and a
+    high-sensitivity sample with one 6,000 bp group at the defaults (the
+    exact long-record route) against the same sample at --read-length
+    8,192 (the device, K = 32,772 wide program). Records must be equal;
+    returns the routes' rates."""
+    import argparse
+    import io
+
+    from umgap_tpu_torch import cli
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    reads = world["reads"]
+
+    def write(tag, ends):
+        paths = [os.path.join(TMP_DIR, f"{tag}_R{e + 1}.fq") for e in (0, 1)]
+        for e, path in enumerate(paths):
+            with open(path, "wb") as f:
+                for i, seq in enumerate(ends[e]):
+                    s_ = lut[seq].tobytes()
+                    f.write(b"@h%d/%d\n%s\n+\n%s\n" % (
+                        i, e + 1, s_, b"I" * len(s_)))
+        return paths
+
+    def run(table, dtable, read_length, tag, preset, tier=None):
+        args = argparse.Namespace(read_length=read_length, batch_size=BATCH)
+        session = cli.AnalyseSession(args, world["tax"], table, world["dtax"],
+                                     dtable, world["dev"])
+        smp = dict(type=preset, first=paths[tag][0], second=paths[tag][1],
+                   output=None)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        n = cli.write_batches(buf, (tier or cli.run_sample)(session, smp))
+        return n, buf.getvalue(), time.perf_counter() - t0
+
+    out, paths = {}, {}
+    # tryptic: every 16th group's end 1 is 200 bp
+    n = HOST_ROUTE_GROUPS
+    ends = [list(reads[:n, 0]), list(reads[:n, 1])]
+    for i in range(0, n, 16):
+        ends[0][i] = np.concatenate([reads[i, 0], reads[i + 1, 0]])
+    paths["tryptic"] = write("route_tryptic", ends)
+    pt, pdt = world["ptable"], world["pdtable"]
+    preset = "tryptic-sensitivity"
+    got_n, host, _s = run(pt, pdt, 160, "tryptic", preset)
+    require(got_n == n, f"host-digest route: {got_n} records for {n}")
+    _n, host2, host_s = run(pt, pdt, 160, "tryptic", preset,
+                            cli.run_sample_fallback)
+    _n, dev_text, dev_s = run(pt, pdt, 256, "tryptic", preset)
+    require(host == host2 == dev_text, "host-digest route: records differ "
+            "from the device digest's at --read-length 256")
+    out["tryptic_host_digest"] = dict(
+        groups=n, long_groups=len(range(0, n, 16)), seconds=host_s,
+        groups_per_s=n / host_s, device_route_s=dev_s)
+    # 9-mer: one 6,000 bp group among 100 bp ones
+    n = LONG_GROUPS
+    ends = [list(reads[:n, 0]), list(reads[:n, 1])]
+    ends[0][n // 3] = _long_reads(reads, 1, LONG_BP, 1000)[0]
+    paths["ninemer"] = write("route_ninemer", ends)
+    t, dt = world["table"], world["dtable"]
+    preset = "high-sensitivity"
+    got_n, host, host_s = run(t, dt, 160, "ninemer", preset)
+    require(got_n == n, f"long-record route: {got_n} records for {n}")
+    _n, dev_text, dev_s = run(t, dt, 8192, "ninemer", preset)
+    require(host == dev_text, "long-record route: records differ from the "
+            "device's at --read-length 8192")
+    # the route's own rate: 8 groups of 6,000 bp a end
+    code = [list(x) for x in zip(_long_reads(reads, 8, LONG_BP, 5000),
+                                 _long_reads(reads, 8, LONG_BP, 9000))]
+    groups = [[lut[e].tobytes().decode() for e in g] for g in code]
+    cache = {}
+    t0 = time.perf_counter()
+    taxa = [cli._analyse_long_group_host(g, PRESETS[preset], 2, world["tax"],
+                                         t, cache) for g in groups]
+    route_s = time.perf_counter() - t0
+    out["ninemer_long_record"] = dict(
+        groups=n, sample_seconds=host_s, device_route_s=dev_s,
+        route_groups=len(groups), route_seconds=route_s,
+        groups_per_s=len(groups) / route_s, route_taxa=taxa)
+    log(f"host routes: tryptic host digest {out['tryptic_host_digest']['groups_per_s']:.0f} "
+        f"groups/s (records == the device digest's at 256 bp); 9-mer long "
+        f"record {len(groups) / route_s:.2f} groups/s of 2 x {LONG_BP} bp "
+        "(records == the device's at 8,192 bp)")
+    return out
 
 
 # ---------------------------------------------------------------------- #

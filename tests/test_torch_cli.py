@@ -1,8 +1,9 @@
 """``python -m umgap_tpu_torch analyse`` (on the CPU) writes the same bytes
 as ``umgap_tpu analyse --fgspp never`` for the four 9-mer presets, on
 plain and gzipped pairs, on reads that climb the width ladder and on
-multi-line FASTQ (the Python tier), and refuses what it does not support
-yet instead of clipping or guessing."""
+multi-line FASTQ (the Python tier), and on a group past the top width
+(the exact host route), and refuses what it does not support yet instead
+of clipping or guessing."""
 
 import gzip
 import io
@@ -209,13 +210,25 @@ def _port(sample, *extra, reads=None):
 
 
 def test_cli_refuses_unsupported_input(sample, tmp_path):
-    long_fq = tmp_path / "long.fq"
-    seq = "ACGT" * 1025  # 4,100 bp > the top width 4,096: never clipped
-    long_fq.write_text(f"@x/1\n{seq}\n+\n{'I' * len(seq)}\n")
-    rc, err = _port(sample, "--device", "cpu", reads=(long_fq, long_fq))
-    assert rc == 1 and "4096 bp" in err and "long-read host route" in err
+    # a group beyond the top width 4,096 is never clipped: it takes the
+    # exact host route, as in umgap_tpu
+    long_fq = [tmp_path / "long_R1.fq", tmp_path / "long_R2.fq"]
+    seq = "ACGT" * 1025
+    for path in long_fq:
+        path.write_text(f"@x/1\n{seq}\n+\n{'I' * len(seq)}\n@y/1\n"
+                        f"{seq[:40]}\n+\n{'I' * 40}\n")
+    argv = ["analyse", "--taxons", str(sample["taxons"]), "--index",
+            str(sample["index"]), "-1", str(long_fq[0]), "-2",
+            str(long_fq[1]), "--read-length", str(L), "-o",
+            str(tmp_path / "{tag}.fa")]
+    err = _both(argv)
+    assert "1 record group(s) beyond 4096 bp: exact host path" in err
+    got = (tmp_path / "port.fa").read_bytes()
+    assert got == (tmp_path / "jax.fa").read_bytes()
+    assert got.count(b">") == 2
+    # a tryptic preset needs a peptide index: the 9-mer one is refused
     rc, err = _port(sample, "--device", "cpu", "-t", "tryptic-sensitivity")
-    assert rc == 1 and "tryptic" in err
+    assert rc == 1 and "needs a peptide (tryptic) index" in err
     rc, err = _port(sample, "--device", "cpu", "--fgspp", "auto")
     assert rc == 1 and "FragGeneScan" in err
     rc, err = _port(sample, "--device", "cpu", "--mesh", "2")

@@ -628,3 +628,139 @@ def test_tree_aggregate_wide_lists(dev):
             strategy, dtax, u[s:s + 4], c[s:s + 4], v[s:s + 4])
             for s in range(0, B, 4)])
         assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def _k7_reads(rng, n, L):
+    """n random reads of width L: N-rich reads (unknown residues are
+    members), 'TAA' repeats (an all-'*' forward frame), reads of length
+    0-2 (every frame empty), lengths below 27 (no 9-residue fragment),
+    L and above L (clamped)."""
+    codes = rng.integers(0, 4, size=(n, L)).astype(np.uint8)
+    codes[rng.random((n, L)) < 0.03] = 4
+    codes[1::9] = np.resize(np.array([3, 0, 0], np.uint8), L)  # TAA...
+    codes[2::9, ::5] = 4
+    lens = rng.integers(0, L + 1, size=n).astype(np.int32)
+    special = np.array([0, 1, 2, 26, L, L + 5, L - 1, 3], np.int32)
+    m = min(n, len(special))
+    lens[:m] = special[:m]
+    lens[1::9] = L
+    return codes, lens
+
+
+def _k7_check(dev, codes, lens, L, packed=True):
+    from umgap_tpu_torch.pipeline import tryptic
+
+    src = encoding.pack_dna4(codes) if packed else codes
+    r = torch.from_numpy(src).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    t = encoding.get_table(1)
+    before = kernels.K7.launches
+    got = tryptic.reads_to_peptides(r, ln, L, t, packed)
+    want = tryptic.reads_to_peptides_plain(r, ln, L, t, packed)
+    assert kernels.K7.launches == before + 1
+    _eq(got, want)
+    return want
+
+
+@pytest.mark.parametrize("L", [17, 64, 100, 160, 161, 1001])
+@pytest.mark.parametrize("packed", [True, False])
+def test_reads_to_peptides_kernel(dev, L, packed):
+    """K7 at the main widths (100, 160), odd and short ones and a long
+    one (fewer reads a block), on both wires, read counts no multiple of
+    the block's reads; every slot compared, the empty ones 0."""
+    rng = np.random.default_rng(L + packed)
+    for n in (1, 7, 300, 16385):
+        if n == 16385 and L not in (100, 160):
+            continue
+        codes, lens = _k7_reads(rng, n, L)
+        want = _k7_check(dev, codes, lens, L, packed)
+        if n == 16385:
+            assert int(want[2].sum()) > n  # fragments were emitted
+
+
+def test_reads_to_peptides_kernel_direct(dev):
+    """Reads too long for K7's tile even at one read a block (about 3.5
+    bytes of shared memory a base): the direct kernel, one thread a
+    lane."""
+    rng = np.random.default_rng(70)
+    L = 70_001
+    codes, lens = _k7_reads(rng, 5, L)
+    lens[3] = L - 2
+    _k7_check(dev, codes, lens, L)
+
+
+def test_probe_peptide_kernel(dev):
+    """K8 against its plain version on a small table at high load
+    (max_probes >= 1): present, absent and invalid queries, defaults 0
+    and -7, one query and none."""
+    from umgap_tpu_torch.index.table import PeptideTable, _fingerprints
+
+    rng = np.random.default_rng(8)
+    alpha = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    peps = sorted({"".join(rng.choice(alpha, size=int(k)))
+                   for k in rng.integers(9, 46, 3000)})
+    vals = rng.integers(1, 300, len(peps)).astype(np.int32)
+    pt = PeptideTable.build(peps, vals, load_factor=0.95)
+    assert pt.max_probes >= 1
+    dt = lookup.DeviceTable.from_host(pt, dev)
+    hi, lo = _fingerprints(peps + ["".join(rng.choice(alpha, size=12))
+                                   for _ in range(1000)])
+    hi = torch.from_numpy(hi).to(dev).reshape(-1, 4)
+    lo = torch.from_numpy(lo).to(dev).reshape(-1, 4)
+    valid = torch.from_numpy(rng.random(tuple(hi.shape)) < 0.9).to(dev)
+    before = kernels.K8.launches
+    for default in (0, -7):
+        got = lookup.probe(dt, hi, lo, valid, default)
+        _eq(got, lookup.probe_plain(dt, hi, lo, valid, default))
+        assert got[0].shape == hi.shape
+        assert int(got[1].sum()) > len(peps) // 2
+    _eq(lookup.probe(dt, hi, lo, None, 0),
+        lookup.probe_plain(dt, hi, lo, None, 0))
+    for n in (1, 0):
+        _eq(lookup.probe(dt, hi.reshape(-1)[:n], lo.reshape(-1)[:n]),
+            lookup.probe_plain(dt, hi.reshape(-1)[:n], lo.reshape(-1)[:n]))
+    assert kernels.K8.launches == before + 5
+
+
+@pytest.mark.parametrize("preset", ["tryptic-sensitivity",
+                                    "tryptic-precision"])
+def test_tryptic_stages_kernels_equal_plain(dev, preset):
+    """One tryptic batch through K7, K8, K4, K6 and K5 equals the plain
+    stages on the card, and launches each kernel."""
+    from umgap_tpu_torch.index.table import PeptideTable
+    from umgap_tpu_torch.ops import kmers
+    from umgap_tpu_torch.pipeline import tryptic
+
+    rng = np.random.default_rng(9)
+    tax = Taxonomy([Taxon(1, "root", ranks.NO_RANK, 1, True)] + [
+        Taxon(i, f"t{i}", ranks.NO_RANK, int(rng.integers(1, i)), True)
+        for i in range(2, 200)])
+    B, L = 512, 100
+    codes = rng.integers(0, 4, size=(B, 2, L)).astype(np.uint8)
+    frags = set()
+    for row in codes.reshape(-1, L):
+        for pep in translate.translate_sequence(
+                encoding.decode_dna(row), translate.FRAME_NAMES,
+                encoding.get_table(1)):
+            frags.update(f for f in kmers.tryptic_digest(pep)
+                         if 9 <= len(f) <= 45)
+    peps = sorted(frags)[::2]
+    table = PeptideTable.build(peps, rng.integers(
+        2, 200, len(peps)).astype(np.int32))
+    cfg = tryptic.TRYPTIC_PRESETS[preset]
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    dtable = lookup.DeviceTable.from_host(table, dev)
+    reads = torch.from_numpy(encoding.pack_dna4(codes)).to(dev).reshape(
+        2 * B, -1)
+    lens = torch.full((B, 2), L, dtype=torch.int32, device=dev)
+    kernels.reset_launches()
+    got = tryptic.run_tryptic_stages(reads, lens, L, True, dtax, dtable, cfg,
+                                     True)
+    counts = kernels.launch_counts()
+    want = tryptic.run_tryptic_stages(reads, lens, L, True, dtax, dtable,
+                                      cfg, True, plain=True)
+    _eq(got, want)
+    for k in ("reads_to_peptides", "probe_peptide", "dedup_counts",
+              "tree_aggregate", "lane_gather"):
+        assert counts[k] == 1, counts
+    assert counts["reads_to_kmers"] == counts["probe_kmer"] == 0

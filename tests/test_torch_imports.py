@@ -117,6 +117,18 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(no_card, world):
     dtable = DeviceTable.from_host(table, device="cpu")
     with pytest.raises(pdevice.NoCudaDevice):
         make_pipeline(dtax, dtable, cfg)
+    from umgap_tpu_torch.index.table import PeptideTable
+    from umgap_tpu_torch.pipeline import tryptic
+
+    ptable = PeptideTable.build(["AAAAAAAAAK"], np.array([2], np.int32))
+    tcfg = tryptic.TRYPTIC_PRESETS["tryptic-sensitivity"]
+    with pytest.raises(pdevice.NoCudaDevice):
+        tryptic.TrypticAnalyser(tax, ptable, tcfg)
+    with pytest.raises(pdevice.NoCudaDevice):
+        tryptic.analyse_tryptic_groups([("a", ["ACGT"])], tax, ptable, tcfg)
+    with pytest.raises(pdevice.NoCudaDevice):
+        tryptic.make_tryptic_fused(dtax, DeviceTable.from_host(
+            ptable, device="cpu"), tcfg)
     # asked for explicitly, the CPU runs the plain path
     an = Analyser(tax, table, cfg, batch_size=4, read_length=30,
                   device="cpu")
@@ -127,9 +139,29 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(no_card, world):
 
 def test_unported_options_refuse(world):
     tax, table = world
+    # peptide tables are ported: their rows are [key_hi | key_lo | values]
+    # of 8 slots each (tests/test_torch_tryptic.py holds them to umgap_tpu)
+    from umgap_tpu_torch.index.table import PeptideTable
+
+    pt = PeptideTable.build(["AAAAAAAAAK", "CCCCCCCCCR", "DDDDDDDDDE"],
+                            np.array([2, 10239, 12884], np.int32))
+    dt = DeviceTable.from_host(pt, device="cpu")
+    assert dt.kind == "peptide" and dt.rows.shape == (pt.n_buckets, 24)
+    nb = pt.n_buckets
+    assert np.array_equal(dt.rows.numpy(), np.concatenate(
+        [pt.key_hi.reshape(nb, 8), pt.key_lo.reshape(nb, 8),
+         pt.values.reshape(nb, 8)], axis=1))
     with pytest.raises(NotImplementedError):
-        DeviceTable.from_host(types.SimpleNamespace(kind="peptide"),
+        DeviceTable.from_host(types.SimpleNamespace(kind="cuckoo"),
                               device="cpu")
+    # grouped (sharded) tables are not ported yet
+    grouped = DeviceTable.from_host(table, device="cpu")
+    grouped.group = 2
+    from umgap_tpu_torch.ops import lookup
+
+    with pytest.raises(NotImplementedError, match="grouped"):
+        lookup.probe_plain(grouped, torch.zeros(3, dtype=torch.int32),
+                           torch.zeros(3, dtype=torch.int32))
     # taxa2agg cannot combine tree with mrtl: refused as by the reference
     with pytest.raises(ValueError, match="cannot be combined"):
         Analyser(tax, table, PRESETS["max-sensitivity"]._replace(

@@ -1,28 +1,33 @@
-"""``python -m umgap_tpu_torch analyse``: the 9-mer preset pipelines on
-the GPU, with the JAX CLI's flag names for the subset this port runs.
+"""``python -m umgap_tpu_torch analyse``: the 9-mer and tryptic preset
+pipelines on the GPU, with the JAX CLI's flag names for the subset this
+port runs.
 
 Output records are the same FASTA as ``umgap_tpu analyse`` (one
 ``>header`` / consensus-taxon record per read group, header stripped at
 the paired-end delimiter, input order). The run is on the current CUDA
 device unless ``--device`` says otherwise; without a card it fails and
-says how to ask for the CPU.
+says how to ask for the CPU. ``--index`` is one file: a 9-mer index for
+the 9-mer presets, a peptide index for the tryptic ones.
 
 A sample goes through three ingest tiers, as in ``umgap_tpu``: the
 native ring stream (:func:`run_sample_ring`: a C++ thread parses, gzip
 included, and packs batches on the 4-bit wire), the native chunked
 stream (:func:`run_sample_stream`: the width ladder, read widths grow
-along 256, 512, ... 4,096 bp), and the Python reader
-(:func:`run_sample_fallback`: any FASTQ the readers take). A tier hands
-the sample to the next only on records that are not strictly 4-line
-FASTQ or on a record wider than its width, says why on stderr, and the
-next tier skips the records already written.
+along 256, 512, ... 4,096 bp; the tryptic presets stay at
+``--read-length``), and the Python reader (:func:`run_sample_fallback`:
+any FASTQ the readers take). A tier hands the sample to the next only on
+records that are not strictly 4-line FASTQ or on a record wider than its
+width, says why on stderr, and the next tier skips the records already
+written. Records of any length run: in the Python tier a 9-mer group
+with a record beyond the top width takes the exact host route
+(:func:`_analyse_long_group_host`), and a tryptic sample with records
+beyond ``--read-length`` the host-digest route
+(:func:`~umgap_tpu_torch.pipeline.tryptic.analyse_tryptic_groups`).
 
 Not in this port yet, each refused with a clear error rather than run
-differently: records longer than the top width (4,096 bp, or
-``--read-length`` above it), which ``umgap_tpu`` sends through an exact
-host route; FragGeneScan++ (the precision presets always use six-frame
-translation, as ``--fgspp never``), the tryptic presets, ``--mesh``,
-``--shards`` and ``--serve``.
+differently: FragGeneScan++ (the presets always use six-frame
+translation, as ``--fgspp never``), ``--mesh``, ``--shards`` and
+``--serve``.
 """
 
 from __future__ import annotations
@@ -34,8 +39,7 @@ import sys
 import numpy as np
 
 from .pipeline.fused import PRESETS
-
-TRYPTIC_PRESETS = ("tryptic-sensitivity", "tryptic-precision")
+from .pipeline.tryptic import TRYPTIC_PRESETS
 
 
 class CliError(Exception):
@@ -93,7 +97,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="umgap-tpu-torch",
         description="UMGAP analyse pipelines in PyTorch on an NVIDIA GPU")
     sub = p.add_subparsers(dest="command", required=True)
-    sp = sub.add_parser("analyse", help="run a 9-mer preset pipeline")
+    sp = sub.add_parser("analyse", help="run a preset pipeline")
     sp.add_argument("-t", "--type", action=_SampleAction,
                     default="high-precision",
                     choices=list(PRESETS) + list(TRYPTIC_PRESETS))
@@ -104,12 +108,15 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("-o", "--output", action=_SampleAction, default=None,
                     help="output file ('-' = stdout); closes a sample group")
     sp.add_argument("--taxons", required=True, help="taxon TSV file")
-    sp.add_argument("--index", required=True, help="9-mer index .npz")
+    sp.add_argument("--index", required=True,
+                    help="index .npz: 9-mer for the 9-mer presets, "
+                         "peptide for the tryptic ones")
     sp.add_argument("--batch-size", type=int, default=16384,
                     help="max read groups per device batch")
     sp.add_argument("--read-length", type=int, default=160,
                     help="device read width; longer records climb the "
-                         "width ladder up to 4,096 bp")
+                         "width ladder up to 4,096 bp, then take the exact "
+                         "host route (tryptic presets: the host digest)")
     sp.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device; "
                          "'cpu' runs the plain PyTorch path)")
@@ -123,9 +130,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 # Top device width (covers full Illumina and long amplicon ranges). A
-# group with a record beyond it is not clipped: ``umgap_tpu`` runs it
-# through an exact host route, which this port does not have yet, so it
-# refuses the sample.
+# group with a record beyond it is not clipped: it takes the exact host
+# route (_analyse_long_group_host).
 ANALYSE_WIDTH_CAP = 4096
 
 
@@ -159,9 +165,67 @@ class _LongNinemerSample(_SampleReroute):
     """The sample holds records beyond the tier's width."""
 
 
+class _LongTrypticSample(_SampleReroute):
+    """A tryptic sample holds records beyond --read-length: the Python
+    tier sends it through the host-digest route."""
+
+
+def _note(msg: str) -> None:
+    print(f"umgap_tpu_torch analyse: {msg}", file=sys.stderr, flush=True)
+
+
+def _is_tryptic(preset: str) -> bool:
+    return preset in TRYPTIC_PRESETS
+
+
+def _analyse_long_group_host(seqs, config, ends: int, tax, table,
+                             aux_cache: dict) -> int:
+    """Consensus taxon of ONE read group with records beyond the top
+    device width, on the host: six-frame translation, the table's host
+    probe, seed-extend and taxa2agg, the exact composition of the
+    reference pipeline (translate -a | prot2kmer2lca -o | seedextend |
+    uniq | taxa2agg) at any record length."""
+    from .agg import host as agg_host
+    from .ops import encoding
+    from .ops import kmers as kmerops
+    from .ops import translate
+    from .ops.seedextend import apply_seedextend
+    from .taxonomy import NONE
+
+    code = encoding.get_table(config.table_number)
+    hits = []
+    for seq in seqs[:ends]:
+        for pep in translate.translate_sequence(seq, translate.FRAME_NAMES,
+                                                code):
+            if len(pep) < config.k:
+                continue  # prot2kmer2lca skips records shorter than k
+            packed = kmerops.pack_kmers_host(encoding.encode_aa(pep),
+                                             config.k)
+            hi, lo = kmerops.split_packed(packed)
+            vals, found = table.probe_host(hi, lo)
+            taxa = [int(v) if f else 0 for v, f in zip(vals, found)]
+            hits.extend(apply_seedextend(taxa, config.min_seed_size,
+                                         config.max_gap_size))
+    counts = agg_host.count((t, 1.0) for t in hits if t != 0)
+    counts = agg_host.filter_counts(counts, config.lower_bound)
+    if not counts:
+        return 1
+    key = ("host_agg", config.method, config.strategy, config.factor)
+    aggregator = aux_cache.get(key)
+    if aggregator is None:
+        aggregator = aux_cache[key] = agg_host.make_aggregator(
+            tax, config.method, config.strategy, config.factor)
+    snapping = aux_cache.get(("host_snap",))
+    if snapping is None:
+        snapping = aux_cache[("host_snap",)] = tax.snapping(False)
+    snapped = snapping[aggregator.aggregate(counts)]
+    if snapped == NONE:
+        raise CliError("Unsnappable taxon in long-record path")
+    return int(snapped)
+
+
 def _hand_on(tier, reason) -> None:
-    print(f"umgap_tpu_torch analyse: {tier.__name__} hands the sample on: "
-          f"{reason}", file=sys.stderr, flush=True)
+    _note(f"{tier.__name__} hands the sample on: {reason}")
 
 
 class AnalyseSession:
@@ -176,6 +240,8 @@ class AnalyseSession:
         self.dtax, self.dtable = dtax, dtable
         self.device = device
         self.analysers: dict = {}
+        # host aggregators and the host-digest step, kept across samples
+        self.aux_cache: dict = {}
 
     @classmethod
     def load(cls, args) -> "AnalyseSession":
@@ -193,14 +259,17 @@ class AnalyseSession:
 
     def get_analyser(self, preset: str, B: int, L: int, ends: int):
         from .pipeline.runner import Analyser
+        from .pipeline.tryptic import TrypticAnalyser
 
         key = (preset, B, L, ends)
         an = self.analysers.get(key)
         if an is None:
-            an = Analyser(self.tax, self.table, PRESETS[preset],
-                          batch_size=B, read_length=L, ends=ends,
-                          dtax=self.dtax, dtable=self.dtable,
-                          device=self.device)
+            tryptic = _is_tryptic(preset)
+            cls = TrypticAnalyser if tryptic else Analyser
+            config = (TRYPTIC_PRESETS if tryptic else PRESETS)[preset]
+            an = cls(self.tax, self.table, config, batch_size=B,
+                     read_length=L, ends=ends, dtax=self.dtax,
+                     dtable=self.dtable, device=self.device)
             self.analysers[key] = an
         else:
             an.reset()
@@ -252,9 +321,10 @@ def run_sample_ring(session: AnalyseSession, sample):
             iter(stream.next, None))
         for n, dna4, lens, blob, offs, tmax in batches:
             if tmax > L:
-                raise _LongNinemerSample(
-                    f"a record of {tmax} bp is longer than --read-length "
-                    f"{L}")
+                long = (_LongTrypticSample if _is_tryptic(sample["type"])
+                        else _LongNinemerSample)
+                raise long(f"a record of {tmax} bp is longer than "
+                           f"--read-length {L}")
             d4, ln = fit(dna4, lens)
             yield from analyser.feed_packed((blob, offs), d4, ln, n)
         yield from analyser.finish_batches()
@@ -263,7 +333,8 @@ def run_sample_ring(session: AnalyseSession, sample):
 
 
 def run_sample_stream(session: AnalyseSession, sample):
-    """The chunked native tier with the width ladder; yields (headers,
+    """The chunked native tier with the width ladder (tryptic presets: no
+    ladder, the device digest stays at --read-length); yields (headers,
     taxa) batches in input order. Records beyond the top rung hand the
     sample to the Python tier."""
     from .pipeline.runner import stream_paired_chunks, stream_single_chunks
@@ -271,7 +342,9 @@ def run_sample_stream(session: AnalyseSession, sample):
     args = session.args
     paired = bool(sample["second"])
     ends = 2 if paired else 1
-    ladder = _analyse_width_ladder(args.read_length)
+    tryptic = _is_tryptic(sample["type"])
+    ladder = ([args.read_length] if tryptic
+              else _analyse_width_ladder(args.read_length))
     if paired:
         chunks = iter(stream_paired_chunks(
             sample["first"], sample["second"], args.read_length,
@@ -299,7 +372,7 @@ def run_sample_stream(session: AnalyseSession, sample):
     for headers, dna, lens, tmax in itertools.chain(buffered, chunks):
         Lw = dna.shape[-1]
         if tmax > ladder[-1]:
-            raise _LongNinemerSample(
+            raise (_LongTrypticSample if tryptic else _LongNinemerSample)(
                 f"a record of {tmax} bp is longer than the top width "
                 f"{ladder[-1]}")
         if analyser is None or Lw > analyser.read_length:
@@ -315,14 +388,18 @@ def run_sample_stream(session: AnalyseSession, sample):
 def run_sample_fallback(session: AnalyseSession, sample):
     """The Python-reader tier (any record shape the readers take, gzip
     sniffed): the whole sample at the ladder's width that fits its
-    longest record. Groups beyond the top width are refused."""
+    longest record. 9-mer groups beyond the top width take the exact host
+    route, merged back in input order; a tryptic sample with records
+    beyond --read-length takes the host-digest route."""
     from .pipeline.runner import (
         encode_batch,
         read_groups_fasta,
         read_groups_fastq,
     )
+    from .pipeline.tryptic import analyse_tryptic_groups
 
     args = session.args
+    preset = sample["type"]
     if sample["second"]:
         groups = list(read_groups_fastq([sample["first"],
                                          sample["second"]]))
@@ -330,25 +407,64 @@ def run_sample_fallback(session: AnalyseSession, sample):
     else:
         groups = list(read_groups_fasta(sample["first"]))
         ends = 1
+    B = min(args.batch_size, 1024)
+    if _is_tryptic(preset):
+        maxlen = max((len(s) for _h, ss in groups for s in ss), default=0)
+        if maxlen > args.read_length:
+            _note("tryptic sample has records beyond --read-length; using "
+                  "the host-digest path (full-length digest)")
+            res = analyse_tryptic_groups(
+                groups, session.tax, session.table, TRYPTIC_PRESETS[preset],
+                batch_size=B, dtax=session.dtax, dtable=session.dtable,
+                step_cache=session.aux_cache)
+            yield from _batchify(res, B)
+            return
     ladder = _analyse_width_ladder(args.read_length)
     cap = ladder[-1]
-    maxlen = max((len(s) for _h, ss in groups for s in ss), default=0)
-    if maxlen > cap:
-        n_long = sum(1 for _h, ss in groups
-                     if max((len(s) for s in ss), default=0) > cap)
-        raise CliError(
-            f"{n_long} read group(s) hold records longer than the device "
-            f"width cap of {cap} bp (the longest {maxlen} bp); umgap_tpu "
-            "runs them through its exact long-read host route, which "
-            "umgap_tpu_torch does not have yet (records are never clipped)")
-    L = next(w for w in ladder if w >= maxlen)
-    B = _pow2_bucket(len(groups), 64, session.batch_cap(L))
-    analyser = session.get_analyser(sample["type"], B, L, ends)
-    for s in range(0, len(groups), B):
-        chunk = groups[s:s + B]
-        dna, lens = encode_batch([g[1] for g in chunk], ends, L)
-        yield from analyser.feed_batches([g[0] for g in chunk], dna, lens)
-    yield from analyser.finish_batches()
+    long_idx = [i for i, (_h, ss) in enumerate(groups)
+                if max((len(s) for s in ss), default=0) > cap]
+    if long_idx:
+        _note(f"{len(long_idx)} record group(s) beyond {cap} bp: exact host "
+              "path")
+    long_results = {i: _analyse_long_group_host(
+        groups[i][1], PRESETS[preset], ends, session.tax, session.table,
+        session.aux_cache) for i in long_idx}
+    short = [g for i, g in enumerate(groups) if i not in long_results]
+    maxlen = max((len(s) for _h, ss in short for s in ss), default=0)
+    L = next((w for w in ladder if w >= maxlen), cap)
+    B = _pow2_bucket(len(short), 64, session.batch_cap(L))
+    analyser = session.get_analyser(preset, B, L, ends)
+
+    def short_batches():
+        for s in range(0, len(short), B):
+            chunk = short[s:s + B]
+            dna, lens = encode_batch([g[1] for g in chunk], ends, L)
+            yield from analyser.feed_batches([g[0] for g in chunk], dna,
+                                             lens)
+        yield from analyser.finish_batches()
+
+    if not long_results:
+        yield from short_batches()
+        return
+    # merge the host route's results back in input order
+    short_taxa = (t for _hs, ts in short_batches() for t in ts.tolist())
+    yield from _batchify(
+        ((header, long_results[i] if i in long_results else next(short_taxa))
+         for i, (header, _seqs) in enumerate(groups)), B)
+
+
+def _batchify(records, n: int):
+    """(header, taxon) records as (headers, taxa) batches of ``n``."""
+    hs: list = []
+    ts: list = []
+    for h, t in records:
+        hs.append(h)
+        ts.append(t)
+        if len(hs) == n:
+            yield hs, np.asarray(ts, dtype=np.int32)
+            hs, ts = [], []
+    if hs:
+        yield hs, np.asarray(ts, dtype=np.int32)
 
 
 TIERS = (run_sample_ring, run_sample_stream, run_sample_fallback)
@@ -412,11 +528,16 @@ def cmd_analyse(args, stdout):
         raise CliError("FragGeneScan++ is not supported by umgap_tpu_torch "
                        "yet (use --fgspp never)")
     samples = _samples(args)
-    for s in samples:
-        if s["type"] in TRYPTIC_PRESETS:
-            raise CliError(f"preset {s['type']} (tryptic) is not supported "
-                           "by umgap_tpu_torch yet")
     session = AnalyseSession.load(args)
+    for s in samples:
+        tryptic = _is_tryptic(s["type"])
+        if (session.table.kind == "peptide") != tryptic:
+            # an index of the wrong family would probe garbage and give
+            # taxon 1 everywhere
+            need = "peptide (tryptic)" if tryptic else "9-mer"
+            raise CliError(
+                f"index {args.index} is a {session.table.kind} index but "
+                f"the preset {s['type']} needs a {need} index")
     for sample in samples:
         out = sample["output"]
         handle = stdout if out in (None, "-") else open(out, "w")

@@ -15,8 +15,13 @@ from .ops.lookup import DeviceTable
 
 def table_from_arrays(rows, stash, max_probes: int, kind: str, nb_bits: int,
                       bucket: int, group: int = 1, device=None) -> DeviceTable:
-    """``rows`` (group * n_buckets, 2 * bucket) int32, ``stash`` (S, 3)
-    int32 [hi, lo, value] (any order; sorted here)."""
+    """``rows`` (group * n_buckets, 2 * bucket) int32 for a k-mer table,
+    (n_buckets, 3 * bucket) ``[key_hi | key_lo | values]`` for a peptide
+    table (``kind="peptide"``, ``nb_bits`` 0, no stash: ``stash`` empty
+    or None); ``stash`` (S, 3) int32 [hi, lo, value] (any order; sorted
+    here)."""
+    if kind == "peptide" and stash is not None and len(stash):
+        raise ValueError("peptide tables have no stash")
     return DeviceTable.from_arrays(rows, stash, max_probes, kind, nb_bits,
                                    bucket, group=group, device=device)
 

@@ -1,22 +1,30 @@
-"""The quotiented k-mer hash table and its ``.npz`` format (a copy of the
-k-mer part of ``umgap_tpu.index.table``).
+"""The index tables and their ``.npz`` format (a copy of the k-mer and
+peptide parts of ``umgap_tpu.index.table``).
 
-Keys are 45-bit packed 9-mers split into (20-bit, 25-bit) int32 lanes.
-An invertible 3-round Feistel mix (:func:`mix_key`) whitens the key; its
-low ``nb_bits`` bits select a bucket row of ``bucket`` slots and only the
-remaining <= 30 bits are stored, with bit 30 tagging the probe distance,
-so a slot is 8 bytes (remainder, value) and exact. Keys that do not fit
-within the probe-distance limit go to a small full-key stash.
+``KmerTable``: keys are 45-bit packed 9-mers split into (20-bit, 25-bit)
+int32 lanes. An invertible 3-round Feistel mix (:func:`mix_key`) whitens
+the key; its low ``nb_bits`` bits select a bucket row of ``bucket`` slots
+and only the remaining <= 30 bits are stored, with bit 30 tagging the
+probe distance, so a slot is 8 bytes (remainder, value) and exact. Keys
+that do not fit within the probe-distance limit go to a small full-key
+stash.
+
+``PeptideTable``: variable-length peptides keyed by two independent
+32-bit FNV-1a fingerprints (64 bits, stored in full: 12 bytes a slot) in
+8-slot buckets chosen by :func:`hash32`. Every build checks that no two
+distinct peptides share a fingerprint.
 
 Artifacts are the same ``.npz`` files as the JAX package writes and
-reads: flat ``rem``/``values`` or the packed device row layout ``rows``.
+reads: for k-mer tables flat ``rem``/``values`` or the packed device row
+layout ``rows``; for peptide tables ``key_hi``/``key_lo``/``values`` and
+the raw keys.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..ops import kmers
+from ..ops import encoding, kmers
 
 EMPTY = np.int32(-1)
 BUCKET = 8
@@ -27,6 +35,10 @@ MASK25 = np.uint32((1 << 25) - 1)
 _C1 = np.uint32(0x9E3779B1)
 _C2 = np.uint32(0x85EBCA77)
 _C3 = np.uint32(0xC2B2AE3D)
+
+_FNV_OFFSET = np.uint32(0x811C9DC5)
+_FNV_PRIME = np.uint32(0x01000193)
+_FNV_OFFSET2 = np.uint32(0xCBF29CE4)
 
 MIN_NB_BITS = 15
 BUCKET8S_MAX_KEYS = 30_000_000
@@ -65,6 +77,83 @@ def hash32(hi, lo) -> np.ndarray:
     return h
 
 
+def fingerprint_host(codes: np.ndarray) -> tuple[np.uint32, np.uint32]:
+    """Two independent FNV-1a style hashes over one peptide's AA codes.
+    h1 avoids the all-ones pattern so that EMPTY stays unambiguous."""
+    h1 = _FNV_OFFSET
+    h2 = _FNV_OFFSET2
+    with np.errstate(over="ignore"):
+        for c in codes.astype(np.uint32):
+            h1 = (h1 ^ c) * _FNV_PRIME
+            h2 = (h2 ^ (c + np.uint32(0x9E37))) * _FNV_PRIME
+    if h1 == np.uint32(0xFFFFFFFF):
+        h1 = np.uint32(0)
+    return h1, h2
+
+
+def fingerprints_matrix(codes: np.ndarray, lengths: np.ndarray):
+    """:func:`fingerprint_host` over padded AA-code rows, one numpy pass
+    a column. Returns (h1, h2) int32."""
+    n, L = codes.shape
+    h1 = np.full(n, _FNV_OFFSET, dtype=np.uint32)
+    h2 = np.full(n, _FNV_OFFSET2, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        for j in range(L):
+            live = j < lengths
+            c = codes[:, j].astype(np.uint32)
+            h1 = np.where(live, (h1 ^ c) * _FNV_PRIME, h1)
+            h2 = np.where(live, (h2 ^ (c + np.uint32(0x9E37))) * _FNV_PRIME,
+                          h2)
+    h1 = np.where(h1 == np.uint32(0xFFFFFFFF), np.uint32(0), h1)
+    return h1.astype(np.int32), h2.astype(np.int32)
+
+
+def _fingerprints(peptides, chunk: int = 2_000_000):
+    """Fingerprint many peptides (strings or code arrays): one blob encode
+    and a padded-matrix FNV, chunked to bound the padded allocation (real
+    tryptic indexes hold tens of millions of keys)."""
+    n = len(peptides)
+    hi = np.zeros(n, dtype=np.int32)
+    lo = np.zeros(n, dtype=np.int32)
+    for s in range(0, n, chunk):
+        part = peptides[s:s + chunk]
+        if part and isinstance(part[0], (str, bytes)):
+            blob = "".join(p if isinstance(p, str) else p.decode()
+                           for p in part)
+            codes = encoding.encode_aa(blob)
+            lens = np.fromiter((len(p) for p in part), np.int64,
+                               count=len(part))
+        else:
+            arrs = [np.asarray(p, dtype=np.uint8) for p in part]
+            codes = (np.concatenate(arrs) if arrs
+                     else np.zeros(0, np.uint8))
+            lens = np.fromiter((len(a) for a in arrs), np.int64,
+                               count=len(arrs))
+        L = int(lens.max()) if len(lens) and lens.max() > 0 else 1
+        mat = np.zeros((len(part), L), dtype=np.uint8)
+        if len(codes):
+            starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+            rows = np.repeat(np.arange(len(part)), lens)
+            cols = np.arange(len(codes)) - np.repeat(starts, lens)
+            mat[rows, cols] = codes
+        h1, h2 = fingerprints_matrix(mat, lens)
+        hi[s:s + len(part)] = h1
+        lo[s:s + len(part)] = h2
+    return hi, lo
+
+
+def _stable_order(b: np.ndarray) -> np.ndarray:
+    """``np.argsort(b, kind="stable")`` for non-negative int64 bucket ids:
+    one sort of (bucket << shift | position) keys, which are distinct,
+    so the order is the stable one (a few times faster than the stable
+    argsort at tens of millions of keys)."""
+    shift = max(int(len(b) - 1).bit_length(), 1)
+    if len(b) == 0 or int(b.max()) >= 1 << (62 - shift):
+        return np.argsort(b, kind="stable")
+    keys = (b << np.int64(shift)) | np.arange(len(b), dtype=np.int64)
+    return np.sort(keys) & np.int64((1 << shift) - 1)
+
+
 def _insert_bucketized(bucket0: np.ndarray, payloads, cap: int,
                        tag_distance: bool = False, bucket: int = BUCKET,
                        max_round: int | None = None):
@@ -88,7 +177,7 @@ def _insert_bucketized(bucket0: np.ndarray, payloads, cap: int,
         if r > n_buckets:
             raise RuntimeError("table capacity exhausted")
         b = (bucket0[pending] + r) % n_buckets
-        order = np.argsort(b, kind="stable")
+        order = _stable_order(b)
         bs = b[order]
         starts = np.concatenate([[0], np.nonzero(np.diff(bs))[0] + 1])
         group_start = np.repeat(
@@ -103,9 +192,7 @@ def _insert_bucketized(bucket0: np.ndarray, payloads, cap: int,
                 out[slot] = payload[idx] | np.int32(min(r, 1) << 30)
             else:
                 out[slot] = payload[idx]
-        placed_buckets, placed_counts = np.unique(bs[place],
-                                                  return_counts=True)
-        occupancy[placed_buckets] += placed_counts
+        occupancy += np.bincount(bs[place], minlength=n_buckets)
         if place.any():
             max_probes = max(max_probes, r)
         pending = pending[order][~place]
@@ -244,6 +331,48 @@ class KmerTable:
                     "at the requested capacity; use a larger capacity")
             cap *= 2
 
+    def probe_host(self, hi: np.ndarray, lo: np.ndarray,
+                   default: int = 0) -> tuple[np.ndarray, np.ndarray]:
+        """Look keys up on the host: up to ``max_probes + 1`` bucket rows
+        from the key's home bucket (stopping at a row with an empty
+        slot), then the stash. Returns (values int32, found bool)."""
+        hi = np.asarray(hi, dtype=np.int32)
+        lo = np.asarray(lo, dtype=np.int32)
+        nb = self.n_buckets
+        nb_bits = self.nb_bits
+        mhi, mlo = mix_key(hi, lo)
+        bucket = (mlo & np.uint32(nb - 1)).astype(np.int64)
+        rem = ((mlo >> np.uint32(nb_bits))
+               | (mhi << np.uint32(25 - nb_bits))).astype(np.int32)
+        kr = self.rem.reshape(nb, self.bucket)
+        kv = self.values.reshape(nb, self.bucket)
+        out = np.full(hi.shape, default, dtype=np.int32)
+        found = np.zeros(hi.shape, dtype=bool)
+        live = np.ones(hi.shape, dtype=bool)
+        for r in range(self.max_probes + 1):
+            if not live.any():
+                break
+            rr = kr[bucket]
+            rv = kv[bucket]
+            tag = rem | np.int32(min(r, 1) << 30)
+            hit = rr == tag[..., None]
+            anyhit = hit.any(axis=-1)
+            val = np.take_along_axis(
+                rv, np.argmax(hit, axis=-1)[..., None], axis=-1)[..., 0]
+            newly = live & anyhit
+            out[newly] = val[newly]
+            found |= newly
+            live = live & ~anyhit & ~(rr == EMPTY).any(axis=-1)
+            bucket = (bucket + 1) % nb
+        if len(self.stash_hi):
+            eq = ((hi[..., None] == self.stash_hi)
+                  & (lo[..., None] == self.stash_lo))
+            shit = eq.any(axis=-1)
+            sval = np.take(self.stash_val, np.argmax(eq, axis=-1))
+            out = np.where(shit, sval, out)
+            found |= shit
+        return out, found
+
     def save(self, path, compress: bool = True, packed: bool = False):
         """Write the JAX package's ``.npz`` format: flat ``rem``/``values``
         (deflated unless ``compress=False``) or, with ``packed=True``,
@@ -295,6 +424,167 @@ def build_kmer_table(packed: np.ndarray, values: np.ndarray, k: int,
     raise ValueError(f"unsupported k-mer table layout for this port: {layout}")
 
 
+class FingerprintCollision(ValueError):
+    """Two distinct indexed peptides share a 64-bit fingerprint. Every
+    build checks, so lookups of indexed keys are exact like the
+    reference's FST; a query of a peptide that is not indexed keeps the
+    ~n/2^64 false-positive bound (PARITY.md)."""
+
+
+def _check_fingerprint_collisions(peptides, hi: np.ndarray,
+                                  lo: np.ndarray) -> None:
+    """Abort the build if two distinct key strings share a fingerprint
+    (identical duplicates pass through unchanged)."""
+    if len(peptides) < 2:
+        return
+    key = ((hi.view(np.uint32).astype(np.uint64) << np.uint64(32))
+           | lo.view(np.uint32).astype(np.uint64))
+    order = np.argsort(key, kind="stable")
+    dup = np.flatnonzero(key[order][1:] == key[order][:-1])
+    if not len(dup):
+        return
+
+    def as_str(p):
+        if isinstance(p, str):
+            return p
+        if isinstance(p, bytes):
+            return p.decode()
+        return encoding.decode_aa(np.asarray(p, dtype=np.uint8))
+
+    bad = []
+    for i in dup:
+        a, b = order[i], order[i + 1]
+        pa, pb = as_str(peptides[a]), as_str(peptides[b])
+        if pa != pb:
+            bad.append((pa, pb))
+    if bad:
+        raise FingerprintCollision(
+            f"{len(bad)} fingerprint collision(s) between distinct "
+            f"peptides, first: {bad[0][0]!r} vs {bad[0][1]!r}; the "
+            "index would return wrong taxa for these keys")
+
+
+class PeptideTable:
+    """Variable-length peptide table keyed by 64-bit fingerprints: flat
+    ``key_hi``, ``key_lo``, ``values`` of ``capacity`` slots in rows of
+    ``BUCKET``, EMPTY in ``key_hi`` marking a free slot. With
+    ``store_keys`` (the default) the key strings are kept for
+    ``printindex``."""
+
+    kind = "peptide"
+    bucket = BUCKET
+
+    def __init__(self, key_hi, key_lo, values, max_probes: int, n: int,
+                 meta=None):
+        self.key_hi = key_hi
+        self.key_lo = key_lo
+        self.values = values
+        self.max_probes = int(max_probes)
+        self.n = int(n)
+        self.meta = dict(meta or {})
+        self.raw_keys = None
+        self.raw_values = None
+
+    @property
+    def capacity(self) -> int:
+        return len(self.values)
+
+    @property
+    def n_buckets(self) -> int:
+        return max(self.capacity // BUCKET, 1)
+
+    def packed_rows(self) -> np.ndarray:
+        """The (n_buckets, 3 * BUCKET) int32 device row layout
+        ``[key_hi | key_lo | values]``."""
+        nb = self.n_buckets
+        return np.concatenate([self.key_hi.reshape(nb, BUCKET),
+                               self.key_lo.reshape(nb, BUCKET),
+                               self.values.reshape(nb, BUCKET)],
+                              axis=1).astype(np.int32)
+
+    @classmethod
+    def build(cls, peptides, values: np.ndarray,
+              load_factor: float = 0.45, store_keys: bool = True,
+              capacity: int | None = None) -> "PeptideTable":
+        """``capacity`` pins the table size (a power of two)."""
+        peptides = list(peptides)
+        hi, lo = _fingerprints(peptides)
+        _check_fingerprint_collisions(peptides, hi, lo)
+        t = cls._from_fingerprints(hi, lo, values, load_factor, capacity)
+        if store_keys:
+            t.raw_keys = [p if isinstance(p, str) else encoding.decode_aa(p)
+                          for p in peptides]
+            t.raw_values = np.asarray(values, dtype=np.int32)
+        return t
+
+    @classmethod
+    def _from_fingerprints(cls, hi: np.ndarray, lo: np.ndarray, values,
+                           load_factor: float = 0.45,
+                           capacity: int | None = None) -> "PeptideTable":
+        """Place (hi, lo, value) rows whose fingerprints are already made
+        (and distinct) into the buckets, as :meth:`build` does."""
+        values = np.asarray(values, dtype=np.int32)
+        cap = capacity or _pow2_capacity(len(values), load_factor, 64)
+        n_buckets = max(cap // BUCKET, 1)
+        bucket0 = (hash32(hi, lo) & np.uint32(n_buckets - 1)).astype(np.int64)
+        (kh, kl, kv), max_probes, _ = _insert_bucketized(
+            bucket0, [np.asarray(hi, np.int32), np.asarray(lo, np.int32),
+                      values], cap)
+        return cls(kh, kl, kv, max_probes, len(values))
+
+    def probe_host(self, hi: np.ndarray, lo: np.ndarray,
+                   default: int = 0) -> tuple[np.ndarray, np.ndarray]:
+        """Look fingerprints up on the host: up to ``max_probes + 1`` rows
+        from the :func:`hash32` bucket, stopping at a row with an empty
+        slot. Returns (values int32, found bool)."""
+        hi = np.asarray(hi, dtype=np.int32)
+        lo = np.asarray(lo, dtype=np.int32)
+        nb = self.n_buckets
+        kh = self.key_hi.reshape(nb, BUCKET)
+        kl = self.key_lo.reshape(nb, BUCKET)
+        kv = self.values.reshape(nb, BUCKET)
+        bucket = (hash32(hi, lo) & np.uint32(nb - 1)).astype(np.int64)
+        out = np.full(hi.shape, default, dtype=np.int32)
+        found = np.zeros(hi.shape, dtype=bool)
+        live = np.ones(hi.shape, dtype=bool)
+        for _ in range(self.max_probes + 1):
+            if not live.any():
+                break
+            rh = kh[bucket]
+            hit = (rh == hi[..., None]) & (kl[bucket] == lo[..., None])
+            anyhit = hit.any(axis=-1)
+            val = np.take_along_axis(
+                kv[bucket], np.argmax(hit, axis=-1)[..., None],
+                axis=-1)[..., 0]
+            newly = live & anyhit
+            out[newly] = val[newly]
+            found |= newly
+            live = live & ~anyhit & ~(rh == EMPTY).any(axis=-1)
+            bucket = (bucket + 1) % nb
+        return out, found
+
+    def lookup_peptides_host(self, peptides, default: int = 0):
+        hi, lo = _fingerprints(list(peptides))
+        return self.probe_host(hi, lo, default)
+
+    def save(self, path):
+        extra = {}
+        if self.raw_keys is not None:
+            extra["raw_keys"] = np.frombuffer(
+                "\n".join(self.raw_keys).encode(), dtype=np.uint8)
+            extra["raw_values"] = self.raw_values
+        np.savez_compressed(
+            path, kind=np.bytes_(self.kind), key_hi=self.key_hi,
+            key_lo=self.key_lo, values=self.values,
+            max_probes=np.int64(self.max_probes), n=np.int64(self.n),
+            **{f"meta_{k}": np.int64(v) for k, v in self.meta.items()},
+            **extra)
+
+    @staticmethod
+    def load(path):
+        return load_table(path)
+
+
 def mmap_npz(path) -> dict:
     """Memory-map the members of an UNCOMPRESSED ``.npz`` in place
     (``np.load`` ignores ``mmap_mode`` for ``.npz``). Raises ValueError on
@@ -331,9 +621,9 @@ def mmap_npz(path) -> dict:
     return out
 
 
-def load_table(path, mmap: bool = False) -> KmerTable:
-    """Load a k-mer table artifact (flat or packed rows). ``mmap=True``
-    maps uncompressed artifacts instead of reading them."""
+def load_table(path, mmap: bool = False):
+    """Load a k-mer (flat or packed rows) or peptide table artifact.
+    ``mmap=True`` maps uncompressed artifacts instead of reading them."""
     z = None
     if mmap:
         try:
@@ -344,10 +634,18 @@ def load_table(path, mmap: bool = False) -> KmerTable:
         with np.load(path, allow_pickle=False) as f:
             z = {name: f[name] for name in f.files}
     kind = bytes(z["kind"]).decode()
+    meta = {k[len("meta_"):]: int(z[k]) for k in z if k.startswith("meta_")}
+    if kind == "peptide":
+        t = PeptideTable(z["key_hi"], z["key_lo"], z["values"],
+                         int(z["max_probes"]), int(z["n"]), meta)
+        if "raw_keys" in z:
+            blob = np.asarray(z["raw_keys"]).tobytes().decode()
+            t.raw_keys = blob.split("\n") if blob else []
+            t.raw_values = z["raw_values"]
+        return t
     if kind != "kmer":
         raise NotImplementedError(
-            f"{kind} tables are not ported yet (9-mer tables only)")
-    meta = {k[len("meta_"):]: int(z[k]) for k in z if k.startswith("meta_")}
+            f"{kind} tables are not ported (k-mer and peptide tables only)")
     stash = dict(stash_hi=z.get("stash_hi"), stash_lo=z.get("stash_lo"),
                  stash_val=z.get("stash_val"))
     if "rows" in z:

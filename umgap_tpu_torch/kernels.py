@@ -157,7 +157,18 @@ K6 = Kernel(
     ":253 tree_mix_batch, with :170 hit_geometry's row gather and "
     "ancestry test fused in")
 
-KERNELS = (K1, K2, K3, K4, K5, K5A, K6)
+K7 = Kernel(
+    "reads_to_peptides", "reads_to_peptides.cu",
+    [P, I, I, P, I, I, P, P, P, P, I, I, I, I, P],
+    "umgap_tpu/ops/encoding.py:57 unpack_dna4_device + "
+    "umgap_tpu/ops/translate.py:88 translate6_batch + "
+    "umgap_tpu/pipeline/tryptic.py:89 tryptic_digest_device")
+K8 = Kernel(
+    "probe_peptide", "probe_peptide.cu",
+    [P, P, P, LL, P, LL, I, I, P, P, P],
+    "umgap_tpu/ops/lookup.py:265-283 _probe_dense (peptide branch)")
+
+KERNELS = (K1, K2, K3, K4, K5, K5A, K6, K7, K8)
 
 # build seconds and ptxas reports of the last build_all() in this process
 BUILD_INFO: dict = {}

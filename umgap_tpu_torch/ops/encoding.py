@@ -31,6 +31,10 @@ def encode_dna(seq: str | bytes) -> np.ndarray:
     return DNA_FROM_BYTE[np.frombuffer(seq, dtype=np.uint8)]
 
 
+def decode_dna(codes: np.ndarray) -> str:
+    return BYTE_FROM_DNA[codes].tobytes().decode()
+
+
 def pack_dna4(codes: np.ndarray) -> np.ndarray:
     """Pack DNA codes (0..4) two per byte along the last axis, high nibble
     first: the host-to-device wire format. Odd lengths pad with N."""
@@ -50,6 +54,19 @@ AA_FROM_BYTE = np.full(256, AA_UNKNOWN, dtype=np.uint8)
 for _i in range(26):
     AA_FROM_BYTE[ord("A") + _i] = _i
 AA_FROM_BYTE[ord("*")] = AA_STOP
+
+_AA_DECODE = ([chr(ord("A") + i) for i in range(26)]
+              + ["*", "-", "?", "?", "?", ""])
+
+
+def encode_aa(seq: str | bytes) -> np.ndarray:
+    if isinstance(seq, str):
+        seq = seq.encode()
+    return AA_FROM_BYTE[np.frombuffer(seq, dtype=np.uint8)]
+
+
+def decode_aa(codes: np.ndarray) -> str:
+    return "".join(_AA_DECODE[int(c)] for c in codes)
 
 
 GENETIC_CODES: dict[int, tuple[str, str, str]] = {
@@ -133,6 +150,18 @@ class TranslationTable:
             start[codon] = starts[idx] == "M"
         self.aa = aa
         self.start = start
+
+    def translate_frame(self, dna_codes: np.ndarray,
+                        methionine: bool = False) -> np.ndarray:
+        """Host translation of one frame (codons are chunks of 3, a
+        trailing partial codon is dropped; src/dna/translation.rs:136-144)."""
+        n = (len(dna_codes) // 3) * 3
+        c = dna_codes[:n].reshape(-1, 3).astype(np.int64)
+        idx = c[:, 0] * 25 + c[:, 1] * 5 + c[:, 2]
+        out = self.aa[idx]
+        if methionine:
+            out = np.where(self.start[idx], AA_FROM_BYTE[ord("M")], out)
+        return out
 
 
 _TABLE_CACHE: dict[int, TranslationTable] = {}

@@ -1,16 +1,42 @@
-"""K-mer packing (the 9-mer part of ``umgap_tpu.ops.kmers``).
+"""K-mer packing and the tryptic digest (a copy of
+``umgap_tpu.ops.kmers``).
 
 A peptide k-mer over the 5-bit AA alphabet packs into 5k bits, split at
 bit 25 into two int32 lanes (``hi``, ``lo``); k <= 10.
+
+The tryptic digest reproduces the reference's double regex pass
+(src/commands/prot2tryp.rs:57-64): the cleavage pattern is applied twice
+because a residue can match both as the context of one split and as the
+subject of the next, then '*' splits and empty fragments are dropped.
 """
 
 from __future__ import annotations
+
+import re
+from typing import List
 
 import numpy as np
 import torch
 
 MASK25 = (1 << 25) - 1
 DEFAULT_K = 9
+TRYPTIC_PATTERN = r"([KR])([^P])"
+
+
+def pack_kmers_host(codes: np.ndarray, k: int = DEFAULT_K) -> np.ndarray:
+    """All overlapping k-mers of one peptide's AA codes as packed uint64
+    (5 bits an AA, the first residue most significant); empty if the
+    peptide is shorter than k."""
+    if k > 10:
+        raise ValueError("k must be <= 10 for 2x int32 packing")
+    n = len(codes) - k + 1
+    if n <= 0:
+        return np.zeros(0, dtype=np.uint64)
+    out = np.zeros(n, dtype=np.uint64)
+    c = codes.astype(np.uint64)
+    for j in range(k):
+        out |= c[j:j + n] << np.uint64(5 * (k - 1 - j))
+    return out
 
 
 def split_packed(packed: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -57,3 +83,15 @@ def pack_windows_batch(aa: torch.Tensor, pep_lengths: torch.Tensor,
     w = torch.arange(W, device=a.device)
     valid = w < (pep_lengths.to(torch.int64)[..., None] - (k - 1))
     return hi, lo, valid
+
+
+_TRYPTIC_RE = re.compile(TRYPTIC_PATTERN)
+
+
+def tryptic_digest(seq: str, pattern: str = TRYPTIC_PATTERN) -> List[str]:
+    """In-silico trypsin digest of one AA string, the reference's
+    realized semantics."""
+    rx = _TRYPTIC_RE if pattern == TRYPTIC_PATTERN else re.compile(pattern)
+    first = rx.sub(r"\1\n\2", seq)
+    second = rx.sub(r"\1\n\2", first)
+    return [p for p in second.replace("*", "\n").split("\n") if p]

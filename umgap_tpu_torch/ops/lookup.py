@@ -1,12 +1,15 @@
-"""The index probe: ``DeviceTable`` and kernel K2
-(``csrc/probe_kmer.cu``), with its plain PyTorch version.
+"""The index probe: ``DeviceTable``, kernels K2 (``csrc/probe_kmer.cu``,
+k-mer tables) and K8 (``csrc/probe_peptide.cu``, peptide tables), with
+their plain PyTorch versions.
 
 K-mer tables are quotient-stored (see :mod:`umgap_tpu_torch.index.table`):
 buckets of (30-bit remainder + probe-distance bit, value), one row
 ``[remainders | values]`` of ``2 * bucket`` int32 per bucket, plus a
 full-key stash. The stash is kept sorted by ``(hi, lo)`` so that the
 kernel can binary-search it; keys are unique, so the order changes no
-result.
+result. Peptide tables have rows ``[key_hi | key_lo | values]`` of
+``3 * 8`` int32, bucket :func:`hash32_torch` of the fingerprint, and no
+stash.
 """
 
 from __future__ import annotations
@@ -47,6 +50,16 @@ def mix_key_torch(hi: torch.Tensor, lo: torch.Tensor):
     return h, l
 
 
+def hash32_torch(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """:func:`umgap_tpu_torch.index.table.hash32` on tensors: an int64
+    result holding the uint32 hash (the peptide tables' bucket hash)."""
+    h = (_mul32(hi.to(torch.int64) & M32, 0x9E3779B1)
+         ^ _mul32(lo.to(torch.int64) & M32, 0x85EBCA77))
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0xC2B2AE3D)
+    return h ^ (h >> 13)
+
+
 def _writable(a) -> np.ndarray:
     """A contiguous, writable int32 array (memory-mapped artifacts are
     read-only; torch refuses to wrap those without a copy)."""
@@ -55,8 +68,9 @@ def _writable(a) -> np.ndarray:
 
 
 class DeviceTable:
-    """A k-mer table on one device: ``rows`` (n_buckets, 2 * bucket)
-    int32, ``stash`` (S, 3) int32 [hi, lo, value] sorted by (hi, lo),
+    """A table on one device: ``rows`` (n_buckets, 2 * bucket) int32 for
+    k-mer tables, (n_buckets, 3 * bucket) for peptide tables, ``stash``
+    (S, 3) int32 [hi, lo, value] sorted by (hi, lo) (k-mer tables only),
     and the probe geometry."""
 
     def __init__(self, rows: torch.Tensor, max_probes: int, kind: str,
@@ -106,6 +120,10 @@ class DeviceTable:
 
     @classmethod
     def from_host(cls, table, device=None) -> "DeviceTable":
+        if table.kind == "peptide":
+            return cls.from_arrays(table.packed_rows(), None,
+                                   table.max_probes, "peptide", 0,
+                                   table.bucket, device=device)
         if table.kind != "kmer":
             raise NotImplementedError(f"{table.kind} tables are not ported")
         if len(table.stash_hi):
@@ -119,17 +137,18 @@ class DeviceTable:
 
 
 def _check_supported(table: DeviceTable) -> None:
-    if table.kind != "kmer":
+    if table.kind not in ("kmer", "peptide"):
         raise NotImplementedError(
-            f"probe of {table.kind!r} tables is not ported yet")
+            f"probe of {table.kind!r} tables is not ported")
     if table.group != 1:
         raise NotImplementedError("grouped tables (sub) are not ported yet")
 
 
 def probe_plain(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
                 valid: torch.Tensor | None = None, default: int = 0):
-    """Plain version of K2 (``umgap_tpu.ops.lookup._probe_dense``, kmer
-    branch): every round gathers all queries' rows at once."""
+    """Plain version of K2 and K8 (``umgap_tpu.ops.lookup._probe_dense``,
+    kmer and peptide branches): every round gathers all queries' rows at
+    once."""
     _check_supported(table)
     shape = hi.shape
     dev = hi.device
@@ -140,20 +159,29 @@ def probe_plain(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
     out = torch.full(hi.shape, default, dtype=torch.int32, device=dev)
     found = torch.zeros(hi.shape, dtype=torch.bool, device=dev)
     nb, nb_bits, bk = table.n_buckets, table.nb_bits, table.bucket
-    mhi, mlo = mix_key_torch(hi, lo)
-    bucket = mlo & (nb - 1)
-    rem = (mlo >> nb_bits) | (mhi << (25 - nb_bits))
+    peptide = table.kind == "peptide"
+    if peptide:
+        bucket = hash32_torch(hi, lo) & (nb - 1)
+    else:
+        mhi, mlo = mix_key_torch(hi, lo)
+        bucket = mlo & (nb - 1)
+        rem = (mlo >> nb_bits) | (mhi << (25 - nb_bits))
     live = live0.clone()
     for r in range(table.max_probes + 1):
         row = table.rows[bucket]
-        rr, rv = row[:, :bk], row[:, bk:2 * bk]
-        hit = rr == (rem | (min(r, 1) << 30))[:, None]
+        rk = row[:, :bk]
+        if peptide:
+            hit = (rk == hi[:, None]) & (row[:, bk:2 * bk] == lo[:, None])
+            rv = row[:, 2 * bk:3 * bk]
+        else:
+            hit = rk == (rem | (min(r, 1) << 30))[:, None]
+            rv = row[:, bk:2 * bk]
         anyhit = hit.any(dim=-1)
         val = torch.where(hit, rv, 0).sum(dim=-1).to(torch.int32)
         newly = live & anyhit
         out = torch.where(newly, val, out)
         found |= newly
-        live &= ~anyhit & ~(rr == -1).any(dim=-1)
+        live &= ~anyhit & ~(rk == -1).any(dim=-1)
         bucket = (bucket + 1) & (nb - 1)
     if table.stash.shape[0]:
         keys = (hi << 32) | (lo & M32)
@@ -167,13 +195,17 @@ def probe_plain(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
 
 def probe(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
           valid: torch.Tensor | None = None, default: int = 0):
-    """Look up packed keys; returns (values int32, found bool), misses and
-    invalid lanes give ``default`` (0 is the reference's ``-o``).
+    """Look up packed keys (k-mer tables) or fingerprints (peptide
+    tables); returns (values int32, found bool), misses and invalid lanes
+    give ``default`` (0 is the reference's ``-o``).
 
-    CPU tensors take :func:`probe_plain`; CUDA tensors launch K2."""
+    CPU tensors take :func:`probe_plain`; CUDA tensors launch K2 (k-mer
+    tables) or K8 (peptide tables)."""
     if hi.device.type == "cpu":
         return probe_plain(table, hi, lo, valid, default)
     _check_supported(table)
+    if table.kind == "peptide":
+        return _probe_peptide(table, hi, lo, valid, default)
     if table.bucket not in KERNEL_BUCKETS:
         raise ValueError(f"probe_kmer: bucket {table.bucket} has no kernel "
                          f"instantiation ({KERNEL_BUCKETS})")
@@ -197,4 +229,28 @@ def probe(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
         table.rows.data_ptr(), table.n_buckets, table.nb_bits, table.bucket,
         table.max_probes, table.stash.data_ptr(), S, int(default),
         out.data_ptr(), found.data_ptr(), kernels.stream_of(hi))
+    return out, found
+
+
+def _probe_peptide(table: DeviceTable, hi, lo, valid, default: int):
+    """K8's launch: one thread a query, its rows as 16-byte loads."""
+    if valid is None:
+        valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
+    if (hi.dtype != torch.int32 or lo.dtype != torch.int32
+            or valid.dtype != torch.bool or lo.shape != hi.shape
+            or valid.shape != hi.shape):
+        raise ValueError("probe_peptide: hi, lo int32 and valid bool of one "
+                         "shape expected")
+    if table.bucket != 8 or table.rows.shape[-1] != 24:
+        raise ValueError("probe_peptide: rows must be (n_buckets, 24) int32")
+    kernels.check_cuda("probe_peptide", hi, lo, valid, table.rows)
+    if table.rows.data_ptr() % 16:
+        raise ValueError("probe_peptide: rows must be 16-byte aligned")
+    out = torch.empty(hi.shape, dtype=torch.int32, device=hi.device)
+    found = torch.empty(hi.shape, dtype=torch.bool, device=hi.device)
+    kernels.K8.launch(
+        hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), hi.numel(),
+        table.rows.data_ptr(), table.n_buckets, table.max_probes,
+        int(default), out.data_ptr(), found.data_ptr(),
+        kernels.stream_of(hi))
     return out, found

@@ -9,14 +9,69 @@ its longest non-zero run is >= s. The reference's order-dependent state
 machine (including its leading-gap quirk and the trailing-gap trim) is
 run per lane; seed pushes become +1/-1 deltas whose running sum > 0 is
 the keep mask. The pipeline takes the hits (:func:`seedextend_hits`),
-which K3 writes directly.
+which K3 writes directly. :func:`apply_seedextend` is the host state
+machine over one lane, for the CLI's long-record route.
 """
 
 from __future__ import annotations
 
+from typing import List, Sequence, Tuple
+
 import torch
 
 from .. import kernels
+
+
+def seedextend_host(taxa: Sequence[int], min_seed_size: int = 2,
+                    max_gap_size: int = 0) -> List[Tuple[int, int]]:
+    """The reference state machine on the host
+    (src/commands/seedextend.rs:96-178): the kept extended seeds as
+    half-open (start, end) ranges into ``taxa``."""
+    taxons = list(taxa) + [0]  # the sentinel (seedextend.rs:99)
+    seeds: List[Tuple[int, int]] = []
+    start, end = 0, 1
+    last_tid = taxons[start]
+    same_tid = 1
+    same_max = 1
+    while end < len(taxons):
+        if last_tid == taxons[end]:
+            same_tid += 1
+            end += 1
+            continue
+        if last_tid == 0 and same_tid > max_gap_size:
+            if same_max >= min_seed_size:
+                seeds.append((start, end - same_tid))
+            start = end
+            last_tid = taxons[end]
+            same_tid = 1
+            same_max = 1
+            end += 1
+            continue
+        if last_tid == 0 and (end - start) == same_tid:
+            end += 1
+            start = end
+            continue
+        if last_tid != 0:
+            same_max = max(same_max, same_tid)
+        last_tid = taxons[end]
+        same_tid = 1
+        end += 1
+    if same_max >= min_seed_size:
+        if last_tid == 0:
+            end -= same_tid
+        seeds.append((start, end))
+    return seeds
+
+
+def apply_seedextend(taxa: Sequence[int], min_seed_size: int = 2,
+                     max_gap_size: int = 0) -> List[int]:
+    """The command's output for one lane: the taxa of every kept seed,
+    concatenated (the unscored mode; no preset scores seeds)."""
+    taxons = list(taxa) + [0]
+    out: List[int] = []
+    for s, e in seedextend_host(taxa, min_seed_size, max_gap_size):
+        out.extend(taxons[s:e])
+    return out
 
 
 def seedextend_mask_plain(taxa: torch.Tensor, lengths: torch.Tensor,

@@ -6,10 +6,13 @@ The plain versions below mirror ``umgap_tpu.ops.encoding
 (in :mod:`.kmers`) ``pack_windows_batch``: a 125-entry codon table
 gather and an integer reverse-complement gather. Frame order follows the
 reference: "1", "2", "3" forward, "1R", "2R", "3R" on the reverse
-complement (src/commands/translate.rs:143-183).
+complement (src/commands/translate.rs:143-183). :func:`translate_sequence`
+translates one record on the host (the CLI's host routes).
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence
 
 import torch
 
@@ -20,6 +23,24 @@ from .kmers import pack_windows_batch
 
 FRAME_NAMES = ("1", "2", "3", "1R", "2R", "3R")
 AA_M = int(encoding.AA_FROM_BYTE[ord("M")])
+
+
+def translate_sequence(seq: str, frames: Sequence[str],
+                       table: TranslationTable,
+                       methionine: bool = False) -> List[str]:
+    """Translate one DNA string in the given frames on the host (the
+    reference's ``translate`` command, src/commands/translate.rs), as AA
+    strings in frame order ('-' for codons with an N). The long-record
+    and host-digest routes of the CLI use it."""
+    codes = encoding.encode_dna(seq)
+    rev = encoding.DNA_COMPLEMENT[codes[::-1]]
+    out = []
+    for frame in frames:
+        strand = rev if frame.endswith("R") else codes
+        offset = int(frame[0]) - 1
+        sub = strand[offset:] if len(strand) > offset else strand[:0]
+        out.append(encoding.decode_aa(table.translate_frame(sub, methionine)))
+    return out
 
 
 def unpack_dna4(packed: torch.Tensor, length: int) -> torch.Tensor:

@@ -118,6 +118,15 @@ def _stages(reads, lengths, length, packed, dtax, dtable, config,
         nkmers = (plens - (config.k - 1)).clamp(min=0)
         hits = seedext(taxa, nkmers, config.min_seed_size,
                        config.max_gap_size).reshape(B, E * 6 * W)
+    return aggregate_hits(hits, dtax, config, with_overflow, stage, euler,
+                          dedup)
+
+
+def aggregate_hits(hits, dtax, config, with_overflow, stage, euler, dedup):
+    """The stages after the probe, shared with the tryptic pipeline:
+    hits (B, N) int32 (0 = none) -> taxon (B,) [, overflow (B,)]:
+    ``dedup`` (K4 or its plain version), the lower-bound filter, the
+    aggregator and snap."""
     with stage("dedup"):
         utaxa, ucounts, uvalid, nuniq = dedup(hits, None, config.k_max,
                                               return_nuniq=True)

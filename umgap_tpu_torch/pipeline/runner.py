@@ -259,11 +259,16 @@ class Analyser(BatchStream):
 
             euler = DeviceEuler.from_host(tax, self.device)
         self.euler = euler
-        self.step = make_pipeline(self.dtax, self.dtable, config,
-                                  wire="packed4", with_overflow=True,
-                                  device=self.device, euler=euler)
+        self.step = self._make_step(config, with_overflow=True)
         self._wide_step = None
         self.overflow_reads = 0
+
+    def _make_step(self, config: PipelineConfig, with_overflow: bool):
+        """The per-batch module on the packed-4 wire (overridden by
+        :class:`~umgap_tpu_torch.pipeline.tryptic.TrypticAnalyser`)."""
+        return make_pipeline(self.dtax, self.dtable, config, wire="packed4",
+                             with_overflow=with_overflow, device=self.device,
+                             euler=self.euler)
 
     def _exact_kmax(self) -> int:
         # >= hit slots (windows per frame) for any padded protein length
@@ -279,11 +284,7 @@ class Analyser(BatchStream):
     def _wide(self):
         if self._wide_step is None:
             cfg = self.config._replace(k_max=self._exact_kmax())
-            self._wide_step = make_pipeline(self.dtax, self.dtable, cfg,
-                                            wire="packed4",
-                                            with_overflow=False,
-                                            device=self.device,
-                                            euler=self.euler)
+            self._wide_step = self._make_step(cfg, with_overflow=False)
         return self._wide_step
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:

@@ -208,6 +208,11 @@ class Taxonomy:
             self._anc_table = self.ancestor_table()
         return self._anc_table
 
+    def lineage_rows(self, ids: np.ndarray) -> np.ndarray:
+        """Rows of the ancestor-at-depth table for the given taxon ids,
+        ``(len(ids), max_depth + 1)``, NONE above each node's depth."""
+        return self.anc_table[np.asarray(ids, dtype=np.int64)]
+
 
 def fixture_taxa() -> list[Taxon]:
     """The 6-taxon test taxonomy of the reference's unit tests
