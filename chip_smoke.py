@@ -178,7 +178,7 @@ def main():
         phase_wide(torch, world, results)
         tlaunches, tresults = phase_tryptic(torch, world)
         phase_resident(torch, world)
-        phase_resident_peptide(torch, world, tresults)
+        k8_resident = phase_resident_peptide(torch, world, tresults)
         phase_cli(torch, world)
         phase_ingest(torch, world)
         phase_rmq(torch, world)
@@ -190,6 +190,14 @@ def main():
     # every number below was measured in this run: the phases above
     # raise before this point if any of them did not run to its end.
     # Launches: the 9-mer main path's, K7 and K8 the tryptic path's.
+    # K8's times and bound are the resident index's with the L2 flushed
+    # (the bench index's, kept under "bench_index", sit in L2).
+    k8 = stats["probe_peptide"]
+    k8["bench_index"] = {k: k8.pop(k) for k in list(k8)
+                         if k not in ("max_abs_err", "equal")}
+    k8.update(k8_resident, max_abs_err=max(k8["max_abs_err"],
+                                           k8_resident["max_abs_err"]))
+    k8["equal"] = k8["max_abs_err"] == 0.0
     kern = []
     from umgap_tpu_torch import kernels
     for k in kernels.KERNELS:
@@ -394,6 +402,32 @@ def cold_ms(torch, fn, reps=10):
         b.synchronize()
         total += a.elapsed_time(b)
     return total / reps
+
+
+def cold_device_ms(torch, fn, kernel, reps=10, tries=3):
+    """Device ms a call of ``fn`` spends in the kernels whose name holds
+    ``kernel``, with the L2 cache flushed before each call as in
+    cold_ms (the flush's own kernel is not counted). None (not
+    measured) if the profiler shows no such kernel in ``tries``
+    windows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.key)
+        if us > 0:
+            return us / 1e3 / reps
+    return None
 
 
 def fmt_ms(v):
@@ -633,14 +667,19 @@ def _tryptic_chain(torch, world, width):
     got = k8()
     errs["probe_peptide"] = compare(torch, f"K8 L={width}", got, k8(True))
     b8, by8, rows = k8_bound(torch, dt, h1, h2, pv)
+    # the bench index's 12.6 MB of rows stay in the 50 MB L2 across
+    # launches, so K8 can beat its HBM bound here: it takes no share on
+    # this index. Its bound and share come from the resident index with
+    # the L2 flushed (phase_resident_peptide).
     stats["probe_peptide"] = dict(
         ms=cuda_ms(torch, k8), device_ms=device_ms(torch, k8),
         plain_ms=cuda_ms(torch, lambda: k8(True), reps=3), bound_ms=b8,
         bound_by=by8, queries=h1.numel(), valid=int(pv.sum()),
-        found=int(got[1].sum()), rows_read=rows)
-    for st in stats.values():
-        st["share"] = (st["bound_ms"] / st["device_ms"]
-                       if st["device_ms"] else None)
+        found=int(got[1].sum()), rows_read=rows,
+        rows_mb=dt.rows.numel() * 4 / 1e6)
+    st = stats["reads_to_peptides"]
+    st["share"] = st["bound_ms"] / st["device_ms"] if st["device_ms"] else None
+    stats["probe_peptide"]["share"] = None
     log(f"L={width} tryptic chain, kernels equal to plain: " + ", ".join(
         f"{n} {s['ms']:.3f} ms (device {fmt_ms(s['device_ms'])}, plain "
         f"{s['plain_ms']:.3f}, bound {s['bound_ms']:.4f} {s['bound_by']})"
@@ -2119,14 +2158,25 @@ def phase_resident_peptide(torch, world, tryptic_results):
     reads, lens = _batch_reads(torch, world, L)
     h1, h2, pv = tryptic.reads_to_peptides(reads, lens, L,
                                            encoding.get_table(1))
-    got = lookup.probe(dt, h1, h2, pv, 0)
-    err = compare(torch, "K8 resident", got,
-                  lookup.probe_plain(dt, h1, h2, pv, 0))
-    probe_ms = cuda_ms(torch, lambda: lookup.probe(dt, h1, h2, pv, 0))
-    probe_dev = device_ms(torch, lambda: lookup.probe(dt, h1, h2, pv, 0))
-    # the same launch with its rows out of L2, as a new batch finds them
-    probe_cold = cold_ms(torch, lambda: lookup.probe(dt, h1, h2, pv, 0))
+    def k8(plain=False):
+        fn = lookup.probe_plain if plain else lookup.probe
+        return fn(dt, h1, h2, pv, 0)
+
+    got = k8()
+    err = compare(torch, "K8 resident", got, k8(True))
+    probe_ms = cuda_ms(torch, k8)
+    probe_dev = device_ms(torch, k8)
+    # the same launch with the L2 flushed before it, as a new batch finds
+    # a real index: its rows (and queries) are DRAM fetches, so the HBM
+    # bound holds. K8's entry in the kernels line is this one.
+    probe_cold = cold_ms(torch, k8)
+    probe_cold_dev = cold_device_ms(torch, k8, "probe_peptide")
+    plain_cold = cold_ms(torch, lambda: k8(True), reps=3)
     pb, pby, rows = k8_bound(torch, dt, h1, h2, pv)
+    kernel_entry = dict(
+        ms=probe_cold, device_ms=probe_cold_dev, plain_ms=plain_cold,
+        bound_ms=pb, bound_by=pby, max_abs_err=err,
+        share=pb / probe_cold_dev if probe_cold_dev else None)
 
     torch.cuda.reset_peak_memory_stats()
     cfg = tryptic.TRYPTIC_PRESETS["tryptic-sensitivity"]
@@ -2152,7 +2202,8 @@ def phase_resident_peptide(torch, world, tryptic_results):
         slots=1 << PEPTIDE_RESIDENT_LOG2_SLOTS, host_build_s=build_s,
         host_keys_s=keys_s, max_probes=dt.max_probes,
         host_to_device_s=load_s, probe_ms=probe_ms, probe_device_ms=probe_dev,
-        probe_cold_ms=probe_cold,
+        probe_cold_ms=probe_cold, probe_cold_device_ms=probe_cold_dev,
+        probe_plain_cold_ms=plain_cold, probe_share=kernel_entry["share"],
         probe_bound_ms=pb, probe_bound_by=pby, probe_rows_read=rows,
         probe_queries=h1.numel(), probe_max_abs_err=err,
         probe_found=int(got[1].sum()), batch_ms=ms,
@@ -2160,13 +2211,15 @@ def phase_resident_peptide(torch, world, tryptic_results):
         launches=launches, max_memory_allocated_gb=peak_gb,
         seconds=time.perf_counter() - t_phase)
     log(f"resident peptide {rows_gb:.2f} GB: K8 equal to plain, probe "
-        f"{probe_ms:.3f} ms (device {fmt_ms(probe_dev)}, L2 flushed "
-        f"{probe_cold:.4f}, bound {pb:.4f}); "
+        f"{probe_ms:.3f} ms (device {fmt_ms(probe_dev)}), L2 flushed "
+        f"{probe_cold:.4f} (device {fmt_ms(probe_cold_dev)}, plain "
+        f"{plain_cold:.3f}), bound {pb:.4f}; "
         f"tryptic-sensitivity {BATCH / (ms / 1e3):.0f} pairs/s resident, "
         f"{e2e['pairs_per_s']:.0f} e2e, taxa == bench index's; peak "
         f"{peak_gb:.2f} GB")
     del dt, an
     torch.cuda.empty_cache()
+    return kernel_entry
 
 
 # ---------------------------------------------------------------------- #

@@ -142,18 +142,6 @@ def _fingerprints(peptides, chunk: int = 2_000_000):
     return hi, lo
 
 
-def _stable_order(b: np.ndarray) -> np.ndarray:
-    """``np.argsort(b, kind="stable")`` for non-negative int64 bucket ids:
-    one sort of (bucket << shift | position) keys, which are distinct,
-    so the order is the stable one (a few times faster than the stable
-    argsort at tens of millions of keys)."""
-    shift = max(int(len(b) - 1).bit_length(), 1)
-    if len(b) == 0 or int(b.max()) >= 1 << (62 - shift):
-        return np.argsort(b, kind="stable")
-    keys = (b << np.int64(shift)) | np.arange(len(b), dtype=np.int64)
-    return np.sort(keys) & np.int64((1 << shift) - 1)
-
-
 def _insert_bucketized(bucket0: np.ndarray, payloads, cap: int,
                        tag_distance: bool = False, bucket: int = BUCKET,
                        max_round: int | None = None):
@@ -177,7 +165,7 @@ def _insert_bucketized(bucket0: np.ndarray, payloads, cap: int,
         if r > n_buckets:
             raise RuntimeError("table capacity exhausted")
         b = (bucket0[pending] + r) % n_buckets
-        order = _stable_order(b)
+        order = np.argsort(b, kind="stable")
         bs = b[order]
         starts = np.concatenate([[0], np.nonzero(np.diff(bs))[0] + 1])
         group_start = np.repeat(
@@ -192,7 +180,9 @@ def _insert_bucketized(bucket0: np.ndarray, payloads, cap: int,
                 out[slot] = payload[idx] | np.int32(min(r, 1) << 30)
             else:
                 out[slot] = payload[idx]
-        occupancy += np.bincount(bs[place], minlength=n_buckets)
+        placed_buckets, placed_counts = np.unique(bs[place],
+                                                  return_counts=True)
+        occupancy[placed_buckets] += placed_counts
         if place.any():
             max_probes = max(max_probes, r)
         pending = pending[order][~place]

@@ -263,7 +263,7 @@ class TrypticPipeline(Pipeline):
 
 
 def make_tryptic_fused(dtax, dtable, config: PipelineConfig, euler=None,
-                       wire: str = "packed4", with_overflow: bool = False,
+                       with_overflow: bool = False,
                        device=None) -> TrypticPipeline:
     """The tryptic per-batch step as a module over device-resident state
     on ``device`` (default: the current CUDA device). Packed-4 wire only;
@@ -271,8 +271,6 @@ def make_tryptic_fused(dtax, dtable, config: PipelineConfig, euler=None,
     from ..device import resolve_device
 
     dev = resolve_device(device)
-    if wire != "packed4":
-        raise ValueError(f"unsupported wire {wire!r}: packed4 only")
     if dtax.device != dev:
         dtax = dtax.to(dev)
     if dtable.device != dev:
