@@ -5,8 +5,9 @@
 
 Builds the CUDA kernels from ``umgap_tpu_torch/csrc``, holds each kernel
 to its plain PyTorch version on the card (K1-K6 chained on a
-16,384-pair batch at L = 100 and 160, K7 -> K8 on the same batch, K6
-through both its entries, on dense groups and at the wide program's
+16,384-pair batch at L = 100 and 160, K7 -> K8 on the same batch (with
+the L2 flushed too; K7's reads per block and K8's queries per lane
+swept), K6 through both its entries, on dense groups and at the wide program's
 width, each of K1, K3, K4, K6 and K7 on its path for rows past its
 shared-memory budget, and K5 at the shapes of each TPU gather kernel it
 ports), drives the port's main path (the 9-mer ``analyse`` presets
@@ -190,8 +191,10 @@ def main():
     # every number below was measured in this run: the phases above
     # raise before this point if any of them did not run to its end.
     # Launches: the 9-mer main path's, K7 and K8 the tryptic path's.
-    # K8's times and bound are the resident index's with the L2 flushed
-    # (the bench index's, kept under "bench_index", sit in L2).
+    # K7's time and share are its L2-flushed ones (its 8.8 MB would
+    # otherwise sit in L2 across launches; the warm ones stay in its
+    # stats). K8's times and bound are the resident index's with the L2
+    # flushed (the bench index's, kept under "bench_index", sit in L2).
     k8 = stats["probe_peptide"]
     k8["bench_index"] = {k: k8.pop(k) for k in list(k8)
                          if k not in ("max_abs_err", "equal")}
@@ -652,8 +655,13 @@ def _tryptic_chain(torch, world, width):
     N, F = reads.shape[0], k7[0].shape[-1]
     b7, by7 = bound(reads.numel() + 4 * N + N * 6 * F * 9,
                     N * 6 * (width // 3) * 16)
+    # K7's 8.8-13.4 MB stay in the 50 MB L2 across repeated launches, so
+    # its entry (ms, share) is taken with the L2 flushed before each
+    # launch, as a new batch finds it; the warm times stay beside it
     stats["reads_to_peptides"] = dict(
-        ms=cuda_ms(torch, r2p), device_ms=device_ms(torch, r2p),
+        ms=cold_ms(torch, r2p),
+        cold_device_ms=cold_device_ms(torch, r2p, "reads_to_peptides"),
+        warm_ms=cuda_ms(torch, r2p), device_ms=device_ms(torch, r2p),
         plain_ms=cuda_ms(torch, lambda: r2p(True), reps=3), bound_ms=b7,
         bound_by=by7, F=F, fragments=int(k7[2].sum()),
         reads_per_block=tryptic.READS_PER_BLOCK)
@@ -673,34 +681,110 @@ def _tryptic_chain(torch, world, width):
     # the L2 flushed (phase_resident_peptide).
     stats["probe_peptide"] = dict(
         ms=cuda_ms(torch, k8), device_ms=device_ms(torch, k8),
+        cold_device_ms=cold_device_ms(torch, k8, "probe_peptide"),
         plain_ms=cuda_ms(torch, lambda: k8(True), reps=3), bound_ms=b8,
         bound_by=by8, queries=h1.numel(), valid=int(pv.sum()),
         found=int(got[1].sum()), rows_read=rows,
-        rows_mb=dt.rows.numel() * 4 / 1e6)
+        rows_mb=dt.rows.numel() * 4 / 1e6,
+        queries_per_lane=getattr(lookup, "QUERIES_PER_LANE", None))
     st = stats["reads_to_peptides"]
-    st["share"] = st["bound_ms"] / st["device_ms"] if st["device_ms"] else None
+    st["share"] = (st["bound_ms"] / st["cold_device_ms"]
+                   if st["cold_device_ms"] else None)
+    st["warm_share"] = (st["bound_ms"] / st["device_ms"]
+                        if st["device_ms"] else None)
     stats["probe_peptide"]["share"] = None
     log(f"L={width} tryptic chain, kernels equal to plain: " + ", ".join(
-        f"{n} {s['ms']:.3f} ms (device {fmt_ms(s['device_ms'])}, plain "
+        f"{n} {s['ms']:.4f} ms (device {fmt_ms(s['device_ms'])}, L2 "
+        f"flushed {fmt_ms(s['cold_device_ms'])}, plain "
         f"{s['plain_ms']:.3f}, bound {s['bound_ms']:.4f} {s['bound_by']})"
         for n, s in stats.items()))
     return stats, errs
 
 
+# one codon of the standard code for each residue, to write reads whose
+# first frame holds chosen peptides (as tests/test_torch_cuda.py)
+_CODON = dict(A="GCT", C="TGT", D="GAT", E="GAA", F="TTT", G="GGT",
+              H="CAT", I="ATT", K="AAA", L="CTT", M="ATG", N="AAT",
+              P="CCT", Q="CAA", R="CGT", S="TCT", T="ACT", V="GTT",
+              W="TGG", Y="TAT")
+_CODON["*"] = "TAA"
+# first frames of 50 residues: fragments of exactly 9, 45 and 46
+# residues, only '*', no K or R, K and R before P, a K or R that ends the
+# frame; and the fragments each keeps in that frame
+EDGE_PEPTIDES = (
+    "AAAAAAAAK" + "G" * 41,
+    "A" * 44 + "K" + "G" * 5,
+    "A" * 45 + "K" + "G" * 4,
+    "*" * 50,
+    "ACDEFGHILMNQSTVWY*ACDEFGHILMNQSTVWY*ACDEFGHILMNQST",
+    "AAAAKPAAAAK" + "G" * 9 + "*" + "AARPAAAAAAR" + "C" * 18,
+    "G" * 20 + "R" + "A" * 28 + "K",
+    "G" * 20 + "K" + "A" * 28 + "R",
+)
+EDGE_FRAGMENTS = [2, 1, 0, 0, 3, 4, 2, 2]
+
+
+def _edge_reads(L, reps):
+    """The EDGE_PEPTIDES as reads of L >= 150 bases ('TAA' codons after
+    the peptide's 150), at lengths L and 149, repeated ``reps`` times."""
+    from umgap_tpu_torch.ops import encoding
+
+    codes, lens = [], []
+    for pep in EDGE_PEPTIDES:
+        seq = ("".join(_CODON[a] for a in pep) + "TAA" * L)[:L]
+        for ln in (L, 149):
+            codes.append(encoding.encode_dna(seq))
+            lens.append(ln)
+    return (np.concatenate([np.stack(codes)] * reps),
+            np.concatenate([np.array(lens, np.int32)] * reps))
+
+
+def _chained_table(rng, n, capacity, home):
+    """A PeptideTable of n random fingerprints in ``capacity`` slots, 26
+    of them homed at bucket ``home`` (the last one), so they chain over
+    the next rows, wrapping to bucket 0. Returns (table, hi, lo): the n
+    keys, then n absent ones."""
+    from umgap_tpu_torch.index import table as T
+
+    key = np.unique(rng.integers(0, 2 ** 64 - 1, size=200_000,
+                                 dtype=np.uint64))
+    key = key[(key >> np.uint64(32)) != np.uint64(0xFFFFFFFF)]
+    rng.shuffle(key)
+    hi = (key >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = key.astype(np.uint32).view(np.int32)
+    at = np.nonzero((T.hash32(hi, lo) & np.uint32(capacity // 8 - 1))
+                    == home)[0][:26]
+    rest = np.setdiff1d(np.arange(len(key)), at)
+    order = np.concatenate([at, rest[:2 * n - 26]])
+    hi, lo = hi[order], lo[order]
+    tab = T.PeptideTable._from_fingerprints(
+        hi[:n], lo[:n], rng.integers(1, 1000, n).astype(np.int32),
+        capacity=capacity)
+    return tab, hi, lo
+
+
 def _tryptic_edges(torch, world, rng):
     """K7 on short, odd, N-rich and 'TAA'-repeat reads (an all-'*'
     frame), lengths 0-2 (every frame empty) and above the width, both
-    wires, an unaligned span; K8 on a small table at high load
-    (max_probes >= 1) with present, absent and invalid queries and an
-    all-miss batch. Returns (K7 err, K8 err)."""
+    wires, an unaligned span, at L = 17-1,001 (192: P = 64, 6 x F = 48
+    slots a read); on reads written to hold fragments of exactly 9, 45
+    and 46 residues, an all-'*' frame, a frame with no K or R, K and R
+    before P and a K or R that ends a frame (L = 150-192). K8 on a small
+    table at high load (max_probes >= 1) with present, absent and
+    invalid queries and an all-miss batch; windows of all, no and only
+    the last slot valid; keys chained over max_probes rows, wrapping
+    from the last bucket to 0; the host-digest route's (B, W) queries at
+    odd W. Returns (K7 err, K8 err)."""
     from umgap_tpu_torch.index.table import PeptideTable
     from umgap_tpu_torch.ops import encoding, lookup
     from umgap_tpu_torch.ops.lookup import DeviceTable
     from umgap_tpu_torch.pipeline import tryptic
 
     dev = world["dev"]
+    tt = encoding.get_table(1)
     e7 = 0.0
-    for L2, packed in ((17, True), (100, False), (161, True), (1001, True)):
+    for L2, packed in ((17, True), (100, False), (161, True), (192, True),
+                       (192, False), (1001, True)):
         n = 4097 if L2 < 1001 else 300
         codes = rng.integers(0, 4, size=(n, L2)).astype(np.uint8)
         codes[rng.random((n, L2)) < 0.03] = 4
@@ -714,11 +798,29 @@ def _tryptic_edges(torch, world, rng):
         r = big[1:] if L2 == 161 else big
         lt = torch.from_numpy(ln[1:] if L2 == 161 else ln).to(dev)
         require(L2 != 161 or r.data_ptr() % 16, "K7: span not unaligned")
-        tt = encoding.get_table(1)
         e7 = max(e7, compare(
             torch, f"K7 L={L2} packed={packed}",
             tryptic.reads_to_peptides(r, lt, L2, tt, packed),
             tryptic.reads_to_peptides_plain(r, lt, L2, tt, packed)))
+    for L2 in (150, 160, 161, 192):
+        codes, ln = _edge_reads(L2, 300)
+        for packed in (True, False):
+            src = encoding.pack_dna4(codes) if packed else codes
+            flat = torch.zeros(src.size + 1, dtype=torch.uint8, device=dev)
+            flat[1:] = torch.from_numpy(src.reshape(-1)).to(dev)
+            lt = torch.from_numpy(ln).to(dev)
+            want = tryptic.reads_to_peptides_plain(flat[1:].view(src.shape),
+                                                   lt, L2, tt, packed)
+            F = want[0].shape[-1]
+            require(want[2].reshape(-1, 6, F)[:16:2, 0].sum(1).tolist()
+                    == EDGE_FRAGMENTS, f"K7 edge reads L={L2}: fragments")
+            # an aligned span and one a byte past an aligned address
+            for r in (flat[:-1].view(src.shape), flat[1:].view(src.shape)):
+                e7 = max(e7, compare(
+                    torch, f"K7 edge peptides L={L2} packed={packed}",
+                    tryptic.reads_to_peptides(r, lt, L2, tt, packed),
+                    tryptic.reads_to_peptides_plain(r, lt, L2, tt,
+                                                    packed)))
     n = 200_000
     key = np.unique(rng.integers(0, 2 ** 64 - 1, size=n, dtype=np.uint64))
     key = key[(key >> np.uint64(32)) != np.uint64(0xFFFFFFFF)]
@@ -742,9 +844,122 @@ def _tryptic_edges(torch, world, rng):
     e8 = max(e8, compare(torch, "K8 all-miss", got, lookup.probe_plain(
         dt, qh[half:], ql[half:], None, 0)))
     require(int(got[1].sum()) == 0, "K8: all-miss batch hit")
-    log(f"K7 edge cases, K8 at high load (max_probes {tab.max_probes}) "
-        "and all-miss: equal")
+    # windows of 32 x QUERIES_PER_LANE slots: all valid, none, the last
+    W = 32 * lookup.QUERIES_PER_LANE
+    m = 64 * W + 5
+    pat = np.zeros(m, bool)
+    pat[:16 * W] = True
+    pat[32 * W - 1:48 * W:W] = True
+    pat[48 * W:] = rng.random(m - 48 * W) < 0.3
+    pv = torch.from_numpy(pat).to(dev)
+    e8 = max(e8, compare(torch, "K8 windows", lookup.probe(
+        dt, qh[:m], ql[:m], pv, -7), lookup.probe_plain(
+            dt, qh[:m], ql[:m], pv, -7)))
+    # chains over max_probes rows from the last bucket, wrapping to 0
+    ctab, ch, cl = _chained_table(rng, 100, 1 << 7, (1 << 7) // 8 - 1)
+    require(ctab.max_probes >= 3 and (ctab.key_hi.reshape(-1, 8)[:2]
+                                      != -1).all(),
+            "K8 chained table: no wrapped chain")
+    cdt = DeviceTable.from_host(ctab, dev)
+    cq = (torch.from_numpy(ch).to(dev), torch.from_numpy(cl).to(dev))
+    got = lookup.probe(cdt, *cq, None, -1)
+    e8 = max(e8, compare(torch, "K8 chained, wrapped", got,
+                         lookup.probe_plain(cdt, *cq, None, -1)))
+    require(bool(got[1][:100].all()) and not bool(got[1][100:].any()),
+            "K8 chained: wrong hits")
+    # the host-digest route's (B, W) queries at odd W
+    groups = [(f"g{i}", [encoding.decode_dna(world["reads"][i, e])
+                         for e in (0, 1)]) for i in range(512)]
+    dh, dl, dv = (torch.from_numpy(x).to(dev) for x in tryptic.digest_groups(
+        groups, 7))
+    for Wd in (7, 13):
+        q = (dh[:, :Wd].contiguous(), dl[:, :Wd].contiguous(),
+             dv[:, :Wd].contiguous())
+        got = lookup.probe(world["pdtable"], *q, 0)
+        require(int(got[1].sum()) > 0, "K8 host-digest queries: no hit")
+        e8 = max(e8, compare(torch, f"K8 host digest W={Wd}", got,
+                             lookup.probe_plain(world["pdtable"], *q, 0)))
+    log(f"K7 edge cases and peptides, K8 at high load (max_probes "
+        f"{tab.max_probes}), all-miss, windows, chained over "
+        f"{ctab.max_probes} rows with a wrap, host-digest widths: equal")
     return e7, e8
+
+
+K7_SWEEP = (16, 32, 64, 128)
+K8_SWEEP = (1, 2, 4)
+
+
+def tryptic_sweep(torch, world):
+    """K7's reads per block at L = 100 and 160 and K8's queries per lane
+    on the bench index, on the main path's inputs, each result equal to
+    the default's: device ms with the L2 flushed before each launch
+    ("cold") and without. Also K7's warm device ms on inputs that switch
+    parts of its work off (all lengths 0: load, translation and stores
+    only; poly-C reads: one fragment a lane, no cleave), equal to plain.
+    Returns {"K7": {width: {R: ...}}, "K8": {Q: ...}, "K7_parts":
+    {...}}."""
+    from umgap_tpu_torch.ops import encoding, lookup
+    from umgap_tpu_torch.pipeline import tryptic
+
+    tt1 = encoding.get_table(1)
+    R0, Q0 = tryptic.READS_PER_BLOCK, lookup.QUERIES_PER_LANE
+    out = {"K7": {}, "K8": {}, "K7_parts": {}}
+    L = world["L"]
+    reads, lens = _batch_reads(torch, world, L)
+    polyc = torch.full_like(reads, 0x11)  # C on both nibbles
+    for name, r, ln in (("bench", reads, lens),
+                        ("lengths_0", reads, torch.zeros_like(lens)),
+                        ("poly_c", polyc, lens)):
+        def r2p(r=r, ln=ln):
+            return tryptic.reads_to_peptides(r, ln, L, tt1)
+
+        compare(torch, f"K7 {name}", r2p(),
+                tryptic.reads_to_peptides_plain(r, ln, L, tt1))
+        out["K7_parts"][name] = device_ms(torch, r2p)
+    try:
+        for width in (world["L"], 160):
+            reads, lens = _batch_reads(torch, world, width)
+
+            def r2p():
+                return tryptic.reads_to_peptides(reads, lens, width, tt1)
+
+            want = r2p()
+            out["K7"][width] = {}
+            for R in K7_SWEEP:
+                tryptic.READS_PER_BLOCK = R
+                compare(torch, f"K7 R={R} L={width}", r2p(), want)
+                out["K7"][width][R] = dict(
+                    cold_device_ms=cold_device_ms(torch, r2p,
+                                                  "reads_to_peptides"),
+                    device_ms=device_ms(torch, r2p))
+            tryptic.READS_PER_BLOCK = R0
+            if width == world["L"]:
+                h1, h2, pv = want
+        dt = world["pdtable"]
+
+        def k8():
+            return lookup.probe(dt, h1, h2, pv, 0)
+
+        want = k8()
+        for Q in K8_SWEEP:
+            lookup.QUERIES_PER_LANE = Q
+            compare(torch, f"K8 Q={Q}", k8(), want)
+            out["K8"][Q] = dict(
+                cold_device_ms=cold_device_ms(torch, k8, "probe_peptide"),
+                device_ms=device_ms(torch, k8))
+    finally:
+        tryptic.READS_PER_BLOCK = R0
+        lookup.QUERIES_PER_LANE = Q0
+    log("K7 device ms by input: " + ", ".join(
+        f"{n} {fmt_ms(t)}" for n, t in out["K7_parts"].items()))
+    log("tryptic sweep, device ms (L2 flushed / warm): K7 reads per block "
+        + "; ".join(f"L={w} " + ", ".join(
+            f"{R}: {fmt_ms(t['cold_device_ms'])} / {fmt_ms(t['device_ms'])}"
+            for R, t in d.items()) for w, d in out["K7"].items())
+        + " | K8 queries per lane " + ", ".join(
+            f"{Q}: {fmt_ms(t['cold_device_ms'])} / {fmt_ms(t['device_ms'])}"
+            for Q, t in out["K8"].items()))
+    return out
 
 
 def _dense_hits(torch, dtax, B, K, lo, seed=5):
@@ -1265,6 +1480,11 @@ def phase_kernels(torch, world):
     e7, e8 = _tryptic_edges(torch, world, rng)
     errs["reads_to_peptides"] = max(errs["reads_to_peptides"], e7)
     errs["probe_peptide"] = max(errs["probe_peptide"], e8)
+    # K7's reads per block and K8's queries per lane, swept
+    sweep = tryptic_sweep(torch, world)
+    stats["reads_to_peptides"]["sweep"] = sweep["K7"]
+    stats["reads_to_peptides"]["by_input"] = sweep["K7_parts"]
+    stats["probe_peptide"]["sweep"] = sweep["K8"]
 
     # the block sizes of K1 (reads) and K3 (lanes), swept
     stats["reads_to_kmers"]["sweep"], stats["seedextend_mask"]["sweep"] = \
@@ -2120,22 +2340,12 @@ def resident_fingerprints(world, n_total, avoid, seed=13):
             np.concatenate([bv, fv]))
 
 
-def phase_resident_peptide(torch, world, tryptic_results):
-    """A peptide index of 50,000,000 fingerprints in 2^27 slots
-    (16,777,216 rows of 96 B, 1.61 GB) on the card: the bench fragments
-    with their taxa plus seeded filler. K8 held to its plain version on
-    one batch's K7 output; tryptic-sensitivity over the workload through
-    it: launch counts, kernel taxa equal to the tryptic phase's (the
-    filler matches no query), device-resident and end-to-end pairs/s,
-    peak card memory."""
-    from umgap_tpu_torch import kernels
+def resident_peptide_table(torch, world):
+    """The 1.61 GB resident peptide index on the card: (DeviceTable,
+    build record)."""
     from umgap_tpu_torch.index.table import PeptideTable
-    from umgap_tpu_torch.ops import encoding, lookup
     from umgap_tpu_torch.ops.lookup import DeviceTable
-    from umgap_tpu_torch.pipeline import tryptic
 
-    t_phase = time.perf_counter()
-    dev, L = world["dev"], world["L"]
     t0 = time.perf_counter()
     avoid = _workload_fingerprints(torch, world)
     hi, lo, vals = resident_fingerprints(world, PEPTIDE_RESIDENT_KEYS, avoid)
@@ -2146,18 +2356,34 @@ def phase_resident_peptide(torch, world, tryptic_results):
     build_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    dt = DeviceTable.from_host(tab, dev)
+    dt = DeviceTable.from_host(tab, world["dev"])
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     rows_gb = dt.rows.numel() * 4 / 1e9
     log(f"resident peptide table: {tab.n} keys, {tab.n_buckets} rows, "
         f"max_probes {tab.max_probes}, {rows_gb:.2f} GB; host build "
         f"{build_s:.1f}s, to the card {load_s:.1f}s")
-    del tab
+    return dt, dict(rows_gb=rows_gb, keys=PEPTIDE_RESIDENT_KEYS,
+                    slots=1 << PEPTIDE_RESIDENT_LOG2_SLOTS,
+                    host_build_s=build_s, host_keys_s=keys_s,
+                    max_probes=dt.max_probes, host_to_device_s=load_s)
 
+
+def resident_k8(torch, world, dt, sweep=True):
+    """K8 on one batch's K7 output (L = 100) against the resident index:
+    held to its plain version; event and device ms with and without the
+    L2 flushed before each launch, the bound on this data; with
+    ``sweep``, the flushed device ms at each of K8_SWEEP's queries per
+    lane (each result equal to the default's). Returns (the kernels
+    line's entry, the record, the batch's (reads, lens))."""
+    from umgap_tpu_torch.ops import encoding, lookup
+    from umgap_tpu_torch.pipeline import tryptic
+
+    L = world["L"]
     reads, lens = _batch_reads(torch, world, L)
     h1, h2, pv = tryptic.reads_to_peptides(reads, lens, L,
                                            encoding.get_table(1))
+
     def k8(plain=False):
         fn = lookup.probe_plain if plain else lookup.probe
         return fn(dt, h1, h2, pv, 0)
@@ -2173,10 +2399,52 @@ def phase_resident_peptide(torch, world, tryptic_results):
     probe_cold_dev = cold_device_ms(torch, k8, "probe_peptide")
     plain_cold = cold_ms(torch, lambda: k8(True), reps=3)
     pb, pby, rows = k8_bound(torch, dt, h1, h2, pv)
-    kernel_entry = dict(
+    entry = dict(
         ms=probe_cold, device_ms=probe_cold_dev, plain_ms=plain_cold,
         bound_ms=pb, bound_by=pby, max_abs_err=err,
         share=pb / probe_cold_dev if probe_cold_dev else None)
+    sweep_ms = {}
+    if sweep:
+        q0 = lookup.QUERIES_PER_LANE
+        try:
+            for Q in K8_SWEEP:
+                lookup.QUERIES_PER_LANE = Q
+                compare(torch, f"K8 resident Q={Q}", k8(), got)
+                sweep_ms[Q] = cold_device_ms(torch, k8, "probe_peptide")
+        finally:
+            lookup.QUERIES_PER_LANE = q0
+    record = dict(
+        probe_ms=probe_ms, probe_device_ms=probe_dev,
+        probe_cold_ms=probe_cold, probe_cold_device_ms=probe_cold_dev,
+        probe_plain_cold_ms=plain_cold, probe_share=entry["share"],
+        probe_bound_ms=pb, probe_bound_by=pby, probe_rows_read=rows,
+        probe_queries=h1.numel(), probe_max_abs_err=err,
+        probe_found=int(got[1].sum()),
+        queries_per_lane_cold_device_ms=sweep_ms)
+    log(f"resident peptide K8 equal to plain: {probe_ms:.4f} ms (device "
+        f"{fmt_ms(probe_dev)}), L2 flushed {probe_cold:.4f} (device "
+        f"{fmt_ms(probe_cold_dev)}, plain {plain_cold:.3f}), bound "
+        f"{pb:.4f}; flushed device ms by queries per lane: " + ", ".join(
+            f"{Q}: {fmt_ms(t)}" for Q, t in sweep_ms.items()))
+    return entry, record, (reads, lens)
+
+
+def phase_resident_peptide(torch, world, tryptic_results):
+    """A peptide index of 50,000,000 fingerprints in 2^27 slots
+    (16,777,216 rows of 96 B, 1.61 GB) on the card: the bench fragments
+    with their taxa plus seeded filler. K8 held to its plain version on
+    one batch's K7 output (and swept over its queries per lane with the
+    L2 flushed); tryptic-sensitivity over the workload through it:
+    launch counts, kernel taxa equal to the tryptic phase's (the filler
+    matches no query), device-resident and end-to-end pairs/s, peak card
+    memory."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.pipeline import tryptic
+
+    t_phase = time.perf_counter()
+    L = world["L"]
+    dt, built = resident_peptide_table(torch, world)
+    kernel_entry, k8_record, (reads, lens) = resident_k8(torch, world, dt)
 
     torch.cuda.reset_peak_memory_stats()
     cfg = tryptic.TRYPTIC_PRESETS["tryptic-sensitivity"]
@@ -2198,22 +2466,11 @@ def phase_resident_peptide(torch, world, tryptic_results):
     ms = cuda_ms(torch, lambda: an.step(bt, bl, L), reps=5)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     RESULT["phases"]["resident_peptide"] = dict(
-        rows_gb=rows_gb, keys=PEPTIDE_RESIDENT_KEYS,
-        slots=1 << PEPTIDE_RESIDENT_LOG2_SLOTS, host_build_s=build_s,
-        host_keys_s=keys_s, max_probes=dt.max_probes,
-        host_to_device_s=load_s, probe_ms=probe_ms, probe_device_ms=probe_dev,
-        probe_cold_ms=probe_cold, probe_cold_device_ms=probe_cold_dev,
-        probe_plain_cold_ms=plain_cold, probe_share=kernel_entry["share"],
-        probe_bound_ms=pb, probe_bound_by=pby, probe_rows_read=rows,
-        probe_queries=h1.numel(), probe_max_abs_err=err,
-        probe_found=int(got[1].sum()), batch_ms=ms,
+        **built, **k8_record, batch_ms=ms,
         device_resident_pairs_per_s=BATCH / (ms / 1e3), e2e=e2e,
         launches=launches, max_memory_allocated_gb=peak_gb,
         seconds=time.perf_counter() - t_phase)
-    log(f"resident peptide {rows_gb:.2f} GB: K8 equal to plain, probe "
-        f"{probe_ms:.3f} ms (device {fmt_ms(probe_dev)}), L2 flushed "
-        f"{probe_cold:.4f} (device {fmt_ms(probe_cold_dev)}, plain "
-        f"{plain_cold:.3f}), bound {pb:.4f}; "
+    log(f"resident peptide {built['rows_gb']:.2f} GB: "
         f"tryptic-sensitivity {BATCH / (ms / 1e3):.0f} pairs/s resident, "
         f"{e2e['pairs_per_s']:.0f} e2e, taxa == bench index's; peak "
         f"{peak_gb:.2f} GB")
@@ -2696,27 +2953,8 @@ def phase_ingest(torch, world):
         w["pairs_per_s"] for w in ws), windows=ws)
         for name, ws in wins.items()}
     # tryptic-sensitivity through the ring tier over the peptide index
-    tsession = cli.AnalyseSession(args, world["tax"], world["ptable"],
-                                  world["dtax"], world["pdtable"],
-                                  world["dev"])
-
-    def twindow(min_s=STEADY_S):
-        n = passes = 0
-        smp = dict(sample("all"), type="tryptic-sensitivity")
-        t0 = time.perf_counter()
-        while passes == 0 or time.perf_counter() - t0 < min_s:
-            with open(out_path, "w") as h:
-                n += cli.write_batches(h, cli.run_sample_ring(tsession, smp))
-            passes += 1
-        wall = time.perf_counter() - t0
-        return dict(pairs_per_s=n / wall, pairs=n, seconds=wall,
-                    passes=passes)
-
-    twindow(0.0)  # warm the program
-    ws = [twindow() for _ in range(3)]
-    rates["ring_plain_tryptic_sensitivity"] = dict(
-        pairs_per_s=statistics.median(w["pairs_per_s"] for w in ws),
-        windows=ws)
+    rates["ring_plain_tryptic_sensitivity"] = tryptic_ring_rate(
+        world, paths["all"], out_path)
     phase["rates"] = rates
     log("ingest file-to-records pairs/s (median of 3 windows): " + ", ".join(
         f"{k} {v['pairs_per_s']:.0f}" for k, v in rates.items()))
@@ -2800,6 +3038,41 @@ def phase_ingest(torch, world):
     log(f"ingest: three tiers byte-equal and equal to analyse_arrays on "
         f"{P} pairs, gzip == plain on {P * INGEST_COPIES}; CLI on gzip in "
         f"{cli_s:.1f} s; phase {phase['seconds']:.1f} s")
+
+
+def tryptic_ring_rate(world, paths, out_path):
+    """tryptic-sensitivity from the R1/R2 FASTQ ``paths`` to records
+    through the command line's ring tier at its defaults (width 160,
+    16,384-pair batches) over the bench tryptic index: the median
+    pairs/s of three windows of at least STEADY_S, after one warm
+    pass."""
+    import argparse
+    import statistics
+
+    from umgap_tpu_torch import cli
+
+    args = argparse.Namespace(read_length=160, batch_size=BATCH)
+    session = cli.AnalyseSession(args, world["tax"], world["ptable"],
+                                 world["dtax"], world["pdtable"],
+                                 world["dev"])
+    smp = dict(type="tryptic-sensitivity", first=paths[0], second=paths[1],
+               output=None)
+
+    def window(min_s=STEADY_S):
+        n = passes = 0
+        t0 = time.perf_counter()
+        while passes == 0 or time.perf_counter() - t0 < min_s:
+            with open(out_path, "w") as h:
+                n += cli.write_batches(h, cli.run_sample_ring(session, smp))
+            passes += 1
+        wall = time.perf_counter() - t0
+        return dict(pairs_per_s=n / wall, pairs=n, seconds=wall,
+                    passes=passes)
+
+    window(0.0)  # warm the program
+    ws = [window() for _ in range(3)]
+    return dict(pairs_per_s=statistics.median(w["pairs_per_s"] for w in ws),
+                windows=ws)
 
 
 HOST_ROUTE_GROUPS = 2048  # the tryptic sample
@@ -2982,14 +3255,16 @@ d.ab_worker(*sys.argv[2:])
 """
 
 
-def compare_trees(before, after, order="BAAB"):
+def compare_trees(before, after, order="BAAB", mode="full"):
     """Time two checkouts of the port in turns on one card (before,
     after, after, before), each in its own process that imports its own
     ``umgap_tpu_torch`` and runs its own ``chip_smoke.py``'s identify,
     kernels and gather phases, then this file's per-stage tables (three
     presets), K1-K4 device times (``chain_device_ms``) and K5 host times
     at the Pallas rows' shapes, so both trees are measured by the same
-    code. Writes ``ab.json`` under OUT_DIR.
+    code. ``mode`` "tryptic" runs this file's ``tryptic_ab`` instead
+    (the tree's identify and world only). Writes ``ab.json`` (or
+    ``ab_tryptic.json``) under OUT_DIR.
 
         python3 -c "import chip_smoke; chip_smoke.compare_trees(P, A)"
     """
@@ -3004,13 +3279,16 @@ def compare_trees(before, after, order="BAAB"):
         out = os.path.join(OUT_DIR, f"ab_{k}_{tag}.json")
         log(f"A/B run {k} ({'before' if tag == 'B' else 'after'}): {tree}")
         proc = subprocess.run([sys.executable, "-c", AB_WORKER,
-                               os.path.abspath(__file__), tree, out],
+                               os.path.abspath(__file__), tree, out, mode],
                               cwd=tree, timeout=1500)
         require(proc.returncode == 0, f"A/B run {k} on {tree} failed")
         with open(out) as f:
             runs.append(dict(tag=tag, **json.load(f)))
-    with open(os.path.join(OUT_DIR, "ab.json"), "w") as f:
+    name = "ab.json" if mode == "full" else f"ab_{mode}.json"
+    with open(os.path.join(OUT_DIR, name), "w") as f:
         json.dump(runs, f, indent=1, default=str)
+    if mode == "tryptic":
+        return
     def tail(t):
         g, a = (t["stage_ms"].get(n, 0.0) for n in ("hit_geometry",
                                                      "aggregate"))
@@ -3139,11 +3417,56 @@ def sweep_constant(constant, values,
         json.dump(runs, f, indent=1, default=str)
 
 
+def tryptic_ab(torch, world):
+    """The tryptic path's numbers, by this code on any tree: K7 -> K8 at
+    L = 100 and 160 (``_tryptic_chain``: event, device and L2-flushed
+    times, plain, bound), K8 on the resident 1.61 GB index with the L2
+    flushed, both tryptic presets' stage tables (device-resident pairs/s)
+    and end-to-end pairs/s from arrays, and tryptic-sensitivity's ring
+    tier from FASTQ (8 copies of the workload)."""
+    from umgap_tpu_torch.pipeline.tryptic import TRYPTIC_PRESETS
+
+    out = dict(chain={w: _tryptic_chain(torch, world, w)[0]
+                      for w in (world["L"], 160)})
+    dt, built = resident_peptide_table(torch, world)
+    out["resident"] = dict(built, **resident_k8(torch, world, dt,
+                                                sweep=False)[1])
+    del dt
+    torch.cuda.empty_cache()
+    out["stages"], out["e2e"] = {}, {}
+    for name, cfg in TRYPTIC_PRESETS.items():
+        an = _analyser(world, cfg)
+        _run_analyser(an, world)
+        out["stages"][name] = stage_table(torch, world, an)
+        out["e2e"][name] = _stream_rate(an, world)
+    os.makedirs(TMP_DIR, exist_ok=True)
+    paths = [os.path.join(TMP_DIR, f"ab_R{e + 1}.fq") for e in (0, 1)]
+    for e in (0, 1):
+        text = _fastq_text(world["reads"], e, b"c0_")
+        with open(paths[e], "wb") as f:
+            for _ in range(INGEST_COPIES):
+                f.write(text)
+    out["ring_tryptic_sensitivity"] = tryptic_ring_rate(
+        world, paths, os.path.join(TMP_DIR, "ab_out.fa"))
+    log("tryptic A/B: " + "; ".join(
+        f"L={w} " + ", ".join(
+            f"{n} L2 flushed {fmt_ms(s['cold_device_ms'])} device "
+            f"{fmt_ms(s['device_ms'])}" for n, s in c.items())
+        for w, c in out["chain"].items())
+        + f"; resident K8 flushed {fmt_ms(out['resident']['probe_cold_device_ms'])}"
+        + "; batch ms " + ", ".join(
+            f"{n} {t['batch_ms']:.3f}" for n, t in out["stages"].items())
+        + "; e2e " + ", ".join(
+            f"{n} {t['pairs_per_s']:.0f}" for n, t in out["e2e"].items())
+        + f"; ring {out['ring_tryptic_sensitivity']['pairs_per_s']:.0f}")
+    return out
+
+
 def ab_worker(tree, out, mode="full"):
     """One A/B run: ``tree``'s package and ``chip_smoke.py`` phases, then
     this file's stage tables and host times; writes JSON to ``out``.
     ``mode`` "chain" runs ``chain_device_ms`` at the workload's read
-    length alone."""
+    length alone, "tryptic" this file's ``tryptic_ab``."""
     import importlib.util
 
     import torch
@@ -3159,6 +3482,11 @@ def ab_worker(tree, out, mode="full"):
         with open(out, "w") as f:
             json.dump(dict(tree=tree, card=card, chain_device_ms=(
                 chain_device_ms(torch, world, world["L"]))), f, default=str)
+        return
+    if mode == "tryptic":
+        with open(out, "w") as f:
+            json.dump(dict(tree=tree, card=card,
+                           tryptic=tryptic_ab(torch, world)), f, default=str)
         return
     t.phase_kernels(torch, world)
     t.phase_gather(torch, world)

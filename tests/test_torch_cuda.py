@@ -662,10 +662,11 @@ def _k7_check(dev, codes, lens, L, packed=True):
     return want
 
 
-@pytest.mark.parametrize("L", [17, 64, 100, 160, 161, 1001])
+@pytest.mark.parametrize("L", [17, 64, 100, 160, 161, 192, 195, 1001])
 @pytest.mark.parametrize("packed", [True, False])
 def test_reads_to_peptides_kernel(dev, L, packed):
-    """K7 at the main widths (100, 160), odd and short ones and a long
+    """K7 at the main widths (100, 160), odd and short ones, 192 and 195
+    (6 x F = 48 slots a read, P = 64 and 65 residues a frame) and a long
     one (fewer reads a block), on both wires, read counts no multiple of
     the block's reads; every slot compared, the empty ones 0."""
     rng = np.random.default_rng(L + packed)
@@ -676,6 +677,85 @@ def test_reads_to_peptides_kernel(dev, L, packed):
         want = _k7_check(dev, codes, lens, L, packed)
         if n == 16385:
             assert int(want[2].sum()) > n  # fragments were emitted
+
+
+# one codon of the standard code for each residue, to write reads whose
+# first frame holds chosen peptides
+_CODON = dict(A="GCT", C="TGT", D="GAT", E="GAA", F="TTT", G="GGT",
+              H="CAT", I="ATT", K="AAA", L="CTT", M="ATG", N="AAT",
+              P="CCT", Q="CAA", R="CGT", S="TCT", T="ACT", V="GTT",
+              W="TGG", Y="TAT")
+_CODON["*"] = "TAA"
+# first frames of 50 residues: fragments of exactly 9, 45 and 46
+# residues, only '*', no K or R, K and R before P, a K or R that ends
+# the frame
+EDGE_PEPTIDES = (
+    "AAAAAAAAK" + "G" * 41,
+    "A" * 44 + "K" + "G" * 5,
+    "A" * 45 + "K" + "G" * 4,
+    "*" * 50,
+    "ACDEFGHILMNQSTVWY*ACDEFGHILMNQSTVWY*ACDEFGHILMNQST",
+    "AAAAKPAAAAK" + "G" * 9 + "*" + "AARPAAAAAAR" + "C" * 18,
+    "G" * 20 + "R" + "A" * 28 + "K",
+    "G" * 20 + "K" + "A" * 28 + "R",
+)
+EDGE_FRAGMENTS = [2, 1, 0, 0, 3, 4, 2, 2]
+
+
+def _edge_reads(L):
+    """The EDGE_PEPTIDES as reads of L >= 150 bases (the peptide's 150,
+    then 'TAA' stop codons), each at length L and at 149 (the last
+    residue drops out of the first frame)."""
+    codes, lens = [], []
+    for pep in EDGE_PEPTIDES:
+        seq = "".join(_CODON[a] for a in pep)
+        seq = (seq + "TAA" * L)[:L]
+        for ln in (L, 149):
+            codes.append(encoding.encode_dna(seq))
+            lens.append(ln)
+    return np.stack(codes), np.array(lens, np.int32)
+
+
+@pytest.mark.parametrize("L", [150, 160, 161, 192])
+@pytest.mark.parametrize("packed", [True, False])
+def test_reads_to_peptides_kernel_fragment_edges(dev, L, packed):
+    """K7 on reads written to hold fragments of exactly 9, 45 and 46
+    residues (the last one dropped), an all-'*' frame, a frame with no K
+    or R, K and R before P (no cleave) and a K or R that ends a frame,
+    each repeated past a block's reads, and from an unaligned span."""
+    codes, lens = _edge_reads(L)
+    reps = 40
+    codes = np.concatenate([codes] * reps)
+    lens = np.concatenate([lens] * reps)
+    want = _k7_check(dev, codes, lens, L, packed)
+    F = (L // 3) // 9 + 1
+    frame1 = want[2].reshape(-1, 6, F)[:, 0].sum(axis=1)
+    # fragments kept in the first frame of each peptide's full read
+    assert frame1[0:16:2].tolist() == EDGE_FRAGMENTS
+    from umgap_tpu_torch.pipeline import tryptic
+
+    src = encoding.pack_dna4(codes) if packed else codes
+    flat = torch.zeros(src.size + 1, dtype=torch.uint8, device=dev)
+    flat[1:] = torch.from_numpy(src.reshape(-1)).to(dev)
+    r = flat[1:].view(src.shape)  # one byte past an aligned address
+    ln = torch.from_numpy(lens).to(dev)
+    t = encoding.get_table(1)
+    assert r.data_ptr() % 16
+    before = kernels.K7.launches
+    _eq(tryptic.reads_to_peptides(r, ln, L, t, packed), want)
+    assert kernels.K7.launches == before + 1
+
+
+@pytest.mark.parametrize("R", [1, 3, 8, 16, 64, 128])
+def test_reads_to_peptides_kernel_reads_per_block(dev, R, monkeypatch):
+    """K7's output does not depend on its reads per block."""
+    from umgap_tpu_torch.pipeline import tryptic
+
+    monkeypatch.setattr(tryptic, "READS_PER_BLOCK", R)
+    rng = np.random.default_rng(R)
+    for L in (100, 160):
+        codes, lens = _k7_reads(rng, 1001, L)
+        _k7_check(dev, codes, lens, L)
 
 
 def test_reads_to_peptides_kernel_direct(dev):
@@ -720,6 +800,115 @@ def test_probe_peptide_kernel(dev):
         _eq(lookup.probe(dt, hi.reshape(-1)[:n], lo.reshape(-1)[:n]),
             lookup.probe_plain(dt, hi.reshape(-1)[:n], lo.reshape(-1)[:n]))
     assert kernels.K8.launches == before + 5
+
+
+def _k8_table(dev, n, capacity, seed, home=None):
+    """A peptide table of n random fingerprints in ``capacity`` slots;
+    with ``home``, 3 x 8 + 2 more keys whose bucket is ``home`` (they
+    chain over the next three rows, wrapping past the last). Returns
+    (DeviceTable, PeptideTable, hi, lo) with the keys present first, then
+    as many absent ones."""
+    from umgap_tpu_torch.index import table as ptable
+
+    rng = np.random.default_rng(seed)
+    key = np.unique(rng.integers(0, 2 ** 64 - 1, size=3 * n + 50_000,
+                                 dtype=np.uint64))
+    key = key[(key >> np.uint64(32)) != np.uint64(0xFFFFFFFF)]
+    rng.shuffle(key)
+    hi = (key >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = key.astype(np.uint32).view(np.int32)
+    nb = capacity // 8
+    if home is not None:
+        b = ptable.hash32(hi, lo) & np.uint32(nb - 1)
+        at = np.nonzero(b == home)[0][:26]
+        assert len(at) == 26
+        rest = np.setdiff1d(np.arange(len(key)), at)
+        order = np.concatenate([at, rest[:n - 26], rest[n - 26:2 * n]])
+    else:
+        order = np.arange(2 * n)
+    hi, lo = hi[order], lo[order]
+    tab = ptable.PeptideTable._from_fingerprints(
+        hi[:n], lo[:n], rng.integers(1, 1000, n).astype(np.int32),
+        capacity=capacity)
+    return lookup.DeviceTable.from_host(tab, dev), tab, hi, lo
+
+
+def _k8_check(dt, hi, lo, valid, default=0):
+    before = kernels.K8.launches
+    got = lookup.probe(dt, hi, lo, valid, default)
+    assert kernels.K8.launches == before + 1
+    want = lookup.probe_plain(dt, hi, lo, valid, default)
+    _eq(got, want)
+    return want
+
+
+@pytest.mark.parametrize("Q", [1, 2, 4])
+def test_probe_peptide_kernel_windows(dev, Q, monkeypatch):
+    """K8 over windows of 32 x Q slots where every query is valid, none
+    is, and only the last slot is, and a slot count no multiple of the
+    window, at each queries-per-lane setting."""
+    monkeypatch.setattr(lookup, "QUERIES_PER_LANE", Q)
+    dt, _tab, hi, lo = _k8_table(dev, 6000, 1 << 14, 80 + Q)
+    W = 32 * Q
+    n = 40 * W + 7
+    h = torch.from_numpy(hi[:n].copy()).to(dev)
+    l = torch.from_numpy(lo[:n].copy()).to(dev)
+    pattern = np.zeros(n, bool)
+    pattern[:10 * W] = True                   # windows of valid queries
+    pattern[20 * W - 1:30 * W:W] = True       # only each last slot
+    pattern[30 * W:] = np.random.default_rng(Q).random(n - 30 * W) < 0.3
+    v = torch.from_numpy(pattern).to(dev)
+    want = _k8_check(dt, h, l, v, -3)
+    assert int(want[1][:10 * W].sum()) > 0
+    assert (want[0][10 * W:20 * W - 1] == -3).all()
+    _k8_check(dt, h, l, torch.zeros_like(v))
+    _k8_check(dt, h, l, torch.ones_like(v))
+    _k8_check(dt, h[:1], l[:1], v[:1])
+
+
+def test_probe_peptide_kernel_chains_and_wrap(dev, monkeypatch):
+    """K8 on keys that chain over max_probes rows from the last bucket,
+    wrapping to bucket 0, present and absent, on a table full enough
+    that other keys chain too."""
+    dt, tab, hi, lo = _k8_table(dev, 100, 1 << 7, 90,
+                                home=(1 << 7) // 8 - 1)
+    assert tab.max_probes >= 3
+    assert (tab.key_hi.reshape(-1, 8)[:2] != -1).all()  # wrapped rows
+    h = torch.from_numpy(hi[:200].copy()).to(dev)
+    l = torch.from_numpy(lo[:200].copy()).to(dev)
+    for Q in (1, 2, 4):
+        monkeypatch.setattr(lookup, "QUERIES_PER_LANE", Q)
+        want = _k8_check(dt, h, l, None, -1)
+        assert want[1][:100].all() and not want[1][100:].any()
+
+
+def test_probe_peptide_kernel_host_digest_width(dev):
+    """K8 on the host-digest route's (B, W) queries cut to odd widths W
+    (rows of W slots, so no row starts on a window's boundary)."""
+    from umgap_tpu_torch.index.table import PeptideTable
+    from umgap_tpu_torch.ops import kmers
+    from umgap_tpu_torch.pipeline import tryptic
+
+    rng = np.random.default_rng(11)
+    groups = [(f"g{i}", ["".join(rng.choice(list("ACGT"), size=int(n)))
+                         for n in rng.integers(30, 400, 2)])
+              for i in range(300)]
+    hi, lo, valid = tryptic.digest_groups(groups, 7)
+    peps = set()
+    for _h, seqs in groups[::2]:
+        for seq in seqs:
+            for pep in translate.translate_sequence(
+                    seq, translate.FRAME_NAMES, encoding.get_table(1)):
+                peps.update(f for f in kmers.tryptic_digest(pep)
+                            if 9 <= len(f) <= 45)
+    table = PeptideTable.build(sorted(peps), rng.integers(
+        2, 50, len(peps)).astype(np.int32))
+    dt = lookup.DeviceTable.from_host(table, dev)
+    h, l, v = (torch.from_numpy(x).to(dev) for x in (hi, lo, valid))
+    for W in (7, 13):
+        want = _k8_check(dt, h[:, :W].contiguous(), l[:, :W].contiguous(),
+                         v[:, :W].contiguous())
+        assert want[0].shape == (300, W) and int(want[1].sum()) > 0
 
 
 @pytest.mark.parametrize("preset", ["tryptic-sensitivity",

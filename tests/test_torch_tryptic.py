@@ -496,6 +496,73 @@ def test_reads_to_peptides_plain_shapes(world):
     assert a[2].dtype == torch.bool and a[0].dtype == torch.int32
 
 
+@pytest.mark.parametrize("Le", [150, 160, 161, 192])
+@pytest.mark.parametrize("packed", [True, False])
+def test_reads_to_peptides_plain_edge_fragments_match_jax(smoke, Le,
+                                                          packed):
+    """K7's plain version equals umgap_tpu's translate -> digest chain on
+    the reads chip_smoke.py and the card tests write to hold fragments
+    of exactly 9, 45 and 46 residues, an all-'*' frame, a frame without
+    K or R, K and R before P and a K or R that ends a frame; the first
+    frame keeps the designed fragments, as the host digest finds them."""
+    codes, lens = smoke._edge_reads(Le, 1)
+    t = jenc.get_table(1)
+    aa, plens = jtrans.translate6_batch(codes, lens, t)
+    P = aa.shape[-1]
+    want = [np.asarray(x) for x in jtryp.tryptic_digest_device(
+        np.asarray(aa).reshape(-1, P), np.asarray(plens).reshape(-1))]
+    src = penc.pack_dna4(codes) if packed else codes
+    got = [x.numpy() for x in ptryp.reads_to_peptides_plain(
+        torch.from_numpy(src), torch.from_numpy(lens), Le,
+        penc.get_table(1), packed)]
+    F = P // 9 + 1
+    assert np.array_equal(got[2], want[2])
+    assert np.array_equal(got[0][want[2]], want[0][want[2]])
+    assert np.array_equal(got[1][want[2]], want[1][want[2]])
+    assert not got[0][~want[2]].any() and not got[1][~want[2]].any()
+    first = got[2].reshape(-1, 6, F)[:, 0]
+    assert first[::2].sum(axis=1).tolist() == smoke.EDGE_FRAGMENTS
+    for i, pep in enumerate(smoke.EDGE_PEPTIDES):
+        frags = [f for f in jkmers.tryptic_digest(pep) if 9 <= len(f) <= 45]
+        hi, lo = jtable._fingerprints(frags) if frags else ([], [])
+        row = got[0].reshape(-1, 6, F)[2 * i, 0]
+        assert row[:len(frags)].tolist() == [int(h) for h in hi]
+        row = got[1].reshape(-1, 6, F)[2 * i, 0]
+        assert row[:len(frags)].tolist() == [int(x) for x in lo]
+
+
+def test_chip_smoke_chained_table_matches_jax(smoke):
+    """The smoke's chained peptide table (26 keys homed at the last
+    bucket chain over max_probes rows and wrap to bucket 0) equals
+    umgap_tpu's build of the same fingerprints, and the port's plain
+    probe of its present and absent keys equals umgap_tpu's probe."""
+    rng = np.random.default_rng(5)
+    tab, hi, lo = smoke._chained_table(rng, 100, 1 << 7, (1 << 7) // 8 - 1)
+    assert tab.max_probes >= 3
+    assert (tab.key_hi.reshape(-1, 8)[:2] != -1).all()
+    vals = np.arange(1, 101, dtype=np.int32)
+    # umgap_tpu's PeptideTable.build, from the fingerprints on
+    bucket0 = (jtable.hash32(hi[:100], lo[:100])
+               & np.uint32(16 - 1)).astype(np.int64)
+    (kh, kl, kv), mp, _ = jtable._insert_bucketized(
+        bucket0, [hi[:100], lo[:100], vals], 1 << 7)
+    jt = jtable.PeptideTable(kh, kl, kv, mp, 100)
+    pt = ptable.PeptideTable._from_fingerprints(hi[:100], lo[:100], vals,
+                                                capacity=1 << 7)
+    for a in ("key_hi", "key_lo", "values"):
+        assert np.array_equal(getattr(jt, a), getattr(pt, a))
+    assert np.array_equal(pt.key_hi, tab.key_hi)
+    assert jt.max_probes == pt.max_probes == tab.max_probes
+    dt = jlookup.DeviceTable.from_host(jt)
+    pd = plookup.DeviceTable.from_host(pt, device="cpu")
+    want = jlookup.probe(dt, hi, lo, default=-1)
+    got = plookup.probe_plain(pd, torch.from_numpy(hi), torch.from_numpy(lo),
+                              None, -1)
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert got[1][:100].all() and not got[1][100:].any()
+
+
 def test_device_taxonomy_from_host_matches_carried(world):
     """The port's own device state of the world's taxonomy equals the one
     carried from umgap_tpu, so the CLI's runs use the same tables."""

@@ -5,20 +5,45 @@
 // _probe_dense, which gathers every query's whole row, (Q, 24) int32, into
 // HBM once per probe round before comparing.
 //
-// Per query (one thread): bucket = hash32(hi, lo) & (nb - 1)
+// Per query: bucket = hash32(hi, lo) & (nb - 1)
 // (umgap_tpu/index/table.py:119, uint32 arithmetic); for r in
 // 0..max_probes read the 96-byte row [key_hi x8 | key_lo x8 | value x8] as
 // six 16-byte loads, a slot hits where both key columns equal the query
 // (the value of the hit slots is summed, as the JAX probe does; keys are
 // unique, so at most one slot hits); a hit ends the query, as does a row
-// with an EMPTY (-1) key_hi (a miss). Invalid lanes load nothing and
-// return the default with found = false.
+// with an EMPTY (-1) key_hi (a miss). Invalid slots read the default with
+// found = false.
 //
-// Bound on the H100: bytes. Each query reads its 8 key bytes and valid
-// flag and writes 5 bytes; each row a valid query reads is 96 bytes. A
-// resident table beyond the 50 MB L2 makes every probe a DRAM row fetch;
-// one thread per query with its row loads issued together keeps many
-// fetches in flight.
+// Bound on the H100: bytes. Each query slot reads its 8 key bytes and
+// valid flag and writes 5 bytes; each row a valid query reads is 96
+// bytes. A resident table beyond the 50 MB L2 makes every probe a DRAM
+// row fetch, so the kernel is paced by how many row fetches it keeps in
+// flight.
+//
+// Design: a warp works on a window of 32 * Q consecutive query slots.
+//   1. each lane loads Q slots' flags and fingerprints (coalesced, all
+//      issued together; the next window's are loaded while this window's
+//      rows are in flight), and the warp compacts the window's valid
+//      queries with __ballot_sync / __popc into a list in shared memory,
+//      while every slot's output is staged as (default, false);
+//   2. the listed queries are probed 32 * QR a round: a lane issues the
+//      six row loads of each of its QR queries before its first compare,
+//      so a warp keeps all of the window's rows in flight (about 9 * Q on
+//      the tryptic path, where 28% of the slots are valid); a query that
+//      neither hits nor meets an empty slot loads its next row in the
+//      next probe round (rare: on the bench batch 219,925 rows are read
+//      for 219,576 valid queries), so no row is loaded speculatively;
+//   3. each listed query writes its value and found flag to its staged
+//      slot, and the warp writes the window back in slot order
+//      (coalesced).
+// The grid is sized to the card (the resident blocks of every SM) and
+// strides over the windows. The first version ran one thread a slot:
+// with 72% of the slots invalid a warp kept about 9 rows in flight, each
+// valid thread waiting on its flag, then its fingerprint, then its row.
+// Q = 2 is the default (ops/lookup.py QUERIES_PER_LANE, from
+// chip_smoke.py's sweep on the H100; PERF.md, section 6): larger windows
+// keep more rows in flight, but the rows held in registers cut the warps
+// an SM holds, and past Q = 2 that costs more than it gains.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -27,7 +52,9 @@
 
 namespace {
 
-constexpr int BK = 8;  // slots a bucket row
+constexpr int BK = 8;      // slots a bucket row
+constexpr int WARPS = 8;   // warps a block
+constexpr unsigned FULL = 0xFFFFFFFFu;
 
 __device__ __forceinline__ uint32_t hash32(int32_t hi, int32_t lo) {
   uint32_t h = ((uint32_t)hi * 0x9E3779B1u) ^ ((uint32_t)lo * 0x85EBCA77u);
@@ -37,53 +64,199 @@ __device__ __forceinline__ uint32_t hash32(int32_t hi, int32_t lo) {
   return h;
 }
 
-__global__ void probe_peptide_kernel(const int32_t* __restrict__ qhi,
-                                     const int32_t* __restrict__ qlo,
-                                     const uint8_t* __restrict__ qvalid,
-                                     long long n,
-                                     const int32_t* __restrict__ rows,
-                                     long long nb, int max_probes,
-                                     int default_value,
-                                     int32_t* __restrict__ out,
-                                     uint8_t* __restrict__ found) {
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= n) return;
-  int32_t val = default_value;
-  uint8_t hit_any = 0;
-  if (qvalid[q]) {
-    const int32_t hi = qhi[q], lo = qlo[q];
-    long long bucket = (long long)(hash32(hi, lo) & (uint32_t)(nb - 1));
-    for (int r = 0; r <= max_probes; ++r) {
-      const int4* row = (const int4*)(rows + bucket * (3 * BK));
-      const int4 h0 = __ldg(row + 0), h1 = __ldg(row + 1);
-      const int4 l0 = __ldg(row + 2), l1 = __ldg(row + 3);
-      const int4 v0 = __ldg(row + 4), v1 = __ldg(row + 5);
-      const int32_t kh[BK] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-      const int32_t kl[BK] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
-      const int32_t kv[BK] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-      bool hit = false, empty = false;
-      int32_t sum = 0;
+// S slots of the window at w0 a lane: flags and fingerprints.
+template <int S>
+__device__ __forceinline__ void load_window(
+    const int32_t* __restrict__ qhi, const int32_t* __restrict__ qlo,
+    const uint8_t* __restrict__ qvalid, long long n, long long w0, int lane,
+    bool* v, int32_t* hi, int32_t* lo) {
 #pragma unroll
-      for (int s = 0; s < BK; ++s) {
-        const bool h = kh[s] == hi && kl[s] == lo;
-        hit |= h;
-        sum += h ? kv[s] : 0;
-        empty |= kh[s] == -1;
-      }
-      if (hit) {
-        val = sum;
-        hit_any = 1;
-        break;
-      }
-      if (empty) break;
-      bucket = (bucket + 1) & (nb - 1);
-    }
+  for (int k = 0; k < S; ++k) {
+    const long long q = w0 + k * 32 + lane;
+    const bool in = q < n;
+    v[k] = in && __ldg(qvalid + q);
+    hi[k] = in ? __ldg(qhi + q) : 0;
+    lo[k] = in ? __ldg(qlo + q) : 0;
   }
-  out[q] = val;
-  found[q] = hit_any;
 }
 
-constexpr int THREADS = 256;
+// Probe the up to 32 * QR listed queries base + t * 32 + lane (t < QR,
+// below nv): every row load of a round issued before its compares; a
+// query still live after its row loads its next one in the next round.
+template <int QR>
+__device__ __forceinline__ void probe_listed(
+    const int32_t* __restrict__ rows, long long mask, int max_probes,
+    int default_value, const int32_t* s_hi, const int32_t* s_lo,
+    const int16_t* s_slot, int32_t* s_val, uint8_t* s_fnd, int base, int nv,
+    int lane) {
+  bool live[QR], hit_any[QR];
+  int32_t kh_q[QR], kl_q[QR], val[QR];
+  long long bucket[QR];
+  int4 row[QR][6];
+#pragma unroll
+  for (int t = 0; t < QR; ++t) {
+    const int idx = base + t * 32 + lane;
+    live[t] = idx < nv;
+    kh_q[t] = live[t] ? s_hi[idx] : 0;
+    kl_q[t] = live[t] ? s_lo[idx] : 0;
+    bucket[t] = (long long)(hash32(kh_q[t], kl_q[t]) & (uint32_t)mask);
+    hit_any[t] = false;
+    val[t] = default_value;
+  }
+  for (int r = 0;; ++r) {
+#pragma unroll
+    for (int t = 0; t < QR; ++t) {
+      if (live[t]) {
+        const int4* p = (const int4*)(rows + bucket[t] * (3 * BK));
+#pragma unroll
+        for (int u = 0; u < 6; ++u) row[t][u] = __ldg(p + u);
+      }
+    }
+    bool more = false;
+#pragma unroll
+    for (int t = 0; t < QR; ++t) {
+      if (live[t]) {
+        const int32_t kh[BK] = {row[t][0].x, row[t][0].y, row[t][0].z,
+                                row[t][0].w, row[t][1].x, row[t][1].y,
+                                row[t][1].z, row[t][1].w};
+        const int32_t kl[BK] = {row[t][2].x, row[t][2].y, row[t][2].z,
+                                row[t][2].w, row[t][3].x, row[t][3].y,
+                                row[t][3].z, row[t][3].w};
+        const int32_t kv[BK] = {row[t][4].x, row[t][4].y, row[t][4].z,
+                                row[t][4].w, row[t][5].x, row[t][5].y,
+                                row[t][5].z, row[t][5].w};
+        bool hit = false, empty = false;
+        int32_t sum = 0;
+#pragma unroll
+        for (int s = 0; s < BK; ++s) {
+          const bool h = kh[s] == kh_q[t] && kl[s] == kl_q[t];
+          hit |= h;
+          sum += h ? kv[s] : 0;
+          empty |= kh[s] == -1;
+        }
+        if (hit) {
+          val[t] = sum;
+          hit_any[t] = true;
+        }
+        live[t] = !hit && !empty;
+        bucket[t] = (bucket[t] + 1) & mask;
+        more |= live[t];
+      }
+    }
+    if (!more || r >= max_probes) break;
+  }
+#pragma unroll
+  for (int t = 0; t < QR; ++t) {
+    const int idx = base + t * 32 + lane;
+    if (idx < nv) {
+      const int s = s_slot[idx];
+      s_val[s] = val[t];
+      s_fnd[s] = hit_any[t];
+    }
+  }
+}
+
+// S: slots a lane loads a window (the window is 32 * S slots); QR: rows a
+// lane keeps in flight a round (32 * QR listed queries a round).
+template <int S, int QR>
+__global__ void __launch_bounds__(WARPS * 32) probe_peptide_kernel(
+    const int32_t* __restrict__ qhi, const int32_t* __restrict__ qlo,
+    const uint8_t* __restrict__ qvalid, long long n,
+    const int32_t* __restrict__ rows, long long nb, int max_probes,
+    int default_value, int32_t* __restrict__ out,
+    uint8_t* __restrict__ found) {
+  constexpr int WIN = 32 * S;
+  __shared__ int32_t s_hi[WARPS][WIN], s_lo[WARPS][WIN], s_val[WARPS][WIN];
+  __shared__ int16_t s_slot[WARPS][WIN];
+  __shared__ uint8_t s_fnd[WARPS][WIN];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned lt = (1u << lane) - 1;
+  const long long mask = nb - 1;
+  const long long stride = (long long)gridDim.x * WARPS * WIN;
+  long long w0 = ((long long)blockIdx.x * WARPS + warp) * WIN;
+  bool v[S];
+  int32_t hi[S], lo[S];
+  load_window<S>(qhi, qlo, qvalid, n, w0, lane, v, hi, lo);
+  for (; w0 < n; w0 += stride) {
+    // ---- 1. compact the window's valid queries -------------------------
+    int nv = 0;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const unsigned m = __ballot_sync(FULL, v[k]);
+      if (v[k]) {
+        const int p = nv + __popc(m & lt);
+        s_hi[warp][p] = hi[k];
+        s_lo[warp][p] = lo[k];
+        s_slot[warp][p] = (int16_t)(k * 32 + lane);
+      }
+      s_val[warp][k * 32 + lane] = default_value;
+      s_fnd[warp][k * 32 + lane] = 0;
+      nv += __popc(m);
+    }
+    __syncwarp();
+    // the next window's flags and fingerprints, in flight with the rows
+    load_window<S>(qhi, qlo, qvalid, n, w0 + stride, lane, v, hi, lo);
+
+    // ---- 2. the listed queries, 32 * QR a round ------------------------
+    for (int base = 0; base < nv; base += 32 * QR)
+      probe_listed<QR>(rows, mask, max_probes, default_value, s_hi[warp],
+                       s_lo[warp], s_slot[warp], s_val[warp], s_fnd[warp],
+                       base, nv, lane);
+    __syncwarp();
+
+    // ---- 3. the window back, in slot order ------------------------------
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const long long q = w0 + k * 32 + lane;
+      if (q < n) {
+        out[q] = s_val[warp][k * 32 + lane];
+        found[q] = s_fnd[warp][k * 32 + lane];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+constexpr int THREADS = WARPS * 32;
+
+// Blocks that fill the card: the kernel's resident blocks an SM times the
+// SMs of the current device (cached per device and instance).
+template <int S, int QR>
+cudaError_t card_blocks(int* blocks) {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, probe_peptide_kernel<S, QR>, THREADS, 0);
+    if (e != cudaSuccess) return e;
+    cached[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  *blocks = cached[dev];
+  return cudaSuccess;
+}
+
+template <int S, int QR>
+int launch(const void* hi, const void* lo, const void* valid, long long n,
+           const void* rows, long long nb, int max_probes, int default_value,
+           void* out, void* found, cudaStream_t stream) {
+  int fill = 0;
+  const cudaError_t e = card_blocks<S, QR>(&fill);
+  if (e != cudaSuccess) return (int)e;
+  const long long windows = (n + 32 * S - 1) / (32 * S);
+  const long long need = (windows + WARPS - 1) / WARPS;
+  const unsigned blocks = (unsigned)(need < fill ? need : fill);
+  probe_peptide_kernel<S, QR><<<blocks, THREADS, 0, stream>>>(
+      (const int32_t*)hi, (const int32_t*)lo, (const uint8_t*)valid, n,
+      (const int32_t*)rows, nb, max_probes, default_value, (int32_t*)out,
+      (uint8_t*)found);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -91,25 +264,35 @@ extern "C" const char* umgap_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// rows: (nb, 24) int32, 16-byte aligned; nb a power of two.
+// rows: (nb, 24) int32, 16-byte aligned; nb a power of two. Q: query
+// slots a lane loads a window (1, 2 or 4; a window is 32 * Q slots, about
+// 9 * Q of them valid on the tryptic path), each instance with the rows a
+// lane keeps in flight a round.
 extern "C" int probe_peptide(const void* hi, const void* lo, const void* valid,
                              long long n, const void* rows, long long nb,
                              int max_probes, int default_value, void* out,
-                             void* found, void* stream) {
+                             void* found, int Q, void* stream) {
   if (n <= 0) return 0;
   if (nb < 1 || (nb & (nb - 1)) || ((uintptr_t)rows & 15))
     return (int)cudaErrorInvalidValue;
-  probe_peptide_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0,
-                         (cudaStream_t)stream>>>(
-      (const int32_t*)hi, (const int32_t*)lo, (const uint8_t*)valid, n,
-      (const int32_t*)rows, nb, max_probes, default_value, (int32_t*)out,
-      (uint8_t*)found);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+#define UMGAP_K8(S, QR)                                                    \
+  case S:                                                                  \
+    return launch<S, QR>(hi, lo, valid, n, rows, nb, max_probes,           \
+                         default_value, out, found, s);
+  switch (Q) {
+    UMGAP_K8(1, 1)
+    UMGAP_K8(2, 1)
+    UMGAP_K8(4, 2)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef UMGAP_K8
 }
 
 extern "C" int probe_peptide_packed(const void* args) {
   const PackedArgs a{(const unsigned char*)args};
   return probe_peptide(a.ptr(0), a.ptr(1), a.ptr(2), a.i(3), a.ptr(4), a.i(5),
                        (int)a.i(6), (int)a.i(7), a.ptr(8), a.ptr(9),
-                       a.ptr(10));
+                       (int)a.i(10), a.ptr(11));
 }

@@ -165,7 +165,7 @@ K7 = Kernel(
     "umgap_tpu/pipeline/tryptic.py:89 tryptic_digest_device")
 K8 = Kernel(
     "probe_peptide", "probe_peptide.cu",
-    [P, P, P, LL, P, LL, I, I, P, P, P],
+    [P, P, P, LL, P, LL, I, I, P, P, I, P],
     "umgap_tpu/ops/lookup.py:265-283 _probe_dense (peptide branch)")
 
 KERNELS = (K1, K2, K3, K4, K5, K5A, K6, K7, K8)

@@ -22,6 +22,10 @@ from .. import kernels
 M32 = 0xFFFFFFFF
 MAX_STASH = 4096  # stash rows the kernel holds in shared memory
 KERNEL_BUCKETS = (4, 8, 16, 64)
+# K8's query slots a lane loads a window (a warp's window is 32 x this
+# many slots, compacted to its valid queries): 1, 2 or 4; 2 from
+# chip_smoke.py's sweep on the H100.
+QUERIES_PER_LANE = 2
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -233,7 +237,9 @@ def probe(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
 
 
 def _probe_peptide(table: DeviceTable, hi, lo, valid, default: int):
-    """K8's launch: one thread a query, its rows as 16-byte loads."""
+    """K8's launch: a warp compacts each window of 32 x
+    ``QUERIES_PER_LANE`` slots to its valid queries and keeps their rows
+    in flight together."""
     if valid is None:
         valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
     if (hi.dtype != torch.int32 or lo.dtype != torch.int32
@@ -251,6 +257,6 @@ def _probe_peptide(table: DeviceTable, hi, lo, valid, default: int):
     kernels.K8.launch(
         hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), hi.numel(),
         table.rows.data_ptr(), table.n_buckets, table.max_probes,
-        int(default), out.data_ptr(), found.data_ptr(),
+        int(default), out.data_ptr(), found.data_ptr(), QUERIES_PER_LANE,
         kernels.stream_of(hi))
     return out, found

@@ -45,8 +45,9 @@ _FNV_OFFSET, _FNV_OFFSET2, _FNV_PRIME = (int(c) for c in (
     _table._FNV_OFFSET, _table._FNV_OFFSET2, _table._FNV_PRIME))
 _M32 = 0xFFFFFFFF
 _AA_K, _AA_R, _AA_P = 10, 17, 15  # 'K', 'R', 'P' - 'A'
-# K7's reads per block (halved by the kernel for long reads)
-READS_PER_BLOCK = 32
+# K7's reads per block, one thread a (read, frame) lane (halved by the
+# kernel for long reads); 64 from chip_smoke.py's sweep on the H100
+READS_PER_BLOCK = 64
 
 
 def digest_groups(groups: Sequence[Tuple[str, Sequence[str]]],
