@@ -8,8 +8,9 @@ to its plain PyTorch version on the card (K1-K6 chained on a
 16,384-pair batch at L = 100 and 160, K7 -> K8 on the same batch (with
 the L2 flushed too; K7's reads per block and K8's queries per lane
 swept), K6 through both its entries, on dense groups and at the wide program's
-width, each of K1, K3, K4, K6 and K7 on its path for rows past its
-shared-memory budget, and K5 at the shapes of each TPU gather kernel it
+width, each of K1, K3, K4 and K7 on its path for rows past its
+shared-memory budget, K6's block path at the wide program's widths up
+to K = 32,004, and K5 at the shapes of each TPU gather kernel it
 ports), drives the port's main path (the 9-mer ``analyse`` presets
 through ``Analyser`` over the tracked ``.bench_data`` workload: 32,768
 read pairs of 100 bp, a 2 M-key index, 20 k taxa), the wide re-route
@@ -1161,8 +1162,9 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
         nbytes = (fixed + nvalid * (4 if strat == "lca*" else 8)
                   + distinct * (D + 1) * 4)
         s6[strat].update(zip(("bound_ms", "bound_by"), bound(nbytes, nop)))
-    paths = [devagg.tree_path(n) for n in nv.tolist()]
-    s6["groups_by_path"] = {p: paths.count(p) for p in ("thread", "warp")}
+    paths = [devagg.tree_path(n, K) for n in nv.tolist()]
+    s6["groups_by_path"] = {p: paths.count(p)
+                            for p in ("thread", "warp", "block")}
     s6["dense_valid_per_group"] = {
         n: float(h[2].sum(dim=-1).float().mean()) for n, h in dense.items()}
 
@@ -1271,7 +1273,11 @@ def _k6_bound(torch, dtax, res, utaxa, uvalid, D):
     """K6's bounds on this data, by strategy (see _agg_chain): the valid
     slots' ids (and counts, but for lca*), a row of [depth | ancestors]
     per distinct valid id, the mask read whole and (B,) written;
-    operations per valid slot a hybrid step and per valid pair."""
+    operations per valid slot a hybrid step and, at K <= 64 (the thread
+    and warp walks), per valid pair; past K = 64 (the block path, which
+    scores each distinct id by a search of its D ancestors among the
+    group's sorted ids), lca* and mrtl take ceil(log2 n) compares per
+    (slot, depth) and mrtl one add more."""
     from umgap_tpu_torch.ops import gather
 
     B, K = utaxa.shape
@@ -1282,10 +1288,154 @@ def _k6_bound(torch, dtax, res, utaxa, uvalid, D):
     distinct = int(torch.unique(utaxa[uvalid]).numel())
     ops = {"hybrid": int((steps * nv).sum()) * 2, "lca*": pairs,
            "mrtl": 2 * pairs}
+    if K > 64:
+        lg = torch.ceil(torch.log2(nv.clamp(min=1).double())).long()
+        search = int((nv * D * lg).sum())
+        ops.update({"lca*": search, "mrtl": search + nvalid * D})
     return {strat: bound(B * K + B * 4 + nvalid * (4 if strat == "lca*"
                                                    else 8)
                          + distinct * (D + 1) * 4, nop)
             for strat, nop in ops.items()}
+
+
+# K6 at the wide program's widths, 2 x 6 x floor((L + 2) / 3) for paired
+# reads of L = 100, 160, 1,024, 2,048, 4,096 and 8,000 bp (the last past a
+# block's shared memory: the global scratch), on K6_GROUPS groups each
+K6_WIDE = (408, 648, 4104, 8196, 16392, 32004)
+K6_WIDE_MAIN = 16392  # the ladder sample's wide program
+K6_GROUPS = 8
+
+
+def k6_wide(torch, world, check=True):
+    """K6 (tree_aggregate_hits) for each strategy on K6_GROUPS
+    ``_dense_hits`` groups of 65 to K valid distinct taxa at each K of
+    K6_WIDE, by this code on any tree: device ms, event ms, the bound
+    from this run's data and the share. With ``check``, each result held
+    to tree_aggregate_hits_plain (whose (B, K, K) tensors take 4 groups
+    a call, 1 past K = 16,392) and the plain version timed.
+    Returns ({K: stats}, max abs err)."""
+    from umgap_tpu_torch.agg import device as devagg
+
+    dtax = world["dtax"]
+    D = dtax.geom.shape[1] - 1
+    out, err = {}, 0.0
+    for K in K6_WIDE:
+        u, c, v = _dense_hits(torch, dtax, K6_GROUPS, K, 65, seed=11)
+        row, res = {}, {}
+        step = 4 if K <= K6_WIDE_MAIN else 1
+        for strat in ("hybrid", "lca*", "mrtl"):
+            def k6(strat=strat):
+                return devagg.tree_aggregate_hits(strat, dtax, u, c, v, 0.25)
+
+            def plain(strat=strat):
+                return torch.cat([devagg.tree_aggregate_hits_plain(
+                    strat, dtax, u[i:i + step], c[i:i + step],
+                    v[i:i + step], 0.25) for i in range(0, K6_GROUPS, step)])
+
+            res[strat] = k6()
+            if check:
+                err = max(err, compare(torch, f"K6 {strat} K={K}",
+                                       res[strat], plain()))
+            row[strat] = dict(ms=cuda_ms(torch, k6, reps=2),
+                              device_ms=device_ms(torch, k6, reps=2))
+            if check:
+                row[strat]["plain_ms"] = cuda_ms(torch, plain, reps=1)
+        for strat, (b, by) in _k6_bound(torch, dtax, res, u, v, D).items():
+            dm = row[strat]["device_ms"]
+            row[strat].update(bound_ms=b, bound_by=by,
+                              share=b / dm if dm else None)
+        row.update(valid_per_group=v.sum(dim=1).tolist(),
+                   scratch_bytes=devagg.tree_scratch_bytes(K6_GROUPS, K))
+        out[K] = row
+    log("K6 wide, device ms (bound): " + "; ".join(
+        f"K={K} " + ", ".join(
+            f"{s} {fmt_ms(r[s]['device_ms'])} ({r[s]['bound_ms']:.5f})"
+            for s in ("hybrid", "lca*", "mrtl"))
+        for K, r in out.items()))
+    return out, err
+
+
+def _ladder_paths(world):
+    """Writes the ladder sample (``_ladder_reads``) as R1/R2 FASTQ under
+    TMP_DIR; returns the two paths and the lengths."""
+    codes, lens = _ladder_reads(world["reads"], LADDER_GROUPS)
+    paths = [os.path.join(TMP_DIR, f"ladder_R{e + 1}.fq") for e in (0, 1)]
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    for e in (0, 1):
+        with open(paths[e], "wb") as f:
+            for i in range(LADDER_GROUPS):
+                seq = lut[codes[i, e, :lens[i, e]]].tobytes()
+                f.write(b"@l%d/%d\n%s\n+\n%s\n" % (
+                    i, e + 1, seq, b"I" * len(seq)))
+    return paths, lens
+
+
+def ladder_wide(torch, run):
+    """Where the ladder sample's time goes, by this code on any tree:
+    ``run()`` (the sample through the CLI's tiers, its programs built)
+    once with the wide program timed (``Analyser.run_wide_packed``, a
+    sync on each side) and its K6 calls past K = 64 recorded (valid
+    slots of each overflow group, batches, rows a batch), then once
+    under the profiler for the device ms of K6's kernels and of all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from umgap_tpu_torch.agg import device as devagg
+    from umgap_tpu_torch.pipeline import runner
+
+    rec = dict(wide_calls=0, groups=0, batches=0, rows=[], valid=[],
+               wide_s=0.0)
+    left = [0]
+    hits0, wide0 = devagg.tree_aggregate_hits, runner.Analyser.run_wide_packed
+
+    def hits(strategy, dtax, utaxa, ucounts, uvalid, factor=0.25):
+        if utaxa.shape[1] > 64:
+            m = min(left[0], utaxa.shape[0])
+            left[0] -= m
+            rec["batches"] += 1
+            rec["rows"].append(int(utaxa.shape[0]))
+            rec["valid"] += uvalid[:m].sum(dim=1).tolist()
+        return hits0(strategy, dtax, utaxa, ucounts, uvalid, factor)
+
+    def wide(self, dna4, lens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        left[0] = len(dna4)
+        try:
+            return wide0(self, dna4, lens)
+        finally:
+            torch.cuda.synchronize()
+            rec["wide_s"] += time.perf_counter() - t0
+            rec["wide_calls"] += 1
+            rec["groups"] += len(dna4)
+
+    devagg.tree_aggregate_hits, runner.Analyser.run_wide_packed = hits, wide
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        devagg.tree_aggregate_hits = hits0
+        runner.Analyser.run_wide_packed = wide0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    k6 = [e for e in ev if "tree_" in e.key]
+    rec.update(device_ms=sum(e.self_device_time_total for e in ev) / 1e3,
+               k6_device_ms=sum(e.self_device_time_total for e in k6) / 1e3,
+               k6_launches=sum(e.count for e in k6))
+    v = rec["valid"]
+    log(f"ladder split: wall {rec['wall_s']:.3f} s, wide program "
+        f"{rec['wide_s']:.3f} s ({rec['groups']} groups in {rec['batches']} "
+        f"batches of {rec['rows'][:1]} rows), device {rec['device_ms']:.1f} "
+        f"ms of which K6 {rec['k6_device_ms']:.1f} ms in "
+        f"{rec['k6_launches']} launches; valid slots a group "
+        f"{min(v) if v else 0}-{max(v) if v else 0}")
+    return rec
 
 
 def wide_paths(torch, world):
@@ -1293,10 +1443,11 @@ def wide_paths(torch, world):
     widths of the card tests, held to its plain version and timed, with
     its bound from this run's data: K1's direct kernel on reads of
     20,000 bp, K3's global delta rows at 4,000 windows a lane, K4's
-    global path at N = 24,576 hits a row, K6's global warp lists at
-    K = 16,392 (the wide program of paired 4,096 bp reads) on groups of
-    65 to K valid distinct taxa, and K7's direct kernel on reads of
-    70,001 bp. Returns {kernel: (stats, max abs err)}."""
+    global path at N = 24,576 hits a row, K6's block path at each width
+    of K6_WIDE (``k6_wide``: the wide program of paired reads of 100 to
+    4,096 bp, and at K = 32,004 its global scratch) on groups of 65 to K
+    valid distinct taxa, and K7's direct kernel on reads of 70,001 bp.
+    Returns {kernel: (stats, max abs err)}."""
     from umgap_tpu_torch.agg import device as devagg
     from umgap_tpu_torch.ops import encoding, seedextend, translate
 
@@ -1412,35 +1563,14 @@ def wide_paths(torch, world):
         plain_ms=cuda_ms(torch, lambda: k4(True), reps=2), bound_ms=b,
         bound_by=by), e4)
 
-    # K6: 8 groups at K = 16,392 with 65 to K valid distinct taxa; the
-    # plain versions build (B, K, K) tensors, so they take 4 groups a call
-    dtax = world["dtax"]
-    K, B = 2 * 6 * ((4096 + 2) // 3), 8
-    u, c, v = _dense_hits(torch, dtax, B, K, 65, seed=11)
-    D = dtax.geom.shape[1] - 1
-    s6, e6, res = {}, 0.0, {}
-    for strat in ("hybrid", "lca*", "mrtl"):
-        def k6(strat=strat):
-            return devagg.tree_aggregate_hits(strat, dtax, u, c, v, 0.25)
-
-        def plain(strat=strat):
-            return torch.cat([devagg.tree_aggregate_hits_plain(
-                strat, dtax, u[i:i + 4], c[i:i + 4], v[i:i + 4], 0.25)
-                for i in range(0, B, 4)])
-
-        res[strat] = k6()
-        e6 = max(e6, compare(torch, f"K6 {strat} K={K}", res[strat],
-                             plain()))
-        s6[strat] = dict(ms=cuda_ms(torch, k6, reps=2),
-                         device_ms=device_ms(torch, k6, reps=2),
-                         plain_ms=cuda_ms(torch, plain, reps=1))
-    for strat, (b, by) in _k6_bound(torch, dtax, res, u, v, D).items():
-        s6[strat].update(bound_ms=b, bound_by=by)
+    # K6: 8 groups of 65 to K valid distinct taxa at each of the wide
+    # program's widths (K6_WIDE), each held to its plain version
+    by_k, e6 = k6_wide(torch, world, check=True)
+    K = K6_WIDE_MAIN
+    s6 = dict(by_k[K])
     h = s6["hybrid"]
-    s6.update(path="global lists", shape=[B, K],
-              scratch_bytes=devagg.tree_scratch_bytes(B, K),
-              valid_per_group=v.sum(dim=1).tolist(), ms=h["ms"],
-              device_ms=h["device_ms"], plain_ms=h["plain_ms"],
+    s6.update(by_K=by_k, path=devagg.tree_path(K, K), shape=[K6_GROUPS, K],
+              ms=h["ms"], device_ms=h["device_ms"], plain_ms=h["plain_ms"],
               bound_ms=h["bound_ms"], bound_by=h["bound_by"])
     out["tree_aggregate"] = (s6, e6)
     log("wide paths, kernels equal to plain: " + ", ".join(
@@ -2774,8 +2904,9 @@ def phase_ingest(torch, world):
     them, high-sensitivity at the CLI's defaults (--read-length 160,
     16,384-pair batches): records byte-equal across the tiers and to
     ``Analyser.analyse_arrays``, gzip equal to plain, the ladder sample
-    (100-4,096 bp, the wide program at K = 16,392) with kernel records
-    equal to plain records; file-to-records pairs/s of the ring (plain,
+    (100-4,096 bp, the wide program at K = 16,392, 64 groups a batch)
+    with kernel records equal to plain records and where its time goes
+    (``ladder_wide``); file-to-records pairs/s of the ring (plain,
     gzip) and of the Python tier, the host split and the device-busy
     share of a ring window; and the command line in a subprocess on
     gzipped pairs."""
@@ -2823,16 +2954,7 @@ def phase_ingest(torch, world):
         j.join()
     gzip_s = time.perf_counter() - t0
     del texts
-    ladder_codes, ladder_lens = _ladder_reads(reads, LADDER_GROUPS)
-    paths["ladder"] = [os.path.join(TMP_DIR, f"ladder_R{e + 1}.fq")
-                       for e in (0, 1)]
-    for e in (0, 1):
-        lut = np.frombuffer(b"ACGTN", np.uint8)
-        with open(paths["ladder"][e], "wb") as f:
-            for i in range(LADDER_GROUPS):
-                seq = lut[ladder_codes[i, e, :ladder_lens[i, e]]].tobytes()
-                f.write(b"@l%d/%d\n%s\n+\n%s\n" % (
-                    i, e + 1, seq, b"I" * len(seq)))
+    paths["ladder"], ladder_lens = _ladder_paths(world)
     sizes = {k: sum(os.path.getsize(p) for p in v) for k, v in paths.items()}
 
     args = argparse.Namespace(read_length=160, batch_size=BATCH)
@@ -2924,7 +3046,12 @@ def phase_ingest(torch, world):
                            wide_batch=widest._wide_batch,
                            overflow_groups=overflow, launches=lad_launch,
                            lens=dict(min=int(ladder_lens.min()),
-                                     max=int(ladder_lens.max())))
+                                     max=int(ladder_lens.max())),
+                           split=ladder_wide(torch, lambda: cli.write_batches(
+                               io.StringIO(), cli.run_sample(session, lad))))
+    require(widest._wide_batch == runner.WIDE_BATCH,
+            f"ladder: the wide program takes {widest._wide_batch} groups a "
+            f"batch at 4,096 bp, not {runner.WIDE_BATCH}")
     log(f"ingest ladder ({LADDER_PRESET}): {LADDER_GROUPS} groups of "
         f"100-4,096 bp at width {widest.read_length}, {overflow} through the "
         f"wide program (K = {widest._exact_kmax()}), kernel "
@@ -3263,8 +3390,9 @@ def compare_trees(before, after, order="BAAB", mode="full"):
     presets), K1-K4 device times (``chain_device_ms``) and K5 host times
     at the Pallas rows' shapes, so both trees are measured by the same
     code. ``mode`` "tryptic" runs this file's ``tryptic_ab`` instead
-    (the tree's identify and world only). Writes ``ab.json`` (or
-    ``ab_tryptic.json``) under OUT_DIR.
+    (the tree's identify and world only), "wide" this file's
+    ``wide_ab`` (K6 at the wide widths, the ladder sample's split).
+    Writes ``ab.json`` (or ``ab_<mode>.json``) under OUT_DIR.
 
         python3 -c "import chip_smoke; chip_smoke.compare_trees(P, A)"
     """
@@ -3287,8 +3415,17 @@ def compare_trees(before, after, order="BAAB", mode="full"):
     name = "ab.json" if mode == "full" else f"ab_{mode}.json"
     with open(os.path.join(OUT_DIR, name), "w") as f:
         json.dump(runs, f, indent=1, default=str)
-    if mode == "tryptic":
+    if mode == "wide":
+        for k, r in enumerate(runs):
+            log(f"run {k} {r['tag']}: K6 device ms " + "; ".join(
+                f"K={K} " + ", ".join(f"{s} {fmt_ms(st[s]['device_ms'])}"
+                                      for s in ("hybrid", "lca*", "mrtl"))
+                for K, st in r["wide"]["k6"].items())
+                + f"; ladder wide program {r['wide']['ladder']['wide_s']:.3f}"
+                f" s, K6 {r['wide']['ladder']['k6_device_ms']:.1f} ms")
+    if mode != "full":
         return
+
     def tail(t):
         g, a = (t["stage_ms"].get(n, 0.0) for n in ("hit_geometry",
                                                      "aggregate"))
@@ -3369,11 +3506,13 @@ def chain_device_ms(torch, world, width):
 
 
 def sweep_constant(constant, values,
-                   source="umgap_tpu_torch/csrc/tree_aggregate.cu"):
-    """Device ms of ``chain_device_ms`` at L = 100 on copies of this
-    checkout that differ only in one ``constexpr int`` of a CUDA source,
-    each in its own process, in turns (the values, then again in reverse
-    order). Writes ``sweep_<constant>.json`` under OUT_DIR.
+                   source="umgap_tpu_torch/csrc/tree_aggregate.cu",
+                   mode="chain"):
+    """Device ms of ``chain_device_ms`` at L = 100 (``mode`` "chain") or
+    of ``wide_ab`` ("wide") on copies of this checkout that differ only
+    in one ``constexpr int`` of a CUDA source, each in its own process,
+    in turns (the values, then again in reverse order). Writes
+    ``sweep_<constant>.json`` under OUT_DIR.
 
         python3 -c "import chip_smoke; chip_smoke.sweep_constant(
             'kBlockWarps', (4, 8, 16))"
@@ -3405,10 +3544,17 @@ def sweep_constant(constant, values,
         out = os.path.join(OUT_DIR, f"sweep_{k}_{v}.json")
         proc = subprocess.run([sys.executable, "-c", AB_WORKER,
                                os.path.abspath(__file__), tree, out,
-                               "chain"], cwd=tree, timeout=900)
+                               mode], cwd=tree, timeout=900)
         require(proc.returncode == 0, f"sweep run {constant} = {v} failed")
         with open(out) as f:
             r = json.load(f)
+        if mode == "wide":
+            runs.append(dict(value=v, wide=r["wide"]))
+            log(f"{constant} = {v}: K6 device ms " + "; ".join(
+                f"K={K} " + ", ".join(f"{s} {fmt_ms(st[s]['device_ms'])}"
+                                      for s in ("hybrid", "lca*", "mrtl"))
+                for K, st in r["wide"]["k6"].items()))
+            continue
         runs.append(dict(value=v, chain_device_ms=r["chain_device_ms"]))
         log(f"{constant} = {v}: device ms " + ", ".join(
             f"{n} {fmt_ms(t)}" for n, t in r["chain_device_ms"].items()
@@ -3462,11 +3608,41 @@ def tryptic_ab(torch, world):
     return out
 
 
+def wide_ab(torch, world):
+    """The wide program's numbers, by this code on any tree: ``k6_wide``
+    (unchecked: the tree's own script holds K6 to plain) and the ladder
+    sample's split (``ladder_wide``, max-sensitivity through the CLI's
+    ring tier at its defaults, after one warm run)."""
+    import argparse
+    import io
+
+    from umgap_tpu_torch import cli
+
+    out = dict(k6=k6_wide(torch, world, check=False)[0])
+    os.makedirs(TMP_DIR, exist_ok=True)
+    paths, _lens = _ladder_paths(world)
+    session = cli.AnalyseSession(
+        argparse.Namespace(read_length=160, batch_size=BATCH), world["tax"],
+        world["table"], world["dtax"], world["dtable"], world["dev"])
+    lad = dict(type=LADDER_PRESET, first=paths[0], second=paths[1],
+               output=None)
+
+    def run():
+        return cli.write_batches(io.StringIO(), cli.run_sample(session, lad))
+
+    run()
+    out["ladder"] = ladder_wide(torch, run)
+    out["ladder"]["wide_batch"] = max(
+        session.analysers.values(), key=lambda a: a.read_length)._wide_batch
+    return out
+
+
 def ab_worker(tree, out, mode="full"):
     """One A/B run: ``tree``'s package and ``chip_smoke.py`` phases, then
     this file's stage tables and host times; writes JSON to ``out``.
     ``mode`` "chain" runs ``chain_device_ms`` at the workload's read
-    length alone, "tryptic" this file's ``tryptic_ab``."""
+    length alone, "tryptic" this file's ``tryptic_ab``, "wide" its
+    ``wide_ab``."""
     import importlib.util
 
     import torch
@@ -3483,10 +3659,11 @@ def ab_worker(tree, out, mode="full"):
             json.dump(dict(tree=tree, card=card, chain_device_ms=(
                 chain_device_ms(torch, world, world["L"]))), f, default=str)
         return
-    if mode == "tryptic":
+    if mode in ("tryptic", "wide"):
+        fn = tryptic_ab if mode == "tryptic" else wide_ab
         with open(out, "w") as f:
-            json.dump(dict(tree=tree, card=card,
-                           tryptic=tryptic_ab(torch, world)), f, default=str)
+            json.dump({"tree": tree, "card": card, mode: fn(torch, world)}, f,
+                      default=str)
         return
     t.phase_kernels(torch, world)
     t.phase_gather(torch, world)

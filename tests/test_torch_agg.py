@@ -344,20 +344,48 @@ def test_tree_aggregate_hits_matches_jax(world, K, strategy):
 
 
 def test_tree_path_by_valid_count():
-    """K6 walks a group of up to TREE_THREAD_CAP valid hits with one
-    thread (the bench's 1-3 among them) and a larger one with a warp;
-    the limit is the kernel's own."""
+    """K6 at K <= 64 walks a group of up to TREE_THREAD_CAP valid hits
+    with one thread (the bench's 1-3 among them) and a larger one with a
+    warp; past K = 64 a block takes every group (the block path), its
+    list in shared memory up to K = 17,920 and in a global scratch of
+    at most TREE_BLOCK_GRID lists above. The limits are the kernel's
+    own."""
     import re
     from pathlib import Path
 
     src = (Path(pagg.__file__).parents[1] / "csrc" /
            "tree_aggregate.cu").read_text()
-    cap = int(re.search(r"constexpr int kThreadCap = (\d+);", src)[1])
+
+    def const(name):
+        return int(re.search(rf"constexpr \w+ {name} = (\d+)", src)[1])
+
+    cap = const("kThreadCap")
     assert pagg.TREE_THREAD_CAP == cap
+    assert pagg.TREE_WIDE_K == const("kWideK") == 64
+    assert pagg.TREE_BLOCK_GRID == const("kBlockGrid")
+    assert pagg.TREE_AUX_BYTES == const("kHashSlots") * 8
+    assert pagg.TREE_SMEM_MAX == 226 * 1024
+    assert "kSmemMax = 226 * 1024;" in src
     for n in (0, 1, 3, cap):
-        assert pagg.tree_path(n) == "thread"
-    assert pagg.tree_path(cap + 1) == "warp"
-    assert pagg.tree_path(648) == "warp"
+        assert pagg.tree_path(n, 64) == "thread"
+    assert pagg.tree_path(cap + 1, 64) == "warp"
+    assert pagg.tree_path(64, 64) == "warp"
+    for n in (0, 1, cap, cap + 1, 65, 648):
+        assert pagg.tree_path(n, 648) == "block"
+    assert pagg.tree_path(0, 65) == "block"
+    # the block's list: 12 bytes a slot, in shared memory through
+    # K = 17,920 (16,392, the wide program of 4,096 bp reads, included)
+    assert pagg.tree_list_bytes(16392) == 12 * 16392
+    for K in (4, 64, 65, 408, 16392, 17920):
+        assert pagg.tree_scratch_bytes(600, K) == 0
+    assert pagg.tree_scratch_blocks(8, 17921) == 8
+    assert pagg.tree_scratch_blocks(600, 32004) == pagg.TREE_BLOCK_GRID
+    assert pagg.tree_scratch_bytes(600, 32004) == \
+        pagg.TREE_BLOCK_GRID * 12 * 32004
+    # past TREE_SCRATCH_MAX bytes of lists, fewer blocks, never none
+    assert pagg.tree_scratch_blocks(600, 1 << 22) == \
+        pagg.TREE_SCRATCH_MAX // (12 << 22)
+    assert pagg.tree_scratch_blocks(600, 1 << 25) == 1
 
 
 @pytest.mark.parametrize("strategy", ["hybrid", "lca*", "mrtl"])

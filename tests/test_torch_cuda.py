@@ -447,12 +447,13 @@ def test_tree_aggregate_hits_kernel(dev, world, K):
 @pytest.mark.parametrize("K,B,full", [(64, 777, False), (64, 100, True),
                                       (648, 65, False), (2000, 40, False)])
 def test_tree_aggregate_thread_mapping(dev, K, B, full):
-    """Every path of the thread mapping: hybrid's walk in registers (up
-    to 4 valid hits), the thread path (up to 16), the warp path (17 and
-    more) with a block's larger groups dealt out to its warps, in blocks
-    of mixed groups and in blocks whose every group is full, fewer warps
-    a block where a wide K's lists need it (K = 2000), and group counts
-    no multiple of a block's 32."""
+    """Every path of the thread mapping: at K = 64 hybrid's walk in
+    registers (up to 4 valid hits), the thread path (up to 16), the warp
+    path (17 and more) with a block's larger groups dealt out to its
+    warps, in blocks of mixed groups and in blocks whose every group is
+    full, and group counts no multiple of a block's 32; past K = 64 (648,
+    2000) the block path, a block a group, whose groups of up to 16
+    valid hits take the same walks on the block's first thread."""
     tax = _bench_tree()
     dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
     if full:
@@ -544,11 +545,12 @@ def test_tree_aggregate_refuses_bad_inputs(dev):
         pagg.tree_aggregate_hits("mrtl", dtax, u, c.double(), v)
     with pytest.raises(ValueError):
         pagg.tree_aggregate_hits("hybrid", dtax, u, None, v)
-    # hit lists too wide for one warp's list in shared memory run from
+    # hit lists too wide for a block's list in shared memory run from
     # a global scratch, exactly
-    wide = torch.zeros((2, 12000), dtype=torch.int32, device=dev)
+    wide = torch.zeros((2, 17921), dtype=torch.int32, device=dev)
     every = torch.ones_like(wide, dtype=torch.bool)
-    assert pagg.tree_scratch_bytes(2, 12000) > 0
+    assert pagg.tree_scratch_bytes(2, 12000) == 0
+    assert pagg.tree_scratch_bytes(2, 17921) > 0
     assert torch.equal(
         pagg.tree_aggregate_hits("lca*", dtax, wide, None, every),
         pagg.tree_aggregate_hits_plain("lca*", dtax, wide, None, every))
@@ -606,28 +608,107 @@ def test_dedup_kernel_global_path(dev, k_max):
     assert kernels.K4.launches == before + 2
 
 
-def test_tree_aggregate_wide_lists(dev):
-    """K6 at K = 16,392 (the wide program of paired reads at 4,096 bp),
-    whose warp lists live in the global scratch: groups of 0-17, more
-    than 64 and all K valid distinct taxa (two blocks of groups), all
-    three strategies against their plain versions, taken four groups at
-    a time (the plain versions build (B, K, K) tensors)."""
-    K, B = 16392, 40
-    assert pagg.tree_scratch_bytes(B, K) > 0
-    assert pagg.tree_scratch_bytes(B, 11571) == 0
+@pytest.mark.parametrize("K,B", [(408, 600), (4104, 40), (8196, 24),
+                                 (16392, 24), (32004, 16)])
+def test_tree_aggregate_wide_lists(dev, K, B, monkeypatch):
+    """K6's block path at the wide program's widths (K = 408 to 16,392:
+    paired reads of 100 to 4,096 bp) and past a block's shared memory
+    (K = 32,004, 8,000 bp: the global scratch, cut here to 3 lists so
+    that each block takes several groups): groups of 0-17, more than 64
+    and all K valid distinct taxa, repeated ids in every fifth group,
+    every fourth group's slots shuffled (ids unsorted, valid slots
+    spread over the row), more groups than the launch's blocks at
+    K = 408; all three strategies against their plain versions (whose
+    (B, K, K) tensors take 4 groups a call, 1 past K = 16,392), one
+    launch a call."""
+    assert pagg.tree_path(65, K) == "block"
+    if K > 17920:
+        assert pagg.tree_scratch_blocks(B, K) == B
+        monkeypatch.setattr(pagg, "TREE_SCRATCH_MAX",
+                            3 * pagg.tree_list_bytes(K))
+        assert pagg.tree_scratch_blocks(B, K) == 3
+    else:
+        assert pagg.tree_scratch_bytes(B, K) == 0
+    assert K != 408 or B > pagg.TREE_BLOCK_GRID
     tax = _bench_tree()
     dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
-    u, c, v = (torch.from_numpy(x).to(dev) for x in _k6_hits(tax, B, K, 7))
+    hits = _k6_hits(tax, B, K, 7)
+    rng = np.random.default_rng(K)
+    for b in range(3, B, 4):
+        p = rng.permutation(K)
+        for x in hits:
+            x[b] = x[b][p]
+    u, c, v = (torch.from_numpy(x).to(dev) for x in hits)
     n_valid = v.sum(dim=1)
-    assert (n_valid > 64).sum() >= 8 and int(n_valid.max()) == K
+    assert (n_valid > 64).sum() >= 4 and int(n_valid.max()) == min(
+        K, len(np.flatnonzero(tax.depth >= 1)))
+    step = 4 if K <= 16392 else 1
     for strategy in ("hybrid", "lca*", "mrtl"):
         before = kernels.K6.launches
         got = pagg.tree_aggregate_hits(strategy, dtax, u, c, v)
         assert kernels.K6.launches == before + 1
         want = torch.cat([pagg.tree_aggregate_hits_plain(
-            strategy, dtax, u[s:s + 4], c[s:s + 4], v[s:s + 4])
-            for s in range(0, B, 4)])
+            strategy, dtax, u[s:s + step], c[s:s + step], v[s:s + step])
+            for s in range(0, B, step)])
         assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def _star_tree(n=3000):
+    """A root with n - 1 children and 400 grandchildren under 40 of them:
+    hybrid's first branching point has more branches than its table
+    takes in one pass."""
+    parent = [1, 1] + [1] * (n - 1) + [2 + i % 40 for i in range(400)]
+    return Taxonomy([Taxon(i, f"t{i}", ranks.NO_RANK, parent[i], True)
+                     for i in range(1, n + 401)])
+
+
+@pytest.mark.parametrize("world", ["random", "bench", "chain", "star"])
+def test_tree_block_path_matches_wide_plain(dev, world):
+    """The block path against tree_aggregate_wide_plain, its formulation
+    in PyTorch (held to the JAX package in test_torch_wide_agg.py), and
+    against tree_aggregate_hits_plain, at K = 65, 408 and 4,104: groups
+    with no valid slot, unsorted ids with repeats, ids below 0 and past
+    the table's size, a chain with one slot off it, and (star) a
+    thousand branches and more under one node, one of them heavy."""
+    tax = {"random": lambda: _random_tree(3000, 9), "bench": _bench_tree,
+           "chain": _chain_tree, "star": _star_tree}[world]()
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    size = int(dtax.geom.shape[0])
+    ids = np.flatnonzero(tax.depth >= 1)
+    deep = int(ids[np.argmax(tax.depth[ids])])
+    chain = tax.anc_table[deep][tax.anc_table[deep] > 0]
+    for K in (65, 408, 4104):
+        rng = np.random.default_rng(K + len(world))
+        B = 12
+        u = np.full((B, K), np.iinfo(np.int32).max, np.int32)
+        c = np.zeros((B, K), np.float32)
+        v = np.zeros((B, K), bool)
+        for b in range(1, B):
+            n = int(rng.integers(17, K + 1))
+            sel = rng.choice(ids, size=n)
+            if b % 4 == 1:
+                sel[rng.choice(n, size=5, replace=False)] = [
+                    -1, -9, 0, size, size + 2]
+            if b % 4 == 2:
+                sel = np.concatenate([np.repeat(chain, 2),
+                                      rng.choice(ids, size=1)])[:K]
+                rng.shuffle(sel)
+            if world == "star" and b % 4 == 3:
+                sel[: n // 3] = ids[0]  # one branch holds a third
+            u[b, :len(sel)] = sel
+            c[b, :len(sel)] = rng.integers(1, 7, size=len(sel))
+            v[b, :len(sel)] = True
+        ut, ct, vt = (torch.from_numpy(x).to(dev) for x in (u, c, v))
+        for strategy in ("hybrid", "lca*", "mrtl"):
+            for factor in ((0.0, 0.25) if strategy == "hybrid" else (0.25,)):
+                got = pagg.tree_aggregate_hits(strategy, dtax, ut, ct, vt,
+                                               factor)
+                assert torch.equal(got, pagg.tree_aggregate_wide_plain(
+                    strategy, dtax, ut, ct, vt, factor))
+                want = torch.cat([pagg.tree_aggregate_hits_plain(
+                    strategy, dtax, ut[s:s + 4], ct[s:s + 4], vt[s:s + 4],
+                    factor) for s in range(0, B, 4)])
+                assert torch.equal(got, want)
 
 
 def _k7_reads(rng, n, L):

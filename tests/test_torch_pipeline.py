@@ -248,6 +248,42 @@ def test_analyser_wide_reroute_matches_jax(toy, preset):
     assert pa.overflow_reads == ja.overflow_reads > 0
 
 
+@pytest.mark.parametrize("method,strategy", [
+    ("tree", "hybrid"), ("tree", "lca*"), ("rmq", "mrtl"), ("rmq", "lca*"),
+    ("rmq", "hybrid")])
+def test_wide_batch_rows(toy, method, strategy):
+    """The wide program's batch: (1 << 28) // K^2 groups (the JAX
+    package's bound, umgap_tpu/pipeline/runner.py) where the step builds
+    (B, K, K) tensors, the plain versions (on the CPU, or on the card
+    within kernels.plain_versions()) and rmq/hybrid on the card; up to
+    64 elsewhere on the card, where a row's buffers grow with K (64
+    groups a batch at 4,096 bp, K = 16,392, and at 8,000 bp,
+    K = 32,004)."""
+    from umgap_tpu_torch.pipeline import runner
+
+    def old(K):
+        return max(1, min(64, (1 << 28) // (K * K)))
+
+    for K in (48, 408, 4104, 16392, 32004):
+        assert runner.wide_batch_rows("cpu", method, strategy, K) == old(K)
+        cuda = runner.wide_batch_rows("cuda", method, strategy, K)
+        assert cuda == (old(K) if (method, strategy) == ("rmq", "hybrid")
+                        else 64)
+        assert runner.wide_batch_rows("cuda", method, strategy, K,
+                                      plain=True) == old(K)
+    assert runner.wide_batch_rows("cpu", method, strategy, 16392) == 1
+    # a row's buffers past 4 MB take fewer groups, never none
+    assert runner.wide_batch_rows("cuda", "tree", "lca*", 1 << 20) == 10
+    assert runner.wide_batch_rows("cuda", "tree", "lca*", 1 << 24) == 1
+    pt, px = toy["state"]
+    pa = Analyser(None, None, PRESETS["max-sensitivity"], read_length=4096,
+                  dtax=px, dtable=pt, device="cpu")
+    assert pa._exact_kmax() == 16392
+    assert pa._wide_batch == old(16392) == 1
+    with kernels.plain_versions():
+        assert pa._wide_batch == 1
+
+
 @pytest.mark.parametrize("preset", ["max-sensitivity", "high-precision"])
 def test_analyser_feed_packed_matches_jax(toy, preset):
     """Batches already on the 4-bit wire (what the native ring stream

@@ -38,15 +38,20 @@ WARP_DEDUP_N = 1024  # up to here one warp owns a row; above, a block
 DEDUP_GLOBAL_BLOCKS = 264
 DEDUP_SCRATCH_MAX = 1 << 28
 _DEDUP_PATHS = {"block": 0, "warp": 1, "global": 2}
-# K6 walks a group of up to this many valid hits with one thread, a
-# larger one with a warp (kThreadCap in csrc/tree_aggregate.cu)
+# K6 (csrc/tree_aggregate.cu) at K <= TREE_WIDE_K (kWideK) walks a group
+# of up to TREE_THREAD_CAP valid hits with one thread (kThreadCap), a
+# larger one with a warp; past TREE_WIDE_K a block takes each group (the
+# block path), at most TREE_BLOCK_GRID blocks a launch (kBlockGrid). A
+# block's list takes 12 bytes a slot (block_list_bytes), in its shared
+# memory after a TREE_AUX_BYTES area (kAuxBytes) while both fit
+# TREE_SMEM_MAX (kSmemMax), else in a global scratch of one list a block,
+# at most TREE_SCRATCH_MAX bytes of it (the launch then runs as many
+# blocks as it holds lists)
 TREE_THREAD_CAP = 16
-# A warp's list takes 20 bytes a slot (list_bytes), in the block's shared
-# memory while one list fits (kSmemMax), else in a global scratch of one
-# list a warp, kBlockWarps a block; one launch takes at most
-# TREE_SCRATCH_MAX bytes of it, and wider batches take several launches
+TREE_WIDE_K = 64
+TREE_BLOCK_GRID = 528
+TREE_AUX_BYTES = 2048 * 8
 TREE_SMEM_MAX = 226 * 1024
-TREE_BLOCK_WARPS = 8
 TREE_SCRATCH_MAX = 1 << 28
 
 
@@ -352,26 +357,40 @@ def tree_aggregate_plain(strategy: str, dtax: DeviceTaxonomy,
     return tree_mix_plain(dtax, geom, utaxa, ucounts, factor)
 
 
-def tree_path(n_valid: int) -> str:
-    """K6's path for a group of ``n_valid`` valid hits: ``"thread"`` (one
-    thread walks the group) up to :data:`TREE_THREAD_CAP`, ``"warp"``
-    (a warp compacts and walks it) above. The kernel chooses per group
-    from its mask."""
+def tree_path(n_valid: int, K: int) -> str:
+    """K6's path for a group of ``n_valid`` valid hits among K slots: at
+    K <= :data:`TREE_WIDE_K`, ``"thread"`` (one thread walks the group)
+    up to :data:`TREE_THREAD_CAP`, ``"warp"`` (a warp compacts and walks
+    it) above; past it ``"block"`` (a block compacts the group, and walks
+    it unless the group has at most TREE_THREAD_CAP valid hits, which
+    its first thread walks). The kernel chooses per group from K and its
+    mask."""
+    if K > TREE_WIDE_K:
+        return "block"
     return "thread" if n_valid <= TREE_THREAD_CAP else "warp"
 
 
 def tree_list_bytes(K: int) -> int:
-    """Bytes of one warp's list of K slots in K6."""
-    return (K * 20 + 15) & ~15
+    """Bytes of one block's list of K slots on K6's block path."""
+    return 12 * ((K + 3) & ~3)
+
+
+def tree_scratch_blocks(B: int, K: int) -> int:
+    """Lists of K6's global scratch for B groups of K slots: 0 while a
+    block's list fits its shared memory (and at K <= TREE_WIDE_K), else
+    one a block of the launch, as many as TREE_SCRATCH_MAX bytes hold
+    and at most the launch's blocks."""
+    if K <= TREE_WIDE_K or TREE_AUX_BYTES + tree_list_bytes(K) \
+            <= TREE_SMEM_MAX:
+        return 0
+    return min(B, TREE_BLOCK_GRID,
+               max(1, TREE_SCRATCH_MAX // tree_list_bytes(K)))
 
 
 def tree_scratch_bytes(B: int, K: int) -> int:
-    """Global scratch K6 needs for B groups of K slots: 0 while one
-    warp's list fits the block's shared memory, else a list for each
-    warp of each block of 32 groups."""
-    if tree_list_bytes(K) <= TREE_SMEM_MAX:
-        return 0
-    return -(-B // 32) * TREE_BLOCK_WARPS * tree_list_bytes(K)
+    """Global scratch K6 needs for B groups of K slots (see
+    :func:`tree_scratch_blocks`)."""
+    return tree_scratch_blocks(B, K) * tree_list_bytes(K)
 
 
 def tree_aggregate(strategy: str, dtax: DeviceTaxonomy, geom: HitGeometry,
@@ -402,6 +421,93 @@ def tree_aggregate_hits_plain(strategy: str, dtax: DeviceTaxonomy, utaxa,
                                     factor)
 
 
+def tree_aggregate_wide_plain(strategy: str, dtax: DeviceTaxonomy, utaxa,
+                              ucounts, uvalid, factor: float = 0.25):
+    """K6's block path (groups past K = 64) as plain PyTorch, a group at
+    a time, for the tests to hold that formulation to the JAX package's
+    aggregators; the pipeline never calls it. Takes and returns what
+    :func:`tree_aggregate_hits` does.
+
+    lca* and mrtl: the group's distinct valid ids sorted, each with its
+    summed counts (mrtl) or multiplicity (lca*) and clamped depth; id j
+    scores the entries found (``torch.searchsorted``) at lin_j[d] whose
+    clamped depth is d. hybrid: the descent over the valid slots, the
+    branch sums of each depth taken over the slots below x, the list
+    cut to x's subtree after each descent."""
+    geom = dtax.geom
+    size, W = geom.shape
+    D = W - 1
+    dev = utaxa.device
+    fac = torch.tensor(factor, dtype=torch.float32)
+    out = []
+    for b in range(utaxa.shape[0]):
+        ids = utaxa[b][uvalid[b]]
+        cnt = (torch.ones(len(ids), dtype=torch.float32, device=dev)
+               if strategy == "lca*" else ucounts[b][uvalid[b]])
+        if strategy == "hybrid":
+            out.append(_wide_mix(geom, ids, cnt, dtax.root, fac))
+            continue
+        if len(ids) == 0:
+            ref = geom[0, 1:]  # lca*: slot 0's row, table row 0
+            ok = torch.nonzero(ref != NONE)
+            out.append(I32_MAX if strategy == "mrtl"
+                       else int(ref[int(ok[-1]) if len(ok) else 0]))
+            continue
+        u, inv = torch.unique(ids, sorted=True, return_inverse=True)
+        s = torch.zeros(len(u), dtype=torch.float32, device=dev)
+        s.index_add_(0, inv, cnt)
+        rows = geom[u.clamp(0, size - 1)]
+        lin, dep = rows[:, 1:], rows[:, 0].clamp(min=0)
+        at = torch.searchsorted(u, lin.contiguous()).clamp(max=len(u) - 1)
+        found = (u[at] == lin) & (dep.clamp(max=D - 1)[at] == torch.arange(
+            D, device=dev))
+        score = torch.where(found, s[at], 0.0).sum(dim=1)
+        if strategy == "mrtl":
+            out.append(int(_argmax_tiebreak(u[None], dep[None], torch.ones(
+                (1, len(u)), dtype=torch.bool, device=dev), score[None])))
+            continue
+        dom = score == len(ids)
+        if dom.any():
+            dd = torch.where(dom, dep, -1)
+            out.append(int(u[dom & (dd == dd.max())].min()))
+            continue
+        ref = geom[ids[0].clamp(0, size - 1), 1:]
+        agree = (lin == ref).all(dim=0) & (ref != NONE)
+        ok = torch.nonzero(agree)
+        out.append(int(ref[int(ok[-1]) if len(ok) else 0]))
+    return torch.tensor(out, dtype=torch.int32, device=dev)
+
+
+def _wide_mix(geom, ids, cnt, root: int, fac):
+    """hybrid on one group's valid ids and counts (see
+    :func:`tree_aggregate_wide_plain`)."""
+    size, W = geom.shape
+    lin = geom[ids.clamp(0, size - 1), 1:]
+    x = root
+    a_base = cnt.sum()
+    for d in range(W - 2):
+        br = lin[:, d + 1]
+        below = (br != NONE) & (lin[:, d] == x)
+        if not below.any():
+            break
+        bb = br[below]
+        if bb.min() != bb.max():
+            keys, inv = torch.unique(bb, return_inverse=True)
+            sums = torch.zeros(len(keys), dtype=torch.float32,
+                               device=cnt.device)
+            sums.index_add_(0, inv, cnt[below])
+            mx = sums.max()
+            if (mx / a_base) < fac:
+                break
+            x = int(keys[sums == mx].min())
+            a_base = mx
+        else:
+            x = int(bb[0])
+        keep = lin[:, d + 1] == x
+        lin, cnt = lin[keep], cnt[keep]
+    return x
+
+
 def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
                         uvalid, factor: float = 0.25):
     """The tree aggregators on a batch's filtered hit lists, (B,) int32:
@@ -412,10 +518,9 @@ def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
 
     CPU tensors take :func:`tree_aggregate_hits_plain`; CUDA tensors
     launch K6 once, which reads the valid hits' rows of ``dtax.geom``
-    itself: no (B, K, D) or (B, K, K) tensor is built. Lists too wide for
-    shared memory (K > 11,571) go to a scratch of
-    :func:`tree_scratch_bytes`, one launch per :data:`TREE_SCRATCH_MAX`
-    bytes of it."""
+    itself: no (B, K, D) or (B, K, K) tensor is built. Past K = 64 a
+    block takes each group; lists too wide for its shared memory
+    (K > 17,920) go to a scratch of :func:`tree_scratch_bytes`."""
     if utaxa.is_cpu:
         return tree_aggregate_hits_plain(strategy, dtax, utaxa, ucounts,
                                          uvalid, factor)
@@ -442,20 +547,15 @@ def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
         raise ValueError(f"tree_aggregate_hits: tensors on {geom.device} "
                          f"and {utaxa.device}")
     out = torch.empty((B,), dtype=torch.int32, device=utaxa.device)
-    rows, scratch = B, None
-    if tree_scratch_bytes(B, K):
-        per_block = TREE_BLOCK_WARPS * tree_list_bytes(K)
-        rows = min(B, max(1, TREE_SCRATCH_MAX // per_block) * 32)
-        scratch = torch.empty(tree_scratch_bytes(rows, K), dtype=torch.uint8,
-                              device=utaxa.device)
-    for s in range(0, B, rows):
-        n = min(rows, B - s)
-        kernels.K6.launch(
-            TREE_STRATEGIES[strategy], geom.data_ptr(), size, W,
-            0 if ucounts is None else ucounts[s:].data_ptr(),
-            uvalid[s:].data_ptr(), utaxa[s:].data_ptr(), n, K, dtax.root,
-            float(factor), 0 if scratch is None else scratch.data_ptr(),
-            out[s:].data_ptr(), kernels.stream_of(utaxa))
+    blocks = tree_scratch_blocks(B, K)
+    scratch = (torch.empty(blocks * tree_list_bytes(K), dtype=torch.uint8,
+                           device=utaxa.device) if blocks else None)
+    kernels.K6.launch(
+        TREE_STRATEGIES[strategy], geom.data_ptr(), size, W,
+        0 if ucounts is None else ucounts.data_ptr(), uvalid.data_ptr(),
+        utaxa.data_ptr(), B, K, dtax.root, float(factor),
+        0 if scratch is None else scratch.data_ptr(), blocks,
+        out.data_ptr(), kernels.stream_of(utaxa))
     return out
 
 

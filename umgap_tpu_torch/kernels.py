@@ -152,7 +152,7 @@ K5A = Kernel(
     "(:191) and compare (:194)")
 K6 = Kernel(
     "tree_aggregate", "tree_aggregate.cu",
-    [I, P, I, I, P, P, P, I, I, I, ctypes.c_float, P, P, P],
+    [I, P, I, I, P, P, P, I, I, I, ctypes.c_float, P, I, P, P],
     "umgap_tpu/agg/device.py:219 tree_lca_batch, :243 rtl_batch, "
     ":253 tree_mix_batch, with :170 hit_geometry's row gather and "
     "ancestry test fused in")

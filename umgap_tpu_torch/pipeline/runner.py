@@ -22,12 +22,37 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..agg import device as devagg
 from ..device import resolve_device
 from ..io import fastq, sniff_open
 from ..ops import encoding, lookup
 from ..taxonomy import Taxonomy
 from .fused import PipelineConfig, make_pipeline
+
+
+WIDE_BATCH = 64  # most groups a batch of the wide program
+# bytes the wide program's batch may allocate in its per-row buffers
+WIDE_STEP_BYTES = 1 << 28
+
+
+def wide_batch_rows(device_type: str, method: str, strategy: str, K: int,
+                    plain: bool = False) -> int:
+    """Groups a batch of the wide program at k_max = K. Where the step
+    builds (B, K, K) aggregation tensors (the plain versions, on the CPU
+    or, with ``plain``, on the card, and rmq/hybrid on the card,
+    ``agg/device_rmq.py`` ``rmq_mix_batch``), WIDE_STEP_BYTES bounds
+    their B * K * K; the other steps on the card allocate per row what
+    grows with K, K4's hits and global scratch row (``dedup_counts``)
+    and K6's block list (``tree_list_bytes``), which bound B the same
+    way. At most WIDE_BATCH either way."""
+    if device_type != "cuda" or plain or (method, strategy) == ("rmq",
+                                                                "hybrid"):
+        per_row = K * K
+    else:
+        per_row = (4 * K + (8 << max(K - 1, 1).bit_length())
+                   + devagg.tree_list_bytes(K))
+    return max(1, min(WIDE_BATCH, WIDE_STEP_BYTES // max(per_row, 1)))
 
 
 def encode_batch(groups: Sequence[Sequence[str]], ends: int, length: int):
@@ -240,8 +265,6 @@ class Analyser(BatchStream):
     state. rmq/lca* builds its Euler tables from ``tax`` when no
     ``euler`` is given."""
 
-    WIDE_BATCH = 64
-
     def __init__(self, tax: Taxonomy | None, table, config: PipelineConfig,
                  batch_size: int = 1024, read_length: int = 160,
                  ends: int = 2, dtax=None, dtable=None, device=None,
@@ -276,10 +299,9 @@ class Analyser(BatchStream):
 
     @property
     def _wide_batch(self) -> int:
-        # bound the wide program's (B, K, K) aggregation tensors
-        exact = self._exact_kmax()
-        return max(1, min(self.WIDE_BATCH,
-                          (1 << 28) // max(exact * exact, 1)))
+        return wide_batch_rows(self.device.type, self.config.method,
+                               self.config.strategy, self._exact_kmax(),
+                               kernels.plain_selected())
 
     def _wide(self):
         if self._wide_step is None:
