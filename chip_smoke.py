@@ -183,6 +183,7 @@ def main():
         k8_resident = phase_resident_peptide(torch, world, tresults)
         phase_cli(torch, world)
         phase_ingest(torch, world)
+        long_launches = phase_long(torch, world)
         phase_rmq(torch, world)
     finally:
         shutil.rmtree(TMP_DIR, ignore_errors=True)
@@ -191,7 +192,8 @@ def main():
 
     # every number below was measured in this run: the phases above
     # raise before this point if any of them did not run to its end.
-    # Launches: the 9-mer main path's, K7 and K8 the tryptic path's.
+    # Launches: the 9-mer main path's, K7 and K8 the tryptic path's, K3's
+    # and K4's row kernels the 12,000 bp path's.
     # K7's time and share are its L2-flushed ones (its 8.8 MB would
     # otherwise sit in L2 across launches; the warm ones stay in its
     # stats). K8's times and bound are the resident index's with the L2
@@ -202,6 +204,12 @@ def main():
     k8.update(k8_resident, max_abs_err=max(k8["max_abs_err"],
                                            k8_resident["max_abs_err"]))
     k8["equal"] = k8["max_abs_err"] == 0.0
+    # K3's and K4's row kernels: the 12,000 bp path's launches, their
+    # times and bounds on its batch (``long_rows``; every cell stays
+    # under "wide_path")
+    for name, cell in (("seedextend_rows", "W=3992"),
+                       ("dedup_rows", "N=23952")):
+        stats[name].update(stats[name]["wide_path"]["by_cell"][cell])
     kern = []
     from umgap_tpu_torch import kernels
     for k in kernels.KERNELS:
@@ -211,6 +219,7 @@ def main():
             "source": f"umgap_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces,
             "launches": (tlaunches if k.name in TRYPTIC_KERNELS
+                         else long_launches if k.name in ROW_KERNELS
                          else launches)[k.name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -364,27 +373,86 @@ def cuda_ms(torch, fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(torch, fn, reps=20, tries=3):
-    """Device time per call of ``fn``: the profiler's CUDA kernel and copy
-    time over ``reps`` calls (no host launch gaps, unlike cuda_ms). The
-    profiler now and then returns no device events for a window; such a
-    window is taken again, up to ``tries`` times, then reads None (not
-    measured)."""
-    from torch.profiler import ProfilerActivity, profile
+# host seconds a profiler window keeps clear of the calls on either side
+# of it (see device_ms)
+PROFILE_PAD_S = 0.02
 
+
+def _profile_window(torch, fn, n_calls, before=None):
+    """A profiler window holding ``n_calls`` calls of ``fn`` alone: a
+    warm-up window of the same calls first (kineto's schedule), then the
+    recorded one, with PROFILE_PAD_S of host time between the warm-up's
+    last call and the window's start, the window's start and its first
+    call, its last call and its end. ``before`` runs ahead of each call
+    and is timed too. Returns {kernel name: (device ms, count)}."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def calls():
+        for _ in range(n_calls):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        calls()
+        prof.step()
+        time.sleep(PROFILE_PAD_S)
+        calls()
+        prof.step()
+    # a schedule's step annotation ("ProfilerStep#1") carries the device
+    # time of every kernel in its step again: kernels and copies only
+    return {e.key: (e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")}
+
+
+def device_ms(torch, fn, reps=20, tries=3, by=False):
+    """Device time per call of ``fn``: the profiler's CUDA kernel and copy
+    time over ``reps`` calls (no host launch gaps, unlike cuda_ms), from
+    ``_profile_window`` (windows opened with no warm-up and no host time
+    around the calls read no device event at all for many short
+    windows). The reading is held to ``events_ms`` (the same calls back
+    to back behind a spin of the card): a window with no device event
+    is taken again, up to ``tries`` times, and one that reads more than
+    1.25 times the events' time is not taken; then the events' time
+    stands. With ``by``, returns (ms, "profiler" or "events")."""
     fn()
     torch.cuda.synchronize()
+    ev = events_ms(torch, fn, reps)
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        us = sum(v[0] for v in _profile_window(torch, fn, reps).values())
         if us > 0:
-            return us / 1e3 / reps
-    return None
+            ms = us / reps
+            if ms <= 1.25 * ev:
+                return (ms, "profiler") if by else ms
+            log(f"device_ms: the profiler read {ms:.4f} ms a call against "
+                f"{ev:.4f} ms by CUDA events with no host gap")
+    log(f"device_ms: no profiler window agreed in {tries}; CUDA events "
+        f"with no host gap read {ev:.4f} ms")
+    return (ev, "events") if by else ev
+
+
+def events_ms(torch, fn, reps=20):
+    """Event ms a call of ``fn`` with no host gap between the calls: the
+    card first spins for about 20 ms (``torch.cuda._sleep``) while the
+    host queues all ``reps`` calls behind it, so the events time the
+    calls back to back on the card."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def cold_ms(torch, fn, reps=10):
@@ -411,26 +479,17 @@ def cold_ms(torch, fn, reps=10):
 def cold_device_ms(torch, fn, kernel, reps=10, tries=3):
     """Device ms a call of ``fn`` spends in the kernels whose name holds
     ``kernel``, with the L2 cache flushed before each call as in
-    cold_ms (the flush's own kernel is not counted). None (not
-    measured) if the profiler shows no such kernel in ``tries``
-    windows."""
-    from torch.profiler import ProfilerActivity, profile
-
+    cold_ms (the flush's own kernel is not counted), from
+    ``_profile_window``. None (not measured) if the profiler shows no
+    such kernel in ``tries`` windows."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and kernel in e.key)
+        prof = _profile_window(torch, fn, reps, before=flush.zero_)
+        us = sum(v[0] for k, v in prof.items() if kernel in k)
         if us > 0:
-            return us / 1e3 / reps
+            return us / reps
     return None
 
 
@@ -1336,8 +1395,9 @@ def k6_wide(torch, world, check=True):
             if check:
                 err = max(err, compare(torch, f"K6 {strat} K={K}",
                                        res[strat], plain()))
-            row[strat] = dict(ms=cuda_ms(torch, k6, reps=2),
-                              device_ms=device_ms(torch, k6, reps=2))
+            dm, by = device_ms(torch, k6, reps=2, by=True)
+            row[strat] = dict(ms=cuda_ms(torch, k6, reps=2), device_ms=dm,
+                              device_ms_by=by)
             if check:
                 row[strat]["plain_ms"] = cuda_ms(torch, plain, reps=1)
         for strat, (b, by) in _k6_bound(torch, dtax, res, u, v, D).items():
@@ -1375,10 +1435,9 @@ def ladder_wide(torch, run):
     ``run()`` (the sample through the CLI's tiers, its programs built)
     once with the wide program timed (``Analyser.run_wide_packed``, a
     sync on each side) and its K6 calls past K = 64 recorded (valid
-    slots of each overflow group, batches, rows a batch), then once
-    under the profiler for the device ms of K6's kernels and of all."""
-    from torch.profiler import ProfilerActivity, profile
-
+    slots of each overflow group, batches, rows a batch), then under the
+    profiler (``_profile_window``) for the device ms of K6's kernels and
+    of all."""
     from umgap_tpu_torch.agg import device as devagg
     from umgap_tpu_torch.pipeline import runner
 
@@ -1418,16 +1477,11 @@ def ladder_wide(torch, run):
     finally:
         devagg.tree_aggregate_hits = hits0
         runner.Analyser.run_wide_packed = wide0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
-    k6 = [e for e in ev if "tree_" in e.key]
-    rec.update(device_ms=sum(e.self_device_time_total for e in ev) / 1e3,
-               k6_device_ms=sum(e.self_device_time_total for e in k6) / 1e3,
-               k6_launches=sum(e.count for e in k6))
+    prof = _profile_window(torch, run, 1)
+    k6 = [v for k, v in prof.items() if "tree_" in k]
+    rec.update(device_ms=sum(v[0] for v in prof.values()),
+               k6_device_ms=sum(v[0] for v in k6),
+               k6_launches=sum(v[1] for v in k6))
     v = rec["valid"]
     log(f"ladder split: wall {rec['wall_s']:.3f} s, wide program "
         f"{rec['wide_s']:.3f} s ({rec['groups']} groups in {rec['batches']} "
@@ -1438,18 +1492,204 @@ def ladder_wide(torch, run):
     return rec
 
 
+# The width ladder's rungs past K3's staged tile and K4's warp path:
+# paired reads of 512 to 4,096 bp, W = L // 3 - 8 windows a lane and
+# N = 12 W hits a row (W = 162, 333, 674, 1,357; N = 1,944 to 16,284)
+LADDER_RUNGS = (512, 1024, 2048, 4096)
+
+
+def _row_inputs(torch, world, codes, L):
+    """K3's and K4's inputs on real hits: (B, E, L) read codes through K1
+    and K2 and, for K4, K3 at high-sensitivity's seeds (s = 3, g = 1), as
+    the pipeline's stages pass them. Returns (taxa (B E, 6, W), nkmers
+    (B E, 6), hits (B, 6 E W))."""
+    from umgap_tpu_torch.ops import encoding, lookup, seedextend, translate
+
+    B, E, _l = codes.shape
+    dna4 = torch.from_numpy(encoding.pack_dna4(np.ascontiguousarray(
+        codes))).to(world["dev"]).reshape(B * E, -1)
+    lens = torch.full((B * E,), L, dtype=torch.int32, device=world["dev"])
+    hi, lo, wvalid, plens = translate.reads_to_kmers(
+        dna4, lens, L, encoding.get_table(1), 9)
+    taxa = lookup.probe(world["dtable"], hi, lo, wvalid, 0)[0]
+    nk = (plens - 8).clamp(min=0)
+    hits = seedextend.seedextend_hits(taxa, nk, 3, 1).reshape(B, -1)
+    return taxa, nk, hits.contiguous()
+
+
+def _rung_codes(world, L):
+    """The reads of rung L: B read pairs (the batch the CLI's chunked tier
+    runs at width L for a sample of many batches) whose ends are each L
+    bp of consecutive bench reads of that end (as ``_ladder_reads``
+    builds them)."""
+    from umgap_tpu_torch import cli
+
+    B = cli._pow2_bucket(1 << 30, 64, max(64, BATCH * 160 // L))
+    reads = world["reads"]
+    P, _e, L0 = reads.shape
+    pieces = -(-L // L0)
+    idx = (np.arange(B)[:, None] * pieces + np.arange(pieces)) % P
+    codes = reads[idx].transpose(0, 2, 1, 3).reshape(B, 2, pieces * L0)
+    return codes[:, :, :L]
+
+
+def _k3_synthetic(torch, dev, seed=29):
+    """1,536 lanes of 4,000 windows: runs with gaps, lengths 0..N."""
+    rng = np.random.default_rng(seed)
+    NW, nl = 4000, 1536
+    runs = rng.choice(np.array([0, 0, 0, 5, 6, 7], np.int32), size=(nl, NW))
+    rep = rng.random((nl, NW)) < 0.6
+    for j in range(1, NW):
+        runs[:, j] = np.where(rep[:, j], runs[:, j - 1], runs[:, j])
+    lr = rng.integers(0, NW + 1, size=nl).astype(np.int32)
+    lr[::7] = NW
+    return torch.from_numpy(runs).to(dev), torch.from_numpy(lr).to(dev)
+
+
+def _k4_synthetic(torch, dev, seed=30):
+    """600 rows of 24,576 hits, 0-100% valid, ids from small and large
+    pools, and integer weights 0-3."""
+    rng = np.random.default_rng(seed)
+    NH, rows = 24576, 600
+    ids = rng.integers(-1, 2000, size=(rows, NH)).astype(np.int32)
+    ids[rng.random((rows, NH)) >= rng.random((rows, 1))] = 0
+    ids[::3] = np.where(ids[::3] > 0, ids[::3] % 7 + 1, ids[::3])
+    wt = rng.integers(0, 4, size=(rows, NH)).astype(np.float32)
+    return torch.from_numpy(ids).to(dev), torch.from_numpy(wt).to(dev)
+
+
+def k3_cell(torch, taxa, nk, check, what):
+    """K3 on one input at high-sensitivity's seeds, by this code on any
+    tree: its path, event ms, device ms, the bound from the shape (each
+    window's taxon read and its hit written once, bytes) and, with
+    ``check``, the hits held to both plain versions (the position loop
+    and ``seedextend_runs_plain``) and the mask (s = 2, g = 0) to the
+    position loop's, the position loop timed. Returns (stats, err)."""
+    from umgap_tpu_torch.ops import seedextend
+
+    NW = taxa.shape[-1]
+    nl = nk.numel()
+
+    def k3():
+        return seedextend.seedextend_hits(taxa, nk, 3, 1)
+
+    ms, by = device_ms(torch, k3, reps=5, by=True)
+    b, bb = bound(nl * (NW * 8 + 4), nl * NW * 20)
+    st = dict(path=seedextend.seedextend_path(NW), shape=[nl, NW],
+              ms=cuda_ms(torch, k3, reps=5), device_ms=ms, device_ms_by=by,
+              bound_ms=b, bound_by=bb, library_ms=None)
+    err = 0.0
+    if check:
+        got = k3()
+        err = max(compare(torch, f"K3 {what} hits", got,
+                          seedextend.seedextend_hits_plain(taxa, nk, 3, 1)),
+                  compare(torch, f"K3 {what} hits (runs plain)", got,
+                          seedextend.seedextend_runs_plain(taxa, nk, 3, 1,
+                                                           hits=True)),
+                  compare(torch, f"K3 {what} mask",
+                          seedextend.seedextend_mask_batch(taxa, nk, 2, 0),
+                          seedextend.seedextend_mask_plain(taxa, nk, 2, 0)))
+        st["plain_ms"] = cuda_ms(
+            torch, lambda: seedextend.seedextend_hits_plain(taxa, nk, 3, 1),
+            reps=1)
+    return st, err
+
+
+def k4_cell(torch, hits, weights, k_max, check, what):
+    """K4 on one input, by this code on any tree: its path, event ms,
+    device ms, the bound from this run's data (the row read and the
+    output written once, bytes; a sort of each row's valid hits,
+    operations) and, with ``check``, the result held to both plain
+    versions (``dedup_counts_plain`` and ``dedup_counts_rows_plain``),
+    with and without the weights given, the first timed. Returns
+    (stats, err)."""
+    from umgap_tpu_torch.agg import device as devagg
+
+    rows, NH = hits.shape
+
+    def k4():
+        return devagg.dedup_counts(hits, None, k_max, True)
+
+    ms, by = device_ms(torch, k4, reps=5, by=True)
+    nv = (hits > 0).sum(dim=1).cpu().numpy().astype(np.int64)
+    lg = np.ceil(np.log2(np.maximum(nv, 1))).astype(np.int64)
+    b, bb = bound(rows * NH * 4 + rows * (k_max * 9 + 4),
+                  int((nv * lg).sum()) * 4)
+    st = dict(path=devagg.dedup_path(NH), shape=[rows, NH], k_max=k_max,
+              valid_per_row=[int(nv.min()), float(nv.mean()), int(nv.max())],
+              ms=cuda_ms(torch, k4, reps=5), device_ms=ms, device_ms_by=by,
+              bound_ms=b, bound_by=bb, library_ms=None)
+    err = 0.0
+    if check:
+        for w in (None, weights):
+            got = devagg.dedup_counts(hits, w, k_max, True)
+            tag = f"K4 {what}" + (" weighted" if w is not None else "")
+            err = max(err, compare(torch, tag, got, devagg.dedup_counts_plain(
+                hits, w, k_max, True)), compare(
+                torch, tag + " (rows plain)", got,
+                devagg.dedup_counts_rows_plain(hits, w, k_max, True)))
+        st["plain_ms"] = cuda_ms(
+            torch, lambda: devagg.dedup_counts_plain(hits, None, k_max, True),
+            reps=2)
+    return st, err
+
+
+def long_rows(torch, world, check=True):
+    """K3 and K4 past the main path's variants, by this code on any
+    tree: at each rung of LADDER_RUNGS on the rung's real hits (K3 at
+    W = 162-1,357 windows a lane, K4 at N = 1,944-16,284 hits a row, the
+    CLI's batch there), on the 12,000 bp path's batch (12,288 lanes of
+    3,992 windows, 2,048 rows of 23,952 hits: the row kernels' entries
+    on the kernels line) and on the synthetic rows (K3 1,536 lanes of
+    4,000 windows, K4 600 rows of 24,576 hits); ``k3_cell`` and
+    ``k4_cell`` each. Returns ((K3 stats, err), (K4 stats, err)), the
+    stats by cell name with the 4,000 / 24,576 cell's numbers on top."""
+    dev = world["dev"]
+    k3, k4, e3, e4 = {}, {}, 0.0, 0.0
+    samples = [(L, f"rung {L} bp", lambda L=L: _rung_codes(world, L))
+               for L in LADDER_RUNGS]
+    samples.append((LONG12K_BP, "the 12,000 bp batch",
+                    lambda: _long_sample(world)[0]))
+    for L, what, codes in samples:
+        taxa, nk, hits = _row_inputs(torch, world, codes(), L)
+        W = taxa.shape[-1]
+        k3[f"W={W}"], e = k3_cell(torch, taxa, nk, check, what)
+        e3 = max(e3, e)
+        wt = torch.from_numpy(np.random.default_rng(L).integers(
+            0, 4, size=tuple(hits.shape)).astype(np.float32)).to(dev)
+        k4[f"N={hits.shape[1]}"], e = k4_cell(torch, hits, wt, 64, check,
+                                              what)
+        e4 = max(e4, e)
+        del taxa, nk, hits, wt
+    tr, lt = _k3_synthetic(torch, dev)
+    k3["W=4000"], e = k3_cell(torch, tr, lt, check, "W=4000")
+    e3 = max(e3, e)
+    tx, wt = _k4_synthetic(torch, dev)
+    k4["N=24576"], e = k4_cell(torch, tx, wt, 64, check, "N=24576")
+    e4 = max(e4, e)
+    log("long rows, device ms (bound): K3 " + ", ".join(
+        f"{c} {fmt_ms(v['device_ms'])} ({v['bound_ms']:.4f})"
+        for c, v in k3.items()) + "; K4 " + ", ".join(
+        f"{c} {fmt_ms(v['device_ms'])} ({v['bound_ms']:.4f})"
+        for c, v in k4.items()))
+    s3 = dict(k3["W=4000"], by_cell=k3)
+    s4 = dict(k4["N=24576"], by_cell=k4)
+    return (s3, e3), (s4, e4)
+
+
 def wide_paths(torch, world):
     """Each kernel's path for rows past its shared-memory budget, at the
     widths of the card tests, held to its plain version and timed, with
     its bound from this run's data: K1's direct kernel on reads of
-    20,000 bp, K3's global delta rows at 4,000 windows a lane, K4's
-    global path at N = 24,576 hits a row, K6's block path at each width
+    20,000 bp, K3's and K4's row kernels at each rung of the width
+    ladder and at 4,000 windows a lane and 24,576 hits a row
+    (``long_rows``), K6's block path at each width
     of K6_WIDE (``k6_wide``: the wide program of paired reads of 100 to
     4,096 bp, and at K = 32,004 its global scratch) on groups of 65 to K
     valid distinct taxa, and K7's direct kernel on reads of 70,001 bp.
     Returns {kernel: (stats, max abs err)}."""
     from umgap_tpu_torch.agg import device as devagg
-    from umgap_tpu_torch.ops import encoding, seedextend, translate
+    from umgap_tpu_torch.ops import encoding, translate
 
     dev = world["dev"]
     rng = np.random.default_rng(29)
@@ -1509,59 +1749,11 @@ def wide_paths(torch, world):
         plain_ms=cuda_ms(torch, lambda: k7(True), reps=1), bound_ms=b,
         bound_by=by), e7)
 
-    # K3: 1,536 lanes of 4,000 windows, runs with gaps, lengths 0..N
-    NW, nl = 4000, 1536
-    runs = rng.choice(np.array([0, 0, 0, 5, 6, 7], np.int32), size=(nl, NW))
-    rep = rng.random((nl, NW)) < 0.6
-    for j in range(1, NW):
-        runs[:, j] = np.where(rep[:, j], runs[:, j - 1], runs[:, j])
-    lr = rng.integers(0, NW + 1, size=nl).astype(np.int32)
-    lr[::7] = NW
-    tr = torch.from_numpy(runs).to(dev)
-    lt = torch.from_numpy(lr).to(dev)
-
-    def k3(plain=False):
-        fn = (seedextend.seedextend_hits_plain if plain
-              else seedextend.seedextend_hits)
-        return fn(tr, lt, 3, 1)
-
-    e3 = max(compare(torch, f"K3 global W={NW} hits", k3(), k3(True)),
-             compare(torch, f"K3 global W={NW} mask",
-                     seedextend.seedextend_mask_batch(tr, lt, 2, 0),
-                     seedextend.seedextend_mask_plain(tr, lt, 2, 0)))
-    b, by = bound(nl * (NW * 8 + 4), nl * NW * 20)
-    out["seedextend_mask"] = (dict(
-        path=seedextend.seedextend_path(NW), shape=[nl, NW],
-        ms=cuda_ms(torch, k3, reps=5), device_ms=device_ms(torch, k3, reps=5),
-        plain_ms=cuda_ms(torch, lambda: k3(True), reps=1), bound_ms=b,
-        bound_by=by), e3)
-
-    # K4: 600 rows of 24,576 hits (more rows than the path's blocks),
-    # 0-100% valid, ids from small and large pools
-    NH, rows = 24576, 600
-    ids = rng.integers(-1, 2000, size=(rows, NH)).astype(np.int32)
-    ids[rng.random((rows, NH)) >= rng.random((rows, 1))] = 0
-    ids[::3] = np.where(ids[::3] > 0, ids[::3] % 7 + 1, ids[::3])
-    tx = torch.from_numpy(ids).to(dev)
-    wt = torch.from_numpy(rng.integers(0, 4, size=(rows, NH)).astype(
-        np.float32)).to(dev)
-
-    def k4(plain=False, w=None):
-        fn = devagg.dedup_counts_plain if plain else devagg.dedup_counts
-        return fn(tx, w, 64, True)
-
-    e4 = max(compare(torch, f"K4 global N={NH}", k4(), k4(True)),
-             compare(torch, f"K4 global N={NH} weighted", k4(w=wt),
-                     k4(True, w=wt)))
-    nv = (tx > 0).sum(dim=1).cpu().numpy().astype(np.int64)
-    lg = np.ceil(np.log2(np.maximum(nv, 1))).astype(np.int64)
-    b, by = bound(rows * NH * 4 + rows * (64 * 9 + 4),
-                  int((nv * lg).sum()) * 4)
-    out["dedup_counts"] = (dict(
-        path=devagg.dedup_path(NH), shape=[rows, NH],
-        ms=cuda_ms(torch, k4, reps=5), device_ms=device_ms(torch, k4, reps=5),
-        plain_ms=cuda_ms(torch, lambda: k4(True), reps=2), bound_ms=b,
-        bound_by=by), e4)
+    # K3 and K4's row kernels: at each rung of the width ladder on the
+    # rung's own hits, and on the synthetic rows past the parent's
+    # shared-memory paths
+    out["seedextend_rows"], out["dedup_rows"] = long_rows(torch, world,
+                                                          check=True)
 
     # K6: 8 groups of 65 to K valid distinct taxa at each of the wide
     # program's widths (K6_WIDE), each held to its plain version
@@ -1735,8 +1927,8 @@ def phase_kernels(torch, world):
 
     # ---- the wide paths: rows past each kernel's shared-memory budget -- #
     for n, (s, e) in wide_paths(torch, world).items():
-        errs[n] = max(errs[n], e)
-        stats[n]["wide_path"] = s
+        errs[n] = max(errs.get(n, 0.0), e)
+        stats.setdefault(n, {})["wide_path"] = s
 
     for n, e in errs.items():
         stats[n]["max_abs_err"] = e
@@ -2032,6 +2224,18 @@ def _probes1_table(T, keys, vals):
 
 TRYPTIC_KERNELS = {"reads_to_peptides", "probe_peptide"}
 NINEMER_KERNELS = {"reads_to_kmers", "probe_kmer", "seedextend_mask"}
+# K3's and K4's row kernels: launched only by rows past the staged tile
+# (96 windows) and the warp path (1,024 hits), i.e. reads from 312 bp
+# (the ladder sample's wider rungs, the 12,000 bp path); K3's staged tile
+# and K4's warp path, the main path's, launch only on narrower rows
+ROW_KERNELS = {"seedextend_rows", "dedup_rows"}
+NARROW_ROW_KERNELS = {"seedextend_mask", "dedup_counts"}
+
+
+def long_path_kernels(config):
+    """``path_kernels`` of a configuration whose rows are all past K3's
+    staged tile and K4's warp path: the row kernels in their place."""
+    return path_kernels(config) - NARROW_ROW_KERNELS | ROW_KERNELS
 
 
 def is_tryptic(config) -> bool:
@@ -2041,8 +2245,9 @@ def is_tryptic(config) -> bool:
 
 
 def path_kernels(config):
-    """Names of the kernels a configuration's path launches: K1-K3 on the
-    9-mer path, K7 and K8 on the tryptic one, K6 only for the tree
+    """Names of the kernels a configuration's path launches at 100-160
+    bp: K1-K3 on the 9-mer path, K7 and K8 on the tryptic one, K3's and
+    K4's row kernels on none (ROW_KERNELS), K6 only for the tree
     aggregators (and rmq/mrtl), which read the taxonomy rows themselves,
     so no path launches K5's ancestry epilogue (it serves
     hit_geometry)."""
@@ -2050,6 +2255,7 @@ def path_kernels(config):
     from umgap_tpu_torch.agg import device as devagg
 
     names = {k.name for k in kernels.KERNELS} - {"lane_gather_ancestry"}
+    names -= ROW_KERNELS
     names -= NINEMER_KERNELS if is_tryptic(config) else TRYPTIC_KERNELS
     if (config.method, config.strategy) not in \
             devagg.GEOMETRY_AGGREGATIONS:
@@ -3030,7 +3236,8 @@ def phase_ingest(torch, world):
             "ladder: no program at 4,096 bp with a wide K of 16,392")
     overflow = widest.overflow_reads
     require(overflow > 0, "ladder: no group re-routed to the wide program")
-    for k in path_kernels(PRESETS[LADDER_PRESET]):
+    # the sample is one chunk, so the ladder runs it at 4,096 bp alone
+    for k in long_path_kernels(PRESETS[LADDER_PRESET]):
         require(lad_launch[k] > 0, f"ladder: kernel {k} was not launched")
     with kernels.plain_versions():
         pbuf = io.StringIO()
@@ -3200,6 +3407,205 @@ def tryptic_ring_rate(world, paths, out_path):
     ws = [window() for _ in range(3)]
     return dict(pairs_per_s=statistics.median(w["pairs_per_s"] for w in ws),
                 windows=ws)
+
+
+# ---------------------------------------------------------------------- #
+# Phase 5c: the 12,000 bp device width
+# ---------------------------------------------------------------------- #
+
+LONG12K_BP = 12000
+LONG12K_RECORDS = 2048
+LONG12K_ENDS = 120  # .bench_data read ends (100 bp) a record
+LONG12K_SEED = 43  # the seeded permutations that draw them
+LONG12K_PRESET = "high-sensitivity"
+LONG12K_PLAIN = 8  # records also run through every stage's plain version
+
+
+def _long_sample(world):
+    """The 12,000 bp sample: LONG12K_RECORDS single-end records, each the
+    concatenation of LONG12K_ENDS ``.bench_data`` read ends drawn in the
+    order of seeded permutations (LONG12K_SEED) of all 65,536 ends, so that
+    the planted 9-mer runs keep the bench's hit density. Returns codes
+    (n, 1, 12,000) and lengths (n, 1)."""
+    reads = world["reads"]
+    P, E, L0 = reads.shape
+    require(LONG12K_ENDS * L0 == LONG12K_BP,
+            "long sample: the ends do not fill a record")
+    ends = reads.reshape(P * E, L0)
+    need = LONG12K_RECORDS * LONG12K_ENDS
+    rng = np.random.default_rng(LONG12K_SEED)
+    order = np.concatenate([rng.permutation(P * E)
+                            for _ in range(-(-need // (P * E)))])[:need]
+    codes = ends[order].reshape(LONG12K_RECORDS, 1, LONG12K_BP)
+    return codes, np.full((LONG12K_RECORDS, 1), LONG12K_BP, np.int32)
+
+
+def long_path(torch, world, check=True):
+    """The 12,000 bp device width, by this code on any tree: the sample
+    (``_long_sample``) through an ``Analyser`` (LONG12K_PRESET, single-end,
+    read_length 12,000, the batch the CLI's ring tier runs for a sample
+    of one batch, 2,048 here, the wide re-route on): one warm run, then
+    a timed run (wall s, records/s) between a reset and a read of the
+    launch counts, then a profiled run (device ms of K3, K4, K6 and of
+    all kernels), one batch step's stage table and step peak memory.
+    With ``check`` (this tree's script) also: the first LONG12K_PLAIN
+    records held to every stage's plain version (the wide program's
+    too), and ``python -m umgap_tpu_torch analyse`` on the sample as a
+    FASTA file, its records equal to the Analyser's. (``long_rows``
+    holds K3 and K4 to their plain versions on this batch.)"""
+    import contextlib
+
+    from umgap_tpu_torch import cli, kernels
+    from umgap_tpu_torch.ops import encoding
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+    from umgap_tpu_torch.pipeline.runner import Analyser
+
+    dev = world["dev"]
+    codes, lens = _long_sample(world)
+    n = len(codes)
+    headers = [f"l{i}" for i in range(n)]
+    B = cli._pow2_bucket(n, 64, max(64, BATCH))  # run_sample_ring's rule
+    cfg = PRESETS[LONG12K_PRESET]
+
+    def analyser(batch=B):
+        return Analyser(None, None, cfg, batch_size=batch,
+                        read_length=LONG12K_BP, ends=1, dtax=world["dtax"],
+                        dtable=world["dtable"], device=dev)
+
+    an = analyser()
+
+    def run(a=an, k=n):
+        a.reset()
+        a.overflow_reads = 0
+        return np.array([t for _h, t in a.analyse_arrays(
+            headers[:k], codes[:k], lens[:k])], dtype=np.int64)
+
+    run()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    overflow = an.overflow_reads
+    prof = _profile_window(torch, run, 1)
+
+    def kern(sub):
+        ms = sum(v[0] for k, v in prof.items() if sub in k)
+        return dict(device_ms=ms, launches=sum(v[1] for k, v in prof.items()
+                                               if sub in k))
+
+    out = dict(records=n, batch=B, width=LONG12K_BP,
+               k_max_wide=an._exact_kmax(),
+               wide_batch=an._wide_batch, overflow=overflow, wall_s=wall,
+               records_per_s=n / wall, launches=launches,
+               device_ms=sum(v[0] for v in prof.values()),
+               k3=kern("seedextend"), k4=kern("dedup"), k6=kern("tree_"),
+               top=sorted(((k, v[0], v[1]) for k, v in prof.items()),
+                          key=lambda x: -x[1])[:10],
+               checksum=int(got.sum()), distinct=int(len(np.unique(got))),
+               unassigned=int((got == 1).sum()))
+    wide_batches = -(-overflow // an._wide_batch)
+    out["batches"] = 1 + wide_batches
+    for k in ("k3", "k4", "k6"):
+        out[k]["ms_per_launch"] = (out[k]["device_ms"] / out[k]["launches"]
+                                   if out[k]["launches"] else None)
+
+    # one batch step: stage table, peak memory, and K3's and K4's inputs
+    dna4 = torch.from_numpy(encoding.pack_dna4(codes[:B])).to(dev)
+    ln = torch.from_numpy(lens[:B]).to(dev)
+    stage_ms = {}
+
+    def timer(name):
+        @contextlib.contextmanager
+        def cm():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            yield
+            b.record()
+            b.synchronize()
+            stage_ms.setdefault(name, []).append(a.elapsed_time(b))
+        return cm()
+
+    for _ in range(3):
+        an.step(dna4, ln, LONG12K_BP, timer=timer)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    an.step(dna4, ln, LONG12K_BP)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out.update(stage_ms={k: float(np.median(v)) for k, v in stage_ms.items()},
+               step_peak_gb=peak / 1e9, step_above_base_gb=(peak - base) / 1e9)
+    log(f"12,000 bp path ({LONG12K_PRESET}): {n} records in batches of {B}, "
+        f"{overflow} through the wide program (K = {an._exact_kmax()}, "
+        f"{an._wide_batch} a batch): wall {wall:.3f} s, "
+        f"{n / wall:.0f} records/s; device {out['device_ms']:.2f} ms, K3 "
+        f"{out['k3']['device_ms']:.3f} ms / "
+        f"{launches.get('seedextend_rows', 0)}"
+        f", K4 {out['k4']['device_ms']:.3f} ms / "
+        f"{launches.get('dedup_rows', 0)}, K6 {out['k6']['device_ms']:.3f} ms"
+        f" / {launches['tree_aggregate']} launches; stages "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["stage_ms"].items())
+        + f" ms; step peak {peak / 1e9:.2f} GB")
+    if not check:
+        return out
+
+    # the first records through every stage's plain version (the wide
+    # program's batch then follows the plain versions' (B, K, K) bound)
+    with kernels.plain_versions():
+        want = run(analyser(batch=64), LONG12K_PLAIN)
+    require(np.array_equal(got[:LONG12K_PLAIN], want),
+            f"12,000 bp path: kernel records differ from plain records in "
+            f"{int((got[:LONG12K_PLAIN] != want).sum())} of {LONG12K_PLAIN}")
+    require(got.shape == (n,) and (got >= 1).all() and out["distinct"] > 1,
+            "12,000 bp path: bad output")
+
+    # the command line on the sample as a FASTA file
+    taxtsv, index = _cli_files(world)
+    fa = os.path.join(TMP_DIR, "long.fa")
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    with open(fa, "wb") as f:
+        for i in range(n):
+            f.write(b">l%d\n%s\n" % (i, lut[codes[i, 0]].tobytes()))
+    cli_out = os.path.join(TMP_DIR, "long_cli.fa")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
+         taxtsv, "--index", index, "-t", LONG12K_PRESET, "--read-length",
+         str(LONG12K_BP), "-1", fa, "-o", cli_out],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    out["cli_s"] = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"12,000 bp CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(cli_out) as f:
+        require(f.read() == "".join(f">{h}\n{t}\n"
+                                    for h, t in zip(headers, got.tolist())),
+                "12,000 bp CLI: records differ from the Analyser's")
+    log(f"12,000 bp path: kernel records == plain on the first "
+        f"{LONG12K_PLAIN}; CLI records == Analyser's ({out['cli_s']:.1f} s)")
+    return out
+
+
+def phase_long(torch, world):
+    """The 12,000 bp device width (``long_path``): its launch counts must
+    show K3's and K4's row kernels and every kernel of the preset's
+    path. Returns the launch counts."""
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+
+    t_phase = time.perf_counter()
+    out = long_path(torch, world, check=True)
+    launches = out["launches"]
+    for k in long_path_kernels(PRESETS[LONG12K_PRESET]):
+        require(launches[k] > 0,
+                f"12,000 bp path: kernel {k} was not launched")
+    require(out["overflow"] > 0,
+            "12,000 bp path: no record took the wide program")
+    out["seconds"] = time.perf_counter() - t_phase
+    RESULT["phases"]["long"] = out
+    return launches
 
 
 HOST_ROUTE_GROUPS = 2048  # the tryptic sample
@@ -3391,7 +3797,10 @@ def compare_trees(before, after, order="BAAB", mode="full"):
     at the Pallas rows' shapes, so both trees are measured by the same
     code. ``mode`` "tryptic" runs this file's ``tryptic_ab`` instead
     (the tree's identify and world only), "wide" this file's
-    ``wide_ab`` (K6 at the wide widths, the ladder sample's split).
+    ``wide_ab`` (K6 at the wide widths, the ladder sample's split),
+    "long" its ``long_ab`` (K3 and K4 past the main path's variants at
+    each rung of the width ladder and on the synthetic long rows, the
+    main path's kernels, the 12,000 bp path, the ladder sample).
     Writes ``ab.json`` (or ``ab_<mode>.json``) under OUT_DIR.
 
         python3 -c "import chip_smoke; chip_smoke.compare_trees(P, A)"
@@ -3423,6 +3832,22 @@ def compare_trees(before, after, order="BAAB", mode="full"):
                 for K, st in r["wide"]["k6"].items())
                 + f"; ladder wide program {r['wide']['ladder']['wide_s']:.3f}"
                 f" s, K6 {r['wide']['ladder']['k6_device_ms']:.1f} ms")
+    if mode == "long":
+        for k, r in enumerate(runs):
+            lg = r["long"]
+            log(f"run {k} {r['tag']}: device ms K3 " + ", ".join(
+                f"{c} {fmt_ms(v['device_ms'])}" for c, v in lg["k3"].items())
+                + "; K4 " + ", ".join(f"{c} {fmt_ms(v['device_ms'])}"
+                                      for c, v in lg["k4"].items())
+                + "; main " + "; ".join(
+                    f"L={w} K3 {fmt_ms(m['seedextend'])} K4 "
+                    f"{fmt_ms(m['dedup_counts'])}"
+                    for w, m in lg["main"].items())
+                + f"; 12,000 bp wall {lg['long']['wall_s']:.3f} s, K3 "
+                f"{lg['long']['k3']['device_ms']:.3f} K4 "
+                f"{lg['long']['k4']['device_ms']:.3f} K6 "
+                f"{lg['long']['k6']['device_ms']:.3f} ms; ladder wall "
+                f"{lg['ladder']['wall_s']:.3f} s")
     if mode != "full":
         return
 
@@ -3508,8 +3933,10 @@ def chain_device_ms(torch, world, width):
 def sweep_constant(constant, values,
                    source="umgap_tpu_torch/csrc/tree_aggregate.cu",
                    mode="chain"):
-    """Device ms of ``chain_device_ms`` at L = 100 (``mode`` "chain") or
-    of ``wide_ab`` ("wide") on copies of this checkout that differ only
+    """Device ms of ``chain_device_ms`` at L = 100 (``mode`` "chain"), of
+    ``wide_ab`` ("wide") or of ``long_rows`` ("rows": K3's and K4's
+    cells past the main path's variants) on copies of this checkout that
+    differ only
     in one ``constexpr int`` of a CUDA source, each in its own process,
     in turns (the values, then again in reverse order). Writes
     ``sweep_<constant>.json`` under OUT_DIR.
@@ -3548,6 +3975,13 @@ def sweep_constant(constant, values,
         require(proc.returncode == 0, f"sweep run {constant} = {v} failed")
         with open(out) as f:
             r = json.load(f)
+        if mode == "rows":
+            runs.append(dict(value=v, rows=r["rows"]))
+            log(f"{constant} = {v}: device ms " + "; ".join(
+                f"{k} " + ", ".join(f"{c} {fmt_ms(st['device_ms'])}"
+                                    for c, st in cells.items())
+                for k, cells in r["rows"].items()))
+            continue
         if mode == "wide":
             runs.append(dict(value=v, wide=r["wide"]))
             log(f"{constant} = {v}: K6 device ms " + "; ".join(
@@ -3613,12 +4047,19 @@ def wide_ab(torch, world):
     (unchecked: the tree's own script holds K6 to plain) and the ladder
     sample's split (``ladder_wide``, max-sensitivity through the CLI's
     ring tier at its defaults, after one warm run)."""
+    out = dict(k6=k6_wide(torch, world, check=False)[0])
+    out["ladder"] = _ladder_split(torch, world)
+    return out
+
+
+def _ladder_split(torch, world):
+    """The ladder sample's split (``ladder_wide``): max-sensitivity
+    through the CLI's ring tier at its defaults, after one warm run."""
     import argparse
     import io
 
     from umgap_tpu_torch import cli
 
-    out = dict(k6=k6_wide(torch, world, check=False)[0])
     os.makedirs(TMP_DIR, exist_ok=True)
     paths, _lens = _ladder_paths(world)
     session = cli.AnalyseSession(
@@ -3631,9 +4072,31 @@ def wide_ab(torch, world):
         return cli.write_batches(io.StringIO(), cli.run_sample(session, lad))
 
     run()
-    out["ladder"] = ladder_wide(torch, run)
-    out["ladder"]["wide_batch"] = max(
-        session.analysers.values(), key=lambda a: a.read_length)._wide_batch
+    out = ladder_wide(torch, run)
+    out["wide_batch"] = max(session.analysers.values(),
+                            key=lambda a: a.read_length)._wide_batch
+    return out
+
+
+def rows_ab(torch, world):
+    """``long_rows`` unchecked, by this code on any tree: K3's and K4's
+    cells by name."""
+    (s3, _e3), (s4, _e4) = long_rows(torch, world, check=False)
+    return dict(k3=s3["by_cell"], k4=s4["by_cell"])
+
+
+def long_ab(torch, world):
+    """K3's and K4's long-row numbers, by this code on any tree:
+    ``long_rows`` unchecked (each tree's own script holds both kernels
+    to plain), the main path's K1-K4 and tree aggregators at L = 100
+    and 160 (``chain_device_ms``: K3's staged tile and K4's warp path),
+    the 12,000 bp path (``long_path`` unchecked) and the ladder sample's
+    split (``_ladder_split``)."""
+    out = rows_ab(torch, world)
+    out["main"] = {w: chain_device_ms(torch, world, w)
+                   for w in (world["L"], 160)}
+    out["long"] = long_path(torch, world, check=False)
+    out["ladder"] = _ladder_split(torch, world)
     return out
 
 
@@ -3642,7 +4105,7 @@ def ab_worker(tree, out, mode="full"):
     this file's stage tables and host times; writes JSON to ``out``.
     ``mode`` "chain" runs ``chain_device_ms`` at the workload's read
     length alone, "tryptic" this file's ``tryptic_ab``, "wide" its
-    ``wide_ab``."""
+    ``wide_ab``, "long" its ``long_ab``, "rows" its ``rows_ab``."""
     import importlib.util
 
     import torch
@@ -3659,11 +4122,13 @@ def ab_worker(tree, out, mode="full"):
             json.dump(dict(tree=tree, card=card, chain_device_ms=(
                 chain_device_ms(torch, world, world["L"]))), f, default=str)
         return
-    if mode in ("tryptic", "wide"):
-        fn = tryptic_ab if mode == "tryptic" else wide_ab
+    if mode in ("tryptic", "wide", "long", "rows"):
+        fn = dict(tryptic=tryptic_ab, wide=wide_ab, long=long_ab,
+                  rows=rows_ab)[mode]
         with open(out, "w") as f:
-            json.dump({"tree": tree, "card": card, mode: fn(torch, world)}, f,
-                      default=str)
+            json.dump({"tree": tree, "card": card,
+                       "ptxas": t.RESULT.get("ptxas"),
+                       mode: fn(torch, world)}, f, default=str)
         return
     t.phase_kernels(torch, world)
     t.phase_gather(torch, world)

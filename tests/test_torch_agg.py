@@ -75,15 +75,15 @@ def test_dedup_counts_bench_widths_match_jax(N, many):
 
 def test_dedup_path_by_row_width():
     """K4's path is chosen by N alone: one warp a row up to 1,024 hits,
-    one block in shared memory up to MAX_DEDUP_N, one block in a global
-    scratch row above (no width is refused)."""
+    one block a row over the row's valid hits above (no width is
+    refused)."""
     assert pagg.dedup_path(300) == "warp"
     assert pagg.dedup_path(540) == "warp"
     assert pagg.dedup_path(pagg.WARP_DEDUP_N) == "warp"
-    assert pagg.dedup_path(pagg.WARP_DEDUP_N + 1) == "block"
-    assert pagg.dedup_path(pagg.MAX_DEDUP_N) == "block"
-    assert pagg.dedup_path(pagg.MAX_DEDUP_N + 1) == "global"
-    assert pagg.dedup_path(2 * 6 * 4000) == "global"
+    assert pagg.dedup_path(pagg.WARP_DEDUP_N + 1) == "rows"
+    assert pagg.dedup_path(16384) == "rows"
+    assert pagg.dedup_path(16385) == "rows"
+    assert pagg.dedup_path(2 * 6 * 4000) == "rows"
 
 
 def _bench_taxonomies():

@@ -143,13 +143,13 @@ def _k3_check(dev, taxa, lens, s, g):
 def test_seedextend_kernel(dev, s, g):
     """K3's hits and mask entries at the main widths (25, 45: template
     instances), even widths (40, 52: the padded tile stride) and one past
-    the staged tile (120: the direct kernel), with lane counts that are
+    the staged tile (120: the row kernel), with lane counts that are
     no multiple of the block's lanes."""
     rng = np.random.default_rng(10 * s + g)
     for N in (25, 40, 45, 52, 120):
         for lanes in (1, 63, 1001):
             _k3_check(dev, *_seed_lanes(rng, lanes, N), s, g)
-    assert seedextend.seedextend_path(120) == "direct"
+    assert seedextend.seedextend_path(120) == "rows"
 
 
 def test_seedextend_kernel_shapes_and_alignment(dev):
@@ -197,9 +197,9 @@ def _dedup_rows(N, seed):
 @pytest.mark.parametrize("N", [300, 540, 2048])
 @pytest.mark.parametrize("k_max", [4, 64, 700])
 def test_dedup_kernel_valid_hit_counts(dev, N, k_max):
-    """Both K4 paths (warp for N = 300 and 540, block for 2,048) against
-    the plain version, with and without weights."""
-    assert pagg.dedup_path(N) == ("warp" if N <= 1024 else "block")
+    """Both K4 paths (warp for N = 300 and 540, the row kernel for 2,048)
+    against the plain version, with and without weights."""
+    assert pagg.dedup_path(N) == ("warp" if N <= 1024 else "rows")
     taxa = torch.from_numpy(_dedup_rows(N, N + k_max)).to(dev)
     _eq(pagg.dedup_counts(taxa, None, k_max, True),
         pagg.dedup_counts_plain(taxa, None, k_max, True))
@@ -573,39 +573,75 @@ def test_reads_to_kmers_direct_kernel(dev, packed):
         _k1_check(dev, src, lens, L, 11, packed, methionine=True)
 
 
-def test_seedextend_kernel_global_deltas(dev):
-    """K3 at 4,000 windows a lane, past one warp's delta rows in shared
-    memory: the direct kernel with its delta rows in global memory."""
-    N = 4000
-    assert seedextend.seedextend_path(N) == "global"
-    assert seedextend.seedextend_path(3600) == "direct"
-    rng = np.random.default_rng(4000)
+# the width ladder's rungs (paired reads of 512 to 4,096 bp: W windows a
+# lane, N = 12 W hits a row) and the wide paths' widths
+LADDER_W = (162, 333, 674, 1357)
+
+
+@pytest.mark.parametrize("N", LADDER_W + (4000,))
+def test_seedextend_kernel_global_deltas(dev, N):
+    """K3's row kernel at each rung of the width ladder (162 to 1,357
+    windows a lane) and at 4,000 windows (past 3,600, where the parent's
+    kernel kept its delta rows in global memory): hits and mask against
+    the position loop and against ``seedextend_runs_plain``, one launch
+    of K3R an entry and none of the staged tile."""
+    assert seedextend.seedextend_path(N) == "rows"
+    rng = np.random.default_rng(N)
     taxa, lens = _seed_lanes(rng, 131, N)
-    before = kernels.K3.launches
-    for s, g in ((2, 0), (3, 1)):
+    taxa[1, :2] = 0  # a leading gap of 2 (b2 at g = 2) before a run
+    taxa[1, 2:5] = 7
+    taxa[2] = np.arange(N) % 3  # one-window runs
+    before = kernels.K3R.launches, kernels.K3.launches
+    for s, g in ((2, 0), (3, 1), (1, 2)):
         _k3_check(dev, taxa, lens, s, g)
-    assert kernels.K3.launches == before + 4
+        tx = torch.from_numpy(taxa).to(dev)
+        ln = torch.from_numpy(lens).to(dev)
+        assert torch.equal(
+            seedextend.seedextend_hits(tx, ln, s, g).cpu(),
+            seedextend.seedextend_runs_plain(tx, ln, s, g, hits=True).cpu())
+    assert kernels.K3R.launches == before[0] + 9
+    assert kernels.K3.launches == before[1]
 
 
+@pytest.mark.parametrize("N", tuple(12 * w for w in LADDER_W) + (24576,))
 @pytest.mark.parametrize("k_max", [64, 30000])
-def test_dedup_kernel_global_path(dev, k_max):
-    """K4 at N = 24,576 hits a row (past the block path's 16,384): the
-    global path, on more rows than it runs blocks (each block takes
-    several rows), with and without weights."""
-    N = 24576
-    assert pagg.dedup_path(N) == "global"
-    assert pagg.dedup_path(pagg.MAX_DEDUP_N) == "block"
-    rows = np.tile(_dedup_rows(N, k_max), (6, 1))
-    assert len(rows) > pagg.DEDUP_GLOBAL_BLOCKS
+def test_dedup_kernel_global_path(dev, N, k_max):
+    """K4's row kernel at each rung of the width ladder (N = 1,944 to
+    16,284 hits a row) and at 24,576 (past 16,384, the parent's global
+    path), with and without weights, against the plain version and
+    ``dedup_counts_rows_plain``; one launch of K4R a call and none of
+    the warp path."""
+    assert pagg.dedup_path(N) == "rows"
+    rows = _dedup_rows(N, k_max)
     taxa = torch.from_numpy(rows).to(dev)
-    before = kernels.K4.launches
-    _eq(pagg.dedup_counts(taxa, None, k_max, True),
-        pagg.dedup_counts_plain(taxa, None, k_max, True))
     w = torch.from_numpy(np.random.default_rng(k_max).integers(
         0, 5, size=rows.shape).astype(np.float32)).to(dev)
-    _eq(pagg.dedup_counts(taxa, w, k_max, True),
-        pagg.dedup_counts_plain(taxa, w, k_max, True))
-    assert kernels.K4.launches == before + 2
+    before = kernels.K4R.launches, kernels.K4.launches
+    for wt in (None, w):
+        got = pagg.dedup_counts(taxa, wt, k_max, True)
+        _eq(got, pagg.dedup_counts_plain(taxa, wt, k_max, True))
+        _eq(got, pagg.dedup_counts_rows_plain(taxa, wt, k_max, True))
+    assert kernels.K4R.launches == before[0] + 2
+    assert kernels.K4.launches == before[1]
+
+
+def test_dedup_kernel_scratch_rows(dev, monkeypatch):
+    """K4's row kernel where a row's valid entries overflow its shared
+    room (cut to 8 KB here; 200 KB on the main path): those rows sort in
+    the block's global scratch row, on more rows than the launch runs
+    blocks (each block takes several rows)."""
+    monkeypatch.setattr(pagg, "DEDUP_SMEM_MAX", 8192)
+    N = 3000
+    rows = np.tile(_dedup_rows(N, 11), (12, 1))
+    assert len(rows) > pagg.DEDUP_SCRATCH_BLOCKS
+    taxa = torch.from_numpy(rows).to(dev)
+    w = torch.from_numpy(np.random.default_rng(12).integers(
+        0, 5, size=rows.shape).astype(np.float32)).to(dev)
+    for wt in (None, w):
+        cap, blocks, _ = pagg.dedup_rows_layout(N, wt is not None)
+        assert cap < N and blocks == pagg.DEDUP_SCRATCH_BLOCKS
+        _eq(pagg.dedup_counts(taxa, wt, 64, True),
+            pagg.dedup_counts_plain(taxa, wt, 64, True))
 
 
 @pytest.mark.parametrize("K,B", [(408, 600), (4104, 40), (8196, 24),

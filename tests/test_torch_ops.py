@@ -214,10 +214,9 @@ def test_seedextend_hits_matches_jax(s, g):
 
 def test_seedextend_path():
     """K3's kernel by row width: the main widths (25, 45) and rows up to
-    96 windows take the staged tile, wider rows the direct kernel, and
-    rows past its shared-memory delta rows the direct kernel with its
-    delta rows in global memory (no width is refused)."""
+    96 windows take the staged tile, every wider row the row kernel (one
+    warp a lane; no width is refused)."""
     assert [pseed.seedextend_path(n) for n in (1, 25, 45, 96, 97, 3600)] \
-        == ["staged"] * 4 + ["direct"] * 2
-    assert pseed.seedextend_path(3601) == "global"
-    assert pseed.seedextend_path(6661) == "global"
+        == ["staged"] * 4 + ["rows"] * 2
+    assert pseed.seedextend_path(3601) == "rows"
+    assert pseed.seedextend_path(6661) == "rows"

@@ -30,14 +30,13 @@ from ..ops import gather
 from ..taxonomy import NONE, Taxonomy
 
 I32_MAX = int(np.iinfo(np.int32).max)
-MAX_DEDUP_N = 16384  # hits per row the kernel sorts in shared memory
 WARP_DEDUP_N = 1024  # up to here one warp owns a row; above, a block
-# Above MAX_DEDUP_N a block sorts each row in a global scratch row; at
-# most this many rows at once (two 1024-thread blocks on each of the
-# H100's 132 SMs) and DEDUP_SCRATCH_MAX bytes of scratch
-DEDUP_GLOBAL_BLOCKS = 264
-DEDUP_SCRATCH_MAX = 1 << 28
-_DEDUP_PATHS = {"block": 0, "warp": 1, "global": 2}
+# K4's row kernel keeps a row's valid entries in up to this much shared
+# memory (kSmemMax in csrc/dedup_counts.cu); a launch whose rows may
+# hold more runs this many blocks (two on each of the H100's 132 SMs),
+# each with a global scratch row for the rows that do
+DEDUP_SMEM_MAX = 200 * 1024
+DEDUP_SCRATCH_BLOCKS = 264
 # K6 (csrc/tree_aggregate.cu) at K <= TREE_WIDE_K (kWideK) walks a group
 # of up to TREE_THREAD_CAP valid hits with one thread (kThreadCap), a
 # larger one with a warp; past TREE_WIDE_K a block takes each group (the
@@ -158,15 +157,68 @@ def dedup_counts_plain(taxa: torch.Tensor, weights, k_max: int,
     return out
 
 
+def dedup_counts_rows_plain(taxa: torch.Tensor, weights, k_max: int,
+                            return_nuniq: bool = False):
+    """Plain version of K4's row kernel (``csrc/dedup_counts.cu``, rows
+    past :data:`WARP_DEDUP_N` hits), its formulation rather than the
+    sort of whole rows: compact every row's positive ids with their
+    weights, sort those entries alone by (row, id), and take each run's
+    head, its rank within its row and its summed weight; a row keeps the
+    ranks below ``k_max``. Weighted counts are sums in sorted order,
+    exact for integer weights whose row sums stay below 2^24, as the
+    plain version's prefix differences are."""
+    B, N = taxa.shape
+    dev = taxa.device
+    rows, cols = (taxa > 0).nonzero(as_tuple=True)
+    ids = taxa[rows, cols].to(torch.int64)
+    order = torch.sort((rows << 31) | ids, stable=True).indices
+    rows, ids = rows[order], ids[order]
+    w = (torch.ones(len(ids), dtype=torch.float32, device=dev)
+         if weights is None
+         else weights[(taxa > 0)][order].to(torch.float32))
+    head = torch.ones(len(ids), dtype=torch.bool, device=dev)
+    head[1:] = (ids[1:] != ids[:-1]) | (rows[1:] != rows[:-1])
+    run = torch.cumsum(head.to(torch.int64), dim=0) - 1
+    n_runs = int(head.sum())
+    counts = torch.zeros(n_runs, dtype=torch.float32, device=dev)
+    counts.index_add_(0, run, w)
+    run_row = rows[head]
+    nuniq = torch.bincount(run_row, minlength=B).to(torch.int32)
+    first = torch.cumsum(nuniq.to(torch.int64), dim=0) - nuniq
+    rank = torch.arange(n_runs, device=dev) - first[run_row]
+    keep = rank < k_max
+    utaxa = torch.full((B, k_max), I32_MAX, dtype=torch.int32, device=dev)
+    ucounts = torch.zeros((B, k_max), dtype=torch.float32, device=dev)
+    uvalid = torch.zeros((B, k_max), dtype=torch.bool, device=dev)
+    r, c = run_row[keep], rank[keep]
+    utaxa[r, c] = ids[head][keep].to(torch.int32)
+    ucounts[r, c] = counts[keep]
+    uvalid[r, c] = True
+    out = (utaxa, ucounts, uvalid)
+    return out + (nuniq,) if return_nuniq else out
+
+
 def dedup_path(N: int) -> str:
-    """K4's path for rows of N hits: ``"warp"`` (one warp per row, work
-    in proportion to the row's valid hits) up to :data:`WARP_DEDUP_N`,
-    ``"block"`` (one block sorts the whole padded row in shared memory)
-    up to :data:`MAX_DEDUP_N`, ``"global"`` (the same sort in a global
-    scratch row) above."""
-    if N <= WARP_DEDUP_N:
-        return "warp"
-    return "block" if N <= MAX_DEDUP_N else "global"
+    """K4's path for rows of N hits: ``"warp"`` (one warp per row) up to
+    :data:`WARP_DEDUP_N`, ``"rows"`` (one block a row over its valid
+    hits alone, :data:`kernels.K4R`) above. Both do work in proportion
+    to a row's valid hits."""
+    return "warp" if N <= WARP_DEDUP_N else "rows"
+
+
+def dedup_rows_layout(N: int, weighted: bool):
+    """(cap, blocks a launch is limited to or 0, scratch bytes a block)
+    of K4's row kernel at N hits a row: a block compacts the row's valid
+    entries (4 bytes an id, 8 with a weight) into shared memory, whose
+    room is the row's whole width up to DEDUP_SMEM_MAX bytes; past it a
+    row with more valid entries than fit sorts them in the block's row of
+    a global scratch, and the launch then runs DEDUP_SCRATCH_BLOCKS
+    blocks over the rows in turn."""
+    entry = 8 if weighted else 4
+    cap = min(N, DEDUP_SMEM_MAX // entry)
+    if cap == N:
+        return cap, 0, 0
+    return cap, DEDUP_SCRATCH_BLOCKS, N * entry
 
 
 def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
@@ -178,13 +230,13 @@ def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
     with ``return_nuniq``, the distinct count per row before truncation
     to the k_max smallest ids.
 
-    CPU tensors take the plain version; CUDA tensors launch K4."""
+    CPU tensors take the plain version; CUDA tensors launch K4 (its warp
+    path up to WARP_DEDUP_N hits a row, its row kernel K4R above)."""
     if taxa.is_cpu:
         return dedup_counts_plain(taxa, weights, k_max, return_nuniq)
     B, N = taxa.shape
     if taxa.dtype != torch.int32:
         raise ValueError("dedup_counts: taxa must be int32")
-    path = dedup_path(N)
     tensors = [taxa]
     if weights is not None:
         if weights.dtype != torch.float32 or weights.shape != taxa.shape:
@@ -196,19 +248,24 @@ def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
     ucounts = torch.empty((B, k_max), dtype=torch.float32, device=dev)
     uvalid = torch.empty((B, k_max), dtype=torch.bool, device=dev)
     nuniq = torch.empty((B,), dtype=torch.int32, device=dev)
-    scratch, rows = None, 0
-    if path == "global":
-        row_bytes = 8 << max(N - 1, 1).bit_length()  # M keys and weights
-        rows = min(B, DEDUP_GLOBAL_BLOCKS,
-                   max(1, DEDUP_SCRATCH_MAX // row_bytes))
-        scratch = torch.empty(rows * row_bytes, dtype=torch.uint8,
-                              device=dev)
-    kernels.K4.launch(taxa.data_ptr(),
-                      0 if weights is None else weights.data_ptr(), B, N,
-                      k_max, utaxa.data_ptr(), ucounts.data_ptr(),
-                      uvalid.data_ptr(), nuniq.data_ptr(), _DEDUP_PATHS[path],
-                      0 if scratch is None else scratch.data_ptr(), rows,
-                      kernels.stream_of(taxa))
+    wptr = 0 if weights is None else weights.data_ptr()
+    if dedup_path(N) == "warp":
+        kernels.K4.launch(taxa.data_ptr(), wptr, B, N, k_max,
+                          utaxa.data_ptr(), ucounts.data_ptr(),
+                          uvalid.data_ptr(), nuniq.data_ptr(),
+                          kernels.stream_of(taxa))
+    else:
+        cap, blocks, row_bytes = dedup_rows_layout(N, weights is not None)
+        scratch = None
+        if blocks:
+            blocks = min(B, blocks)
+            scratch = torch.empty(blocks * row_bytes, dtype=torch.uint8,
+                                  device=dev)
+        kernels.K4R.launch(taxa.data_ptr(), wptr, B, N, k_max, cap,
+                           utaxa.data_ptr(), ucounts.data_ptr(),
+                           uvalid.data_ptr(), nuniq.data_ptr(),
+                           0 if scratch is None else scratch.data_ptr(),
+                           blocks, kernels.stream_of(taxa))
     out = (utaxa, ucounts, uvalid)
     return out + (nuniq,) if return_nuniq else out
 

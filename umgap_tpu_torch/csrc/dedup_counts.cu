@@ -39,19 +39,41 @@
 // whose run sums stay below 2^24, as the plain version's prefix-sum
 // differences are.
 //
-// Block path (1024 < N <= 16,384, the long-read and wide routes): one
-// 256-thread block per row bitonic-sorts all N entries (entries <= 0 as
-// INT32_MAX, weight 0) padded to a power of two in shared memory, a
-// block scan numbers the run heads, and each head sums its run.
-//
-// Global path (N > 16,384: paired reads above 4,124 bp, whose padded
-// rows no longer fit a block's shared memory): the block path's steps
-// with the row's keys and weights in a global scratch the caller
-// allocates, one 1024-thread block per scratch row, each block taking
-// rows blockIdx.x, blockIdx.x + gridDim.x, ... A block barrier orders
-// the global stores of a stage before the next stage's loads, as it
-// does for shared memory. A simple path: every compare-exchange of the
-// network goes to L2.
+// Rows past the warp path (N > 1,024 hits: paired reads from about 300
+// bp, every rung of the width ladder from 512 bp, and the 12,000 bp
+// device width) take the row kernel, one block a row. What bounded the
+// block and global paths it replaces: each bitonic-sorted the whole row
+// padded to a power of two (32,768 entries at N = 24,576, 120 stages,
+// each a barrier and, past 16,384 hits, a pass over L2), though a row
+// after seed-extend holds few valid hits and only the count of distinct
+// ids and the k_max smallest are wanted; and the global path ran at most
+// 264 blocks. The row kernel:
+// - compacts the row's positive ids (with their weights) into shared
+//   memory in one pass of 16-byte loads, four in flight a thread; a
+//   warp reserves room for its valid entries with one shared atomic, so
+//   misses cost one read and nothing else;
+// - sorts the n valid entries alone: for n <= 32 one warp sorts them in
+//   registers and counts them as the warp path does, with no block
+//   barrier; larger n take a bitonic network over the whole block in
+//   shared memory (the flip form,
+//   whose comparators all put the smaller entry first, so the padding to
+//   a power of two is virtual: a comparator reaching past n is skipped);
+// - numbers the run heads with one block scan of each thread's chunk,
+//   finds each run's end as the next head (in the chunk, or the first
+//   of a later chunk by a suffix minimum), and counts it as that
+//   distance, or for weights as the difference of exclusive prefix sums
+//   written over the sorted weights (the plain version's formulation:
+//   exact for integer weights whose row sums stay below 2^24, whatever
+//   order the compaction left equal ids in);
+// - writes the k_max smallest runs, the padding and nuniq.
+// Room: the row's width in shared memory up to kSmemMax bytes (4 bytes
+// an id, 8 with a weight: 23,952 hits, the 12,000 bp width, take 94 KB,
+// two blocks an SM). A launch whose rows are wider runs one block per
+// scratch row the wrapper allocates, in turn over the rows; a row with
+// more valid entries than fit sorts them there (the same code through
+// generic pointers, barriers ordering the global stores as they do the
+// shared ones). ``agg/device.py`` dedup_counts_rows_plain is the same
+// formulation in PyTorch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +85,12 @@ namespace {
 constexpr int32_t I32_MAX = 0x7FFFFFFF;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int kWarpsPerBlock = 8;
+
+__host__ __device__ int pow2_at_least(int n, int lo) {
+  int M = lo;
+  while (M < n) M <<= 1;
+  return M;
+}
 
 __device__ __forceinline__ unsigned lanemask_lt(int lane) {
   return (1u << lane) - 1u;
@@ -174,25 +202,14 @@ __device__ void warp_sort(int32_t* key, float* w, int n, int lane) {
   }
 }
 
-template <bool VEC, bool WEIGHTED>
-__global__ void dedup_warp(const int32_t* __restrict__ taxa,
-                           const float* __restrict__ weights, int B, int N,
-                           int M, int k_max, int32_t* __restrict__ utaxa,
-                           float* __restrict__ ucounts,
-                           uint8_t* __restrict__ uvalid,
-                           int32_t* __restrict__ nuniq) {
-  extern __shared__ unsigned char smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + warp;
-  if (row >= B) return;  // the whole warp: no block barrier follows
-  int32_t* key = reinterpret_cast<int32_t*>(smem) +
-                 (WEIGHTED ? 2 : 1) * M * warp;
-  float* w = reinterpret_cast<float*>(key + M);
-  const long long r0 = (long long)row * N;
-  const int n = compact_row<VEC, WEIGHTED>(
-      taxa + r0, WEIGHTED ? weights + r0 : nullptr, N, lane, key, w);
-  warp_sort<WEIGHTED>(key, w, n, lane);
-
+// Writes the runs of the sorted key[0, n) (weights alongside) as a row's
+// (id, count, valid) columns below k_max from o0 on, with one warp and no
+// block barrier; returns the number of runs (the same in every lane).
+template <bool WEIGHTED>
+__device__ __forceinline__ int warp_emit_runs(
+    const int32_t* key, const float* w, int n, int lane, long long o0,
+    int k_max, int32_t* __restrict__ utaxa, float* __restrict__ ucounts,
+    uint8_t* __restrict__ uvalid) {
   // per 32-slot chunk c (at most 32 of them): lane c keeps its number
   // of heads and its first head's position
   const int C = (n + 31) >> 5;
@@ -223,7 +240,6 @@ __global__ void dedup_warp(const int32_t* __restrict__ taxa,
   int nxt = __shfl_down_sync(FULL, sfx, 1);  // min over chunks > lane
   if (lane == 31) nxt = n;
 
-  const long long o0 = (long long)row * k_max;
   for (int c = 0; c < C; ++c) {
     const int t = c * 32 + lane;
     const int32_t v = t < n ? key[t] : I32_MAX;
@@ -249,6 +265,31 @@ __global__ void dedup_warp(const int32_t* __restrict__ taxa,
       }
     }
   }
+  return U;
+}
+
+template <bool VEC, bool WEIGHTED>
+__global__ void dedup_warp(const int32_t* __restrict__ taxa,
+                           const float* __restrict__ weights, int B, int N,
+                           int M, int k_max, int32_t* __restrict__ utaxa,
+                           float* __restrict__ ucounts,
+                           uint8_t* __restrict__ uvalid,
+                           int32_t* __restrict__ nuniq) {
+  extern __shared__ unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarpsPerBlock + warp;
+  if (row >= B) return;  // the whole warp: no block barrier follows
+  int32_t* key = reinterpret_cast<int32_t*>(smem) +
+                 (WEIGHTED ? 2 : 1) * M * warp;
+  float* w = reinterpret_cast<float*>(key + M);
+  const long long r0 = (long long)row * N;
+  const int n = compact_row<VEC, WEIGHTED>(
+      taxa + r0, WEIGHTED ? weights + r0 : nullptr, N, lane, key, w);
+  warp_sort<WEIGHTED>(key, w, n, lane);
+
+  const long long o0 = (long long)row * k_max;
+  const int U = warp_emit_runs<WEIGHTED>(key, w, n, lane, o0, k_max, utaxa,
+                                         ucounts, uvalid);
   for (int c = U + lane; c < k_max; c += 32) {
     utaxa[o0 + c] = I32_MAX;
     ucounts[o0 + c] = 0.0f;
@@ -257,136 +298,308 @@ __global__ void dedup_warp(const int32_t* __restrict__ taxa,
   if (lane == 0) nuniq[row] = U;
 }
 
-// One row through the block path's steps: key and w hold M entries (in
-// shared memory, or the row's global scratch), warp_sums 32 ints of
-// shared memory.
-__device__ void block_dedup_row(const int32_t* __restrict__ t,
-                                const float* __restrict__ wt, int N, int M,
-                                int k_max, int32_t* key, float* w,
-                                int* warp_sums, int32_t* __restrict__ utaxa,
-                                float* __restrict__ ucounts,
-                                uint8_t* __restrict__ uvalid, int32_t* nuniq,
-                                long long row) {
-  const int tid = threadIdx.x;
-  const int T = blockDim.x;
+// threads a block of the row kernel, by row width: rows of real hits
+// hold a few percent of N valid, so narrow rows are few barriers' work
+// for most of a block and want small blocks (more rows an SM), wide ones
+// want more loads in flight and more threads for a larger sort
+// (a sweep of 128, 256 and 512 at the rungs N = 1,944-16,284 and at
+// 24,576, PERF.md section 6)
+constexpr int kRowThreadsN1 = 4096;   // up to here 128 threads
+constexpr int kRowThreadsN2 = 12288;  // up to here 256, above 512
+constexpr int kRowLoads = 4;      // 16-byte loads a thread keeps in flight
+constexpr int kSmemMax = 200 * 1024;
+// valid entries up to which one warp sorts (in registers) and counts a
+// row while the block waits; past it the whole block sorts (a sweep of
+// 32, 256 and 1,024, PERF.md section 6: one warp's shared-memory sort of
+// a few hundred entries loses to the block's)
+constexpr int kWarpRowN = 32;
 
-  for (int i = tid; i < M; i += T) {
-    int32_t v = i < N ? t[i] : 0;
-    key[i] = v > 0 ? v : I32_MAX;
-    w[i] = v > 0 ? (wt ? wt[i] : 1.0f) : 0.0f;
-  }
-  __syncthreads();
-
-  for (int k = 2; k <= M; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = tid; i < M; i += T) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const int32_t a = key[i], b = key[ixj];
-          const bool up = (i & k) == 0;
-          if (up ? (a > b) : (a < b)) {
-            key[i] = b;
-            key[ixj] = a;
-            const float tw = w[i];
-            w[i] = w[ixj];
-            w[ixj] = tw;
+// Appends the positive ids of t[0, N) (weights alongside) to key/w at
+// *s_n, reserved a warp at a time; entries from `cap` on are counted but
+// not stored.
+template <int T, bool VEC, bool WEIGHTED>
+__device__ void compact_block(const int32_t* __restrict__ t,
+                              const float* __restrict__ wt, int N,
+                              int32_t* key, float* w, int cap, int* s_n) {
+  const int lane = threadIdx.x & 31;
+  if (VEC) {
+    const int4* t4 = reinterpret_cast<const int4*>(t);
+    const float4* w4 = reinterpret_cast<const float4*>(wt);
+    const int nv = N >> 2;
+    for (int base = 0; base < nv; base += T * kRowLoads) {
+      int4 a[kRowLoads];
+      float4 f[kRowLoads];
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u) {
+        const int v = base + u * T + threadIdx.x;
+        a[u] = v < nv ? t4[v] : make_int4(0, 0, 0, 0);
+        if (WEIGHTED)
+          f[u] = v < nv ? w4[v] : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u) {
+        const int x[4] = {a[u].x, a[u].y, a[u].z, a[u].w};
+        const int cnt = (x[0] > 0) + (x[1] > 0) + (x[2] > 0) + (x[3] > 0);
+        int incl = cnt;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int y = __shfl_up_sync(FULL, incl, o);
+          if (lane >= o) incl += y;
+        }
+        const int total = __shfl_sync(FULL, incl, 31);
+        if (total == 0) continue;  // the whole warp
+        int pos = 0;
+        if (lane == 0) pos = atomicAdd(s_n, total);
+        pos = __shfl_sync(FULL, pos, 0) + incl - cnt;
+        const float y[4] = {f[u].x, f[u].y, f[u].z, f[u].w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (x[k] > 0) {
+            if (pos < cap) {
+              key[pos] = x[k];
+              if (WEIGHTED) w[pos] = y[k];
+            }
+            ++pos;
           }
         }
+      }
+    }
+  } else {
+    for (int base = 0; base < N; base += T * kRowLoads) {
+      int32_t x[kRowLoads];
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u) {
+        const int c = base + u * T + threadIdx.x;
+        x[u] = c < N ? t[c] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kRowLoads; ++u) {
+        const unsigned m = __ballot_sync(FULL, x[u] > 0);
+        if (m == 0) continue;
+        int pos = 0;
+        if (lane == 0) pos = atomicAdd(s_n, __popc(m));
+        pos = __shfl_sync(FULL, pos, 0) + __popc(m & lanemask_lt(lane));
+        if (x[u] > 0 && pos < cap) {
+          key[pos] = x[u];
+          if (WEIGHTED) w[pos] = wt[base + u * T + threadIdx.x];
+        }
+      }
+    }
+  }
+}
+
+template <bool WEIGHTED>
+__device__ __forceinline__ void cswap(int32_t* key, float* w, int i,
+                                      int j) {
+  const int32_t a = key[i], b = key[j];
+  if (a > b) {
+    key[i] = b;
+    key[j] = a;
+    if (WEIGHTED) {
+      const float t = w[i];
+      w[i] = w[j];
+      w[j] = t;
+    }
+  }
+}
+
+// Sorts key[0, n) ascending (weights alongside) with the whole block.
+template <int T, bool WEIGHTED>
+__device__ void block_sort(int32_t* key, float* w, int n) {
+  const int tid = threadIdx.x;
+  if (n <= 32) {
+    if (tid < 32) {
+      // warp_sort's register network; n <= 32 leaves key[n, 32) alone
+      int32_t k = tid < n ? key[tid] : I32_MAX;
+      float x = (WEIGHTED && tid < n) ? w[tid] : 0.0f;
+#pragma unroll
+      for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+        for (int j = size >> 1; j > 0; j >>= 1) {
+          const int32_t ok = __shfl_xor_sync(FULL, k, j);
+          const float ox = WEIGHTED ? __shfl_xor_sync(FULL, x, j) : 0.0f;
+          const bool keep_min = ((tid & j) == 0) == ((tid & size) == 0);
+          if (keep_min ? ok < k : ok > k) {
+            k = ok;
+            if (WEIGHTED) x = ox;
+          }
+        }
+      }
+      if (tid < n) {
+        key[tid] = k;
+        if (WEIGHTED) w[tid] = x;
+      }
+    }
+    __syncthreads();
+    return;
+  }
+  int M = 64;
+  while (M < n) M <<= 1;
+  const int half = M >> 1;
+  for (int k = 2; k <= M; k <<= 1) {
+    const int hk = k >> 1;
+    // the flip: i with its mirror in the block of k; entries past n are
+    // virtual +inf and stay where they are
+    for (int p = tid; p < half; p += T) {
+      const int off = p & (hk - 1);
+      const int i = (p - off) * 2 + off;
+      const int j = i + (k - 1 - 2 * off);
+      if (j < n) cswap<WEIGHTED>(key, w, i, j);
+    }
+    __syncthreads();
+    for (int d = hk >> 1; d > 0; d >>= 1) {
+      for (int p = tid; p < half; p += T) {
+        const int i = ((p & ~(d - 1)) << 1) | (p & (d - 1));
+        if (i + d < n) cswap<WEIGHTED>(key, w, i, i + d);
       }
       __syncthreads();
     }
   }
+}
 
-  const int C = M / T;  // M >= T, both powers of two
-  const int lo = tid * C;
-  int cnt = 0;
-  for (int i = lo; i < lo + C; ++i)
-    cnt += key[i] != I32_MAX && (i == 0 || key[i - 1] != key[i]);
+// One block a row (rows blockIdx.x, + gridDim.x, ...): compact, sort the
+// valid entries, count the runs (see the note at the top). `scratch`
+// holds one row of N entries a block when rows may overflow `cap`.
+template <int T, bool VEC, bool WEIGHTED>
+__global__ void __launch_bounds__(T) dedup_rows_kernel(
+    const int32_t* __restrict__ taxa, const float* __restrict__ weights,
+    int B, int N, int cap, int k_max, int32_t* __restrict__ utaxa,
+    float* __restrict__ ucounts, uint8_t* __restrict__ uvalid,
+    int32_t* __restrict__ nuniq, unsigned char* __restrict__ scratch) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_n, s_u;
+  __shared__ int s_cnt[T / 32];
+  __shared__ int s_first[T / 32];
+  __shared__ float s_wsum[T / 32];
+  constexpr int kWarps = T / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int32_t* const s_key = reinterpret_cast<int32_t*>(smem);
+  float* const s_w = reinterpret_cast<float*>(s_key + cap);
 
-  // exclusive block scan of cnt
-  const int lane = tid & 31, warp = tid >> 5, n_warps = (T + 31) >> 5;
-  int incl = cnt;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(FULL, incl, o);
-    if (lane >= o) incl += y;
-  }
-  if (lane == 31 || tid == T - 1) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int ws = lane < n_warps ? warp_sums[lane] : 0;
+  for (long long row = blockIdx.x; row < B; row += gridDim.x) {
+    const int32_t* t = taxa + row * N;
+    const float* wt = WEIGHTED ? weights + row * N : nullptr;
+    if (tid == 0) s_n = 0;
+    __syncthreads();
+    compact_block<T, VEC, WEIGHTED>(t, wt, N, s_key, s_w, cap, &s_n);
+    __syncthreads();
+    const int n = s_n;
+    if (n <= kWarpRowN && pow2_at_least(n, 32) <= cap) {
+      // one warp sorts and counts (in the 32 entries warp_sort takes), as
+      // the warp path does
+      if (warp == 0) {
+        warp_sort<WEIGHTED>(s_key, s_w, n, lane);
+        const int U = warp_emit_runs<WEIGHTED>(s_key, s_w, n, lane,
+                                               row * k_max, k_max, utaxa,
+                                               ucounts, uvalid);
+        if (lane == 0) {
+          s_u = U;
+          nuniq[row] = U;
+        }
+      }
+      __syncthreads();
+      for (int c = s_u + tid; c < k_max; c += T) {
+        utaxa[row * k_max + c] = I32_MAX;
+        ucounts[row * k_max + c] = 0.0f;
+        uvalid[row * k_max + c] = 0;
+      }
+      __syncthreads();  // the next row reuses the buffers, s_n and s_u
+      continue;
+    }
+    int32_t* key = s_key;
+    float* w = s_w;
+    if (n > cap) {  // the block's scratch row (the launch has one)
+      key = reinterpret_cast<int32_t*>(
+          scratch + (size_t)blockIdx.x * N * (WEIGHTED ? 8 : 4));
+      w = reinterpret_cast<float*>(key + N);
+      __syncthreads();
+      if (tid == 0) s_n = 0;
+      __syncthreads();
+      compact_block<T, VEC, WEIGHTED>(t, wt, N, key, w, N, &s_n);
+      __syncthreads();
+    }
+    block_sort<T, WEIGHTED>(key, w, n);
+
+    // each thread's chunk of the sorted entries: its heads and weights
+    const int C = (n + T - 1) / T;
+    const int lo = min(tid * C, n), hi = min(lo + C, n);
+    int cnt = 0, first = n;
+    float wsum = 0.0f;
+    for (int i = lo; i < hi; ++i) {
+      if (i == 0 || key[i] != key[i - 1]) {
+        if (first == n) first = i;
+        ++cnt;
+      }
+      if (WEIGHTED) wsum += w[i];
+    }
+    // block scans: exclusive head counts and weight sums, and the first
+    // head after this chunk (a suffix minimum)
+    int ic = cnt;
+    float iw = wsum;
+    int sm = first;  // min over lanes >= lane of this warp
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL, ws, o);
-      if (lane >= o) ws += y;
+      const int yc = __shfl_up_sync(FULL, ic, o);
+      const float yw = __shfl_up_sync(FULL, iw, o);
+      const int ys = __shfl_down_sync(FULL, sm, o);
+      if (lane >= o) {
+        ic += yc;
+        iw += yw;
+      }
+      if (lane + o < 32) sm = min(sm, ys);
     }
-    if (lane < n_warps) warp_sums[lane] = ws;  // inclusive over warps
-  }
-  __syncthreads();
-  int r = incl - cnt + (warp > 0 ? warp_sums[warp - 1] : 0);
-  const int total = warp_sums[n_warps - 1];
-
-  const long long o0 = row * k_max;
-  for (int i = lo; i < lo + C; ++i) {
-    const int32_t v = key[i];
-    if (v == I32_MAX || (i > 0 && key[i - 1] == v)) continue;
-    if (r < k_max) {
-      float s = 0.0f;
-      for (int j = i; j < M && key[j] == v; ++j) s += w[j];
-      utaxa[o0 + r] = v;
-      ucounts[o0 + r] = s;
-      uvalid[o0 + r] = 1;
+    if (lane == 31) {
+      s_cnt[warp] = ic;
+      s_wsum[warp] = iw;
     }
-    ++r;
+    if (lane == 0) s_first[warp] = sm;
+    __syncthreads();
+    int rank = ic - cnt, U = 0, nxt = __shfl_down_sync(FULL, sm, 1);
+    if (lane == 31) nxt = n;
+    float wex = iw - wsum, wtot = 0.0f;
+#pragma unroll
+    for (int v = 0; v < kWarps; ++v) {
+      U += s_cnt[v];
+      if (WEIGHTED) wtot += s_wsum[v];
+      if (v < warp) {
+        rank += s_cnt[v];
+        if (WEIGHTED) wex += s_wsum[v];
+      }
+      if (v > warp) nxt = min(nxt, s_first[v]);
+    }
+    if (WEIGHTED) {  // exclusive prefix sums over the sorted weights
+      for (int i = lo; i < hi; ++i) {
+        const float x = w[i];
+        w[i] = wex;
+        wex += x;
+      }
+      __syncthreads();
+    }
+    const long long o0 = row * k_max;
+    int h = -1;  // the pending head
+    for (int i = lo; i <= hi; ++i) {
+      const bool at_end = i == hi;
+      if (!at_end && !(i == 0 || key[i] != key[i - 1])) continue;
+      if (h >= 0) {
+        if (rank < k_max) {
+          const int e = at_end ? nxt : i;
+          utaxa[o0 + rank] = key[h];
+          ucounts[o0 + rank] =
+              WEIGHTED ? (e < n ? w[e] : wtot) - w[h] : (float)(e - h);
+          uvalid[o0 + rank] = 1;
+        }
+        ++rank;
+      }
+      h = i;
+    }
+    for (int c = U + tid; c < k_max; c += T) {
+      utaxa[o0 + c] = I32_MAX;
+      ucounts[o0 + c] = 0.0f;
+      uvalid[o0 + c] = 0;
+    }
+    if (tid == 0) nuniq[row] = U;
+    __syncthreads();  // the next row reuses the buffers and s_n
   }
-  for (int c = total + tid; c < k_max; c += T) {
-    utaxa[o0 + c] = I32_MAX;
-    ucounts[o0 + c] = 0.0f;
-    uvalid[o0 + c] = 0;
-  }
-  if (tid == 0) nuniq[row] = total;
-  __syncthreads();  // key, w and warp_sums are reused by the next row
-}
-
-__global__ void dedup_block(const int32_t* __restrict__ taxa,
-                            const float* __restrict__ weights, int N,
-                            int M, int k_max, int32_t* __restrict__ utaxa,
-                            float* __restrict__ ucounts,
-                            uint8_t* __restrict__ uvalid,
-                            int32_t* __restrict__ nuniq) {
-  extern __shared__ unsigned char smem[];
-  int32_t* key = reinterpret_cast<int32_t*>(smem);
-  float* w = reinterpret_cast<float*>(key + M);
-  int* warp_sums = reinterpret_cast<int*>(w + M);  // [32]
-  const long long row = blockIdx.x;
-  block_dedup_row(taxa + row * N, weights ? weights + row * N : nullptr, N,
-                  M, k_max, key, w, warp_sums, utaxa, ucounts, uvalid, nuniq,
-                  row);
-}
-
-// The global path: block b sorts rows b, b + gridDim.x, ... in its
-// scratch row of M keys and M weights.
-__global__ void dedup_global(const int32_t* __restrict__ taxa,
-                             const float* __restrict__ weights, int B, int N,
-                             int M, int k_max, int32_t* __restrict__ utaxa,
-                             float* __restrict__ ucounts,
-                             uint8_t* __restrict__ uvalid,
-                             int32_t* __restrict__ nuniq,
-                             unsigned char* __restrict__ scratch) {
-  __shared__ int warp_sums[32];
-  int32_t* key =
-      reinterpret_cast<int32_t*>(scratch + (size_t)blockIdx.x * M * 8);
-  float* w = reinterpret_cast<float*>(key + M);
-  for (long long row = blockIdx.x; row < B; row += gridDim.x)
-    block_dedup_row(taxa + row * N, weights ? weights + row * N : nullptr,
-                    N, M, k_max, key, w, warp_sums, utaxa, ucounts, uvalid,
-                    nuniq, row);
-}
-
-int pow2_at_least(int n, int lo) {
-  int M = lo;
-  while (M < n) M <<= 1;
-  return M;
 }
 
 template <typename F>
@@ -394,6 +607,34 @@ cudaError_t allow_smem(F* kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <int T, bool VEC, bool WEIGHTED>
+cudaError_t launch_rows_t(const int32_t* t, const float* w, int B, int N,
+                          int k_max, int cap, int32_t* ut, float* uc,
+                          uint8_t* uv, int32_t* nu, unsigned char* scratch,
+                          int blocks, cudaStream_t s) {
+  const size_t smem = (size_t)cap * (WEIGHTED ? 8 : 4);
+  const cudaError_t e = allow_smem(dedup_rows_kernel<T, VEC, WEIGHTED>, smem);
+  if (e != cudaSuccess) return e;
+  dedup_rows_kernel<T, VEC, WEIGHTED><<<blocks, T, smem, s>>>(
+      t, w, B, N, cap, k_max, ut, uc, uv, nu, scratch);
+  return cudaSuccess;
+}
+
+template <bool VEC, bool WEIGHTED>
+cudaError_t launch_rows(const int32_t* t, const float* w, int B, int N,
+                        int k_max, int cap, int32_t* ut, float* uc,
+                        uint8_t* uv, int32_t* nu, unsigned char* scratch,
+                        int blocks, cudaStream_t s) {
+  if (N <= kRowThreadsN1)
+    return launch_rows_t<128, VEC, WEIGHTED>(t, w, B, N, k_max, cap, ut, uc,
+                                             uv, nu, scratch, blocks, s);
+  if (N <= kRowThreadsN2)
+    return launch_rows_t<256, VEC, WEIGHTED>(t, w, B, N, k_max, cap, ut, uc,
+                                             uv, nu, scratch, blocks, s);
+  return launch_rows_t<512, VEC, WEIGHTED>(t, w, B, N, k_max, cap, ut, uc,
+                                           uv, nu, scratch, blocks, s);
 }
 
 template <bool VEC, bool WEIGHTED>
@@ -417,14 +658,11 @@ extern "C" const char* umgap_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// weights may be null (every hit weighs 1.0). path: 1 the warp path (the
-// wrapper chooses it for N <= 1024), 0 the block path (N <= 16,384), 2
-// the global path, with `scratch` of scratch_rows * M * 8 bytes (M the
-// power of two >= N) and scratch_rows blocks.
+// weights may be null (every hit weighs 1.0). The warp path, for rows
+// of up to 1,024 hits (the wrapper's choice).
 extern "C" int dedup_counts(const void* taxa, const void* weights, int B,
                             int N, int k_max, void* utaxa, void* ucounts,
-                            void* uvalid, void* nuniq, int path,
-                            void* scratch, int scratch_rows, void* stream) {
+                            void* uvalid, void* nuniq, void* stream) {
   if (B <= 0) return 0;
   const int32_t* t = (const int32_t*)taxa;
   const float* w = (const float*)weights;
@@ -433,43 +671,75 @@ extern "C" int dedup_counts(const void* taxa, const void* weights, int B,
   uint8_t* uv = (uint8_t*)uvalid;
   int32_t* nu = (int32_t*)nuniq;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = cudaSuccess;
-  if (path == 2) {
-    if (scratch == nullptr || scratch_rows <= 0)
-      return (int)cudaErrorInvalidValue;
-    const int M = pow2_at_least(N, 1024);
-    const int blocks = scratch_rows < B ? scratch_rows : B;
-    dedup_global<<<blocks, 1024, 0, s>>>(t, w, B, N, M, k_max, ut, uc, uv,
-                                         nu, (unsigned char*)scratch);
-  } else if (path == 1) {
-    // 16-byte row loads need rows of a multiple of 4 entries (and
-    // 16-byte aligned bases, which PyTorch's allocations are)
-    const bool vec = N % 4 == 0 && ((uintptr_t)t & 15) == 0 &&
-                     (w == nullptr || ((uintptr_t)w & 15) == 0);
-    if (vec && w)
-      e = launch_warp<true, true>(t, w, B, N, k_max, ut, uc, uv, nu, s);
-    else if (vec)
-      e = launch_warp<true, false>(t, w, B, N, k_max, ut, uc, uv, nu, s);
-    else if (w)
-      e = launch_warp<false, true>(t, w, B, N, k_max, ut, uc, uv, nu, s);
-    else
-      e = launch_warp<false, false>(t, w, B, N, k_max, ut, uc, uv, nu, s);
-  } else {
-    const int M = pow2_at_least(N, 32);
-    const int threads = M < 256 ? M : 256;
-    const size_t smem = (size_t)M * 8 + 32 * sizeof(int);
-    e = allow_smem(dedup_block, smem);
-    if (e == cudaSuccess)
-      dedup_block<<<B, threads, smem, s>>>(t, w, N, M, k_max, ut, uc, uv,
-                                           nu);
-  }
+  cudaError_t e;
+  // 16-byte row loads need rows of a multiple of 4 entries (and 16-byte
+  // aligned bases, which PyTorch's allocations are)
+  const bool vec = N % 4 == 0 && ((uintptr_t)t & 15) == 0 &&
+                   (w == nullptr || ((uintptr_t)w & 15) == 0);
+  if (vec && w)
+    e = launch_warp<true, true>(t, w, B, N, k_max, ut, uc, uv, nu, s);
+  else if (vec)
+    e = launch_warp<true, false>(t, w, B, N, k_max, ut, uc, uv, nu, s);
+  else if (w)
+    e = launch_warp<false, true>(t, w, B, N, k_max, ut, uc, uv, nu, s);
+  else
+    e = launch_warp<false, false>(t, w, B, N, k_max, ut, uc, uv, nu, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 extern "C" int dedup_counts_packed(const void* args) {
   const PackedArgs a{(const unsigned char*)args};
-  return dedup_counts(a.ptr(0), a.ptr(1), (int)a.i(2), (int)a.i(3), (int)a.i(4),
-                      a.ptr(5), a.ptr(6), a.ptr(7), a.ptr(8), (int)a.i(9),
-                      a.ptr(10), (int)a.i(11), a.ptr(12));
+  return dedup_counts(a.ptr(0), a.ptr(1), (int)a.i(2), (int)a.i(3),
+                      (int)a.i(4), a.ptr(5), a.ptr(6), a.ptr(7), a.ptr(8),
+                      a.ptr(9));
+}
+
+// The row kernel, one block a row, for rows of any N (the wrapper takes
+// it past 1,024 hits). cap: valid entries a block keeps in shared memory
+// (at most N, cap * (weights ? 8 : 4) <= kSmemMax bytes). With cap < N,
+// `scratch` holds `blocks` rows of N entries (4 bytes each, 8 with
+// weights) and the launch runs that many blocks; else one a row.
+extern "C" int dedup_rows(const void* taxa, const void* weights, int B,
+                          int N, int k_max, int cap, void* utaxa,
+                          void* ucounts, void* uvalid, void* nuniq,
+                          void* scratch, int blocks, void* stream) {
+  if (B <= 0) return 0;
+  const int32_t* t = (const int32_t*)taxa;
+  const float* w = (const float*)weights;
+  const size_t entry = w ? 8 : 4;
+  if (cap < 0 || cap > N || (size_t)cap * entry > (size_t)kSmemMax ||
+      (cap < N && (scratch == nullptr || blocks <= 0)))
+    return (int)cudaErrorInvalidValue;
+  if (cap == N) blocks = B;
+  int32_t* ut = (int32_t*)utaxa;
+  float* uc = (float*)ucounts;
+  uint8_t* uv = (uint8_t*)uvalid;
+  int32_t* nu = (int32_t*)nuniq;
+  unsigned char* sc = (unsigned char*)scratch;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = N % 4 == 0 && ((uintptr_t)t & 15) == 0 &&
+                   (w == nullptr || ((uintptr_t)w & 15) == 0);
+  cudaError_t e;
+  if (vec && w)
+    e = launch_rows<true, true>(t, w, B, N, k_max, cap, ut, uc, uv, nu, sc,
+                                blocks, s);
+  else if (vec)
+    e = launch_rows<true, false>(t, w, B, N, k_max, cap, ut, uc, uv, nu, sc,
+                                 blocks, s);
+  else if (w)
+    e = launch_rows<false, true>(t, w, B, N, k_max, cap, ut, uc, uv, nu, sc,
+                                 blocks, s);
+  else
+    e = launch_rows<false, false>(t, w, B, N, k_max, cap, ut, uc, uv, nu,
+                                  sc, blocks, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dedup_rows_packed(const void* args) {
+  const PackedArgs a{(const unsigned char*)args};
+  return dedup_rows(a.ptr(0), a.ptr(1), (int)a.i(2), (int)a.i(3),
+                    (int)a.i(4), (int)a.i(5), a.ptr(6), a.ptr(7), a.ptr(8),
+                    a.ptr(9), a.ptr(10), (int)a.i(11), a.ptr(12));
 }

@@ -32,12 +32,40 @@
 // overwrites the row in place with its hits (or keep flags), and the
 // block writes the tile back with 16-byte stores (16 bools a thread for
 // the mask). T = 64 came out of a sweep over T = 32, 64, 128 on the H100
-// (PERF.md, section 6). Wider rows take the direct kernel: one thread a
-// lane reading and writing its row in global memory, its delta row in
-// shared memory. Rows too wide for one warp's delta rows there (more
-// than 3,600 windows: reads from about 10.8 kb) keep the delta rows in a
-// global scratch the caller allocates, laid out [N][lanes] so that a
-// warp's lanes touch consecutive words.
+// (PERF.md, section 6).
+//
+// Rows past the tile (more than 96 windows: reads from 312 bp, every
+// rung of the width ladder from 512 bp and the 12,000 bp device width)
+// take the row kernel, one warp a lane. What bounded the one-thread-a-
+// lane kernel it replaces: 1,536 lanes of 4,000 windows filled 48 warps
+// of a 132-SM card, each thread's loads landed a row (16 KB) apart from
+// its neighbours', it stepped every window in a dependent chain, and
+// past 3,600 windows its int16 delta row lived in global memory and was
+// walked twice more. The row kernel:
+// - loads its row 32 consecutive windows at a time (one 128-byte line
+//   per warp load), four such loads in flight (a sweep of 4, 8 and 16,
+//   PERF.md section 6), and only up to the lane's length (the rest
+//   reads as 0 without a load);
+// - finds the positions where the machine can change state by ballot:
+//   the run heads x[p] != x[p - 1], plus, after the leading-gap branch
+//   b2 (which keeps last = 0 past a non-zero taxon, so the machine's
+//   runs are not the input's), the position after it. The machine
+//   steps only there, warp-uniform, adding the skipped `same` steps to
+//   same_tid in one go; it stops at the lane's length, past which
+//   nothing changes state before the final flush;
+// - records each push as an interval [start, stop) in a small per-warp
+//   list in shared memory, never a delta row: pushes come in order and
+//   never overlap, and the one push that can have start > stop (out of
+//   b2's gap) covers nothing a later interval reaches, so the scan's
+//   cumsum(deltas) > 0 is the union of the intervals with start < stop;
+// - writes every position before the machine's `start` (decided: no
+//   later push reaches back past it) with coalesced 32-wide stores when
+//   the list fills, when 1,024 decided positions wait, and at the end;
+//   the hits epilogue reads a window's taxon again only where it is
+//   kept (from L2: the row was just read).
+// No block barrier anywhere; a block holds kRowWarps independent lanes.
+// ops/seedextend.py seedextend_runs_plain is the same formulation in
+// PyTorch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -197,43 +225,147 @@ __global__ void __launch_bounds__(MAX_T) seedextend_staged_kernel(
   }
 }
 
-// Rows too wide for the staged tile: one thread a lane on its row in
-// global memory, the delta row in shared memory ([N][blockDim]), or in
-// the global scratch ([N][lanes]) when one is given.
-__global__ void seedextend_direct_kernel(const int32_t* __restrict__ taxa,
-                                         const int32_t* __restrict__ lengths,
-                                         long long lanes, int N, int s, int g,
-                                         void* __restrict__ out, int hits,
-                                         int16_t* __restrict__ scratch) {
-  extern __shared__ int16_t s_d[];
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  const long long T = scratch ? lanes : blockDim.x;
-  int16_t* d = scratch ? scratch + lane : s_d + threadIdx.x;
-  for (int p = 0; p < N; ++p) d[p * T] = 0;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int kRowWarps = 4;      // lanes (warps) a block of the row kernel
+constexpr int kRowSub = 4;        // 32-window loads a warp keeps in flight
+constexpr int kIvCap = 64;        // kept intervals a warp lists before writing
+constexpr int kFlushSpan = 1024;  // decided windows a warp lets wait
 
-  const int32_t* t = taxa + lane * (long long)N;
-  const int len = lengths[lane];
-  scan_seeds(
-      N, s, g,
-      [&](int p) -> int32_t { return (p < N && p < len) ? t[p] : 0; },
-      [&](int p, int v) {
-        if (p >= 0 && p < N) d[p * T] = (int16_t)(d[p * T] + v);
-      });
-  int run = 0;
-  if (hits) {
-    int32_t* o = (int32_t*)out + lane * (long long)N;
-    for (int p = 0; p < N; ++p) {
-      run += d[p * T];
-      o[p] = (run > 0 && p < len) ? t[p] : 0;
+// Writes windows [from, upto) of one lane: kept where an interval of
+// iv[0, n_iv) (ascending, disjoint) holds the window and it lies inside
+// the lane's length; hits (the taxon, read again only where kept) or
+// keep flags.
+template <bool HITS>
+__device__ void write_decided(const int32_t* __restrict__ t, int len,
+                              int from, int upto, const int2* iv, int n_iv,
+                              void* __restrict__ out, int lane) {
+  __syncwarp();  // lane 0 listed the intervals
+  int k = 0;
+  for (int q0 = from; q0 < upto; q0 += 32 * kRowSub) {
+    int32_t v[kRowSub];
+#pragma unroll
+    for (int u = 0; u < kRowSub; ++u) {
+      const int q = q0 + u * 32 + lane;
+      bool keep = false;
+      if (q < upto) {
+        while (k < n_iv && iv[k].y <= q) ++k;
+        keep = k < n_iv && iv[k].x <= q && q < len;
+      }
+      v[u] = HITS ? (keep ? t[q] : 0) : (int32_t)keep;
     }
-  } else {
-    uint8_t* o = (uint8_t*)out + lane * (long long)N;
-    for (int p = 0; p < N; ++p) {
-      run += d[p * T];
-      o[p] = (run > 0 && p < len) ? 1 : 0;
+#pragma unroll
+    for (int u = 0; u < kRowSub; ++u) {
+      const int q = q0 + u * 32 + lane;
+      if (q < upto) {
+        if (HITS)
+          ((int32_t*)out)[q] = v[u];
+        else
+          ((uint8_t*)out)[q] = (uint8_t)v[u];
+      }
     }
   }
+  __syncwarp();  // before lane 0 lists again
+}
+
+// One warp a lane: the state machine over the positions where it can
+// change state, kept intervals in shared memory, decided windows written
+// coalesced (see the note at the top).
+template <bool HITS>
+__global__ void __launch_bounds__(kRowWarps * 32) seedextend_rows_kernel(
+    const int32_t* __restrict__ taxa, const int32_t* __restrict__ lengths,
+    long long lanes, int N, int s, int g, void* __restrict__ out) {
+  __shared__ int2 s_iv[kRowWarps][kIvCap];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kRowWarps + warp;
+  if (row >= lanes) return;  // the whole warp; no block barrier follows
+  const int32_t* t = taxa + row * N;
+  void* o = HITS ? (void*)((int32_t*)out + row * N)
+                 : (void*)((uint8_t*)out + row * N);
+  const int len = min(max(lengths[row], 0), N);
+  int2* iv = s_iv[warp];
+
+  // the machine (the same in every lane); e0 is the next step's end
+  int start = 0, same_tid = 1, same_max = 1, e0 = 1;
+  int32_t last = len > 0 ? t[0] : 0;
+  int n_iv = 0, w = 0;  // windows [0, w) are written
+  bool extra = false;   // b2's next position opens the next 32 windows
+  int32_t carry = last;  // the window before the next 32
+
+  // x is 0 from the lane's length on (the sentinel at N included), so
+  // nothing changes state past position len
+  for (int c0 = 0; c0 <= len; c0 += 32 * kRowSub) {
+    int32_t xv[kRowSub];
+#pragma unroll
+    for (int u = 0; u < kRowSub; ++u) {
+      const int p = c0 + u * 32 + lane;
+      xv[u] = p < len ? t[p] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kRowSub; ++u) {
+      const int cb = c0 + u * 32;
+      if (cb > len) continue;  // the whole warp: nothing changes past len
+      const int32_t x = xv[u];
+      int32_t prev = __shfl_up_sync(FULL, x, 1);
+      if (lane == 0) prev = carry;
+      const int p = cb + lane;
+      unsigned m = __ballot_sync(FULL, p >= 1 && p <= len && x != prev);
+      if (extra) {
+        m |= 1u;
+        extra = false;
+      }
+      carry = __shfl_sync(FULL, x, 31);
+      while (m) {
+        const int b = __ffs(m) - 1;
+        m &= m - 1;
+        const int32_t cur = __shfl_sync(FULL, x, b);
+        const int end = cb + b;
+        const int tid = same_tid + (end - e0);  // the `same` steps between
+        e0 = end + 1;
+        if (last == cur) {
+          same_tid = tid + 1;
+        } else if (last == 0 && tid > g) {  // b1: a gap longer than g
+          const int stop = end - tid;
+          if (same_max >= s && start < stop) {
+            if (lane == 0) iv[n_iv] = make_int2(start, stop);
+            if (++n_iv == kIvCap) {  // windows before `end` are decided
+              write_decided<HITS>(t, len, w, end, iv, n_iv, o, lane);
+              w = end;
+              n_iv = 0;
+            }
+          }
+          start = end;
+          last = cur;
+          same_tid = 1;
+          same_max = 1;
+        } else if (last == 0 && end - start == tid) {  // b2: leading gap
+          start = end + 1;
+          same_tid = tid;
+          if (b < 31)
+            m |= 1u << (b + 1);
+          else
+            extra = true;
+        } else {  // b3
+          if (last != 0) same_max = max(same_max, tid);
+          last = cur;
+          same_tid = 1;
+        }
+      }
+    }
+    if (start - w >= kFlushSpan) {
+      write_decided<HITS>(t, len, w, start, iv, n_iv, o, lane);
+      w = start;
+      n_iv = 0;
+    }
+  }
+  same_tid += N + 1 - e0;
+  if (same_max >= s) {  // the final flush trims a trailing gap
+    const int stop = min(last == 0 ? N + 1 - same_tid : N + 1, N);
+    if (start < stop) {
+      if (lane == 0) iv[n_iv] = make_int2(start, stop);
+      ++n_iv;
+    }
+  }
+  write_decided<HITS>(t, len, w, N, iv, n_iv, o, lane);
 }
 
 template <int NT>
@@ -262,56 +394,56 @@ extern "C" const char* umgap_cuda_error_string(int code) {
 }
 
 // out: (lanes, N) int32 hits when `hits`, else bool keep; an allocation
-// of its own (16-byte aligned). staged: the tile kernel with T lanes a
-// block (a multiple of 16, at most 128), else the direct kernel, with its
-// delta rows in `scratch` (lanes * N int16) when that is not null.
+// of its own (16-byte aligned). The staged tile, T lanes a block (a
+// multiple of 16, at most 128), for rows of up to 96 windows.
 extern "C" int seedextend_mask(const void* taxa, const void* lengths,
                                long long lanes, int N, int min_seed_size,
-                               int max_gap_size, void* out, int hits,
-                               int staged, int T, void* scratch,
+                               int max_gap_size, void* out, int hits, int T,
                                void* stream) {
   if (lanes <= 0 || N <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (!staged && scratch) {
-    const long long blocks = (lanes + 127) / 128;
-    seedextend_direct_kernel<<<(unsigned)blocks, 128, 0, st>>>(
-        (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
-        min_seed_size, max_gap_size, out, hits, (int16_t*)scratch);
-    return (int)cudaGetLastError();
-  }
-  if (staged) {
-    if (T < 16 || T > MAX_T || T % 16) return (int)cudaErrorInvalidValue;
-    if (N == 25)
-      return launch_staged<25>(taxa, lengths, lanes, N, min_seed_size,
-                               max_gap_size, out, hits, T, st);
-    if (N == 45)
-      return launch_staged<45>(taxa, lengths, lanes, N, min_seed_size,
-                               max_gap_size, out, hits, T, st);
-    return launch_staged<0>(taxa, lengths, lanes, N, min_seed_size,
-                            max_gap_size, out, hits, T, st);
-  }
-  // direct: 128 lanes a block while their delta rows fit in 48 KB, fewer
-  // (down to one warp) for wide rows, with the opt-in beyond that
-  const size_t row = (size_t)N * sizeof(int16_t);
-  int threads = 128;
-  while (threads > 32 && row * threads > 48 * 1024) threads -= 32;
-  const size_t smem = row * threads;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        seedextend_direct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const long long blocks = (lanes + threads - 1) / threads;
-  seedextend_direct_kernel<<<(unsigned)blocks, threads, smem, st>>>(
-      (const int32_t*)taxa, (const int32_t*)lengths, lanes, N, min_seed_size,
-      max_gap_size, out, hits, nullptr);
-  return (int)cudaGetLastError();
+  if (T < 16 || T > MAX_T || T % 16) return (int)cudaErrorInvalidValue;
+  if (N == 25)
+    return launch_staged<25>(taxa, lengths, lanes, N, min_seed_size,
+                             max_gap_size, out, hits, T, st);
+  if (N == 45)
+    return launch_staged<45>(taxa, lengths, lanes, N, min_seed_size,
+                             max_gap_size, out, hits, T, st);
+  return launch_staged<0>(taxa, lengths, lanes, N, min_seed_size,
+                          max_gap_size, out, hits, T, st);
 }
 
 extern "C" int seedextend_mask_packed(const void* args) {
   const PackedArgs a{(const unsigned char*)args};
   return seedextend_mask(a.ptr(0), a.ptr(1), a.i(2), (int)a.i(3),
                          (int)a.i(4), (int)a.i(5), a.ptr(6), (int)a.i(7),
-                         (int)a.i(8), (int)a.i(9), a.ptr(10), a.ptr(11));
+                         (int)a.i(8), a.ptr(9));
+}
+
+// The row kernel, one warp a lane, at any N (the wrapper takes it past
+// the tile's 96 windows).
+extern "C" int seedextend_rows(const void* taxa, const void* lengths,
+                               long long lanes, int N, int min_seed_size,
+                               int max_gap_size, void* out, int hits,
+                               void* stream) {
+  if (lanes <= 0 || N <= 0) return 0;
+  const long long blocks = (lanes + kRowWarps - 1) / kRowWarps;
+  if (hits)
+    seedextend_rows_kernel<true><<<(unsigned)blocks, kRowWarps * 32, 0,
+                                   (cudaStream_t)stream>>>(
+        (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
+        min_seed_size, max_gap_size, out);
+  else
+    seedextend_rows_kernel<false><<<(unsigned)blocks, kRowWarps * 32, 0,
+                                    (cudaStream_t)stream>>>(
+        (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
+        min_seed_size, max_gap_size, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int seedextend_rows_packed(const void* args) {
+  const PackedArgs a{(const unsigned char*)args};
+  return seedextend_rows(a.ptr(0), a.ptr(1), a.i(2), (int)a.i(3),
+                         (int)a.i(4), (int)a.i(5), a.ptr(6), (int)a.i(7),
+                         a.ptr(8));
 }

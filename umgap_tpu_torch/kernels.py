@@ -128,14 +128,22 @@ K2 = Kernel(
     "scripts/exp_pallas_dma.py:31 make_kernel")
 K3 = Kernel(
     "seedextend_mask", "seedextend_mask.cu",
-    [P, P, LL, I, I, I, P, I, I, I, P, P],
+    [P, P, LL, I, I, I, P, I, I, P],
     "umgap_tpu/ops/seedextend.py:118 seedextend_mask_batch "
     "(lax.scan of _scan_seeds, :173) + "
     "umgap_tpu/pipeline/fused.py:107-109 jnp.where(keep, taxa, 0)")
+# K3's row kernel (one warp a lane) for rows past the staged tile
+K3R = Kernel(
+    "seedextend_rows", "seedextend_mask.cu",
+    [P, P, LL, I, I, I, P, I, P], K3.replaces)
 K4 = Kernel(
     "dedup_counts", "dedup_counts.cu",
-    [P, P, I, I, I, P, P, P, P, I, P, I, P],
+    [P, P, I, I, I, P, P, P, P, P],
     "umgap_tpu/agg/device.py:79 dedup_counts")
+# K4's row kernel (one block a row) for rows past the warp path
+K4R = Kernel(
+    "dedup_rows", "dedup_counts.cu",
+    [P, P, I, I, I, I, P, P, P, P, P, I, P], K4.replaces)
 K5 = Kernel(
     "lane_gather", "lane_gather.cu",
     [I, P, LL, LL, LL, LL, LL, LL, P, LL, LL, LL, LL, LL, P, LL, P],
@@ -168,7 +176,7 @@ K8 = Kernel(
     [P, P, P, LL, P, LL, I, I, P, P, I, P],
     "umgap_tpu/ops/lookup.py:265-283 _probe_dense (peptide branch)")
 
-KERNELS = (K1, K2, K3, K4, K5, K5A, K6, K7, K8)
+KERNELS = (K1, K2, K3, K3R, K4, K4R, K5, K5A, K6, K7, K8)
 
 # build seconds and ptxas reports of the last build_all() in this process
 BUILD_INFO: dict = {}

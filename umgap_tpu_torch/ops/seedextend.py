@@ -133,23 +133,109 @@ def seedextend_hits_plain(taxa: torch.Tensor, lengths: torch.Tensor,
     return torch.where(keep, taxa, 0)
 
 
+def seedextend_runs_plain(taxa: torch.Tensor, lengths: torch.Tensor,
+                          min_seed_size: int = 2, max_gap_size: int = 0,
+                          hits: bool = False):
+    """Plain version of K3's row kernel (``csrc/seedextend_mask.cu``,
+    rows past :data:`STAGED_MAX_N` windows), its formulation rather than
+    the position loop: the state machine steps only where it can change
+    state, and the kept seeds are intervals, not a delta row.
+
+    - Between two candidate positions every step is ``same`` and only
+      adds to ``same_tid``, so the machine runs over the candidates
+      alone: the run heads (``x[p] != x[p - 1]``) and, after the
+      leading-gap branch b2 (a lane opening with 1 to g zeros; b2 keeps
+      ``last = 0`` past a non-zero taxon, so the machine's runs are not
+      the input's), the position after it.
+    - A push of b1 or of the final flush is the interval
+      [start, stop). Pushes come in order and never overlap: each b1
+      restarts at ``end`` >= the interval it closed. The only push with
+      start > stop is one out of b2's gap, and its negative coverage
+      falls where no later interval reaches; so the scan's
+      ``cumsum(deltas) > 0`` is the union of the intervals with
+      start < stop, clipped to the lane's length.
+
+    Returns the keep mask, or with ``hits`` the taxa where it keeps."""
+    N = taxa.shape[-1]
+    shape = taxa.shape
+    dev = taxa.device
+    t = taxa.reshape(-1, N).to(torch.int32)
+    nl = t.shape[0]
+    ln = lengths.reshape(-1).to(torch.int64).clamp(0, N)
+    pos = torch.arange(N + 1, device=dev)
+    inside = pos[None, :N] < ln[:, None]
+    x = torch.cat([torch.where(inside, t, 0),
+                   torch.zeros((nl, 1), dtype=torch.int32, device=dev)],
+                  dim=1)  # the sentinel at N
+    g, s = int(max_gap_size), int(min_seed_size)
+    nz = x != 0
+    z = torch.where(nz.any(dim=1), nz.to(torch.int8).argmax(dim=1), N + 1)
+    b2_lane = (z >= 1) & (z <= g)
+    cand = torch.zeros((nl, N + 1), dtype=torch.bool, device=dev)
+    cand[:, 1:] = x[:, 1:] != x[:, :-1]
+    extra = b2_lane & (z + 1 <= N)
+    cand[extra.nonzero(as_tuple=True)[0], (z + 1)[extra]] = True
+    R = int(cand.sum(dim=1).max()) if nl else 0
+    where_c = torch.sort(torch.where(cand, pos, N + 1), dim=1).values[:, :R]
+
+    start = torch.zeros(nl, dtype=torch.int64, device=dev)
+    last = x[:, 0]
+    same_tid = torch.ones(nl, dtype=torch.int64, device=dev)
+    same_max = torch.ones(nl, dtype=torch.int64, device=dev)
+    e0 = torch.ones(nl, dtype=torch.int64, device=dev)  # next step's end
+    lo, hi = [], []
+    for r in range(R):
+        p = where_c[:, r]
+        act = p <= N
+        cur = torch.gather(x, 1, p.clamp(max=N)[:, None])[:, 0]
+        tid = same_tid + (p - e0)  # the `same` steps since the last one
+        same = last == cur
+        b1 = ~same & (last == 0) & (tid > g)
+        b2 = ~same & ~b1 & (last == 0) & ((p - start) == tid)
+        b3 = ~same & ~b1 & ~b2
+        push = act & b1 & (same_max >= s)
+        lo.append(torch.where(push, start, 0))
+        hi.append(torch.where(push, p - tid, 0))
+        n_start = torch.where(b1, p, torch.where(b2, p + 1, start))
+        n_last = torch.where(same | b2, last, cur)
+        n_tid = torch.where(same, tid + 1, torch.where(b2, tid, 1))
+        n_max = torch.where(b1, 1, torch.where(
+            b3 & (last != 0), torch.maximum(same_max, tid), same_max))
+        start = torch.where(act, n_start, start)
+        last = torch.where(act, n_last, last)
+        same_tid = torch.where(act, n_tid, same_tid)
+        same_max = torch.where(act, n_max, same_max)
+        e0 = torch.where(act, p + 1, e0)
+    same_tid = same_tid + (N + 1 - e0)
+    push = same_max >= s
+    lo.append(torch.where(push, start, 0))
+    hi.append(torch.where(push, torch.where(last == 0, N + 1 - same_tid,
+                                            N + 1), 0))
+    lo = torch.stack(lo, dim=1)
+    hi = torch.stack(hi, dim=1).clamp(max=N)
+    proper = lo < hi
+    d = torch.zeros((nl, N + 1), dtype=torch.int32, device=dev)
+    one = proper.to(torch.int32)
+    d.scatter_add_(1, torch.where(proper, lo, N), one)
+    d.scatter_add_(1, torch.where(proper, hi, N), -one)
+    keep = (torch.cumsum(d[:, :N], dim=1) > 0) & inside
+    keep = keep.reshape(shape)
+    return torch.where(keep, taxa, 0) if hits else keep
+
+
 # Rows of up to STAGED_MAX_N windows (reads up to 312 bp) take K3's
 # staged tile of LANES_PER_BLOCK lanes (a sweep over 32, 64 and 128 on
-# the H100; PERF.md, section 6); wider rows, up to MAX_N, its direct
-# kernel, whose int16 delta rows of one warp fit in shared memory; wider
-# still, the direct kernel with its delta rows in a global scratch.
+# the H100; PERF.md, section 6); wider rows its row kernel, one warp a
+# lane (kernels.K3R), at any width.
 STAGED_MAX_N = 96
 LANES_PER_BLOCK = 64
-MAX_N = 3600
 
 
 def seedextend_path(N: int) -> str:
     """K3's kernel for rows of N windows: ``"staged"`` up to
-    :data:`STAGED_MAX_N`, ``"direct"`` up to :data:`MAX_N`, ``"global"``
-    (the direct kernel, delta rows in global memory) above."""
-    if N <= STAGED_MAX_N:
-        return "staged"
-    return "direct" if N <= MAX_N else "global"
+    :data:`STAGED_MAX_N`, ``"rows"`` (one warp a lane, over the runs)
+    above."""
+    return "staged" if N <= STAGED_MAX_N else "rows"
 
 
 def _launch(taxa, lengths, min_seed_size, max_gap_size, hits: bool):
@@ -158,18 +244,19 @@ def _launch(taxa, lengths, min_seed_size, max_gap_size, hits: bool):
             or lengths.shape != taxa.shape[:-1]:
         raise ValueError("seedextend: taxa (..., N) int32 and lengths "
                          "(...) int32 expected")
-    path = seedextend_path(N)
     kernels.check_cuda("seedextend", taxa, lengths)
     out = torch.empty(taxa.shape, dtype=torch.int32 if hits else torch.bool,
                       device=taxa.device)
-    scratch = (torch.empty((N, lengths.numel()), dtype=torch.int16,
-                           device=taxa.device) if path == "global" else None)
-    kernels.K3.launch(taxa.data_ptr(), lengths.data_ptr(),
-                      lengths.numel(), N, int(min_seed_size),
-                      int(max_gap_size), out.data_ptr(), int(hits),
-                      int(path == "staged"), LANES_PER_BLOCK,
-                      0 if scratch is None else scratch.data_ptr(),
-                      kernels.stream_of(taxa))
+    if seedextend_path(N) == "staged":
+        kernels.K3.launch(taxa.data_ptr(), lengths.data_ptr(),
+                          lengths.numel(), N, int(min_seed_size),
+                          int(max_gap_size), out.data_ptr(), int(hits),
+                          LANES_PER_BLOCK, kernels.stream_of(taxa))
+    else:
+        kernels.K3R.launch(taxa.data_ptr(), lengths.data_ptr(),
+                           lengths.numel(), N, int(min_seed_size),
+                           int(max_gap_size), out.data_ptr(), int(hits),
+                           kernels.stream_of(taxa))
     return out
 
 

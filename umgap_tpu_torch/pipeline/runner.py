@@ -43,15 +43,14 @@ def wide_batch_rows(device_type: str, method: str, strategy: str, K: int,
     or, with ``plain``, on the card, and rmq/hybrid on the card,
     ``agg/device_rmq.py`` ``rmq_mix_batch``), WIDE_STEP_BYTES bounds
     their B * K * K; the other steps on the card allocate per row what
-    grows with K, K4's hits and global scratch row (``dedup_counts``)
-    and K6's block list (``tree_list_bytes``), which bound B the same
-    way. At most WIDE_BATCH either way."""
+    grows with K, K4's hits and its (id, count, valid) output
+    (``dedup_counts``) and K6's block list (``tree_list_bytes``), which
+    bound B the same way. At most WIDE_BATCH either way."""
     if device_type != "cuda" or plain or (method, strategy) == ("rmq",
                                                                 "hybrid"):
         per_row = K * K
     else:
-        per_row = (4 * K + (8 << max(K - 1, 1).bit_length())
-                   + devagg.tree_list_bytes(K))
+        per_row = 4 * K + 9 * K + devagg.tree_list_bytes(K)
     return max(1, min(WIDE_BATCH, WIDE_STEP_BYTES // max(per_row, 1)))
 
 
