@@ -184,7 +184,7 @@ def main():
         phase_cli(torch, world)
         phase_ingest(torch, world)
         long_launches = phase_long(torch, world)
-        phase_rmq(torch, world)
+        rmq_launches = phase_rmq(torch, world)
     finally:
         shutil.rmtree(TMP_DIR, ignore_errors=True)
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -193,7 +193,8 @@ def main():
     # every number below was measured in this run: the phases above
     # raise before this point if any of them did not run to its end.
     # Launches: the 9-mer main path's, K7 and K8 the tryptic path's, K3's
-    # and K4's row kernels the 12,000 bp path's.
+    # and K4's row kernels the 12,000 bp path's, K5 and snap_taxa the
+    # Euler/RMQ path's (K6 snaps on the others).
     # K7's time and share are its L2-flushed ones (its 8.8 MB would
     # otherwise sit in L2 across launches; the warm ones stay in its
     # stats). K8's times and bound are the resident index's with the L2
@@ -220,6 +221,7 @@ def main():
             "replaces": k.replaces,
             "launches": (tlaunches if k.name in TRYPTIC_KERNELS
                          else long_launches if k.name in ROW_KERNELS
+                         else rmq_launches if k.name in RMQ_TAIL_KERNELS
                          else launches)[k.name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -649,14 +651,38 @@ def _chain(torch, world, width):
         valid_hits=dict(mean=float(nv.mean()),
                         p50=float(np.percentile(nv, 50)),
                         p99=float(np.percentile(nv, 99)), max=int(nv.max())))
+    # K4 with the lower bound at its stores (the path's), held to its
+    # plain version and to K4 then the filter; its cost beside K4 alone
+    # and beside K4 + the unfused filter it replaced
+    for lb in (1.0, 2.0, 5.0):
+        got = devagg.dedup_counts(hits, None, 64, True, lower_bound=lb)
+        errs["dedup_counts"] = max(errs["dedup_counts"], compare(
+            torch, f"K4 lower bound {lb} L={width}", got,
+            devagg.dedup_counts_plain(hits, None, 64, True, lower_bound=lb)))
+        require(torch.equal(got[2], devagg.filter_lower_bound(
+            k4[1], k4[2], lb)), f"K4 lower bound {lb}: not the filter")
 
-    # K5 and K6 on K4's output, high-sensitivity's lower bound
-    utaxa, ucounts, uvalid = k4[0], k4[1], devagg.filter_lower_bound(
-        k4[1], k4[2], 1.0)
-    (s5, e5), (s5a, e5a), (s6, e6) = _agg_chain(torch, world, utaxa,
-                                                ucounts, uvalid, width)
-    stats.update(lane_gather=s5, lane_gather_ancestry=s5a, tree_aggregate=s6)
-    errs.update(lane_gather=e5, lane_gather_ancestry=e5a, tree_aggregate=e6)
+    def k4_bound():
+        return devagg.dedup_counts(hits, None, 64, True, lower_bound=2.0)
+
+    def k4_filter():
+        u, c, v, n = devagg.dedup_counts(hits, None, 64, True)
+        return u, c, devagg.filter_lower_bound(c, v, 2.0), n
+
+    stats["dedup_counts"]["lower_bound"] = dict(
+        ms=cuda_ms(torch, k4_bound), device_ms=device_ms(torch, k4_bound),
+        unfused_ms=cuda_ms(torch, k4_filter),
+        unfused_device_ms=device_ms(torch, k4_filter))
+
+    # K5, K6 and snap_taxa on K4's output, high-sensitivity's lower bound
+    utaxa, ucounts, uvalid = devagg.dedup_counts(hits, None, 64,
+                                                 lower_bound=1.0)
+    (s5, e5), (s5a, e5a), (s6, e6), (ss, es) = _agg_chain(
+        torch, world, utaxa, ucounts, uvalid, width)
+    stats.update(lane_gather=s5, lane_gather_ancestry=s5a, tree_aggregate=s6,
+                 snap_taxa=ss)
+    errs.update(lane_gather=e5, lane_gather_ancestry=e5a, tree_aggregate=e6,
+                snap_taxa=es)
     log(f"L={width} chain, kernels equal to plain: " + ", ".join(
         f"{n} {s['ms']:.3f} ms (plain {s['plain_ms']:.3f}, bound "
         f"{s['bound_ms']:.4f} {s['bound_by']})" for n, s in stats.items()))
@@ -1056,13 +1082,15 @@ def _dense_hits(torch, dtax, B, K, lo, seed=5):
 
 
 def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
-    """K5 (hit_geometry's row and ancestry gathers, snap's take) and K6
-    (hybrid, lca*, mrtl; its hits entry, the main path's, and its
-    HitGeometry entry, which runs the same launch) on one batch's
-    deduplicated hits, each held to its plain version and timed, K6 also
-    by device time, with its bound, its floor (no slot valid) and on
-    groups of 17-64 and of 64 valid hits; K6 also on the first 1,024
-    rows padded to the wide program's width at this read length."""
+    """K5 (hit_geometry's row and ancestry gathers, snap's take), K6
+    (hybrid, lca*, mrtl; its hits entry, the main path's, with and
+    without the snap table, and its HitGeometry entry, which runs the
+    same launch) and snap_taxa on one batch's deduplicated hits, each
+    held to its plain version and timed, K6 also by device time, with
+    its bound, its floor (no slot valid) and on groups of 17-64 and of
+    64 valid hits; K6 also on the first 1,024 rows padded to the wide
+    program's width at this read length; snap_taxa beside the unfused
+    snap it replaced and beside torch.take."""
     from umgap_tpu_torch import kernels
     from umgap_tpu_torch.agg import device as devagg
     from umgap_tpu_torch.ops import gather
@@ -1149,16 +1177,18 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
     # too), with none (the floor) and on the dense batches of
     # chain_device_ms (every group on the warp path)
     s6, e6 = {}, 0.0
-    res = {}
+    res, snapped = {}, {}
+    snapping = dtax.snap_valid
     every, none = torch.ones_like(uvalid), torch.zeros_like(uvalid)
     dense = {n: _dense_hits(torch, dtax, B, K, lo)
              for n, lo in (("dense", 17), ("full", K))}
     for strat in ("hybrid", "lca*", "mrtl"):
-        def hits(plain=False, strat=strat, v=uvalid, f=0.25, h=None):
+        def hits(plain=False, strat=strat, v=uvalid, f=0.25, h=None,
+                 snap=None):
             fn = (devagg.tree_aggregate_hits_plain if plain
                   else devagg.tree_aggregate_hits)
             u, c, v = h or (utaxa, ucounts, v)
-            return fn(strat, dtax, u, c, v, f)
+            return fn(strat, dtax, u, c, v, f, snap=snap)
 
         def on_geom(plain=False, strat=strat):
             fn = (devagg.tree_aggregate_plain if plain
@@ -1178,6 +1208,23 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
                            hits(True, h=h)) for n, h in dense.items()))
         require(torch.equal(on_geom(), res[strat]),
                 f"K6 {strat} L={width}: the entries differ")
+        # with the snap table (the path's): every case again, and the
+        # launch equal to K6 then the plain snap
+        sn = dict(snap=snapping)
+        snapped[strat] = hits(**sn)
+        e6 = max(e6, compare(torch, f"K6 {strat} snap L={width}",
+                             snapped[strat], hits(True, **sn)),
+                 compare(torch, f"K6 {strat} snap every slot valid "
+                         f"L={width}", hits(v=every, **sn),
+                         hits(True, v=every, **sn)),
+                 compare(torch, f"K6 {strat} snap no slot valid L={width}",
+                         hits(v=none, **sn), hits(True, v=none, **sn)),
+                 *(compare(torch, f"K6 {strat} snap {n} L={width}",
+                           hits(h=h, **sn), hits(True, h=h, **sn))
+                   for n, h in dense.items()))
+        require(torch.equal(snapped[strat], devagg.snap_taxa_plain(
+            snapping, res[strat], uvalid)),
+            f"K6 {strat} L={width}: snap differs from K6 then snap")
         for f in ((0.5, 1.0) if strat == "hybrid" else ()):
             e6 = max(e6, compare(torch, f"K6 hybrid f={f} L={width}",
                                  hits(f=f), hits(True, f=f)))
@@ -1186,7 +1233,11 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
             plain_ms=cuda_ms(torch, lambda: hits(True), reps=5),
             floor_device_ms=device_ms(torch, lambda: hits(v=none)),
             **{n + "_device_ms": device_ms(torch, lambda h=h: hits(h=h))
-               for n, h in dense.items()})
+               for n, h in dense.items()},
+            snap_ms=cuda_ms(torch, lambda: hits(**sn)),
+            snap_device_ms=device_ms(torch, lambda: hits(**sn)),
+            full_snap_device_ms=device_ms(
+                torch, lambda: hits(h=dense["full"], **sn)))
     got = devagg.snap_batch(dtax.snap_valid, res["hybrid"])
     with kernels.plain_versions():
         want = devagg.snap_batch(dtax.snap_valid, res["hybrid"])
@@ -1202,6 +1253,52 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
         plain_ms=cuda_ms(torch, lambda: gather.take_plain(snapping, ids)),
         library_ms=cuda_ms(torch, lambda: torch.take(snapping, ids64)),
         bound_ms=sb, bound_by=sby, shape=[int(snapping.shape[0]), B])
+    # snap_taxa (the Euler/RMQ aggregators' snap) at the main shape on
+    # K6's unsnapped hybrid output: held to its plain version, to K6's
+    # snap and on odd ids (negative, at and past the table's end,
+    # I32_MAX) and masks (every, no slot valid); timed beside the unfused
+    # snap it replaced (K5's take and the nine launches around it, one
+    # event window) and beside torch.take alone. Bound: the mask, the
+    # ids, a snap entry per distinct id in range and the output, bytes.
+    S = snapping.shape[0]
+    agg = res["hybrid"]
+    odd = agg.clone()
+    odd[::7], odd[1::7], odd[2::7] = -1, S, devagg.I32_MAX
+
+    def st(a=agg, v=uvalid):
+        return devagg.snap_taxa(snapping, a, v)
+
+    def unfused():
+        return torch.where(uvalid.any(dim=-1),
+                           devagg.snap_batch(snapping, agg, 0), 1).to(
+            torch.int32)
+
+    es = max(compare(torch, f"snap_taxa L={width}", st(),
+                     devagg.snap_taxa_plain(snapping, agg, uvalid)),
+             compare(torch, f"snap_taxa unfused L={width}", st(),
+                     unfused()),
+             *(compare(torch, f"snap_taxa {n} L={width}", st(a, v),
+                       devagg.snap_taxa_plain(snapping, a, v))
+               for n, a, v in (("odd ids", odd, uvalid),
+                               ("every slot valid", odd, every),
+                               ("no slot valid", agg, none))))
+    require(torch.equal(st(), snapped["hybrid"]),
+            f"snap_taxa L={width}: differs from K6's snap")
+    ids64 = agg.clamp(0, S - 1).to(torch.int64)
+    inrange = agg[(agg >= 0) & (agg < S)]
+    sb, sby = bound(B * K + (int(torch.unique(inrange).numel()) + 2 * B) * 4,
+                    0)
+    ss = dict(
+        ms=cuda_ms(torch, st), device_ms=device_ms(torch, st),
+        plain_ms=cuda_ms(torch, lambda: devagg.snap_taxa_plain(
+            snapping, agg, uvalid)),
+        unfused_ms=cuda_ms(torch, unfused),
+        unfused_device_ms=device_ms(torch, unfused),
+        library_ms=cuda_ms(torch, lambda: torch.take(snapping, ids64)),
+        library_device_ms=device_ms(torch, lambda: torch.take(snapping,
+                                                              ids64)),
+        bound_ms=sb, bound_by=sby, shape=[B, K, S])
+
     # bounds, from this batch's data: what the valid slots need, each
     # read once, the valid mask read whole and (B,) written once.
     # Operations: hybrid tests and compares once per valid slot a step
@@ -1269,6 +1366,10 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
                                                      cw, 0.25)))
         require(torch.equal(got, res[strat][:n]) and torch.equal(wg(), got),
                 f"K6 {strat}: width {kw} differs from width {K}")
+        require(torch.equal(devagg.tree_aggregate_hits(
+            strat, dtax, uw, cw, vw, 0.25, snap=snapping),
+            snapped[strat][:n]),
+            f"K6 {strat} snap: width {kw} differs from width {K}")
         wide[strat] = dict(ms=cuda_ms(torch, wh, reps=5),
                            device_ms=device_ms(torch, wh))
     s6["wide"] = wide
@@ -1277,7 +1378,7 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
               bound_ms=h["bound_ms"], bound_by=h["bound_by"],
               floor_device_ms=h["floor_device_ms"], library_ms=None,
               shape=[B, K, D])
-    return (s5, e5), (s5a, e5a), (s6, e6)
+    return (s5, e5), (s5a, e5a), (s6, e6), (ss, es)
 
 
 K1_SWEEP = (8, 16, 32, 64)
@@ -1326,6 +1427,14 @@ def block_sweep(torch, world):
         f"L={w} " + ", ".join(f"{T}: {fmt_ms(t)}" for T, t in d.items())
         for w, d in k3.items()))
     return k1, k3
+
+
+def fused_tail(devagg) -> bool:
+    """Whether a tree's K4 takes the lower bound and its K6 the snap
+    table (the tail after K3 in two launches)."""
+    import inspect
+
+    return "lower_bound" in inspect.signature(devagg.dedup_counts).parameters
 
 
 def _k6_bound(torch, dtax, res, utaxa, uvalid, D):
@@ -1400,6 +1509,17 @@ def k6_wide(torch, world, check=True):
                               device_ms_by=by)
             if check:
                 row[strat]["plain_ms"] = cuda_ms(torch, plain, reps=1)
+            if fused_tail(devagg):  # the same launch with the snap table
+                def k6s(strat=strat):
+                    return devagg.tree_aggregate_hits(
+                        strat, dtax, u, c, v, 0.25, snap=dtax.snap_valid)
+
+                if check:
+                    err = max(err, compare(
+                        torch, f"K6 {strat} snap K={K}", k6s(),
+                        devagg.snap_taxa_plain(dtax.snap_valid, res[strat],
+                                               v)))
+                row[strat]["snap_device_ms"] = device_ms(torch, k6s, reps=2)
         for strat, (b, by) in _k6_bound(torch, dtax, res, u, v, D).items():
             dm = row[strat]["device_ms"]
             row[strat].update(bound_ms=b, bound_by=by,
@@ -1446,14 +1566,14 @@ def ladder_wide(torch, run):
     left = [0]
     hits0, wide0 = devagg.tree_aggregate_hits, runner.Analyser.run_wide_packed
 
-    def hits(strategy, dtax, utaxa, ucounts, uvalid, factor=0.25):
+    def hits(strategy, dtax, utaxa, ucounts, uvalid, *rest):
         if utaxa.shape[1] > 64:
             m = min(left[0], utaxa.shape[0])
             left[0] -= m
             rec["batches"] += 1
             rec["rows"].append(int(utaxa.shape[0]))
             rec["valid"] += uvalid[:m].sum(dim=1).tolist()
-        return hits0(strategy, dtax, utaxa, ucounts, uvalid, factor)
+        return hits0(strategy, dtax, utaxa, ucounts, uvalid, *rest)
 
     def wide(self, dna4, lens):
         torch.cuda.synchronize()
@@ -1610,6 +1730,9 @@ def k4_cell(torch, hits, weights, k_max, check, what):
     def k4():
         return devagg.dedup_counts(hits, None, k_max, True)
 
+    def k4_bound():
+        return devagg.dedup_counts(hits, None, k_max, True, lower_bound=2.0)
+
     ms, by = device_ms(torch, k4, reps=5, by=True)
     nv = (hits > 0).sum(dim=1).cpu().numpy().astype(np.int64)
     lg = np.ceil(np.log2(np.maximum(nv, 1))).astype(np.int64)
@@ -1619,7 +1742,13 @@ def k4_cell(torch, hits, weights, k_max, check, what):
               valid_per_row=[int(nv.min()), float(nv.mean()), int(nv.max())],
               ms=cuda_ms(torch, k4, reps=5), device_ms=ms, device_ms_by=by,
               bound_ms=b, bound_by=bb, library_ms=None)
+    if fused_tail(devagg):
+        st["lower_bound_device_ms"] = device_ms(torch, k4_bound, reps=5)
     err = 0.0
+    if check and fused_tail(devagg):
+        err = compare(torch, f"K4 {what} lower bound", k4_bound(),
+                      devagg.dedup_counts_plain(hits, None, k_max, True,
+                                                lower_bound=2.0))
     if check:
         for w in (None, weights):
             got = devagg.dedup_counts(hits, w, k_max, True)
@@ -2244,12 +2373,18 @@ def is_tryptic(config) -> bool:
     return config.name in TRYPTIC_PRESETS
 
 
+# the tail after K4 on the Euler/RMQ aggregators (rmq/lca*, rmq/hybrid):
+# their tables through K5, then snap_taxa; K6 takes both on the others
+RMQ_TAIL_KERNELS = {"lane_gather", "snap_taxa"}
+
+
 def path_kernels(config):
     """Names of the kernels a configuration's path launches at 100-160
     bp: K1-K3 on the 9-mer path, K7 and K8 on the tryptic one, K3's and
-    K4's row kernels on none (ROW_KERNELS), K6 only for the tree
-    aggregators (and rmq/mrtl), which read the taxonomy rows themselves,
-    so no path launches K5's ancestry epilogue (it serves
+    K4's row kernels on none (ROW_KERNELS), K4 with the lower bound on
+    all; K6 (which reads the taxonomy rows itself and snaps) for the
+    tree aggregators and rmq/mrtl, K5 and snap_taxa for rmq/lca* and
+    rmq/hybrid; no path launches K5's ancestry epilogue (it serves
     hit_geometry)."""
     from umgap_tpu_torch import kernels
     from umgap_tpu_torch.agg import device as devagg
@@ -2257,8 +2392,9 @@ def path_kernels(config):
     names = {k.name for k in kernels.KERNELS} - {"lane_gather_ancestry"}
     names -= ROW_KERNELS
     names -= NINEMER_KERNELS if is_tryptic(config) else TRYPTIC_KERNELS
-    if (config.method, config.strategy) not in \
-            devagg.GEOMETRY_AGGREGATIONS:
+    if (config.method, config.strategy) in devagg.GEOMETRY_AGGREGATIONS:
+        names -= RMQ_TAIL_KERNELS
+    else:
         names.discard("tree_aggregate")
     return names
 
@@ -2275,6 +2411,56 @@ def batch_launches(torch, world, an):
     an.step(b, lens, L)
     torch.cuda.synchronize()
     return kernels.launch_counts()
+
+
+def batch_cuda_launches(torch, world, an, tries=3):
+    """Every CUDA kernel one 16,384-pair batch step of an Analyser runs,
+    PyTorch's own included, by this code on any tree: the profiler over
+    one step (its inputs already on the card), recorded after a warm-up
+    window with host time around it as ``_profile_window`` does, taken
+    again (up to ``tries`` windows) until the card's kernel events
+    number the host's launch calls. Returns {"kernels": n (device-side
+    kernel events), "launch_calls": n (host-side cudaLaunchKernel
+    calls), "copies": n (memcpy and memset), "by_name": {kernel:
+    count}, "windows": windows taken}."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from umgap_tpu_torch.ops import encoding
+
+    dev, L = world["dev"], world["L"]
+    b = torch.from_numpy(encoding.pack_dna4(world["reads"][:BATCH])).to(dev)
+    lens = torch.full((BATCH, 2), L, dtype=torch.int32, device=dev)
+
+    def step():
+        an.step(b, lens, L)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+    step()
+    for k in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            step()
+            prof.step()
+            time.sleep(PROFILE_PAD_S)
+            step()
+            prof.step()
+        by_name, copies, calls = {}, 0, 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                if e.key.startswith(("Memcpy", "Memset")):
+                    copies += e.count
+                elif not e.key.startswith("ProfilerStep"):
+                    by_name[e.key] = e.count
+            elif e.key == "cudaLaunchKernel":
+                calls += e.count
+        out = dict(kernels=sum(by_name.values()), launch_calls=calls,
+                   copies=copies, by_name=by_name, windows=k)
+        if out["kernels"] == calls:
+            break
+    return out
 
 
 def _analyser(world, config, dtable=None, batch_size=BATCH, read_length=None,
@@ -2363,18 +2549,25 @@ def phase_main(torch, world):
     for n in set().union(*(path_kernels(c) for c in PRESETS.values())):
         require(launches[n] > 0,
                 f"kernel {n} was not launched on the main path")
-    # one batch of each tree aggregator: one K6 launch, K5 for snap's take
-    # alone, no row gather and no ancestry epilogue
+    # one batch of each tree aggregator: after K3 one K4 launch (with the
+    # lower bound) and one K6 launch (with snap): no K5 (no snap take, no
+    # row gather, no ancestry epilogue) and no snap_taxa
     from umgap_tpu_torch.agg import device as devagg
 
-    per_batch = {}
+    per_batch, cuda_batch = {}, {}
     for name, cfg in PRESETS.items():
         per_batch[name] = c = batch_launches(torch, world, analysers[name])
         if (cfg.method, cfg.strategy) in devagg.GEOMETRY_AGGREGATIONS:
-            require(c["tree_aggregate"] == 1 and c["lane_gather"] == 1
+            require(c["tree_aggregate"] == 1 and c["dedup_counts"] == 1
+                    and c["lane_gather"] == 0 and c["snap_taxa"] == 0
                     and c["lane_gather_ancestry"] == 0,
                     f"{name}: one batch launched {c}")
+        cuda_batch[name] = batch_cuda_launches(torch, world, analysers[name])
     RESULT["batch_launches"] = per_batch
+    RESULT["batch_cuda_launches"] = cuda_batch
+    log("CUDA kernels in one batch step (profiler): " + ", ".join(
+        f"{n} {c['kernels']} ({c['launch_calls']} launch calls)"
+        for n, c in cuda_batch.items()))
 
     phase = {"presets": {}}
     for name, cfg in PRESETS.items():
@@ -2586,6 +2779,11 @@ def phase_tryptic(torch, world):
         overflow = an.overflow_reads
         e2e = _stream_rate(an, world)
         stages = stage_table(torch, world, an)
+        cuda_batch = batch_cuda_launches(torch, world, an)
+        c = batch_launches(torch, world, an)
+        require(c["tree_aggregate"] == 1 and c["dedup_counts"] == 1
+                and c["lane_gather"] == 0 and c["snap_taxa"] == 0,
+                f"tryptic {name}: one batch launched {c}")
         kernels.reset_launches()
         wide = an.run_wide(dna, lens)
         wl = kernels.launch_counts()
@@ -2599,6 +2797,7 @@ def phase_tryptic(torch, world):
                 f"tryptic wide {name}: taxa differ from the main program's")
         phase["presets"][name] = dict(
             e2e=e2e, overflow_reads=overflow, stages=stages,
+            batch_cuda_launches=cuda_batch,
             checksum=int(taxa.sum()), distinct_taxa=int(len(np.unique(taxa))),
             unassigned=int((taxa == 1).sum()),
             wide=dict(k_max=an._exact_kmax(), batch=an._wide_batch,
@@ -2606,7 +2805,8 @@ def phase_tryptic(torch, world):
         log(f"tryptic {name}: kernel == plain on {P} groups, == reference "
             f"on {REFERENCE_PAIRS}; e2e {e2e['pairs_per_s']:.0f} pairs/s, "
             f"overflow {overflow}; wide (k_max {an._exact_kmax()}) on {n} "
-            "pairs == plain == main")
+            f"pairs == plain == main; {cuda_batch['kernels']} CUDA kernels "
+            "a batch step")
     phase["seconds"] = time.perf_counter() - t_phase
     RESULT["phases"]["tryptic"] = phase
     return launches, results
@@ -2966,8 +3166,11 @@ def phase_cli(torch, world):
                 f.write(b"@s%d/%d\n%s\n+\n%s\n" % (
                     i, e + 1, seqs[i].tobytes(), b"I" * L))
     taxtsv, index = _cli_files(world)
+    # --fgspp never: a card machine with FragGeneScan++ under its config
+    # dir runs the same six-frame path (the port refuses FGSpp's presets
+    # there under the default, auto)
     cmd = [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
-           taxtsv, "--index", index]
+           taxtsv, "--index", index, "--fgspp", "never"]
     for preset in PRESETS:  # one sample per preset, one process
         cmd += ["-t", preset, "-1", paths[0], "-2", paths[1], "-o",
                 os.path.join(TMP_DIR, f"{preset}.fa")]
@@ -3011,7 +3214,7 @@ def phase_cli(torch, world):
     tout = os.path.join(TMP_DIR, "tryptic-sensitivity.fa")
     base = [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
             taxtsv, "-t", "tryptic-sensitivity", "-1", paths[0], "-2",
-            paths[1]]
+            paths[1], "--fgspp", "never"]
     proc = subprocess.run(base + ["--index", pindex, "-o", tout], cwd=REPO,
                           capture_output=True, text=True, timeout=600)
     require(proc.returncode == 0,
@@ -3357,7 +3560,8 @@ def phase_ingest(torch, world):
     proc = subprocess.run(
         [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
          taxtsv, "--index", index, "-t", INGEST_PRESET, "-1",
-         paths["one_gz"][0], "-2", paths["one_gz"][1], "-o", cli_out],
+         paths["one_gz"][0], "-2", paths["one_gz"][1], "-o", cli_out,
+         "--fgspp", "never"],
         cwd=REPO, capture_output=True, text=True, timeout=600)
     cli_s = time.perf_counter() - t0
     require(proc.returncode == 0,
@@ -3375,22 +3579,30 @@ def phase_ingest(torch, world):
 
 
 def tryptic_ring_rate(world, paths, out_path):
-    """tryptic-sensitivity from the R1/R2 FASTQ ``paths`` to records
-    through the command line's ring tier at its defaults (width 160,
-    16,384-pair batches) over the bench tryptic index: the median
-    pairs/s of three windows of at least STEADY_S, after one warm
-    pass."""
+    """tryptic-sensitivity through the ring tier (``ring_rate``) over the
+    bench tryptic index."""
+    return ring_rate(world, paths, out_path, "tryptic-sensitivity")
+
+
+def ring_rate(world, paths, out_path, preset):
+    """``preset`` from the R1/R2 FASTQ ``paths`` to records through the
+    command line's ring tier at its defaults (width 160, 16,384-pair
+    batches) over the bench index of its family: the median pairs/s of
+    three windows of at least STEADY_S, after one warm pass."""
     import argparse
     import statistics
 
     from umgap_tpu_torch import cli
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+    from umgap_tpu_torch.pipeline.tryptic import TRYPTIC_PRESETS
 
+    cfg = {**PRESETS, **TRYPTIC_PRESETS}[preset]
+    table, dtable = (("ptable", "pdtable") if is_tryptic(cfg)
+                     else ("table", "dtable"))
     args = argparse.Namespace(read_length=160, batch_size=BATCH)
-    session = cli.AnalyseSession(args, world["tax"], world["ptable"],
-                                 world["dtax"], world["pdtable"],
-                                 world["dev"])
-    smp = dict(type="tryptic-sensitivity", first=paths[0], second=paths[1],
-               output=None)
+    session = cli.AnalyseSession(args, world["tax"], world[table],
+                                 world["dtax"], world[dtable], world["dev"])
+    smp = dict(type=preset, first=paths[0], second=paths[1], output=None)
 
     def window(min_s=STEADY_S):
         n = passes = 0
@@ -3575,7 +3787,7 @@ def long_path(torch, world, check=True):
     proc = subprocess.run(
         [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
          taxtsv, "--index", index, "-t", LONG12K_PRESET, "--read-length",
-         str(LONG12K_BP), "-1", fa, "-o", cli_out],
+         str(LONG12K_BP), "-1", fa, "-o", cli_out, "--fgspp", "never"],
         cwd=REPO, capture_output=True, text=True, timeout=600)
     out["cli_s"] = time.perf_counter() - t0
     require(proc.returncode == 0,
@@ -3718,9 +3930,11 @@ def _host_routes(torch, world):
 
 def phase_rmq(torch, world):
     """rmq/lca* and rmq/hybrid (max-sensitivity's seeds) through the
-    Analyser over all 32,768 pairs: K1-K5 launched, kernel taxa equal to
-    the plain path's, the first 1,024 equal to umgap_tpu's digests;
-    device-resident and steady end-to-end pairs/s."""
+    Analyser over all 32,768 pairs: K1-K5 and snap_taxa launched (one
+    snap_taxa and no K6 a batch), kernel taxa equal to the plain path's,
+    the first 1,024 equal to umgap_tpu's digests; device-resident and
+    steady end-to-end pairs/s, CUDA kernels a batch step. Returns the
+    launch counts of both runs, summed."""
     from umgap_tpu_torch import kernels
     from umgap_tpu_torch.agg.device_rmq import DeviceEuler
     from umgap_tpu_torch.ops import encoding
@@ -3734,6 +3948,7 @@ def phase_rmq(torch, world):
         for i in range(P // BATCH)]
     blens = torch.full((BATCH, 2), L, dtype=torch.int32, device=dev)
     phase = {"tour_len": euler.tour_len}
+    total = {}
     for strat in RMQ_STRATEGIES:
         key = f"rmq/{strat}"
         cfg = PipelineConfig(f"rmq-{strat}", method="rmq", strategy=strat)
@@ -3745,6 +3960,12 @@ def phase_rmq(torch, world):
         launches = kernels.launch_counts()
         for k in path_kernels(cfg):
             require(launches[k] > 0, f"{key}: kernel {k} was not launched")
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        c = batch_launches(torch, world, an)
+        require(c["snap_taxa"] == 1 and c["dedup_counts"] == 1
+                and c["tree_aggregate"] == 0,
+                f"{key}: one batch launched {c}")
         plain = _run_analyser(_analyser(world, cfg, plain=True, euler=euler),
                               world)
         require(np.array_equal(taxa, plain),
@@ -3763,6 +3984,7 @@ def phase_rmq(torch, world):
         e2e = _stream_rate(an, world)
         phase[key] = dict(
             launches=launches, overflow_reads=an.overflow_reads,
+            batch_cuda_launches=batch_cuda_launches(torch, world, an),
             device_resident_pairs_per_s=P / (ms / 1e3),
             batch_ms=ms / len(batches), e2e=e2e,
             checksum=int(taxa.sum()),
@@ -3773,6 +3995,7 @@ def phase_rmq(torch, world):
             f"{e2e['pairs_per_s']:.0f} pairs/s; launches {launches}")
     phase["seconds"] = time.perf_counter() - t_phase
     RESULT["phases"]["rmq"] = phase
+    return total
 
 
 # ---------------------------------------------------------------------- #
@@ -3800,7 +4023,9 @@ def compare_trees(before, after, order="BAAB", mode="full"):
     ``wide_ab`` (K6 at the wide widths, the ladder sample's split),
     "long" its ``long_ab`` (K3 and K4 past the main path's variants at
     each rung of the width ladder and on the synthetic long rows, the
-    main path's kernels, the 12,000 bp path, the ladder sample).
+    main path's kernels, the 12,000 bp path, the ladder sample), "tail"
+    its ``tail_ab`` (the tail after K3: CUDA kernels a batch, stage
+    tables, the tail's device ms, the ring, the 12,000 bp path).
     Writes ``ab.json`` (or ``ab_<mode>.json``) under OUT_DIR.
 
         python3 -c "import chip_smoke; chip_smoke.compare_trees(P, A)"
@@ -3824,6 +4049,16 @@ def compare_trees(before, after, order="BAAB", mode="full"):
     name = "ab.json" if mode == "full" else f"ab_{mode}.json"
     with open(os.path.join(OUT_DIR, name), "w") as f:
         json.dump(runs, f, indent=1, default=str)
+
+    def tail(t):
+        # the stages after seed-extend, whichever a tree has: dedup,
+        # hit_geometry (the filter) and snap before the fused tail
+        names = ("dedup", "hit_geometry", "aggregate", "snap")
+        ms = [t["stage_ms"][n] for n in names if n in t["stage_ms"]]
+        return (" + ".join(n for n in names if n in t["stage_ms"])
+                + " " + " + ".join(f"{v:.3f}" for v in ms)
+                + f" = {sum(ms):.3f}")
+
     if mode == "wide":
         for k, r in enumerate(runs):
             log(f"run {k} {r['tag']}: K6 device ms " + "; ".join(
@@ -3848,13 +4083,18 @@ def compare_trees(before, after, order="BAAB", mode="full"):
                 f"{lg['long']['k4']['device_ms']:.3f} K6 "
                 f"{lg['long']['k6']['device_ms']:.3f} ms; ladder wall "
                 f"{lg['ladder']['wall_s']:.3f} s")
+    if mode == "tail":
+        for k, r in enumerate(runs):
+            t = r["tail"]
+            log(f"run {k} {r['tag']}: CUDA kernels a batch " + ", ".join(
+                f"{n} {c['kernels']}" for n, c in t["cuda_launches"].items())
+                + "; " + "; ".join(
+                    f"{n} {s['batch_ms']:.3f} ms/batch ({tail(s)})"
+                    for n, s in t["stages"].items())
+                + f"; ring {t['ring_high_sensitivity']['pairs_per_s']:.0f}"
+                f" pairs/s; 12,000 bp wall {t['long']['wall_s']:.3f} s")
     if mode != "full":
         return
-
-    def tail(t):
-        g, a = (t["stage_ms"].get(n, 0.0) for n in ("hit_geometry",
-                                                     "aggregate"))
-        return f"hit_geometry + aggregate {g:.3f} + {a:.3f} = {g + a:.3f}"
 
     for k, r in enumerate(runs):
         log(f"run {k} {r['tag']}: device ms " + "; ".join(
@@ -3922,11 +4162,86 @@ def chain_device_ms(torch, world, width):
                     return devagg.tree_aggregate(strat, dtax, geom, u, c,
                                                  0.25)
             out[f"aggregate_{strat}{tag}"] = device_ms(torch, agg)
+    for strat in ("hybrid", "lca*", "mrtl"):
+        tail = _tail_fn(torch, dtax, hits, strat)
+        out[f"tail_{strat}"] = device_ms(torch, tail)
+        out[f"tail_{strat}_event_ms"] = cuda_ms(torch, tail)
     if width > world["L"]:
         full, flens = _batch_reads(torch, world, width, full=True)
         out["reads_to_kmers_full"] = device_ms(
             torch, lambda: translate.reads_to_kmers(full, flens, width, tt1,
                                                     9))
+    return out
+
+
+def _tail_fn(torch, dtax, hits, strategy, lower_bound=1.0, k_max=64):
+    """The pipeline's work after seed-extend on one batch of hits, as a
+    tree runs it (``aggregate_hits``): K4 with the bound, then K6 with
+    the snap table, where the tree has the fused tail; else K4, the
+    filter, the aggregator, snap's take and its selects. Both end in
+    the overflow compare."""
+    from umgap_tpu_torch.agg import device as devagg
+
+    method = "rmq" if strategy == "mrtl" else "tree"
+    if fused_tail(devagg):
+        def tail():
+            u, c, v, n = devagg.dedup_counts(hits, None, k_max, True,
+                                             lower_bound=lower_bound)
+            return devagg.aggregate_batch(
+                dtax, u, c, v, method, strategy, 0.25,
+                snap=dtax.snap_valid), n > k_max
+    else:
+        def tail():
+            u, c, v, n = devagg.dedup_counts(hits, None, k_max, True)
+            v = devagg.filter_lower_bound(c, v, lower_bound)
+            agg = devagg.aggregate_batch(dtax, u, c, v, method, strategy,
+                                         0.25)
+            return torch.where(v.any(dim=-1), devagg.snap_batch(
+                dtax.snap_valid, agg, 0), 1).to(torch.int32), n > k_max
+    return tail
+
+
+def tail_ab(torch, world):
+    """The tail after K3 and what it moves, by this code on any tree:
+    CUDA kernels in one batch step (``batch_cuda_launches``) for all six
+    presets; the three presets' stage tables (device-resident pairs/s,
+    stages); K1-K4, K6 and the tail's device and event ms at L = 100
+    and 160 (``chain_device_ms``, whose ``tail_<strategy>`` is
+    ``_tail_fn``); high-sensitivity from FASTQ through the ring tier (8
+    copies of the workload, median of three windows); the 12,000 bp
+    path (``long_path`` unchecked)."""
+    from umgap_tpu_torch.agg import device as devagg
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+    from umgap_tpu_torch.pipeline.tryptic import TRYPTIC_PRESETS
+
+    out = dict(fused=fused_tail(devagg), cuda_launches={}, stages={})
+    for name, cfg in {**PRESETS, **TRYPTIC_PRESETS}.items():
+        an = _analyser(world, cfg)
+        out["cuda_launches"][name] = batch_cuda_launches(torch, world, an)
+        if name in STAGE_PRESETS:
+            out["stages"][name] = stage_table(torch, world, an)
+    out["chain"] = {w: chain_device_ms(torch, world, w)
+                    for w in (world["L"], 160)}
+    os.makedirs(TMP_DIR, exist_ok=True)
+    paths = [os.path.join(TMP_DIR, f"ab_R{e + 1}.fq") for e in (0, 1)]
+    for e in (0, 1):
+        text = _fastq_text(world["reads"], e, b"c0_")
+        with open(paths[e], "wb") as f:
+            for _ in range(INGEST_COPIES):
+                f.write(text)
+    out["ring_high_sensitivity"] = ring_rate(
+        world, paths, os.path.join(TMP_DIR, "ab_out.fa"), INGEST_PRESET)
+    out["long"] = long_path(torch, world, check=False)
+    log("tail A/B: CUDA kernels a batch " + ", ".join(
+        f"{n} {c['kernels']}" for n, c in out["cuda_launches"].items())
+        + "; batch ms " + ", ".join(
+            f"{n} {t['batch_ms']:.3f}" for n, t in out["stages"].items())
+        + "; tail device ms " + "; ".join(
+            f"L={w} " + ", ".join(f"{s} {fmt_ms(c['tail_' + s])}"
+                                  for s in ("hybrid", "lca*", "mrtl"))
+            for w, c in out["chain"].items())
+        + f"; ring {out['ring_high_sensitivity']['pairs_per_s']:.0f} "
+        f"pairs/s; 12,000 bp wall {out['long']['wall_s']:.3f} s")
     return out
 
 
@@ -4105,7 +4420,8 @@ def ab_worker(tree, out, mode="full"):
     this file's stage tables and host times; writes JSON to ``out``.
     ``mode`` "chain" runs ``chain_device_ms`` at the workload's read
     length alone, "tryptic" this file's ``tryptic_ab``, "wide" its
-    ``wide_ab``, "long" its ``long_ab``, "rows" its ``rows_ab``."""
+    ``wide_ab``, "long" its ``long_ab``, "rows" its ``rows_ab``, "tail"
+    its ``tail_ab``."""
     import importlib.util
 
     import torch
@@ -4122,9 +4438,9 @@ def ab_worker(tree, out, mode="full"):
             json.dump(dict(tree=tree, card=card, chain_device_ms=(
                 chain_device_ms(torch, world, world["L"]))), f, default=str)
         return
-    if mode in ("tryptic", "wide", "long", "rows"):
+    if mode in ("tryptic", "wide", "long", "rows", "tail"):
         fn = dict(tryptic=tryptic_ab, wide=wide_ab, long=long_ab,
-                  rows=rows_ab)[mode]
+                  rows=rows_ab, tail=tail_ab)[mode]
         with open(out, "w") as f:
             json.dump({"tree": tree, "card": card,
                        "ptxas": t.RESULT.get("ptxas"),

@@ -427,3 +427,166 @@ def test_tree_aggregate_hits_edge_cases_match_jax(strategy):
         elif strategy == "mrtl":
             assert got[0] == got[1] == big
         assert got[5] == 10239
+
+
+# ---------------------------------------------------------------------- #
+# The fused tail: K4 with the lower bound, K6 and snap_taxa with snap,
+# against umgap_tpu's dedup -> filter -> aggregate -> snap -> where
+# ---------------------------------------------------------------------- #
+
+def _jax_tail(dx, utaxa, ucounts, uvalid, bound, method, strategy, snap,
+              factor=0.25, euler=None):
+    """umgap_tpu's pipeline_step after the dedup (fused.py:117-124)."""
+    fv = jagg.filter_lower_bound(ucounts, uvalid, bound)
+    agg = jagg.aggregate_batch(dx, utaxa, ucounts, fv, method, strategy,
+                               factor, euler=euler)
+    return np.asarray(np.where(np.asarray(fv).any(axis=-1),
+                               np.asarray(jagg.snap_batch(snap, agg, 0)),
+                               1).astype(np.int32))
+
+
+@pytest.mark.parametrize("N", [300, 540, 2048])
+@pytest.mark.parametrize("bound", [1.0, 2.0, 5.0])
+def test_dedup_lower_bound_matches_jax(N, bound):
+    """K4's plain versions with the bound (the warp path's formulation
+    and the row kernel's) against umgap_tpu's dedup_counts then
+    filter_lower_bound: ids, counts and nuniq as without the bound,
+    uvalid filtered; with and without integer weights, k_max above and
+    below the distinct count."""
+    rng = np.random.default_rng(int(N + 10 * bound))
+    B = 40
+    n_valid = rng.integers(0, min(N, 400) + 1, size=B)
+    n_valid[:3] = (0, 1, 60)
+    taxa = _hit_rows(rng, B, N, n_valid)
+    for k_max, weighted in ((64, False), (64, True), (8, False)):
+        w = (rng.integers(0, 4, size=(B, N)).astype(np.float32) if weighted
+             else np.ones((B, N), np.float32))
+        ju, jc, jv, jn = jagg.dedup_counts(taxa, w, k_max, return_nuniq=True)
+        want = (ju, jc, jagg.filter_lower_bound(jc, jv, bound), jn)
+        tw = torch.from_numpy(w) if weighted else None
+        for fn in (pagg.dedup_counts_plain, pagg.dedup_counts_rows_plain,
+                   pagg.dedup_counts):
+            got = fn(torch.from_numpy(taxa), tw, k_max, return_nuniq=True,
+                     lower_bound=bound)
+            for g, wnt in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
+        # the bound filters some kept runs and leaves others
+        assert np.asarray(jv).sum() > np.asarray(want[2]).sum() > 0 or \
+            bound == 1.0 and not weighted
+
+
+@pytest.mark.parametrize("world", ["fixture", "bench", "chain"])
+@pytest.mark.parametrize("K", [4, 64, 408])
+@pytest.mark.parametrize("strategy", ["hybrid", "lca*", "mrtl"])
+def test_tree_aggregate_hits_snap_matches_jax(world, K, strategy):
+    """K6's hits entry with the snap table (its plain version, the CPU
+    dispatch, aggregate_batch and, past K = 64, the block path's
+    formulation) against umgap_tpu's filter -> aggregate -> snap_batch
+    -> where, at the bounds 1, 2 and 5."""
+    jtax, _ = _WORLDS[world]()
+    B = 12 if K > 64 else 48
+    utaxa, ucounts, uvalid = _filtered_hits(jtax, B, K, 3 * K + len(world))
+    dx, px = _carried(jtax)
+    u, c = torch.from_numpy(utaxa), torch.from_numpy(ucounts)
+    method = "rmq" if strategy == "mrtl" else "tree"
+    for bound in (1.0, 2.0, 5.0):
+        want = _jax_tail(dx, utaxa, ucounts, uvalid, bound, method,
+                         strategy, dx.snap_valid)
+        v = pagg.filter_lower_bound(c, torch.from_numpy(uvalid), bound)
+        got = pagg.tree_aggregate_hits_plain(strategy, px, u, c, v, 0.25,
+                                             snap=px.snap_valid)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert torch.equal(pagg.tree_aggregate_hits(
+            strategy, px, u, c, v, 0.25, snap=px.snap_valid), got)
+        assert torch.equal(pagg.aggregate_batch(
+            px, u, c, v, method, strategy, 0.25, snap=px.snap_valid), got)
+        if K > 64:
+            assert torch.equal(pagg.tree_aggregate_wide_plain(
+                strategy, px, u, c, v, 0.25, snap=px.snap_valid), got)
+        assert (got == 1).any() and (got != 1).any()
+
+
+@pytest.mark.parametrize("strategy", ["hybrid", "lca*", "mrtl"])
+def test_tail_edge_rows_match_jax(strategy):
+    """Rows at the edges of snap, on the fixture taxonomy with a snap
+    table whose entry for 12884 is NONE: no valid slot (-> 1); every slot
+    below the bound (-> 1); an aggregate of 12884 (-> 0); ids absent from
+    the taxonomy, at and past the table's end (mrtl's aggregate is then
+    that id -> 0)."""
+    from umgap_tpu_torch.taxonomy import NONE
+
+    jtax, _ = _fixture_taxonomies()
+    dx, px = _carried(jtax)
+    big, size = np.iinfo(np.int32).max, jtax.size
+    rows = [([big] * 4, [0] * 4, [False] * 4),
+            ([2, 10239, 12884, big], [1, 1, 1, 0], [True] * 3 + [False]),
+            ([12884, big, big, big], [3, 0, 0, 0], [True] + [False] * 3),
+            ([185751, 185752, big, big], [2, 2, 0, 0],
+             [True] * 2 + [False] * 2),
+            ([3, big, big, big], [4, 0, 0, 0], [True] + [False] * 3),
+            ([size, big, big, big], [4, 0, 0, 0], [True] + [False] * 3),
+            ([size + 7, big, big, big], [4, 0, 0, 0], [True] + [False] * 3),
+            ([10239, big, big, big], [4, 0, 0, 0], [True] + [False] * 3)]
+    utaxa = np.array([r[0] for r in rows], np.int32)
+    ucounts = np.array([r[1] for r in rows], np.float32)
+    uvalid = np.array([r[2] for r in rows], bool)
+    snap = np.asarray(dx.snap_valid).copy()
+    snap[12884] = NONE
+    method = "rmq" if strategy == "mrtl" else "tree"
+    u, c = torch.from_numpy(utaxa), torch.from_numpy(ucounts)
+    for bound in (1.0, 2.0):
+        want = _jax_tail(dx, utaxa, ucounts, uvalid, bound, method, strategy,
+                         snap)
+        v = pagg.filter_lower_bound(c, torch.from_numpy(uvalid), bound)
+        got = pagg.tree_aggregate_hits_plain(strategy, px, u, c, v, 0.25,
+                                             snap=torch.from_numpy(snap))
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert got[0] == 1 and got[7] == 10239
+        assert got[2] == 0  # snap[12884] is NONE
+        assert got[1] == (1 if bound == 2.0 else got[1])
+    if strategy == "mrtl":  # the aggregates 3, size and size + 7
+        assert got[4] == got[5] == got[6] == 0
+    # snap_taxa on the aggregates themselves: in range, NONE, at and past
+    # the end, negative, I32_MAX; rows with and without a valid slot
+    agg = np.array([1, 12884, 3, size, size + 7, -1, big, 185752], np.int32)
+    valid = np.ones((8, 4), bool)
+    valid[[0, 7], :] = False
+    want = np.where(valid.any(-1), np.asarray(jagg.snap_batch(
+        snap, agg, 0)), 1).astype(np.int32)
+    got = pagg.snap_taxa_plain(torch.from_numpy(snap), torch.from_numpy(agg),
+                               torch.from_numpy(valid))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.tolist() == [1, 0, 0, 0, 0, 0, 0, 1]
+
+
+@pytest.mark.parametrize("world", ["fixture", "bench"])
+@pytest.mark.parametrize("strategy", ["lca*", "hybrid"])
+def test_snap_taxa_plain_matches_jax_on_rmq(world, strategy):
+    """The Euler/RMQ aggregators end in snap_taxa: its plain version (and
+    aggregate_batch with the snap table) against umgap_tpu's filter ->
+    rmq aggregate -> snap_batch -> where."""
+    jtax, (utaxa, ucounts, uvalid) = _world_hits(world, 12,
+                                                 7 * len(world) + 1)
+    dx, px = _carried(jtax)
+    je = pe = None
+    if strategy == "lca*":
+        je = jrmq.DeviceEuler.from_host(jtax)
+        pe = convert.euler_from_arrays(
+            np.asarray(je.tour), np.asarray(je.depths),
+            np.asarray(je.first), np.asarray(je.block_min),
+            np.asarray(je.sparse), je.nlevels, je.tour_len, device="cpu")
+    u, c = torch.from_numpy(utaxa), torch.from_numpy(ucounts)
+    for bound in (1.0, 2.0, 5.0):
+        want = _jax_tail(dx, utaxa, ucounts, uvalid, bound, "rmq", strategy,
+                         dx.snap_valid, euler=je)
+        v = pagg.filter_lower_bound(c, torch.from_numpy(uvalid), bound)
+        agg = pagg.aggregate_batch(px, u, c, v, "rmq", strategy, 0.25,
+                                   euler=pe)
+        got = pagg.snap_taxa_plain(px.snap_valid, agg, v)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert torch.equal(pagg.snap_taxa(px.snap_valid, agg, v), got)
+        assert torch.equal(pagg.aggregate_batch(
+            px, u, c, v, "rmq", strategy, 0.25, euler=pe,
+            snap=px.snap_valid), got)
+        assert (got == 1).any() and (got != 1).any()

@@ -229,8 +229,6 @@ def test_cli_refuses_unsupported_input(sample, tmp_path):
     # a tryptic preset needs a peptide index: the 9-mer one is refused
     rc, err = _port(sample, "--device", "cpu", "-t", "tryptic-sensitivity")
     assert rc == 1 and "needs a peptide (tryptic) index" in err
-    rc, err = _port(sample, "--device", "cpu", "--fgspp", "auto")
-    assert rc == 1 and "FragGeneScan" in err
     rc, err = _port(sample, "--device", "cpu", "--mesh", "2")
     assert rc == 1 and "--mesh" in err
 
@@ -247,3 +245,90 @@ def test_cli_module_entry_without_card_fails(sample):
     assert proc.returncode == 1
     assert "--device cpu" in proc.stderr
     assert proc.stdout == ""
+
+
+# tests/test_fgspp.py's mock FGSpp: predicts one protein for every read
+MOCK_FGSPP = ("#!/bin/sh\n"
+              "awk '/^>/{print $0 \"_1_99_+\"; print \"MKAAAAAAAAAK\"}'\n")
+
+
+def _config_home(tmp_path, monkeypatch, with_fgspp):
+    """XDG_CONFIG_HOME at tmp_path, with the mock FGSpp installed under
+    its config dir (unipept/FGSpp/FGSpp + train/) or with none."""
+    monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path))
+    if with_fgspp:
+        d = tmp_path / "unipept" / "FGSpp"
+        (d / "train").mkdir(parents=True)
+        (d / "FGSpp").write_text(MOCK_FGSPP)
+        (d / "FGSpp").chmod(0o755)
+        return str(d / "FGSpp")
+    return None
+
+
+def _analyse_both(sample, tmp_path, preset, *flags):
+    """``analyse -t preset`` through umgap_tpu and the port with the same
+    flags and no --fgspp of their own; returns (port rc, port stderr,
+    port bytes, umgap_tpu bytes)."""
+    argv = ["analyse", "--taxons", str(sample["taxons"]), "--index",
+            str(sample["index"]), "-t", preset, "-1", str(sample["fq"][0]),
+            "-2", str(sample["fq"][1]), "--read-length", str(L), *flags,
+            "-o"]
+    assert jax_cli(argv + [str(tmp_path / "jax.fa")], stdin=io.StringIO(""),
+                   stdout=io.StringIO()) == 0
+    err = io.StringIO()
+    old = sys.stderr
+    sys.stderr = err
+    try:
+        rc = port_cli(argv + [str(tmp_path / "port.fa"), "--device", "cpu"])
+    finally:
+        sys.stderr = old
+    port = tmp_path / "port.fa"
+    return (rc, err.getvalue(), port.read_bytes() if port.exists() else None,
+            (tmp_path / "jax.fa").read_bytes())
+
+
+def test_cli_fgspp_auto_without_fgspp_matches_jax(sample, tmp_path,
+                                                  monkeypatch):
+    """``--fgspp auto``, the default of both, with no FGSpp under the
+    config dir: high-precision translates six frames in both, byte for
+    byte."""
+    _config_home(tmp_path, monkeypatch, with_fgspp=False)
+    rc, _err, got, want = _analyse_both(sample, tmp_path, "high-precision")
+    assert rc == 0 and got == want
+    assert got.count(b">") == sample["n"]
+
+
+@pytest.mark.parametrize("mode", ["auto", "require"])
+def test_cli_fgspp_found_refuses(sample, tmp_path, monkeypatch, mode):
+    """With FGSpp under the config dir, umgap_tpu would send a precision
+    preset through it: the port exits 1, says where it found it and
+    names --fgspp never, and writes no record."""
+    binary = _config_home(tmp_path, monkeypatch, with_fgspp=True)
+    rc, err = _port(sample, "--device", "cpu", "-t", "high-precision",
+                    "--fgspp", mode, "-o", str(tmp_path / "out.fa"))
+    assert rc == 1
+    assert "--fgspp never" in err and binary in err
+    assert not (tmp_path / "out.fa").exists()
+    if mode == "auto":  # the default
+        rc, err = _port(sample, "--device", "cpu", "-t", "max-precision")
+        assert rc == 1 and "--fgspp never" in err
+
+
+def test_cli_fgspp_require_without_fgspp_refuses(sample, tmp_path,
+                                                 monkeypatch):
+    _config_home(tmp_path, monkeypatch, with_fgspp=False)
+    rc, err = _port(sample, "--device", "cpu", "-t", "high-precision",
+                    "--fgspp", "require")
+    assert rc == 1 and "FGSpp requested but not installed" in err
+
+
+def test_cli_fgspp_other_presets_ignore_it(sample, tmp_path, monkeypatch):
+    """high-sensitivity is not an FGSpp preset: with the mock installed,
+    under auto and under require, both packages translate six frames and
+    agree byte for byte."""
+    _config_home(tmp_path, monkeypatch, with_fgspp=True)
+    for flags in ((), ("--fgspp", "require")):
+        rc, _err, got, want = _analyse_both(sample, tmp_path,
+                                            "high-sensitivity", *flags)
+        assert rc == 0 and got == want
+        assert got.count(b">") == sample["n"]

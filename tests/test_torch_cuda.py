@@ -489,9 +489,10 @@ def test_tree_aggregate_hits_allocates_only_its_output(dev):
 @pytest.mark.parametrize("preset", ["high-sensitivity", "high-precision",
                                     "max-precision", "max-sensitivity"])
 def test_tree_presets_launch_k6_once_a_batch(dev, preset):
-    """run_stages of the tree aggregators on the card: one K6 launch a
-    batch, K5 only for snap's take, no ancestry epilogue; taxa equal to
-    the plain path's."""
+    """run_stages of the tree aggregators on the card: after seed-extend
+    one K4 launch (with the lower bound) and one K6 launch (with snap) a
+    batch, no K5 (no take, no ancestry epilogue) and no snap_taxa; taxa
+    equal to the plain path's."""
     from umgap_tpu_torch.pipeline.fused import PRESETS, run_stages
 
     tax = _random_tree(3000, 4)
@@ -522,8 +523,9 @@ def test_tree_presets_launch_k6_once_a_batch(dev, preset):
     torch.cuda.synchronize()
     after = kernels.launch_counts()
     assert after["tree_aggregate"] - before["tree_aggregate"] == 2
-    assert after["lane_gather"] - before["lane_gather"] == 2  # snap
-    assert after["lane_gather_ancestry"] == before["lane_gather_ancestry"]
+    assert after["dedup_counts"] - before["dedup_counts"] == 2
+    for k in ("lane_gather", "lane_gather_ancestry", "snap_taxa"):
+        assert after[k] == before[k], k
     want = run_stages(reads, lt, L, False, dtax, dtable, cfg, plain=True)
     assert torch.equal(got, want)
     assert (got != 1).any()  # some groups were assigned
@@ -1031,8 +1033,9 @@ def test_probe_peptide_kernel_host_digest_width(dev):
 @pytest.mark.parametrize("preset", ["tryptic-sensitivity",
                                     "tryptic-precision"])
 def test_tryptic_stages_kernels_equal_plain(dev, preset):
-    """One tryptic batch through K7, K8, K4, K6 and K5 equals the plain
-    stages on the card, and launches each kernel."""
+    """One tryptic batch through K7, K8, K4 (with the bound) and K6 (with
+    snap) equals the plain stages on the card, and launches each kernel
+    once and K5 not at all."""
     from umgap_tpu_torch.index.table import PeptideTable
     from umgap_tpu_torch.ops import kmers
     from umgap_tpu_torch.pipeline import tryptic
@@ -1067,6 +1070,213 @@ def test_tryptic_stages_kernels_equal_plain(dev, preset):
                                       cfg, True, plain=True)
     _eq(got, want)
     for k in ("reads_to_peptides", "probe_peptide", "dedup_counts",
-              "tree_aggregate", "lane_gather"):
+              "tree_aggregate"):
         assert counts[k] == 1, counts
     assert counts["reads_to_kmers"] == counts["probe_kmer"] == 0
+    assert counts["lane_gather"] == counts["snap_taxa"] == 0
+
+
+# ---------------------------------------------------------------------- #
+# The fused tail: K4's bound, K6's snap, snap_taxa
+# ---------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("N", [300, 540, 2048])
+@pytest.mark.parametrize("k_max", [4, 64, 700])
+def test_dedup_kernel_lower_bound(dev, N, k_max):
+    """Both K4 paths (warp at 300 and 540, the row kernel at 2,048) with
+    the bounds 1, 2 and 5 against the plain versions with the bound,
+    with and without weights (0-4, so some counts are 0); uvalid is
+    filtered, ids, counts and nuniq are those without the bound."""
+    taxa = torch.from_numpy(_dedup_rows(N, 3 * N + k_max)).to(dev)
+    w = torch.from_numpy(np.random.default_rng(N).integers(
+        0, 5, size=tuple(taxa.shape)).astype(np.float32)).to(dev)
+    for wt in (None, w):
+        free = pagg.dedup_counts(taxa, wt, k_max, True)
+        for bound in (1.0, 2.0, 5.0):
+            got = pagg.dedup_counts(taxa, wt, k_max, True, lower_bound=bound)
+            _eq(got, pagg.dedup_counts_plain(taxa, wt, k_max, True,
+                                             lower_bound=bound))
+            if N > 1024:
+                _eq(got, pagg.dedup_counts_rows_plain(
+                    taxa, wt, k_max, True, lower_bound=bound))
+            _eq((got[0], got[1], got[3]), (free[0], free[1], free[3]))
+            assert torch.equal(got[2], free[2] & (free[1] >= bound))
+            assert (got[2] != free[2]).any() or bound == 1.0 and wt is None
+
+
+def _snap_table(dtax, every=7):
+    """dtax.snap_valid with every 7th entry NONE, so some aggregates
+    snap to nothing."""
+    snap = dtax.snap_valid.clone()
+    snap[::every] = -1
+    return snap
+
+
+def _snap_check(dtax, u, c, v, snap, wide=False):
+    """K6 with ``snap`` against the plain version with it (the block
+    path's formulation past K = 64: the (B, K, K) plain tensors of wide
+    lists are too large), one launch a call, for all three strategies;
+    the same launch without snap, snapped by the plain version,
+    agrees."""
+    for strategy in ("hybrid", "lca*", "mrtl"):
+        before = kernels.K6.launches
+        got = pagg.tree_aggregate_hits(strategy, dtax, u, c, v, 0.25,
+                                       snap=snap)
+        assert kernels.K6.launches == before + 1
+        plain = (pagg.tree_aggregate_wide_plain if wide
+                 else pagg.tree_aggregate_hits_plain)
+        want = plain(strategy, dtax, u, c, v, 0.25, snap=snap)
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        bare = pagg.tree_aggregate_hits(strategy, dtax, u, c, v, 0.25)
+        assert torch.equal(got, pagg.snap_taxa_plain(snap, bare, v))
+        assert (got[~v.any(dim=1)] == 1).all()
+
+
+@pytest.mark.parametrize("world", ["random", "bench", "chain"])
+@pytest.mark.parametrize("K", [4, 64, 408, 16392, 32004])
+def test_tree_aggregate_snap_kernel(dev, world, K):
+    """K6 with snap on every path: the thread path (groups of 0-16
+    valid), the warp path (17-64), the block path (K = 408, 16,392) and
+    the block path's global scratch (K = 32,004); with the pipeline's
+    snap table and with one whose every 7th entry is NONE."""
+    tax = _K6_TREES[world]()
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    B = {4: 1000, 64: 1000, 408: 100}.get(K, 16)
+    u, c, v = (torch.from_numpy(x).to(dev)
+               for x in _k6_hits(tax, B, K, K + 5))
+    if K > 17920:
+        assert pagg.tree_scratch_blocks(B, K) > 0
+    for snap in (dtax.snap_valid, _snap_table(dtax)):
+        _snap_check(dtax, u, c, v, snap, wide=K > 64)
+
+
+@pytest.mark.parametrize("K", [4, 64, 408])
+def test_tree_aggregate_snap_edge_rows(dev, K):
+    """K6's store on the rows at snap's edges: no valid slot (1), ids
+    absent from the taxonomy and at and past the table's end (mrtl's
+    aggregate is that id: 0), an aggregate whose snap entry is NONE
+    (0), a table shorter than the taxonomy (ids past it: 0)."""
+    tax = _random_tree(300, 3)
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    size, big = dtax.geom.shape[0], np.iinfo(np.int32).max
+    ids = np.flatnonzero(tax.depth >= 1)
+    rows = [[], [size], [size + 7], [-1], [int(ids[5])], [int(ids[6])],
+            [int(ids[7]), int(ids[8])], list(ids[:min(K, 20)])]
+    B = 8 * 4
+    utaxa = np.full((B, K), big, np.int32)
+    ucounts = np.zeros((B, K), np.float32)
+    uvalid = np.zeros((B, K), bool)
+    for b in range(B):
+        r = rows[b % 8][:K]
+        utaxa[b, :len(r)] = r
+        ucounts[b, :len(r)] = 1 + b % 3
+        uvalid[b, :len(r)] = b % 4 != 3  # a quarter: no slot valid
+    u, c, v = (torch.from_numpy(x).to(dev)
+               for x in (utaxa, ucounts, uvalid))
+    snap = dtax.snap_valid.clone()
+    snap[int(ids[5])] = -1
+    for table in (dtax.snap_valid, snap, snap[:int(ids[6])].contiguous()):
+        _snap_check(dtax, u, c, v, table, wide=K > 64)
+    got = pagg.tree_aggregate_hits("mrtl", dtax, u, c, v, snap=snap)
+    assert (got[1::8][:3] == 0).all() and (got[2::8][:3] == 0).all()
+    assert (got[3::4] == 1).all()
+
+
+@pytest.mark.parametrize("K", [1, 13, 16, 64, 408])
+@pytest.mark.parametrize("B", [1, 777, 16384])
+def test_snap_taxa_kernel(dev, K, B):
+    """snap_taxa against its plain version: aggregates in range, NONE
+    entries, at and past the table's end, negative, I32_MAX; masks with
+    no, one (first or last slot) and many valid slots; rows of 16-byte
+    pieces and of odd widths, and a mask that starts off a 16-byte
+    boundary (byte loads); one launch a call."""
+    rng = np.random.default_rng(K * B)
+    tax = _random_tree(3000, 5)
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    snap = _snap_table(dtax, 5)
+    S = len(snap)
+    agg = rng.integers(0, S, size=B).astype(np.int32)
+    odd = np.array([-1, S, S + 7, np.iinfo(np.int32).max, 0, -5], np.int32)
+    agg[:min(B, 6)] = odd[:min(B, 6)]
+    valid = rng.random((B + 1, K)) < rng.choice([0.0, 0.02, 0.5], (B + 1, 1))
+    valid[1::5] = False
+    valid[2::5, -1] = True
+    valid[3::5, 0] = True
+    full = torch.from_numpy(valid).to(dev)
+    a = torch.from_numpy(agg).to(dev)
+    # the same mask 8 bytes past a 16-byte boundary, and the next rows
+    shifted = torch.empty(B * K + 8, dtype=torch.bool, device=dev)[8:]
+    shifted = shifted.view(B, K)
+    shifted.copy_(full[:B])
+    assert shifted.data_ptr() % 16 == 8
+    for v in (full[:B], shifted, full[1:]):
+        before = kernels.KS.launches
+        got = pagg.snap_taxa(snap, a, v)
+        assert kernels.KS.launches == before + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got, pagg.snap_taxa_plain(snap, a, v))
+    assert (got[~v.any(dim=1)] == 1).all()
+
+
+def test_rmq_stages_launch_snap_taxa_once_a_batch(dev):
+    """rmq/hybrid's batch: K4 with the bound, its Euler/RMQ aggregator
+    over K5, then one snap_taxa launch; no K6; taxa equal to the plain
+    path's."""
+    from umgap_tpu_torch.pipeline.fused import PipelineConfig, run_stages
+
+    tax = _random_tree(3000, 4)
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    rng = np.random.default_rng(6)
+    B, E, L = 64, 2, 100
+    codes = rng.integers(0, 4, size=(B * E, L)).astype(np.uint8)
+    lens = np.full((B, E), L, np.int32)
+    hi, lo, wv, _ = translate.reads_to_kmers_plain(
+        torch.from_numpy(codes), torch.from_numpy(lens.reshape(-1)), L,
+        encoding.get_table(1), 9, packed=False)
+    keys = ((hi.numpy().astype(np.uint64) << np.uint64(25))
+            | lo.numpy().astype(np.uint64))
+    per_read = rng.integers(2, 3001, size=(B * E, 1, 1)).astype(np.int32)
+    keys, first = np.unique(keys[wv.numpy()], return_index=True)
+    vals = np.broadcast_to(per_read, hi.shape)[wv.numpy()][first]
+    dtable = lookup.DeviceTable.from_host(build_kmer_table(keys, vals, 9),
+                                          dev)
+    cfg = PipelineConfig("rmq-hybrid", method="rmq", strategy="hybrid",
+                         lower_bound=2.0)
+    reads = torch.from_numpy(codes).to(dev)
+    lt = torch.from_numpy(lens).to(dev)
+    kernels.reset_launches()
+    got = run_stages(reads, lt, L, False, dtax, dtable, cfg)
+    counts = kernels.launch_counts()
+    assert counts["snap_taxa"] == counts["dedup_counts"] == 1, counts
+    assert counts["tree_aggregate"] == 0 and counts["lane_gather"] > 0
+    want = run_stages(reads, lt, L, False, dtax, dtable, cfg, plain=True)
+    assert torch.equal(got, want) and (got != 1).any()
+
+
+def test_snap_wrappers_refuse_bad_inputs(dev):
+    """A snap table or mask on the CPU beside CUDA tensors, or of the
+    wrong type or shape, is refused: a CUDA tensor never reaches a plain
+    version through a wrapper."""
+    tax = _random_tree(300, 2)
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    u, c, v = (torch.from_numpy(x).to(dev)
+               for x in _k6_hits(tax, 40, 8, 1))
+    agg = pagg.tree_aggregate_hits("hybrid", dtax, u, c, v)
+    cpu_snap = dtax.snap_valid.cpu()
+    with pytest.raises(ValueError):
+        pagg.tree_aggregate_hits("hybrid", dtax, u, c, v, snap=cpu_snap)
+    with pytest.raises(ValueError):
+        pagg.tree_aggregate_hits("lca*", dtax, u, c, v,
+                                 snap=dtax.snap_valid.long())
+    with pytest.raises(ValueError):
+        pagg.snap_taxa(cpu_snap, agg, v)
+    with pytest.raises(ValueError):
+        pagg.snap_taxa(dtax.snap_valid, agg, v.cpu())
+    with pytest.raises(ValueError):
+        pagg.snap_taxa(dtax.snap_valid, agg[:-1], v)
+    with pytest.raises(ValueError):
+        pagg.snap_taxa(dtax.snap_valid[:0], agg, v)
+    before = kernels.KS.launches
+    assert torch.equal(pagg.snap_taxa(dtax.snap_valid, agg, v),
+                       pagg.snap_taxa_plain(dtax.snap_valid, agg, v))
+    assert kernels.KS.launches == before + 1

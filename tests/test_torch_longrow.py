@@ -258,10 +258,10 @@ def test_analyser_12000bp_matches_jax():
         seen["hits"] = tuple(taxa.shape)
         return out
 
-    def dedup(taxa, weights, k_max, return_nuniq=False):
-        out = dedup0(taxa, weights, k_max, return_nuniq)
+    def dedup(taxa, weights, k_max, return_nuniq=False, lower_bound=None):
+        out = dedup0(taxa, weights, k_max, return_nuniq, lower_bound)
         for a, b in zip(out, pagg.dedup_counts_rows_plain(
-                taxa, weights, k_max, return_nuniq)):
+                taxa, weights, k_max, return_nuniq, lower_bound)):
             assert torch.equal(a, b)
         seen["dedup"] = tuple(taxa.shape)
         return out

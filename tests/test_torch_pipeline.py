@@ -127,8 +127,10 @@ def _run_stages(toy, cfg, plain):
 def test_plain_stages_call_no_wrapper(toy, monkeypatch):
     """run_stages(plain=True) reaches the plain versions only, through the
     one switch, and leaves it off; the kernel path calls the wrappers:
-    the tree aggregator through its hits entry, which builds no
-    geometry (no row gather, no ancestry epilogue)."""
+    K4 with the lower bound, then the tree aggregator through its hits
+    entry, which builds no geometry (no row gather, no ancestry
+    epilogue) and snaps (no take, no snap_taxa); the Euler/RMQ
+    aggregators end in one snap_taxa."""
     calls = []
 
     def spy(module, name):
@@ -146,17 +148,32 @@ def test_plain_stages_call_no_wrapper(toy, monkeypatch):
     spy(pseedextend, "seedextend_mask_batch")
     spy(pagg, "tree_aggregate_hits")
     spy(pagg, "tree_aggregate")
+    for name in ("dedup_counts", "snap_taxa"):
+        spy(pagg, name)
     cfg = PRESETS["max-sensitivity"]
     want = _run_stages(toy, cfg, plain=False)
-    assert {"take", "reads_to_kmers", "seedextend_hits",
+    assert {"reads_to_kmers", "seedextend_hits", "dedup_counts",
             "tree_aggregate_hits"} <= set(calls)
     assert calls.count("tree_aggregate_hits") == 1
+    assert calls.count("dedup_counts") == 1
     # the hits come from the one entry: no keep mask on the kernel path
     assert "seedextend_mask_batch" not in calls
-    # K6 reads the rows itself: no geometry between the filter and snap
-    assert not {"gather_rows", "ancestry", "tree_aggregate"} & set(calls)
+    # K4 filters, K6 reads the rows itself and snaps: no geometry and no
+    # snap between them
+    assert not {"take", "gather_rows", "ancestry", "tree_aggregate",
+                "snap_taxa"} & set(calls)
     calls.clear()
     got = _run_stages(toy, cfg, plain=True)
+    assert calls == [] and not kernels.plain_selected()
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    # rmq/hybrid: its aggregator through K5, then one snap_taxa
+    hyb = cfg._replace(strategy="hybrid")
+    calls.clear()
+    want = _run_stages(toy, hyb, plain=False)
+    assert calls.count("snap_taxa") == 1 and "take" in calls
+    assert "tree_aggregate_hits" not in calls
+    calls.clear()
+    got = _run_stages(toy, hyb, plain=True)
     assert calls == [] and not kernels.plain_selected()
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 

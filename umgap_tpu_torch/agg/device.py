@@ -1,10 +1,14 @@
 """Batched per-read aggregation: kernel K4 (``csrc/dedup_counts.cu``) for
-the dedup/count, K5 (``ops/gather.py``) for the table gathers of the
-stage, and K6 (``csrc/tree_aggregate.cu``) for the tree aggregators,
-each beside its plain PyTorch version (``umgap_tpu.agg.device``). On the
-pipeline's path K6 reads the taxonomy rows of a group's valid hits
-itself (:func:`tree_aggregate_hits`), so no :class:`HitGeometry` is
-built there.
+the dedup/count and the lower-bound filter, K5 (``ops/gather.py``) for
+the table gathers of the stage, K6 (``csrc/tree_aggregate.cu``) for the
+tree aggregators and snap, and ``snap_taxa`` (``csrc/snap_taxa.cu``)
+for the snap of the aggregators without K6, each beside its plain
+PyTorch version (``umgap_tpu.agg.device``). On the pipeline's path K6
+reads the taxonomy rows of a group's valid hits itself
+(:func:`tree_aggregate_hits`), so no :class:`HitGeometry` is built
+there, and a batch's tail after seed-extend is two launches: K4 with
+the bound, then K6 with the snap table (or the Euler/RMQ aggregator and
+:func:`snap_taxa`).
 
 Every read in a batch carries a fixed-width list of (taxon, count) hits;
 tree relations are answered by gathers from the device-resident
@@ -110,11 +114,13 @@ class DeviceTaxonomy:
 # ---------------------------------------------------------------------- #
 
 def dedup_counts_plain(taxa: torch.Tensor, weights, k_max: int,
-                       return_nuniq: bool = False):
+                       return_nuniq: bool = False,
+                       lower_bound: float | None = None):
     """Plain version of K4, the JAX formulation: sort each row, mark run
     heads, compact them left with a second sort, and take run totals as
     differences of compacted weight prefixes. ``weights=None`` weighs
-    every hit 1.0."""
+    every hit 1.0; ``lower_bound`` then filters the kept runs
+    (:func:`filter_lower_bound`)."""
     B, N = taxa.shape
     dev = taxa.device
     pos = taxa > 0
@@ -151,14 +157,18 @@ def dedup_counts_plain(taxa: torch.Tensor, weights, k_max: int,
         key = torch.nn.functional.pad(key, (0, extra), value=I32_MAX)
         cntk = torch.nn.functional.pad(cntk, (0, extra))
         filled = torch.nn.functional.pad(filled, (0, extra))
-    out = (key.to(torch.int32), torch.where(filled, cntk, 0.0), filled)
+    cntk = torch.where(filled, cntk, 0.0)
+    if lower_bound is not None:
+        filled = filter_lower_bound(cntk, filled, lower_bound)
+    out = (key.to(torch.int32), cntk, filled)
     if return_nuniq:
         return out + (first.sum(dim=-1, dtype=torch.int32),)
     return out
 
 
 def dedup_counts_rows_plain(taxa: torch.Tensor, weights, k_max: int,
-                            return_nuniq: bool = False):
+                            return_nuniq: bool = False,
+                            lower_bound: float | None = None):
     """Plain version of K4's row kernel (``csrc/dedup_counts.cu``, rows
     past :data:`WARP_DEDUP_N` hits), its formulation rather than the
     sort of whole rows: compact every row's positive ids with their
@@ -166,7 +176,8 @@ def dedup_counts_rows_plain(taxa: torch.Tensor, weights, k_max: int,
     head, its rank within its row and its summed weight; a row keeps the
     ranks below ``k_max``. Weighted counts are sums in sorted order,
     exact for integer weights whose row sums stay below 2^24, as the
-    plain version's prefix differences are."""
+    plain version's prefix differences are. ``lower_bound`` filters the
+    kept runs as in :func:`dedup_counts_plain`."""
     B, N = taxa.shape
     dev = taxa.device
     rows, cols = (taxa > 0).nonzero(as_tuple=True)
@@ -194,6 +205,8 @@ def dedup_counts_rows_plain(taxa: torch.Tensor, weights, k_max: int,
     utaxa[r, c] = ids[head][keep].to(torch.int32)
     ucounts[r, c] = counts[keep]
     uvalid[r, c] = True
+    if lower_bound is not None:
+        uvalid = filter_lower_bound(ucounts, uvalid, lower_bound)
     out = (utaxa, ucounts, uvalid)
     return out + (nuniq,) if return_nuniq else out
 
@@ -222,18 +235,24 @@ def dedup_rows_layout(N: int, weighted: bool):
 
 
 def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
-                 return_nuniq: bool = False):
+                 return_nuniq: bool = False,
+                 lower_bound: float | None = None):
     """Per-row frequency table (agg::count plus taxa2agg's tid != 0 drop):
     taxa (B, N) int32, entries <= 0 dropped; weights (B, N) float32 or
     None for 1.0. Returns utaxa (B, k_max) int32 ascending (I32_MAX
     padding), ucounts (B, k_max) float32, uvalid (B, k_max) bool and,
     with ``return_nuniq``, the distinct count per row before truncation
-    to the k_max smallest ids.
+    to the k_max smallest ids. With ``lower_bound``, uvalid is also the
+    filter (agg::filter, :func:`filter_lower_bound`): a kept run is valid
+    when its count >= the bound; ids, counts and nuniq stay as without
+    it.
 
     CPU tensors take the plain version; CUDA tensors launch K4 (its warp
-    path up to WARP_DEDUP_N hits a row, its row kernel K4R above)."""
+    path up to WARP_DEDUP_N hits a row, its row kernel K4R above), which
+    applies the bound at its stores."""
     if taxa.is_cpu:
-        return dedup_counts_plain(taxa, weights, k_max, return_nuniq)
+        return dedup_counts_plain(taxa, weights, k_max, return_nuniq,
+                                  lower_bound)
     B, N = taxa.shape
     if taxa.dtype != torch.int32:
         raise ValueError("dedup_counts: taxa must be int32")
@@ -249,8 +268,9 @@ def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
     uvalid = torch.empty((B, k_max), dtype=torch.bool, device=dev)
     nuniq = torch.empty((B,), dtype=torch.int32, device=dev)
     wptr = 0 if weights is None else weights.data_ptr()
+    lb = float("-inf") if lower_bound is None else float(lower_bound)
     if dedup_path(N) == "warp":
-        kernels.K4.launch(taxa.data_ptr(), wptr, B, N, k_max,
+        kernels.K4.launch(taxa.data_ptr(), wptr, B, N, k_max, lb,
                           utaxa.data_ptr(), ucounts.data_ptr(),
                           uvalid.data_ptr(), nuniq.data_ptr(),
                           kernels.stream_of(taxa))
@@ -261,7 +281,7 @@ def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
             blocks = min(B, blocks)
             scratch = torch.empty(blocks * row_bytes, dtype=torch.uint8,
                                   device=dev)
-        kernels.K4R.launch(taxa.data_ptr(), wptr, B, N, k_max, cap,
+        kernels.K4R.launch(taxa.data_ptr(), wptr, B, N, k_max, lb, cap,
                            utaxa.data_ptr(), ucounts.data_ptr(),
                            uvalid.data_ptr(), nuniq.data_ptr(),
                            0 if scratch is None else scratch.data_ptr(),
@@ -468,18 +488,22 @@ def tree_aggregate(strategy: str, dtax: DeviceTaxonomy, geom: HitGeometry,
 
 
 def tree_aggregate_hits_plain(strategy: str, dtax: DeviceTaxonomy, utaxa,
-                              ucounts, uvalid, factor: float = 0.25):
+                              ucounts, uvalid, factor: float = 0.25,
+                              snap=None):
     """Plain version of :func:`tree_aggregate_hits`: the plain
     :func:`hit_geometry` (with the ancestry test for lca* and mrtl), then
-    :func:`tree_aggregate_plain`."""
+    :func:`tree_aggregate_plain` and, with ``snap``,
+    :func:`snap_taxa_plain`."""
     with kernels.plain_versions():
         geom = hit_geometry(dtax, utaxa, uvalid, strategy != "hybrid")
-        return tree_aggregate_plain(strategy, dtax, geom, utaxa, ucounts,
-                                    factor)
+        agg = tree_aggregate_plain(strategy, dtax, geom, utaxa, ucounts,
+                                   factor)
+    return agg if snap is None else snap_taxa_plain(snap, agg, uvalid)
 
 
 def tree_aggregate_wide_plain(strategy: str, dtax: DeviceTaxonomy, utaxa,
-                              ucounts, uvalid, factor: float = 0.25):
+                              ucounts, uvalid, factor: float = 0.25,
+                              snap=None):
     """K6's block path (groups past K = 64) as plain PyTorch, a group at
     a time, for the tests to hold that formulation to the JAX package's
     aggregators; the pipeline never calls it. Takes and returns what
@@ -490,7 +514,11 @@ def tree_aggregate_wide_plain(strategy: str, dtax: DeviceTaxonomy, utaxa,
     scores the entries found (``torch.searchsorted``) at lin_j[d] whose
     clamped depth is d. hybrid: the descent over the valid slots, the
     branch sums of each depth taken over the slots below x, the list
-    cut to x's subtree after each descent."""
+    cut to x's subtree after each descent. ``snap`` as in
+    :func:`tree_aggregate_hits_plain`."""
+    if snap is not None:
+        return snap_taxa_plain(snap, tree_aggregate_wide_plain(
+            strategy, dtax, utaxa, ucounts, uvalid, factor), uvalid)
     geom = dtax.geom
     size, W = geom.shape
     D = W - 1
@@ -566,21 +594,25 @@ def _wide_mix(geom, ids, cnt, root: int, fac):
 
 
 def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
-                        uvalid, factor: float = 0.25):
+                        uvalid, factor: float = 0.25, snap=None):
     """The tree aggregators on a batch's filtered hit lists, (B,) int32:
     utaxa (B, K) int32, ucounts (B, K) float32 (unused by lca*, may be
     None) and uvalid (B, K) bool. Equal to
     ``tree_aggregate_plain(strategy, dtax, hit_geometry(dtax, utaxa,
-    uvalid, strategy != "hybrid"), utaxa, ucounts, factor)``.
+    uvalid, strategy != "hybrid"), utaxa, ucounts, factor)``, and with
+    ``snap`` (a snap table, (S,) int32: ``dtax.snap_valid`` on the
+    pipeline's path) to :func:`snap_taxa_plain` of that: the group's
+    taxon as taxa2agg ends.
 
     CPU tensors take :func:`tree_aggregate_hits_plain`; CUDA tensors
     launch K6 once, which reads the valid hits' rows of ``dtax.geom``
-    itself: no (B, K, D) or (B, K, K) tensor is built. Past K = 64 a
-    block takes each group; lists too wide for its shared memory
-    (K > 17,920) go to a scratch of :func:`tree_scratch_bytes`."""
+    itself (no (B, K, D) or (B, K, K) tensor is built) and snaps each
+    result at its store. Past K = 64 a block takes each group; lists too
+    wide for its shared memory (K > 17,920) go to a scratch of
+    :func:`tree_scratch_bytes`."""
     if utaxa.is_cpu:
         return tree_aggregate_hits_plain(strategy, dtax, utaxa, ucounts,
-                                         uvalid, factor)
+                                         uvalid, factor, snap)
     geom = dtax.geom
     size, W = geom.shape
     if utaxa.dim() != 2 or utaxa.shape[1] == 0 or W < 2:
@@ -599,10 +631,13 @@ def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
         if t.dtype != dt or tuple(t.shape) != (B, K):
             raise ValueError(f"tree_aggregate_hits: {tuple(t.shape)} "
                              f"{t.dtype}, expected {(B, K)} {dt}")
-    kernels.check_cuda("tree_aggregate", *(t for t, _ in want))
-    if geom.device != utaxa.device:
-        raise ValueError(f"tree_aggregate_hits: tensors on {geom.device} "
-                         f"and {utaxa.device}")
+    tables = [geom]
+    if snap is not None:
+        if snap.dtype != torch.int32 or snap.dim() != 1 or not len(snap):
+            raise ValueError("tree_aggregate_hits: snap must be a "
+                             "non-empty (S,) int32 table")
+        tables.append(snap)
+    kernels.check_cuda("tree_aggregate", *(t for t, _ in want), *tables)
     out = torch.empty((B,), dtype=torch.int32, device=utaxa.device)
     blocks = tree_scratch_blocks(B, K)
     scratch = (torch.empty(blocks * tree_list_bytes(K), dtype=torch.uint8,
@@ -612,7 +647,8 @@ def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
         0 if ucounts is None else ucounts.data_ptr(), uvalid.data_ptr(),
         utaxa.data_ptr(), B, K, dtax.root, float(factor),
         0 if scratch is None else scratch.data_ptr(), blocks,
-        out.data_ptr(), kernels.stream_of(utaxa))
+        out.data_ptr(), 0 if snap is None else snap.data_ptr(),
+        0 if snap is None else len(snap), kernels.stream_of(utaxa))
     return out
 
 
@@ -636,12 +672,52 @@ def tree_mix_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts,
 
 def snap_batch(snapping: torch.Tensor, taxa: torch.Tensor, default: int = 0):
     """Nearest snapped ancestors (a K5 1-D take); out-of-range and
-    unsnappable ids give ``default``."""
+    unsnappable ids give ``default``. The pipeline snaps in K6 or
+    :func:`snap_taxa` instead."""
     take = gather.active()[0]
     size = snapping.shape[0]
     s = take(snapping, taxa.clamp(0, size - 1))
     ok = (taxa >= 0) & (taxa < size) & (s != NONE)
     return torch.where(ok, s, default)
+
+
+def snap_taxa_plain(snap: torch.Tensor, agg: torch.Tensor,
+                    uvalid: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`snap_taxa`: :func:`snap_batch` with
+    default 0 (its take's plain version), then 1 where a group has no
+    valid hit."""
+    with kernels.plain_versions():
+        snapped = snap_batch(snap, agg, 0)
+    return torch.where(uvalid.any(dim=-1), snapped, 1).to(torch.int32)
+
+
+def snap_taxa(snap: torch.Tensor, agg: torch.Tensor,
+              uvalid: torch.Tensor) -> torch.Tensor:
+    """The end of taxa2agg (umgap_tpu/pipeline/fused.py:122-124) for the
+    aggregators without K6: snap (S,) int32 (``dtax.snap_valid``), agg
+    (B,) int32, uvalid (B, K) bool -> taxon (B,) int32: 1 for a group
+    with no valid hit, else agg's nearest snapped ancestor, 0 for an id
+    out of range or unsnappable.
+
+    CPU tensors take :func:`snap_taxa_plain`; CUDA tensors launch
+    ``snap_taxa`` (``csrc/snap_taxa.cu``) once."""
+    if agg.is_cpu:
+        return snap_taxa_plain(snap, agg, uvalid)
+    if snap.dtype != torch.int32 or snap.dim() != 1 or not len(snap):
+        raise ValueError("snap_taxa: snap must be a non-empty (S,) int32 "
+                         "table")
+    if agg.dtype != torch.int32 or uvalid.dtype != torch.bool or \
+            uvalid.dim() != 2 or agg.shape != uvalid.shape[:1]:
+        raise ValueError(f"snap_taxa: agg {tuple(agg.shape)} {agg.dtype} "
+                         f"and uvalid {tuple(uvalid.shape)} {uvalid.dtype},"
+                         " expected (B,) int32 and (B, K) bool")
+    kernels.check_cuda("snap_taxa", agg, uvalid, snap)
+    B, K = uvalid.shape
+    out = torch.empty((B,), dtype=torch.int32, device=agg.device)
+    kernels.KS.launch(snap.data_ptr(), len(snap), agg.data_ptr(),
+                      uvalid.data_ptr(), B, K, out.data_ptr(),
+                      kernels.stream_of(agg))
+    return out
 
 
 # taxa2agg's device matrix (src/commands/taxa2agg.rs:111-140); the first
@@ -654,26 +730,32 @@ SUPPORTED_AGGREGATIONS = GEOMETRY_AGGREGATIONS + (("rmq", "lca*"),
 
 def aggregate_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
                     method: str, strategy: str, factor: float = 0.25,
-                    euler=None):
+                    euler=None, snap=None):
     """taxa2agg's dispatch over the full matrix
     (src/commands/taxa2agg.rs:111-140). ``rmq``/``lca*`` needs a
     :class:`~umgap_tpu_torch.agg.device_rmq.DeviceEuler`. The tree
-    aggregators run :func:`tree_aggregate_hits` on the hit lists."""
+    aggregators run :func:`tree_aggregate_hits` on the hit lists. With
+    ``snap`` (a snap table) the result is snapped as taxa2agg ends: in
+    K6's store, or by :func:`snap_taxa` after the Euler/RMQ
+    aggregators."""
     key = (method, strategy)
-    if key == ("rmq", "lca*"):
-        from .device_rmq import rmq_lca_batch
+    plain = kernels.plain_selected()
+    if key in (("rmq", "lca*"), ("rmq", "hybrid")):
+        from .device_rmq import rmq_lca_batch, rmq_mix_batch
 
-        if euler is None:
-            raise ValueError("rmq/lca* needs a DeviceEuler (pass euler=...)")
-        return rmq_lca_batch(euler, utaxa, uvalid)
-    if key == ("rmq", "hybrid"):
-        from .device_rmq import rmq_mix_batch
-
-        return rmq_mix_batch(dtax, utaxa, ucounts, uvalid, factor)
+        if key == ("rmq", "lca*"):
+            if euler is None:
+                raise ValueError(
+                    "rmq/lca* needs a DeviceEuler (pass euler=...)")
+            agg = rmq_lca_batch(euler, utaxa, uvalid)
+        else:
+            agg = rmq_mix_batch(dtax, utaxa, ucounts, uvalid, factor)
+        if snap is None:
+            return agg
+        return (snap_taxa_plain if plain else snap_taxa)(snap, agg, uvalid)
     if key not in GEOMETRY_AGGREGATIONS:
         raise ValueError(
             f"device aggregation does not support {method}/{strategy}")
     strat = "mrtl" if method == "rmq" else strategy
-    agg = (tree_aggregate_hits_plain if kernels.plain_selected()
-           else tree_aggregate_hits)
-    return agg(strat, dtax, utaxa, ucounts, uvalid, factor)
+    agg = tree_aggregate_hits_plain if plain else tree_aggregate_hits
+    return agg(strat, dtax, utaxa, ucounts, uvalid, factor, snap)

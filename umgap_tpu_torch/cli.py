@@ -25,9 +25,11 @@ beyond ``--read-length`` the host-digest route
 (:func:`~umgap_tpu_torch.pipeline.tryptic.analyse_tryptic_groups`).
 
 Not in this port yet, each refused with a clear error rather than run
-differently: FragGeneScan++ (the presets always use six-frame
-translation, as ``--fgspp never``), ``--mesh``, ``--shards`` and
-``--serve``.
+differently: FragGeneScan++, ``--mesh``, ``--shards`` and ``--serve``.
+``--fgspp`` defaults to ``auto`` as in ``umgap_tpu``: a precision or
+tryptic preset that would find FGSpp under the config dir (and any such
+preset under ``require``) exits 1 and names ``--fgspp never``, which
+runs the six-frame translation; without FGSpp ``auto`` runs it too.
 """
 
 from __future__ import annotations
@@ -120,9 +122,13 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device; "
                          "'cpu' runs the plain PyTorch path)")
-    sp.add_argument("--fgspp", choices=["never", "auto", "require"],
-                    default="never",
-                    help="only 'never' (six-frame translation) is supported")
+    sp.add_argument("--fgspp", choices=["auto", "never", "require"],
+                    default="auto",
+                    help="FragGeneScan++ front end of the precision and "
+                         "tryptic presets: the port cannot run it yet, so "
+                         "'auto' with FGSpp under the config dir and "
+                         "'require' exit 1; 'never' (and 'auto' without "
+                         "FGSpp) translates six frames")
     for flag in ("--mesh", "--shards", "--serve"):
         sp.add_argument(flag, action=_Unsupported, nargs="?",
                         help=argparse.SUPPRESS)
@@ -523,11 +529,30 @@ def write_batches(handle, batches) -> int:
     return n
 
 
+def check_fgspp(mode: str, presets) -> None:
+    """Refuse what ``umgap_tpu analyse --fgspp MODE`` would send through
+    FragGeneScan++ (umgap_tpu/cli.py:1700-1724): under ``auto`` a preset
+    of FGSPP_PRESETS when FGSpp is installed under the config dir, under
+    ``require`` any such preset. Other presets ignore the flag."""
+    from . import fgspp
+
+    if mode == "never" or not fgspp.FGSPP_PRESETS & set(presets):
+        return
+    found = fgspp.find_fgspp(fgspp.default_config_dir())
+    if found is not None:
+        raise CliError(
+            f"FragGeneScan++ was found at {found[0]}, and umgap_tpu_torch "
+            "cannot run it yet; --fgspp never runs the six-frame "
+            "translation instead")
+    if mode == "require":
+        raise CliError(
+            "FGSpp requested but not installed under the config dir "
+            "(expected FGSpp/FGSpp + FGSpp/train).")
+
+
 def cmd_analyse(args, stdout):
-    if args.fgspp != "never":
-        raise CliError("FragGeneScan++ is not supported by umgap_tpu_torch "
-                       "yet (use --fgspp never)")
     samples = _samples(args)
+    check_fgspp(args.fgspp, [s["type"] for s in samples])
     session = AnalyseSession.load(args)
     for s in samples:
         tryptic = _is_tryptic(s["type"])

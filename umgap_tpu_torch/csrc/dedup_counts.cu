@@ -39,6 +39,17 @@
 // whose run sums stay below 2^24, as the plain version's prefix-sum
 // differences are.
 //
+// The lower-bound filter (umgap_tpu/pipeline/fused.py:117
+// filter_lower_bound, the reference's agg::filter) is applied where a
+// run is stored: uvalid = count >= lower_bound, in float32, while the
+// id, the count and nuniq (the count before the filter, for the k_max
+// overflow) are written as without it. The filter acts on the k_max
+// smallest ids kept, as the JAX package's does after its dedup. With no
+// bound the wrapper passes -inf, and uvalid is every run kept. It costs
+// one compare at each of a row's at most k_max stores, and saves the
+// pipeline the filter's two elementwise launches over (B, k_max) and
+// its host-side scalar.
+//
 // Rows past the warp path (N > 1,024 hits: paired reads from about 300
 // bp, every rung of the width ladder from 512 bp, and the 12,000 bp
 // device width) take the row kernel, one block a row. What bounded the
@@ -208,8 +219,8 @@ __device__ void warp_sort(int32_t* key, float* w, int n, int lane) {
 template <bool WEIGHTED>
 __device__ __forceinline__ int warp_emit_runs(
     const int32_t* key, const float* w, int n, int lane, long long o0,
-    int k_max, int32_t* __restrict__ utaxa, float* __restrict__ ucounts,
-    uint8_t* __restrict__ uvalid) {
+    int k_max, float lb, int32_t* __restrict__ utaxa,
+    float* __restrict__ ucounts, uint8_t* __restrict__ uvalid) {
   // per 32-slot chunk c (at most 32 of them): lane c keeps its number
   // of heads and its first head's position
   const int C = (n + 31) >> 5;
@@ -261,7 +272,7 @@ __device__ __forceinline__ int warp_emit_runs(
         }
         utaxa[o0 + r] = v;
         ucounts[o0 + r] = cnt;
-        uvalid[o0 + r] = 1;
+        uvalid[o0 + r] = cnt >= lb;
       }
     }
   }
@@ -271,7 +282,8 @@ __device__ __forceinline__ int warp_emit_runs(
 template <bool VEC, bool WEIGHTED>
 __global__ void dedup_warp(const int32_t* __restrict__ taxa,
                            const float* __restrict__ weights, int B, int N,
-                           int M, int k_max, int32_t* __restrict__ utaxa,
+                           int M, int k_max, float lb,
+                           int32_t* __restrict__ utaxa,
                            float* __restrict__ ucounts,
                            uint8_t* __restrict__ uvalid,
                            int32_t* __restrict__ nuniq) {
@@ -288,8 +300,8 @@ __global__ void dedup_warp(const int32_t* __restrict__ taxa,
   warp_sort<WEIGHTED>(key, w, n, lane);
 
   const long long o0 = (long long)row * k_max;
-  const int U = warp_emit_runs<WEIGHTED>(key, w, n, lane, o0, k_max, utaxa,
-                                         ucounts, uvalid);
+  const int U = warp_emit_runs<WEIGHTED>(key, w, n, lane, o0, k_max, lb,
+                                         utaxa, ucounts, uvalid);
   for (int c = U + lane; c < k_max; c += 32) {
     utaxa[o0 + c] = I32_MAX;
     ucounts[o0 + c] = 0.0f;
@@ -463,7 +475,7 @@ __device__ void block_sort(int32_t* key, float* w, int n) {
 template <int T, bool VEC, bool WEIGHTED>
 __global__ void __launch_bounds__(T) dedup_rows_kernel(
     const int32_t* __restrict__ taxa, const float* __restrict__ weights,
-    int B, int N, int cap, int k_max, int32_t* __restrict__ utaxa,
+    int B, int N, int cap, int k_max, float lb, int32_t* __restrict__ utaxa,
     float* __restrict__ ucounts, uint8_t* __restrict__ uvalid,
     int32_t* __restrict__ nuniq, unsigned char* __restrict__ scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -490,7 +502,7 @@ __global__ void __launch_bounds__(T) dedup_rows_kernel(
       if (warp == 0) {
         warp_sort<WEIGHTED>(s_key, s_w, n, lane);
         const int U = warp_emit_runs<WEIGHTED>(s_key, s_w, n, lane,
-                                               row * k_max, k_max, utaxa,
+                                               row * k_max, k_max, lb, utaxa,
                                                ucounts, uvalid);
         if (lane == 0) {
           s_u = U;
@@ -583,10 +595,11 @@ __global__ void __launch_bounds__(T) dedup_rows_kernel(
       if (h >= 0) {
         if (rank < k_max) {
           const int e = at_end ? nxt : i;
-          utaxa[o0 + rank] = key[h];
-          ucounts[o0 + rank] =
+          const float cnt =
               WEIGHTED ? (e < n ? w[e] : wtot) - w[h] : (float)(e - h);
-          uvalid[o0 + rank] = 1;
+          utaxa[o0 + rank] = key[h];
+          ucounts[o0 + rank] = cnt;
+          uvalid[o0 + rank] = cnt >= lb;
         }
         ++rank;
       }
@@ -611,36 +624,37 @@ cudaError_t allow_smem(F* kernel, size_t smem) {
 
 template <int T, bool VEC, bool WEIGHTED>
 cudaError_t launch_rows_t(const int32_t* t, const float* w, int B, int N,
-                          int k_max, int cap, int32_t* ut, float* uc,
+                          int k_max, float lb, int cap, int32_t* ut, float* uc,
                           uint8_t* uv, int32_t* nu, unsigned char* scratch,
                           int blocks, cudaStream_t s) {
   const size_t smem = (size_t)cap * (WEIGHTED ? 8 : 4);
   const cudaError_t e = allow_smem(dedup_rows_kernel<T, VEC, WEIGHTED>, smem);
   if (e != cudaSuccess) return e;
   dedup_rows_kernel<T, VEC, WEIGHTED><<<blocks, T, smem, s>>>(
-      t, w, B, N, cap, k_max, ut, uc, uv, nu, scratch);
+      t, w, B, N, cap, k_max, lb, ut, uc, uv, nu, scratch);
   return cudaSuccess;
 }
 
 template <bool VEC, bool WEIGHTED>
 cudaError_t launch_rows(const int32_t* t, const float* w, int B, int N,
-                        int k_max, int cap, int32_t* ut, float* uc,
+                        int k_max, float lb, int cap, int32_t* ut, float* uc,
                         uint8_t* uv, int32_t* nu, unsigned char* scratch,
                         int blocks, cudaStream_t s) {
   if (N <= kRowThreadsN1)
-    return launch_rows_t<128, VEC, WEIGHTED>(t, w, B, N, k_max, cap, ut, uc,
-                                             uv, nu, scratch, blocks, s);
+    return launch_rows_t<128, VEC, WEIGHTED>(t, w, B, N, k_max, lb, cap, ut,
+                                             uc, uv, nu, scratch, blocks, s);
   if (N <= kRowThreadsN2)
-    return launch_rows_t<256, VEC, WEIGHTED>(t, w, B, N, k_max, cap, ut, uc,
-                                             uv, nu, scratch, blocks, s);
-  return launch_rows_t<512, VEC, WEIGHTED>(t, w, B, N, k_max, cap, ut, uc,
-                                           uv, nu, scratch, blocks, s);
+    return launch_rows_t<256, VEC, WEIGHTED>(t, w, B, N, k_max, lb, cap, ut,
+                                             uc, uv, nu, scratch, blocks, s);
+  return launch_rows_t<512, VEC, WEIGHTED>(t, w, B, N, k_max, lb, cap, ut,
+                                           uc, uv, nu, scratch, blocks, s);
 }
 
 template <bool VEC, bool WEIGHTED>
 cudaError_t launch_warp(const int32_t* taxa, const float* weights, int B,
-                        int N, int k_max, int32_t* utaxa, float* ucounts,
-                        uint8_t* uvalid, int32_t* nuniq, cudaStream_t s) {
+                        int N, int k_max, float lb, int32_t* utaxa,
+                        float* ucounts, uint8_t* uvalid, int32_t* nuniq,
+                        cudaStream_t s) {
   const int M = pow2_at_least(N, 32);
   const size_t smem =
       (size_t)kWarpsPerBlock * M * (WEIGHTED ? 8 : 4);
@@ -648,7 +662,7 @@ cudaError_t launch_warp(const int32_t* taxa, const float* weights, int B,
   if (e != cudaSuccess) return e;
   const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
   dedup_warp<VEC, WEIGHTED><<<blocks, kWarpsPerBlock * 32, smem, s>>>(
-      taxa, weights, B, N, M, k_max, utaxa, ucounts, uvalid, nuniq);
+      taxa, weights, B, N, M, k_max, lb, utaxa, ucounts, uvalid, nuniq);
   return cudaSuccess;
 }
 
@@ -658,11 +672,13 @@ extern "C" const char* umgap_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// weights may be null (every hit weighs 1.0). The warp path, for rows
-// of up to 1,024 hits (the wrapper's choice).
+// weights may be null (every hit weighs 1.0). lb: the lower bound, a
+// kept run valid when its count >= lb (-inf: every kept run). The warp
+// path, for rows of up to 1,024 hits (the wrapper's choice).
 extern "C" int dedup_counts(const void* taxa, const void* weights, int B,
-                            int N, int k_max, void* utaxa, void* ucounts,
-                            void* uvalid, void* nuniq, void* stream) {
+                            int N, int k_max, float lb, void* utaxa,
+                            void* ucounts, void* uvalid, void* nuniq,
+                            void* stream) {
   if (B <= 0) return 0;
   const int32_t* t = (const int32_t*)taxa;
   const float* w = (const float*)weights;
@@ -677,13 +693,13 @@ extern "C" int dedup_counts(const void* taxa, const void* weights, int B,
   const bool vec = N % 4 == 0 && ((uintptr_t)t & 15) == 0 &&
                    (w == nullptr || ((uintptr_t)w & 15) == 0);
   if (vec && w)
-    e = launch_warp<true, true>(t, w, B, N, k_max, ut, uc, uv, nu, s);
+    e = launch_warp<true, true>(t, w, B, N, k_max, lb, ut, uc, uv, nu, s);
   else if (vec)
-    e = launch_warp<true, false>(t, w, B, N, k_max, ut, uc, uv, nu, s);
+    e = launch_warp<true, false>(t, w, B, N, k_max, lb, ut, uc, uv, nu, s);
   else if (w)
-    e = launch_warp<false, true>(t, w, B, N, k_max, ut, uc, uv, nu, s);
+    e = launch_warp<false, true>(t, w, B, N, k_max, lb, ut, uc, uv, nu, s);
   else
-    e = launch_warp<false, false>(t, w, B, N, k_max, ut, uc, uv, nu, s);
+    e = launch_warp<false, false>(t, w, B, N, k_max, lb, ut, uc, uv, nu, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -691,8 +707,8 @@ extern "C" int dedup_counts(const void* taxa, const void* weights, int B,
 extern "C" int dedup_counts_packed(const void* args) {
   const PackedArgs a{(const unsigned char*)args};
   return dedup_counts(a.ptr(0), a.ptr(1), (int)a.i(2), (int)a.i(3),
-                      (int)a.i(4), a.ptr(5), a.ptr(6), a.ptr(7), a.ptr(8),
-                      a.ptr(9));
+                      (int)a.i(4), (float)a.d(5), a.ptr(6), a.ptr(7),
+                      a.ptr(8), a.ptr(9), a.ptr(10));
 }
 
 // The row kernel, one block a row, for rows of any N (the wrapper takes
@@ -701,7 +717,7 @@ extern "C" int dedup_counts_packed(const void* args) {
 // `scratch` holds `blocks` rows of N entries (4 bytes each, 8 with
 // weights) and the launch runs that many blocks; else one a row.
 extern "C" int dedup_rows(const void* taxa, const void* weights, int B,
-                          int N, int k_max, int cap, void* utaxa,
+                          int N, int k_max, float lb, int cap, void* utaxa,
                           void* ucounts, void* uvalid, void* nuniq,
                           void* scratch, int blocks, void* stream) {
   if (B <= 0) return 0;
@@ -722,16 +738,16 @@ extern "C" int dedup_rows(const void* taxa, const void* weights, int B,
                    (w == nullptr || ((uintptr_t)w & 15) == 0);
   cudaError_t e;
   if (vec && w)
-    e = launch_rows<true, true>(t, w, B, N, k_max, cap, ut, uc, uv, nu, sc,
-                                blocks, s);
+    e = launch_rows<true, true>(t, w, B, N, k_max, lb, cap, ut, uc, uv, nu,
+                                sc, blocks, s);
   else if (vec)
-    e = launch_rows<true, false>(t, w, B, N, k_max, cap, ut, uc, uv, nu, sc,
-                                 blocks, s);
+    e = launch_rows<true, false>(t, w, B, N, k_max, lb, cap, ut, uc, uv, nu,
+                                 sc, blocks, s);
   else if (w)
-    e = launch_rows<false, true>(t, w, B, N, k_max, cap, ut, uc, uv, nu, sc,
-                                 blocks, s);
+    e = launch_rows<false, true>(t, w, B, N, k_max, lb, cap, ut, uc, uv, nu,
+                                 sc, blocks, s);
   else
-    e = launch_rows<false, false>(t, w, B, N, k_max, cap, ut, uc, uv, nu,
+    e = launch_rows<false, false>(t, w, B, N, k_max, lb, cap, ut, uc, uv, nu,
                                   sc, blocks, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -740,6 +756,7 @@ extern "C" int dedup_rows(const void* taxa, const void* weights, int B,
 extern "C" int dedup_rows_packed(const void* args) {
   const PackedArgs a{(const unsigned char*)args};
   return dedup_rows(a.ptr(0), a.ptr(1), (int)a.i(2), (int)a.i(3),
-                    (int)a.i(4), (int)a.i(5), a.ptr(6), a.ptr(7), a.ptr(8),
-                    a.ptr(9), a.ptr(10), (int)a.i(11), a.ptr(12));
+                    (int)a.i(4), (float)a.d(5), (int)a.i(6), a.ptr(7),
+                    a.ptr(8), a.ptr(9), a.ptr(10), a.ptr(11), (int)a.i(12),
+                    a.ptr(13));
 }

@@ -32,6 +32,17 @@
 // Counts are summed in float32; exact for the path's integer counts
 // (below 2^24), so the order of the plain version's sums does not matter.
 //
+// Snap, fused into the store (with the pipeline's snap table, as taxa2agg
+// ends, umgap_tpu/pipeline/fused.py:122-124 over umgap_tpu/agg/device.py:
+// 308 snap_batch): every path writes a group's result through one device
+// function, Store::put, which with a table writes 1 for a group with no
+// valid slot, else snap[x] when 0 <= x < size and snap[x] != NONE, else
+// 0. The table (80 KB for the bench's 20,001 taxa) stays in L2; a group
+// adds one 4-byte load at its store, and the pipeline no longer runs
+// K5's 1-D take and the eight elementwise launches around it (the
+// clamp, three compares, two ands, two selects) and the any-valid
+// reduction. Without a table the result is written as it is.
+//
 // What bounds it. Per group the work needs the valid mask (K bytes), the
 // id and count of each valid slot and one lineage row per distinct valid
 // id, and writes 4 bytes. At the bench's 1-3 valid slots of K = 64 that
@@ -207,6 +218,21 @@ struct Rows {
   __device__ __forceinline__ bool anc(int ui, int di,
                                       const int32_t* lj) const {
     return lj[min(di, D - 1)] == ui;
+  }
+};
+
+// Where a group's result goes: out[b], through the snap table when there
+// is one (see the note at the top). n: the group's valid slots.
+struct Store {
+  int32_t* out;
+  const int32_t* snap;  // null: the result as it is
+  int snap_size;
+  __device__ __forceinline__ void put(long long b, int n, int x) const {
+    if (snap != nullptr) {
+      const int32_t s = x >= 0 && x < snap_size ? snap[x] : NONE;
+      x = n == 0 ? 1 : s != NONE ? s : 0;
+    }
+    out[b] = x;
   }
 };
 
@@ -422,7 +448,7 @@ __device__ void warp_group(const Rows& src, long long b,
                            const uint8_t* __restrict__ valid,
                            const int32_t* __restrict__ utaxa, int K,
                            int root, float factor, unsigned char* base,
-                           int32_t* __restrict__ out) {
+                           const Store& st) {
   const int D = src.D;
   const int lane = threadIdx.x & 31;
   int* Lk = reinterpret_cast<int*>(base);
@@ -441,6 +467,7 @@ __device__ void warp_group(const Rows& src, long long b,
     if (v) Lk[n + __popc(bal & ((1u << lane) - 1u))] = k;
     n += __popc(bal);
   }
+  const int nv = n;  // the group's valid slots (hybrid narrows n below)
   __syncwarp();
   for (int p = lane; p < n; p += 32) {
     const int k = Lk[p];
@@ -519,7 +546,7 @@ __device__ void warp_group(const Rows& src, long long b,
       n = m;
       __syncwarp();  // Lcol is rewritten at the next depth
     }
-    if (lane == 0) out[b] = x;
+    if (lane == 0) st.put(b, nv, x);
     return;
   }
   if (STRAT == kMrtl) {
@@ -541,7 +568,7 @@ __device__ void warp_group(const Rows& src, long long b,
     const float smax = warp_max_f(bs);
     const int dmax = warp_max_i(bs == smax ? bd : -1);
     bu = warp_min_i(bs == smax && bd == dmax ? bu : I32_MAX);
-    if (lane == 0) out[b] = bu;
+    if (lane == 0) st.put(b, nv, bu);
     return;
   }
   // lca*
@@ -562,7 +589,7 @@ __device__ void warp_group(const Rows& src, long long b,
   const int dmax = warp_max_i(bd);
   const int pstar = warp_min_i(bd == dmax ? bp : I32_MAX);
   if (dmax >= 0) {
-    if (lane == 0) out[b] = Lu[pstar];
+    if (lane == 0) st.put(b, nv, Lu[pstar]);
     return;
   }
   const int32_t* ref = src.lin(n ? Lu[0] : 0);
@@ -573,7 +600,7 @@ __device__ void warp_group(const Rows& src, long long b,
     for (int p = lane; p < n && ok; p += 32) ok = src.lin(Lu[p])[d] == r;
     if (__all_sync(FULL, ok)) dstar = d;
   }
-  if (lane == 0) out[b] = ref[dstar];
+  if (lane == 0) st.put(b, nv, ref[dstar]);
 }
 
 template <int STRAT>
@@ -582,7 +609,7 @@ __global__ void tree_kernel(Rows src, const float* __restrict__ counts,
                             const int32_t* __restrict__ utaxa, int B, int K,
                             int root, float factor,
                             unsigned char* __restrict__ scratch,
-                            int32_t* __restrict__ out) {
+                            Store st) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned heavy_groups;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -609,9 +636,10 @@ __global__ void tree_kernel(Rows src, const float* __restrict__ counts,
             td[e * 32] = STRAT != kHybrid ? src.depth(u) : 0;
           }
         }
-        out[b] = STRAT == kHybrid && n <= kSmall
-                     ? hybrid_small(src, n, tu, tc, root, factor)
-                     : thread_group<STRAT>(src, n, tu, tc, td, root, factor);
+        st.put(b, n,
+               STRAT == kHybrid && n <= kSmall
+                   ? hybrid_small(src, n, tu, tc, root, factor)
+                   : thread_group<STRAT>(src, n, tu, tc, td, root, factor));
       }
     }
     const unsigned h = __ballot_sync(FULL, heavy);
@@ -628,7 +656,7 @@ __global__ void tree_kernel(Rows src, const float* __restrict__ counts,
     todo &= todo - 1;
     if (r % warps != w) continue;
     warp_group<STRAT>(src, b0 + t, counts, valid, utaxa, K, root, factor,
-                      base, out);
+                      base, st);
     __syncwarp();
   }
 }
@@ -636,7 +664,7 @@ __global__ void tree_kernel(Rows src, const float* __restrict__ counts,
 template <int STRAT>
 int launch(const Rows& src, const float* counts, const uint8_t* valid,
            const int32_t* utaxa, int B, int K, int root, float factor,
-           unsigned char* scratch, int32_t* out, cudaStream_t stream) {
+           unsigned char* scratch, const Store& st, cudaStream_t stream) {
   int warps = kBlockWarps;  // fewer where the lists of a wide K need it
   size_t smem = kThreadBytes;
   if (list_bytes(K) <= kSmemMax) {
@@ -655,7 +683,7 @@ int launch(const Rows& src, const float* counts, const uint8_t* valid,
   }
   const int blocks = (int)(((long long)B + 31) / 32);
   tree_kernel<STRAT><<<blocks, 32 * warps, smem, stream>>>(
-      src, counts, valid, utaxa, B, K, root, factor, scratch, out);
+      src, counts, valid, utaxa, B, K, root, factor, scratch, st);
   return (int)cudaGetLastError();
 }
 
@@ -1114,8 +1142,7 @@ __global__ void __launch_bounds__(kBlockThreads)
                       const uint8_t* __restrict__ valid,
                       const int32_t* __restrict__ utaxa, int B, int K,
                       int root, float factor,
-                      unsigned char* __restrict__ scratch,
-                      int32_t* __restrict__ out) {
+                      unsigned char* __restrict__ scratch, Store st) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ BlockRed red;
   const size_t Kp = ((size_t)K + 3) & ~(size_t)3;
@@ -1171,7 +1198,7 @@ __global__ void __launch_bounds__(kBlockThreads)
         res = score_ids<STRAT>(src, A, C, X, m, n, red, &found);
       if (STRAT == kLca && !found) res = agree_ids(src, A, m, first, red);
     }
-    if (threadIdx.x == 0) out[b] = res;
+    if (threadIdx.x == 0) st.put(b, n, res);
     __syncthreads();  // the list and the auxiliary area are reused
   }
 }
@@ -1179,7 +1206,7 @@ __global__ void __launch_bounds__(kBlockThreads)
 template <int STRAT>
 int launch_block(const Rows& src, const float* counts, const uint8_t* valid,
                  const int32_t* utaxa, int B, int K, int root, float factor,
-                 unsigned char* scratch, int scratch_blocks, int32_t* out,
+                 unsigned char* scratch, int scratch_blocks, const Store& st,
                  cudaStream_t stream) {
   size_t smem = kAuxBytes;
   int grid = B < kBlockGrid ? B : kBlockGrid;
@@ -1198,20 +1225,20 @@ int launch_block(const Rows& src, const float* counts, const uint8_t* valid,
     if (e != cudaSuccess) return (int)e;
   }
   tree_block_kernel<STRAT><<<grid, kBlockThreads, smem, stream>>>(
-      src, counts, valid, utaxa, B, K, root, factor, scratch, out);
+      src, counts, valid, utaxa, B, K, root, factor, scratch, st);
   return (int)cudaGetLastError();
 }
 
 template <int STRAT>
 int dispatch(const Rows& src, const float* counts, const uint8_t* valid,
              const int32_t* utaxa, int B, int K, int root, float factor,
-             unsigned char* scratch, int scratch_blocks, int32_t* out,
+             unsigned char* scratch, int scratch_blocks, const Store& st,
              cudaStream_t stream) {
   if (K <= kWideK)  // a warp's list fits shared memory: no scratch
     return launch<STRAT>(src, counts, valid, utaxa, B, K, root, factor,
-                         nullptr, out, stream);
+                         nullptr, st, stream);
   return launch_block<STRAT>(src, counts, valid, utaxa, B, K, root, factor,
-                             scratch, scratch_blocks, out, stream);
+                             scratch, scratch_blocks, st, stream);
 }
 
 }  // namespace
@@ -1227,20 +1254,24 @@ extern "C" const char* umgap_cuda_error_string(int code) {
 // path. scratch: null while a block's list fits its shared memory
 // (kAuxBytes + block_list_bytes(K) <= kSmemMax), else scratch_blocks
 // lists of block_list_bytes(K), 16-byte aligned, and the launch runs at
-// most scratch_blocks blocks (agg/device.py tree_scratch_bytes).
+// most scratch_blocks blocks (agg/device.py tree_scratch_bytes). snap:
+// null, or the snap table (snap_size int32) the results go through
+// (Store::put).
 extern "C" int tree_aggregate(int strategy, const void* geom, int size,
                               int W, const void* counts, const void* valid,
                               const void* utaxa, int B, int K, int root,
                               float factor, void* scratch,
-                              int scratch_blocks, void* out, void* stream) {
+                              int scratch_blocks, void* out, const void* snap,
+                              int snap_size, void* stream) {
   if (B <= 0) return 0;
-  if (K <= 0 || W < 2 || size <= 0) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || W < 2 || size <= 0 || (snap != nullptr && snap_size <= 0))
+    return (int)cudaErrorInvalidValue;
   const Rows src{(const int32_t*)geom, size, W, W - 1};
   const float* c = (const float*)counts;
   const uint8_t* v = (const uint8_t*)valid;
   const int32_t* u = (const int32_t*)utaxa;
   unsigned char* sc = (unsigned char*)scratch;
-  int32_t* o = (int32_t*)out;
+  const Store o{(int32_t*)out, (const int32_t*)snap, snap_size};
   cudaStream_t s = (cudaStream_t)stream;
   switch (strategy) {
     case kHybrid:
@@ -1262,5 +1293,6 @@ extern "C" int tree_aggregate_packed(const void* args) {
   return tree_aggregate((int)a.i(0), a.ptr(1), (int)a.i(2), (int)a.i(3),
                         a.ptr(4), a.ptr(5), a.ptr(6), (int)a.i(7),
                         (int)a.i(8), (int)a.i(9), (float)a.d(10), a.ptr(11),
-                        (int)a.i(12), a.ptr(13), a.ptr(14));
+                        (int)a.i(12), a.ptr(13), a.ptr(14), (int)a.i(15),
+                        a.ptr(16));
 }

@@ -44,6 +44,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
+F = ctypes.c_float
 
 
 class KernelBuildError(RuntimeError):
@@ -77,7 +78,7 @@ class Kernel:
         self.replaces = replaces
         self.launches = 0
         self._pack = struct.Struct("=" + "".join(
-            "d" if t is ctypes.c_float else "q" for t in argtypes)).pack
+            "d" if t is F else "q" for t in argtypes)).pack
         self._fn = None
         self._err = None
 
@@ -138,12 +139,13 @@ K3R = Kernel(
     [P, P, LL, I, I, I, P, I, P], K3.replaces)
 K4 = Kernel(
     "dedup_counts", "dedup_counts.cu",
-    [P, P, I, I, I, P, P, P, P, P],
-    "umgap_tpu/agg/device.py:79 dedup_counts")
+    [P, P, I, I, I, F, P, P, P, P, P],
+    "umgap_tpu/agg/device.py:79 dedup_counts + "
+    "umgap_tpu/agg/device.py:154 filter_lower_bound")
 # K4's row kernel (one block a row) for rows past the warp path
 K4R = Kernel(
     "dedup_rows", "dedup_counts.cu",
-    [P, P, I, I, I, I, P, P, P, P, P, I, P], K4.replaces)
+    [P, P, I, I, I, F, I, P, P, P, P, P, I, P], K4.replaces)
 K5 = Kernel(
     "lane_gather", "lane_gather.cu",
     [I, P, LL, LL, LL, LL, LL, LL, P, LL, LL, LL, LL, LL, P, LL, P],
@@ -160,10 +162,17 @@ K5A = Kernel(
     "(:191) and compare (:194)")
 K6 = Kernel(
     "tree_aggregate", "tree_aggregate.cu",
-    [I, P, I, I, P, P, P, I, I, I, ctypes.c_float, P, I, P, P],
+    [I, P, I, I, P, P, P, I, I, I, F, P, I, P, P, I, P],
     "umgap_tpu/agg/device.py:219 tree_lca_batch, :243 rtl_batch, "
     ":253 tree_mix_batch, with :170 hit_geometry's row gather and "
-    "ancestry test fused in")
+    "ancestry test and :308 snap_batch (+ "
+    "umgap_tpu/pipeline/fused.py:122-124) fused in")
+# the snap of the aggregators without K6 (rmq/lca*, rmq/hybrid)
+KS = Kernel(
+    "snap_taxa", "snap_taxa.cu",
+    [P, I, P, P, I, I, P, P],
+    "umgap_tpu/agg/device.py:308 snap_batch + "
+    "umgap_tpu/pipeline/fused.py:122-124 (where over uvalid.any)")
 
 K7 = Kernel(
     "reads_to_peptides", "reads_to_peptides.cu",
@@ -176,7 +185,7 @@ K8 = Kernel(
     [P, P, P, LL, P, LL, I, I, P, P, I, P],
     "umgap_tpu/ops/lookup.py:265-283 _probe_dense (peptide branch)")
 
-KERNELS = (K1, K2, K3, K3R, K4, K4R, K5, K5A, K6, K7, K8)
+KERNELS = (K1, K2, K3, K3R, K4, K4R, K5, K5A, K6, KS, K7, K8)
 
 # build seconds and ptxas reports of the last build_all() in this process
 BUILD_INFO: dict = {}

@@ -9,11 +9,12 @@ The composition of the reference's preset pipelines
 over a padded batch of read pairs. On CUDA the chain is
 K1 reads_to_kmers -> K2 probe_kmer -> K3 seed-extend (the hits
 epilogue: the kept taxa, with no keep mask and no select pass) ->
-K4 dedup_counts -> the lower-bound filter -> the aggregator (one K6
-tree_aggregate launch for tree/lca*, tree/hybrid and rmq/mrtl, which
-reads the taxonomy rows of the valid hits itself; the Euler/RMQ
-aggregators around K5 for rmq/lca* and rmq/hybrid) -> snap (K5); on the
-CPU every stage runs its plain version. ``run_stages(..., plain=True)``
+K4 dedup_counts with the lower-bound filter at its stores -> the
+aggregator with snap: one K6 tree_aggregate launch for tree/lca*,
+tree/hybrid and rmq/mrtl, which reads the taxonomy rows of the valid
+hits itself and writes the snapped taxon; the Euler/RMQ aggregators
+around K5 for rmq/lca* and rmq/hybrid, then one snap_taxa launch. On
+the CPU every stage runs its plain version. ``run_stages(..., plain=True)``
 composes the plain versions on any device (inside
 :func:`~umgap_tpu_torch.kernels.plain_versions`): it is the reference
 the kernels are held against on the card, and no entry point uses it.
@@ -125,23 +126,18 @@ def _stages(reads, lengths, length, packed, dtax, dtable, config,
 def aggregate_hits(hits, dtax, config, with_overflow, stage, euler, dedup):
     """The stages after the probe, shared with the tryptic pipeline:
     hits (B, N) int32 (0 = none) -> taxon (B,) [, overflow (B,)]:
-    ``dedup`` (K4 or its plain version), the lower-bound filter, the
-    aggregator and snap."""
+    ``dedup`` (K4 or its plain version) with the lower-bound filter, then
+    the aggregator with snap (taxa2agg's count, filter, aggregate and
+    snap; umgap_tpu/pipeline/fused.py:114-124)."""
     with stage("dedup"):
-        utaxa, ucounts, uvalid, nuniq = dedup(hits, None, config.k_max,
-                                              return_nuniq=True)
-    # the stage keeps its name (the filter alone now) so that stage
-    # tables of trees before and after K6 read the rows itself line up
-    with stage("hit_geometry"):
-        uvalid = devagg.filter_lower_bound(ucounts, uvalid,
-                                           config.lower_bound)
+        utaxa, ucounts, uvalid, nuniq = dedup(
+            hits, None, config.k_max, return_nuniq=True,
+            lower_bound=config.lower_bound)
     with stage("aggregate"):
-        agg = devagg.aggregate_batch(dtax, utaxa, ucounts, uvalid,
-                                     config.method, config.strategy,
-                                     config.factor, euler=euler)
-    with stage("snap"):
-        snapped = devagg.snap_batch(dtax.snap_valid, agg, 0)
-        taxon = torch.where(uvalid.any(dim=-1), snapped, 1).to(torch.int32)
+        taxon = devagg.aggregate_batch(dtax, utaxa, ucounts, uvalid,
+                                       config.method, config.strategy,
+                                       config.factor, euler=euler,
+                                       snap=dtax.snap_valid)
     if with_overflow:
         return taxon, nuniq > config.k_max
     return taxon

@@ -7,8 +7,8 @@ translation is the protein front end. On CUDA one batch is
 K7 reads_to_peptides (``csrc/reads_to_peptides.cu``: unpack, six-frame
 translation, the tryptic digest and the FNV fingerprints, fused) ->
 K8 probe_peptide (``csrc/probe_peptide.cu``; misses dropped, as
-prot2tryp2lca without ``-o``) -> K4 dedup -> the lower-bound filter ->
-K6 (rmq/mrtl) -> snap (K5); on the CPU every stage runs its plain
+prot2tryp2lca without ``-o``) -> K4 dedup with the lower-bound filter ->
+K6 (rmq/mrtl) with snap; on the CPU every stage runs its plain
 version. :func:`analyse_tryptic_groups` is the host-digest route for
 records longer than ``--read-length``: the digest on the host
 (:func:`digest_groups`), the probe and the aggregation on the device.
