@@ -18,7 +18,9 @@ program on one batch, the tryptic presets through ``TrypticAnalyser``
 over a peptide index of the workload's own fragments, runs a 4.3 GB
 card-resident bucket64s index and a 1.6 GB card-resident peptide index
 of 50 M keys, runs the ``analyse`` command line in a subprocess (9-mer
-and tryptic), reads FASTQ files (plain and gzipped, and reads of
+and tryptic), runs the FragGeneScan++ protein path with a mock FGSpp
+(``MOCK_FGSPP``: the library path of the four FGSpp presets, K1P alone,
+and the command line with ``-c`` and ``-z``), reads FASTQ files (plain and gzipped, and reads of
 100-4,096 bp) through the command line's three ingest tiers, holds its
 two host routes (the host digest, the exact long-record route) to
 device routes, and runs the Euler/RMQ aggregations (rmq/lca*,
@@ -87,8 +89,72 @@ REFERENCE_DIGESTS = {
         "c9e70c8cc08a30f1d1f6117790a68ee776cb30651f4aafaa2d4dda3b85589341",
     "tryptic-precision":
         "b1194f658f17cf5ab6af54032fbedb00ec2792f061a39c10179cf9255597c745",
+    # the first 1,024 gene groups of MOCK_FGSPP over the bench pairs
+    # (fgspp_records), the 9-mer presets over the bench index and the
+    # tryptic ones over tryptic_workload's (tests/test_torch_proteins.py)
+    "fgspp/high-precision":
+        "a2b5ddf290d76656547cd64a8343aaad6eb5e6b99fce05268e05a26ac7e174ee",
+    "fgspp/max-precision":
+        "e927a53e8e08339b3765da80ecd06955b00315e2d30722387dbeade5a98a6fe6",
+    "fgspp/tryptic-precision":
+        "9c6a5c38c7d399c8ec64b5bfab741a556e1eda5115d41c24743aec9c3081d736",
+    "fgspp/tryptic-sensitivity":
+        "5660389d1683eb3d559bba0e741ad7fb981c7411322c36a71d5a28f45f614aa7",
 }
 RMQ_STRATEGIES = ("lca*", "hybrid")
+
+# A stand-in for FragGeneScan++ (phase fgspp; tests/test_torch_proteins.py
+# and tests/test_torch_cli.py install it too): FASTA on stdin, FGSpp's
+# flags ignored; each record's forward strand and reverse complement
+# translated in frame 1 (the standard code) and split at stops, every
+# stretch of 20 residues or more written as a gene record
+# ">{header}_{start}_{end}_{+|-}". A read predicts 0 to a few genes.
+MOCK_FGSPP = r'''#!/usr/bin/env python3
+import sys
+
+BASES = "TCAG"
+AMINO = "FFLLSSSSYY**CC*WLLLLPPPPHHQQRRRRIIIMTTTTNNKKSSRRVVVVAAAADDEEGGGG"
+CODE = {a + b + c: AMINO[16 * i + 4 * j + k]
+        for i, a in enumerate(BASES) for j, b in enumerate(BASES)
+        for k, c in enumerate(BASES)}
+COMP = str.maketrans("ACGT", "TGCA")
+
+
+def genes(header, dna):
+    dna = dna.upper()
+    for strand, seq in (("+", dna), ("-", dna.translate(COMP)[::-1])):
+        prot = "".join(CODE.get(seq[i:i + 3], "X")
+                       for i in range(0, len(seq) - 2, 3))
+        pos = 0
+        for part in prot.split("*"):
+            if len(part) >= 20:
+                sys.stdout.write(f">{header}_{3 * pos + 1}_"
+                                 f"{3 * (pos + len(part))}_{strand}\n"
+                                 f"{part}\n")
+            pos += len(part) + 1
+
+
+header, seq = None, []
+for line in sys.stdin:
+    line = line.rstrip("\n")
+    if line.startswith(">"):
+        if header is not None:
+            genes(header, "".join(seq))
+        header, seq = line[1:], []
+    else:
+        seq.append(line)
+if header is not None:
+    genes(header, "".join(seq))
+'''
+
+
+def fgspp_records(reads):
+    """(header, dna) records of read pairs ((n, 2, L) codes) as FGSpp
+    reads them: both ends of pair i, ``s{i}/1`` then ``s{i}/2``."""
+    seqs = np.frombuffer(b"ACGTN", np.uint8)[np.minimum(reads, 4)]
+    for i in range(len(reads)):
+        for e in (0, 1):
+            yield f"s{i}/{e + 1}", seqs[i, e].tobytes().decode()
 
 
 def taxa_digest(taxa) -> str:
@@ -182,6 +248,8 @@ def main():
         phase_resident(torch, world)
         k8_resident = phase_resident_peptide(torch, world, tresults)
         phase_cli(torch, world)
+        fgspp_launches, stats["proteins_to_kmers"] = phase_fgspp(torch,
+                                                                 world)
         phase_ingest(torch, world)
         long_launches = phase_long(torch, world)
         rmq_launches = phase_rmq(torch, world)
@@ -194,7 +262,7 @@ def main():
     # raise before this point if any of them did not run to its end.
     # Launches: the 9-mer main path's, K7 and K8 the tryptic path's, K3's
     # and K4's row kernels the 12,000 bp path's, K5 and snap_taxa the
-    # Euler/RMQ path's (K6 snaps on the others).
+    # Euler/RMQ path's (K6 snaps on the others), K1P the FGSpp path's.
     # K7's time and share are its L2-flushed ones (its 8.8 MB would
     # otherwise sit in L2 across launches; the warm ones stay in its
     # stats). K8's times and bound are the resident index's with the L2
@@ -222,6 +290,7 @@ def main():
             "launches": (tlaunches if k.name in TRYPTIC_KERNELS
                          else long_launches if k.name in ROW_KERNELS
                          else rmq_launches if k.name in RMQ_TAIL_KERNELS
+                         else fgspp_launches if k.name in PROTEIN_KERNELS
                          else launches)[k.name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
@@ -2376,12 +2445,15 @@ def is_tryptic(config) -> bool:
 # the tail after K4 on the Euler/RMQ aggregators (rmq/lca*, rmq/hybrid):
 # their tables through K5, then snap_taxa; K6 takes both on the others
 RMQ_TAIL_KERNELS = {"lane_gather", "snap_taxa"}
+# K1's protein entry: launched only on the FGSpp path (phase fgspp)
+PROTEIN_KERNELS = {"proteins_to_kmers"}
 
 
 def path_kernels(config):
     """Names of the kernels a configuration's path launches at 100-160
     bp: K1-K3 on the 9-mer path, K7 and K8 on the tryptic one, K3's and
-    K4's row kernels on none (ROW_KERNELS), K4 with the lower bound on
+    K4's row kernels and K1's protein entry on none (ROW_KERNELS,
+    PROTEIN_KERNELS), K4 with the lower bound on
     all; K6 (which reads the taxonomy rows itself and snaps) for the
     tree aggregators and rmq/mrtl, K5 and snap_taxa for rmq/lca* and
     rmq/hybrid; no path launches K5's ancestry epilogue (it serves
@@ -2390,7 +2462,7 @@ def path_kernels(config):
     from umgap_tpu_torch.agg import device as devagg
 
     names = {k.name for k in kernels.KERNELS} - {"lane_gather_ancestry"}
-    names -= ROW_KERNELS
+    names -= ROW_KERNELS | PROTEIN_KERNELS
     names -= NINEMER_KERNELS if is_tryptic(config) else TRYPTIC_KERNELS
     if (config.method, config.strategy) in devagg.GEOMETRY_AGGREGATIONS:
         names -= RMQ_TAIL_KERNELS
@@ -2413,9 +2485,11 @@ def batch_launches(torch, world, an):
     return kernels.launch_counts()
 
 
-def batch_cuda_launches(torch, world, an, tries=3):
-    """Every CUDA kernel one 16,384-pair batch step of an Analyser runs,
-    PyTorch's own included, by this code on any tree: the profiler over
+def batch_cuda_launches(torch, world, an, tries=3, inputs=None):
+    """Every CUDA kernel one 16,384-pair batch step of an Analyser runs
+    (or one step on ``inputs``, the step's (batch, lengths, width)
+    arguments on the card), PyTorch's own included, by this code on any
+    tree: the profiler over
     one step (its inputs already on the card), recorded after a warm-up
     window with host time around it as ``_profile_window`` does, taken
     again (up to ``tries`` windows) until the card's kernel events
@@ -2428,11 +2502,13 @@ def batch_cuda_launches(torch, world, an, tries=3):
     from umgap_tpu_torch.ops import encoding
 
     dev, L = world["dev"], world["L"]
-    b = torch.from_numpy(encoding.pack_dna4(world["reads"][:BATCH])).to(dev)
-    lens = torch.full((BATCH, 2), L, dtype=torch.int32, device=dev)
+    if inputs is None:
+        inputs = (torch.from_numpy(encoding.pack_dna4(
+            world["reads"][:BATCH])).to(dev),
+            torch.full((BATCH, 2), L, dtype=torch.int32, device=dev), L)
 
     def step():
-        an.step(b, lens, L)
+        an.step(*inputs)
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
 
@@ -2630,25 +2706,28 @@ def phase_main(torch, world):
 STAGE_PRESETS = ("high-sensitivity", "high-precision", "max-sensitivity")
 
 
-def stage_table(torch, world, an):
+def stage_table(torch, world, an, inputs=None):
     """One preset's Analyser on the workload's batches already on the
-    card: device-resident pairs/s, the per-stage CUDA-event times
-    (median of 5 x the batches; each stage ends in a host sync) and the
-    peak card memory of one batch step above what was allocated before
-    it."""
+    card (or on ``inputs``, a list of the step's (batch, lengths, width)
+    arguments on the card): device-resident pairs/s (read groups a
+    second), the per-stage CUDA-event times (median of 5 x the batches;
+    each stage ends in a host sync) and the peak card memory of one batch
+    step above what was allocated before it."""
     import contextlib
 
     from umgap_tpu_torch.ops import encoding
 
-    dev, P, L = world["dev"], world["P"], world["L"]
-    batches = [torch.from_numpy(encoding.pack_dna4(
-        world["reads"][i * BATCH:(i + 1) * BATCH])).to(dev)
-        for i in range(P // BATCH)]
-    lens = torch.full((BATCH, 2), L, dtype=torch.int32, device=dev)
+    dev, L = world["dev"], world["L"]
+    if inputs is None:
+        lens = torch.full((BATCH, 2), L, dtype=torch.int32, device=dev)
+        inputs = [(torch.from_numpy(encoding.pack_dna4(
+            world["reads"][i * BATCH:(i + 1) * BATCH])).to(dev), lens, L)
+            for i in range(world["P"] // BATCH)]
+    P = sum(x[1].shape[0] for x in inputs)
 
     def resident():
-        for b in batches:
-            an.step(b, lens, L)
+        for args in inputs:
+            an.step(*args)
 
     ms = cuda_ms(torch, resident, reps=5)
     stage_ms = {}
@@ -2666,20 +2745,21 @@ def stage_table(torch, world, an):
         return cm()
 
     for _ in range(5):
-        for b in batches:
-            an.step(b, lens, L, timer=timer)
+        for args in inputs:
+            an.step(*args, timer=timer)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    an.step(batches[0], lens, L)
+    an.step(*inputs[0])
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     out = dict(device_resident_pairs_per_s=P / (ms / 1e3),
-               batch_ms=ms / len(batches),
+               batch_ms=ms / len(inputs),
                stage_ms={k: float(np.median(v)) for k, v in stage_ms.items()},
                step_peak_gb=peak / 1e9, step_above_base_gb=(peak - base) / 1e9)
     log(f"{an.config.name}: device-resident {out['device_resident_pairs_per_s']:.0f}"
-        f" pairs/s ({out['batch_ms']:.3f} ms per {BATCH}-pair batch); stages "
+        f" pairs/s ({out['batch_ms']:.3f} ms per {inputs[0][1].shape[0]}-"
+        "group batch); stages "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in out["stage_ms"].items())
         + f"; step peak {peak / 1e9:.3f} GB, {(peak - base) / 1e9:.3f} GB "
         "above its inputs")
@@ -3149,6 +3229,25 @@ def _cli_files(world):
     return taxtsv, index
 
 
+def _cli_session(world, read_length=160, tables=None):
+    """A ``cli.AnalyseSession`` over the world's device state, as
+    ``cmd_analyse`` loads one: ``tables`` ({tryptic: (table, device
+    table)}, default both of the world's families) at ``read_length``,
+    BATCH groups a batch, the six-frame front end (``--fgspp never``, as
+    phase cli passes it)."""
+    import argparse
+
+    from umgap_tpu_torch import cli
+
+    args = argparse.Namespace(read_length=read_length, batch_size=BATCH,
+                              fgspp="never", configdir=None)
+    if tables is None:
+        tables = {False: (world["table"], world["dtable"]),
+                  True: (world["ptable"], world["pdtable"])}
+    return cli.AnalyseSession(args, world["tax"], tables, world["dtax"],
+                              world["dev"])
+
+
 def phase_cli(torch, world):
     from umgap_tpu_torch import kernels
     from umgap_tpu_torch.pipeline.fused import PRESETS
@@ -3251,6 +3350,246 @@ def phase_cli(torch, world):
 
 
 # ---------------------------------------------------------------------- #
+# Phase 5a: the FragGeneScan++ protein path (MOCK_FGSPP)
+# ---------------------------------------------------------------------- #
+
+FGSPP_ORDER = ("high-precision", "max-precision", "tryptic-precision",
+               "tryptic-sensitivity")
+# the protein step's batch (analyse_protein_groups' cap)
+GENE_BATCH = 1024
+
+
+def _fgspp_config_dir(world):
+    """A config dir under .smoke_tmp/ as umgap-setup lays one out: the
+    mock as FGSpp/FGSpp with an empty FGSpp/train/, and a data version of
+    symlinks to the command line's taxonomy, 9-mer index and the phase
+    tryptic peptide index."""
+    conf = os.path.join(TMP_DIR, "fgspp_conf")
+    fg = os.path.join(conf, "FGSpp")
+    os.makedirs(os.path.join(fg, "train"))
+    with open(os.path.join(fg, "FGSpp"), "w") as f:
+        f.write(MOCK_FGSPP)
+    os.chmod(os.path.join(fg, "FGSpp"), 0o755)
+    taxtsv, index = _cli_files(world)
+    pindex = os.path.join(TMP_DIR, "tryptic.npz")
+    if not os.path.exists(pindex):
+        world["ptable"].save(pindex)
+    version = os.path.join(conf, "2026-10")
+    os.makedirs(version)
+    for name, target in (("taxons.tsv", taxtsv), ("ninemer.npz", index),
+                         ("tryptic.npz", pindex)):
+        os.symlink(target, os.path.join(version, name))
+    return conf
+
+
+def fgspp_path_kernels(config):
+    """The kernels of a preset's FGSpp path: K1P, K2, K3 (hits), K4 and
+    K6 for the 9-mer presets (all tree/lca*); K8, K4 and K6 (rmq/mrtl)
+    after the host digest for the tryptic ones."""
+    if is_tryptic(config):
+        return {"probe_peptide", "dedup_counts", "tree_aggregate"}
+    return {"proteins_to_kmers", "probe_kmer", "seedextend_mask",
+            "dedup_counts", "tree_aggregate"}
+
+
+def _k1p_stats(torch, world, an, groups):
+    """K1P on one gene batch (the first GENE_BATCH groups at the
+    analyser's lanes and width) against its plain version: event, device
+    and plain ms, and its bound (the lanes' residues and lengths read
+    once, hi, lo and valid written once; a shift and an or a residue of
+    each window)."""
+    from umgap_tpu_torch.ops import kmers
+    from umgap_tpu_torch.pipeline.proteins import encode_protein_groups
+
+    aa, lens = encode_protein_groups(groups[:GENE_BATCH], an.ends,
+                                     an.read_length)
+    N, P = aa.shape[0] * aa.shape[1], aa.shape[2]
+    a = torch.from_numpy(aa.reshape(N, P)).to(world["dev"])
+    ln = torch.from_numpy(lens.reshape(N)).to(world["dev"])
+    err = compare(torch, f"K1P ({N}, {P})", kmers.proteins_to_kmers(a, ln),
+                  kmers.pack_windows_batch(a, ln))
+    # P < 9 and unaligned lanes, at the batch's lane count
+    for Pe, off in ((5, 0), (9, 0), (P, 3)):
+        big = torch.randint(0, 32, (N * Pe + off,), dtype=torch.uint8,
+                            device=world["dev"])
+        ae = big[off:].view(N, Pe)
+        le = torch.randint(0, Pe + 2, (N,), dtype=torch.int32,
+                           device=world["dev"])
+        err = max(err, compare(torch, f"K1P ({N}, {Pe}) offset {off}",
+                               kmers.proteins_to_kmers(ae, le),
+                               kmers.pack_windows_batch(ae, le)))
+    W = max(P - 8, 1)
+
+    def k1p():
+        return kmers.proteins_to_kmers(a, ln)
+
+    b, by = bound(N * P + 4 * N + N * W * 9, N * W * 9 * 2)
+    return dict(ms=cuda_ms(torch, k1p, reps=50),
+                device_ms=device_ms(torch, k1p, reps=50),
+                plain_ms=cuda_ms(torch, lambda: kmers.pack_windows_batch(
+                    a, ln), reps=20),
+                bound_ms=b, bound_by=by, library_ms=None, lanes=N, width=P,
+                max_abs_err=err, equal=err == 0.0)
+
+
+def phase_fgspp(torch, world):
+    """The FGSpp protein path, as a user with FGSpp installed runs it,
+    with MOCK_FGSPP in its place: the 32,768 bench pairs (headers s{i}/1
+    and s{i}/2) through ``predict_genes`` and ``group_genes``, then the
+    two 9-mer FGSpp presets through ``ProteinAnalyser`` and the two
+    tryptic ones through ``analyse_tryptic_protein_groups``; the kernel
+    path held to the plain path and the first 1,024 groups to umgap_tpu's
+    digests, launch counts reset before the run; the protein step's CUDA
+    kernels a batch and stage table; K1P alone on one gene batch; and the
+    command line with ``-c`` (no --taxons, no --index) and ``-z``, equal
+    to the library path. Returns (launches, K1P's stats)."""
+    from umgap_tpu_torch import fgspp, kernels
+    from umgap_tpu_torch.pipeline import proteins
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+    from umgap_tpu_torch.pipeline.tryptic import TRYPTIC_PRESETS
+
+    t_phase = time.perf_counter()
+    conf = _fgspp_config_dir(world)
+    fg = fgspp.find_fgspp(conf)
+    require(fg is not None, f"fgspp: no FGSpp found under {conf}")
+    t0 = time.perf_counter()
+    groups = list(fgspp.group_genes(fgspp.predict_genes(
+        *fg, fgspp_records(world["reads"]))))
+    mock_s = time.perf_counter() - t0
+    genes = sum(len(p) for _h, p in groups)
+    require(REFERENCE_PAIRS < len(groups) < world["P"],
+            f"fgspp: {len(groups)} gene groups from {world['P']} pairs")
+    headers = [h for h, _p in groups]
+    cache = {}
+
+    def run(preset):
+        if preset in TRYPTIC_PRESETS:
+            res = proteins.analyse_tryptic_protein_groups(
+                groups, None, None, TRYPTIC_PRESETS[preset],
+                batch_size=GENE_BATCH, dtax=world["dtax"],
+                dtable=world["pdtable"], step_cache=cache)
+        else:
+            res = proteins.analyse_protein_groups(
+                groups, None, None, PRESETS[preset], batch_size=GENE_BATCH,
+                dtax=world["dtax"], dtable=world["dtable"],
+                analyser_cache=cache)
+        out = [(h, t) for h, t in res]
+        require([h for h, _t in out] == headers,
+                f"fgspp {preset}: headers out of order")
+        return np.array([t for _h, t in out], dtype=np.int64)
+
+    for preset in FGSPP_ORDER:  # warm: analysers built, kernels loaded
+        run(preset)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    taxa, walls = {}, {}
+    for preset in FGSPP_ORDER:
+        t0 = time.perf_counter()
+        taxa[preset] = run(preset)
+        walls[preset] = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    log(f"fgspp path launches: {launches}")
+    phase = dict(pairs=world["P"], groups=len(groups), genes=genes,
+                 mock_s=mock_s, launches=launches, presets={})
+    for preset in FGSPP_ORDER:
+        cfg = (TRYPTIC_PRESETS if preset in TRYPTIC_PRESETS
+               else PRESETS)[preset]
+        for k in fgspp_path_kernels(cfg):
+            require(launches[k] > 0,
+                    f"fgspp {preset}: kernel {k} was not launched")
+        with kernels.plain_versions():
+            plain = run(preset)
+        got = taxa[preset]
+        require(np.array_equal(got, plain),
+                f"fgspp {preset}: kernel taxa differ from plain taxa in "
+                f"{int((got != plain).sum())} of {len(got)} groups")
+        require((got >= 1).all(), f"fgspp {preset}: bad output")
+        require(taxa_digest(got[:REFERENCE_PAIRS])
+                == REFERENCE_DIGESTS[f"fgspp/{preset}"],
+                f"fgspp {preset}: the first {REFERENCE_PAIRS} groups differ "
+                "from the JAX package's reference taxa")
+        phase["presets"][preset] = dict(
+            wall_s=walls[preset], records_per_s=len(groups) / walls[preset],
+            records_per_s_with_mock=len(groups) / (walls[preset] + mock_s),
+            checksum=int(got.sum()), distinct_taxa=int(len(np.unique(got))),
+            unassigned=int((got == 1).sum()))
+        log(f"fgspp {preset}: kernel == plain on {len(groups)} groups, == "
+            f"reference on {REFERENCE_PAIRS}; {walls[preset]:.3f} s "
+            f"({len(groups) / walls[preset]:.0f} records/s; the mock took "
+            f"{mock_s:.3f} s more)")
+    for k in ("proteins_to_kmers", "probe_kmer", "seedextend_mask",
+              "dedup_counts", "tree_aggregate", "probe_peptide"):
+        require(launches[k] > 0, f"fgspp: kernel {k} was not launched")
+    require(launches["reads_to_kmers"] == 0
+            and launches["reads_to_peptides"] == 0,
+            "fgspp: the protein path translated reads")
+
+    # the protein step on one gene batch: its CUDA kernels and stages
+    an = next(a for a in cache.values()
+              if isinstance(a, proteins.ProteinAnalyser)
+              and a.config.name == "high-precision")
+    inputs = []
+    for i in range(0, len(groups) - GENE_BATCH + 1, GENE_BATCH):
+        aa, lens = proteins.encode_protein_groups(
+            groups[i:i + GENE_BATCH], an.ends, an.read_length)
+        inputs.append((torch.from_numpy(aa).to(world["dev"]),
+                       torch.from_numpy(lens).to(world["dev"]),
+                       an.read_length))
+    phase.update(analyser=dict(batch=an.batch_size, lanes=an.ends,
+                               width=an.read_length,
+                               k_max_wide=an._exact_kmax(),
+                               overflow_reads=an.overflow_reads),
+                 batch_cuda_launches=batch_cuda_launches(
+                     torch, world, an, inputs=inputs[0]),
+                 stages=stage_table(torch, world, an, inputs=inputs))
+    k1p = _k1p_stats(torch, world, an, groups)
+    log(f"K1P: {k1p['lanes']} lanes x {k1p['width']} equal to plain; "
+        f"{k1p['ms']:.4f} ms ({k1p['device_ms']:.4f} device), bound "
+        f"{k1p['bound_ms']:.5f} ({k1p['bound_by']}), plain "
+        f"{k1p['plain_ms']:.4f}; {phase['batch_cuda_launches']['kernels']} "
+        "CUDA kernels a protein step")
+
+    # the command line: -c discovery, FGSpp under it, -z
+    paths = [os.path.join(TMP_DIR, f"F{e + 1}.fq") for e in (0, 1)]
+    ends = iter(fgspp_records(world["reads"]))
+    with open(paths[0], "w") as f1, open(paths[1], "w") as f2:
+        for (h1, s1), (h2, s2) in zip(ends, ends):  # s{i}/1, s{i}/2
+            f1.write(f"@{h1}\n{s1}\n+\n{'I' * len(s1)}\n")
+            f2.write(f"@{h2}\n{s2}\n+\n{'I' * len(s2)}\n")
+    outs = {"high-precision": os.path.join(TMP_DIR, "fgspp-hp.fa"),
+            "tryptic-precision": os.path.join(TMP_DIR, "fgspp-tp.fa.gz")}
+    cmd = [sys.executable, "-m", "umgap_tpu_torch", "analyse", "-c", conf,
+           "-t", "high-precision", "-1", paths[0], "-2", paths[1], "-o",
+           outs["high-precision"], "-t", "tryptic-precision", "-1",
+           paths[0], "-2", paths[1], "-z", "-o", outs["tryptic-precision"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0,
+            f"fgspp CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+    require("gene prediction via FGSpp" in proc.stderr,
+            "fgspp CLI: FGSpp was not run")
+    import gzip
+
+    for preset, out in outs.items():
+        with (gzip.open(out, "rt") if out.endswith(".gz")
+              else open(out)) as f:
+            got = f.read()
+        want = "".join(f">{h}\n{t}\n" for h, t in zip(headers,
+                                                      taxa[preset]))
+        require(got == want,
+                f"fgspp CLI {preset}: records differ from the library's")
+    phase.update(k1p=k1p, cli_s=cli_s,
+                 seconds=time.perf_counter() - t_phase)
+    RESULT["phases"]["fgspp"] = phase
+    log(f"fgspp: {len(groups)} groups of {genes} genes from {world['P']} "
+        f"pairs (mock {mock_s:.2f} s); CLI -c / -z records equal to the "
+        f"library's in {cli_s:.1f} s")
+    return launches, k1p
+
+
+# ---------------------------------------------------------------------- #
 # Phase 5b: file ingest through the three tiers of the command line
 # ---------------------------------------------------------------------- #
 
@@ -3319,7 +3658,6 @@ def phase_ingest(torch, world):
     gzip) and of the Python tier, the host split and the device-busy
     share of a ring window; and the command line in a subprocess on
     gzipped pairs."""
-    import argparse
     import gzip
     import io
     import statistics
@@ -3366,9 +3704,7 @@ def phase_ingest(torch, world):
     paths["ladder"], ladder_lens = _ladder_paths(world)
     sizes = {k: sum(os.path.getsize(p) for p in v) for k, v in paths.items()}
 
-    args = argparse.Namespace(read_length=160, batch_size=BATCH)
-    session = cli.AnalyseSession(args, world["tax"], world["table"],
-                                 world["dtax"], world["dtable"], world["dev"])
+    session = _cli_session(world)
 
     def sample(tag, preset=INGEST_PRESET):
         return dict(type=preset, first=paths[tag][0],
@@ -3589,19 +3925,11 @@ def ring_rate(world, paths, out_path, preset):
     command line's ring tier at its defaults (width 160, 16,384-pair
     batches) over the bench index of its family: the median pairs/s of
     three windows of at least STEADY_S, after one warm pass."""
-    import argparse
     import statistics
 
     from umgap_tpu_torch import cli
-    from umgap_tpu_torch.pipeline.fused import PRESETS
-    from umgap_tpu_torch.pipeline.tryptic import TRYPTIC_PRESETS
 
-    cfg = {**PRESETS, **TRYPTIC_PRESETS}[preset]
-    table, dtable = (("ptable", "pdtable") if is_tryptic(cfg)
-                     else ("table", "dtable"))
-    args = argparse.Namespace(read_length=160, batch_size=BATCH)
-    session = cli.AnalyseSession(args, world["tax"], world[table],
-                                 world["dtax"], world[dtable], world["dev"])
+    session = _cli_session(world)
     smp = dict(type=preset, first=paths[0], second=paths[1], output=None)
 
     def window(min_s=STEADY_S):
@@ -3843,7 +4171,6 @@ def _host_routes(torch, world):
     exact long-record route) against the same sample at --read-length
     8,192 (the device, K = 32,772 wide program). Records must be equal;
     returns the routes' rates."""
-    import argparse
     import io
 
     from umgap_tpu_torch import cli
@@ -3863,9 +4190,8 @@ def _host_routes(torch, world):
         return paths
 
     def run(table, dtable, read_length, tag, preset, tier=None):
-        args = argparse.Namespace(read_length=read_length, batch_size=BATCH)
-        session = cli.AnalyseSession(args, world["tax"], table, world["dtax"],
-                                     dtable, world["dev"])
+        session = _cli_session(world, read_length,
+                               {cli._is_tryptic(preset): (table, dtable)})
         smp = dict(type=preset, first=paths[tag][0], second=paths[tag][1],
                    output=None)
         buf = io.StringIO()
@@ -4370,16 +4696,13 @@ def wide_ab(torch, world):
 def _ladder_split(torch, world):
     """The ladder sample's split (``ladder_wide``): max-sensitivity
     through the CLI's ring tier at its defaults, after one warm run."""
-    import argparse
     import io
 
     from umgap_tpu_torch import cli
 
     os.makedirs(TMP_DIR, exist_ok=True)
     paths, _lens = _ladder_paths(world)
-    session = cli.AnalyseSession(
-        argparse.Namespace(read_length=160, batch_size=BATCH), world["tax"],
-        world["table"], world["dtax"], world["dtable"], world["dev"])
+    session = _cli_session(world)
     lad = dict(type=LADDER_PRESET, first=paths[0], second=paths[1],
                output=None)
 

@@ -1,11 +1,13 @@
 """``python -m umgap_tpu_torch analyse`` (on the CPU) writes the same bytes
-as ``umgap_tpu analyse --fgspp never`` for the four 9-mer presets, on
-plain and gzipped pairs, on reads that climb the width ladder and on
-multi-line FASTQ (the Python tier), and on a group past the top width
-(the exact host route), and refuses what it does not support yet instead
-of clipping or guessing."""
+as ``umgap_tpu analyse`` for the four 9-mer presets, on plain and
+gzipped pairs, on reads that climb the width ladder and on multi-line
+FASTQ (the Python tier), on a group past the top width (the exact host
+route), through a mock FragGeneScan++ under the config dir, with the
+data found by config-dir discovery (``-c``) and with ``-z``, and refuses
+what it does not support yet instead of clipping or guessing."""
 
 import gzip
+import importlib.util
 import io
 import os
 import subprocess
@@ -247,9 +249,27 @@ def test_cli_module_entry_without_card_fails(sample):
     assert proc.stdout == ""
 
 
-# tests/test_fgspp.py's mock FGSpp: predicts one protein for every read
-MOCK_FGSPP = ("#!/bin/sh\n"
-              "awk '/^>/{print $0 \"_1_99_+\"; print \"MKAAAAAAAAAK\"}'\n")
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# chip_smoke.py's mock FGSpp: frame 1 of each strand split at stops,
+# stretches of 20 residues or more as genes (0 to a few a read)
+MOCK_FGSPP = _smoke().MOCK_FGSPP
+
+
+def _install_fgspp(conf, text=MOCK_FGSPP):
+    """An executable FGSpp (the mock by default) and its train/ dir under
+    the config dir ``conf``; returns the binary's path."""
+    d = conf / "FGSpp"
+    (d / "train").mkdir(parents=True)
+    (d / "FGSpp").write_text(text)
+    (d / "FGSpp").chmod(0o755)
+    return str(d / "FGSpp")
 
 
 def _config_home(tmp_path, monkeypatch, with_fgspp):
@@ -257,11 +277,7 @@ def _config_home(tmp_path, monkeypatch, with_fgspp):
     its config dir (unipept/FGSpp/FGSpp + train/) or with none."""
     monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path))
     if with_fgspp:
-        d = tmp_path / "unipept" / "FGSpp"
-        (d / "train").mkdir(parents=True)
-        (d / "FGSpp").write_text(MOCK_FGSPP)
-        (d / "FGSpp").chmod(0o755)
-        return str(d / "FGSpp")
+        return _install_fgspp(tmp_path / "unipept")
     return None
 
 
@@ -298,20 +314,226 @@ def test_cli_fgspp_auto_without_fgspp_matches_jax(sample, tmp_path,
     assert got.count(b">") == sample["n"]
 
 
+@pytest.fixture(scope="module")
+def fgspp_sample(sample, tmp_path_factory):
+    """Pairs of 20-150 bp (N bases among them) whose frame-1 translations
+    hold stretches the mock takes for genes, a 9-mer index of their own
+    k-mers, a peptide index of most of the mock's genes' tryptic
+    fragments (one taxon a pair), and a config dir holding both in a
+    data version (symlinks, as umgap-setup lays them out)."""
+    tmp = tmp_path_factory.mktemp("fgspp")
+    rng = np.random.default_rng(21)
+    n, W = 48, 150
+    codes = rng.integers(0, 4, size=(n, 2, W)).astype(np.uint8)
+    codes[rng.random(codes.shape) < 0.005] = 4
+    lens = rng.integers(20, W + 1, size=(n, 2)).astype(np.int32)
+    fq = [tmp / "F1.fq", tmp / "F2.fq"]
+    _write_fastq(fq, codes, lens)
+    index = tmp / "ninemer.npz"
+    _index(index, codes, lens)
+    from umgap_tpu import fgspp as jfgspp
+    from umgap_tpu.index.table import PeptideTable
+
+    binary = _install_fgspp(tmp / "mock")
+    records = [(f"read{i}/{e + 1}", jenc.decode_dna(codes[i, e, :lens[i, e]]))
+               for i in range(n) for e in (0, 1)]
+    ids = [2, 10239, 12884, 185751, 185752]
+    owner = {}
+    for h, prot in jfgspp.predict_genes(binary, str(tmp / "mock" / "FGSpp"
+                                                    / "train"), records):
+        for f in jkmers.tryptic_digest(prot):
+            if 9 <= len(f) <= 45 and hash(f) % 5:
+                owner.setdefault(f, ids[int(h[4:h.index("/")]) % 5])
+    peps = sorted(owner)
+    pindex = tmp / "tryptic.npz"
+    PeptideTable.build(peps, np.array([owner[p] for p in peps],
+                                      np.int32)).save(str(pindex))
+    confs = {}
+    for with_fgspp in (False, True):
+        conf = tmp / f"conf-{with_fgspp}"
+        (conf / "2026-08").mkdir(parents=True)
+        for name, target in (("taxons.tsv", sample["taxons"]),
+                             ("ninemer.npz", index),
+                             ("tryptic.npz", pindex)):
+            os.symlink(target, conf / "2026-08" / name)
+        # an older version and a stray entry lose to 2026-08
+        (conf / "2020-01").mkdir()
+        os.symlink(sample["index"], conf / "2020-01" / "ninemer.npz")
+        (conf / "notes").mkdir()
+        if with_fgspp:
+            _install_fgspp(conf)
+        confs[with_fgspp] = conf
+    return dict(fq=fq, n=n, index=index, pindex=pindex, confs=confs,
+                taxons=sample["taxons"])
+
+
+def _run_both(argv, tmp_path, env_home=None, monkeypatch=None):
+    """``argv`` (with {tag}) through umgap_tpu and the port (on the CPU);
+    returns (umgap_tpu rc, port rc, port stderr)."""
+    jerr, perr = io.StringIO(), io.StringIO()
+    old = sys.stderr
+    try:
+        sys.stderr = jerr
+        jrc = jax_cli([a.replace("{tag}", "jax") for a in argv],
+                      stdin=io.StringIO(""), stdout=io.StringIO())
+        sys.stderr = perr
+        prc = port_cli([a.replace("{tag}", "port") for a in argv]
+                       + ["--device", "cpu"])
+    finally:
+        sys.stderr = old
+    return jrc, prc, jerr.getvalue(), perr.getvalue()
+
+
+@pytest.mark.parametrize("preset", ["high-precision", "max-precision",
+                                    "tryptic-precision"])
 @pytest.mark.parametrize("mode", ["auto", "require"])
-def test_cli_fgspp_found_refuses(sample, tmp_path, monkeypatch, mode):
-    """With FGSpp under the config dir, umgap_tpu would send a precision
-    preset through it: the port exits 1, says where it found it and
-    names --fgspp never, and writes no record."""
-    binary = _config_home(tmp_path, monkeypatch, with_fgspp=True)
-    rc, err = _port(sample, "--device", "cpu", "-t", "high-precision",
-                    "--fgspp", mode, "-o", str(tmp_path / "out.fa"))
-    assert rc == 1
-    assert "--fgspp never" in err and binary in err
-    assert not (tmp_path / "out.fa").exists()
-    if mode == "auto":  # the default
-        rc, err = _port(sample, "--device", "cpu", "-t", "max-precision")
-        assert rc == 1 and "--fgspp never" in err
+def test_cli_fgspp_found_matches_jax(fgspp_sample, tmp_path, monkeypatch,
+                                     mode, preset):
+    """With the mock FGSpp under the config dir (XDG_CONFIG_HOME), both
+    send the preset's reads through it, under the default auto and under
+    require, and write the same bytes: a record for each pair the mock
+    predicts a gene for."""
+    _config_home(tmp_path, monkeypatch, with_fgspp=True)
+    s = fgspp_sample
+    index = s["pindex"] if "tryptic" in preset else s["index"]
+    argv = ["analyse", "--taxons", str(s["taxons"]), "--index", str(index),
+            "-t", preset, "-1", str(s["fq"][0]), "-2", str(s["fq"][1]),
+            *(["--fgspp", mode] if mode == "require" else []),
+            "-o", str(tmp_path / "{tag}.fa")]
+    jrc, prc, _jerr, perr = _run_both(argv, tmp_path)
+    assert jrc == prc == 0
+    assert "gene prediction via FGSpp" in perr
+    got = (tmp_path / "port.fa").read_bytes()
+    assert got == (tmp_path / "jax.fa").read_bytes()
+    records = got.split(b"\n")[1::2]
+    assert 0 < len(records) < s["n"]  # pairs without a gene give none
+    if preset != "max-precision":
+        assert any(t != b"1" for t in records)
+
+
+def test_cli_fgspp_failing_exits_1(fgspp_sample, tmp_path, monkeypatch):
+    """An FGSpp that exits non-zero ends the run with exit 1 and its
+    status; nothing falls back to six frames."""
+    monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path))
+    _install_fgspp(tmp_path / "unipept",
+                   "#!/bin/sh\ncat > /dev/null\nexit 3\n")
+    s = fgspp_sample
+    err = io.StringIO()
+    old = sys.stderr
+    sys.stderr = err
+    try:
+        rc = port_cli(["analyse", "--taxons", str(s["taxons"]), "--index",
+                       str(s["index"]), "-1", str(s["fq"][0]), "-2",
+                       str(s["fq"][1]), "-o", str(tmp_path / "out.fa"),
+                       "--device", "cpu"])
+    finally:
+        sys.stderr = old
+    assert rc == 1 and "FGSpp exited with status 3" in err.getvalue()
+    assert (tmp_path / "out.fa").read_bytes() == b""
+
+
+@pytest.mark.parametrize("with_fgspp", [False, True])
+def test_cli_configdir_discovery_matches_jax(fgspp_sample, tmp_path,
+                                             monkeypatch, with_fgspp):
+    """``-c`` with no --taxons and no --index: the newest data version
+    gives the taxonomy and each family's index, so one run mixes a 9-mer
+    and a tryptic preset; FGSpp is found under the same dir. Byte-equal
+    to umgap_tpu, sample by sample."""
+    monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path / "elsewhere"))
+    s = fgspp_sample
+    argv = ["analyse", "-c", str(s["confs"][with_fgspp])]
+    for preset in ("high-precision", "tryptic-precision"):
+        argv += ["-t", preset, "-1", str(s["fq"][0]), "-2", str(s["fq"][1]),
+                 "-o", str(tmp_path / f"{{tag}}-{preset}.fa")]
+    jrc, prc, _jerr, perr = _run_both(argv, tmp_path)
+    assert jrc == prc == 0
+    assert ("gene prediction via FGSpp" in perr) == with_fgspp
+    for preset in ("high-precision", "tryptic-precision"):
+        got = (tmp_path / f"port-{preset}.fa").read_bytes()
+        assert got == (tmp_path / f"jax-{preset}.fa").read_bytes()
+        n = got.count(b">")
+        assert (0 < n < s["n"]) if with_fgspp else n == s["n"]
+
+
+def test_cli_configdir_no_version_exits_1(fgspp_sample, tmp_path):
+    """A config dir with no data version for the family: both exit 1 with
+    umgap_tpu's message, also when only the taxonomy is linked."""
+    s = fgspp_sample
+    (tmp_path / "conf" / "2026-08").mkdir(parents=True)
+    os.symlink(s["taxons"], tmp_path / "conf" / "2026-08" / "taxons.tsv")
+    for conf in (tmp_path / "none", tmp_path / "conf"):
+        argv = ["analyse", "-c", str(conf), "-t", "high-sensitivity", "-1",
+                str(s["fq"][0]), "-2", str(s["fq"][1]), "-o",
+                str(tmp_path / "{tag}.fa")]
+        jrc, prc, jerr, perr = _run_both(argv, tmp_path)
+        assert jrc == prc == 1
+        for err in (jerr, perr):
+            assert "No data version found valid for all samples" in err
+
+
+def test_configdir_matches_jax(tmp_path, monkeypatch):
+    """The port's discovery against umgap_tpu.configdir: XDG and home
+    fallbacks, and GNU sort -n order over version names (leading numbers,
+    names without one first, links required)."""
+    from umgap_tpu import configdir as jcfg
+    from umgap_tpu_torch import configdir as pcfg
+
+    home = tmp_path / "home"
+    (home / ".config").mkdir(parents=True)
+    monkeypatch.setenv("HOME", str(home))
+    for xdg in (None, str(tmp_path / "x")):
+        for var in ("XDG_CONFIG_HOME", "XDG_DATA_HOME"):
+            if xdg is None:
+                monkeypatch.delenv(var, raising=False)
+            else:
+                monkeypatch.setenv(var, xdg)
+        assert pcfg.default_config_dir() == jcfg.default_config_dir()
+        assert pcfg.default_data_dir() == jcfg.default_data_dir()
+    assert pcfg.system_config_dir() == jcfg.system_config_dir()
+    conf = tmp_path / "conf"
+    target = tmp_path / "f"
+    target.write_text("x")
+    names = ["2020-12-07", "9", "10", "abc", "2021.5", "-3", "zz"]
+    assert pcfg.discover_version(str(conf)) is None
+    conf.mkdir()
+    for i, name in enumerate(names):
+        (conf / name).mkdir()
+        os.symlink(target, conf / name / "taxons.tsv")
+        if i % 2:
+            os.symlink(target, conf / name / "ninemer.npz")
+        if i % 3 == 0:
+            (conf / name / "tryptic.npz").write_text("a file, not a link")
+    (conf / "3000").write_text("not a directory")
+    for kw in ({}, {"ninemer": True}, {"tryptic": True},
+               {"tryptic": True, "ninemer": True}):
+        assert pcfg.discover_version(str(conf), **kw) == \
+            jcfg.discover_version(str(conf), **kw)
+    assert pcfg.discover_version(str(conf)) == "2021.5"
+    assert pcfg.discover_version(str(conf), ninemer=True) == "9"
+    assert pcfg.resolve("c", "v", "n") == jcfg.resolve("c", "v", "n")
+
+
+def test_cli_compress_matches_jax(sample, tmp_path):
+    """``-z`` gzips the next output only (each -o resets it): the
+    gunzipped bytes equal umgap_tpu -z's, and the next sample is plain."""
+    argv = ["analyse", "--taxons", str(sample["taxons"]), "--index",
+            str(sample["index"]), "--read-length", str(L), "--fgspp",
+            "never"]
+    for preset, z in (("high-sensitivity", True), ("max-precision", False),
+                      ("high-precision", True)):
+        argv += ["-t", preset, "-1", str(sample["fq"][0]), "-2",
+                 str(sample["fq"][1]), *(["-z"] if z else []), "-o",
+                 str(tmp_path / f"{{tag}}-{preset}.fa")]
+    jrc, prc, _jerr, _perr = _run_both(argv, tmp_path)
+    assert jrc == prc == 0
+    for preset, z in (("high-sensitivity", True), ("max-precision", False),
+                      ("high-precision", True)):
+        raw = [(tmp_path / f"{tag}-{preset}.fa").read_bytes()
+               for tag in ("port", "jax")]
+        assert (raw[0][:2] == b"\x1f\x8b") == z
+        got, want = (gzip.decompress(r) if z else r for r in raw)
+        assert got == want and got.count(b">") == sample["n"]
+        assert got == (sample["tmp"] / f"jax-{preset}.fa").read_bytes()
 
 
 def test_cli_fgspp_require_without_fgspp_refuses(sample, tmp_path,

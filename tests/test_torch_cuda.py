@@ -13,8 +13,8 @@ from umgap_tpu_torch import kernels, ranks
 from umgap_tpu_torch.agg import device as pagg
 from umgap_tpu_torch.agg import device_rmq as prmq
 from umgap_tpu_torch.index.table import build_kmer_table
-from umgap_tpu_torch.ops import encoding, gather, lookup, seedextend, \
-    translate
+from umgap_tpu_torch.ops import encoding, gather, kmers, lookup, \
+    seedextend, translate
 from umgap_tpu_torch.taxonomy import Taxon, Taxonomy
 
 pytestmark = pytest.mark.cuda
@@ -93,6 +93,91 @@ def test_reads_to_kmers_kernel_unaligned(dev, L, packed, offset):
     part = big[offset:]
     assert part.is_contiguous() and part.data_ptr() % 16
     _k1_check(dev, part, lens[offset:], L, 1, packed)
+
+
+def _k1p_check(dev, aa, lens):
+    a = aa if isinstance(aa, torch.Tensor) else torch.from_numpy(aa).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    before = kernels.K1P.launches
+    _eq(kmers.proteins_to_kmers(a, ln, 9), kmers.pack_windows_batch(a, ln, 9))
+    assert kernels.K1P.launches == before + 1
+
+
+def _k1p_lanes(rng, n, P):
+    """n random lanes of P residues (codes above 31 too), lengths 0, 9, P
+    and beyond P among them."""
+    aa = rng.integers(0, 32, size=(n, P)).astype(np.uint8)
+    aa[rng.random(aa.shape) < 0.02] = 200
+    lens = rng.integers(0, P + 1, size=n).astype(np.int32)
+    special = np.array([0, 9, P, P + 5, 8], np.int32)
+    m = min(n, len(special))
+    lens[:m] = special[:m]
+    return aa, lens
+
+
+@pytest.mark.parametrize("P", [1, 5, 8, 9, 16, 33, 64, 1000, 8000, 40000])
+def test_proteins_to_kmers_kernel(dev, P):
+    """K1P against its plain version: P < 9 (one zero-padded, invalid
+    window a lane), exactly 9, the gene widths 16-64 (64 at the CLI's gene
+    batch of 1,024 groups x 4 lanes), wide lanes (8,000: fewer lanes a
+    block, over 48 KB of shared memory; 40,000: the direct kernel), lane
+    counts that are no multiple of the block's."""
+    rng = np.random.default_rng(P)
+    for n in (1, 7, 4096 if P <= 64 else 20):
+        _k1p_check(dev, *_k1p_lanes(rng, n, P))
+
+
+@pytest.mark.parametrize("P", [33, 64])
+@pytest.mark.parametrize("offset", [1, 3, 7])
+def test_proteins_to_kmers_kernel_unaligned(dev, P, offset):
+    """Lanes whose span starts off a 16-byte boundary (a row slice of a
+    larger tensor): the ragged head and tail take byte loads."""
+    rng = np.random.default_rng(offset)
+    aa, lens = _k1p_lanes(rng, 300, P)
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(offset, np.uint8), aa.reshape(-1)])).to(dev)
+    part = flat[offset:].view(300, P)
+    assert part.is_contiguous() and part.data_ptr() % 16
+    _k1p_check(dev, part, lens)
+
+
+@pytest.mark.parametrize("preset", ["high-precision", "max-precision",
+                                    "high-sensitivity", "max-sensitivity"])
+def test_protein_stages_launch_each_kernel_once(dev, preset):
+    """The protein step on the card: one K1P, K2, K3, K4 and K6 launch a
+    batch, no K1; taxa equal to the plain path's."""
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+    from umgap_tpu_torch.pipeline.proteins import run_protein_stages
+
+    tax = _random_tree(3000, 4)
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    rng = np.random.default_rng(9)
+    B, E, P = 256, 4, 64
+    aa = rng.integers(0, 20, size=(B, E, P)).astype(np.uint8)
+    lens = rng.integers(0, P + 1, size=(B, E)).astype(np.int32)
+    hi, lo, wv = kmers.pack_windows_batch(torch.from_numpy(aa),
+                                          torch.from_numpy(lens), 9)
+    keys = ((hi.numpy().astype(np.uint64) << np.uint64(25))
+            | lo.numpy().astype(np.uint64))
+    per_lane = rng.integers(2, 3001, size=(B, E, 1)).astype(np.int32)
+    hit = wv.numpy() & (rng.random((B, E, 1)) < 0.7)
+    keys, first = np.unique(keys[hit], return_index=True)
+    vals = np.broadcast_to(per_lane, hi.shape)[hit][first]
+    dtable = lookup.DeviceTable.from_host(build_kmer_table(keys, vals, 9),
+                                          dev)
+    cfg = PRESETS[preset]
+    a, lt = torch.from_numpy(aa).to(dev), torch.from_numpy(lens).to(dev)
+    before = kernels.launch_counts()
+    got = run_protein_stages(a, lt, dtax, dtable, cfg)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for k in ("proteins_to_kmers", "probe_kmer", "seedextend_mask",
+              "dedup_counts", "tree_aggregate"):
+        assert after[k] - before[k] == 1, k
+    assert after["reads_to_kmers"] == before["reads_to_kmers"]
+    want = run_protein_stages(a, lt, dtax, dtable, cfg, plain=True)
+    assert torch.equal(got, want)
+    assert (got != 1).any()
 
 
 @pytest.mark.parametrize("layout", ["bucket8s", "bucket16", "bucket64s"])

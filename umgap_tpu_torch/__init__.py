@@ -19,7 +19,10 @@ Layout (module names mirror ``umgap_tpu``):
 - ``agg.device``: per-read dedup (K4) and the aggregation tail.
 - ``index.table``: the packed k-mer hash table and its ``.npz`` format.
 - ``pipeline``: the fused 9-mer presets, ``make_pipeline`` and the
-  streaming ``Analyser``.
+  streaming ``Analyser``; the tryptic presets; the protein pipelines
+  behind FragGeneScan++ (``pipeline.proteins``, kernel K1P).
+- ``configdir`` / ``fgspp``: data-version discovery under the config dir
+  and the FragGeneScan++ subprocess front end.
 - ``kernels``: building the CUDA sources in ``csrc/`` and binding them.
 - ``convert``: state carried across from arrays of the JAX package.
 - ``cli``: ``python -m umgap_tpu_torch analyse``.

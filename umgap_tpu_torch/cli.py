@@ -7,7 +7,11 @@ Output records are the same FASTA as ``umgap_tpu analyse`` (one
 the paired-end delimiter, input order). The run is on the current CUDA
 device unless ``--device`` says otherwise; without a card it fails and
 says how to ask for the CPU. ``--index`` is one file: a 9-mer index for
-the 9-mer presets, a peptide index for the tryptic ones.
+the 9-mer presets, a peptide index for the tryptic ones. Without
+``--taxons`` or ``--index`` the data comes from the newest data version
+under the config dir (``-c``, else the XDG default;
+:mod:`~umgap_tpu_torch.configdir`), one index a family, so one run may
+mix 9-mer and tryptic samples. ``-z`` gzips the next sample's output.
 
 A sample goes through three ingest tiers, as in ``umgap_tpu``: the
 native ring stream (:func:`run_sample_ring`: a C++ thread parses, gzip
@@ -24,12 +28,14 @@ with a record beyond the top width takes the exact host route
 beyond ``--read-length`` the host-digest route
 (:func:`~umgap_tpu_torch.pipeline.tryptic.analyse_tryptic_groups`).
 
-Not in this port yet, each refused with a clear error rather than run
-differently: FragGeneScan++, ``--mesh``, ``--shards`` and ``--serve``.
-``--fgspp`` defaults to ``auto`` as in ``umgap_tpu``: a precision or
-tryptic preset that would find FGSpp under the config dir (and any such
-preset under ``require``) exits 1 and names ``--fgspp never``, which
-runs the six-frame translation; without FGSpp ``auto`` runs it too.
+The precision and tryptic presets send the reads through FragGeneScan++
+when it is installed under the config dir (``--fgspp auto``, the default
+as in ``umgap_tpu``; ``require`` exits 1 without it, ``never`` skips it):
+:func:`run_sample_fgspp` feeds FGSpp the raw records and runs the
+predicted genes through :mod:`~umgap_tpu_torch.pipeline.proteins`. An
+FGSpp that fails ends the run with exit 1. Not in this port yet, each
+refused with a clear error rather than run differently: ``--trace-dir``,
+``--mesh``, ``--shards`` and ``--serve``.
 """
 
 from __future__ import annotations
@@ -50,7 +56,7 @@ class CliError(Exception):
 
 class _SampleAction(argparse.Action):
     """Records option order so ``analyse`` can rebuild per-sample groups
-    (umgap-analyse.sh's repeated -1/-2/-t/-o series)."""
+    (umgap-analyse.sh's repeated -1/-2/-t/-z/-o series)."""
 
     def __call__(self, parser, namespace, values, option_string=None):
         seq = getattr(namespace, "_sequence", None)
@@ -58,19 +64,23 @@ class _SampleAction(argparse.Action):
             seq = []
             setattr(namespace, "_sequence", seq)
         seq.append((self.dest, values))
-        setattr(namespace, self.dest, values)
+        if self.dest != "compress":
+            setattr(namespace, self.dest, values)
 
 
 def _samples(args):
-    """Each ``-o`` closes a sample and resets type and inputs to their
-    defaults (umgap-analyse.sh:208-213); without ``-o`` the whole
+    """Each ``-o`` closes a sample and resets type, inputs and ``-z`` to
+    their defaults (umgap-analyse.sh:208-213); without ``-o`` the whole
     invocation is one stdout sample."""
     seq = getattr(args, "_sequence", []) or []
     samples = []
-    fresh = dict(type="high-precision", first=None, second=None, output=None)
+    fresh = dict(type="high-precision", first=None, second=None,
+                 compress=False, output=None)
     cur = dict(fresh)
     for key, val in seq:
-        if key == "output":
+        if key == "compress":
+            cur["compress"] = True
+        elif key == "output":
             if cur["first"] is None:
                 raise CliError(
                     "Encountered an output file without input files.")
@@ -109,10 +119,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="FASTQ end 2")
     sp.add_argument("-o", "--output", action=_SampleAction, default=None,
                     help="output file ('-' = stdout); closes a sample group")
-    sp.add_argument("--taxons", required=True, help="taxon TSV file")
-    sp.add_argument("--index", required=True,
+    sp.add_argument("-z", "--compress", action=_SampleAction, nargs=0,
+                    help="gzip-compress the next output file")
+    sp.add_argument("--taxons", default=None,
+                    help="taxon TSV file (default: config-dir discovery, "
+                         "umgap-analyse.sh:233-241)")
+    sp.add_argument("--index", default=None,
                     help="index .npz: 9-mer for the 9-mer presets, "
-                         "peptide for the tryptic ones")
+                         "peptide for the tryptic ones (default: "
+                         "config-dir discovery)")
+    sp.add_argument("-c", "--configdir", default=None,
+                    help="config directory for data discovery and FGSpp")
     sp.add_argument("--batch-size", type=int, default=16384,
                     help="max read groups per device batch")
     sp.add_argument("--read-length", type=int, default=160,
@@ -124,12 +141,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "'cpu' runs the plain PyTorch path)")
     sp.add_argument("--fgspp", choices=["auto", "never", "require"],
                     default="auto",
-                    help="FragGeneScan++ front end of the precision and "
-                         "tryptic presets: the port cannot run it yet, so "
-                         "'auto' with FGSpp under the config dir and "
-                         "'require' exit 1; 'never' (and 'auto' without "
-                         "FGSpp) translates six frames")
-    for flag in ("--mesh", "--shards", "--serve"):
+                    help="FragGeneScan++ gene-prediction front end for "
+                         "the precision and tryptic presets "
+                         "(umgap-analyse.sh:248-251): 'auto' uses "
+                         "<configdir>/FGSpp when installed, else six-frame "
+                         "translation")
+    for flag in ("--trace-dir", "--mesh", "--shards", "--serve"):
         sp.add_argument(flag, action=_Unsupported, nargs="?",
                         help=argparse.SUPPRESS)
     return p
@@ -234,23 +251,56 @@ def _hand_on(tier, reason) -> None:
     _note(f"{tier.__name__} hands the sample on: {reason}")
 
 
+def _config_dir(args) -> str:
+    from . import configdir
+
+    return args.configdir or configdir.default_config_dir()
+
+
+def _data_paths(args, tryptic: bool):
+    """(taxonomy TSV, index) of a family: ``--taxons`` and ``--index``
+    where given, the rest from the newest data version under the config
+    dir that links the family's files (umgap-analyse.sh:233-241)."""
+    from . import configdir
+
+    taxons, index = args.taxons, args.index
+    if taxons is None or index is None:
+        conf = _config_dir(args)
+        version = configdir.discover_version(conf, tryptic=tryptic,
+                                             ninemer=not tryptic)
+        if version is None:
+            raise CliError("No data version found valid for all samples. "
+                           "Please run umgap-tpu setup.")
+        if taxons is None:
+            taxons = configdir.resolve(conf, version, "taxons.tsv")
+        if index is None:
+            index = configdir.resolve(
+                conf, version, "tryptic.npz" if tryptic else "ninemer.npz")
+    return taxons, index
+
+
 class AnalyseSession:
     """What one ``analyse`` invocation shares across its samples: the
-    parsed arguments, the taxonomy and index on the host and on the
-    device, and one :class:`~.pipeline.runner.Analyser` per (preset,
-    batch, width, ends)."""
+    parsed arguments, the taxonomy on the host and on the device, one
+    index a family (``tables[tryptic]``: host table, device table), and
+    one :class:`~.pipeline.runner.Analyser` per (preset, batch, width,
+    ends)."""
 
-    def __init__(self, args, tax, table, dtax, dtable, device):
+    def __init__(self, args, tax, tables, dtax, device):
         self.args = args
-        self.tax, self.table = tax, table
-        self.dtax, self.dtable = dtax, dtable
+        self.tax, self.dtax = tax, dtax
+        self.tables = tables
         self.device = device
         self.analysers: dict = {}
-        # host aggregators and the host-digest step, kept across samples
+        # host aggregators, the host-digest step and the protein
+        # analysers, kept across samples
         self.aux_cache: dict = {}
 
     @classmethod
-    def load(cls, args) -> "AnalyseSession":
+    def load(cls, args, samples) -> "AnalyseSession":
+        """The taxonomy (that of the first sample's family, as
+        ``umgap_tpu`` loads it) and the index of each family the samples
+        need; an index of the wrong family is refused."""
         from .agg.device import DeviceTaxonomy
         from .device import resolve_device
         from .index.table import load_table
@@ -258,10 +308,26 @@ class AnalyseSession:
         from .taxonomy import Taxonomy, read_taxa_file
 
         device = resolve_device(args.device)
-        tax = Taxonomy(read_taxa_file(args.taxons))
-        table = load_table(args.index, mmap=True)
-        return cls(args, tax, table, DeviceTaxonomy.from_host(tax, device),
-                   DeviceTable.from_host(table, device), device)
+        tax = None
+        tables = {}
+        for s in samples:
+            tryptic = _is_tryptic(s["type"])
+            if tryptic in tables:
+                continue
+            taxons, index = _data_paths(args, tryptic)
+            if tax is None:
+                tax = Taxonomy(read_taxa_file(taxons))
+            table = load_table(index, mmap=True)
+            if (table.kind == "peptide") != tryptic:
+                # an index of the wrong family would probe garbage and
+                # give taxon 1 everywhere
+                need = "peptide (tryptic)" if tryptic else "9-mer"
+                raise CliError(
+                    f"index {index} is a {table.kind} index but the "
+                    f"preset {s['type']} needs a {need} index")
+            tables[tryptic] = (table, DeviceTable.from_host(table, device))
+        return cls(args, tax, tables, DeviceTaxonomy.from_host(tax, device),
+                   device)
 
     def get_analyser(self, preset: str, B: int, L: int, ends: int):
         from .pipeline.runner import Analyser
@@ -273,9 +339,10 @@ class AnalyseSession:
             tryptic = _is_tryptic(preset)
             cls = TrypticAnalyser if tryptic else Analyser
             config = (TRYPTIC_PRESETS if tryptic else PRESETS)[preset]
-            an = cls(self.tax, self.table, config, batch_size=B,
+            table, dtable = self.tables[tryptic]
+            an = cls(self.tax, table, config, batch_size=B,
                      read_length=L, ends=ends, dtax=self.dtax,
-                     dtable=self.dtable, device=self.device)
+                     dtable=dtable, device=self.device)
             self.analysers[key] = an
         else:
             an.reset()
@@ -419,9 +486,10 @@ def run_sample_fallback(session: AnalyseSession, sample):
         if maxlen > args.read_length:
             _note("tryptic sample has records beyond --read-length; using "
                   "the host-digest path (full-length digest)")
+            table, dtable = session.tables[True]
             res = analyse_tryptic_groups(
-                groups, session.tax, session.table, TRYPTIC_PRESETS[preset],
-                batch_size=B, dtax=session.dtax, dtable=session.dtable,
+                groups, session.tax, table, TRYPTIC_PRESETS[preset],
+                batch_size=B, dtax=session.dtax, dtable=dtable,
                 step_cache=session.aux_cache)
             yield from _batchify(res, B)
             return
@@ -433,8 +501,8 @@ def run_sample_fallback(session: AnalyseSession, sample):
         _note(f"{len(long_idx)} record group(s) beyond {cap} bp: exact host "
               "path")
     long_results = {i: _analyse_long_group_host(
-        groups[i][1], PRESETS[preset], ends, session.tax, session.table,
-        session.aux_cache) for i in long_idx}
+        groups[i][1], PRESETS[preset], ends, session.tax,
+        session.tables[False][0], session.aux_cache) for i in long_idx}
     short = [g for i, g in enumerate(groups) if i not in long_results]
     maxlen = max((len(s) for _h, ss in short for s in ss), default=0)
     L = next((w for w in ladder if w >= maxlen), cap)
@@ -473,17 +541,85 @@ def _batchify(records, n: int):
         yield hs, np.asarray(ts, dtype=np.int32)
 
 
+def raw_read_records(sample):
+    """(full header, dna) records for the FGSpp front end: headers keep
+    their /1 and /2 end markers, so ``uniq -d /`` merges the gene records
+    of both ends later; single-end FASTA is unwrapped."""
+    from .io import fasta, fastq, sniff_open
+
+    if sample["second"]:
+        handles = [sniff_open(p) for p in (sample["first"],
+                                           sample["second"])]
+        try:
+            for group in fastq.interleave(
+                    [fastq.read_records(h) for h in handles]):
+                for rec in group:
+                    yield rec.header, rec.sequence
+        finally:
+            for h in handles:
+                h.close()
+    else:
+        with sniff_open(sample["first"]) as f:
+            for rec in fasta.read_records(f, unwrap=True):
+                yield rec.header, rec.sequence[0] if rec.sequence else ""
+
+
+def run_sample_fgspp(session: AnalyseSession, sample, fg):
+    """The gene-prediction front end: reads -> the FGSpp subprocess ->
+    protein records grouped by read -> prot2kmer2lca or prot2tryp2lca
+    and taxa2agg on the device (umgap-analyse.sh:299-311). Reads FGSpp
+    predicts no gene for give no record, as in the reference. Yields
+    (headers, taxa) batches."""
+    from . import fgspp
+    from .pipeline.proteins import (
+        analyse_protein_groups,
+        analyse_tryptic_protein_groups,
+    )
+
+    preset = sample["type"]
+    tryptic = _is_tryptic(preset)
+    genes = fgspp.predict_genes(fg[0], fg[1], raw_read_records(sample))
+    groups = fgspp.group_genes(genes)
+    table, dtable = session.tables[tryptic]
+    B = min(session.args.batch_size, 1024)
+    if tryptic:
+        res = analyse_tryptic_protein_groups(
+            groups, session.tax, table, TRYPTIC_PRESETS[preset],
+            batch_size=B, dtax=session.dtax, dtable=dtable,
+            step_cache=session.aux_cache)
+    else:
+        res = analyse_protein_groups(
+            groups, session.tax, table, PRESETS[preset], batch_size=B,
+            dtax=session.dtax, dtable=dtable,
+            analyser_cache=session.aux_cache)
+    yield from _batchify(res, B)
+
+
 TIERS = (run_sample_ring, run_sample_stream, run_sample_fallback)
 
 
 def run_sample(session: AnalyseSession, sample):
-    """The sample through the tiers: a tier that meets input it cannot
-    handle exactly raises, and the next tier restarts the sample. Reads
-    already emitted were analysed correctly (the trigger lies after them
-    in the stream), and every tier is order-preserving and per-read
-    deterministic, so the rerun skips that prefix."""
+    """The sample through FGSpp when its preset runs it and it is
+    installed (:func:`run_sample_fgspp`), else through the tiers: a tier
+    that meets input it cannot handle exactly raises, and the next tier
+    restarts the sample. Reads already emitted were analysed correctly
+    (the trigger lies after them in the stream), and every tier is
+    order-preserving and per-read deterministic, so the rerun skips that
+    prefix."""
+    from . import fgspp
     from .io.native import StreamUnsupported, ensure_built
 
+    if sample["type"] in fgspp.FGSPP_PRESETS and \
+            session.args.fgspp != "never":
+        fg = fgspp.find_fgspp(_config_dir(session.args))
+        if fg is None and session.args.fgspp == "require":
+            raise CliError(
+                "FGSpp requested but not installed under the config dir "
+                "(expected FGSpp/FGSpp + FGSpp/train).")
+        if fg is not None:
+            _note(f"gene prediction via FGSpp at {fg[0]}")
+            yield from run_sample_fgspp(session, sample, fg)
+            return
     ensure_built()  # a failed build raises: no quiet switch of tier
     emitted = 0
     for i, tier in enumerate(TIERS):
@@ -529,43 +665,19 @@ def write_batches(handle, batches) -> int:
     return n
 
 
-def check_fgspp(mode: str, presets) -> None:
-    """Refuse what ``umgap_tpu analyse --fgspp MODE`` would send through
-    FragGeneScan++ (umgap_tpu/cli.py:1700-1724): under ``auto`` a preset
-    of FGSPP_PRESETS when FGSpp is installed under the config dir, under
-    ``require`` any such preset. Other presets ignore the flag."""
-    from . import fgspp
-
-    if mode == "never" or not fgspp.FGSPP_PRESETS & set(presets):
-        return
-    found = fgspp.find_fgspp(fgspp.default_config_dir())
-    if found is not None:
-        raise CliError(
-            f"FragGeneScan++ was found at {found[0]}, and umgap_tpu_torch "
-            "cannot run it yet; --fgspp never runs the six-frame "
-            "translation instead")
-    if mode == "require":
-        raise CliError(
-            "FGSpp requested but not installed under the config dir "
-            "(expected FGSpp/FGSpp + FGSpp/train).")
-
-
 def cmd_analyse(args, stdout):
     samples = _samples(args)
-    check_fgspp(args.fgspp, [s["type"] for s in samples])
-    session = AnalyseSession.load(args)
-    for s in samples:
-        tryptic = _is_tryptic(s["type"])
-        if (session.table.kind == "peptide") != tryptic:
-            # an index of the wrong family would probe garbage and give
-            # taxon 1 everywhere
-            need = "peptide (tryptic)" if tryptic else "9-mer"
-            raise CliError(
-                f"index {args.index} is a {session.table.kind} index but "
-                f"the preset {s['type']} needs a {need} index")
+    session = AnalyseSession.load(args, samples)
     for sample in samples:
         out = sample["output"]
-        handle = stdout if out in (None, "-") else open(out, "w")
+        if out in (None, "-"):
+            handle = stdout
+        elif sample["compress"]:
+            import gzip
+
+            handle = gzip.open(out, "wt")
+        else:
+            handle = open(out, "w")
         try:
             write_batches(handle, run_sample(session, sample))
         finally:

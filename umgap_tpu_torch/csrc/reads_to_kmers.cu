@@ -1,4 +1,5 @@
-// K1 reads_to_kmers: packed DNA reads -> six-frame 9-mer keys.
+// K1 reads_to_kmers: packed DNA reads -> six-frame 9-mer keys; and its
+// protein entry K1P proteins_to_kmers (at the end): AA codes -> 9-mer keys.
 //
 // Replaces, fused into one pass, three stages of the JAX program
 // (umgap_tpu/pipeline/fused.py:149-153):
@@ -84,6 +85,31 @@ __host__ __device__ __forceinline__ int smem_bytes(int R, int row_bytes,
   const int lp = packed ? 2 * row_bytes : row_bytes;
   return align16(R * row_bytes + 16) + 2 * 4 * 6 * R + 256 +
          align16(R * lp) + R * 6 * nres;
+}
+
+// Phase 3's store: the n <= 8 consecutive outputs from o (a multiple of
+// 8 when n == 8) as two 16-byte stores of hi, two of lo and one 8-byte
+// store of the valid flags (byte e of vb[e / 4] at bits 8 * (e % 4)), or
+// one by one for a ragged end.
+__device__ __forceinline__ void store_outputs(
+    int32_t* __restrict__ hi, int32_t* __restrict__ lo,
+    uint8_t* __restrict__ valid, long long o, const int32_t (&h)[8],
+    const int32_t (&l)[8], const uint32_t (&vb)[2], int n) {
+  if (n == 8) {
+    int4* hv = (int4*)(hi + o);
+    int4* lv = (int4*)(lo + o);
+    hv[0] = make_int4(h[0], h[1], h[2], h[3]);
+    hv[1] = make_int4(h[4], h[5], h[6], h[7]);
+    lv[0] = make_int4(l[0], l[1], l[2], l[3]);
+    lv[1] = make_int4(l[4], l[5], l[6], l[7]);
+    *(uint2*)(valid + o) = make_uint2(vb[0], vb[1]);
+  } else {
+    for (int e = 0; e < n; ++e) {
+      hi[o + e] = h[e];
+      lo[o + e] = l[e];
+      valid[o + e] = (uint8_t)(vb[e >> 2] >> (8 * (e & 3)));
+    }
+  }
 }
 
 // WT, KT: the output width W and k as constants, or 0 for the runtime
@@ -234,21 +260,7 @@ __global__ void __launch_bounds__(THREADS) reads_to_kmers_kernel(
         }
       }
     }
-    if (n == 8) {
-      int4* hv = (int4*)(hi + o0 + q);
-      int4* lv = (int4*)(lo + o0 + q);
-      hv[0] = make_int4(h[0], h[1], h[2], h[3]);
-      hv[1] = make_int4(h[4], h[5], h[6], h[7]);
-      lv[0] = make_int4(l[0], l[1], l[2], l[3]);
-      lv[1] = make_int4(l[4], l[5], l[6], l[7]);
-      *(uint2*)(valid + o0 + q) = make_uint2(vb[0], vb[1]);
-    } else {
-      for (int e = 0; e < n; ++e) {
-        hi[o0 + q + e] = h[e];
-        lo[o0 + q + e] = l[e];
-        valid[o0 + q + e] = (uint8_t)(vb[e >> 2] >> (8 * (e & 3)));
-      }
-    }
+    store_outputs(hi, lo, valid, o0 + q, h, l, vb, n);
   }
 }
 
@@ -343,6 +355,146 @@ int launch(const void* reads, int row_bytes, int packed, const void* lengths,
   return (int)cudaGetLastError();
 }
 
+// ---- K1P proteins_to_kmers -------------------------------------------
+// Replaces umgap_tpu/ops/kmers.py:76 pack_windows_batch on the protein
+// path (umgap_tpu/pipeline/proteins.py:33, FGSpp's predicted genes): the
+// TPU version builds each key from k shifted slices of the batch, about
+// 20 PyTorch launches here. Bound on the H100: bytes. Per lane it reads
+// P + 4 bytes and writes 9 * W (hi, lo int32, valid bool): at the CLI's
+// gene batch (4,096 lanes of P = 64) 0.26 MB in and 2.1 MB out, under a
+// microsecond at the HBM rate, so one launch's own cost dominates.
+//
+// One block owns R consecutive lanes (R a multiple of 8, so its output
+// span starts on 8 elements). Phase 1 as K1's: the lanes' R * P residue
+// bytes (one contiguous run) land in shared memory with 16-byte loads,
+// aa[R][P] (K1's aa buffer with NRES = P); phase 3 as K1's: one thread
+// per eight consecutive outputs of the span, stored in memory order.
+// Each window is folded from its k residues (hi: the first k - 5, lo:
+// the last 5), not rolled, so codes above 31 give the plain version's
+// bits too; residues past P read as 0 (a batch with P < k has one
+// window, zero padded and invalid).
+template <int KT>
+__global__ void __launch_bounds__(THREADS) proteins_to_kmers_kernel(
+    const uint8_t* __restrict__ aa, int P,
+    const int32_t* __restrict__ lengths, int n_lanes, int k_rt,
+    int32_t* __restrict__ hi, int32_t* __restrict__ lo,
+    uint8_t* __restrict__ valid, int W, int R) {
+  const int k = KT ? KT : k_rt;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * R;
+  const int nr = min(R, n_lanes - r0);
+
+  // ---- 1. load: byte i of the span lands at s_aa[i] --------------------
+  const uint8_t* g0 = aa + (long long)r0 * P;
+  const int span = nr * P;
+  const int head = (int)((uintptr_t)g0 & 15);
+  const int lead = min((16 - head) & 15, span);
+  const int nvec = (span - lead) >> 4;
+  const int tail0 = lead + (nvec << 4);
+  uint8_t* s_aa = smem + head;
+  if (tid < lead) s_aa[tid] = g0[tid];
+  {
+    const uint4* gv = (const uint4*)(g0 + lead);
+    uint4* sv = (uint4*)(s_aa + lead);
+    for (int v = tid; v < nvec; v += THREADS) sv[v] = __ldg(gv + v);
+  }
+  for (int i = tail0 + tid; i < span; i += THREADS) s_aa[i] = g0[i];
+  __syncthreads();
+
+  // ---- 3. pack and store, in memory order: 8 outputs a thread --------
+  const int n_hi = k - (k < 5 ? k : 5);
+  const int n_out = nr * W;
+  const long long o0 = (long long)r0 * W;  // a multiple of 8: R % 8 == 0
+  for (int q = tid * 8; q < n_out; q += THREADS * 8) {
+    int lane = q / W;
+    int w = q - lane * W;
+    int32_t h[8], l[8];
+    uint32_t vb[2] = {0, 0};
+    const int n = min(8, n_out - q);
+    long long n_valid = (long long)lengths[r0 + lane] - (k - 1);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (e < n) {
+        const uint8_t* a = s_aa + lane * P;
+        uint32_t kh = 0, kl = 0;
+        for (int i = 0; i < k; ++i) {
+          const uint32_t c = w + i < P ? a[w + i] : 0u;
+          if (i < n_hi)
+            kh = (kh << 5) | c;
+          else
+            kl = (kl << 5) | c;
+        }
+        h[e] = (int32_t)kh;
+        l[e] = (int32_t)kl;
+        vb[e >> 2] |= (uint32_t)(w < n_valid) << (8 * (e & 3));
+        if (++w == W && e + 1 < n) {
+          w = 0;
+          ++lane;
+          n_valid = (long long)lengths[r0 + lane] - (k - 1);
+        }
+      }
+    }
+    store_outputs(hi, lo, valid, o0 + q, h, l, vb, n);
+  }
+}
+
+// Lanes too wide for the tile even at R = 8 (more than about 29,000
+// residues): one thread an output window, its residues from global
+// memory (L1/L2; neighbouring threads share most of them).
+__global__ void proteins_to_kmers_direct(
+    const uint8_t* __restrict__ aa, int P,
+    const int32_t* __restrict__ lengths, int n_lanes, int k,
+    int32_t* __restrict__ hi, int32_t* __restrict__ lo,
+    uint8_t* __restrict__ valid, int W) {
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= (long long)n_lanes * W) return;
+  const long long lane = q / W;
+  const int w = (int)(q - lane * W);
+  const uint8_t* a = aa + lane * P;
+  const int n_hi = k - (k < 5 ? k : 5);
+  uint32_t kh = 0, kl = 0;
+  for (int i = 0; i < k; ++i) {
+    const uint32_t c = w + i < P ? __ldg(a + w + i) : 0u;
+    if (i < n_hi)
+      kh = (kh << 5) | c;
+    else
+      kl = (kl << 5) | c;
+  }
+  hi[q] = (int32_t)kh;
+  lo[q] = (int32_t)kl;
+  valid[q] = (uint8_t)(w < (long long)lengths[lane] - (k - 1));
+}
+
+template <int KT>
+int launch_proteins(const void* aa, int P, const void* lengths, int n_lanes,
+                    int k, void* hi, void* lo, void* valid, int W, int R,
+                    cudaStream_t stream) {
+  // wide proteins: halve R (down to 8) to keep a block within 48 KB,
+  // then opt in to more
+  while (R > 8 && align16(R * P + 16) > 48 * 1024) R /= 2;
+  const size_t smem = (size_t)align16(R * P + 16);
+  if (smem > (size_t)kSmemMax) {  // too wide for the tile: direct kernel
+    const long long n = (long long)n_lanes * W;
+    proteins_to_kmers_direct<<<(unsigned)((n + THREADS - 1) / THREADS),
+                               THREADS, 0, stream>>>(
+        (const uint8_t*)aa, P, (const int32_t*)lengths, n_lanes, k,
+        (int32_t*)hi, (int32_t*)lo, (uint8_t*)valid, W);
+    return (int)cudaGetLastError();
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        proteins_to_kmers_kernel<KT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int blocks = (n_lanes + R - 1) / R;
+  proteins_to_kmers_kernel<KT><<<blocks, THREADS, smem, stream>>>(
+      (const uint8_t*)aa, P, (const int32_t*)lengths, n_lanes, k,
+      (int32_t*)hi, (int32_t*)lo, (uint8_t*)valid, W, R);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* umgap_cuda_error_string(int code) {
@@ -377,4 +529,30 @@ extern "C" int reads_to_kmers_packed(const void* args) {
                         (int)a.i(4), (int)a.i(5), (int)a.i(6), (int)a.i(7),
                         a.ptr(8), a.ptr(9), a.ptr(10), a.ptr(11), a.ptr(12),
                         (int)a.i(13), (int)a.i(14), a.ptr(15));
+}
+
+// K1P: AA codes (n_lanes, P) uint8 and lengths (n_lanes,) int32 -> hi, lo
+// (n_lanes, W) int32 and valid (n_lanes, W) bool, W = max(P - k + 1, 1).
+// R: lanes per block, a multiple of 8 (hi, lo and valid must be
+// allocations of their own), halved for wide proteins.
+extern "C" int proteins_to_kmers(const void* aa, int P, const void* lengths,
+                                 int n_lanes, int k, void* hi, void* lo,
+                                 void* valid, int W, int R, void* stream) {
+  if (n_lanes <= 0) return 0;
+  if (R < 8 || (R & 7) || k < 1 || k > 10 || P < 1 ||
+      W != (P - k + 1 > 1 ? P - k + 1 : 1))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (k == 9)
+    return launch_proteins<9>(aa, P, lengths, n_lanes, k, hi, lo, valid, W,
+                              R, s);
+  return launch_proteins<0>(aa, P, lengths, n_lanes, k, hi, lo, valid, W, R,
+                            s);
+}
+
+extern "C" int proteins_to_kmers_packed(const void* args) {
+  const PackedArgs a{(const unsigned char*)args};
+  return proteins_to_kmers(a.ptr(0), (int)a.i(1), a.ptr(2), (int)a.i(3),
+                           (int)a.i(4), a.ptr(5), a.ptr(6), a.ptr(7),
+                           (int)a.i(8), (int)a.i(9), a.ptr(10));
 }

@@ -36,3 +36,14 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def state_device(dtax=None, dtable=None, device=None) -> torch.device:
+    """The device of given device state (``dtable``, else ``dtax``), else
+    :func:`resolve_device` of ``device``: what an entry point that takes
+    prebuilt state runs on."""
+    if dtable is not None:
+        return dtable.device
+    if dtax is not None:
+        return dtax.device
+    return resolve_device(device)

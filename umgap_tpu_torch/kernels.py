@@ -122,6 +122,12 @@ K1 = Kernel(
     "umgap_tpu/ops/encoding.py:57 unpack_dna4_device + "
     "umgap_tpu/ops/translate.py:88 translate6_batch + "
     "umgap_tpu/ops/kmers.py:76 pack_windows_batch")
+# K1's protein entry: FGSpp's genes (AA codes) to 9-mer keys
+K1P = Kernel(
+    "proteins_to_kmers", "reads_to_kmers.cu",
+    [P, I, P, I, I, P, P, P, I, I, P],
+    "umgap_tpu/ops/kmers.py:76 pack_windows_batch "
+    "(umgap_tpu/pipeline/proteins.py:33)")
 K2 = Kernel(
     "probe_kmer", "probe_kmer.cu",
     [P, P, P, LL, P, LL, I, I, I, P, I, I, P, P, P],
@@ -185,7 +191,7 @@ K8 = Kernel(
     [P, P, P, LL, P, LL, I, I, P, P, I, P],
     "umgap_tpu/ops/lookup.py:265-283 _probe_dense (peptide branch)")
 
-KERNELS = (K1, K2, K3, K3R, K4, K4R, K5, K5A, K6, KS, K7, K8)
+KERNELS = (K1, K1P, K2, K3, K3R, K4, K4R, K5, K5A, K6, KS, K7, K8)
 
 # build seconds and ptxas reports of the last build_all() in this process
 BUILD_INFO: dict = {}

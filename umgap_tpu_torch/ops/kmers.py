@@ -1,5 +1,8 @@
 """K-mer packing and the tryptic digest (a copy of
-``umgap_tpu.ops.kmers``).
+``umgap_tpu.ops.kmers``), and kernel K1P (``proteins_to_kmers``, the
+protein entry of ``csrc/reads_to_kmers.cu``): the window packing of
+FGSpp's predicted genes, whose plain version is
+:func:`pack_windows_batch`.
 
 A peptide k-mer over the 5-bit AA alphabet packs into 5k bits, split at
 bit 25 into two int32 lanes (``hi``, ``lo``); k <= 10.
@@ -17,6 +20,8 @@ from typing import List
 
 import numpy as np
 import torch
+
+from .. import kernels
 
 MASK25 = (1 << 25) - 1
 DEFAULT_K = 9
@@ -82,6 +87,39 @@ def pack_windows_batch(aa: torch.Tensor, pep_lengths: torch.Tensor,
         lo = (lo << 5) | a[..., j:j + W]
     w = torch.arange(W, device=a.device)
     valid = w < (pep_lengths.to(torch.int64)[..., None] - (k - 1))
+    return hi, lo, valid
+
+
+# K1P's lanes per block: a multiple of 8, so every block's output span
+# starts on 8 elements; the kernel halves it for wide proteins
+LANES_PER_BLOCK = 32
+
+
+def proteins_to_kmers(aa: torch.Tensor, pep_lengths: torch.Tensor,
+                      k: int = DEFAULT_K):
+    """:func:`pack_windows_batch` of protein lanes: ``aa`` (N, P) uint8
+    AA codes and ``pep_lengths`` (N,) int32 -> ``hi``, ``lo`` (N, W)
+    int32 and ``valid`` (N, W) bool, W = max(P - k + 1, 1).
+
+    CPU tensors take the plain version; CUDA tensors launch K1P."""
+    if aa.device.type == "cpu":
+        return pack_windows_batch(aa, pep_lengths, k)
+    if k > 10:
+        raise ValueError("k must be <= 10")
+    if aa.dtype != torch.uint8 or aa.dim() != 2 or aa.shape[1] < 1:
+        raise ValueError(f"proteins_to_kmers: expected (N, P) uint8, got "
+                         f"{tuple(aa.shape)} {aa.dtype}")
+    N, P = aa.shape
+    if pep_lengths.dtype != torch.int32 or pep_lengths.shape != (N,):
+        raise ValueError("proteins_to_kmers: lengths must be (N,) int32")
+    kernels.check_cuda("proteins_to_kmers", aa, pep_lengths)
+    W = max(P - k + 1, 1)
+    hi = torch.empty((N, W), dtype=torch.int32, device=aa.device)
+    lo = torch.empty_like(hi)
+    valid = torch.empty((N, W), dtype=torch.bool, device=aa.device)
+    kernels.K1P.launch(aa.data_ptr(), P, pep_lengths.data_ptr(), N, k,
+                       hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), W,
+                       LANES_PER_BLOCK, kernels.stream_of(aa))
     return hi, lo, valid
 
 

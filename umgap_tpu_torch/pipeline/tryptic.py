@@ -53,25 +53,33 @@ READS_PER_BLOCK = 64
 def digest_groups(groups: Sequence[Tuple[str, Sequence[str]]],
                   max_peptides: int, table_number: int = 1,
                   min_len: int = MIN_PEP, max_len: int = MAX_PEP):
-    """Translate all six frames of each end on the host, digest, keep the
-    fragments of ``min_len..max_len`` residues and fingerprint them.
-    Returns numpy (hi, lo, valid) of shape (B, W), W the power-of-two
-    multiple of ``max_peptides`` that holds the widest group's
-    fragments: nothing is dropped."""
+    """Translate all six frames of each end on the host, then
+    :func:`digest_protein_groups` of the peptides."""
     table = encoding.get_table(table_number)
+    return digest_protein_groups(
+        [(h, [pep for seq in seqs for pep in translate.translate_sequence(
+            seq, translate.FRAME_NAMES, table)]) for h, seqs in groups],
+        max_peptides, min_len, max_len)
+
+
+def digest_protein_groups(groups, max_peptides: int,
+                          min_len: int = MIN_PEP, max_len: int = MAX_PEP):
+    """Host tryptic digest of (header, [proteins]) groups, as
+    prot2tryp2lca -l9 -L45 does: the fragments of ``min_len..max_len``
+    residues, fingerprinted. Returns numpy (hi, lo, valid) of shape
+    (B, W), W the power-of-two multiple of ``max_peptides`` that holds
+    the widest group's fragments: nothing is dropped."""
     B = len(groups)
     all_codes: List[np.ndarray] = []
     owners: List[Tuple[int, int]] = []
     counts = np.zeros(B, dtype=np.int64)
-    for b, (_header, seqs) in enumerate(groups):
-        for seq in seqs:
-            for pep in translate.translate_sequence(
-                    seq, translate.FRAME_NAMES, table):
-                for frag in kmers.tryptic_digest(pep):
-                    if min_len <= len(frag) <= max_len:
-                        owners.append((b, int(counts[b])))
-                        all_codes.append(encoding.encode_aa(frag))
-                        counts[b] += 1
+    for b, (_header, peps) in enumerate(groups):
+        for pep in peps:
+            for frag in kmers.tryptic_digest(pep):
+                if min_len <= len(frag) <= max_len:
+                    owners.append((b, int(counts[b])))
+                    all_codes.append(encoding.encode_aa(frag))
+                    counts[b] += 1
     W = max_peptides
     widest = int(counts.max()) if B else 0
     while W < widest:
@@ -338,10 +346,9 @@ def analyse_tryptic_groups(groups, tax, table, config: PipelineConfig,
     and aggregation on the device (``device``, or that of the given
     ``dtax``/``dtable``), at records of any length. A ``step_cache`` dict
     keeps the step across samples. Returns [(header, taxon)]."""
-    from ..device import resolve_device
+    from ..device import state_device
 
-    dev = (dtable.device if dtable is not None
-           else dtax.device if dtax is not None else resolve_device(device))
+    dev = state_device(dtax, dtable, device)
     dtax = dtax if dtax is not None \
         else devagg.DeviceTaxonomy.from_host(tax, dev)
     dtable = dtable if dtable is not None \
