@@ -248,6 +248,8 @@ def main():
         phase_resident(torch, world)
         k8_resident = phase_resident_peptide(torch, world, tresults)
         phase_cli(torch, world)
+        shards_launches, stats["probe_kmer_grouped"] = phase_shards(torch,
+                                                                    world)
         fgspp_launches, stats["proteins_to_kmers"] = phase_fgspp(torch,
                                                                  world)
         phase_ingest(torch, world)
@@ -296,6 +298,19 @@ def main():
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s.get("library_ms"),
             "equal": s["equal"]})
+    # K2's grouped entry: the 16-shard card-scale artifact, launches from
+    # the grouped analyser's run (phase shards)
+    g = stats["probe_kmer_grouped"]
+    kern.append({
+        "name": "probe_kmer_grouped", "route": "cuda",
+        "source": "umgap_tpu_torch/csrc/probe_kmer.cu",
+        "replaces": "umgap_tpu/parallel/sharded.py:319-326 with "
+                    "umgap_tpu/ops/lookup.py:231 (the grouped probe)",
+        "launches": shards_launches["probe_kmer"],
+        "max_abs_err": g["max_abs_err"], "ms": g["ms"],
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": None,
+        "equal": g["equal"]})
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {
@@ -449,13 +464,15 @@ def cuda_ms(torch, fn, reps=20):
 PROFILE_PAD_S = 0.02
 
 
-def _profile_window(torch, fn, n_calls, before=None):
+def _profile_window(torch, fn, n_calls, before=None, with_calls=False):
     """A profiler window holding ``n_calls`` calls of ``fn`` alone: a
     warm-up window of the same calls first (kineto's schedule), then the
     recorded one, with PROFILE_PAD_S of host time between the warm-up's
     last call and the window's start, the window's start and its first
     call, its last call and its end. ``before`` runs ahead of each call
-    and is timed too. Returns {kernel name: (device ms, count)}."""
+    and is timed too. Returns {kernel name: (device ms, count)}; with
+    ``with_calls`` also the window's host-side kernel launch calls (a
+    window whose kernel events number fewer missed some)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     def calls():
@@ -476,10 +493,21 @@ def _profile_window(torch, fn, n_calls, before=None):
         prof.step()
     # a schedule's step annotation ("ProfilerStep#1") carries the device
     # time of every kernel in its step again: kernels and copies only
-    return {e.key: (e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")}
+    events = prof.key_averages()
+    out = {e.key: (e.self_device_time_total / 1e3, e.count)
+           for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")}
+    if with_calls:
+        return out, sum(e.count for e in events
+                        if e.key == "cudaLaunchKernel")
+    return out
+
+
+def _kernel_events(prof):
+    """Kernel events (copies and sets aside) of a ``_profile_window``."""
+    return sum(c for k, (_ms, c) in prof.items()
+               if not k.startswith(("Memcpy", "Memset")))
 
 
 def device_ms(torch, fn, reps=20, tries=3, by=False):
@@ -488,16 +516,22 @@ def device_ms(torch, fn, reps=20, tries=3, by=False):
     ``_profile_window`` (windows opened with no warm-up and no host time
     around the calls read no device event at all for many short
     windows). The reading is held to ``events_ms`` (the same calls back
-    to back behind a spin of the card): a window with no device event
-    is taken again, up to ``tries`` times, and one that reads more than
-    1.25 times the events' time is not taken; then the events' time
-    stands. With ``by``, returns (ms, "profiler" or "events")."""
+    to back behind a spin of the card): a window whose kernel events
+    number fewer than its host launch calls (the profiler dropped some,
+    which reads too low) is taken again, up to ``tries`` times, and one
+    that reads more than 1.25 times the events' time is not taken; then
+    the events' time stands. With ``by``, returns (ms, "profiler" or
+    "events")."""
     fn()
     torch.cuda.synchronize()
     ev = events_ms(torch, fn, reps)
     for _ in range(tries):
-        us = sum(v[0] for v in _profile_window(torch, fn, reps).values())
-        if us > 0:
+        prof, calls = _profile_window(torch, fn, reps, with_calls=True)
+        us = sum(v[0] for v in prof.values())
+        if _kernel_events(prof) < calls:
+            log(f"device_ms: the profiler saw {_kernel_events(prof)} "
+                f"kernels of {calls} launch calls")
+        elif us > 0:
             ms = us / reps
             if ms <= 1.25 * ev:
                 return (ms, "profiler") if by else ms
@@ -3138,6 +3172,8 @@ def phase_resident(torch, world):
     keys, vals = resident_keys(world["keys"], world["vals"], n_total,
                                world["n_tax"])
     tab = build_kmer_table(keys, vals, 9, layout="bucket64s", capacity=slots)
+    # phase shards splits the same key set into 16 shards
+    world["resident_kv"] = (keys, vals)
     del keys, vals
     build_s = time.perf_counter() - t0
     log(f"resident table: {tab.n} keys, {tab.n_buckets} rows of "
@@ -3159,7 +3195,10 @@ def phase_resident(torch, world):
     got = lookup.probe(dt, hi, lo, wvalid, 0)
     err = compare(torch, "K2 resident", got,
                   lookup.probe_plain(dt, hi, lo, wvalid, 0))
+    world["resident_probe"] = got  # phase shards' grouped K2 equals it
     probe_ms = cuda_ms(torch, lambda: lookup.probe(dt, hi, lo, wvalid, 0))
+    probe_dev = device_ms(torch, lambda: lookup.probe(dt, hi, lo, wvalid, 0),
+                          by=True)
     n_valid = int(wvalid.sum())
     pb, pby = bound(hi.numel() * 14 + n_valid * (4 * 64 + 32), n_valid * 60)
 
@@ -3187,9 +3226,11 @@ def phase_resident(torch, world):
     require(np.array_equal(taxa, plain),
             f"resident: kernel taxa differ from plain taxa in "
             f"{int((taxa != plain).sum())} of {P} groups")
+    world["resident_taxa"] = taxa
     RESULT["phases"]["resident"] = dict(
         rows_gb=rows_gb, keys=n_total, host_build_s=build_s,
-        host_to_device_s=load_s, probe_ms=probe_ms, probe_bound_ms=pb,
+        host_to_device_s=load_s, probe_ms=probe_ms,
+        probe_device_ms=probe_dev, probe_bound_ms=pb,
         probe_bound_by=pby, probe_max_abs_err=err,
         probe_found=int(got[1].sum()),
         device_resident_pairs_per_s=BATCH / (ms / 1e3),
@@ -3347,6 +3388,295 @@ def phase_cli(torch, world):
         "groups, records equal to the Analyser's at read length 160, whose "
         "kernel taxa equal plain; a 9-mer index under a tryptic preset "
         "exits 1")
+
+
+# ---------------------------------------------------------------------- #
+# Phase 5s: a buildindex-dist artifact served on the card
+# ---------------------------------------------------------------------- #
+
+SHARDS = 16  # buildindex-dist's default shard count
+SHARDS_LAYOUT = "bucket64s"  # and its default layout
+
+
+class _HostMemPeak:
+    """Peak resident host memory of this process above its level at the
+    start, read from /proc/self/smaps in a loop, split by mapping:
+    "files" the pages of mappings of files under ``root`` (memory-mapped
+    shards: page cache, shared with the file system), "anon" those of
+    mappings with no file (the heap, numpy's arrays, staging buffers),
+    "other" the rest (libraries, device files)."""
+
+    KINDS = ("files", "anon", "other")
+
+    def __init__(self, root):
+        import threading
+
+        self.root = os.path.abspath(root) + os.sep
+        self.base = self.read()
+        self.peak = dict(self.base)
+        self.samples = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def read(self):
+        out = dict.fromkeys(self.KINDS, 0)
+        kind = "other"
+        with open("/proc/self/smaps") as f:
+            for line in f:
+                if line.startswith("Rss:"):
+                    out[kind] += int(line.split()[1]) * 1024
+                elif not line[0].isupper():  # a mapping's header line
+                    parts = line.split(None, 5)
+                    path = parts[5].strip() if len(parts) == 6 else ""
+                    kind = ("files" if path.startswith(self.root)
+                            else "anon" if not path or path.startswith("[")
+                            else "other")
+        return out
+
+    def _sample(self):
+        for k, v in self.read().items():
+            self.peak[k] = max(self.peak[k], v)
+        self.samples += 1
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            self._sample()
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+
+    def gb(self):
+        return {k: (self.peak[k] - self.base[k]) / 1e9 for k in self.KINDS}
+
+
+def _write_shards(shards, work, taxons):
+    """A buildindex-dist workdir: each shard packed and uncompressed as
+    ``shards/shard_{s:03d}.npz``, its probe depth stamped to the
+    layout's, and the manifest."""
+    from umgap_tpu_torch.index import distbuild
+
+    os.makedirs(os.path.join(work, "shards"), exist_ok=True)
+    for i, t in enumerate(shards):
+        t.max_probes = max(t.max_probes,
+                           distbuild.PROBE_LIMITS[SHARDS_LAYOUT])
+        t.save(os.path.join(work, "shards", f"shard_{i:03d}.npz"),
+               packed=True)
+    with open(os.path.join(work, "manifest.json"), "w") as f:
+        json.dump(dict(n_shards=len(shards), k=9, layout=SHARDS_LAYOUT,
+                       capacity=shards[0].capacity, taxons=taxons,
+                       n_keys=int(sum(t.n for t in shards))), f)
+
+
+def _trace_kernels(tdir):
+    """Names of the CUDA kernels in the Chrome trace under ``tdir``."""
+    import glob
+
+    names = set()
+    for path in glob.glob(os.path.join(tdir, "*.pt.trace.json")):
+        with open(path) as f:
+            for e in json.load(f).get("traceEvents", []):
+                if e.get("cat") == "kernel":
+                    names.add(e.get("name", ""))
+    return names
+
+
+def phase_shards(torch, world):
+    """The resident phase's 268 M keys split by the port's owner_of into
+    a 16-shard bucket64s buildindex-dist artifact, written, put on the
+    card by ShardedTable.from_shards read into memory (a control) and
+    memory-mapped, the host's memory split by mapping during each load; K2's grouped entry
+    held to its plain version and to the resident single table's K2 on
+    the bench batch's queries, timed; high-sensitivity through
+    make_sharded_stream_analyser (taxa = plain = the resident phase's,
+    launches, CUDA kernels a step, rates); then the command line over a
+    bench-scale 16-shard artifact: --shards (the workdir and its
+    shards/), --mesh 1 --index and --trace-dir, against phase cli's
+    --index bytes. Returns (launches, K2 grouped's stats)."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.index import distbuild
+    from umgap_tpu_torch.ops import encoding, lookup, translate
+    from umgap_tpu_torch.parallel import (
+        ShardedTable,
+        build_sharded_tables,
+        make_sharded_stream_analyser,
+    )
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+
+    t_phase = time.perf_counter()
+    dev, L, P = world["dev"], world["L"], world["P"]
+    work = os.path.join(TMP_DIR, "shards_work")
+    keys, vals = world.pop("resident_kv")
+    t0 = time.perf_counter()
+    shards = build_sharded_tables(keys, vals, 9, SHARDS, load_factor=0.5,
+                                  layout=SHARDS_LAYOUT)
+    build_s = time.perf_counter() - t0
+    n_keys = len(keys)
+    del keys, vals
+    cap = shards[0].capacity
+    stash = sum(len(t.stash_hi) for t in shards)
+    t0 = time.perf_counter()
+    _write_shards(shards, work, None)
+    write_s = time.perf_counter() - t0
+    del shards
+    log(f"shards: {n_keys} keys in {SHARDS} {SHARDS_LAYOUT} shards of "
+        f"{cap} slots ({cap * 8 * SHARDS / 1e9:.2f} GB rows), stash "
+        f"{stash}; host build {build_s:.1f}s, write {write_s:.1f}s")
+
+    # the host's memory during the load, the shards read into memory
+    # (the control) and memory-mapped (what --shards does); the table of
+    # the second is the one served
+    host = {}
+    for mmap in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with _HostMemPeak(work) as mem:
+            t0 = time.perf_counter()
+            stable = ShardedTable.from_shards(
+                distbuild.load_shards(work, mmap=mmap), dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        tag = "mmap" if mmap else "read"
+        host[tag] = dict(mem.gb(), disk_to_card_s=load_s,
+                         samples=mem.samples)
+        log(f"shards ({tag}): disk -> card {load_s:.1f}s; host peak above "
+            f"start: " + ", ".join(f"{k} {v:.3f} GB"
+                                   for k, v in mem.gb().items())
+            + f" ({mem.samples} samples)")
+        if not mmap:
+            del stable
+    shutil.rmtree(work)
+    dt = stable.table
+    rows_gb = dt.rows.numel() * 4 / 1e9
+    require(stable.group == SHARDS and dt.stash.shape[0] == stash,
+            f"shards: group {stable.group}, stash {dt.stash.shape[0]}")
+    load_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"shards: {rows_gb / load_s:.2f} GB/s to the card memory-mapped; "
+        f"card peak {load_peak_gb:.2f} GB")
+
+    # K2's grouped entry on the bench batch's queries
+    reads, lens = _batch_reads(torch, world, L)
+    hi, lo, wvalid, _ = translate.reads_to_kmers(reads, lens, L,
+                                                 encoding.get_table(1), 9)
+
+    def k2():
+        return lookup.probe(dt, hi, lo, wvalid, 0)
+
+    before = kernels.K2.launches
+    got = k2()
+    require(kernels.K2.launches == before + 1, "K2 grouped: one launch")
+    err = compare(torch, "K2 grouped", got,
+                  lookup.probe_plain(dt, hi, lo, wvalid, 0))
+    err = max(err, compare(torch, "K2 grouped vs the resident single "
+                           "table's K2", got, world.pop("resident_probe")))
+    Q, n_valid = hi.numel(), int(wvalid.sum())
+    pb, pby = bound(Q * 14 + n_valid * (4 * 64 + 32), n_valid * 70)
+    k2_ms = cuda_ms(torch, k2)
+    k2_dev, k2_by = device_ms(torch, k2, by=True)
+    k2_stats = dict(
+        ms=k2_ms, device_ms=k2_dev, device_ms_by=k2_by,
+        back_to_back_ms=events_ms(torch, k2),
+        plain_ms=cuda_ms(torch, lambda: lookup.probe_plain(
+            dt, hi, lo, wvalid, 0), reps=3),
+        bound_ms=pb, bound_by=pby, bound_share=pb / k2_dev,
+        max_abs_err=err, equal=err == 0.0, queries=Q, valid=n_valid,
+        found=int(got[1].sum()), group=stable.group)
+    log(f"K2 grouped: equal to plain and to the single table's K2 on {Q} "
+        f"queries ({n_valid} valid); {k2_ms:.4f} ms events, {k2_dev:.4f} "
+        f"ms device, bound {pb:.4f} ({pb / k2_dev:.0%})")
+
+    # the grouped analyser
+    cfg = PRESETS["high-sensitivity"]
+    torch.cuda.reset_peak_memory_stats()
+    an = make_sharded_stream_analyser(world["tax"], stable, cfg,
+                                      batch_size=BATCH, read_length=L,
+                                      dtax=world["dtax"])
+    _run_analyser(an, world)
+    an.overflow_reads = 0
+    kernels.reset_launches()
+    taxa = _run_analyser(an, world)
+    launches = kernels.launch_counts()
+    for n in path_kernels(cfg):
+        require(launches[n] > 0, f"kernel {n} was not launched on the "
+                "sharded path")
+    cuda_batch = batch_cuda_launches(torch, world, an)
+    want_kernels = RESULT["batch_cuda_launches"]["high-sensitivity"][
+        "kernels"]
+    require(cuda_batch["kernels"] == want_kernels,
+            f"shards: {cuda_batch['kernels']} CUDA kernels a batch step, "
+            f"the main path's high-sensitivity step {want_kernels}")
+    e2e = _stream_rate(an, world)
+    bt = reads.reshape(BATCH, 2, -1)
+    bl = lens.reshape(BATCH, 2)
+    batch_ms = cuda_ms(torch, lambda: an.step(bt, bl, L), reps=5)
+    # the table plus the path's working set (the plain run below gathers
+    # whole rows and is not the path)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plain = _run_analyser(_analyser(world, cfg, dtable=dt, plain=True), world)
+    require(np.array_equal(taxa, plain), f"shards: kernel taxa differ from "
+            f"plain taxa in {int((taxa != plain).sum())} of {P} groups")
+    require(np.array_equal(taxa, world.pop("resident_taxa")),
+            "shards: taxa differ from the resident single table's")
+    log(f"shards high-sensitivity: kernel taxa == plain == resident on {P} "
+        f"groups; launches {launches}; {cuda_batch['kernels']} CUDA kernels "
+        f"a step; {BATCH / (batch_ms / 1e3):.0f} pairs/s resident, "
+        f"{e2e['pairs_per_s']:.0f} e2e; peak {peak_gb:.2f} GB")
+    del an, stable, dt
+    torch.cuda.empty_cache()
+
+    # the command line over a bench-scale artifact
+    cli_work = os.path.join(TMP_DIR, "cli_shards")
+    taxtsv, index = _cli_files(world)
+    _write_shards(build_sharded_tables(world["keys"], world["vals"], 9,
+                                       SHARDS, load_factor=0.5,
+                                       layout=SHARDS_LAYOUT),
+                  cli_work, taxtsv)
+    paths = [os.path.join(TMP_DIR, f"A{e + 1}.fq") for e in (0, 1)]
+    with open(os.path.join(TMP_DIR, "high-sensitivity.fa"), "rb") as f:
+        want = f.read()
+    tdir = os.path.join(TMP_DIR, "trace")
+    runs = {"shards_workdir": ["--shards", cli_work],
+            "shards_dir": ["--shards", os.path.join(cli_work, "shards"),
+                           "--trace-dir", tdir],
+            "mesh_index": ["--mesh", "1", "--index", index]}
+    cli_s = {}
+    for tag, flags in runs.items():
+        out = os.path.join(TMP_DIR, f"shards-{tag}.fa")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
+             taxtsv, "-t", "high-sensitivity", "-1", paths[0], "-2",
+             paths[1], "--fgspp", "never", "-o", out, *flags], cwd=REPO,
+            capture_output=True, text=True, timeout=600)
+        cli_s[tag] = time.perf_counter() - t0
+        require(proc.returncode == 0,
+                f"CLI {tag} exit {proc.returncode}: {proc.stderr[-2000:]}")
+        with open(out, "rb") as f:
+            require(f.read() == want, f"CLI {tag}: records differ from "
+                    "phase cli's --index run")
+    traced = _trace_kernels(tdir)
+    require(any("probe_kernel" in n for n in traced),
+            f"--trace-dir: no probe_kmer kernel among {sorted(traced)}")
+    shutil.rmtree(cli_work)
+    RESULT["phases"]["shards"] = dict(
+        keys=n_keys, shards=SHARDS, layout=SHARDS_LAYOUT, capacity=cap,
+        rows_gb=rows_gb, stash=stash, host_build_s=build_s,
+        host_write_s=write_s, disk_to_card_s=load_s, host_load=host,
+        card_peak_after_load_gb=load_peak_gb, k2_grouped=k2_stats,
+        launches=launches, batch_cuda_launches=cuda_batch,
+        batch_ms=batch_ms, device_resident_pairs_per_s=BATCH / (
+            batch_ms / 1e3), e2e=e2e, max_memory_allocated_gb=peak_gb,
+        cli_seconds=cli_s, trace_kernels=sorted(traced),
+        seconds=time.perf_counter() - t_phase)
+    probes = sorted(n for n in traced if "probe" in n)
+    log(f"shards CLI: --shards (workdir, shards/), --mesh 1 --index equal "
+        f"to --index; the trace names {probes}")
+    return launches, k2_stats
 
 
 # ---------------------------------------------------------------------- #
@@ -4351,7 +4681,8 @@ def compare_trees(before, after, order="BAAB", mode="full"):
     each rung of the width ladder and on the synthetic long rows, the
     main path's kernels, the 12,000 bp path, the ladder sample), "tail"
     its ``tail_ab`` (the tail after K3: CUDA kernels a batch, stage
-    tables, the tail's device ms, the ring, the 12,000 bp path).
+    tables, the tail's device ms, the ring, the 12,000 bp path), "stash"
+    its ``stash_ab`` (K2 at stashes of STASH_ROWS rows).
     Writes ``ab.json`` (or ``ab_<mode>.json``) under OUT_DIR.
 
         python3 -c "import chip_smoke; chip_smoke.compare_trees(P, A)"
@@ -4419,6 +4750,16 @@ def compare_trees(before, after, order="BAAB", mode="full"):
                     for n, s in t["stages"].items())
                 + f"; ring {t['ring_high_sensitivity']['pairs_per_s']:.0f}"
                 f" pairs/s; 12,000 bp wall {t['long']['wall_s']:.3f} s")
+    if mode == "stash":
+        for k, r in enumerate(runs):
+            st = dict(r["stash"])
+            main = st.pop("main")
+            log(f"run {k} {r['tag']}: K2 device ms, main " + ", ".join(
+                f"L = {w} {c['device_ms']:.4f}" for w, c in main.items())
+                + "; by stash rows " + "; ".join(
+                    f"{S}: grouped {c['grouped']['device_ms']:.4f}, single "
+                    f"{c['single']['device_ms']:.4f}"
+                    for S, c in st.items()))
     if mode != "full":
         return
 
@@ -4738,13 +5079,90 @@ def long_ab(torch, world):
     return out
 
 
+# stash rows of the stash comparison: none, sizes up to the 48 KB that
+# fits a block's default shared memory (4,096 rows), and past the 227 KB
+# a block may opt in to
+STASH_ROWS = (0, 256, 1024, 2048, 4096, 20000)
+
+
+def stash_ab(torch, world):
+    """K2 with a stash of each size in STASH_ROWS on the bench batch's
+    4.9 M queries: its grouped entry over the bench keys in 16 bucket64s
+    shards, and its one-table entry over the bench table (bucket8s). Half
+    of a stash's rows are keys of the batch, half keys of no read. Then
+    ("main") the main path's K2 as it is, the bench table with its own
+    stash, at L = 100 and 160. Each launch is held to the plain version,
+    then device and event ms. The same code for any tree
+    (``compare_trees(..., mode="stash")``)."""
+    from umgap_tpu_torch.ops import encoding, lookup, translate
+    from umgap_tpu_torch.parallel import ShardedTable, build_sharded_tables
+
+    dev, L = world["dev"], world["L"]
+    reads, lens = _batch_reads(torch, world, L)
+    hi, lo, valid, _ = translate.reads_to_kmers(reads, lens, L,
+                                                encoding.get_table(1), 9)
+    grouped = ShardedTable.from_shards(build_sharded_tables(
+        world["keys"], world["vals"], 9, SHARDS, load_factor=0.5,
+        layout=SHARDS_LAYOUT), dev).table
+    q = torch.unique(((hi.to(torch.int64) << 25) | lo.to(torch.int64))[
+        valid]).cpu().numpy()
+    rng = np.random.default_rng(23)
+    out = {"main": {}}
+    dt = world["dtable"]
+    for width in (L, 160):
+        r, n = _batch_reads(torch, world, width)
+        args = translate.reads_to_kmers(r, n, width, encoding.get_table(1),
+                                        9)[:3]
+
+        def fn(args=args):
+            return lookup.probe(dt, *args, 0)
+
+        err = compare(torch, f"K2 main, L = {width}", fn(),
+                      lookup.probe_plain(dt, *args, 0))
+        out["main"][width] = dict(device_ms=device_ms(torch, fn),
+                                  ms=cuda_ms(torch, fn), max_abs_err=err,
+                                  stash=dt.stash.shape[0])
+        log(f"main K2, L = {width}, stash {dt.stash.shape[0]}: "
+            f"{out['main'][width]['device_ms']:.4f} ms device, "
+            f"{out['main'][width]['ms']:.4f} events")
+    for S in STASH_ROWS:
+        own = rng.choice(q, size=S // 2, replace=False)
+        other = np.setdiff1d(rng.integers(0, 2 ** 45, size=2 * S + 16,
+                                          dtype=np.int64), q)
+        sk = np.concatenate([own, rng.permutation(other)[:S - S // 2]])
+        require(len(np.unique(sk)) == S, f"stash of {S}: keys repeat")
+        stash = torch.from_numpy(np.stack(
+            [(sk >> 25).astype(np.int32), (sk & ((1 << 25) - 1)).astype(
+                np.int32), rng.integers(1, world["n_tax"] + 1, size=S).astype(
+                    np.int32)], axis=1).reshape(-1, 3)).to(dev)
+        cells = {}
+        for name, base in (("grouped", grouped), ("single", world["dtable"])):
+            dt = lookup.DeviceTable(base.rows, base.max_probes, "kmer",
+                                    base.nb_bits, base.bucket, stash,
+                                    group=base.group)
+
+            def fn(dt=dt):
+                return lookup.probe(dt, hi, lo, valid, 0)
+
+            err = compare(torch, f"K2 {name}, stash {S}", fn(),
+                          lookup.probe_plain(dt, hi, lo, valid, 0))
+            cells[name] = dict(device_ms=device_ms(torch, fn),
+                               ms=cuda_ms(torch, fn), max_abs_err=err,
+                               found=int(fn()[1].sum()))
+        out[S] = cells
+        log(f"stash {S}: " + "; ".join(
+            f"{n} {c['device_ms']:.4f} ms device, {c['ms']:.4f} events"
+            for n, c in cells.items()))
+    return out
+
+
 def ab_worker(tree, out, mode="full"):
     """One A/B run: ``tree``'s package and ``chip_smoke.py`` phases, then
     this file's stage tables and host times; writes JSON to ``out``.
     ``mode`` "chain" runs ``chain_device_ms`` at the workload's read
     length alone, "tryptic" this file's ``tryptic_ab``, "wide" its
     ``wide_ab``, "long" its ``long_ab``, "rows" its ``rows_ab``, "tail"
-    its ``tail_ab``."""
+    its ``tail_ab``, "stash" its ``stash_ab``."""
     import importlib.util
 
     import torch
@@ -4761,9 +5179,9 @@ def ab_worker(tree, out, mode="full"):
             json.dump(dict(tree=tree, card=card, chain_device_ms=(
                 chain_device_ms(torch, world, world["L"]))), f, default=str)
         return
-    if mode in ("tryptic", "wide", "long", "rows", "tail"):
+    if mode in ("tryptic", "wide", "long", "rows", "tail", "stash"):
         fn = dict(tryptic=tryptic_ab, wide=wide_ab, long=long_ab,
-                  rows=rows_ab, tail=tail_ab)[mode]
+                  rows=rows_ab, tail=tail_ab, stash=stash_ab)[mode]
         with open(out, "w") as f:
             json.dump({"tree": tree, "card": card,
                        "ptxas": t.RESULT.get("ptxas"),

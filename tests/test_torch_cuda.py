@@ -197,6 +197,148 @@ def test_probe_kernel(dev, layout):
         lookup.probe_plain(dt, hi, lo, valid, 0))
 
 
+def _unmix_key(mhi, mlo):
+    """The inverse of ``index.table.mix_key``: keys with chosen home
+    buckets."""
+    from umgap_tpu_torch.index import table as T
+
+    h = np.asarray(mhi).astype(np.uint32)
+    l = np.asarray(mlo).astype(np.uint32)
+    l = l ^ (T._mx(h + T._C3) & T.MASK25)
+    h = h ^ (T._mx(l + T._C2) & T.MASK20)
+    l = l ^ (T._mx(h + T._C1) & T.MASK25)
+    return h, l
+
+
+def _grouped_table(rng, group, bucket, probes, spread=300):
+    """Rows of ``group`` sub-tables (the shards of one artifact, 2^15
+    buckets each) placed in ``probes + 1`` rounds, each holding its
+    owner's share of keys crowded into 8 home buckets (so rounds overflow
+    and keys are left out) and of keys spread over it. Returns (rows,
+    keys, values, placed)."""
+    from umgap_tpu_torch.index import table as T
+    from umgap_tpu_torch.parallel.sharded import owner_of
+
+    nb_bits = T.MIN_NB_BITS
+    nb = 1 << nb_bits
+    cap = bucket * nb
+    n_crowd = group * 8 * bucket * 3 // 2
+    mlo = ((rng.integers(0, 1 << (25 - nb_bits), size=n_crowd,
+                         dtype=np.uint32) << np.uint32(nb_bits))
+           | rng.integers(0, 8, size=n_crowd, dtype=np.uint32))
+    mhi = rng.integers(0, 1 << 20, size=n_crowd, dtype=np.uint32)
+    chi, clo = _unmix_key(mhi, mlo)
+    keys = np.unique(np.concatenate([
+        kmers.join_packed(chi.astype(np.int32), clo.astype(np.int32)),
+        rng.integers(0, 2 ** 45, size=group * spread, dtype=np.uint64)]))
+    hi, lo = kmers.split_packed(keys)
+    vals = rng.integers(1, 10 ** 6, size=len(keys)).astype(np.int32)
+    own = owner_of(hi, lo, group)
+    rows = []
+    placed = np.zeros(len(keys), bool)
+    for sh in range(group):
+        sel = np.flatnonzero(own == sh)
+        mh, ml = T.mix_key(hi[sel], lo[sel])
+        b0 = (ml & np.uint32(nb - 1)).astype(np.int64)
+        rem = ((ml >> np.uint32(nb_bits))
+               | (mh << np.uint32(25 - nb_bits))).astype(np.int32)
+        (ra, va), _mp, left = T._insert_bucketized(
+            b0, [rem, vals[sel]], cap, tag_distance=True, bucket=bucket,
+            max_round=probes)
+        ok = np.ones(len(sel), bool)
+        ok[left] = False
+        placed[sel[ok]] = True
+        rows.append(np.concatenate([ra.reshape(nb, bucket),
+                                    va.reshape(nb, bucket)], axis=1))
+    return np.concatenate(rows), keys, vals, placed
+
+
+def _grouped_cases(dev, rng, group, bucket, probes):
+    """(DeviceTable, hi, lo, valid) with stashes of 0, 256 (the most the
+    kernel copies to shared memory), 257 (searched in global memory),
+    4,096 (48 KB, the most the parent's kernel held), 4,097 and 20,000
+    rows (240 KB, past the shared memory a block may opt in to) of keys
+    the rows do not hold; queries: placed keys, keys left out,
+    stash keys and misses."""
+    rows, keys, vals, placed = _grouped_table(rng, group, bucket, probes)
+    rows_t = torch.from_numpy(rows).to(dev)
+    extra = np.setdiff1d(np.unique(rng.integers(
+        0, 2 ** 45, size=20500, dtype=np.uint64)), keys)[:20000]
+    for n_stash in (0, 256, 257, 4096, 4097, 20000):
+        sk = extra[:n_stash]
+        shi, slo = kmers.split_packed(sk)
+        stash = np.stack([shi, slo, rng.integers(1, 99, size=len(sk)).astype(
+            np.int32)], axis=1).astype(np.int32).reshape(-1, 3)
+        dt = lookup.DeviceTable(rows_t, probes, "kmer", 15, bucket,
+                                torch.from_numpy(stash).to(dev),
+                                group=group)
+        q = np.concatenate([keys[placed][:4000], keys[~placed][:300],
+                            sk[:3000], rng.integers(0, 2 ** 45, size=700,
+                                                    dtype=np.uint64)])
+        rng.shuffle(q)
+        qh, ql = kmers.split_packed(q)
+        yield (dt, torch.from_numpy(qh).to(dev), torch.from_numpy(ql).to(dev),
+               torch.from_numpy(rng.random(len(q)) < 0.9).to(dev))
+
+
+@pytest.mark.parametrize("probes", [0, 1])
+@pytest.mark.parametrize("bucket", [8, 16, 64])
+@pytest.mark.parametrize("group", [1, 2, 16, 64])
+def test_probe_kernel_grouped(dev, group, bucket, probes):
+    """K2's grouped entry (its ungrouped one at group 1) against the
+    plain version, each query's sub-table from its key, at every stash
+    size; each probe is one K2 launch."""
+    rng = np.random.default_rng(group * 100 + bucket + probes)
+    for dt, hi, lo, valid in _grouped_cases(dev, rng, group, bucket,
+                                            probes):
+        before = kernels.K2.launches
+        got = lookup.probe(dt, hi, lo, valid, 7)
+        torch.cuda.synchronize()
+        assert kernels.K2.launches == before + 1
+        want = lookup.probe_plain(dt, hi, lo, valid, 7)
+        _eq(got, want)
+        assert int(want[1].sum()) > 100
+
+
+def _k2_entries():
+    """The library's two C entries, unpacked: probe_kmer (the one-table
+    entry, as before the grouped entry existed) and probe_kmer_grouped."""
+    import ctypes
+
+    kernels.build_all()
+    lib = ctypes.CDLL(str(kernels.K2.lib_path(kernels.find_nvcc())))
+    P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    head = [P, P, P, LL, P, LL, I, I, I, P, I, I, P, P]
+    lib.probe_kmer.argtypes = head + [P]
+    lib.probe_kmer_grouped.argtypes = head + [I, P]
+    lib.probe_kmer.restype = lib.probe_kmer_grouped.restype = I
+    return lib
+
+
+@pytest.mark.parametrize("probes", [0, 1])
+@pytest.mark.parametrize("bucket", [8, 16, 64])
+def test_probe_kernel_group1_entries_agree(dev, bucket, probes):
+    """At group 1 the wrapper's launch (the ungrouped entry), the
+    ungrouped C entry called directly and the grouped instantiation
+    forced at group 1 give bit-identical outputs."""
+    lib = _k2_entries()
+    rng = np.random.default_rng(bucket + probes)
+    for dt, hi, lo, valid in _grouped_cases(dev, rng, 1, bucket, probes):
+        want = lookup.probe(dt, hi, lo, valid, 5)
+        args = (hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), hi.numel(),
+                dt.rows.data_ptr(), dt.n_buckets, dt.nb_bits, dt.bucket,
+                dt.max_probes, dt.stash.data_ptr(), dt.stash.shape[0], 5)
+        for entry, extra in ((lib.probe_kmer, ()),
+                             (lib.probe_kmer_grouped, (1,))):
+            out = torch.full_like(want[0], -9)
+            found = torch.ones_like(want[1])
+            rc = entry(*args, out.data_ptr(), found.data_ptr(), *extra,
+                       kernels.stream_of(hi))
+            torch.cuda.synchronize()
+            assert rc == 0
+            _eq((out, found), want)
+
+
 def _seed_lanes(rng, lanes, N):
     """Runs of equal taxa with gaps, all-zero lanes, lengths 0, N and
     above N."""

@@ -129,6 +129,21 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(no_card, world):
     with pytest.raises(pdevice.NoCudaDevice):
         tryptic.make_tryptic_fused(dtax, DeviceTable.from_host(
             ptable, device="cpu"), tcfg)
+    # the sharded serving path: the mesh, the stacked shards, the CLI
+    from umgap_tpu_torch.parallel import ShardedTable, make_mesh
+
+    with pytest.raises(pdevice.NoCudaDevice):
+        make_mesh()
+    with pytest.raises(pdevice.NoCudaDevice):
+        make_mesh("auto")
+    with pytest.raises(pdevice.NoCudaDevice):
+        ShardedTable.from_shards([table, table])
+    assert make_mesh(1, "cpu") == (torch.device("cpu"),)
+    from umgap_tpu_torch.cli import main as port_cli
+
+    for flags in (["--shards", "/nonexistent"], ["--mesh"]):
+        assert port_cli(["analyse", "-1", "x.fq", "--taxons", "t.tsv",
+                         "--index", "i.npz", *flags]) == 1
     # asked for explicitly, the CPU runs the plain path
     an = Analyser(tax, table, cfg, batch_size=4, read_length=30,
                   device="cpu")
@@ -154,12 +169,13 @@ def test_unported_options_refuse(world):
     with pytest.raises(NotImplementedError):
         DeviceTable.from_host(types.SimpleNamespace(kind="cuckoo"),
                               device="cpu")
-    # grouped (sharded) tables are not ported yet
-    grouped = DeviceTable.from_host(table, device="cpu")
-    grouped.group = 2
+    # grouped k-mer tables are served (tests/test_torch_sharded.py);
+    # grouped peptide tables wait for the multi-rank slice
     from umgap_tpu_torch.ops import lookup
 
-    with pytest.raises(NotImplementedError, match="grouped"):
+    grouped = DeviceTable.from_host(pt, device="cpu")
+    grouped.group = 2
+    with pytest.raises(NotImplementedError, match="grouped peptide"):
         lookup.probe_plain(grouped, torch.zeros(3, dtype=torch.int32),
                            torch.zeros(3, dtype=torch.int32))
     # taxa2agg cannot combine tree with mrtl: refused as by the reference

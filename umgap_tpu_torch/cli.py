@@ -33,9 +33,21 @@ when it is installed under the config dir (``--fgspp auto``, the default
 as in ``umgap_tpu``; ``require`` exits 1 without it, ``never`` skips it):
 :func:`run_sample_fgspp` feeds FGSpp the raw records and runs the
 predicted genes through :mod:`~umgap_tpu_torch.pipeline.proteins`. An
-FGSpp that fails ends the run with exit 1. Not in this port yet, each
-refused with a clear error rather than run differently: ``--trace-dir``,
-``--mesh``, ``--shards`` and ``--serve``.
+FGSpp that fails ends the run with exit 1.
+
+``--shards DIR`` serves a ``buildindex-dist`` artifact (the workdir or
+its ``shards/``; it implies ``--mesh auto``): the shards, memory-mapped,
+go onto the device as one grouped table
+(:class:`~umgap_tpu_torch.parallel.sharded.ShardedTable`), after
+``umgap_tpu``'s checks of the manifest, of the shard count against the
+mesh and of the device memory. The port's mesh is one device (``--mesh``
+``auto`` or 1; more is refused), so ``--mesh`` over one ``--index``
+serves it as one table, as without ``--mesh``. Under ``--mesh`` the FGSpp presets run
+six-frame translation (``--fgspp require`` is refused), and under
+``--shards`` a record beyond the top device width is an error, as in
+``umgap_tpu``. ``--trace-dir`` writes a ``torch.profiler`` Chrome trace
+of the run. Not in this port yet, refused with a clear error rather
+than run differently: ``--serve``.
 """
 
 from __future__ import annotations
@@ -146,9 +158,21 @@ def build_parser() -> argparse.ArgumentParser:
                          "(umgap-analyse.sh:248-251): 'auto' uses "
                          "<configdir>/FGSpp when installed, else six-frame "
                          "translation")
-    for flag in ("--trace-dir", "--mesh", "--shards", "--serve"):
-        sp.add_argument(flag, action=_Unsupported, nargs="?",
-                        help=argparse.SUPPRESS)
+    sp.add_argument("--trace-dir", default=None,
+                    help="write a torch.profiler (Chrome) trace of the run "
+                         "here (also UMGAP_TRACE_DIR)")
+    sp.add_argument("--mesh", nargs="?", const="auto", default=None,
+                    metavar="N",
+                    help="serve the index split into N hash-range shards "
+                         "(auto: one a device); the port runs on one "
+                         "device")
+    sp.add_argument("--shards", default=None, metavar="DIR",
+                    help="serve a buildindex-dist artifact: DIR is the "
+                         "build workdir (or its shards/ directory); the "
+                         "shard count must be a multiple of the mesh size. "
+                         "Implies --mesh auto. 9-mer presets only")
+    sp.add_argument("--serve", action=_Unsupported, nargs="?",
+                    help=argparse.SUPPRESS)
     return p
 
 
@@ -279,12 +303,105 @@ def _data_paths(args, tryptic: bool):
     return taxons, index
 
 
+def _mesh_size(args) -> int | None:
+    """The ``--mesh`` size (``--shards`` implies ``auto``; the port's
+    ``auto`` is its one device), or None when the run is not sharded."""
+    mesh = getattr(args, "mesh", None)
+    if mesh is None and getattr(args, "shards", None) is not None:
+        mesh = "auto"
+    if mesh is None:
+        return None
+    try:
+        return 1 if mesh == "auto" else int(mesh)
+    except ValueError:
+        raise CliError(f"--mesh takes a device count or 'auto', not "
+                       f"{mesh!r}") from None
+
+
+def _device_bytes(device) -> int | None:
+    """The device memory the HBM guard holds an artifact to:
+    ``UMGAP_HBM_BYTES`` where set, else the card's total; None on the
+    CPU."""
+    import os
+
+    import torch
+
+    env = os.environ.get("UMGAP_HBM_BYTES")
+    if env:
+        return int(float(env))
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[1])
+    return None
+
+
+def _shards_workdir(args, n_dev: int, device):
+    """``umgap_tpu``'s checks of a ``--shards`` artifact before it is
+    read (umgap_tpu/cli.py:1287-1343): the workdir (or its ``shards/``)
+    with a manifest, a shard count the mesh divides, and shard rows that
+    fit 0.95 of each device's memory. Returns (workdir, manifest)."""
+    import json
+    import os
+
+    workdir = os.path.normpath(args.shards)
+    if os.path.basename(workdir) == "shards":
+        workdir = os.path.dirname(workdir)
+    man_path = os.path.join(workdir, "manifest.json")
+    if not os.path.exists(man_path):
+        raise CliError(
+            f"no manifest.json under {workdir}; --shards takes a "
+            "buildindex-dist workdir (or its shards/ directory)")
+    with open(man_path) as f:
+        manifest = json.load(f)
+    S = manifest["n_shards"]
+    if S % n_dev:
+        raise CliError(f"{S} shards cannot be grouped onto the "
+                       f"{n_dev}-device mesh (must divide evenly)")
+    per_dev_bytes = manifest.get("capacity", 0) * 8 * (S // n_dev)
+    limit = _device_bytes(device)
+    if limit and per_dev_bytes > 0.95 * limit:
+        need = -(-S * manifest.get("capacity", 0) * 8 // int(0.95 * limit))
+        # a valid mesh holds whole shards: the next divisor of n_shards
+        feasible = [d for d in range(need, S + 1) if S % d == 0]
+        if feasible:
+            advice = (f"serve this artifact on a mesh of >= {feasible[0]} "
+                      "devices")
+        else:
+            advice = (f"even one shard per device exceeds it — rebuild "
+                      f"with more shards (>= {need}) via buildindex-dist "
+                      "--shards")
+        raise CliError(
+            f"each device would hold {per_dev_bytes / 1e9:.1f} GB of "
+            f"shard rows but has ~{limit / 1e9:.1f} GB; {advice}")
+    return workdir, manifest
+
+
+def _shards_taxons(args, manifest) -> str:
+    """The taxonomy of a ``--shards`` run: ``--taxons``, else the
+    manifest's when that file exists, else config-dir discovery."""
+    import os
+
+    from . import configdir
+
+    if args.taxons is not None:
+        return args.taxons
+    man = manifest.get("taxons")
+    if man and os.path.exists(man):
+        return man
+    conf = _config_dir(args)
+    version = configdir.discover_version(conf)
+    if version is None:
+        raise CliError("No taxonomy found: pass --taxons (the shards "
+                       "manifest has no usable path)")
+    return configdir.resolve(conf, version, "taxons.tsv")
+
+
 class AnalyseSession:
     """What one ``analyse`` invocation shares across its samples: the
     parsed arguments, the taxonomy on the host and on the device, one
-    index a family (``tables[tryptic]``: host table, device table), and
-    one :class:`~.pipeline.runner.Analyser` per (preset, batch, width,
-    ends)."""
+    index a family (``tables[tryptic]``: host table, or None for a
+    ``--shards`` artifact, and device table: the artifact's grouped
+    table), and one :class:`~.pipeline.runner.Analyser` per (preset,
+    batch, width, ends)."""
 
     def __init__(self, args, tax, tables, dtax, device):
         self.args = args
@@ -296,23 +413,54 @@ class AnalyseSession:
         # analysers, kept across samples
         self.aux_cache: dict = {}
 
+    @property
+    def sharded(self) -> bool:
+        """A ``--mesh`` or ``--shards`` run."""
+        return _mesh_size(self.args) is not None
+
     @classmethod
-    def load(cls, args, samples) -> "AnalyseSession":
+    def load(cls, args, samples, device=None) -> "AnalyseSession":
         """The taxonomy (that of the first sample's family, as
         ``umgap_tpu`` loads it) and the index of each family the samples
-        need; an index of the wrong family is refused."""
+        need; an index of the wrong family is refused. Under ``--shards``
+        the 9-mer presets take the artifact as one grouped table; under
+        ``--mesh`` an index goes on the one device as it is (a tryptic
+        one needs stored keys, as ``umgap_tpu``'s re-split does)."""
         from .agg.device import DeviceTaxonomy
         from .device import resolve_device
         from .index.table import load_table
         from .ops.lookup import DeviceTable
+        from .parallel import make_mesh
         from .taxonomy import Taxonomy, read_taxa_file
 
-        device = resolve_device(args.device)
+        device = resolve_device(args.device) if device is None else device
+        n_dev = _mesh_size(args)
+        shards = None
+        if n_dev is not None:
+            if args.shards is not None and any(
+                    not _is_tryptic(s["type"]) for s in samples):
+                shards = _shards_workdir(args, n_dev, device)
+            make_mesh(n_dev, device)
         tax = None
         tables = {}
         for s in samples:
             tryptic = _is_tryptic(s["type"])
             if tryptic in tables:
+                continue
+            if shards is not None and not tryptic:
+                from .index import distbuild
+                from .parallel import ShardedTable
+
+                workdir, manifest = shards
+                if tax is None:
+                    tax = Taxonomy(read_taxa_file(
+                        _shards_taxons(args, manifest)))
+                try:
+                    stable = ShardedTable.from_shards(
+                        distbuild.load_shards(workdir, mmap=True), device)
+                except (FileNotFoundError, RuntimeError, ValueError) as e:
+                    raise CliError(str(e))
+                tables[False] = (None, stable.table)
                 continue
             taxons, index = _data_paths(args, tryptic)
             if tax is None:
@@ -325,6 +473,10 @@ class AnalyseSession:
                 raise CliError(
                     f"index {index} is a {table.kind} index but the "
                     f"preset {s['type']} needs a {need} index")
+            if n_dev is not None and tryptic and table.raw_keys is None:
+                raise CliError(
+                    "--mesh tryptic serving needs an index built with "
+                    "stored keys (the default buildindex output)")
             tables[tryptic] = (table, DeviceTable.from_host(table, device))
         return cls(args, tax, tables, DeviceTaxonomy.from_host(tax, device),
                    device)
@@ -497,6 +649,11 @@ def run_sample_fallback(session: AnalyseSession, sample):
     cap = ladder[-1]
     long_idx = [i for i, (_h, ss) in enumerate(groups)
                 if max((len(s) for s in ss), default=0) > cap]
+    if long_idx and session.tables[False][0] is None:
+        raise CliError(
+            "records beyond the device width cap need the host table for "
+            "the exact long-read path; --shards mode cannot serve them "
+            "(pass --index instead)")
     if long_idx:
         _note(f"{len(long_idx)} record group(s) beyond {cap} bp: exact host "
               "path")
@@ -611,7 +768,17 @@ def run_sample(session: AnalyseSession, sample):
 
     if sample["type"] in fgspp.FGSPP_PRESETS and \
             session.args.fgspp != "never":
-        fg = fgspp.find_fgspp(_config_dir(session.args))
+        if session.sharded:
+            # the FGSpp protein path probes the single-device table; a
+            # sharded run uses six-frame translation (umgap_tpu/cli.py:
+            # 1705-1712)
+            if session.args.fgspp == "require":
+                raise CliError(
+                    "--fgspp require is not supported with --mesh; run "
+                    "without --mesh or with --fgspp auto")
+            fg = None
+        else:
+            fg = fgspp.find_fgspp(_config_dir(session.args))
         if fg is None and session.args.fgspp == "require":
             raise CliError(
                 "FGSpp requested but not installed under the config dir "
@@ -666,23 +833,30 @@ def write_batches(handle, batches) -> int:
 
 
 def cmd_analyse(args, stdout):
-    samples = _samples(args)
-    session = AnalyseSession.load(args, samples)
-    for sample in samples:
-        out = sample["output"]
-        if out in (None, "-"):
-            handle = stdout
-        elif sample["compress"]:
-            import gzip
+    from .device import resolve_device
+    from .utils.profiling import device_trace
 
-            handle = gzip.open(out, "wt")
-        else:
-            handle = open(out, "w")
-        try:
-            write_batches(handle, run_sample(session, sample))
-        finally:
-            if handle is not stdout:
-                handle.close()
+    samples = _samples(args)
+    device = resolve_device(args.device)
+    # the trace holds the index's way to the device too, as umgap_tpu's
+    # does (its samples load their data lazily)
+    with device_trace(args.trace_dir, device):
+        session = AnalyseSession.load(args, samples, device)
+        for sample in samples:
+            out = sample["output"]
+            if out in (None, "-"):
+                handle = stdout
+            elif sample["compress"]:
+                import gzip
+
+                handle = gzip.open(out, "wt")
+            else:
+                handle = open(out, "w")
+            try:
+                write_batches(handle, run_sample(session, sample))
+            finally:
+                if handle is not stdout:
+                    handle.close()
 
 
 def main(argv=None, stdout=None) -> int:

@@ -16,16 +16,37 @@
 // 0..max_probes read the remainder half of the row [rems | vals] with
 // 16-byte loads, match rem | (min(r, 1) << 30); a hit reads the one value
 // and ends the query, an empty slot (-1) ends it as a miss. Then the
-// full-key stash (at most a few hundred keys, sorted by (hi, lo) on the
-// host and held in shared memory) is binary-searched; a stash hit
-// overrides, as in the JAX probe. Invalid lanes return the default.
+// full-key stash (sorted by (hi, lo) on the host) is binary-searched; a
+// stash hit overrides, as in the JAX probe. Invalid lanes return the
+// default.
+//
+// The grouped entry (probe_kmer_grouped) serves a table of `group`
+// hash-range shards stacked along the bucket axis (a buildindex-dist
+// artifact on one device). It replaces the sub-table choice of
+// umgap_tpu/parallel/sharded.py:319-326 (owner_of over the shards) together
+// with umgap_tpu/ops/lookup.py:231 (row = sub * nb + bucket): each query
+// computes its sub-table from its key, sub = ((hash32(hi, lo) >> 16) *
+// group) >> 16, reads row sub * nb + bucket (64-bit indices) and probes
+// with wrap-around inside the sub-table. That is one hash32 (about ten
+// integer operations) a query and no extra pass or launch.
+//
+// A stash of up to kSmemStashRows rows is copied to each block's shared
+// memory and searched there; a larger one is binary-searched in global
+// memory through the read-only path, where its upper levels, which every
+// query visits, stay in L1 and L2. Every stash size is served. On the
+// H100 the copy is the faster to 256 rows (4.9 M queries over the bench
+// table: 0.136 against 0.150 ms at 256 rows, 0.129 against 0.139 with
+// its own 213), the global search from 1,024 rows on (0.184 against
+// 0.205; 2x at 2,048 and 4,096, where the copy is 48 KB a block and
+// limits the blocks an SM holds).
 //
 // Bound on the H100: bytes. Each valid query reads its row's remainder
 // half (bk * 4 bytes; a 32-byte sector for bucket8s) plus one value
-// sector, so a bucket8s probe moves ~64 B and a bucket64s probe ~288 B.
-// Tables beyond the 50 MB L2 make every probe a DRAM row fetch; the
-// design keeps the loads independent and unrolled so that latency is
-// hidden by occupancy rather than paid per query.
+// sector, so a bucket8s probe moves ~64 B and a bucket64s probe ~288 B;
+// every query slot reads 9 B and writes 5 B. Tables beyond the 50 MB L2
+// make every probe a DRAM row fetch; the design keeps the loads
+// independent and unrolled so that latency is hidden by occupancy rather
+// than paid per query.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +57,9 @@ namespace {
 
 constexpr uint32_t MASK20 = (1u << 20) - 1;
 constexpr uint32_t MASK25 = (1u << 25) - 1;
+// stash rows (12 bytes each) copied to shared memory; past this the
+// stash is searched in global memory
+constexpr int kSmemStashRows = 256;
 
 __device__ __forceinline__ uint32_t mx(uint32_t x) {
   x ^= x >> 16;
@@ -46,11 +70,24 @@ __device__ __forceinline__ uint32_t mx(uint32_t x) {
   return x;
 }
 
+// umgap_tpu/index/table.py hash32: the shard-ownership hash (the same
+// constants as csrc/probe_peptide.cu's bucket hash)
+__device__ __forceinline__ uint32_t hash32(int32_t hi, int32_t lo) {
+  uint32_t h = ((uint32_t)hi * 0x9E3779B1u) ^ ((uint32_t)lo * 0x85EBCA77u);
+  h ^= h >> 16;
+  h *= 0xC2B2AE3Du;
+  h ^= h >> 13;
+  return h;
+}
+
 __device__ __forceinline__ long long stash_key(int32_t h, int32_t l) {
   return ((long long)h << 32) | (long long)(uint32_t)l;
 }
 
-template <int BK>
+// GROUPED: rows hold `group` sub-tables of nb buckets each, a query's
+// sub-table from its key. SMEM_STASH: the stash is copied to shared
+// memory first (else searched in global memory).
+template <int BK, bool GROUPED, bool SMEM_STASH>
 __global__ void probe_kernel(const int32_t* __restrict__ qhi,
                              const int32_t* __restrict__ qlo,
                              const uint8_t* __restrict__ qvalid, long long n,
@@ -58,11 +95,13 @@ __global__ void probe_kernel(const int32_t* __restrict__ qhi,
                              int nb_bits, int max_probes,
                              const int32_t* __restrict__ stash, int S,
                              int default_value, int32_t* __restrict__ out,
-                             uint8_t* __restrict__ found) {
+                             uint8_t* __restrict__ found, int group) {
   extern __shared__ int32_t s_stash[];  // (S, 3): hi, lo, value
-  for (int i = threadIdx.x; i < 3 * S; i += blockDim.x) s_stash[i] = stash[i];
-  __syncthreads();
-
+  if constexpr (SMEM_STASH) {
+    for (int i = threadIdx.x; i < 3 * S; i += blockDim.x)
+      s_stash[i] = stash[i];
+    __syncthreads();
+  }
   const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= n) return;
   int32_t res = default_value;
@@ -76,9 +115,20 @@ __global__ void probe_kernel(const int32_t* __restrict__ qhi,
     const uint64_t bmask = (uint64_t)(nb - 1);
     uint64_t bucket = (uint64_t)l & bmask;
     const int32_t rem = (int32_t)((l >> nb_bits) | (h << (25 - nb_bits)));
+    uint64_t base = 0;
+    if constexpr (GROUPED) {
+      // owner_of(hi, lo, group): top 16 bits of hash32 range-mapped onto
+      // the shards (top < 2^16, group <= 2^16: no overflow)
+      const uint32_t top = hash32(khi, klo) >> 16;
+      base = (uint64_t)((top * (uint32_t)group) >> 16) * (uint64_t)nb;
+    }
 
     for (int r = 0; r <= max_probes; ++r) {
-      const int32_t* row = rows + bucket * (uint64_t)(2 * BK);
+      const int32_t* row;
+      if constexpr (GROUPED)
+        row = rows + (base + bucket) * (uint64_t)(2 * BK);
+      else
+        row = rows + bucket * (uint64_t)(2 * BK);
       const int32_t tag = rem | ((r < 1 ? r : 1) << 30);
       const int4* row4 = reinterpret_cast<const int4*>(row);
       int4 v[BK / 4];
@@ -107,16 +157,32 @@ __global__ void probe_kernel(const int32_t* __restrict__ qhi,
     if (S > 0) {
       const long long key = stash_key(khi, klo);
       int a = 0, b = S;  // lower bound
-      while (a < b) {
-        const int m = (a + b) >> 1;
-        if (stash_key(s_stash[3 * m], s_stash[3 * m + 1]) < key)
-          a = m + 1;
-        else
-          b = m;
-      }
-      if (a < S && s_stash[3 * a] == khi && s_stash[3 * a + 1] == klo) {
-        res = s_stash[3 * a + 2];
-        hit_any = 1;
+      if constexpr (SMEM_STASH) {
+        while (a < b) {
+          const int m = (a + b) >> 1;
+          if (stash_key(s_stash[3 * m], s_stash[3 * m + 1]) < key)
+            a = m + 1;
+          else
+            b = m;
+        }
+        if (a < S && s_stash[3 * a] == khi && s_stash[3 * a + 1] == klo) {
+          res = s_stash[3 * a + 2];
+          hit_any = 1;
+        }
+      } else {
+        while (a < b) {
+          const int m = (a + b) >> 1;
+          if (stash_key(__ldg(stash + 3 * m), __ldg(stash + 3 * m + 1)) <
+              key)
+            a = m + 1;
+          else
+            b = m;
+        }
+        if (a < S && __ldg(stash + 3 * a) == khi &&
+            __ldg(stash + 3 * a + 1) == klo) {
+          res = __ldg(stash + 3 * a + 2);
+          hit_any = 1;
+        }
       }
     }
   }
@@ -124,20 +190,55 @@ __global__ void probe_kernel(const int32_t* __restrict__ qhi,
   found[q] = hit_any;
 }
 
-template <int BK>
+template <int BK, bool GROUPED>
 cudaError_t launch(const void* hi, const void* lo, const void* valid,
                    long long n, const void* rows, long long nb, int nb_bits,
                    int max_probes, const void* stash, int S,
-                   int default_value, void* out, void* found,
+                   int default_value, void* out, void* found, int group,
                    cudaStream_t stream) {
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
-  const size_t smem = (size_t)S * 3 * sizeof(int32_t);
-  probe_kernel<BK><<<(unsigned)blocks, threads, smem, stream>>>(
-      (const int32_t*)hi, (const int32_t*)lo, (const uint8_t*)valid, n,
-      (const int32_t*)rows, nb, nb_bits, max_probes, (const int32_t*)stash,
-      S, default_value, (int32_t*)out, (uint8_t*)found);
+  if (S <= kSmemStashRows)
+    probe_kernel<BK, GROUPED, true><<<(unsigned)blocks, threads,
+                                      (size_t)S * 3 * sizeof(int32_t),
+                                      stream>>>(
+        (const int32_t*)hi, (const int32_t*)lo, (const uint8_t*)valid, n,
+        (const int32_t*)rows, nb, nb_bits, max_probes, (const int32_t*)stash,
+        S, default_value, (int32_t*)out, (uint8_t*)found, group);
+  else
+    probe_kernel<BK, GROUPED, false><<<(unsigned)blocks, threads, 0,
+                                       stream>>>(
+        (const int32_t*)hi, (const int32_t*)lo, (const uint8_t*)valid, n,
+        (const int32_t*)rows, nb, nb_bits, max_probes, (const int32_t*)stash,
+        S, default_value, (int32_t*)out, (uint8_t*)found, group);
   return cudaGetLastError();
+}
+
+template <bool GROUPED>
+int dispatch(const void* hi, const void* lo, const void* valid, long long n,
+             const void* rows, long long nb, int nb_bits, int bucket,
+             int max_probes, const void* stash, int S, int default_value,
+             void* out, void* found, int group, cudaStream_t s) {
+  switch (bucket) {
+    case 4:
+      return (int)launch<4, GROUPED>(hi, lo, valid, n, rows, nb, nb_bits,
+                                     max_probes, stash, S, default_value,
+                                     out, found, group, s);
+    case 8:
+      return (int)launch<8, GROUPED>(hi, lo, valid, n, rows, nb, nb_bits,
+                                     max_probes, stash, S, default_value,
+                                     out, found, group, s);
+    case 16:
+      return (int)launch<16, GROUPED>(hi, lo, valid, n, rows, nb, nb_bits,
+                                      max_probes, stash, S, default_value,
+                                      out, found, group, s);
+    case 64:
+      return (int)launch<64, GROUPED>(hi, lo, valid, n, rows, nb, nb_bits,
+                                      max_probes, stash, S, default_value,
+                                      out, found, group, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -146,36 +247,45 @@ extern "C" const char* umgap_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Returns cudaErrorInvalidValue for a bucket width without an
-// instantiation (the Python wrapper checks first).
+// One table (nb buckets). Returns cudaErrorInvalidValue for a bucket
+// width without an instantiation (the Python wrapper checks first).
 extern "C" int probe_kmer(const void* hi, const void* lo, const void* valid,
                           long long n, const void* rows, long long nb,
                           int nb_bits, int bucket, int max_probes,
                           const void* stash, int S, int default_value,
                           void* out, void* found, void* stream) {
   if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (bucket) {
-    case 4:
-      return (int)launch<4>(hi, lo, valid, n, rows, nb, nb_bits, max_probes,
-                            stash, S, default_value, out, found, s);
-    case 8:
-      return (int)launch<8>(hi, lo, valid, n, rows, nb, nb_bits, max_probes,
-                            stash, S, default_value, out, found, s);
-    case 16:
-      return (int)launch<16>(hi, lo, valid, n, rows, nb, nb_bits, max_probes,
-                             stash, S, default_value, out, found, s);
-    case 64:
-      return (int)launch<64>(hi, lo, valid, n, rows, nb, nb_bits, max_probes,
-                             stash, S, default_value, out, found, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(hi, lo, valid, n, rows, nb, nb_bits, bucket,
+                         max_probes, stash, S, default_value, out, found, 1,
+                         (cudaStream_t)stream);
 }
 
+// `group` sub-tables of nb buckets each, stacked along the bucket axis:
+// the shards of one artifact, all held by this device.
+extern "C" int probe_kmer_grouped(const void* hi, const void* lo,
+                                  const void* valid, long long n,
+                                  const void* rows, long long nb,
+                                  int nb_bits, int bucket, int max_probes,
+                                  const void* stash, int S,
+                                  int default_value, void* out, void* found,
+                                  int group, void* stream) {
+  if (n <= 0) return 0;
+  if (group < 1 || group > (1 << 16)) return (int)cudaErrorInvalidValue;
+  return dispatch<true>(hi, lo, valid, n, rows, nb, nb_bits, bucket,
+                        max_probes, stash, S, default_value, out, found,
+                        group, (cudaStream_t)stream);
+}
+
+// group == 1 takes the ungrouped entry.
 extern "C" int probe_kmer_packed(const void* args) {
   const PackedArgs a{(const unsigned char*)args};
-  return probe_kmer(a.ptr(0), a.ptr(1), a.ptr(2), a.i(3), a.ptr(4), a.i(5),
-                    (int)a.i(6), (int)a.i(7), (int)a.i(8), a.ptr(9),
-                    (int)a.i(10), (int)a.i(11), a.ptr(12), a.ptr(13), a.ptr(14));
+  if (a.i(14) == 1)
+    return probe_kmer(a.ptr(0), a.ptr(1), a.ptr(2), a.i(3), a.ptr(4), a.i(5),
+                      (int)a.i(6), (int)a.i(7), (int)a.i(8), a.ptr(9),
+                      (int)a.i(10), (int)a.i(11), a.ptr(12), a.ptr(13),
+                      a.ptr(15));
+  return probe_kmer_grouped(a.ptr(0), a.ptr(1), a.ptr(2), a.i(3), a.ptr(4),
+                            a.i(5), (int)a.i(6), (int)a.i(7), (int)a.i(8),
+                            a.ptr(9), (int)a.i(10), (int)a.i(11), a.ptr(12),
+                            a.ptr(13), (int)a.i(14), a.ptr(15));
 }

@@ -128,11 +128,15 @@ K1P = Kernel(
     [P, I, P, I, I, P, P, P, I, I, P],
     "umgap_tpu/ops/kmers.py:76 pack_windows_batch "
     "(umgap_tpu/pipeline/proteins.py:33)")
+# the entry of one table and, for group > 1, the grouped entry (a
+# buildindex-dist artifact's shards stacked on one device)
 K2 = Kernel(
     "probe_kmer", "probe_kmer.cu",
-    [P, P, P, LL, P, LL, I, I, I, P, I, I, P, P, P],
+    [P, P, P, LL, P, LL, I, I, I, P, I, I, P, P, I, P],
     "umgap_tpu/ops/lookup.py:198 _probe_dense (kmer branch); "
-    "scripts/exp_pallas_dma.py:31 make_kernel")
+    "scripts/exp_pallas_dma.py:31 make_kernel; grouped: "
+    "umgap_tpu/parallel/sharded.py:319-326 with "
+    "umgap_tpu/ops/lookup.py:231")
 K3 = Kernel(
     "seedextend_mask", "seedextend_mask.cu",
     [P, P, LL, I, I, I, P, I, I, P],

@@ -10,6 +10,13 @@ kernel can binary-search it; keys are unique, so the order changes no
 result. Peptide tables have rows ``[key_hi | key_lo | values]`` of
 ``3 * 8`` int32, bucket :func:`hash32_torch` of the fingerprint, and no
 stash.
+
+A grouped k-mer table (``group > 1``) holds the ``group`` hash-range
+shards of a ``buildindex-dist`` artifact
+(:mod:`umgap_tpu_torch.parallel.sharded`) stacked along the bucket axis,
+each of ``n_buckets`` rows, and their stashes merged: a query probes the
+sub-table its key's :func:`~umgap_tpu_torch.parallel.sharded.owner_of`
+names, with linear probing wrapping inside it.
 """
 
 from __future__ import annotations
@@ -20,7 +27,6 @@ import torch
 from .. import kernels
 
 M32 = 0xFFFFFFFF
-MAX_STASH = 4096  # stash rows the kernel holds in shared memory
 KERNEL_BUCKETS = (4, 8, 16, 64)
 # K8's query slots a lane loads a window (a warp's window is 32 x this
 # many slots, compacted to its valid queries): 1, 2 or 4; 2 from
@@ -72,10 +78,11 @@ def _writable(a) -> np.ndarray:
 
 
 class DeviceTable:
-    """A table on one device: ``rows`` (n_buckets, 2 * bucket) int32 for
-    k-mer tables, (n_buckets, 3 * bucket) for peptide tables, ``stash``
-    (S, 3) int32 [hi, lo, value] sorted by (hi, lo) (k-mer tables only),
-    and the probe geometry."""
+    """A table on one device: ``rows`` (group * n_buckets, 2 * bucket)
+    int32 for k-mer tables, (n_buckets, 3 * bucket) for peptide tables,
+    ``stash`` (S, 3) int32 [hi, lo, value] sorted by (hi, lo) (k-mer
+    tables only), and the probe geometry: ``group`` sub-tables, the
+    shards of one artifact."""
 
     def __init__(self, rows: torch.Tensor, max_probes: int, kind: str,
                  nb_bits: int, bucket: int, stash: torch.Tensor | None = None,
@@ -144,15 +151,30 @@ def _check_supported(table: DeviceTable) -> None:
     if table.kind not in ("kmer", "peptide"):
         raise NotImplementedError(
             f"probe of {table.kind!r} tables is not ported")
-    if table.group != 1:
-        raise NotImplementedError("grouped tables (sub) are not ported yet")
+    if table.group != 1 and table.kind == "peptide":
+        raise NotImplementedError(
+            "grouped peptide tables are not ported yet (ROADMAP: the "
+            "multi-rank --mesh slice, with K8's grouped entry)")
+
+
+def sub_tables(table: DeviceTable, hi: torch.Tensor,
+               lo: torch.Tensor) -> torch.Tensor:
+    """Each key's sub-table of a grouped table: its owner among the
+    ``group`` shards (what K2's grouped entry computes;
+    umgap_tpu/parallel/sharded.py:319-324 on one device)."""
+    from ..parallel.sharded import owner_of
+
+    return owner_of(hi, lo, table.group, kind=table.kind)
 
 
 def probe_plain(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
-                valid: torch.Tensor | None = None, default: int = 0):
+                valid: torch.Tensor | None = None, default: int = 0,
+                sub: torch.Tensor | None = None):
     """Plain version of K2 and K8 (``umgap_tpu.ops.lookup._probe_dense``,
     kmer and peptide branches): every round gathers all queries' rows at
-    once."""
+    once. On a grouped table ``sub`` is each query's sub-table (default
+    :func:`sub_tables` of the keys); the row is ``sub * n_buckets +
+    bucket``."""
     _check_supported(table)
     shape = hi.shape
     dev = hi.device
@@ -163,6 +185,12 @@ def probe_plain(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
     out = torch.full(hi.shape, default, dtype=torch.int32, device=dev)
     found = torch.zeros(hi.shape, dtype=torch.bool, device=dev)
     nb, nb_bits, bk = table.n_buckets, table.nb_bits, table.bucket
+    if table.group > 1:
+        if sub is None:
+            sub = sub_tables(table, hi, lo)
+        base = sub.reshape(-1).to(torch.int64) * nb
+    else:
+        base = 0
     peptide = table.kind == "peptide"
     if peptide:
         bucket = hash32_torch(hi, lo) & (nb - 1)
@@ -172,7 +200,7 @@ def probe_plain(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
         rem = (mlo >> nb_bits) | (mhi << (25 - nb_bits))
     live = live0.clone()
     for r in range(table.max_probes + 1):
-        row = table.rows[bucket]
+        row = table.rows[base + bucket]
         rk = row[:, :bk]
         if peptide:
             hit = (rk == hi[:, None]) & (row[:, bk:2 * bk] == lo[:, None])
@@ -204,7 +232,8 @@ def probe(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
     give ``default`` (0 is the reference's ``-o``).
 
     CPU tensors take :func:`probe_plain`; CUDA tensors launch K2 (k-mer
-    tables) or K8 (peptide tables)."""
+    tables, grouped ones through its grouped entry) or K8 (peptide
+    tables)."""
     if hi.device.type == "cpu":
         return probe_plain(table, hi, lo, valid, default)
     _check_supported(table)
@@ -214,8 +243,6 @@ def probe(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
         raise ValueError(f"probe_kmer: bucket {table.bucket} has no kernel "
                          f"instantiation ({KERNEL_BUCKETS})")
     S = table.stash.shape[0]
-    if S > MAX_STASH:
-        raise ValueError(f"probe_kmer: stash of {S} > {MAX_STASH} rows")
     if valid is None:
         valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
     if (hi.dtype != torch.int32 or lo.dtype != torch.int32
@@ -232,7 +259,8 @@ def probe(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
         hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), hi.numel(),
         table.rows.data_ptr(), table.n_buckets, table.nb_bits, table.bucket,
         table.max_probes, table.stash.data_ptr(), S, int(default),
-        out.data_ptr(), found.data_ptr(), kernels.stream_of(hi))
+        out.data_ptr(), found.data_ptr(), table.group,
+        kernels.stream_of(hi))
     return out, found
 
 
