@@ -250,6 +250,8 @@ def main():
         phase_cli(torch, world)
         shards_launches, stats["probe_kmer_grouped"] = phase_shards(torch,
                                                                     world)
+        mesh_launches, stats["probe_peptide_grouped"] = phase_mesh(
+            torch, world, tresults)
         fgspp_launches, stats["proteins_to_kmers"] = phase_fgspp(torch,
                                                                  world)
         phase_ingest(torch, world)
@@ -304,9 +306,25 @@ def main():
     kern.append({
         "name": "probe_kmer_grouped", "route": "cuda",
         "source": "umgap_tpu_torch/csrc/probe_kmer.cu",
-        "replaces": "umgap_tpu/parallel/sharded.py:319-326 with "
+        "replaces": "umgap_tpu/parallel/sharded.py:314-320 with "
                     "umgap_tpu/ops/lookup.py:231 (the grouped probe)",
         "launches": shards_launches["probe_kmer"],
+        "max_abs_err": g["max_abs_err"], "ms": g["ms"],
+        "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"], "library_ms": None,
+        "equal": g["equal"]})
+    # K8's grouped entry: phase mesh's tryptic run over the bench
+    # peptide index in 8 shards on the four-device mesh (a group of 2 a
+    # device): its launches, and each device's K8 on the queries one step
+    # gives it (L2 flushed; the mean over the devices)
+    g = stats["probe_peptide_grouped"]
+    kern.append({
+        "name": "probe_peptide_grouped", "route": "cuda",
+        "source": "umgap_tpu_torch/csrc/probe_peptide.cu",
+        "replaces": "umgap_tpu/parallel/sharded.py:314-320 (kind peptide) "
+                    "with umgap_tpu/ops/lookup.py:265-283 (the grouped "
+                    "peptide probe)",
+        "launches": mesh_launches["probe_peptide"],
         "max_abs_err": g["max_abs_err"], "ms": g["ms"],
         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": g["bound_by"], "library_ms": None,
@@ -794,8 +812,9 @@ def _chain(torch, world, width):
 
 def peptide_rows_read(torch, dtable, hi, lo, valid):
     """The peptide-table rows K8 reads for these queries: a valid query
-    reads rows from its bucket on until a hit or a row with an empty
-    slot, at most max_probes + 1; an invalid one reads none."""
+    reads rows from its bucket on (in its sub-table of a grouped table)
+    until a hit or a row with an empty slot, at most max_probes + 1; an
+    invalid one reads none."""
     from umgap_tpu_torch.ops import lookup
 
     h = hi.reshape(-1).long()
@@ -803,10 +822,13 @@ def peptide_rows_read(torch, dtable, hi, lo, valid):
     live = valid.reshape(-1).clone()
     nb = dtable.n_buckets
     bucket = lookup.hash32_torch(h, lq) & (nb - 1)
+    # a grouped table's sub-tables (K8's grouped entry)
+    base = (lookup.sub_tables(dtable, hi.reshape(-1), lo.reshape(-1)).long()
+            * nb if dtable.group > 1 else 0)
     n = 0
     for _ in range(dtable.max_probes + 1):
         n += int(live.sum())
-        row = dtable.rows[bucket]
+        row = dtable.rows[base + bucket]
         hit = ((row[:, :8] == h[:, None]) & (row[:, 8:16] == lq[:, None]))
         live &= ~hit.any(dim=1) & ~(row[:, :8] == -1).any(dim=1)
         bucket = (bucket + 1) & (nb - 1)
@@ -3550,7 +3572,7 @@ def phase_shards(torch, world):
             + f" ({mem.samples} samples)")
         if not mmap:
             del stable
-    shutil.rmtree(work)
+    world["shards_work"] = work  # phase mesh loads it again, then drops it
     dt = stable.table
     rows_gb = dt.rows.numel() * 4 / 1e9
     require(stable.group == SHARDS and dt.stash.shape[0] == stash,
@@ -3622,6 +3644,7 @@ def phase_shards(torch, world):
             f"plain taxa in {int((taxa != plain).sum())} of {P} groups")
     require(np.array_equal(taxa, world.pop("resident_taxa")),
             "shards: taxa differ from the resident single table's")
+    world["shards_taxa"] = taxa
     log(f"shards high-sensitivity: kernel taxa == plain == resident on {P} "
         f"groups; launches {launches}; {cuda_batch['kernels']} CUDA kernels "
         f"a step; {BATCH / (batch_ms / 1e3):.0f} pairs/s resident, "
@@ -3677,6 +3700,350 @@ def phase_shards(torch, world):
     log(f"shards CLI: --shards (workdir, shards/), --mesh 1 --index equal "
         f"to --index; the trace names {probes}")
     return launches, k2_stats
+
+
+# ---------------------------------------------------------------------- #
+# Phase 5m: the artifact over a four-device mesh on the one card
+# ---------------------------------------------------------------------- #
+
+MESH_DEVICES = 4
+# K8's grouped entry on one device: the bench peptide index in this many
+# shards (the kernels line's entry is timed at 16)
+PEPTIDE_GROUPS = (2, 4, 16, 64)
+
+
+def _mesh_inputs(torch, world, devices):
+    """The workload's 16,384-pair batches cut over the mesh's devices, on
+    the card: a (dna4 slices, length slices, width) step argument a
+    batch."""
+    from umgap_tpu_torch.ops import encoding
+    from umgap_tpu_torch.parallel.sharded import split_to_mesh
+
+    L = world["L"]
+    lens = np.full((BATCH, 2), L, dtype=np.int32)
+    out = [(split_to_mesh(encoding.pack_dna4(
+        world["reads"][i * BATCH:(i + 1) * BATCH]), devices),
+        split_to_mesh(lens, devices), L)
+        for i in range(world["P"] // BATCH)]
+    torch.cuda.synchronize()
+    return out
+
+
+def _mesh_split(torch, an, inputs, reps=5):
+    """A mesh step's event ms by part, each part ending in a host sync:
+    the stages before the probe, "route", "exchange" (both ways),
+    "probe" (every device's), "unroute", the stages after; the sum over
+    a step, median over ``reps`` x the batches. Returns (ms by part, ms
+    a step)."""
+    import contextlib
+
+    steps = []
+    for _ in range(reps):
+        for args in inputs:
+            ms: dict = {}
+
+            def timer(name, ms=ms):
+                @contextlib.contextmanager
+                def cm():
+                    a = torch.cuda.Event(enable_timing=True)
+                    b = torch.cuda.Event(enable_timing=True)
+                    a.record()
+                    yield
+                    b.record()
+                    b.synchronize()
+                    ms[name] = ms.get(name, 0.0) + a.elapsed_time(b)
+                return cm()
+
+            an.step(*args, timer=timer)
+            steps.append(ms)
+    parts = {k: float(np.median([s.get(k, 0.0) for s in steps]))
+             for k in steps[0]}
+    return parts, float(np.median([sum(s.values()) for s in steps]))
+
+
+def _k8_mesh_queries(torch, step, args, tables):
+    """What each device's K8 is given in one mesh step: its table and
+    the (hi, lo, valid) of its receive buffer (the routed queries in
+    their (N, B) buckets, most of them -1 fill), recorded by wrapping
+    ``lookup.probe`` for that step; in device order."""
+    from umgap_tpu_torch.ops import lookup
+
+    seen = []
+    real = lookup.probe
+
+    def spy(table, hi, lo, valid=None, default=0):
+        if any(table is t for t in tables):
+            seen.append((table, hi.clone(), lo.clone(), valid.clone()))
+        return real(table, hi, lo, valid, default)
+
+    lookup.probe = spy
+    try:
+        step(*args)
+    finally:
+        lookup.probe = real
+    torch.cuda.synchronize()
+    require(len(seen) == len(tables)
+            and all(a[0] is t for a, t in zip(seen, tables)),
+            f"mesh: K8 was given {len(seen)} of {len(tables)} device "
+            "tables in one step")
+    return seen
+
+
+def _k8_mesh_stats(torch, an, args, stable, err):
+    """K8's grouped entry on each device's table of ``stable``, at the
+    queries one step of ``an`` gives it (:func:`_k8_mesh_queries`): held
+    to its plain version, timed with the L2 flushed (event and device
+    ms), its plain version's ms and its bound on this data. Returns the
+    kernels line's figures (the mean over the devices) with the devices'
+    own; ``err`` is the sweep's max abs error, folded in."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.ops import lookup
+
+    by_device = []
+    for d, (t, h, lo, v) in enumerate(_k8_mesh_queries(
+            torch, an.step, args, stable.tables)):
+        before = kernels.K8.launches
+        got = lookup.probe(t, h, lo, v, 0)
+        require(kernels.K8.launches == before + 1,
+                f"K8 grouped d={d}: one launch")
+        err = max(err, compare(torch, f"K8 grouped d={d} on the mesh "
+                               "step's queries", got,
+                               lookup.probe_plain(t, h, lo, v, 0)))
+
+        def fn(t=t, h=h, lo=lo, v=v):
+            return lookup.probe(t, h, lo, v, 0)
+
+        pb, pby, rows = k8_bound(torch, t, h, lo, v)
+        by_device.append(dict(
+            first=t.first, group=t.group, n_total=t.n_total,
+            depth=t.max_probes, queries=h.numel(), valid=int(v.sum()),
+            rows_read=rows, ms=cold_ms(torch, fn),
+            device_ms=cold_device_ms(torch, fn, "probe_peptide"),
+            warm_ms=cuda_ms(torch, fn),
+            plain_ms=cuda_ms(torch, lambda t=t, h=h, lo=lo, v=v:
+                             lookup.probe_plain(t, h, lo, v, 0), reps=3),
+            bound_ms=pb, bound_by=pby))
+    require([(s["first"], s["n_total"]) for s in by_device]
+            == [(d * stable.group, stable.n_shards)
+                for d in range(stable.n_devices)],
+            "mesh: K8 grouped slices out of order")
+    dev = [s["device_ms"] for s in by_device]
+
+    def mean(k):
+        return float(np.mean([s[k] for s in by_device]))
+
+    return dict(ms=mean("ms"), plain_ms=mean("plain_ms"),
+                bound_ms=mean("bound_ms"),
+                bound_by=max(by_device, key=lambda s: s["bound_ms"])[
+                    "bound_by"],
+                device_ms=None if None in dev else float(np.mean(dev)),
+                max_abs_err=err, equal=err == 0.0, by_device=by_device)
+
+
+def phase_mesh(torch, world, tryptic_taxa):
+    """Phase shards' 16-shard artifact on a four-device mesh that repeats
+    the card (4 shards a device; the exchange is copies within the one
+    card): the load; K2's slice entry of each device held to its plain
+    version on the bench batch's queries (a device finds only the keys
+    it owns); high-sensitivity through make_sharded_stream_analyser over
+    all pairs (taxa = phase shards' one-device taxa = plain, launches,
+    CUDA kernels a step, ms a batch and its split, the exchange's share,
+    rates); K8's grouped entry on the bench peptide index in 2-64 shards
+    on one device held to plain and to the one table's K8 (a side
+    table); the bench peptide index split 4 ways (the command line's
+    --mesh 4 split, one shard a device) and 8 ways (two a device: K8's
+    grouped entry) through tryptic-sensitivity, taxa = phase tryptic's =
+    plain, and at 8 ways each device's K8 grouped entry held to plain
+    and timed (L2 flushed) on the queries one mesh step gives it: the
+    kernels line's entry, its ms, plain ms and bound the mean over the
+    devices. Returns (launches of the 8-way tryptic run, K8 grouped's
+    stats)."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.index import distbuild
+    from umgap_tpu_torch.ops import encoding, lookup, translate
+    from umgap_tpu_torch.parallel import (
+        ShardedTable,
+        build_sharded_peptide_tables,
+        make_mesh,
+        make_sharded_stream_analyser,
+        owner_of,
+    )
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+    from umgap_tpu_torch.pipeline.tryptic import (
+        TRYPTIC_PRESETS,
+        reads_to_peptides,
+    )
+
+    t_phase = time.perf_counter()
+    dev, L, P = world["dev"], world["L"], world["P"]
+    work = world.pop("shards_work")
+    mesh = make_mesh(devices=(dev,) * MESH_DEVICES)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stable = ShardedTable.from_shards(distbuild.load_shards(work, mmap=True),
+                                      mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shutil.rmtree(work)
+    group = SHARDS // MESH_DEVICES
+    require(stable.n_devices == MESH_DEVICES and stable.group == group
+            and [(t.first, t.n_total) for t in stable.tables]
+            == [(d * group, SHARDS) for d in range(MESH_DEVICES)],
+            f"mesh: {stable.n_devices} devices of {stable.group} shards")
+    log(f"mesh: {SHARDS} shards on {MESH_DEVICES} devices of the one card "
+        f"({group} a device), disk -> card {load_s:.1f}s")
+
+    # K2's slice entry on each device, every query of the bench batch
+    reads, lens = _batch_reads(torch, world, L)
+    hi, lo, wvalid, _ = translate.reads_to_kmers(reads, lens, L,
+                                                 encoding.get_table(1), 9)
+    own = owner_of(hi, lo, MESH_DEVICES)
+    slices, err = [], 0.0
+    for d, t in enumerate(stable.tables):
+        before = kernels.K2.launches
+        got = lookup.probe(t, hi, lo, wvalid, 0)
+        require(kernels.K2.launches == before + 1, f"K2 slice {d}: one "
+                "launch")
+        err = max(err, compare(torch, f"K2 slice d={d}", got,
+                               lookup.probe_plain(t, hi, lo, wvalid, 0)))
+        require(not bool((got[1] & (own != d)).any()),
+                f"K2 slice d={d}: found a key another device owns")
+        slices.append(dict(
+            first=t.first, group=t.group, n_total=t.n_total,
+            found=int(got[1].sum()), owned=int((wvalid & (own == d)).sum()),
+            ms=cuda_ms(torch, lambda t=t: lookup.probe(t, hi, lo, wvalid,
+                                                       0))))
+    log("mesh K2 slices: equal to plain on " + ", ".join(
+        f"d={d} {s['found']} of {s['owned']} owned found, {s['ms']:.4f} ms"
+        for d, s in enumerate(slices)))
+    del hi, lo, wvalid, own
+
+    # high-sensitivity through the stream analyser over the mesh
+    cfg = PRESETS["high-sensitivity"]
+    an = make_sharded_stream_analyser(world["tax"], stable, cfg,
+                                      batch_size=BATCH, read_length=L,
+                                      dtax=world["dtax"])
+    _run_analyser(an, world)
+    an.overflow_reads = 0
+    kernels.reset_launches()
+    taxa = _run_analyser(an, world)
+    launches = kernels.launch_counts()
+    for n in path_kernels(cfg):
+        require(launches[n] > 0, f"kernel {n} was not launched on the mesh "
+                "path")
+    n_batches = P // BATCH
+    require(an.overflow_reads or launches["probe_kmer"]
+            == MESH_DEVICES * n_batches, f"mesh: {launches['probe_kmer']} "
+            f"K2 launches for {n_batches} batches on {MESH_DEVICES} devices")
+    require(np.array_equal(taxa, world.pop("shards_taxa")),
+            "mesh: taxa differ from phase shards' one-device taxa")
+    pan = make_sharded_stream_analyser(world["tax"], stable, cfg,
+                                       batch_size=BATCH, read_length=L,
+                                       dtax=world["dtax"])
+    pan.step.plain = True
+    pan._wide().plain = True
+    plain = _run_analyser(pan, world)
+    del pan
+    require(np.array_equal(taxa, plain), f"mesh: kernel taxa differ from "
+            f"plain taxa in {int((taxa != plain).sum())} of {P} groups")
+    inputs = _mesh_inputs(torch, world, stable.devices)
+    cuda_batch = batch_cuda_launches(torch, world, an, inputs=inputs[0])
+    batch_ms = cuda_ms(torch, lambda: an.step(*inputs[0]), reps=5)
+    parts, step_ms = _mesh_split(torch, an, inputs)
+    share = parts.get("exchange", 0.0) / step_ms
+    e2e = _stream_rate(an, world)
+    log(f"mesh high-sensitivity: taxa == shards == plain on {P} groups; "
+        f"launches {launches}; {cuda_batch['kernels']} CUDA kernels and "
+        f"{cuda_batch['copies']} copies a step; {batch_ms:.3f} ms a batch, "
+        f"{BATCH / (batch_ms / 1e3):.0f} pairs/s resident, "
+        f"{e2e['pairs_per_s']:.0f} e2e; split (synced) " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts.items())
+        + f" ms: the exchange (copies within the one card) {share:.1%} of "
+        f"{step_ms:.3f} ms")
+    del an, stable
+    torch.cuda.empty_cache()
+
+    # K8's grouped entry on the bench peptide index, one device
+    ptab = world["ptable"]
+    h1, h2, pv = reads_to_peptides(reads, lens, L, encoding.get_table(1))
+    one = lookup.probe(world["pdtable"], h1, h2, pv, 0)
+    k8, err8 = {}, 0.0
+    for g in PEPTIDE_GROUPS:
+        st = ShardedTable.from_shards(build_sharded_peptide_tables(
+            ptab.raw_keys, ptab.raw_values, g), dev)
+        dt = st.table
+        before = kernels.K8.launches
+        got = lookup.probe(dt, h1, h2, pv, 0)
+        require(kernels.K8.launches == before + 1, f"K8 grouped {g}: one "
+                "launch")
+        err8 = max(err8, compare(torch, f"K8 grouped g={g}", got,
+                                 lookup.probe_plain(dt, h1, h2, pv, 0)))
+        err8 = max(err8, compare(torch, f"K8 grouped g={g} vs the one "
+                                 "table's K8", got, one))
+        k8[g] = dict(ms=cuda_ms(torch, lambda dt=dt: lookup.probe(
+            dt, h1, h2, pv, 0)), depth=dt.max_probes,
+            rows_gb=dt.rows.numel() * 4 / 1e9)
+    log("mesh K8 grouped, one device: equal to plain and to the one "
+        "table's K8 at groups " + ", ".join(
+            f"{g} ({v['ms']:.4f} ms warm)" for g, v in k8.items()))
+    del reads, lens, h1, h2, pv, one
+
+    # tryptic-sensitivity over the mesh, the index split 4 and 8 ways
+    tname = "tryptic-sensitivity"
+    tcfg = TRYPTIC_PRESETS[tname]
+    tryptic = {}
+    for n_shards in (MESH_DEVICES, 2 * MESH_DEVICES):
+        t0 = time.perf_counter()
+        shards = build_sharded_peptide_tables(ptab.raw_keys,
+                                              ptab.raw_values, n_shards)
+        build_s = time.perf_counter() - t0
+        st = ShardedTable.from_shards(shards, mesh)
+        tan = make_sharded_stream_analyser(world["tax"], st, tcfg,
+                                           tryptic=True, batch_size=BATCH,
+                                           read_length=L,
+                                           dtax=world["dtax"])
+        _run_analyser(tan, world)
+        kernels.reset_launches()
+        ttaxa = _run_analyser(tan, world)
+        tl = kernels.launch_counts()
+        for n in path_kernels(tcfg):
+            require(tl[n] > 0, f"kernel {n} was not launched on the "
+                    f"{n_shards}-shard tryptic mesh path")
+        require(np.array_equal(ttaxa, tryptic_taxa[tname]),
+                f"mesh {tname} ({n_shards} shards): taxa differ from phase "
+                "tryptic's")
+        if n_shards == 2 * MESH_DEVICES:
+            # K8's grouped entry held and timed on what the step gives it
+            grouped_launches = tl
+            k8_stats = _k8_mesh_stats(torch, tan, inputs[0], st, err8)
+            k8_stats["by_group"] = k8
+        tan.step.plain = True
+        tan._wide().plain = True
+        require(np.array_equal(ttaxa, _run_analyser(tan, world)),
+                f"mesh {tname} ({n_shards} shards): kernel taxa differ from "
+                "plain taxa")
+        tryptic[n_shards] = dict(
+            group=st.group, depths=[t.max_probes for t in shards],
+            host_split_s=build_s, launches=tl)
+        del tan, st
+    del inputs
+    log(f"mesh {tname}: taxa == phase tryptic == plain with the index in "
+        f"{MESH_DEVICES} and {2 * MESH_DEVICES} shards (probe depths "
+        + " / ".join(str(v["depths"]) for v in tryptic.values())
+        + f"); K8 grouped launches {grouped_launches['probe_peptide']}; "
+        "on one step's routed queries (L2 flushed) " + ", ".join(
+            f"d={d} {v['ms']:.4f} ms ({fmt_ms(v['device_ms'])} device, "
+            f"bound {v['bound_ms']:.4f}, plain {v['plain_ms']:.4f})"
+            for d, v in enumerate(k8_stats["by_device"])))
+    RESULT["phases"]["mesh"] = dict(
+        devices=MESH_DEVICES, shards=SHARDS, group=group,
+        disk_to_card_s=load_s, k2_slices=slices, launches=launches,
+        batch_cuda_launches=cuda_batch, batch_ms=batch_ms,
+        device_resident_pairs_per_s=BATCH / (batch_ms / 1e3), e2e=e2e,
+        split_ms=parts, split_step_ms=step_ms, exchange_share=share,
+        k8_grouped=k8_stats, tryptic=tryptic,
+        seconds=time.perf_counter() - t_phase)
+    return grouped_launches, k8_stats
 
 
 # ---------------------------------------------------------------------- #
@@ -4665,6 +5032,80 @@ d = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(d)
 d.ab_worker(*sys.argv[2:])
 """
+
+
+def _instance_name(mangled):
+    """A kernel instance's name and template arguments from its mangled
+    name, without its namespaces (an anonymous namespace's name differs
+    between builds) and parameters: "probe_kernel<Li8ELb0ELb1E>"."""
+    import re
+
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled
+    name = mangled
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group()
+        name, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
+    if rest.startswith("I") and "EEv" in rest:
+        return f"{name}<{rest[1:rest.index('EEv')]}>"
+    return name
+
+
+def sass_compare(before, source="umgap_tpu_torch/csrc/probe_kmer.cu"):
+    """Each kernel instance's SASS in ``source`` on this tree against the
+    same file in the tree at ``before`` (the parent): both built by nvcc
+    to a cubin with the kernels' flags, disassembled by cuobjdump, each
+    instance's instructions compared with addresses and encodings
+    stripped. Instances are matched by their template arguments (a new
+    argument changes a mangled name, not an instance). Writes
+    ``sass_<stem>.json`` under CHIP_SMOKE_OUT and returns {instance:
+    "identical (n instructions)" or "differs: ..."}."""
+    import re
+    import tempfile
+
+    from umgap_tpu_torch import kernels
+
+    nvcc = kernels.find_nvcc()
+    flags = [f for f in kernels.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+
+    def instances(tree):
+        with tempfile.TemporaryDirectory() as tmp:
+            cubin = os.path.join(tmp, "k.cubin")
+            subprocess.run([nvcc, *flags, "-cubin", "-o", cubin,
+                            os.path.join(tree, source)], check=True)
+            text = subprocess.run([cuobjdump, "-sass", cubin], check=True,
+                                  capture_output=True, text=True).stdout
+        out, cur = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                cur = _instance_name(m.group(1))
+                out[cur] = []
+                continue
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+            if m and cur is not None:
+                out[cur].append(re.sub(r"\s+", " ", m.group(1)))
+        return out
+
+    old, new = instances(before), instances(REPO)
+    res = {}
+    for key in sorted(set(old) | set(new)):
+        a, b = old.get(key), new.get(key)
+        if a is None or b is None:
+            res[key] = "only in " + ("this tree" if a is None else "parent")
+        elif a == b:
+            res[key] = f"identical ({len(a)} instructions)"
+        else:
+            res[key] = (f"differs: {len(a)} -> {len(b)} instructions, "
+                        f"{sum(x != y for x, y in zip(a, b))} of the "
+                        "first differ")
+        print(f"{key}: {res[key]}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"sass_{os.path.basename(source)}"
+                           ".json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
 
 
 def compare_trees(before, after, order="BAAB", mode="full"):

@@ -231,8 +231,18 @@ def test_cli_refuses_unsupported_input(sample, tmp_path):
     # a tryptic preset needs a peptide index: the 9-mer one is refused
     rc, err = _port(sample, "--device", "cpu", "-t", "tryptic-sensitivity")
     assert rc == 1 and "needs a peptide (tryptic) index" in err
-    rc, err = _port(sample, "--device", "cpu", "--mesh", "2")
-    assert rc == 1 and "--mesh" in err
+    # a mesh of no device is refused; --mesh 2 on the CPU is a mesh of
+    # two CPU entries and gives the records of the run without --mesh
+    # (past the visible cards on CUDA it is refused:
+    # tests/test_torch_mesh.py)
+    rc, err = _port(sample, "--device", "cpu", "--mesh", "0")
+    assert rc == 1 and "--mesh 0" in err
+    for tag, extra in (("mesh", ["--mesh", "2"]), ("one", [])):
+        rc, err = _port(sample, "--device", "cpu", "-o",
+                        str(tmp_path / f"{tag}.fa"), *extra)
+        assert rc == 0, err
+    assert (tmp_path / "mesh.fa").read_bytes() == \
+        (tmp_path / "one.fa").read_bytes()
 
 
 def test_cli_module_entry_without_card_fails(sample):

@@ -210,19 +210,22 @@ def _unmix_key(mhi, mlo):
     return h, l
 
 
-def _grouped_table(rng, group, bucket, probes, spread=300):
-    """Rows of ``group`` sub-tables (the shards of one artifact, 2^15
-    buckets each) placed in ``probes + 1`` rounds, each holding its
-    owner's share of keys crowded into 8 home buckets (so rounds overflow
-    and keys are left out) and of keys spread over it. Returns (rows,
-    keys, values, placed)."""
+def _grouped_table(rng, group, bucket, probes, spread=300, first=0,
+                   n_total=None):
+    """Rows of ``group`` sub-tables (shards ``first`` .. ``first + group -
+    1`` of ``n_total``, default all of one artifact, 2^15 buckets each)
+    placed in ``probes + 1`` rounds, each holding its owner's share of
+    keys crowded into 8 home buckets (so rounds overflow and keys are
+    left out) and of keys spread over it; keys of other shards are left
+    out. Returns (rows, keys, values, placed)."""
     from umgap_tpu_torch.index import table as T
     from umgap_tpu_torch.parallel.sharded import owner_of
 
+    n_total = group if n_total is None else n_total
     nb_bits = T.MIN_NB_BITS
     nb = 1 << nb_bits
     cap = bucket * nb
-    n_crowd = group * 8 * bucket * 3 // 2
+    n_crowd = n_total * 8 * bucket * 3 // 2
     mlo = ((rng.integers(0, 1 << (25 - nb_bits), size=n_crowd,
                          dtype=np.uint32) << np.uint32(nb_bits))
            | rng.integers(0, 8, size=n_crowd, dtype=np.uint32))
@@ -230,10 +233,10 @@ def _grouped_table(rng, group, bucket, probes, spread=300):
     chi, clo = _unmix_key(mhi, mlo)
     keys = np.unique(np.concatenate([
         kmers.join_packed(chi.astype(np.int32), clo.astype(np.int32)),
-        rng.integers(0, 2 ** 45, size=group * spread, dtype=np.uint64)]))
+        rng.integers(0, 2 ** 45, size=n_total * spread, dtype=np.uint64)]))
     hi, lo = kmers.split_packed(keys)
     vals = rng.integers(1, 10 ** 6, size=len(keys)).astype(np.int32)
-    own = owner_of(hi, lo, group)
+    own = owner_of(hi, lo, n_total) - first
     rows = []
     placed = np.zeros(len(keys), bool)
     for sh in range(group):
@@ -253,25 +256,27 @@ def _grouped_table(rng, group, bucket, probes, spread=300):
     return np.concatenate(rows), keys, vals, placed
 
 
-def _grouped_cases(dev, rng, group, bucket, probes):
+def _grouped_cases(dev, rng, group, bucket, probes, first=0, n_total=None,
+                   stashes=(0, 256, 257, 4096, 4097, 20000)):
     """(DeviceTable, hi, lo, valid) with stashes of 0, 256 (the most the
     kernel copies to shared memory), 257 (searched in global memory),
     4,096 (48 KB, the most the parent's kernel held), 4,097 and 20,000
     rows (240 KB, past the shared memory a block may opt in to) of keys
-    the rows do not hold; queries: placed keys, keys left out,
-    stash keys and misses."""
-    rows, keys, vals, placed = _grouped_table(rng, group, bucket, probes)
+    the rows do not hold; queries: placed keys, keys left out (other
+    shards' among them), stash keys and misses."""
+    rows, keys, vals, placed = _grouped_table(rng, group, bucket, probes,
+                                              first=first, n_total=n_total)
     rows_t = torch.from_numpy(rows).to(dev)
     extra = np.setdiff1d(np.unique(rng.integers(
         0, 2 ** 45, size=20500, dtype=np.uint64)), keys)[:20000]
-    for n_stash in (0, 256, 257, 4096, 4097, 20000):
+    for n_stash in stashes:
         sk = extra[:n_stash]
         shi, slo = kmers.split_packed(sk)
         stash = np.stack([shi, slo, rng.integers(1, 99, size=len(sk)).astype(
             np.int32)], axis=1).astype(np.int32).reshape(-1, 3)
         dt = lookup.DeviceTable(rows_t, probes, "kmer", 15, bucket,
                                 torch.from_numpy(stash).to(dev),
-                                group=group)
+                                group=group, first=first, n_total=n_total)
         q = np.concatenate([keys[placed][:4000], keys[~placed][:300],
                             sk[:3000], rng.integers(0, 2 ** 45, size=700,
                                                     dtype=np.uint64)])
@@ -300,6 +305,152 @@ def test_probe_kernel_grouped(dev, group, bucket, probes):
         assert int(want[1].sum()) > 100
 
 
+@pytest.mark.parametrize("bucket", [8, 64])
+@pytest.mark.parametrize("n_dev,group", [(2, 1), (4, 4), (8, 2), (2, 32)])
+def test_probe_kernel_slice(dev, n_dev, group, bucket):
+    """K2's slice entry: each device d's table of a mesh (shards d *
+    group .. of n_dev * group) against the plain version, every query
+    probed there (the others' keys clipped into a sub-table and missed);
+    at group 1 the one-table entry serves the slice."""
+    n_total = n_dev * group
+    for d in range(n_dev):
+        rng = np.random.default_rng(d * 100 + n_total + bucket)
+        for dt, hi, lo, valid in _grouped_cases(
+                dev, rng, group, bucket, 1, first=d * group,
+                n_total=n_total, stashes=(0, 300)):
+            before = kernels.K2.launches
+            got = lookup.probe(dt, hi, lo, valid, 7)
+            torch.cuda.synchronize()
+            assert kernels.K2.launches == before + 1
+            want = lookup.probe_plain(dt, hi, lo, valid, 7)
+            _eq(got, want)
+            assert int(want[1].sum()) > 50
+
+
+def _peptide_slice(dev, rng, group, first, n_total, capacity=1 << 12):
+    """(DeviceTable, hi, lo): the sub-tables of shards first .. first +
+    group - 1 of n_total of random fingerprints, full enough that keys
+    chain (max_probes >= 1), and queries of every shard's keys and
+    absent ones."""
+    from umgap_tpu_torch.index import table as T
+    from umgap_tpu_torch.parallel.sharded import owner_of
+
+    n = int(capacity * 0.85) * n_total
+    key = np.unique(rng.integers(0, 2 ** 64 - 1, size=2 * n, dtype=np.uint64))
+    key = key[(key >> np.uint64(32)) != np.uint64(0xFFFFFFFF)]
+    rng.shuffle(key)
+    hi = (key >> np.uint64(32)).astype(np.uint32).view(np.int32)
+    lo = key.astype(np.uint32).view(np.int32)
+    own = owner_of(hi[:n], lo[:n], n_total, kind="peptide") - first
+    tabs = [T.PeptideTable._from_fingerprints(
+        hi[:n][own == g], lo[:n][own == g],
+        rng.integers(1, 1000, int((own == g).sum())).astype(np.int32),
+        capacity=capacity) for g in range(group)]
+    depth = max(t.max_probes for t in tabs)
+    rows = np.concatenate([t.packed_rows() for t in tabs])
+    dt = lookup.DeviceTable(torch.from_numpy(rows).to(dev), depth, "peptide",
+                            0, 8, group=group, first=first, n_total=n_total)
+    q = np.concatenate([np.arange(n), n + np.arange(n // 4)])
+    return (dt, torch.from_numpy(hi[q].copy()).to(dev),
+            torch.from_numpy(lo[q].copy()).to(dev), depth)
+
+
+@pytest.mark.parametrize("Q", [1, 2, 4])
+@pytest.mark.parametrize("group,n_total", [(2, 2), (4, 16), (16, 16),
+                                           (64, 64), (2, 8)])
+def test_probe_peptide_kernel_grouped(dev, group, n_total, Q, monkeypatch):
+    """K8's grouped entry (every slice of n_total shards) against its
+    plain version, each query's sub-table the owner of its swapped
+    lanes, at every queries-per-lane setting; one K8 launch a probe."""
+    monkeypatch.setattr(lookup, "QUERIES_PER_LANE", Q)
+    for first in range(0, n_total, group):
+        rng = np.random.default_rng(group * 1000 + n_total + first + Q)
+        dt, hi, lo, depth = _peptide_slice(dev, rng, group, first, n_total,
+                                           capacity=1 << 11)
+        assert depth >= 1
+        valid = torch.from_numpy(rng.random(hi.shape[0]) < 0.9).to(dev)
+        before = kernels.K8.launches
+        got = lookup.probe(dt, hi, lo, valid, -2)
+        torch.cuda.synchronize()
+        assert kernels.K8.launches == before + 1
+        want = lookup.probe_plain(dt, hi, lo, valid, -2)
+        _eq(got, want)
+        assert int(want[1].sum()) > 500
+
+
+def test_mesh_of_repeated_card_matches_one_device(dev):
+    """A four-device mesh that repeats the card: the 16 shards of an
+    index, 4 a device, through the stream analyser (routing, K2's slice
+    entry, the exchange as same-card copies) give the one-device
+    Analyser's taxa over the whole index; each batch launches K1, K2
+    (once a device) and the tail."""
+    from umgap_tpu_torch.agg.device import DeviceTaxonomy
+    from umgap_tpu_torch.parallel import ShardedTable, build_sharded_tables
+    from umgap_tpu_torch.parallel import make_mesh
+    from umgap_tpu_torch.parallel import make_sharded_stream_analyser
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+    from umgap_tpu_torch.pipeline.runner import Analyser
+
+    rng = np.random.default_rng(12)
+    tax = _random_tree(3000, 9)
+    B, L = 256, 100
+    codes = rng.integers(0, 4, size=(B, 2, L)).astype(np.uint8)
+    lens = rng.integers(40, L + 1, size=(B, 2)).astype(np.int32)
+    hi, lo, v, _ = translate.reads_to_kmers_plain(
+        torch.from_numpy(codes.reshape(B * 2, L)), torch.from_numpy(
+            lens.reshape(-1)), L, encoding.get_table(1), 9, packed=False)
+    # one taxon a (read, frame): runs of equal hits that seed-extend
+    # keeps, a dozen taxa a group (so k_max 8 overflows)
+    ids = np.flatnonzero(tax.depth >= 1)
+    lane = rng.choice(ids, size=(B * 2, 6))[:, :, None] + 0 * v.numpy()
+    packed = kmers.join_packed(hi[v].numpy(), lo[v].numpy())
+    planted, first = np.unique(packed, return_index=True)
+    extra = np.setdiff1d(rng.integers(0, 2 ** 45, size=20000,
+                                      dtype=np.uint64), planted)
+    keys = np.concatenate([planted, extra])
+    vals = np.concatenate([lane[v.numpy()][first], rng.choice(
+        ids, size=len(extra))]).astype(np.int32)
+    order = np.argsort(keys)
+    keys, vals = keys[order], vals[order]
+    mesh = make_mesh(devices=(dev,) * 4)
+    stable = ShardedTable.from_shards(build_sharded_tables(keys, vals, 9, 16),
+                                      mesh)
+    assert stable.n_devices == 4 and stable.group == 4
+    dtax = DeviceTaxonomy.from_host(tax, dev)
+    headers = [str(i) for i in range(B)]
+    for preset in ("high-sensitivity", "max-sensitivity"):
+        cfg = PRESETS[preset]._replace(k_max=8)
+        an = make_sharded_stream_analyser(tax, stable, cfg, batch_size=64,
+                                          read_length=L, dtax=dtax)
+        kernels.reset_launches()
+        got = [t for _h, t in an.analyse_arrays(headers, codes, lens)]
+        n = kernels.launch_counts()
+        assert an.overflow_reads > 0 and n["probe_kmer"] >= 4 * 4
+        assert n["reads_to_kmers"] >= 4 and n["dedup_counts"] >= 4
+        want = [t for _h, t in Analyser(
+            tax, build_kmer_table(keys, vals, 9), cfg, batch_size=64,
+            read_length=L, dtax=dtax, device=dev).analyse_arrays(
+                headers, codes, lens)]
+        assert got == want and sum(t != 1 for t in got) > 20
+
+
+def test_mesh_past_the_cards_refused(dev, tmp_path):
+    """``--mesh`` past the visible cards exits 1 with umgap_tpu's
+    message; nothing is emulated on a card."""
+    import subprocess
+    import sys
+
+    n = torch.cuda.device_count() + 1
+    (tmp_path / "r.fa").write_text(">a\nACGT\n")
+    proc = subprocess.run(
+        [sys.executable, "-m", "umgap_tpu_torch", "analyse", "-t",
+         "max-sensitivity", "-1", str(tmp_path / "r.fa"), "--taxons",
+         str(tmp_path / "none.tsv"), "--index", str(tmp_path / "none.npz"),
+         "--mesh", str(n)], capture_output=True, text=True)
+    assert proc.returncode == 1
+    assert proc.stderr == f"Error: need {n} devices, have {n - 1}\n"
+
+
 def _k2_entries():
     """The library's two C entries, unpacked: probe_kmer (the one-table
     entry, as before the grouped entry existed) and probe_kmer_grouped."""
@@ -310,7 +461,7 @@ def _k2_entries():
     P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     head = [P, P, P, LL, P, LL, I, I, I, P, I, I, P, P]
     lib.probe_kmer.argtypes = head + [P]
-    lib.probe_kmer_grouped.argtypes = head + [I, P]
+    lib.probe_kmer_grouped.argtypes = head + [I, I, I, P]
     lib.probe_kmer.restype = lib.probe_kmer_grouped.restype = I
     return lib
 
@@ -329,7 +480,7 @@ def test_probe_kernel_group1_entries_agree(dev, bucket, probes):
                 dt.rows.data_ptr(), dt.n_buckets, dt.nb_bits, dt.bucket,
                 dt.max_probes, dt.stash.data_ptr(), dt.stash.shape[0], 5)
         for entry, extra in ((lib.probe_kmer, ()),
-                             (lib.probe_kmer_grouped, (1,))):
+                             (lib.probe_kmer_grouped, (1, 0, 1))):
             out = torch.full_like(want[0], -9)
             found = torch.ones_like(want[1])
             rc = entry(*args, out.data_ptr(), found.data_ptr(), *extra,

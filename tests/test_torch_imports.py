@@ -169,15 +169,12 @@ def test_unported_options_refuse(world):
     with pytest.raises(NotImplementedError):
         DeviceTable.from_host(types.SimpleNamespace(kind="cuckoo"),
                               device="cpu")
-    # grouped k-mer tables are served (tests/test_torch_sharded.py);
-    # grouped peptide tables wait for the multi-rank slice
-    from umgap_tpu_torch.ops import lookup
-
-    grouped = DeviceTable.from_host(pt, device="cpu")
-    grouped.group = 2
-    with pytest.raises(NotImplementedError, match="grouped peptide"):
-        lookup.probe_plain(grouped, torch.zeros(3, dtype=torch.int32),
-                           torch.zeros(3, dtype=torch.int32))
+    # grouped k-mer and peptide tables are served
+    # (tests/test_torch_sharded.py, tests/test_torch_mesh.py); a group
+    # that is no slice of its index's shards is refused
+    with pytest.raises(ValueError, match="not a slice"):
+        DeviceTable(dt.rows, 0, "peptide", 0, 8, group=2, first=1,
+                    n_total=2)
     # taxa2agg cannot combine tree with mrtl: refused as by the reference
     with pytest.raises(ValueError, match="cannot be combined"):
         Analyser(tax, table, PRESETS["max-sensitivity"]._replace(

@@ -4,7 +4,8 @@ probe (K2's grouped entry's plain version) on shards of the three
 ``buildindex-dist`` layouts, the stream analyser over the grouped table
 (overflow re-routed) against ``umgap_tpu``'s ``ShardedAnalyser``, and
 ``analyse --shards`` / ``--mesh`` through the command line, with
-``umgap_tpu``'s failure messages. Every output is integers: equality is
+``umgap_tpu``'s failure messages (the mesh of several devices:
+``tests/test_torch_mesh.py``). Every output is integers: equality is
 exact."""
 
 import glob
@@ -176,7 +177,8 @@ def _jax_grouped_probe(shards, hi, lo, valid):
     table = jlookup.DeviceTable(st.rows[0], st.max_probes, st.kind,
                                 st.nb_bits, st.bucket, stash=st.stash[0],
                                 group=st.group)
-    sub = jsharded.owner_of(jnp.asarray(hi), jnp.asarray(lo), st.group)
+    sub = jsharded.owner_of(jnp.asarray(hi), jnp.asarray(lo), st.group,
+                            kind=st.kind)
     out, found = jlookup.probe(table, jnp.asarray(hi), jnp.asarray(lo),
                                valid=jnp.asarray(valid), default=0, sub=sub)
     return np.asarray(out), np.asarray(found)
@@ -240,17 +242,34 @@ def test_grouped_probe_matches_jax(layout, group, tmp_path):
 
 
 def test_grouped_peptide_table_refused():
-    """One device serves a peptide index as one shard (``--mesh`` with a
-    tryptic preset); a grouped peptide table waits for the multi-rank
-    slice."""
-    peps = ["AAAAAAAAAK", "CCCCCCCCCR", "DDDDDDDDDE", "EEEEEEEEEK"]
-    shards = psharded.build_sharded_peptide_tables(
-        peps, np.array([2, 3, 4, 5], np.int32), 2)
-    st = psharded.ShardedTable.from_shards(shards, "cpu")
-    assert st.group == 2 and st.kind == "peptide"
-    with pytest.raises(NotImplementedError, match="grouped peptide"):
-        lookup.probe_plain(st.table, torch.zeros(3, dtype=torch.int32),
-                           torch.zeros(3, dtype=torch.int32))
+    """A grouped peptide table (the shards of a peptide index on one
+    device) is no longer refused: its probe (K8's grouped entry's plain
+    version, each query's sub-table the owner of its swapped lanes)
+    equals umgap_tpu's grouped probe and finds every stored peptide."""
+    rng = np.random.default_rng(9)
+    aa = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    peps = sorted({"".join(rng.choice(aa, rng.integers(9, 30)))
+                   for _ in range(3000)})
+    vals = rng.integers(1, 100, size=len(peps)).astype(np.int32)
+    shards = jsharded.build_sharded_peptide_tables(peps, vals, 4)
+    depth = max(t.max_probes for t in shards)
+    for t in shards:
+        t.max_probes = depth
+    st = psharded.ShardedTable.from_shards(
+        [ptable.PeptideTable(t.key_hi, t.key_lo, t.values, t.max_probes,
+                             t.n) for t in shards], "cpu")
+    assert st.group == 4 and st.kind == "peptide"
+    hi, lo = jtable._fingerprints(peps + ["".join(rng.choice(aa, 12))
+                                          for _ in range(500)])
+    valid = rng.random(len(hi)) < 0.9
+    out, found = _jax_grouped_probe(shards, hi, lo, valid)
+    got = lookup.probe_plain(st.table, torch.from_numpy(hi),
+                             torch.from_numpy(lo), torch.from_numpy(valid))
+    assert np.array_equal(got[0].numpy(), out)
+    assert np.array_equal(got[1].numpy(), found)
+    assert np.array_equal(found[:len(peps)], valid[:len(peps)])
+    assert np.array_equal(out[:len(peps)][found[:len(peps)]],
+                          vals[found[:len(peps)]])
 
 
 def test_from_shards_geometry_mismatch_matches_jax():
@@ -678,13 +697,21 @@ def test_fail_records_past_width_cap(world):
     assert "--shards mode cannot serve them" in err
 
 
-def test_mesh_of_more_devices_refused(world):
-    rc, err = _run(port_cli, ["analyse", "-t", "max-sensitivity", "-1",
-                              str(world["fq"][0]), "--taxons",
-                              str(world["taxons"]), "--shards",
-                              world["works"]["bucket16"], "--mesh", "2",
-                              "--device", "cpu"])
-    assert rc == 1 and "--mesh 2" in err and "ROADMAP" in err
+def test_mesh_of_more_devices_refused(world, monkeypatch):
+    """On CUDA a mesh of more devices than the visible cards is refused
+    with umgap_tpu's message (a mesh of 8 on its 8 test devices would
+    run; 9 would not), before any data is read: nothing is emulated on a
+    card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    argv = ["analyse", "-t", "max-sensitivity", "-1", str(world["fq"][0]),
+            "--taxons", str(world["taxons"]), "--shards",
+            world["works"]["bucket16"], "--mesh", "2"]
+    rc, err = _run(port_cli, argv)
+    assert rc == 1 and err == "Error: need 2 devices, have 1\n"
+    jrc, jerr = _run(jax_cli, argv[:-1] + ["9", "--fgspp", "never"])
+    assert jrc == 1 and jerr == "Error: need 9 devices, have 8\n"
 
 
 def _mock_fgspp():

@@ -35,19 +35,27 @@ as in ``umgap_tpu``; ``require`` exits 1 without it, ``never`` skips it):
 predicted genes through :mod:`~umgap_tpu_torch.pipeline.proteins`. An
 FGSpp that fails ends the run with exit 1.
 
-``--shards DIR`` serves a ``buildindex-dist`` artifact (the workdir or
-its ``shards/``; it implies ``--mesh auto``): the shards, memory-mapped,
-go onto the device as one grouped table
+``--mesh N`` serves the index over a mesh of N devices
+(:func:`~umgap_tpu_torch.parallel.mesh.make_mesh`: one process over
+``cuda:0`` .. ``cuda:N-1``, ``auto`` every visible card; more cards than
+are visible is an error, never emulated; with ``--device cpu`` N
+entries of the CPU, ``auto`` one): one ``--index`` is split on the host
+into N hash-range shards, one a device, as ``umgap_tpu`` splits it
+(at N = 1 it is served as it is: the records are the same), reads are
+data parallel in batches rounded up to a multiple of N, and each query
+goes to the device that owns its key and back
+(:mod:`~umgap_tpu_torch.parallel.sharded`). ``--shards DIR`` serves a
+``buildindex-dist`` artifact (the workdir or its ``shards/``; it implies
+``--mesh auto``): the shards, memory-mapped, go onto the devices, each
+device a group of adjacent shards
 (:class:`~umgap_tpu_torch.parallel.sharded.ShardedTable`), after
 ``umgap_tpu``'s checks of the manifest, of the shard count against the
-mesh and of the device memory. The port's mesh is one device (``--mesh``
-``auto`` or 1; more is refused), so ``--mesh`` over one ``--index``
-serves it as one table, as without ``--mesh``. Under ``--mesh`` the FGSpp presets run
-six-frame translation (``--fgspp require`` is refused), and under
-``--shards`` a record beyond the top device width is an error, as in
-``umgap_tpu``. ``--trace-dir`` writes a ``torch.profiler`` Chrome trace
-of the run. Not in this port yet, refused with a clear error rather
-than run differently: ``--serve``.
+mesh and of the least free device memory over the mesh. Under ``--mesh``
+the FGSpp presets run six-frame translation (``--fgspp require`` is
+refused), and under ``--shards`` a record beyond the top device width
+is an error, as in ``umgap_tpu``. ``--trace-dir`` writes a
+``torch.profiler`` Chrome trace of the run. Not in this port yet,
+refused with a clear error rather than run differently: ``--serve``.
 """
 
 from __future__ import annotations
@@ -164,8 +172,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--mesh", nargs="?", const="auto", default=None,
                     metavar="N",
                     help="serve the index split into N hash-range shards "
-                         "(auto: one a device); the port runs on one "
-                         "device")
+                         "over an N-device mesh (auto: every visible card; "
+                         "with --device cpu, N entries of the CPU)")
     sp.add_argument("--shards", default=None, metavar="DIR",
                     help="serve a buildindex-dist artifact: DIR is the "
                          "build workdir (or its shards/ directory); the "
@@ -303,25 +311,25 @@ def _data_paths(args, tryptic: bool):
     return taxons, index
 
 
-def _mesh_size(args) -> int | None:
-    """The ``--mesh`` size (``--shards`` implies ``auto``; the port's
-    ``auto`` is its one device), or None when the run is not sharded."""
+def _mesh_arg(args):
+    """The ``--mesh`` argument: a device count or "auto" (``--shards``
+    implies ``auto``), or None when the run is not sharded."""
     mesh = getattr(args, "mesh", None)
     if mesh is None and getattr(args, "shards", None) is not None:
         mesh = "auto"
-    if mesh is None:
-        return None
+    if mesh is None or mesh == "auto":
+        return mesh
     try:
-        return 1 if mesh == "auto" else int(mesh)
+        return int(mesh)
     except ValueError:
         raise CliError(f"--mesh takes a device count or 'auto', not "
                        f"{mesh!r}") from None
 
 
-def _device_bytes(device) -> int | None:
+def _device_bytes(mesh) -> int | None:
     """The device memory the HBM guard holds an artifact to:
-    ``UMGAP_HBM_BYTES`` where set, else the card's total; None on the
-    CPU."""
+    ``UMGAP_HBM_BYTES`` where set, else the least free memory over the
+    mesh's cards; None on the CPU."""
     import os
 
     import torch
@@ -329,12 +337,13 @@ def _device_bytes(device) -> int | None:
     env = os.environ.get("UMGAP_HBM_BYTES")
     if env:
         return int(float(env))
-    if device.type == "cuda":
-        return int(torch.cuda.mem_get_info(device)[1])
+    cards = {d for d in mesh if d.type == "cuda"}
+    if cards:
+        return min(int(torch.cuda.mem_get_info(d)[0]) for d in cards)
     return None
 
 
-def _shards_workdir(args, n_dev: int, device):
+def _shards_workdir(args, mesh):
     """``umgap_tpu``'s checks of a ``--shards`` artifact before it is
     read (umgap_tpu/cli.py:1287-1343): the workdir (or its ``shards/``)
     with a manifest, a shard count the mesh divides, and shard rows that
@@ -352,12 +361,12 @@ def _shards_workdir(args, n_dev: int, device):
             "buildindex-dist workdir (or its shards/ directory)")
     with open(man_path) as f:
         manifest = json.load(f)
-    S = manifest["n_shards"]
+    S, n_dev = manifest["n_shards"], len(mesh)
     if S % n_dev:
         raise CliError(f"{S} shards cannot be grouped onto the "
                        f"{n_dev}-device mesh (must divide evenly)")
     per_dev_bytes = manifest.get("capacity", 0) * 8 * (S // n_dev)
-    limit = _device_bytes(device)
+    limit = _device_bytes(mesh)
     if limit and per_dev_bytes > 0.95 * limit:
         need = -(-S * manifest.get("capacity", 0) * 8 // int(0.95 * limit))
         # a valid mesh holds whole shards: the next divisor of n_shards
@@ -397,17 +406,22 @@ def _shards_taxons(args, manifest) -> str:
 
 class AnalyseSession:
     """What one ``analyse`` invocation shares across its samples: the
-    parsed arguments, the taxonomy on the host and on the device, one
-    index a family (``tables[tryptic]``: host table, or None for a
-    ``--shards`` artifact, and device table: the artifact's grouped
-    table), and one :class:`~.pipeline.runner.Analyser` per (preset,
-    batch, width, ends)."""
+    parsed arguments, the mesh of a ``--mesh`` or ``--shards`` run (None
+    otherwise), the taxonomy on the host and on the device, one index a
+    family (``tables[tryptic]``: host table, or None for a ``--shards``
+    artifact, and device table, or None where a mesh of more than one
+    device serves it; :meth:`device_table`), the sharded tables of such
+    a mesh (``stables[tryptic]``), and one analyser per (preset, batch,
+    width, ends)."""
 
-    def __init__(self, args, tax, tables, dtax, device):
+    def __init__(self, args, tax, tables, dtax, device, mesh=None,
+                 stables=None):
         self.args = args
         self.tax, self.dtax = tax, dtax
         self.tables = tables
+        self.stables = stables or {}
         self.device = device
+        self.mesh = mesh
         self.analysers: dict = {}
         # host aggregators, the host-digest step and the protein
         # analysers, kept across samples
@@ -416,16 +430,18 @@ class AnalyseSession:
     @property
     def sharded(self) -> bool:
         """A ``--mesh`` or ``--shards`` run."""
-        return _mesh_size(self.args) is not None
+        return self.mesh is not None
 
     @classmethod
     def load(cls, args, samples, device=None) -> "AnalyseSession":
-        """The taxonomy (that of the first sample's family, as
+        """The mesh, the taxonomy (that of the first sample's family, as
         ``umgap_tpu`` loads it) and the index of each family the samples
         need; an index of the wrong family is refused. Under ``--shards``
-        the 9-mer presets take the artifact as one grouped table; under
-        ``--mesh`` an index goes on the one device as it is (a tryptic
-        one needs stored keys, as ``umgap_tpu``'s re-split does)."""
+        the 9-mer presets take the artifact, a group of shards a device;
+        under ``--mesh`` over more than one device an index is split on
+        the host into one shard a device (``umgap_tpu``'s re-split: a
+        tryptic index needs stored keys); at one device it is served as
+        it is."""
         from .agg.device import DeviceTaxonomy
         from .device import resolve_device
         from .index.table import load_table
@@ -434,15 +450,15 @@ class AnalyseSession:
         from .taxonomy import Taxonomy, read_taxa_file
 
         device = resolve_device(args.device) if device is None else device
-        n_dev = _mesh_size(args)
+        mesh_arg = _mesh_arg(args)
+        mesh = None if mesh_arg is None else make_mesh(mesh_arg, device)
+        split = mesh is not None and len(mesh) > 1
         shards = None
-        if n_dev is not None:
-            if args.shards is not None and any(
-                    not _is_tryptic(s["type"]) for s in samples):
-                shards = _shards_workdir(args, n_dev, device)
-            make_mesh(n_dev, device)
+        if mesh is not None and args.shards is not None and any(
+                not _is_tryptic(s["type"]) for s in samples):
+            shards = _shards_workdir(args, mesh)
         tax = None
-        tables = {}
+        tables, stables = {}, {}
         for s in samples:
             tryptic = _is_tryptic(s["type"])
             if tryptic in tables:
@@ -457,10 +473,14 @@ class AnalyseSession:
                         _shards_taxons(args, manifest)))
                 try:
                     stable = ShardedTable.from_shards(
-                        distbuild.load_shards(workdir, mmap=True), device)
+                        distbuild.load_shards(workdir, mmap=True), mesh)
                 except (FileNotFoundError, RuntimeError, ValueError) as e:
                     raise CliError(str(e))
-                tables[False] = (None, stable.table)
+                if split:
+                    stables[False] = stable
+                    tables[False] = (None, None)
+                else:
+                    tables[False] = (None, stable.table)
                 continue
             taxons, index = _data_paths(args, tryptic)
             if tax is None:
@@ -473,28 +493,57 @@ class AnalyseSession:
                 raise CliError(
                     f"index {index} is a {table.kind} index but the "
                     f"preset {s['type']} needs a {need} index")
-            if n_dev is not None and tryptic and table.raw_keys is None:
+            if mesh is not None and tryptic and table.raw_keys is None:
                 raise CliError(
                     "--mesh tryptic serving needs an index built with "
                     "stored keys (the default buildindex output)")
-            tables[tryptic] = (table, DeviceTable.from_host(table, device))
+            if split:
+                stables[tryptic] = _split_index(table, mesh)
+                tables[tryptic] = (table, None)
+            else:
+                tables[tryptic] = (table, DeviceTable.from_host(table,
+                                                                device))
         return cls(args, tax, tables, DeviceTaxonomy.from_host(tax, device),
-                   device)
+                   device, mesh, stables)
+
+    def device_table(self, tryptic: bool):
+        """The family's index as one table on the session's device: what
+        the host-digest route probes (made at first use where a mesh of
+        more than one device serves the index)."""
+        from .ops.lookup import DeviceTable
+
+        table, dtable = self.tables[tryptic]
+        if dtable is None:
+            dtable = DeviceTable.from_host(table, self.device)
+            self.tables[tryptic] = (table, dtable)
+        return dtable
 
     def get_analyser(self, preset: str, B: int, L: int, ends: int):
+        """The analyser of (preset, B, L, ends), B rounded up to a
+        multiple of the mesh's devices (umgap_tpu/cli.py:1428-1431)."""
+        from .parallel import make_sharded_stream_analyser
         from .pipeline.runner import Analyser
         from .pipeline.tryptic import TrypticAnalyser
 
+        tryptic = _is_tryptic(preset)
+        if tryptic in self.stables:
+            n_dev = self.stables[tryptic].n_devices
+            B = -(-B // n_dev) * n_dev
         key = (preset, B, L, ends)
         an = self.analysers.get(key)
         if an is None:
-            tryptic = _is_tryptic(preset)
-            cls = TrypticAnalyser if tryptic else Analyser
             config = (TRYPTIC_PRESETS if tryptic else PRESETS)[preset]
-            table, dtable = self.tables[tryptic]
-            an = cls(self.tax, table, config, batch_size=B,
-                     read_length=L, ends=ends, dtax=self.dtax,
-                     dtable=dtable, device=self.device)
+            if tryptic in self.stables:
+                an = make_sharded_stream_analyser(
+                    self.tax, self.stables[tryptic], config,
+                    tryptic=tryptic, batch_size=B, read_length=L, ends=ends,
+                    dtax=self.dtax)
+            else:
+                cls = TrypticAnalyser if tryptic else Analyser
+                table, dtable = self.tables[tryptic]
+                an = cls(self.tax, table, config, batch_size=B,
+                         read_length=L, ends=ends, dtax=self.dtax,
+                         dtable=dtable, device=self.device)
             self.analysers[key] = an
         else:
             an.reset()
@@ -507,6 +556,27 @@ class AnalyseSession:
     def reset(self) -> None:
         for an in self.analysers.values():
             an.reset()
+
+
+def _split_index(table, mesh):
+    """One index split on the host into one hash-range shard a mesh
+    device (umgap_tpu/cli.py:1264-1285 ``_build_stable``): a k-mer
+    table's keys from its slots and stash, a peptide table's from its
+    stored keys."""
+    from .parallel import (
+        ShardedTable,
+        build_sharded_peptide_tables,
+        build_sharded_tables,
+    )
+
+    if table.kind == "peptide":
+        shards = build_sharded_peptide_tables(
+            table.raw_keys, table.raw_values, n_shards=len(mesh))
+    else:
+        packed, values = table.items()
+        shards = build_sharded_tables(packed, values, k=table.k,
+                                      n_shards=len(mesh))
+    return ShardedTable.from_shards(shards, mesh)
 
 
 def run_sample_ring(session: AnalyseSession, sample):
@@ -532,6 +602,7 @@ def run_sample_ring(session: AnalyseSession, sample):
         B_an = (_pow2_bucket(first[0], 64, B)
                 if second is None and first[0] < B else B)
         analyser = session.get_analyser(sample["type"], B_an, L, ends)
+        B_an = analyser.batch_size  # a mesh rounds it up
 
         def fit(dna4, lens):
             if B_an <= dna4.shape[0]:
@@ -638,10 +709,10 @@ def run_sample_fallback(session: AnalyseSession, sample):
         if maxlen > args.read_length:
             _note("tryptic sample has records beyond --read-length; using "
                   "the host-digest path (full-length digest)")
-            table, dtable = session.tables[True]
             res = analyse_tryptic_groups(
-                groups, session.tax, table, TRYPTIC_PRESETS[preset],
-                batch_size=B, dtax=session.dtax, dtable=dtable,
+                groups, session.tax, session.tables[True][0],
+                TRYPTIC_PRESETS[preset], batch_size=B, dtax=session.dtax,
+                dtable=session.device_table(True),
                 step_cache=session.aux_cache)
             yield from _batchify(res, B)
             return
@@ -737,7 +808,7 @@ def run_sample_fgspp(session: AnalyseSession, sample, fg):
     tryptic = _is_tryptic(preset)
     genes = fgspp.predict_genes(fg[0], fg[1], raw_read_records(sample))
     groups = fgspp.group_genes(genes)
-    table, dtable = session.tables[tryptic]
+    table, dtable = session.tables[tryptic][0], session.device_table(tryptic)
     B = min(session.args.batch_size, 1024)
     if tryptic:
         res = analyse_tryptic_protein_groups(

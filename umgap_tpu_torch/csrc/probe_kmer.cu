@@ -21,14 +21,19 @@
 // default.
 //
 // The grouped entry (probe_kmer_grouped) serves a table of `group`
-// hash-range shards stacked along the bucket axis (a buildindex-dist
-// artifact on one device). It replaces the sub-table choice of
-// umgap_tpu/parallel/sharded.py:319-326 (owner_of over the shards) together
-// with umgap_tpu/ops/lookup.py:231 (row = sub * nb + bucket): each query
-// computes its sub-table from its key, sub = ((hash32(hi, lo) >> 16) *
-// group) >> 16, reads row sub * nb + bucket (64-bit indices) and probes
+// hash-range shards stacked along the bucket axis: a device's slice of a
+// buildindex-dist artifact, shards first .. first + group - 1 of n_total
+// (all of them on one device: first = 0, n_total = group). It replaces
+// the sub-table choice of umgap_tpu/parallel/sharded.py:314-320
+// (owner_of over the n_total shards, less the device's first shard,
+// clipped to the group) together with umgap_tpu/ops/lookup.py:231
+// (row = sub * nb + bucket): each query computes its sub-table from its
+// key, sub = clip((((hash32(hi, lo) >> 16) * n_total) >> 16) - first, 0,
+// group - 1), reads row sub * nb + bucket (64-bit indices) and probes
 // with wrap-around inside the sub-table. That is one hash32 (about ten
-// integer operations) a query and no extra pass or launch.
+// integer operations) a query and no extra pass or launch. A query the
+// routing sent to the wrong device is clipped into a sub-table and
+// missed there, as in the JAX probe.
 //
 // A stash of up to kSmemStashRows rows is copied to each block's shared
 // memory and searched there; a larger one is binary-searched in global
@@ -95,7 +100,8 @@ __global__ void probe_kernel(const int32_t* __restrict__ qhi,
                              int nb_bits, int max_probes,
                              const int32_t* __restrict__ stash, int S,
                              int default_value, int32_t* __restrict__ out,
-                             uint8_t* __restrict__ found, int group) {
+                             uint8_t* __restrict__ found, int group,
+                             int first, int n_total) {
   extern __shared__ int32_t s_stash[];  // (S, 3): hi, lo, value
   if constexpr (SMEM_STASH) {
     for (int i = threadIdx.x; i < 3 * S; i += blockDim.x)
@@ -117,10 +123,13 @@ __global__ void probe_kernel(const int32_t* __restrict__ qhi,
     const int32_t rem = (int32_t)((l >> nb_bits) | (h << (25 - nb_bits)));
     uint64_t base = 0;
     if constexpr (GROUPED) {
-      // owner_of(hi, lo, group): top 16 bits of hash32 range-mapped onto
-      // the shards (top < 2^16, group <= 2^16: no overflow)
+      // owner_of(hi, lo, n_total): top 16 bits of hash32 range-mapped
+      // onto the shards (top < 2^16, n_total <= 2^16: no overflow), then
+      // this device's sub-table of it
       const uint32_t top = hash32(khi, klo) >> 16;
-      base = (uint64_t)((top * (uint32_t)group) >> 16) * (uint64_t)nb;
+      int sub = (int)((top * (uint32_t)n_total) >> 16) - first;
+      sub = sub < 0 ? 0 : (sub >= group ? group - 1 : sub);
+      base = (uint64_t)sub * (uint64_t)nb;
     }
 
     for (int r = 0; r <= max_probes; ++r) {
@@ -195,7 +204,7 @@ cudaError_t launch(const void* hi, const void* lo, const void* valid,
                    long long n, const void* rows, long long nb, int nb_bits,
                    int max_probes, const void* stash, int S,
                    int default_value, void* out, void* found, int group,
-                   cudaStream_t stream) {
+                   int first, int n_total, cudaStream_t stream) {
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
   if (S <= kSmemStashRows)
@@ -204,13 +213,15 @@ cudaError_t launch(const void* hi, const void* lo, const void* valid,
                                       stream>>>(
         (const int32_t*)hi, (const int32_t*)lo, (const uint8_t*)valid, n,
         (const int32_t*)rows, nb, nb_bits, max_probes, (const int32_t*)stash,
-        S, default_value, (int32_t*)out, (uint8_t*)found, group);
+        S, default_value, (int32_t*)out, (uint8_t*)found, group, first,
+        n_total);
   else
     probe_kernel<BK, GROUPED, false><<<(unsigned)blocks, threads, 0,
                                        stream>>>(
         (const int32_t*)hi, (const int32_t*)lo, (const uint8_t*)valid, n,
         (const int32_t*)rows, nb, nb_bits, max_probes, (const int32_t*)stash,
-        S, default_value, (int32_t*)out, (uint8_t*)found, group);
+        S, default_value, (int32_t*)out, (uint8_t*)found, group, first,
+        n_total);
   return cudaGetLastError();
 }
 
@@ -218,24 +229,29 @@ template <bool GROUPED>
 int dispatch(const void* hi, const void* lo, const void* valid, long long n,
              const void* rows, long long nb, int nb_bits, int bucket,
              int max_probes, const void* stash, int S, int default_value,
-             void* out, void* found, int group, cudaStream_t s) {
+             void* out, void* found, int group, int first, int n_total,
+             cudaStream_t s) {
   switch (bucket) {
     case 4:
       return (int)launch<4, GROUPED>(hi, lo, valid, n, rows, nb, nb_bits,
                                      max_probes, stash, S, default_value,
-                                     out, found, group, s);
+                                     out, found, group, first, n_total,
+                                     s);
     case 8:
       return (int)launch<8, GROUPED>(hi, lo, valid, n, rows, nb, nb_bits,
                                      max_probes, stash, S, default_value,
-                                     out, found, group, s);
+                                     out, found, group, first, n_total,
+                                     s);
     case 16:
       return (int)launch<16, GROUPED>(hi, lo, valid, n, rows, nb, nb_bits,
                                       max_probes, stash, S, default_value,
-                                      out, found, group, s);
+                                      out, found, group, first, n_total,
+                                     s);
     case 64:
       return (int)launch<64, GROUPED>(hi, lo, valid, n, rows, nb, nb_bits,
                                       max_probes, stash, S, default_value,
-                                      out, found, group, s);
+                                      out, found, group, first, n_total,
+                                     s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -257,35 +273,41 @@ extern "C" int probe_kmer(const void* hi, const void* lo, const void* valid,
   if (n <= 0) return 0;
   return dispatch<false>(hi, lo, valid, n, rows, nb, nb_bits, bucket,
                          max_probes, stash, S, default_value, out, found, 1,
-                         (cudaStream_t)stream);
+                         0, 1, (cudaStream_t)stream);
 }
 
 // `group` sub-tables of nb buckets each, stacked along the bucket axis:
-// the shards of one artifact, all held by this device.
+// shards first .. first + group - 1 of the n_total shards of one
+// artifact (first = 0, n_total = group: all of them on this device).
 extern "C" int probe_kmer_grouped(const void* hi, const void* lo,
                                   const void* valid, long long n,
                                   const void* rows, long long nb,
                                   int nb_bits, int bucket, int max_probes,
                                   const void* stash, int S,
                                   int default_value, void* out, void* found,
-                                  int group, void* stream) {
+                                  int group, int first, int n_total,
+                                  void* stream) {
   if (n <= 0) return 0;
-  if (group < 1 || group > (1 << 16)) return (int)cudaErrorInvalidValue;
+  if (group < 1 || n_total > (1 << 16) || first < 0 ||
+      first + group > n_total)
+    return (int)cudaErrorInvalidValue;
   return dispatch<true>(hi, lo, valid, n, rows, nb, nb_bits, bucket,
                         max_probes, stash, S, default_value, out, found,
-                        group, (cudaStream_t)stream);
+                        group, first, n_total, (cudaStream_t)stream);
 }
 
-// group == 1 takes the ungrouped entry.
+// group == 1 takes the ungrouped entry (a device's one shard of a mesh
+// needs no sub-table).
 extern "C" int probe_kmer_packed(const void* args) {
   const PackedArgs a{(const unsigned char*)args};
   if (a.i(14) == 1)
     return probe_kmer(a.ptr(0), a.ptr(1), a.ptr(2), a.i(3), a.ptr(4), a.i(5),
                       (int)a.i(6), (int)a.i(7), (int)a.i(8), a.ptr(9),
                       (int)a.i(10), (int)a.i(11), a.ptr(12), a.ptr(13),
-                      a.ptr(15));
+                      a.ptr(17));
   return probe_kmer_grouped(a.ptr(0), a.ptr(1), a.ptr(2), a.i(3), a.ptr(4),
                             a.i(5), (int)a.i(6), (int)a.i(7), (int)a.i(8),
                             a.ptr(9), (int)a.i(10), (int)a.i(11), a.ptr(12),
-                            a.ptr(13), (int)a.i(14), a.ptr(15));
+                            a.ptr(13), (int)a.i(14), (int)a.i(15),
+                            (int)a.i(16), a.ptr(17));
 }

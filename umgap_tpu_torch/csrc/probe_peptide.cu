@@ -44,6 +44,22 @@
 // chip_smoke.py's sweep on the H100; PERF.md, section 6): larger windows
 // keep more rows in flight, but the rows held in registers cut the warps
 // an SM holds, and past Q = 2 that costs more than it gains.
+//
+// The grouped entry (probe_peptide_grouped) serves `group` peptide
+// sub-tables of nb buckets each stacked along the bucket axis: a
+// device's slice, shards first .. first + group - 1 of the n_total
+// hash-range shards of one peptide index (ShardedTable.from_shards over
+// peptide shards). It replaces the sub-table choice of
+// umgap_tpu/parallel/sharded.py:314-320 for kind "peptide" with
+// umgap_tpu/ops/lookup.py:265-283 (row = sub * nb + bucket): a listed
+// query's sub-table is the owner of its swapped lanes,
+// clip((((hash32(lo, hi) >> 16) * n_total) >> 16) - first, 0, group - 1)
+// (umgap_tpu/parallel/sharded.py:33-38: the bucket takes hash32(hi, lo)'s
+// low bits, so the owner mixes the lanes the other way), its bucket
+// hash32(hi, lo)'s low bits inside the sub-table, and the probe wraps
+// inside it. The same kernel under a template flag: the sub-table costs
+// one more hash32 a listed query, and the ungrouped instances do not
+// compute it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,18 +96,25 @@ __device__ __forceinline__ void load_window(
   }
 }
 
+// A device's slice of a grouped table: `group` sub-tables, shards
+// first .. first + group - 1 of n_total.
+struct Slice {
+  int group, first, n_total;
+};
+
 // Probe the up to 32 * QR listed queries base + t * 32 + lane (t < QR,
 // below nv): every row load of a round issued before its compares; a
 // query still live after its row loads its next one in the next round.
-template <int QR>
+// GROUPED: each query's rows lie in its sub-table of `sl`.
+template <int QR, bool GROUPED>
 __device__ __forceinline__ void probe_listed(
     const int32_t* __restrict__ rows, long long mask, int max_probes,
     int default_value, const int32_t* s_hi, const int32_t* s_lo,
     const int16_t* s_slot, int32_t* s_val, uint8_t* s_fnd, int base, int nv,
-    int lane) {
+    int lane, Slice sl) {
   bool live[QR], hit_any[QR];
   int32_t kh_q[QR], kl_q[QR], val[QR];
-  long long bucket[QR];
+  long long bucket[QR], first_row[QR];
   int4 row[QR][6];
 #pragma unroll
   for (int t = 0; t < QR; ++t) {
@@ -100,6 +123,15 @@ __device__ __forceinline__ void probe_listed(
     kh_q[t] = live[t] ? s_hi[idx] : 0;
     kl_q[t] = live[t] ? s_lo[idx] : 0;
     bucket[t] = (long long)(hash32(kh_q[t], kl_q[t]) & (uint32_t)mask);
+    first_row[t] = 0;
+    if constexpr (GROUPED) {
+      // owner_of(..., kind="peptide"): the swapped lanes' hash (top <
+      // 2^16, n_total <= 2^16: no overflow), then this slice's sub-table
+      const uint32_t top = hash32(kl_q[t], kh_q[t]) >> 16;
+      int sub = (int)((top * (uint32_t)sl.n_total) >> 16) - sl.first;
+      sub = sub < 0 ? 0 : (sub >= sl.group ? sl.group - 1 : sub);
+      first_row[t] = (long long)sub * (mask + 1);
+    }
     hit_any[t] = false;
     val[t] = default_value;
   }
@@ -107,7 +139,8 @@ __device__ __forceinline__ void probe_listed(
 #pragma unroll
     for (int t = 0; t < QR; ++t) {
       if (live[t]) {
-        const int4* p = (const int4*)(rows + bucket[t] * (3 * BK));
+        const int4* p =
+            (const int4*)(rows + (first_row[t] + bucket[t]) * (3 * BK));
 #pragma unroll
         for (int u = 0; u < 6; ++u) row[t][u] = __ldg(p + u);
       }
@@ -157,14 +190,15 @@ __device__ __forceinline__ void probe_listed(
 }
 
 // S: slots a lane loads a window (the window is 32 * S slots); QR: rows a
-// lane keeps in flight a round (32 * QR listed queries a round).
-template <int S, int QR>
+// lane keeps in flight a round (32 * QR listed queries a round);
+// GROUPED: rows hold the sub-tables of slice `sl`, nb buckets each.
+template <int S, int QR, bool GROUPED>
 __global__ void __launch_bounds__(WARPS * 32) probe_peptide_kernel(
     const int32_t* __restrict__ qhi, const int32_t* __restrict__ qlo,
     const uint8_t* __restrict__ qvalid, long long n,
     const int32_t* __restrict__ rows, long long nb, int max_probes,
     int default_value, int32_t* __restrict__ out,
-    uint8_t* __restrict__ found) {
+    uint8_t* __restrict__ found, Slice sl) {
   constexpr int WIN = 32 * S;
   __shared__ int32_t s_hi[WARPS][WIN], s_lo[WARPS][WIN], s_val[WARPS][WIN];
   __shared__ int16_t s_slot[WARPS][WIN];
@@ -199,9 +233,10 @@ __global__ void __launch_bounds__(WARPS * 32) probe_peptide_kernel(
 
     // ---- 2. the listed queries, 32 * QR a round ------------------------
     for (int base = 0; base < nv; base += 32 * QR)
-      probe_listed<QR>(rows, mask, max_probes, default_value, s_hi[warp],
-                       s_lo[warp], s_slot[warp], s_val[warp], s_fnd[warp],
-                       base, nv, lane);
+      probe_listed<QR, GROUPED>(rows, mask, max_probes, default_value,
+                                s_hi[warp], s_lo[warp], s_slot[warp],
+                                s_val[warp], s_fnd[warp], base, nv, lane,
+                                sl);
     __syncwarp();
 
     // ---- 3. the window back, in slot order ------------------------------
@@ -221,7 +256,7 @@ constexpr int THREADS = WARPS * 32;
 
 // Blocks that fill the card: the kernel's resident blocks an SM times the
 // SMs of the current device (cached per device and instance).
-template <int S, int QR>
+template <int S, int QR, bool GROUPED>
 cudaError_t card_blocks(int* blocks) {
   static int cached[64] = {0};
   int dev = 0;
@@ -233,7 +268,7 @@ cudaError_t card_blocks(int* blocks) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, probe_peptide_kernel<S, QR>, THREADS, 0);
+        &per_sm, probe_peptide_kernel<S, QR, GROUPED>, THREADS, 0);
     if (e != cudaSuccess) return e;
     cached[dev] = sms * (per_sm > 0 ? per_sm : 1);
   }
@@ -241,21 +276,40 @@ cudaError_t card_blocks(int* blocks) {
   return cudaSuccess;
 }
 
-template <int S, int QR>
+template <int S, int QR, bool GROUPED>
 int launch(const void* hi, const void* lo, const void* valid, long long n,
            const void* rows, long long nb, int max_probes, int default_value,
-           void* out, void* found, cudaStream_t stream) {
+           void* out, void* found, Slice sl, cudaStream_t stream) {
   int fill = 0;
-  const cudaError_t e = card_blocks<S, QR>(&fill);
+  const cudaError_t e = card_blocks<S, QR, GROUPED>(&fill);
   if (e != cudaSuccess) return (int)e;
   const long long windows = (n + 32 * S - 1) / (32 * S);
   const long long need = (windows + WARPS - 1) / WARPS;
   const unsigned blocks = (unsigned)(need < fill ? need : fill);
-  probe_peptide_kernel<S, QR><<<blocks, THREADS, 0, stream>>>(
+  probe_peptide_kernel<S, QR, GROUPED><<<blocks, THREADS, 0, stream>>>(
       (const int32_t*)hi, (const int32_t*)lo, (const uint8_t*)valid, n,
       (const int32_t*)rows, nb, max_probes, default_value, (int32_t*)out,
-      (uint8_t*)found);
+      (uint8_t*)found, sl);
   return (int)cudaGetLastError();
+}
+
+template <bool GROUPED>
+int dispatch(const void* hi, const void* lo, const void* valid, long long n,
+             const void* rows, long long nb, int max_probes,
+             int default_value, void* out, void* found, int Q, Slice sl,
+             cudaStream_t s) {
+#define UMGAP_K8(S, QR)                                                    \
+  case S:                                                                  \
+    return launch<S, QR, GROUPED>(hi, lo, valid, n, rows, nb, max_probes,  \
+                                  default_value, out, found, sl, s);
+  switch (Q) {
+    UMGAP_K8(1, 1)
+    UMGAP_K8(2, 1)
+    UMGAP_K8(4, 2)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef UMGAP_K8
 }
 
 }  // namespace
@@ -275,24 +329,40 @@ extern "C" int probe_peptide(const void* hi, const void* lo, const void* valid,
   if (n <= 0) return 0;
   if (nb < 1 || (nb & (nb - 1)) || ((uintptr_t)rows & 15))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define UMGAP_K8(S, QR)                                                    \
-  case S:                                                                  \
-    return launch<S, QR>(hi, lo, valid, n, rows, nb, max_probes,           \
-                         default_value, out, found, s);
-  switch (Q) {
-    UMGAP_K8(1, 1)
-    UMGAP_K8(2, 1)
-    UMGAP_K8(4, 2)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef UMGAP_K8
+  return dispatch<false>(hi, lo, valid, n, rows, nb, max_probes,
+                         default_value, out, found, Q, Slice{1, 0, 1},
+                         (cudaStream_t)stream);
 }
 
+// rows: (group * nb, 24) int32, the sub-tables of shards first .. first +
+// group - 1 of n_total, nb buckets each (nb a power of two).
+extern "C" int probe_peptide_grouped(const void* hi, const void* lo,
+                                     const void* valid, long long n,
+                                     const void* rows, long long nb,
+                                     int max_probes, int default_value,
+                                     void* out, void* found, int Q,
+                                     int group, int first, int n_total,
+                                     void* stream) {
+  if (n <= 0) return 0;
+  if (nb < 1 || (nb & (nb - 1)) || ((uintptr_t)rows & 15) || group < 1 ||
+      n_total > (1 << 16) || first < 0 || first + group > n_total)
+    return (int)cudaErrorInvalidValue;
+  return dispatch<true>(hi, lo, valid, n, rows, nb, max_probes,
+                        default_value, out, found, Q,
+                        Slice{group, first, n_total}, (cudaStream_t)stream);
+}
+
+// group == 1 takes the ungrouped entry (a device's one shard of a mesh
+// needs no sub-table).
 extern "C" int probe_peptide_packed(const void* args) {
   const PackedArgs a{(const unsigned char*)args};
-  return probe_peptide(a.ptr(0), a.ptr(1), a.ptr(2), a.i(3), a.ptr(4), a.i(5),
-                       (int)a.i(6), (int)a.i(7), a.ptr(8), a.ptr(9),
-                       (int)a.i(10), a.ptr(11));
+  if (a.i(11) == 1)
+    return probe_peptide(a.ptr(0), a.ptr(1), a.ptr(2), a.i(3), a.ptr(4),
+                         a.i(5), (int)a.i(6), (int)a.i(7), a.ptr(8),
+                         a.ptr(9), (int)a.i(10), a.ptr(14));
+  return probe_peptide_grouped(a.ptr(0), a.ptr(1), a.ptr(2), a.i(3),
+                               a.ptr(4), a.i(5), (int)a.i(6), (int)a.i(7),
+                               a.ptr(8), a.ptr(9), (int)a.i(10),
+                               (int)a.i(11), (int)a.i(12), (int)a.i(13),
+                               a.ptr(14));
 }

@@ -66,6 +66,17 @@ def mix_key(hi, lo):
     return h, l
 
 
+def unmix_key(mhi, mlo):
+    """The inverse of :func:`mix_key`: uint32 (hi, lo) of whitened
+    (mhi, mlo)."""
+    h = np.asarray(mhi).astype(np.uint32)
+    l = np.asarray(mlo).astype(np.uint32)
+    l = l ^ (_mx(h + _C3) & MASK25)
+    h = h ^ (_mx(l + _C2) & MASK20)
+    l = l ^ (_mx(h + _C1) & MASK25)
+    return h, l
+
+
 def hash32(hi, lo) -> np.ndarray:
     """32-bit mix of two key lanes (the peptide-table bucket hash and the
     shard-ownership hash of the JAX package)."""
@@ -320,6 +331,48 @@ class KmerTable:
                     f"{len(leftover)} keys exceed the probe-distance limit "
                     "at the requested capacity; use a larger capacity")
             cap *= 2
+
+    def items(self, bucket_range: tuple[int, int] | None = None):
+        """(packed key, value) pairs in slot order, stash last: the
+        distance tag makes the key exact (home bucket = slot bucket -
+        distance). ``bucket_range=(b0, b1)`` reads only buckets [b0, b1),
+        without the stash and without the whole slot arrays (keys
+        displaced into the range from bucket b0 - 1 appear, keys displaced
+        out of it do not)."""
+        if bucket_range is not None:
+            b0, b1 = bucket_range
+            bk = self.bucket
+            if self.rows_packed is not None:
+                sl = np.asarray(self.rows_packed[b0:b1])
+                rem_s = np.ascontiguousarray(sl[:, :bk]).reshape(-1)
+                val_s = np.ascontiguousarray(sl[:, bk:2 * bk]).reshape(-1)
+            else:
+                rem_s = self.rem[b0 * bk:b1 * bk]
+                val_s = self.values[b0 * bk:b1 * bk]
+            occ = np.nonzero(rem_s != EMPTY)[0]
+            return self._items_from(occ + b0 * bk, rem_s[occ], val_s[occ])
+        occ = np.nonzero(self.rem != EMPTY)[0]
+        return self._items_from(occ, self.rem[occ], self.values[occ],
+                                with_stash=True)
+
+    def _items_from(self, occ, rem_occ, val_occ, with_stash: bool = False):
+        tag = rem_occ.astype(np.uint32)
+        dist = (tag >> np.uint32(30)).astype(np.int64)
+        rem = tag & np.uint32((1 << 30) - 1)
+        nb_bits, nb = self.nb_bits, self.n_buckets
+        home = ((occ // self.bucket) - dist) % nb
+        mlo = (home.astype(np.uint32)
+               | ((rem & np.uint32((1 << (25 - nb_bits)) - 1))
+                  << np.uint32(nb_bits))) & MASK25
+        mhi = (rem >> np.uint32(25 - nb_bits)) & MASK20
+        hi, lo = unmix_key(mhi, mlo)
+        packed = kmers.join_packed(hi.astype(np.int32), lo.astype(np.int32))
+        values = val_occ
+        if with_stash and len(self.stash_hi):
+            packed = np.concatenate(
+                [packed, kmers.join_packed(self.stash_hi, self.stash_lo)])
+            values = np.concatenate([values, self.stash_val])
+        return packed, values
 
     def probe_host(self, hi: np.ndarray, lo: np.ndarray,
                    default: int = 0) -> tuple[np.ndarray, np.ndarray]:

@@ -129,13 +129,13 @@ K1P = Kernel(
     "umgap_tpu/ops/kmers.py:76 pack_windows_batch "
     "(umgap_tpu/pipeline/proteins.py:33)")
 # the entry of one table and, for group > 1, the grouped entry (a
-# buildindex-dist artifact's shards stacked on one device)
+# device's slice of a buildindex-dist artifact: its group of shards)
 K2 = Kernel(
     "probe_kmer", "probe_kmer.cu",
-    [P, P, P, LL, P, LL, I, I, I, P, I, I, P, P, I, P],
+    [P, P, P, LL, P, LL, I, I, I, P, I, I, P, P, I, I, I, P],
     "umgap_tpu/ops/lookup.py:198 _probe_dense (kmer branch); "
     "scripts/exp_pallas_dma.py:31 make_kernel; grouped: "
-    "umgap_tpu/parallel/sharded.py:319-326 with "
+    "umgap_tpu/parallel/sharded.py:314-320 with "
     "umgap_tpu/ops/lookup.py:231")
 K3 = Kernel(
     "seedextend_mask", "seedextend_mask.cu",
@@ -190,10 +190,13 @@ K7 = Kernel(
     "umgap_tpu/ops/encoding.py:57 unpack_dna4_device + "
     "umgap_tpu/ops/translate.py:88 translate6_batch + "
     "umgap_tpu/pipeline/tryptic.py:89 tryptic_digest_device")
+# the entry of one table and, for group > 1, the grouped entry (a
+# device's slice of a sharded peptide index)
 K8 = Kernel(
     "probe_peptide", "probe_peptide.cu",
-    [P, P, P, LL, P, LL, I, I, P, P, I, P],
-    "umgap_tpu/ops/lookup.py:265-283 _probe_dense (peptide branch)")
+    [P, P, P, LL, P, LL, I, I, P, P, I, I, I, I, P],
+    "umgap_tpu/ops/lookup.py:265-283 _probe_dense (peptide branch); "
+    "grouped: umgap_tpu/parallel/sharded.py:314-320 (kind peptide)")
 
 KERNELS = (K1, K1P, K2, K3, K3R, K4, K4R, K5, K5A, K6, KS, K7, K8)
 

@@ -11,12 +11,15 @@ result. Peptide tables have rows ``[key_hi | key_lo | values]`` of
 ``3 * 8`` int32, bucket :func:`hash32_torch` of the fingerprint, and no
 stash.
 
-A grouped k-mer table (``group > 1``) holds the ``group`` hash-range
-shards of a ``buildindex-dist`` artifact
-(:mod:`umgap_tpu_torch.parallel.sharded`) stacked along the bucket axis,
-each of ``n_buckets`` rows, and their stashes merged: a query probes the
-sub-table its key's :func:`~umgap_tpu_torch.parallel.sharded.owner_of`
-names, with linear probing wrapping inside it.
+A grouped table (``group > 1``, k-mer or peptide) holds ``group``
+hash-range shards (:mod:`umgap_tpu_torch.parallel.sharded`) stacked
+along the bucket axis, each of ``n_buckets`` rows, and (k-mer tables)
+their stashes merged: a device's slice of an index of ``n_total``
+shards, from shard ``first`` on (all of them on one device: ``first =
+0``, ``n_total = group``). A query probes the sub-table its key's
+:func:`~umgap_tpu_torch.parallel.sharded.owner_of` over ``n_total``
+names, less ``first`` and clipped to the group, with linear probing
+wrapping inside it: K2's and K8's grouped entries.
 """
 
 from __future__ import annotations
@@ -79,20 +82,27 @@ def _writable(a) -> np.ndarray:
 
 class DeviceTable:
     """A table on one device: ``rows`` (group * n_buckets, 2 * bucket)
-    int32 for k-mer tables, (n_buckets, 3 * bucket) for peptide tables,
-    ``stash`` (S, 3) int32 [hi, lo, value] sorted by (hi, lo) (k-mer
-    tables only), and the probe geometry: ``group`` sub-tables, the
-    shards of one artifact."""
+    int32 for k-mer tables, (group * n_buckets, 3 * bucket) for peptide
+    tables, ``stash`` (S, 3) int32 [hi, lo, value] sorted by (hi, lo)
+    (k-mer tables only), and the probe geometry: ``group`` sub-tables,
+    shards ``first`` .. ``first + group - 1`` of the ``n_total`` shards
+    of one index (default: all of them here)."""
 
     def __init__(self, rows: torch.Tensor, max_probes: int, kind: str,
                  nb_bits: int, bucket: int, stash: torch.Tensor | None = None,
-                 group: int = 1):
+                 group: int = 1, first: int = 0, n_total: int | None = None):
         self.rows = rows
         self.max_probes = int(max_probes)
         self.kind = kind
         self.nb_bits = int(nb_bits)
         self.bucket = int(bucket)
         self.group = int(group)
+        self.first = int(first)
+        self.n_total = self.group if n_total is None else int(n_total)
+        if not 0 <= self.first <= self.n_total - self.group:
+            raise ValueError(
+                f"shards {self.first}..{self.first + self.group - 1} are "
+                f"not a slice of {self.n_total}")
         if stash is None:
             stash = torch.zeros((0, 3), dtype=torch.int32, device=rows.device)
         s = stash.to(torch.int64)
@@ -112,7 +122,7 @@ class DeviceTable:
     def to(self, device) -> "DeviceTable":
         return DeviceTable(self.rows.to(device), self.max_probes, self.kind,
                            self.nb_bits, self.bucket, self.stash.to(device),
-                           self.group)
+                           self.group, self.first, self.n_total)
 
     @classmethod
     def from_arrays(cls, rows, stash, max_probes: int, kind: str,
@@ -151,20 +161,18 @@ def _check_supported(table: DeviceTable) -> None:
     if table.kind not in ("kmer", "peptide"):
         raise NotImplementedError(
             f"probe of {table.kind!r} tables is not ported")
-    if table.group != 1 and table.kind == "peptide":
-        raise NotImplementedError(
-            "grouped peptide tables are not ported yet (ROADMAP: the "
-            "multi-rank --mesh slice, with K8's grouped entry)")
 
 
 def sub_tables(table: DeviceTable, hi: torch.Tensor,
                lo: torch.Tensor) -> torch.Tensor:
     """Each key's sub-table of a grouped table: its owner among the
-    ``group`` shards (what K2's grouped entry computes;
-    umgap_tpu/parallel/sharded.py:319-324 on one device)."""
+    ``n_total`` shards less ``first``, clipped to the ``group`` held
+    here (what K2's and K8's grouped entries compute;
+    umgap_tpu/parallel/sharded.py:314-320)."""
     from ..parallel.sharded import owner_of
 
-    return owner_of(hi, lo, table.group, kind=table.kind)
+    own = owner_of(hi, lo, table.n_total, kind=table.kind)
+    return (own - table.first).clamp(0, table.group - 1)
 
 
 def probe_plain(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
@@ -232,8 +240,8 @@ def probe(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
     give ``default`` (0 is the reference's ``-o``).
 
     CPU tensors take :func:`probe_plain`; CUDA tensors launch K2 (k-mer
-    tables, grouped ones through its grouped entry) or K8 (peptide
-    tables)."""
+    tables) or K8 (peptide tables), a grouped table through the kernel's
+    grouped entry."""
     if hi.device.type == "cpu":
         return probe_plain(table, hi, lo, valid, default)
     _check_supported(table)
@@ -259,15 +267,15 @@ def probe(table: DeviceTable, hi: torch.Tensor, lo: torch.Tensor,
         hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), hi.numel(),
         table.rows.data_ptr(), table.n_buckets, table.nb_bits, table.bucket,
         table.max_probes, table.stash.data_ptr(), S, int(default),
-        out.data_ptr(), found.data_ptr(), table.group,
-        kernels.stream_of(hi))
+        out.data_ptr(), found.data_ptr(), table.group, table.first,
+        table.n_total, kernels.stream_of(hi))
     return out, found
 
 
 def _probe_peptide(table: DeviceTable, hi, lo, valid, default: int):
-    """K8's launch: a warp compacts each window of 32 x
-    ``QUERIES_PER_LANE`` slots to its valid queries and keeps their rows
-    in flight together."""
+    """K8's launch (its grouped entry on a grouped table): a warp
+    compacts each window of 32 x ``QUERIES_PER_LANE`` slots to its valid
+    queries and keeps their rows in flight together."""
     if valid is None:
         valid = torch.ones(hi.shape, dtype=torch.bool, device=hi.device)
     if (hi.dtype != torch.int32 or lo.dtype != torch.int32
@@ -286,5 +294,5 @@ def _probe_peptide(table: DeviceTable, hi, lo, valid, default: int):
         hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), hi.numel(),
         table.rows.data_ptr(), table.n_buckets, table.max_probes,
         int(default), out.data_ptr(), found.data_ptr(), QUERIES_PER_LANE,
-        kernels.stream_of(hi))
+        table.group, table.first, table.n_total, kernels.stream_of(hi))
     return out, found

@@ -101,19 +101,33 @@ def run_stages(reads, lengths, length: int, packed: bool,
                        euler)
 
 
-def _stages(reads, lengths, length, packed, dtax, dtable, config,
-            with_overflow, stage, euler):
+def _ops():
+    """The four stages' functions: the kernels' wrappers, or inside
+    :func:`~umgap_tpu_torch.kernels.plain_versions` their plain
+    versions."""
     names = _PLAIN_OPS if kernels.plain_selected() else _KERNEL_OPS
-    r2k, probe, seedext, dedup = (getattr(m, n)
-                                  for m, n in zip(_OP_MODULES, names))
-    B, E = lengths.shape
-    table = encoding.get_table(config.table_number)
+    return tuple(getattr(m, n) for m, n in zip(_OP_MODULES, names))
+
+
+def kmer_front(reads, lengths, length: int, packed: bool,
+               config: PipelineConfig, stage):
+    """The stage before the probe: reads (B*E, row) uint8, lengths (B, E)
+    -> the probe's queries (hi, lo, valid) and what
+    :func:`kmer_back` needs of the reads (the protein lengths)."""
     with stage("reads_to_kmers"):
-        hi, lo, wvalid, plens = r2k(reads, lengths.reshape(-1), length,
-                                    table, config.k, packed=packed)
-    with stage("probe"):
-        # '-o': misses and invalid windows read 0
-        taxa, _found = probe(dtable, hi, lo, wvalid, 0)
+        hi, lo, wvalid, plens = _ops()[0](
+            reads, lengths.reshape(-1), length,
+            encoding.get_table(config.table_number), config.k,
+            packed=packed)
+    return (hi, lo, wvalid), plens
+
+
+def kmer_back(taxa, plens, lengths, dtax, config: PipelineConfig,
+              with_overflow: bool, stage, euler):
+    """The stages after the probe: the probe's taxa (B*E, 6, W) int32
+    (misses and invalid windows 0) -> taxon (B,) [, overflow (B,)]."""
+    _r2k, _probe, seedext, dedup = _ops()
+    B, E = lengths.shape
     with stage("seedextend"):
         W = taxa.shape[-1]
         nkmers = (plens - (config.k - 1)).clamp(min=0)
@@ -121,6 +135,17 @@ def _stages(reads, lengths, length, packed, dtax, dtable, config,
                        config.max_gap_size).reshape(B, E * 6 * W)
     return aggregate_hits(hits, dtax, config, with_overflow, stage, euler,
                           dedup)
+
+
+def _stages(reads, lengths, length, packed, dtax, dtable, config,
+            with_overflow, stage, euler):
+    (hi, lo, wvalid), plens = kmer_front(reads, lengths, length, packed,
+                                         config, stage)
+    with stage("probe"):
+        # '-o': misses and invalid windows read 0
+        taxa, _found = _ops()[1](dtable, hi, lo, wvalid, 0)
+    return kmer_back(taxa, plens, lengths, dtax, config, with_overflow,
+                     stage, euler)
 
 
 def aggregate_hits(hits, dtax, config, with_overflow, stage, euler, dedup):

@@ -226,21 +226,39 @@ def run_tryptic_stages(reads, lengths, length: int, packed: bool,
     :func:`~umgap_tpu_torch.pipeline.fused.run_stages`."""
     stage = timer or (lambda _name: nullcontext())
     with kernels.plain_versions() if plain else nullcontext():
-        plain = kernels.plain_selected()
-        r2p = reads_to_peptides_plain if plain else reads_to_peptides
-        probe = lookup.probe_plain if plain else lookup.probe
-        dedup = devagg.dedup_counts_plain if plain else devagg.dedup_counts
-        B, E = lengths.shape
-        table = encoding.get_table(config.table_number)
-        with stage("reads_to_peptides"):
-            h1, h2, pvalid = r2p(reads, lengths.reshape(-1), length, table,
-                                 packed)
+        queries, _ = tryptic_front(reads, lengths, length, packed, config,
+                                   stage)
+        probe = (lookup.probe_plain if kernels.plain_selected()
+                 else lookup.probe)
         with stage("probe"):
             # misses and invalid slots read the default, 0
-            taxa, _found = probe(dtable, h1, h2, pvalid, 0)
-            hits = taxa.reshape(B, -1)
-        return aggregate_hits(hits, dtax, config, with_overflow, stage,
-                              euler, dedup)
+            taxa, _found = probe(dtable, *queries, 0)
+        return tryptic_back(taxa, None, lengths, dtax, config,
+                            with_overflow, stage, euler)
+
+
+def tryptic_front(reads, lengths, length: int, packed: bool,
+                  config: PipelineConfig, stage):
+    """The stage before the probe (K7 or its plain version): reads
+    (B*E, row) uint8, lengths (B, E) -> the probe's queries (h1, h2,
+    valid) and None (:func:`tryptic_back` needs nothing else of the
+    reads)."""
+    r2p = (reads_to_peptides_plain if kernels.plain_selected()
+           else reads_to_peptides)
+    with stage("reads_to_peptides"):
+        queries = r2p(reads, lengths.reshape(-1), length,
+                      encoding.get_table(config.table_number), packed)
+    return queries, None
+
+
+def tryptic_back(taxa, _plens, lengths, dtax, config: PipelineConfig,
+                 with_overflow: bool, stage, euler):
+    """The stages after the probe: the probe's taxa (B*E*6, F) int32
+    (misses and invalid slots 0) -> taxon (B,) [, overflow (B,)]."""
+    dedup = (devagg.dedup_counts_plain if kernels.plain_selected()
+             else devagg.dedup_counts)
+    return aggregate_hits(taxa.reshape(lengths.shape[0], -1), dtax, config,
+                          with_overflow, stage, euler, dedup)
 
 
 def tryptic_pipeline_step(dna, lengths, dtax: devagg.DeviceTaxonomy,
