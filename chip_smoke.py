@@ -14,11 +14,16 @@ to K = 32,004, and K5 at the shapes of each TPU gather kernel it
 ports), drives the port's main path (the 9-mer ``analyse`` presets
 through ``Analyser`` over the tracked ``.bench_data`` workload: 32,768
 read pairs of 100 bp, a 2 M-key index, 20 k taxa), the wide re-route
-program on one batch, the tryptic presets through ``TrypticAnalyser``
-over a peptide index of the workload's own fragments, runs a 4.3 GB
+program on one batch, scored seed-extend (``PipelineConfig.ranked``:
+two ranked presets over the workload and over a batch of 420 bp reads,
+K3's scored entries held to their plain versions, the first 1,024 pairs
+to the JAX package's digests), the tryptic presets through
+``TrypticAnalyser``
+over a peptide index of the workload's own fragments, runs a 2.1 GB
 card-resident bucket64s index and a 1.6 GB card-resident peptide index
 of 50 M keys, runs the ``analyse`` command line in a subprocess (9-mer
-and tryptic), runs the FragGeneScan++ protein path with a mock FGSpp
+and tryptic) and its ``--serve`` service in another (requests over a
+Unix socket, replies byte-equal to the in-process records), runs the FragGeneScan++ protein path with a mock FGSpp
 (``MOCK_FGSPP``: the library path of the four FGSpp presets, K1P alone,
 and the command line with ``-c`` and ``-z``), reads FASTQ files (plain and gzipped, and reads of
 100-4,096 bp) through the command line's three ingest tiers, holds its
@@ -100,6 +105,13 @@ REFERENCE_DIGESTS = {
         "9c6a5c38c7d399c8ec64b5bfab741a556e1eda5115d41c24743aec9c3081d736",
     "fgspp/tryptic-sensitivity":
         "5660389d1683eb3d559bba0e741ad7fb981c7411322c36a71d5a28f45f614aa7",
+    # scored seed-extend (phase scored, SCORED_CONFIGS: max-sensitivity
+    # with ranked=True, penalty=5; high-sensitivity with ranked=True);
+    # tests/test_torch_scored.py recomputes them with umgap_tpu
+    "scored/max-sensitivity":
+        "1c0089cdc3323116ea42b04f324f004c40d67db2ef7c6d74caa8587d96551f34",
+    "scored/high-sensitivity":
+        "c6e4f3fd2b445ff42130bfb24626febbc861d6a227ef910fdcc2b9b3966fabe9",
 }
 RMQ_STRATEGIES = ("lca*", "hybrid")
 
@@ -244,10 +256,13 @@ def main():
         phase_gather(torch, world)
         launches, results = phase_main(torch, world)
         phase_wide(torch, world, results)
+        scored_launches, scored_stats = phase_scored(torch, world, results)
+        stats.update(scored_stats)
         tlaunches, tresults = phase_tryptic(torch, world)
         phase_resident(torch, world)
         k8_resident = phase_resident_peptide(torch, world, tresults)
         phase_cli(torch, world)
+        phase_serve(torch, world)
         shards_launches, stats["probe_kmer_grouped"] = phase_shards(torch,
                                                                     world)
         mesh_launches, stats["probe_peptide_grouped"] = phase_mesh(
@@ -265,8 +280,9 @@ def main():
     # every number below was measured in this run: the phases above
     # raise before this point if any of them did not run to its end.
     # Launches: the 9-mer main path's, K7 and K8 the tryptic path's, K3's
-    # and K4's row kernels the 12,000 bp path's, K5 and snap_taxa the
-    # Euler/RMQ path's (K6 snaps on the others), K1P the FGSpp path's.
+    # and K4's row kernels the 12,000 bp path's, K3's scored entries the
+    # scored path's (phase scored), K5 and snap_taxa the Euler/RMQ path's
+    # (K6 snaps on the others), K1P the FGSpp path's.
     # K7's time and share are its L2-flushed ones (its 8.8 MB would
     # otherwise sit in L2 across launches; the warm ones stay in its
     # stats). K8's times and bound are the resident index's with the L2
@@ -292,6 +308,7 @@ def main():
             "source": f"umgap_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces,
             "launches": (tlaunches if k.name in TRYPTIC_KERNELS
+                         else scored_launches if k.name in SCORED_KERNELS
                          else long_launches if k.name in ROW_KERNELS
                          else rmq_launches if k.name in RMQ_TAIL_KERNELS
                          else fgspp_launches if k.name in PROTEIN_KERNELS
@@ -2486,10 +2503,24 @@ ROW_KERNELS = {"seedextend_rows", "dedup_rows"}
 NARROW_ROW_KERNELS = {"seedextend_mask", "dedup_counts"}
 
 
+# K3's scored entries: launched only by a ranked configuration (phase
+# scored), in place of the hits entries
+SCORED_ENTRY = {"seedextend_mask": "seedextend_scored",
+                "seedextend_rows": "seedextend_rows_scored"}
+SCORED_KERNELS = set(SCORED_ENTRY.values())
+
+
+def _scored_entries(names, config):
+    if config.ranked and not is_tryptic(config):
+        return {SCORED_ENTRY.get(n, n) for n in names}
+    return names
+
+
 def long_path_kernels(config):
     """``path_kernels`` of a configuration whose rows are all past K3's
     staged tile and K4's warp path: the row kernels in their place."""
-    return path_kernels(config) - NARROW_ROW_KERNELS | ROW_KERNELS
+    return _scored_entries(path_kernels(config._replace(ranked=False))
+                           - NARROW_ROW_KERNELS | ROW_KERNELS, config)
 
 
 def is_tryptic(config) -> bool:
@@ -2507,9 +2538,9 @@ PROTEIN_KERNELS = {"proteins_to_kmers"}
 
 def path_kernels(config):
     """Names of the kernels a configuration's path launches at 100-160
-    bp: K1-K3 on the 9-mer path, K7 and K8 on the tryptic one, K3's and
-    K4's row kernels and K1's protein entry on none (ROW_KERNELS,
-    PROTEIN_KERNELS), K4 with the lower bound on
+    bp: K1-K3 on the 9-mer path (K3's scored entry with ``ranked``), K7
+    and K8 on the tryptic one, K3's and K4's row kernels and K1's protein
+    entry on none (ROW_KERNELS, PROTEIN_KERNELS), K4 with the lower bound on
     all; K6 (which reads the taxonomy rows itself and snaps) for the
     tree aggregators and rmq/mrtl, K5 and snap_taxa for rmq/lca* and
     rmq/hybrid; no path launches K5's ancestry epilogue (it serves
@@ -2518,13 +2549,13 @@ def path_kernels(config):
     from umgap_tpu_torch.agg import device as devagg
 
     names = {k.name for k in kernels.KERNELS} - {"lane_gather_ancestry"}
-    names -= ROW_KERNELS | PROTEIN_KERNELS
+    names -= ROW_KERNELS | PROTEIN_KERNELS | SCORED_KERNELS
     names -= NINEMER_KERNELS if is_tryptic(config) else TRYPTIC_KERNELS
     if (config.method, config.strategy) in devagg.GEOMETRY_AGGREGATIONS:
         names -= RMQ_TAIL_KERNELS
     else:
         names.discard("tree_aggregate")
-    return names
+    return _scored_entries(names, config)
 
 
 def batch_launches(torch, world, an):
@@ -2862,6 +2893,168 @@ def phase_wide(torch, world, results):
 
 
 # ---------------------------------------------------------------------- #
+# Phase 3b': scored seed-extend (PipelineConfig.ranked)
+# ---------------------------------------------------------------------- #
+
+# the two ranked configurations phase scored runs, by their digest names
+SCORED_CONFIGS = {
+    "scored/max-sensitivity": ("max-sensitivity", dict(ranked=True,
+                                                       penalty=5)),
+    "scored/high-sensitivity": ("high-sensitivity", dict(ranked=True)),
+}
+# reads past 312 bp: 132 windows a frame, K3's scored row kernel (and
+# K4's row kernel: 1,584 hits a row)
+SCORED_WIDTH = 420
+
+
+def scored_configs():
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+
+    return {name: PRESETS[p]._replace(**kw)
+            for name, (p, kw) in SCORED_CONFIGS.items()}
+
+
+def k3s_cell(torch, world, taxa, nk, what):
+    """K3's scored entry alone on the lanes a batch gives it (max-
+    sensitivity's seeds, s = 2, g = 1, penalty 5; the bench taxonomy's
+    seed scores): held to the plain version (and to the row formulation
+    past the staged tile), event and device ms, the bound (each window's
+    taxon read and its hit written once, each lane's length and the
+    score table read once: bytes) and the plain ms. Returns (stats,
+    err)."""
+    from umgap_tpu_torch.ops import seedextend
+
+    sc = world["dtax"].seed_scores
+    NW, nl = taxa.shape[-1], nk.numel()
+
+    def k3s():
+        return seedextend.seedextend_hits(taxa, nk, 2, 1, seed_scores=sc,
+                                          penalty=5)
+
+    def plain():
+        return seedextend.seedextend_scored_hits_plain(taxa, nk, sc, 5, 2, 1)
+
+    got = k3s()
+    err = compare(torch, f"K3 scored {what}", got, plain())
+    if seedextend.seedextend_path(NW) == "rows":
+        err = max(err, compare(
+            torch, f"K3 scored {what} (runs plain)", got,
+            seedextend.seedextend_scored_runs_plain(taxa, nk, sc, 5, 2, 1)))
+    ms, by = device_ms(torch, k3s, by=True)
+    b, bb = bound(nl * (NW * 8 + 4) + sc.numel() * 4, nl * NW * 24)
+    return dict(path=seedextend.seedextend_path(NW), shape=[nl, NW],
+                ms=cuda_ms(torch, k3s), device_ms=ms, device_ms_by=by,
+                plain_ms=cuda_ms(torch, plain, reps=2), bound_ms=b,
+                bound_by=bb, bound_share=b / ms, library_ms=None,
+                kept=int((got != 0).sum()), max_abs_err=err,
+                equal=err == 0.0), err
+
+
+def phase_scored(torch, world, results):
+    """Scored seed-extend (``PipelineConfig.ranked``; the reference's
+    ``seedextend -r``): max-sensitivity with ranked=True, penalty=5 and
+    high-sensitivity with ranked=True through ``Analyser`` over all
+    32,768 bench pairs (K3's scored staged tile) and over one batch of
+    the CLI's size at SCORED_WIDTH (4,096 pairs of 420 bp ends of
+    consecutive bench reads: its scored row kernel), launches counted
+    over both; kernel taxa equal to the plain path's
+    (``run_stages(..., plain=True)``) on both, the first 1,024 bench
+    pairs equal to umgap_tpu's digests; the wide program under ranked on
+    256 pairs (kernel = plain = the main program's taxa); and K3's two
+    scored entries alone on the lanes K1 -> K2 give them at L = 100 and
+    at 420 bp (``k3s_cell``: the kernels line's entries). Returns
+    (launches of the scored runs, {entry: stats})."""
+    from umgap_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    P, L = world["P"], world["L"]
+    cfgs = scored_configs()
+    wcodes = np.ascontiguousarray(_rung_codes(world, SCORED_WIDTH))
+    nw = len(wcodes)
+    wlens = np.full((nw, 2), SCORED_WIDTH, np.int32)
+    wheaders = [f"w{i}" for i in range(nw)]
+
+    def run_wide_batch(an):
+        return np.array([t for _h, t in an.analyse_arrays(
+            wheaders, wcodes, wlens)], dtype=np.int64)
+
+    ans = {n: (_analyser(world, c), _analyser(
+        world, c, batch_size=nw, read_length=SCORED_WIDTH))
+        for n, c in cfgs.items()}
+    for an, wan in ans.values():  # every program shape once, uncounted
+        _run_analyser(an, world)
+        run_wide_batch(wan)
+    kernels.reset_launches()
+    got, wgot = {}, {}
+    for n, (an, wan) in ans.items():
+        got[n] = _run_analyser(an, world)
+        wgot[n] = run_wide_batch(wan)
+    launches = kernels.launch_counts()
+    RESULT["scored_launches"] = launches
+    need = set().union(*(path_kernels(c) | long_path_kernels(c)
+                         for c in cfgs.values()))
+    for k in need:
+        require(launches[k] > 0, f"scored: kernel {k} was not launched")
+    require(launches["seedextend_mask"] == launches["seedextend_rows"] == 0,
+            f"scored: K3's unscored entries launched: {launches}")
+    phase = {"width": SCORED_WIDTH, "wide_pairs": nw, "launches": launches}
+    for n, cfg in cfgs.items():
+        plain = _run_analyser(_analyser(world, cfg, plain=True), world)
+        require(np.array_equal(got[n], plain), f"{n}: kernel taxa differ "
+                f"from plain taxa in {int((got[n] != plain).sum())} of {P}")
+        wplain = run_wide_batch(_analyser(
+            world, cfg, batch_size=nw, read_length=SCORED_WIDTH, plain=True))
+        require(np.array_equal(wgot[n], wplain), f"{n} at {SCORED_WIDTH} "
+                f"bp: kernel taxa differ from plain taxa in "
+                f"{int((wgot[n] != wplain).sum())} of {nw}")
+        require(taxa_digest(got[n][:REFERENCE_PAIRS])
+                == REFERENCE_DIGESTS[n], f"{n}: the first {REFERENCE_PAIRS} "
+                "groups differ from the JAX package's reference taxa")
+        base = cfg.name
+        phase[n] = dict(
+            differ_from_unscored=int((got[n] != results[base]).sum()),
+            unassigned=int((got[n] == 1).sum()),
+            wide_unassigned=int((wgot[n] == 1).sum()),
+            overflow_reads=ans[n][0].overflow_reads)
+        # the wide program under ranked (k_max = every window slot)
+        dna, lens = world["reads"][:256], np.full((256, 2), L, np.int32)
+        an = _analyser(world, cfg)
+        before = kernels.K3S.launches
+        wide = an.run_wide(dna, lens)
+        require(kernels.K3S.launches > before,
+                f"{n}: the wide program launched no scored K3")
+        require(np.array_equal(wide, _analyser(world, cfg, plain=True)
+                               .run_wide(dna, lens)),
+                f"{n}: the wide program's kernel taxa differ from plain")
+        require(np.array_equal(wide, got[n][:256]),
+                f"{n}: the wide program's taxa differ from the main's")
+        log(f"{n}: kernel == plain on {P} pairs and {nw} pairs of "
+            f"{SCORED_WIDTH} bp, == reference on {REFERENCE_PAIRS}; "
+            f"{phase[n]['differ_from_unscored']} groups differ from the "
+            f"unscored preset's; the wide program == plain == main")
+    log(f"scored launches: {launches}")
+
+    # the scored entries alone on a batch's lanes
+    stats, errs = {}, {}
+    for name, codes, width in (
+            ("seedextend_scored", world["reads"][:BATCH], L),
+            ("seedextend_rows_scored", wcodes, SCORED_WIDTH)):
+        taxa, nk, _hits = _row_inputs(torch, world, codes, width)
+        stats[name], errs[name] = k3s_cell(torch, world, taxa, nk,
+                                           f"{width} bp")
+        st = stats[name]
+        log(f"{name} at {width} bp ({st['path']}, {st['shape']}): "
+            f"{st['ms']:.4f} ms event, {st['device_ms']:.4f} device, bound "
+            f"{st['bound_ms']:.4f} ({st['bound_share']:.0%}), plain "
+            f"{st['plain_ms']:.3f}")
+        del taxa, nk, _hits
+    phase["kernels"] = stats
+    phase["seconds"] = time.perf_counter() - t_phase
+    RESULT["phases"]["scored"] = phase
+    return launches, stats
+
+
+# ---------------------------------------------------------------------- #
 # Phase 3c: the tryptic presets
 # ---------------------------------------------------------------------- #
 
@@ -3152,10 +3345,13 @@ def phase_resident_peptide(torch, world, tryptic_results):
 
 
 # ---------------------------------------------------------------------- #
-# Phase 4: a 4.3 GB card-resident bucket64s index
+# Phase 4: a 2.1 GB card-resident bucket64s index
 # ---------------------------------------------------------------------- #
 
-RESIDENT_LOG2_ROWS = 23  # 2^23 rows x 64 slots x 8 B = 4.3 GB at load 0.5
+# 2^22 rows x 64 slots x 8 B = 2.1 GB at load 0.5 (134 M keys): 2^23
+# (4.3 GB) took the host's numpy build 155-222 s, and phase shards splits
+# the same keys into its 16-shard artifact (4.3 GB at 2^22)
+RESIDENT_LOG2_ROWS = 22
 
 
 def resident_keys(keys, vals, n_total, n_tax, seed=11):
@@ -3420,6 +3616,122 @@ SHARDS = 16  # buildindex-dist's default shard count
 SHARDS_LAYOUT = "bucket64s"  # and its default layout
 
 
+def _serve_request(path, line, timeout=600):
+    """One request to the service at the socket ``path``: its reply."""
+    import socket
+
+    c = socket.socket(socket.AF_UNIX)
+    c.settimeout(timeout)
+    with c:
+        c.connect(path)
+        c.sendall((line + "\n").encode())
+        c.shutdown(socket.SHUT_WR)
+        chunks = []
+        while True:
+            b = c.recv(1 << 20)
+            if not b:
+                return b"".join(chunks).decode()
+            chunks.append(b)
+
+
+def phase_serve(torch, world):
+    """``python -m umgap_tpu_torch analyse --serve SOCK`` on the card in a
+    subprocess, with no initial sample, over the bench index at
+    --read-length 100 (phase cli's files): two identical high-sensitivity
+    requests over the bench pairs as FASTQ (one copy, 32,768 pairs) with
+    -o, one without (the FASTA streamed back), a bad preset, a tryptic
+    request against the pinned 9-mer index, then ``quit``. Requires
+    ``ok 32768`` twice, the three outputs byte-equal to each other and to
+    ``cli.run_sample``'s records of the same sample in this process, the
+    two error lines, ``bye``, the socket gone and exit 0. Records each
+    request's wall seconds and the service's start to its first reply
+    (its kernels come from the build cache this process filled)."""
+    import io
+
+    from umgap_tpu_torch import cli
+
+    t_phase = time.perf_counter()
+    L, P = world["L"], world["P"]
+    taxtsv, index = _cli_files(world)
+    fq = [os.path.join(TMP_DIR, f"serve_R{e + 1}.fq") for e in (0, 1)]
+    for e in (0, 1):
+        with open(fq[e], "wb") as f:
+            f.write(_fastq_text(world["reads"], e, b"s"))
+    preset = "high-sensitivity"
+    buf = io.StringIO()
+    cli.write_batches(buf, cli.run_sample(
+        _cli_session(world, read_length=L),
+        dict(type=preset, first=fq[0], second=fq[1], output=None,
+             compress=False)))
+    want = buf.getvalue()
+    require(want.count(">") == P, "serve: run_sample's records")
+    # a short relative socket path (AF_UNIX paths are at most 107 bytes;
+    # the checkout's may be longer): the service runs in TMP_DIR
+    sock_abs = os.path.join(TMP_DIR, "serve.sock")
+    sock = os.path.relpath(sock_abs)
+    if len(sock) > len(sock_abs):
+        sock = sock_abs
+    outs = [os.path.join(TMP_DIR, f"serve_{i}.fa") for i in range(2)]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    err_path = os.path.join(TMP_DIR, "serve.err")
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--serve",
+             "serve.sock", "--taxons", taxtsv, "--index", index,
+             "--read-length", str(L)], cwd=TMP_DIR, env=env,
+            stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        while not os.path.exists(sock_abs):
+            require(proc.poll() is None and time.perf_counter() - t0 < 300,
+                    "serve: the service did not come up: "
+                    + open(err_path).read()[-2000:])
+            time.sleep(0.05)
+        listening_s = time.perf_counter() - t0
+        sample = f"-t {preset} -1 {fq[0]} -2 {fq[1]}"
+        replies, walls = [], []
+        for line in (f"{sample} -o {outs[0]}", f"{sample} -o {outs[1]}",
+                     sample, f"-t bogus-preset -1 {fq[0]} -o {outs[0]}x",
+                     f"-t tryptic-sensitivity -1 {fq[0]} -2 {fq[1]} "
+                     f"-o {outs[0]}x"):
+            t1 = time.perf_counter()
+            replies.append(_serve_request(sock, line))
+            walls.append(time.perf_counter() - t1)
+            if len(replies) == 1:
+                first_reply_s = time.perf_counter() - t0
+        bye = _serve_request(sock, "quit")
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    stderr = open(err_path).read()
+    require(rc == 0, f"serve: exit {rc}: {stderr[-2000:]}")
+    require(replies[0] == replies[1] == f"ok {P}\n",
+            f"serve: replies {replies[:2]}")
+    texts = [open(o).read() for o in outs]
+    require(texts[0] == texts[1] == replies[2] == want,
+            "serve: the outputs differ from each other, from the streamed "
+            "reply or from run_sample's records")
+    require(replies[3].startswith("error unknown preset 'bogus-preset'"),
+            f"serve: bad preset: {replies[3]!r}")
+    require(replies[4] == f"error index {index} is a kmer index but the "
+            "preset needs a peptide (tryptic) index\n",
+            f"serve: tryptic request: {replies[4]!r}")
+    require(bye == "bye\n" and not os.path.exists(sock_abs),
+            f"serve: quit answered {bye!r}")
+    phase = dict(listening_s=listening_s, first_reply_s=first_reply_s,
+                 request_s=dict(first=walls[0], second=walls[1],
+                                streamed=walls[2], bad_preset=walls[3],
+                                tryptic=walls[4]),
+                 pairs=P, seconds=time.perf_counter() - t_phase)
+    RESULT["phases"]["serve"] = phase
+    log(f"serve: listening after {listening_s:.1f} s, first reply after "
+        f"{first_reply_s:.1f} s; requests {walls[0]:.2f} / {walls[1]:.2f} s "
+        f"(-o, first / second), streamed {walls[2]:.2f} s; bad preset and "
+        f"tryptic errors, bye, exit 0; outputs == run_sample's records")
+
+
 class _HostMemPeak:
     """Peak resident host memory of this process above its level at the
     start, read from /proc/self/smaps in a loop, split by mapping:
@@ -3509,7 +3821,7 @@ def _trace_kernels(tdir):
 
 
 def phase_shards(torch, world):
-    """The resident phase's 268 M keys split by the port's owner_of into
+    """The resident phase's 134 M keys split by the port's owner_of into
     a 16-shard bucket64s buildindex-dist artifact, written, put on the
     card by ShardedTable.from_shards read into memory (a control) and
     memory-mapped, the host's memory split by mapping during each load; K2's grouped entry
@@ -3908,14 +4220,24 @@ def phase_mesh(torch, world, tryptic_taxa):
                                lookup.probe_plain(t, hi, lo, wvalid, 0)))
         require(not bool((got[1] & (own != d)).any()),
                 f"K2 slice d={d}: found a key another device owns")
+
+        def k2(t=t):
+            return lookup.probe(t, hi, lo, wvalid, 0)
+
+        # every valid query fetches a row of its (clipped) sub-table, as
+        # the grouped entry's bound in phase shards counts it
+        Q, n_valid = hi.numel(), int(wvalid.sum())
+        b, bb = bound(Q * 14 + n_valid * (4 * 64 + 32), n_valid * 70)
+        dms, dby = device_ms(torch, k2, reps=10, by=True)
         slices.append(dict(
             first=t.first, group=t.group, n_total=t.n_total,
             found=int(got[1].sum()), owned=int((wvalid & (own == d)).sum()),
-            ms=cuda_ms(torch, lambda t=t: lookup.probe(t, hi, lo, wvalid,
-                                                       0))))
+            ms=cuda_ms(torch, k2), device_ms=dms, device_ms_by=dby,
+            bound_ms=b, bound_by=bb, bound_share=b / dms))
     log("mesh K2 slices: equal to plain on " + ", ".join(
-        f"d={d} {s['found']} of {s['owned']} owned found, {s['ms']:.4f} ms"
-        for d, s in enumerate(slices)))
+        f"d={d} {s['found']} of {s['owned']} owned found, {s['ms']:.4f} ms "
+        f"({s['device_ms']:.4f} device, bound {s['bound_ms']:.4f}, "
+        f"{s['bound_share']:.0%})" for d, s in enumerate(slices)))
     del hi, lo, wvalid, own
 
     # high-sensitivity through the stream analyser over the mesh
@@ -5050,15 +5372,18 @@ def _instance_name(mangled):
     return name
 
 
-def sass_compare(before, source="umgap_tpu_torch/csrc/probe_kmer.cu"):
+def sass_compare(before, source="umgap_tpu_torch/csrc/probe_kmer.cu",
+                 new_arg=None):
     """Each kernel instance's SASS in ``source`` on this tree against the
     same file in the tree at ``before`` (the parent): both built by nvcc
     to a cubin with the kernels' flags, disassembled by cuobjdump, each
     instance's instructions compared with addresses and encodings
     stripped. Instances are matched by their template arguments (a new
-    argument changes a mangled name, not an instance). Writes
-    ``sass_<stem>.json`` under CHIP_SMOKE_OUT and returns {instance:
-    "identical (n instructions)" or "differs: ..."}."""
+    argument changes a mangled name, not an instance); ``new_arg``, a
+    template argument this tree appends (e.g. "Lb0E", a new ``false``),
+    is dropped from this tree's names first. Writes ``sass_<stem>.json``
+    under CHIP_SMOKE_OUT and returns {instance: "identical (n
+    instructions)" or "differs: ..."}."""
     import re
     import tempfile
 
@@ -5089,6 +5414,8 @@ def sass_compare(before, source="umgap_tpu_torch/csrc/probe_kmer.cu"):
         return out
 
     old, new = instances(before), instances(REPO)
+    if new_arg:
+        new = {k.replace(new_arg + ">", ">"): v for k, v in new.items()}
     res = {}
     for key in sorted(set(old) | set(new)):
         a, b = old.get(key), new.get(key)

@@ -983,6 +983,95 @@ def test_seedextend_kernel_global_deltas(dev, N):
     assert kernels.K3.launches == before[1]
 
 
+# seed scores of taxa 0-8 (0: no score, the penalty instead); taxon 11
+# lies past the table and scores the penalty too
+SEED_SCORES = np.array([0, 12, 0, 3, 12, 12, 0, 5, 12], np.int32)
+
+
+def _scored_lanes(rng, lanes, N):
+    """``_seed_lanes`` with a taxon past the score table, lanes opening
+    with a gap of 1 and 2 windows (b2's push with start > stop) and a
+    lane of two equal seeds (a tie: the last one is kept)."""
+    taxa, lens = _seed_lanes(rng, lanes, N)
+    taxa[(taxa == 6) & (rng.random(taxa.shape) < 0.3)] = 11
+    if lanes >= 4 and N >= 20:
+        taxa[1, :1], taxa[1, 1:6] = 0, 5
+        taxa[2, :2], taxa[2, 2:6] = 0, 7
+        taxa[3] = 0
+        taxa[3, 2:6] = taxa[3, N - 6:N - 2] = 4
+        lens[1:4] = N
+    return taxa, lens
+
+
+def _k3s_check(dev, taxa, lens, s, g, penalty, runs=False):
+    """K3's scored entry against the plain version (and against the row
+    formulation with ``runs``); one launch of the entry its width takes."""
+    tx = taxa if isinstance(taxa, torch.Tensor) else \
+        torch.from_numpy(taxa).to(dev)
+    ln = lens if isinstance(lens, torch.Tensor) else \
+        torch.from_numpy(lens).to(dev)
+    sc = torch.from_numpy(SEED_SCORES).to(dev)
+    k = (kernels.K3S if seedextend.seedextend_path(tx.shape[-1]) == "staged"
+         else kernels.K3RS)
+    before = k.launches, kernels.K3.launches, kernels.K3R.launches
+    got = seedextend.seedextend_hits(tx, ln, s, g, seed_scores=sc,
+                                     penalty=penalty)
+    assert (k.launches, kernels.K3.launches, kernels.K3R.launches) == (
+        before[0] + 1, before[1], before[2])
+    _eq((got,), (seedextend.seedextend_scored_hits_plain(
+        tx, ln, sc, penalty, s, g),))
+    if runs:
+        _eq((got,), (seedextend.seedextend_scored_runs_plain(
+            tx, ln, sc, penalty, s, g),))
+    return got
+
+
+@pytest.mark.parametrize("penalty", [0, 5, 9])
+@pytest.mark.parametrize("s", [2, 3, 4])
+@pytest.mark.parametrize("g", [0, 1, 2])
+def test_seedextend_scored_kernel(dev, s, g, penalty):
+    """K3's scored entries on both sides of the staged tile's edge: the
+    template widths (25, 45), an even one (52), 96 (the tile's last) and
+    97, 130 (the row kernel), lane counts no multiple of a block's."""
+    rng = np.random.default_rng(100 * penalty + 10 * s + g)
+    for N in (25, 45, 52, 96, 97, 130):
+        for lanes in (1, 63, 1001):
+            _k3s_check(dev, *_scored_lanes(rng, lanes, N), s, g, penalty,
+                       runs=N > 96)
+
+
+def test_seedextend_scored_kernel_shapes_and_alignment(dev):
+    """(B, 6, W) lanes as the pipeline passes them, taxa off a 16-byte
+    boundary, and a lane whose only push is b2's (start > stop, a
+    negative score) next to one with no push."""
+    rng = np.random.default_rng(6)
+    taxa, lens = _scored_lanes(rng, 6 * 700, 45)
+    _k3s_check(dev, torch.from_numpy(taxa.reshape(700, 6, 45)).to(dev),
+               torch.from_numpy(lens.reshape(700, 6)).to(dev), 3, 1, 5)
+    for N in (25, 42, 121):  # rows of 100, 168, 484 bytes
+        taxa, lens = _scored_lanes(rng, 501, N)
+        big = torch.from_numpy(taxa).to(dev)
+        assert big[1:].data_ptr() % 16
+        _k3s_check(dev, big[1:], torch.from_numpy(lens[1:]).to(dev), 2, 1,
+                   5)
+    taxa = np.zeros((3, 30), np.int32)
+    taxa[:2, 1] = 5  # g = 1: b2 at position 1; the flush pushes [2, 1)
+    taxa[1, 6:9] = 7  # b1 pushes [2, 1), the flush [6, 9)
+    got = _k3s_check(dev, taxa, np.full(3, 30, np.int32), 1, 1, 5)
+    assert not got[0].any() and not got[2].any() and got[1, 6:9].all()
+
+
+@pytest.mark.parametrize("N", LADDER_W + (4000,))
+def test_seedextend_scored_rows_kernel(dev, N):
+    """K3's scored row kernel at each rung of the width ladder and at
+    4,000 windows, against the plain version and the row formulation."""
+    rng = np.random.default_rng(N + 1)
+    taxa, lens = _scored_lanes(rng, 131, N)
+    taxa[5] = np.arange(N) % 3  # one-window runs
+    for s, g, penalty in ((2, 0, 5), (3, 1, 0), (1, 2, 9)):
+        _k3s_check(dev, taxa, lens, s, g, penalty, runs=True)
+
+
 @pytest.mark.parametrize("N", tuple(12 * w for w in LADDER_W) + (24576,))
 @pytest.mark.parametrize("k_max", [64, 30000])
 def test_dedup_kernel_global_path(dev, N, k_max):

@@ -185,12 +185,17 @@ def test_unported_options_refuse(world):
     with pytest.raises(ValueError, match="DeviceEuler"):
         Analyser(None, None, PRESETS["max-sensitivity"]._replace(
             strategy="lca*"), dtax=dtax, dtable=dtable, device="cpu")
-    keys = np.arange(1, 5000, dtype=np.uint64)
-    with pytest.raises(NotImplementedError):
-        from umgap_tpu_torch.index.table import KmerTable
+    # the dense conveyor build (max_probe_limit=1, the default as in
+    # umgap_tpu) is ported: tests/test_torch_conveyor.py holds it to
+    # umgap_tpu array by array
+    from umgap_tpu_torch.index.table import KmerTable
+    from umgap_tpu_torch.ops.kmers import split_packed
 
-        KmerTable.build(keys, np.ones(len(keys), np.int32), 9,
-                        max_probe_limit=1)
+    keys = np.arange(1, 5000, dtype=np.uint64)
+    kt = KmerTable.build(keys, np.ones(len(keys), np.int32), 9,
+                         max_probe_limit=1)
+    _vals, found = kt.probe_host(*split_packed(keys))
+    assert found.all()
 
 
 def _smoke(cwd, env=None):

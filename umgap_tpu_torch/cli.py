@@ -54,8 +54,15 @@ mesh and of the least free device memory over the mesh. Under ``--mesh``
 the FGSpp presets run six-frame translation (``--fgspp require`` is
 refused), and under ``--shards`` a record beyond the top device width
 is an error, as in ``umgap_tpu``. ``--trace-dir`` writes a
-``torch.profiler`` Chrome trace of the run. Not in this port yet,
-refused with a clear error rather than run differently: ``--serve``.
+``torch.profiler`` Chrome trace of the run.
+
+``--serve SOCKET`` keeps the run going after its samples (there may be
+none) as ``umgap_tpu``'s service does (:func:`_serve_analyse`): each
+connection to the Unix socket sends one request line of
+``-t/-1/-2/-z/-o`` tokens and gets ``ok <n>`` a written sample, or the
+FASTA streamed back without ``-o``, or ``error <msg>``; ``quit`` stops
+it. The taxonomy, the indexes (each loaded at its family's first use) and
+the analysers stay on the device across requests.
 """
 
 from __future__ import annotations
@@ -88,11 +95,15 @@ class _SampleAction(argparse.Action):
             setattr(namespace, self.dest, values)
 
 
-def _samples(args):
+def _samples(args, allow_empty: bool = False):
     """Each ``-o`` closes a sample and resets type, inputs and ``-z`` to
     their defaults (umgap-analyse.sh:208-213); without ``-o`` the whole
-    invocation is one stdout sample."""
-    seq = getattr(args, "_sequence", []) or []
+    invocation is one stdout sample. ``--serve`` may have none."""
+    return _samples_from_seq(getattr(args, "_sequence", []) or [],
+                             allow_empty)
+
+
+def _samples_from_seq(seq, allow_empty: bool = False):
     samples = []
     fresh = dict(type="high-precision", first=None, second=None,
                  compress=False, output=None)
@@ -113,15 +124,9 @@ def _samples(args):
         samples.append(cur)
     elif cur["first"] is not None:
         raise CliError("Trailing input files without an output file.")
-    if not samples:
+    if not samples and not allow_empty:
         raise CliError("No samples given (need at least -1 <reads>).")
     return samples
-
-
-class _Unsupported(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        raise CliError(f"{option_string} is not supported by umgap_tpu_torch "
-                       "yet")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -179,8 +184,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "build workdir (or its shards/ directory); the "
                          "shard count must be a multiple of the mesh size. "
                          "Implies --mesh auto. 9-mer presets only")
-    sp.add_argument("--serve", action=_Unsupported, nargs="?",
-                    help=argparse.SUPPRESS)
+    sp.add_argument("--serve", default=None, metavar="SOCKET",
+                    help="after any initial samples, keep serving: each "
+                         "Unix-socket connection sends one request line "
+                         "(-t TYPE -1 R1 [-2 R2] [-z] [-o OUT], "
+                         "repeatable) and gets 'ok <n>' per written output "
+                         "(or the FASTA streamed back without -o); the "
+                         "taxonomy, indexes and analysers stay on the "
+                         "device across requests ('quit' stops it)")
     return p
 
 
@@ -405,14 +416,15 @@ def _shards_taxons(args, manifest) -> str:
 
 
 class AnalyseSession:
-    """What one ``analyse`` invocation shares across its samples: the
-    parsed arguments, the mesh of a ``--mesh`` or ``--shards`` run (None
-    otherwise), the taxonomy on the host and on the device, one index a
-    family (``tables[tryptic]``: host table, or None for a ``--shards``
-    artifact, and device table, or None where a mesh of more than one
-    device serves it; :meth:`device_table`), the sharded tables of such
-    a mesh (``stables[tryptic]``), and one analyser per (preset, batch,
-    width, ends)."""
+    """What one ``analyse`` invocation shares across its samples (and
+    ``--serve`` requests): the parsed arguments, the mesh of a ``--mesh``
+    or ``--shards`` run (None otherwise), the taxonomy on the host and on
+    the device, one index a family (``tables[tryptic]``: host table, or
+    None for a ``--shards`` artifact, and device table, or None where a
+    mesh of more than one device serves it; :meth:`device_table`), the
+    sharded tables of such a mesh (``stables[tryptic]``), and one
+    analyser per (preset, batch, width, ends). A family's data is loaded
+    at its first use (:meth:`load_family`)."""
 
     def __init__(self, args, tax, tables, dtax, device, mesh=None,
                  stables=None):
@@ -434,77 +446,80 @@ class AnalyseSession:
 
     @classmethod
     def load(cls, args, samples, device=None) -> "AnalyseSession":
-        """The mesh, the taxonomy (that of the first sample's family, as
-        ``umgap_tpu`` loads it) and the index of each family the samples
-        need; an index of the wrong family is refused. Under ``--shards``
-        the 9-mer presets take the artifact, a group of shards a device;
-        under ``--mesh`` over more than one device an index is split on
-        the host into one shard a device (``umgap_tpu``'s re-split: a
-        tryptic index needs stored keys); at one device it is served as
-        it is."""
-        from .agg.device import DeviceTaxonomy
+        """The mesh, then the data of each family the samples need, in
+        their order (:meth:`load_family`)."""
         from .device import resolve_device
-        from .index.table import load_table
-        from .ops.lookup import DeviceTable
         from .parallel import make_mesh
-        from .taxonomy import Taxonomy, read_taxa_file
 
         device = resolve_device(args.device) if device is None else device
         mesh_arg = _mesh_arg(args)
         mesh = None if mesh_arg is None else make_mesh(mesh_arg, device)
-        split = mesh is not None and len(mesh) > 1
-        shards = None
-        if mesh is not None and args.shards is not None and any(
-                not _is_tryptic(s["type"]) for s in samples):
-            shards = _shards_workdir(args, mesh)
-        tax = None
-        tables, stables = {}, {}
+        session = cls(args, None, {}, None, device, mesh)
         for s in samples:
-            tryptic = _is_tryptic(s["type"])
-            if tryptic in tables:
-                continue
-            if shards is not None and not tryptic:
-                from .index import distbuild
-                from .parallel import ShardedTable
+            session.load_family(_is_tryptic(s["type"]))
+        return session
 
-                workdir, manifest = shards
-                if tax is None:
-                    tax = Taxonomy(read_taxa_file(
-                        _shards_taxons(args, manifest)))
-                try:
-                    stable = ShardedTable.from_shards(
-                        distbuild.load_shards(workdir, mmap=True), mesh)
-                except (FileNotFoundError, RuntimeError, ValueError) as e:
-                    raise CliError(str(e))
-                if split:
-                    stables[False] = stable
-                    tables[False] = (None, None)
-                else:
-                    tables[False] = (None, stable.table)
-                continue
-            taxons, index = _data_paths(args, tryptic)
-            if tax is None:
-                tax = Taxonomy(read_taxa_file(taxons))
-            table = load_table(index, mmap=True)
-            if (table.kind == "peptide") != tryptic:
-                # an index of the wrong family would probe garbage and
-                # give taxon 1 everywhere
-                need = "peptide (tryptic)" if tryptic else "9-mer"
-                raise CliError(
-                    f"index {index} is a {table.kind} index but the "
-                    f"preset {s['type']} needs a {need} index")
-            if mesh is not None and tryptic and table.raw_keys is None:
-                raise CliError(
-                    "--mesh tryptic serving needs an index built with "
-                    "stored keys (the default buildindex output)")
+    def load_family(self, tryptic: bool) -> None:
+        """The taxonomy (that of the first family loaded, as
+        ``umgap_tpu`` loads it) and the family's index, unless loaded; an
+        index of the wrong family is refused with ``umgap_tpu``'s message.
+        Under ``--shards`` the 9-mer presets take the artifact, a group of
+        shards a device, after ``umgap_tpu``'s checks; under ``--mesh``
+        over more than one device an index is split on the host into one
+        shard a device (``umgap_tpu``'s re-split: a tryptic index needs
+        stored keys); at one device it is served as it is."""
+        from .index.table import load_table
+        from .ops.lookup import DeviceTable
+
+        if tryptic in self.tables:
+            return
+        args, mesh = self.args, self.mesh
+        split = mesh is not None and len(mesh) > 1
+        if mesh is not None and getattr(args, "shards", None) is not None \
+                and not tryptic:
+            from .index import distbuild
+            from .parallel import ShardedTable
+
+            workdir, manifest = _shards_workdir(args, mesh)
+            try:
+                stable = ShardedTable.from_shards(
+                    distbuild.load_shards(workdir, mmap=True), mesh)
+            except (FileNotFoundError, RuntimeError, ValueError) as e:
+                raise CliError(str(e))
+            self._set_taxonomy(_shards_taxons(args, manifest))
             if split:
-                stables[tryptic] = _split_index(table, mesh)
-                tables[tryptic] = (table, None)
+                self.stables[False] = stable
+                self.tables[False] = (None, None)
             else:
-                tables[tryptic] = (table, DeviceTable.from_host(table,
-                                                                device))
-        return cls(args, tax, tables, DeviceTaxonomy.from_host(tax, device),
-                   device, mesh, stables)
+                self.tables[False] = (None, stable.table)
+            return
+        taxons, index = _data_paths(args, tryptic)
+        self._set_taxonomy(taxons)
+        table = load_table(index, mmap=True)
+        if (table.kind == "peptide") != tryptic:
+            # an index of the wrong family would probe garbage and give
+            # taxon 1 everywhere
+            need = "peptide (tryptic)" if tryptic else "9-mer"
+            raise CliError(f"index {index} is a {table.kind} index but the "
+                           f"preset needs a {need} index")
+        if mesh is not None and tryptic and table.raw_keys is None:
+            raise CliError(
+                "--mesh tryptic serving needs an index built with stored "
+                "keys (the default buildindex output)")
+        if split:
+            self.stables[tryptic] = _split_index(table, mesh)
+            self.tables[tryptic] = (table, None)
+        else:
+            self.tables[tryptic] = (table, DeviceTable.from_host(
+                table, self.device))
+
+    def _set_taxonomy(self, taxons: str) -> None:
+        from .agg.device import DeviceTaxonomy
+        from .taxonomy import Taxonomy, read_taxa_file
+
+        if self.tax is None:
+            self.tax = Taxonomy(read_taxa_file(taxons))
+            self.dtax = DeviceTaxonomy.from_host(self.tax, self.device)
 
     def device_table(self, tryptic: bool):
         """The family's index as one table on the session's device: what
@@ -837,6 +852,7 @@ def run_sample(session: AnalyseSession, sample):
     from . import fgspp
     from .io.native import StreamUnsupported, ensure_built
 
+    session.load_family(_is_tryptic(sample["type"]))
     if sample["type"] in fgspp.FGSPP_PRESETS and \
             session.args.fgspp != "never":
         if session.sharded:
@@ -903,31 +919,139 @@ def write_batches(handle, batches) -> int:
     return n
 
 
+def process_sample(session: AnalyseSession, sample, default_out) -> int:
+    """One sample end to end, written to its ``-o`` file (gzipped with
+    ``-z``) or to ``default_out``; returns its record count."""
+    out = sample["output"]
+    if out in (None, "-"):
+        return write_batches(default_out, run_sample(session, sample))
+    if sample["compress"]:
+        import gzip
+
+        handle = gzip.open(out, "wt")
+    else:
+        handle = open(out, "w")
+    with handle:
+        return write_batches(handle, run_sample(session, sample))
+
+
 def cmd_analyse(args, stdout):
     from .device import resolve_device
     from .utils.profiling import device_trace
 
-    samples = _samples(args)
+    samples = _samples(args, allow_empty=bool(args.serve))
     device = resolve_device(args.device)
     # the trace holds the index's way to the device too, as umgap_tpu's
     # does (its samples load their data lazily)
     with device_trace(args.trace_dir, device):
         session = AnalyseSession.load(args, samples, device)
         for sample in samples:
-            out = sample["output"]
-            if out in (None, "-"):
-                handle = stdout
-            elif sample["compress"]:
-                import gzip
+            process_sample(session, sample, stdout)
+        if args.serve:
+            _serve_analyse(args.serve, session)
 
-                handle = gzip.open(out, "wt")
-            else:
-                handle = open(out, "w")
+
+def _serve_analyse(socket_path: str, session: AnalyseSession) -> None:
+    """The sample service on a Unix socket (umgap_tpu/cli.py:1827-1909,
+    byte for byte in its replies): one request line a connection, read
+    with a 30 s timeout (cleared before the pipeline runs), split as a
+    shell would into ``-t/-1/-2/-z/-o`` tokens
+    (:func:`_parse_analyse_request`). A sample with ``-o`` answers
+    ``ok <n>`` once written; without, its FASTA streams back. A failed
+    request answers ``error <msg>`` (even mid-stream: FASTA replies hold
+    only '>' headers and digit lines) and the service goes on; ``quit``
+    answers ``bye`` and stops it. The socket is removed on exit."""
+    import os
+    import shlex
+    import socket
+
+    try:
+        os.unlink(socket_path)
+    except FileNotFoundError:
+        pass
+    srv = socket.socket(socket.AF_UNIX)
+    srv.bind(socket_path)
+    srv.listen(8)
+    _note(f"analyse service listening on {socket_path}")
+    try:
+        while True:
+            conn, _addr = srv.accept()
+            # a silent client must not wedge the service (the request
+            # line only); makefile() handles keep the socket open past
+            # conn.close(), so they are closed too, and the peer sees EOF
+            conn.settimeout(30)
+            rfile = conn.makefile("r")
+            wfile = conn.makefile("w")
+            stop = False
             try:
-                write_batches(handle, run_sample(session, sample))
+                line = rfile.readline()
+                conn.settimeout(None)
+                if line and line.strip() == "quit":
+                    wfile.write("bye\n")
+                    wfile.flush()
+                    stop = True
+                elif line:
+                    try:
+                        for sample in _parse_analyse_request(
+                                shlex.split(line)):
+                            n = process_sample(session, sample, wfile)
+                            if sample["output"] not in (None, "-"):
+                                wfile.write(f"ok {n}\n")
+                        wfile.flush()
+                    except BrokenPipeError:
+                        pass
+                    except Exception as e:  # noqa: BLE001 — keep serving
+                        try:
+                            wfile.write(f"error {e}\n")
+                            wfile.flush()
+                        except OSError:
+                            pass
+            except OSError:
+                pass  # the client went away mid-handshake
             finally:
-                if handle is not stdout:
-                    handle.close()
+                for h in (wfile, rfile):
+                    try:
+                        h.close()
+                    except OSError:
+                        pass
+                conn.close()
+            if stop:
+                break
+    finally:
+        srv.close()
+        try:
+            os.unlink(socket_path)
+        except FileNotFoundError:
+            pass
+
+
+def _parse_analyse_request(tokens):
+    """A request's tokens -> samples, as the command line's repeated
+    ``-1/-2/-t/-z/-o`` groups make them (umgap_tpu/cli.py:1912-1941)."""
+    flags = {"-t": "type", "--type": "type", "-1": "first",
+             "--first": "first", "-2": "second", "--second": "second",
+             "-o": "output", "--output": "output"}
+    presets = set(PRESETS) | set(TRYPTIC_PRESETS)
+    seq = []
+    i = 0
+    while i < len(tokens):
+        tok = tokens[i]
+        if tok in ("-z", "--compress"):
+            seq.append(("compress", None))
+            i += 1
+        elif tok in flags:
+            if i + 1 >= len(tokens):
+                raise CliError(f"missing value for {tok}")
+            val = tokens[i + 1]
+            if flags[tok] == "type" and val not in presets:
+                raise CliError(
+                    f"unknown preset {val!r} (choose from "
+                    f"{', '.join(sorted(presets))})")
+            seq.append((flags[tok], val))
+            i += 2
+        else:
+            raise CliError(f"unknown request token {tok!r}")
+    return _samples_from_seq(seq)
 
 
 def main(argv=None, stdout=None) -> int:

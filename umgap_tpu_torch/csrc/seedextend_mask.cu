@@ -66,8 +66,32 @@
 // No block barrier anywhere; a block holds kRowWarps independent lanes.
 // ops/seedextend.py seedextend_runs_plain is the same formulation in
 // PyTorch.
+//
+// The scored entries (seedextend_scored, seedextend_rows_scored) replace
+// umgap_tpu/ops/seedextend.py:221 seedextend_scored_mask_batch and the
+// select after it (the reference's `seedextend -r`,
+// src/commands/seedextend.rs:151-164): of a lane's pushes (b1's, then
+// the final flush) only the one with the highest score is kept, the last
+// of equal ones. A push's score is prefix[stop] - prefix[start] over the
+// per-position scores (seed_scores[t] where 0 <= t < size and it is > 0,
+// else the penalty; positions past the length and the sentinel score as
+// taxon 0), a push with start > stop (out of b2's gap) included. The JAX
+// form builds an (N + 1, lanes) candidate tensor and a prefix row; here
+// the lane carries three prefix values as it walks: P, the prefix at the
+// current step; the prefix at `start`; and the prefix at end - same_tid,
+// the stop of the next b1 push (unchanged by a `same` step, moved one
+// position on by b2, set to P by b1 and b3). It keeps the best (score,
+// start, stop) with >=, and the epilogue writes the taxa of
+// [start, stop) inside the length, 0 elsewhere. The staged tile needs no
+// delta row for it; the row kernel steps P over a run as run length x
+// the run's score (the taxon is constant between two candidates), lists
+// no intervals and writes the row once, at the end. Only the hits
+// epilogue exists in the scored mode. ops/seedextend.py
+// seedextend_scored_runs_plain is the row kernel's formulation in
+// PyTorch.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "packed_args.cuh"
@@ -114,12 +138,88 @@ __device__ __forceinline__ void scan_seeds(int N, int s, int g, Tx tx,
   }
 }
 
-// NT: the row width W as a constant, or 0 for the runtime N_rt.
-template <int NT>
+// A taxon's score in the scored mode: seed_scores[t] where 0 <= t < size
+// and it is > 0, else the penalty. s0 is taxon 0's (gaps, the sentinel),
+// set by init() in the kernel.
+struct SeedScore {
+  const int32_t* __restrict__ tab;
+  int size, penalty, s0;
+
+  __device__ __forceinline__ void init() {
+    const int v = size > 0 ? __ldg(tab) : 0;
+    s0 = v > 0 ? v : penalty;
+  }
+
+  __device__ __forceinline__ int operator()(int32_t t) const {
+    if (t == 0) return s0;
+    if ((unsigned)t >= (unsigned)size) return penalty;
+    const int v = __ldg(tab + t);
+    return v > 0 ? v : penalty;
+  }
+};
+
+// The state machine of scan_seeds with the running prefixes of the
+// scored mode (see the note at the top): returns the best push's
+// (start, stop), or (0, 0) when the lane pushes nothing.
+template <typename Tx>
+__device__ __forceinline__ int2 scan_seeds_scored(int N, int s, int g,
+                                                  Tx tx, SeedScore sc) {
+  int start = 0, same_tid = 1, same_max = 1;
+  int32_t last = tx(0);
+  int32_t cur = tx(1);
+  int P = sc(last);  // prefix[end]: the scores of positions < end
+  int p_start = 0;   // prefix[start]
+  int p_run = 0;     // prefix[end - same_tid]
+  int best = INT_MIN;
+  int2 kept = make_int2(0, 0);
+  for (int end = 1; end <= N; ++end) {
+    const int32_t nxt = tx(end + 1);  // loaded one step ahead
+    const int s_cur = sc(cur);
+    const bool same = last == cur;
+    const bool b1 = !same && last == 0 && same_tid > g;
+    const bool b2 = !same && !b1 && last == 0 && (end - start) == same_tid;
+    const bool b3 = !same && !b1 && !b2;
+    if (b1 && same_max >= s) {
+      const int score = p_run - p_start;
+      if (score >= best) {
+        best = score;
+        kept = make_int2(start, end - same_tid);
+      }
+    }
+    const int n_p_start = b1 ? P : (b2 ? P + s_cur : p_start);
+    const int n_p_run =
+        same ? p_run : (b2 ? p_run + sc(tx(end - same_tid)) : P);
+    const int n_start = b1 ? end : (b2 ? end + 1 : start);
+    const int32_t n_last = (same || b2) ? last : cur;
+    const int n_same_tid = same ? same_tid + 1 : (b2 ? same_tid : 1);
+    const int n_same_max =
+        b1 ? 1
+           : ((b3 && last != 0) ? (same_max > same_tid ? same_max : same_tid)
+                                : same_max);
+    start = n_start;
+    last = n_last;
+    same_tid = n_same_tid;
+    same_max = n_same_max;
+    p_start = n_p_start;
+    p_run = n_p_run;
+    P += s_cur;
+    cur = nxt;
+  }
+  if (same_max >= s) {  // the final flush; P is prefix[N + 1]
+    const int score = (last == 0 ? p_run : P) - p_start;
+    if (score >= best)
+      kept = make_int2(start, last == 0 ? N + 1 - same_tid : N + 1);
+  }
+  return kept;
+}
+
+// NT: the row width W as a constant, or 0 for the runtime N_rt. SCORED:
+// the scored mode (hits only, no delta row).
+template <int NT, bool SCORED>
 __global__ void __launch_bounds__(MAX_T) seedextend_staged_kernel(
     const int32_t* __restrict__ taxa, const int32_t* __restrict__ lengths,
     long long lanes, int N_rt, int s, int g, void* __restrict__ out,
-    int hits, int vec_load) {
+    int hits, int vec_load, SeedScore sc) {
   const int N = NT ? NT : N_rt;
   const int S = N | 1;  // odd row stride (words)
   const int T = blockDim.x;
@@ -159,7 +259,19 @@ __global__ void __launch_bounds__(MAX_T) seedextend_staged_kernel(
   __syncthreads();
 
   // ---- one lane a thread: the state machine, then the row in place ---
-  if (tid < nl) {
+  if constexpr (SCORED) {
+    sc.init();
+    if (tid < nl) {
+      const int len = lengths[lane0 + tid];
+      int32_t* row = s_tax + tid * S;
+      const int2 kept = scan_seeds_scored(
+          N, s, g,
+          [&](int p) -> int32_t { return (p < N && p < len) ? row[p] : 0; },
+          sc);
+      for (int p = 0; p < N; ++p)
+        if (p < kept.x || p >= kept.y || p >= len) row[p] = 0;
+    }
+  } else if (tid < nl) {
     const int len = lengths[lane0 + tid];
     int32_t* row = s_tax + tid * S;
     int16_t* d = s_delta + tid;
@@ -269,11 +381,13 @@ __device__ void write_decided(const int32_t* __restrict__ t, int len,
 
 // One warp a lane: the state machine over the positions where it can
 // change state, kept intervals in shared memory, decided windows written
-// coalesced (see the note at the top).
-template <bool HITS>
+// coalesced (see the note at the top). SCORED: the scored mode (HITS
+// only), the best push alone, the row written once at the end.
+template <bool HITS, bool SCORED>
 __global__ void __launch_bounds__(kRowWarps * 32) seedextend_rows_kernel(
     const int32_t* __restrict__ taxa, const int32_t* __restrict__ lengths,
-    long long lanes, int N, int s, int g, void* __restrict__ out) {
+    long long lanes, int N, int s, int g, void* __restrict__ out,
+    SeedScore sc) {
   __shared__ int2 s_iv[kRowWarps][kIvCap];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kRowWarps + warp;
@@ -290,6 +404,15 @@ __global__ void __launch_bounds__(kRowWarps * 32) seedextend_rows_kernel(
   int n_iv = 0, w = 0;  // windows [0, w) are written
   bool extra = false;   // b2's next position opens the next 32 windows
   int32_t carry = last;  // the window before the next 32
+  // the scored mode's prefixes (see the note at the top): at e0, at
+  // start and at e0 - same_tid; the score of the run from e0 on; the
+  // best push so far
+  int p_e0 = 0, p_start = 0, p_run = 0, s_run = 0, best = INT_MIN;
+  int2 kept = make_int2(0, 0);
+  if constexpr (SCORED) {
+    sc.init();
+    p_e0 = s_run = sc(last);
+  }
 
   // x is 0 from the lane's length on (the sentinel at N included), so
   // nothing changes state past position len
@@ -320,12 +443,25 @@ __global__ void __launch_bounds__(kRowWarps * 32) seedextend_rows_kernel(
         const int32_t cur = __shfl_sync(FULL, x, b);
         const int end = cb + b;
         const int tid = same_tid + (end - e0);  // the `same` steps between
+        int p_end = 0, s_cur = 0;
+        if constexpr (SCORED) {
+          p_end = p_e0 + (end - e0) * s_run;  // the taxon is constant
+          s_cur = sc(cur);
+          p_e0 = p_end + s_cur;
+          s_run = s_cur;
+        }
         e0 = end + 1;
         if (last == cur) {
           same_tid = tid + 1;
         } else if (last == 0 && tid > g) {  // b1: a gap longer than g
           const int stop = end - tid;
-          if (same_max >= s && start < stop) {
+          if constexpr (SCORED) {
+            if (same_max >= s && p_run - p_start >= best) {
+              best = p_run - p_start;
+              kept = make_int2(start, stop);
+            }
+            p_start = p_run = p_end;
+          } else if (same_max >= s && start < stop) {
             if (lane == 0) iv[n_iv] = make_int2(start, stop);
             if (++n_iv == kIvCap) {  // windows before `end` are decided
               write_decided<HITS>(t, len, w, end, iv, n_iv, o, lane);
@@ -338,6 +474,11 @@ __global__ void __launch_bounds__(kRowWarps * 32) seedextend_rows_kernel(
           same_tid = 1;
           same_max = 1;
         } else if (last == 0 && end - start == tid) {  // b2: leading gap
+          if constexpr (SCORED) {
+            const int q = end - tid;  // the run's stop moves on by one
+            p_run += sc(q < len ? t[q] : 0);
+            p_start = p_end + s_cur;
+          }
           start = end + 1;
           same_tid = tid;
           if (b < 31)
@@ -345,46 +486,74 @@ __global__ void __launch_bounds__(kRowWarps * 32) seedextend_rows_kernel(
           else
             extra = true;
         } else {  // b3
+          if constexpr (SCORED) p_run = p_end;
           if (last != 0) same_max = max(same_max, tid);
           last = cur;
           same_tid = 1;
         }
       }
     }
-    if (start - w >= kFlushSpan) {
+    if (!SCORED && start - w >= kFlushSpan) {
       write_decided<HITS>(t, len, w, start, iv, n_iv, o, lane);
       w = start;
       n_iv = 0;
     }
   }
-  same_tid += N + 1 - e0;
-  if (same_max >= s) {  // the final flush trims a trailing gap
-    const int stop = min(last == 0 ? N + 1 - same_tid : N + 1, N);
-    if (start < stop) {
-      if (lane == 0) iv[n_iv] = make_int2(start, stop);
-      ++n_iv;
+  const int tail = N + 1 - e0;  // the `same` steps to the sentinel
+  same_tid += tail;
+  if constexpr (SCORED) {
+    // the final flush; prefix[N + 1] = p_e0 + tail * s_run
+    if (same_max >= s &&
+        (last == 0 ? p_run : p_e0 + tail * s_run) - p_start >= best)
+      kept = make_int2(start, last == 0 ? N + 1 - same_tid : N + 1);
+    if (lane == 0) iv[0] = kept;
+    write_decided<HITS>(t, len, 0, N, iv, 1, o, lane);
+  } else {
+    if (same_max >= s) {  // the final flush trims a trailing gap
+      const int stop = min(last == 0 ? N + 1 - same_tid : N + 1, N);
+      if (start < stop) {
+        if (lane == 0) iv[n_iv] = make_int2(start, stop);
+        ++n_iv;
+      }
     }
+    write_decided<HITS>(t, len, w, N, iv, n_iv, o, lane);
   }
-  write_decided<HITS>(t, len, w, N, iv, n_iv, o, lane);
 }
 
-template <int NT>
+template <int NT, bool SCORED>
 int launch_staged(const void* taxa, const void* lengths, long long lanes,
                   int N, int s, int g, void* out, int hits, int T,
-                  cudaStream_t stream) {
-  const size_t smem = (size_t)T * (N | 1) * 4 + (size_t)T * N * 2;
+                  SeedScore sc, cudaStream_t stream) {
+  const size_t smem =
+      (size_t)T * (N | 1) * 4 + (SCORED ? 0 : (size_t)T * N * 2);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        seedextend_staged_kernel<NT>,
+        seedextend_staged_kernel<NT, SCORED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int vec_load = ((uintptr_t)taxa & 15) == 0;
   const long long blocks = (lanes + T - 1) / T;
-  seedextend_staged_kernel<NT><<<(unsigned)blocks, T, smem, stream>>>(
+  seedextend_staged_kernel<NT, SCORED><<<(unsigned)blocks, T, smem,
+                                         stream>>>(
       (const int32_t*)taxa, (const int32_t*)lengths, lanes, N, s, g, out,
-      hits, vec_load);
+      hits, vec_load, sc);
   return (int)cudaGetLastError();
+}
+
+template <bool SCORED>
+int launch_staged_n(const void* taxa, const void* lengths, long long lanes,
+                    int N, int s, int g, void* out, int hits, int T,
+                    SeedScore sc, cudaStream_t stream) {
+  if (T < 16 || T > MAX_T || T % 16) return (int)cudaErrorInvalidValue;
+  if (N == 25)
+    return launch_staged<25, SCORED>(taxa, lengths, lanes, N, s, g, out,
+                                     hits, T, sc, stream);
+  if (N == 45)
+    return launch_staged<45, SCORED>(taxa, lengths, lanes, N, s, g, out,
+                                     hits, T, sc, stream);
+  return launch_staged<0, SCORED>(taxa, lengths, lanes, N, s, g, out, hits,
+                                  T, sc, stream);
 }
 
 }  // namespace
@@ -401,16 +570,9 @@ extern "C" int seedextend_mask(const void* taxa, const void* lengths,
                                int max_gap_size, void* out, int hits, int T,
                                void* stream) {
   if (lanes <= 0 || N <= 0) return 0;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (T < 16 || T > MAX_T || T % 16) return (int)cudaErrorInvalidValue;
-  if (N == 25)
-    return launch_staged<25>(taxa, lengths, lanes, N, min_seed_size,
-                             max_gap_size, out, hits, T, st);
-  if (N == 45)
-    return launch_staged<45>(taxa, lengths, lanes, N, min_seed_size,
-                             max_gap_size, out, hits, T, st);
-  return launch_staged<0>(taxa, lengths, lanes, N, min_seed_size,
-                          max_gap_size, out, hits, T, st);
+  return launch_staged_n<false>(taxa, lengths, lanes, N, min_seed_size,
+                                max_gap_size, out, hits, T, SeedScore{},
+                                (cudaStream_t)stream);
 }
 
 extern "C" int seedextend_mask_packed(const void* args) {
@@ -429,15 +591,16 @@ extern "C" int seedextend_rows(const void* taxa, const void* lengths,
   if (lanes <= 0 || N <= 0) return 0;
   const long long blocks = (lanes + kRowWarps - 1) / kRowWarps;
   if (hits)
-    seedextend_rows_kernel<true><<<(unsigned)blocks, kRowWarps * 32, 0,
-                                   (cudaStream_t)stream>>>(
+    seedextend_rows_kernel<true, false><<<(unsigned)blocks, kRowWarps * 32,
+                                          0, (cudaStream_t)stream>>>(
         (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
-        min_seed_size, max_gap_size, out);
+        min_seed_size, max_gap_size, out, SeedScore{});
   else
-    seedextend_rows_kernel<false><<<(unsigned)blocks, kRowWarps * 32, 0,
-                                    (cudaStream_t)stream>>>(
+    seedextend_rows_kernel<false, false><<<(unsigned)blocks,
+                                           kRowWarps * 32, 0,
+                                           (cudaStream_t)stream>>>(
         (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
-        min_seed_size, max_gap_size, out);
+        min_seed_size, max_gap_size, out, SeedScore{});
   return (int)cudaGetLastError();
 }
 
@@ -446,4 +609,53 @@ extern "C" int seedextend_rows_packed(const void* args) {
   return seedextend_rows(a.ptr(0), a.ptr(1), a.i(2), (int)a.i(3),
                          (int)a.i(4), (int)a.i(5), a.ptr(6), (int)a.i(7),
                          a.ptr(8));
+}
+
+// The scored entries (see the note at the top): out (lanes, N) int32, the
+// taxa of each lane's best push inside its length, 0 elsewhere;
+// seed_scores (size,) int32 on the card. The staged tile, T lanes a
+// block, for rows of up to 96 windows.
+extern "C" int seedextend_scored(const void* taxa, const void* lengths,
+                                 long long lanes, int N, int min_seed_size,
+                                 int max_gap_size, const void* seed_scores,
+                                 int size, int penalty, void* out, int T,
+                                 void* stream) {
+  if (lanes <= 0 || N <= 0) return 0;
+  return launch_staged_n<true>(taxa, lengths, lanes, N, min_seed_size,
+                               max_gap_size, out, 1, T,
+                               SeedScore{(const int32_t*)seed_scores, size,
+                                         penalty, 0},
+                               (cudaStream_t)stream);
+}
+
+extern "C" int seedextend_scored_packed(const void* args) {
+  const PackedArgs a{(const unsigned char*)args};
+  return seedextend_scored(a.ptr(0), a.ptr(1), a.i(2), (int)a.i(3),
+                           (int)a.i(4), (int)a.i(5), a.ptr(6), (int)a.i(7),
+                           (int)a.i(8), a.ptr(9), (int)a.i(10),
+                           a.ptr(11));
+}
+
+// The scored row kernel, one warp a lane, at any N.
+extern "C" int seedextend_rows_scored(const void* taxa, const void* lengths,
+                                      long long lanes, int N,
+                                      int min_seed_size, int max_gap_size,
+                                      const void* seed_scores, int size,
+                                      int penalty, void* out, void* stream) {
+  if (lanes <= 0 || N <= 0) return 0;
+  const long long blocks = (lanes + kRowWarps - 1) / kRowWarps;
+  seedextend_rows_kernel<true, true><<<(unsigned)blocks, kRowWarps * 32, 0,
+                                       (cudaStream_t)stream>>>(
+      (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
+      min_seed_size, max_gap_size, out,
+      SeedScore{(const int32_t*)seed_scores, size, penalty, 0});
+  return (int)cudaGetLastError();
+}
+
+extern "C" int seedextend_rows_scored_packed(const void* args) {
+  const PackedArgs a{(const unsigned char*)args};
+  return seedextend_rows_scored(a.ptr(0), a.ptr(1), a.i(2), (int)a.i(3),
+                                (int)a.i(4), (int)a.i(5), a.ptr(6),
+                                (int)a.i(7), (int)a.i(8), a.ptr(9),
+                                a.ptr(10));
 }

@@ -201,6 +201,125 @@ def _insert_bucketized(bucket0: np.ndarray, payloads, cap: int,
     return outs, max_probes, pending
 
 
+def _insert_conveyor(bucket0: np.ndarray, payloads, cap: int,
+                     bucket: int = 16):
+    """Distance-<=1 placement that maximises occupancy (the JAX package's
+    numpy conveyor, umgap_tpu/index/table.py:261, slot for slot).
+
+    Round-based placement (:func:`_insert_bucketized`) fills every home
+    bucket first and only then pushes leftovers one bucket right, so a
+    key carried from bucket b - 1 competes with b's own arrivals after
+    they took the slots. Here carried keys take priority in their
+    overflow bucket and the home arrivals they displace become the next
+    bucket's carry: a key reaches the stash only when its home bucket's
+    carry-in alone fills the bucket. The probe is unchanged (distance
+    tags 0/1; a bucket with an empty slot never has displaced or stashed
+    keys). Returns (outputs, max_probes, stash_indices) as
+    :func:`_insert_bucketized` with ``tag_distance=True``."""
+    n = len(bucket0)
+    nb = max(cap // bucket, 1)
+    outs = [np.full(cap, EMPTY if i == 0 else 0, dtype=np.int32)
+            for i in range(len(payloads))]
+    cnt = np.bincount(bucket0, minlength=nb).astype(np.int64)
+    # water-filling carry: c(b) = max(c(b-1) + cnt(b) - bucket, 0)
+    s = np.cumsum(cnt - bucket)
+    runmin = np.minimum.accumulate(s)
+    carry = np.maximum(s - np.minimum(runmin, 0), 0)
+    if n and carry.max() > bucket:
+        # one bucket's carry exceeds a whole bucket (only far beyond any
+        # sized load): the exact sequential sweep
+        return _insert_conveyor_slow(bucket0, payloads, cap, bucket, outs)
+    c_in = np.concatenate([[0], carry[:-1]])
+    placed_home = cnt - carry
+    order = np.argsort(bucket0, kind="stable")  # stable within buckets
+    b_sorted = bucket0[order]
+    starts = np.searchsorted(b_sorted, np.arange(nb))
+    rank = np.arange(n, dtype=np.int64) - starts[b_sorted]
+    home = rank < placed_home[b_sorted]
+    slot = np.empty(n, dtype=np.int64)
+    slot[home] = (b_sorted[home] * bucket + c_in[b_sorted[home]]
+                  + rank[home])
+    pushed_pos = np.nonzero(~home)[0]  # sorted positions of pushed keys
+    pr = rank[pushed_pos] - placed_home[b_sorted[pushed_pos]]
+    tgt = (b_sorted[pushed_pos] + 1) % nb
+    pslot = tgt * bucket + pr
+    keep = np.ones(n, dtype=bool)
+    # the wrap: the last bucket's carry takes bucket 0's leftover room
+    # (bucket 0 holds its placed home arrivals; c_in[0] == 0)
+    wrap = tgt == 0
+    if wrap.any():
+        base0 = min(int(cnt[0]), bucket)
+        room0 = bucket - base0
+        stash_w = pr[wrap] >= room0
+        pslot[wrap] = np.where(stash_w, 0, base0 + pr[wrap])
+        keep[pushed_pos[wrap]] = ~stash_w
+    slot[pushed_pos] = pslot
+    idx = order[keep]
+    slots_kept = slot[keep]
+    tags = np.zeros(n, dtype=np.int32)
+    tags[pushed_pos] = 1
+    tags_kept = tags[keep]
+    for i, (out, payload) in enumerate(zip(outs, payloads)):
+        if i == 0:
+            out[slots_kept] = payload[idx] | (tags_kept << 30)
+        else:
+            out[slots_kept] = payload[idx]
+    max_probes = 1 if len(pushed_pos) else 0
+    stash_idx = np.sort(order[~keep])
+    return outs, max_probes, stash_idx
+
+
+def _insert_conveyor_slow(bucket0, payloads, cap, bucket, outs):
+    """The exact sequential conveyor sweep (clamped carry, two laps for
+    the wrap): the backstop of :func:`_insert_conveyor` for loads where
+    one bucket's carry exceeds a bucket."""
+    n = len(bucket0)
+    nb = max(cap // bucket, 1)
+    order = np.argsort(bucket0, kind="stable")
+    b_sorted = bucket0[order]
+    starts = np.searchsorted(b_sorted, np.arange(nb + 1))
+    occ = np.zeros(nb, dtype=np.int64)
+    slot = np.empty(n, dtype=np.int64)
+    tag = np.zeros(n, dtype=np.int32)
+    stash: list = []
+    carry: list = []
+    max_probes = 0
+    for lap in range(2):
+        for b in range(nb):
+            room = bucket - occ[b]
+            take = min(len(carry), room)
+            for j in range(take):
+                k = carry[j]
+                slot[k] = b * bucket + occ[b] + j
+                tag[k] = 1
+                max_probes = 1
+            occ[b] += take
+            stash.extend(carry[take:])
+            carry = []
+            if lap == 0:
+                ks = order[starts[b]:starts[b + 1]]
+                room = bucket - occ[b]
+                placed = ks[:room] if room > 0 else ks[:0]
+                for j, k in enumerate(placed):
+                    slot[k] = b * bucket + occ[b] + j
+                occ[b] += len(placed)
+                carry = list(ks[len(placed):])
+        if lap == 0 and not carry:
+            break
+        if lap == 1:
+            stash.extend(carry)
+            carry = []
+    placed_mask = np.ones(n, dtype=bool)
+    placed_mask[np.array(stash, dtype=np.int64)] = False
+    for i, (out, payload) in enumerate(zip(outs, payloads)):
+        if i == 0:
+            out[slot[placed_mask]] = (payload[placed_mask]
+                                      | (tag[placed_mask] << 30))
+        else:
+            out[slot[placed_mask]] = payload[placed_mask]
+    return outs, max_probes, np.array(sorted(stash), dtype=np.int64)
+
+
 class TableGeometryError(ValueError):
     """A layout cannot represent the requested capacity (the 25-bit
     bucket-index cap)."""
@@ -287,21 +406,17 @@ class KmerTable:
     @classmethod
     def build(cls, packed: np.ndarray, values: np.ndarray, k: int,
               load_factor: float = 0.45, capacity: int | None = None,
-              max_probe_limit: int = 0, bucket: int = BUCKET,
+              max_probe_limit: int = 1, bucket: int = BUCKET,
               stash_cap: int = 128) -> "KmerTable":
-        """Round-based placement with at most ``max_probe_limit`` extra
-        rounds; overflow goes to the stash (up to ``stash_cap`` keys) and
-        the table doubles only when the stash would overflow too. Keys
-        must be unique. ``max_probe_limit=1`` is the JAX package's dense
-        conveyor build, which this port does not have yet (its tables
-        are read and probed all the same)."""
+        """The JAX package's build, array for array: with
+        ``max_probe_limit=1`` (the default) the dense two-round conveyor
+        (:func:`_insert_conveyor`), else round-based placement with at
+        most ``max_probe_limit`` extra rounds. Overflow goes to the stash
+        (up to ``stash_cap`` keys) and the table doubles only when the
+        stash would overflow too. Keys must be unique."""
         if k > 9:
             raise TableGeometryError(
                 "exact quotient k-mer tables support k <= 9")
-        if max_probe_limit == 1:
-            raise NotImplementedError(
-                "the max_probe_limit=1 conveyor build is not ported yet; "
-                "build such tables with umgap_tpu and load the .npz")
         packed = np.asarray(packed).astype(np.uint64)
         values = np.asarray(values, dtype=np.int32)
         hi, lo = kmers.split_packed(packed)
@@ -317,9 +432,15 @@ class KmerTable:
             bucket0 = (mlo & np.uint32((1 << nb_bits) - 1)).astype(np.int64)
             rem = ((mlo >> np.uint32(nb_bits))
                    | (mhi << np.uint32(25 - nb_bits))).astype(np.int32)
-            (rem_arr, val_arr), max_probes, leftover = _insert_bucketized(
-                bucket0, [rem, values], cap, tag_distance=True,
-                bucket=bucket, max_round=max_probe_limit)
+            if max_probe_limit == 1:
+                (rem_arr, val_arr), max_probes, leftover = \
+                    _insert_conveyor(bucket0, [rem, values], cap,
+                                     bucket=bucket)
+            else:
+                (rem_arr, val_arr), max_probes, leftover = \
+                    _insert_bucketized(
+                        bucket0, [rem, values], cap, tag_distance=True,
+                        bucket=bucket, max_round=max_probe_limit)
             if len(leftover) <= stash_cap:
                 return cls(rem_arr, val_arr, max_probes, len(values),
                            {"k": k, "nb_bits": nb_bits, "bucket": bucket},

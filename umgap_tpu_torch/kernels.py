@@ -147,6 +147,16 @@ K3 = Kernel(
 K3R = Kernel(
     "seedextend_rows", "seedextend_mask.cu",
     [P, P, LL, I, I, I, P, I, P], K3.replaces)
+# K3's scored entries (a lane keeps its best-scoring seed alone, with the
+# select after it, umgap_tpu/pipeline/fused.py:109, fused in): the staged
+# tile and the row kernel
+K3S = Kernel(
+    "seedextend_scored", "seedextend_mask.cu",
+    [P, P, LL, I, I, I, P, I, I, P, I, P],
+    "umgap_tpu/ops/seedextend.py:221 seedextend_scored_mask_batch")
+K3RS = Kernel(
+    "seedextend_rows_scored", "seedextend_mask.cu",
+    [P, P, LL, I, I, I, P, I, I, P, P], K3S.replaces)
 K4 = Kernel(
     "dedup_counts", "dedup_counts.cu",
     [P, P, I, I, I, F, P, P, P, P, P],
@@ -198,7 +208,8 @@ K8 = Kernel(
     "umgap_tpu/ops/lookup.py:265-283 _probe_dense (peptide branch); "
     "grouped: umgap_tpu/parallel/sharded.py:314-320 (kind peptide)")
 
-KERNELS = (K1, K1P, K2, K3, K3R, K4, K4R, K5, K5A, K6, KS, K7, K8)
+KERNELS = (K1, K1P, K2, K3, K3R, K3S, K3RS, K4, K4R, K5, K5A, K6, KS,
+           K7, K8)
 
 # build seconds and ptxas reports of the last build_all() in this process
 BUILD_INFO: dict = {}

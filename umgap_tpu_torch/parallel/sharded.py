@@ -364,6 +364,10 @@ class ShardedPipeline(torch.nn.Module):
             raise ValueError("rmq/lca* needs a DeviceEuler (pass euler=...)")
         self.stable = stable
         self.config = config
+        # umgap_tpu's sharded step runs the unscored seed-extend whatever
+        # `ranked` says (umgap_tpu/parallel/sharded.py:431-432); so does
+        # this one
+        self.back_config = config._replace(ranked=False)
         self.with_overflow = with_overflow
         self.front, self.back = ((tryp.tryptic_front, tryp.tryptic_back)
                                  if tryptic else
@@ -400,8 +404,8 @@ class ShardedPipeline(torch.nn.Module):
             for d, dev in enumerate(devs):
                 with on_device(dev):
                     res = self.back(taxa[d], aux[d], lens[d], self.dtaxs[d],
-                                    cfg, self.with_overflow, stage,
-                                    self.eulers[d])
+                                    self.back_config, self.with_overflow,
+                                    stage, self.eulers[d])
                     out.append(res[0] if self.with_overflow else res)
                     if self.with_overflow:
                         over.append(res[1])

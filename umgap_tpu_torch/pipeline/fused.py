@@ -8,7 +8,8 @@ The composition of the reference's preset pipelines
 
 over a padded batch of read pairs. On CUDA the chain is
 K1 reads_to_kmers -> K2 probe_kmer -> K3 seed-extend (the hits
-epilogue: the kept taxa, with no keep mask and no select pass) ->
+epilogue: the kept taxa, with no keep mask and no select pass; with
+``ranked`` its scored entry, the best-scoring seed of each frame) ->
 K4 dedup_counts with the lower-bound filter at its stores -> the
 aggregator with snap: one K6 tree_aggregate launch for tree/lca*,
 tree/hybrid and rmq/mrtl, which reads the taxonomy rows of the valid
@@ -48,6 +49,11 @@ class PipelineConfig(NamedTuple):
     # more are flagged (with_overflow) and re-run by the Analyser through
     # a program wide enough to be exact.
     k_max: int = 64
+    # scored seed-extend (`seedextend -r`, src/commands/seedextend.rs:
+    # 151-164): a frame keeps only its best-scoring extended seed,
+    # unscored taxa costing `penalty`. No preset uses it.
+    ranked: bool = False
+    penalty: int = 5
 
 
 PRESETS = {
@@ -128,11 +134,13 @@ def kmer_back(taxa, plens, lengths, dtax, config: PipelineConfig,
     (misses and invalid windows 0) -> taxon (B,) [, overflow (B,)]."""
     _r2k, _probe, seedext, dedup = _ops()
     B, E = lengths.shape
+    scored = (dict(seed_scores=dtax.seed_scores, penalty=config.penalty)
+              if config.ranked else {})
     with stage("seedextend"):
         W = taxa.shape[-1]
         nkmers = (plens - (config.k - 1)).clamp(min=0)
         hits = seedext(taxa, nkmers, config.min_seed_size,
-                       config.max_gap_size).reshape(B, E * 6 * W)
+                       config.max_gap_size, **scored).reshape(B, E * 6 * W)
     return aggregate_hits(hits, dtax, config, with_overflow, stage, euler,
                           dedup)
 

@@ -162,6 +162,22 @@ class Taxonomy:
         out[ok] = ranks.RANK_SCORES[self.rank[anc[ok]]]
         return out
 
+    def score(self, tid: int, default: int | None = None) -> int | None:
+        """Rank score after walking to the first ranked ancestor
+        (TaxonList::score, src/taxon.rs:181-191); ``default`` when the
+        walk ends on an unknown taxon or the score is None."""
+        current, seen = tid, 0
+        while 0 <= current < self.size and self.present[current]:
+            if self.parent[current] == current or \
+                    self.rank[current] != ranks.NO_RANK:
+                s = int(ranks.RANK_SCORES[self.rank[current]])
+                return s if s != 0 else default
+            current = int(self.parent[current])
+            seen += 1
+            if seen > self.size:
+                break
+        return default
+
     def euler_tour(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Euler tour from the root: a node is emitted before each child's
         subtree and once after the last, so it appears child count + 1
