@@ -267,6 +267,7 @@ def main():
                                                                     world)
         mesh_launches, stats["probe_peptide_grouped"] = phase_mesh(
             torch, world, tresults)
+        phase_multihost(torch, world, results, tresults)
         fgspp_launches, stats["proteins_to_kmers"] = phase_fgspp(torch,
                                                                  world)
         phase_ingest(torch, world)
@@ -387,22 +388,29 @@ def phase_identify(torch):
 # The .bench_data workload
 # ---------------------------------------------------------------------- #
 
-def load_world(torch):
+def bench_taxonomy():
+    """The workload's manifest and taxonomy: (manifest, parent, snap,
+    Taxonomy)."""
     from umgap_tpu_torch import ranks
-    from umgap_tpu_torch.agg.device import DeviceTaxonomy
-    from umgap_tpu_torch.index.table import PeptideTable, build_kmer_table
-    from umgap_tpu_torch.ops.lookup import DeviceTable
     from umgap_tpu_torch.taxonomy import Taxon, Taxonomy
 
     with open(os.path.join(DATA, "manifest.json")) as f:
         man = json.load(f)
-    P, L, n_tax = man["n_pairs"], man["read_len"], man["n_tax"]
     parent = np.fromfile(os.path.join(DATA, "parent.bin"), np.int32)
     snap = np.fromfile(os.path.join(DATA, "snap.bin"), np.int32)
     taxa = [Taxon(i, f"t{i}", ranks.NO_RANK if i % 3 else 14,
                   int(parent[i]), bool(snap[i] == i))
-            for i in range(1, n_tax + 1)]
-    tax = Taxonomy(taxa)
+            for i in range(1, man["n_tax"] + 1)]
+    return man, parent, snap, Taxonomy(taxa)
+
+
+def load_world(torch):
+    from umgap_tpu_torch.agg.device import DeviceTaxonomy
+    from umgap_tpu_torch.index.table import PeptideTable, build_kmer_table
+    from umgap_tpu_torch.ops.lookup import DeviceTable
+
+    man, parent, snap, tax = bench_taxonomy()
+    P, L, n_tax = man["n_pairs"], man["read_len"], man["n_tax"]
     keys = np.fromfile(os.path.join(DATA, "index_keys.bin"), np.uint64)
     vals = np.fromfile(os.path.join(DATA, "index_vals.bin"), np.int32)
     t0 = time.perf_counter()
@@ -4041,32 +4049,37 @@ def _mesh_inputs(torch, world, devices):
     return out
 
 
+def _split_timer(torch, ms):
+    """A step's ``timer(name)``: each part's event ms added into ``ms``,
+    the part ending in a sync (nested parts, "exchange/gloo", within
+    their parent)."""
+    import contextlib
+
+    def timer(name):
+        @contextlib.contextmanager
+        def cm():
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            yield
+            b.record()
+            b.synchronize()
+            ms[name] = ms.get(name, 0.0) + a.elapsed_time(b)
+        return cm()
+    return timer
+
+
 def _mesh_split(torch, an, inputs, reps=5):
     """A mesh step's event ms by part, each part ending in a host sync:
     the stages before the probe, "route", "exchange" (both ways),
     "probe" (every device's), "unroute", the stages after; the sum over
     a step, median over ``reps`` x the batches. Returns (ms by part, ms
     a step)."""
-    import contextlib
-
     steps = []
     for _ in range(reps):
         for args in inputs:
             ms: dict = {}
-
-            def timer(name, ms=ms):
-                @contextlib.contextmanager
-                def cm():
-                    a = torch.cuda.Event(enable_timing=True)
-                    b = torch.cuda.Event(enable_timing=True)
-                    a.record()
-                    yield
-                    b.record()
-                    b.synchronize()
-                    ms[name] = ms.get(name, 0.0) + a.elapsed_time(b)
-                return cm()
-
-            an.step(*args, timer=timer)
+            an.step(*args, timer=_split_timer(torch, ms))
             steps.append(ms)
     parts = {k: float(np.median([s.get(k, 0.0) for s in steps]))
              for k in steps[0]}
@@ -4196,7 +4209,7 @@ def phase_mesh(torch, world, tryptic_taxa):
                                       mesh)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    shutil.rmtree(work)
+    world["shards_work"] = work  # phase multihost loads it, then drops it
     group = SHARDS // MESH_DEVICES
     require(stable.n_devices == MESH_DEVICES and stable.group == group
             and [(t.first, t.n_total) for t in stable.tables]
@@ -4259,6 +4272,7 @@ def phase_mesh(torch, world, tryptic_taxa):
             f"K2 launches for {n_batches} batches on {MESH_DEVICES} devices")
     require(np.array_equal(taxa, world.pop("shards_taxa")),
             "mesh: taxa differ from phase shards' one-device taxa")
+    world["mesh_taxa"] = taxa
     pan = make_sharded_stream_analyser(world["tax"], stable, cfg,
                                        batch_size=BATCH, read_length=L,
                                        dtax=world["dtax"])
@@ -4366,6 +4380,316 @@ def phase_mesh(torch, world, tryptic_taxa):
         k8_grouped=k8_stats, tryptic=tryptic,
         seconds=time.perf_counter() - t_phase)
     return grouped_launches, k8_stats
+
+
+# ---------------------------------------------------------------------- #
+# Phase 5h: processes across hosts, two ranks on the one card
+# ---------------------------------------------------------------------- #
+
+MULTIHOST_RANKS = 2
+MULTIHOST_LOCAL = 2  # each rank's devices: (cuda:0, cuda:0)
+MULTIHOST_REPS = 3  # timed passes over a cell's batches
+MULTIHOST_TIMEOUT_S = 300
+MULTIHOST_PEPTIDE_SHARDS = 8  # K8's grouped entry, 2 a global device
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _multihost_cell(torch, step, mesh, reads, lens, batch):
+    """Drive ``step`` over this rank's share (``per_host_groups``) of the
+    read groups in global batches of ``batch`` (``batch / world`` rows a
+    rank): once with the launches counted, giving every rank's taxa
+    gathered and the summed frequency vector; then MULTIHOST_REPS timed
+    passes: wall ms a step (synced) and its split (event ms by part, each
+    part synced), medians; the all_to_all_single calls a step and the
+    bytes this rank sent in them (to the other ranks)."""
+    import torch.distributed as dist
+
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.parallel import (
+        allgather_taxa,
+        global_batch,
+        per_host_groups,
+    )
+
+    W = mesh.world_size
+    mine = per_host_groups(range(len(reads)), mesh.rank, W)
+    per = -(-len(reads) // W)  # every rank steps as often
+    rows = batch // W
+    inputs = []
+    for s in range(0, per, rows):
+        sel = mine[s:s + rows]
+        inputs.append(global_batch(reads[sel], lens[sel], mesh, rows=rows)
+                      + (len(sel),))
+    torch.cuda.synchronize()
+    sent = []
+    real = dist.all_to_all_single
+
+    def counted(out, inp, *a, **k):
+        sent.append(inp.numel() * inp.element_size())
+        return real(out, inp, *a, **k)
+
+    dist.all_to_all_single = counted
+    try:
+        kernels.reset_launches()
+        taxa, freq = [], None
+        for d, ln, n in inputs:
+            t, f = step(d, ln, n=n)
+            taxa.append(t)
+            freq = f if freq is None else freq + f
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        calls, sent_bytes = len(sent) / len(inputs), sum(sent) / len(inputs)
+        walls, splits = [], []
+        for _ in range(MULTIHOST_REPS):
+            for d, ln, n in inputs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(d, ln, n=n)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            for d, ln, n in inputs:
+                ms: dict = {}
+                step(d, ln, n=n, timer=_split_timer(torch, ms))
+                splits.append(ms)
+    finally:
+        dist.all_to_all_single = real
+    gathered = allgather_taxa(torch.cat(taxa), mesh, n=len(mine))
+    return dict(
+        taxa=gathered, freq=freq.cpu().numpy(), launches=launches,
+        steps=len(inputs), rank_rows=rows, step_ms=float(np.median(walls)),
+        step_ms_range=[min(walls), max(walls)],
+        split_ms={k: float(np.median([s.get(k, 0.0) for s in splits]))
+                  for k in splits[0]},
+        split_step_ms=float(np.median([
+            sum(v for k, v in s.items() if "/" not in k) for s in splits])),
+        all_to_all_calls_a_step=calls,
+        exchange_buffer_bytes_a_step=sent_bytes,
+        bytes_sent_a_step=sent_bytes * (W - 1) / W)
+
+
+def _multihost_rank(rank, port, work, inputs, out):
+    """One rank of phase multihost (a spawned process): gloo at
+    ``port``, local devices (cuda:0, cuda:0) of a four-device mesh over
+    two processes; loads its 8 shards of the 16-shard artifact at
+    ``work`` and drives high-sensitivity over it, tryptic-sensitivity
+    over the bench peptide index (``inputs``) in 8 shards and
+    high-sensitivity over the bench index in 4 shards
+    (:func:`_multihost_cell` each). Writes its report to ``out``.json
+    and the cells' gathered taxa and frequencies to ``out``.npz."""
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.agg.device import DeviceTaxonomy
+    from umgap_tpu_torch.index import distbuild
+    from umgap_tpu_torch.parallel import (
+        ShardedTable,
+        build_sharded_peptide_tables,
+        flat_mesh,
+        init_distributed,
+        make_multihost_pipeline,
+        make_multihost_step,
+        pod_mesh,
+    )
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+    from umgap_tpu_torch.pipeline.tryptic import TRYPTIC_PRESETS
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    kernels.build_all()  # the libraries the parent built: bound, not built
+    init_distributed(f"tcp://127.0.0.1:{port}", MULTIHOST_RANKS, rank,
+                     backend="gloo")
+    local = (dev,) * MULTIHOST_LOCAL
+    mesh = flat_mesh(local=local)
+    pod = pod_mesh(local=local)
+    require(pod.shape == (MULTIHOST_RANKS, MULTIHOST_LOCAL)
+            and pod.grid()[rank].tolist() == [
+                mesh.global_index(d) for d in range(MULTIHOST_LOCAL)],
+            f"multihost rank {rank}: pod grid {pod.grid().tolist()}")
+    man, _parent, _snap, tax = bench_taxonomy()
+    P, L = man["n_pairs"], man["read_len"]
+    reads = np.fromfile(os.path.join(DATA, "reads.bin"),
+                        np.uint8).reshape(P, 2, L)
+    lens = np.full((P, 2), L, dtype=np.int32)
+    dtax = DeviceTaxonomy.from_host(tax, dev)
+    report = dict(rank=rank, pid=os.getpid(), start_s=time.perf_counter()
+                  - t0)
+    cells = {}
+
+    t1 = time.perf_counter()
+    stable = ShardedTable.from_shards(distbuild.load_shards(work, mmap=True),
+                                      mesh)
+    torch.cuda.synchronize()
+    report["artifact_load_s"] = time.perf_counter() - t1
+    group = SHARDS // mesh.n_devices
+    require([(t.first, t.group, t.n_total) for t in stable.tables] == [
+        (mesh.global_index(d) * group, group, SHARDS)
+        for d in range(MULTIHOST_LOCAL)],
+        f"multihost rank {rank}: artifact slices out of order")
+    report["artifact_rows_gb"] = sum(t.rows.numel() * 4
+                                     for t in stable.tables) / 1e9
+    cfg = PRESETS["high-sensitivity"]
+    cells["artifact"] = _multihost_cell(
+        torch, make_multihost_step(dtax, stable, cfg), mesh, reads, lens,
+        BATCH)
+    del stable
+    torch.cuda.empty_cache()
+
+    z = np.load(inputs)
+    peps = z["peptides"].tobytes().decode().split("\n")
+    t1 = time.perf_counter()
+    tstable = ShardedTable.from_shards(build_sharded_peptide_tables(
+        peps, z["pvalues"], MULTIHOST_PEPTIDE_SHARDS), mesh)
+    report["peptide_split_s"] = time.perf_counter() - t1
+    cells["tryptic"] = _multihost_cell(
+        torch, make_multihost_step(dtax, tstable, TRYPTIC_PRESETS[
+            "tryptic-sensitivity"], tryptic=True), mesh, reads, lens, BATCH)
+    del tstable
+
+    keys = np.fromfile(os.path.join(DATA, "index_keys.bin"), np.uint64)
+    vals = np.fromfile(os.path.join(DATA, "index_vals.bin"), np.int32)
+    t1 = time.perf_counter()
+    _mesh, bstep = make_multihost_pipeline(tax, keys, vals, 9, cfg,
+                                           mesh=mesh)
+    report["bench_split_s"] = time.perf_counter() - t1
+    cells["bench"] = _multihost_cell(torch, bstep, mesh, reads, lens, BATCH)
+    report["seconds"] = time.perf_counter() - t0
+    arrays = {}
+    for name, c in cells.items():
+        arrays[name + "_taxa"] = c.pop("taxa")
+        arrays[name + "_freq"] = c.pop("freq")
+    np.savez(out + ".npz", **arrays)
+    with open(out + ".json", "w") as f:
+        json.dump(dict(report, cells=cells), f)
+    dist.destroy_process_group()
+
+
+def phase_multihost(torch, world, main_results, tryptic_taxa):
+    """Processes across hosts on the one card: two spawned processes, each
+    a gloo rank (tcp://127.0.0.1) over local devices (cuda:0, cuda:0), a
+    four-device mesh across processes (:func:`_multihost_rank`). Over
+    phase shards' 16-shard artifact (4 shards a global device, each rank
+    uploads its 8) high-sensitivity over all pairs, split by
+    per_host_groups, in 16,384-pair global batches: taxa gathered =
+    phase mesh's (= plain there), the summed frequency vector = the rank
+    counts of those taxa; tryptic-sensitivity over the bench peptide
+    index in 8 shards: taxa = phase tryptic's; the bench index in 4
+    shards: taxa = phase main's, the first 1,024 = REFERENCE_DIGESTS.
+    Each rank's launches by kernel (all non-zero), ms a step and its
+    split (route, exchange: device -> host, gloo, host -> device, probe,
+    unroute), the all_to_all_single calls a step and the bytes it sent.
+    nccl is not shown: it refuses two ranks on one card."""
+    import torch.multiprocessing as mp
+
+    from umgap_tpu_torch.parallel.sharded import rank_counts
+
+    t_phase = time.perf_counter()
+    work = world.pop("shards_work")
+    mesh_taxa = world.pop("mesh_taxa")
+    inputs = os.path.join(TMP_DIR, "multihost_inputs.npz")
+    ptab = world["ptable"]
+    np.savez(inputs, peptides=np.frombuffer(
+        "\n".join(ptab.raw_keys).encode(), np.uint8),
+        pvalues=ptab.raw_values)
+    outs = [os.path.join(TMP_DIR, f"multihost_rank{r}")
+            for r in range(MULTIHOST_RANKS)]
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_multihost_rank,
+                         args=(r, port, work, inputs, outs[r]))
+             for r in range(MULTIHOST_RANKS)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + MULTIHOST_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.perf_counter()))
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        require(not late, f"multihost: ranks {late} still running after "
+                f"{MULTIHOST_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.pid is not None:  # started
+                if p.is_alive():
+                    p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    require(codes == [0] * MULTIHOST_RANKS, f"multihost: rank exit codes "
+            f"{codes}")
+    shutil.rmtree(work)
+    reports = []
+    for o in outs:
+        with open(o + ".json") as f:
+            reports.append(json.load(f))
+    got = dict(np.load(outs[0] + ".npz"))
+    dev, P = world["dev"], world["P"]
+    want = {"artifact": mesh_taxa,
+            "tryptic": tryptic_taxa["tryptic-sensitivity"],
+            "bench": main_results["high-sensitivity"]}
+    for name, w in want.items():
+        t = got[name + "_taxa"]
+        require(t.shape == (P,) and np.array_equal(t, w),
+                f"multihost {name}: gathered taxa differ from the "
+                f"one-process run's in {int((t != w).sum())} of {P} groups"
+                if t.shape == w.shape else f"multihost {name}: {t.shape} "
+                "taxa gathered")
+        freq = rank_counts([world["dtax"]], [torch.from_numpy(t).to(dev)])
+        require(np.array_equal(got[name + "_freq"], freq.cpu().numpy()),
+                f"multihost {name}: the summed frequency vector is not the "
+                "rank counts of the gathered taxa")
+    require(taxa_digest(got["bench_taxa"][:REFERENCE_PAIRS])
+            == REFERENCE_DIGESTS["high-sensitivity"],
+            f"multihost bench: the first {REFERENCE_PAIRS} groups differ "
+            "from the JAX package's digest")
+    kinds = {"artifact": NINEMER_KERNELS | {"dedup_counts",
+                                             "tree_aggregate"},
+             "bench": NINEMER_KERNELS | {"dedup_counts", "tree_aggregate"},
+             "tryptic": TRYPTIC_KERNELS | {"dedup_counts",
+                                           "tree_aggregate"}}
+    for rep in reports:
+        for name, need in kinds.items():
+            c = rep["cells"][name]
+            zero = sorted(k for k in need if c["launches"][k] == 0)
+            require(not zero, f"multihost rank {rep['rank']} {name}: "
+                    f"kernels {zero} not launched")
+            require(c["all_to_all_calls_a_step"] == 2,
+                    f"multihost rank {rep['rank']} {name}: "
+                    f"{c['all_to_all_calls_a_step']} all_to_all_single "
+                    "calls a step, not one each way")
+    for rep in reports:
+        log(f"multihost rank {rep['rank']}: up in {rep['start_s']:.1f}s, "
+            f"its {rep['artifact_rows_gb']:.2f} GB of the artifact loaded "
+            f"in {rep['artifact_load_s']:.1f}s; " + "; ".join(
+                f"{name} {c['step_ms']:.1f} ms a step ({c['steps']} steps "
+                f"of {c['rank_rows']} rows), launches " + ", ".join(
+                    f"{k} {v}" for k, v in c["launches"].items() if v)
+                + f"; split " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in c["split_ms"].items())
+                + f" ms; sent {c['bytes_sent_a_step'] / 1e6:.1f} MB a step"
+                for name, c in rep["cells"].items())
+            + f"; {rep['seconds']:.1f}s in all")
+    log("multihost: NCCL is not shown here: it refuses two ranks on one GPU "
+        "(duplicate GPU), so the ranks ran gloo, the exchange staged "
+        "through pinned host memory")
+    log(f"multihost: {MULTIHOST_RANKS} ranks x {MULTIHOST_LOCAL} devices: "
+        f"taxa == phase mesh's (the 16-shard artifact), == phase tryptic's "
+        f"(8 peptide shards), == phase main's and the digest (the bench "
+        f"index in 4 shards) on {P} groups; frequencies == rank counts")
+    RESULT["phases"]["multihost"] = dict(
+        ranks=MULTIHOST_RANKS, local_devices=MULTIHOST_LOCAL,
+        backend="gloo", shards=SHARDS,
+        peptide_shards=MULTIHOST_PEPTIDE_SHARDS, reports=reports,
+        nccl="not shown: NCCL refuses two ranks on one GPU",
+        seconds=time.perf_counter() - t_phase)
 
 
 # ---------------------------------------------------------------------- #
@@ -4582,8 +4906,9 @@ def phase_fgspp(torch, world):
            outs["high-precision"], "-t", "tryptic-precision", "-1",
            paths[0], "-2", paths[1], "-z", "-o", outs["tryptic-precision"]]
     t0 = time.perf_counter()
+    # VERBOSE: the CLI says on stderr that FGSpp predicted the genes
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=600)
+                          timeout=600, env=dict(os.environ, VERBOSE="1"))
     cli_s = time.perf_counter() - t0
     require(proc.returncode == 0,
             f"fgspp CLI exit {proc.returncode}: {proc.stderr[-2000:]}")

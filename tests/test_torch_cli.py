@@ -10,6 +10,7 @@ import gzip
 import importlib.util
 import io
 import os
+import re
 import subprocess
 import sys
 
@@ -120,19 +121,22 @@ def test_cli_gzip_byte_equal(sample, preset):
 
 
 def _both(argv):
-    """The same analyse command through umgap_tpu and the port; returns
-    the port's stderr."""
+    """The same analyse command through umgap_tpu and the port, both with
+    VERBOSE=1 (their notes are written only then); returns the port's
+    stderr."""
     jargs = [a.replace("{tag}", "jax") for a in argv]
     pargs = [a.replace("{tag}", "port") for a in argv]
-    assert jax_cli(jargs + ["--fgspp", "never"], stdin=io.StringIO(""),
-                   stdout=io.StringIO()) == 0
     err = io.StringIO()
     old = sys.stderr
-    sys.stderr = err
-    try:
-        assert port_cli(pargs + ["--device", "cpu"]) == 0
-    finally:
-        sys.stderr = old
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VERBOSE", "1")
+        assert jax_cli(jargs + ["--fgspp", "never"], stdin=io.StringIO(""),
+                       stdout=io.StringIO()) == 0
+        sys.stderr = err
+        try:
+            assert port_cli(pargs + ["--device", "cpu"]) == 0
+        finally:
+            sys.stderr = old
     return err.getvalue()
 
 
@@ -209,6 +213,123 @@ def _port(sample, *extra, reads=None):
     finally:
         sys.stderr = old
     return rc, err.getvalue()
+
+
+def _stderr_runs(sample, tmp):
+    """Three runs whose notes differ: the sample under two presets (one
+    analyser each), a pair whose records climb the width ladder (the
+    ring tier hands it on, a second analyser) and a pair with a group
+    beyond the top width (the exact host route); as argv with {tag}."""
+    rng = np.random.default_rng(17)
+    ladder = [tmp / "lad_R1.fq", tmp / "lad_R2.fq"]
+    _write_fastq(ladder, rng.integers(0, 4, size=(40, 2, 300)).astype(
+        np.uint8), rng.integers(20, 300, size=(40, 2)).astype(np.int32))
+    long = [tmp / "long_R1.fq", tmp / "long_R2.fq"]
+    seq = "ACGT" * 1025
+    for path in long:
+        path.write_text(f"@x/1\n{seq}\n+\n{'I' * len(seq)}\n@y/1\n"
+                        f"{seq[:40]}\n+\n{'I' * 40}\n")
+    base = ["analyse", "--taxons", str(sample["taxons"]), "--index",
+            str(sample["index"]), "--batch-size", "64", "--read-length",
+            str(L)]
+    r1, r2 = sample["fq"]
+    runs = [base + ["-t", "high-sensitivity", "-1", str(r1), "-2", str(r2),
+                    "-o", str(tmp / "{tag}-a.fa"), "-t", "max-precision",
+                    "-1", str(r1), "-2", str(r2), "-o",
+                    str(tmp / "{tag}-b.fa")]]
+    for name, (f1, f2) in (("ladder", ladder), ("long", long)):
+        runs.append(base + ["-1", str(f1), "-2", str(f2), "-o",
+                            str(tmp / f"{{tag}}-{name}.fa")])
+    return runs
+
+
+def _stderr_both(argv):
+    """stderr of ``umgap_tpu analyse`` and of the port's on ``argv``."""
+    jerr, perr = io.StringIO(), io.StringIO()
+    old = sys.stderr
+    try:
+        sys.stderr = jerr
+        assert jax_cli([a.replace("{tag}", "jax") for a in argv]
+                       + ["--fgspp", "never"], stdin=io.StringIO(""),
+                       stdout=io.StringIO()) == 0
+        sys.stderr = perr
+        assert port_cli([a.replace("{tag}", "port") for a in argv]
+                        + ["--device", "cpu"]) == 0
+    finally:
+        sys.stderr = old
+    return jerr.getvalue(), perr.getvalue()
+
+
+def test_cli_stderr_quiet_equals_jax(sample, tmp_path, monkeypatch):
+    """Without VERBOSE or DEBUG the port writes to stderr what umgap_tpu
+    analyse writes, byte for byte (here nothing), also where a tier
+    hands the sample on and where a group takes the exact host route."""
+    monkeypatch.delenv("VERBOSE", raising=False)
+    monkeypatch.delenv("DEBUG", raising=False)
+    for argv in _stderr_runs(sample, tmp_path):
+        jerr, perr = _stderr_both(argv)
+        assert perr == jerr
+
+
+def _notes(text, drop_hand_on=False):
+    """The VERBOSE notes of a run with their clock stamps and measured
+    numbers taken out (timings, records/s); with ``drop_hand_on``
+    without the port's own notes that a tier hands the sample on."""
+    out = []
+    for line in text.splitlines():
+        if drop_hand_on and " hands the sample on: " in line:
+            continue
+        line = re.sub(r"^\[\d\d:\d\d:\d\d\] ", "", line)
+        line = re.sub(r" *\d+\.\d+", " #", line)
+        out.append(re.sub(r"\(\d+ records/s\)", "(# records/s)", line))
+    return out
+
+
+def test_cli_stderr_verbose_holds_jax_notes(sample, tmp_path, monkeypatch):
+    """With VERBOSE=1 the port writes umgap_tpu analyse's notes, in its
+    order: each analyser's "ready" line, the stream timings by stage
+    (device_state_load, dispatch, materialize) at each drain, the exact
+    host route and each sample's records/s; beside them it says when a
+    tier hands the sample on."""
+    monkeypatch.setenv("VERBOSE", "1")
+    monkeypatch.delenv("DEBUG", raising=False)
+    for argv in _stderr_runs(sample, tmp_path):
+        jerr, perr = _stderr_both(argv)
+        assert _notes(perr, drop_hand_on=True) == _notes(jerr)
+        assert "stream timings:" in perr or "exact host path" in perr
+        assert re.search(r"analyse sample 1: \d+ records in ", perr)
+    assert "run_sample_ring hands the sample on" in perr
+    assert "ms/call" in _stderr_both(_stderr_runs(sample, tmp_path)[0])[1]
+
+
+@pytest.mark.parametrize("env", [{}, {"VERBOSE": "1"}, {"VERBOSE": "0"},
+                                 {"VERBOSE": "false"}, {"DEBUG": "yes"},
+                                 {"VERBOSE": "", "DEBUG": "False"}])
+def test_logging_gates_as_jax(env, monkeypatch, capsys):
+    """log / verbose / debug write what umgap_tpu's do under each
+    VERBOSE / DEBUG setting (clock stamps aside); the stage timer's
+    report is umgap_tpu's, line for line."""
+    from umgap_tpu import utils as jutils
+    from umgap_tpu_torch import utils as putils
+
+    for var in ("VERBOSE", "DEBUG"):
+        monkeypatch.delenv(var, raising=False)
+    for var, val in env.items():
+        monkeypatch.setenv(var, val)
+    out = []
+    for mod in (jutils, putils):
+        mod.log("a")
+        mod.verbose("b")
+        mod.debug("c")
+        out.append(re.sub(r"\d\d:\d\d:\d\d", "T", capsys.readouterr().err))
+    assert out[0] == out[1]
+    timers = [mod.StageTimer() for mod in (jutils, putils)]
+    for t in timers:
+        for name, dt in (("dispatch", 0.5), ("materialize", 0.25),
+                         ("dispatch", 0.125)):
+            t.totals[name] = t.totals.get(name, 0.0) + dt
+            t.counts[name] = t.counts.get(name, 0) + 1
+    assert timers[0].report() == timers[1].report()
 
 
 def test_cli_refuses_unsupported_input(sample, tmp_path):
@@ -402,7 +523,8 @@ def test_cli_fgspp_found_matches_jax(fgspp_sample, tmp_path, monkeypatch,
     """With the mock FGSpp under the config dir (XDG_CONFIG_HOME), both
     send the preset's reads through it, under the default auto and under
     require, and write the same bytes: a record for each pair the mock
-    predicts a gene for."""
+    predicts a gene for (said on stderr under VERBOSE)."""
+    monkeypatch.setenv("VERBOSE", "1")
     _config_home(tmp_path, monkeypatch, with_fgspp=True)
     s = fgspp_sample
     index = s["pindex"] if "tryptic" in preset else s["index"]
@@ -447,8 +569,9 @@ def test_cli_configdir_discovery_matches_jax(fgspp_sample, tmp_path,
                                              monkeypatch, with_fgspp):
     """``-c`` with no --taxons and no --index: the newest data version
     gives the taxonomy and each family's index, so one run mixes a 9-mer
-    and a tryptic preset; FGSpp is found under the same dir. Byte-equal
-    to umgap_tpu, sample by sample."""
+    and a tryptic preset; FGSpp is found under the same dir (said on
+    stderr under VERBOSE). Byte-equal to umgap_tpu, sample by sample."""
+    monkeypatch.setenv("VERBOSE", "1")
     monkeypatch.setenv("XDG_CONFIG_HOME", str(tmp_path / "elsewhere"))
     s = fgspp_sample
     argv = ["analyse", "-c", str(s["confs"][with_fgspp])]

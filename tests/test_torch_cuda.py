@@ -1747,3 +1747,72 @@ def test_snap_wrappers_refuse_bad_inputs(dev):
     assert torch.equal(pagg.snap_taxa(dtax.snap_valid, agg, v),
                        pagg.snap_taxa_plain(dtax.snap_valid, agg, v))
     assert kernels.KS.launches == before + 1
+
+
+def test_multihost_two_ranks_on_one_card(dev, tmp_path):
+    """Two gloo ranks, each over (cuda:0, cuda:0): a four-device mesh
+    across processes on the one card (the exchange staged through pinned
+    host buffers). max-sensitivity and tryptic-sensitivity over 64 groups
+    give taxa equal to the one-device step's plain versions, frequencies
+    summing to 64; each rank launches K1, K2, K3, K4, K6 (9-mer) and K7,
+    K8, K4, K6 (tryptic)."""
+    import os
+    import sys
+
+    from umgap_tpu_torch.agg.device import DeviceTaxonomy
+    from umgap_tpu_torch.index.table import PeptideTable
+    from umgap_tpu_torch.pipeline.fused import PRESETS, pipeline_step
+    from umgap_tpu_torch.pipeline.tryptic import (
+        TRYPTIC_PRESETS,
+        tryptic_pipeline_step,
+    )
+    from umgap_tpu_torch.taxonomy import fixture_taxa
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_multihost import run_ranks
+
+    rng = np.random.default_rng(21)
+    tax = Taxonomy(fixture_taxa())
+    ids = np.array([2, 10239, 12884, 185751, 185752], np.int32)
+    n, L = 64, 100
+    codes = rng.integers(0, 4, size=(n, 2, L)).astype(np.uint8)
+    lens = rng.integers(40, L + 1, size=(n, 2)).astype(np.int32)
+    hi, lo, v, _ = translate.reads_to_kmers_plain(
+        torch.from_numpy(codes.reshape(n * 2, L)), torch.from_numpy(
+            lens.reshape(-1)), L, encoding.get_table(1), 9, packed=False)
+    keys = np.unique(kmers.join_packed(hi[v].numpy(), lo[v].numpy()))[::3]
+    keys = np.union1d(keys, rng.integers(0, 2 ** 45, size=2000,
+                                         dtype=np.uint64))
+    vals = rng.choice(ids, size=len(keys)).astype(np.int32)
+    peps = sorted({f for i in range(n) for e in range(2)
+                   for p in translate.translate_sequence(
+                       encoding.decode_dna(codes[i, e, :lens[i, e]]),
+                       translate.FRAME_NAMES, encoding.get_table(1))
+                   for f in kmers.tryptic_digest(p) if 9 <= len(f) <= 45})
+    pvals = rng.choice(ids, size=len(peps)).astype(np.int32)
+    data = tmp_path / "world.npz"
+    np.savez(data, packed=keys, values=vals, dna=codes, lengths=lens,
+             peptides=np.array(peps), pvalues=pvals)
+    got = run_ranks("step-cuda", 2, 2, data, tmp_path, groups=n)
+
+    dtax = DeviceTaxonomy.from_host(tax, dev)
+    dna, lt = torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev)
+    with kernels.plain_versions():
+        want = pipeline_step(dna, lt, dtax, lookup.DeviceTable.from_host(
+            build_kmer_table(keys, vals, 9), dev),
+            PRESETS["max-sensitivity"]._replace(k_max=32)).cpu().numpy()
+        twant = tryptic_pipeline_step(
+            dna, lt, dtax, lookup.DeviceTable.from_host(
+                PeptideTable.build(peps, pvals), dev),
+            TRYPTIC_PRESETS["tryptic-sensitivity"]._replace(
+                k_max=16)).cpu().numpy()
+    assert np.array_equal(got["taxa"], want) and (want != 1).sum() > 20
+    assert np.array_equal(got["ttaxa"], twant) and (twant != 1).sum() > 5
+    assert got["freq"].sum() == got["tfreq"].sum() == n
+    for tag, names in (("", ("reads_to_kmers", "probe_kmer",
+                             "seedextend_mask", "dedup_counts",
+                             "tree_aggregate")),
+                       ("t", ("reads_to_peptides", "probe_peptide",
+                              "dedup_counts", "tree_aggregate"))):
+        counts = {k: int(c) for k, c in got[tag + "launches"]}
+        assert all(counts[k] > 0 for k in names), counts

@@ -198,11 +198,12 @@ def test_long_group_host_matches_jax(preset, tmp_path):
             assert got == want
 
 
-def test_cli_long_group_matches_jax(tmp_path):
+def test_cli_long_group_matches_jax(tmp_path, monkeypatch):
     """A paired sample with one 5,000 bp group among 100 bp ones, at the
     CLI's defaults: the Python tier sends that group through the exact
-    host route and merges it back in input order; the records equal
-    ``umgap_tpu analyse``'s."""
+    host route (said on stderr under VERBOSE) and merges it back in input
+    order; the records equal ``umgap_tpu analyse``'s."""
+    monkeypatch.setenv("VERBOSE", "1")
     rng = np.random.default_rng(13)
     jt, _pt, seqs, table = _long_world()
     table.save(tmp_path / "nine.npz")

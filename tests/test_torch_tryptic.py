@@ -362,18 +362,21 @@ def test_chip_smoke_tryptic_digests(smoke, bench_tryptic, preset):
 
 
 def _cli_both(argv):
-    """The same analyse command through umgap_tpu and the port; returns
-    the port's exit code and stderr."""
+    """The same analyse command through umgap_tpu and the port, both with
+    VERBOSE=1 (their notes are written only then); returns the port's
+    exit code and stderr."""
     jargs = [a.replace("{tag}", "jax") for a in argv]
     pargs = [a.replace("{tag}", "port") for a in argv]
-    assert jcli.main(jargs + ["--fgspp", "never"], stdin=io.StringIO(""),
-                     stdout=io.StringIO()) == 0
     err = io.StringIO()
-    old, sys.stderr = sys.stderr, err
-    try:
-        rc = pcli.main(pargs + ["--device", "cpu"])
-    finally:
-        sys.stderr = old
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("VERBOSE", "1")
+        assert jcli.main(jargs + ["--fgspp", "never"], stdin=io.StringIO(""),
+                         stdout=io.StringIO()) == 0
+        old, sys.stderr = sys.stderr, err
+        try:
+            rc = pcli.main(pargs + ["--device", "cpu"])
+        finally:
+            sys.stderr = old
     return rc, err.getvalue()
 
 

@@ -21,8 +21,11 @@ along 256, 512, ... 4,096 bp; the tryptic presets stay at
 ``--read-length``), and the Python reader (:func:`run_sample_fallback`:
 any FASTQ the readers take). A tier hands the sample to the next only on
 records that are not strictly 4-line FASTQ or on a record wider than its
-width, says why on stderr, and the next tier skips the records already
-written. Records of any length run: in the Python tier a 9-mer group
+width, says why on stderr under VERBOSE, and the next tier skips the
+records already written. stderr is ``umgap_tpu``'s: its notes (the
+host routes, FGSpp, the read-length bucket, each sample's records/s, the
+analysers' stream timings) only with VERBOSE or DEBUG set
+(:mod:`~umgap_tpu_torch.utils.logging`). Records of any length run: in the Python tier a 9-mer group
 with a record beyond the top width takes the exact host route
 (:func:`_analyse_long_group_host`), and a tryptic sample with records
 beyond ``--read-length`` the host-digest route
@@ -75,6 +78,7 @@ import numpy as np
 
 from .pipeline.fused import PRESETS
 from .pipeline.tryptic import TRYPTIC_PRESETS
+from .utils import log, verbose
 
 
 class CliError(Exception):
@@ -236,10 +240,6 @@ class _LongTrypticSample(_SampleReroute):
     tier sends it through the host-digest route."""
 
 
-def _note(msg: str) -> None:
-    print(f"umgap_tpu_torch analyse: {msg}", file=sys.stderr, flush=True)
-
-
 def _is_tryptic(preset: str) -> bool:
     return preset in TRYPTIC_PRESETS
 
@@ -291,7 +291,7 @@ def _analyse_long_group_host(seqs, config, ends: int, tax, table,
 
 
 def _hand_on(tier, reason) -> None:
-    _note(f"{tier.__name__} hands the sample on: {reason}")
+    verbose(f"{tier.__name__} hands the sample on: {reason}")
 
 
 def _config_dir(args) -> str:
@@ -688,6 +688,8 @@ def run_sample_stream(session: AnalyseSession, sample):
                 f"{ladder[-1]}")
         if analyser is None or Lw > analyser.read_length:
             if analyser is not None:
+                verbose(f"read-length bucket {analyser.read_length} -> "
+                        f"{Lw}: draining and recompiling")
                 yield from analyser.finish_batches()
             B = _pow2_bucket(n_hint, 64, session.batch_cap(Lw))
             analyser = session.get_analyser(sample["type"], B, Lw, ends)
@@ -722,8 +724,8 @@ def run_sample_fallback(session: AnalyseSession, sample):
     if _is_tryptic(preset):
         maxlen = max((len(s) for _h, ss in groups for s in ss), default=0)
         if maxlen > args.read_length:
-            _note("tryptic sample has records beyond --read-length; using "
-                  "the host-digest path (full-length digest)")
+            verbose("tryptic sample has records beyond --read-length; "
+                    "using the host-digest path (full-length digest)")
             res = analyse_tryptic_groups(
                 groups, session.tax, session.tables[True][0],
                 TRYPTIC_PRESETS[preset], batch_size=B, dtax=session.dtax,
@@ -741,8 +743,8 @@ def run_sample_fallback(session: AnalyseSession, sample):
             "the exact long-read path; --shards mode cannot serve them "
             "(pass --index instead)")
     if long_idx:
-        _note(f"{len(long_idx)} record group(s) beyond {cap} bp: exact host "
-              "path")
+        verbose(f"{len(long_idx)} record group(s) beyond {cap} bp: exact "
+                "host path")
     long_results = {i: _analyse_long_group_host(
         groups[i][1], PRESETS[preset], ends, session.tax,
         session.tables[False][0], session.aux_cache) for i in long_idx}
@@ -871,7 +873,7 @@ def run_sample(session: AnalyseSession, sample):
                 "FGSpp requested but not installed under the config dir "
                 "(expected FGSpp/FGSpp + FGSpp/train).")
         if fg is not None:
-            _note(f"gene prediction via FGSpp at {fg[0]}")
+            verbose(f"gene prediction via FGSpp at {fg[0]}")
             yield from run_sample_fgspp(session, sample, fg)
             return
     ensure_built()  # a failed build raises: no quiet switch of tier
@@ -919,20 +921,32 @@ def write_batches(handle, batches) -> int:
     return n
 
 
-def process_sample(session: AnalyseSession, sample, default_out) -> int:
+def process_sample(session: AnalyseSession, sample, default_out,
+                   label: str = "1") -> int:
     """One sample end to end, written to its ``-o`` file (gzipped with
-    ``-z``) or to ``default_out``; returns its record count."""
+    ``-z``) or to ``default_out``; returns its record count. Under
+    VERBOSE it says how many records took how long, as ``umgap_tpu``
+    does (``label``: the sample's number, ``srv-<n>`` for the n-th
+    served one)."""
+    import time
+
+    t0 = time.perf_counter()
     out = sample["output"]
     if out in (None, "-"):
-        return write_batches(default_out, run_sample(session, sample))
-    if sample["compress"]:
-        import gzip
-
-        handle = gzip.open(out, "wt")
+        n = write_batches(default_out, run_sample(session, sample))
     else:
-        handle = open(out, "w")
-    with handle:
-        return write_batches(handle, run_sample(session, sample))
+        if sample["compress"]:
+            import gzip
+
+            handle = gzip.open(out, "wt")
+        else:
+            handle = open(out, "w")
+        with handle:
+            n = write_batches(handle, run_sample(session, sample))
+    dt = time.perf_counter() - t0
+    verbose(f"analyse sample {label}: {n} records in {dt:.3f}s "
+            f"({n / max(dt, 1e-9):.0f} records/s)")
+    return n
 
 
 def cmd_analyse(args, stdout):
@@ -945,8 +959,8 @@ def cmd_analyse(args, stdout):
     # does (its samples load their data lazily)
     with device_trace(args.trace_dir, device):
         session = AnalyseSession.load(args, samples, device)
-        for sample in samples:
-            process_sample(session, sample, stdout)
+        for i, sample in enumerate(samples):
+            process_sample(session, sample, stdout, str(i + 1))
         if args.serve:
             _serve_analyse(args.serve, session)
 
@@ -972,7 +986,8 @@ def _serve_analyse(socket_path: str, session: AnalyseSession) -> None:
     srv = socket.socket(socket.AF_UNIX)
     srv.bind(socket_path)
     srv.listen(8)
-    _note(f"analyse service listening on {socket_path}")
+    log(f"analyse service listening on {socket_path}")
+    count = 0
     try:
         while True:
             conn, _addr = srv.accept()
@@ -994,7 +1009,9 @@ def _serve_analyse(socket_path: str, session: AnalyseSession) -> None:
                     try:
                         for sample in _parse_analyse_request(
                                 shlex.split(line)):
-                            n = process_sample(session, sample, wfile)
+                            count += 1
+                            n = process_sample(session, sample, wfile,
+                                               f"srv-{count}")
                             if sample["output"] not in (None, "-"):
                                 wfile.write(f"ok {n}\n")
                         wfile.flush()

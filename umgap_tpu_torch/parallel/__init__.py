@@ -1,9 +1,11 @@
 """Sharded serving over a mesh of devices: hash-range shards of one
 index, the tables, the routing and the analysers (:mod:`.sharded`), the
-mesh itself (:mod:`.mesh`: one process over a tuple of devices) and the
-mesh's rank counts (:mod:`.freq`)."""
+mesh itself (:mod:`.mesh`: one process over a tuple of devices, or a
+:class:`~.mesh.ProcessMesh` over several processes), processes across
+hosts (:mod:`.multihost`, over ``torch.distributed``) and the mesh's
+rank counts (:mod:`.freq`)."""
 
-from .mesh import make_mesh  # noqa: F401
+from .mesh import ProcessMesh, make_mesh  # noqa: F401
 from .sharded import (  # noqa: F401
     ShardedAnalyser,
     ShardedPipeline,
@@ -14,3 +16,15 @@ from .sharded import (  # noqa: F401
     owner_of,
     sharded_probe,
 )
+from .multihost import (  # noqa: F401
+    allgather_taxa,
+    flat_mesh,
+    global_batch,
+    init_distributed,
+    make_multihost_pipeline,
+    make_multihost_step,
+    make_multihost_tryptic_pipeline,
+    per_host_groups,
+    pod_mesh,
+)
+from .freq import sharded_rank_counts, sharded_taxa2freq_csv  # noqa: F401

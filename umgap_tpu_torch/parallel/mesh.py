@@ -1,11 +1,15 @@
-"""The port's mesh: the devices one process serves over (a counterpart of
-``umgap_tpu.parallel.mesh``, whose mesh is one process over its local
-devices)."""
+"""The port's meshes: the devices one process serves over (a tuple of
+devices, :func:`make_mesh`, the counterpart of ``umgap_tpu.parallel.
+mesh``, whose mesh is one process over its local devices), and a mesh
+that spans processes (:class:`ProcessMesh`, the global mesh of
+``umgap_tpu.parallel.multihost``)."""
 
 from __future__ import annotations
 
 import contextlib
+from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -50,3 +54,53 @@ def on_device(dev: torch.device):
     if dev.type == "cuda":
         return torch.cuda.device(dev)
     return contextlib.nullcontext()
+
+
+@dataclass(frozen=True)
+class ProcessMesh:
+    """A mesh that spans processes (``umgap_tpu``'s global mesh of
+    umgap_tpu/parallel/multihost.py:53-74): ``world_size`` processes of
+    ``torch.distributed``, each over the same number of local devices.
+    ``local`` is this process's (rank ``rank``) tuple of devices, which
+    may repeat a device as :func:`make_mesh`'s ``devices`` may. Device
+    ``d`` of rank ``r`` is global device ``r * len(local) + d``:
+    host-major, as ``umgap_tpu`` orders its devices by (process, id).
+    ``shape`` is ``(world_size, len(local))`` for the pod grid and
+    ``(world_size * len(local),)`` for the flat mesh; both order the
+    devices alike."""
+
+    rank: int
+    world_size: int
+    local: tuple
+    shape: tuple = ()
+
+    def __post_init__(self):
+        if not self.local:
+            raise ValueError("a process mesh needs at least one local "
+                             "device")
+        if not 0 <= self.rank < self.world_size:
+            raise ValueError(f"rank {self.rank} outside a world of "
+                             f"{self.world_size}")
+        n = self.world_size * len(self.local)
+        if not self.shape:
+            object.__setattr__(self, "shape", (n,))
+        if int(np.prod(self.shape)) != n:
+            raise ValueError(f"mesh shape {self.shape} does not hold {n} "
+                             "devices")
+
+    @property
+    def n_local(self) -> int:
+        return len(self.local)
+
+    @property
+    def n_devices(self) -> int:
+        """The global device count."""
+        return self.world_size * self.n_local
+
+    def global_index(self, d: int) -> int:
+        """The global index of local device ``d``."""
+        return self.rank * self.n_local + d
+
+    def grid(self) -> np.ndarray:
+        """The global device indices laid out in ``shape``."""
+        return np.arange(self.n_devices).reshape(self.shape)

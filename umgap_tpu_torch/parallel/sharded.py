@@ -14,7 +14,11 @@ and its answer comes back (:func:`sharded_probe`, the all-to-all of
 entry picks its sub-table. The mesh is one process over a tuple of
 devices (:mod:`.mesh`): the exchange is device-to-device copies, and a
 mesh may repeat a device, so the whole routing runs on one card as the
-JAX tests run it over virtual CPU devices.
+JAX tests run it over virtual CPU devices. A mesh may also span the
+processes of ``torch.distributed`` (:class:`~.mesh.ProcessMesh`,
+:mod:`.multihost`): a process holds only its own devices' shards, and
+the exchange is one ``all_to_all_single`` each way a step for the whole
+process.
 """
 from __future__ import annotations
 
@@ -114,11 +118,13 @@ class ShardedTable:
     :class:`~umgap_tpu_torch.ops.lookup.DeviceTable` a device, each of
     ``group`` stacked sub-tables (device ``d`` holds shards ``d * group``
     .. ``d * group + group - 1``), out of ``n_shards`` logical shards in
-    all."""
+    all. Over a :class:`~.mesh.ProcessMesh` (``mesh``), ``tables`` are
+    this process's devices' and ``d`` is a device's global index."""
 
-    def __init__(self, tables, n_shards: int):
+    def __init__(self, tables, n_shards: int, mesh=None):
         self.tables = tuple(tables)
         self.n_shards = int(n_shards)
+        self.mesh = mesh
 
     @property
     def table(self) -> DeviceTable:
@@ -131,6 +137,7 @@ class ShardedTable:
 
     @property
     def n_devices(self) -> int:
+        """This process's devices."""
         return len(self.tables)
 
     @property
@@ -149,19 +156,27 @@ class ShardedTable:
     def from_shards(cls, shards, mesh=None) -> "ShardedTable":
         """Host shard tables over the devices of ``mesh`` (a tuple of
         devices, :func:`~umgap_tpu_torch.parallel.mesh.make_mesh`; a
-        single device or None is a mesh of one): with N devices each holds
+        single device or None is a mesh of one; or a
+        :class:`~.mesh.ProcessMesh`): with N devices each holds
         ``len(shards) / N`` adjacent shards, which N must divide. A
         device's rows go into one preallocated tensor on it shard by
         shard, so the host holds one shard's rows at a time (the shards
         may be memory-mapped artifacts); its stash is its own shards'
-        stashes. Shards must share one geometry (peptide shards all but
-        their probe depth)."""
+        stashes. Over a process mesh N counts every process's devices
+        and a local device holds the shards of its global index: the
+        other processes' shards are checked but never read or uploaded.
+        Shards must share one geometry (peptide shards all but their
+        probe depth)."""
         from ..device import resolve_device
+        from .mesh import ProcessMesh
 
-        devices = (tuple(resolve_device(d) for d in mesh)
+        pmesh = mesh if isinstance(mesh, ProcessMesh) else None
+        devices = (tuple(resolve_device(d) for d in pmesh.local) if pmesh
+                   else tuple(resolve_device(d) for d in mesh)
                    if isinstance(mesh, (tuple, list))
                    else (resolve_device(mesh),))
-        n, n_dev = len(shards), len(devices)
+        n = len(shards)
+        n_dev = pmesh.n_devices if pmesh else len(devices)
         if n % n_dev:
             raise ValueError(
                 f"{n} shards cannot be grouped onto {n_dev} devices")
@@ -197,6 +212,8 @@ class ShardedTable:
         max_probes = max(t.max_probes for t in shards)
         tables = []
         for d, dev in enumerate(devices):
+            if pmesh:
+                d = pmesh.global_index(d)
             mine = shards[d * group:(d + 1) * group]
             rows = torch.empty((group * nb, width), dtype=torch.int32,
                                device=dev)
@@ -211,7 +228,7 @@ class ShardedTable:
                 rows, max_probes, t0.kind, t0.nb_bits if kmer else 0,
                 bucket, stash_t.reshape(-1, 3).to(dev), group=group,
                 first=d * group, n_total=n))
-        return cls(tables, n)
+        return cls(tables, n, pmesh)
 
 
 def _ranks(own: torch.Tensor, n: int) -> torch.Tensor:
@@ -251,7 +268,12 @@ def sharded_probe(stable: ShardedTable, his, los, valids, stage=None):
     receive buffers are fresh tensors, never views of the send buckets,
     so a mesh that repeats a device copies too. ``stage(name)``, when
     given, wraps the parts: "route", "exchange" (both ways), "probe",
-    "unroute"."""
+    "unroute".
+
+    Over a :class:`~.mesh.ProcessMesh` of more than one process the
+    tensors are this process's devices' and N counts every process's
+    devices (:func:`_probe_across_processes`); every process must call
+    with queries of one size a device (``global_batch`` pads them so)."""
     from contextlib import nullcontext
 
     from .. import kernels
@@ -259,10 +281,13 @@ def sharded_probe(stable: ShardedTable, his, los, valids, stage=None):
     from .mesh import on_device
 
     stage = stage or (lambda _name: nullcontext())
-    devs = stable.devices
-    N = len(devs)
     probe = lookup.probe_plain if kernels.plain_selected() else lookup.probe
     B = max(max(h.numel() for h in his), 1)
+    if stable.mesh is not None and stable.mesh.world_size > 1:
+        return _probe_across_processes(stable, his, los, valids, stage,
+                                       probe, B)
+    devs = stable.devices
+    N = len(devs)
     valid_f, slots, send = [], [], []
     with stage("route"):
         for d, dev in enumerate(devs):
@@ -309,6 +334,116 @@ def sharded_probe(stable: ShardedTable, his, los, valids, stage=None):
     return out
 
 
+def _probe_across_processes(stable: ShardedTable, his, los, valids, stage,
+                            probe, B: int):
+    """:func:`sharded_probe` over a mesh of P processes of n devices each
+    (N = P n): per local device the same owner and rank, into (P, n, 3,
+    B) send buckets (destination rank, its device, hi / lo / valid) filled
+    with -1; the local buckets stacked in destination-rank order, (P, n,
+    n, 3, B), on the first local device, and one ``all_to_all_single``
+    for the whole process sends block p to rank p (:func:`_exchange`);
+    each local device takes its rows, (3, N, B) by source global device,
+    and probes them in its own table; the answers, stacked (P, n, n, B)
+    by the rank and device they came from, go back with one more
+    ``all_to_all_single``, and each query reads its own at (owner,
+    rank)."""
+    from .mesh import on_device
+
+    mesh = stable.mesh
+    devs = stable.devices
+    P, n, N = mesh.world_size, mesh.n_local, mesh.n_devices
+    home = devs[0]
+    valid_f, slots, send = [], [], []
+    with stage("route"):
+        for d, dev in enumerate(devs):
+            with on_device(dev):
+                hi, lo = his[d].reshape(-1), los[d].reshape(-1)
+                v = valids[d].reshape(-1).to(torch.bool)
+                own = torch.where(v, owner_of(hi, lo, N, kind=stable.kind),
+                                  0).to(torch.int64)
+                pos = _ranks(own, N)
+                at = own * (3 * B) + pos
+                buf = torch.full((N, 3, B), -1, dtype=torch.int32,
+                                 device=dev)
+                part = torch.arange(3, device=dev)[:, None] * B
+                buf.view(-1)[at[None, :] + part] = torch.stack(
+                    [hi, lo, v.to(torch.int32)])
+                valid_f.append(v)
+                slots.append(own * B + pos)
+                send.append(buf.view(P, n, 3, B).to(home))
+        with on_device(home):
+            out = torch.stack(send, 2) if n > 1 else send[0][:, :, None]
+    with stage("exchange"):
+        got = _exchange(out, stage)
+    vals = []
+    with stage("probe"):
+        for e, dev in enumerate(devs):
+            with on_device(dev):
+                # (P, n_src, 3, B) -> (3, N, B) by source global device
+                r = got[:, e].to(dev).permute(2, 0, 1, 3).reshape(3, N, B)
+                vals.append(probe(stable.tables[e], r[0], r[1], r[2] > 0,
+                                  0)[0].view(P, n, B).to(home))
+        with on_device(home):
+            back = torch.stack(vals, 2) if n > 1 else vals[0][:, :, None]
+    with stage("exchange"):
+        back = _exchange(back, stage)
+    res = []
+    with stage("unroute"):
+        for d, dev in enumerate(devs):
+            with on_device(dev):
+                ans = back[:, d].to(dev).reshape(-1)[slots[d]]
+                res.append(torch.where(valid_f[d], ans, 0).reshape(
+                    his[d].shape))
+    return res
+
+
+def _host_staged() -> bool:
+    """True when the process group's collectives take host tensors only
+    (gloo): CUDA tensors then go through pinned host buffers."""
+    import torch.distributed as dist
+
+    return dist.get_backend() == "gloo"
+
+
+def _exchange(send: torch.Tensor, stage) -> torch.Tensor:
+    """One ``all_to_all_single``: block p of ``send``'s first axis (one
+    block a rank) goes to rank p, and block p of the result came from
+    rank p. Under gloo a CUDA tensor goes device -> pinned host buffer
+    -> gloo -> pinned host buffer -> device, each a named stage
+    ("exchange/d2h", "exchange/gloo", "exchange/h2d"); under nccl it
+    goes as it is."""
+    import torch.distributed as dist
+
+    if send.device.type != "cuda" or not _host_staged():
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send)
+        return recv
+    with stage("exchange/d2h"):
+        hsend = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
+        hsend.copy_(send)
+    hrecv = torch.empty(send.shape, dtype=send.dtype, pin_memory=True)
+    with stage("exchange/gloo"):
+        dist.all_to_all_single(hrecv, hsend)
+    with stage("exchange/h2d"):
+        recv = hrecv.to(send.device, non_blocking=True)
+    return recv
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over every process (``umgap_tpu``'s ``psum`` of the
+    rank-frequency vector), on ``t``'s device: one ``dist.all_reduce``
+    (through the host under gloo)."""
+    import torch.distributed as dist
+
+    if t.device.type == "cuda" and _host_staged():
+        h = t.cpu()
+        dist.all_reduce(h)
+        return h.to(t.device)
+    t = t.clone()
+    dist.all_reduce(t)
+    return t
+
+
 def rank_counts(dtaxs, taxa) -> torch.Tensor:
     """The rank-frequency vector of the mesh's taxa (float32, n_ranks, on
     the first device): on each device, each of its taxa's
@@ -340,7 +475,7 @@ class ShardedPipeline(torch.nn.Module):
     ``make_sharded_tryptic_pipeline``, umgap_tpu/parallel/sharded.py:393,
     :441): ``forward(dna4s, lens, length)`` with one slice of the batch a
     mesh device, on it: dna4 (b, E, ceil(L/2)) uint8 on the packed-4
-    wire and lengths (b, E) int32. Each device runs the stage before the
+    wire (``packed=False``: codes, (b, E, L)) and lengths (b, E) int32. Each device runs the stage before the
     probe on its reads (K1, or K7 for the tryptic presets), the queries
     go to their owners and back (:func:`sharded_probe`), and each device
     runs the stages after it on its reads (K3, K4 and K6, or K4 and K6),
@@ -376,7 +511,8 @@ class ShardedPipeline(torch.nn.Module):
         self.eulers = [None if euler is None else euler.to(d)
                        for d in stable.devices]
 
-    def forward(self, dna4s, lens, length: int, timer=None):
+    def forward(self, dna4s, lens, length: int, timer=None,
+                packed: bool = True):
         from contextlib import nullcontext
 
         from .. import kernels
@@ -392,7 +528,7 @@ class ShardedPipeline(torch.nn.Module):
                 with on_device(dev):
                     b, E = lens[d].shape
                     reads = dna4s[d].reshape(b * E, -1).contiguous()
-                    q, a = self.front(reads, lens[d], length, True, cfg,
+                    q, a = self.front(reads, lens[d], length, packed, cfg,
                                       stage)
                     queries.append(q)
                     aux.append(a)

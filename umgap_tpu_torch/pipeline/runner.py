@@ -28,6 +28,7 @@ from ..device import resolve_device
 from ..io import fastq, sniff_open
 from ..ops import encoding, lookup
 from ..taxonomy import Taxonomy
+from ..utils import StageTimer, verbose
 from .fused import PipelineConfig, make_pipeline
 
 
@@ -113,7 +114,10 @@ class BatchStream:
     ``_finalize(handle, dna, lens, n)`` (bring the handle back as a
     per-group result array of length >= n), and their twins
     ``_dispatch_packed`` / ``_finalize_packed`` for batches already on
-    the 4-bit packed wire."""
+    the 4-bit packed wire. ``timer`` adds up the host's time by stage
+    (dispatch, materialize, overflow_fallback; the analyser's
+    device_state_load), written to stderr under VERBOSE at each drain as
+    ``umgap_tpu``'s stream does."""
 
     depth = 2
 
@@ -121,6 +125,7 @@ class BatchStream:
         self.batch_size = batch_size
         self.read_length = read_length
         self.ends = ends
+        self.timer = StageTimer()
         self._pend: List[Tuple[List[str], np.ndarray, np.ndarray]] = []
         self._pend_n = 0
         self._inflight: List = []
@@ -148,7 +153,8 @@ class BatchStream:
         through to the output side (the CLI passes a (blob, offsets)
         pair for native formatting). Yields completed (headers,
         taxa[:n]) batches."""
-        handle = self._dispatch_packed(dna4, lens)
+        with self.timer.stage("dispatch"):
+            handle = self._dispatch_packed(dna4, lens)
         self._inflight.append((headers, dna4, lens, n, handle, True))
         while len(self._inflight) > self.depth:
             yield self._emit_batch(self._inflight.pop(0))
@@ -175,7 +181,8 @@ class BatchStream:
             dna = np.pad(dna, ((0, B - n), (0, 0), (0, 0)),
                          constant_values=encoding.DNA_N)
             lens = np.pad(lens, ((0, B - n), (0, 0)))
-        handle = self._dispatch(dna, lens)
+        with self.timer.stage("dispatch"):
+            handle = self._dispatch(dna, lens)
         self._inflight.append((headers, dna, lens, n, handle, False))
 
     def _take_batch(self):
@@ -233,6 +240,7 @@ class BatchStream:
             self._launch(hs, np.concatenate(ds), np.concatenate(ls))
         while self._inflight:
             yield self._emit_batch(self._inflight.pop(0))
+        verbose("stream timings:\n" + self.timer.report())
 
     def finish(self):
         for hs, ts in self.finish_batches():
@@ -271,19 +279,22 @@ class Analyser(BatchStream):
         super().__init__(batch_size, read_length, ends)
         self.config = config
         self.device = resolve_device(device)
-        self.dtax = (dtax if dtax is not None
-                     else devagg.DeviceTaxonomy.from_host(tax, self.device))
-        self.dtable = (dtable if dtable is not None
-                       else lookup.DeviceTable.from_host(table, self.device))
-        if euler is None and tax is not None and (
-                config.method, config.strategy) == ("rmq", "lca*"):
-            from ..agg.device_rmq import DeviceEuler
+        with self.timer.stage("device_state_load"):
+            self.dtax = (dtax if dtax is not None else
+                         devagg.DeviceTaxonomy.from_host(tax, self.device))
+            self.dtable = (dtable if dtable is not None else
+                           lookup.DeviceTable.from_host(table, self.device))
+            if euler is None and tax is not None and (
+                    config.method, config.strategy) == ("rmq", "lca*"):
+                from ..agg.device_rmq import DeviceEuler
 
-            euler = DeviceEuler.from_host(tax, self.device)
+                euler = DeviceEuler.from_host(tax, self.device)
         self.euler = euler
         self.step = self._make_step(config, with_overflow=True)
         self._wide_step = None
         self.overflow_reads = 0
+        verbose(f"{type(self).__name__} ready: preset={config.name} "
+                f"batch={batch_size} ends={ends}")
 
     def _make_step(self, config: PipelineConfig, with_overflow: bool):
         """The per-batch module on the packed-4 wire (overridden by
@@ -348,15 +359,19 @@ class Analyser(BatchStream):
         return taxa, idx
 
     def _finalize(self, handle, dna, lens, n):
-        taxa, idx = self._collect(handle, n)
+        with self.timer.stage("materialize"):
+            taxa, idx = self._collect(handle, n)
         if len(idx):
-            taxa[idx] = self.run_wide(dna[idx], lens[idx])
+            with self.timer.stage("overflow_fallback"):
+                taxa[idx] = self.run_wide(dna[idx], lens[idx])
         return taxa
 
     def _finalize_packed(self, handle, dna4, lens, n):
-        taxa, idx = self._collect(handle, n)
+        with self.timer.stage("materialize"):
+            taxa, idx = self._collect(handle, n)
         if len(idx):
-            taxa[idx] = self.run_wide_packed(dna4[idx], lens[idx])
+            with self.timer.stage("overflow_fallback"):
+                taxa[idx] = self.run_wide_packed(dna4[idx], lens[idx])
         return taxa
 
     def run_wide(self, dna: np.ndarray, lens: np.ndarray) -> np.ndarray:
