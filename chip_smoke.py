@@ -28,8 +28,13 @@ Unix socket, replies byte-equal to the in-process records), runs the FragGeneSca
 and the command line with ``-c`` and ``-z``), reads FASTQ files (plain and gzipped, and reads of
 100-4,096 bp) through the command line's three ingest tiers, holds its
 two host routes (the host digest, the exact long-record route) to
-device routes, and runs the Euler/RMQ aggregations (rmq/lca*,
-rmq/hybrid) over the workload. Every phase always runs; the
+device routes, runs the Euler/RMQ aggregations (rmq/lca*,
+rmq/hybrid) over the workload, and runs the reference's stream
+subcommands in process (phase subcommands: two presets as their shell
+chains of ``translate | prot2kmer2lca | seedextend | uniq | taxa2agg``
+against ``analyse`` and the plain versions, ``seedextend -r``,
+``taxa2agg -m rmq -a lca*``, ``pept2lca``, the ``prot2kmer2lca -s``
+server). Every phase always runs; the
 script takes no arguments. Every comparison is exact (all outputs are
 integer ids, masks and counts). Each path's launch counts are reset
 before it is driven and the counts of the kernels it runs must be above
@@ -263,6 +268,7 @@ def main():
         k8_resident = phase_resident_peptide(torch, world, tresults)
         phase_cli(torch, world)
         phase_serve(torch, world)
+        phase_subcommands(torch, world)
         shards_launches, stats["probe_kmer_grouped"] = phase_shards(torch,
                                                                     world)
         mesh_launches, stats["probe_peptide_grouped"] = phase_mesh(
@@ -3797,6 +3803,339 @@ class _HostMemPeak:
         return {k: (self.peak[k] - self.base[k]) / 1e9 for k in self.KINDS}
 
 
+# ---------------------------------------------------------------------- #
+# Phase 5u: the stream subcommands on the card
+# ---------------------------------------------------------------------- #
+
+SUB_PAIRS = 4096
+SUB_PRESETS = ("high-sensitivity", "max-sensitivity")
+# pairs of SCORED_WIDTH bp ends for `seedextend -r` (132 windows a frame:
+# K3's scored row kernel)
+SUB_SCORED_PAIRS = 512
+SUB_PEPTIDES = 8  # peptides a pept2lca record
+SUB_PATH_KERNELS = ("proteins_to_kmers", "probe_kmer", "seedextend_mask",
+                    "dedup_counts", "tree_aggregate")
+# taxa2agg -s: non-dyadic scores, the scored cases, and the wide rows (past
+# 64 distinct taxa and 1,024 entries) drawn from SUB_WIDE_POOL taxa
+SUB_SCORES = (0.1, 0.3, 0.7, 1.1, 0.2, 2.5)
+SUB_SCORED_CASES = ((("tree", "hybrid"), ["-r", "-l", "0.7"]),
+                    (("rmq", "hybrid"), ["-f", "0.3"]),
+                    (("rmq", "mrtl"), ["-r"]))
+SUB_WIDE_ROWS = 64
+SUB_WIDE_POOL = 400
+
+
+def _sub_run(argv, stdin):
+    """One subcommand of ``python -m umgap_tpu_torch`` in this process:
+    (stdout, wall seconds); a non-zero exit fails the phase."""
+    import contextlib
+    import io
+
+    from umgap_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv, stdin=io.StringIO(stdin), stdout=out)
+    dt = time.perf_counter() - t0
+    require(rc == 0, f"subcommands: {argv[0]} exit {rc}: "
+            f"{err.getvalue()[-1000:]}")
+    return out.getvalue(), dt
+
+
+def _sub_chain(preset, fasta_in, taxtsv, index, stages=None):
+    """The preset as the reference's shell pipeline (umgap-analyse.sh:
+    276-311): translate -a | prot2kmer2lca -o | seedextend | uniq -d / |
+    taxa2agg, each stage in this process. Returns each stage's output;
+    ``stages`` gets each one's wall s, records and records/s."""
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+
+    cfg = PRESETS[preset]
+    steps = (("translate", ["translate", "-a"]),
+             ("prot2kmer2lca", ["prot2kmer2lca", "-o", index]),
+             ("seedextend", ["seedextend", f"-g{cfg.max_gap_size}",
+                             f"-s{cfg.min_seed_size}"]),
+             ("uniq", ["uniq", "-d", "/"]),
+             ("taxa2agg", ["taxa2agg", "-l", str(int(cfg.lower_bound)),
+                           "-m", cfg.method, "-a", cfg.strategy, "-f",
+                           str(cfg.factor), taxtsv]))
+    outs, s = {}, fasta_in
+    for name, argv in steps:
+        s, dt = _sub_run(argv, s)
+        outs[name] = s
+        if stages is not None:
+            n = s.count(">")
+            stages[name] = dict(seconds=dt, records=n, records_per_s=n / dt)
+    return outs
+
+
+def _sub_fasta(codes, prefix):
+    """Read pairs (n, 2, L) as FASTA, ends named <prefix><i>/1 and /2."""
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    seqs = lut[np.minimum(codes, 4)]
+    return "".join(f">{prefix}{i}/{e + 1}\n{seqs[i, e].tobytes().decode()}\n"
+                   for i in range(len(codes)) for e in (0, 1))
+
+
+def _sock_roundtrip(path, data, timeout=300):
+    """One stream to the server at ``path``, sent from a thread while the
+    reply is read (neither side waits on a full socket buffer): (reply,
+    wall seconds)."""
+    import socket
+    import threading
+
+    t0 = time.perf_counter()
+    c = socket.socket(socket.AF_UNIX)
+    c.settimeout(timeout)
+    with c:
+        c.connect(path)
+
+        def send():
+            c.sendall(data.encode())
+            c.shutdown(socket.SHUT_WR)
+
+        th = threading.Thread(target=send)
+        th.start()
+        chunks = []
+        while True:
+            b = c.recv(1 << 20)
+            if not b:
+                break
+            chunks.append(b)
+        th.join()
+    return b"".join(chunks).decode(), time.perf_counter() - t0
+
+
+def _sub_socket(index, proteins, want):
+    """``python -m umgap_tpu_torch prot2kmer2lca -o -s SOCK`` on the card
+    in a subprocess (its kernels from the build cache this process
+    filled): two connections of the proteins, the records of each equal
+    to ``want``, then the server is stopped. Returns the seconds from the
+    start to the socket (the process's start and the index's load onto
+    the card), the two connections' wall seconds and the server's log
+    lines."""
+    # a short relative socket path (AF_UNIX paths are at most 107 bytes)
+    sock_abs = os.path.join(TMP_DIR, "prot2kmer2lca.sock")
+    sock = os.path.relpath(sock_abs, TMP_DIR)
+    if os.path.exists(sock_abs):  # the server binds a new socket
+        os.unlink(sock_abs)
+    log_path = os.path.join(TMP_DIR, "prot2kmer2lca.log")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "umgap_tpu_torch", "prot2kmer2lca", "-o",
+             "-s", sock, os.path.abspath(index)], cwd=TMP_DIR, env=env,
+            stdout=logf, stderr=subprocess.STDOUT)
+    times = []
+    try:
+        while not os.path.exists(sock_abs):
+            require(proc.poll() is None and time.perf_counter() - t0 < 300,
+                    "subcommands: the prot2kmer2lca server did not start: "
+                    + open(log_path).read()[-2000:])
+            time.sleep(0.05)
+        listening_s = time.perf_counter() - t0
+        for i in range(2):
+            got, dt = _sock_roundtrip(sock_abs, proteins)
+            require(got == want, f"subcommands: socket connection {i + 1} "
+                    "wrote other records than prot2kmer2lca on stdin")
+            times.append(dt)
+        require(proc.poll() is None, "subcommands: the server stopped")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    lines = open(log_path).read().splitlines()
+    require(lines.count("Connection finished succesfully.") == 2,
+            f"subcommands: server log {lines[-20:]}")
+    return dict(listening_s=listening_s, first_s=times[0],
+                repeat_s=times[1], log=lines)
+
+
+def phase_subcommands(torch, world):
+    """The reference's stream subcommands on the card, in this process
+    (``cli.main``), over SUB_PAIRS bench pairs as FASTA and the bench
+    index (phase cli's files): the high-sensitivity and max-sensitivity
+    chains (``_sub_chain``; each stage's wall s and records/s), their
+    records equal to ``analyse`` on the same pairs and equal under
+    ``kernels.plain_versions()`` stage by stage, each chain launching K1P,
+    K2, K3, K4 and K6; ``seedextend -r`` on the lanes of SUB_SCORED_PAIRS
+    pairs of SCORED_WIDTH bp ends launching K3RS (= plain);
+    ``taxa2agg -m rmq -a lca*`` launching K5 and snap_taxa (= plain);
+    ``taxa2agg -s`` with non-dyadic scores (SUB_SCORED_CASES: tree/hybrid,
+    rmq/hybrid, rmq/mrtl) on the grouped records and on SUB_WIDE_ROWS
+    rows past 64 distinct taxa, launching K4 (its warp path, its row
+    kernel) and K6 (K5 and snap_taxa for rmq/hybrid), = plain;
+    ``pept2lca -o`` on the bench peptide index launching K8 (= plain);
+    and one ``prot2kmer2lca -o -s`` server in a subprocess, connected
+    twice, each connection writing the records of the command on stdin
+    (``_sub_socket``). Returns the launches of each path."""
+    from umgap_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    taxtsv, index = _cli_files(world)
+    fasta_in = _sub_fasta(world["reads"][:SUB_PAIRS], "s")
+    paths = [os.path.join(TMP_DIR, f"sub{e + 1}.fq") for e in (0, 1)]
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    for e, path in enumerate(paths):
+        seqs = lut[np.minimum(world["reads"][:SUB_PAIRS, e], 4)]
+        with open(path, "wb") as f:
+            for i in range(SUB_PAIRS):
+                f.write(b"@s%d/%d\n%s\n+\n%s\n" % (
+                    i, e + 1, seqs[i].tobytes(), b"I" * world["L"]))
+    phase = {"pairs": SUB_PAIRS, "chains": {}, "launches": {}}
+    outs = {}
+    for preset in SUB_PRESETS:
+        stages = {}
+        kernels.reset_launches()
+        outs[preset] = _sub_chain(preset, fasta_in, taxtsv, index, stages)
+        launches = kernels.launch_counts()
+        for k in SUB_PATH_KERNELS:
+            require(launches[k] > 0, f"subcommands {preset}: kernel {k} was "
+                    "not launched")
+        ana, ana_s = _sub_run(["analyse", "-t", preset, "-1", paths[0], "-2",
+                               paths[1], "--taxons", taxtsv, "--index", index,
+                               "--fgspp", "never"], "")
+        require(outs[preset]["taxa2agg"] == ana and
+                ana.count(">") == SUB_PAIRS, f"subcommands {preset}: the "
+                "chain's records differ from analyse's")
+        with kernels.plain_versions():
+            plain = _sub_chain(preset, fasta_in, taxtsv, index)
+        for stage, text in outs[preset].items():
+            require(plain[stage] == text, f"subcommands {preset}: {stage}'s "
+                    "kernel records differ from the plain versions'")
+        chain_s = sum(st["seconds"] for st in stages.values())
+        phase["chains"][preset] = dict(stages=stages, chain_s=chain_s,
+                                       analyse_s=ana_s)
+        phase["launches"][preset] = launches
+        log(f"subcommands {preset}: chain {chain_s:.2f}s ("
+            + ", ".join(f"{n} {st['seconds']:.2f}s "
+                        f"{st['records_per_s']:.0f} rec/s"
+                        for n, st in stages.items())
+            + f"), analyse {ana_s:.2f}s; records == analyse == plain")
+
+    # seedextend -r on lanes past the staged tile: K3RS
+    wcodes = _rung_codes(world, SCORED_WIDTH)[:SUB_SCORED_PAIRS]
+    lookups, _dt = _sub_run(["prot2kmer2lca", "-o", index], _sub_run(
+        ["translate", "-a"], _sub_fasta(wcodes, "w"))[0])
+    argv = ["seedextend", "-r", taxtsv, "-g1", "-s2", "-p", "5"]
+    kernels.reset_launches()
+    scored, scored_s = _sub_run(argv, lookups)
+    launches = kernels.launch_counts()
+    require(launches["seedextend_rows_scored"] > 0 and
+            launches["seedextend_rows"] == 0, f"subcommands: seedextend -r "
+            f"at {SCORED_WIDTH} bp launched {launches}")
+    with kernels.plain_versions():
+        require(_sub_run(argv, lookups)[0] == scored, "subcommands: "
+                "seedextend -r kernel records differ from plain")
+    phase["launches"]["seedextend -r"] = launches
+    phase["seedextend_ranked"] = dict(
+        pairs=SUB_SCORED_PAIRS, width=SCORED_WIDTH, seconds=scored_s,
+        records=scored.count(">"))
+
+    # taxa2agg -m rmq -a lca*: K5 and snap_taxa
+    argv = ["taxa2agg", "-m", "rmq", "-a", "lca*", "-l", "1", taxtsv]
+    grouped = outs["high-sensitivity"]["uniq"]
+    kernels.reset_launches()
+    rmq, rmq_s = _sub_run(argv, grouped)
+    launches = kernels.launch_counts()
+    for k in ("dedup_counts", "lane_gather", "snap_taxa"):
+        require(launches[k] > 0, f"subcommands: taxa2agg rmq/lca* launched "
+                f"no {k}: {launches}")
+    with kernels.plain_versions():
+        require(_sub_run(argv, grouped)[0] == rmq, "subcommands: taxa2agg "
+                "rmq/lca* kernel records differ from plain")
+    phase["launches"]["taxa2agg rmq/lca*"] = launches
+    phase["taxa2agg_rmq_lca"] = dict(seconds=rmq_s)
+
+    # taxa2agg -s: K4's weighted instances and K6's ordered ones (K5 and
+    # snap_taxa for rmq/hybrid) on the grouped records with non-dyadic
+    # scores (K4's warp path, K6's thread and warp paths) and on wide rows
+    # (K4's row kernel, the wide pass, K6's block path)
+    rng = np.random.default_rng(29)
+    narrow = "".join(
+        ">" + r.split("\n", 1)[0] + "\n" + "".join(
+            f"{t}={rng.choice(SUB_SCORES)}\n"
+            for t in r.split("\n")[1:] if t)
+        for r in grouped.split(">")[1:])
+    tax = world["tax"]
+    pool = rng.choice(np.flatnonzero(tax.present & (tax.depth >= 1)),
+                      size=SUB_WIDE_POOL, replace=False)
+    wide = "".join(f">w{i}\n" + "".join(
+        f"{int(t)}={rng.choice(SUB_SCORES)}\n"
+        for t in rng.choice(pool, size=1100 + 7 * i))
+        for i in range(SUB_WIDE_ROWS))
+    phase["taxa2agg_scored"] = {}
+    for (method, strategy), flags in SUB_SCORED_CASES:
+        key = f"taxa2agg -s {method}/{strategy}"
+        argv = ["taxa2agg", "-s", "-m", method, "-a", strategy, *flags,
+                taxtsv]
+        want = (("lane_gather", "snap_taxa") if method == "rmq" and
+                strategy == "hybrid" else ("tree_aggregate",))
+        for kind, stdin, k4 in (("narrow", narrow, "dedup_counts"),
+                                ("wide", wide, "dedup_rows")):
+            kernels.reset_launches()
+            out, dt = _sub_run(argv, stdin)
+            launches = kernels.launch_counts()
+            for k in (k4, *want):
+                require(launches[k] > 0, f"subcommands: {key} ({kind}) "
+                        f"launched no {k}: {launches}")
+            with kernels.plain_versions():
+                plain, plain_s = _sub_run(argv, stdin)
+            require(plain == out and out.count(">") == stdin.count(">"),
+                    f"subcommands: {key} ({kind}): kernel records differ "
+                    "from plain")
+            phase["launches"][f"{key} {kind}"] = launches
+            phase["taxa2agg_scored"][f"{key} {kind}"] = dict(
+                records=out.count(">"), seconds=dt, plain_seconds=plain_s)
+
+    # pept2lca -o on the bench peptide index: K8
+    pindex = os.path.join(TMP_DIR, "tryptic.npz")
+    if not os.path.exists(pindex):
+        world["ptable"].save(pindex)
+    rng = np.random.default_rng(23)
+    keys = world["ptable"].raw_keys
+    picks = rng.integers(0, len(keys), size=SUB_PAIRS * SUB_PEPTIDES)
+    peps = [keys[i] if i % 5 else keys[i][::-1] for i in picks]
+    pin = "".join(f">p{r}\n" + "".join(
+        f"{p}\n" for p in peps[r * SUB_PEPTIDES:(r + 1) * SUB_PEPTIDES])
+        for r in range(SUB_PAIRS))
+    kernels.reset_launches()
+    pout, pept_s = _sub_run(["pept2lca", "-o", pindex], pin)
+    launches = kernels.launch_counts()
+    require(launches["probe_peptide"] > 0, f"subcommands: pept2lca on the "
+            f"peptide index launched {launches}")
+    with kernels.plain_versions():
+        require(_sub_run(["pept2lca", "-o", pindex], pin)[0] == pout,
+                "subcommands: pept2lca kernel records differ from plain")
+    hits = sum(1 for ln in pout.splitlines() if ln[:1] != ">" and ln != "0")
+    phase["launches"]["pept2lca"] = launches
+    phase["pept2lca"] = dict(peptides=len(peps), found=hits, seconds=pept_s)
+
+    # prot2kmer2lca -s: the index on the card once, two connections
+    hs = outs["high-sensitivity"]
+    phase["socket"] = _sub_socket(index, hs["translate"],
+                                  hs["prot2kmer2lca"])
+    sk = phase["socket"]
+    log(f"subcommands: seedextend -r at {SCORED_WIDTH} bp {scored_s:.2f}s "
+        f"(K3RS {phase['launches']['seedextend -r']['seedextend_rows_scored']}"
+        f" launches), taxa2agg rmq/lca* {rmq_s:.2f}s, pept2lca "
+        f"{len(peps)} peptides {pept_s:.2f}s ({hits} found), taxa2agg -s "
+        + ", ".join(f"{k} {v['seconds']:.2f}s"
+                    for k, v in phase["taxa2agg_scored"].items())
+        + ", socket "
+        f"server up {sk['listening_s']:.2f}s, connection 1 "
+        f"{sk['first_s']:.2f}s, connection 2 {sk['repeat_s']:.2f}s; all "
+        "== plain")
+    phase["card"] = RESULT.get("card")
+    phase["seconds"] = time.perf_counter() - t_phase
+    RESULT["phases"]["subcommands"] = phase
+    return phase["launches"]
+
+
 def _write_shards(shards, work, taxons):
     """A buildindex-dist workdir: each shard packed and uncompressed as
     ``shards/shard_{s:03d}.npz``, its probe depth stamped to the
@@ -5775,7 +6114,8 @@ def compare_trees(before, after, order="BAAB", mode="full"):
     main path's kernels, the 12,000 bp path, the ladder sample), "tail"
     its ``tail_ab`` (the tail after K3: CUDA kernels a batch, stage
     tables, the tail's device ms, the ring, the 12,000 bp path), "stash"
-    its ``stash_ab`` (K2 at stashes of STASH_ROWS rows).
+    its ``stash_ab`` (K2 at stashes of STASH_ROWS rows), "chains" this
+    file's ``chain_device_ms`` alone at L = 100 and 160 (K1-K4 and K6).
     Writes ``ab.json`` (or ``ab_<mode>.json``) under OUT_DIR.
 
         python3 -c "import chip_smoke; chip_smoke.compare_trees(P, A)"
@@ -5853,6 +6193,12 @@ def compare_trees(before, after, order="BAAB", mode="full"):
                     f"{S}: grouped {c['grouped']['device_ms']:.4f}, single "
                     f"{c['single']['device_ms']:.4f}"
                     for S, c in st.items()))
+    if mode == "chains":
+        for k, r in enumerate(runs):
+            log(f"run {k} {r['tag']}: device ms " + "; ".join(
+                f"L={w} " + ", ".join(f"{n} {fmt_ms(v)}" for n, v in c.items()
+                                      if not n.endswith("event_ms"))
+                for w, c in r["chain_device_ms"].items()))
     if mode != "full":
         return
 
@@ -6253,7 +6599,7 @@ def ab_worker(tree, out, mode="full"):
     """One A/B run: ``tree``'s package and ``chip_smoke.py`` phases, then
     this file's stage tables and host times; writes JSON to ``out``.
     ``mode`` "chain" runs ``chain_device_ms`` at the workload's read
-    length alone, "tryptic" this file's ``tryptic_ab``, "wide" its
+    length alone, "chains" at it and at 160, "tryptic" this file's ``tryptic_ab``, "wide" its
     ``wide_ab``, "long" its ``long_ab``, "rows" its ``rows_ab``, "tail"
     its ``tail_ab``, "stash" its ``stash_ab``."""
     import importlib.util
@@ -6271,6 +6617,12 @@ def ab_worker(tree, out, mode="full"):
         with open(out, "w") as f:
             json.dump(dict(tree=tree, card=card, chain_device_ms=(
                 chain_device_ms(torch, world, world["L"]))), f, default=str)
+        return
+    if mode == "chains":
+        with open(out, "w") as f:
+            json.dump(dict(tree=tree, card=card, chain_device_ms={
+                width: chain_device_ms(torch, world, width)
+                for width in (world["L"], 160)}), f, default=str)
         return
     if mode in ("tryptic", "wide", "long", "rows", "tail", "stash"):
         fn = dict(tryptic=tryptic_ab, wide=wide_ab, long=long_ab,

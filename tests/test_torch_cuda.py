@@ -1816,3 +1816,213 @@ def test_multihost_two_ranks_on_one_card(dev, tmp_path):
                               "dedup_counts", "tree_aggregate"))):
         counts = {k: int(c) for k, c in got[tag + "launches"]}
         assert all(counts[k] > 0 for k in names), counts
+
+
+SCORE_WEIGHTS = np.array([0.1, 0.3, 0.7, 1.1, 0.2, 2.5], np.float32)
+
+
+def _ordered_counts(taxa, w):
+    """Each row's {id: count} with a taxon's weights added in float32 in
+    input order (agg::count's order)."""
+    out = []
+    for t, x in zip(taxa, w):
+        c = {}
+        for a, b in zip(t.tolist(), x.tolist()):
+            if a > 0:
+                c[a] = np.float32(c.get(a, np.float32(0)) + np.float32(b))
+        out.append(c)
+    return out
+
+
+@pytest.mark.parametrize("N", [300, 540, 1003, 2048, 24576])
+def test_dedup_kernel_weights_in_input_order(dev, N, monkeypatch):
+    """K4 with non-dyadic weights (taxa2agg -s): each taxon's weights
+    added in input order, on the warp path, scalar loads (N = 1,003),
+    the row kernel, and its scratch rows (shared room cut to 8 KB), with
+    few distinct ids a row so that runs are long; against both plain
+    versions and a sequential sum on the host."""
+    rng = np.random.default_rng(N)
+    B = 40
+    taxa = rng.integers(0, 7, size=(B, N)).astype(np.int32)
+    taxa[1] = 3
+    taxa[2, ::2] = 0
+    w = rng.choice(SCORE_WEIGHTS, size=(B, N))
+    want = _ordered_counts(taxa, w)
+    t, x = torch.from_numpy(taxa).to(dev), torch.from_numpy(w).to(dev)
+    for smem in (pagg.DEDUP_SMEM_MAX, 8192):
+        monkeypatch.setattr(pagg, "DEDUP_SMEM_MAX", smem)
+        got = pagg.dedup_counts(t, x, 8, True, lower_bound=2.0)
+        _eq(got, pagg.dedup_counts_plain(t, x, 8, True, lower_bound=2.0))
+        _eq(got, pagg.dedup_counts_rows_plain(t, x, 8, True,
+                                              lower_bound=2.0))
+        u, c, _v, _n = (a.cpu().numpy() for a in got)
+        for b in range(B):
+            assert {int(i): np.float32(v) for i, v in zip(u[b], c[b])
+                    if i != pagg.I32_MAX} == want[b]
+
+
+@pytest.mark.parametrize("N", [25, 45, 52, 96, 97, 420, 4000])
+def test_seedextend_scored_mask_kernel(dev, N):
+    """K3's scored entries with the mask epilogue (``seedextend -r``):
+    the keep mask against the plain version and the row formulation,
+    one launch of the entry the width takes, and the hits entry equal to
+    the taxa where the mask keeps."""
+    rng = np.random.default_rng(N + 7)
+    taxa, lens = _scored_lanes(rng, 301, N)
+    tx, ln = torch.from_numpy(taxa).to(dev), torch.from_numpy(lens).to(dev)
+    sc = torch.from_numpy(SEED_SCORES).to(dev)
+    k = (kernels.K3S if seedextend.seedextend_path(N) == "staged"
+         else kernels.K3RS)
+    for s, g, penalty in ((2, 0, 5), (3, 1, 0), (1, 2, 9)):
+        before = k.launches
+        keep = seedextend.seedextend_mask_batch(tx, ln, s, g, seed_scores=sc,
+                                                penalty=penalty)
+        assert k.launches == before + 1 and keep.dtype == torch.bool
+        _eq((keep,), (seedextend.seedextend_scored_mask_plain(
+            tx, ln, sc, penalty, s, g),))
+        _eq((keep,), (seedextend.seedextend_scored_runs_plain(
+            tx, ln, sc, penalty, s, g, hits=False),))
+        hits = seedextend.seedextend_hits(tx, ln, s, g, seed_scores=sc,
+                                          penalty=penalty)
+        _eq((hits,), (torch.where(keep, tx, 0),))
+
+
+def _ordered_hits(tax, B, K, seed):
+    """Filtered hit lists as K4 hands them over for taxa2agg -s: distinct
+    ascending ids (drawn from a few lineages while they last, so that
+    branch and ancestry sums meet), counts that are a few non-dyadic
+    weights added in float32; groups of 1-5 (the walk in registers and
+    the thread path), 16-17, K and a random count of valid slots, every
+    third with slots filtered out."""
+    rng = np.random.default_rng(seed)
+    ids = np.flatnonzero(tax.depth >= 1)
+    leaves = rng.choice(ids, size=min(len(ids), 12), replace=False)
+    lineage = np.unique(tax.anc_table[leaves][tax.anc_table[leaves] > 0])
+    u = np.full((B, K), np.iinfo(np.int32).max, np.int32)
+    c = np.zeros((B, K), np.float32)
+    v = np.zeros((B, K), bool)
+    for b in range(B):
+        m = min(K, (1, 2, 3, 4, 5, 16, 17, K, int(rng.integers(1, K + 1)))[
+            b % 9])
+        pool = lineage if m <= len(lineage) else ids
+        sel = np.sort(rng.choice(pool, size=min(m, len(pool)), replace=False))
+        u[b, :len(sel)] = sel
+        for e in range(len(sel)):
+            acc = np.float32(0)
+            for x in rng.choice(SCORE_WEIGHTS, size=int(rng.integers(1, 4))):
+                acc = np.float32(acc + x)
+            c[b, e] = acc
+        v[b, :len(sel)] = True
+        if b % 3 == 2:
+            v[b] &= rng.random(K) < 0.7
+    return u, c, v
+
+
+@pytest.mark.parametrize("K,B", [(64, 900), (648, 72), (2000, 36)])
+@pytest.mark.parametrize("strategy", ["hybrid", "mrtl"])
+def test_tree_aggregate_ordered_matches_plain(dev, strategy, K, B):
+    """K6's ordered instances (``ordered=True``, taxa2agg -s) on
+    non-dyadic counts, whose sums across taxa round by the order of
+    their adds: every path (hybrid's walk in registers, the thread path,
+    the warp path, the block path and its first thread's walk) equal to
+    the plain version, which adds in the same order, with and without
+    the snap; one launch a call."""
+    tax = _bench_tree()
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    u, c, v = (torch.from_numpy(x).to(dev)
+               for x in _ordered_hits(tax, B, K, K + B))
+    assert not pagg.exact_sums(c)
+    for factor in (0.25, 0.5, 0.7, 1.0) if strategy == "hybrid" else (0.25,):
+        for snap in (None, dtax.snap_ranked):
+            before = kernels.K6.launches
+            got = pagg.tree_aggregate_hits(strategy, dtax, u, c, v, factor,
+                                           snap, ordered=True)
+            assert kernels.K6.launches == before + 1
+            want = pagg.tree_aggregate_hits_plain(strategy, dtax, u, c, v,
+                                                  factor, snap)
+            assert torch.equal(got, want), (factor, int((got != want).sum()))
+
+
+def test_rmq_mix_ordered_on_the_card_equals_the_cpu(dev):
+    """The Euler/RMQ hybrid with ``ordered=True`` on non-dyadic counts:
+    its sums are elementwise adds in slot order, which round alike on
+    the card and the CPU, through K5 and through its plain version."""
+    tax = _bench_tree()
+    B, K = 300, 48
+    u, c, v = _ordered_hits(tax, B, K, 5)
+    cpu = pagg.DeviceTaxonomy.from_host(tax, "cpu")
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    ut, ct, vt = (torch.from_numpy(x) for x in (u, c, v))
+    for factor in (0.25, 0.6):
+        want = prmq.rmq_mix_batch(cpu, ut, ct, vt, factor, ordered=True)
+        args = (dtax, ut.to(dev), ct.to(dev), vt.to(dev), factor)
+        before = kernels.K5.launches
+        got = prmq.rmq_mix_batch(*args, ordered=True)
+        assert kernels.K5.launches > before
+        assert torch.equal(got.cpu(), want)
+        with kernels.plain_versions():
+            assert torch.equal(prmq.rmq_mix_batch(*args, ordered=True).cpu(),
+                               want)
+
+
+@pytest.mark.parametrize("method,strategy", [
+    ("tree", "hybrid"), ("tree", "lca*"), ("rmq", "mrtl"), ("rmq", "lca*"),
+    ("rmq", "hybrid")])
+def test_taxa2agg_scored_on_the_card_equals_the_cpu(dev, tmp_path, method,
+                                                    strategy):
+    """``taxa2agg -s`` with non-dyadic scores on the card writes the
+    bytes of ``--device cpu``: narrow rows and rows past 64 distinct taxa
+    and 1,024 entries (K4's row kernel, the wide pass), with -r, -l and
+    -f; K4 and K6 (or K5 and snap_taxa) launched."""
+    import contextlib
+    import io
+    import os
+
+    from umgap_tpu_torch.cli import main
+
+    data = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".bench_data")
+    parent = np.fromfile(os.path.join(data, "parent.bin"), np.int32)
+    snap = np.fromfile(os.path.join(data, "snap.bin"), np.int32)
+    tsv = str(tmp_path / "t.tsv")
+    with open(tsv, "w") as f:
+        for i in range(1, len(parent)):
+            f.write(f"{i}\tt{i}\t{'no rank' if i % 3 else 'species'}\t"
+                    f"{int(parent[i])}\t{chr(1) if snap[i] == i else chr(0)}"
+                    "\n")
+    tax = _bench_tree()
+    rng = np.random.default_rng(17)
+    ids = np.flatnonzero(tax.depth >= 1)
+    leaves = rng.choice(ids, size=40, replace=False)
+    pool = np.unique(tax.anc_table[leaves][tax.anc_table[leaves] > 0])
+    wide_pool = rng.choice(ids, size=300, replace=False)
+    recs = {"narrow": [], "wide": []}
+    for i in range(700):
+        n, src = ((1100 + i % 300, wide_pool) if i % 97 == 0
+                  else (i % 60, pool))
+        rec = f">r{i}\n" + "".join(
+            f"{int(t)}={w}\n" for t, w in zip(
+                rng.choice(src, size=n), rng.choice(SCORE_WEIGHTS, size=n)))
+        recs["wide"].append(rec)
+        if i % 97:
+            recs["narrow"].append(rec)
+    want = (("lane_gather", "snap_taxa") if (method, strategy) in (
+        ("rmq", "lca*"), ("rmq", "hybrid")) else ("tree_aggregate",))
+    for kind, rows in recs.items():
+        # a chunk's width picks K4's entry: the warp path, the row kernel
+        k4 = "dedup_counts" if kind == "narrow" else "dedup_rows"
+        for flags in (["-s", "-r", "-l", "0.7"], ["-s", "-f", "0.3"]):
+            argv = ["taxa2agg", "-m", method, "-a", strategy, *flags, tsv]
+            outs = []
+            for extra in ([], ["--device", "cpu"]):
+                kernels.reset_launches()
+                o, e = io.StringIO(), io.StringIO()
+                with contextlib.redirect_stderr(e):
+                    rc = main(argv + extra, stdin=io.StringIO("".join(rows)),
+                              stdout=o)
+                outs.append((rc, o.getvalue(), e.getvalue()))
+                if not extra:
+                    lc = kernels.launch_counts()
+            assert outs[0] == outs[1] and outs[0][0] == 0, (kind, flags)
+            assert outs[0][1].count(">") == len(rows)
+            assert all(lc[k] > 0 for k in (k4, *want)), (kind, lc)

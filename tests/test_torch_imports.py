@@ -54,6 +54,39 @@ def test_no_jax_or_reference_package_import(path):
         assert top not in FORBIDDEN, f"{path} imports {name}"
 
 
+def test_walk_covers_the_subcommands():
+    """The stream subcommands and the index build are among the sources
+    the import check walks."""
+    walked = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in ("umgap_tpu_torch/subcommands.py",
+                "umgap_tpu_torch/index/build.py", "umgap_tpu_torch/cli.py"):
+        assert rel in walked
+
+
+def test_subcommands_need_a_card_or_an_explicit_cpu(no_card, tmp_path):
+    """The subcommands that run on the card exit 1 with the hint without
+    one; the host ones run."""
+    import contextlib
+    import io
+
+    from umgap_tpu_torch.cli import main as port_cli
+
+    tsv = tmp_path / "t.tsv"
+    tsv.write_text("1\troot\tno rank\t1\t\x01\n")
+    for argv in (["seedextend"], ["taxa2agg", str(tsv)],
+                 ["pept2lca", "i.npz"], ["prot2tryp2lca", "i.npz"],
+                 ["prot2kmer2lca", "i.npz"]):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stderr(err):
+            assert port_cli(argv, stdin=io.StringIO(">a\n1\n"),
+                            stdout=out) == 1, argv
+        assert out.getvalue() == "" and pdevice.CPU_HINT in err.getvalue()
+    out = io.StringIO()
+    assert port_cli(["uniq"], stdin=io.StringIO(">a\n1\n"),
+                    stdout=out) == 0
+    assert out.getvalue() == ">a\n1\n"
+
+
 def _port_files():
     """Every source of the port (Python, C++, CUDA) and chip_smoke.py."""
     for root, _dirs, files in os.walk(os.path.join(REPO, "umgap_tpu_torch")):

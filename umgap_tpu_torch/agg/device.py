@@ -113,14 +113,43 @@ class DeviceTaxonomy:
 # Per-read hit-list preparation
 # ---------------------------------------------------------------------- #
 
+def ordered_run_sums(w: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """Each run's float32 sum of ``w`` (1-D), added one weight at a time
+    from the left, as the reference's agg::count adds a taxon's scores
+    (src/agg/mod.rs:27-36): runs are contiguous, ``head`` marks their
+    first entries (``head[0]`` set). Returns (runs,) float32. Step j adds
+    the j-th weight of every run longer than j: with the runs ordered by
+    length, those are a prefix, so the steps touch each weight once."""
+    n = w.shape[0]
+    dev = w.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.float32, device=dev)
+    starts = torch.nonzero(head, as_tuple=True)[0]
+    lens = torch.diff(starts, append=torch.tensor([n], device=dev))
+    lens, order = torch.sort(lens, descending=True, stable=True)
+    starts = starts[order]
+    w = w.to(torch.float32)
+    acc = torch.zeros(len(starts), dtype=torch.float32, device=dev)
+    # active[j]: how many runs are longer than j
+    active = torch.searchsorted(-lens, -torch.arange(
+        int(lens[0]), device=dev), right=False).tolist()
+    for j, m in enumerate(active):
+        acc[:m] = acc[:m] + w[starts[:m] + j]
+    out = torch.empty_like(acc)
+    out[order] = acc
+    return out
+
+
 def dedup_counts_plain(taxa: torch.Tensor, weights, k_max: int,
                        return_nuniq: bool = False,
                        lower_bound: float | None = None):
     """Plain version of K4, the JAX formulation: sort each row, mark run
     heads, compact them left with a second sort, and take run totals as
     differences of compacted weight prefixes. ``weights=None`` weighs
-    every hit 1.0; ``lower_bound`` then filters the kept runs
-    (:func:`filter_lower_bound`)."""
+    every hit 1.0; given weights, a run's total is their sum in input
+    order instead (:func:`ordered_run_sums`; the sort is stable), which
+    the prefix differences equal only for integer weights.
+    ``lower_bound`` then filters the kept runs (:func:`filter_lower_bound`)."""
     B, N = taxa.shape
     dev = taxa.device
     pos = taxa > 0
@@ -157,6 +186,14 @@ def dedup_counts_plain(taxa: torch.Tensor, weights, k_max: int,
         key = torch.nn.functional.pad(key, (0, extra), value=I32_MAX)
         cntk = torch.nn.functional.pad(cntk, (0, extra))
         filled = torch.nn.functional.pad(filled, (0, extra))
+    if weights is not None:
+        valid = ts != I32_MAX
+        sums = ordered_run_sums(ws[valid], first[valid])
+        hr, hc = first.nonzero(as_tuple=True)
+        ri = runidx[hr, hc]
+        kept = ri < k_max
+        cntk = torch.zeros((B, k_max), dtype=torch.float32, device=dev)
+        cntk[hr[kept], ri[kept]] = sums[kept]
     cntk = torch.where(filled, cntk, 0.0)
     if lower_bound is not None:
         filled = filter_lower_bound(cntk, filled, lower_bound)
@@ -174,10 +211,10 @@ def dedup_counts_rows_plain(taxa: torch.Tensor, weights, k_max: int,
     sort of whole rows: compact every row's positive ids with their
     weights, sort those entries alone by (row, id), and take each run's
     head, its rank within its row and its summed weight; a row keeps the
-    ranks below ``k_max``. Weighted counts are sums in sorted order,
-    exact for integer weights whose row sums stay below 2^24, as the
-    plain version's prefix differences are. ``lower_bound`` filters the
-    kept runs as in :func:`dedup_counts_plain`."""
+    ranks below ``k_max``. Weighted counts are sums in input order
+    (:func:`ordered_run_sums`; the sort is stable), as the kernel adds
+    them. ``lower_bound`` filters the kept runs as in
+    :func:`dedup_counts_plain`."""
     B, N = taxa.shape
     dev = taxa.device
     rows, cols = (taxa > 0).nonzero(as_tuple=True)
@@ -191,8 +228,11 @@ def dedup_counts_rows_plain(taxa: torch.Tensor, weights, k_max: int,
     head[1:] = (ids[1:] != ids[:-1]) | (rows[1:] != rows[:-1])
     run = torch.cumsum(head.to(torch.int64), dim=0) - 1
     n_runs = int(head.sum())
-    counts = torch.zeros(n_runs, dtype=torch.float32, device=dev)
-    counts.index_add_(0, run, w)
+    if weights is None:
+        counts = torch.zeros(n_runs, dtype=torch.float32, device=dev)
+        counts.index_add_(0, run, w)
+    else:
+        counts = ordered_run_sums(w, head)
     run_row = rows[head]
     nuniq = torch.bincount(run_row, minlength=B).to(torch.int32)
     first = torch.cumsum(nuniq.to(torch.int64), dim=0) - nuniq
@@ -333,6 +373,29 @@ def hit_geometry(dtax: DeviceTaxonomy, utaxa, uvalid,
     return HitGeometry(lin, dep, anc(lin, dep, utaxa, uvalid), uvalid)
 
 
+def exact_sums(c: torch.Tensor) -> bool:
+    """Whether every sum of entries of a row of ``c`` is exact in float32
+    whatever the order of its adds: integer values whose magnitudes add
+    up to at most 2^24 a row, as the pipeline's counts are. Weighted
+    counts (taxa2agg -s) need not be, and then the plain aggregators add
+    in the one order of K6's ordered instances (:func:`fold_sum`)."""
+    if c.numel() == 0:
+        return True
+    return bool((c == c.trunc()).all()) and float(
+        c.abs().double().sum(dim=-1).max()) <= 2.0 ** 24
+
+
+def fold_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in float32 one entry at a time in index
+    order, from 0.0: the order in which K6's ordered instances and
+    ``rmq_mix_batch(..., ordered=True)`` add (elementwise adds, which
+    round alike on the CPU and the card)."""
+    s = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for k in range(x.shape[-1]):
+        s = s + x[..., k]
+    return s
+
+
 def _argmax_tiebreak(utaxa, depth, valid, scores):
     """Max score, then max depth, then min taxon id."""
     s = torch.where(valid, scores, float("-inf"))
@@ -373,9 +436,19 @@ def tree_lca_plain(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa):
 def rtl_plain(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts):
     """Plain version of K6 for MRTL (reference src/rmq/rtl.rs:39-57):
     score of input j = summed counts of inputs that are ancestors-or-self
-    of j; argmax."""
+    of j; argmax. Counts that are not :func:`exact_sums` are added as
+    K6's ordered instances add them: j's ancestors by ascending clamped
+    depth (each depth holds at most one of a group's distinct ids)."""
     c = torch.where(geom.valid, ucounts, 0.0)
-    scores = torch.where(geom.is_anc, c[:, :, None], 0.0).sum(dim=1)
+    terms = torch.where(geom.is_anc, c[:, :, None], 0.0)   # (B, i, j)
+    if exact_sums(c):
+        scores = terms.sum(dim=1)
+    else:
+        B, K, D = geom.lin.shape
+        at = geom.depth.clamp(max=D - 1).long()[:, :, None].expand(B, K, K)
+        by_depth = torch.zeros((B, D, K), dtype=terms.dtype,
+                               device=terms.device).scatter_add_(1, at, terms)
+        scores = fold_sum(by_depth.transpose(1, 2))
     return _argmax_tiebreak(utaxa, geom.depth, geom.valid, scores)
 
 
@@ -387,12 +460,14 @@ def tree_mix_plain(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts,
     its share of the current chain value is >= factor (ties -> smallest
     branch id). Branch sums are taken one depth at a time, a (B, K, K)
     compare each, instead of the JAX package's hoisted (B, D-1, K, K)
-    tensor."""
+    tensor. Counts that are not :func:`exact_sums` are added in slot
+    order (:func:`fold_sum`), as K6's ordered instances add them."""
     B, K, D = geom.lin.shape
     dev = utaxa.device
     c = torch.where(geom.valid, ucounts, 0.0)
+    total = (lambda x: x.sum(dim=-1)) if exact_sums(c) else fold_sum
     x = torch.full((B,), dtax.root, dtype=torch.int32, device=dev)
-    a_base = c.sum(dim=-1)
+    a_base = total(c)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
     fac = torch.tensor(factor, dtype=torch.float32, device=dev)
     neg = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
@@ -402,7 +477,7 @@ def tree_mix_plain(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts,
         below = geom.valid & (branch != NONE) & (lin_d == x[:, None])
         any_below = below.any(dim=-1)
         same = branch[:, :, None] == branch[:, None, :]
-        bsum = torch.where(same, c[:, None, :], 0.0).sum(dim=-1)
+        bsum = total(torch.where(same, c[:, None, :], 0.0))
         bsum = torch.where(below, bsum, neg)
         maxsum = bsum.max(dim=-1).values
         cand = below & (bsum == maxsum[:, None])
@@ -514,7 +589,8 @@ def tree_aggregate_wide_plain(strategy: str, dtax: DeviceTaxonomy, utaxa,
     scores the entries found (``torch.searchsorted``) at lin_j[d] whose
     clamped depth is d. hybrid: the descent over the valid slots, the
     branch sums of each depth taken over the slots below x, the list
-    cut to x's subtree after each descent. ``snap`` as in
+    cut to x's subtree after each descent. Sums add as K6's ordered
+    instances do (mrtl by depth, hybrid in slot order). ``snap`` as in
     :func:`tree_aggregate_hits_plain`."""
     if snap is not None:
         return snap_taxa_plain(snap, tree_aggregate_wide_plain(
@@ -546,7 +622,7 @@ def tree_aggregate_wide_plain(strategy: str, dtax: DeviceTaxonomy, utaxa,
         at = torch.searchsorted(u, lin.contiguous()).clamp(max=len(u) - 1)
         found = (u[at] == lin) & (dep.clamp(max=D - 1)[at] == torch.arange(
             D, device=dev))
-        score = torch.where(found, s[at], 0.0).sum(dim=1)
+        score = fold_sum(torch.where(found, s[at], 0.0))
         if strategy == "mrtl":
             out.append(int(_argmax_tiebreak(u[None], dep[None], torch.ones(
                 (1, len(u)), dtype=torch.bool, device=dev), score[None])))
@@ -569,7 +645,7 @@ def _wide_mix(geom, ids, cnt, root: int, fac):
     size, W = geom.shape
     lin = geom[ids.clamp(0, size - 1), 1:]
     x = root
-    a_base = cnt.sum()
+    a_base = fold_sum(cnt)
     for d in range(W - 2):
         br = lin[:, d + 1]
         below = (br != NONE) & (lin[:, d] == x)
@@ -578,9 +654,10 @@ def _wide_mix(geom, ids, cnt, root: int, fac):
         bb = br[below]
         if bb.min() != bb.max():
             keys, inv = torch.unique(bb, return_inverse=True)
-            sums = torch.zeros(len(keys), dtype=torch.float32,
-                               device=cnt.device)
-            sums.index_add_(0, inv, cnt[below])
+            # each branch's counts one at a time in slot order
+            acc = np.zeros(len(keys), np.float32)
+            np.add.at(acc, inv.cpu().numpy(), cnt[below].cpu().numpy())
+            sums = torch.from_numpy(acc).to(cnt.device)
             mx = sums.max()
             if (mx / a_base) < fac:
                 break
@@ -594,7 +671,8 @@ def _wide_mix(geom, ids, cnt, root: int, fac):
 
 
 def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
-                        uvalid, factor: float = 0.25, snap=None):
+                        uvalid, factor: float = 0.25, snap=None,
+                        ordered: bool = False):
     """The tree aggregators on a batch's filtered hit lists, (B,) int32:
     utaxa (B, K) int32, ucounts (B, K) float32 (unused by lca*, may be
     None) and uvalid (B, K) bool. Equal to
@@ -609,7 +687,10 @@ def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
     itself (no (B, K, D) or (B, K, K) tensor is built) and snaps each
     result at its store. Past K = 64 a block takes each group; lists too
     wide for its shared memory (K > 17,920) go to a scratch of
-    :func:`tree_scratch_bytes`."""
+    :func:`tree_scratch_bytes`. ``ordered``: counts that are not integers
+    (taxa2agg -s), which hybrid and mrtl then add in the plain versions'
+    order (K6's ordered instances); integer counts sum exactly in any
+    order and take the main path's instances."""
     if utaxa.is_cpu:
         return tree_aggregate_hits_plain(strategy, dtax, utaxa, ucounts,
                                          uvalid, factor, snap)
@@ -648,7 +729,8 @@ def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
         utaxa.data_ptr(), B, K, dtax.root, float(factor),
         0 if scratch is None else scratch.data_ptr(), blocks,
         out.data_ptr(), 0 if snap is None else snap.data_ptr(),
-        0 if snap is None else len(snap), kernels.stream_of(utaxa))
+        0 if snap is None else len(snap), int(ordered),
+        kernels.stream_of(utaxa))
     return out
 
 
@@ -730,14 +812,16 @@ SUPPORTED_AGGREGATIONS = GEOMETRY_AGGREGATIONS + (("rmq", "lca*"),
 
 def aggregate_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
                     method: str, strategy: str, factor: float = 0.25,
-                    euler=None, snap=None):
+                    euler=None, snap=None, ordered: bool = False):
     """taxa2agg's dispatch over the full matrix
     (src/commands/taxa2agg.rs:111-140). ``rmq``/``lca*`` needs a
     :class:`~umgap_tpu_torch.agg.device_rmq.DeviceEuler`. The tree
     aggregators run :func:`tree_aggregate_hits` on the hit lists. With
     ``snap`` (a snap table) the result is snapped as taxa2agg ends: in
     K6's store, or by :func:`snap_taxa` after the Euler/RMQ
-    aggregators."""
+    aggregators. ``ordered`` for counts that are not integers (taxa2agg
+    -s): their sums then follow the plain versions' order on the card
+    too."""
     key = (method, strategy)
     plain = kernels.plain_selected()
     if key in (("rmq", "lca*"), ("rmq", "hybrid")):
@@ -749,7 +833,8 @@ def aggregate_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
                     "rmq/lca* needs a DeviceEuler (pass euler=...)")
             agg = rmq_lca_batch(euler, utaxa, uvalid)
         else:
-            agg = rmq_mix_batch(dtax, utaxa, ucounts, uvalid, factor)
+            agg = rmq_mix_batch(dtax, utaxa, ucounts, uvalid, factor,
+                                ordered)
         if snap is None:
             return agg
         return (snap_taxa_plain if plain else snap_taxa)(snap, agg, uvalid)
@@ -757,5 +842,8 @@ def aggregate_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
         raise ValueError(
             f"device aggregation does not support {method}/{strategy}")
     strat = "mrtl" if method == "rmq" else strategy
-    agg = tree_aggregate_hits_plain if plain else tree_aggregate_hits
-    return agg(strat, dtax, utaxa, ucounts, uvalid, factor, snap)
+    if plain:
+        return tree_aggregate_hits_plain(strat, dtax, utaxa, ucounts, uvalid,
+                                         factor, snap)
+    return tree_aggregate_hits(strat, dtax, utaxa, ucounts, uvalid, factor,
+                               snap, ordered)

@@ -29,7 +29,7 @@ import torch
 
 from ..ops import gather
 from ..taxonomy import NONE, Taxonomy
-from .device import I32_MAX, DeviceTaxonomy, _argmax_tiebreak
+from .device import I32_MAX, DeviceTaxonomy, _argmax_tiebreak, fold_sum
 from .rmq import BLOCK, RMQ, _LOG2_BLOCK
 
 # 2^1 .. 2^30: floor(log2(v)) of an int32 v >= 1 is the count of these <= v
@@ -186,9 +186,13 @@ def rmq_lca_batch(euler: DeviceEuler, utaxa, uvalid):
 
 
 def rmq_mix_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
-                  factor: float):
+                  factor: float, ordered: bool = False):
     """LCA-closure hybrid in taxon space (exact: the weights depend only
-    on ancestor relations): (B,) int32."""
+    on ancestor relations): (B,) int32. ``ordered``: counts that are not
+    integers (taxa2agg -s), whose sums then add the inputs one at a time
+    in slot order (:func:`~umgap_tpu_torch.agg.device.fold_sum`), so that
+    they round alike on the CPU and the card; integer counts sum exactly
+    in any order."""
     take, rows_of, along, _anc = gather.active()
     B, K = utaxa.shape
     size = dtax.depth.shape[0]
@@ -235,8 +239,14 @@ def rmq_mix_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
     i_anc_c = (a2 == torch.where(uvalid, utaxa, -2)[:, :, None]) \
         & uvalid[:, :, None] & cvalid[:, None, :]
 
-    lca_w = torch.where(c_anc_i, c[:, None, :], 0.0).sum(dim=-1)  # (B, C)
-    rtl_w = torch.where(i_anc_c, c[:, :, None], 0.0).sum(dim=1)   # (B, C)
+    lca_terms = torch.where(c_anc_i, c[:, None, :], 0.0)       # (B, C, K)
+    rtl_terms = torch.where(i_anc_c, c[:, :, None], 0.0)       # (B, K, C)
+    if ordered:
+        lca_w = fold_sum(lca_terms)
+        rtl_w = fold_sum(rtl_terms.transpose(1, 2))
+    else:
+        lca_w = lca_terms.sum(dim=-1)
+        rtl_w = rtl_terms.sum(dim=1)
     f = torch.tensor(factor, dtype=torch.float32, device=utaxa.device)
     scores = lca_w * f + rtl_w * (1.0 - f)
     return _argmax_tiebreak(key, cdep, cvalid, scores)

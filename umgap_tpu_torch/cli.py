@@ -1,6 +1,9 @@
-"""``python -m umgap_tpu_torch analyse``: the 9-mer and tryptic preset
-pipelines on the GPU, with the JAX CLI's flag names for the subset this
-port runs.
+"""``python -m umgap_tpu_torch``: ``analyse``, the 9-mer and tryptic
+preset pipelines on the GPU, with the JAX CLI's flag names for the
+subset this port runs, and the reference's stream subcommands
+(:mod:`~umgap_tpu_torch.subcommands`: ``translate``, ``prot2kmer2lca``,
+``seedextend``, ``uniq``, ``taxa2agg`` and the others, whose lookups,
+seed-extend and aggregation run on the card).
 
 Output records are the same FASTA as ``umgap_tpu analyse`` (one
 ``>header`` / consensus-taxon record per read group, header stripped at
@@ -134,10 +137,13 @@ def _samples_from_seq(seq, allow_empty: bool = False):
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from .subcommands import add_parsers
+
     p = argparse.ArgumentParser(
         prog="umgap-tpu-torch",
         description="UMGAP analyse pipelines in PyTorch on an NVIDIA GPU")
     sub = p.add_subparsers(dest="command", required=True)
+    add_parsers(sub)
     sp = sub.add_parser("analyse", help="run a preset pipeline")
     sp.add_argument("-t", "--type", action=_SampleAction,
                     default="high-precision",
@@ -196,6 +202,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "(or the FASTA streamed back without -o); the "
                          "taxonomy, indexes and analysers stay on the "
                          "device across requests ('quit' stops it)")
+    sp.set_defaults(func=cmd_analyse)
     return p
 
 
@@ -949,7 +956,7 @@ def process_sample(session: AnalyseSession, sample, default_out,
     return n
 
 
-def cmd_analyse(args, stdout):
+def cmd_analyse(args, stdin, stdout):
     from .device import resolve_device
     from .utils.profiling import device_trace
 
@@ -1071,15 +1078,17 @@ def _parse_analyse_request(tokens):
     return _samples_from_seq(seq)
 
 
-def main(argv=None, stdout=None) -> int:
+def main(argv=None, stdin=None, stdout=None) -> int:
+    from .agg.host import AggError
+
+    stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout
     try:
         args = build_parser().parse_args(argv)
-        if args.command == "analyse":
-            cmd_analyse(args, stdout)
+        args.func(args, stdin, stdout)
     except BrokenPipeError:
         return 0
-    except (CliError, ValueError, OSError, NotImplementedError,
+    except (CliError, AggError, ValueError, OSError, NotImplementedError,
             RuntimeError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1

@@ -30,14 +30,20 @@
 // shuffle scan over the per-32-chunk counts), and its run ends at the
 // next head (the next set bit of the chunk's ballot, or the first head
 // of a later chunk from a shuffle suffix minimum). An unweighted count
-// is that distance, exact; a weighted count is summed left to right in
-// sorted order within the run. The heads write their (id, count, valid)
-// to consecutive columns, the padding columns are written lane by lane,
+// is that distance, exact. The heads write their (id, count, valid) to
+// consecutive columns, the padding columns are written lane by lane,
 // and lane 0 writes nuniq.
 //
-// Counts are float32: exact for integer weights (the main path's 1.0)
-// whose run sums stay below 2^24, as the plain version's prefix-sum
-// differences are.
+// Weights (taxa2agg -s) are added as the reference's agg::count adds
+// them (src/agg/mod.rs:27-36): in float32, one at a time, in input
+// order, so that non-dyadic scores (0.1, 0.3) round as there. A
+// weighted row sorts (id, input position) pairs, not ids alone: the
+// compaction keeps each entry's position in the row where an
+// unweighted one keeps nothing, the comparators order equal ids by
+// position (positions are distinct, so the order is the stable one
+// whatever the network), and a run's head adds the run's weights,
+// read from the row in global memory at those positions, left to
+// right. The unweighted path (the pipeline's) is unchanged.
 //
 // The lower-bound filter (umgap_tpu/pipeline/fused.py:117
 // filter_lower_bound, the reference's agg::filter) is applied where a
@@ -72,18 +78,17 @@
 // - numbers the run heads with one block scan of each thread's chunk,
 //   finds each run's end as the next head (in the chunk, or the first
 //   of a later chunk by a suffix minimum), and counts it as that
-//   distance, or for weights as the difference of exclusive prefix sums
-//   written over the sorted weights (the plain version's formulation:
-//   exact for integer weights whose row sums stay below 2^24, whatever
-//   order the compaction left equal ids in);
+//   distance, or for weights as the sum of the run's weights in input
+//   order (the sort orders a weighted row's equal ids by position; the
+//   head thread adds them one at a time, as the warp path does);
 // - writes the k_max smallest runs, the padding and nuniq.
 // Room: the row's width in shared memory up to kSmemMax bytes (4 bytes
-// an id, 8 with a weight: 23,952 hits, the 12,000 bp width, take 94 KB,
-// two blocks an SM). A launch whose rows are wider runs one block per
-// scratch row the wrapper allocates, in turn over the rows; a row with
-// more valid entries than fit sorts them there (the same code through
-// generic pointers, barriers ordering the global stores as they do the
-// shared ones). ``agg/device.py`` dedup_counts_rows_plain is the same
+// an id, 8 with a weight's position: 23,952 hits, the 12,000 bp width,
+// take 94 KB, two blocks an SM). A launch whose rows are wider runs one
+// block per scratch row the wrapper allocates, in turn over the rows; a
+// row with more valid entries than fit sorts them there (the same code
+// through generic pointers, barriers ordering the global stores as they
+// do the shared ones). ``agg/device.py`` dedup_counts_rows_plain is the same
 // formulation in PyTorch.
 
 #include <cuda_runtime.h>
@@ -107,25 +112,27 @@ __device__ __forceinline__ unsigned lanemask_lt(int lane) {
   return (1u << lane) - 1u;
 }
 
-// Compacts the positive ids of one row (and their weights) into key/w;
-// returns their number, the same in every lane.
+// The sort's order: ids, and for a weighted row (id, input position)
+// pairs; a padding entry is (INT32_MAX, INT32_MAX).
+template <bool WEIGHTED>
+__device__ __forceinline__ bool before(int32_t a, int32_t pa, int32_t b,
+                                       int32_t pb) {
+  return WEIGHTED ? (a < b || (a == b && pa < pb)) : a < b;
+}
+
+// Compacts the positive ids of one row into key, in input order, and
+// for a weighted row their positions in the row into pos; returns their
+// number, the same in every lane.
 template <bool VEC, bool WEIGHTED>
-__device__ int compact_row(const int32_t* __restrict__ t,
-                           const float* __restrict__ wt, int N, int lane,
-                           int32_t* key, float* w) {
+__device__ int compact_row(const int32_t* __restrict__ t, int N, int lane,
+                           int32_t* key, int32_t* pos) {
   int n = 0;
   if (VEC) {
     const int4* t4 = reinterpret_cast<const int4*>(t);
-    const float4* w4 = reinterpret_cast<const float4*>(wt);
     for (int base = 0; base < N; base += 128) {
       const int c = base + lane * 4;  // N % 4 == 0: all four in range
       const int4 v = c < N ? t4[c >> 2] : make_int4(0, 0, 0, 0);
       const int a[4] = {v.x, v.y, v.z, v.w};
-      float x[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-      if (WEIGHTED && c < N) {
-        const float4 f = w4[c >> 2];
-        x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
-      }
       const int cnt = (a[0] > 0) + (a[1] > 0) + (a[2] > 0) + (a[3] > 0);
       int incl = cnt;
 #pragma unroll
@@ -133,13 +140,13 @@ __device__ int compact_row(const int32_t* __restrict__ t,
         const int y = __shfl_up_sync(FULL, incl, o);
         if (lane >= o) incl += y;
       }
-      int pos = n + incl - cnt;
+      int at = n + incl - cnt;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         if (a[k] > 0) {
-          key[pos] = a[k];
-          if (WEIGHTED) w[pos] = x[k];
-          ++pos;
+          key[at] = a[k];
+          if (WEIGHTED) pos[at] = c + k;
+          ++at;
         }
       }
       n += __shfl_sync(FULL, incl, 31);
@@ -150,9 +157,9 @@ __device__ int compact_row(const int32_t* __restrict__ t,
       const int32_t v = c < N ? t[c] : 0;
       const unsigned m = __ballot_sync(FULL, v > 0);
       if (v > 0) {
-        const int pos = n + __popc(m & lanemask_lt(lane));
-        key[pos] = v;
-        if (WEIGHTED) w[pos] = wt[c];
+        const int at = n + __popc(m & lanemask_lt(lane));
+        key[at] = v;
+        if (WEIGHTED) pos[at] = c;
       }
       n += __popc(m);
     }
@@ -161,34 +168,38 @@ __device__ int compact_row(const int32_t* __restrict__ t,
   return n;
 }
 
-// Sorts key[0, n) ascending (weights alongside); leaves key[n, 32)
-// INT32_MAX when n <= 32.
+// Sorts key[0, n) ascending (a weighted row's positions alongside, in
+// the order of before<>); leaves key[n, 32) INT32_MAX when n <= 32.
 template <bool WEIGHTED>
-__device__ void warp_sort(int32_t* key, float* w, int n, int lane) {
+__device__ void warp_sort(int32_t* key, int32_t* pos, int n, int lane) {
   if (n <= 32) {
     int32_t k = lane < n ? key[lane] : I32_MAX;
-    float x = (WEIGHTED && lane < n) ? w[lane] : 0.0f;
+    int32_t x = (WEIGHTED && lane < n) ? pos[lane] : I32_MAX;
 #pragma unroll
     for (int size = 2; size <= 32; size <<= 1) {
 #pragma unroll
       for (int j = size >> 1; j > 0; j >>= 1) {
         const int32_t ok = __shfl_xor_sync(FULL, k, j);
-        const float ox = WEIGHTED ? __shfl_xor_sync(FULL, x, j) : 0.0f;
+        const int32_t ox = WEIGHTED ? __shfl_xor_sync(FULL, x, j) : 0;
         const bool keep_min = ((lane & j) == 0) == ((lane & size) == 0);
-        if (keep_min ? ok < k : ok > k) {
+        if (keep_min ? before<WEIGHTED>(ok, ox, k, x)
+                     : before<WEIGHTED>(k, x, ok, ox)) {
           k = ok;
           if (WEIGHTED) x = ox;
         }
       }
     }
     key[lane] = k;
-    if (WEIGHTED) w[lane] = x;
+    if (WEIGHTED) pos[lane] = x;
     __syncwarp();
     return;
   }
   int M = 64;
   while (M < n) M <<= 1;
-  for (int i = n + lane; i < M; i += 32) key[i] = I32_MAX;
+  for (int i = n + lane; i < M; i += 32) {
+    key[i] = I32_MAX;
+    if (WEIGHTED) pos[i] = I32_MAX;
+  }
   __syncwarp();
   const int half = M >> 1;
   for (int size = 2; size <= M; size <<= 1) {
@@ -198,13 +209,14 @@ __device__ void warp_sort(int32_t* key, float* w, int n, int lane) {
         const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
         const int ixj = i | j;
         const int32_t a = key[i], b = key[ixj];
-        if (((i & size) == 0) ? a > b : a < b) {
+        const int32_t pa = WEIGHTED ? pos[i] : 0, pb = WEIGHTED ? pos[ixj] : 0;
+        if (((i & size) == 0) ? before<WEIGHTED>(b, pb, a, pa)
+                              : before<WEIGHTED>(a, pa, b, pb)) {
           key[i] = b;
           key[ixj] = a;
           if (WEIGHTED) {
-            const float tw = w[i];
-            w[i] = w[ixj];
-            w[ixj] = tw;
+            pos[i] = pb;
+            pos[ixj] = pa;
           }
         }
       }
@@ -213,12 +225,14 @@ __device__ void warp_sort(int32_t* key, float* w, int n, int lane) {
   }
 }
 
-// Writes the runs of the sorted key[0, n) (weights alongside) as a row's
-// (id, count, valid) columns below k_max from o0 on, with one warp and no
-// block barrier; returns the number of runs (the same in every lane).
+// Writes the runs of the sorted key[0, n) as a row's (id, count, valid)
+// columns below k_max from o0 on, with one warp and no block barrier; a
+// weighted run's count adds the row's weights wt at the run's positions
+// pos, in order. Returns the number of runs (the same in every lane).
 template <bool WEIGHTED>
 __device__ __forceinline__ int warp_emit_runs(
-    const int32_t* key, const float* w, int n, int lane, long long o0,
+    const int32_t* key, const int32_t* pos, const float* __restrict__ wt,
+    int n, int lane, long long o0,
     int k_max, float lb, int32_t* __restrict__ utaxa,
     float* __restrict__ ucounts, uint8_t* __restrict__ uvalid) {
   // per 32-slot chunk c (at most 32 of them): lane c keeps its number
@@ -266,7 +280,7 @@ __device__ __forceinline__ int warp_emit_runs(
         float cnt;
         if (WEIGHTED) {
           cnt = 0.0f;
-          for (int u = t; u < end; ++u) cnt += w[u];
+          for (int u = t; u < end; ++u) cnt += wt[pos[u]];
         } else {
           cnt = (float)(end - t);
         }
@@ -293,15 +307,15 @@ __global__ void dedup_warp(const int32_t* __restrict__ taxa,
   if (row >= B) return;  // the whole warp: no block barrier follows
   int32_t* key = reinterpret_cast<int32_t*>(smem) +
                  (WEIGHTED ? 2 : 1) * M * warp;
-  float* w = reinterpret_cast<float*>(key + M);
+  int32_t* pos = key + M;
   const long long r0 = (long long)row * N;
-  const int n = compact_row<VEC, WEIGHTED>(
-      taxa + r0, WEIGHTED ? weights + r0 : nullptr, N, lane, key, w);
-  warp_sort<WEIGHTED>(key, w, n, lane);
+  const int n = compact_row<VEC, WEIGHTED>(taxa + r0, N, lane, key, pos);
+  warp_sort<WEIGHTED>(key, pos, n, lane);
 
   const long long o0 = (long long)row * k_max;
-  const int U = warp_emit_runs<WEIGHTED>(key, w, n, lane, o0, k_max, lb,
-                                         utaxa, ucounts, uvalid);
+  const int U = warp_emit_runs<WEIGHTED>(
+      key, pos, WEIGHTED ? weights + r0 : nullptr, n, lane, o0, k_max, lb,
+      utaxa, ucounts, uvalid);
   for (int c = U + lane; c < k_max; c += 32) {
     utaxa[o0 + c] = I32_MAX;
     ucounts[o0 + c] = 0.0f;
@@ -326,27 +340,24 @@ constexpr int kSmemMax = 200 * 1024;
 // a few hundred entries loses to the block's)
 constexpr int kWarpRowN = 32;
 
-// Appends the positive ids of t[0, N) (weights alongside) to key/w at
-// *s_n, reserved a warp at a time; entries from `cap` on are counted but
-// not stored.
+// Appends the positive ids of t[0, N) (and for a weighted row their
+// positions in the row) to key/pos at *s_n, reserved a warp at a time,
+// so in no fixed order; entries from `cap` on are counted but not
+// stored.
 template <int T, bool VEC, bool WEIGHTED>
-__device__ void compact_block(const int32_t* __restrict__ t,
-                              const float* __restrict__ wt, int N,
-                              int32_t* key, float* w, int cap, int* s_n) {
+__device__ void compact_block(const int32_t* __restrict__ t, int N,
+                              int32_t* key, int32_t* pos, int cap,
+                              int* s_n) {
   const int lane = threadIdx.x & 31;
   if (VEC) {
     const int4* t4 = reinterpret_cast<const int4*>(t);
-    const float4* w4 = reinterpret_cast<const float4*>(wt);
     const int nv = N >> 2;
     for (int base = 0; base < nv; base += T * kRowLoads) {
       int4 a[kRowLoads];
-      float4 f[kRowLoads];
 #pragma unroll
       for (int u = 0; u < kRowLoads; ++u) {
         const int v = base + u * T + threadIdx.x;
         a[u] = v < nv ? t4[v] : make_int4(0, 0, 0, 0);
-        if (WEIGHTED)
-          f[u] = v < nv ? w4[v] : make_float4(0.f, 0.f, 0.f, 0.f);
       }
 #pragma unroll
       for (int u = 0; u < kRowLoads; ++u) {
@@ -360,18 +371,18 @@ __device__ void compact_block(const int32_t* __restrict__ t,
         }
         const int total = __shfl_sync(FULL, incl, 31);
         if (total == 0) continue;  // the whole warp
-        int pos = 0;
-        if (lane == 0) pos = atomicAdd(s_n, total);
-        pos = __shfl_sync(FULL, pos, 0) + incl - cnt;
-        const float y[4] = {f[u].x, f[u].y, f[u].z, f[u].w};
+        int at = 0;
+        if (lane == 0) at = atomicAdd(s_n, total);
+        at = __shfl_sync(FULL, at, 0) + incl - cnt;
+        const int c = (base + u * T + threadIdx.x) * 4;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           if (x[k] > 0) {
-            if (pos < cap) {
-              key[pos] = x[k];
-              if (WEIGHTED) w[pos] = y[k];
+            if (at < cap) {
+              key[at] = x[k];
+              if (WEIGHTED) pos[at] = c + k;
             }
-            ++pos;
+            ++at;
           }
         }
       }
@@ -388,12 +399,12 @@ __device__ void compact_block(const int32_t* __restrict__ t,
       for (int u = 0; u < kRowLoads; ++u) {
         const unsigned m = __ballot_sync(FULL, x[u] > 0);
         if (m == 0) continue;
-        int pos = 0;
-        if (lane == 0) pos = atomicAdd(s_n, __popc(m));
-        pos = __shfl_sync(FULL, pos, 0) + __popc(m & lanemask_lt(lane));
-        if (x[u] > 0 && pos < cap) {
-          key[pos] = x[u];
-          if (WEIGHTED) w[pos] = wt[base + u * T + threadIdx.x];
+        int at = 0;
+        if (lane == 0) at = atomicAdd(s_n, __popc(m));
+        at = __shfl_sync(FULL, at, 0) + __popc(m & lanemask_lt(lane));
+        if (x[u] > 0 && at < cap) {
+          key[at] = x[u];
+          if (WEIGHTED) pos[at] = base + u * T + threadIdx.x;
         }
       }
     }
@@ -401,37 +412,39 @@ __device__ void compact_block(const int32_t* __restrict__ t,
 }
 
 template <bool WEIGHTED>
-__device__ __forceinline__ void cswap(int32_t* key, float* w, int i,
+__device__ __forceinline__ void cswap(int32_t* key, int32_t* pos, int i,
                                       int j) {
   const int32_t a = key[i], b = key[j];
-  if (a > b) {
+  const int32_t pa = WEIGHTED ? pos[i] : 0, pb = WEIGHTED ? pos[j] : 0;
+  if (before<WEIGHTED>(b, pb, a, pa)) {
     key[i] = b;
     key[j] = a;
     if (WEIGHTED) {
-      const float t = w[i];
-      w[i] = w[j];
-      w[j] = t;
+      pos[i] = pb;
+      pos[j] = pa;
     }
   }
 }
 
-// Sorts key[0, n) ascending (weights alongside) with the whole block.
+// Sorts key[0, n) ascending (a weighted row's positions alongside, in
+// the order of before<>) with the whole block.
 template <int T, bool WEIGHTED>
-__device__ void block_sort(int32_t* key, float* w, int n) {
+__device__ void block_sort(int32_t* key, int32_t* pos, int n) {
   const int tid = threadIdx.x;
   if (n <= 32) {
     if (tid < 32) {
       // warp_sort's register network; n <= 32 leaves key[n, 32) alone
       int32_t k = tid < n ? key[tid] : I32_MAX;
-      float x = (WEIGHTED && tid < n) ? w[tid] : 0.0f;
+      int32_t x = (WEIGHTED && tid < n) ? pos[tid] : I32_MAX;
 #pragma unroll
       for (int size = 2; size <= 32; size <<= 1) {
 #pragma unroll
         for (int j = size >> 1; j > 0; j >>= 1) {
           const int32_t ok = __shfl_xor_sync(FULL, k, j);
-          const float ox = WEIGHTED ? __shfl_xor_sync(FULL, x, j) : 0.0f;
+          const int32_t ox = WEIGHTED ? __shfl_xor_sync(FULL, x, j) : 0;
           const bool keep_min = ((tid & j) == 0) == ((tid & size) == 0);
-          if (keep_min ? ok < k : ok > k) {
+          if (keep_min ? before<WEIGHTED>(ok, ox, k, x)
+                       : before<WEIGHTED>(k, x, ok, ox)) {
             k = ok;
             if (WEIGHTED) x = ox;
           }
@@ -439,7 +452,7 @@ __device__ void block_sort(int32_t* key, float* w, int n) {
       }
       if (tid < n) {
         key[tid] = k;
-        if (WEIGHTED) w[tid] = x;
+        if (WEIGHTED) pos[tid] = x;
       }
     }
     __syncthreads();
@@ -456,13 +469,13 @@ __device__ void block_sort(int32_t* key, float* w, int n) {
       const int off = p & (hk - 1);
       const int i = (p - off) * 2 + off;
       const int j = i + (k - 1 - 2 * off);
-      if (j < n) cswap<WEIGHTED>(key, w, i, j);
+      if (j < n) cswap<WEIGHTED>(key, pos, i, j);
     }
     __syncthreads();
     for (int d = hk >> 1; d > 0; d >>= 1) {
       for (int p = tid; p < half; p += T) {
         const int i = ((p & ~(d - 1)) << 1) | (p & (d - 1));
-        if (i + d < n) cswap<WEIGHTED>(key, w, i, i + d);
+        if (i + d < n) cswap<WEIGHTED>(key, pos, i, i + d);
       }
       __syncthreads();
     }
@@ -482,26 +495,25 @@ __global__ void __launch_bounds__(T) dedup_rows_kernel(
   __shared__ int s_n, s_u;
   __shared__ int s_cnt[T / 32];
   __shared__ int s_first[T / 32];
-  __shared__ float s_wsum[T / 32];
   constexpr int kWarps = T / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   int32_t* const s_key = reinterpret_cast<int32_t*>(smem);
-  float* const s_w = reinterpret_cast<float*>(s_key + cap);
+  int32_t* const s_pos = s_key + cap;
 
   for (long long row = blockIdx.x; row < B; row += gridDim.x) {
     const int32_t* t = taxa + row * N;
     const float* wt = WEIGHTED ? weights + row * N : nullptr;
     if (tid == 0) s_n = 0;
     __syncthreads();
-    compact_block<T, VEC, WEIGHTED>(t, wt, N, s_key, s_w, cap, &s_n);
+    compact_block<T, VEC, WEIGHTED>(t, N, s_key, s_pos, cap, &s_n);
     __syncthreads();
     const int n = s_n;
     if (n <= kWarpRowN && pow2_at_least(n, 32) <= cap) {
       // one warp sorts and counts (in the 32 entries warp_sort takes), as
       // the warp path does
       if (warp == 0) {
-        warp_sort<WEIGHTED>(s_key, s_w, n, lane);
-        const int U = warp_emit_runs<WEIGHTED>(s_key, s_w, n, lane,
+        warp_sort<WEIGHTED>(s_key, s_pos, n, lane);
+        const int U = warp_emit_runs<WEIGHTED>(s_key, s_pos, wt, n, lane,
                                                row * k_max, k_max, lb, utaxa,
                                                ucounts, uvalid);
         if (lane == 0) {
@@ -519,73 +531,50 @@ __global__ void __launch_bounds__(T) dedup_rows_kernel(
       continue;
     }
     int32_t* key = s_key;
-    float* w = s_w;
+    int32_t* pos = s_pos;
     if (n > cap) {  // the block's scratch row (the launch has one)
       key = reinterpret_cast<int32_t*>(
           scratch + (size_t)blockIdx.x * N * (WEIGHTED ? 8 : 4));
-      w = reinterpret_cast<float*>(key + N);
+      pos = key + N;
       __syncthreads();
       if (tid == 0) s_n = 0;
       __syncthreads();
-      compact_block<T, VEC, WEIGHTED>(t, wt, N, key, w, N, &s_n);
+      compact_block<T, VEC, WEIGHTED>(t, N, key, pos, N, &s_n);
       __syncthreads();
     }
-    block_sort<T, WEIGHTED>(key, w, n);
+    block_sort<T, WEIGHTED>(key, pos, n);
 
-    // each thread's chunk of the sorted entries: its heads and weights
+    // each thread's chunk of the sorted entries: its heads
     const int C = (n + T - 1) / T;
     const int lo = min(tid * C, n), hi = min(lo + C, n);
     int cnt = 0, first = n;
-    float wsum = 0.0f;
     for (int i = lo; i < hi; ++i) {
       if (i == 0 || key[i] != key[i - 1]) {
         if (first == n) first = i;
         ++cnt;
       }
-      if (WEIGHTED) wsum += w[i];
     }
-    // block scans: exclusive head counts and weight sums, and the first
-    // head after this chunk (a suffix minimum)
+    // block scans: exclusive head counts, and the first head after this
+    // chunk (a suffix minimum)
     int ic = cnt;
-    float iw = wsum;
     int sm = first;  // min over lanes >= lane of this warp
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int yc = __shfl_up_sync(FULL, ic, o);
-      const float yw = __shfl_up_sync(FULL, iw, o);
       const int ys = __shfl_down_sync(FULL, sm, o);
-      if (lane >= o) {
-        ic += yc;
-        iw += yw;
-      }
+      if (lane >= o) ic += yc;
       if (lane + o < 32) sm = min(sm, ys);
     }
-    if (lane == 31) {
-      s_cnt[warp] = ic;
-      s_wsum[warp] = iw;
-    }
+    if (lane == 31) s_cnt[warp] = ic;
     if (lane == 0) s_first[warp] = sm;
     __syncthreads();
     int rank = ic - cnt, U = 0, nxt = __shfl_down_sync(FULL, sm, 1);
     if (lane == 31) nxt = n;
-    float wex = iw - wsum, wtot = 0.0f;
 #pragma unroll
     for (int v = 0; v < kWarps; ++v) {
       U += s_cnt[v];
-      if (WEIGHTED) wtot += s_wsum[v];
-      if (v < warp) {
-        rank += s_cnt[v];
-        if (WEIGHTED) wex += s_wsum[v];
-      }
+      if (v < warp) rank += s_cnt[v];
       if (v > warp) nxt = min(nxt, s_first[v]);
-    }
-    if (WEIGHTED) {  // exclusive prefix sums over the sorted weights
-      for (int i = lo; i < hi; ++i) {
-        const float x = w[i];
-        w[i] = wex;
-        wex += x;
-      }
-      __syncthreads();
     }
     const long long o0 = row * k_max;
     int h = -1;  // the pending head
@@ -595,8 +584,12 @@ __global__ void __launch_bounds__(T) dedup_rows_kernel(
       if (h >= 0) {
         if (rank < k_max) {
           const int e = at_end ? nxt : i;
-          const float cnt =
-              WEIGHTED ? (e < n ? w[e] : wtot) - w[h] : (float)(e - h);
+          float cnt = 0.0f;
+          if (WEIGHTED) {
+            for (int u = h; u < e; ++u) cnt += wt[pos[u]];
+          } else {
+            cnt = (float)(e - h);
+          }
           utaxa[o0 + rank] = key[h];
           ucounts[o0 + rank] = cnt;
           uvalid[o0 + rank] = cnt >= lb;

@@ -82,13 +82,14 @@
 // the stop of the next b1 push (unchanged by a `same` step, moved one
 // position on by b2, set to P by b1 and b3). It keeps the best (score,
 // start, stop) with >=, and the epilogue writes the taxa of
-// [start, stop) inside the length, 0 elsewhere. The staged tile needs no
-// delta row for it; the row kernel steps P over a run as run length x
-// the run's score (the taxon is constant between two candidates), lists
-// no intervals and writes the row once, at the end. Only the hits
-// epilogue exists in the scored mode. ops/seedextend.py
-// seedextend_scored_runs_plain is the row kernel's formulation in
-// PyTorch.
+// [start, stop) inside the length, 0 elsewhere, or with the mask
+// epilogue their keep flags (what `seedextend -r` prints is the kept
+// windows' taxa, zeros inside the seed included, so it needs the mask).
+// The staged tile needs no delta row for it; the row kernel steps P over
+// a run as run length x the run's score (the taxon is constant between
+// two candidates), lists no intervals and writes the row once, at the
+// end. ops/seedextend.py seedextend_scored_runs_plain is the row
+// kernel's formulation in PyTorch.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -214,7 +215,7 @@ __device__ __forceinline__ int2 scan_seeds_scored(int N, int s, int g,
 }
 
 // NT: the row width W as a constant, or 0 for the runtime N_rt. SCORED:
-// the scored mode (hits only, no delta row).
+// the scored mode (no delta row).
 template <int NT, bool SCORED>
 __global__ void __launch_bounds__(MAX_T) seedextend_staged_kernel(
     const int32_t* __restrict__ taxa, const int32_t* __restrict__ lengths,
@@ -268,8 +269,10 @@ __global__ void __launch_bounds__(MAX_T) seedextend_staged_kernel(
           N, s, g,
           [&](int p) -> int32_t { return (p < N && p < len) ? row[p] : 0; },
           sc);
-      for (int p = 0; p < N; ++p)
-        if (p < kept.x || p >= kept.y || p >= len) row[p] = 0;
+      for (int p = 0; p < N; ++p) {
+        const bool keep = p >= kept.x && p < kept.y && p < len;
+        row[p] = hits ? (keep ? row[p] : 0) : (int32_t)keep;
+      }
     }
   } else if (tid < nl) {
     const int len = lengths[lane0 + tid];
@@ -381,8 +384,8 @@ __device__ void write_decided(const int32_t* __restrict__ t, int len,
 
 // One warp a lane: the state machine over the positions where it can
 // change state, kept intervals in shared memory, decided windows written
-// coalesced (see the note at the top). SCORED: the scored mode (HITS
-// only), the best push alone, the row written once at the end.
+// coalesced (see the note at the top). SCORED: the scored mode, the
+// best push alone, the row written once at the end.
 template <bool HITS, bool SCORED>
 __global__ void __launch_bounds__(kRowWarps * 32) seedextend_rows_kernel(
     const int32_t* __restrict__ taxa, const int32_t* __restrict__ lengths,
@@ -612,17 +615,17 @@ extern "C" int seedextend_rows_packed(const void* args) {
 }
 
 // The scored entries (see the note at the top): out (lanes, N) int32, the
-// taxa of each lane's best push inside its length, 0 elsewhere;
-// seed_scores (size,) int32 on the card. The staged tile, T lanes a
-// block, for rows of up to 96 windows.
+// taxa of each lane's best push inside its length, 0 elsewhere, when
+// `hits`, else bool keep; seed_scores (size,) int32 on the card. The
+// staged tile, T lanes a block, for rows of up to 96 windows.
 extern "C" int seedextend_scored(const void* taxa, const void* lengths,
                                  long long lanes, int N, int min_seed_size,
                                  int max_gap_size, const void* seed_scores,
-                                 int size, int penalty, void* out, int T,
-                                 void* stream) {
+                                 int size, int penalty, void* out, int hits,
+                                 int T, void* stream) {
   if (lanes <= 0 || N <= 0) return 0;
   return launch_staged_n<true>(taxa, lengths, lanes, N, min_seed_size,
-                               max_gap_size, out, 1, T,
+                               max_gap_size, out, hits, T,
                                SeedScore{(const int32_t*)seed_scores, size,
                                          penalty, 0},
                                (cudaStream_t)stream);
@@ -633,22 +636,30 @@ extern "C" int seedextend_scored_packed(const void* args) {
   return seedextend_scored(a.ptr(0), a.ptr(1), a.i(2), (int)a.i(3),
                            (int)a.i(4), (int)a.i(5), a.ptr(6), (int)a.i(7),
                            (int)a.i(8), a.ptr(9), (int)a.i(10),
-                           a.ptr(11));
+                           (int)a.i(11), a.ptr(12));
 }
 
-// The scored row kernel, one warp a lane, at any N.
+// The scored row kernel, one warp a lane, at any N; `hits` as above.
 extern "C" int seedextend_rows_scored(const void* taxa, const void* lengths,
                                       long long lanes, int N,
                                       int min_seed_size, int max_gap_size,
                                       const void* seed_scores, int size,
-                                      int penalty, void* out, void* stream) {
+                                      int penalty, void* out, int hits,
+                                      void* stream) {
   if (lanes <= 0 || N <= 0) return 0;
   const long long blocks = (lanes + kRowWarps - 1) / kRowWarps;
-  seedextend_rows_kernel<true, true><<<(unsigned)blocks, kRowWarps * 32, 0,
-                                       (cudaStream_t)stream>>>(
-      (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
-      min_seed_size, max_gap_size, out,
-      SeedScore{(const int32_t*)seed_scores, size, penalty, 0});
+  const SeedScore sc{(const int32_t*)seed_scores, size, penalty, 0};
+  if (hits)
+    seedextend_rows_kernel<true, true><<<(unsigned)blocks, kRowWarps * 32,
+                                         0, (cudaStream_t)stream>>>(
+        (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
+        min_seed_size, max_gap_size, out, sc);
+  else
+    seedextend_rows_kernel<false, true><<<(unsigned)blocks,
+                                          kRowWarps * 32, 0,
+                                          (cudaStream_t)stream>>>(
+        (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
+        min_seed_size, max_gap_size, out, sc);
   return (int)cudaGetLastError();
 }
 
@@ -657,5 +668,5 @@ extern "C" int seedextend_rows_scored_packed(const void* args) {
   return seedextend_rows_scored(a.ptr(0), a.ptr(1), a.i(2), (int)a.i(3),
                                 (int)a.i(4), (int)a.i(5), a.ptr(6),
                                 (int)a.i(7), (int)a.i(8), a.ptr(9),
-                                a.ptr(10));
+                                (int)a.i(10), a.ptr(11));
 }

@@ -29,8 +29,19 @@
 //     valid slot gives I32_MAX.
 //   Slot i is an ancestor-or-self of slot j when lin_j[dep_i] == id_i,
 //   dep_i = max(row_i[0], 0) (K5's ancestry epilogue, ops/gather.py).
-// Counts are summed in float32; exact for the path's integer counts
-// (below 2^24), so the order of the plain version's sums does not matter.
+// Counts are summed in float32. The path's integer counts (below 2^24)
+// sum exactly in any order. Weighted counts (taxa2agg -s: 0.1, 0.3) round
+// by the order of their adds, so the launch takes `ordered` for them and
+// runs instances (ORD) that add in the one order the plain versions use,
+// for a group of distinct valid ids (K4's output):
+//   hybrid: a_base and each branch's sum add the slots one at a time in
+//     slot order, from 0.0f (the warp path's a_base by one lane; the
+//     block path's by one thread, and its branch sums by one thread over
+//     the list into the branch table, a pass at a time);
+//   mrtl: score(j) adds the ancestors-or-self of j one at a time in
+//     ascending clamped depth, from 0.0f (the thread and warp paths sort
+//     their lists by depth first; the block path's searches go by depth).
+// The unordered instances are the ones the main path has always run.
 //
 // Snap, fused into the store (with the pipeline's snap table, as taxa2agg
 // ends, umgap_tpu/pipeline/fused.py:122-124 over umgap_tpu/agg/device.py:
@@ -441,8 +452,26 @@ __device__ int thread_group(const Rows& src, int n, const int* tu,
 #undef LIN
 }
 
+// The thread path's list (stride 32) sorted by depth, stable: mrtl's
+// ordered sums then add a slot's ancestors in depth order.
+__device__ void sort_by_depth(int* tu, float* tc, int* td, int n) {
+  for (int e = 1; e < n; ++e) {
+    const int u = tu[e * 32], d = td[e * 32];
+    const float c = tc[e * 32];
+    int f = e;
+    for (; f > 0 && td[(f - 1) * 32] > d; --f) {
+      tu[f * 32] = tu[(f - 1) * 32];
+      tc[f * 32] = tc[(f - 1) * 32];
+      td[f * 32] = td[(f - 1) * 32];
+    }
+    tu[f * 32] = u;
+    tc[f * 32] = c;
+    td[f * 32] = d;
+  }
+}
+
 // ---- the warp path: one group of any count of valid slots ------------ //
-template <int STRAT>
+template <int STRAT, bool ORD>
 __device__ void warp_group(const Rows& src, long long b,
                            const float* __restrict__ counts,
                            const uint8_t* __restrict__ valid,
@@ -479,9 +508,17 @@ __device__ void warp_group(const Rows& src, long long b,
   __syncwarp();
 
   if (STRAT == kHybrid) {
-    float part = 0.0f;
-    for (int p = lane; p < n; p += 32) part += Lc[p];
-    float a_base = warp_sum_f(part);
+    float a_base;
+    if (ORD) {  // slot order, one lane
+      float s = 0.0f;
+      if (lane == 0)
+        for (int p = 0; p < n; ++p) s += Lc[p];
+      a_base = __shfl_sync(FULL, s, 0);
+    } else {
+      float part = 0.0f;
+      for (int p = lane; p < n; p += 32) part += Lc[p];
+      a_base = warp_sum_f(part);
+    }
     int x = root;
     for (int d = 0; d + 1 < D; ++d) {
       bool any = false;
@@ -550,6 +587,22 @@ __device__ void warp_group(const Rows& src, long long b,
     return;
   }
   if (STRAT == kMrtl) {
+    if (ORD) {  // the list by depth, stable (a rank each, through Lk, Lcol)
+      for (int p = lane; p < n; p += 32) {
+        const int dp = Ld[p];
+        int r = 0;
+        for (int q = 0; q < n; ++q) r += Ld[q] < dp || (Ld[q] == dp && q < p);
+        Lk[r] = Lu[p];
+        Lcol[r] = __float_as_int(Lc[p]);
+      }
+      __syncwarp();
+      for (int p = lane; p < n; p += 32) {
+        Lu[p] = Lk[p];
+        Lc[p] = __int_as_float(Lcol[p]);
+        Ld[p] = src.depth(Lk[p]);
+      }
+      __syncwarp();
+    }
     float bs = -INFINITY;
     int bd = -1, bu = I32_MAX;
     for (int p = lane; p < n; p += 32) {
@@ -603,7 +656,7 @@ __device__ void warp_group(const Rows& src, long long b,
   if (lane == 0) st.put(b, nv, ref[dstar]);
 }
 
-template <int STRAT>
+template <int STRAT, bool ORD>
 __global__ void tree_kernel(Rows src, const float* __restrict__ counts,
                             const uint8_t* __restrict__ valid,
                             const int32_t* __restrict__ utaxa, int B, int K,
@@ -636,6 +689,7 @@ __global__ void tree_kernel(Rows src, const float* __restrict__ counts,
             td[e * 32] = STRAT != kHybrid ? src.depth(u) : 0;
           }
         }
+        if (ORD && STRAT == kMrtl) sort_by_depth(tu, tc, td, n);
         st.put(b, n,
                STRAT == kHybrid && n <= kSmall
                    ? hybrid_small(src, n, tu, tc, root, factor)
@@ -655,13 +709,13 @@ __global__ void tree_kernel(Rows src, const float* __restrict__ counts,
     const int t = __ffs(todo) - 1;
     todo &= todo - 1;
     if (r % warps != w) continue;
-    warp_group<STRAT>(src, b0 + t, counts, valid, utaxa, K, root, factor,
-                      base, st);
+    warp_group<STRAT, ORD>(src, b0 + t, counts, valid, utaxa, K, root,
+                           factor, base, st);
     __syncwarp();
   }
 }
 
-template <int STRAT>
+template <int STRAT, bool ORD>
 int launch(const Rows& src, const float* counts, const uint8_t* valid,
            const int32_t* utaxa, int B, int K, int root, float factor,
            unsigned char* scratch, const Store& st, cudaStream_t stream) {
@@ -677,12 +731,12 @@ int launch(const Rows& src, const float* counts, const uint8_t* valid,
   }
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        tree_kernel<STRAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tree_kernel<STRAT, ORD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int blocks = (int)(((long long)B + 31) / 32);
-  tree_kernel<STRAT><<<blocks, 32 * warps, smem, stream>>>(
+  tree_kernel<STRAT, ORD><<<blocks, 32 * warps, smem, stream>>>(
       src, counts, valid, utaxa, B, K, root, factor, scratch, st);
   return (int)cudaGetLastError();
 }
@@ -1005,13 +1059,26 @@ __device__ __forceinline__ int hash_slot(int key) {
 // hybrid's descent over the group's list (A ids, C counts, X branches).
 // Each depth's pass keeps, in place, the slots under x (lin[d] == x; all
 // at depth 0), so the list follows x's subtree down.
+template <bool ORD>
 __device__ int hybrid_block(const Rows& src, int* A, float* C, int* X, int n,
                             int root, float factor, int* hk, float* hs,
                             BlockRed& r, int* parity) {
   const int D = src.D;
-  float part = 0.0f;
-  for (int p = threadIdx.x; p < n; p += kBlockThreads) part += C[p];
-  float a_base = block_sum(part, r);
+  float a_base;
+  if (ORD) {  // slot order, one thread
+    if (threadIdx.x == 0) {
+      float s = 0.0f;
+      for (int p = 0; p < n; ++p) s += C[p];
+      r.f[0] = s;
+    }
+    __syncthreads();
+    a_base = r.f[0];
+    __syncthreads();
+  } else {
+    float part = 0.0f;
+    for (int p = threadIdx.x; p < n; p += kBlockThreads) part += C[p];
+    a_base = block_sum(part, r);
+  }
   int x = root;
   for (int d = 0; d + 1 < D; ++d) {
     bool any = false;
@@ -1063,55 +1130,80 @@ __device__ int hybrid_block(const Rows& src, int* A, float* C, int* X, int n,
       }
       if (threadIdx.x == 0) r.fill = 0;
       __syncthreads();
-      volatile int* vk = hk;
-      volatile int* vfill = &r.fill;
-      const int lane = threadIdx.x & 31;
-      for (int p0 = 0; p0 < n; p0 += kBlockThreads) {
-        // a warp's entries of one branch are summed first and go in with
-        // one atomic (a few branches hold thousands of entries near the
-        // root, whose atomics on one word would run one after another)
-        const int p = p0 + threadIdx.x;
-        const int br = p < n ? X[p] : NONE;
-        const float c = br != NONE ? C[p] : 0.0f;
-        const unsigned peers = __match_any_sync(FULL, br);
-        float sum = 0.0f;
-        for (int k = 0; k < 32; ++k) {
-          const float ck = __shfl_sync(FULL, c, k);
-          if (peers >> k & 1u) sum += ck;
-        }
-        const int leader = __ffs(peers) - 1;
-        bool in = false;
-        if (br != NONE && lane == leader) {
-          for (int h = hash_slot(br);; h = (h + 1) & (kHashSlots - 1)) {
-            const int k = vk[h];
-            if (k == NONE) {
-              if (*vfill >= kHashFill) break;  // looked up below
-              const int old = atomicCAS(hk + h, NONE, br);
-              if (old == NONE) atomicAdd(&r.fill, 1);
-              if (old != NONE && old != br) continue;
-            } else if (k != br) {
-              continue;
+      bool more = false;
+      if (ORD) {
+        // one thread adds each branch's entries in slot order; a branch
+        // first met once the table is full waits for the next pass
+        if (threadIdx.x == 0) {
+          int fill = 0;
+          for (int p = 0; p < n; ++p) {
+            const int br = X[p];
+            if (br == NONE) continue;
+            int h = hash_slot(br);
+            while (hk[h] != NONE && hk[h] != br)
+              h = (h + 1) & (kHashSlots - 1);
+            if (hk[h] == NONE) {
+              if (fill >= kHashFill) {
+                more = true;
+                continue;
+              }
+              hk[h] = br;
+              ++fill;
             }
-            atomicAdd(hs + h, sum);
-            in = true;
-            break;
+            hs[h] += C[p];
+            X[p] = NONE;
           }
         }
-        if (__shfl_sync(FULL, in, leader)) X[p] = NONE;
-      }
-      __syncthreads();
-      // the table is final: the entries left look their branch up
-      bool more = false;
-      for (int p = threadIdx.x; p < n; p += kBlockThreads) {
-        const int br = X[p];
-        if (br == NONE) continue;
-        int h = hash_slot(br);
-        while (hk[h] != NONE && hk[h] != br) h = (h + 1) & (kHashSlots - 1);
-        if (hk[h] == br) {
-          atomicAdd(hs + h, C[p]);
-          X[p] = NONE;
-        } else {
-          more = true;  // a later pass
+      } else {
+        volatile int* vk = hk;
+        volatile int* vfill = &r.fill;
+        const int lane = threadIdx.x & 31;
+        for (int p0 = 0; p0 < n; p0 += kBlockThreads) {
+          // a warp's entries of one branch are summed first and go in with
+          // one atomic (a few branches hold thousands of entries near the
+          // root, whose atomics on one word would run one after another)
+          const int p = p0 + threadIdx.x;
+          const int br = p < n ? X[p] : NONE;
+          const float c = br != NONE ? C[p] : 0.0f;
+          const unsigned peers = __match_any_sync(FULL, br);
+          float sum = 0.0f;
+          for (int k = 0; k < 32; ++k) {
+            const float ck = __shfl_sync(FULL, c, k);
+            if (peers >> k & 1u) sum += ck;
+          }
+          const int leader = __ffs(peers) - 1;
+          bool in = false;
+          if (br != NONE && lane == leader) {
+            for (int h = hash_slot(br);; h = (h + 1) & (kHashSlots - 1)) {
+              const int k = vk[h];
+              if (k == NONE) {
+                if (*vfill >= kHashFill) break;  // looked up below
+                const int old = atomicCAS(hk + h, NONE, br);
+                if (old == NONE) atomicAdd(&r.fill, 1);
+                if (old != NONE && old != br) continue;
+              } else if (k != br) {
+                continue;
+              }
+              atomicAdd(hs + h, sum);
+              in = true;
+              break;
+            }
+          }
+          if (__shfl_sync(FULL, in, leader)) X[p] = NONE;
+        }
+        __syncthreads();
+        // the table is final: the entries left look their branch up
+        for (int p = threadIdx.x; p < n; p += kBlockThreads) {
+          const int br = X[p];
+          if (br == NONE) continue;
+          int h = hash_slot(br);
+          while (hk[h] != NONE && hk[h] != br) h = (h + 1) & (kHashSlots - 1);
+          if (hk[h] == br) {
+            atomicAdd(hs + h, C[p]);
+            X[p] = NONE;
+          } else {
+            more = true;  // a later pass
+          }
         }
       }
       __syncthreads();
@@ -1136,7 +1228,7 @@ __device__ int hybrid_block(const Rows& src, int* A, float* C, int* X, int n,
   return x;
 }
 
-template <int STRAT>
+template <int STRAT, bool ORD>
 __global__ void __launch_bounds__(kBlockThreads)
     tree_block_kernel(Rows src, const float* __restrict__ counts,
                       const uint8_t* __restrict__ valid,
@@ -1170,13 +1262,14 @@ __global__ void __launch_bounds__(kBlockThreads)
           tc[e * 32] = STRAT != kLca ? C[e] : 0.0f;
           td[e * 32] = STRAT != kHybrid ? src.depth(A[e]) : 0;
         }
+        if (ORD && STRAT == kMrtl) sort_by_depth(tu, tc, td, n);
         res = STRAT == kHybrid && n <= kSmall
                   ? hybrid_small(src, n, tu, tc, root, factor)
                   : thread_group<STRAT>(src, n, tu, tc, td, root, factor);
       }
     } else if (STRAT == kHybrid) {
-      res = hybrid_block(src, A, C, X, n, root, factor, hk, hs, red,
-                         &parity);
+      res = hybrid_block<ORD>(src, A, C, X, n, root, factor, hk, hs, red,
+                              &parity);
     } else {
       const int first = A[0];  // the first valid slot's id
       bool ascending = true;
@@ -1203,7 +1296,7 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
-template <int STRAT>
+template <int STRAT, bool ORD>
 int launch_block(const Rows& src, const float* counts, const uint8_t* valid,
                  const int32_t* utaxa, int B, int K, int root, float factor,
                  unsigned char* scratch, int scratch_blocks, const Store& st,
@@ -1220,25 +1313,27 @@ int launch_block(const Rows& src, const float* counts, const uint8_t* valid,
   }
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        tree_block_kernel<STRAT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tree_block_kernel<STRAT, ORD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  tree_block_kernel<STRAT><<<grid, kBlockThreads, smem, stream>>>(
+  tree_block_kernel<STRAT, ORD><<<grid, kBlockThreads, smem, stream>>>(
       src, counts, valid, utaxa, B, K, root, factor, scratch, st);
   return (int)cudaGetLastError();
 }
 
-template <int STRAT>
+template <int STRAT, bool ORD>
 int dispatch(const Rows& src, const float* counts, const uint8_t* valid,
              const int32_t* utaxa, int B, int K, int root, float factor,
              unsigned char* scratch, int scratch_blocks, const Store& st,
              cudaStream_t stream) {
   if (K <= kWideK)  // a warp's list fits shared memory: no scratch
-    return launch<STRAT>(src, counts, valid, utaxa, B, K, root, factor,
-                         nullptr, st, stream);
-  return launch_block<STRAT>(src, counts, valid, utaxa, B, K, root, factor,
-                             scratch, scratch_blocks, st, stream);
+    return launch<STRAT, ORD>(src, counts, valid, utaxa, B, K, root,
+                              factor, nullptr, st, stream);
+  return launch_block<STRAT, ORD>(src, counts, valid, utaxa, B, K, root,
+                                  factor, scratch, scratch_blocks, st,
+                                  stream);
 }
 
 }  // namespace
@@ -1256,13 +1351,15 @@ extern "C" const char* umgap_cuda_error_string(int code) {
 // lists of block_list_bytes(K), 16-byte aligned, and the launch runs at
 // most scratch_blocks blocks (agg/device.py tree_scratch_bytes). snap:
 // null, or the snap table (snap_size int32) the results go through
-// (Store::put).
+// (Store::put). ordered: nonzero for counts that are not integers, which
+// hybrid and mrtl then add in the plain versions' order (the note at the
+// top); lca* reads no counts.
 extern "C" int tree_aggregate(int strategy, const void* geom, int size,
                               int W, const void* counts, const void* valid,
                               const void* utaxa, int B, int K, int root,
                               float factor, void* scratch,
                               int scratch_blocks, void* out, const void* snap,
-                              int snap_size, void* stream) {
+                              int snap_size, int ordered, void* stream) {
   if (B <= 0) return 0;
   if (K <= 0 || W < 2 || size <= 0 || (snap != nullptr && snap_size <= 0))
     return (int)cudaErrorInvalidValue;
@@ -1275,14 +1372,22 @@ extern "C" int tree_aggregate(int strategy, const void* geom, int size,
   cudaStream_t s = (cudaStream_t)stream;
   switch (strategy) {
     case kHybrid:
-      return dispatch<kHybrid>(src, c, v, u, B, K, root, factor, sc,
-                               scratch_blocks, o, s);
+      return ordered ? dispatch<kHybrid, true>(src, c, v, u, B, K, root,
+                                               factor, sc, scratch_blocks, o,
+                                               s)
+                     : dispatch<kHybrid, false>(src, c, v, u, B, K, root,
+                                                factor, sc, scratch_blocks,
+                                                o, s);
     case kLca:
-      return dispatch<kLca>(src, c, v, u, B, K, root, factor, sc,
-                            scratch_blocks, o, s);
+      return dispatch<kLca, false>(src, c, v, u, B, K, root, factor, sc,
+                                   scratch_blocks, o, s);
     case kMrtl:
-      return dispatch<kMrtl>(src, c, v, u, B, K, root, factor, sc,
-                             scratch_blocks, o, s);
+      return ordered ? dispatch<kMrtl, true>(src, c, v, u, B, K, root,
+                                             factor, sc, scratch_blocks, o,
+                                             s)
+                     : dispatch<kMrtl, false>(src, c, v, u, B, K, root,
+                                              factor, sc, scratch_blocks, o,
+                                              s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1294,5 +1399,5 @@ extern "C" int tree_aggregate_packed(const void* args) {
                         a.ptr(4), a.ptr(5), a.ptr(6), (int)a.i(7),
                         (int)a.i(8), (int)a.i(9), (float)a.d(10), a.ptr(11),
                         (int)a.i(12), a.ptr(13), a.ptr(14), (int)a.i(15),
-                        a.ptr(16));
+                        (int)a.i(16), a.ptr(17));
 }

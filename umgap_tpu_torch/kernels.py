@@ -152,11 +152,11 @@ K3R = Kernel(
 # tile and the row kernel
 K3S = Kernel(
     "seedextend_scored", "seedextend_mask.cu",
-    [P, P, LL, I, I, I, P, I, I, P, I, P],
+    [P, P, LL, I, I, I, P, I, I, P, I, I, P],
     "umgap_tpu/ops/seedextend.py:221 seedextend_scored_mask_batch")
 K3RS = Kernel(
     "seedextend_rows_scored", "seedextend_mask.cu",
-    [P, P, LL, I, I, I, P, I, I, P, P], K3S.replaces)
+    [P, P, LL, I, I, I, P, I, I, P, I, P], K3S.replaces)
 K4 = Kernel(
     "dedup_counts", "dedup_counts.cu",
     [P, P, I, I, I, F, P, P, P, P, P],
@@ -182,7 +182,7 @@ K5A = Kernel(
     "(:191) and compare (:194)")
 K6 = Kernel(
     "tree_aggregate", "tree_aggregate.cu",
-    [I, P, I, I, P, P, P, I, I, I, F, P, I, P, P, I, P],
+    [I, P, I, I, P, P, P, I, I, I, F, P, I, P, P, I, I, P],
     "umgap_tpu/agg/device.py:219 tree_lca_batch, :243 rtl_batch, "
     ":253 tree_mix_batch, with :170 hit_geometry's row gather and "
     "ancestry test and :308 snap_batch (+ "

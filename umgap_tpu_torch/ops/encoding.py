@@ -139,6 +139,8 @@ class TranslationTable:
         self.number = number
         name, aas, starts = GENETIC_CODES[number]
         self.name = name
+        self.aas = aas
+        self.starts = starts
         aa = np.full(125, AA_UNKNOWN, dtype=np.uint8)
         start = np.zeros(125, dtype=bool)
         for idx in range(64):
@@ -162,6 +164,22 @@ class TranslationTable:
         if methionine:
             out = np.where(self.start[idx], AA_FROM_BYTE[ord("M")], out)
         return out
+
+    def show(self) -> str:
+        """The table as ``translate -s`` prints it
+        (TranslationTable::print, src/dna/translation.rs:147-174)."""
+        lines = [f"{self.name}={self.number}"]
+        base = "TCAG"
+        rows = {
+            "AAs": self.aas,
+            "Starts": self.starts,
+            "Base1": "".join(base[i // 16] for i in range(64)),
+            "Base2": "".join(base[(i // 4) % 4] for i in range(64)),
+            "Base3": "".join(base[i % 4] for i in range(64)),
+        }
+        for name, row in rows.items():
+            lines.append(f"{name:<6} = {row}")
+        return "\n".join(lines)
 
 
 _TABLE_CACHE: dict[int, TranslationTable] = {}

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from . import encoding
 
 MASK25 = (1 << 25) - 1
 DEFAULT_K = 9
@@ -44,6 +45,14 @@ def pack_kmers_host(codes: np.ndarray, k: int = DEFAULT_K) -> np.ndarray:
     return out
 
 
+def pack_peptide_host(codes: np.ndarray) -> int:
+    """One short peptide's AA codes (at most 10) packed into an int."""
+    v = np.uint64(0)
+    for c in codes:
+        v = (v << np.uint64(5)) | np.uint64(c)
+    return int(v)
+
+
 def split_packed(packed: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """uint64 packed -> (hi, lo) int32 lanes split at bit 25."""
     packed = np.asarray(packed, dtype=np.uint64)
@@ -54,6 +63,12 @@ def split_packed(packed: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 
 def join_packed(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
     return (hi.astype(np.uint64) << np.uint64(25)) | lo.astype(np.uint64)
+
+
+def unpack_kmer(packed: int, k: int) -> str:
+    """A packed k-mer back to its AA string (``printindex``)."""
+    codes = [(int(packed) >> (5 * (k - 1 - j))) & 31 for j in range(k)]
+    return encoding.decode_aa(np.array(codes))
 
 
 def pack_windows_batch(aa: torch.Tensor, pep_lengths: torch.Tensor,

@@ -184,7 +184,7 @@ def _seed_score(seed_scores: torch.Tensor, t: torch.Tensor, penalty: int):
     return torch.where((t >= 0) & (t < size) & (sc > 0), sc, int(penalty))
 
 
-def seedextend_scored_hits_plain(taxa: torch.Tensor, lengths: torch.Tensor,
+def seedextend_scored_mask_plain(taxa: torch.Tensor, lengths: torch.Tensor,
                                  seed_scores: torch.Tensor,
                                  penalty: int = 5, min_seed_size: int = 2,
                                  max_gap_size: int = 0):
@@ -194,7 +194,7 @@ def seedextend_scored_hits_plain(taxa: torch.Tensor, lengths: torch.Tensor,
     scores ``prefix[stop] - prefix[start]`` over the per-position scores
     (the sentinel's included; a push with start > stop too), and each
     lane keeps the last maximum among its pushes, or nothing without
-    one. Returns the kept taxa (..., N) int32, 0 elsewhere."""
+    one. Returns the keep mask (..., N) bool."""
     N = taxa.shape[-1]
     tx, inside = _with_sentinel(taxa, lengths)
     pushes = _scan_pushes(tx, min_seed_size, max_gap_size)
@@ -217,7 +217,18 @@ def seedextend_scored_hits_plain(taxa: torch.Tensor, lengths: torch.Tensor,
     pos = torch.arange(N, device=taxa.device)[None, :]
     keep = ((pos >= bstart) & (pos < bstop) & valids.any(dim=1)[:, None]
             & inside)
-    return torch.where(keep.reshape(taxa.shape), taxa, 0)
+    return keep.reshape(taxa.shape)
+
+
+def seedextend_scored_hits_plain(taxa: torch.Tensor, lengths: torch.Tensor,
+                                 seed_scores: torch.Tensor,
+                                 penalty: int = 5, min_seed_size: int = 2,
+                                 max_gap_size: int = 0):
+    """The kept taxa (..., N) int32 of
+    :func:`seedextend_scored_mask_plain`, 0 elsewhere."""
+    keep = seedextend_scored_mask_plain(taxa, lengths, seed_scores, penalty,
+                                        min_seed_size, max_gap_size)
+    return torch.where(keep, taxa, 0)
 
 
 def seedextend_hits_plain(taxa: torch.Tensor, lengths: torch.Tensor,
@@ -337,7 +348,7 @@ def seedextend_runs_plain(taxa: torch.Tensor, lengths: torch.Tensor,
 def seedextend_scored_runs_plain(taxa: torch.Tensor, lengths: torch.Tensor,
                                 seed_scores: torch.Tensor, penalty: int = 5,
                                 min_seed_size: int = 2,
-                                max_gap_size: int = 0):
+                                max_gap_size: int = 0, hits: bool = True):
     """Plain version of K3's scored row kernel, its formulation: the
     machine stepped at the candidates of :func:`seedextend_runs_plain`,
     carrying three prefixes of the per-position scores instead of a
@@ -347,7 +358,7 @@ def seedextend_scored_runs_plain(taxa: torch.Tensor, lengths: torch.Tensor,
     end - same_tid (the stop of the next b1 push: kept by a ``same``
     step, moved on one position by b2, reset by b1 and b3). Each lane
     keeps its best push, the last of equal ones. Returns the kept taxa
-    (..., N) int32, 0 elsewhere."""
+    (..., N) int32, 0 elsewhere, or without ``hits`` the keep mask."""
     N = taxa.shape[-1]
     dev = taxa.device
     x, inside, where_c = _run_candidates(taxa, lengths, max_gap_size)
@@ -411,8 +422,9 @@ def seedextend_scored_runs_plain(taxa: torch.Tensor, lengths: torch.Tensor,
     bstop = torch.where(better, torch.where(last == 0, N + 1 - same_tid,
                                             N + 1), bstop)
     pos = torch.arange(N, device=dev)[None, :]
-    keep = (pos >= bstart[:, None]) & (pos < bstop[:, None]) & inside
-    return torch.where(keep.reshape(taxa.shape), taxa, 0)
+    keep = ((pos >= bstart[:, None]) & (pos < bstop[:, None])
+            & inside).reshape(taxa.shape)
+    return torch.where(keep, taxa, 0) if hits else keep
 
 
 # Rows of up to STAGED_MAX_N windows (reads up to 312 bp) take K3's
@@ -453,10 +465,21 @@ def _launch(taxa, lengths, min_seed_size, max_gap_size, hits: bool):
 
 
 def seedextend_mask_batch(taxa: torch.Tensor, lengths: torch.Tensor,
-                          min_seed_size: int = 2, max_gap_size: int = 0):
+                          min_seed_size: int = 2, max_gap_size: int = 0,
+                          seed_scores: Optional[torch.Tensor] = None,
+                          penalty: int = 5):
     """Keep mask (..., N) bool of a padded batch of window taxa (..., N)
-    int32 with valid lengths (...). CPU tensors take the plain version;
-    CUDA tensors launch K3 with its mask epilogue."""
+    int32 with valid lengths (...); with ``seed_scores`` the scored
+    mode's (a lane's best-scoring seed alone). CPU tensors take the plain
+    version; CUDA tensors launch K3 (its scored entries with
+    ``seed_scores``) with the mask epilogue."""
+    if seed_scores is not None:
+        if taxa.device.type == "cpu":
+            return seedextend_scored_mask_plain(taxa, lengths, seed_scores,
+                                                penalty, min_seed_size,
+                                                max_gap_size)
+        return _launch_scored(taxa, lengths, min_seed_size, max_gap_size,
+                              seed_scores, penalty, hits=False)
     if taxa.device.type == "cpu":
         return seedextend_mask_plain(taxa, lengths, min_seed_size,
                                      max_gap_size)
@@ -464,7 +487,7 @@ def seedextend_mask_batch(taxa: torch.Tensor, lengths: torch.Tensor,
 
 
 def _launch_scored(taxa, lengths, min_seed_size, max_gap_size, seed_scores,
-                   penalty):
+                   penalty, hits: bool = True):
     N = taxa.shape[-1]
     if taxa.dtype != torch.int32 or lengths.dtype != torch.int32 \
             or lengths.shape != taxa.shape[:-1] \
@@ -472,10 +495,11 @@ def _launch_scored(taxa, lengths, min_seed_size, max_gap_size, seed_scores,
         raise ValueError("seedextend: taxa (..., N) int32, lengths (...) "
                          "int32 and seed_scores (size,) int32 expected")
     kernels.check_cuda("seedextend", taxa, lengths, seed_scores)
-    out = torch.empty(taxa.shape, dtype=torch.int32, device=taxa.device)
+    out = torch.empty(taxa.shape, dtype=torch.int32 if hits else torch.bool,
+                      device=taxa.device)
     args = (taxa.data_ptr(), lengths.data_ptr(), lengths.numel(), N,
             int(min_seed_size), int(max_gap_size), seed_scores.data_ptr(),
-            seed_scores.shape[0], int(penalty), out.data_ptr())
+            seed_scores.shape[0], int(penalty), out.data_ptr(), int(hits))
     if seedextend_path(N) == "staged":
         kernels.K3S.launch(*args, LANES_PER_BLOCK, kernels.stream_of(taxa))
     else:

@@ -1,5 +1,4 @@
-"""Taxonomy model as dense arrays (a copy of what the analyse path needs
-from ``umgap_tpu.taxonomy``).
+"""Taxonomy model as dense arrays (a copy of ``umgap_tpu.taxonomy``).
 
 Dense, id-indexed numpy vectors (parent, rank, valid, depth, snapping)
 are built once on the host and moved to the device, so every per-read
@@ -11,7 +10,7 @@ reference's ``Taxon::from_str`` (src/taxon.rs:89-113).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -77,9 +76,10 @@ NONE = -1
 
 class Taxonomy:
     """Dense array view of a taxon list, indexed by taxon id (length
-    ``max_id + 1``)."""
+    ``max_id + 1``). ``with_unknown`` adds taxon 0, "unknown", when the
+    list lacks it (TaxonList::new_with_unknown, src/taxon.rs:149-155)."""
 
-    def __init__(self, taxa: Sequence[Taxon]):
+    def __init__(self, taxa: Sequence[Taxon], with_unknown: bool = False):
         if not taxa:
             raise TaxonomyError("empty taxonomy")
         n = max(t.id for t in taxa) + 1
@@ -88,6 +88,7 @@ class Taxonomy:
         self.parent = np.full(n, NONE, dtype=np.int64)
         self.rank = np.zeros(n, dtype=np.int8)
         self.valid = np.zeros(n, dtype=bool)
+        self.names: list[str | None] = [None] * n
         # children in input order, as TaxonTree::new pushes them
         # (src/taxon.rs:224-247); the Euler tour visits them in this order
         self._children: dict[int, list[int]] = {}
@@ -99,9 +100,16 @@ class Taxonomy:
             self.parent[i] = t.parent
             self.rank[i] = t.rank
             self.valid[i] = t.valid
+            self.names[i] = t.name
             if t.id != t.parent:
                 self._children.setdefault(t.parent, []).append(t.id)
                 roots.discard(t.id)
+        if with_unknown and not self.present[0]:
+            self.present[0] = True
+            self.parent[0] = 0
+            self.rank[0] = ranks.NO_RANK
+            self.valid[0] = False
+            self.names[0] = "unknown"
         if len(roots) > 1:
             raise TaxonomyError("More than one root!")
         if not roots:
@@ -129,6 +137,33 @@ class Taxonomy:
         self.depth = depth
         self.max_depth = int(depth.max(initial=0))
 
+    def get(self, tid: int) -> Taxon | None:
+        """TaxonList::get (src/taxon.rs:166-172): None for absent ids."""
+        if tid < 0 or tid >= self.size or not self.present[tid]:
+            return None
+        return Taxon(tid, self.names[tid] or "", int(self.rank[tid]),
+                     int(self.parent[tid]), bool(self.valid[tid]))
+
+    def lineage(self, tid: int) -> list[int]:
+        """The 32-slot lineage: the taxon id at each rank, NONE elsewhere
+        (src/taxon.rs:194-209). Raises TaxonomyError on unknown taxa and
+        on a cyclic ancestry."""
+        arr = [NONE] * ranks.RANK_COUNT
+        next_id, prev_id = tid, None
+        seen = 0
+        while next_id != prev_id:
+            if not (0 <= next_id < self.size) or not self.present[next_id]:
+                raise TaxonomyError(f"Unknown Taxon ID: {next_id}")
+            r = int(self.rank[next_id])
+            if r != ranks.NO_RANK:
+                arr[r] = next_id
+            prev_id = next_id
+            next_id = int(self.parent[next_id])
+            seen += 1
+            if seen > self.size:
+                raise TaxonomyError(f"Taxon {tid} has a cyclic ancestry")
+        return arr
+
     def filter_ancestors(self, keep: np.ndarray) -> np.ndarray:
         """For every node reachable from the root, the nearest ancestor-or-
         self passing ``keep``; the root maps to itself even when it fails
@@ -149,6 +184,24 @@ class Taxonomy:
         keep = self.present & self.valid
         if ranked_only:
             keep &= self.rank != ranks.NO_RANK
+        return self.filter_ancestors(keep)
+
+    def rank_snapping(self, rank: int | None, taxa: Iterable[int] = (),
+                      require_valid: bool = False) -> np.ndarray:
+        """Snapping to an exact rank and/or an explicit taxon set:
+        snaptaxon (src/commands/snaptaxon.rs:82-90) passes
+        ``require_valid=not invalid`` and its listed taxa, whether present
+        or not; taxa2freq (src/commands/taxa2freq.rs:96-97) no taxa and
+        no validity check."""
+        if rank is None:
+            keep = np.zeros(self.size, dtype=bool)
+        else:
+            keep = self.present & (self.rank == rank)
+            if require_valid:
+                keep &= self.valid
+        for t in taxa:
+            if 0 <= t < self.size:
+                keep[t] = True
         return self.filter_ancestors(keep)
 
     def seed_scores(self) -> np.ndarray:
