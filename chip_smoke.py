@@ -19,9 +19,9 @@ two ranked presets over the workload and over a batch of 420 bp reads,
 K3's scored entries held to their plain versions, the first 1,024 pairs
 to the JAX package's digests), the tryptic presets through
 ``TrypticAnalyser``
-over a peptide index of the workload's own fragments, runs a 2.1 GB
-card-resident bucket64s index and a 1.6 GB card-resident peptide index
-of 50 M keys, runs the ``analyse`` command line in a subprocess (9-mer
+over a peptide index of the workload's own fragments, runs a 0.54 GB
+card-resident bucket64s index and a 0.8 GB card-resident peptide index
+of 25 M keys, runs the ``analyse`` command line in a subprocess (9-mer
 and tryptic) and its ``--serve`` service in another (requests over a
 Unix socket, replies byte-equal to the in-process records), runs the FragGeneScan++ protein path with a mock FGSpp
 (``MOCK_FGSPP``: the library path of the four FGSpp presets, K1P alone,
@@ -33,16 +33,23 @@ rmq/hybrid) over the workload, and runs the reference's stream
 subcommands in process (phase subcommands: two presets as their shell
 chains of ``translate | prot2kmer2lca | seedextend | uniq | taxa2agg``
 against ``analyse`` and the plain versions, ``seedextend -r``,
-``taxa2agg -m rmq -a lca*``, ``pept2lca``, the ``prot2kmer2lca -s``
-server). Every phase always runs; the
+``taxa2agg -m rmq -a lca*``, ``taxa2agg -s``, ``pept2lca``, the
+``prot2kmer2lca -s`` server), and runs ``buildindex-dist`` (phase
+builddist: 1.6e8 synthetic rows into 16 shards, 2.15 GB, as a user runs
+it; a shard's join on the card held to the plain numpy join, and
+joins with groups of 65-300 and of 20,000 distinct taxa in key-range
+pieces, probes of the built shards, a 40 MB TSV split through K1P held
+to the plain split, card builds equal to CPU builds). Every phase always runs; the
 script takes no arguments. Every comparison is exact (all outputs are
 integer ids, masks and counts). Each path's launch counts are reset
 before it is driven and the counts of the kernels it runs must be above
 0 after. End-to-end rates are steady-state windows of a few seconds over
 one stream. Any failure exits non-zero; nothing falls back to the CPU.
 
-Output: progress on stderr; on stdout the card's name and power limit,
-one ``{"kernels": [...]}`` line, and last the ``{"ok": true, ...}`` line.
+Output: progress on stderr; on stdout one ``{"builddist": {...}}`` line
+(the build job's stages, K6's numbers on its join, K1P's on its split),
+the card's name and power limit, one ``{"kernels": [...]}`` line, and
+last the ``{"ok": true, ...}`` line.
 The full record of the run goes to ``chip_smoke.json`` in the directory
 named by ``CHIP_SMOKE_OUT`` (default ``.smoke_out/``, git-ignored).
 Imports torch and numpy only (no JAX).
@@ -64,7 +71,7 @@ OUT_DIR = os.path.join(REPO,
 TMP_DIR = os.path.join(REPO, ".smoke_tmp")
 BATCH = 16384
 # seconds of each steady-state end-to-end window
-STEADY_S = 4.0
+STEADY_S = 2.0
 T0 = time.perf_counter()
 
 # NVIDIA H100 SXM data-sheet rates: HBM bandwidth and the 32-bit rate
@@ -269,6 +276,7 @@ def main():
         phase_cli(torch, world)
         phase_serve(torch, world)
         phase_subcommands(torch, world)
+        build = phase_builddist(torch, world)
         shards_launches, stats["probe_kmer_grouped"] = phase_shards(torch,
                                                                     world)
         mesh_launches, stats["probe_peptide_grouped"] = phase_mesh(
@@ -353,6 +361,14 @@ def main():
         "plain_ms": g["plain_ms"], "bound_ms": g["bound_ms"],
         "bound_by": g["bound_by"], "library_ms": None,
         "equal": g["equal"]})
+    # the build job's numbers (phase builddist), before the card's line
+    print(json.dumps({"builddist": {
+        "job": build["job"], "join_k6": {k: build["join"]["k6"][k] for k in
+                                         ("launches", "device_ms",
+                                          "bound_ms")},
+        "split_k1p": build["split"]["k1p"],
+        "wide_k6": {n: build[f"join_{n}"]["k6_block"]
+                    for n in ("mid", "wide")}}}))
     print(card)
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {
@@ -1938,20 +1954,31 @@ def long_rows(torch, world, check=True):
     for L, what, codes in samples:
         taxa, nk, hits = _row_inputs(torch, world, codes(), L)
         W = taxa.shape[-1]
+        t0 = time.perf_counter()
         k3[f"W={W}"], e = k3_cell(torch, taxa, nk, check, what)
+        k3[f"W={W}"]["cell_s"] = time.perf_counter() - t0
         e3 = max(e3, e)
         wt = torch.from_numpy(np.random.default_rng(L).integers(
             0, 4, size=tuple(hits.shape)).astype(np.float32)).to(dev)
+        t0 = time.perf_counter()
         k4[f"N={hits.shape[1]}"], e = k4_cell(torch, hits, wt, 64, check,
                                               what)
+        k4[f"N={hits.shape[1]}"]["cell_s"] = time.perf_counter() - t0
         e4 = max(e4, e)
         del taxa, nk, hits, wt
     tr, lt = _k3_synthetic(torch, dev)
+    t0 = time.perf_counter()
     k3["W=4000"], e = k3_cell(torch, tr, lt, check, "W=4000")
+    k3["W=4000"]["cell_s"] = time.perf_counter() - t0
     e3 = max(e3, e)
     tx, wt = _k4_synthetic(torch, dev)
+    t0 = time.perf_counter()
     k4["N=24576"], e = k4_cell(torch, tx, wt, 64, check, "N=24576")
+    k4["N=24576"]["cell_s"] = time.perf_counter() - t0
     e4 = max(e4, e)
+    log("long rows, seconds a cell (checks and timings): K3 " + ", ".join(
+        f"{c} {v['cell_s']:.1f}" for c, v in k3.items()) + "; K4 " +
+        ", ".join(f"{c} {v['cell_s']:.1f}" for c, v in k4.items()))
     log("long rows, device ms (bound): K3 " + ", ".join(
         f"{c} {fmt_ms(v['device_ms'])} ({v['bound_ms']:.4f})"
         for c, v in k3.items()) + "; K4 " + ", ".join(
@@ -3156,11 +3183,13 @@ def phase_tryptic(torch, world):
 
 
 # ---------------------------------------------------------------------- #
-# Phase 4b: a 1.6 GB card-resident peptide index
+# Phase 4b: a 0.8 GB card-resident peptide index
 # ---------------------------------------------------------------------- #
 
-PEPTIDE_RESIDENT_KEYS = 50_000_000
-PEPTIDE_RESIDENT_LOG2_SLOTS = 27  # 2^24 rows of 8 slots x 12 B = 1.61 GB
+# cut from 50 M keys in 2^27 slots (1.61 GB, a 40 s host build) to keep
+# the script in its time
+PEPTIDE_RESIDENT_KEYS = 25_000_000
+PEPTIDE_RESIDENT_LOG2_SLOTS = 26  # 2^23 rows of 8 slots x 12 B = 0.81 GB
 
 
 def _workload_fingerprints(torch, world):
@@ -3220,7 +3249,7 @@ def resident_fingerprints(world, n_total, avoid, seed=13):
 
 
 def resident_peptide_table(torch, world):
-    """The 1.61 GB resident peptide index on the card: (DeviceTable,
+    """The 0.81 GB resident peptide index on the card: (DeviceTable,
     build record)."""
     from umgap_tpu_torch.index.table import PeptideTable
     from umgap_tpu_torch.ops.lookup import DeviceTable
@@ -3309,8 +3338,8 @@ def resident_k8(torch, world, dt, sweep=True):
 
 
 def phase_resident_peptide(torch, world, tryptic_results):
-    """A peptide index of 50,000,000 fingerprints in 2^27 slots
-    (16,777,216 rows of 96 B, 1.61 GB) on the card: the bench fragments
+    """A peptide index of 25,000,000 fingerprints in 2^26 slots
+    (8,388,608 rows of 96 B, 0.81 GB) on the card: the bench fragments
     with their taxa plus seeded filler. K8 held to its plain version on
     one batch's K7 output (and swept over its queries per lane with the
     L2 flushed); tryptic-sensitivity over the workload through it:
@@ -3359,13 +3388,14 @@ def phase_resident_peptide(torch, world, tryptic_results):
 
 
 # ---------------------------------------------------------------------- #
-# Phase 4: a 2.1 GB card-resident bucket64s index
+# Phase 4: a 0.54 GB card-resident bucket64s index
 # ---------------------------------------------------------------------- #
 
-# 2^22 rows x 64 slots x 8 B = 2.1 GB at load 0.5 (134 M keys): 2^23
-# (4.3 GB) took the host's numpy build 155-222 s, and phase shards splits
-# the same keys into its 16-shard artifact (4.3 GB at 2^22)
-RESIDENT_LOG2_ROWS = 22
+# 2^20 rows x 64 slots x 8 B = 0.54 GB at load 0.5 (33.5 M keys), cut
+# to keep the script in its time: 2^21 (1.07 GB) took the host's numpy
+# build 51 s, 2^22 (2.1 GB) 92-100 s, 2^23 (4.3 GB) 155-222 s; phase
+# shards splits the same keys into its 16-shard artifact (1.07 GB)
+RESIDENT_LOG2_ROWS = 20
 
 
 def resident_keys(keys, vals, n_total, n_tax, seed=11):
@@ -3522,7 +3552,6 @@ def _cli_session(world, read_length=160, tables=None):
 
 
 def phase_cli(torch, world):
-    from umgap_tpu_torch import kernels
     from umgap_tpu_torch.pipeline.fused import PRESETS
 
     t_phase = time.perf_counter()
@@ -3546,73 +3575,24 @@ def phase_cli(torch, world):
     for preset in PRESETS:  # one sample per preset, one process
         cmd += ["-t", preset, "-1", paths[0], "-2", paths[1], "-o",
                 os.path.join(TMP_DIR, f"{preset}.fa")]
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=600)
-    require(proc.returncode == 0,
-            f"CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
-    # the CLI's program (--read-length 160) in this process: kernel path
-    # with its own launch counts, held to the plain path; the CLI's
-    # records are held to it
-    lens = np.full((n, 2), L, dtype=np.int32)
-    headers = [str(i) for i in range(n)]
-    launches = {}
-    for preset in PRESETS:
-        with open(os.path.join(TMP_DIR, f"{preset}.fa")) as f:
-            got = f.read()
-        kw = dict(batch_size=n, read_length=160)
-        an = _analyser(world, PRESETS[preset], **kw)
-        kernels.reset_launches()
-        taxa = [t for _h, t in an.analyse_arrays(headers, reads, lens)]
-        launches[preset] = kernels.launch_counts()
-        for k in path_kernels(PRESETS[preset]):
-            require(launches[preset][k] > 0, f"CLI {preset}: kernel {k} was "
-                    "not launched at read length 160")
-        plain = [t for _h, t in _analyser(
-            world, PRESETS[preset], plain=True, **kw).analyse_arrays(
-                headers, reads, lens)]
-        require(taxa == plain, f"CLI {preset}: kernel taxa differ from "
-                f"plain taxa at read length 160")
-        want = "".join(f">s{h}\n{t}\n" for h, t in zip(headers, taxa))
-        require(got == want,
-                f"CLI {preset}: records differ from the Analyser's")
-        require(got.count(">") == n, f"CLI {preset}: {got.count('>')} "
-                f"records for {n} groups")
     # tryptic-sensitivity over a peptide index, and a 9-mer index under a
     # tryptic preset, which the command line refuses
-    from umgap_tpu_torch.pipeline.tryptic import TRYPTIC_PRESETS
-
     pindex = os.path.join(TMP_DIR, "tryptic.npz")
     world["ptable"].save(pindex)
     tout = os.path.join(TMP_DIR, "tryptic-sensitivity.fa")
     base = [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
             taxtsv, "-t", "tryptic-sensitivity", "-1", paths[0], "-2",
             paths[1], "--fgspp", "never"]
-    proc = subprocess.run(base + ["--index", pindex, "-o", tout], cwd=REPO,
-                          capture_output=True, text=True, timeout=600)
-    require(proc.returncode == 0,
-            f"CLI tryptic exit {proc.returncode}: {proc.stderr[-2000:]}")
-    cfg = TRYPTIC_PRESETS["tryptic-sensitivity"]
-    an = _analyser(world, cfg, batch_size=n, read_length=160)
-    kernels.reset_launches()
-    taxa = [t for _h, t in an.analyse_arrays(headers, reads, lens)]
-    launches["tryptic-sensitivity"] = kernels.launch_counts()
-    for k in path_kernels(cfg):
-        require(launches["tryptic-sensitivity"][k] > 0, f"CLI tryptic: "
-                f"kernel {k} was not launched at read length 160")
-    plain = [t for _h, t in _analyser(
-        world, cfg, plain=True, batch_size=n, read_length=160).analyse_arrays(
-            headers, reads, lens)]
-    require(taxa == plain, "CLI tryptic: kernel taxa differ from plain")
-    with open(tout) as f:
-        require(f.read() == "".join(f">s{h}\n{t}\n"
-                                    for h, t in zip(headers, taxa)),
-                "CLI tryptic: records differ from the TrypticAnalyser's")
-    proc = subprocess.run(base + ["--index", index, "-o", tout + ".x"],
-                          cwd=REPO, capture_output=True, text=True,
-                          timeout=600)
-    require(proc.returncode == 1 and "needs a peptide" in proc.stderr,
-            f"CLI: a 9-mer index under a tryptic preset gave exit "
-            f"{proc.returncode}: {proc.stderr[-500:]}")
+    # the three command lines side by side (no time of theirs is kept),
+    # while this process runs the programs they are held to
+    procs = _start_all({"9-mer": cmd,
+                        "tryptic": base + ["--index", pindex, "-o", tout],
+                        "refused": base + ["--index", index, "-o",
+                                           tout + ".x"]})
+    try:
+        launches = _cli_checks(world, procs)
+    finally:
+        _stop_all(procs)
     RESULT["phases"]["cli"] = dict(
         groups=n, presets=list(PRESETS) + ["tryptic-sensitivity"],
         launches_L160=launches, seconds=time.perf_counter() - t_phase)
@@ -3620,6 +3600,92 @@ def phase_cli(torch, world):
         "groups, records equal to the Analyser's at read length 160, whose "
         "kernel taxa equal plain; a 9-mer index under a tryptic preset "
         "exits 1")
+
+
+def _start_all(cmds):
+    """Each command line in a subprocess of its own, all started at once:
+    {name: (Popen, start time)} (stdout and stderr to files under
+    TMP_DIR)."""
+    out = {}
+    for name, cmd in cmds.items():
+        fo = open(os.path.join(TMP_DIR, f"proc_{name}.out"), "w")
+        fe = open(os.path.join(TMP_DIR, f"proc_{name}.err"), "w")
+        out[name] = (subprocess.Popen(cmd, cwd=REPO, stdout=fo, stderr=fe),
+                     time.perf_counter(), fo, fe)
+    return out
+
+
+def _wait(procs, name, timeout=600):
+    """(exit code, stderr text, seconds from its start to its end) of one
+    of ``_start_all``'s processes."""
+    p, t0, fo, fe = procs[name]
+    rc = p.wait(timeout=timeout)
+    secs = time.perf_counter() - t0
+    fo.close()
+    fe.close()
+    with open(os.path.join(TMP_DIR, f"proc_{name}.err")) as f:
+        return rc, f.read(), secs
+
+
+def _stop_all(procs):
+    """Kill what is still running of ``_start_all``'s processes."""
+    for p, _t0, fo, fe in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        fo.close()
+        fe.close()
+
+
+def _cli_checks(world, procs):
+    """Phase cli's checks: the CLI's program (--read-length 160) in this
+    process for each 9-mer preset and tryptic-sensitivity, kernel path
+    with its own launch counts, held to the plain path; then, once they
+    end, the command lines' records held to it and the refused one's
+    exit. Returns the launch counts by preset."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.pipeline.fused import PRESETS
+    from umgap_tpu_torch.pipeline.tryptic import TRYPTIC_PRESETS
+
+    n = 4096
+    reads = world["reads"][:n]
+    L = world["L"]
+    lens = np.full((n, 2), L, dtype=np.int32)
+    headers = [str(i) for i in range(n)]
+    kw = dict(batch_size=n, read_length=160)
+    launches, want = {}, {}
+    configs = dict(PRESETS, **{
+        "tryptic-sensitivity": TRYPTIC_PRESETS["tryptic-sensitivity"]})
+    for preset, cfg in configs.items():
+        an = _analyser(world, cfg, **kw)
+        kernels.reset_launches()
+        taxa = [t for _h, t in an.analyse_arrays(headers, reads, lens)]
+        launches[preset] = kernels.launch_counts()
+        for k in path_kernels(cfg):
+            require(launches[preset][k] > 0, f"CLI {preset}: kernel {k} was "
+                    "not launched at read length 160")
+        plain = [t for _h, t in _analyser(
+            world, cfg, plain=True, **kw).analyse_arrays(headers, reads,
+                                                         lens)]
+        require(taxa == plain, f"CLI {preset}: kernel taxa differ from "
+                f"plain taxa at read length 160")
+        want[preset] = "".join(f">s{h}\n{t}\n"
+                               for h, t in zip(headers, taxa))
+    for name in ("9-mer", "tryptic"):
+        rc, err, _s = _wait(procs, name)
+        require(rc == 0, f"CLI {name} exit {rc}: {err[-2000:]}")
+    for preset in configs:
+        with open(os.path.join(TMP_DIR, f"{preset}.fa")) as f:
+            got = f.read()
+        require(got == want[preset],
+                f"CLI {preset}: records differ from the Analyser's")
+        require(got.count(">") == n, f"CLI {preset}: {got.count('>')} "
+                f"records for {n} groups")
+    rc, err, _s = _wait(procs, "refused")
+    require(rc == 1 and "needs a peptide" in err,
+            f"CLI: a 9-mer index under a tryptic preset gave exit "
+            f"{rc}: {err[-500:]}")
+    return launches
 
 
 # ---------------------------------------------------------------------- #
@@ -3955,6 +4021,60 @@ def _sub_socket(index, proteins, want):
                 repeat_s=times[1], log=lines)
 
 
+def _scored_device_ms(torch, world, texts):
+    """Device ms of taxa2agg -s's instances on the phase's records (a row
+    a record, (B, N) padded): K4's weighted call (the kernel and the
+    first-seen ordering of its slots) with the bound 0.7, and K6's ordered
+    hybrid and mrtl on its output beside the unordered instances on the
+    same inputs, each against its bound (_k6_bound); K6's ordered results
+    equal to its plain versions."""
+    from umgap_tpu_torch.agg import device as devagg
+
+    dtax, dev = world["dtax"], world["dev"]
+    D = dtax.geom.shape[1] - 1
+    out = {}
+    for kind, text in texts.items():
+        rows = [[x.split("=") for x in r.split("\n")[1:] if x]
+                for r in text.split(">")[1:]]
+        B, N = len(rows), max(1, max(len(r) for r in rows))
+        taxa = np.zeros((B, N), np.int32)
+        w = np.zeros((B, N), np.float32)
+        for i, r in enumerate(rows):
+            taxa[i, :len(r)] = [int(a) for a, _b in r]
+            w[i, :len(r)] = [float(b) for _a, b in r]
+        t, x = torch.from_numpy(taxa).to(dev), torch.from_numpy(w).to(dev)
+        k_max = int(devagg.dedup_counts(t, x, 64, True)[3].max())
+        k_max = max(k_max, 1) if kind == "wide" else 64
+        k4 = device_ms(torch, lambda: devagg.dedup_counts(
+            t, x, k_max, True, lower_bound=0.7), reps=10)
+        u, c, v, _n = devagg.dedup_counts(t, x, k_max, True, lower_bound=0.7)
+        cell = dict(rows=B, N=N, K=k_max, k4_weighted_call_ms=k4)
+        bounds = _k6_bound(torch, dtax, {"hybrid": devagg.tree_aggregate_hits(
+            "hybrid", dtax, u, c, v, 0.25, ordered=True)}, u, v, D)
+        for strat in ("hybrid", "mrtl"):
+            res = devagg.tree_aggregate_hits(strat, dtax, u, c, v, 0.25,
+                                             ordered=True)
+            compare(torch, f"K6 ordered {strat} ({kind})", res,
+                    devagg.tree_aggregate_hits_plain(strat, dtax, u, c, v,
+                                                     0.25))
+            cell[f"k6_{strat}"] = dict(
+                ordered_ms=device_ms(torch, lambda s=strat: (
+                    devagg.tree_aggregate_hits(s, dtax, u, c, v, 0.25,
+                                               ordered=True)), reps=10),
+                unordered_ms=device_ms(torch, lambda s=strat: (
+                    devagg.tree_aggregate_hits(s, dtax, u, c, v, 0.25)),
+                    reps=10),
+                bound_ms=bounds[strat][0])
+        out[kind] = cell
+        log(f"subcommands: taxa2agg -s device ms ({kind}, B={B}, N={N}, "
+            f"K={k_max}): K4 weighted call {k4:.4f}; " + ", ".join(
+                f"K6 {s} ordered {cell['k6_' + s]['ordered_ms']:.4f} / "
+                f"unordered {cell['k6_' + s]['unordered_ms']:.4f} (bound "
+                f"{cell['k6_' + s]['bound_ms']:.4f})"
+                for s in ("hybrid", "mrtl")))
+    return out
+
+
 def phase_subcommands(torch, world):
     """The reference's stream subcommands on the card, in this process
     (``cli.main``), over SUB_PAIRS bench pairs as FASTA and the bench
@@ -4092,6 +4212,10 @@ def phase_subcommands(torch, world):
             phase["taxa2agg_scored"][f"{key} {kind}"] = dict(
                 records=out.count(">"), seconds=dt, plain_seconds=plain_s)
 
+    phase["scored_device_ms"] = _scored_device_ms(torch, world,
+                                                   {"narrow": narrow,
+                                                    "wide": wide})
+
     # pept2lca -o on the bench peptide index: K8
     pindex = os.path.join(TMP_DIR, "tryptic.npz")
     if not os.path.exists(pindex):
@@ -4136,6 +4260,459 @@ def phase_subcommands(torch, world):
     return phase["launches"]
 
 
+# ---------------------------------------------------------------------- #
+# Phase 5b: buildindex-dist, its join and split on the card
+# ---------------------------------------------------------------------- #
+
+BUILD_ROWS = "1.6e8"  # synthetic rows: about 10^8 keys, 2.15 GB of shards
+BUILD_SHARDS = 16
+BUILD_WORKERS = 2
+BUILD_PROBES = 1_000_000
+BUILD_TSV_BYTES = 40 << 20
+BUILD_SMALL_ROWS = 300_000
+BUILD_K6_CHECK = 65_536  # groups of each K6 launch held to K6's plain
+BUILD_PLAIN_PROCS = 6  # the plain join of shard 0 in this many key ranges
+# the wide joins: shard rows beside groups of 65-300 distinct taxa (in
+# BUILD_PIECES key-range pieces) and beside one group of BUILD_WIDE_TAXA,
+# past K6's shared memory (17,920), in two
+BUILD_MID_ROWS = 1_000_000
+BUILD_MID_WIDTHS = (65, 97, 160, 233, 300)
+BUILD_PIECES = 3
+BUILD_WIDE_ROWS = 100_000
+BUILD_WIDE_TAXA = 20_000
+BUILD_WIDE_DEPTH = 4  # the member that the hybrid walk reaches
+
+# the plain join (numpy) of one .npz of rows, in a process of its own
+PLAIN_JOIN = (
+    "import sys, numpy as np; sys.path.insert(0, sys.argv[1]); "
+    "from umgap_tpu_torch.index.scale import join_kmers_sorted_plain; "
+    "from umgap_tpu_torch.taxonomy import Taxonomy, read_taxa_file; "
+    "z = np.load(sys.argv[3]); "
+    "k, v = join_kmers_sorted_plain(z['keys'], z['tids'], "
+    "Taxonomy(read_taxa_file(sys.argv[2]))); "
+    "np.savez(sys.argv[4], keys=k, values=v)")
+
+
+def _build_tsv(path, n_bytes, seed=37):
+    """A seeded (taxid TAB protein) TSV of about ``n_bytes``: proteins of
+    9-35,000 residues (most below 2,000), taxids of the synthetic
+    taxonomy (1-200,000)."""
+    rng = np.random.default_rng(seed)
+    aas = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    lines, size = [], 0
+    while size < n_bytes:
+        n = int(rng.integers(9, 35_001)) if rng.random() < 0.01 else \
+            int(rng.integers(9, 2_000))
+        line = b"%d\t%s\n" % (int(rng.integers(1, 200_001)),
+                              aas[rng.integers(0, 20, size=n)].tobytes())
+        lines.append(line)
+        size += len(line)
+    with open(path, "wb") as f:
+        f.write(b"".join(lines))
+    return path
+
+
+def _taxa_group(tax, rng, n, deep=None):
+    """One random key's rows over ``n`` distinct taxa that are their own
+    valid ancestor, 1-3 rows each, under the depth-2 node with the most
+    of them; with ``deep``, a member at that depth takes 19 times the
+    others' rows, so that hybrid f = 0.95 walks down to it. Returns
+    (uint64 keys, int64 taxids)."""
+    ids = np.flatnonzero(tax.present & (tax.snapping(ranked_only=False)
+                                        == np.arange(tax.size)))
+    ids = ids[tax.depth[ids] > 2]
+    top = tax.anc_table[ids, 2]
+    ids = ids[top == np.bincount(top).argmax()]
+    require(len(ids) >= n, f"builddist: {len(ids)} taxa under one node, "
+            f"fewer than {n}")
+    members = rng.choice(ids, size=n, replace=False)
+    reps = rng.integers(1, 4, size=n)
+    if deep is not None:
+        at = np.flatnonzero(tax.depth[members] == deep)
+        require(len(at) > 0, f"builddist: no member at depth {deep}")
+        reps[at[0]] = 19 * int(reps.sum())
+    key = np.uint64(rng.integers(0, 1 << 45))
+    return (np.full(int(reps.sum()), key, np.uint64),
+            np.repeat(members, reps).astype(np.int64))
+
+
+def _inprocess_drive(work, device, **kw):
+    """distbuild.drive with each stage's tasks run in this process (the
+    workers' own code, worker_main), on ``device``."""
+    from umgap_tpu_torch.index import distbuild
+
+    def run_stage(workdir, task, pending, workers, dev=None):
+        distbuild.worker_main(workdir, task, ",".join(map(str, pending)),
+                              device=device)
+        return []
+
+    saved = distbuild._run_stage
+    distbuild._run_stage = run_stage
+    try:
+        return distbuild.drive(work, device=device, **kw)
+    finally:
+        distbuild._run_stage = saved
+
+
+def _same_workdir(a, b):
+    """Both build directories hold the same files, .npz arrays equal."""
+    rel = lambda w: sorted(os.path.relpath(os.path.join(r, n), w)
+                           for r, _d, ns in os.walk(w) for n in ns)
+    fa = [f for f in rel(a) if f != "manifest.json"]
+    require(fa == [f for f in rel(b) if f != "manifest.json"],
+            f"builddist: {a} and {b} hold other files")
+    for f in fa:
+        if f.endswith(".npz"):
+            za, zb = np.load(os.path.join(a, f)), np.load(os.path.join(b, f))
+            require(sorted(za.files) == sorted(zb.files) and all(
+                za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k])
+                for k in za.files), f"builddist: {f} differs")
+
+
+def _k6_spy(devagg):
+    """Replace tree_aggregate_hits by a wrapper that keeps each call's
+    arguments; returns (calls, restore)."""
+    calls, k6 = [], devagg.tree_aggregate_hits
+
+    def spy(*args, **kw):
+        calls.append(args)
+        return k6(*args, **kw)
+
+    devagg.tree_aggregate_hits = spy
+    return calls, lambda: setattr(devagg, "tree_aggregate_hits", k6)
+
+
+def _builddist_on_card(torch, dev, work, tax, dtax, calls, inputs, packed,
+                       keys, vals, rng):
+    """Phase builddist's card work while the plain joins run: K6's calls
+    of shard 0's join timed (device ms, bound) and their first
+    BUILD_K6_CHECK groups held to K6's plain version; the mid and wide
+    rows joined on the card in key-range pieces; BUILD_PROBES keys of the
+    shard probed through the grouped table against the card join's
+    values. Returns (K6 cells, K6 device ms, K6 bound ms, {name: ((keys,
+    values), stats)} of the wide joins, the probe's stats)."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.agg import device as devagg
+    from umgap_tpu_torch.index import distbuild, scale
+    from umgap_tpu_torch.ops import kmers, lookup
+    from umgap_tpu_torch.parallel import ShardedTable
+
+    D = dtax.geom.shape[1] - 1
+    k6 = devagg.tree_aggregate_hits
+    k6_cells, k6_ms, k6_bound = [], 0.0, 0.0
+    for args in calls:
+        u, c, v = args[2:5]
+        fn = (lambda a=args: k6(*a))
+        res = k6("hybrid", dtax, u, c, v, args[5])
+        b, _by = _k6_bound(torch, dtax, {"hybrid": res}, u, v, D)["hybrid"]
+        ms = device_ms(torch, fn, reps=5)
+        n = min(BUILD_K6_CHECK, u.shape[0])
+        sl = [a[:n] if torch.is_tensor(a) and a.dim() == 2 else a
+              for a in args]
+        compare(torch, f"K6 on the join's (G={u.shape[0]}, K={u.shape[1]})",
+                k6(*sl), devagg.tree_aggregate_hits_plain(*sl))
+        k6_cells.append(dict(groups=u.shape[0], K=u.shape[1],
+                             device_ms=ms, bound_ms=b))
+        k6_ms += ms
+        k6_bound += b
+
+    # the wide joins on the card, in key-range pieces
+    wide_out = {}
+    for name, pieces in (("mid", BUILD_PIECES), ("wide", 2)):
+        k, t = inputs[name]
+        rows = -(-len(k) // pieces)
+        require(len(scale.piece_bounds(k, rows)) >= 1,
+                f"builddist: the {name} rows were not cut in pieces")
+        wcalls, restore = _k6_spy(devagg)
+        try:
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = scale.join_kmers_sorted(k, t, tax, device=dev, dtax=dtax,
+                                          piece_rows=rows)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n_k6 = kernels.launch_counts()["tree_aggregate"]
+        finally:
+            restore()
+        widths = sorted({int(a[2].shape[1]) for a in wcalls})
+        require(n_k6 == len(wcalls) > 0, f"builddist: the {name} join "
+                f"launched K6 {n_k6} times, {len(wcalls)} calls")
+        # K6's block path (K > 64): each such launch's device ms and bound
+        block = [dict(groups=int(a[2].shape[0]), K=int(a[2].shape[1]),
+                      device_ms=device_ms(torch, lambda a=a: k6(*a), reps=5),
+                      bound_ms=_k6_bound(torch, dtax, {"hybrid": k6(*a)},
+                                         a[2], a[4], D)["hybrid"][0])
+                 for a in wcalls if a[2].shape[1] > 64]
+        wide_out[name] = (got, dict(rows=len(k), pieces=pieces,
+                                    keys=len(got[0]), seconds=secs,
+                                    k6_launches=n_k6, k6_widths=widths,
+                                    k6_block=block))
+    require(any(64 < w <= 300 for w in wide_out["mid"][1]["k6_widths"]),
+            "builddist: no K6 launch took the groups of 65-300 taxa")
+    require(max(wide_out["wide"][1]["k6_widths"]) >= BUILD_WIDE_TAXA
+            and devagg.tree_scratch_bytes(1, BUILD_WIDE_TAXA) > 0,
+            "builddist: no K6 launch took the wide group in its scratch")
+
+    # BUILD_PROBES keys of shard 0's rows through the grouped table
+    stable = ShardedTable.from_shards(distbuild.load_shards(work, mmap=True),
+                                      dev)
+    q = packed[rng.integers(0, len(packed), size=BUILD_PROBES)]
+    hi, lo = kmers.split_packed(q)
+    at = np.minimum(np.searchsorted(keys, q), len(keys) - 1)
+    hit = keys[at] == q
+    want = np.where(hit, vals[at], 0).astype(np.int32)
+    kernels.reset_launches()
+    got, found = lookup.probe(stable.table,
+                              torch.from_numpy(hi).to(dev),
+                              torch.from_numpy(lo).to(dev), None, 0)
+    require(kernels.K2.launches > 0, "builddist: the probe launched no K2")
+    require(np.array_equal(got.cpu().numpy(), want) and np.array_equal(
+        found.cpu().numpy(), hit), "builddist: probed values differ from "
+            "the card join's")
+    probe = dict(keys=BUILD_PROBES, found=int(hit.sum()), group=stable.group)
+    del stable
+    torch.cuda.empty_cache()
+    return k6_cells, k6_ms, k6_bound, wide_out, probe
+
+
+
+def phase_builddist(torch, world):
+    """``python -m umgap_tpu_torch buildindex-dist --synthetic 1.6e8
+    --shards 16 --workers 2`` on the card in a subprocess, as users run it
+    (each stage's seconds, the artifact's GB, the host's peak resident
+    memory of its processes), with nothing else running. Then in this
+    process, on shard 0 of it: the card join (sort, K6) equal to the
+    worker's and, once the job is over, to the plain (numpy) join run in
+    BUILD_PLAIN_PROCS processes over key ranges of the shard; K6's
+    launches, device ms against their bound, each launch's first
+    BUILD_K6_CHECK groups equal to K6's plain version; the card join of
+    shard rows beside groups of 65-300 distinct taxa (in BUILD_PIECES
+    key-range pieces) and beside one group of BUILD_WIDE_TAXA (K6's
+    global scratch, in two pieces), each equal to the plain join;
+    BUILD_PROBES keys drawn from the shard's rows probed through
+    ShardedTable.from_shards (K2's grouped entry) equal to the plain
+    join's values; a seeded TSV of ~40 MB (proteins of 9-35,000
+    residues) split on the card (K1P's launches and device ms against
+    their bound) equal to the plain split; and builds of BUILD_SMALL_ROWS
+    synthetic rows and of a TSV on the card equal to --device cpu builds,
+    array for array."""
+    import glob
+
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.agg import device as devagg
+    from umgap_tpu_torch.index import distbuild, scale
+    from umgap_tpu_torch.ops import kmers
+    from umgap_tpu_torch.taxonomy import Taxonomy, read_taxa_file
+
+    t_phase = time.perf_counter()
+    dev = world["dev"]
+    root = os.path.join(TMP_DIR, "builddist")
+    os.makedirs(root)
+    work = os.path.join(root, "work")
+    phase = {}
+
+    # the job in a subprocess; a wrapper reports its processes' peak RSS
+    wrapper = ("import resource, subprocess, sys; "
+               "rc = subprocess.call(sys.argv[1:]); "
+               "print('MAXRSS_KB', resource.getrusage("
+               "resource.RUSAGE_CHILDREN).ru_maxrss, file=sys.stderr); "
+               "sys.exit(rc)")
+    cmd = [sys.executable, "-c", wrapper, sys.executable, "-m",
+           "umgap_tpu_torch", "buildindex-dist", "--workdir", work,
+           "--synthetic", BUILD_ROWS, "--shards", str(BUILD_SHARDS),
+           "--workers", str(BUILD_WORKERS)]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.perf_counter()
+    with open(os.path.join(root, "job.out"), "w") as fo, \
+            open(os.path.join(root, "job.err"), "w") as fe:
+        proc = subprocess.run(cmd, cwd=REPO, env=env, stdout=fo, stderr=fe)
+    job_s = time.perf_counter() - t0
+    err = open(os.path.join(root, "job.err")).read()
+    require(proc.returncode == 0, f"builddist: the job exit "
+            f"{proc.returncode}: {err[-2000:]}")
+    job = json.loads(open(os.path.join(root, "job.out")).read())
+    maxrss = [ln for ln in err.splitlines() if ln.startswith("MAXRSS_KB")]
+    shard_bytes = sum(os.path.getsize(os.path.join(work, "shards", f))
+                      for f in os.listdir(os.path.join(work, "shards"))
+                      if f.endswith(".npz"))
+    phase["job"] = dict(
+        command=" ".join(cmd[3:]), seconds=job_s, n_keys=job["n_keys"],
+        capacity=job["capacity"], stages_s=job["timings_s"],
+        artifact_gb=shard_bytes / 1e9,
+        host_peak_rss_gb=int(maxrss[-1].split()[1]) * 1024 / 1e9)
+    log(f"builddist: {job['n_keys']} keys in {BUILD_SHARDS} shards "
+        f"({shard_bytes / 1e9:.2f} GB) in {job_s:.1f}s, stages "
+        f"{job['timings_s']}; host peak RSS "
+        f"{phase['job']['host_peak_rss_gb']:.2f} GB (largest process)")
+
+    # shard 0 in this process: the card join against the worker's
+    taxons = os.path.join(work, "taxons.tsv")
+    tax = Taxonomy(read_taxa_file(taxons))
+    dtax = devagg.DeviceTaxonomy.from_host(tax, dev)
+    parts = [np.load(p) for p in sorted(
+        glob.glob(os.path.join(work, "part", "c*_s000.npz")))]
+    packed = np.concatenate([z["keys"] for z in parts])
+    tids = np.concatenate([z["tids"] for z in parts]).astype(np.int64)
+    calls, restore = _k6_spy(devagg)
+    try:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keys, vals = scale.join_kmers_sorted(packed, tids, tax, device=dev,
+                                             dtax=dtax)
+        torch.cuda.synchronize()
+        join_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        restore()
+    require(launches["tree_aggregate"] == len(calls) > 0, f"builddist: the "
+            f"join launched K6 {launches['tree_aggregate']} times, "
+            f"{len(calls)} calls")
+    wz = np.load(os.path.join(work, "joined", "s000.npz"))
+    require(np.array_equal(wz["keys"], keys) and np.array_equal(
+        wz["values"], vals), "builddist: the worker's join of shard 0 "
+            "differs from this process's")
+
+    # the plain joins, each in a process of its own, while the card
+    # works below: shard 0 in key ranges (no group spans two), and the
+    # rows of the wide joins
+    rng = np.random.default_rng(43)
+    mid = [_taxa_group(tax, rng, w) for w in BUILD_MID_WIDTHS]
+    wide = _taxa_group(tax, rng, BUILD_WIDE_TAXA, deep=BUILD_WIDE_DEPTH)
+    inputs = {
+        "mid": (np.concatenate([packed[:BUILD_MID_ROWS]]
+                               + [g[0] for g in mid]),
+                np.concatenate([tids[:BUILD_MID_ROWS]]
+                               + [g[1] for g in mid])),
+        "wide": (np.concatenate([packed[-BUILD_WIDE_ROWS:], wide[0]]),
+                 np.concatenate([tids[-BUILD_WIDE_ROWS:], wide[1]]))}
+    cut = np.quantile(packed[::16], np.arange(1, BUILD_PLAIN_PROCS)
+                      / BUILD_PLAIN_PROCS).astype(np.uint64)
+    piece = np.searchsorted(cut, packed, side="right")
+    for i in range(BUILD_PLAIN_PROCS):
+        inputs[f"s000_{i}"] = (packed[piece == i], tids[piece == i])
+    del piece
+    plains = {}
+    for name, (k, t) in inputs.items():
+        src = os.path.join(root, f"rows_{name}.npz")
+        np.savez(src, keys=k, tids=t)
+        out = os.path.join(root, f"plain_{name}.npz")
+        plains[name] = (out, subprocess.Popen(
+            [sys.executable, "-c", PLAIN_JOIN, REPO, taxons, src, out],
+            cwd=REPO, env=env))
+
+    try:
+        stats = _builddist_on_card(torch, dev, work, tax, dtax, calls,
+                                   inputs, packed, keys, vals, rng)
+        t0 = time.perf_counter()
+        for name, (out, p) in plains.items():
+            require(p.wait() == 0,
+                    f"builddist: the plain join of {name} failed")
+        plain_wait_s = time.perf_counter() - t0
+    finally:
+        for _out, p in plains.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    k6_cells, k6_ms, k6_bound, wide_out, phase["probe"] = stats
+
+    # the plain joins' results
+    pz = [np.load(plains[f"s000_{i}"][0]) for i in range(BUILD_PLAIN_PROCS)]
+    pk = np.concatenate([z["keys"] for z in pz])
+    require(np.array_equal(keys, pk) and keys.dtype == pk.dtype
+            and np.array_equal(vals, np.concatenate([z["values"]
+                                                     for z in pz])),
+            "builddist: the card join of shard 0 differs from the plain "
+            "join")
+    for name, ((gk, gv), st) in wide_out.items():
+        z = np.load(plains[name][0])
+        require(np.array_equal(gk, z["keys"]) and gk.dtype == z["keys"].dtype
+                and np.array_equal(gv, z["values"]), f"builddist: the card "
+                f"join of the {name} rows differs from the plain join")
+        phase[f"join_{name}"] = st
+    phase["join"] = dict(
+        rows=len(packed), keys=len(keys), seconds=join_s,
+        plain_wait_s=plain_wait_s,
+        k6=dict(launches=launches["tree_aggregate"], device_ms=k6_ms,
+                bound_ms=k6_bound, cells=k6_cells))
+    log(f"builddist: shard 0's join on the card ({len(packed)} rows -> "
+        f"{len(keys)} keys) {join_s:.2f}s = plain = the worker's; K6 "
+        f"{launches['tree_aggregate']} launches, {k6_ms:.4f} ms device "
+        f"against {k6_bound:.4f} ms bound; with groups of 65-300 taxa "
+        f"{phase['join_mid']} and of {BUILD_WIDE_TAXA} "
+        f"{phase['join_wide']}, = plain (waited {plain_wait_s:.1f}s)")
+
+    # a seeded TSV split on the card against the plain split
+    tsv = _build_tsv(os.path.join(root, "prot.tsv"), BUILD_TSV_BYTES)
+    p2k, k1p_calls = kmers.proteins_to_kmers, []
+
+    def k1p_spy(*args, **kw):
+        k1p_calls.append(args)
+        return p2k(*args, **kw)
+
+    kmers.proteins_to_kmers = k1p_spy
+    try:
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = distbuild.read_tsv_chunk(tsv, 0, os.path.getsize(tsv), 9, dev)
+        split_s = time.perf_counter() - t0
+        k1p_launches = kernels.K1P.launches
+    finally:
+        kmers.proteins_to_kmers = p2k
+    with open(tsv, "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    prow = scale.split_kmers_tsv_plain(data)
+    plain_split_s = time.perf_counter() - t0
+    require(k1p_launches == len(k1p_calls) > 0, "builddist: the split "
+            "launched no K1P")
+    require(all(np.array_equal(a, b) and a.dtype == b.dtype
+                for a, b in zip(rows, prow)), "builddist: the card split "
+            "differs from the plain split")
+    k1p_ms = k1p_bound = 0.0
+    for aa, ln, *rest in k1p_calls:
+        N, P = aa.shape
+        W = max(P - 8, 1)
+        k1p_ms += device_ms(torch, lambda a=aa, n=ln: p2k(a, n), reps=5)
+        k1p_bound += bound(N * P + 4 * N + N * W * 9, N * W * 9 * 2)[0]
+    phase["split"] = dict(
+        bytes=len(data), rows=len(prow[0]), seconds=split_s,
+        plain_seconds=plain_split_s,
+        k1p=dict(launches=k1p_launches, device_ms=k1p_ms,
+                 bound_ms=k1p_bound))
+    log(f"builddist: TSV of {len(data) / 1e6:.1f} MB split on the card in "
+        f"{split_s:.2f}s ({len(prow[0])} rows = plain, {plain_split_s:.2f}s)"
+        f"; K1P {k1p_launches} launches, {k1p_ms:.4f} ms device against "
+        f"{k1p_bound:.4f} ms bound")
+
+    # small builds on the card = --device cpu builds
+    small_tsv = os.path.join(root, "small.tsv")
+    with open(small_tsv, "wb") as f:
+        f.write(data[:data.index(b"\n", min(330_000, len(data) - 1)) + 1])
+    small = {}
+    for kind, kw in (("synthetic", dict(tsv=None, taxons=taxons,
+                                        synthetic_rows=BUILD_SMALL_ROWS)),
+                     ("tsv", dict(tsv=small_tsv, taxons=taxons))):
+        ws = {}
+        for d in ("card", "cpu"):
+            ws[d] = os.path.join(root, f"small_{kind}_{d}")
+            t0 = time.perf_counter()
+            m = _inprocess_drive(ws[d], None if d == "card" else "cpu",
+                                 n_shards=4, workers=1, **kw)
+            small[f"{kind}_{d}_s"] = time.perf_counter() - t0
+        _same_workdir(ws["card"], ws["cpu"])
+        small[f"{kind}_keys"] = m["n_keys"]
+    phase["small_builds"] = small
+    log(f"builddist: small builds on the card = --device cpu: {small}")
+    shutil.rmtree(root, ignore_errors=True)
+    phase["card"] = RESULT.get("card")
+    phase["seconds"] = time.perf_counter() - t_phase
+    RESULT["phases"]["builddist"] = phase
+    return phase
+
+
 def _write_shards(shards, work, taxons):
     """A buildindex-dist workdir: each shard packed and uncompressed as
     ``shards/shard_{s:03d}.npz``, its probe depth stamped to the
@@ -4168,7 +4745,7 @@ def _trace_kernels(tdir):
 
 
 def phase_shards(torch, world):
-    """The resident phase's 134 M keys split by the port's owner_of into
+    """The resident phase's 33.5 M keys split by the port's owner_of into
     a 16-shard bucket64s buildindex-dist artifact, written, put on the
     card by ShardedTable.from_shards read into memory (a control) and
     memory-mapped, the host's memory split by mapping during each load; K2's grouped entry
@@ -4326,21 +4903,23 @@ def phase_shards(torch, world):
             "shards_dir": ["--shards", os.path.join(cli_work, "shards"),
                            "--trace-dir", tdir],
             "mesh_index": ["--mesh", "1", "--index", index]}
+    # the three command lines side by side: each one's seconds are from
+    # its start to its end with the others running
+    procs = _start_all({tag: [
+        sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
+        taxtsv, "-t", "high-sensitivity", "-1", paths[0], "-2", paths[1],
+        "--fgspp", "never", "-o", os.path.join(TMP_DIR, f"shards-{tag}.fa"),
+        *flags] for tag, flags in runs.items()})
     cli_s = {}
-    for tag, flags in runs.items():
-        out = os.path.join(TMP_DIR, f"shards-{tag}.fa")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "umgap_tpu_torch", "analyse", "--taxons",
-             taxtsv, "-t", "high-sensitivity", "-1", paths[0], "-2",
-             paths[1], "--fgspp", "never", "-o", out, *flags], cwd=REPO,
-            capture_output=True, text=True, timeout=600)
-        cli_s[tag] = time.perf_counter() - t0
-        require(proc.returncode == 0,
-                f"CLI {tag} exit {proc.returncode}: {proc.stderr[-2000:]}")
-        with open(out, "rb") as f:
-            require(f.read() == want, f"CLI {tag}: records differ from "
-                    "phase cli's --index run")
+    try:
+        for tag in runs:
+            rc, err, cli_s[tag] = _wait(procs, tag)
+            require(rc == 0, f"CLI {tag} exit {rc}: {err[-2000:]}")
+            with open(os.path.join(TMP_DIR, f"shards-{tag}.fa"), "rb") as f:
+                require(f.read() == want, f"CLI {tag}: records differ from "
+                        "phase cli's --index run")
+    finally:
+        _stop_all(procs)
     traced = _trace_kernels(tdir)
     require(any("probe_kernel" in n for n in traced),
             f"--trace-dir: no probe_kmer kernel among {sorted(traced)}")
@@ -6421,7 +7000,7 @@ def sweep_constant(constant, values,
 def tryptic_ab(torch, world):
     """The tryptic path's numbers, by this code on any tree: K7 -> K8 at
     L = 100 and 160 (``_tryptic_chain``: event, device and L2-flushed
-    times, plain, bound), K8 on the resident 1.61 GB index with the L2
+    times, plain, bound), K8 on the resident 0.81 GB index with the L2
     flushed, both tryptic presets' stage tables (device-resident pairs/s)
     and end-to-end pairs/s from arrays, and tryptic-sensitivity's ring
     tier from FASTQ (8 copies of the workload)."""

@@ -24,6 +24,26 @@ DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), ".bench_data")
 
 
+def _first_seen(taxa, out):
+    """umgap_tpu's dedup_counts output (ids ascending) with each row's
+    slots put in first-seen order, as a weighted dedup of the port hands
+    them over (agg/device.py first_seen_order): by each id's first
+    position in the row, padding last."""
+    ut, uc, uv = (np.asarray(a) for a in out[:3])
+    key = np.full(ut.shape, np.iinfo(np.int32).max, np.int64)
+    for b in range(ut.shape[0]):
+        pos = {}
+        for i, t in enumerate(taxa[b].tolist()):
+            if t > 0:
+                pos.setdefault(t, i)
+        for k, t in enumerate(ut[b].tolist()):
+            if t in pos and t != np.iinfo(np.int32).max:
+                key[b, k] = pos[t]
+    perm = np.argsort(key, axis=1, kind="stable")
+    take = lambda a: np.take_along_axis(a, perm, axis=1)
+    return (take(ut), take(uc), take(uv)) + tuple(out[3:])
+
+
 @pytest.mark.parametrize("k_max,weighted", [(4, False), (16, False),
                                             (40, True), (200, False)])
 def test_dedup_counts_matches_jax(k_max, weighted):
@@ -34,6 +54,8 @@ def test_dedup_counts_matches_jax(k_max, weighted):
     w = (rng.integers(0, 4, size=(B, N)).astype(np.float32) if weighted
          else np.ones((B, N), np.float32))
     want = jagg.dedup_counts(taxa, w, k_max, return_nuniq=True)
+    if weighted:
+        want = _first_seen(taxa, want)
     got = pagg.dedup_counts(torch.from_numpy(taxa),
                             torch.from_numpy(w) if weighted else None,
                             k_max, return_nuniq=True)
@@ -66,6 +88,8 @@ def test_dedup_counts_bench_widths_match_jax(N, many):
         w = (rng.integers(0, 4, size=(B, N)).astype(np.float32) if weighted
              else np.ones((B, N), np.float32))
         want = jagg.dedup_counts(taxa, w, k_max, return_nuniq=True)
+        if weighted:
+            want = _first_seen(taxa, want)
         got = pagg.dedup_counts(torch.from_numpy(taxa),
                                 torch.from_numpy(w) if weighted else None,
                                 k_max, return_nuniq=True)
@@ -451,8 +475,8 @@ def test_dedup_lower_bound_matches_jax(N, bound):
     """K4's plain versions with the bound (the warp path's formulation
     and the row kernel's) against umgap_tpu's dedup_counts then
     filter_lower_bound: ids, counts and nuniq as without the bound,
-    uvalid filtered; with and without integer weights, k_max above and
-    below the distinct count."""
+    uvalid filtered; with and without integer weights (then in
+    first-seen order), k_max above and below the distinct count."""
     rng = np.random.default_rng(int(N + 10 * bound))
     B = 40
     n_valid = rng.integers(0, min(N, 400) + 1, size=B)
@@ -463,6 +487,8 @@ def test_dedup_lower_bound_matches_jax(N, bound):
              else np.ones((B, N), np.float32))
         ju, jc, jv, jn = jagg.dedup_counts(taxa, w, k_max, return_nuniq=True)
         want = (ju, jc, jagg.filter_lower_bound(jc, jv, bound), jn)
+        if weighted:
+            want = _first_seen(taxa, want)
         tw = torch.from_numpy(w) if weighted else None
         for fn in (pagg.dedup_counts_plain, pagg.dedup_counts_rows_plain,
                    pagg.dedup_counts):

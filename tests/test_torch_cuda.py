@@ -1840,7 +1840,8 @@ def test_dedup_kernel_weights_in_input_order(dev, N, monkeypatch):
     added in input order, on the warp path, scalar loads (N = 1,003),
     the row kernel, and its scratch rows (shared room cut to 8 KB), with
     few distinct ids a row so that runs are long; against both plain
-    versions and a sequential sum on the host."""
+    versions and a sequential sum on the host; the kept slots in
+    first-seen order."""
     rng = np.random.default_rng(N)
     B = 40
     taxa = rng.integers(0, 7, size=(B, N)).astype(np.int32)
@@ -1859,6 +1860,10 @@ def test_dedup_kernel_weights_in_input_order(dev, N, monkeypatch):
         for b in range(B):
             assert {int(i): np.float32(v) for i, v in zip(u[b], c[b])
                     if i != pagg.I32_MAX} == want[b]
+            # the kept ids (the 8 smallest) in first-seen order
+            kept = sorted(want[b])[:8]
+            assert [int(i) for i in u[b] if i != pagg.I32_MAX] == [
+                t for t in want[b] if t in kept]
 
 
 @pytest.mark.parametrize("N", [25, 45, 52, 96, 97, 420, 4000])
@@ -1889,7 +1894,8 @@ def test_seedextend_scored_mask_kernel(dev, N):
 
 def _ordered_hits(tax, B, K, seed):
     """Filtered hit lists as K4 hands them over for taxa2agg -s: distinct
-    ascending ids (drawn from a few lineages while they last, so that
+    ids, in first-seen order (every other group shuffled; drawn from a
+    few lineages while they last, so that
     branch and ancestry sums meet), counts that are a few non-dyadic
     weights added in float32; groups of 1-5 (the walk in registers and
     the thread path), 16-17, K and a random count of valid slots, every
@@ -1906,6 +1912,8 @@ def _ordered_hits(tax, B, K, seed):
             b % 9])
         pool = lineage if m <= len(lineage) else ids
         sel = np.sort(rng.choice(pool, size=min(m, len(pool)), replace=False))
+        if b % 2:  # first-seen order, as K4's weighted slots come
+            rng.shuffle(sel)
         u[b, :len(sel)] = sel
         for e in range(len(sel)):
             acc = np.float32(0)

@@ -63,6 +63,46 @@ def test_walk_covers_the_subcommands():
         assert rel in walked
 
 
+def test_walk_covers_the_build_job_and_setup():
+    """The build job, its join and split, setup's config dir and the
+    streaming aggregators are walked, and import without a compiler or a
+    card (a kernel is built inside the call that launches it)."""
+    import importlib
+
+    walked = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for mod in ("index.scale", "index.distbuild", "agg.streaming",
+                "configdir"):
+        rel = "umgap_tpu_torch/" + mod.replace(".", "/") + ".py"
+        assert rel in walked
+        importlib.import_module("umgap_tpu_torch." + mod)
+
+
+def test_build_job_needs_a_card_or_an_explicit_cpu(no_card, tmp_path):
+    """buildindex-dist exits 1 with the hint without a card; setup and
+    visualize, host commands, run."""
+    import contextlib
+    import io
+
+    from umgap_tpu_torch.cli import main as port_cli
+
+    tsv = tmp_path / "t.tsv"
+    tsv.write_text("1\troot\tno rank\t1\t\x01\n")
+    cases = ((["buildindex-dist", "--workdir", str(tmp_path / "w"),
+               "--synthetic", "100"], 1),
+             (["buildindex-dist", "--workdir", str(tmp_path / "w"),
+               "--tsv", str(tsv), "--taxons", str(tsv)], 1),
+             (["setup", "-c", str(tmp_path / "c"), "-d", str(tmp_path / "d"),
+               "-v", "1", "--taxons", str(tsv)], 0),
+             (["visualize", "-t", "species", "--taxons", str(tsv),
+               str(tsv)], 0))
+    for argv, rc_want in cases:
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = port_cli(argv, stdin=io.StringIO(""), stdout=out)
+        assert rc == rc_want, (argv, err.getvalue())
+        assert (pdevice.CPU_HINT in err.getvalue()) == (rc_want == 1)
+
+
 def test_subcommands_need_a_card_or_an_explicit_cpu(no_card, tmp_path):
     """The subcommands that run on the card exit 1 with the hint without
     one; the host ones run."""

@@ -129,6 +129,26 @@ def _hit_rows(rng, B, N):
     return taxa
 
 
+def _first_seen(taxa, out):
+    """umgap_tpu's dedup_counts output (ids ascending) with each row's
+    slots put in first-seen order, as a weighted dedup of the port hands
+    them over (agg/device.py first_seen_order): by each id's first
+    position in the row, padding last."""
+    ut, uc, uv = (np.asarray(a) for a in out[:3])
+    key = np.full(ut.shape, np.iinfo(np.int32).max, np.int64)
+    for b in range(ut.shape[0]):
+        pos = {}
+        for i, t in enumerate(taxa[b].tolist()):
+            if t > 0:
+                pos.setdefault(t, i)
+        for k, t in enumerate(ut[b].tolist()):
+            if t in pos and t != np.iinfo(np.int32).max:
+                key[b, k] = pos[t]
+    perm = np.argsort(key, axis=1, kind="stable")
+    take = lambda a: np.take_along_axis(a, perm, axis=1)
+    return (take(ut), take(uc), take(uv)) + tuple(out[3:])
+
+
 @pytest.mark.parametrize("N", [1025, 1944, 3996, 16284, 24576])
 @pytest.mark.parametrize("k_max,weighted", [(64, False), (64, True),
                                             (30000, False), (5, True)])
@@ -142,6 +162,8 @@ def test_dedup_counts_rows_plain_matches_jax(N, k_max, weighted):
     w = (rng.integers(0, 4, size=(B, N)).astype(np.float32) if weighted
          else np.ones((B, N), np.float32))
     want = jagg.dedup_counts(taxa, w, k_max, return_nuniq=True)
+    if weighted:
+        want = _first_seen(taxa, want)
     got = pagg.dedup_counts_rows_plain(
         torch.from_numpy(taxa), torch.from_numpy(w) if weighted else None,
         k_max, return_nuniq=True)
@@ -165,6 +187,8 @@ def test_dedup_counts_rows_plain_cases(N, k_max, weighted, seed, density,
     w = (rng.integers(0, 4, size=(B, N)).astype(np.float32) if weighted
          else np.ones((B, N), np.float32))
     want = jagg.dedup_counts(taxa, w, k_max, return_nuniq=True)
+    if weighted:
+        want = _first_seen(taxa, want)
     got = pagg.dedup_counts_rows_plain(
         torch.from_numpy(taxa), torch.from_numpy(w) if weighted else None,
         k_max, return_nuniq=True)

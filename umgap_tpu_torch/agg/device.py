@@ -140,6 +140,16 @@ def ordered_run_sums(w: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def first_seen_order(utaxa, ucounts, uvalid, first):
+    """A weighted dedup's slots reordered by ``first`` (B, K) int32, each
+    slot's first input position (I32_MAX for padding, which stays last):
+    every row's taxa in first-seen order, as ``umgap_tpu``'s agg/host.py
+    ``count`` keeps them."""
+    perm = torch.sort(first, dim=-1, stable=True).indices
+    return (torch.gather(utaxa, 1, perm), torch.gather(ucounts, 1, perm),
+            torch.gather(uvalid, 1, perm))
+
+
 def dedup_counts_plain(taxa: torch.Tensor, weights, k_max: int,
                        return_nuniq: bool = False,
                        lower_bound: float | None = None):
@@ -148,7 +158,8 @@ def dedup_counts_plain(taxa: torch.Tensor, weights, k_max: int,
     differences of compacted weight prefixes. ``weights=None`` weighs
     every hit 1.0; given weights, a run's total is their sum in input
     order instead (:func:`ordered_run_sums`; the sort is stable), which
-    the prefix differences equal only for integer weights.
+    the prefix differences equal only for integer weights, and the kept
+    slots come in first-seen order (:func:`first_seen_order`).
     ``lower_bound`` then filters the kept runs (:func:`filter_lower_bound`)."""
     B, N = taxa.shape
     dev = taxa.device
@@ -175,17 +186,20 @@ def dedup_counts_plain(taxa: torch.Tensor, weights, k_max: int,
         sk = torch.nn.functional.pad(sk, (0, extra), value=I32_MAX)
         key = torch.nn.functional.pad(key, (0, extra))
         basec = torch.nn.functional.pad(basec, (0, extra))
+    fpos = torch.gather(order, 1, perm[:, :K]).to(torch.int32)
     nxt_filled = sk[:, 1:K + 1] != I32_MAX
     nxt_base = basec[:, 1:K + 1]
     sk, key, base = sk[:, :K], key[:, :K], basec[:, :K]
     cntk = torch.where(nxt_filled, nxt_base, wtot) - base
     filled = sk != I32_MAX
     key = torch.where(filled, key, I32_MAX)
+    fpos = torch.where(filled, fpos, I32_MAX)
     if k_max > N:
         extra = k_max - N
         key = torch.nn.functional.pad(key, (0, extra), value=I32_MAX)
         cntk = torch.nn.functional.pad(cntk, (0, extra))
         filled = torch.nn.functional.pad(filled, (0, extra))
+        fpos = torch.nn.functional.pad(fpos, (0, extra), value=I32_MAX)
     if weights is not None:
         valid = ts != I32_MAX
         sums = ordered_run_sums(ws[valid], first[valid])
@@ -198,6 +212,8 @@ def dedup_counts_plain(taxa: torch.Tensor, weights, k_max: int,
     if lower_bound is not None:
         filled = filter_lower_bound(cntk, filled, lower_bound)
     out = (key.to(torch.int32), cntk, filled)
+    if weights is not None:
+        out = first_seen_order(*out, fpos)
     if return_nuniq:
         return out + (first.sum(dim=-1, dtype=torch.int32),)
     return out
@@ -213,14 +229,15 @@ def dedup_counts_rows_plain(taxa: torch.Tensor, weights, k_max: int,
     head, its rank within its row and its summed weight; a row keeps the
     ranks below ``k_max``. Weighted counts are sums in input order
     (:func:`ordered_run_sums`; the sort is stable), as the kernel adds
-    them. ``lower_bound`` filters the kept runs as in
-    :func:`dedup_counts_plain`."""
+    them, and the kept slots come in first-seen order
+    (:func:`first_seen_order`). ``lower_bound`` filters the kept runs as
+    in :func:`dedup_counts_plain`."""
     B, N = taxa.shape
     dev = taxa.device
     rows, cols = (taxa > 0).nonzero(as_tuple=True)
     ids = taxa[rows, cols].to(torch.int64)
     order = torch.sort((rows << 31) | ids, stable=True).indices
-    rows, ids = rows[order], ids[order]
+    rows, ids, cols = rows[order], ids[order], cols[order]
     w = (torch.ones(len(ids), dtype=torch.float32, device=dev)
          if weights is None
          else weights[(taxa > 0)][order].to(torch.float32))
@@ -248,6 +265,10 @@ def dedup_counts_rows_plain(taxa: torch.Tensor, weights, k_max: int,
     if lower_bound is not None:
         uvalid = filter_lower_bound(ucounts, uvalid, lower_bound)
     out = (utaxa, ucounts, uvalid)
+    if weights is not None:
+        fpos = torch.full((B, k_max), I32_MAX, dtype=torch.int32, device=dev)
+        fpos[r, c] = cols[head][keep].to(torch.int32)
+        out = first_seen_order(*out, fpos)
     return out + (nuniq,) if return_nuniq else out
 
 
@@ -285,7 +306,9 @@ def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
     to the k_max smallest ids. With ``lower_bound``, uvalid is also the
     filter (agg::filter, :func:`filter_lower_bound`): a kept run is valid
     when its count >= the bound; ids, counts and nuniq stay as without
-    it.
+    it. With weights the kept slots come in first-seen order instead
+    (:func:`first_seen_order`), the order in which ``umgap_tpu``'s host
+    aggregators meet a row's taxa and add their scores.
 
     CPU tensors take the plain version; CUDA tensors launch K4 (its warp
     path up to WARP_DEDUP_N hits a row, its row kernel K4R above), which
@@ -308,12 +331,15 @@ def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
     uvalid = torch.empty((B, k_max), dtype=torch.bool, device=dev)
     nuniq = torch.empty((B,), dtype=torch.int32, device=dev)
     wptr = 0 if weights is None else weights.data_ptr()
+    first = (None if weights is None else
+             torch.empty((B, k_max), dtype=torch.int32, device=dev))
+    fptr = 0 if first is None else first.data_ptr()
     lb = float("-inf") if lower_bound is None else float(lower_bound)
     if dedup_path(N) == "warp":
         kernels.K4.launch(taxa.data_ptr(), wptr, B, N, k_max, lb,
                           utaxa.data_ptr(), ucounts.data_ptr(),
                           uvalid.data_ptr(), nuniq.data_ptr(),
-                          kernels.stream_of(taxa))
+                          kernels.stream_of(taxa), fptr)
     else:
         cap, blocks, row_bytes = dedup_rows_layout(N, weights is not None)
         scratch = None
@@ -325,8 +351,10 @@ def dedup_counts(taxa: torch.Tensor, weights, k_max: int,
                            utaxa.data_ptr(), ucounts.data_ptr(),
                            uvalid.data_ptr(), nuniq.data_ptr(),
                            0 if scratch is None else scratch.data_ptr(),
-                           blocks, kernels.stream_of(taxa))
+                           blocks, kernels.stream_of(taxa), fptr)
     out = (utaxa, ucounts, uvalid)
+    if first is not None:
+        out = first_seen_order(*out, first)
     return out + (nuniq,) if return_nuniq else out
 
 
@@ -378,7 +406,9 @@ def exact_sums(c: torch.Tensor) -> bool:
     whatever the order of its adds: integer values whose magnitudes add
     up to at most 2^24 a row, as the pipeline's counts are. Weighted
     counts (taxa2agg -s) need not be, and then the plain aggregators add
-    in the one order of K6's ordered instances (:func:`fold_sum`)."""
+    as ``umgap_tpu``'s host aggregators do, over slots in first-seen
+    order (:func:`np_sum`, :func:`fold_sum`), as K6's ordered instances
+    do."""
     if c.numel() == 0:
         return True
     return bool((c == c.trunc()).all()) and float(
@@ -387,13 +417,65 @@ def exact_sums(c: torch.Tensor) -> bool:
 
 def fold_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last dim in float32 one entry at a time in index
-    order, from 0.0: the order in which K6's ordered instances and
-    ``rmq_mix_batch(..., ordered=True)`` add (elementwise adds, which
-    round alike on the CPU and the card)."""
+    order, from 0.0: how numpy reduces a 2-D array over axis 0, so how
+    ``umgap_tpu``'s RmqRTL adds a score and RmqMix its weights, and how
+    K6's ordered mrtl and ``rmq_mix_batch(..., ordered=True)`` add
+    (elementwise adds, which round alike on the CPU and the card)."""
     s = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
     for k in range(x.shape[-1]):
         s = s + x[..., k]
     return s
+
+
+def _pairwise(x: torch.Tensor) -> torch.Tensor:
+    """numpy's pairwise float32 sum of the last dim (umath's
+    pairwise_sum): below 8 terms one at a time from 0.0; up to 128 eight
+    accumulators over strides of 8, combined as ((r0 + r1) + (r2 + r3))
+    + ((r4 + r5) + (r6 + r7)), then the tail one at a time; past 128 the
+    halves split at n / 2 rounded down to a multiple of 8."""
+    n = x.shape[-1]
+    if n < 8:
+        return fold_sum(x)
+    if n <= 128:
+        m = n - n % 8
+        r = x[..., :8]
+        for i in range(8, m, 8):
+            r = r + x[..., i:i + 8]
+        res = ((r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3])) + \
+            ((r[..., 4] + r[..., 5]) + (r[..., 6] + r[..., 7]))
+        for i in range(m, n):
+            res = res + x[..., i]
+        return res
+    n2 = n // 2
+    n2 -= n2 % 8
+    return _pairwise(x[..., :n2]) + _pairwise(x[..., n2:])
+
+
+def np_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last dim as numpy's ``a.sum(dtype=float32)``
+    adds a 1-D array (its identity 0.0 plus :func:`_pairwise`): how
+    ``umgap_tpu``'s TreeMix adds a group's counts and a branch's."""
+    return torch.zeros((), dtype=x.dtype, device=x.device) + _pairwise(x)
+
+
+def segment_np_sums(values: torch.Tensor, seg: torch.Tensor,
+                    n_seg: int) -> torch.Tensor:
+    """(n_seg,) float32: each segment's :func:`np_sum` over its entries of
+    ``values`` (1-D) in their order there; ``seg`` (int64, same length)
+    names each entry's segment. Segments of one length go together."""
+    dev = values.device
+    out = torch.zeros(n_seg, dtype=torch.float32, device=dev)
+    if values.numel() == 0:
+        return out
+    order = torch.sort(seg, stable=True).indices
+    v = values[order].to(torch.float32)
+    lens = torch.bincount(seg, minlength=n_seg)
+    starts = torch.cumsum(lens, 0) - lens
+    for n in torch.unique(lens[lens > 0]).tolist():
+        ids = torch.nonzero(lens == n, as_tuple=True)[0]
+        idx = starts[ids][:, None] + torch.arange(n, device=dev)
+        out[ids] = np_sum(v[idx])
+    return out
 
 
 def _argmax_tiebreak(utaxa, depth, valid, scores):
@@ -437,18 +519,15 @@ def rtl_plain(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts):
     """Plain version of K6 for MRTL (reference src/rmq/rtl.rs:39-57):
     score of input j = summed counts of inputs that are ancestors-or-self
     of j; argmax. Counts that are not :func:`exact_sums` are added as
-    K6's ordered instances add them: j's ancestors by ascending clamped
-    depth (each depth holds at most one of a group's distinct ids)."""
+    ``umgap_tpu``'s RmqRTL adds them (and K6's ordered instances): j's
+    ancestors one at a time in slot order, first-seen order for a
+    weighted dedup's slots (:func:`fold_sum`)."""
     c = torch.where(geom.valid, ucounts, 0.0)
     terms = torch.where(geom.is_anc, c[:, :, None], 0.0)   # (B, i, j)
     if exact_sums(c):
         scores = terms.sum(dim=1)
     else:
-        B, K, D = geom.lin.shape
-        at = geom.depth.clamp(max=D - 1).long()[:, :, None].expand(B, K, K)
-        by_depth = torch.zeros((B, D, K), dtype=terms.dtype,
-                               device=terms.device).scatter_add_(1, at, terms)
-        scores = fold_sum(by_depth.transpose(1, 2))
+        scores = fold_sum(terms.transpose(1, 2))
     return _argmax_tiebreak(utaxa, geom.depth, geom.valid, scores)
 
 
@@ -460,12 +539,17 @@ def tree_mix_plain(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts,
     its share of the current chain value is >= factor (ties -> smallest
     branch id). Branch sums are taken one depth at a time, a (B, K, K)
     compare each, instead of the JAX package's hoisted (B, D-1, K, K)
-    tensor. Counts that are not :func:`exact_sums` are added in slot
-    order (:func:`fold_sum`), as K6's ordered instances add them."""
+    tensor. Counts that are not :func:`exact_sums` are added as
+    ``umgap_tpu``'s TreeMix adds them (and K6's ordered instances):
+    numpy's pairwise order over the valid slots in slot order, first-seen
+    order for a weighted dedup's slots, and for a branch over its slots
+    below x (:func:`segment_np_sums`)."""
     B, K, D = geom.lin.shape
     dev = utaxa.device
     c = torch.where(geom.valid, ucounts, 0.0)
-    total = (lambda x: x.sum(dim=-1)) if exact_sums(c) else fold_sum
+    if not exact_sums(c):
+        return _tree_mix_ordered(dtax, geom, ucounts, factor)
+    total = (lambda x: x.sum(dim=-1))
     x = torch.full((B,), dtax.root, dtype=torch.int32, device=dev)
     a_base = total(c)
     done = torch.zeros((B,), dtype=torch.bool, device=dev)
@@ -491,6 +575,48 @@ def tree_mix_plain(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts,
         nx = torch.where(descend, torch.where(multi, best_branch, bmin), x)
         a_base = torch.where(descend & multi, maxsum, a_base)
         x = nx.to(torch.int32)
+        done = done | stop
+    return x
+
+
+def _tree_mix_ordered(dtax: DeviceTaxonomy, geom: HitGeometry, ucounts,
+                      factor: float):
+    """:func:`tree_mix_plain` for counts that are not exact sums, adding
+    as TreeMix (umgap_tpu/agg/host.py) adds: a_base is numpy's sum of the
+    valid counts in slot order, a branch's sum numpy's sum of its slots
+    below x in slot order."""
+    B, K, D = geom.lin.shape
+    dev = ucounts.device
+    rows = torch.arange(B, device=dev)[:, None].expand(B, K)
+    valid = geom.valid
+    a_base = segment_np_sums(ucounts[valid], rows[valid], B)
+    x = torch.full((B,), dtax.root, dtype=torch.int32, device=dev)
+    done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    fac = torch.tensor(factor, dtype=torch.float32, device=dev)
+    for d in range(D - 1):
+        branch = geom.lin[:, :, d + 1]
+        below = valid & (branch != NONE) & (geom.lin[:, :, d] == x[:, None])
+        any_below = below.any(dim=-1)
+        if not (any_below & ~done).any():
+            break
+        pairs = torch.stack([rows[below], branch[below].long()], dim=1)
+        keys, inv = torch.unique(pairs, dim=0, return_inverse=True)
+        sums = segment_np_sums(ucounts[below], inv, len(keys))
+        bsum = torch.full((B, K), float("-inf"), dtype=torch.float32,
+                          device=dev)
+        bsum[below] = sums[inv]
+        maxsum = bsum.max(dim=-1).values
+        cand = below & (bsum == maxsum[:, None])
+        best = torch.where(cand, branch, I32_MAX).min(dim=-1).values
+        bmin = torch.where(below, branch, I32_MAX).min(dim=-1).values
+        bmax = torch.where(below, branch, -1).max(dim=-1).values
+        multi = any_below & (bmin != bmax)
+        ratio_breaks = (maxsum / a_base) < fac
+        descend = ~done & any_below & (~multi | ~ratio_breaks)
+        stop = ~done & (~any_below | (multi & ratio_breaks))
+        x = torch.where(descend, torch.where(multi, best, bmin),
+                        x).to(torch.int32)
+        a_base = torch.where(descend & multi, maxsum, a_base)
         done = done | stop
     return x
 
@@ -589,8 +715,11 @@ def tree_aggregate_wide_plain(strategy: str, dtax: DeviceTaxonomy, utaxa,
     scores the entries found (``torch.searchsorted``) at lin_j[d] whose
     clamped depth is d. hybrid: the descent over the valid slots, the
     branch sums of each depth taken over the slots below x, the list
-    cut to x's subtree after each descent. Sums add as K6's ordered
-    instances do (mrtl by depth, hybrid in slot order). ``snap`` as in
+    cut to x's subtree after each descent. Sums add as ``umgap_tpu``'s
+    host aggregators and K6's ordered instances do: hybrid in numpy's
+    pairwise order over slots (:func:`np_sum`), and mrtl, for counts
+    that are not exact sums, one slot at a time in slot order over every
+    valid slot (:func:`fold_sum`). ``snap`` as in
     :func:`tree_aggregate_hits_plain`."""
     if snap is not None:
         return snap_taxa_plain(snap, tree_aggregate_wide_plain(
@@ -613,6 +742,15 @@ def tree_aggregate_wide_plain(strategy: str, dtax: DeviceTaxonomy, utaxa,
             ok = torch.nonzero(ref != NONE)
             out.append(I32_MAX if strategy == "mrtl"
                        else int(ref[int(ok[-1]) if len(ok) else 0]))
+            continue
+        if strategy == "mrtl" and not exact_sums(cnt[None]):
+            rows = geom[ids.clamp(0, size - 1)]
+            lin, dep = rows[:, 1:], rows[:, 0].clamp(min=0)
+            # slot i an ancestor-or-self of slot j: lin_j[dep_i] == id_i
+            anc = lin[:, dep.clamp(max=D - 1)].T == ids[:, None]
+            score = fold_sum(torch.where(anc, cnt[:, None], 0.0).T)
+            out.append(int(_argmax_tiebreak(ids[None], dep[None], torch.ones(
+                (1, len(ids)), dtype=torch.bool, device=dev), score[None])))
             continue
         u, inv = torch.unique(ids, sorted=True, return_inverse=True)
         s = torch.zeros(len(u), dtype=torch.float32, device=dev)
@@ -645,7 +783,7 @@ def _wide_mix(geom, ids, cnt, root: int, fac):
     size, W = geom.shape
     lin = geom[ids.clamp(0, size - 1), 1:]
     x = root
-    a_base = fold_sum(cnt)
+    a_base = np_sum(cnt)
     for d in range(W - 2):
         br = lin[:, d + 1]
         below = (br != NONE) & (lin[:, d] == x)
@@ -654,10 +792,8 @@ def _wide_mix(geom, ids, cnt, root: int, fac):
         bb = br[below]
         if bb.min() != bb.max():
             keys, inv = torch.unique(bb, return_inverse=True)
-            # each branch's counts one at a time in slot order
-            acc = np.zeros(len(keys), np.float32)
-            np.add.at(acc, inv.cpu().numpy(), cnt[below].cpu().numpy())
-            sums = torch.from_numpy(acc).to(cnt.device)
+            # each branch's counts below x in numpy's order over slots
+            sums = segment_np_sums(cnt[below], inv, len(keys))
             mx = sums.max()
             if (mx / a_base) < fac:
                 break
@@ -688,9 +824,10 @@ def tree_aggregate_hits(strategy: str, dtax: DeviceTaxonomy, utaxa, ucounts,
     result at its store. Past K = 64 a block takes each group; lists too
     wide for its shared memory (K > 17,920) go to a scratch of
     :func:`tree_scratch_bytes`. ``ordered``: counts that are not integers
-    (taxa2agg -s), which hybrid and mrtl then add in the plain versions'
-    order (K6's ordered instances); integer counts sum exactly in any
-    order and take the main path's instances."""
+    (taxa2agg -s, slots in first-seen order), which hybrid and mrtl then
+    add as ``umgap_tpu``'s host aggregators and the plain versions do
+    (K6's ordered instances); integer counts sum exactly in any order and
+    take the main path's instances."""
     if utaxa.is_cpu:
         return tree_aggregate_hits_plain(strategy, dtax, utaxa, ucounts,
                                          uvalid, factor, snap)
@@ -820,8 +957,8 @@ def aggregate_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
     ``snap`` (a snap table) the result is snapped as taxa2agg ends: in
     K6's store, or by :func:`snap_taxa` after the Euler/RMQ
     aggregators. ``ordered`` for counts that are not integers (taxa2agg
-    -s): their sums then follow the plain versions' order on the card
-    too."""
+    -s): their sums then follow ``umgap_tpu``'s order, the plain
+    versions', on the card too."""
     key = (method, strategy)
     plain = kernels.plain_selected()
     if key in (("rmq", "lca*"), ("rmq", "hybrid")):

@@ -190,9 +190,10 @@ def rmq_mix_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
     """LCA-closure hybrid in taxon space (exact: the weights depend only
     on ancestor relations): (B,) int32. ``ordered``: counts that are not
     integers (taxa2agg -s), whose sums then add the inputs one at a time
-    in slot order (:func:`~umgap_tpu_torch.agg.device.fold_sum`), so that
-    they round alike on the CPU and the card; integer counts sum exactly
-    in any order."""
+    in slot order (:func:`~umgap_tpu_torch.agg.device.fold_sum`), the
+    first-seen order of a weighted dedup's slots, as ``umgap_tpu``'s
+    RmqMix adds a closure taxon's weights, alike on the CPU and the card;
+    integer counts sum exactly in any order."""
     take, rows_of, along, _anc = gather.active()
     B, K = utaxa.shape
     size = dtax.depth.shape[0]

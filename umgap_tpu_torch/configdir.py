@@ -5,18 +5,22 @@ discovery; the on-disk layout is the same).
 The reference's XDG-based directory discovery
 (scripts/umgap-setup.sh:25-49, umgap-analyse.sh:17-28), its layout
 (``datadir/<version>/<file>`` with symlinks in ``configdir/<version>/``,
-umgap-setup.sh:205-224) and its data-version negotiation (the newest
+umgap-setup.sh:205-224), its data-version negotiation (the newest
 numeric version whose config dir symlinks every needed file,
-umgap-analyse.sh:233-241). Installing data needs the data server, so
-the port leaves ``setup`` to ``umgap_tpu``: both read one layout.
+umgap-analyse.sh:233-241), and ``setup``'s install: local files (the
+offline route) or the data server's, whose calls go through
+``urllib.request.urlopen``. Either package installs what the other
+reads.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Optional
+import shutil
+from typing import Dict, Optional
 
+DATASERVER = "https://unipept.ugent.be/system/umgap"
 FILES = ("taxons.tsv", "tryptic.npz", "ninemer.npz")
 
 
@@ -86,3 +90,57 @@ def discover_version(configdir: str, tryptic: bool = False,
 
 def resolve(configdir: str, version: str, name: str) -> str:
     return os.path.join(configdir, version, name)
+
+
+def latest_server_version(server: str = DATASERVER, timeout: int = 30) -> str:
+    """GET {server}/latest (umgap-setup.sh:168-173). Needs the network."""
+    from urllib import request
+
+    with request.urlopen(f"{server}/latest", timeout=timeout) as res:
+        return res.read().decode().strip()
+
+
+def install(configdir: str, datadir: str, version: str,
+            sources: Dict[str, str], log=None) -> None:
+    """Install artifact files for a version: copy each source into
+    ``datadir/<version>/``, chmod 644, and symlink it from
+    ``configdir/<version>/`` (umgap-setup.sh:205-224). ``sources`` maps
+    artifact names ('taxons.tsv', 'tryptic.npz', 'ninemer.npz') to local
+    paths (the offline route) or http(s) URLs."""
+    os.makedirs(os.path.join(datadir, version), exist_ok=True)
+    os.makedirs(os.path.join(configdir, version), exist_ok=True)
+    for name, src in sources.items():
+        if name not in FILES:
+            raise ValueError(f"unknown artifact {name!r}; expected {FILES}")
+        dst = os.path.join(datadir, version, name)
+        if src.startswith(("http://", "https://")):
+            from urllib import request
+
+            if log:
+                log(f"downloading {src}")
+            with request.urlopen(src, timeout=600) as res, \
+                    open(dst, "wb") as f:
+                shutil.copyfileobj(res, f)
+        else:
+            if log:
+                log(f"installing {src}")
+            shutil.copyfile(src, dst)
+        os.chmod(dst, 0o644)
+        link = os.path.join(configdir, version, name)
+        if os.path.islink(link) or os.path.exists(link):
+            os.unlink(link)
+        # an absolute target: a relative datadir would resolve against
+        # the link's directory and dangle
+        os.symlink(os.path.abspath(dst), link)
+
+
+def sniff_open(path: str, mode: str = "rt"):
+    """Open a file that may be gzipped, by its magic bytes (the reference
+    pipelines take gzipped inputs, umgap-visualize.sh:141)."""
+    with open(path, "rb") as f:
+        magic = f.read(2)
+    if magic == b"\x1f\x8b":
+        import gzip
+
+        return gzip.open(path, mode)
+    return open(path, mode)

@@ -45,6 +45,15 @@
 // read from the row in global memory at those positions, left to
 // right. The unweighted path (the pipeline's) is unchanged.
 //
+// A weighted row's kept runs also write their first input position (the
+// head's, since equal ids sort by position) to `first`, (B, k_max) int32,
+// I32_MAX in the padding: the wrapper orders each row's slots by it, so
+// that K6's ordered instances and the rmq aggregators meet a row's taxa
+// in first-seen order, the order umgap_tpu's host aggregators add in
+// (agg/host.py count keeps it). Only the weighted instances read the
+// pointer, the last kernel parameter, so the unweighted ones compile as
+// before.
+//
 // The lower-bound filter (umgap_tpu/pipeline/fused.py:117
 // filter_lower_bound, the reference's agg::filter) is applied where a
 // run is stored: uvalid = count >= lower_bound, in float32, while the
@@ -234,7 +243,8 @@ __device__ __forceinline__ int warp_emit_runs(
     const int32_t* key, const int32_t* pos, const float* __restrict__ wt,
     int n, int lane, long long o0,
     int k_max, float lb, int32_t* __restrict__ utaxa,
-    float* __restrict__ ucounts, uint8_t* __restrict__ uvalid) {
+    float* __restrict__ ucounts, uint8_t* __restrict__ uvalid,
+    int32_t* __restrict__ first) {
   // per 32-slot chunk c (at most 32 of them): lane c keeps its number
   // of heads and its first head's position
   const int C = (n + 31) >> 5;
@@ -287,6 +297,7 @@ __device__ __forceinline__ int warp_emit_runs(
         utaxa[o0 + r] = v;
         ucounts[o0 + r] = cnt;
         uvalid[o0 + r] = cnt >= lb;
+        if (WEIGHTED) first[o0 + r] = pos[t];
       }
     }
   }
@@ -300,7 +311,8 @@ __global__ void dedup_warp(const int32_t* __restrict__ taxa,
                            int32_t* __restrict__ utaxa,
                            float* __restrict__ ucounts,
                            uint8_t* __restrict__ uvalid,
-                           int32_t* __restrict__ nuniq) {
+                           int32_t* __restrict__ nuniq,
+                           int32_t* __restrict__ first) {
   extern __shared__ unsigned char smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + warp;
@@ -315,11 +327,12 @@ __global__ void dedup_warp(const int32_t* __restrict__ taxa,
   const long long o0 = (long long)row * k_max;
   const int U = warp_emit_runs<WEIGHTED>(
       key, pos, WEIGHTED ? weights + r0 : nullptr, n, lane, o0, k_max, lb,
-      utaxa, ucounts, uvalid);
+      utaxa, ucounts, uvalid, first);
   for (int c = U + lane; c < k_max; c += 32) {
     utaxa[o0 + c] = I32_MAX;
     ucounts[o0 + c] = 0.0f;
     uvalid[o0 + c] = 0;
+    if (WEIGHTED) first[o0 + c] = I32_MAX;
   }
   if (lane == 0) nuniq[row] = U;
 }
@@ -490,7 +503,8 @@ __global__ void __launch_bounds__(T) dedup_rows_kernel(
     const int32_t* __restrict__ taxa, const float* __restrict__ weights,
     int B, int N, int cap, int k_max, float lb, int32_t* __restrict__ utaxa,
     float* __restrict__ ucounts, uint8_t* __restrict__ uvalid,
-    int32_t* __restrict__ nuniq, unsigned char* __restrict__ scratch) {
+    int32_t* __restrict__ nuniq, unsigned char* __restrict__ scratch,
+    int32_t* __restrict__ fpos) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_n, s_u;
   __shared__ int s_cnt[T / 32];
@@ -515,7 +529,7 @@ __global__ void __launch_bounds__(T) dedup_rows_kernel(
         warp_sort<WEIGHTED>(s_key, s_pos, n, lane);
         const int U = warp_emit_runs<WEIGHTED>(s_key, s_pos, wt, n, lane,
                                                row * k_max, k_max, lb, utaxa,
-                                               ucounts, uvalid);
+                                               ucounts, uvalid, fpos);
         if (lane == 0) {
           s_u = U;
           nuniq[row] = U;
@@ -526,6 +540,7 @@ __global__ void __launch_bounds__(T) dedup_rows_kernel(
         utaxa[row * k_max + c] = I32_MAX;
         ucounts[row * k_max + c] = 0.0f;
         uvalid[row * k_max + c] = 0;
+        if (WEIGHTED) fpos[row * k_max + c] = I32_MAX;
       }
       __syncthreads();  // the next row reuses the buffers, s_n and s_u
       continue;
@@ -593,6 +608,7 @@ __global__ void __launch_bounds__(T) dedup_rows_kernel(
           utaxa[o0 + rank] = key[h];
           ucounts[o0 + rank] = cnt;
           uvalid[o0 + rank] = cnt >= lb;
+          if (WEIGHTED) fpos[o0 + rank] = pos[h];
         }
         ++rank;
       }
@@ -602,6 +618,7 @@ __global__ void __launch_bounds__(T) dedup_rows_kernel(
       utaxa[o0 + c] = I32_MAX;
       ucounts[o0 + c] = 0.0f;
       uvalid[o0 + c] = 0;
+      if (WEIGHTED) fpos[o0 + c] = I32_MAX;
     }
     if (tid == 0) nuniq[row] = U;
     __syncthreads();  // the next row reuses the buffers and s_n
@@ -619,12 +636,12 @@ template <int T, bool VEC, bool WEIGHTED>
 cudaError_t launch_rows_t(const int32_t* t, const float* w, int B, int N,
                           int k_max, float lb, int cap, int32_t* ut, float* uc,
                           uint8_t* uv, int32_t* nu, unsigned char* scratch,
-                          int blocks, cudaStream_t s) {
+                          int blocks, int32_t* fs, cudaStream_t s) {
   const size_t smem = (size_t)cap * (WEIGHTED ? 8 : 4);
   const cudaError_t e = allow_smem(dedup_rows_kernel<T, VEC, WEIGHTED>, smem);
   if (e != cudaSuccess) return e;
   dedup_rows_kernel<T, VEC, WEIGHTED><<<blocks, T, smem, s>>>(
-      t, w, B, N, cap, k_max, lb, ut, uc, uv, nu, scratch);
+      t, w, B, N, cap, k_max, lb, ut, uc, uv, nu, scratch, fs);
   return cudaSuccess;
 }
 
@@ -632,22 +649,25 @@ template <bool VEC, bool WEIGHTED>
 cudaError_t launch_rows(const int32_t* t, const float* w, int B, int N,
                         int k_max, float lb, int cap, int32_t* ut, float* uc,
                         uint8_t* uv, int32_t* nu, unsigned char* scratch,
-                        int blocks, cudaStream_t s) {
+                        int blocks, int32_t* fs, cudaStream_t s) {
   if (N <= kRowThreadsN1)
     return launch_rows_t<128, VEC, WEIGHTED>(t, w, B, N, k_max, lb, cap, ut,
-                                             uc, uv, nu, scratch, blocks, s);
+                                             uc, uv, nu, scratch, blocks, fs,
+                                             s);
   if (N <= kRowThreadsN2)
     return launch_rows_t<256, VEC, WEIGHTED>(t, w, B, N, k_max, lb, cap, ut,
-                                             uc, uv, nu, scratch, blocks, s);
+                                             uc, uv, nu, scratch, blocks, fs,
+                                             s);
   return launch_rows_t<512, VEC, WEIGHTED>(t, w, B, N, k_max, lb, cap, ut,
-                                           uc, uv, nu, scratch, blocks, s);
+                                           uc, uv, nu, scratch, blocks, fs,
+                                           s);
 }
 
 template <bool VEC, bool WEIGHTED>
 cudaError_t launch_warp(const int32_t* taxa, const float* weights, int B,
                         int N, int k_max, float lb, int32_t* utaxa,
                         float* ucounts, uint8_t* uvalid, int32_t* nuniq,
-                        cudaStream_t s) {
+                        int32_t* fs, cudaStream_t s) {
   const int M = pow2_at_least(N, 32);
   const size_t smem =
       (size_t)kWarpsPerBlock * M * (WEIGHTED ? 8 : 4);
@@ -655,7 +675,8 @@ cudaError_t launch_warp(const int32_t* taxa, const float* weights, int B,
   if (e != cudaSuccess) return e;
   const int blocks = (B + kWarpsPerBlock - 1) / kWarpsPerBlock;
   dedup_warp<VEC, WEIGHTED><<<blocks, kWarpsPerBlock * 32, smem, s>>>(
-      taxa, weights, B, N, M, k_max, lb, utaxa, ucounts, uvalid, nuniq);
+      taxa, weights, B, N, M, k_max, lb, utaxa, ucounts, uvalid, nuniq,
+      fs);
   return cudaSuccess;
 }
 
@@ -671,8 +692,11 @@ extern "C" const char* umgap_cuda_error_string(int code) {
 extern "C" int dedup_counts(const void* taxa, const void* weights, int B,
                             int N, int k_max, float lb, void* utaxa,
                             void* ucounts, void* uvalid, void* nuniq,
-                            void* stream) {
+                            void* stream, void* first) {
   if (B <= 0) return 0;
+  if (weights != nullptr && first == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int32_t* fs = (int32_t*)first;
   const int32_t* t = (const int32_t*)taxa;
   const float* w = (const float*)weights;
   int32_t* ut = (int32_t*)utaxa;
@@ -686,13 +710,17 @@ extern "C" int dedup_counts(const void* taxa, const void* weights, int B,
   const bool vec = N % 4 == 0 && ((uintptr_t)t & 15) == 0 &&
                    (w == nullptr || ((uintptr_t)w & 15) == 0);
   if (vec && w)
-    e = launch_warp<true, true>(t, w, B, N, k_max, lb, ut, uc, uv, nu, s);
+    e = launch_warp<true, true>(t, w, B, N, k_max, lb, ut, uc, uv, nu, fs,
+                                   s);
   else if (vec)
-    e = launch_warp<true, false>(t, w, B, N, k_max, lb, ut, uc, uv, nu, s);
+    e = launch_warp<true, false>(t, w, B, N, k_max, lb, ut, uc, uv, nu, fs,
+                                   s);
   else if (w)
-    e = launch_warp<false, true>(t, w, B, N, k_max, lb, ut, uc, uv, nu, s);
+    e = launch_warp<false, true>(t, w, B, N, k_max, lb, ut, uc, uv, nu, fs,
+                                   s);
   else
-    e = launch_warp<false, false>(t, w, B, N, k_max, lb, ut, uc, uv, nu, s);
+    e = launch_warp<false, false>(t, w, B, N, k_max, lb, ut, uc, uv, nu, fs,
+                                   s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -701,7 +729,7 @@ extern "C" int dedup_counts_packed(const void* args) {
   const PackedArgs a{(const unsigned char*)args};
   return dedup_counts(a.ptr(0), a.ptr(1), (int)a.i(2), (int)a.i(3),
                       (int)a.i(4), (float)a.d(5), a.ptr(6), a.ptr(7),
-                      a.ptr(8), a.ptr(9), a.ptr(10));
+                      a.ptr(8), a.ptr(9), a.ptr(10), a.ptr(11));
 }
 
 // The row kernel, one block a row, for rows of any N (the wrapper takes
@@ -712,13 +740,15 @@ extern "C" int dedup_counts_packed(const void* args) {
 extern "C" int dedup_rows(const void* taxa, const void* weights, int B,
                           int N, int k_max, float lb, int cap, void* utaxa,
                           void* ucounts, void* uvalid, void* nuniq,
-                          void* scratch, int blocks, void* stream) {
+                          void* scratch, int blocks, void* stream,
+                          void* first) {
   if (B <= 0) return 0;
   const int32_t* t = (const int32_t*)taxa;
   const float* w = (const float*)weights;
   const size_t entry = w ? 8 : 4;
   if (cap < 0 || cap > N || (size_t)cap * entry > (size_t)kSmemMax ||
-      (cap < N && (scratch == nullptr || blocks <= 0)))
+      (cap < N && (scratch == nullptr || blocks <= 0)) ||
+      (w != nullptr && first == nullptr))
     return (int)cudaErrorInvalidValue;
   if (cap == N) blocks = B;
   int32_t* ut = (int32_t*)utaxa;
@@ -726,22 +756,23 @@ extern "C" int dedup_rows(const void* taxa, const void* weights, int B,
   uint8_t* uv = (uint8_t*)uvalid;
   int32_t* nu = (int32_t*)nuniq;
   unsigned char* sc = (unsigned char*)scratch;
+  int32_t* fs = (int32_t*)first;
   cudaStream_t s = (cudaStream_t)stream;
   const bool vec = N % 4 == 0 && ((uintptr_t)t & 15) == 0 &&
                    (w == nullptr || ((uintptr_t)w & 15) == 0);
   cudaError_t e;
   if (vec && w)
     e = launch_rows<true, true>(t, w, B, N, k_max, lb, cap, ut, uc, uv, nu,
-                                sc, blocks, s);
+                                sc, blocks, fs, s);
   else if (vec)
     e = launch_rows<true, false>(t, w, B, N, k_max, lb, cap, ut, uc, uv, nu,
-                                 sc, blocks, s);
+                                 sc, blocks, fs, s);
   else if (w)
     e = launch_rows<false, true>(t, w, B, N, k_max, lb, cap, ut, uc, uv, nu,
-                                 sc, blocks, s);
+                                 sc, blocks, fs, s);
   else
     e = launch_rows<false, false>(t, w, B, N, k_max, lb, cap, ut, uc, uv, nu,
-                                  sc, blocks, s);
+                                  sc, blocks, fs, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -751,5 +782,5 @@ extern "C" int dedup_rows_packed(const void* args) {
   return dedup_rows(a.ptr(0), a.ptr(1), (int)a.i(2), (int)a.i(3),
                     (int)a.i(4), (float)a.d(5), (int)a.i(6), a.ptr(7),
                     a.ptr(8), a.ptr(9), a.ptr(10), a.ptr(11), (int)a.i(12),
-                    a.ptr(13));
+                    a.ptr(13), a.ptr(14));
 }

@@ -32,15 +32,18 @@
 // Counts are summed in float32. The path's integer counts (below 2^24)
 // sum exactly in any order. Weighted counts (taxa2agg -s: 0.1, 0.3) round
 // by the order of their adds, so the launch takes `ordered` for them and
-// runs instances (ORD) that add in the one order the plain versions use,
-// for a group of distinct valid ids (K4's output):
-//   hybrid: a_base and each branch's sum add the slots one at a time in
-//     slot order, from 0.0f (the warp path's a_base by one lane; the
-//     block path's by one thread, and its branch sums by one thread over
-//     the list into the branch table, a pass at a time);
-//   mrtl: score(j) adds the ancestors-or-self of j one at a time in
-//     ascending clamped depth, from 0.0f (the thread and warp paths sort
-//     their lists by depth first; the block path's searches go by depth).
+// runs instances (ORD) that add as umgap_tpu's host aggregators
+// (umgap_tpu/agg/host.py) add, over a group of distinct valid ids whose
+// slots K4's weighted instances hand over in first-seen order:
+//   hybrid (TreeMix): a_base is numpy's float32 sum of the slots' counts
+//     in slot order, a branch's sum numpy's sum of its slots below x in
+//     slot order (np_pairwise: one at a time below 8 terms, 8
+//     accumulators up to 128, halves split at a multiple of 8 past it);
+//     one thread walks the group (hybrid_ordered), on every path;
+//   mrtl (RmqRTL, a numpy reduce over axis 0): score(j) adds the
+//     ancestors-or-self of j one at a time in slot order, from 0.0f (the
+//     thread and warp paths as the unordered ones; the block path tests
+//     every slot against each j, score_slots, instead of its searches).
 // The unordered instances are the ones the main path has always run.
 //
 // Snap, fused into the store (with the pipeline's snap table, as taxa2agg
@@ -359,6 +362,107 @@ __device__ int hybrid_small(const Rows& src, int n, const int* tu,
   return x;
 }
 
+// ---- the ordered instances' sums (see the note at the top) ---------- //
+
+// The entries of a list in order, at a stride: every entry, or those
+// whose column `col` holds `want`.
+struct ListCursor {
+  const int* col;
+  const float* c;
+  int s, want, p;
+  bool every;
+  __device__ float operator()() {
+    if (!every)
+      while (col[p * s] != want) ++p;
+    return c[(p++) * s];
+  }
+};
+
+// numpy's pairwise float32 sum of the next n entries (umath's
+// pairwise_sum); the caller adds it to 0.0f, the reduction's identity.
+__device__ float np_pairwise(ListCursor& next, int n) {
+  if (n < 8) {
+    float r = 0.0f;
+    for (int i = 0; i < n; ++i) r += next();
+    return r;
+  }
+  if (n <= 128) {
+    float r[8];
+    for (int j = 0; j < 8; ++j) r[j] = next();
+    const int m = n - n % 8;
+    for (int i = 8; i < m; i += 8)
+      for (int j = 0; j < 8; ++j) r[j] += next();
+    float res = ((r[0] + r[1]) + (r[2] + r[3])) +
+                ((r[4] + r[5]) + (r[6] + r[7]));
+    for (int i = m; i < n; ++i) res += next();
+    return res;
+  }
+  int n2 = n / 2;
+  n2 -= n2 % 8;
+  const float a = np_pairwise(next, n2);  // the left half first
+  return a + np_pairwise(next, n - n2);
+}
+
+// hybrid as TreeMix adds, one thread over a list of n slots in first-seen
+// order (ids u, counts c, a scratch column col; stride s): the branches
+// below x are taken in list order, each summed over its slots below x in
+// list order, the heaviest kept (ties: the smallest branch id); after a
+// descent the list keeps, in place and in order, the slots under x.
+__device__ int hybrid_ordered(const Rows& src, int n, int* u, float* c,
+                              int* col, int s, int root, float factor) {
+  ListCursor every{col, c, s, 0, 0, true};
+  float a_base = 0.0f + np_pairwise(every, n);
+  int x = root;
+  for (int d = 0; d + 1 < src.D; ++d) {
+    bool any = false;
+    int bmin = I32_MAX, bmax = -1;
+    for (int e = 0; e < n; ++e) {
+      const int32_t* l = src.lin(u[e * s]);
+      const int32_t br = l[d + 1] != NONE && l[d] == x ? l[d + 1] : NONE;
+      col[e * s] = br;
+      if (br != NONE) {
+        any = true;
+        bmin = min(bmin, br);
+        bmax = max(bmax, br);
+      }
+    }
+    if (!any) break;  // nothing below x: stop
+    if (bmin == bmax) {  // one branch: descend, no factor test
+      x = bmin;
+    } else {
+      float mx = -INFINITY;
+      int best = I32_MAX;
+      for (int e = 0; e < n; ++e) {
+        const int br = col[e * s];
+        if (br == NONE) continue;
+        bool seen = false;  // summed at its first slot
+        for (int f = 0; f < e && !seen; ++f) seen = col[f * s] == br;
+        if (seen) continue;
+        int nb = 0;
+        for (int f = e; f < n; ++f) nb += col[f * s] == br;
+        ListCursor one{col, c, s, br, e, false};
+        const float sum = 0.0f + np_pairwise(one, nb);
+        if (sum > mx || (sum == mx && br < best)) {
+          mx = sum;
+          best = br;
+        }
+      }
+      if ((mx / a_base) < factor) break;  // the heaviest share is too low
+      x = best;
+      a_base = mx;
+    }
+    int m = 0;
+    for (int e = 0; e < n; ++e) {
+      if (col[e * s] != x) continue;
+      u[m * s] = u[e * s];
+      c[m * s] = c[e * s];
+      ++m;
+    }
+    n = m;
+  }
+  return x;
+}
+
 // ---- the thread path: one thread, one group of n <= kThreadCap slots - //
 template <int STRAT>
 __device__ int thread_group(const Rows& src, int n, const int* tu,
@@ -452,24 +556,6 @@ __device__ int thread_group(const Rows& src, int n, const int* tu,
 #undef LIN
 }
 
-// The thread path's list (stride 32) sorted by depth, stable: mrtl's
-// ordered sums then add a slot's ancestors in depth order.
-__device__ void sort_by_depth(int* tu, float* tc, int* td, int n) {
-  for (int e = 1; e < n; ++e) {
-    const int u = tu[e * 32], d = td[e * 32];
-    const float c = tc[e * 32];
-    int f = e;
-    for (; f > 0 && td[(f - 1) * 32] > d; --f) {
-      tu[f * 32] = tu[(f - 1) * 32];
-      tc[f * 32] = tc[(f - 1) * 32];
-      td[f * 32] = td[(f - 1) * 32];
-    }
-    tu[f * 32] = u;
-    tc[f * 32] = c;
-    td[f * 32] = d;
-  }
-}
-
 // ---- the warp path: one group of any count of valid slots ------------ //
 template <int STRAT, bool ORD>
 __device__ void warp_group(const Rows& src, long long b,
@@ -507,18 +593,16 @@ __device__ void warp_group(const Rows& src, long long b,
   }
   __syncwarp();
 
+  if (STRAT == kHybrid && ORD) {  // one lane, as TreeMix adds
+    if (lane == 0)
+      st.put(b, nv, hybrid_ordered(src, n, Lu, Lc, Lcol, 1, root, factor));
+    return;
+  }
   if (STRAT == kHybrid) {
     float a_base;
-    if (ORD) {  // slot order, one lane
-      float s = 0.0f;
-      if (lane == 0)
-        for (int p = 0; p < n; ++p) s += Lc[p];
-      a_base = __shfl_sync(FULL, s, 0);
-    } else {
-      float part = 0.0f;
-      for (int p = lane; p < n; p += 32) part += Lc[p];
-      a_base = warp_sum_f(part);
-    }
+    float part = 0.0f;
+    for (int p = lane; p < n; p += 32) part += Lc[p];
+    a_base = warp_sum_f(part);
     int x = root;
     for (int d = 0; d + 1 < D; ++d) {
       bool any = false;
@@ -587,22 +671,6 @@ __device__ void warp_group(const Rows& src, long long b,
     return;
   }
   if (STRAT == kMrtl) {
-    if (ORD) {  // the list by depth, stable (a rank each, through Lk, Lcol)
-      for (int p = lane; p < n; p += 32) {
-        const int dp = Ld[p];
-        int r = 0;
-        for (int q = 0; q < n; ++q) r += Ld[q] < dp || (Ld[q] == dp && q < p);
-        Lk[r] = Lu[p];
-        Lcol[r] = __float_as_int(Lc[p]);
-      }
-      __syncwarp();
-      for (int p = lane; p < n; p += 32) {
-        Lu[p] = Lk[p];
-        Lc[p] = __int_as_float(Lcol[p]);
-        Ld[p] = src.depth(Lk[p]);
-      }
-      __syncwarp();
-    }
     float bs = -INFINITY;
     int bd = -1, bu = I32_MAX;
     for (int p = lane; p < n; p += 32) {
@@ -689,9 +757,10 @@ __global__ void tree_kernel(Rows src, const float* __restrict__ counts,
             td[e * 32] = STRAT != kHybrid ? src.depth(u) : 0;
           }
         }
-        if (ORD && STRAT == kMrtl) sort_by_depth(tu, tc, td, n);
         st.put(b, n,
-               STRAT == kHybrid && n <= kSmall
+               ORD && STRAT == kHybrid
+                   ? hybrid_ordered(src, n, tu, tc, td, 32, root, factor)
+               : STRAT == kHybrid && n <= kSmall
                    ? hybrid_small(src, n, tu, tc, root, factor)
                    : thread_group<STRAT>(src, n, tu, tc, td, root, factor));
       }
@@ -1052,6 +1121,34 @@ __device__ int agree_ids(const Rows& src, const int* U, int m, int first,
   return ref[dstar];
 }
 
+// mrtl as RmqRTL adds (ordered instances): each j of the list scores the
+// slots i with lin_j[dep_i] == id_i one at a time in list order, the
+// first-seen order of K4's weighted slots; the block's best (score,
+// depth, -id), in every thread.
+__device__ int score_slots(const Rows& src, const int* A, const float* C,
+                           int* X, int n, BlockRed& r) {
+  for (int p = threadIdx.x; p < n; p += kBlockThreads)
+    X[p] = min(src.depth(A[p]), src.D - 1);
+  __syncthreads();
+  float bs = -INFINITY;
+  int bd = -1, bu = I32_MAX;
+  for (int e = threadIdx.x; e < n; e += kBlockThreads) {
+    const int u = A[e];
+    const int32_t* l = src.lin(u);
+    float s = 0.0f;
+    for (int i = 0; i < n; ++i)
+      if (l[X[i]] == A[i]) s += C[i];
+    const int du = max(l[-1], 0);
+    if (better(s, du, u, bs, bd, bu)) {
+      bs = s;
+      bd = du;
+      bu = u;
+    }
+  }
+  block_best(bs, bd, bu, r);
+  return bu;
+}
+
 __device__ __forceinline__ int hash_slot(int key) {
   return (int)(((unsigned)key * 0x9E3779B1u) >> 21) & (kHashSlots - 1);
 }
@@ -1059,26 +1156,14 @@ __device__ __forceinline__ int hash_slot(int key) {
 // hybrid's descent over the group's list (A ids, C counts, X branches).
 // Each depth's pass keeps, in place, the slots under x (lin[d] == x; all
 // at depth 0), so the list follows x's subtree down.
-template <bool ORD>
 __device__ int hybrid_block(const Rows& src, int* A, float* C, int* X, int n,
                             int root, float factor, int* hk, float* hs,
                             BlockRed& r, int* parity) {
   const int D = src.D;
   float a_base;
-  if (ORD) {  // slot order, one thread
-    if (threadIdx.x == 0) {
-      float s = 0.0f;
-      for (int p = 0; p < n; ++p) s += C[p];
-      r.f[0] = s;
-    }
-    __syncthreads();
-    a_base = r.f[0];
-    __syncthreads();
-  } else {
-    float part = 0.0f;
-    for (int p = threadIdx.x; p < n; p += kBlockThreads) part += C[p];
-    a_base = block_sum(part, r);
-  }
+  float part = 0.0f;
+  for (int p = threadIdx.x; p < n; p += kBlockThreads) part += C[p];
+  a_base = block_sum(part, r);
   int x = root;
   for (int d = 0; d + 1 < D; ++d) {
     bool any = false;
@@ -1131,79 +1216,54 @@ __device__ int hybrid_block(const Rows& src, int* A, float* C, int* X, int n,
       if (threadIdx.x == 0) r.fill = 0;
       __syncthreads();
       bool more = false;
-      if (ORD) {
-        // one thread adds each branch's entries in slot order; a branch
-        // first met once the table is full waits for the next pass
-        if (threadIdx.x == 0) {
-          int fill = 0;
-          for (int p = 0; p < n; ++p) {
-            const int br = X[p];
-            if (br == NONE) continue;
-            int h = hash_slot(br);
-            while (hk[h] != NONE && hk[h] != br)
-              h = (h + 1) & (kHashSlots - 1);
-            if (hk[h] == NONE) {
-              if (fill >= kHashFill) {
-                more = true;
-                continue;
-              }
-              hk[h] = br;
-              ++fill;
+      volatile int* vk = hk;
+      volatile int* vfill = &r.fill;
+      const int lane = threadIdx.x & 31;
+      for (int p0 = 0; p0 < n; p0 += kBlockThreads) {
+        // a warp's entries of one branch are summed first and go in with
+        // one atomic (a few branches hold thousands of entries near the
+        // root, whose atomics on one word would run one after another)
+        const int p = p0 + threadIdx.x;
+        const int br = p < n ? X[p] : NONE;
+        const float c = br != NONE ? C[p] : 0.0f;
+        const unsigned peers = __match_any_sync(FULL, br);
+        float sum = 0.0f;
+        for (int k = 0; k < 32; ++k) {
+          const float ck = __shfl_sync(FULL, c, k);
+          if (peers >> k & 1u) sum += ck;
+        }
+        const int leader = __ffs(peers) - 1;
+        bool in = false;
+        if (br != NONE && lane == leader) {
+          for (int h = hash_slot(br);; h = (h + 1) & (kHashSlots - 1)) {
+            const int k = vk[h];
+            if (k == NONE) {
+              if (*vfill >= kHashFill) break;  // looked up below
+              const int old = atomicCAS(hk + h, NONE, br);
+              if (old == NONE) atomicAdd(&r.fill, 1);
+              if (old != NONE && old != br) continue;
+            } else if (k != br) {
+              continue;
             }
-            hs[h] += C[p];
-            X[p] = NONE;
+            atomicAdd(hs + h, sum);
+            in = true;
+            break;
           }
         }
-      } else {
-        volatile int* vk = hk;
-        volatile int* vfill = &r.fill;
-        const int lane = threadIdx.x & 31;
-        for (int p0 = 0; p0 < n; p0 += kBlockThreads) {
-          // a warp's entries of one branch are summed first and go in with
-          // one atomic (a few branches hold thousands of entries near the
-          // root, whose atomics on one word would run one after another)
-          const int p = p0 + threadIdx.x;
-          const int br = p < n ? X[p] : NONE;
-          const float c = br != NONE ? C[p] : 0.0f;
-          const unsigned peers = __match_any_sync(FULL, br);
-          float sum = 0.0f;
-          for (int k = 0; k < 32; ++k) {
-            const float ck = __shfl_sync(FULL, c, k);
-            if (peers >> k & 1u) sum += ck;
-          }
-          const int leader = __ffs(peers) - 1;
-          bool in = false;
-          if (br != NONE && lane == leader) {
-            for (int h = hash_slot(br);; h = (h + 1) & (kHashSlots - 1)) {
-              const int k = vk[h];
-              if (k == NONE) {
-                if (*vfill >= kHashFill) break;  // looked up below
-                const int old = atomicCAS(hk + h, NONE, br);
-                if (old == NONE) atomicAdd(&r.fill, 1);
-                if (old != NONE && old != br) continue;
-              } else if (k != br) {
-                continue;
-              }
-              atomicAdd(hs + h, sum);
-              in = true;
-              break;
-            }
-          }
-          if (__shfl_sync(FULL, in, leader)) X[p] = NONE;
-        }
-        __syncthreads();
-        // the table is final: the entries left look their branch up
-        for (int p = threadIdx.x; p < n; p += kBlockThreads) {
-          const int br = X[p];
-          if (br == NONE) continue;
-          int h = hash_slot(br);
-          while (hk[h] != NONE && hk[h] != br) h = (h + 1) & (kHashSlots - 1);
-          if (hk[h] == br) {
-            atomicAdd(hs + h, C[p]);
-            X[p] = NONE;
-          } else {
-            more = true;  // a later pass
-          }
+        if (__shfl_sync(FULL, in, leader)) X[p] = NONE;
+      }
+      __syncthreads();
+      // the table is final: the entries left look their branch up
+      for (int p = threadIdx.x; p < n; p += kBlockThreads) {
+        const int br = X[p];
+        if (br == NONE) continue;
+        int h = hash_slot(br);
+        while (hk[h] != NONE && hk[h] != br) h = (h + 1) & (kHashSlots - 1);
+        if (hk[h] == br) {
+          atomicAdd(hs + h, C[p]);
+          X[p] = NONE;
+        } else {
+          more = true;  // a later pass
         }
       }
       __syncthreads();
@@ -1262,14 +1322,20 @@ __global__ void __launch_bounds__(kBlockThreads)
           tc[e * 32] = STRAT != kLca ? C[e] : 0.0f;
           td[e * 32] = STRAT != kHybrid ? src.depth(A[e]) : 0;
         }
-        if (ORD && STRAT == kMrtl) sort_by_depth(tu, tc, td, n);
-        res = STRAT == kHybrid && n <= kSmall
+        res = ORD && STRAT == kHybrid
+                  ? hybrid_ordered(src, n, tu, tc, td, 32, root, factor)
+              : STRAT == kHybrid && n <= kSmall
                   ? hybrid_small(src, n, tu, tc, root, factor)
                   : thread_group<STRAT>(src, n, tu, tc, td, root, factor);
       }
+    } else if (ORD && STRAT == kHybrid) {  // one thread, as TreeMix adds
+      if (threadIdx.x == 0)
+        res = hybrid_ordered(src, n, A, C, X, 1, root, factor);
     } else if (STRAT == kHybrid) {
-      res = hybrid_block<ORD>(src, A, C, X, n, root, factor, hk, hs, red,
-                              &parity);
+      res = hybrid_block(src, A, C, X, n, root, factor, hk, hs, red,
+                         &parity);
+    } else if (ORD && STRAT == kMrtl) {
+      res = score_slots(src, A, C, X, n, red);
     } else {
       const int first = A[0];  // the first valid slot's id
       bool ascending = true;

@@ -159,13 +159,13 @@ K3RS = Kernel(
     [P, P, LL, I, I, I, P, I, I, P, I, P], K3S.replaces)
 K4 = Kernel(
     "dedup_counts", "dedup_counts.cu",
-    [P, P, I, I, I, F, P, P, P, P, P],
+    [P, P, I, I, I, F, P, P, P, P, P, P],
     "umgap_tpu/agg/device.py:79 dedup_counts + "
     "umgap_tpu/agg/device.py:154 filter_lower_bound")
 # K4's row kernel (one block a row) for rows past the warp path
 K4R = Kernel(
     "dedup_rows", "dedup_counts.cu",
-    [P, P, I, I, I, F, I, P, P, P, P, P, I, P], K4.replaces)
+    [P, P, I, I, I, F, I, P, P, P, P, P, I, P, P], K4.replaces)
 K5 = Kernel(
     "lane_gather", "lane_gather.cu",
     [I, P, LL, LL, LL, LL, LL, LL, P, LL, LL, LL, LL, LL, P, LL, P],

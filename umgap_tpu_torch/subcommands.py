@@ -26,6 +26,13 @@ without ``--device cpu`` they exit 1 and say how to ask for the CPU):
   row with more than ``TAXA2AGG_KMAX`` distinct taxa runs again at its
   exact width.
 
+``buildindex-dist`` runs the index build job
+(:mod:`~umgap_tpu_torch.index.distbuild`): its TSV split through K1P and
+its join (the sort, then K6's tree hybrid) on the card, the same flag
+rule for ``--device``. ``setup`` installs the data (local files, or the
+data server's), ``visualize`` and ``taxa2tree`` ask the Unipept API;
+their network calls go through ``urllib.request.urlopen``.
+
 They read stdin in chunks of up to ``CHUNK_RECORDS`` records (fewer
 where the padded chunk would pass ``CHUNK_CELLS`` cells), launch once a
 chunk, and write in input order. Inside
@@ -38,6 +45,7 @@ before it are written, as in ``umgap_tpu``.
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 from typing import List, Optional
@@ -909,6 +917,180 @@ def cmd_printindex(args, stdin, stdout):
         stdout.write(f"{key}\t{int(v)}\n")
 
 
+def cmd_buildindex_dist(args, stdin, stdout):
+    """The distributed index build with checkpoints and resume
+    (:mod:`~umgap_tpu_torch.index.distbuild`; the reference's cluster
+    job, scripts/build-index-phanpy.hpc.sh:1-10): its split and join on
+    the card unless ``--device cpu``. The same command again resumes
+    after a killed worker or driver."""
+    import json
+
+    from .index import distbuild
+
+    if args.task:
+        distbuild.worker_main(args.workdir, args.task, args.index,
+                              device=args.device)
+        return
+    if args.repack:
+        n = distbuild.repack_shards(
+            args.workdir, log=lambda s: print(s, file=sys.stderr))
+        stdout.write(json.dumps({"repacked": n}) + "\n")
+        return
+    if args.densify:
+        n = distbuild.densify_shards(
+            args.workdir, log=lambda s: print(s, file=sys.stderr))
+        stdout.write(json.dumps({"densified": n}) + "\n")
+        return
+    if args.synthetic is None and (args.tsv is None or args.taxons is None):
+        raise CliError("need --tsv and --taxons (or --synthetic N)")
+    manifest = distbuild.drive(
+        args.workdir, args.tsv, args.taxons, n_shards=args.shards,
+        workers=args.workers, k=args.k,
+        synthetic_rows=(int(float(args.synthetic))
+                        if args.synthetic is not None else None),
+        seed=args.seed, layout=args.layout, reclaim=args.reclaim,
+        reclaim_input=args.reclaim_input, device=args.device)
+    stdout.write(json.dumps({
+        "n_keys": manifest["n_keys"],
+        "n_shards": manifest["n_shards"],
+        "capacity": manifest["capacity"],
+        "timings_s": manifest["timings"],
+        "shards_dir": os.path.join(args.workdir, "shards"),
+    }) + "\n")
+
+
+# ---------------------------------------------------------------------- #
+# setup, visualize and taxa2tree (the data server and the Unipept API)
+# ---------------------------------------------------------------------- #
+
+TAXA2TREE_API = "http://api.unipept.ugent.be/api/v1/taxa2tree"
+
+
+def cmd_taxa2tree(args, stdin, stdout):
+    """The taxa of a FASTA stream counted and sent to the Unipept API's
+    taxa2tree; its HTML, or with ``-u`` the URL of its gist. Needs the
+    network (``urllib.request.urlopen``)."""
+    import json
+    from urllib import request
+
+    taxa: dict[int, int] = {}
+    for rec in fasta.read_records(stdin, unwrap=False):
+        t = int(rec.sequence[0])
+        taxa[t] = taxa.get(t, 0) + 1
+    payload = json.dumps(
+        {"counts": {str(k): v for k, v in taxa.items()},
+         "link": str(args.url).lower()}).encode()
+    req = request.Request(TAXA2TREE_API, data=payload,
+                          headers={"Content-Type": "application/json"})
+    try:
+        with request.urlopen(req, timeout=30) as res:
+            body = res.read().decode()
+    except Exception as e:
+        raise CliError(f"taxa2tree request failed: {e}")
+    if args.url:
+        gist = json.loads(body).get("gist", "")
+        stdout.write(gist.replace("https://gist.github.com/",
+                                  "https://bl.ocks.org/") + "\n")
+    else:
+        stdout.write(body)
+
+
+def cmd_setup(args, stdin, stdout):
+    """umgap-setup.sh: the config and data directories, the data version
+    (asked of the server unless given), the artifacts installed from the
+    server (``-y``) or from local files (``--taxons``, ``--tryptic``,
+    ``--ninemer``, which need ``--version``) and symlinked into the
+    config directory, then each artifact's state."""
+    from . import configdir as cfg
+
+    conf = args.configdir or cfg.default_config_dir()
+    data = args.datadir or cfg.default_data_dir()
+    server = args.server or cfg.DATASERVER
+    local = {}
+    if args.taxons:
+        local["taxons.tsv"] = args.taxons
+    if args.tryptic:
+        local["tryptic.npz"] = args.tryptic
+    if args.ninemer:
+        local["ninemer.npz"] = args.ninemer
+    version = args.version
+    if version is None:
+        if local:
+            raise CliError(
+                "Installing local files requires an explicit --version")
+        stdout.write("Checking the latest version on the server.\n")
+        try:
+            version = cfg.latest_server_version(server)
+        except Exception as e:
+            raise CliError(f"Could not retrieve version from server: {e}")
+        stdout.write(f"Latest version is {version}.\n")
+    if local:
+        cfg.install(conf, data, version, local,
+                    log=lambda m: stdout.write(m + "\n"))
+    elif args.yes:
+        sources = {}
+        for name, remote in (("taxons.tsv", "taxons.tsv"),
+                             ("tryptic.npz", "tryptic.fst"),
+                             ("ninemer.npz", "ninemer.fst")):
+            if not os.path.islink(os.path.join(conf, version, name)):
+                sources[name] = f"{server}/{version}/{remote}"
+        if sources:
+            cfg.install(conf, data, version, sources,
+                        log=lambda m: stdout.write(m + "\n"))
+    for name in cfg.FILES:
+        link = os.path.join(conf, version, name)
+        state = "available" if os.path.islink(link) else "missing"
+        stdout.write(f"{name} ({version}): {state}\n")
+
+
+def cmd_visualize(args, stdin, stdout):
+    """umgap-visualize.sh:122-154: ``-t`` a CSV frequency table at a rank
+    (taxa2freq over the inputs, its header stripped of directory names),
+    ``-w`` HTML and ``-u`` a URL through taxa2tree. Gzipped inputs are
+    recognised by their magic bytes."""
+    import argparse
+    import io
+    import re
+    import tempfile
+
+    from . import configdir as cfg
+
+    if args.taxa_rank is not None:
+        taxons = args.taxons
+        if taxons is None:
+            conf = args.configdir or cfg.default_config_dir()
+            version = cfg.discover_version(conf)
+            if version is None:
+                raise CliError("No taxon table found for frequency counting. "
+                               "Please run umgap-tpu setup.")
+            taxons = cfg.resolve(conf, version, "taxons.tsv")
+        with tempfile.TemporaryDirectory() as tmp:
+            # decompressed into files named as the reference's FIFOs (the
+            # basename, characters other than [0-9A-Za-z.-] as '_',
+            # umgap-visualize.sh:141)
+            paths = []
+            for p in args.input_files:
+                name = re.sub(r"[^0-9A-Za-z.-]", "_", os.path.basename(p))
+                dst = os.path.join(tmp, name)
+                with cfg.sniff_open(p) as fsrc, open(dst, "w") as fdst:
+                    fdst.write(fsrc.read())
+                paths.append(dst)
+            out = io.StringIO()
+            ns = argparse.Namespace(rank=args.taxa_rank, frequency=1,
+                                    taxon_file=taxons, input_files=paths)
+            cmd_taxa2freq(ns, stdin, out)
+        lines = out.getvalue().split("\n")
+        if lines:
+            lines[0] = re.sub(r",[^,]*/", ",", lines[0])
+        stdout.write("\n".join(lines))
+        return
+    ns = argparse.Namespace(url=bool(args.url))
+    for path in args.input_files:
+        with cfg.sniff_open(path) as f:
+            text = f.read()
+        cmd_taxa2tree(ns, io.StringIO(text), stdout)
+
+
 # ---------------------------------------------------------------------- #
 # argument parsing
 # ---------------------------------------------------------------------- #
@@ -1063,3 +1245,101 @@ def add_parsers(sub) -> None:
                         help="Print the key/value pairs in an index")
     sp.add_argument("fst_file")
     sp.set_defaults(func=cmd_printindex)
+
+    sp = sub.add_parser(
+        "buildindex-dist",
+        help="Distributed multi-process index build with checkpoint/"
+             "resume, its split and join on the card")
+    sp.add_argument("--workdir", required=True,
+                    help="shared work directory (checkpoints + artifacts)")
+    sp.add_argument("--tsv", default=None,
+                    help="(taxid TAB protein) input TSV")
+    sp.add_argument("--taxons", default=None)
+    sp.add_argument("--shards", type=int, default=16,
+                    help="hash-range shards (= serving-mesh shard count)")
+    sp.add_argument("--workers", type=int, default=2,
+                    help="parallel worker processes")
+    sp.add_argument("-k", type=int, default=9)
+    sp.add_argument("--synthetic", default=None,
+                    help="generate N synthetic input rows instead of "
+                         "--tsv (benchmark / scale-test mode)")
+    sp.add_argument("--layout", default="bucket64s",
+                    choices=["bucket64s", "bucket64d", "bucket16",
+                             "bucket8s"],
+                    help="shard table geometry: bucket64s (default) = one "
+                         "512 B row a probe (~16-32 B/key); bucket64d = "
+                         "the same rows conveyor-placed at up to ~0.9 "
+                         "load (~9-10 B/key) at a 2-row probe; bucket16 "
+                         "= <= 2 rows at up to 0.6 load; bucket8s = one "
+                         "row, small tables")
+    sp.add_argument("--seed", type=int, default=7)
+    sp.add_argument("--reclaim", action="store_true",
+                    help="disk-bounded build: delete each stage's "
+                         "consumed inputs once its outputs are "
+                         "checkpointed (spills after join, joined "
+                         "arrays after table build)")
+    sp.add_argument("--reclaim-input", action="store_true",
+                    help="treat the input --tsv as scratch: punch holes "
+                         "in each consumed chunk's byte range as it is "
+                         "partitioned (the file's content is destroyed; "
+                         "offsets stay valid for resume)")
+    sp.add_argument("--densify", action="store_true",
+                    help="relayout an existing workdir's bucket64s "
+                         "shards into the dense bucket64d geometry in "
+                         "place (atomic per shard, re-runnable)")
+    sp.add_argument("--repack", action="store_true",
+                    help="relayout an existing workdir's shards into "
+                         "the packed row format in place (atomic per "
+                         "shard, re-runnable)")
+    sp.add_argument("--device", default=None, help=_DEVICE_HELP)
+    # internal: a worker's invocation
+    sp.add_argument("--task", default=None,
+                    choices=["partition", "join", "build"],
+                    help=argparse.SUPPRESS)
+    sp.add_argument("--index", default="0", help=argparse.SUPPRESS)
+    # accepted as umgap_tpu's workers take it; the port's join is the card's
+    sp.add_argument("--join-threads", type=int, default=1,
+                    help=argparse.SUPPRESS)
+    sp.set_defaults(func=cmd_buildindex_dist)
+
+    sp = sub.add_parser("taxa2tree", help="Visualize taxa via the Unipept API")
+    sp.add_argument("-u", "--url", action="store_true")
+    sp.set_defaults(func=cmd_taxa2tree)
+
+    sp = sub.add_parser(
+        "setup",
+        help="Install/verify taxonomy + index data (umgap-setup.sh "
+             "equivalent)")
+    sp.add_argument("-c", "--configdir", default=None,
+                    help="config directory (XDG discovery by default)")
+    sp.add_argument("-d", "--datadir", default=None,
+                    help="data directory (XDG discovery by default)")
+    sp.add_argument("-v", "--version", default=None,
+                    help="data version (default: ask the data server)")
+    sp.add_argument("-s", "--server", default=None,
+                    help="data server base URL")
+    sp.add_argument("--taxons", default=None,
+                    help="local taxons.tsv to install (offline setup)")
+    sp.add_argument("--tryptic", default=None,
+                    help="local tryptic .npz index to install")
+    sp.add_argument("--ninemer", default=None,
+                    help="local 9-mer .npz index to install")
+    sp.add_argument("-y", "--yes", action="store_true",
+                    help="non-interactive: install everything requested")
+    sp.set_defaults(func=cmd_setup)
+
+    sp = sub.add_parser(
+        "visualize",
+        help="Visualize analysis results (umgap-visualize.sh equivalent)")
+    grp = sp.add_mutually_exclusive_group(required=True)
+    grp.add_argument("-t", "--taxa-rank", default=None,
+                     help="CSV frequency table at this rank")
+    grp.add_argument("-w", "--web", action="store_true",
+                     help="HTML visualization via the Unipept API")
+    grp.add_argument("-u", "--url", action="store_true",
+                     help="print a shareable URL via the Unipept API")
+    sp.add_argument("-c", "--configdir", default=None)
+    sp.add_argument("--taxons", default=None,
+                    help="taxonomy TSV (default: config-dir discovery)")
+    sp.add_argument("input_files", nargs="+")
+    sp.set_defaults(func=cmd_visualize)
