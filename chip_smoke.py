@@ -392,7 +392,8 @@ def phase_identify(torch):
     regs = {}
     for name, text in info["logs"].items():
         regs[name] = [ln.strip() for ln in text.splitlines()
-                      if "registers" in ln or "spill" in ln]
+                      if "registers" in ln or "spill" in ln
+                      or "entry function" in ln]
     RESULT["card"] = card
     RESULT["torch"] = torch.__version__
     RESULT["cuda"] = torch.version.cuda
@@ -1856,7 +1857,8 @@ def k3_cell(torch, taxa, nk, check, what):
     window's taxon read and its hit written once, bytes) and, with
     ``check``, the hits held to both plain versions (the position loop
     and ``seedextend_runs_plain``) and the mask (s = 2, g = 0) to the
-    position loop's, the position loop timed. Returns (stats, err)."""
+    position loop's, the position loop's one run timed (host clock,
+    synced). Returns (stats, err)."""
     from umgap_tpu_torch.ops import seedextend
 
     NW = taxa.shape[-1]
@@ -1873,17 +1875,19 @@ def k3_cell(torch, taxa, nk, check, what):
     err = 0.0
     if check:
         got = k3()
-        err = max(compare(torch, f"K3 {what} hits", got,
-                          seedextend.seedextend_hits_plain(taxa, nk, 3, 1)),
+        # the position loop's one run is both the check and its time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = seedextend.seedextend_hits_plain(taxa, nk, 3, 1)
+        torch.cuda.synchronize()
+        st["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        err = max(compare(torch, f"K3 {what} hits", got, plain),
                   compare(torch, f"K3 {what} hits (runs plain)", got,
                           seedextend.seedextend_runs_plain(taxa, nk, 3, 1,
                                                            hits=True)),
                   compare(torch, f"K3 {what} mask",
                           seedextend.seedextend_mask_batch(taxa, nk, 2, 0),
                           seedextend.seedextend_mask_plain(taxa, nk, 2, 0)))
-        st["plain_ms"] = cuda_ms(
-            torch, lambda: seedextend.seedextend_hits_plain(taxa, nk, 3, 1),
-            reps=1)
     return st, err
 
 
@@ -5653,6 +5657,11 @@ def fgspp_path_kernels(config):
             "dedup_counts", "tree_aggregate"}
 
 
+# K1P's launch floor: a call on this many lanes of the gene batch (one
+# block's lanes in the first design, 32 lanes a block)
+K1P_FLOOR_LANES = 32
+
+
 def _k1p_stats(torch, world, an, groups):
     """K1P on one gene batch (the first GENE_BATCH groups at the
     analyser's lanes and width) against its plain version: event, device
@@ -5669,14 +5678,17 @@ def _k1p_stats(torch, world, an, groups):
     ln = torch.from_numpy(lens.reshape(N)).to(world["dev"])
     err = compare(torch, f"K1P ({N}, {P})", kmers.proteins_to_kmers(a, ln),
                   kmers.pack_windows_batch(a, ln))
-    # P < 9 and unaligned lanes, at the batch's lane count
-    for Pe, off in ((5, 0), (9, 0), (P, 3)):
-        big = torch.randint(0, 32, (N * Pe + off,), dtype=torch.uint8,
+    # P < 9, 7 and 8 windows a lane (the byte and the register fold),
+    # unaligned lanes (by 3: the byte fold; by 8: the register fold) at
+    # the batch's lane count; a few lanes of 30,000 residues
+    for n, Pe, off in ((N, 5, 0), (N, 9, 0), (N, 15, 0), (N, 16, 0),
+                       (N, P, 3), (N, P, 8), (5, 30000, 0)):
+        big = torch.randint(0, 32, (n * Pe + off,), dtype=torch.uint8,
                             device=world["dev"])
-        ae = big[off:].view(N, Pe)
-        le = torch.randint(0, Pe + 2, (N,), dtype=torch.int32,
+        ae = big[off:].view(n, Pe)
+        le = torch.randint(0, Pe + 2, (n,), dtype=torch.int32,
                            device=world["dev"])
-        err = max(err, compare(torch, f"K1P ({N}, {Pe}) offset {off}",
+        err = max(err, compare(torch, f"K1P ({n}, {Pe}) offset {off}",
                                kmers.proteins_to_kmers(ae, le),
                                kmers.pack_windows_batch(ae, le)))
     W = max(P - 8, 1)
@@ -5684,9 +5696,15 @@ def _k1p_stats(torch, world, an, groups):
     def k1p():
         return kmers.proteins_to_kmers(a, ln)
 
+    def floor():  # one block's lanes of the first design: the launch floor
+        return kmers.proteins_to_kmers(a[:K1P_FLOOR_LANES],
+                                       ln[:K1P_FLOOR_LANES])
+
     b, by = bound(N * P + 4 * N + N * W * 9, N * W * 9 * 2)
     return dict(ms=cuda_ms(torch, k1p, reps=50),
                 device_ms=device_ms(torch, k1p, reps=50),
+                floor_device_ms=device_ms(torch, floor, reps=50),
+                floor_lanes=K1P_FLOOR_LANES,
                 plain_ms=cuda_ms(torch, lambda: kmers.pack_windows_batch(
                     a, ln), reps=20),
                 bound_ms=b, bound_by=by, library_ms=None, lanes=N, width=P,
@@ -5805,7 +5823,8 @@ def phase_fgspp(torch, world):
                  stages=stage_table(torch, world, an, inputs=inputs))
     k1p = _k1p_stats(torch, world, an, groups)
     log(f"K1P: {k1p['lanes']} lanes x {k1p['width']} equal to plain; "
-        f"{k1p['ms']:.4f} ms ({k1p['device_ms']:.4f} device), bound "
+        f"{k1p['ms']:.4f} ms ({k1p['device_ms']:.4f} device; floor on "
+        f"{k1p['floor_lanes']} lanes {k1p['floor_device_ms']:.4f}), bound "
         f"{k1p['bound_ms']:.5f} ({k1p['bound_by']}), plain "
         f"{k1p['plain_ms']:.4f}; {phase['batch_cuda_launches']['kernels']} "
         "CUDA kernels a protein step")
@@ -6616,7 +6635,7 @@ def _instance_name(mangled):
 
 
 def sass_compare(before, source="umgap_tpu_torch/csrc/probe_kmer.cu",
-                 new_arg=None):
+                 new_arg=None, old_arg=None):
     """Each kernel instance's SASS in ``source`` on this tree against the
     same file in the tree at ``before`` (the parent): both built by nvcc
     to a cubin with the kernels' flags, disassembled by cuobjdump, each
@@ -6624,7 +6643,9 @@ def sass_compare(before, source="umgap_tpu_torch/csrc/probe_kmer.cu",
     stripped. Instances are matched by their template arguments (a new
     argument changes a mangled name, not an instance); ``new_arg``, a
     template argument this tree appends (e.g. "Lb0E", a new ``false``),
-    is dropped from this tree's names first. Writes ``sass_<stem>.json``
+    is dropped from this tree's names first; ``old_arg``, (kernel, a
+    template argument the parent appended to that kernel's instances and
+    this tree dropped), from the parent's. Writes ``sass_<stem>.json``
     under CHIP_SMOKE_OUT and returns {instance: "identical (n
     instructions)" or "differs: ..."}."""
     import re
@@ -6659,6 +6680,10 @@ def sass_compare(before, source="umgap_tpu_torch/csrc/probe_kmer.cu",
     old, new = instances(before), instances(REPO)
     if new_arg:
         new = {k.replace(new_arg + ">", ">"): v for k, v in new.items()}
+    if old_arg:
+        kern, arg = old_arg
+        old = {(k.replace(arg + ">", ">") if k.startswith(kern + "<") else k):
+               v for k, v in old.items()}
     res = {}
     for key in sorted(set(old) | set(new)):
         a, b = old.get(key), new.get(key)
@@ -6693,7 +6718,9 @@ def compare_trees(before, after, order="BAAB", mode="full"):
     main path's kernels, the 12,000 bp path, the ladder sample), "tail"
     its ``tail_ab`` (the tail after K3: CUDA kernels a batch, stage
     tables, the tail's device ms, the ring, the 12,000 bp path), "stash"
-    its ``stash_ab`` (K2 at stashes of STASH_ROWS rows), "chains" this
+    its ``stash_ab`` (K2 at stashes of STASH_ROWS rows), "redesign" its
+    ``redesign_ab`` (K1P's and K3RS's cells, K1, K3's staged tile and
+    unscored row kernel beside them), "chains" this
     file's ``chain_device_ms`` alone at L = 100 and 160 (K1-K4 and K6).
     Writes ``ab.json`` (or ``ab_<mode>.json``) under OUT_DIR.
 
@@ -6778,6 +6805,18 @@ def compare_trees(before, after, order="BAAB", mode="full"):
                 f"L={w} " + ", ".join(f"{n} {fmt_ms(v)}" for n, v in c.items()
                                       if not n.endswith("event_ms"))
                 for w, c in r["chain_device_ms"].items()))
+    if mode == "redesign":
+        for k, r in enumerate(runs):
+            d = r["redesign"]
+            log(f"run {k} {r['tag']}: K1P gene "
+                f"{fmt_ms(d['k1p']['gene']['device_ms'])}, floor "
+                f"{fmt_ms(d['k1p']['floor']['device_ms'])}, split "
+                f"{d['k1p']['split']['device_ms']:.4f} device ms; K3RS "
+                f"{fmt_ms(d['k3rs']['device_ms'])}; K3R " + ", ".join(
+                    f"{c} {fmt_ms(v['device_ms'])}"
+                    for c, v in d["k3r"].items()) + "; chain " + ", ".join(
+                    f"{n} {fmt_ms(v)}" for n, v in d["chain"].items()
+                    if not n.endswith("event_ms")))
     if mode != "full":
         return
 
@@ -6938,7 +6977,8 @@ def sweep_constant(constant, values,
     cells past the main path's variants) on copies of this checkout that
     differ only
     in one ``constexpr int`` of a CUDA source, each in its own process,
-    in turns (the values, then again in reverse order). Writes
+    in turns (the values, then again in reverse order); ``mode``
+    "scored" times K3's scored entry (``scored_ab``). Writes
     ``sweep_<constant>.json`` under OUT_DIR.
 
         python3 -c "import chip_smoke; chip_smoke.sweep_constant(
@@ -6981,6 +7021,12 @@ def sweep_constant(constant, values,
                 f"{k} " + ", ".join(f"{c} {fmt_ms(st['device_ms'])}"
                                     for c, st in cells.items())
                 for k, cells in r["rows"].items()))
+            continue
+        if mode == "scored":
+            runs.append(dict(value=v, scored=r["scored"]))
+            log(f"{constant} = {v}: K3 scored device ms " + ", ".join(
+                f"{c} {fmt_ms(st['device_ms'])}"
+                for c, st in r["scored"].items()))
             continue
         if mode == "wide":
             runs.append(dict(value=v, wide=r["wide"]))
@@ -7097,6 +7143,229 @@ def long_ab(torch, world):
     return out
 
 
+def _k1p_gene_batch(torch, dev, seed=19):
+    """K1P at the FGSpp path's gene batch shape (GENE_BATCH groups x 4
+    lanes of 64 residues): AA codes 0-24, lengths 0-64. K1P's time does
+    not depend on the codes."""
+    rng = np.random.default_rng(seed)
+    N, P = GENE_BATCH * 4, 64
+    aa = rng.integers(0, 25, size=(N, P)).astype(np.uint8)
+    ln = rng.integers(0, P + 1, size=N).astype(np.int32)
+    return torch.from_numpy(aa).to(dev), torch.from_numpy(ln).to(dev)
+
+
+def _split_batches(torch, dev):
+    """K1P's inputs on phase builddist's TSV split (``_build_tsv``'s 40 MB
+    of proteins): each length-class batch's (aa, lengths) as
+    ``split_kmers_tsv`` hands them to K1P, captured by wrapping it."""
+    from umgap_tpu_torch.index import scale
+    from umgap_tpu_torch.ops import kmers
+
+    os.makedirs(TMP_DIR, exist_ok=True)
+    tsv = _build_tsv(os.path.join(TMP_DIR, "k1p_split.tsv"), BUILD_TSV_BYTES)
+    with open(tsv, "rb") as f:
+        data = f.read()
+    p2k, calls = kmers.proteins_to_kmers, []
+
+    def spy(*args, **kw):
+        calls.append(args[:2])
+        return p2k(*args, **kw)
+
+    kmers.proteins_to_kmers = spy
+    try:
+        scale.split_kmers_tsv(data, device=dev)
+    finally:
+        kmers.proteins_to_kmers = p2k
+    return calls
+
+
+def _k1p_bound(n, p):
+    w = max(p - 8, 1)
+    return bound(n * p + 4 * n + n * w * 9, n * w * 9 * 2)[0]
+
+
+def k1p_cells(torch, world, gene=None, calls=None, split_ms=None):
+    """K1P's numbers by this code on any tree: the gene batch (event and
+    device ms), its floor (K1P_FLOOR_LANES lanes) and the TSV split's
+    length-class batches (device ms each and summed; ``split_ms`` times
+    them instead, e.g. ``events_ms``), each with its bound (bytes)."""
+    from umgap_tpu_torch.ops import kmers
+
+    a, ln = gene or _k1p_gene_batch(torch, world["dev"])
+    calls = calls if calls is not None else _split_batches(torch,
+                                                           world["dev"])
+    N, P = a.shape
+
+    def k1p():
+        return kmers.proteins_to_kmers(a, ln)
+
+    def floor():
+        return kmers.proteins_to_kmers(a[:K1P_FLOOR_LANES],
+                                       ln[:K1P_FLOOR_LANES])
+
+    out = dict(gene=dict(shape=[N, P], ms=cuda_ms(torch, k1p, reps=50),
+                         device_ms=device_ms(torch, k1p, reps=50),
+                         bound_ms=_k1p_bound(N, P)),
+               floor=dict(lanes=K1P_FLOOR_LANES,
+                          device_ms=device_ms(torch, floor, reps=50)))
+    per = [dict(shape=list(x.shape), bound_ms=_k1p_bound(*x.shape),
+                device_ms=(split_ms or device_ms)(
+                    torch, lambda x=x, n=n: kmers.proteins_to_kmers(x, n),
+                    reps=5))
+           for x, n in calls]
+    out["split"] = dict(launches=len(per),
+                        device_ms=sum(c["device_ms"] for c in per),
+                        bound_ms=sum(c["bound_ms"] for c in per),
+                        batches=per)
+    return out
+
+
+def k3rs_cell(torch, world, inputs=None):
+    """K3's scored entry at SCORED_WIDTH, by this code on any tree: the
+    lanes the 420 bp batch gives it (K1 -> K2; 49,152 x 132), max-
+    sensitivity's seeds and penalty (s = 2, g = 1, 5), event and device
+    ms, the bound (bytes, as ``k3s_cell``)."""
+    from umgap_tpu_torch.ops import seedextend
+
+    taxa, nk = inputs or _row_inputs(
+        torch, world, _rung_codes(world, SCORED_WIDTH), SCORED_WIDTH)[:2]
+    sc = world["dtax"].seed_scores
+    nl, NW = nk.numel(), taxa.shape[-1]
+
+    def k3rs():
+        return seedextend.seedextend_hits(taxa, nk, 2, 1, seed_scores=sc,
+                                          penalty=5)
+
+    return dict(shape=[nl, NW], ms=cuda_ms(torch, k3rs),
+                device_ms=device_ms(torch, k3rs),
+                bound_ms=bound(nl * (NW * 8 + 4) + sc.numel() * 4,
+                               nl * NW * 24)[0])
+
+
+def scored_ab(torch, world):
+    """K3's scored entry past the staged tile, by this code on any tree:
+    ``k3rs_cell`` at SCORED_WIDTH and at 512 bp, and on the synthetic
+    rows of 4,000 windows."""
+    out = {}
+    for L in (SCORED_WIDTH, 512):
+        taxa, nk, _h = _row_inputs(torch, world, _rung_codes(world, L), L)
+        out[f"N={taxa.shape[-1]}"] = k3rs_cell(torch, world, (taxa, nk))
+        del taxa, nk, _h
+    out["N=4000"] = k3rs_cell(torch, world, _k3_synthetic(torch,
+                                                          world["dev"]))
+    return out
+
+
+def redesign_ab(torch, world):
+    """K1P's and K3RS's numbers, by this code on any tree (``k1p_cells``,
+    ``k3rs_cell``), with what shares their sources: K1 and K3's staged
+    tile (``chain_device_ms`` at the workload's width) and K3's unscored
+    row kernel on rung 512's lanes and the synthetic 4,000-window rows
+    (``k3_cell`` unchecked)."""
+    out = dict(k1p=k1p_cells(torch, world), k3rs=k3rs_cell(torch, world),
+               chain=chain_device_ms(torch, world, world["L"]))
+    taxa, nk, _h = _row_inputs(torch, world, _rung_codes(world, 512), 512)
+    out["k3r"] = {"W=162": k3_cell(torch, taxa, nk, False, "rung 512")[0]}
+    del taxa, nk, _h
+    tr, lt = _k3_synthetic(torch, world["dev"])
+    out["k3r"]["W=4000"] = k3_cell(torch, tr, lt, False, "W=4000")[0]
+    k = out["k1p"]
+    log(f"redesign A/B: K1P gene {fmt_ms(k['gene']['device_ms'])} device "
+        f"({k['gene']['ms']:.4f} event), floor "
+        f"{fmt_ms(k['floor']['device_ms'])}, split {k['split']['launches']} "
+        f"launches {k['split']['device_ms']:.4f} (bound "
+        f"{k['split']['bound_ms']:.4f}); K3RS {out['k3rs']['shape']} "
+        f"{fmt_ms(out['k3rs']['device_ms'])} ({out['k3rs']['ms']:.4f} "
+        f"event); K3R " + ", ".join(f"{c} {fmt_ms(v['device_ms'])}"
+                                    for c, v in out["k3r"].items()))
+    return out
+
+
+# K1P's largest tile and K3RS's threads a lane, swept (``redesign_sweep``)
+K1P_SWEEP = (512, 1024, 2048)
+K3RS_SWEEP = ("staged", 16, 32)
+K3RS_SWEEP_WIDTHS = (330, 420, 512, 1024)  # N = 102, 132, 162, 333
+
+
+def redesign_sweep():
+    """The redesigned kernels' sizes, swept on this tree in one process
+    on one card: K1P's largest tile (K1P_TILE_MAX) on the gene batch and
+    the TSV split (its batches by ``events_ms``), and the scored mode
+    past 96 windows on the lanes K1 -> K2 give at K3RS_SWEEP_WIDTHS bp:
+    the staged tile (K3S) or K3RS with 16 or 32 threads a lane, each
+    held to the row formulation; K3RS also on the synthetic rows of
+    4,000 windows. Every value in
+    turns (the values, then in reverse); device ms. Writes
+    ``sweep_redesign.json`` under OUT_DIR.
+
+        python3 -c "import chip_smoke; chip_smoke.redesign_sweep()"
+    """
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("FAIL: redesign_sweep runs only on a GPU")
+    sys.path.insert(0, REPO)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    from umgap_tpu_torch.ops import kmers, seedextend
+
+    card = phase_identify(torch)
+    world = load_world(torch)
+    dev = world["dev"]
+    gene, calls = _k1p_gene_batch(torch, dev), _split_batches(torch, dev)
+    out = dict(card=card, k1p=[], k3rs={})
+    keep = kmers.K1P_TILE_MAX
+    for v in K1P_SWEEP + K1P_SWEEP[::-1]:
+        kmers.K1P_TILE_MAX = v
+        c = k1p_cells(torch, world, gene, calls, split_ms=events_ms)
+        out["k1p"].append(dict(value=v, gene=c["gene"]["device_ms"],
+                               floor=c["floor"]["device_ms"],
+                               split=c["split"]["device_ms"],
+                               batches=[b["device_ms"]
+                                        for b in c["split"]["batches"]]))
+        log(f"K1P tiles of up to {v} windows: gene "
+            f"{fmt_ms(c['gene']['device_ms'])}, split "
+            f"{c['split']['device_ms']:.4f} device ms (" + ", ".join(
+                f"{b['device_ms']:.4f}" for b in c["split"]["batches"])
+            + ")")
+    kmers.K1P_TILE_MAX = keep
+    sc = world["dtax"].seed_scores
+    keep = seedextend.STAGED_MAX_N, seedextend.scored_lane_threads
+    for L in K3RS_SWEEP_WIDTHS:
+        taxa, nk, _h = _row_inputs(torch, world, _rung_codes(world, L), L)
+        N = taxa.shape[-1]
+        want = seedextend.seedextend_scored_runs_plain(taxa, nk, sc, 5, 2, 1)
+        cells = []
+        for v in K3RS_SWEEP + K3RS_SWEEP[::-1]:
+            # "staged": seedextend_path moved past N for this call
+            seedextend.STAGED_MAX_N = N if v == "staged" else keep[0]
+            seedextend.scored_lane_threads = (lambda _n, v=v: v)
+            compare(torch, f"K3 scored N={N} {v}", seedextend.seedextend_hits(
+                taxa, nk, 2, 1, seed_scores=sc, penalty=5), want)
+            cells.append(dict(value=v, device_ms=k3rs_cell(
+                torch, world, (taxa, nk))["device_ms"]))
+            log(f"K3 scored N={N} ({nk.numel()} lanes) {v}: "
+                f"{fmt_ms(cells[-1]['device_ms'])} device ms")
+        out["k3rs"][f"N={N}"] = dict(lanes=nk.numel(), cells=cells)
+        del taxa, nk, _h, want
+    tr, lt = _k3_synthetic(torch, dev)  # 1,536 lanes of 4,000 windows
+    want = seedextend.seedextend_scored_runs_plain(tr, lt, sc, 5, 2, 1)
+    cells = []
+    seedextend.STAGED_MAX_N = keep[0]
+    for v in K3RS_SWEEP[1:] + K3RS_SWEEP[:0:-1]:
+        seedextend.scored_lane_threads = (lambda _n, v=v: v)
+        compare(torch, f"K3 scored N=4000 {v}", seedextend.seedextend_hits(
+            tr, lt, 2, 1, seed_scores=sc, penalty=5), want)
+        cells.append(dict(value=v, device_ms=k3rs_cell(
+            torch, world, (tr, lt))["device_ms"]))
+        log(f"K3 scored N=4000 (1536 lanes) {v}: "
+            f"{fmt_ms(cells[-1]['device_ms'])} device ms")
+    out["k3rs"]["N=4000"] = dict(lanes=lt.numel(), cells=cells)
+    seedextend.STAGED_MAX_N, seedextend.scored_lane_threads = keep
+    with open(os.path.join(OUT_DIR, "sweep_redesign.json"), "w") as f:
+        json.dump(out, f, indent=1, default=str)
+    return out
+
+
 # stash rows of the stash comparison: none, sizes up to the 48 KB that
 # fits a block's default shared memory (4,096 rows), and past the 227 KB
 # a block may opt in to
@@ -7180,7 +7449,8 @@ def ab_worker(tree, out, mode="full"):
     ``mode`` "chain" runs ``chain_device_ms`` at the workload's read
     length alone, "chains" at it and at 160, "tryptic" this file's ``tryptic_ab``, "wide" its
     ``wide_ab``, "long" its ``long_ab``, "rows" its ``rows_ab``, "tail"
-    its ``tail_ab``, "stash" its ``stash_ab``."""
+    its ``tail_ab``, "stash" its ``stash_ab``, "redesign" its
+    ``redesign_ab``, "scored" its ``scored_ab``."""
     import importlib.util
 
     import torch
@@ -7203,9 +7473,11 @@ def ab_worker(tree, out, mode="full"):
                 width: chain_device_ms(torch, world, width)
                 for width in (world["L"], 160)}), f, default=str)
         return
-    if mode in ("tryptic", "wide", "long", "rows", "tail", "stash"):
+    if mode in ("tryptic", "wide", "long", "rows", "tail", "stash",
+                "redesign", "scored"):
         fn = dict(tryptic=tryptic_ab, wide=wide_ab, long=long_ab,
-                  rows=rows_ab, tail=tail_ab, stash=stash_ab)[mode]
+                  rows=rows_ab, tail=tail_ab, stash=stash_ab,
+                  redesign=redesign_ab, scored=scored_ab)[mode]
         with open(out, "w") as f:
             json.dump({"tree": tree, "card": card,
                        "ptxas": t.RESULT.get("ptxas"),

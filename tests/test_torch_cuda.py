@@ -115,23 +115,42 @@ def _k1p_lanes(rng, n, P):
     return aa, lens
 
 
-@pytest.mark.parametrize("P", [1, 5, 8, 9, 16, 33, 64, 1000, 8000, 40000])
+@pytest.mark.parametrize("P", [1, 5, 8, 9, 15, 16, 17, 33, 64, 1000, 1999,
+                               8000, 30000, 40000])
 def test_proteins_to_kmers_kernel(dev, P):
     """K1P against its plain version: P < 9 (one zero-padded, invalid
-    window a lane), exactly 9, the gene widths 16-64 (64 at the CLI's gene
-    batch of 1,024 groups x 4 lanes), wide lanes (8,000: fewer lanes a
-    block, over 48 KB of shared memory; 40,000: the direct kernel), lane
-    counts that are no multiple of the block's."""
+    window a lane), exactly 9, 15 and 16 (7 and 8 windows a lane: the
+    byte fold and the register fold), the gene widths 16-64 (64 at the
+    CLI's gene batch of 1,024 groups x 4 lanes), the split's length
+    classes (1,999; 30,000 and 40,000 past the first design's tile),
+    lane counts that fill no whole tile."""
     rng = np.random.default_rng(P)
     for n in (1, 7, 4096 if P <= 64 else 20):
         _k1p_check(dev, *_k1p_lanes(rng, n, P))
 
 
-@pytest.mark.parametrize("P", [33, 64])
-@pytest.mark.parametrize("offset", [1, 3, 7])
+@pytest.mark.parametrize("tile_max", [256, 1024, 2048])
+@pytest.mark.parametrize("n,P", [(37, 64), (293, 64), (4096, 64),
+                                 (1, 2056), (3, 2057), (8392, 1999),
+                                 (5, 32767), (50, 12), (50, 13)])
+def test_proteins_to_kmers_kernel_tiles(dev, monkeypatch, n, P, tile_max):
+    """K1P's tiles at their edges: windows a call that fill a tile
+    exactly (1 x 2,048) or one past it (3 x 2,049), tiles that end inside
+    a lane and lanes that end inside a tile, tiles of 256 to 2,048
+    windows (a warp's 256 whole or cut), the split's largest batch, and 4
+    and 5 windows a lane (a lane edge in most runs of 4)."""
+    monkeypatch.setattr(kmers, "K1P_TILE_MAX", tile_max)
+    monkeypatch.setattr(kmers, "K1P_TILE_MIN", min(256, tile_max))
+    rng = np.random.default_rng(n + P)
+    _k1p_check(dev, *_k1p_lanes(rng, n, P))
+
+
+@pytest.mark.parametrize("P", [33, 64, 1999])
+@pytest.mark.parametrize("offset", [1, 3, 4, 7, 8])
 def test_proteins_to_kmers_kernel_unaligned(dev, P, offset):
     """Lanes whose span starts off a 16-byte boundary (a row slice of a
-    larger tensor): the ragged head and tail take byte loads."""
+    larger tensor): the ragged head and tail take byte loads, an 8-byte
+    aligned batch the register fold, any other the byte fold."""
     rng = np.random.default_rng(offset)
     aa, lens = _k1p_lanes(rng, 300, P)
     flat = torch.from_numpy(np.concatenate(
@@ -1023,6 +1042,8 @@ def _k3s_check(dev, taxa, lens, s, g, penalty, runs=False):
     if runs:
         _eq((got,), (seedextend.seedextend_scored_runs_plain(
             tx, ln, sc, penalty, s, g),))
+        _eq((got,), (seedextend.seedextend_scored_walk_plain(
+            tx, ln, sc, penalty, s, g),))
     return got
 
 
@@ -1061,14 +1082,33 @@ def test_seedextend_scored_kernel_shapes_and_alignment(dev):
     assert not got[0].any() and not got[2].any() and got[1, 6:9].all()
 
 
-@pytest.mark.parametrize("N", LADDER_W + (4000,))
-def test_seedextend_scored_rows_kernel(dev, N):
-    """K3's scored row kernel at each rung of the width ladder and at
-    4,000 windows, against the plain version and the row formulation."""
+@pytest.mark.parametrize("lane_threads", [16, 32])
+@pytest.mark.parametrize("N", (97, 128, 129, 132, 160, 255, 256, 257) +
+                         LADDER_W + (4000,))
+def test_seedextend_scored_rows_kernel(dev, monkeypatch, N, lane_threads):
+    """K3's scored row kernel (K3RS) with 16 and 32 threads a lane, at
+    widths on both sides of its 16-, 32-, 144- and 256-window edges, at
+    each rung of the width ladder and at 4,000 windows, against the
+    plain version and both row formulations; b2 at a chunk edge (lanes
+    opening with 31, 32, 127 and 128 zeros, g = 128), and a negative
+    penalty (b2's push tied by a later unscored seed)."""
+    monkeypatch.setattr(seedextend, "scored_lane_threads",
+                        lambda _n: lane_threads)
     rng = np.random.default_rng(N + 1)
     taxa, lens = _scored_lanes(rng, 131, N)
     taxa[5] = np.arange(N) % 3  # one-window runs
-    for s, g, penalty in ((2, 0, 5), (3, 1, 0), (1, 2, 9)):
+    for i, z in enumerate((31, 32, 127, 128)):
+        if z + 8 < N:
+            taxa[6 + i] = 0
+            taxa[6 + i, z:z + 2] = 5
+            taxa[6 + i, z + 4:z + 7] = 7
+            lens[6 + i] = N
+    taxa[10] = 0
+    taxa[10, 1] = 5  # b2 at 1; 4 unscored windows after a gap of 4
+    taxa[10, 6:10] = 2
+    lens[10] = N
+    for s, g, penalty in ((2, 0, 5), (3, 1, 0), (1, 2, 9), (1, 1, -3),
+                          (2, 128, 5)):
         _k3s_check(dev, taxa, lens, s, g, penalty, runs=True)
 
 
@@ -1866,7 +1906,8 @@ def test_dedup_kernel_weights_in_input_order(dev, N, monkeypatch):
                 t for t in want[b] if t in kept]
 
 
-@pytest.mark.parametrize("N", [25, 45, 52, 96, 97, 420, 4000])
+@pytest.mark.parametrize("N", [25, 45, 52, 96, 97, 128, 129, 132, 160, 420,
+                               4000])
 def test_seedextend_scored_mask_kernel(dev, N):
     """K3's scored entries with the mask epilogue (``seedextend -r``):
     the keep mask against the plain version and the row formulation,

@@ -220,3 +220,13 @@ def test_seedextend_path():
         == ["staged"] * 4 + ["rows"] * 2
     assert pseed.seedextend_path(3601) == "rows"
     assert pseed.seedextend_path(6661) == "rows"
+
+
+def test_scored_lane_threads():
+    """K3RS's threads a lane by row width (past the staged tile's 96
+    windows, where the scored staged tile took longer on the H100): 16
+    on the short rows, a warp from 512 windows."""
+    assert [pseed.seedextend_path(n) for n in (96, 97)] == ["staged", "rows"]
+    assert [pseed.scored_lane_threads(n) for n in (97, 132, 333, 511)] \
+        == [16] * 4
+    assert [pseed.scored_lane_threads(n) for n in (512, 3992)] == [32] * 2

@@ -70,16 +70,17 @@ def mock(smoke, tmp_path_factory):
 # K1P's plain version
 # ---------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("P", [1, 5, 8, 9, 10, 16, 64])
+@pytest.mark.parametrize("P", [1, 5, 8, 9, 10, 16, 64, 1000, 8000, 30000])
 def test_pack_windows_batch_matches_jax(P):
-    """Random bytes (AA codes and beyond), lengths from 0 to P with 0 and
-    9 among them; P < 9 pads to one invalid window."""
+    """Random bytes (AA codes and beyond), lengths from 0 to P with 0,
+    one below 9, 9 and P among them; P < 9 pads to one invalid window;
+    a few wide lanes at the widths K1P's tiles cut inside a lane."""
     rng = np.random.default_rng(P)
-    N = 97
+    N = 97 if P <= 64 else 5
     aa = rng.integers(0, 256, size=(N, P)).astype(np.uint8)
     aa[: N // 2] %= 32
     lens = rng.integers(0, P + 1, size=N).astype(np.int32)
-    lens[:3] = (0, min(9, P), P)
+    lens[:4] = (0, min(9, P), P, min(5, P))
     want = jkmers.pack_windows_batch(aa, lens, 9)
     got = pkmers.pack_windows_batch(torch.from_numpy(aa),
                                     torch.from_numpy(lens), 9)
@@ -91,7 +92,69 @@ def test_pack_windows_batch_matches_jax(P):
     assert got[0].shape == (N, max(P - 8, 1))
 
 
+def _k1p_tiles(n_lanes, P, k, tile):
+    """K1P's tiles as its blocks take them (``csrc/reads_to_kmers.cu``):
+    (first window, end window, first residue, end residue) rows, windows
+    flattened as lane * W + w and residues as lane * P + i; a block
+    stages residues [first, end)."""
+    W = max(P - k + 1, 1)
+    n_out = n_lanes * W
+    o0 = np.arange(0, n_out, tile, dtype=np.int64)
+    o1 = np.minimum(o0 + tile, n_out)
+    last = o1 - 1
+    first = o0 // W * P + o0 % W
+    end = last // W * P + last % W + min(k, P)
+    return np.stack([o0, o1, first, end], axis=1)
+
+
+def _k1p_stage_bytes(tile, W, k):
+    """The kernel's ``k1p_stage_bytes``: a tile's run of residues at most,
+    its 16-byte alignment head and the register fold's read past it."""
+    n = tile - 1 + (k - 1) * ((tile - 1) // W + 1) + k + 15 + 32
+    return (n + 15) & ~15
+
+
+@pytest.mark.parametrize("sms", [1, 4, 132])
+@pytest.mark.parametrize("N,P,k", [(4096, 64, 9), (32, 64, 9), (1, 2056, 9),
+                                   (3, 2057, 9), (8392, 1999, 9),
+                                   (5, 30000, 9), (23, 34974, 9),
+                                   (33, 5, 9), (40, 12, 9), (40, 15, 9),
+                                   (20, 40, 5), (20, 40, 10), (7, 3, 1)])
+def test_k1p_plan_covers_every_window_once(N, P, k, sms):
+    """K1P's host plan: the tile a multiple of 8 within its bounds, at
+    least two tiles an SM where the call has the windows, a block a tile;
+    the tiles cover every window exactly once, and each tile's run of
+    residues holds every residue of its windows, fits its stage buffer
+    and, for the register fold, starts each thread's run of 4 windows on
+    a 4-byte word."""
+    W = max(P - k + 1, 1)
+    n_out = N * W
+    tile, blocks = pkmers.k1p_plan(n_out, sms)
+    assert tile % 8 == 0 and pkmers.K1P_TILE_MIN <= tile <= \
+        pkmers.K1P_TILE_MAX
+    tiles = _k1p_tiles(N, P, k, tile)
+    assert blocks == len(tiles)
+    if n_out >= 2 * sms * pkmers.K1P_TILE_MIN and \
+            n_out <= 2 * sms * pkmers.K1P_TILE_MAX:
+        assert len(tiles) >= 2 * sms
+    o0, o1, first, end = tiles.T
+    assert o0[0] == 0 and o1[-1] == n_out and (o0[1:] == o1[:-1]).all()
+    assert ((o1 - o0) <= tile).all() and (o0 % 8 == 0).all()
+    cover = np.zeros(n_out, np.int64)
+    stage = _k1p_stage_bytes(tile, W, k)
+    for a, b, f, e in tiles:
+        o = np.arange(a, b)
+        cover[o] += 1
+        r0 = o // W * P + o % W
+        assert (r0 >= f).all() and (r0 + min(k, P) <= e).all()
+        assert e - f + 15 + 32 <= stage
+        if k == 9 and W >= 4:  # the register fold: 4-byte aligned reads
+            assert f % 8 == 0 and ((r0[::4] - f) % 4 == 0).all()
+    assert (cover == 1).all()
+
+
 # ---------------------------------------------------------------------- #
+# The protein step and Analyser# ---------------------------------------------------------------------- #
 # The protein step and Analyser
 # ---------------------------------------------------------------------- #
 

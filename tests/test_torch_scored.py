@@ -1,7 +1,8 @@
 """Scored seed-extend (``PipelineConfig.ranked``, the reference's
 ``seedextend -r``) in the port against ``umgap_tpu``: the plain version
 (``seedextend_scored_hits_plain``) and the row kernel's formulation
-(``seedextend_scored_runs_plain``) against ``seedextend_scored_mask_batch``
+(``seedextend_scored_runs_plain``) and K3RS's
+(``seedextend_scored_walk_plain``) against ``seedextend_scored_mask_batch``
 and its select, the host route's ``apply_seedextend(tax=...)``, the
 ``Analyser`` of the four 9-mer presets with ``ranked=True`` at 100 bp
 (the staged tile's widths) and 420 bp (the row kernel's), the wide
@@ -13,6 +14,7 @@ import importlib.util
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -135,6 +137,92 @@ def test_scored_plain_edge_lanes_match_jax():
         torch.from_numpy(lens.reshape(20, 6)), 3, 1, seed_scores=sc)
     np.testing.assert_array_equal(
         got.numpy(), np.where(np.asarray(keep), t.reshape(20, 6, 45), 0))
+
+
+def _walk_lanes(rng, N, g, n=24):
+    """``_lanes`` plus the walk's edges: lanes opening with g zeros and
+    g - 1 (b2 at g or g - 1, its next position at a G-window edge when g
+    is 31 or 127), lengths 0, 1 and N."""
+    t, lens = _lanes(rng, n, N, g)
+    for i, z in enumerate((g, max(g - 1, 0))):
+        if z < N - 4:
+            t[i, :z] = 0
+            t[i, z:z + 3] = 5
+            t[i, z + 3:z + 5] = 0
+            lens[i] = N
+    lens[-3:] = (0, 1, N)
+    t[-2, 0] = 4
+    if g:  # b2's push (start > stop) tied by a later seed of 4 unscored
+        t[2] = 0
+        t[2, 1] = 5
+        t[2, g + 4:g + 8] = 2
+        lens[2] = N
+    return t, lens
+
+
+# umgap_tpu's scored mask, compiled once a shape (s, g and the penalty
+# traced) rather than dispatched op by op
+_jscored = jax.jit(jseed.seedextend_scored_mask_batch)
+
+
+def _hold_walk(t, lens, scores, penalty, s, g):
+    keep = _jscored(jnp.asarray(t), jnp.asarray(lens), jnp.asarray(scores),
+                    penalty, s, g)
+    want = np.where(np.asarray(keep), t, 0)
+    tt, ln = torch.from_numpy(t), torch.from_numpy(lens)
+    sc = torch.from_numpy(scores)
+    for hits in (True, False)[:1 if t.shape[-1] > 160 else 2]:
+        got = seedextend.seedextend_scored_walk_plain(tt, ln, sc, penalty, s,
+                                                      g, hits=hits)
+        np.testing.assert_array_equal(
+            got.numpy(), want if hits else np.asarray(keep))
+    np.testing.assert_array_equal(seedextend.seedextend_scored_runs_plain(
+        tt, ln, sc, penalty, s, g).numpy(), want)
+    return want
+
+
+@pytest.mark.parametrize("penalty", [0, 5])
+@pytest.mark.parametrize("g", [0, 1, 2])
+@pytest.mark.parametrize("s", [1, 2, 3])
+def test_scored_walk_plain_matches_jax(s, g, penalty):
+    """K3RS's formulation (``seedextend_scored_walk_plain``: scores looked
+    up first, candidates found as the walk goes, b2's stop adding taxon
+    0's score) and the row formulation equal umgap_tpu's scored mask and
+    select at the row kernel's widths, past the staged tile to 4,000
+    windows; with ties, unscored and out-of-table ids, a table with a
+    negative score, and lengths 0, 1 and N."""
+    rng = np.random.default_rng(1000 * s + 10 * g + penalty)
+    neg = SEED_SCORES.copy()
+    neg[5] = -4
+    for N in (97, 128, 129, 132, 160, 420, 4000):
+        t, lens = _walk_lanes(rng, N, g, n=24 if N < 4000 else 8)
+        want = _hold_walk(t, lens, SEED_SCORES if N % 2 else neg, penalty,
+                          s, g)
+        assert want.any()
+
+
+@pytest.mark.parametrize("penalty", [-3, -1])
+@pytest.mark.parametrize("g", [1, 2, 31])
+def test_scored_walk_plain_negative_penalty_matches_jax(g, penalty):
+    """With a negative penalty a push out of b2's gap (start > stop, a
+    score of minus the taxon at b2's) can be the best, or tie a later
+    seed of unscored taxa (which the later one wins): b2's moved stop
+    must add the gap's score (taxon 0's)."""
+    rng = np.random.default_rng(50 + g - penalty)
+    for N in (97, 132, 160):
+        t, lens = _walk_lanes(rng, N, g)
+        for s in (1, 2):
+            _hold_walk(t, lens, SEED_SCORES, penalty, s, g)
+
+
+@pytest.mark.parametrize("g", [31, 32, 127, 128])
+def test_scored_walk_plain_chunk_edges_match_jax(g):
+    """b2 and the position after it on both sides of a 32- and a
+    128-window edge (lanes opening with g and g - 1 zeros)."""
+    rng = np.random.default_rng(g)
+    for N, s, penalty in ((132, 2, 5), (160, 1, 0), (300, 3, 5)):
+        t, lens = _walk_lanes(rng, N, g)
+        _hold_walk(t, lens, SEED_SCORES, penalty, s, g)
 
 
 @pytest.mark.parametrize("penalty", [0, 5, 9])

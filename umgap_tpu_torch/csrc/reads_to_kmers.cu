@@ -357,141 +357,232 @@ int launch(const void* reads, int row_bytes, int packed, const void* lengths,
 
 // ---- K1P proteins_to_kmers -------------------------------------------
 // Replaces umgap_tpu/ops/kmers.py:76 pack_windows_batch on the protein
-// path (umgap_tpu/pipeline/proteins.py:33, FGSpp's predicted genes): the
-// TPU version builds each key from k shifted slices of the batch, about
-// 20 PyTorch launches here. Bound on the H100: bytes. Per lane it reads
+// path (umgap_tpu/pipeline/proteins.py:33, FGSpp's predicted genes; the
+// TSV split of buildindex-dist, index/scale.py; prot2kmer2lca): the TPU
+// version builds each key from k shifted slices of the batch, about 20
+// PyTorch launches here. Bound on the H100: bytes. Per lane it reads
 // P + 4 bytes and writes 9 * W (hi, lo int32, valid bool): at the CLI's
 // gene batch (4,096 lanes of P = 64) 0.26 MB in and 2.1 MB out, under a
-// microsecond at the HBM rate, so one launch's own cost dominates.
+// microsecond at the HBM rate, so one launch's own cost dominates; the
+// split's batches of 8,392 proteins of up to 1,999 residues write 151 MB
+// each.
 //
-// One block owns R consecutive lanes (R a multiple of 8, so its output
-// span starts on 8 elements). Phase 1 as K1's: the lanes' R * P residue
-// bytes (one contiguous run) land in shared memory with 16-byte loads,
-// aa[R][P] (K1's aa buffer with NRES = P); phase 3 as K1's: one thread
-// per eight consecutive outputs of the span, stored in memory order.
-// Each window is folded from its k residues (hi: the first k - 5, lo:
-// the last 5), not rolled, so codes above 31 give the plain version's
-// bits too; residues past P read as 0 (a batch with P < k has one
-// window, zero padded and invalid).
-template <int KT>
+// What held the first design (one block of R whole lanes, one window
+// folded from k byte loads of shared memory) back: R lanes a block made
+// the gene batch 128 blocks, under one an SM, and wide proteins (past
+// ~29,000 residues) a direct kernel reading every residue k times; the
+// byte loads (72 a thread, 2-way bank conflicts), a division a step, and
+// a load phase that never overlapped the packing.
+//
+// Design: the outputs, flattened (lane * W + w), are cut into tiles of
+// `tile` windows (a multiple of 8, up to 2,048), one a block; the wrapper
+// sizes the tile so that a call makes at least two blocks an SM where it
+// can (ops/kmers.py k1p_plan). Output o = lane * W + w reads residues
+// lane * P + w .. + k - 1, so a tile's windows read one contiguous run
+// of the batch: from its first window's first residue to its last
+// window's last, which is the run plus k - 1 residues a lane piece. The
+// block copies that run into shared memory with 16-byte loads (the
+// ragged ends by bytes); every lane width is tiled (no direct kernel).
+// A warp packs 256 consecutive windows of the tile, a thread two runs of
+// 4 of them 128 windows apart, so that each of the warp's 16-byte stores
+// of hi and lo, and 4-byte stores of the valid flags, covers 512 (128)
+// consecutive bytes; a thread's lane and window come from the tile's by
+// a small division. At k = 9 with W >= 4 and a 4-byte aligned batch (the
+// main paths), output o's first residue lies 8 * lane past o, so a
+// run's first residue is 4-byte aligned in the copy: the thread reads
+// the 20 bytes its 4 windows can span (a lane edge among them moves the
+// later windows on by k - 1 = 8 bytes, two 4-byte words) with five
+// 4-byte shared loads and folds each window from registers. Other
+// shapes (k != 9, W < 4, an unaligned batch) fold each window from k
+// byte loads of the run. A window is folded from its k residues (hi: the
+// first k - 5, lo: the last 5), never rolled, so codes above 31 give the
+// plain version's bits too; residues past P read as 0 (a batch with P <
+// k has one window a lane, zero padded and invalid).
+//
+// Swept on the H100 (chip_smoke.py redesign_sweep; PERF.md section 6):
+// a thread's 8 consecutive windows (store_outputs' pattern, two 16-byte
+// stores 32 bytes apart a thread) took 0.366 ms on the build's TSV split
+// against 0.258 for runs of 4; a persistent grid whose blocks copy the
+// next tile with cp.async while packing this one (2 stage buffers, 4 or
+// 8 blocks an SM) took 0.266-0.272, so a block takes one tile; tiles of
+// at most 512 or 1,024 windows took 0.247, of 2,048 0.256.
+
+// windows a tile at most
+constexpr int kTileMax = 2048;
+
+// Bytes of a tile's stage buffer: its run of residues (at most tile - 1 +
+// (k - 1) * (lane edges crossed + 1) + k), the 16-byte alignment head
+// before it and the fast path's read past its end.
+inline int k1p_stage_bytes(int tile, int W, int k) {
+  return align16(tile - 1 + (k - 1) * ((tile - 1) / W + 1) + k + 15 + 32);
+}
+
+// (x / W, x % W) of a window count, by a 32-bit division where x fits
+struct LaneWin {
+  long long lane;
+  int w;
+};
+
+__device__ __forceinline__ LaneWin lane_win(long long x, int W) {
+  if (x <= 0x7FFFFFFFLL) {
+    const unsigned q = (unsigned)x / (unsigned)W;
+    return LaneWin{(long long)q, (int)((unsigned)x - q * (unsigned)W)};
+  }
+  const long long q = x / W;
+  return LaneWin{q, (int)(x - q * W)};
+}
+
+// KT: k as a constant (9) or 0 for k_rt. FAST: k = 9, W >= 4 and a
+// 4-byte aligned batch (see the note above).
+template <int KT, bool FAST>
 __global__ void __launch_bounds__(THREADS) proteins_to_kmers_kernel(
     const uint8_t* __restrict__ aa, int P,
     const int32_t* __restrict__ lengths, int n_lanes, int k_rt,
     int32_t* __restrict__ hi, int32_t* __restrict__ lo,
-    uint8_t* __restrict__ valid, int W, int R) {
+    uint8_t* __restrict__ valid, int W, int tile) {
   const int k = KT ? KT : k_rt;
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * R;
-  const int nr = min(R, n_lanes - r0);
-
-  // ---- 1. load: byte i of the span lands at s_aa[i] --------------------
-  const uint8_t* g0 = aa + (long long)r0 * P;
-  const int span = nr * P;
-  const int head = (int)((uintptr_t)g0 & 15);
-  const int lead = min((16 - head) & 15, span);
-  const int nvec = (span - lead) >> 4;
-  const int tail0 = lead + (nvec << 4);
-  uint8_t* s_aa = smem + head;
-  if (tid < lead) s_aa[tid] = g0[tid];
-  {
-    const uint4* gv = (const uint4*)(g0 + lead);
-    uint4* sv = (uint4*)(s_aa + lead);
-    for (int v = tid; v < nvec; v += THREADS) sv[v] = __ldg(gv + v);
-  }
-  for (int i = tail0 + tid; i < span; i += THREADS) s_aa[i] = g0[i];
-  __syncthreads();
-
-  // ---- 3. pack and store, in memory order: 8 outputs a thread --------
+  const int kp = k < P ? k : P;  // residues of a lane's last window
   const int n_hi = k - (k < 5 ? k : 5);
-  const int n_out = nr * W;
-  const long long o0 = (long long)r0 * W;  // a multiple of 8: R % 8 == 0
-  for (int q = tid * 8; q < n_out; q += THREADS * 8) {
-    int lane = q / W;
-    int w = q - lane * W;
-    int32_t h[8], l[8];
-    uint32_t vb[2] = {0, 0};
-    const int n = min(8, n_out - q);
-    long long n_valid = (long long)lengths[r0 + lane] - (k - 1);
+  extern __shared__ __align__(16) uint8_t smem[];
+  const long long n_out = (long long)n_lanes * W;
+  const long long o0 = (long long)blockIdx.x * tile;  // the tile's windows
+  const long long o1 = min(o0 + tile, n_out);
+  const int tid = threadIdx.x;
+
+  // ---- the tile's run: residues [first, end) ---------------------------
+  const LaneWin ts = lane_win(o0, W), te = lane_win(o1 - 1, W);
+  const long long first = ts.lane * P + ts.w;
+  const long long end = te.lane * P + te.w + kp;
+  {
+    const uint8_t* g0 = aa + first;
+    const int n = (int)(end - first);
+    const int head = (int)((uintptr_t)g0 & 15);
+    const int lead = min((16 - head) & 15, n);
+    const int nvec = (n - lead) >> 4;
+    const int tail0 = lead + (nvec << 4);
+    uint8_t* sd = smem + head;  // byte i of the run at smem[head + i]
+    if (tid < lead) sd[tid] = g0[tid];
+    const uint4* gv = (const uint4*)(g0 + lead);
+    uint4* sv = (uint4*)(sd + lead);
+    for (int v = tid; v < nvec; v += blockDim.x) sv[v] = __ldg(gv + v);
+    for (int i = tail0 + tid; i < n; i += blockDim.x) sd[i] = g0[i];
+  }
+  __syncthreads();
+  const uint8_t* run = smem + (int)((uintptr_t)(aa + first) & 15);
+
+  // ---- pack and store: two runs of 4 windows a thread ------------------
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      if (e < n) {
-        const uint8_t* a = s_aa + lane * P;
+  for (int j = 0; j < 2; ++j) {
+    const int off = 256 * (tid >> 5) + 128 * j + 4 * (tid & 31);
+    const long long q = o0 + off;  // the run's first window
+    if (q >= o1) continue;
+    const int n = (int)min(4LL, o1 - q);
+    // its (lane, window): the tile's first, moved on by off < 2,048
+    LaneWin me = ts;
+    {
+      const int dl = off / W, dw = off - dl * W;
+      me.lane += dl;
+      me.w += dw;
+      if (me.w >= W) {
+        me.w -= W;
+        ++me.lane;
+      }
+    }
+    int32_t h[4], l[4];
+    uint32_t vb = 0;
+    if constexpr (FAST) {
+      // bytes 0..19 from the run's first residue: u[0..5)
+      const uint32_t* p = (const uint32_t*)(run + (me.lane * P + me.w - first));
+      uint32_t u[5];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) u[i] = p[i];
+      const int left = W - me.w;  // windows before the lane edge
+      const long long n0 = (long long)lengths[me.lane] - 8;
+      const long long n1 = (left < n && me.lane + 1 < n_lanes)
+                               ? (long long)lengths[me.lane + 1] - 8
+                               : 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool next = e >= left;  // in the next lane: 8 bytes on
+        uint32_t sw[3];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) sw[i] = next ? u[i + 2] : u[i];
         uint32_t kh = 0, kl = 0;
-        for (int i = 0; i < k; ++i) {
-          const uint32_t c = w + i < P ? a[w + i] : 0u;
-          if (i < n_hi)
-            kh = (kh << 5) | c;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          const int x = e + i;
+          const uint32_t c8 = (sw[x >> 2] >> (8 * (x & 3))) & 0xFFu;
+          if (i < 4)
+            kh |= c8 << (5 * (3 - i));
           else
-            kl = (kl << 5) | c;
+            kl |= c8 << (5 * (8 - i));
         }
         h[e] = (int32_t)kh;
         l[e] = (int32_t)kl;
-        vb[e >> 2] |= (uint32_t)(w < n_valid) << (8 * (e & 3));
-        if (++w == W && e + 1 < n) {
-          w = 0;
-          ++lane;
-          n_valid = (long long)lengths[r0 + lane] - (k - 1);
+        const int wi = next ? e - left : me.w + e;
+        vb |= (uint32_t)(wi < (next ? n1 : n0)) << (8 * e);
+      }
+    } else {
+      long long lane = me.lane;
+      int w = me.w;
+      long long n_valid = (long long)lengths[lane] - (k - 1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e < n) {
+          const uint8_t* a = run + (lane * P + w - first);
+          uint32_t kh = 0, kl = 0;
+          for (int i = 0; i < k; ++i) {
+            const uint32_t c = w + i < P ? a[i] : 0u;
+            if (i < n_hi)
+              kh = (kh << 5) | c;
+            else
+              kl = (kl << 5) | c;
+          }
+          h[e] = (int32_t)kh;
+          l[e] = (int32_t)kl;
+          vb |= (uint32_t)(w < n_valid) << (8 * e);
+          if (++w == W && e + 1 < n) {
+            w = 0;
+            ++lane;
+            n_valid = (long long)lengths[lane] - (k - 1);
+          }
         }
       }
     }
-    store_outputs(hi, lo, valid, o0 + q, h, l, vb, n);
+    if (n == 4) {  // q % 4 == 0: 16-byte aligned
+      *(int4*)(hi + q) = make_int4(h[0], h[1], h[2], h[3]);
+      *(int4*)(lo + q) = make_int4(l[0], l[1], l[2], l[3]);
+      *(uint32_t*)(valid + q) = vb;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e < n) {
+          hi[q + e] = h[e];
+          lo[q + e] = l[e];
+          valid[q + e] = (uint8_t)(vb >> (8 * e));
+        }
+      }
+    }
   }
 }
 
-// Lanes too wide for the tile even at R = 8 (more than about 29,000
-// residues): one thread an output window, its residues from global
-// memory (L1/L2; neighbouring threads share most of them).
-__global__ void proteins_to_kmers_direct(
-    const uint8_t* __restrict__ aa, int P,
-    const int32_t* __restrict__ lengths, int n_lanes, int k,
-    int32_t* __restrict__ hi, int32_t* __restrict__ lo,
-    uint8_t* __restrict__ valid, int W) {
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= (long long)n_lanes * W) return;
-  const long long lane = q / W;
-  const int w = (int)(q - lane * W);
-  const uint8_t* a = aa + lane * P;
-  const int n_hi = k - (k < 5 ? k : 5);
-  uint32_t kh = 0, kl = 0;
-  for (int i = 0; i < k; ++i) {
-    const uint32_t c = w + i < P ? __ldg(a + w + i) : 0u;
-    if (i < n_hi)
-      kh = (kh << 5) | c;
-    else
-      kl = (kl << 5) | c;
-  }
-  hi[q] = (int32_t)kh;
-  lo[q] = (int32_t)kl;
-  valid[q] = (uint8_t)(w < (long long)lengths[lane] - (k - 1));
-}
-
-template <int KT>
+template <int KT, bool FAST>
 int launch_proteins(const void* aa, int P, const void* lengths, int n_lanes,
-                    int k, void* hi, void* lo, void* valid, int W, int R,
+                    int k, void* hi, void* lo, void* valid, int W, int tile,
                     cudaStream_t stream) {
-  // wide proteins: halve R (down to 8) to keep a block within 48 KB,
-  // then opt in to more
-  while (R > 8 && align16(R * P + 16) > 48 * 1024) R /= 2;
-  const size_t smem = (size_t)align16(R * P + 16);
-  if (smem > (size_t)kSmemMax) {  // too wide for the tile: direct kernel
-    const long long n = (long long)n_lanes * W;
-    proteins_to_kmers_direct<<<(unsigned)((n + THREADS - 1) / THREADS),
-                               THREADS, 0, stream>>>(
-        (const uint8_t*)aa, P, (const int32_t*)lengths, n_lanes, k,
-        (int32_t*)hi, (int32_t*)lo, (uint8_t*)valid, W);
-    return (int)cudaGetLastError();
-  }
+  const size_t smem = (size_t)k1p_stage_bytes(tile, W, k);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        proteins_to_kmers_kernel<KT>,
+        proteins_to_kmers_kernel<KT, FAST>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int blocks = (n_lanes + R - 1) / R;
-  proteins_to_kmers_kernel<KT><<<blocks, THREADS, smem, stream>>>(
+  const long long blocks = ((long long)n_lanes * W + tile - 1) / tile;
+  const int threads = (tile + 255) / 256 * 32;  // a warp a 256 windows
+  proteins_to_kmers_kernel<KT, FAST><<<(unsigned)blocks, threads, smem,
+                                       stream>>>(
       (const uint8_t*)aa, P, (const int32_t*)lengths, n_lanes, k,
-      (int32_t*)hi, (int32_t*)lo, (uint8_t*)valid, W, R);
+      (int32_t*)hi, (int32_t*)lo, (uint8_t*)valid, W, tile);
   return (int)cudaGetLastError();
 }
 
@@ -533,21 +624,24 @@ extern "C" int reads_to_kmers_packed(const void* args) {
 
 // K1P: AA codes (n_lanes, P) uint8 and lengths (n_lanes,) int32 -> hi, lo
 // (n_lanes, W) int32 and valid (n_lanes, W) bool, W = max(P - k + 1, 1).
-// R: lanes per block, a multiple of 8 (hi, lo and valid must be
-// allocations of their own), halved for wide proteins.
+// tile: windows a block, a multiple of 8 up to 2,048 (hi, lo and valid
+// must be allocations of their own; ops/kmers.py k1p_plan).
 extern "C" int proteins_to_kmers(const void* aa, int P, const void* lengths,
                                  int n_lanes, int k, void* hi, void* lo,
-                                 void* valid, int W, int R, void* stream) {
+                                 void* valid, int W, int tile, void* stream) {
   if (n_lanes <= 0) return 0;
-  if (R < 8 || (R & 7) || k < 1 || k > 10 || P < 1 ||
-      W != (P - k + 1 > 1 ? P - k + 1 : 1))
+  if (tile < 8 || tile > kTileMax || (tile & 7) || k < 1 || k > 10 ||
+      P < 1 || W != (P - k + 1 > 1 ? P - k + 1 : 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (k == 9 && W >= 4 && ((uintptr_t)aa & 3) == 0)
+    return launch_proteins<9, true>(aa, P, lengths, n_lanes, k, hi, lo,
+                                    valid, W, tile, s);
   if (k == 9)
-    return launch_proteins<9>(aa, P, lengths, n_lanes, k, hi, lo, valid, W,
-                              R, s);
-  return launch_proteins<0>(aa, P, lengths, n_lanes, k, hi, lo, valid, W, R,
-                            s);
+    return launch_proteins<9, false>(aa, P, lengths, n_lanes, k, hi, lo,
+                                     valid, W, tile, s);
+  return launch_proteins<0, false>(aa, P, lengths, n_lanes, k, hi, lo, valid,
+                                   W, tile, s);
 }
 
 extern "C" int proteins_to_kmers_packed(const void* args) {

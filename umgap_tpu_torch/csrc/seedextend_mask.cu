@@ -85,11 +85,13 @@
 // [start, stop) inside the length, 0 elsewhere, or with the mask
 // epilogue their keep flags (what `seedextend -r` prints is the kept
 // windows' taxa, zeros inside the seed included, so it needs the mask).
-// The staged tile needs no delta row for it; the row kernel steps P over
-// a run as run length x the run's score (the taxon is constant between
-// two candidates), lists no intervals and writes the row once, at the
-// end. ops/seedextend.py seedextend_scored_runs_plain is the row
-// kernel's formulation in PyTorch.
+// The staged tile needs no delta row for it; past it the scored mode has
+// a row kernel of its own, K3RS (seedextend_rows_scored_kernel, below:
+// G threads a lane, the scores looked up ahead of the walk), which steps
+// P over a run as run length x the run's score (the taxon is constant
+// between two candidates), lists no intervals and writes the row once,
+// at the end. ops/seedextend.py seedextend_scored_runs_plain and
+// seedextend_scored_walk_plain are its formulations in PyTorch.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -384,13 +386,11 @@ __device__ void write_decided(const int32_t* __restrict__ t, int len,
 
 // One warp a lane: the state machine over the positions where it can
 // change state, kept intervals in shared memory, decided windows written
-// coalesced (see the note at the top). SCORED: the scored mode, the
-// best push alone, the row written once at the end.
-template <bool HITS, bool SCORED>
+// coalesced (see the note at the top).
+template <bool HITS>
 __global__ void __launch_bounds__(kRowWarps * 32) seedextend_rows_kernel(
     const int32_t* __restrict__ taxa, const int32_t* __restrict__ lengths,
-    long long lanes, int N, int s, int g, void* __restrict__ out,
-    SeedScore sc) {
+    long long lanes, int N, int s, int g, void* __restrict__ out) {
   __shared__ int2 s_iv[kRowWarps][kIvCap];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kRowWarps + warp;
@@ -407,15 +407,6 @@ __global__ void __launch_bounds__(kRowWarps * 32) seedextend_rows_kernel(
   int n_iv = 0, w = 0;  // windows [0, w) are written
   bool extra = false;   // b2's next position opens the next 32 windows
   int32_t carry = last;  // the window before the next 32
-  // the scored mode's prefixes (see the note at the top): at e0, at
-  // start and at e0 - same_tid; the score of the run from e0 on; the
-  // best push so far
-  int p_e0 = 0, p_start = 0, p_run = 0, s_run = 0, best = INT_MIN;
-  int2 kept = make_int2(0, 0);
-  if constexpr (SCORED) {
-    sc.init();
-    p_e0 = s_run = sc(last);
-  }
 
   // x is 0 from the lane's length on (the sentinel at N included), so
   // nothing changes state past position len
@@ -446,25 +437,12 @@ __global__ void __launch_bounds__(kRowWarps * 32) seedextend_rows_kernel(
         const int32_t cur = __shfl_sync(FULL, x, b);
         const int end = cb + b;
         const int tid = same_tid + (end - e0);  // the `same` steps between
-        int p_end = 0, s_cur = 0;
-        if constexpr (SCORED) {
-          p_end = p_e0 + (end - e0) * s_run;  // the taxon is constant
-          s_cur = sc(cur);
-          p_e0 = p_end + s_cur;
-          s_run = s_cur;
-        }
         e0 = end + 1;
         if (last == cur) {
           same_tid = tid + 1;
         } else if (last == 0 && tid > g) {  // b1: a gap longer than g
           const int stop = end - tid;
-          if constexpr (SCORED) {
-            if (same_max >= s && p_run - p_start >= best) {
-              best = p_run - p_start;
-              kept = make_int2(start, stop);
-            }
-            p_start = p_run = p_end;
-          } else if (same_max >= s && start < stop) {
+          if (same_max >= s && start < stop) {
             if (lane == 0) iv[n_iv] = make_int2(start, stop);
             if (++n_iv == kIvCap) {  // windows before `end` are decided
               write_decided<HITS>(t, len, w, end, iv, n_iv, o, lane);
@@ -477,11 +455,6 @@ __global__ void __launch_bounds__(kRowWarps * 32) seedextend_rows_kernel(
           same_tid = 1;
           same_max = 1;
         } else if (last == 0 && end - start == tid) {  // b2: leading gap
-          if constexpr (SCORED) {
-            const int q = end - tid;  // the run's stop moves on by one
-            p_run += sc(q < len ? t[q] : 0);
-            p_start = p_end + s_cur;
-          }
           start = end + 1;
           same_tid = tid;
           if (b < 31)
@@ -489,37 +462,203 @@ __global__ void __launch_bounds__(kRowWarps * 32) seedextend_rows_kernel(
           else
             extra = true;
         } else {  // b3
-          if constexpr (SCORED) p_run = p_end;
           if (last != 0) same_max = max(same_max, tid);
           last = cur;
           same_tid = 1;
         }
       }
     }
-    if (!SCORED && start - w >= kFlushSpan) {
+    if (start - w >= kFlushSpan) {
       write_decided<HITS>(t, len, w, start, iv, n_iv, o, lane);
       w = start;
       n_iv = 0;
     }
   }
-  const int tail = N + 1 - e0;  // the `same` steps to the sentinel
-  same_tid += tail;
-  if constexpr (SCORED) {
-    // the final flush; prefix[N + 1] = p_e0 + tail * s_run
-    if (same_max >= s &&
-        (last == 0 ? p_run : p_e0 + tail * s_run) - p_start >= best)
-      kept = make_int2(start, last == 0 ? N + 1 - same_tid : N + 1);
-    if (lane == 0) iv[0] = kept;
-    write_decided<HITS>(t, len, 0, N, iv, 1, o, lane);
-  } else {
-    if (same_max >= s) {  // the final flush trims a trailing gap
-      const int stop = min(last == 0 ? N + 1 - same_tid : N + 1, N);
-      if (start < stop) {
-        if (lane == 0) iv[n_iv] = make_int2(start, stop);
-        ++n_iv;
+  same_tid += N + 1 - e0;  // the `same` steps to the sentinel
+  if (same_max >= s) {  // the final flush trims a trailing gap
+    const int stop = min(last == 0 ? N + 1 - same_tid : N + 1, N);
+    if (start < stop) {
+      if (lane == 0) iv[n_iv] = make_int2(start, stop);
+      ++n_iv;
+    }
+  }
+  write_decided<HITS>(t, len, w, N, iv, n_iv, o, lane);
+}
+
+// ---- K3RS: the scored row kernel ------------------------------------
+// Rows past the staged tile in the scored mode (`seedextend -r`, the
+// ranked presets on reads past 312 bp). What held its first form (the
+// row kernel's scored instance, one warp a lane) back: at every
+// candidate position of the warp-uniform walk it loaded the candidate's
+// score (seed_scores[cur], L1/L2), a dependent load on the walk's
+// critical path; all 32 threads ran that one scalar chain; a row of 132
+// windows (420 bp) took two 128-window passes, the second for 4 windows;
+// and it spilled 40 B of registers.
+//
+// Here G threads walk a lane (G = 16 or 32: 2 lanes a warp or 1; the
+// wrapper picks G by the row width, ops/seedextend.py
+// scored_lane_threads). A group loads a pass of kScoredPass windows of
+// its lane (rounded up to a whole number of G; a 420 bp row is one
+// pass), G consecutive windows a load, and each thread looks up its
+// windows' scores right after: independent loads, all in flight
+// together. The candidates of G windows come from one ballot (run heads,
+// plus the position after b2's); the walk steps the machine at each, all
+// groups of the warp in step (a group with none left idles), and reads
+// the candidate's taxon and score from its thread by shuffle: no load
+// is left in the walk. The prefix at a candidate needs no scan: between
+// two candidates the taxon is constant, so the prefix advances by run
+// length x the run's score. b2's moved stop adds the score of taxon 0:
+// b2 needs a lane that opens with 1 to g zeros and fires at the first
+// non-zero window, whose run of `last` (0) starts at end - tid = 0, so
+// the window at the old stop is a zero (seedextend.py
+// seedextend_scored_walk_plain is this formulation in PyTorch). The
+// epilogue writes the lane's row once, G windows a store: a row that fit
+// one pass from the registers, a wider one with the taxa of the kept
+// push read again only inside it.
+//
+// Swept on the H100 (chip_smoke.py redesign_sweep, sweep_constant;
+// PERF.md section 6): the staged tile past 96 windows took 0.043-0.229
+// ms at 102-333 windows against K3RS's 0.042-0.062; 16 threads a lane
+// beat 32 up to 162 windows, tied at 333 and lost at 4,000 (0.20-0.21
+// against 0.15); one thread a lane over 32-window chunks of a shared
+// tile took 0.063-0.065 at 132; passes of 144 windows took 0.0515 ms at
+// 132 against 0.055 for 128 (two passes) and 0.058 for 256 (more
+// registers, fewer warps an SM). What bounds it now is instruction
+// issue: every candidate step runs on G threads, and each G windows cost
+// a ballot and shuffles.
+constexpr int kScoredPass = 144;  // windows a pass, rounded up to G
+
+template <bool HITS, int G>
+__global__ void __launch_bounds__(kRowWarps * 32)
+    seedextend_rows_scored_kernel(const int32_t* __restrict__ taxa,
+                                  const int32_t* __restrict__ lengths,
+                                  long long lanes, int N, int s, int g,
+                                  void* __restrict__ out, SeedScore sc) {
+  constexpr int LPW = 32 / G;   // lanes a warp
+  constexpr int SUB = (kScoredPass + G - 1) / G;  // G-window loads a pass
+  constexpr int PASS = SUB * G;
+  constexpr unsigned GMASK = G == 32 ? FULL : (1u << G) - 1;
+  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  const int gl = wl & (G - 1), grp = wl / G;
+  const long long row0 = ((long long)blockIdx.x * kRowWarps + warp) * LPW;
+  if (row0 >= lanes) return;  // the whole warp; no block barrier follows
+  const long long row = row0 + grp;
+  const bool live = row < lanes;
+  const int32_t* t = taxa + (live ? row : row0) * N;
+  // a group past the last lane walks nothing and writes nothing
+  const int len = live ? min(max(lengths[row], 0), N) : -1;
+  sc.init();
+
+  // the machine (the same in each thread of a group); e0 is the next
+  // step's end. The prefixes (see the note at the top): at e0, at start
+  // and at e0 - same_tid; the score of the run from e0 on; the best push
+  int start = 0, same_tid = 1, same_max = 1, e0 = 1;
+  int32_t last = len > 0 ? t[0] : 0;
+  bool extra = false;    // b2's next position opens the next G windows
+  int32_t carry = last;  // the window before the next G
+  int p_e0 = sc(last), s_run = p_e0, p_start = 0, p_run = 0, best = INT_MIN;
+  int2 kept = make_int2(0, 0);
+
+  // x is 0 from the lane's length on (the sentinel at N included), so
+  // nothing changes state past position len
+  int32_t xv[SUB];  // the pass's windows; a row shorter than PASS: all
+  for (int c0 = 0; __any_sync(FULL, c0 <= len); c0 += PASS) {
+    int sv[SUB];
+#pragma unroll
+    for (int u = 0; u < SUB; ++u) {
+      const int p = c0 + u * G + gl;
+      xv[u] = p < len ? t[p] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < SUB; ++u) sv[u] = sc(xv[u]);
+#pragma unroll
+    for (int u = 0; u < SUB; ++u) {
+      const int cb = c0 + u * G;
+      if (!__any_sync(FULL, cb <= len)) break;  // every group is done
+      const int32_t x = xv[u];
+      int32_t prev = __shfl_up_sync(FULL, x, 1, G);
+      if (gl == 0) prev = carry;
+      const int p = cb + gl;
+      unsigned m =
+          (__ballot_sync(FULL, p >= 1 && p <= len && x != prev) >> (grp * G)) &
+          GMASK;
+      if (extra) {
+        m |= 1u;
+        extra = false;
+      }
+      carry = __shfl_sync(FULL, x, G - 1, G);
+      while (__any_sync(FULL, m != 0)) {
+        const int b = __ffs(m) - 1;
+        const int32_t cur = __shfl_sync(FULL, x, b, G);
+        const int s_cur = __shfl_sync(FULL, sv[u], b, G);
+        if (m == 0) continue;  // this group has no candidate left
+        m &= m - 1;
+        const int end = cb + b;
+        const int tid = same_tid + (end - e0);  // the `same` steps between
+        const int p_end = p_e0 + (end - e0) * s_run;  // the taxon is constant
+        p_e0 = p_end + s_cur;
+        s_run = s_cur;
+        e0 = end + 1;
+        if (last == cur) {
+          same_tid = tid + 1;
+        } else if (last == 0 && tid > g) {  // b1: a gap longer than g
+          if (same_max >= s && p_run - p_start >= best) {
+            best = p_run - p_start;
+            kept = make_int2(start, end - tid);
+          }
+          p_start = p_run = p_end;
+          start = end;
+          last = cur;
+          same_tid = 1;
+          same_max = 1;
+        } else if (last == 0 && end - start == tid) {  // b2: leading gap
+          p_run += sc.s0;  // the run's stop moves on by one, over a zero
+          p_start = p_end + s_cur;
+          start = end + 1;
+          same_tid = tid;
+          if (b < G - 1)
+            m |= 1u << (b + 1);
+          else
+            extra = true;
+        } else {  // b3
+          p_run = p_end;
+          if (last != 0) same_max = max(same_max, tid);
+          last = cur;
+          same_tid = 1;
+        }
       }
     }
-    write_decided<HITS>(t, len, w, N, iv, n_iv, o, lane);
+  }
+  if (!live) return;
+  const int tail = N + 1 - e0;  // the `same` steps to the sentinel
+  same_tid += tail;
+  // the final flush; prefix[N + 1] = p_e0 + tail * s_run
+  if (same_max >= s &&
+      (last == 0 ? p_run : p_e0 + tail * s_run) - p_start >= best)
+    kept = make_int2(start, last == 0 ? N + 1 - same_tid : N + 1);
+
+  // the row, once: the kept push's windows inside the length, from the
+  // registers where the row fit one pass, else read again where kept
+  const int a = kept.x, z = min(kept.y, len);
+  for (int q0 = 0; q0 < N; q0 += PASS) {
+    int32_t v[SUB];
+#pragma unroll
+    for (int u = 0; u < SUB; ++u) {
+      const int q = q0 + u * G + gl;
+      const bool keep = q >= a && q < z;
+      v[u] = HITS ? (keep ? (N < PASS ? xv[u] : t[q]) : 0)
+                  : (int32_t)keep;
+    }
+#pragma unroll
+    for (int u = 0; u < SUB; ++u) {
+      const int q = q0 + u * G + gl;
+      if (q < N) {
+        if (HITS)
+          ((int32_t*)out)[row * N + q] = v[u];
+        else
+          ((uint8_t*)out)[row * N + q] = (uint8_t)v[u];
+      }
+    }
   }
 }
 
@@ -594,16 +733,15 @@ extern "C" int seedextend_rows(const void* taxa, const void* lengths,
   if (lanes <= 0 || N <= 0) return 0;
   const long long blocks = (lanes + kRowWarps - 1) / kRowWarps;
   if (hits)
-    seedextend_rows_kernel<true, false><<<(unsigned)blocks, kRowWarps * 32,
-                                          0, (cudaStream_t)stream>>>(
+    seedextend_rows_kernel<true><<<(unsigned)blocks, kRowWarps * 32, 0,
+                                   (cudaStream_t)stream>>>(
         (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
-        min_seed_size, max_gap_size, out, SeedScore{});
+        min_seed_size, max_gap_size, out);
   else
-    seedextend_rows_kernel<false, false><<<(unsigned)blocks,
-                                           kRowWarps * 32, 0,
-                                           (cudaStream_t)stream>>>(
+    seedextend_rows_kernel<false><<<(unsigned)blocks, kRowWarps * 32, 0,
+                                    (cudaStream_t)stream>>>(
         (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
-        min_seed_size, max_gap_size, out, SeedScore{});
+        min_seed_size, max_gap_size, out);
   return (int)cudaGetLastError();
 }
 
@@ -639,27 +777,43 @@ extern "C" int seedextend_scored_packed(const void* args) {
                            (int)a.i(11), a.ptr(12));
 }
 
-// The scored row kernel, one warp a lane, at any N; `hits` as above.
+// The scored row kernel at any N; `hits` as above; lane_threads (16 or
+// 32) threads walk a lane.
 extern "C" int seedextend_rows_scored(const void* taxa, const void* lengths,
                                       long long lanes, int N,
                                       int min_seed_size, int max_gap_size,
                                       const void* seed_scores, int size,
                                       int penalty, void* out, int hits,
-                                      void* stream) {
+                                      int lane_threads, void* stream) {
   if (lanes <= 0 || N <= 0) return 0;
-  const long long blocks = (lanes + kRowWarps - 1) / kRowWarps;
+  if (lane_threads != 16 && lane_threads != 32)
+    return (int)cudaErrorInvalidValue;
+  const int per_block = kRowWarps * (32 / lane_threads);
+  const unsigned blocks = (unsigned)((lanes + per_block - 1) / per_block);
+  const cudaStream_t st = (cudaStream_t)stream;
   const SeedScore sc{(const int32_t*)seed_scores, size, penalty, 0};
-  if (hits)
-    seedextend_rows_kernel<true, true><<<(unsigned)blocks, kRowWarps * 32,
-                                         0, (cudaStream_t)stream>>>(
-        (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
-        min_seed_size, max_gap_size, out, sc);
-  else
-    seedextend_rows_kernel<false, true><<<(unsigned)blocks,
-                                          kRowWarps * 32, 0,
-                                          (cudaStream_t)stream>>>(
-        (const int32_t*)taxa, (const int32_t*)lengths, lanes, N,
-        min_seed_size, max_gap_size, out, sc);
+  const int32_t* tx = (const int32_t*)taxa;
+  const int32_t* ln = (const int32_t*)lengths;
+  const int s = min_seed_size, g = max_gap_size;
+  if (lane_threads == 16) {
+    if (hits)
+      seedextend_rows_scored_kernel<true, 16><<<blocks, kRowWarps * 32, 0,
+                                                st>>>(tx, ln, lanes, N, s, g,
+                                                      out, sc);
+    else
+      seedextend_rows_scored_kernel<false, 16><<<blocks, kRowWarps * 32, 0,
+                                                 st>>>(tx, ln, lanes, N, s,
+                                                       g, out, sc);
+  } else {
+    if (hits)
+      seedextend_rows_scored_kernel<true, 32><<<blocks, kRowWarps * 32, 0,
+                                                st>>>(tx, ln, lanes, N, s, g,
+                                                      out, sc);
+    else
+      seedextend_rows_scored_kernel<false, 32><<<blocks, kRowWarps * 32, 0,
+                                                 st>>>(tx, ln, lanes, N, s,
+                                                       g, out, sc);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -668,5 +822,5 @@ extern "C" int seedextend_rows_scored_packed(const void* args) {
   return seedextend_rows_scored(a.ptr(0), a.ptr(1), a.i(2), (int)a.i(3),
                                 (int)a.i(4), (int)a.i(5), a.ptr(6),
                                 (int)a.i(7), (int)a.i(8), a.ptr(9),
-                                (int)a.i(10), a.ptr(11));
+                                (int)a.i(10), (int)a.i(11), a.ptr(12));
 }

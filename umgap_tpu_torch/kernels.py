@@ -156,7 +156,7 @@ K3S = Kernel(
     "umgap_tpu/ops/seedextend.py:221 seedextend_scored_mask_batch")
 K3RS = Kernel(
     "seedextend_rows_scored", "seedextend_mask.cu",
-    [P, P, LL, I, I, I, P, I, I, P, I, P], K3S.replaces)
+    [P, P, LL, I, I, I, P, I, I, P, I, I, P], K3S.replaces)
 K4 = Kernel(
     "dedup_counts", "dedup_counts.cu",
     [P, P, I, I, I, F, P, P, P, P, P, P],

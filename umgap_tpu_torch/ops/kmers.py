@@ -15,6 +15,7 @@ subject of the next, then '*' splits and empty fragments are dropped.
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import List
 
@@ -105,9 +106,27 @@ def pack_windows_batch(aa: torch.Tensor, pep_lengths: torch.Tensor,
     return hi, lo, valid
 
 
-# K1P's lanes per block: a multiple of 8, so every block's output span
-# starts on 8 elements; the kernel halves it for wide proteins
-LANES_PER_BLOCK = 32
+# K1P's tiles (csrc/reads_to_kmers.cu), one a block: K1P_TILE_MAX
+# windows at most (a warp packs 256; tiles of 512 and 1,024 took 0.247 ms
+# on the build's TSV split, 2,048 0.256, on the H100), K1P_TILE_MIN at
+# least, and sized so that a call makes at least two blocks an SM where
+# it can
+K1P_TILE_MAX = 1024
+K1P_TILE_MIN = 256
+
+
+def k1p_plan(n_out: int, sms: int):
+    """(tile, blocks) of a K1P call over ``n_out`` windows on a card of
+    ``sms`` SMs: the tile a multiple of 8 between K1P_TILE_MIN and
+    K1P_TILE_MAX that gives at least two tiles an SM, a block a tile."""
+    want = n_out // (2 * sms) // 8 * 8
+    tile = min(K1P_TILE_MAX, max(K1P_TILE_MIN, want))
+    return tile, -(-max(n_out, 1) // tile)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def proteins_to_kmers(aa: torch.Tensor, pep_lengths: torch.Tensor,
@@ -132,9 +151,10 @@ def proteins_to_kmers(aa: torch.Tensor, pep_lengths: torch.Tensor,
     hi = torch.empty((N, W), dtype=torch.int32, device=aa.device)
     lo = torch.empty_like(hi)
     valid = torch.empty((N, W), dtype=torch.bool, device=aa.device)
+    tile = k1p_plan(N * W, _sm_count(aa.get_device()))[0]
     kernels.K1P.launch(aa.data_ptr(), P, pep_lengths.data_ptr(), N, k,
                        hi.data_ptr(), lo.data_ptr(), valid.data_ptr(), W,
-                       LANES_PER_BLOCK, kernels.stream_of(aa))
+                       tile, kernels.stream_of(aa))
     return hi, lo, valid
 
 

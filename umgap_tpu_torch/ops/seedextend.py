@@ -427,6 +427,87 @@ def seedextend_scored_runs_plain(taxa: torch.Tensor, lengths: torch.Tensor,
     return torch.where(keep, taxa, 0) if hits else keep
 
 
+def seedextend_scored_walk_plain(taxa: torch.Tensor, lengths: torch.Tensor,
+                                 seed_scores: torch.Tensor, penalty: int = 5,
+                                 min_seed_size: int = 2,
+                                 max_gap_size: int = 0, hits: bool = True):
+    """Plain version of K3RS (``csrc/seedextend_mask.cu``,
+    ``seedextend_rows_scored_kernel``), its formulation: every window's
+    score looked up first (each thread's own loads), then the walk over
+    the positions, stepping the machine only at the candidates as it
+    finds them (a window unlike the one before it; after b2 the next
+    position), the candidate's taxon and score read from those rows (the
+    shuffles), the prefix at a candidate advanced as run length x the
+    run's score, and b2's moved stop adding the score of taxon 0 (the
+    window at the old stop lies in the lane's opening gap). Each lane
+    keeps its best push, the last of equal ones. Returns the kept taxa
+    (..., N) int32, 0 elsewhere, or without ``hits`` the keep mask."""
+    N = taxa.shape[-1]
+    dev = taxa.device
+    x, inside = _with_sentinel(taxa, lengths)
+    nl = x.shape[0]
+    g, s = int(max_gap_size), int(min_seed_size)
+    sx = _seed_score(seed_scores, x, penalty)
+    s0 = _seed_score(seed_scores, torch.zeros(1, dtype=torch.int32,
+                                              device=dev), penalty)
+
+    def zeros():
+        return torch.zeros(nl, dtype=torch.int64, device=dev)
+
+    start, same_tid, same_max, e0 = zeros(), zeros() + 1, zeros() + 1, \
+        zeros() + 1
+    last = x[:, 0]
+    p_e0 = s_run = sx[:, 0]
+    p_start, p_run = zeros(), zeros()
+    best = torch.full((nl,), -2 ** 62, dtype=torch.int64, device=dev)
+    bstart, bstop = zeros(), zeros()
+    extra = torch.zeros(nl, dtype=torch.bool, device=dev)
+    for p in range(1, N + 1):
+        cur = x[:, p]
+        act = (cur != x[:, p - 1]) | extra
+        tid = same_tid + (p - e0)
+        p_end = p_e0 + (p - e0) * s_run
+        s_cur = sx[:, p]
+        same = last == cur
+        b1 = ~same & (last == 0) & (tid > g)
+        b2 = ~same & ~b1 & (last == 0) & ((p - start) == tid)
+        b3 = ~same & ~b1 & ~b2
+        better = act & b1 & (same_max >= s) & (p_run - p_start >= best)
+        best = torch.where(better, p_run - p_start, best)
+        bstart = torch.where(better, start, bstart)
+        bstop = torch.where(better, p - tid, bstop)
+        n_p_start = torch.where(b1, p_end, torch.where(b2, p_end + s_cur,
+                                                       p_start))
+        n_p_run = torch.where(same, p_run, torch.where(b2, p_run + s0,
+                                                       p_end))
+        n_start = torch.where(b1, p, torch.where(b2, p + 1, start))
+        n_last = torch.where(same | b2, last, cur)
+        n_tid = torch.where(same, tid + 1, torch.where(b2, tid, 1))
+        n_max = torch.where(b1, 1, torch.where(
+            b3 & (last != 0), torch.maximum(same_max, tid), same_max))
+
+        def upd(old, new):
+            return torch.where(act, new, old)
+
+        p_start, p_run = upd(p_start, n_p_start), upd(p_run, n_p_run)
+        start, last = upd(start, n_start), upd(last, n_last)
+        same_tid, same_max = upd(same_tid, n_tid), upd(same_max, n_max)
+        p_e0, s_run = upd(p_e0, p_end + s_cur), upd(s_run, s_cur)
+        e0 = upd(e0, torch.full_like(e0, p + 1))
+        extra = act & b2
+    tail = N + 1 - e0  # the `same` steps to the sentinel
+    same_tid = same_tid + tail
+    f_score = torch.where(last == 0, p_run, p_e0 + tail * s_run) - p_start
+    better = (same_max >= s) & (f_score >= best)
+    bstart = torch.where(better, start, bstart)
+    bstop = torch.where(better, torch.where(last == 0, N + 1 - same_tid,
+                                            N + 1), bstop)
+    pos = torch.arange(N, device=dev)[None, :]
+    keep = ((pos >= bstart[:, None]) & (pos < bstop[:, None])
+            & inside).reshape(taxa.shape)
+    return torch.where(keep, taxa, 0) if hits else keep
+
+
 # Rows of up to STAGED_MAX_N windows (reads up to 312 bp) take K3's
 # staged tile of LANES_PER_BLOCK lanes (a sweep over 32, 64 and 128 on
 # the H100; PERF.md, section 6); wider rows its row kernel, one warp a
@@ -440,6 +521,18 @@ def seedextend_path(N: int) -> str:
     :data:`STAGED_MAX_N`, ``"rows"`` (one warp a lane, over the runs)
     above."""
     return "staged" if N <= STAGED_MAX_N else "rows"
+
+
+# K3RS walks rows from this width with a warp a lane, narrower ones with
+# 16 threads a lane, two lanes a warp (a sweep on the H100: 16 faster to
+# 162 windows, even at 333, slower at 4,000; PERF.md, section 6)
+SCORED_WARP_MIN_N = 512
+
+
+def scored_lane_threads(N: int) -> int:
+    """Threads of K3RS's walk a lane of N windows: 16 below
+    :data:`SCORED_WARP_MIN_N`, 32 from it."""
+    return 16 if N < SCORED_WARP_MIN_N else 32
 
 
 def _launch(taxa, lengths, min_seed_size, max_gap_size, hits: bool):
@@ -503,7 +596,8 @@ def _launch_scored(taxa, lengths, min_seed_size, max_gap_size, seed_scores,
     if seedextend_path(N) == "staged":
         kernels.K3S.launch(*args, LANES_PER_BLOCK, kernels.stream_of(taxa))
     else:
-        kernels.K3RS.launch(*args, kernels.stream_of(taxa))
+        kernels.K3RS.launch(*args, scored_lane_threads(N),
+                            kernels.stream_of(taxa))
     return out
 
 
@@ -518,7 +612,8 @@ def seedextend_hits(taxa: torch.Tensor, lengths: torch.Tensor,
     keeps only its best-scoring seed, unscored taxa costing ``penalty``.
     CPU tensors take the plain version; CUDA tensors launch K3 with its
     hits epilogue, or its scored entry (the staged tile or the row kernel
-    by :func:`seedextend_path`)."""
+    by :func:`seedextend_path`; K3RS with :func:`scored_lane_threads`
+    threads a lane)."""
     if seed_scores is not None:
         if taxa.device.type == "cpu":
             return seedextend_scored_hits_plain(taxa, lengths, seed_scores,
