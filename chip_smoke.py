@@ -29,7 +29,7 @@ and the command line with ``-c`` and ``-z``), reads FASTQ files (plain and gzipp
 100-4,096 bp) through the command line's three ingest tiers, holds its
 two host routes (the host digest, the exact long-record route) to
 device routes, runs the Euler/RMQ aggregations (rmq/lca*,
-rmq/hybrid) over the workload, and runs the reference's stream
+rmq/hybrid: K9 a batch) over the workload, and runs the reference's stream
 subcommands in process (phase subcommands: two presets as their shell
 chains of ``translate | prot2kmer2lca | seedextend | uniq | taxa2agg``
 against ``analyse`` and the plain versions, ``seedextend -r``,
@@ -286,7 +286,7 @@ def main():
                                                                  world)
         phase_ingest(torch, world)
         long_launches = phase_long(torch, world)
-        rmq_launches = phase_rmq(torch, world)
+        rmq_launches, stats["rmq_aggregate"] = phase_rmq(torch, world)
     finally:
         shutil.rmtree(TMP_DIR, ignore_errors=True)
         with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -296,8 +296,9 @@ def main():
     # raise before this point if any of them did not run to its end.
     # Launches: the 9-mer main path's, K7 and K8 the tryptic path's, K3's
     # and K4's row kernels the 12,000 bp path's, K3's scored entries the
-    # scored path's (phase scored), K5 and snap_taxa the Euler/RMQ path's
-    # (K6 snaps on the others), K1P the FGSpp path's.
+    # scored path's (phase scored), K9 the Euler/RMQ path's (phase rmq:
+    # its times and bound at the path's own K9 inputs), K1P the FGSpp
+    # path's.
     # K7's time and share are its L2-flushed ones (its 8.8 MB would
     # otherwise sit in L2 across launches; the warm ones stay in its
     # stats). K8's times and bound are the resident index's with the L2
@@ -843,15 +844,13 @@ def _chain(torch, world, width):
         unfused_ms=cuda_ms(torch, k4_filter),
         unfused_device_ms=device_ms(torch, k4_filter))
 
-    # K5, K6 and snap_taxa on K4's output, high-sensitivity's lower bound
+    # K5 and K6 on K4's output, high-sensitivity's lower bound
     utaxa, ucounts, uvalid = devagg.dedup_counts(hits, None, 64,
                                                  lower_bound=1.0)
-    (s5, e5), (s5a, e5a), (s6, e6), (ss, es) = _agg_chain(
+    (s5, e5), (s5a, e5a), (s6, e6) = _agg_chain(
         torch, world, utaxa, ucounts, uvalid, width)
-    stats.update(lane_gather=s5, lane_gather_ancestry=s5a, tree_aggregate=s6,
-                 snap_taxa=ss)
-    errs.update(lane_gather=e5, lane_gather_ancestry=e5a, tree_aggregate=e6,
-                snap_taxa=es)
+    stats.update(lane_gather=s5, lane_gather_ancestry=s5a, tree_aggregate=s6)
+    errs.update(lane_gather=e5, lane_gather_ancestry=e5a, tree_aggregate=e6)
     log(f"L={width} chain, kernels equal to plain: " + ", ".join(
         f"{n} {s['ms']:.3f} ms (plain {s['plain_ms']:.3f}, bound "
         f"{s['bound_ms']:.4f} {s['bound_by']})" for n, s in stats.items()))
@@ -1255,15 +1254,14 @@ def _dense_hits(torch, dtax, B, K, lo, seed=5):
 
 
 def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
-    """K5 (hit_geometry's row and ancestry gathers, snap's take), K6
+    """K5 (hit_geometry's row and ancestry gathers, snap's take) and K6
     (hybrid, lca*, mrtl; its hits entry, the main path's, with and
     without the snap table, and its HitGeometry entry, which runs the
-    same launch) and snap_taxa on one batch's deduplicated hits, each
-    held to its plain version and timed, K6 also by device time, with
-    its bound, its floor (no slot valid) and on groups of 17-64 and of
-    64 valid hits; K6 also on the first 1,024 rows padded to the wide
-    program's width at this read length; snap_taxa beside the unfused
-    snap it replaced and beside torch.take."""
+    same launch) on one batch's deduplicated hits, each held to its
+    plain version and timed, K6 also by device time, with its bound, its
+    floor (no slot valid) and on groups of 17-64 and of 64 valid hits;
+    K6 also on the first 1,024 rows padded to the wide program's width
+    at this read length."""
     from umgap_tpu_torch import kernels
     from umgap_tpu_torch.agg import device as devagg
     from umgap_tpu_torch.ops import gather
@@ -1426,52 +1424,6 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
         plain_ms=cuda_ms(torch, lambda: gather.take_plain(snapping, ids)),
         library_ms=cuda_ms(torch, lambda: torch.take(snapping, ids64)),
         bound_ms=sb, bound_by=sby, shape=[int(snapping.shape[0]), B])
-    # snap_taxa (the Euler/RMQ aggregators' snap) at the main shape on
-    # K6's unsnapped hybrid output: held to its plain version, to K6's
-    # snap and on odd ids (negative, at and past the table's end,
-    # I32_MAX) and masks (every, no slot valid); timed beside the unfused
-    # snap it replaced (K5's take and the nine launches around it, one
-    # event window) and beside torch.take alone. Bound: the mask, the
-    # ids, a snap entry per distinct id in range and the output, bytes.
-    S = snapping.shape[0]
-    agg = res["hybrid"]
-    odd = agg.clone()
-    odd[::7], odd[1::7], odd[2::7] = -1, S, devagg.I32_MAX
-
-    def st(a=agg, v=uvalid):
-        return devagg.snap_taxa(snapping, a, v)
-
-    def unfused():
-        return torch.where(uvalid.any(dim=-1),
-                           devagg.snap_batch(snapping, agg, 0), 1).to(
-            torch.int32)
-
-    es = max(compare(torch, f"snap_taxa L={width}", st(),
-                     devagg.snap_taxa_plain(snapping, agg, uvalid)),
-             compare(torch, f"snap_taxa unfused L={width}", st(),
-                     unfused()),
-             *(compare(torch, f"snap_taxa {n} L={width}", st(a, v),
-                       devagg.snap_taxa_plain(snapping, a, v))
-               for n, a, v in (("odd ids", odd, uvalid),
-                               ("every slot valid", odd, every),
-                               ("no slot valid", agg, none))))
-    require(torch.equal(st(), snapped["hybrid"]),
-            f"snap_taxa L={width}: differs from K6's snap")
-    ids64 = agg.clamp(0, S - 1).to(torch.int64)
-    inrange = agg[(agg >= 0) & (agg < S)]
-    sb, sby = bound(B * K + (int(torch.unique(inrange).numel()) + 2 * B) * 4,
-                    0)
-    ss = dict(
-        ms=cuda_ms(torch, st), device_ms=device_ms(torch, st),
-        plain_ms=cuda_ms(torch, lambda: devagg.snap_taxa_plain(
-            snapping, agg, uvalid)),
-        unfused_ms=cuda_ms(torch, unfused),
-        unfused_device_ms=device_ms(torch, unfused),
-        library_ms=cuda_ms(torch, lambda: torch.take(snapping, ids64)),
-        library_device_ms=device_ms(torch, lambda: torch.take(snapping,
-                                                              ids64)),
-        bound_ms=sb, bound_by=sby, shape=[B, K, S])
-
     # bounds, from this batch's data: what the valid slots need, each
     # read once, the valid mask read whole and (B,) written once.
     # Operations: hybrid tests and compares once per valid slot a step
@@ -1551,7 +1503,7 @@ def _agg_chain(torch, world, utaxa, ucounts, uvalid, width):
               bound_ms=h["bound_ms"], bound_by=h["bound_by"],
               floor_device_ms=h["floor_device_ms"], library_ms=None,
               shape=[B, K, D])
-    return (s5, e5), (s5a, e5a), (s6, e6), (ss, es)
+    return (s5, e5), (s5a, e5a), (s6, e6)
 
 
 K1_SWEEP = (8, 16, 32, 64)
@@ -2575,8 +2527,8 @@ def is_tryptic(config) -> bool:
 
 
 # the tail after K4 on the Euler/RMQ aggregators (rmq/lca*, rmq/hybrid):
-# their tables through K5, then snap_taxa; K6 takes both on the others
-RMQ_TAIL_KERNELS = {"lane_gather", "snap_taxa"}
+# K9, the aggregate and its snap in one launch; K6 on the others
+RMQ_TAIL_KERNELS = {"rmq_aggregate"}
 # K1's protein entry: launched only on the FGSpp path (phase fgspp)
 PROTEIN_KERNELS = {"proteins_to_kmers"}
 
@@ -2587,13 +2539,15 @@ def path_kernels(config):
     and K8 on the tryptic one, K3's and K4's row kernels and K1's protein
     entry on none (ROW_KERNELS, PROTEIN_KERNELS), K4 with the lower bound on
     all; K6 (which reads the taxonomy rows itself and snaps) for the
-    tree aggregators and rmq/mrtl, K5 and snap_taxa for rmq/lca* and
-    rmq/hybrid; no path launches K5's ancestry epilogue (it serves
-    hit_geometry)."""
+    tree aggregators and rmq/mrtl, K9 (which walks or closes the hits
+    and snaps) for rmq/lca* and rmq/hybrid; no path launches K5 (its
+    row gather and ancestry epilogue serve hit_geometry, its take the
+    plain versions)."""
     from umgap_tpu_torch import kernels
     from umgap_tpu_torch.agg import device as devagg
 
-    names = {k.name for k in kernels.KERNELS} - {"lane_gather_ancestry"}
+    names = {k.name for k in kernels.KERNELS} - {"lane_gather",
+                                                 "lane_gather_ancestry"}
     names -= ROW_KERNELS | PROTEIN_KERNELS | SCORED_KERNELS
     names -= NINEMER_KERNELS if is_tryptic(config) else TRYPTIC_KERNELS
     if (config.method, config.strategy) in devagg.GEOMETRY_AGGREGATIONS:
@@ -2759,7 +2713,7 @@ def phase_main(torch, world):
                 f"kernel {n} was not launched on the main path")
     # one batch of each tree aggregator: after K3 one K4 launch (with the
     # lower bound) and one K6 launch (with snap): no K5 (no snap take, no
-    # row gather, no ancestry epilogue) and no snap_taxa
+    # row gather, no ancestry epilogue) and no K9
     from umgap_tpu_torch.agg import device as devagg
 
     per_batch, cuda_batch = {}, {}
@@ -2767,7 +2721,7 @@ def phase_main(torch, world):
         per_batch[name] = c = batch_launches(torch, world, analysers[name])
         if (cfg.method, cfg.strategy) in devagg.GEOMETRY_AGGREGATIONS:
             require(c["tree_aggregate"] == 1 and c["dedup_counts"] == 1
-                    and c["lane_gather"] == 0 and c["snap_taxa"] == 0
+                    and c["lane_gather"] == 0 and c["rmq_aggregate"] == 0
                     and c["lane_gather_ancestry"] == 0,
                     f"{name}: one batch launched {c}")
         cuda_batch[name] = batch_cuda_launches(torch, world, analysers[name])
@@ -3156,7 +3110,7 @@ def phase_tryptic(torch, world):
         cuda_batch = batch_cuda_launches(torch, world, an)
         c = batch_launches(torch, world, an)
         require(c["tree_aggregate"] == 1 and c["dedup_counts"] == 1
-                and c["lane_gather"] == 0 and c["snap_taxa"] == 0,
+                and c["lane_gather"] == 0 and c["rmq_aggregate"] == 0,
                 f"tryptic {name}: one batch launched {c}")
         kernels.reset_launches()
         wide = an.run_wide(dna, lens)
@@ -4088,11 +4042,12 @@ def phase_subcommands(torch, world):
     ``kernels.plain_versions()`` stage by stage, each chain launching K1P,
     K2, K3, K4 and K6; ``seedextend -r`` on the lanes of SUB_SCORED_PAIRS
     pairs of SCORED_WIDTH bp ends launching K3RS (= plain);
-    ``taxa2agg -m rmq -a lca*`` launching K5 and snap_taxa (= plain);
+    ``taxa2agg -m rmq -a lca*`` launching K9 (= plain = ``--device
+    cpu``);
     ``taxa2agg -s`` with non-dyadic scores (SUB_SCORED_CASES: tree/hybrid,
     rmq/hybrid, rmq/mrtl) on the grouped records and on SUB_WIDE_ROWS
     rows past 64 distinct taxa, launching K4 (its warp path, its row
-    kernel) and K6 (K5 and snap_taxa for rmq/hybrid), = plain;
+    kernel) and K6 (K9 for rmq/hybrid, also = ``--device cpu``), = plain;
     ``pept2lca -o`` on the bench peptide index launching K8 (= plain);
     and one ``prot2kmer2lca -o -s`` server in a subprocess, connected
     twice, each connection writing the records of the command on stdin
@@ -4160,23 +4115,28 @@ def phase_subcommands(torch, world):
         pairs=SUB_SCORED_PAIRS, width=SCORED_WIDTH, seconds=scored_s,
         records=scored.count(">"))
 
-    # taxa2agg -m rmq -a lca*: K5 and snap_taxa
+    # taxa2agg -m rmq -a lca*: K9, no K5
     argv = ["taxa2agg", "-m", "rmq", "-a", "lca*", "-l", "1", taxtsv]
     grouped = outs["high-sensitivity"]["uniq"]
     kernels.reset_launches()
     rmq, rmq_s = _sub_run(argv, grouped)
     launches = kernels.launch_counts()
-    for k in ("dedup_counts", "lane_gather", "snap_taxa"):
+    for k in ("dedup_counts", "rmq_aggregate"):
         require(launches[k] > 0, f"subcommands: taxa2agg rmq/lca* launched "
                 f"no {k}: {launches}")
+    require(launches["lane_gather"] == 0, f"subcommands: taxa2agg rmq/lca* "
+            f"launched K5: {launches}")
     with kernels.plain_versions():
         require(_sub_run(argv, grouped)[0] == rmq, "subcommands: taxa2agg "
                 "rmq/lca* kernel records differ from plain")
+    require(_sub_run(argv + ["--device", "cpu"], grouped)[0] == rmq,
+            "subcommands: taxa2agg rmq/lca* card records differ from "
+            "--device cpu")
     phase["launches"]["taxa2agg rmq/lca*"] = launches
     phase["taxa2agg_rmq_lca"] = dict(seconds=rmq_s)
 
-    # taxa2agg -s: K4's weighted instances and K6's ordered ones (K5 and
-    # snap_taxa for rmq/hybrid) on the grouped records with non-dyadic
+    # taxa2agg -s: K4's weighted instances and K6's ordered ones (K9 for
+    # rmq/hybrid) on the grouped records with non-dyadic
     # scores (K4's warp path, K6's thread and warp paths) and on wide rows
     # (K4's row kernel, the wide pass, K6's block path)
     rng = np.random.default_rng(29)
@@ -4197,7 +4157,7 @@ def phase_subcommands(torch, world):
         key = f"taxa2agg -s {method}/{strategy}"
         argv = ["taxa2agg", "-s", "-m", method, "-a", strategy, *flags,
                 taxtsv]
-        want = (("lane_gather", "snap_taxa") if method == "rmq" and
+        want = (("rmq_aggregate",) if method == "rmq" and
                 strategy == "hybrid" else ("tree_aggregate",))
         for kind, stdin, k4 in (("narrow", narrow, "dedup_counts"),
                                 ("wide", wide, "dedup_rows")):
@@ -4212,6 +4172,10 @@ def phase_subcommands(torch, world):
             require(plain == out and out.count(">") == stdin.count(">"),
                     f"subcommands: {key} ({kind}): kernel records differ "
                     "from plain")
+            if method == "rmq" and strategy == "hybrid":
+                require(_sub_run(argv + ["--device", "cpu"], stdin)[0]
+                        == out, f"subcommands: {key} ({kind}): card "
+                        "records differ from --device cpu")
             phase["launches"][f"{key} {kind}"] = launches
             phase["taxa2agg_scored"][f"{key} {kind}"] = dict(
                 records=out.count(">"), seconds=dt, plain_seconds=plain_s)
@@ -6535,27 +6499,171 @@ def _host_routes(torch, world):
 # Phase 6: the Euler/RMQ aggregations
 # ---------------------------------------------------------------------- #
 
-def phase_rmq(torch, world):
-    """rmq/lca* and rmq/hybrid (max-sensitivity's seeds) through the
-    Analyser over all 32,768 pairs: K1-K5 and snap_taxa launched (one
-    snap_taxa and no K6 a batch), kernel taxa equal to the plain path's,
-    the first 1,024 equal to umgap_tpu's digests; device-resident and
-    steady end-to-end pairs/s, CUDA kernels a batch step. Returns the
-    launch counts of both runs, summed."""
-    from umgap_tpu_torch import kernels
-    from umgap_tpu_torch.agg.device_rmq import DeviceEuler
-    from umgap_tpu_torch.ops import encoding
-    from umgap_tpu_torch.pipeline.fused import PipelineConfig
+# K9 past the main path's width: K9_GROUPS ``_dense_hits`` groups of 65 to
+# K valid hits at each K (the wide program's at 100 and 160 bp, and
+# 4,104 of 2,048 bp reads)
+K9_WIDE = (408, 648, 4104)
+K9_GROUPS = 8
 
-    t_phase = time.perf_counter()
+
+def _k9_inputs(torch, world, an):
+    """K9's arguments on the path: one 16,384-pair batch step of the
+    Analyser ``an`` with ``rmq_aggregate`` wrapped to keep its call.
+    Returns (strategy, dtax, euler, utaxa, ucounts, uvalid, factor,
+    snap, ordered)."""
+    from umgap_tpu_torch.agg import device_rmq as prmq
+
+    calls, k9 = [], prmq.rmq_aggregate
+
+    def spy(*args, **kw):
+        calls.append(args)
+        return k9(*args, **kw)
+
+    prmq.rmq_aggregate = spy
+    try:
+        batch_launches(torch, world, an)
+    finally:
+        prmq.rmq_aggregate = k9
+    require(len(calls) == 1 and len(calls[0]) == 9,
+            f"K9 inputs: {len(calls)} calls a batch step")
+    return calls[0]
+
+
+def _k9_bound(torch, dtax, strategy, utaxa, uvalid):
+    """K9's bound on this data, bytes: the mask read whole, the valid
+    slots' ids (and counts for hybrid), the table entries each distinct
+    valid (clamped) id needs once (its ``first`` entry for lca*, its row
+    of [depth | ancestors] for hybrid), 4 bytes written a group."""
+    B, K = utaxa.shape
+    size = dtax.geom.shape[0]
+    nvalid = int(uvalid.sum())
+    distinct = int(torch.unique(utaxa[uvalid].clamp(0, size - 1)).numel())
+    row = 4 if strategy == "lca*" else 4 * dtax.geom.shape[1]
+    return bound(B * K + nvalid * (4 if strategy == "lca*" else 8)
+                 + distinct * row + B * 4, 0)
+
+
+def k9_cells(torch, world, euler, inputs, check=True):
+    """K9 on each strategy's own inputs from the path (``inputs``: the
+    arguments ``_k9_inputs`` kept, one batch's K4 output at K = 64) and
+    on K9_GROUPS ``_dense_hits`` groups at each K of K9_WIDE: event ms,
+    device ms, the bound from this run's data and the share; at the path
+    shape also without the snap table, with no slot valid (the floor)
+    and on the dense batches of 17-64 and of 64 valid hits. With
+    ``check`` each result is held to rmq_aggregate_plain (also every
+    slot valid) and the plain version timed. Returns {strategy: stats,
+    "wide": {K: {strategy: stats}}, "max_abs_err": e}."""
+    from umgap_tpu_torch.agg import device_rmq as prmq
+
+    dtax = world["dtax"]
+    out, err = {}, 0.0
+    for strat in RMQ_STRATEGIES:
+        _s, _d, _e, u, c, v, f, snap, ordered = inputs[strat]
+        B, K = u.shape
+        every, none = torch.ones_like(v), torch.zeros_like(v)
+        dense = {n: _dense_hits(torch, dtax, B, K, lo)
+                 for n, lo in (("dense", 17), ("full", K))}
+
+        def k9(h=None, vv=None, sn=snap, plain=False, strat=strat, u=u,
+               c=c, v=v, f=f):
+            fn = prmq.rmq_aggregate_plain if plain else prmq.rmq_aggregate
+            uu, cc, v2 = h or (u, c, v)
+            return fn(strat, dtax, euler, uu, cc, v2 if vv is None else vv,
+                      f, sn)
+
+        if check:
+            err = max(err, compare(torch, f"K9 {strat} path", k9(),
+                                   k9(plain=True)),
+                      compare(torch, f"K9 {strat} path, no snap",
+                              k9(sn=None), k9(sn=None, plain=True)),
+                      compare(torch, f"K9 {strat} every slot valid",
+                              k9(vv=every), k9(vv=every, plain=True)),
+                      compare(torch, f"K9 {strat} no slot valid",
+                              k9(vv=none), k9(vv=none, plain=True)),
+                      *(compare(torch, f"K9 {strat} {n}", k9(h=h),
+                                k9(h=h, plain=True))
+                        for n, h in dense.items()))
+        dm = device_ms(torch, k9)
+        b, by = _k9_bound(torch, dtax, strat, u, v)
+        out[strat] = dict(
+            ms=cuda_ms(torch, k9), device_ms=dm, bound_ms=b, bound_by=by,
+            share=b / dm if dm else None, shape=[B, K],
+            valid_per_group=float(v.sum(dim=1).float().mean()),
+            bare_device_ms=device_ms(torch, lambda: k9(sn=None)),
+            floor_device_ms=device_ms(torch, lambda: k9(vv=none)),
+            **{n + "_device_ms": device_ms(torch, lambda h=h: k9(h=h))
+               for n, h in dense.items()},
+            plain_ms=(cuda_ms(torch, lambda: k9(plain=True), reps=2)
+                      if check else None), library_ms=None)
+    wide = {}
+    for K in K9_WIDE:
+        u, c, v = _dense_hits(torch, dtax, K9_GROUPS, K, 65, seed=11)
+        row = {"valid_per_group": v.sum(dim=1).tolist()}
+        for strat in RMQ_STRATEGIES:
+            def k9w(plain=False, strat=strat):
+                fn = prmq.rmq_aggregate_plain if plain else \
+                    prmq.rmq_aggregate
+                return fn(strat, dtax, euler, u, c, v, 0.25, dtax.snap_valid)
+
+            if check:
+                err = max(err, compare(torch, f"K9 {strat} K={K}", k9w(),
+                                       k9w(True)))
+            dm, dby = device_ms(torch, k9w, reps=2, by=True)
+            b, by = _k9_bound(torch, dtax, strat, u, v)
+            row[strat] = dict(ms=cuda_ms(torch, k9w, reps=2), device_ms=dm,
+                              device_ms_by=dby, bound_ms=b, bound_by=by,
+                              share=b / dm if dm else None)
+        wide[K] = row
+    out.update(wide=wide, max_abs_err=err)
+    log("K9 device ms (bound): " + "; ".join(
+        f"{s} {fmt_ms(out[s]['device_ms'])} ({out[s]['bound_ms']:.5f}), "
+        f"floor {fmt_ms(out[s]['floor_device_ms'])}" for s in RMQ_STRATEGIES)
+        + "; wide " + "; ".join(
+            f"K={K} " + ", ".join(f"{s} {fmt_ms(r[s]['device_ms'])}"
+                                  for s in RMQ_STRATEGIES)
+            for K, r in wide.items()))
+    return out
+
+
+def _rmq_batches(torch, world):
+    """The workload as packed batches on the card and their lengths."""
+    from umgap_tpu_torch.ops import encoding
+
     dev, P, L = world["dev"], world["P"], world["L"]
-    euler = DeviceEuler.from_host(world["tax"], dev)
     batches = [torch.from_numpy(encoding.pack_dna4(
         world["reads"][i * BATCH:(i + 1) * BATCH])).to(dev)
         for i in range(P // BATCH)]
-    blens = torch.full((BATCH, 2), L, dtype=torch.int32, device=dev)
+    return batches, torch.full((BATCH, 2), L, dtype=torch.int32, device=dev)
+
+
+def _rmq_resident_ms(torch, world, an, batches, blens, reps=3):
+    """ms a device-resident batch step of ``an`` over ``batches``."""
+    def resident():
+        for b in batches:
+            an.step(b, blens, world["L"])
+
+    return cuda_ms(torch, resident, reps=reps) / len(batches)
+
+
+def phase_rmq(torch, world):
+    """rmq/lca* and rmq/hybrid (PipelineConfig's seeds) through the
+    Analyser over all 32,768 pairs: K1-K4 and K9 launched (one K9 and
+    no K5 or K6 a batch), kernel taxa equal to the plain path's, the
+    first 1,024 equal to umgap_tpu's digests; device-resident and steady
+    end-to-end pairs/s, CUDA kernels a batch step; K9 on the path's own
+    inputs and past it (``k9_cells``). Returns (the launch counts of both
+    runs summed, K9's entry of the kernels line: lca*'s numbers at the
+    path's shape, hybrid's beside them)."""
+    from umgap_tpu_torch import kernels
+    from umgap_tpu_torch.agg.device_rmq import DeviceEuler
+    from umgap_tpu_torch.pipeline.fused import PipelineConfig
+
+    t_phase = time.perf_counter()
+    P = world["P"]
+    euler = DeviceEuler.from_host(world["tax"], world["dev"])
+    batches, blens = _rmq_batches(torch, world)
     phase = {"tour_len": euler.tour_len}
-    total = {}
+    total, inputs = {}, {}
     for strat in RMQ_STRATEGIES:
         key = f"rmq/{strat}"
         cfg = PipelineConfig(f"rmq-{strat}", method="rmq", strategy=strat)
@@ -6570,8 +6678,8 @@ def phase_rmq(torch, world):
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
         c = batch_launches(torch, world, an)
-        require(c["snap_taxa"] == 1 and c["dedup_counts"] == 1
-                and c["tree_aggregate"] == 0,
+        require(c["rmq_aggregate"] == 1 and c["dedup_counts"] == 1
+                and c["tree_aggregate"] == 0 and c["lane_gather"] == 0,
                 f"{key}: one batch launched {c}")
         plain = _run_analyser(_analyser(world, cfg, plain=True, euler=euler),
                               world)
@@ -6582,27 +6690,70 @@ def phase_rmq(torch, world):
         require(taxa_digest(taxa[:REFERENCE_PAIRS]) == REFERENCE_DIGESTS[key],
                 f"{key}: the first {REFERENCE_PAIRS} groups differ from the "
                 "JAX package's reference taxa")
-
-        def resident(an=an):
-            for b in batches:
-                an.step(b, blens, L)
-
-        ms = cuda_ms(torch, resident, reps=3)
+        inputs[strat] = _k9_inputs(torch, world, an)
+        ms = _rmq_resident_ms(torch, world, an, batches, blens)
         e2e = _stream_rate(an, world)
         phase[key] = dict(
             launches=launches, overflow_reads=an.overflow_reads,
             batch_cuda_launches=batch_cuda_launches(torch, world, an),
-            device_resident_pairs_per_s=P / (ms / 1e3),
-            batch_ms=ms / len(batches), e2e=e2e,
-            checksum=int(taxa.sum()),
-            distinct_taxa=int(len(np.unique(taxa))))
+            device_resident_pairs_per_s=BATCH / (ms / 1e3),
+            batch_ms=ms, e2e=e2e, checksum=int(taxa.sum()),
+            distinct_taxa=int(len(np.unique(taxa))),
+            stages=stage_table(torch, world, an))
         log(f"{key}: kernel == plain on {P} groups, == reference on "
-            f"{REFERENCE_PAIRS}; device-resident {P / (ms / 1e3):.0f} "
-            f"pairs/s ({ms / len(batches):.2f} ms per batch), e2e "
-            f"{e2e['pairs_per_s']:.0f} pairs/s; launches {launches}")
+            f"{REFERENCE_PAIRS}; device-resident {BATCH / (ms / 1e3):.0f} "
+            f"pairs/s ({ms:.3f} ms per batch), e2e "
+            f"{e2e['pairs_per_s']:.0f} pairs/s; "
+            f"{phase[key]['batch_cuda_launches']['kernels']} CUDA kernels a "
+            f"batch step; launches {launches}")
+    k9 = k9_cells(torch, world, euler, inputs)
+    phase["k9"] = k9
     phase["seconds"] = time.perf_counter() - t_phase
     RESULT["phases"]["rmq"] = phase
-    return total
+    entry = dict(k9["lca*"], max_abs_err=k9["max_abs_err"],
+                 equal=k9["max_abs_err"] == 0.0, hybrid=k9["hybrid"],
+                 wide=k9["wide"])
+    return total, entry
+
+
+def rmq_ab(torch, world):
+    """The Euler/RMQ presets by the same code on any tree: each
+    strategy's device-resident batch ms over the workload, steady e2e
+    pairs/s, CUDA kernels a batch step, its stage table and the taxa's
+    checksum (the trees' taxa must agree)."""
+    from umgap_tpu_torch.agg.device_rmq import DeviceEuler
+    from umgap_tpu_torch.pipeline.fused import PipelineConfig
+
+    euler = DeviceEuler.from_host(world["tax"], world["dev"])
+    batches, blens = _rmq_batches(torch, world)
+    out = {}
+    for strat in RMQ_STRATEGIES:
+        cfg = PipelineConfig(f"rmq-{strat}", method="rmq", strategy=strat)
+        an = _analyser(world, cfg, euler=euler)
+        taxa = _run_analyser(an, world)
+        out[strat] = dict(
+            batch_ms=_rmq_resident_ms(torch, world, an, batches, blens),
+            e2e=_stream_rate(an, world),
+            batch_cuda_launches=batch_cuda_launches(torch, world, an),
+            stages=stage_table(torch, world, an),
+            checksum=int(taxa.sum()),
+            digest=taxa_digest(taxa[:REFERENCE_PAIRS]))
+    return out
+
+
+def k9_ab(torch, world):
+    """K9's cells (``k9_cells``, checked against the plain version) on
+    this tree's kernel: for sweeps of its compile-time sizes."""
+    from umgap_tpu_torch.agg.device_rmq import DeviceEuler
+    from umgap_tpu_torch.pipeline.fused import PipelineConfig
+
+    euler = DeviceEuler.from_host(world["tax"], world["dev"])
+    inputs = {}
+    for strat in RMQ_STRATEGIES:
+        cfg = PipelineConfig(f"rmq-{strat}", method="rmq", strategy=strat)
+        inputs[strat] = _k9_inputs(torch, world,
+                                   _analyser(world, cfg, euler=euler))
+    return k9_cells(torch, world, euler, inputs)
 
 
 # ---------------------------------------------------------------------- #
@@ -6720,7 +6871,9 @@ def compare_trees(before, after, order="BAAB", mode="full"):
     tables, the tail's device ms, the ring, the 12,000 bp path), "stash"
     its ``stash_ab`` (K2 at stashes of STASH_ROWS rows), "redesign" its
     ``redesign_ab`` (K1P's and K3RS's cells, K1, K3's staged tile and
-    unscored row kernel beside them), "chains" this
+    unscored row kernel beside them), "rmq" its ``rmq_ab`` (the Euler/RMQ
+    presets' batch: device-resident ms, e2e, CUDA kernels a step, stage
+    tables, the taxa's checksum), "chains" this
     file's ``chain_device_ms`` alone at L = 100 and 160 (K1-K4 and K6).
     Writes ``ab.json`` (or ``ab_<mode>.json``) under OUT_DIR.
 
@@ -6817,6 +6970,17 @@ def compare_trees(before, after, order="BAAB", mode="full"):
                     for c, v in d["k3r"].items()) + "; chain " + ", ".join(
                     f"{n} {fmt_ms(v)}" for n, v in d["chain"].items()
                     if not n.endswith("event_ms")))
+    if mode == "rmq":
+        for k, r in enumerate(runs):
+            log(f"run {k} {r['tag']}: " + "; ".join(
+                f"rmq/{st} {c['batch_ms']:.3f} ms a batch, e2e "
+                f"{c['e2e']['pairs_per_s']:.0f} pairs/s, "
+                f"{c['batch_cuda_launches']['kernels']} CUDA kernels, "
+                f"checksum {c['checksum']}"
+                for st, c in r["rmq"].items()))
+        require(len({json.dumps({s: (c["checksum"], c["digest"])
+                                 for s, c in r["rmq"].items()})
+                     for r in runs}) == 1, "rmq A/B: the trees' taxa differ")
     if mode != "full":
         return
 
@@ -6978,7 +7142,8 @@ def sweep_constant(constant, values,
     differ only
     in one ``constexpr int`` of a CUDA source, each in its own process,
     in turns (the values, then again in reverse order); ``mode``
-    "scored" times K3's scored entry (``scored_ab``). Writes
+    "scored" times K3's scored entry (``scored_ab``), "k9" K9's cells
+    (``k9_ab``, each variant held to the plain version). Writes
     ``sweep_<constant>.json`` under OUT_DIR.
 
         python3 -c "import chip_smoke; chip_smoke.sweep_constant(
@@ -7021,6 +7186,17 @@ def sweep_constant(constant, values,
                 f"{k} " + ", ".join(f"{c} {fmt_ms(st['device_ms'])}"
                                     for c, st in cells.items())
                 for k, cells in r["rows"].items()))
+            continue
+        if mode == "k9":
+            runs.append(dict(value=v, k9=r["k9"]))
+            log(f"{constant} = {v}: K9 device ms " + ", ".join(
+                f"{st} {fmt_ms(r['k9'][st]['device_ms'])} (floor "
+                f"{fmt_ms(r['k9'][st]['floor_device_ms'])}, full "
+                f"{fmt_ms(r['k9'][st]['full_device_ms'])})"
+                for st in RMQ_STRATEGIES) + "; wide " + "; ".join(
+                f"K={K} " + ", ".join(f"{st} {fmt_ms(c[st]['device_ms'])}"
+                                      for st in RMQ_STRATEGIES)
+                for K, c in r["k9"]["wide"].items()))
             continue
         if mode == "scored":
             runs.append(dict(value=v, scored=r["scored"]))
@@ -7450,7 +7626,8 @@ def ab_worker(tree, out, mode="full"):
     length alone, "chains" at it and at 160, "tryptic" this file's ``tryptic_ab``, "wide" its
     ``wide_ab``, "long" its ``long_ab``, "rows" its ``rows_ab``, "tail"
     its ``tail_ab``, "stash" its ``stash_ab``, "redesign" its
-    ``redesign_ab``, "scored" its ``scored_ab``."""
+    ``redesign_ab``, "scored" its ``scored_ab``, "rmq" its ``rmq_ab``,
+    "k9" its ``k9_ab``."""
     import importlib.util
 
     import torch
@@ -7474,10 +7651,11 @@ def ab_worker(tree, out, mode="full"):
                 for width in (world["L"], 160)}), f, default=str)
         return
     if mode in ("tryptic", "wide", "long", "rows", "tail", "stash",
-                "redesign", "scored"):
+                "redesign", "scored", "rmq", "k9"):
         fn = dict(tryptic=tryptic_ab, wide=wide_ab, long=long_ab,
                   rows=rows_ab, tail=tail_ab, stash=stash_ab,
-                  redesign=redesign_ab, scored=scored_ab)[mode]
+                  redesign=redesign_ab, scored=scored_ab, rmq=rmq_ab,
+                  k9=k9_ab)[mode]
         with open(out, "w") as f:
             json.dump({"tree": tree, "card": card,
                        "ptxas": t.RESULT.get("ptxas"),

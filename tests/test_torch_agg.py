@@ -19,6 +19,7 @@ from umgap_tpu.taxonomy import fixture_taxa as jfixture
 from umgap_tpu_torch import convert, kernels
 from umgap_tpu_torch import taxonomy as ptaxonomy
 from umgap_tpu_torch.agg import device as pagg
+from umgap_tpu_torch.agg import device_rmq as prmq
 
 DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), ".bench_data")
@@ -454,7 +455,7 @@ def test_tree_aggregate_hits_edge_cases_match_jax(strategy):
 
 
 # ---------------------------------------------------------------------- #
-# The fused tail: K4 with the lower bound, K6 and snap_taxa with snap,
+# The fused tail: K4 with the lower bound, K6 and K9 with snap,
 # against umgap_tpu's dedup -> filter -> aggregate -> snap -> where
 # ---------------------------------------------------------------------- #
 
@@ -573,8 +574,8 @@ def test_tail_edge_rows_match_jax(strategy):
         assert got[1] == (1 if bound == 2.0 else got[1])
     if strategy == "mrtl":  # the aggregates 3, size and size + 7
         assert got[4] == got[5] == got[6] == 0
-    # snap_taxa on the aggregates themselves: in range, NONE, at and past
-    # the end, negative, I32_MAX; rows with and without a valid slot
+    # the plain snap on the aggregates themselves: in range, NONE, at and
+    # past the end, negative, I32_MAX; rows with and without a valid slot
     agg = np.array([1, 12884, 3, size, size + 7, -1, big, 185752], np.int32)
     valid = np.ones((8, 4), bool)
     valid[[0, 7], :] = False
@@ -589,9 +590,10 @@ def test_tail_edge_rows_match_jax(strategy):
 @pytest.mark.parametrize("world", ["fixture", "bench"])
 @pytest.mark.parametrize("strategy", ["lca*", "hybrid"])
 def test_snap_taxa_plain_matches_jax_on_rmq(world, strategy):
-    """The Euler/RMQ aggregators end in snap_taxa: its plain version (and
-    aggregate_batch with the snap table) against umgap_tpu's filter ->
-    rmq aggregate -> snap_batch -> where."""
+    """The Euler/RMQ aggregators end in K9's store: its plain version
+    (and K9's wrapper and aggregate_batch with the snap table, on the
+    CPU the same) against umgap_tpu's filter -> rmq aggregate ->
+    snap_batch -> where."""
     jtax, (utaxa, ucounts, uvalid) = _world_hits(world, 12,
                                                  7 * len(world) + 1)
     dx, px = _carried(jtax)
@@ -611,7 +613,8 @@ def test_snap_taxa_plain_matches_jax_on_rmq(world, strategy):
                                    euler=pe)
         got = pagg.snap_taxa_plain(px.snap_valid, agg, v)
         np.testing.assert_array_equal(got.numpy(), want)
-        assert torch.equal(pagg.snap_taxa(px.snap_valid, agg, v), got)
+        assert torch.equal(prmq.rmq_aggregate(strategy, px, pe, u, c, v,
+                                              0.25, snap=px.snap_valid), got)
         assert torch.equal(pagg.aggregate_batch(
             px, u, c, v, "rmq", strategy, 0.25, euler=pe,
             snap=px.snap_valid), got)

@@ -888,8 +888,8 @@ def test_tree_aggregate_hits_allocates_only_its_output(dev):
 def test_tree_presets_launch_k6_once_a_batch(dev, preset):
     """run_stages of the tree aggregators on the card: after seed-extend
     one K4 launch (with the lower bound) and one K6 launch (with snap) a
-    batch, no K5 (no take, no ancestry epilogue) and no snap_taxa; taxa
-    equal to the plain path's."""
+    batch, no K5 (no take, no ancestry epilogue) and no K9; taxa equal to
+    the plain path's."""
     from umgap_tpu_torch.pipeline.fused import PRESETS, run_stages
 
     tax = _random_tree(3000, 4)
@@ -921,7 +921,7 @@ def test_tree_presets_launch_k6_once_a_batch(dev, preset):
     after = kernels.launch_counts()
     assert after["tree_aggregate"] - before["tree_aggregate"] == 2
     assert after["dedup_counts"] - before["dedup_counts"] == 2
-    for k in ("lane_gather", "lane_gather_ancestry", "snap_taxa"):
+    for k in ("lane_gather", "lane_gather_ancestry", "rmq_aggregate"):
         assert after[k] == before[k], k
     want = run_stages(reads, lt, L, False, dtax, dtable, cfg, plain=True)
     assert torch.equal(got, want)
@@ -1580,11 +1580,11 @@ def test_tryptic_stages_kernels_equal_plain(dev, preset):
               "tree_aggregate"):
         assert counts[k] == 1, counts
     assert counts["reads_to_kmers"] == counts["probe_kmer"] == 0
-    assert counts["lane_gather"] == counts["snap_taxa"] == 0
+    assert counts["lane_gather"] == counts["rmq_aggregate"] == 0
 
 
 # ---------------------------------------------------------------------- #
-# The fused tail: K4's bound, K6's snap, snap_taxa
+# The fused tail: K4's bound, K6's and K9's snap
 # ---------------------------------------------------------------------- #
 
 @pytest.mark.parametrize("N", [300, 540, 2048])
@@ -1689,50 +1689,202 @@ def test_tree_aggregate_snap_edge_rows(dev, K):
     assert (got[3::4] == 1).all()
 
 
+def _k9_plain(strategy, dtax, euler, u, c, v, factor=0.25, snap=None,
+              ordered=False):
+    """K9's plain version in row chunks whose (B, K, K) tensors stay
+    near 2^28 elements."""
+    step = max(1, (1 << 28) // (u.shape[1] ** 2))
+    return torch.cat([prmq.rmq_aggregate_plain(
+        strategy, dtax, euler, u[s:s + step], c[s:s + step], v[s:s + step],
+        factor, snap, ordered) for s in range(0, u.shape[0], step)])
+
+
+def _k9_check(dtax, euler, u, c, v, snaps, factors=(0.25,), ordered=False):
+    """K9 for both strategies, with each table of ``snaps`` (None: no
+    snap) and each factor (hybrid), against its plain version; one launch
+    a call; the snapped launch equals the bare one snapped by the plain
+    snap."""
+    for strategy in ("lca*", "hybrid"):
+        for factor in factors if strategy == "hybrid" else factors[:1]:
+            bare = None
+            for snap in snaps:
+                before = kernels.K9.launches
+                got = prmq.rmq_aggregate(strategy, dtax, euler, u, c, v,
+                                         factor, snap, ordered)
+                assert kernels.K9.launches == before + 1
+                want = _k9_plain(strategy, dtax, euler, u, c, v, factor,
+                                 snap, ordered)
+                assert got.dtype == torch.int32 and torch.equal(got, want), \
+                    (strategy, factor, int((got != want).sum()))
+                if snap is None:
+                    bare = got
+                elif bare is not None:
+                    assert torch.equal(got, pagg.snap_taxa_plain(snap, bare,
+                                                                 v))
+
+
+_K9_TREES = dict(_K6_TREES, star=lambda: _star_tree())
+
+
+def _k9_wide_hits(tax, size, K, B, seed):
+    """B groups of K slots past K = 64: the first with no valid slot, the
+    others of 17 to K slots (90% valid) drawn with repeats, a quarter
+    with ids below 0 and past the table, a quarter a chain with one slot
+    off it, shuffled."""
+    rng = np.random.default_rng(seed)
+    ids = np.flatnonzero(tax.depth >= 1)
+    deep = int(ids[np.argmax(tax.depth[ids])])
+    chain = tax.anc_table[deep][tax.anc_table[deep] > 0]
+    u = np.full((B, K), np.iinfo(np.int32).max, np.int32)
+    c = np.zeros((B, K), np.float32)
+    v = np.zeros((B, K), bool)
+    for b in range(1, B):
+        n = int(rng.integers(17, K + 1))
+        sel = rng.choice(ids, size=n)
+        if b % 4 == 1:
+            sel[rng.choice(n, size=5, replace=False)] = [
+                -1, -9, 0, size, size + 2]
+        if b % 4 == 2:
+            sel = np.concatenate([np.repeat(chain, 2),
+                                  rng.choice(ids, size=1)])[:K]
+            rng.shuffle(sel)
+        u[b, :len(sel)] = sel
+        c[b, :len(sel)] = rng.integers(1, 7, size=len(sel))
+        v[b, :len(sel)] = rng.random(len(sel)) < 0.9
+    return u, c, v
+
+
+@pytest.mark.parametrize("world", ["random", "bench", "chain", "star"])
+@pytest.mark.parametrize("K", [64, 408, 4104])
+def test_rmq_aggregate_kernel(dev, world, K):
+    """K9 against rmq_aggregate_plain at the main width (64: hybrid's
+    warp path), the wide program's (408: the block path) and past it
+    (4,104): groups of 0-3, 16, 17, K and a random count of valid slots,
+    filtered slots, repeated ids (K6's hit lists), and past K = 64
+    ``_k9_wide_hits``; with and without the pipeline's snap table and
+    (to K = 408) one whose every 7th entry is NONE."""
+    tax = _K9_TREES[world]()
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    euler = prmq.DeviceEuler.from_host(tax, dev)
+    size = int(dtax.geom.shape[0])
+    if K == 64:
+        u, c, v = _k6_hits(tax, 1000, K, K + len(world))
+    else:
+        u, c, v = _k9_wide_hits(tax, size, K, 12, K + len(world))
+        assert prmq.rmq_scratch_blocks(12, K) == 0
+    u, c, v = (torch.from_numpy(x).to(dev) for x in (u, c, v))
+    snaps = ((None, dtax.snap_valid, _snap_table(dtax)) if K <= 408
+             else (None, dtax.snap_valid))
+    _k9_check(dtax, euler, u, c, v, snaps, (0.0, 0.25, 0.9))
+
+
+@pytest.mark.parametrize("world", ["bench", "chain"])
+def test_rmq_lca_kernel_at_16392(dev, world):
+    """K9's lca* walk at K = 16,392 (the wide program of 4,096 bp reads):
+    against the plain version (a Python loop over the 16,392 slots, run
+    once), and with the snap table against the plain snap of that.
+    hybrid's plain (B, K, K) tensors are 1 GB a group here; its block
+    path and scratch are held at K = 4,104 and 8,196."""
+    tax = _K9_TREES[world]()
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    euler = prmq.DeviceEuler.from_host(tax, dev)
+    K = 16392
+    u, c, v = (torch.from_numpy(x).to(dev) for x in _k9_wide_hits(
+        tax, int(dtax.geom.shape[0]), K, 4, K + len(world)))
+    want = _k9_plain("lca*", dtax, euler, u, c, v)
+    before = kernels.K9.launches
+    assert torch.equal(prmq.rmq_aggregate("lca*", dtax, euler, u, c, v),
+                       want)
+    got = prmq.rmq_aggregate("lca*", dtax, euler, u, c, v,
+                             snap=dtax.snap_valid)
+    assert kernels.K9.launches == before + 2
+    assert torch.equal(got, pagg.snap_taxa_plain(dtax.snap_valid, want, v))
+
+
+def test_rmq_aggregate_kernel_global_scratch(dev):
+    """K9's hybrid past a block's shared memory (K = 8,196: its lists in
+    the global scratch), and with the scratch cut to one area (the grid
+    strides over the batch), against the plain version."""
+    tax = _random_tree(3000, 9)
+    dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    rng = np.random.default_rng(3)
+    K, B = 8196, 5
+    ids = np.flatnonzero(tax.depth >= 1)
+    u = np.full((B, K), np.iinfo(np.int32).max, np.int32)
+    c = np.zeros((B, K), np.float32)
+    v = np.zeros((B, K), bool)
+    for b, n in enumerate((0, 1, 70, 900, 2500)):
+        u[b, :n] = np.sort(rng.choice(ids, size=n, replace=False))
+        c[b, :n] = rng.integers(1, 7, size=n)
+        v[b, :n] = True
+    u, c, v = (torch.from_numpy(x).to(dev) for x in (u, c, v))
+    assert prmq.rmq_scratch_blocks(B, K) == B
+    want = _k9_plain("hybrid", dtax, None, u, c, v)
+    assert torch.equal(prmq.rmq_aggregate("hybrid", dtax, None, u, c, v),
+                       want)
+    old = prmq.RMQ_SCRATCH_MAX
+    try:
+        prmq.RMQ_SCRATCH_MAX = prmq.rmq_mix_area_bytes(K)
+        assert prmq.rmq_scratch_blocks(B, K) == 1
+        assert torch.equal(prmq.rmq_aggregate("hybrid", dtax, None, u, c,
+                                              v), want)
+    finally:
+        prmq.RMQ_SCRATCH_MAX = old
+
+
 @pytest.mark.parametrize("K", [1, 13, 16, 64, 408])
 @pytest.mark.parametrize("B", [1, 777, 16384])
-def test_snap_taxa_kernel(dev, K, B):
-    """snap_taxa against its plain version: aggregates in range, NONE
-    entries, at and past the table's end, negative, I32_MAX; masks with
-    no, one (first or last slot) and many valid slots; rows of 16-byte
-    pieces and of odd widths, and a mask that starts off a 16-byte
-    boundary (byte loads); one launch a call."""
+def test_rmq_aggregate_store_kernel(dev, K, B):
+    """K9's store (the snap that was snap_taxa's launch) against its
+    plain version, on groups whose aggregate is a chosen id: one valid
+    slot of an id in range, of one whose snap entry is NONE, at and past
+    the table's end, negative (hybrid's aggregate is that id), I32_MAX;
+    masks with no, one (first or last slot) and many valid slots; a
+    table shorter than the taxonomy; rows of odd widths and a mask that
+    starts off a 16-byte boundary; one launch a call."""
     rng = np.random.default_rng(K * B)
     tax = _random_tree(3000, 5)
     dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    euler = prmq.DeviceEuler.from_host(tax, dev)
     snap = _snap_table(dtax, 5)
     S = len(snap)
     agg = rng.integers(0, S, size=B).astype(np.int32)
     odd = np.array([-1, S, S + 7, np.iinfo(np.int32).max, 0, -5], np.int32)
     agg[:min(B, 6)] = odd[:min(B, 6)]
+    u = np.full((B + 1, K), np.iinfo(np.int32).max, np.int32)
     valid = rng.random((B + 1, K)) < rng.choice([0.0, 0.02, 0.5], (B + 1, 1))
     valid[1::5] = False
     valid[2::5, -1] = True
     valid[3::5, 0] = True
-    full = torch.from_numpy(valid).to(dev)
-    a = torch.from_numpy(agg).to(dev)
+    ids = np.flatnonzero(tax.depth >= 1)
+    u[:] = rng.choice(ids, size=(B + 1, K))
+    one = np.flatnonzero(valid.sum(axis=1) == 1)
+    u[one, valid[one].argmax(axis=1)] = np.resize(agg, B + 1)[one]
+    c = rng.integers(1, 5, size=(B + 1, K)).astype(np.float32)
+    ut, ct, full = (torch.from_numpy(x).to(dev) for x in (u, c, valid))
     # the same mask 8 bytes past a 16-byte boundary, and the next rows
     shifted = torch.empty(B * K + 8, dtype=torch.bool, device=dev)[8:]
     shifted = shifted.view(B, K)
     shifted.copy_(full[:B])
     assert shifted.data_ptr() % 16 == 8
-    for v in (full[:B], shifted, full[1:]):
-        before = kernels.KS.launches
-        got = pagg.snap_taxa(snap, a, v)
-        assert kernels.KS.launches == before + 1
-        assert got.dtype == torch.int32
-        assert torch.equal(got, pagg.snap_taxa_plain(snap, a, v))
-    assert (got[~v.any(dim=1)] == 1).all()
+    for rows, v in ((slice(0, B), full[:B]), (slice(0, B), shifted),
+                    (slice(1, B + 1), full[1:])):
+        uu, cc = ut[rows].contiguous(), ct[rows].contiguous()
+        _k9_check(dtax, euler, uu, cc, v,
+                  (None, snap, snap[:S // 2].contiguous()))
+        got = prmq.rmq_aggregate("hybrid", dtax, euler, uu, cc, v, snap=snap)
+        assert (got[~v.any(dim=1)] == 1).all()
 
 
-def test_rmq_stages_launch_snap_taxa_once_a_batch(dev):
-    """rmq/hybrid's batch: K4 with the bound, its Euler/RMQ aggregator
-    over K5, then one snap_taxa launch; no K6; taxa equal to the plain
-    path's."""
+def test_rmq_stages_launch_k9_once_a_batch(dev):
+    """rmq/hybrid's and rmq/lca*'s batch: K4 with the bound, then one K9
+    launch (the aggregate and its snap); no K5, no K6; taxa equal to the
+    plain path's."""
     from umgap_tpu_torch.pipeline.fused import PipelineConfig, run_stages
 
     tax = _random_tree(3000, 4)
     dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    euler = prmq.DeviceEuler.from_host(tax, dev)
     rng = np.random.default_rng(6)
     B, E, L = 64, 2, 100
     codes = rng.integers(0, 4, size=(B * E, L)).astype(np.uint8)
@@ -1747,46 +1899,67 @@ def test_rmq_stages_launch_snap_taxa_once_a_batch(dev):
     vals = np.broadcast_to(per_read, hi.shape)[wv.numpy()][first]
     dtable = lookup.DeviceTable.from_host(build_kmer_table(keys, vals, 9),
                                           dev)
-    cfg = PipelineConfig("rmq-hybrid", method="rmq", strategy="hybrid",
-                         lower_bound=2.0)
     reads = torch.from_numpy(codes).to(dev)
     lt = torch.from_numpy(lens).to(dev)
-    kernels.reset_launches()
-    got = run_stages(reads, lt, L, False, dtax, dtable, cfg)
-    counts = kernels.launch_counts()
-    assert counts["snap_taxa"] == counts["dedup_counts"] == 1, counts
-    assert counts["tree_aggregate"] == 0 and counts["lane_gather"] > 0
-    want = run_stages(reads, lt, L, False, dtax, dtable, cfg, plain=True)
-    assert torch.equal(got, want) and (got != 1).any()
+    for strategy in ("hybrid", "lca*"):
+        cfg = PipelineConfig(f"rmq-{strategy}", method="rmq",
+                             strategy=strategy, lower_bound=2.0)
+        kernels.reset_launches()
+        got = run_stages(reads, lt, L, False, dtax, dtable, cfg,
+                         euler=euler)
+        counts = kernels.launch_counts()
+        assert counts["rmq_aggregate"] == counts["dedup_counts"] == 1, counts
+        assert counts["tree_aggregate"] == counts["lane_gather"] == 0
+        want = run_stages(reads, lt, L, False, dtax, dtable, cfg,
+                          plain=True, euler=euler)
+        assert torch.equal(got, want) and (got != 1).any()
 
 
 def test_snap_wrappers_refuse_bad_inputs(dev):
-    """A snap table or mask on the CPU beside CUDA tensors, or of the
-    wrong type or shape, is refused: a CUDA tensor never reaches a plain
-    version through a wrapper."""
+    """A snap table, mask or table on the CPU beside CUDA tensors, or of
+    the wrong type or shape, is refused by K6's and K9's wrappers: a
+    CUDA tensor never reaches a plain version through a wrapper."""
     tax = _random_tree(300, 2)
     dtax = pagg.DeviceTaxonomy.from_host(tax, dev)
+    euler = prmq.DeviceEuler.from_host(tax, dev)
     u, c, v = (torch.from_numpy(x).to(dev)
                for x in _k6_hits(tax, 40, 8, 1))
-    agg = pagg.tree_aggregate_hits("hybrid", dtax, u, c, v)
     cpu_snap = dtax.snap_valid.cpu()
     with pytest.raises(ValueError):
         pagg.tree_aggregate_hits("hybrid", dtax, u, c, v, snap=cpu_snap)
     with pytest.raises(ValueError):
         pagg.tree_aggregate_hits("lca*", dtax, u, c, v,
                                  snap=dtax.snap_valid.long())
+    k9 = prmq.rmq_aggregate
+    for strategy in ("lca*", "hybrid"):
+        with pytest.raises(ValueError):
+            k9(strategy, dtax, euler, u, c, v, snap=cpu_snap)
+        with pytest.raises(ValueError):
+            k9(strategy, dtax, euler, u, c, v.cpu(), snap=dtax.snap_valid)
+        with pytest.raises(ValueError):
+            k9(strategy, dtax, euler, u[:-1], c, v)
+        with pytest.raises(ValueError):
+            k9(strategy, dtax, euler, u, c, v, snap=dtax.snap_valid[:0])
+        with pytest.raises(ValueError):
+            k9(strategy, dtax, euler, u, c, v, snap=dtax.snap_valid.long())
+        with pytest.raises(ValueError):
+            k9(strategy, dtax, euler, u[:, :0], c[:, :0], v[:, :0])
     with pytest.raises(ValueError):
-        pagg.snap_taxa(cpu_snap, agg, v)
+        k9("lca*", dtax, None, u, c, v)
     with pytest.raises(ValueError):
-        pagg.snap_taxa(dtax.snap_valid, agg, v.cpu())
+        k9("hybrid", dtax, euler, u, None, v)
     with pytest.raises(ValueError):
-        pagg.snap_taxa(dtax.snap_valid, agg[:-1], v)
+        k9("hybrid", dtax, euler, u, c.double(), v)
     with pytest.raises(ValueError):
-        pagg.snap_taxa(dtax.snap_valid[:0], agg, v)
-    before = kernels.KS.launches
-    assert torch.equal(pagg.snap_taxa(dtax.snap_valid, agg, v),
-                       pagg.snap_taxa_plain(dtax.snap_valid, agg, v))
-    assert kernels.KS.launches == before + 1
+        k9("mrtl", dtax, euler, u, c, v)
+    with pytest.raises(ValueError):
+        k9("lca*", dtax, euler.to("cpu"), u, c, v)
+    before = kernels.K9.launches
+    assert torch.equal(k9("hybrid", dtax, euler, u, c, v,
+                          snap=dtax.snap_valid),
+                       prmq.rmq_aggregate_plain("hybrid", dtax, euler, u, c,
+                                                v, snap=dtax.snap_valid))
+    assert kernels.K9.launches == before + 1
 
 
 def test_multihost_two_ranks_on_one_card(dev, tmp_path):
@@ -1995,7 +2168,8 @@ def test_tree_aggregate_ordered_matches_plain(dev, strategy, K, B):
 def test_rmq_mix_ordered_on_the_card_equals_the_cpu(dev):
     """The Euler/RMQ hybrid with ``ordered=True`` on non-dyadic counts:
     its sums are elementwise adds in slot order, which round alike on
-    the card and the CPU, through K5 and through its plain version."""
+    the card and the CPU, through K5, through its plain version and
+    through K9."""
     tax = _bench_tree()
     B, K = 300, 48
     u, c, v = _ordered_hits(tax, B, K, 5)
@@ -2012,6 +2186,12 @@ def test_rmq_mix_ordered_on_the_card_equals_the_cpu(dev):
         with kernels.plain_versions():
             assert torch.equal(prmq.rmq_mix_batch(*args, ordered=True).cpu(),
                                want)
+        # K9 adds in slot order, the order of the plain version's folds
+        before = kernels.K9.launches
+        got = prmq.rmq_aggregate("hybrid", dtax, None, *args[1:4], factor,
+                                 ordered=True)
+        assert kernels.K9.launches == before + 1
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("method,strategy", [
@@ -2022,7 +2202,7 @@ def test_taxa2agg_scored_on_the_card_equals_the_cpu(dev, tmp_path, method,
     """``taxa2agg -s`` with non-dyadic scores on the card writes the
     bytes of ``--device cpu``: narrow rows and rows past 64 distinct taxa
     and 1,024 entries (K4's row kernel, the wide pass), with -r, -l and
-    -f; K4 and K6 (or K5 and snap_taxa) launched."""
+    -f; K4 and K6 (or K9) launched."""
     import contextlib
     import io
     import os
@@ -2055,7 +2235,7 @@ def test_taxa2agg_scored_on_the_card_equals_the_cpu(dev, tmp_path, method,
         recs["wide"].append(rec)
         if i % 97:
             recs["narrow"].append(rec)
-    want = (("lane_gather", "snap_taxa") if (method, strategy) in (
+    want = (("rmq_aggregate",) if (method, strategy) in (
         ("rmq", "lca*"), ("rmq", "hybrid")) else ("tree_aggregate",))
     for kind, rows in recs.items():
         # a chunk's width picks K4's entry: the warp path, the row kernel

@@ -29,6 +29,7 @@ from umgap_tpu.taxonomy import Taxon, Taxonomy, fixture_taxa
 from umgap_tpu_torch import convert, kernels
 from umgap_tpu_torch import taxonomy as ptaxonomy
 from umgap_tpu_torch.agg import device as pagg
+from umgap_tpu_torch.agg import device_rmq as prmq
 from umgap_tpu_torch.ops import encoding as penc
 from umgap_tpu_torch.ops import gather
 from umgap_tpu_torch.ops import seedextend as pseedextend
@@ -129,8 +130,8 @@ def test_plain_stages_call_no_wrapper(toy, monkeypatch):
     one switch, and leaves it off; the kernel path calls the wrappers:
     K4 with the lower bound, then the tree aggregator through its hits
     entry, which builds no geometry (no row gather, no ancestry
-    epilogue) and snaps (no take, no snap_taxa); the Euler/RMQ
-    aggregators end in one snap_taxa."""
+    epilogue) and snaps (no take); the Euler/RMQ aggregators are one
+    call of K9's wrapper, which snaps too."""
     calls = []
 
     def spy(module, name):
@@ -148,8 +149,8 @@ def test_plain_stages_call_no_wrapper(toy, monkeypatch):
     spy(pseedextend, "seedextend_mask_batch")
     spy(pagg, "tree_aggregate_hits")
     spy(pagg, "tree_aggregate")
-    for name in ("dedup_counts", "snap_taxa"):
-        spy(pagg, name)
+    spy(pagg, "dedup_counts")
+    spy(prmq, "rmq_aggregate")
     cfg = PRESETS["max-sensitivity"]
     want = _run_stages(toy, cfg, plain=False)
     assert {"reads_to_kmers", "seedextend_hits", "dedup_counts",
@@ -161,17 +162,18 @@ def test_plain_stages_call_no_wrapper(toy, monkeypatch):
     # K4 filters, K6 reads the rows itself and snaps: no geometry and no
     # snap between them
     assert not {"take", "gather_rows", "ancestry", "tree_aggregate",
-                "snap_taxa"} & set(calls)
+                "rmq_aggregate"} & set(calls)
     calls.clear()
     got = _run_stages(toy, cfg, plain=True)
     assert calls == [] and not kernels.plain_selected()
     np.testing.assert_array_equal(got.numpy(), want.numpy())
-    # rmq/hybrid: its aggregator through K5, then one snap_taxa
+    # rmq/hybrid: one call of K9's wrapper (its plain version on the
+    # CPU reaches K5's plain versions only, through the switch)
     hyb = cfg._replace(strategy="hybrid")
     calls.clear()
     want = _run_stages(toy, hyb, plain=False)
-    assert calls.count("snap_taxa") == 1 and "take" in calls
-    assert "tree_aggregate_hits" not in calls
+    assert calls.count("rmq_aggregate") == 1
+    assert not {"take", "tree_aggregate_hits"} & set(calls)
     calls.clear()
     got = _run_stages(toy, hyb, plain=True)
     assert calls == [] and not kernels.plain_selected()
@@ -272,10 +274,10 @@ def test_wide_batch_rows(toy, method, strategy):
     """The wide program's batch: (1 << 28) // K^2 groups (the JAX
     package's bound, umgap_tpu/pipeline/runner.py) where the step builds
     (B, K, K) tensors, the plain versions (on the CPU, or on the card
-    within kernels.plain_versions()) and rmq/hybrid on the card; up to
-    64 elsewhere on the card, where a row's buffers grow with K (64
-    groups a batch at 4,096 bp, K = 16,392, and at 8,000 bp,
-    K = 32,004)."""
+    within kernels.plain_versions()); up to 64 on the card, where a
+    row's buffers grow with K (64 groups a batch at 4,096 bp,
+    K = 16,392, and at 8,000 bp, K = 32,004), rmq/hybrid too since K9
+    builds no (B, K, K) tensor."""
     from umgap_tpu_torch.pipeline import runner
 
     def old(K):
@@ -283,9 +285,7 @@ def test_wide_batch_rows(toy, method, strategy):
 
     for K in (48, 408, 4104, 16392, 32004):
         assert runner.wide_batch_rows("cpu", method, strategy, K) == old(K)
-        cuda = runner.wide_batch_rows("cuda", method, strategy, K)
-        assert cuda == (old(K) if (method, strategy) == ("rmq", "hybrid")
-                        else 64)
+        assert runner.wide_batch_rows("cuda", method, strategy, K) == 64
         assert runner.wide_batch_rows("cuda", method, strategy, K,
                                       plain=True) == old(K)
     assert runner.wide_batch_rows("cpu", method, strategy, 16392) == 1

@@ -1,14 +1,13 @@
 """Batched per-read aggregation: kernel K4 (``csrc/dedup_counts.cu``) for
 the dedup/count and the lower-bound filter, K5 (``ops/gather.py``) for
 the table gathers of the stage, K6 (``csrc/tree_aggregate.cu``) for the
-tree aggregators and snap, and ``snap_taxa`` (``csrc/snap_taxa.cu``)
-for the snap of the aggregators without K6, each beside its plain
-PyTorch version (``umgap_tpu.agg.device``). On the pipeline's path K6
-reads the taxonomy rows of a group's valid hits itself
-(:func:`tree_aggregate_hits`), so no :class:`HitGeometry` is built
-there, and a batch's tail after seed-extend is two launches: K4 with
-the bound, then K6 with the snap table (or the Euler/RMQ aggregator and
-:func:`snap_taxa`).
+tree aggregators and snap, and K9 (``csrc/rmq_aggregate.cu``, through
+``agg/device_rmq.py``) for the Euler/RMQ aggregators and snap, each
+beside its plain PyTorch version (``umgap_tpu.agg.device``). On the
+pipeline's path K6 reads the taxonomy rows of a group's valid hits
+itself (:func:`tree_aggregate_hits`), so no :class:`HitGeometry` is
+built there, and a batch's tail after seed-extend is two launches: K4
+with the bound, then K6 (or K9) with the snap table.
 
 Every read in a batch carries a fixed-width list of (taxon, count) hits;
 tree relations are answered by gathers from the device-resident
@@ -17,7 +16,7 @@ host oracle: greater depth, then smaller id. Ancestor incidence is an
 integer gather, never a float product, so taxon ids stay exact.
 
 Inside :func:`~umgap_tpu_torch.kernels.plain_versions` the functions of
-the stage call the plain versions of K5 and K6 on any device: that is
+the stage call the plain versions of K5, K6 and K9 on any device: that is
 the reference the kernels are held against on the card. Outside it,
 CPU tensors take the plain versions and CUDA tensors the kernels.
 """
@@ -891,8 +890,8 @@ def tree_mix_batch(dtax: DeviceTaxonomy, geom: HitGeometry, utaxa, ucounts,
 
 def snap_batch(snapping: torch.Tensor, taxa: torch.Tensor, default: int = 0):
     """Nearest snapped ancestors (a K5 1-D take); out-of-range and
-    unsnappable ids give ``default``. The pipeline snaps in K6 or
-    :func:`snap_taxa` instead."""
+    unsnappable ids give ``default``. The pipeline snaps in K6's or K9's
+    store instead."""
     take = gather.active()[0]
     size = snapping.shape[0]
     s = take(snapping, taxa.clamp(0, size - 1))
@@ -902,41 +901,14 @@ def snap_batch(snapping: torch.Tensor, taxa: torch.Tensor, default: int = 0):
 
 def snap_taxa_plain(snap: torch.Tensor, agg: torch.Tensor,
                     uvalid: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`snap_taxa`: :func:`snap_batch` with
-    default 0 (its take's plain version), then 1 where a group has no
-    valid hit."""
+    """The end of taxa2agg (umgap_tpu/pipeline/fused.py:122-124) as the
+    plain version of K6's and K9's store: snap (S,) int32
+    (``dtax.snap_valid``), agg (B,) int32, uvalid (B, K) bool -> taxon
+    (B,) int32: :func:`snap_batch` with default 0 (its take's plain
+    version), then 1 where a group has no valid hit."""
     with kernels.plain_versions():
         snapped = snap_batch(snap, agg, 0)
     return torch.where(uvalid.any(dim=-1), snapped, 1).to(torch.int32)
-
-
-def snap_taxa(snap: torch.Tensor, agg: torch.Tensor,
-              uvalid: torch.Tensor) -> torch.Tensor:
-    """The end of taxa2agg (umgap_tpu/pipeline/fused.py:122-124) for the
-    aggregators without K6: snap (S,) int32 (``dtax.snap_valid``), agg
-    (B,) int32, uvalid (B, K) bool -> taxon (B,) int32: 1 for a group
-    with no valid hit, else agg's nearest snapped ancestor, 0 for an id
-    out of range or unsnappable.
-
-    CPU tensors take :func:`snap_taxa_plain`; CUDA tensors launch
-    ``snap_taxa`` (``csrc/snap_taxa.cu``) once."""
-    if agg.is_cpu:
-        return snap_taxa_plain(snap, agg, uvalid)
-    if snap.dtype != torch.int32 or snap.dim() != 1 or not len(snap):
-        raise ValueError("snap_taxa: snap must be a non-empty (S,) int32 "
-                         "table")
-    if agg.dtype != torch.int32 or uvalid.dtype != torch.bool or \
-            uvalid.dim() != 2 or agg.shape != uvalid.shape[:1]:
-        raise ValueError(f"snap_taxa: agg {tuple(agg.shape)} {agg.dtype} "
-                         f"and uvalid {tuple(uvalid.shape)} {uvalid.dtype},"
-                         " expected (B,) int32 and (B, K) bool")
-    kernels.check_cuda("snap_taxa", agg, uvalid, snap)
-    B, K = uvalid.shape
-    out = torch.empty((B,), dtype=torch.int32, device=agg.device)
-    kernels.KS.launch(snap.data_ptr(), len(snap), agg.data_ptr(),
-                      uvalid.data_ptr(), B, K, out.data_ptr(),
-                      kernels.stream_of(agg))
-    return out
 
 
 # taxa2agg's device matrix (src/commands/taxa2agg.rs:111-140); the first
@@ -953,28 +925,23 @@ def aggregate_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
     """taxa2agg's dispatch over the full matrix
     (src/commands/taxa2agg.rs:111-140). ``rmq``/``lca*`` needs a
     :class:`~umgap_tpu_torch.agg.device_rmq.DeviceEuler`. The tree
-    aggregators run :func:`tree_aggregate_hits` on the hit lists. With
-    ``snap`` (a snap table) the result is snapped as taxa2agg ends: in
-    K6's store, or by :func:`snap_taxa` after the Euler/RMQ
-    aggregators. ``ordered`` for counts that are not integers (taxa2agg
-    -s): their sums then follow ``umgap_tpu``'s order, the plain
-    versions', on the card too."""
+    aggregators and rmq/mrtl run :func:`tree_aggregate_hits` (K6),
+    rmq/lca* and rmq/hybrid
+    :func:`~umgap_tpu_torch.agg.device_rmq.rmq_aggregate` (K9) on the hit
+    lists, one launch each. With ``snap`` (a snap table) the result is
+    snapped as taxa2agg ends, in the kernel's store. ``ordered`` for
+    counts that are not integers (taxa2agg -s): their sums then follow
+    ``umgap_tpu``'s order, the plain versions', on the card too."""
     key = (method, strategy)
     plain = kernels.plain_selected()
     if key in (("rmq", "lca*"), ("rmq", "hybrid")):
-        from .device_rmq import rmq_lca_batch, rmq_mix_batch
+        from .device_rmq import rmq_aggregate, rmq_aggregate_plain
 
-        if key == ("rmq", "lca*"):
-            if euler is None:
-                raise ValueError(
-                    "rmq/lca* needs a DeviceEuler (pass euler=...)")
-            agg = rmq_lca_batch(euler, utaxa, uvalid)
-        else:
-            agg = rmq_mix_batch(dtax, utaxa, ucounts, uvalid, factor,
-                                ordered)
-        if snap is None:
-            return agg
-        return (snap_taxa_plain if plain else snap_taxa)(snap, agg, uvalid)
+        if key == ("rmq", "lca*") and euler is None:
+            raise ValueError("rmq/lca* needs a DeviceEuler (pass euler=...)")
+        return (rmq_aggregate_plain if plain else rmq_aggregate)(
+            strategy, dtax, euler, utaxa, ucounts, uvalid, factor, snap,
+            ordered)
     if key not in GEOMETRY_AGGREGATIONS:
         raise ValueError(
             f"device aggregation does not support {method}/{strategy}")

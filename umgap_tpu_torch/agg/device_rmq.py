@@ -1,6 +1,13 @@
 """The Euler-tour aggregators on the device (a port of
 ``umgap_tpu.agg.device_rmq``): rmq/lca* and rmq/hybrid.
 
+On CUDA tensors :func:`rmq_aggregate` launches K9
+(``csrc/rmq_aggregate.cu``) once a batch: the aggregate of every group
+and taxa2agg's snap at its store. Its plain version,
+:func:`rmq_aggregate_plain`, is the PyTorch formulation below with
+:func:`~umgap_tpu_torch.agg.device.snap_taxa_plain` after it: the CPU's
+path and the reference K9 is held against on the card.
+
 ``rmq_lca_batch`` reproduces the reference's Euler-tour RMQ walk with
 join levels (src/rmq/lca.rs:60-90) position for position: the device
 holds the same tour, block-minimum and sparse tables as the host
@@ -14,12 +21,10 @@ in taxon space: pairwise LCAs from lineage agreement counts (a plain
 depth sum, by the tree's prefix property) and the closure's weights
 from two ancestor tests.
 
-Every table read goes through K5 (``ops/gather.py``): 1-D takes of the
-Euler tables and of the depths, row gathers of the ancestor table, the
-pairwise-LCA pick along the lanes, and the two ancestor tests, which the
-JAX package computes as one-hot MXU contractions, along the rows.
-Inside :func:`~umgap_tpu_torch.kernels.plain_versions` they call K5's
-plain versions on any device.
+Their table reads go through K5's plain versions when
+:func:`rmq_aggregate_plain` runs them (inside
+:func:`~umgap_tpu_torch.kernels.plain_versions`); called alone on CUDA
+tensors they take K5 (``ops/gather.py``).
 """
 
 from __future__ import annotations
@@ -27,9 +32,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import kernels
 from ..ops import gather
 from ..taxonomy import NONE, Taxonomy
-from .device import I32_MAX, DeviceTaxonomy, _argmax_tiebreak, fold_sum
+from .device import (
+    I32_MAX,
+    DeviceTaxonomy,
+    _argmax_tiebreak,
+    fold_sum,
+    snap_taxa_plain,
+)
 from .rmq import BLOCK, RMQ, _LOG2_BLOCK
 
 # 2^1 .. 2^30: floor(log2(v)) of an int32 v >= 1 is the count of these <= v
@@ -251,3 +263,130 @@ def rmq_mix_batch(dtax: DeviceTaxonomy, utaxa, ucounts, uvalid,
     f = torch.tensor(factor, dtype=torch.float32, device=utaxa.device)
     scores = lca_w * f + rtl_w * (1.0 - f)
     return _argmax_tiebreak(key, cdep, cvalid, scores)
+
+
+# K9 (csrc/rmq_aggregate.cu): its strategy codes; hybrid at K <= RMQ_WARP_K
+# (kWarpK) takes a warp a group, past it a block a group, at most
+# RMQ_BLOCK_GRID blocks a launch (kMixGrid); a team's lists take
+# rmq_mix_area_bytes(K) of shared memory up to RMQ_SMEM_MAX (kSmemMax),
+# else of a global scratch, one area a block, at most RMQ_SCRATCH_MAX
+# bytes of it (the launch then runs as many blocks as it holds areas)
+RMQ_STRATEGIES = {"hybrid": 0, "lca*": 1}
+RMQ_WARP_K = 64
+RMQ_BLOCK_GRID = 528
+RMQ_SMEM_MAX = 226 * 1024
+RMQ_SCRATCH_MAX = 1 << 28
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def rmq_mix_area_bytes(K: int) -> int:
+    """Bytes of one team's lists on K9's hybrid path for groups of K
+    slots (``mix_area_bytes``): ids, clamped ids, depths and counts, the
+    lineage order and the 3K candidates."""
+    return 16 * K + 4 * _pow2_at_least(K) + 4 * _pow2_at_least(3 * K)
+
+
+def rmq_scratch_blocks(B: int, K: int) -> int:
+    """Areas of K9's global scratch for B hybrid groups of K slots: 0
+    while a block's area fits its shared memory (and at K <=
+    RMQ_WARP_K), else one a block of the launch."""
+    area = rmq_mix_area_bytes(K)
+    if K <= RMQ_WARP_K or area <= RMQ_SMEM_MAX:
+        return 0
+    return min(B, RMQ_BLOCK_GRID, max(1, RMQ_SCRATCH_MAX // area))
+
+
+def rmq_aggregate_plain(strategy: str, dtax: DeviceTaxonomy, euler, utaxa,
+                        ucounts, uvalid, factor: float = 0.25, snap=None,
+                        ordered: bool = False):
+    """Plain version of :func:`rmq_aggregate`: :func:`rmq_lca_batch` or
+    :func:`rmq_mix_batch` on K5's plain versions, then, with ``snap``,
+    :func:`~umgap_tpu_torch.agg.device.snap_taxa_plain`."""
+    with kernels.plain_versions():
+        if strategy == "lca*":
+            agg = rmq_lca_batch(euler, utaxa, uvalid)
+        else:
+            agg = rmq_mix_batch(dtax, utaxa, ucounts, uvalid, factor,
+                                ordered)
+    return agg if snap is None else snap_taxa_plain(snap, agg, uvalid)
+
+
+def rmq_aggregate(strategy: str, dtax: DeviceTaxonomy, euler, utaxa,
+                  ucounts, uvalid, factor: float = 0.25, snap=None,
+                  ordered: bool = False):
+    """rmq/lca* (``strategy`` "lca*", over ``euler``, a
+    :class:`DeviceEuler`) or rmq/hybrid ("hybrid", over ``dtax.geom``,
+    with ``ucounts`` and ``factor``) on a batch's filtered hit lists:
+    utaxa (B, K) int32, ucounts (B, K) float32 (unused by lca*, may be
+    None), uvalid (B, K) bool. Returns (B,) int32, with ``snap`` (a snap
+    table, (S,) int32) the group's taxon as taxa2agg ends: 1 for a group
+    with no valid hit, else the aggregate's snap entry, 0 for an
+    aggregate out of range or unsnappable.
+
+    The inputs are checked on either device (ValueError). CPU tensors
+    then take :func:`rmq_aggregate_plain`; CUDA tensors launch K9 once.
+    Its sums add in slot order, the order ``ordered`` (counts that are
+    not integers, taxa2agg -s) asks of the plain version; integer counts
+    sum exactly in any order, so the launch is the same either way."""
+    if strategy not in RMQ_STRATEGIES:
+        raise ValueError(f"rmq_aggregate: no strategy {strategy!r}")
+    if utaxa.dim() != 2 or utaxa.shape[1] == 0:
+        raise ValueError("rmq_aggregate: empty hit lists")
+    B, K = utaxa.shape
+    want = [(uvalid, torch.bool), (utaxa, torch.int32)]
+    if strategy == "hybrid":
+        if ucounts is None:
+            raise ValueError("rmq_aggregate: hybrid needs ucounts")
+        want.append((ucounts, torch.float32))
+    for t, dt in want:
+        if t.dtype != dt or tuple(t.shape) != (B, K):
+            raise ValueError(f"rmq_aggregate: {tuple(t.shape)} {t.dtype}, "
+                             f"expected {(B, K)} {dt}")
+    if strategy == "lca*":
+        if euler is None:
+            raise ValueError("rmq_aggregate: lca* needs a DeviceEuler")
+        tables = [euler.first, euler.tour, euler.depths, euler.block_min,
+                  euler.sparse_flat]
+    else:
+        geom = dtax.geom
+        if geom.dim() != 2 or geom.shape[1] < 2:
+            raise ValueError("rmq_aggregate: empty lineages")
+        tables = [geom]
+    for t in tables:
+        if t.dtype != torch.int32 or not t.numel():
+            raise ValueError("rmq_aggregate: tables must be non-empty int32")
+    if snap is not None:
+        if snap.dtype != torch.int32 or snap.dim() != 1 or not len(snap):
+            raise ValueError("rmq_aggregate: snap must be a non-empty (S,) "
+                             "int32 table")
+        tables.append(snap)
+    if utaxa.is_cpu:
+        return rmq_aggregate_plain(strategy, dtax, euler, utaxa, ucounts,
+                                   uvalid, factor, snap, ordered)
+    kernels.check_cuda("rmq_aggregate", *(t for t, _ in want), *tables)
+    dev = utaxa.device
+    out = torch.empty((B,), dtype=torch.int32, device=dev)
+    blocks = rmq_scratch_blocks(B, K) if strategy == "hybrid" else 0
+    scratch = (torch.empty(blocks * rmq_mix_area_bytes(K), dtype=torch.uint8,
+                           device=dev) if blocks else None)
+    if strategy == "lca*":
+        e = euler
+        lca = (e.first.data_ptr(), e.first.shape[0], e.tour.data_ptr(),
+               e.depths.data_ptr(), e.block_min.data_ptr(),
+               e.block_min.shape[0], e.sparse_flat.data_ptr(), e.nlevels)
+        hyb = (0, 0, 0)
+    else:
+        lca = (0, 0, 0, 0, 0, 0, 0, 0)
+        hyb = (geom.data_ptr(), geom.shape[0], geom.shape[1])
+    kernels.K9.launch(
+        RMQ_STRATEGIES[strategy], utaxa.data_ptr(),
+        0 if ucounts is None or strategy == "lca*" else ucounts.data_ptr(),
+        uvalid.data_ptr(), B, K, *lca, *hyb, float(factor),
+        0 if snap is None else snap.data_ptr(),
+        0 if snap is None else len(snap),
+        0 if scratch is None else scratch.data_ptr(), blocks,
+        out.data_ptr(), kernels.stream_of(utaxa))
+    return out

@@ -14,9 +14,10 @@
 //   scripts/exp_probe_primitives.py:66 f3 and :96 f4 (axis 0, f4 over a
 //     grid of 64 tiles: the group dimension G here),
 //   scripts/exp_probe2.py:75, :87, :112 (axis 0).
-// On the port's path the generic modes are the row gather of the
-// taxonomy tables, the 1-D takes of snap_batch and of the Euler/RMQ
-// tables, and the two contractions of rmq_mix_batch. The epilogue
+// No path of the port launches it since K9 (csrc/rmq_aggregate.cu) took
+// the Euler/RMQ aggregators' table reads; it serves hit_geometry, the
+// 1-D take of snap_batch and rmq_*_batch called alone on the card. The
+// epilogue
 // replaces hit_geometry's one-hot MXU contraction and compare
 // (umgap_tpu/agg/device.py:170, the einsum at :191, the masks at :194):
 //   is_anc[b, i, j] = (lin[b, j, dep[b, i]] == utaxa[b, i])

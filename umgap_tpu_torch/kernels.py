@@ -187,12 +187,15 @@ K6 = Kernel(
     ":253 tree_mix_batch, with :170 hit_geometry's row gather and "
     "ancestry test and :308 snap_batch (+ "
     "umgap_tpu/pipeline/fused.py:122-124) fused in")
-# the snap of the aggregators without K6 (rmq/lca*, rmq/hybrid)
-KS = Kernel(
-    "snap_taxa", "snap_taxa.cu",
-    [P, I, P, P, I, I, P, P],
-    "umgap_tpu/agg/device.py:308 snap_batch + "
-    "umgap_tpu/pipeline/fused.py:122-124 (where over uvalid.any)")
+# the Euler/RMQ aggregators (rmq/lca*, rmq/hybrid) with the snap at the
+# store
+K9 = Kernel(
+    "rmq_aggregate", "rmq_aggregate.cu",
+    [I, P, P, P, I, I, P, I, P, P, P, I, P, I, P, I, I, F, P, I, P, I, P, P],
+    "umgap_tpu/agg/device_rmq.py:120 rmq_lca_batch (lax.scan :154 of "
+    "rmq_query_batch :85), :158 rmq_mix_batch (einsums :208, :216), "
+    "with umgap_tpu/agg/device.py:308 snap_batch + "
+    "umgap_tpu/pipeline/fused.py:122-124 fused in")
 
 K7 = Kernel(
     "reads_to_peptides", "reads_to_peptides.cu",
@@ -208,7 +211,7 @@ K8 = Kernel(
     "umgap_tpu/ops/lookup.py:265-283 _probe_dense (peptide branch); "
     "grouped: umgap_tpu/parallel/sharded.py:314-320 (kind peptide)")
 
-KERNELS = (K1, K1P, K2, K3, K3R, K3S, K3RS, K4, K4R, K5, K5A, K6, KS,
+KERNELS = (K1, K1P, K2, K3, K3R, K3S, K3RS, K4, K4R, K5, K5A, K6, K9,
            K7, K8)
 
 # build seconds and ptxas reports of the last build_all() in this process

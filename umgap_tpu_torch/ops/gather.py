@@ -6,10 +6,13 @@ experiments (``scripts/exp_pallas_dma.py:171``, ``exp_pallas_gather.py:47,
 :62, :77``, ``exp_dyngather.py:37``, ``exp_probe_primitives.py:66, :96``,
 ``exp_probe2.py:75, :87, :112``): ``take_along_axis`` along the rows
 (each lane picks a row) or along the lanes of a tile, and a 1-D ``take``.
-On the port's path it carries snap's take and the Euler/RMQ tables'
-reads (the tree aggregators read their rows in K6); ``hit_geometry``
+No path of the port launches it: the tree aggregators read their rows
+in K6, the Euler/RMQ aggregators their tables in K9, and the
+plain versions take this module's plain functions. ``hit_geometry``
 uses its row gather and its epilogue :func:`ancestry`, which writes the
-bool incidence with the compare and masks fused in. Its bound is bytes: the
+bool incidence with the compare and masks fused in; ``snap_batch`` and
+``rmq_lca_batch`` / ``rmq_mix_batch`` called alone on the card take its
+1-D take and its modes. Its bound is bytes: the
 part of the tile it reads, once, plus the index tensor as stored and the
 output.
 

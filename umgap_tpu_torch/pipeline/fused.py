@@ -13,8 +13,9 @@ epilogue: the kept taxa, with no keep mask and no select pass; with
 K4 dedup_counts with the lower-bound filter at its stores -> the
 aggregator with snap: one K6 tree_aggregate launch for tree/lca*,
 tree/hybrid and rmq/mrtl, which reads the taxonomy rows of the valid
-hits itself and writes the snapped taxon; the Euler/RMQ aggregators
-around K5 for rmq/lca* and rmq/hybrid, then one snap_taxa launch. On
+hits itself and writes the snapped taxon; one K9 rmq_aggregate launch
+for rmq/lca* and rmq/hybrid, which walks or closes the valid hits over
+the Euler tables or the taxonomy rows and snaps at its store. On
 the CPU every stage runs its plain version. ``run_stages(..., plain=True)``
 composes the plain versions on any device (inside
 :func:`~umgap_tpu_torch.kernels.plain_versions`): it is the reference

@@ -8,7 +8,7 @@ Each read group carries up to E predicted genes as lanes, where the
 9-mer pipeline has 6 frames an end. On CUDA one batch is
 K1P proteins_to_kmers (``csrc/reads_to_kmers.cu``'s protein entry) ->
 K2 probe_kmer -> K3 seed-extend (hits) -> K4 dedup with the lower-bound
-filter -> K6 with snap (K5 and snap_taxa for the Euler/RMQ aggregators),
+filter -> K6 with snap (K9 with snap for the Euler/RMQ aggregators),
 the stages of :mod:`.fused` after translation; on the CPU every stage
 runs its plain version. The tryptic presets digest the proteins on the
 host (prot2tryp2lca, exact) and probe and aggregate on the device: K8,

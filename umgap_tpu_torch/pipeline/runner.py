@@ -41,14 +41,14 @@ def wide_batch_rows(device_type: str, method: str, strategy: str, K: int,
                     plain: bool = False) -> int:
     """Groups a batch of the wide program at k_max = K. Where the step
     builds (B, K, K) aggregation tensors (the plain versions, on the CPU
-    or, with ``plain``, on the card, and rmq/hybrid on the card,
-    ``agg/device_rmq.py`` ``rmq_mix_batch``), WIDE_STEP_BYTES bounds
-    their B * K * K; the other steps on the card allocate per row what
-    grows with K, K4's hits and its (id, count, valid) output
-    (``dedup_counts``) and K6's block list (``tree_list_bytes``), which
-    bound B the same way. At most WIDE_BATCH either way."""
-    if device_type != "cuda" or plain or (method, strategy) == ("rmq",
-                                                                "hybrid"):
+    or, with ``plain``, on the card), WIDE_STEP_BYTES bounds their
+    B * K * K; the steps on the card allocate per row what grows with K,
+    K4's hits and its (id, count, valid) output (``dedup_counts``) and
+    K6's block list (``tree_list_bytes``), which bound B the same way;
+    K9's hybrid lists take a block's shared memory, or a scratch of at
+    most ``RMQ_SCRATCH_MAX`` bytes whatever B. At most WIDE_BATCH either
+    way."""
+    if device_type != "cuda" or plain:
         per_row = K * K
     else:
         per_row = 4 * K + 9 * K + devagg.tree_list_bytes(K)

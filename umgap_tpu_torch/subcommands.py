@@ -22,7 +22,7 @@ without ``--device cpu`` they exit 1 and say how to ask for the CPU):
   scored entries under ``-r``);
 - ``taxa2agg``: (B, N) rows a chunk through K4 (weights added in input
   order under ``-s``, the lower bound at its stores), then K6 with the
-  snap table, or the Euler/RMQ aggregators (K5) and ``snap_taxa``; a
+  snap table, or K9 for the Euler/RMQ aggregators with it; a
   row with more than ``TAXA2AGG_KMAX`` distinct taxa runs again at its
   exact width.
 
@@ -553,7 +553,7 @@ def cmd_prot2tryp2lca(args, stdin, stdout):
 
 
 # ---------------------------------------------------------------------- #
-# taxa2agg: K4 -> K6 (K5 and snap_taxa for the Euler/RMQ aggregators)
+# taxa2agg: K4 -> K6 (K9 for the Euler/RMQ aggregators)
 # ---------------------------------------------------------------------- #
 
 def _f32_at_least(x: float) -> float:
@@ -699,7 +699,7 @@ class _Taxa2Agg:
                 out[idx], any_valid[idx] = res, anyv
         bad = np.flatnonzero((out == 0) & any_valid)
         if len(bad) and not self.tax.present[0]:
-            # K6 / snap_taxa write 0 for an aggregate with no snapped
+            # K6 / K9 write 0 for an aggregate with no snapped
             # ancestor: name it as the host does
             i = int(bad[0])
             K = max(TAXA2AGG_KMAX, int(nuniq[i]))
